@@ -1,0 +1,220 @@
+"""The port's kernel modules against the reference package on the CPU.
+
+The plain versions of the partition-histogram and stable-partition
+kernels must equal the Pallas kernels in interpret mode bit for bit;
+key encoding must equal the reference's word for word; the radix loop
+must equal numpy's stable sorts. The CUDA kernels themselves run only on
+a card: ``tests/test_torch_gpu.py`` holds them against their plain
+versions there.
+"""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from thrill_tpu.core import keys as jkeys
+from thrill_tpu.core import pallas_kernels as jpk
+from thrill_tpu.core import pallas_sort as jps
+from thrill_tpu_torch.core import device_sort as tds
+from thrill_tpu_torch.core import keys as tkeys
+from thrill_tpu_torch.core import pallas_kernels as tpk
+from thrill_tpu_torch.core import pallas_sort as tps
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# -- partition histogram (kernel B1) ----------------------------------------
+
+@pytest.mark.parametrize("n,bins", [(10, 4), (512, 8), (2000, 17),
+                                    (4096, 256)])
+def test_histogram_plain_matches_pallas(n, bins):
+    rng = np.random.default_rng(n)
+    dest = rng.integers(0, bins, n).astype(np.int32)
+    want = np.asarray(jpk.partition_histogram_pallas(
+        jnp.asarray(dest), bins, interpret=True))
+    got = tpk.partition_histogram_plain(_t(dest), bins)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("dest,bins", [
+    ([0, 1, 1, 7, 7, 7, -1], 4),           # 7 = "W" sentinel, -1 padding
+    ([], 4),                               # empty input
+    ([-5, 300, 2, 2, 255, 256], 256),      # out of range both sides
+])
+def test_histogram_plain_edge_cases_match_pallas(dest, bins):
+    d = np.asarray(dest, dtype=np.int32)
+    want = np.asarray(jpk.partition_histogram_pallas(
+        jnp.asarray(d), bins, interpret=True))
+    assert np.array_equal(tpk.partition_histogram_plain(_t(d), bins).numpy(),
+                          want)
+    # the wrapper takes the plain version for a CPU tensor
+    assert np.array_equal(tpk.partition_histogram(_t(d), bins).numpy(), want)
+
+
+def test_histogram_batched_rows_match_pallas():
+    rng = np.random.default_rng(5)
+    W, n, bins = 4, 1500, 5
+    dest = rng.integers(-1, bins + 1, (W, n)).astype(np.int32)
+    got = tpk.partition_histogram(_t(dest), bins).numpy()
+    assert got.shape == (W, bins)
+    for w in range(W):
+        want = np.asarray(jpk.partition_histogram_pallas(
+            jnp.asarray(dest[w]), bins, interpret=True))
+        assert np.array_equal(got[w], want)
+
+
+# -- stable partition offsets (kernel B2) -----------------------------------
+
+@pytest.mark.parametrize("n,B", [(1, 1), (513, 3), (1000, 8), (5000, 256),
+                                 (4096, 100)])
+def test_offsets_plain_matches_pallas(n, B):
+    rng = np.random.default_rng(n)
+    dest = rng.integers(0, B, size=n).astype(np.int32)
+    want = np.asarray(jps.stable_partition_offsets_pallas(
+        jnp.asarray(dest), B, interpret=True))
+    got = tps.stable_partition_offsets_plain(_t(dest), B)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    perm = np.zeros(n, np.int64)
+    perm[got.numpy()] = np.arange(n)
+    assert np.array_equal(perm, np.argsort(dest, kind="stable"))
+
+
+@pytest.mark.parametrize("dest,B", [
+    ([5, -1, 2, 7, 2, 99], 8),             # sentinels land stably last
+    ([], 256),                             # empty input
+    ([3, 3, 3, 3], 256),                   # one digit
+])
+def test_offsets_plain_edge_cases_match_pallas(dest, B):
+    d = np.asarray(dest, dtype=np.int32)
+    want = np.asarray(jps.stable_partition_offsets_pallas(
+        jnp.asarray(d), B, interpret=True))
+    got = tps.stable_partition_offsets(_t(d), B).numpy()
+    assert np.array_equal(got, want)
+    assert sorted(got.tolist()) == list(range(len(dest)))
+
+
+def test_offsets_batched_rows_match_pallas():
+    rng = np.random.default_rng(11)
+    W, n, B = 2, 3000, 256
+    dest = rng.integers(-3, B + 3, (W, n)).astype(np.int32)
+    got = tps.stable_partition_offsets(_t(dest), B).numpy()
+    for w in range(W):
+        want = np.asarray(jps.stable_partition_offsets_pallas(
+            jnp.asarray(dest[w]), B, interpret=True))
+        assert np.array_equal(got[w], want)
+
+
+def test_wrappers_refuse_other_devices_and_inputs():
+    meta = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tpk.partition_histogram(meta, 4)
+    with pytest.raises(ValueError):
+        tps.stable_partition_offsets(meta, 4)
+    # the kernels' own gates refuse before touching a device
+    with pytest.raises(ValueError):
+        tpk._launch(torch.zeros(8, dtype=torch.int64), 4)
+    with pytest.raises(ValueError):
+        tpk._launch(torch.zeros(8, dtype=torch.int32), tpk.MAX_BINS + 1)
+    with pytest.raises(ValueError):
+        tps._launch(torch.zeros(8, dtype=torch.int32), tps.MAX_BINS + 1)
+    with pytest.raises(ValueError):
+        tps._launch(torch.zeros((2, 8), dtype=torch.int32)[:, ::2], 4)
+
+
+# -- key encoding -----------------------------------------------------------
+
+def _key_cases():
+    rng = np.random.default_rng(3)
+    n = 257
+    fl = np.array([-np.inf, -1.5, -0.0, 0.0, 1e-300, 3.0, np.inf, np.nan])
+    return [
+        ("bytes10", rng.integers(0, 256, (n, 10)).astype(np.uint8)),
+        ("bytes3", rng.integers(0, 256, (n, 3)).astype(np.uint8)),
+        ("bytes16", rng.integers(0, 256, (n, 16)).astype(np.uint8)),
+        ("int32", rng.integers(-2**31, 2**31, n).astype(np.int32)),
+        ("int64", np.array([-2**63, -1, 0, 1, 2**63 - 1], np.int64)),
+        ("bool", rng.integers(0, 2, n).astype(bool)),
+        ("uint8", rng.integers(0, 256, n).astype(np.uint8)),
+        ("uint16", rng.integers(0, 2**16, n).astype(np.uint16)),
+        ("uint32", rng.integers(0, 2**32, n).astype(np.uint32)),
+        ("float32", fl.astype(np.float32)),
+        ("float64", np.concatenate([fl, rng.normal(size=n)])),
+    ]
+
+
+@pytest.mark.parametrize("name,leaf", _key_cases(),
+                         ids=[c[0] for c in _key_cases()])
+def test_encode_key_words_matches_reference(name, leaf):
+    want = [np.asarray(w).view(np.int64)
+            for w in jkeys.encode_key_words(jnp.asarray(leaf))]
+    got = [w.numpy() for w in tkeys.encode_key_words(_t(leaf))]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_encode_key_tree_orders_leaves_like_reference():
+    rng = np.random.default_rng(4)
+    tree = {"b": rng.integers(-9, 9, 50).astype(np.int64),
+            "a": rng.normal(size=50),
+            "c": (rng.integers(0, 256, (50, 9)).astype(np.uint8),)}
+    want = [np.asarray(w).view(np.int64) for w in jkeys.encode_key_words(
+        {k: (tuple(jnp.asarray(x) for x in v) if isinstance(v, tuple)
+             else jnp.asarray(v)) for k, v in tree.items()})]
+    got = [w.numpy() for w in tkeys.encode_key_words(
+        {k: (tuple(_t(x) for x in v) if isinstance(v, tuple) else _t(v))
+         for k, v in tree.items()})]
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+# -- radix loop and the argsort engines -------------------------------------
+
+def test_radix_argsort_matches_lexsort():
+    rng = np.random.default_rng(0)
+    n = 5000
+    w0 = rng.integers(0, 1 << 63, size=n).astype(np.uint64)
+    w0[::3] |= np.uint64(1 << 63)             # high bit: unsigned order
+    w1 = (rng.integers(0, 1 << 16, size=n).astype(np.uint64)
+          << np.uint64(48))
+    passes = []
+    perm = tps.radix_argsort_device([_t(w0.view(np.int64)),
+                                     _t(w1.view(np.int64))], passes=passes)
+    assert np.array_equal(perm.numpy(), np.lexsort((w1, w0)))
+    # 8 digits of w0 and the 2 high digits of w1 vary; the rest skip
+    assert passes == [(10, 16)]
+
+
+def test_radix_argsort_stability():
+    rng = np.random.default_rng(1)
+    wd = rng.integers(0, 4, size=5000).astype(np.int64)
+    perm = tps.radix_argsort_device([_t(wd)], word_bits=[8])
+    assert np.array_equal(perm.numpy(), np.argsort(wd, kind="stable"))
+
+
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_argsort_engines_agree_per_worker(W):
+    rng = np.random.default_rng(W)
+    n = 1200
+    words = [rng.integers(-2**63, 2**63, (W, n), dtype=np.int64),
+             rng.integers(0, 3, (W, n)).astype(np.int64) << 62]
+    words[0][:, ::4] = 7                      # ties broken by word 1
+    tw = [_t(w) for w in words]
+    radix = tps.radix_argsort_device(tw).numpy()
+    plain = tds.argsort_words(tw).numpy()      # CPU: the plain engine
+    assert np.array_equal(radix, plain)
+    for w in range(W):
+        u = [x[w].view(np.uint64) for x in words]
+        assert np.array_equal(plain[w], np.lexsort((u[1], u[0])))
+
+
+def test_radix_argsort_empty_rows():
+    perm = tps.radix_argsort_device([torch.zeros((2, 0), dtype=torch.int64)])
+    assert perm.shape == (2, 0)

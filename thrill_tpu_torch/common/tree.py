@@ -1,0 +1,54 @@
+"""Minimal pytrees over dicts, tuples and lists.
+
+Leaf order follows the reference package's pytrees: dict children in
+sorted key order, sequences in order. The order matters where it is
+observable, above all in the key words of a Sort whose key function
+returns several fields.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Tuple
+
+LEAF = None          # the treedef of a single leaf
+
+
+def flatten(tree: Any) -> Tuple[List[Any], Any]:
+    """(leaves, treedef) of ``tree``."""
+    leaves: List[Any] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            keys = sorted(t)
+            return ("dict", tuple(keys), tuple(walk(t[k]) for k in keys))
+        if isinstance(t, (tuple, list)):
+            return (type(t).__name__, len(t), tuple(walk(c) for c in t))
+        leaves.append(t)
+        return LEAF
+
+    return leaves, walk(tree)
+
+
+def unflatten(treedef: Any, leaves: List[Any]) -> Any:
+    it = iter(leaves)
+
+    def build(td):
+        if td is LEAF:
+            return next(it)
+        kind, meta, kids = td
+        vals = [build(k) for k in kids]
+        if kind == "dict":
+            return dict(zip(meta, vals))
+        return tuple(vals) if kind == "tuple" else list(vals)
+
+    return build(treedef)
+
+
+def leaves(tree: Any) -> List[Any]:
+    return flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    lv, td = flatten(tree)
+    others = [flatten(r)[0] for r in rest]
+    return unflatten(td, [fn(*xs) for xs in zip(lv, *others)])

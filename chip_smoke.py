@@ -16,7 +16,20 @@ Phases, each fatal on failure:
      read just after each run; the output must equal np.lexsort's order
      of the same records (ties by global index); warm repeats give the
      Sort's time and, at W=4, a torch.profiler table of device time;
-  4. print the card, the kernels line and, last, the device line.
+  4. WordCount, Distribute({"w", "c"}).ReduceByKey(w, FieldReduce({"w":
+     "first", "c": "sum"})) with the default dup_detection=None, of 16-byte
+     zero-padded words drawn with Zipf weights 1/rank from a vocabulary of
+     2^20 words: W=4 x 2^22 words (the auto verdict must switch duplicate
+     detection on), then W=1 x 2^22; the counts must equal np.bincount of
+     the word ids exactly; warm repeats and, at W=4, a profiler table;
+  5. the PageRank contribution step at W=4: 2^24 edges {"d", "v"} with
+     Zipf targets over 2^22 pages through ReduceToIndex(d, FieldReduce({
+     "d": "first", "v": "sum"}), 2^22); "v" must agree with np.bincount(d,
+     weights=v) in f64 within 1e-4 of each page's sum of |v| plus 1e-6;
+     warm repeats and a profiler table;
+  6. time segment_sum and presence_fill on the inputs the W=4 PageRank and
+     WordCount runs gave them, and print the card, the kernels line and,
+     last, the device line.
 
 Exits non-zero without a result line when no CUDA device is present or
 the port's sources are not beside this script.
@@ -34,6 +47,11 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12       # H100 SXM non-tensor 32-bit rate (data sheet)
 PER_WORKER = 1 << 22
 SEED = 20261016
+VOCAB = 1 << 20                # WordCount vocabulary
+PAGES = 1 << 22                # PageRank pages
+SEG_RTOL = 1e-4                # f32 sum vs plain/f64: of the segment's sum|v|
+SEG_ATOL = 1e-6
+DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
@@ -70,7 +88,7 @@ def bound(nbytes: float, ops: float):
 
 def check_kernels(torch, np, pk, ps):
     """Kernel vs plain version, bit for bit, on the card."""
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
 
     def ids(shape, lo, hi):
@@ -128,13 +146,103 @@ def check_kernels(torch, np, pk, ps):
         errs[name] = worst
         log(f"check {name}: {len(cases)} cases bit-equal to the plain "
             f"version")
+    errs["segment_sum"] = check_segment_sum(torch, np, pk, rng)
+    errs["presence_fill"] = check_presence_fill(torch, np, pk, rng)
     return errs
+
+
+def zipf_ids(torch, n: int, vocab: int, gen):
+    """``n`` ids in [0, vocab) drawn on the card with weights 1/rank."""
+    dev = torch.device(DEVICE)
+    cdf = torch.cumsum(1.0 / torch.arange(1, vocab + 1, dtype=torch.float64,
+                                          device=dev), 0)
+    u = torch.rand(n, dtype=torch.float64, device=dev, generator=gen)
+    return torch.searchsorted(cdf / cdf[-1], u).clamp_(max=vocab - 1)
+
+
+def seg_err(torch, pk, ids, vals, segs, got):
+    """max |kernel - plain| and whether every segment is within
+    SEG_RTOL of its sum of |v| plus SEG_ATOL."""
+    want = pk.segment_sum_plain(ids, vals, segs)
+    scale = pk.segment_sum_plain(ids, vals.abs(), segs)
+    diff = (got - want).abs()
+    ok = bool((diff <= SEG_RTOL * scale + SEG_ATOL).all())
+    return (float(diff.max()) if diff.numel() else 0.0), ok
+
+
+def check_segment_sum(torch, np, pk, rng):
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    W, n = 4, PER_WORKER
+
+    def f32(shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def ids(shape, lo, hi):
+        return torch.as_tensor(rng.integers(lo, hi, size=shape,
+                                            dtype=np.int32), device=dev)
+
+    cases = [
+        ("4096 segments", ids((W, n), 0, 4096), f32((W, n)), 4096),
+        ("2^20 zipf segments", zipf_ids(torch, W * n, 1 << 20, gen).to(
+            torch.int32).reshape(W, n), f32((W, n)), 1 << 20),
+        ("empty rows", ids((W, 0), 0, 1), f32((W, 0)), 4096),
+        ("all equal, shared", torch.full((2, 1 << 16), 5, dtype=torch.int32,
+                                         device=dev), f32((2, 1 << 16)), 16),
+        ("all equal, global", torch.full((2, 1 << 16), 7, dtype=torch.int32,
+                                         device=dev), f32((2, 1 << 16)),
+         1 << 20),
+        ("ids -1 and >= S", ids((3, 70001), -1, 5000), f32((3, 70001)),
+         4096),
+        ("ragged", ids((3, 4097), 0, 300), f32((3, 4097)), 300),
+        ("empty", ids((0,), 0, 1), f32((0,)), 8),
+    ]
+    worst = 0.0
+    for label, d, v, segs in cases:
+        got = pk.segment_sum(d, v, segs)
+        torch.cuda.synchronize()
+        err, ok = seg_err(torch, pk, d, v, segs, got)
+        if not ok:
+            raise AssertionError(f"segment_sum disagrees with its plain "
+                                 f"version on '{label}': max |diff| {err}")
+        worst = max(worst, err)
+    log(f"check segment_sum: {len(cases)} cases within {SEG_RTOL} of each "
+        f"segment's sum |v| + {SEG_ATOL} of the plain version; max |diff| "
+        f"{worst}")
+    return worst
+
+
+def check_presence_fill(torch, np, pk, rng):
+    dev = torch.device(DEVICE)
+    W, n = 4, PER_WORKER
+
+    def case(shape, lo, hi):
+        return (torch.as_tensor(rng.integers(lo, hi, size=shape,
+                                             dtype=np.int32), device=dev),
+                torch.as_tensor(rng.random(shape) < 0.7, device=dev))
+
+    cases = [("2^17 registers", *case((W, n), 0, 1 << 17), 1 << 17),
+             ("4096 registers (the TPU kernel's domain)",
+              *case((W, n), 0, 4096), 4096),
+             ("sentinels", *case((3, 70001), -3, 1 << 17), 100000),
+             ("empty", *case((0,), 0, 1), 8),
+             ("empty rows", *case((W, 0), 0, 1), 8)]
+    for label, h, valid, regs in cases:
+        got = pk.presence_fill(h, valid, regs)
+        want = pk.presence_fill_plain(h, valid, regs)
+        torch.cuda.synchronize()
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"presence_fill disagrees with its plain "
+                                 f"version on '{label}'")
+    log(f"check presence_fill: {len(cases)} cases bit-equal to the plain "
+        f"version")
+    return 0
 
 
 def time_kernels(torch, np, pk, ps):
     """Kernel, plain version and library call at the main path's shape
     (W=4 rows of 2^22 radix digits)."""
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 1)
     R, n, bins = 4, PER_WORKER, 256
     d = torch.as_tensor(rng.integers(0, bins, size=(R, n), dtype=np.int32),
@@ -143,8 +251,12 @@ def time_kernels(torch, np, pk, ps):
     ms = cuda_ms(torch, lambda: pk.partition_histogram(d, bins))
     plain = cuda_ms(torch, lambda: pk.partition_histogram_plain(d, bins))
     b, by = bound(R * n * 4 + R * bins * 4, R * n)
+    # the library call: one bincount of the row-offset ids
+    flat = (d.to(torch.int64) + torch.arange(R, device=dev)[:, None] * bins
+            ).reshape(-1)
+    lib = cuda_ms(torch, lambda: torch.bincount(flat, minlength=R * bins))
     rows["partition_histogram"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                       bound_by=by, library_ms=None)
+                                       bound_by=by, library_ms=lib)
     ms = cuda_ms(torch, lambda: ps.stable_partition_offsets(d, bins))
     plain = cuda_ms(torch, lambda: ps.stable_partition_offsets_plain(d, bins))
     lib = cuda_ms(torch, lambda: torch.sort(d, dim=1, stable=True))
@@ -162,7 +274,7 @@ def time_argsort(torch, np):
     engine (both kernels) against the plain engine (stable torch.argsort
     per word) and one stable torch.sort of the most significant word."""
     from thrill_tpu_torch.core import device_sort, keys
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 2)
     R, n = 4, PER_WORKER
     key = torch.as_tensor(rng.integers(0, 256, size=(R * n, 10),
@@ -198,10 +310,9 @@ def terasort(torch, np, tt, W: int, pk, ps):
     recs = {"key": np.ascontiguousarray(rec[:, :10]),
             "value": np.ascontiguousarray(rec[:, 10:])}
     del rec
-    ctx = tt.Context(num_workers=W)
+    ctx = tt.Context(num_workers=W, device=DEVICE)
     torch.cuda.synchronize()
-    pk.partition_histogram.launches = 0
-    ps.stable_partition_offsets.launches = 0
+    zero_launches(pk, ps)
     t0 = time.perf_counter()
     d = ctx.Distribute(recs).Sort(key_fn=lambda r: r["key"]).Keep()
     size = d.Size()
@@ -238,7 +349,7 @@ def terasort(torch, np, tt, W: int, pk, ps):
     # warm repeat, data already resident: the Sort alone
     warm = []
     for _ in range(2):
-        ctx2 = tt.Context(num_workers=W)
+        ctx2 = tt.Context(num_workers=W, device=DEVICE)
         src = ctx2.Distribute(recs).Keep()
         src.Execute()
         torch.cuda.synchronize()
@@ -251,7 +362,7 @@ def terasort(torch, np, tt, W: int, pk, ps):
         f"{[round(s, 6) for s in warm]} (host clock after synchronize)")
     if W > 1:
         from torch.profiler import ProfilerActivity, profile as tprof
-        ctx3 = tt.Context(num_workers=W)
+        ctx3 = tt.Context(num_workers=W, device=DEVICE)
         src = ctx3.Distribute(recs).Keep()
         src.Execute()
         torch.cuda.synchronize()
@@ -264,6 +375,270 @@ def terasort(torch, np, tt, W: int, pk, ps):
     return launches
 
 
+class Capture:
+    """Wraps a kernel wrapper where a module calls it: the call goes
+    through unchanged (and counts its launch), its arguments are kept."""
+
+    def __init__(self, module, name: str) -> None:
+        self.module, self.name = module, name
+        self.inner = getattr(module, name)
+        self.args = None
+
+    def __enter__(self):
+        def call(*args):
+            self.args = args
+            return self.inner(*args)
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.module, self.name, self.inner)
+
+
+def zero_launches(pk, ps) -> None:
+    for k in (pk.partition_histogram, ps.stable_partition_offsets,
+              pk.segment_sum, pk.presence_fill):
+        k.launches = 0
+
+
+def read_launches(pk, ps) -> dict:
+    return {"partition_histogram": pk.partition_histogram.launches,
+            "stable_partition_offsets": ps.stable_partition_offsets.launches,
+            "segment_sum": pk.segment_sum.launches,
+            "presence_fill": pk.presence_fill.launches}
+
+
+def vocabulary(torch, gen):
+    """VOCAB distinct 16-byte zero-padded words: letters 0..4 spell the
+    word's id in base 26 (so every word is distinct and names its id),
+    then random letters up to a random length in [5, 16]."""
+    dev = torch.device(DEVICE)
+    ids = torch.arange(VOCAB, device=dev)
+    voc = torch.randint(97, 123, (VOCAB, 16), device=dev, generator=gen,
+                        dtype=torch.int64)
+    for k in range(5):
+        voc[:, k] = (ids // 26 ** k) % 26 + 97
+    lens = torch.randint(5, 17, (VOCAB, 1), device=dev, generator=gen)
+    voc[torch.arange(16, device=dev)[None, :] >= lens] = 0
+    return voc.to(torch.uint8)
+
+
+def word_ids(np, w: np.ndarray) -> np.ndarray:
+    """Word ids spelled by letters 0..4 of ``[K, 16]`` word rows."""
+    d = w[:, :5].astype(np.int64) - 97
+    return (d * (26 ** np.arange(5))[None, :]).sum(axis=1)
+
+
+def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod):
+    """One WordCount of W x 2^22 words through the port's API; returns
+    the kernel launches of the checked run and the presence_fill inputs
+    it made (W > 1)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10 + W)
+    n = W * PER_WORKER
+    voc = vocabulary(torch, gen)
+    ids = zipf_ids(torch, n, VOCAB, gen)
+    recs = {"w": voc[ids], "c": torch.ones(n, dtype=torch.int64,
+                                           device=DEVICE)}
+    want = np.bincount(ids.cpu().numpy(), minlength=VOCAB)
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+
+    def run(ctx, src):
+        return src.ReduceByKey(lambda t: t["w"], red).AllGatherArrays()
+
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    src = ctx.Distribute(recs).Keep()
+    src.Execute()
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    with Capture(reduce_mod, "presence_fill") as cap:
+        t0 = time.perf_counter()
+        out = run(ctx, src)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = read_launches(pk, ps)
+    verdicts = list(ctx.mesh_exec.prune_verdicts.values())
+    need = ["partition_histogram", "stable_partition_offsets"]
+    if W > 1:
+        need.append("presence_fill")
+        if verdicts != [True]:
+            raise AssertionError(f"W={W} WordCount: the dup-detection "
+                                 f"verdict is {verdicts}, expected on")
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the W={W} "
+                                 f"WordCount path")
+    w, c = out["w"].cpu().numpy(), out["c"].cpu().numpy()
+    got_ids = word_ids(np, w)
+    voc_h = voc.cpu().numpy()
+    present = np.flatnonzero(want)
+    if (len(got_ids) != len(present)
+            or not np.array_equal(np.sort(got_ids), present)
+            or not np.array_equal(c, want[got_ids])
+            or not np.array_equal(w, voc_h[got_ids])):
+        raise AssertionError(f"W={W} WordCount differs from np.bincount")
+    log(f"wordcount W={W} n={n}: {len(present)} distinct words, equal to "
+        f"np.bincount; {secs:.3f} s (first run, host clock after "
+        f"synchronize, data resident); launches {json.dumps(launches)}; "
+        f"dup verdicts {verdicts}; exchanged items "
+        f"{ctx.mesh_exec.stats_items_moved}")
+    del out
+    warm = []
+    for _ in range(2):
+        ctx2 = tt.Context(num_workers=W, device=DEVICE)
+        src2 = ctx2.Distribute(recs).Keep()
+        src2.Execute()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(ctx2, src2)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        del res
+    log(f"wordcount W={W} warm ReduceByKey+AllGatherArrays seconds: "
+        f"{[round(x, 6) for x in warm]} (host clock after synchronize)")
+    if W > 1:
+        from torch.profiler import ProfilerActivity, profile as tprof
+        ctx3 = tt.Context(num_workers=W, device=DEVICE)
+        src3 = ctx3.Distribute(recs).Keep()
+        src3.Execute()
+        torch.cuda.synchronize()
+        with tprof(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as prof:
+            run(ctx3, src3)
+            torch.cuda.synchronize()
+        log(prof.key_averages().table(sort_by="cuda_time_total",
+                                      row_limit=25))
+    return launches, cap.args
+
+
+def pagerank_step(torch, np, tt, pk, ps, reduce_mod):
+    """The PageRank contribution step at W=4: 2^24 edges with Zipf
+    targets into 2^22 pages. Returns the launches of the checked run and
+    the segment_sum inputs it made."""
+    W = 4
+    n = W * PER_WORKER
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    d = zipf_ids(torch, n, PAGES, gen)
+    v = torch.rand(n, device=DEVICE, generator=gen)
+    edges = {"d": d, "v": v}
+    red = tt.FieldReduce({"d": "first", "v": "sum"})
+
+    def run(src):
+        return src.ReduceToIndex(lambda c: c["d"], red, PAGES,
+                                 neutral={"d": 0, "v": 0.0}).AllGatherArrays()
+
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    src = ctx.Distribute(edges).Keep()
+    src.Execute()
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    with Capture(reduce_mod, "segment_sum") as cap:
+        t0 = time.perf_counter()
+        out = run(src)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    launches = read_launches(pk, ps)
+    for name in ("segment_sum", "partition_histogram"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 f"ReduceToIndex path")
+    dh, vh = d.cpu().numpy(), v.cpu().numpy().astype(np.float64)
+    want = np.bincount(dh, weights=vh, minlength=PAGES)
+    scale = want        # v >= 0: each page's sum of |v|
+    got_v = out["v"].cpu().numpy().astype(np.float64)
+    got_d = out["d"].cpu().numpy()
+    hit = np.bincount(dh, minlength=PAGES) > 0
+    err = np.abs(got_v - want)
+    if (got_v.shape != (PAGES,) or not np.isfinite(got_v).all()
+            or not (err <= SEG_RTOL * scale + SEG_ATOL).all()
+            or not np.array_equal(got_d, np.where(hit, np.arange(PAGES), 0))):
+        raise AssertionError(f"ReduceToIndex differs from np.bincount: max "
+                             f"|diff| {err.max()}")
+    log(f"pagerank step W={W} edges={n} pages={PAGES}: within {SEG_RTOL} "
+        f"of np.bincount in f64 (max |diff| {err.max():.6g}, largest page "
+        f"sum {want.max():.6g}); {secs:.3f} s (first run, host clock after "
+        f"synchronize, data resident); launches {json.dumps(launches)}; "
+        f"exchanged items {ctx.mesh_exec.stats_items_moved}")
+    del out
+    warm = []
+    for _ in range(2):
+        ctx2 = tt.Context(num_workers=W, device=DEVICE)
+        src2 = ctx2.Distribute(edges).Keep()
+        src2.Execute()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run(src2)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        del res
+    log(f"pagerank step W={W} warm ReduceToIndex+AllGatherArrays seconds: "
+        f"{[round(x, 6) for x in warm]} (host clock after synchronize)")
+    from torch.profiler import ProfilerActivity, profile as tprof
+    ctx3 = tt.Context(num_workers=W, device=DEVICE)
+    src3 = ctx3.Distribute(edges).Keep()
+    src3.Execute()
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        run(src3)
+        torch.cuda.synchronize()
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    return launches, cap.args
+
+
+def time_main_path_inputs(torch, pk, seg_args, pres_args):
+    """segment_sum and presence_fill on the inputs the W=4 ReduceToIndex
+    and WordCount runs gave them: held against the plain version, then
+    timed beside the plain version, one library call and the bound."""
+    rows, errs = {}, {}
+    ids, vals, segs = seg_args
+    R, n = ids.shape
+    err, ok = seg_err(torch, pk, ids, vals, segs,
+                      pk.segment_sum(ids, vals, segs))
+    if not ok:
+        raise AssertionError(f"segment_sum disagrees with its plain version "
+                             f"on the main path's inputs: {err}")
+    errs["segment_sum"] = err
+    flat = torch.where((ids >= 0) & (ids < segs), ids.to(torch.int64),
+                       torch.full_like(ids, segs, dtype=torch.int64))
+    flat = (flat + torch.arange(R, device=ids.device)[:, None] * (segs + 1)
+            ).reshape(-1)
+    acc = torch.zeros(R * (segs + 1), device=ids.device)
+    vflat = vals.reshape(-1)
+    b, by = bound(R * n * 8 + R * segs * 4, R * n)
+    rows["segment_sum"] = dict(
+        ms=cuda_ms(torch, lambda: pk.segment_sum(ids, vals, segs)),
+        plain_ms=cuda_ms(torch, lambda: pk.segment_sum_plain(ids, vals,
+                                                             segs)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: acc.index_add_(0, flat, vflat)))
+    log(f"time segment_sum at the main path's [{R}, {n}], {segs} segments: "
+        + json.dumps(rows["segment_sum"]))
+    h, valid, regs = pres_args
+    R, n = h.shape
+    if not torch.equal(pk.presence_fill(h, valid, regs),
+                       pk.presence_fill_plain(h, valid, regs)):
+        raise AssertionError("presence_fill disagrees with its plain version "
+                             "on the main path's inputs")
+    errs["presence_fill"] = 0
+    ok = valid & (h >= 0) & (h < regs)
+    flat = torch.where(ok, h.to(torch.int64),
+                       torch.full_like(h, regs, dtype=torch.int64))
+    flat = (flat + torch.arange(R, device=h.device)[:, None] * (regs + 1)
+            ).reshape(-1)
+    reg = torch.zeros(R * (regs + 1), dtype=torch.uint8, device=h.device)
+    one = torch.ones((), dtype=torch.uint8, device=h.device)
+    b, by = bound(R * n * 5 + R * regs, R * n)
+    rows["presence_fill"] = dict(
+        ms=cuda_ms(torch, lambda: pk.presence_fill(h, valid, regs)),
+        plain_ms=cuda_ms(torch, lambda: pk.presence_fill_plain(h, valid,
+                                                               regs)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: reg.index_put_((flat,), one)))
+    log(f"time presence_fill at the main path's [{R}, {n}], {regs} "
+        f"registers: " + json.dumps(rows["presence_fill"]))
+    return rows, errs
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -273,6 +648,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
+    from thrill_tpu_torch.api.ops import reduce as reduce_mod
     from thrill_tpu_torch.core import pallas_kernels as pk
     from thrill_tpu_torch.core import pallas_sort as ps
 
@@ -290,21 +666,38 @@ def main() -> int:
     errs = check_kernels(torch, np, pk, ps)
     times = time_kernels(torch, np, pk, ps)
     time_argsort(torch, np)
-    launches4 = terasort(torch, np, tt, 4, pk, ps)
+    sort4 = terasort(torch, np, tt, 4, pk, ps)
     terasort(torch, np, tt, 1, pk, ps)
+    wc4, pres_args = wordcount(torch, np, tt, 4, pk, ps, reduce_mod)
+    wordcount(torch, np, tt, 1, pk, ps, reduce_mod)
+    step4, seg_args = pagerank_step(torch, np, tt, pk, ps, reduce_mod)
+    main_times, main_errs = time_main_path_inputs(torch, pk, seg_args,
+                                                  pres_args)
+    times.update(main_times)
+    for k, e in main_errs.items():
+        errs[k] = max(errs[k], e)
 
+    # each kernel's launches on the path that runs it, counted from zero
     meta = {
         "partition_histogram": dict(
             source="thrill_tpu_torch/csrc/partition_histogram.cu",
-            replaces="thrill_tpu/core/pallas_kernels.py:116"),
+            replaces="thrill_tpu/core/pallas_kernels.py:116",
+            launches=sort4["partition_histogram"]),
         "stable_partition_offsets": dict(
             source="thrill_tpu_torch/csrc/stable_partition.cu",
-            replaces="thrill_tpu/core/pallas_sort.py:85"),
+            replaces="thrill_tpu/core/pallas_sort.py:85",
+            launches=sort4["stable_partition_offsets"]),
+        "segment_sum": dict(
+            source="thrill_tpu_torch/csrc/segment_sum.cu",
+            replaces="thrill_tpu/core/pallas_kernels.py:187",
+            launches=step4["segment_sum"]),
+        "presence_fill": dict(
+            source="thrill_tpu_torch/csrc/presence_fill.cu",
+            replaces="thrill_tpu/core/pallas_kernels.py:239",
+            launches=wc4["presence_fill"]),
     }
-    kernels = [dict(name=k, route="cuda", source=m["source"],
-                    replaces=m["replaces"], launches=launches4[k],
-                    max_abs_err=errs[k], **times[k])
-               for k, m in meta.items()]
+    kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
+                    **times[k]) for k, m in meta.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

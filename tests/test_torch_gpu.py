@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its Sort on the card.
+"""The port's CUDA kernels, its Sort and its reduces on the card.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor the reference package, so it also runs where
@@ -75,3 +75,71 @@ def test_terasort_on_the_card_matches_the_cpu(cuda_device, W):
     cpu = tt.Run(job, W, device="cpu")
     for k in recs:
         assert torch.equal(out[k].cpu(), cpu[k])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,lo,hi,segs", [
+    ((4, 1 << 16), 0, 4096, 4096),        # shared-memory accumulators
+    ((4, 1 << 16), 0, 1 << 20, 1 << 20),  # global atomics
+    ((3, 4097), -9, 300, 256),            # out of range, ragged rows
+    ((2, 8192), 3, 4, 16),                # one segment everywhere
+    ((0,), 0, 1, 8),                      # empty
+])
+def test_segment_sum_matches_plain(cuda_device, shape, lo, hi, segs):
+    rng = np.random.default_rng(11)
+    ids = torch.as_tensor(rng.integers(lo, hi, size=shape, dtype=np.int32),
+                          device=cuda_device)
+    vals = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                           device=cuda_device)
+    before = tpk.segment_sum.launches
+    got = tpk.segment_sum(ids, vals, segs)
+    want = tpk.segment_sum_plain(ids, vals, segs)
+    assert tpk.segment_sum.launches == before + 1
+    # atomics add in another order: 1e-4 of the segment's absolute sum
+    scale = tpk.segment_sum_plain(ids, vals.abs(), segs)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,lo,hi,regs", [
+    ((4, 1 << 16), 0, 1 << 17, 1 << 17),  # WordCount's register count
+    ((3, 4097), -9, 300, 256),            # out of range, ragged rows
+    ((0,), 0, 1, 8),                      # empty
+])
+def test_presence_fill_matches_plain(cuda_device, shape, lo, hi, regs):
+    rng = np.random.default_rng(12)
+    h = torch.as_tensor(rng.integers(lo, hi, size=shape, dtype=np.int32),
+                        device=cuda_device)
+    valid = torch.as_tensor(rng.random(shape) < 0.7, device=cuda_device)
+    before = tpk.presence_fill.launches
+    assert torch.equal(tpk.presence_fill(h, valid, regs),
+                       tpk.presence_fill_plain(h, valid, regs))
+    assert tpk.presence_fill.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_reduces_on_the_card_match_the_cpu(cuda_device, W):
+    rng = np.random.default_rng(200 + W)
+    n = 1 << 15
+    recs = {"k": rng.integers(0, 3000, n).astype(np.int64),
+            "v": rng.random(n).astype(np.float32)}
+
+    def job(ctx):
+        d = ctx.Distribute(recs).Keep(2)
+        wc = d.Map(lambda r: {"k": r["k"], "c": torch.ones_like(r["k"])}) \
+            .ReduceByKey(lambda r: r["k"],
+                         tt.FieldReduce({"k": "first", "c": "sum"}),
+                         dup_detection=True).AllGatherArrays()
+        pr = d.ReduceToIndex(lambda r: r["k"],
+                             tt.FieldReduce({"k": "first", "v": "sum"}),
+                             3500).AllGatherArrays()
+        return wc, pr
+
+    (wc, pr), (wc_c, pr_c) = tt.Run(job, W, cuda_device), tt.Run(job, W,
+                                                                  "cpu")
+    for k in ("k", "c"):
+        assert torch.equal(wc[k].cpu(), wc_c[k])
+    assert torch.equal(pr["k"].cpu(), pr_c["k"])
+    assert torch.allclose(pr["v"].cpu(), pr_c["v"], rtol=1e-5, atol=1e-5)

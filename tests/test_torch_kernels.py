@@ -1,7 +1,10 @@
 """The port's kernel modules against the reference package on the CPU.
 
-The plain versions of the partition-histogram and stable-partition
-kernels must equal the Pallas kernels in interpret mode bit for bit;
+The plain versions of the partition-histogram, stable-partition and
+presence-fill kernels must equal the Pallas kernels in interpret mode bit
+for bit, the segment sum within ``atol=1e-4`` (the reference's own bound
+for sums of a thousand normal values: the one-hot kernel adds in blocks
+of 64, the plain version in order);
 key encoding must equal the reference's word for word; the radix loop
 must equal numpy's stable sorts. The CUDA kernels themselves run only on
 a card: ``tests/test_torch_gpu.py`` holds them against their plain
@@ -125,6 +128,114 @@ def test_wrappers_refuse_other_devices_and_inputs():
         tps._launch(torch.zeros(8, dtype=torch.int32), tps.MAX_BINS + 1)
     with pytest.raises(ValueError):
         tps._launch(torch.zeros((2, 8), dtype=torch.int32)[:, ::2], 4)
+
+
+# -- segment sum (kernel B3) ------------------------------------------------
+
+@pytest.mark.parametrize("n,segs", [(100, 5), (1000, 300), (4096, 4096),
+                                    (777, 1)])
+def test_segment_sum_plain_matches_pallas(n, segs):
+    rng = np.random.default_rng(n)
+    ids = rng.integers(0, segs, n).astype(np.int32)
+    vals = rng.normal(size=n).astype(np.float32)
+    want = np.asarray(jpk.segment_sum_pallas(
+        jnp.asarray(ids), jnp.asarray(vals), segs, interpret=True))
+    got = tpk.segment_sum_plain(_t(ids), _t(vals), segs)
+    assert got.dtype == torch.float32 and got.shape == (segs,)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
+    ref = np.zeros(segs, np.float64)
+    np.add.at(ref, ids, vals)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("ids,segs", [
+    ([0, -1, 3, 99, 3, 2, 4], 4),          # -1 padding, >= S overflow
+    ([], 5),                               # empty input
+    ([2] * 300, 3),                        # one segment everywhere
+])
+def test_segment_sum_plain_edge_cases_match_pallas(ids, segs):
+    d = np.asarray(ids, dtype=np.int32)
+    v = np.linspace(-1, 2, len(ids)).astype(np.float32)
+    want = np.asarray(jpk.segment_sum_pallas(
+        jnp.asarray(d), jnp.asarray(v), segs, interpret=True))
+    np.testing.assert_allclose(tpk.segment_sum(_t(d), _t(v), segs).numpy(),
+                               want, rtol=0, atol=1e-4)
+
+
+def test_segment_sum_batched_rows_match_pallas():
+    rng = np.random.default_rng(6)
+    W, n, segs = 4, 1200, 70
+    ids = rng.integers(-2, segs + 2, (W, n)).astype(np.int32)
+    vals = rng.normal(size=(W, n)).astype(np.float32)
+    got = tpk.segment_sum(_t(ids), _t(vals), segs).numpy()
+    assert got.shape == (W, segs)
+    for w in range(W):
+        want = np.asarray(jpk.segment_sum_pallas(
+            jnp.asarray(ids[w]), jnp.asarray(vals[w]), segs, interpret=True))
+        np.testing.assert_allclose(got[w], want, rtol=0, atol=1e-4)
+
+
+# -- presence fill (kernel B4) ----------------------------------------------
+
+@pytest.mark.parametrize("n,M", [(10, 4), (512, 64), (3000, 500),
+                                 (4096, 1024)])
+def test_presence_fill_plain_matches_pallas(n, M):
+    rng = np.random.default_rng(n + M)
+    h = rng.integers(0, M, n).astype(np.int32)
+    valid = rng.random(n) < 0.7
+    want = np.asarray(jpk.presence_fill_pallas(
+        jnp.asarray(h), jnp.asarray(valid), M, interpret=True))
+    got = tpk.presence_fill_plain(_t(h), _t(valid), M)
+    assert got.dtype == torch.uint8
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("h,valid,M", [
+    ([0, -1, 3, 99, 3, 2], [1, 1, 1, 1, 0, 1], 4),   # sentinels, invalid
+    ([], [], 8),                                     # empty input
+    ([5] * 100, [1] * 100, 6),                       # one register
+])
+def test_presence_fill_plain_edge_cases_match_pallas(h, valid, M):
+    h = np.asarray(h, dtype=np.int32)
+    valid = np.asarray(valid, dtype=bool)
+    want = np.asarray(jpk.presence_fill_pallas(
+        jnp.asarray(h), jnp.asarray(valid), M, interpret=True))
+    assert np.array_equal(tpk.presence_fill(_t(h), _t(valid), M).numpy(),
+                          want)
+
+
+def test_presence_fill_batched_rows_match_pallas():
+    rng = np.random.default_rng(12)
+    W, n, M = 4, 2000, 300
+    h = rng.integers(-5, M + 5, (W, n)).astype(np.int32)
+    valid = rng.random((W, n)) < 0.5
+    got = tpk.presence_fill(_t(h), _t(valid), M).numpy()
+    assert got.shape == (W, M)
+    for w in range(W):
+        want = np.asarray(jpk.presence_fill_pallas(
+            jnp.asarray(h[w]), jnp.asarray(valid[w]), M, interpret=True))
+        assert np.array_equal(got[w], want)
+
+
+def test_segment_and_presence_wrappers_refuse_bad_inputs():
+    meta = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        tpk.segment_sum(meta, torch.empty(8, device="meta"), 4)
+    with pytest.raises(ValueError):
+        tpk.presence_fill(meta, torch.empty(8, dtype=torch.bool,
+                                            device="meta"), 4)
+    i32 = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError):                 # f64 values
+        tpk._seg_launch(i32, torch.zeros(8, dtype=torch.float64), 4)
+    with pytest.raises(ValueError):                 # shapes differ
+        tpk._seg_launch(i32, torch.zeros(9), 4)
+    with pytest.raises(ValueError):                 # no segments
+        tpk._seg_launch(i32, torch.zeros(8), 0)
+    with pytest.raises(ValueError):                 # int flags
+        tpk._pres_launch(i32, torch.zeros(8, dtype=torch.int32), 4)
+    with pytest.raises(ValueError):                 # strided ids
+        tpk._pres_launch(torch.zeros((2, 8), dtype=torch.int32)[:, ::2],
+                         torch.zeros((2, 4), dtype=torch.bool), 4)
 
 
 # -- key encoding -----------------------------------------------------------

@@ -6,6 +6,7 @@ passes ``device="cpu"``. The port imports neither jax nor thrill_tpu.
 """
 
 from .api.context import Context, Run, RunLocalTests
+from .api.functors import FieldReduce
 from .parallel.mesh import MeshExec
 
-__all__ = ["Context", "MeshExec", "Run", "RunLocalTests"]
+__all__ = ["Context", "FieldReduce", "MeshExec", "Run", "RunLocalTests"]

@@ -2,13 +2,13 @@
 (counterpart of the reference package's ``api/dia.py``).
 
 A handle is a node plus a stack of local operations. ``Map``/``Filter``
-extend the stack; ``Sort`` cuts it with a new node; actions run the
-graph.
+extend the stack; ``Sort`` and the reduces cut it with a new node;
+actions run the graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 from .dia_base import DIABase, ParentLink
 from .stack import Stack, StackOp
@@ -39,6 +39,33 @@ class DIA:
         equal keys keep their global order."""
         from .ops import sort as _s
         return _s.Sort(self, key_fn)
+
+    def ReduceByKey(self, key_fn: Callable, reduce_fn: Callable,
+                    dup_detection=None) -> "DIA":
+        """Combine items of equal ``key_fn`` with the associative
+        ``reduce_fn``. ``dup_detection`` (reference:
+        DuplicateDetectionTag) keeps globally unique keys on their
+        worker instead of shuffling them; None, the default, leaves it to
+        the cost model (core/preshuffle.py), True/False force it. Rows
+        come out key-sorted per worker; dup detection changes which
+        worker holds a unique key, not the result set."""
+        from .ops import reduce as _r
+        return _r.ReduceByKey(self, key_fn, reduce_fn, dup_detection)
+
+    def ReducePair(self, reduce_fn: Callable) -> "DIA":
+        """Items are (key, value) pairs; ``reduce_fn`` (a callable or
+        "sum"/"min"/"max") combines values."""
+        from .ops import reduce as _r
+        return _r.ReducePair(self, reduce_fn)
+
+    def ReduceToIndex(self, index_fn: Callable, reduce_fn: Callable,
+                      size: int, neutral: Any = None) -> "DIA":
+        """Dense output of ``size`` rows: row ``i`` folds the items with
+        ``index_fn == i``, rows without items hold ``neutral`` (zeros
+        when None). Worker ``w`` holds the range
+        ``dense_range_bounds(size, W)[w:w+2]``."""
+        from .ops import reduce as _r
+        return _r.ReduceToIndex(self, index_fn, reduce_fn, size, neutral)
 
     # -- consume control -----------------------------------------------
     def Keep(self, n: int = 1) -> "DIA":

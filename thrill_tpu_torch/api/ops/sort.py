@@ -76,15 +76,6 @@ def _lex_greater(words: torch.Tensor, gidx: torch.Tensor,
     return gt | (eq & (keymod.order_view(gidx) > spl[nw]))
 
 
-def _key_words(tree, key_fn: Callable, W: int, cap: int) -> List[torch.Tensor]:
-    """Key words ``[W, cap]`` of every row: ``key_fn`` sees the batched
-    columns of all workers as one item axis."""
-    flat = pt.tree_map(lambda l: l.reshape((W * cap,) + tuple(l.shape[2:])),
-                       tree)
-    return [w.reshape(W, cap) for w in
-            keymod.encode_key_words(key_fn(flat))]
-
-
 class SortNode(DIABase):
     def __init__(self, ctx, link, key_fn: Optional[Callable]) -> None:
         super().__init__(ctx, "Sort", [link])
@@ -110,7 +101,7 @@ def _device_sample_sort(shards: DeviceShards,
     # [W, cap]; after the phase-1 argsort the valid rows come first, so
     # the same mask marks the valid rows of the sorted columns
     valid = shards.valid_mask()
-    words = _key_words(shards.tree, key_fn, W, cap)
+    words = keymod.worker_key_words(key_fn, shards.tree)
     nwords = len(words)
     lead = [] if full else [(~valid).to(torch.int64)]
     lead_bits = [] if full else [VALID_BITS]

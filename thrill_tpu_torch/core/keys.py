@@ -62,15 +62,24 @@ def encode_key_words(key_tree: Any) -> List[torch.Tensor]:
     return words
 
 
+def worker_key_words(key_fn, tree: Any) -> List[torch.Tensor]:
+    """Key words ``[W, cap]`` of every row of ``[W, cap, ...]`` leaves:
+    ``key_fn`` sees the batched columns of all workers as one item
+    axis."""
+    W, cap = pt.leaves(tree)[0].shape[:2]
+    flat = pt.tree_map(lambda l: l.reshape((W * cap,) + tuple(l.shape[2:])),
+                       tree)
+    return [w.reshape(W, cap) for w in encode_key_words(key_fn(flat))]
+
+
 def _pack_bytes(leaf: torch.Tensor) -> List[torch.Tensor]:
-    """``[..., L]`` uint8 -> ceil(L/8) big-endian words ``[...]``."""
+    """``[..., L]`` uint8 -> ceil(L/8) big-endian words ``[...]``: the
+    bytes, zero padded to whole words, reversed within each word and
+    read as little-endian int64."""
     L = leaf.shape[-1]
-    words = []
-    for k in range(-(-L // 8)):
-        acc = torch.zeros(leaf.shape[:-1], dtype=torch.int64,
-                          device=leaf.device)
-        for j in range(8):
-            if 8 * k + j < L:
-                acc |= leaf[..., 8 * k + j].to(torch.int64) << (56 - 8 * j)
-        words.append(acc)
-    return words
+    k = -(-L // 8)
+    if L < 8 * k:
+        leaf = torch.nn.functional.pad(leaf, (0, 8 * k - L))
+    be = leaf.reshape(leaf.shape[:-1] + (k, 8)).flip(-1).contiguous()
+    words = be.view(torch.int64).reshape(leaf.shape[:-1] + (k,))
+    return [words[..., j] for j in range(k)]

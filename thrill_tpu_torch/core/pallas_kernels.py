@@ -1,14 +1,24 @@
-"""Partition histogram: the CUDA kernel, its plain version, its wrapper.
+"""Per-bin kernels: partition histogram, segment sum, presence fill.
+Each has its CUDA kernel, its plain PyTorch version and its wrapper.
 
-Counterpart of ``partition_histogram`` in the reference package's
-``core/pallas_kernels.py``, whose TPU kernel ``partition_histogram_pallas``
-this port replaces with ``csrc/partition_histogram.cu``. It counts send
-destinations for every exchange (``data/exchange.send_counts``) and
-digits for every radix pass (``core/pallas_sort``).
+Counterparts of ``partition_histogram``, ``segment_sum`` and
+``presence_fill`` in the reference package's ``core/pallas_kernels.py``,
+whose TPU kernels become:
 
-The wrapper takes the plain version only for a tensor on the CPU. A CUDA
-tensor launches the kernel or raises. ``partition_histogram.launches``
-counts kernel launches.
+* ``partition_histogram_pallas`` -> ``csrc/partition_histogram.cu``: send
+  destinations of every exchange (``data/exchange.send_counts``) and
+  digits of every radix pass (``core/pallas_sort``);
+* ``segment_sum_pallas`` -> ``csrc/segment_sum.cu``: ReduceToIndex's
+  additive f32 fold (``api/ops/reduce.py``);
+* ``presence_fill_pallas`` -> ``csrc/presence_fill.cu``: ReduceByKey's
+  DuplicateDetection registers.
+
+Each wrapper takes the plain version only for a tensor on the CPU. A CUDA
+tensor launches the kernel or raises. ``<wrapper>.launches`` counts
+kernel launches. The TPU's size gates (2^24 rows, 4096 segments, 8192
+registers) come from its f32 one-hot sums and are not inherited: ids and
+counters are int32 here, and the wrappers refuse only what int32 cannot
+index.
 """
 
 from __future__ import annotations
@@ -47,6 +57,10 @@ def partition_histogram_plain(dest: torch.Tensor,
     return out.reshape(dest.shape[:-1] + (num_bins,))
 
 
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _lib():
     lib = native_build.load("partition_histogram")
     fn = lib.thrill_partition_histogram
@@ -67,8 +81,7 @@ def _launch(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
         raise ValueError(f"histogram of n={n} ids over {num_bins} bins "
                          f"in {R} rows is outside the kernel's range")
     out = torch.zeros((R, num_bins), dtype=torch.int32, device=dest.device)
-    sms = torch.cuda.get_device_properties(dest.device).multi_processor_count
-    per_row = max(1, min(-(-n // 2048), (8 * sms) // R))
+    per_row = max(1, min(-(-n // 2048), (8 * _sms(dest.device)) // R))
     with torch.cuda.device(dest.device):
         stream = torch.cuda.current_stream(dest.device).cuda_stream
         err = _lib()(rows.data_ptr(), out.data_ptr(), n, R, num_bins,
@@ -92,3 +105,142 @@ def partition_histogram(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
 
 
 partition_histogram.launches = 0
+
+
+def _check_bins(name: str, n: int, bins: int, rows: int) -> None:
+    if n > MAX_ROWS or not 1 <= bins <= MAX_ROWS or rows > 65535:
+        raise ValueError(f"{name} of n={n} ids over {bins} bins in {rows} "
+                         f"rows is outside the kernel's range")
+
+
+# -- segment sum (replaces segment_sum_pallas) -------------------------------
+
+def segment_sum_plain(seg_ids: torch.Tensor, values: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """f32 ``index_add_`` of ``values`` into ``num_segments + 1`` bins of
+    the sanitised ids per row, the dump bin dropped. ``seg_ids`` and
+    ``values`` ``[n]`` or ``[W, n]`` -> f32 ``[num_segments]`` or
+    ``[W, num_segments]``."""
+    rows = _rows_of(seg_ids)
+    R, n = rows.shape
+    nb = num_segments + 1
+    d = rows.to(torch.int64)
+    safe = torch.where((d >= 0) & (d < num_segments), d,
+                       torch.full_like(d, num_segments))
+    safe = safe + torch.arange(R, device=d.device)[:, None] * nb
+    out = torch.zeros(R * nb, dtype=torch.float32, device=d.device)
+    out.index_add_(0, safe.reshape(-1),
+                   values.reshape(-1).to(torch.float32))
+    return out.reshape(R, nb)[:, :num_segments].reshape(
+        seg_ids.shape[:-1] + (num_segments,))
+
+
+def _seg_launch(seg_ids: torch.Tensor, values: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    rows, vals = _rows_of(seg_ids), _rows_of(values)
+    if (rows.dtype != torch.int32 or vals.dtype != torch.float32
+            or not rows.is_contiguous() or not vals.is_contiguous()
+            or rows.shape != vals.shape or vals.device != rows.device):
+        raise ValueError("the segment-sum kernel takes contiguous int32 ids "
+                         "and float32 values of one shape on one device")
+    R, n = rows.shape
+    _check_bins("segment sum", n, num_segments, R)
+    out = torch.zeros((R, num_segments), dtype=torch.float32,
+                      device=seg_ids.device)
+    lib = native_build.load("segment_sum")
+    fn = lib.thrill_segment_sum
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(seg_ids.device):
+        stream = torch.cuda.current_stream(seg_ids.device).cuda_stream
+        err = fn(rows.data_ptr(), vals.data_ptr(), out.data_ptr(), n, R,
+                 num_segments, _sms(seg_ids.device), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: cudaError "
+                           f"{err}")
+    segment_sum.launches += 1
+    return out.reshape(seg_ids.shape[:-1] + (num_segments,))
+
+
+def segment_sum(seg_ids: torch.Tensor, values: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """f32 sum of ``values`` per segment id in ``[0, num_segments)``, per
+    row of ``seg_ids`` (int32 ``[n]`` or ``[W, n]``); other ids are
+    dropped. On a card the sum order is that of atomics."""
+    if seg_ids.device.type == "cpu":
+        return segment_sum_plain(seg_ids, values, num_segments)
+    if seg_ids.device.type != "cuda":
+        raise ValueError(f"segment_sum: unsupported device {seg_ids.device}")
+    return _seg_launch(seg_ids, values, num_segments)
+
+
+segment_sum.launches = 0
+
+
+# -- presence fill (replaces presence_fill_pallas) ---------------------------
+
+def presence_fill_plain(h: torch.Tensor, valid: torch.Tensor,
+                        num_regs: int) -> torch.Tensor:
+    """A zeroed ``[W, num_regs + 1]`` u8 tensor with ``index_put_`` of
+    ones at the valid sanitised ids, the dump column dropped. ``h`` and
+    ``valid`` ``[n]`` or ``[W, n]`` -> u8 ``[num_regs]`` or
+    ``[W, num_regs]``."""
+    rows = _rows_of(h)
+    R, n = rows.shape
+    nb = num_regs + 1
+    d = rows.to(torch.int64)
+    ok = _rows_of(valid).to(torch.bool) & (d >= 0) & (d < num_regs)
+    safe = torch.where(ok, d, torch.full_like(d, num_regs))
+    safe = safe + torch.arange(R, device=d.device)[:, None] * nb
+    out = torch.zeros(R * nb, dtype=torch.uint8, device=d.device)
+    out.index_put_((safe.reshape(-1),),
+                   torch.ones((), dtype=torch.uint8, device=d.device))
+    return out.reshape(R, nb)[:, :num_regs].reshape(
+        h.shape[:-1] + (num_regs,))
+
+
+def _pres_launch(h: torch.Tensor, valid: torch.Tensor,
+                 num_regs: int) -> torch.Tensor:
+    rows, flags = _rows_of(h), _rows_of(valid)
+    if (rows.dtype != torch.int32 or flags.dtype != torch.bool
+            or not rows.is_contiguous() or not flags.is_contiguous()
+            or rows.shape != flags.shape or flags.device != rows.device):
+        raise ValueError("the presence kernel takes contiguous int32 ids "
+                         "and bool flags of one shape on one device")
+    R, n = rows.shape
+    _check_bins("presence fill", n, num_regs, R)
+    out = torch.zeros((R, num_regs), dtype=torch.uint8, device=h.device)
+    lib = native_build.load("presence_fill")
+    fn = lib.thrill_presence_fill
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = fn(rows.data_ptr(), flags.data_ptr(), out.data_ptr(), n, R,
+                 num_regs, _sms(h.device), stream)
+    if err != 0:
+        raise RuntimeError(f"presence_fill kernel launch failed: cudaError "
+                           f"{err}")
+    presence_fill.launches += 1
+    return out.reshape(h.shape[:-1] + (num_regs,))
+
+
+def presence_fill(h: torch.Tensor, valid: torch.Tensor,
+                  num_regs: int) -> torch.Tensor:
+    """u8 presence registers per row of ``h`` (int32 ``[n]`` or
+    ``[W, n]``): ``out[m] = 1`` iff some ``i`` with ``valid[i]`` has
+    ``h[i] == m``; ids outside ``[0, num_regs)`` are ignored."""
+    if h.device.type == "cpu":
+        return presence_fill_plain(h, valid, num_regs)
+    if h.device.type != "cuda":
+        raise ValueError(f"presence_fill: unsupported device {h.device}")
+    return _pres_launch(h, valid, num_regs)
+
+
+presence_fill.launches = 0

@@ -15,6 +15,7 @@ import torch
 
 from ..common import tree as pt
 from ..common.partition import dense_range_bounds
+from ..core.rowmove import row_cumsum, scatter_slots, take_rows
 from ..parallel.mesh import DeviceLike, MeshExec
 
 
@@ -114,21 +115,14 @@ def compact_valid(tree: Any, mask: torch.Tensor) -> Tuple[Any, torch.Tensor]:
     """Move each worker's valid rows to the front, stably.
 
     ``tree`` leaves ``[W, n, ...]``, ``mask`` ``[W, n]`` bool. Returns
-    (tree, counts ``[W]``). Invalid rows are scattered to a dropped
-    overflow slot ``n`` of each worker: that slot takes duplicate
-    indices, and which of them lands there does not matter.
+    (tree, counts ``[W]``). One scatter of row indices builds each
+    output row's source (invalid rows go to dump rows), and every leaf is
+    gathered by it. Rows past a worker's count repeat row 0.
     """
     W, n = mask.shape
-    pos = torch.where(mask, torch.cumsum(mask.to(torch.int64), dim=1) - 1,
-                      torch.full_like(mask, n, dtype=torch.int64))
-    flat = (pos + torch.arange(W, device=mask.device)[:, None] * (n + 1)
-            ).reshape(-1)
-
-    def scatter(leaf):
-        trail = tuple(leaf.shape[2:])
-        buf = torch.zeros((W * (n + 1),) + trail, dtype=leaf.dtype,
-                          device=leaf.device)
-        buf.index_put_((flat,), leaf.reshape((W * n,) + trail))
-        return buf.reshape((W, n + 1) + trail)[:, :n]
-
-    return pt.tree_map(scatter, tree), mask.sum(dim=1)
+    region = 2 * n
+    src = torch.zeros(W * region, dtype=torch.int64, device=mask.device)
+    src.index_put_((scatter_slots(row_cumsum(mask) - 1, mask, n),),
+                   torch.arange(n, device=mask.device).repeat(W))
+    src = src.reshape(W, region)[:, :n]
+    return pt.tree_map(lambda l: take_rows(l, src), tree), mask.sum(dim=1)

@@ -9,7 +9,7 @@ dimension. Multiple cards and ``torch.distributed`` come later.
 
 from __future__ import annotations
 
-from typing import List, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +45,8 @@ class MeshExec:
         self.stats_bytes_moved = 0
         # (live passes, candidate passes) of every radix argsort run
         self.radix_passes: List[Tuple[int, int]] = []
+        # sticky pre-shuffle verdicts by (kind, site) (core/preshuffle.py)
+        self.prune_verdicts: Dict[Tuple, bool] = {}
 
     def put_small(self, arr) -> torch.Tensor:
         """A host array on the mesh's device."""

@@ -8,7 +8,11 @@ Phases, each fatal on failure:
      source, all at once);
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes and on edge cases (results are integers and
-     must be bit-equal), and time kernel, plain version and library call;
+     must be bit-equal): the send-count histogram, the radix engine's
+     upsweep and pass kernels (the pass in both its modes, repeated at the
+     main path's shape, where a missing fence would show as a rare wrong
+     offset), the stable-partition offsets, segment sum and presence
+     fill; then time kernel, plain version and library call;
   3. TeraSort through the port's API, Context -> Distribute -> Sort ->
      Size / AllGatherArrays, of 100-byte records (10-byte key, 90-byte
      value) made from a numpy seed: W=4 virtual workers x 2^22 records,
@@ -65,19 +69,28 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, iters: int = 10) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, after warm-up."""
-    for _ in range(2):
+WARMUP, ITERS, WINDOWS = 2, 10, 3
+
+
+def cuda_ms(torch, fn, iters: int = ITERS, windows: int = WINDOWS) -> float:
+    """Device time of one call of ``fn``: the median over ``windows``
+    windows of the mean over ``iters`` calls, after WARMUP calls. One
+    window alone read a 0.04 ms kernel as 0.06-0.10 ms when it was the
+    first timed in a process."""
+    for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[windows // 2]
 
 
 def bound(nbytes: float, ops: float):
@@ -119,6 +132,7 @@ def check_kernels(torch, np, pk, ps):
         ("one", ids((1,), 0, 3), 3),
         ("ragged", ids((2, 4097), 0, 100), 100),
         ("small bins", ids((W, 5000), 0, 3), 3),
+        ("skewed", skewed(torch, np, rng, main, dev), 256),
     ]
     errs = {}
     for name, fn, plain, cases in (
@@ -146,9 +160,57 @@ def check_kernels(torch, np, pk, ps):
         errs[name] = worst
         log(f"check {name}: {len(cases)} cases bit-equal to the plain "
             f"version")
+    errs.update(check_radix(torch, np, ps, rng, part_cases))
     errs["segment_sum"] = check_segment_sum(torch, np, pk, rng)
     errs["presence_fill"] = check_presence_fill(torch, np, pk, rng)
     return errs
+
+
+def skewed(torch, np, rng, shape, dev):
+    """Digits of which 90 % are one value (WordCount's Zipf letters, the
+    equal high bytes of global indices) and the rest uniform in [0, 256)."""
+    d = rng.integers(0, 256, size=shape, dtype=np.int32)
+    d[rng.random(shape) < 0.9] = 7
+    return torch.as_tensor(d, device=dev)
+
+
+def check_radix(torch, np, ps, rng, part_cases):
+    """The upsweep and the pass kernel against their plain versions, bit
+    for bit. Each stable-partition case becomes keys (random int64 words
+    whose byte at a random shift is the case's id & 255) with a random
+    permutation: the pass runs carrying (key, permutation) and reading the
+    word through the permutation, and the upsweep counts the words. The
+    main path's shape runs three times in both modes."""
+    dev = torch.device(DEVICE)
+    main = [c for c in part_cases if c[0] in ("digits", "skewed")]
+    for label, d, _ in part_cases + main + main:
+        k = torch.as_tensor(rng.integers(-2**63, 2**63, size=tuple(d.shape),
+                                         dtype=np.int64), device=dev)
+        shift = 8 * int(rng.integers(0, 8))
+        if d.numel():
+            k.view(torch.uint8).view(*d.shape, 8)[..., shift // 8] = (
+                d & 255).to(torch.uint8)
+        nd = int(rng.integers(1, 9))
+        hist = ps.radix_upsweep(k, nd)
+        if not torch.equal(hist, ps.radix_upsweep_plain(k, nd)):
+            raise AssertionError(f"radix_upsweep disagrees with its plain "
+                                 f"version on '{label}' {tuple(d.shape)}")
+        h = ps.radix_upsweep(k)[..., shift // 8, :]
+        perm = torch.argsort(torch.rand(tuple(d.shape), device=dev),
+                             dim=-1).to(torch.int32)
+        for p, gather in ((perm, False), (perm, True), (None, True)):
+            got = ps.radix_pass(k, p, shift, h, gather=gather)
+            want = ps.radix_pass_plain(k, p, shift, gather=gather)
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("keys", "permutation")):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(
+                        f"radix_pass disagrees with its plain version on "
+                        f"'{label}' {tuple(d.shape)} shift={shift} "
+                        f"gather={gather} identity={p is None}: {what}")
+    log(f"check radix_upsweep, radix_pass: {len(part_cases) + 2 * len(main)}"
+        f" cases (the pass in 3 modes each) bit-equal to the plain version")
+    return {"radix_upsweep": 0, "radix_pass": 0}
 
 
 def zipf_ids(torch, n: int, vocab: int, gen):
@@ -241,7 +303,7 @@ def check_presence_fill(torch, np, pk, rng):
 
 def time_kernels(torch, np, pk, ps):
     """Kernel, plain version and library call at the main path's shape
-    (W=4 rows of 2^22 radix digits)."""
+    (W=4 rows of 2^22 radix digits or key words)."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 1)
     R, n, bins = 4, PER_WORKER, 256
@@ -264,6 +326,42 @@ def time_kernels(torch, np, pk, ps):
     rows["stable_partition_offsets"] = dict(ms=ms, plain_ms=plain,
                                             bound_ms=b, bound_by=by,
                                             library_ms=lib)
+    # the radix engine's kernels on int64 words: 8 digits counted by the
+    # upsweep; a pass carrying (key, permutation), shift 8
+    k = torch.as_tensor(rng.integers(-2**63, 2**63, size=(R, n),
+                                     dtype=np.int64), device=dev)
+    ms = cuda_ms(torch, lambda: ps.radix_upsweep(k))
+    plain = cuda_ms(torch, lambda: ps.radix_upsweep_plain(k))
+    b, by = bound(R * n * 8 + R * 8 * bins * 4, R * n * 8)
+    # the library call: one bincount of the row- and digit-offset bytes
+    flat = (k.view(torch.uint8).view(R, n, 8).to(torch.int64)
+            + (torch.arange(R, device=dev)[:, None, None] * 8
+               + torch.arange(8, device=dev)[None, None, :]) * bins
+            ).reshape(-1)
+    lib = cuda_ms(torch, lambda: torch.bincount(flat, minlength=R * 8 * bins))
+    del flat
+    rows["radix_upsweep"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
+                                 bound_by=by, library_ms=lib)
+    perm = torch.argsort(torch.rand((R, n), device=dev), dim=1).to(
+        torch.int32)
+    h = ps.radix_upsweep(k)[:, 1]
+    # one look-back state for the passes of a timing, as an argsort
+    # shares one across its passes
+    timed = WARMUP + ITERS * WINDOWS
+    lb = ps.Lookback(R, n, timed, dev)
+    ms = cuda_ms(torch, lambda: ps.radix_pass(k, perm, 8, h, lookback=lb))
+    lb = ps.Lookback(R, n, timed, dev)
+    gather_ms = cuda_ms(torch, lambda: ps.radix_pass(k, perm, 8, h,
+                                                     gather=True,
+                                                     lookback=lb))
+    plain = cuda_ms(torch, lambda: ps.radix_pass_plain(k, perm, 8))
+    b, by = bound(R * n * (8 + 4) * 2, 2 * R * n)
+    # no one PyTorch call carries (key, permutation) through a digit's
+    # stable partition
+    rows["radix_pass"] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                              library_ms=None)
+    log(f"time radix_pass reading the word through the permutation "
+        f"(a word's first pass) at [{R}, {n}]: {gather_ms} ms")
     for k, v in rows.items():
         log(f"time {k} at [{R}, {n}] bins={bins}: " + json.dumps(v))
     return rows
@@ -319,15 +417,22 @@ def terasort(torch, np, tt, W: int, pk, ps):
     out = d.AllGatherArrays()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {"partition_histogram": pk.partition_histogram.launches,
-                "stable_partition_offsets":
-                    ps.stable_partition_offsets.launches}
+    launches = read_launches(pk, ps)
     passes = list(ctx.mesh_exec.radix_passes)
     if size != n:
         raise AssertionError(f"Size() = {size}, expected {n}")
-    for name, cnt in launches.items():
-        if cnt <= 0:
-            raise AssertionError(f"{name} was not launched on the Sort path")
+    # the radix engine: one upsweep per key word, one pass per live digit;
+    # the send counts of the exchange (W > 1) through the histogram kernel
+    need = ["radix_upsweep", "radix_pass"] + (
+        ["partition_histogram"] if W > 1 else [])
+    for name in need:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the W={W} "
+                                 f"Sort path")
+    live = sum(p[0] for p in passes)
+    if launches["radix_pass"] != live:
+        raise AssertionError(f"W={W} Sort: {launches['radix_pass']} pass "
+                             f"launches for {live} live passes")
     # reference: np.lexsort of the big-endian key words, stable by index
     kp = np.zeros((n, 16), dtype=np.uint8)
     kp[:, :10] = recs["key"]
@@ -396,13 +501,15 @@ class Capture:
 
 
 def zero_launches(pk, ps) -> None:
-    for k in (pk.partition_histogram, ps.stable_partition_offsets,
-              pk.segment_sum, pk.presence_fill):
+    for k in (pk.partition_histogram, ps.radix_upsweep, ps.radix_pass,
+              ps.stable_partition_offsets, pk.segment_sum, pk.presence_fill):
         k.launches = 0
 
 
 def read_launches(pk, ps) -> dict:
     return {"partition_histogram": pk.partition_histogram.launches,
+            "radix_upsweep": ps.radix_upsweep.launches,
+            "radix_pass": ps.radix_pass.launches,
             "stable_partition_offsets": ps.stable_partition_offsets.launches,
             "segment_sum": pk.segment_sum.launches,
             "presence_fill": pk.presence_fill.launches}
@@ -457,9 +564,9 @@ def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod):
         secs = time.perf_counter() - t0
     launches = read_launches(pk, ps)
     verdicts = list(ctx.mesh_exec.prune_verdicts.values())
-    need = ["partition_histogram", "stable_partition_offsets"]
+    need = ["radix_upsweep", "radix_pass"]
     if W > 1:
-        need.append("presence_fill")
+        need += ["partition_histogram", "presence_fill"]
         if verdicts != [True]:
             raise AssertionError(f"W={W} WordCount: the dup-detection "
                                  f"verdict is {verdicts}, expected on")
@@ -537,7 +644,8 @@ def pagerank_step(torch, np, tt, pk, ps, reduce_mod):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     launches = read_launches(pk, ps)
-    for name in ("segment_sum", "partition_histogram"):
+    for name in ("segment_sum", "partition_histogram", "radix_upsweep",
+                 "radix_pass"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the "
                                  f"ReduceToIndex path")
@@ -683,10 +791,17 @@ def main() -> int:
             source="thrill_tpu_torch/csrc/partition_histogram.cu",
             replaces="thrill_tpu/core/pallas_kernels.py:116",
             launches=sort4["partition_histogram"]),
-        "stable_partition_offsets": dict(
+        # the TPU kernel's stable partition became the radix engine's two
+        # kernels; its offsets epilogue is timed and checked above but is
+        # not on the main path
+        "radix_upsweep": dict(
             source="thrill_tpu_torch/csrc/stable_partition.cu",
             replaces="thrill_tpu/core/pallas_sort.py:85",
-            launches=sort4["stable_partition_offsets"]),
+            launches=sort4["radix_upsweep"]),
+        "radix_pass": dict(
+            source="thrill_tpu_torch/csrc/stable_partition.cu",
+            replaces="thrill_tpu/core/pallas_sort.py:85",
+            launches=sort4["radix_pass"]),
         "segment_sum": dict(
             source="thrill_tpu_torch/csrc/segment_sum.cu",
             replaces="thrill_tpu/core/pallas_kernels.py:187",

@@ -47,6 +47,70 @@ def test_cuda_kernels_match_plain(cuda_device, shape, lo, hi, bins):
                                                        launches[1] + 1)
 
 
+def _keys_with_digit(rng, d, shift):
+    """Random int64 words whose byte at ``shift`` is ``d``."""
+    keys = rng.integers(-2**63, 2**63, d.shape, dtype=np.int64)
+    keys.view(np.uint8).reshape(d.shape + (8,))[..., shift // 8] = d
+    return keys
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "skewed", "ragged"])
+def test_radix_pass_and_offsets_match_plain(cuda_device, case):
+    # 2^20 keys per row: 256 tiles a row, over a wave of the card, so a
+    # tile's look-back waits on tiles of other blocks
+    rng = np.random.default_rng(13)
+    W, n = 4, (1 << 20) + (4097 if case == "ragged" else 0)
+    d = rng.integers(0, 256, (W, n)).astype(np.uint8)
+    if case == "skewed":
+        d[rng.random((W, n)) < 0.9] = 7
+    shift = 16
+    keys = torch.as_tensor(_keys_with_digit(rng, d, shift), device=cuda_device)
+    perm = torch.as_tensor(np.argsort(rng.random((W, n)), axis=1).astype(
+        np.int32), device=cuda_device)
+    hist = tps.radix_upsweep(keys)[:, shift // 8]
+    for p, gather in ((perm, False), (perm, True), (None, True)):
+        before = tps.radix_pass.launches
+        got = tps.radix_pass(keys, p, shift, hist, gather=gather)
+        want = tps.radix_pass_plain(keys, p, shift, gather=gather)
+        assert tps.radix_pass.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    ids = torch.as_tensor(d.astype(np.int32), device=cuda_device)
+    for bins in (256, 7):                     # 7: most ids are sentinels
+        assert torch.equal(tps.stable_partition_offsets(ids, bins),
+                           tps.stable_partition_offsets_plain(ids, bins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ndigits", [((4, 1 << 20), 8), ((3, 70001), 3),
+                                           ((1, 1), 8), ((2, 0), 8)])
+def test_radix_upsweep_matches_plain(cuda_device, shape, ndigits):
+    rng = np.random.default_rng(14)
+    words = rng.integers(-2**63, 2**63, shape, dtype=np.int64)
+    words[..., ::2] |= np.int64(-2**63)       # the sign bit set
+    words[..., 1::3] &= np.int64(0xffff)      # equal high bytes
+    w = torch.as_tensor(words, device=cuda_device)
+    assert torch.equal(tps.radix_upsweep(w, ndigits),
+                       tps.radix_upsweep_plain(w, ndigits))
+
+
+@pytest.mark.gpu
+def test_argsort_words_three_words_match_plain(cuda_device):
+    rng = np.random.default_rng(15)
+    W, n = 4, (1 << 20) + 3
+    words = [rng.integers(-2**63, 2**63, (W, n), dtype=np.int64),
+             rng.integers(0, 5, (W, n)).astype(np.int64) << 60,
+             np.arange(W * n).reshape(W, n)]
+    words[0][:, ::3] = words[0][:, :1]        # ties broken by later words
+    words[1][:, ::2] = 0
+    tw = [torch.as_tensor(np.ascontiguousarray(x), device=cuda_device)
+          for x in words]
+    passes = []
+    assert torch.equal(tds.argsort_words(tw, passes=passes),
+                       tds.plain_argsort_words(tw))
+    assert passes[0][1] == 24
+
+
 @pytest.mark.gpu
 def test_radix_engine_matches_plain_engine(cuda_device):
     rng = np.random.default_rng(10)
@@ -97,6 +161,38 @@ def test_segment_sum_matches_plain(cuda_device, shape, lo, hi, segs):
     assert tpk.segment_sum.launches == before + 1
     # atomics add in another order: 1e-4 of the segment's absolute sum
     scale = tpk.segment_sum_plain(ids, vals.abs(), segs)
+    assert got.shape == want.shape
+    assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
+
+
+def _zipf(rng, n, segs):
+    cdf = np.cumsum(1.0 / np.arange(1, segs + 1))
+    return np.minimum(np.searchsorted(cdf / cdf[-1], rng.random(n)),
+                      segs - 1).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zipf", "distinct", "sentinels", "ragged"])
+def test_segment_sum_table_path_within_tolerance(cuda_device, case):
+    # segments beyond the shared-memory path: the per-tile hash table
+    rng = np.random.default_rng(16)
+    S = 1 << 20
+    if case == "zipf":                        # PageRank's hot pages
+        ids = _zipf(rng, 1 << 22, S)[None]
+    elif case == "distinct":                  # every id once: tiles of
+        ids = rng.permutation(S).astype(np.int32)[None]  # distinct ids
+    elif case == "sentinels":
+        ids = rng.integers(-1, S + 100, (3, 70001)).astype(np.int32)
+    else:                                     # n % 4 != 0: scalar loads
+        ids = _zipf(rng, 2 * ((1 << 18) + 3), S).reshape(2, -1)
+    vals = rng.normal(size=ids.shape).astype(np.float32)
+    it = torch.as_tensor(ids, device=cuda_device)
+    vt = torch.as_tensor(vals, device=cuda_device)
+    before = tpk.segment_sum.launches
+    got = tpk.segment_sum(it, vt, S)
+    assert tpk.segment_sum.launches == before + 1
+    want = tpk.segment_sum_plain(it, vt, S)
+    scale = tpk.segment_sum_plain(it, vt.abs(), S)
     assert got.shape == want.shape
     assert bool(((got - want).abs() <= 1e-4 * scale + 1e-6).all())
 

@@ -329,3 +329,93 @@ def test_argsort_engines_agree_per_worker(W):
 def test_radix_argsort_empty_rows():
     perm = tps.radix_argsort_device([torch.zeros((2, 0), dtype=torch.int64)])
     assert perm.shape == (2, 0)
+
+
+# -- the onesweep engine's plain versions against the reference -------------
+
+def _digit(words, shift):
+    return ((words.view(np.uint64) >> np.uint64(shift))
+            & np.uint64(255)).astype(np.int32)
+
+
+@pytest.mark.parametrize("n,shift,gather", [(1000, 0, False), (3001, 8, True),
+                                            (4097, 56, True),
+                                            (5000, 24, False)])
+def test_radix_pass_plain_matches_pallas_partition(n, shift, gather):
+    # the pass = the TPU kernel's offsets, then .at[offs].set of the
+    # carried keys and permutation
+    rng = np.random.default_rng(n + shift)
+    words = rng.integers(-2**63, 2**63, n, dtype=np.int64)
+    words[::5] = words[0]                      # ties keep their order
+    perm = rng.permutation(n).astype(np.int32)
+    carried = words[perm] if gather else words
+    offs = jps.stable_partition_offsets_pallas(
+        jnp.asarray(_digit(carried, shift)), 256, interpret=True)
+    want_p = np.asarray(jnp.zeros(n, jnp.int32).at[offs].set(perm))
+    want_k = np.asarray(jnp.zeros(n, jnp.int64).at[offs].set(carried))
+    k, p = tps.radix_pass_plain(_t(words), _t(perm), shift, gather=gather)
+    assert p.dtype == torch.int32 and k.dtype == torch.int64
+    assert np.array_equal(p.numpy(), want_p)
+    assert np.array_equal(k.numpy(), want_k)
+    # the wrapper takes the plain version for CPU tensors; without keys
+    hist = tps.radix_upsweep(_t(words))[shift // 8]
+    k2, p2 = tps.radix_pass(_t(words), _t(perm), shift, hist, gather=gather,
+                            write_keys=False)
+    assert k2 is None and np.array_equal(p2.numpy(), want_p)
+
+
+def test_radix_pass_identity_permutation():
+    rng = np.random.default_rng(21)
+    W, n = 3, 2000
+    words = rng.integers(-2**63, 2**63, (W, n), dtype=np.int64)
+    k, p = tps.radix_pass_plain(_t(words), None, 16, gather=True)
+    for w in range(W):
+        order = np.argsort(_digit(words[w], 16), kind="stable")
+        assert np.array_equal(p[w].numpy(), order)
+        assert np.array_equal(k[w].numpy(), words[w][order])
+
+
+@pytest.mark.parametrize("W,n,ndigits", [(1, 1000, 8), (2, 777, 3),
+                                         (4, 1500, 2)])
+def test_radix_upsweep_plain_matches_pallas_histograms(W, n, ndigits):
+    rng = np.random.default_rng(W * n)
+    words = rng.integers(-2**63, 2**63, (W, n), dtype=np.int64)
+    words[:, ::2] |= np.int64(-2**63)         # the sign bit set
+    words[:, 1::7] = -1
+    got = tps.radix_upsweep(_t(words), ndigits).numpy()
+    assert got.shape == (W, 8, 256) and got.dtype == np.int32
+    for w in range(W):
+        for j in range(8):
+            want = (np.asarray(jpk.partition_histogram_pallas(
+                jnp.asarray(_digit(words[w], 8 * j)), 256, interpret=True))
+                if j < ndigits else np.zeros(256, np.int32))
+            assert np.array_equal(got[w, j], want)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_radix_argsort_matches_reference_engine_per_row(W):
+    rng = np.random.default_rng(30 + W)
+    n = tps.TILE + 37                          # a ragged last tile
+    w0 = rng.integers(0, 2**64, (W, n), dtype=np.uint64)
+    w0[:, ::3] = w0[:, :1]                     # ties broken by w1
+    w1 = rng.integers(0, 200, (W, n)).astype(np.uint64)
+    passes = []
+    got = tps.radix_argsort_device([_t(w0.view(np.int64)),
+                                    _t(w1.view(np.int64))], [64, 8],
+                                   passes=passes).numpy()
+    assert passes == [(9, 9)]
+    for w in range(W):
+        want = np.asarray(jps.radix_argsort_device(
+            [jnp.asarray(w0[w]), jnp.asarray(w1[w])], word_bits=[64, 8]))
+        assert np.array_equal(got[w], want)
+
+
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_radix_argsort_empty_rows_have_no_live_pass(W):
+    # the reference engine reads digit[0] and takes no empty row; the
+    # port's upsweep sees an empty histogram and runs no pass
+    passes = []
+    got = tps.radix_argsort_device([torch.zeros((W, 0), dtype=torch.int64)],
+                                   [16], passes=passes)
+    assert got.shape == (W, 0) and got.dtype == torch.int64
+    assert passes == [(0, 2)]

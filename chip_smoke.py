@@ -8,11 +8,15 @@ Phases, each fatal on failure:
      source, all at once);
   2. hold each kernel against its plain PyTorch version on the card, at
      the main path's shapes and on edge cases (results are integers and
-     must be bit-equal): the send-count histogram, the radix engine's
+     must be bit-equal): the send-count histogram (int32 and sorted int64
+     destinations over 4 bins with the sentinel run last, int64 ids at and
+     beyond 32 bits, 256 bins), the radix engine's
      upsweep and pass kernels (the pass in both its modes, repeated at the
      main path's shape, where a missing fence would show as a rare wrong
      offset), the stable-partition offsets, segment sum and presence
-     fill; then time kernel, plain version and library call;
+     fill (int64 ids with a compacted valid prefix, ids beyond 32 bits,
+     the largest shared bitset); then time kernel, plain version and
+     library call;
   3. TeraSort through the port's API, Context -> Distribute -> Sort ->
      Size / AllGatherArrays, of 100-byte records (10-byte key, 90-byte
      value) made from a numpy seed: W=4 virtual workers x 2^22 records,
@@ -31,9 +35,19 @@ Phases, each fatal on failure:
      "d": "first", "v": "sum"}), 2^22); "v" must agree with np.bincount(d,
      weights=v) in f64 within 1e-4 of each page's sum of |v| plus 1e-6;
      warm repeats and a profiler table;
-  6. time segment_sum and presence_fill on the inputs the W=4 PageRank and
-     WordCount runs gave them, and print the card, the kernels line and,
-     last, the device line.
+  6. on the inputs the W=4 runs gave the kernels, captured at the call
+     sites: the send-count histogram on the Sort's int32 destinations and
+     on the WordCount's and the PageRank step's sorted int64 destinations,
+     each beside its bound, the parent's int32 copy plus kernel and
+     torch.bincount; segment_sum on the PageRank step's ids; presence_fill
+     on the WordCount's register ids (its bound counts every flag and the
+     id of each valid row only); then print the card, the kernels line
+     and, last, the device line.
+
+    python3 chip_smoke.py --save-inputs DIR
+
+also saves those captured inputs to DIR/main_inputs.pt, for
+``kernel_times.py --inputs DIR`` to time other versions of the kernels on.
 
 Exits non-zero without a result line when no CUDA device is present or
 the port's sources are not beside this script.
@@ -72,11 +86,16 @@ def card_line() -> str:
 WARMUP, ITERS, WINDOWS = 2, 10, 3
 
 
+HOST_AHEAD_CYCLES = 20_000_000  # about 10 ms of device sleep
+
+
 def cuda_ms(torch, fn, iters: int = ITERS, windows: int = WINDOWS) -> float:
     """Device time of one call of ``fn``: the median over ``windows``
-    windows of the mean over ``iters`` calls, after WARMUP calls. One
-    window alone read a 0.04 ms kernel as 0.06-0.10 ms when it was the
-    first timed in a process."""
+    windows of the mean over ``iters`` calls, after WARMUP calls. Each
+    window is queued behind a device sleep, so the host has queued every
+    call before the first runs: a wrapper whose host time (about 0.05 ms)
+    exceeds its kernel's would otherwise time the host (the 0.035-0.096 ms
+    spread of a 0.04 ms histogram)."""
     for _ in range(WARMUP):
         fn()
     torch.cuda.synchronize()
@@ -84,6 +103,7 @@ def cuda_ms(torch, fn, iters: int = ITERS, windows: int = WINDOWS) -> float:
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(HOST_AHEAD_CYCLES)
         start.record()
         for _ in range(iters):
             fn()
@@ -104,9 +124,9 @@ def check_kernels(torch, np, pk, ps):
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED)
 
-    def ids(shape, lo, hi):
-        return torch.as_tensor(rng.integers(lo, hi, size=shape,
-                                            dtype=np.int32), device=dev)
+    def ids(shape, lo, hi, dtype=np.int32):
+        return torch.as_tensor(rng.integers(lo, hi, size=shape, dtype=dtype),
+                               device=dev)
 
     W = 4
     main = (W, PER_WORKER)
@@ -119,6 +139,17 @@ def check_kernels(torch, np, pk, ps):
         ("empty rows", ids((W, 0), 0, 1), W),
         ("one", ids((1,), 0, 5), 5),
         ("ragged", ids((2, 4097), 0, 17), 17),
+        # the exchange's sorted int64 destinations, the sentinel run last
+        ("sorted int64 send counts",
+         ids(main, 0, W + 1, np.int64).sort(dim=1).values, W),
+        ("random int64 send counts", ids(main, 0, W + 1, np.int64), W),
+        ("sorted int32 send counts (Sort)",
+         ids(main, 0, W + 1).sort(dim=1).values, W),
+        ("int64 beyond 32 bits", wide_ids(torch, np, rng, (W, 70001), W, dev),
+         W),
+        ("int64, 32 bins, ragged", ids((3, 4097), -1, 34, np.int64), 32),
+        ("int64, 256 bins",
+         ids((3, 70001), -9, 300, np.int64), 256),
     ]
     part_cases = [
         ("digits", ids(main, 0, 256), 256),
@@ -164,6 +195,18 @@ def check_kernels(torch, np, pk, ps):
     errs["segment_sum"] = check_segment_sum(torch, np, pk, rng)
     errs["presence_fill"] = check_presence_fill(torch, np, pk, rng)
     return errs
+
+
+def wide_ids(torch, np, rng, shape, bins, dev):
+    """int64 ids in [0, bins) mixed with ids at and beyond 32 bits (2^31,
+    2^32 + 1, 2^32 + 3, -2^32 + 1, ...), which a kernel that cut ids to
+    int32 would count in bins 0, 1 and 3."""
+    wide = np.array([2**31 - 1, 2**31, 2**32, 2**32 + 1, 2**32 + 3,
+                     -2**31, -2**32 + 1, -1, 2**63 - 1, -2**63], np.int64)
+    d = rng.integers(0, bins, size=shape, dtype=np.int64)
+    pick = rng.random(shape) < 0.3
+    d[pick] = rng.choice(wide, size=int(pick.sum()))
+    return torch.as_tensor(d, device=dev)
 
 
 def skewed(torch, np, rng, shape, dev):
@@ -278,17 +321,31 @@ def check_presence_fill(torch, np, pk, rng):
     dev = torch.device(DEVICE)
     W, n = 4, PER_WORKER
 
-    def case(shape, lo, hi):
+    def case(shape, lo, hi, dtype=np.int32, prefix=None):
+        valid = (rng.random(shape) < 0.7 if prefix is None else
+                 np.broadcast_to(np.arange(shape[-1]) < prefix * shape[-1],
+                                 shape).copy())
         return (torch.as_tensor(rng.integers(lo, hi, size=shape,
-                                             dtype=np.int32), device=dev),
-                torch.as_tensor(rng.random(shape) < 0.7, device=dev))
+                                             dtype=dtype), device=dev),
+                torch.as_tensor(valid, device=dev))
 
     cases = [("2^17 registers", *case((W, n), 0, 1 << 17), 1 << 17),
              ("4096 registers (the TPU kernel's domain)",
               *case((W, n), 0, 4096), 4096),
              ("sentinels", *case((3, 70001), -3, 1 << 17), 100000),
              ("empty", *case((0,), 0, 1), 8),
-             ("empty rows", *case((W, 0), 0, 1), 8)]
+             ("empty rows", *case((W, 0), 0, 1), 8),
+             # WordCount's int64 register ids, valid rows first
+             ("int64, 22 % valid prefix, 2^17 registers",
+              *case((W, n), 0, 1 << 17, np.int64, 0.22), 1 << 17),
+             ("int64 beyond 32 bits",
+              wide_ids(torch, np, rng, (W, 70001), 4096, dev),
+              torch.as_tensor(rng.random((W, 70001)) < 0.7, device=dev),
+              4096),
+             ("int64, 2^20 registers (the largest bitset)",
+              *case((2, 1 << 20), -1, (1 << 20) + 9, np.int64), 1 << 20),
+             ("int64, ragged rows, 1000 registers",
+              *case((3, 4097), -9, 1009, np.int64, 0.5), 1000)]
     for label, h, valid, regs in cases:
         got = pk.presence_fill(h, valid, regs)
         want = pk.presence_fill_plain(h, valid, regs)
@@ -310,15 +367,20 @@ def time_kernels(torch, np, pk, ps):
     d = torch.as_tensor(rng.integers(0, bins, size=(R, n), dtype=np.int32),
                         device=dev)
     rows = {}
-    ms = cuda_ms(torch, lambda: pk.partition_histogram(d, bins))
-    plain = cuda_ms(torch, lambda: pk.partition_histogram_plain(d, bins))
+    # off the main path since the radix engine counts its own digits: 256
+    # random int32 bins, kept for a comparison with earlier runs of this
+    # line
     b, by = bound(R * n * 4 + R * bins * 4, R * n)
-    # the library call: one bincount of the row-offset ids
     flat = (d.to(torch.int64) + torch.arange(R, device=dev)[:, None] * bins
             ).reshape(-1)
-    lib = cuda_ms(torch, lambda: torch.bincount(flat, minlength=R * bins))
-    rows["partition_histogram"] = dict(ms=ms, plain_ms=plain, bound_ms=b,
-                                       bound_by=by, library_ms=lib)
+    off = dict(ms=cuda_ms(torch, lambda: pk.partition_histogram(d, bins)),
+               plain_ms=cuda_ms(torch, lambda: pk.partition_histogram_plain(
+                   d, bins)),
+               bound_ms=b, bound_by=by,
+               library_ms=cuda_ms(torch, lambda: torch.bincount(
+                   flat, minlength=R * bins)))
+    log(f"time partition_histogram OFF the main path at [{R}, {n}] random "
+        f"int32 ids, bins={bins}: " + json.dumps(off))
     ms = cuda_ms(torch, lambda: ps.stable_partition_offsets(d, bins))
     plain = cuda_ms(torch, lambda: ps.stable_partition_offsets_plain(d, bins))
     lib = cuda_ms(torch, lambda: torch.sort(d, dim=1, stable=True))
@@ -399,9 +461,9 @@ def time_argsort(torch, np):
     return out
 
 
-def terasort(torch, np, tt, W: int, pk, ps):
+def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
     """One TeraSort through the port's API; returns the kernel launches
-    of the checked run."""
+    of the checked run and the send_counts inputs it made (W > 1)."""
     n = W * PER_WORKER
     rng = np.random.default_rng(SEED + W)
     rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
@@ -411,12 +473,13 @@ def terasort(torch, np, tt, W: int, pk, ps):
     ctx = tt.Context(num_workers=W, device=DEVICE)
     torch.cuda.synchronize()
     zero_launches(pk, ps)
-    t0 = time.perf_counter()
-    d = ctx.Distribute(recs).Sort(key_fn=lambda r: r["key"]).Keep()
-    size = d.Size()
-    out = d.AllGatherArrays()
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with Capture(exchange_mod, "send_counts") as cap:
+        t0 = time.perf_counter()
+        d = ctx.Distribute(recs).Sort(key_fn=lambda r: r["key"]).Keep()
+        size = d.Size()
+        out = d.AllGatherArrays()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     launches = read_launches(pk, ps)
     passes = list(ctx.mesh_exec.radix_passes)
     if size != n:
@@ -477,7 +540,7 @@ def terasort(torch, np, tt, W: int, pk, ps):
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25))
-    return launches
+    return launches, cap.args
 
 
 class Capture:
@@ -536,10 +599,10 @@ def word_ids(np, w: np.ndarray) -> np.ndarray:
     return (d * (26 ** np.arange(5))[None, :]).sum(axis=1)
 
 
-def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod):
+def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod, exchange_mod):
     """One WordCount of W x 2^22 words through the port's API; returns
-    the kernel launches of the checked run and the presence_fill inputs
-    it made (W > 1)."""
+    the kernel launches of the checked run and the presence_fill and
+    send_counts inputs it made (W > 1)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10 + W)
     n = W * PER_WORKER
     voc = vocabulary(torch, gen)
@@ -557,7 +620,8 @@ def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod):
     src.Execute()
     torch.cuda.synchronize()
     zero_launches(pk, ps)
-    with Capture(reduce_mod, "presence_fill") as cap:
+    with Capture(reduce_mod, "presence_fill") as cap, \
+            Capture(exchange_mod, "send_counts") as cap_sc:
         t0 = time.perf_counter()
         out = run(ctx, src)
         torch.cuda.synchronize()
@@ -614,13 +678,13 @@ def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod):
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25))
-    return launches, cap.args
+    return launches, cap.args, cap_sc.args
 
 
-def pagerank_step(torch, np, tt, pk, ps, reduce_mod):
+def pagerank_step(torch, np, tt, pk, ps, reduce_mod, exchange_mod):
     """The PageRank contribution step at W=4: 2^24 edges with Zipf
     targets into 2^22 pages. Returns the launches of the checked run and
-    the segment_sum inputs it made."""
+    the segment_sum and send_counts inputs it made."""
     W = 4
     n = W * PER_WORKER
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
@@ -638,7 +702,8 @@ def pagerank_step(torch, np, tt, pk, ps, reduce_mod):
     src.Execute()
     torch.cuda.synchronize()
     zero_launches(pk, ps)
-    with Capture(reduce_mod, "segment_sum") as cap:
+    with Capture(reduce_mod, "segment_sum") as cap, \
+            Capture(exchange_mod, "send_counts") as cap_sc:
         t0 = time.perf_counter()
         out = run(src)
         torch.cuda.synchronize()
@@ -690,14 +755,54 @@ def pagerank_step(torch, np, tt, pk, ps, reduce_mod):
         run(src3)
         torch.cuda.synchronize()
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    return launches, cap.args
+    return launches, cap.args, cap_sc.args
 
 
-def time_main_path_inputs(torch, pk, seg_args, pres_args):
-    """segment_sum and presence_fill on the inputs the W=4 ReduceToIndex
-    and WordCount runs gave them: held against the plain version, then
-    timed beside the plain version, one library call and the bound."""
+def time_send_counts(torch, pk, label, dest, W):
+    """The send-count histogram on one captured ``send_counts`` input (the
+    kernel reads it as it is): held against the plain version, then timed
+    (``ms``), behind the int32 copy that ``send_counts`` made before the
+    kernel took int64 ids (``copy_ms``), beside the plain version, one
+    bincount and the bound: the ids' bytes as the caller holds them plus
+    the output."""
+    R, n = dest.shape
+    if not torch.equal(pk.partition_histogram(dest, W),
+                       pk.partition_histogram_plain(dest, W)):
+        raise AssertionError(f"partition_histogram disagrees with its plain "
+                             f"version on the {label} input")
+    d64 = dest.to(torch.int64)
+    flat = (torch.where((d64 >= 0) & (d64 < W), d64, torch.full_like(d64, W))
+            + torch.arange(R, device=dest.device)[:, None] * (W + 1)
+            ).reshape(-1)
+    del d64
+    b, by = bound(dest.numel() * dest.element_size() + R * W * 4, R * n)
+    row = dict(
+        ms=cuda_ms(torch, lambda: pk.partition_histogram(dest, W)),
+        copy_ms=cuda_ms(torch, lambda: pk.partition_histogram(
+            dest.to(torch.int32).contiguous(), W)),
+        plain_ms=cuda_ms(torch, lambda: pk.partition_histogram_plain(dest,
+                                                                    W)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.bincount(
+            flat, minlength=R * (W + 1))))
+    rows_sorted = bool((dest[:, 1:] >= dest[:, :-1]).all())
+    log(f"time partition_histogram on the {label} send_counts input [{R}, "
+        f"{n}] {str(dest.dtype)[6:]}, {W} bins, sorted rows {rows_sorted}, "
+        f"{int((dest < W).sum())} valid ids: " + json.dumps(row))
+    return row
+
+
+def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args):
+    """The kernels on the inputs the W=4 runs gave them: held against the
+    plain version, then timed beside the plain version, one library call
+    and the bound. Returns the rows of the kernels line (the histogram's
+    from the WordCount input) and the worst errors."""
     rows, errs = {}, {}
+    for label, (dest, W) in sc_args.items():
+        row = time_send_counts(torch, pk, label, dest, W)
+        if label == "WordCount":
+            rows["partition_histogram"] = row
+    errs["partition_histogram"] = 0
     ids, vals, segs = seg_args
     R, n = ids.shape
     err, ok = seg_err(torch, pk, ids, vals, segs,
@@ -721,6 +826,7 @@ def time_main_path_inputs(torch, pk, seg_args, pres_args):
         library_ms=cuda_ms(torch, lambda: acc.index_add_(0, flat, vflat)))
     log(f"time segment_sum at the main path's [{R}, {n}], {segs} segments: "
         + json.dumps(rows["segment_sum"]))
+    # the call site's register ids: int64 (hashing.umod)
     h, valid, regs = pres_args
     R, n = h.shape
     if not torch.equal(pk.presence_fill(h, valid, regs),
@@ -729,21 +835,28 @@ def time_main_path_inputs(torch, pk, seg_args, pres_args):
                              "on the main path's inputs")
     errs["presence_fill"] = 0
     ok = valid & (h >= 0) & (h < regs)
-    flat = torch.where(ok, h.to(torch.int64),
-                       torch.full_like(h, regs, dtype=torch.int64))
+    flat = torch.where(ok, h, torch.full_like(h, regs))
     flat = (flat + torch.arange(R, device=h.device)[:, None] * (regs + 1)
             ).reshape(-1)
     reg = torch.zeros(R * (regs + 1), dtype=torch.uint8, device=h.device)
     one = torch.ones((), dtype=torch.uint8, device=h.device)
-    b, by = bound(R * n * 5 + R * regs, R * n)
+    # what these inputs need: every flag, the id of each valid row (int64,
+    # as the call site holds it), the registers written once
+    nvalid = int(valid.sum())
+    b, by = bound(R * n + nvalid * h.element_size() + R * regs, R * n)
     rows["presence_fill"] = dict(
         ms=cuda_ms(torch, lambda: pk.presence_fill(h, valid, regs)),
+        copy_ms=cuda_ms(torch, lambda: pk.presence_fill(
+            h.to(torch.int32), valid, regs)),
         plain_ms=cuda_ms(torch, lambda: pk.presence_fill_plain(h, valid,
                                                                regs)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(torch, lambda: reg.index_put_((flat,), one)))
+    old_b, _ = bound(R * n * 5 + R * regs, R * n)
     log(f"time presence_fill at the main path's [{R}, {n}], {regs} "
-        f"registers: " + json.dumps(rows["presence_fill"]))
+        f"registers, {nvalid} valid rows ({nvalid / (R * n):.4f}; the bound "
+        f"that counted 5 bytes a row: {old_b}): "
+        + json.dumps(rows["presence_fill"]))
     return rows, errs
 
 
@@ -757,6 +870,7 @@ def main() -> int:
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
     from thrill_tpu_torch.api.ops import reduce as reduce_mod
+    from thrill_tpu_torch.data import exchange as exchange_mod
     from thrill_tpu_torch.core import pallas_kernels as pk
     from thrill_tpu_torch.core import pallas_sort as ps
 
@@ -774,13 +888,21 @@ def main() -> int:
     errs = check_kernels(torch, np, pk, ps)
     times = time_kernels(torch, np, pk, ps)
     time_argsort(torch, np)
-    sort4 = terasort(torch, np, tt, 4, pk, ps)
-    terasort(torch, np, tt, 1, pk, ps)
-    wc4, pres_args = wordcount(torch, np, tt, 4, pk, ps, reduce_mod)
-    wordcount(torch, np, tt, 1, pk, ps, reduce_mod)
-    step4, seg_args = pagerank_step(torch, np, tt, pk, ps, reduce_mod)
+    sort4, sc_sort = terasort(torch, np, tt, 4, pk, ps, exchange_mod)
+    terasort(torch, np, tt, 1, pk, ps, exchange_mod)
+    wc4, pres_args, sc_wc = wordcount(torch, np, tt, 4, pk, ps, reduce_mod,
+                                      exchange_mod)
+    wordcount(torch, np, tt, 1, pk, ps, reduce_mod, exchange_mod)
+    step4, seg_args, sc_pr = pagerank_step(torch, np, tt, pk, ps, reduce_mod,
+                                           exchange_mod)
+    sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr}
+    if "--save-inputs" in sys.argv:
+        out_dir = sys.argv[sys.argv.index("--save-inputs") + 1]
+        os.makedirs(out_dir, exist_ok=True)
+        torch.save({"send_counts": sc_args, "presence_fill": pres_args},
+                   os.path.join(out_dir, "main_inputs.pt"))
     main_times, main_errs = time_main_path_inputs(torch, pk, seg_args,
-                                                  pres_args)
+                                                  pres_args, sc_args)
     times.update(main_times)
     for k, e in main_errs.items():
         errs[k] = max(errs[k], e)
@@ -790,7 +912,7 @@ def main() -> int:
         "partition_histogram": dict(
             source="thrill_tpu_torch/csrc/partition_histogram.cu",
             replaces="thrill_tpu/core/pallas_kernels.py:116",
-            launches=sort4["partition_histogram"]),
+            launches=wc4["partition_histogram"]),
         # the TPU kernel's stable partition became the radix engine's two
         # kernels; its offsets epilogue is timed and checked above but is
         # not on the main path

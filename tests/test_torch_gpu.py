@@ -24,27 +24,82 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# int64 ids at and beyond 32 bits: a kernel that cut them to int32 would
+# count 2^32 + 1 in bin 1
+_WIDE_IDS = [2**31 - 1, 2**31, 2**32, 2**32 + 1, 2**32 + 3, -2**31,
+             -2**32 + 1, -1, 2**63 - 1, -2**63]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,lo,hi,bins", [
-    ((4, 1 << 16), 0, 256, 256),          # radix digits
-    ((3, 4097), -9, 300, 256),            # out of range, ragged tiles
-    ((4, 5000), 0, 5, 4),                 # send counts: 4 = invalid
-    ((2, 8192), 3, 4, 256),               # one digit everywhere
-    ((0,), 0, 1, 8),                      # empty
+@pytest.mark.parametrize("shape,lo,hi,bins,dtype,sort", [
+    ((4, 1 << 16), 0, 256, 256, np.int32, False),  # radix digits
+    ((3, 4097), -9, 300, 256, np.int32, False),    # out of range, ragged
+    ((4, 5000), 0, 5, 4, np.int32, False),   # send counts: 4 = invalid
+    ((2, 8192), 3, 4, 256, np.int32, False),       # one digit everywhere
+    ((0,), 0, 1, 8, np.int32, False),              # empty
+    # the exchange's sorted int64 destinations with a sentinel tail
+    ((4, 1 << 20), 0, 5, 4, np.int64, True),
+    ((4, 1 << 20), 0, 5, 4, np.int64, False),      # random int64
+    ((4, 1 << 20), 0, 5, 4, np.int32, True),       # Sort's int32 dests
+    ((3, 4097), 0, 40, 32, np.int64, False),       # int64, scalar loads
+    ((3, 70001), -2, 40, 33, np.int64, False),     # int64, out of range
+    ((2, 0), 0, 1, 4, np.int64, False),            # empty rows
 ])
-def test_cuda_kernels_match_plain(cuda_device, shape, lo, hi, bins):
+def test_cuda_kernels_match_plain(cuda_device, shape, lo, hi, bins, dtype,
+                                  sort):
     rng = np.random.default_rng(9)
-    d = torch.as_tensor(rng.integers(lo, hi, size=shape, dtype=np.int32),
-                        device=cuda_device)
+    d = rng.integers(lo, hi, size=shape).astype(dtype)
+    if sort:
+        d.sort(axis=-1)
+    d = torch.as_tensor(d, device=cuda_device)
     launches = (tpk.partition_histogram.launches,
                 tps.stable_partition_offsets.launches)
     assert torch.equal(tpk.partition_histogram(d, bins),
                        tpk.partition_histogram_plain(d, bins))
-    assert torch.equal(tps.stable_partition_offsets(d, bins),
-                       tps.stable_partition_offsets_plain(d, bins))
+    offsets = dtype == np.int32               # the offsets take int32 ids
+    if offsets:
+        assert torch.equal(tps.stable_partition_offsets(d, bins),
+                           tps.stable_partition_offsets_plain(d, bins))
     assert (tpk.partition_histogram.launches,
-            tps.stable_partition_offsets.launches) == (launches[0] + 1,
-                                                       launches[1] + 1)
+            tps.stable_partition_offsets.launches) == (
+                launches[0] + 1, launches[1] + offsets)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,bins", [(4, 4), (2, 5), (4, 256)])
+def test_histogram_ignores_int64_ids_beyond_32_bits(cuda_device, W, bins):
+    rng = np.random.default_rng(W + bins)
+    d = np.concatenate([np.tile(_WIDE_IDS, (W, 1)),
+                        rng.integers(0, bins, (W, 5000))], axis=1)
+    d = torch.as_tensor(rng.permuted(d.astype(np.int64), axis=1),
+                        device=cuda_device)
+    before = tpk.partition_histogram.launches
+    got = tpk.partition_histogram(d, bins)
+    assert tpk.partition_histogram.launches == before + 1
+    assert torch.equal(got, tpk.partition_histogram_plain(d, bins))
+    assert torch.equal(got[:, 1].cpu(), (d == 1).sum(dim=1).to(
+        torch.int32).cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["histogram", "presence_fill"])
+def test_kernels_repeat_on_one_stream(cuda_device, kernel):
+    # back-to-back launches of other shapes on one stream stay exact (the
+    # presence fill's bitsets, which each launch leaves zeroed, serve the
+    # next launch)
+    rng = np.random.default_rng(17)
+    for rows, n in ((4, 1 << 20), (2, 777), (6, 1 << 18), (1, 5)):
+        d = torch.as_tensor(rng.integers(-1, 4100, (rows, n)),
+                            device=cuda_device)
+        valid = torch.as_tensor(rng.random((rows, n)) < 0.5,
+                                device=cuda_device)
+        for bins in (4, 5, 3, 4096, 100):
+            if kernel == "histogram":
+                assert torch.equal(tpk.partition_histogram(d % 7, bins),
+                                   tpk.partition_histogram_plain(d % 7, bins))
+            elif kernel == "presence_fill":
+                assert torch.equal(tpk.presence_fill(d, valid, bins),
+                                   tpk.presence_fill_plain(d, valid, bins))
 
 
 def _keys_with_digit(rng, d, shift):
@@ -198,20 +253,83 @@ def test_segment_sum_table_path_within_tolerance(cuda_device, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,lo,hi,regs", [
-    ((4, 1 << 16), 0, 1 << 17, 1 << 17),  # WordCount's register count
-    ((3, 4097), -9, 300, 256),            # out of range, ragged rows
-    ((0,), 0, 1, 8),                      # empty
+@pytest.mark.parametrize("shape,lo,hi,regs,dtype,prefix", [
+    ((4, 1 << 16), 0, 1 << 17, 1 << 17, np.int32, None),  # WordCount's M
+    ((3, 4097), -9, 300, 256, np.int32, None),  # out of range, ragged rows
+    ((0,), 0, 1, 8, np.int32, None),            # empty
+    # WordCount's int64 register ids with a compacted valid prefix
+    ((4, 1 << 20), 0, 1 << 17, 1 << 17, np.int64, 0.22),
+    ((3, 4097), -9, 1000, 1000, np.int64, 0.5),  # ragged, odd M
+    ((4, 1 << 20), -1, (1 << 17) + 1, 1 << 17, np.int64, None),  # unsorted
+    ((2, 1 << 16), 0, 1 << 20, 1 << 20, np.int64, None),  # largest bitset
+    ((2, 4096), 0, 4096, 4096, np.int64, 0.0),  # no valid row
 ])
-def test_presence_fill_matches_plain(cuda_device, shape, lo, hi, regs):
+def test_presence_fill_matches_plain(cuda_device, shape, lo, hi, regs, dtype,
+                                     prefix):
     rng = np.random.default_rng(12)
-    h = torch.as_tensor(rng.integers(lo, hi, size=shape, dtype=np.int32),
+    h = torch.as_tensor(rng.integers(lo, hi, size=shape).astype(dtype),
                         device=cuda_device)
-    valid = torch.as_tensor(rng.random(shape) < 0.7, device=cuda_device)
+    if prefix is None:
+        valid = rng.random(shape) < 0.7
+    else:
+        valid = np.broadcast_to(np.arange(shape[-1]) < prefix * shape[-1],
+                                shape).copy()
+    valid = torch.as_tensor(valid, device=cuda_device)
     before = tpk.presence_fill.launches
     assert torch.equal(tpk.presence_fill(h, valid, regs),
                        tpk.presence_fill_plain(h, valid, regs))
     assert tpk.presence_fill.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("regs", [4, 1 << 17, 1 << 20])
+def test_presence_fill_ignores_int64_ids_beyond_32_bits(cuda_device, regs):
+    rng = np.random.default_rng(regs)
+    rest = rng.integers(0, regs, (2, 3000))
+    rest[(rest == 1) | (rest == 3)] = 0
+    h = np.concatenate([np.tile(_WIDE_IDS, (2, 1)), rest], axis=1)
+    h = torch.as_tensor(rng.permuted(h.astype(np.int64), axis=1),
+                        device=cuda_device)
+    valid = (torch.rand(h.shape, device=cuda_device) < 0.6) | (
+        h.abs() >= 2**31 - 1)
+    got = tpk.presence_fill(h, valid, regs)
+    assert torch.equal(got, tpk.presence_fill_plain(h, valid, regs))
+    assert int(got[:, 1].sum()) == 0 and int(got[:, 3].sum()) == 0
+
+
+@pytest.mark.gpu
+def test_presence_fill_refuses_registers_beyond_the_bitset(cuda_device):
+    h = torch.zeros((2, 64), dtype=torch.int64, device=cuda_device)
+    valid = torch.ones((2, 64), dtype=torch.bool, device=cuda_device)
+    before = tpk.presence_fill.launches
+    with pytest.raises(ValueError):
+        tpk.presence_fill(h, valid, tpk.BITSET_REGS + 1)
+    assert tpk.presence_fill.launches == before
+
+
+@pytest.mark.gpu
+def test_presence_fill_failed_launch_leaves_no_stale_bits(cuda_device,
+                                                          monkeypatch):
+    # a launch that fails after its fill set bits must not hand them to
+    # the next launch on the stream
+    rng = np.random.default_rng(18)
+    h = torch.as_tensor(rng.integers(0, 4096, (4, 5000)), device=cuda_device)
+    valid = torch.as_tensor(rng.random((4, 5000)) < 0.1, device=cuda_device)
+    tpk.presence_fill(h, valid, 4096)         # the stream's bitsets exist
+
+    def failing(*args):
+        for bits in tpk._bitsets.values():
+            bits.fill_(-1)                    # bits the expand never cleared
+        return 1                              # cudaErrorInvalidValue
+
+    monkeypatch.setattr(tpk, "_pres_lib", lambda: failing)
+    before = tpk.presence_fill.launches
+    with pytest.raises(RuntimeError):
+        tpk.presence_fill(h, valid, 4096)
+    assert tpk.presence_fill.launches == before
+    monkeypatch.undo()
+    assert torch.equal(tpk.presence_fill(h, valid, 4096),
+                       tpk.presence_fill_plain(h, valid, 4096))
 
 
 @pytest.mark.gpu

@@ -4,7 +4,10 @@ The plain versions of the partition-histogram, stable-partition and
 presence-fill kernels must equal the Pallas kernels in interpret mode bit
 for bit, the segment sum within ``atol=1e-4`` (the reference's own bound
 for sums of a thousand normal values: the one-hot kernel adds in blocks
-of 64, the plain version in order);
+of 64, the plain version in order); on int64 ids beyond 32 bits, which
+the Pallas kernels cut to int32, the histogram and the presence fill
+must equal the reference's dispatch functions, whose non-Pallas path on
+the CPU compares at full width;
 key encoding must equal the reference's word for word; the radix loop
 must equal numpy's stable sorts. The CUDA kernels themselves run only on
 a card: ``tests/test_torch_gpu.py`` holds them against their plain
@@ -24,6 +27,7 @@ from thrill_tpu_torch.core import device_sort as tds
 from thrill_tpu_torch.core import keys as tkeys
 from thrill_tpu_torch.core import pallas_kernels as tpk
 from thrill_tpu_torch.core import pallas_sort as tps
+from thrill_tpu_torch.data import exchange as texchange
 
 
 def _t(a):
@@ -69,6 +73,59 @@ def test_histogram_batched_rows_match_pallas():
         want = np.asarray(jpk.partition_histogram_pallas(
             jnp.asarray(dest[w]), bins, interpret=True))
         assert np.array_equal(got[w], want)
+
+
+# int64 ids at and beyond 32 bits: a kernel that cut them to int32 would
+# count 2^32 + 1 in bin 1 and 2^32 + 3 in bin 3
+_WIDE_IDS = [2**31 - 1, 2**31, 2**32, 2**32 + 1, 2**32 + 3, 2**40 + 2,
+             -2**31, -2**32 + 1, -1, 2**63 - 1, -2**63]
+
+
+@pytest.mark.parametrize("shape,bins,sort", [
+    ((1000,), 4, True),                    # sorted send destinations
+    ((4, 1500), 4, True),                  # per worker, sentinel tail
+    ((4097,), 4, False),                   # random, ragged
+    ((3000,), 17, False),
+    ((2, 2048), 256, True),
+])
+def test_histogram_int64_ids_match_pallas(shape, bins, sort):
+    rng = np.random.default_rng(40 + shape[-1])
+    dest = rng.integers(0, bins + 1, shape).astype(np.int64)  # bins: W
+    if sort:
+        dest.sort(axis=-1)
+    got = tpk.partition_histogram(_t(dest), bins)
+    assert got.dtype == torch.int32 and got.shape == shape[:-1] + (bins,)
+    for row, g in zip(dest.reshape(-1, shape[-1]), got.reshape(-1, bins)):
+        want = np.asarray(jpk.partition_histogram_pallas(
+            jnp.asarray(row), bins, interpret=True))
+        assert np.array_equal(g.numpy(), want)
+
+
+@pytest.mark.parametrize("bins,W", [(4, 1), (4, 4), (5, 2), (256, 1)])
+def test_histogram_int64_beyond_32_bits_matches_reference(bins, W):
+    rng = np.random.default_rng(bins + W)
+    dest = np.concatenate([np.tile(_WIDE_IDS, (W, 1)),
+                           rng.integers(0, bins, (W, 400))], axis=1)
+    dest = rng.permuted(dest.astype(np.int64), axis=1)
+    got = tpk.partition_histogram(_t(dest), bins).numpy()
+    for w in range(W):
+        want = np.asarray(jpk.partition_histogram(jnp.asarray(dest[w]), bins))
+        assert np.array_equal(got[w], want)
+        assert got[w, 1] == np.sum(dest[w] == 1)
+
+
+def test_send_counts_hands_the_ids_over_as_they_are(monkeypatch):
+    seen = []
+
+    def hist(dest, bins):
+        seen.append(dest)
+        return tpk.partition_histogram(dest, bins)
+
+    monkeypatch.setattr(texchange, "partition_histogram", hist)
+    dest = torch.tensor([[0, 0, 1, 3, 4, 4], [1, 2, 2, 2, 3, 4]])
+    S = texchange.send_counts(dest, 4)
+    assert seen[0] is dest and dest.dtype == torch.int64
+    assert S.tolist() == [[2, 1, 0, 1], [0, 1, 3, 1]]
 
 
 # -- stable partition offsets (kernel B2) -----------------------------------
@@ -121,7 +178,11 @@ def test_wrappers_refuse_other_devices_and_inputs():
         tps.stable_partition_offsets(meta, 4)
     # the kernels' own gates refuse before touching a device
     with pytest.raises(ValueError):
-        tpk._launch(torch.zeros(8, dtype=torch.int64), 4)
+        tpk._launch(torch.zeros(8, dtype=torch.int16), 4)
+    with pytest.raises(ValueError):
+        tpk._launch(torch.zeros(8, dtype=torch.float32), 4)
+    with pytest.raises(ValueError):
+        tpk._launch(torch.zeros((2, 8), dtype=torch.int64)[:, ::2], 4)
     with pytest.raises(ValueError):
         tpk._launch(torch.zeros(8, dtype=torch.int32), tpk.MAX_BINS + 1)
     with pytest.raises(ValueError):
@@ -204,6 +265,65 @@ def test_presence_fill_plain_edge_cases_match_pallas(h, valid, M):
                           want)
 
 
+@pytest.mark.parametrize("shape,M,frac", [
+    ((2000,), 64, 0.22),                   # WordCount's compacted shards
+    ((4, 4097), 4096, 0.5),
+    ((3, 777), 300, 1.0),
+    ((2, 1000), 1 << 17, 0.0),             # no valid row
+])
+def test_presence_fill_int64_compacted_prefix_matches_pallas(shape, M, frac):
+    rng = np.random.default_rng(50 + M)
+    n = shape[-1]
+    h = rng.integers(0, M, shape).astype(np.int64)
+    valid = np.broadcast_to(np.arange(n) < int(frac * n), shape).copy()
+    got = tpk.presence_fill(_t(h), _t(valid), M)
+    assert got.dtype == torch.uint8 and got.shape == shape[:-1] + (M,)
+    for hr, vr, g in zip(h.reshape(-1, n), valid.reshape(-1, n),
+                         got.reshape(-1, M)):
+        want = np.asarray(jpk.presence_fill_pallas(
+            jnp.asarray(hr), jnp.asarray(vr), M, interpret=True))
+        assert np.array_equal(g.numpy(), want)
+
+
+@pytest.mark.parametrize("M", [4, 300, 1 << 17])
+def test_presence_fill_int64_beyond_32_bits_matches_reference(M):
+    rng = np.random.default_rng(M)
+    rest = rng.integers(0, M, 300)
+    rest[(rest == 1) | (rest == 3)] = 0
+    h = rng.permutation(np.concatenate([_WIDE_IDS, rest]).astype(np.int64))
+    valid = (rng.random(len(h)) < 0.6) | (np.abs(h) >= 2**31 - 1)
+    got = tpk.presence_fill(_t(h), _t(valid), M).numpy()
+    want = np.asarray(jpk.presence_fill(jnp.asarray(h), jnp.asarray(valid),
+                                        M))
+    assert np.array_equal(got, want)
+    assert got[1] == 0 and got[3] == 0
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_reduce_by_key_hands_the_register_ids_over_as_they_are(
+        monkeypatch, W):
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.api.ops import reduce as treduce
+    seen = []
+
+    def fill(h, valid, regs):
+        seen.append(h.dtype)
+        return tpk.presence_fill(h, valid, regs)
+
+    monkeypatch.setattr(treduce, "presence_fill", fill)
+    k = np.random.default_rng(W).integers(0, 50, 600).astype(np.int64)
+    out = tt.Run(lambda ctx: ctx.Distribute({"k": k, "c": np.ones_like(k)})
+                 .ReduceByKey(lambda r: r["k"],
+                              tt.FieldReduce({"k": "first", "c": "sum"}),
+                              dup_detection=True).AllGatherArrays(),
+                 W, device="cpu")
+    assert seen == [torch.int64]
+    order = np.argsort(out["k"].numpy())
+    assert np.array_equal(out["k"].numpy()[order], np.unique(k))
+    assert np.array_equal(out["c"].numpy()[order],
+                          np.bincount(k)[np.unique(k)])
+
+
 def test_presence_fill_batched_rows_match_pallas():
     rng = np.random.default_rng(12)
     W, n, M = 4, 2000, 300
@@ -233,6 +353,13 @@ def test_segment_and_presence_wrappers_refuse_bad_inputs():
         tpk._seg_launch(i32, torch.zeros(8), 0)
     with pytest.raises(ValueError):                 # int flags
         tpk._pres_launch(i32, torch.zeros(8, dtype=torch.int32), 4)
+    with pytest.raises(ValueError):                 # int16 ids
+        tpk._pres_launch(torch.zeros(8, dtype=torch.int16),
+                         torch.zeros(8, dtype=torch.bool), 4)
+    with pytest.raises(ValueError):                 # beyond the bitset
+        tpk._pres_launch(torch.zeros(8, dtype=torch.int64),
+                         torch.zeros(8, dtype=torch.bool),
+                         tpk.BITSET_REGS + 1)
     with pytest.raises(ValueError):                 # strided ids
         tpk._pres_launch(torch.zeros((2, 8), dtype=torch.int32)[:, ::2],
                          torch.zeros((2, 4), dtype=torch.bool), 4)

@@ -106,7 +106,7 @@ class ReduceNode(DIABase):
             if W < 256:
                 # presence is 0/1 per worker, so the u8 holder count of
                 # fewer than 256 workers cannot wrap
-                local = presence_fill(reg.to(torch.int32), mask, M)
+                local = presence_fill(reg, mask, M)
             else:
                 local = torch.zeros((W, M), dtype=torch.int32,
                                     device=reg.device).scatter_reduce_(

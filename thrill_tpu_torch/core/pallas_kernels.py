@@ -6,8 +6,8 @@ Counterparts of ``partition_histogram``, ``segment_sum`` and
 whose TPU kernels become:
 
 * ``partition_histogram_pallas`` -> ``csrc/partition_histogram.cu``: send
-  destinations of every exchange (``data/exchange.send_counts``) and
-  digits of every radix pass (``core/pallas_sort``);
+  destinations of every exchange (``data/exchange.send_counts``; the
+  radix engine counts its digits itself);
 * ``segment_sum_pallas`` -> ``csrc/segment_sum.cu``: ReduceToIndex's
   additive f32 fold (``api/ops/reduce.py``);
 * ``presence_fill_pallas`` -> ``csrc/presence_fill.cu``: ReduceByKey's
@@ -16,9 +16,10 @@ whose TPU kernels become:
 Each wrapper takes the plain version only for a tensor on the CPU. A CUDA
 tensor launches the kernel or raises. ``<wrapper>.launches`` counts
 kernel launches. The TPU's size gates (2^24 rows, 4096 segments, 8192
-registers) come from its f32 one-hot sums and are not inherited: ids and
+registers) come from its f32 one-hot sums and are not inherited:
 counters are int32 here, and the wrappers refuse only what int32 cannot
-index.
+index. The histogram and the presence fill take int32 or int64 ids as
+their callers hold them and test them at full width.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ import torch
 
 from ..common import native_build
 
-# ids are int32 and counters int32; the TPU's f32 gate does not apply
+# counters are int32; the TPU's f32 gate does not apply
 MAX_ROWS = (1 << 31) - 1
 MAX_BINS = 12288                 # shared-memory histogram of 48 KB
+# id dtypes the histogram and presence-fill kernels read as they are
+ID_DTYPES = (torch.int32, torch.int64)
 
 
 def _rows_of(dest: torch.Tensor):
@@ -65,27 +68,31 @@ def _lib():
     lib = native_build.load("partition_histogram")
     fn = lib.thrill_partition_histogram
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
     rows = _rows_of(dest)
-    if rows.dtype != torch.int32 or not rows.is_contiguous():
-        raise ValueError("the histogram kernel takes contiguous int32 ids")
+    if rows.dtype not in ID_DTYPES or not rows.is_contiguous():
+        raise ValueError("the histogram kernel takes contiguous int32 or "
+                         "int64 ids")
     R, n = rows.shape
     if n > MAX_ROWS or not 1 <= num_bins <= MAX_BINS or R > 65535:
         raise ValueError(f"histogram of n={n} ids over {num_bins} bins "
                          f"in {R} rows is outside the kernel's range")
-    out = torch.zeros((R, num_bins), dtype=torch.int32, device=dest.device)
-    per_row = max(1, min(-(-n // 2048), (8 * _sms(dest.device)) // R))
-    with torch.cuda.device(dest.device):
-        stream = torch.cuda.current_stream(dest.device).cuda_stream
-        err = _lib()(rows.data_ptr(), out.data_ptr(), n, R, num_bins,
-                     per_row, stream)
+    dev = dest.device
+    # a block reads at least four 16-byte loads a lane; 8 blocks an SM
+    per_row = max(1, min(-(-n * rows.element_size() // (16 * 256 * 4)),
+                         (8 * _sms(dev)) // R))
+    out = torch.zeros((R, num_bins), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib()(rows.data_ptr(), rows.element_size(), out.data_ptr(), n,
+                     R, num_bins, per_row, stream)
     if err != 0:
         raise RuntimeError(f"partition_histogram kernel launch failed: "
                            f"cudaError {err}")
@@ -95,7 +102,8 @@ def _launch(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
 
 def partition_histogram(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
     """Count of each id in ``[0, num_bins)`` per row of ``dest`` (int32
-    ``[n]`` or ``[W, n]``); ids outside the range are not counted."""
+    or int64 ``[n]`` or ``[W, n]``); ids outside the range are not
+    counted."""
     if dest.device.type == "cpu":
         return partition_histogram_plain(dest, num_bins)
     if dest.device.type != "cuda":
@@ -202,29 +210,64 @@ def presence_fill_plain(h: torch.Tensor, valid: torch.Tensor,
         h.shape[:-1] + (num_regs,))
 
 
+# registers up to this many are set in a shared bitset (kMaxBitsetRegs in
+# csrc/presence_fill.cu, 128 KB); ReduceByKey sizes at most 2^17
+BITSET_REGS = 1 << 20
+# the global bitsets, which every launch leaves zeroed, one per (device,
+# stream): launches on one stream run in order, so they can share it
+_bitsets = {}
+
+
+def _bitset_scratch(device: torch.device, stream: int,
+                    words: int) -> torch.Tensor:
+    t = _bitsets.get((device, stream))
+    if t is None or t.numel() < words:
+        t = _bitsets[(device, stream)] = torch.zeros(
+            max(words, 64), dtype=torch.int32, device=device)
+    return t
+
+
+def _pres_lib():
+    fn = native_build.load("presence_fill").thrill_presence_fill
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _pres_launch(h: torch.Tensor, valid: torch.Tensor,
                  num_regs: int) -> torch.Tensor:
     rows, flags = _rows_of(h), _rows_of(valid)
-    if (rows.dtype != torch.int32 or flags.dtype != torch.bool
+    if (rows.dtype not in ID_DTYPES or flags.dtype != torch.bool
             or not rows.is_contiguous() or not flags.is_contiguous()
             or rows.shape != flags.shape or flags.device != rows.device):
-        raise ValueError("the presence kernel takes contiguous int32 ids "
-                         "and bool flags of one shape on one device")
+        raise ValueError("the presence kernel takes contiguous int32 or "
+                         "int64 ids and bool flags of one shape on one "
+                         "device")
     R, n = rows.shape
     _check_bins("presence fill", n, num_regs, R)
-    out = torch.zeros((R, num_regs), dtype=torch.uint8, device=h.device)
-    lib = native_build.load("presence_fill")
-    fn = lib.thrill_presence_fill
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = fn(rows.data_ptr(), flags.data_ptr(), out.data_ptr(), n, R,
-                 num_regs, _sms(h.device), stream)
+    if num_regs > BITSET_REGS:
+        raise ValueError(f"presence fill over {num_regs} registers: the "
+                         f"kernel's shared bitset holds {BITSET_REGS}")
+    dev = h.device
+    words = -(-num_regs // 32)
+    # 512-row chunks, 16 warps a block; two blocks an SM while the shared
+    # bitset leaves room for them
+    per_sm = 2 if words * 4 <= 64 * 1024 else 1
+    per_row = max(1, min(-(-n // (512 * 16)), (per_sm * _sms(dev)) // R))
+    out = torch.empty((R, num_regs), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        bits = _bitset_scratch(dev, stream, R * words)
+        err = _pres_lib()(rows.data_ptr(), rows.element_size(),
+                          flags.data_ptr(), bits.data_ptr(), out.data_ptr(),
+                          n, R, num_regs, per_row, stream)
     if err != 0:
+        # a failed launch may leave bits set: the next gets fresh zeros
+        _bitsets.pop((dev, stream), None)
         raise RuntimeError(f"presence_fill kernel launch failed: cudaError "
                            f"{err}")
     presence_fill.launches += 1
@@ -233,9 +276,10 @@ def _pres_launch(h: torch.Tensor, valid: torch.Tensor,
 
 def presence_fill(h: torch.Tensor, valid: torch.Tensor,
                   num_regs: int) -> torch.Tensor:
-    """u8 presence registers per row of ``h`` (int32 ``[n]`` or
+    """u8 presence registers per row of ``h`` (int32 or int64 ``[n]`` or
     ``[W, n]``): ``out[m] = 1`` iff some ``i`` with ``valid[i]`` has
-    ``h[i] == m``; ids outside ``[0, num_regs)`` are ignored."""
+    ``h[i] == m``; ids outside ``[0, num_regs)`` are ignored. On a card
+    ``num_regs`` is at most ``BITSET_REGS``."""
     if h.device.type == "cpu":
         return presence_fill_plain(h, valid, num_regs)
     if h.device.type != "cuda":

@@ -2,36 +2,73 @@
 //
 // Replaces the TPU kernel partition_histogram_pallas
 // (thrill_tpu/core/pallas_kernels.py:116, kernel _hist_kernel :94).
-// out[r, b] = #{i : dest[r, i] == b} for b in [0, bins); ids outside that
-// range (padding sentinels, e.g. W for invalid rows) are not counted.
+// out[r, b] = #{i : dest[r, i] == b} for b in [0, bins); other ids (the
+// invalid rows' sentinel W, negative ids, int64 ids beyond 32 bits) are
+// not counted: an id is tested against [0, bins) at its full width.
 //
-// Bound on this card: device memory. The kernel reads each int32 id once
-// and writes rows * bins counters, so 4 bytes per id is the whole cost.
-// Design: a grid-stride walk per row in which each lane loads 16 bytes
-// (four ids) at a time when the row allows it, so enough bytes are in
-// flight; lanes add to a shared-memory histogram, and a warp whose 32
-// ids are equal adds once (uniform digits and sorted destinations do not
-// serialise on one shared address); each block then adds its non-zero
-// bins to the global [rows, bins] output with atomics. The TPU kernel
-// carried an f32 one-hot sum across a sequential grid; here counters are
-// int32 from the start, so the 2^24-row f32 gate is gone and the wrapper
-// refuses only n >= 2^31.
+// Bound on this card: device memory. The kernel reads each id once, in
+// the dtype its caller holds (int32 or int64: no copy before it), and
+// writes rows * bins counters.
 //
-// The caller zeroes `out`, allocates everything, and passes its stream.
+// Design. Each block keeps a shared-memory histogram of its share of a
+// row and adds it to the zeroed `out` with one atomic per non-zero bin.
+// Lanes load 16 bytes of ids at a time. A warp whose ids are all equal
+// adds once: the main path (every exchange's send counts, W bins over
+// destinations sorted per row with the sentinel run at each row's tail)
+// is almost all such runs. Per-lane register counters summed by each
+// row's last block (no zeroing launch) were 2-3 % slower on the main
+// path's int64 inputs (PERF.md).
+//
+// The caller allocates `out` (zeroed) and passes its stream.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// Adds the warp's ids to the shared histogram. A warp whose ids are all
-// equal (uniform digits, sorted destinations) adds once; otherwise each
-// lane adds its own id.
-__device__ __forceinline__ void count(int32_t* sh, int v, int bins,
-                                      int lane) {
-  const int key = (v >= 0 && v < bins) ? v : -1;
+// 16 bytes of ids: four int32 or two int64
+template <typename T>
+using Vec = typename std::conditional<sizeof(T) == 8, longlong2, int4>::type;
+
+template <typename T>
+constexpr int kPerVec = 16 / sizeof(T);
+
+template <typename F>
+__device__ __forceinline__ void each(const int4& v, F f) {
+  f(v.x); f(v.y); f(v.z); f(v.w);
+}
+
+template <typename F>
+__device__ __forceinline__ void each(const longlong2& v, F f) {
+  f(v.x); f(v.y);
+}
+
+template <typename T>
+__device__ __forceinline__ Vec<T> no_ids();
+
+template <>
+__device__ __forceinline__ int4 no_ids<int32_t>() {
+  return make_int4(-1, -1, -1, -1);
+}
+
+template <>
+__device__ __forceinline__ longlong2 no_ids<long long>() {
+  return make_longlong2(-1, -1);
+}
+
+// The id's bin in [0, bins), or -1: an unsigned compare at full width
+template <typename T>
+__device__ __forceinline__ int bin_of(T v, int bins) {
+  using U = typename std::make_unsigned<T>::type;
+  return static_cast<U>(v) < static_cast<U>(bins) ? static_cast<int>(v) : -1;
+}
+
+// Adds the warp's bins (key -1: no bin) to the shared histogram. A warp
+// whose keys are all equal adds once.
+__device__ __forceinline__ void count(int32_t* sh, int key, int lane) {
   const int key0 = __shfl_sync(0xffffffffu, key, 0);
   if (__all_sync(0xffffffffu, key == key0)) {
     if (lane == 0 && key0 >= 0) atomicAdd(&sh[key0], 32);
@@ -40,60 +77,76 @@ __device__ __forceinline__ void count(int32_t* sh, int v, int bins,
   }
 }
 
-// kVec: the row holds a multiple of 4 ids, so each lane loads an int4
-template <bool kVec>
-__global__ void hist_kernel(const int32_t* __restrict__ dest,
-                            int32_t* __restrict__ out, long long n,
-                            int bins) {
-  extern __shared__ int32_t sh[];
+// A shared histogram per block, added to the zeroed `out`
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    hist_shared_kernel(const T* __restrict__ dest, int32_t* __restrict__ out,
+                       long long n, int bins) {
+  extern __shared__ int32_t shared_hist[];
+  int32_t* hist = shared_hist;
   const int row = blockIdx.y;
-  const int32_t* d = dest + static_cast<long long>(row) * n;
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) sh[b] = 0;
+  const T* d = dest + static_cast<long long>(row) * n;
+  for (int b = threadIdx.x; b < bins; b += kThreads) hist[b] = 0;
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const long long units = kVec ? n / 4 : n;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long units = kVec ? n / kPerVec<T> : n;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   // `base` is the same for all lanes of a warp, so every lane takes part
   // in the match even on the ragged tail (out-of-range lanes carry -1)
-  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x +
+  for (long long base = static_cast<long long>(blockIdx.x) * kThreads +
                         (threadIdx.x & ~31);
        base < units; base += stride) {
     const long long i = base + lane;
     if (kVec) {
-      int4 v = make_int4(-1, -1, -1, -1);
-      if (i < units) v = __ldg(reinterpret_cast<const int4*>(d) + i);
-      count(sh, v.x, bins, lane);
-      count(sh, v.y, bins, lane);
-      count(sh, v.z, bins, lane);
-      count(sh, v.w, bins, lane);
+      const Vec<T> v = i < units
+                           ? __ldg(reinterpret_cast<const Vec<T>*>(d) + i)
+                           : no_ids<T>();
+      each(v, [&](auto x) { count(hist, bin_of(x, bins), lane); });
     } else {
-      count(sh, i < units ? __ldg(d + i) : -1, bins, lane);
+      count(hist, i < units ? bin_of(__ldg(d + i), bins) : -1, lane);
     }
   }
   __syncthreads();
 
   int32_t* o = out + static_cast<long long>(row) * bins;
-  for (int b = threadIdx.x; b < bins; b += blockDim.x) {
-    const int32_t c = sh[b];
+  for (int b = threadIdx.x; b < bins; b += kThreads) {
+    const int32_t c = hist[b];
     if (c) atomicAdd(&o[b], c);
   }
 }
 
+template <typename T>
+void launch(const T* dest, int32_t* out, long long n, int rows, int bins,
+            int blocks_per_row, cudaStream_t stream) {
+  const dim3 grid(blocks_per_row, rows);
+  const size_t smem = bins * sizeof(int32_t);
+  // rows start 16-byte aligned when n fills whole vectors (torch aligns
+  // the base)
+  if (n % kPerVec<T> == 0 && reinterpret_cast<uintptr_t>(dest) % 16 == 0)
+    hist_shared_kernel<T, true><<<grid, kThreads, smem, stream>>>(dest, out,
+                                                                 n, bins);
+  else
+    hist_shared_kernel<T, false><<<grid, kThreads, smem, stream>>>(dest, out,
+                                                                  n, bins);
+}
+
 }  // namespace
 
-extern "C" int thrill_partition_histogram(const int32_t* dest, int32_t* out,
-                                          long long n, int rows, int bins,
+// dest: [rows, n] ids of id_bytes (4: int32, 8: int64); out: [rows, bins]
+// zeros.
+extern "C" int thrill_partition_histogram(const void* dest, int id_bytes,
+                                          int32_t* out, long long n,
+                                          int rows, int bins,
                                           int blocks_per_row,
                                           cudaStream_t stream) {
-  if (n > 0 && rows > 0) {
-    const dim3 grid(blocks_per_row, rows);
-    const size_t smem = bins * sizeof(int32_t);
-    // rows start 16-byte aligned when n % 4 == 0 (torch aligns the base)
-    if (n % 4 == 0 && reinterpret_cast<uintptr_t>(dest) % 16 == 0)
-      hist_kernel<true><<<grid, kThreads, smem, stream>>>(dest, out, n, bins);
+  if (rows > 0) {
+    if (id_bytes == 8)
+      launch(static_cast<const long long*>(dest), out, n, rows, bins,
+             blocks_per_row, stream);
     else
-      hist_kernel<false><<<grid, kThreads, smem, stream>>>(dest, out, n, bins);
+      launch(static_cast<const int32_t*>(dest), out, n, rows, bins,
+             blocks_per_row, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

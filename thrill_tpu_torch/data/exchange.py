@@ -23,9 +23,10 @@ from .shards import DeviceShards, round_up_pow2
 
 def send_counts(dest: torch.Tensor, W: int) -> torch.Tensor:
     """``[W, W]`` int32 send matrix: ``S[s, d]`` items of worker ``s``
-    go to worker ``d``. ``dest`` ``[W, cap]`` uses ``W`` for invalid
-    items, which the histogram kernel does not count."""
-    return partition_histogram(dest.to(torch.int32).contiguous(), W)
+    go to worker ``d``. ``dest`` ``[W, cap]`` (int32 or int64, read as it
+    is) uses ``W`` for invalid items, which the histogram kernel does not
+    count."""
+    return partition_histogram(dest, W)
 
 
 def send_slot_index(dest: torch.Tensor, S: torch.Tensor, W: int,

@@ -35,14 +35,31 @@ Phases, each fatal on failure:
      "d": "first", "v": "sum"}), 2^22); "v" must agree with np.bincount(d,
      weights=v) in f64 within 1e-4 of each page's sum of |v| plus 1e-6;
      warm repeats and a profiler table;
-  6. on the inputs the W=4 runs gave the kernels, captured at the call
+  6. PageRank end to end, thrill_tpu_torch/examples/page_rank.py's
+     page_rank (Zip with the degree table, the dense-index InnerJoin,
+     ReduceToIndex, Iterate; f64) over zipf_graph(2^22 pages, 2^24 edges),
+     10 iterations at W=4: every page within 1e-9 of its rank plus 1e-18
+     of a numpy version (np.bincount in place of np.add.at); Sum(), Min()
+     and Max() of the ranks against numpy; B1 and B2 launched; peak and
+     current device memory after iterations 2 and 10 (flat within 2 %);
+     first-run and warm times and a profiler table; then W=1 at 3
+     iterations;
+  7. TPC-H Q3-lite, thrill_tpu_torch/examples/tpch.py's q3_lite (a
+     filtered orders x lineitem InnerJoin, then ReduceToIndex by
+     priority) over generate_tables(2^22 orders, 4 lines an order) at
+     W=4: with the cost model's location-detection verdict (printed),
+     forced on (presence_fill launched once per side) and forced off,
+     each exact (int64) against a numpy version; items exchanged in each;
+     warm times and a profiler table; then W=1;
+  8. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's and the PageRank step's sorted int64 destinations,
      each beside its bound, the parent's int32 copy plus kernel and
      torch.bincount; segment_sum on the PageRank step's ids; presence_fill
-     on the WordCount's register ids (its bound counts every flag and the
-     id of each valid row only); then print the card, the kernels line
-     and, last, the device line.
+     on the WordCount's register ids and on the join's location-filter
+     ids of both sides (its bound counts every flag and the id of each
+     valid row only); then print the card, the kernels line (each kernel
+     with its launches on every W=4 path) and, last, the device line.
 
     python3 chip_smoke.py --save-inputs DIR
 
@@ -69,6 +86,12 @@ VOCAB = 1 << 20                # WordCount vocabulary
 PAGES = 1 << 22                # PageRank pages
 SEG_RTOL = 1e-4                # f32 sum vs plain/f64: of the segment's sum|v|
 SEG_ATOL = 1e-6
+PR_EDGES = 1 << 24             # PageRank edges (pages: PAGES)
+PR_ITERS = 10
+PR_RTOL = 1e-9                 # f64 PageRank vs numpy: of each page's rank
+PR_ATOL = 1e-18
+PR_MEM_SLACK = 1.02            # peak memory after iteration 10 vs 2
+ORDERS = 1 << 22               # TPC-H Q3-lite orders, 4 lines an order
 DEVICE = "cuda"
 
 
@@ -545,16 +568,19 @@ def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
 
 class Capture:
     """Wraps a kernel wrapper where a module calls it: the call goes
-    through unchanged (and counts its launch), its arguments are kept."""
+    through unchanged (and counts its launch), its arguments are kept
+    (``args`` the last call's, ``calls`` every call's)."""
 
     def __init__(self, module, name: str) -> None:
         self.module, self.name = module, name
         self.inner = getattr(module, name)
         self.args = None
+        self.calls = []
 
     def __enter__(self):
         def call(*args):
             self.args = args
+            self.calls.append(args)
             return self.inner(*args)
         setattr(self.module, self.name, call)
         return self
@@ -758,6 +784,217 @@ def pagerank_step(torch, np, tt, pk, ps, reduce_mod, exchange_mod):
     return launches, cap.args, cap_sc.args
 
 
+def profile_table(torch, fn) -> None:
+    """A torch.profiler table (device time by op) of one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile as tprof
+    torch.cuda.synchronize()
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
+def host_profile(torch, label: str, fn) -> None:
+    """The host's time by function (cProfile, sorted by own time) over
+    one call of ``fn``: where the host clock goes that the device table
+    does not show."""
+    import cProfile
+    import io
+    import pstats
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    secs = time.perf_counter() - t0
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
+    lines = [l for l in out.getvalue().splitlines() if l.strip()]
+    log(f"host profile {label}: {secs:.3f} s under cProfile")
+    for line in lines[-16:]:
+        log("  " + line.strip())
+
+
+def page_rank_np(np, edges, n: int, iters: int, damp: float):
+    """The example's page_rank_dense with np.bincount for np.add.at."""
+    src, dst = edges[:, 0], edges[:, 1]
+    inv_deg = 1.0 / np.maximum(np.bincount(src, minlength=n), 1)
+    r = np.full(n, 1.0 / n)
+    for _ in range(iters):
+        contrib = np.bincount(dst, weights=r[src] * inv_deg[src],
+                              minlength=n)
+        r = (1 - damp) / n + damp * contrib
+    return r
+
+
+def pagerank(torch, np, tt, W: int, iters: int, edges, pk, ps):
+    """``page_rank`` of the port's example, end to end through its entry
+    points; returns the launches of the checked run."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    want = page_rank_np(np, edges, PAGES, iters, tpr.DAMPENING)
+    mem = {}
+    real_iterate = tpr.Iterate
+
+    def iterate(ctx, body, carry, n, **kw):
+        calls = [0]
+
+        def body_after(d):
+            calls[0] += 1
+            if calls[0] == 3:      # iterations 1 and 2 are materialized
+                torch.cuda.synchronize()
+                mem[2] = (torch.cuda.max_memory_allocated(),
+                          torch.cuda.memory_allocated())
+            return body(d)
+
+        out = real_iterate(ctx, body_after, carry, n, **kw)
+        torch.cuda.synchronize()
+        mem[n] = (torch.cuda.max_memory_allocated(),
+                  torch.cuda.memory_allocated())
+        return out
+
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pk, ps)
+    tpr.Iterate = iterate
+    try:
+        t0 = time.perf_counter()
+        got = tpr.page_rank(ctx, edges, PAGES, iters)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        tpr.Iterate = real_iterate
+    launches = read_launches(pk, ps)
+    if W > 1:
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the W={W} "
+                                     f"PageRank path")
+    err = np.abs(got - want)
+    if (got.shape != (PAGES,) or got.dtype != np.float64
+            or not np.isfinite(got).all()
+            or not (err <= PR_RTOL * want + PR_ATOL).all()):
+        raise AssertionError(f"W={W} PageRank differs from numpy: max |diff| "
+                             f"{err.max()}, max relative "
+                             f"{(err / want).max()}")
+    if iters > 2 and (mem[iters][0] > PR_MEM_SLACK * mem[2][0]
+                      or mem[iters][1] > PR_MEM_SLACK * mem[2][1]):
+        raise AssertionError(f"W={W} PageRank: device memory grew from "
+                             f"iteration 2 to {iters}: (peak, current) "
+                             f"{mem[2]} -> {mem[iters]}")
+    # the actions on the ranks, against numpy
+    ranks = ctx.Distribute(torch.as_tensor(got, device=DEVICE)).Keep(2)
+    acts = {"Sum": (ranks.Sum(), want.sum()), "Min": (ranks.Min(),
+                                                      want.min()),
+            "Max": (ranks.Max(), want.max())}
+    for name, (g, w) in acts.items():
+        if not abs(g - w) <= PR_RTOL * abs(w) + PR_ATOL:
+            raise AssertionError(f"W={W} PageRank ranks.{name}() = {g}, "
+                                 f"numpy {w}")
+    log(f"pagerank W={W} pages={PAGES} edges={len(edges)} iterations={iters}"
+        f" f64: every page within {PR_RTOL} of its rank + {PR_ATOL} of numpy"
+        f" (max |diff| {err.max():.6g}, max relative "
+        f"{(err / want).max():.6g}); Sum/Min/Max "
+        f"{[acts[k][0] for k in acts]} against numpy "
+        f"{[float(acts[k][1]) for k in acts]}; {secs:.3f} s (first run, "
+        f"host clock after synchronize, from numpy edges to numpy ranks); "
+        f"launches {json.dumps(launches)}; exchanged items "
+        f"{ctx.mesh_exec.stats_items_moved}; device memory (peak, current) "
+        f"bytes after iteration 2 {mem.get(2)}, after iteration {iters} "
+        f"{mem[iters]}")
+    del ranks
+    warm = []
+    for _ in range(2):
+        ctx2 = tt.Context(num_workers=W, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tpr.page_rank(ctx2, edges, PAGES, iters)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(f"pagerank W={W} warm page_rank seconds: "
+        f"{[round(x, 6) for x in warm]} (host clock after synchronize)")
+    if W > 1:
+        profile_table(torch, lambda: tpr.page_rank(
+            tt.Context(num_workers=W, device=DEVICE), edges, PAGES, iters))
+    host_profile(torch, f"pagerank W={W}", lambda: tpr.page_rank(
+        tt.Context(num_workers=W, device=DEVICE), edges, PAGES, iters))
+    return launches
+
+
+def q3_np(np, orders, lineitem, cutoff: int = 1250):
+    """q3_dense of the example, vectorized: the orders' keys are their
+    row numbers."""
+    ok = (orders["date"] < cutoff)[lineitem["orderkey"]]
+    prio = orders["prio"][lineitem["orderkey"]]
+    rev = lineitem["price"] * (100 - lineitem["discount_pct"])
+    return np.array([int(rev[ok & (prio == p)].sum()) for p in range(5)],
+                    dtype=np.int64)
+
+
+def tpch(torch, np, tt, W: int, tables, pk, ps, join_mod):
+    """``q3_lite`` of the port's example with the cost model's
+    location-detection verdict, forced on and forced off. Returns the
+    launches of the verdict's and the forced run and the presence_fill
+    inputs of the forced run."""
+    from thrill_tpu_torch.examples import tpch as ttp
+    orders, lineitem = tables
+    want = q3_np(np, orders, lineitem)
+    runs = {}
+    for mode, ld in (("verdict", None), ("on", True), ("off", False)):
+        if W == 1 and mode != "verdict":
+            continue
+        ctx = tt.Context(num_workers=W, device=DEVICE)
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        with Capture(join_mod, "presence_fill") as cap:
+            t0 = time.perf_counter()
+            got = ttp.q3_lite(ctx, orders, lineitem, location_detection=ld)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = read_launches(pk, ps)
+        if got.dtype != np.int64 or not np.array_equal(got, want):
+            raise AssertionError(f"W={W} Q3-lite ({mode}) = {got.tolist()}, "
+                                 f"numpy {want.tolist()}")
+        if W > 1:
+            for name in ("partition_histogram", "radix_upsweep",
+                         "radix_pass"):
+                if launches[name] <= 0:
+                    raise AssertionError(f"{name} was not launched on the "
+                                         f"W={W} Q3-lite path ({mode})")
+        if mode == "on" and launches["presence_fill"] < 2:
+            raise AssertionError(f"W={W} Q3-lite with location detection: "
+                                 f"{launches['presence_fill']} presence_fill "
+                                 f"launches, expected one a side")
+        verdicts = {str(k[0]): v for k, v in
+                    ctx.mesh_exec.prune_verdicts.items()}
+        runs[mode] = dict(launches=launches, calls=cap.calls)
+        log(f"tpch q3 W={W} orders={len(orders['key'])} lineitems="
+            f"{len(lineitem['orderkey'])} location detection {mode}: equal "
+            f"to numpy {want.tolist()}; verdicts {verdicts}; {secs:.3f} s "
+            f"(first run, host clock after synchronize, from numpy tables); "
+            f"launches {json.dumps(launches)}; exchanged items "
+            f"{ctx.mesh_exec.stats_items_moved}")
+    warm = []
+    for _ in range(2):
+        ctx2 = tt.Context(num_workers=W, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ttp.q3_lite(ctx2, orders, lineitem)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    log(f"tpch q3 W={W} warm q3_lite seconds (the verdict's path): "
+        f"{[round(x, 6) for x in warm]} (host clock after synchronize)")
+    if W > 1:
+        profile_table(torch, lambda: ttp.q3_lite(
+            tt.Context(num_workers=W, device=DEVICE), orders, lineitem))
+        host_profile(torch, f"tpch q3 W={W}", lambda: ttp.q3_lite(
+            tt.Context(num_workers=W, device=DEVICE), orders, lineitem))
+    return runs
+
+
 def time_send_counts(torch, pk, label, dest, W):
     """The send-count histogram on one captured ``send_counts`` input (the
     kernel reads it as it is): held against the plain version, then timed
@@ -792,11 +1029,13 @@ def time_send_counts(torch, pk, label, dest, W):
     return row
 
 
-def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args):
+def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args,
+                          join_pres):
     """The kernels on the inputs the W=4 runs gave them: held against the
     plain version, then timed beside the plain version, one library call
     and the bound. Returns the rows of the kernels line (the histogram's
-    from the WordCount input) and the worst errors."""
+    and the presence fill's from the WordCount inputs) and the worst
+    errors."""
     rows, errs = {}, {}
     for label, (dest, W) in sc_args.items():
         row = time_send_counts(torch, pk, label, dest, W)
@@ -826,14 +1065,24 @@ def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args):
         library_ms=cuda_ms(torch, lambda: acc.index_add_(0, flat, vflat)))
     log(f"time segment_sum at the main path's [{R}, {n}], {segs} segments: "
         + json.dumps(rows["segment_sum"]))
-    # the call site's register ids: int64 (hashing.umod)
-    h, valid, regs = pres_args
+    rows["presence_fill"] = time_presence_fill(torch, pk, "WordCount",
+                                               *pres_args)
+    for label, args in join_pres.items():
+        time_presence_fill(torch, pk, label, *args)
+    errs["presence_fill"] = 0
+    return rows, errs
+
+
+def time_presence_fill(torch, pk, label, h, valid, regs):
+    """presence_fill on one captured input (the call site's int64
+    register ids from hashing.umod): held against the plain version, then
+    timed beside its int32 copy, the plain version, one index_put_ and
+    the bound."""
     R, n = h.shape
     if not torch.equal(pk.presence_fill(h, valid, regs),
                        pk.presence_fill_plain(h, valid, regs)):
-        raise AssertionError("presence_fill disagrees with its plain version "
-                             "on the main path's inputs")
-    errs["presence_fill"] = 0
+        raise AssertionError(f"presence_fill disagrees with its plain "
+                             f"version on the {label} input")
     ok = valid & (h >= 0) & (h < regs)
     flat = torch.where(ok, h, torch.full_like(h, regs))
     flat = (flat + torch.arange(R, device=h.device)[:, None] * (regs + 1)
@@ -844,7 +1093,7 @@ def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args):
     # as the call site holds it), the registers written once
     nvalid = int(valid.sum())
     b, by = bound(R * n + nvalid * h.element_size() + R * regs, R * n)
-    rows["presence_fill"] = dict(
+    row = dict(
         ms=cuda_ms(torch, lambda: pk.presence_fill(h, valid, regs)),
         copy_ms=cuda_ms(torch, lambda: pk.presence_fill(
             h.to(torch.int32), valid, regs)),
@@ -853,11 +1102,10 @@ def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args):
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(torch, lambda: reg.index_put_((flat,), one)))
     old_b, _ = bound(R * n * 5 + R * regs, R * n)
-    log(f"time presence_fill at the main path's [{R}, {n}], {regs} "
+    log(f"time presence_fill on the {label} input [{R}, {n}], {regs} "
         f"registers, {nvalid} valid rows ({nvalid / (R * n):.4f}; the bound "
-        f"that counted 5 bytes a row: {old_b}): "
-        + json.dumps(rows["presence_fill"]))
-    return rows, errs
+        f"that counted 5 bytes a row: {old_b}): " + json.dumps(row))
+    return row
 
 
 def main() -> int:
@@ -869,8 +1117,11 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
+    from thrill_tpu_torch.api.ops import join as join_mod
     from thrill_tpu_torch.api.ops import reduce as reduce_mod
     from thrill_tpu_torch.data import exchange as exchange_mod
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.examples import tpch as ttp
     from thrill_tpu_torch.core import pallas_kernels as pk
     from thrill_tpu_torch.core import pallas_sort as ps
 
@@ -895,14 +1146,27 @@ def main() -> int:
     wordcount(torch, np, tt, 1, pk, ps, reduce_mod, exchange_mod)
     step4, seg_args, sc_pr = pagerank_step(torch, np, tt, pk, ps, reduce_mod,
                                            exchange_mod)
+    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
+    pr4 = pagerank(torch, np, tt, 4, PR_ITERS, edges, pk, ps)
+    pagerank(torch, np, tt, 1, 3, edges, pk, ps)
+    del edges
+    tables = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
+    q3 = tpch(torch, np, tt, 4, tables, pk, ps, join_mod)
+    tpch(torch, np, tt, 1, tables, pk, ps, join_mod)
+    del tables
     sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr}
+    # the location filter's register ids, left side (orders) then right
+    join_pres = {f"Q3-lite {side} location-filter": args for side, args in
+                 zip(("orders", "lineitem"), q3["on"]["calls"])}
     if "--save-inputs" in sys.argv:
         out_dir = sys.argv[sys.argv.index("--save-inputs") + 1]
         os.makedirs(out_dir, exist_ok=True)
-        torch.save({"send_counts": sc_args, "presence_fill": pres_args},
+        torch.save({"send_counts": sc_args, "presence_fill": pres_args,
+                    "join_presence_fill": join_pres},
                    os.path.join(out_dir, "main_inputs.pt"))
     main_times, main_errs = time_main_path_inputs(torch, pk, seg_args,
-                                                  pres_args, sc_args)
+                                                  pres_args, sc_args,
+                                                  join_pres)
     times.update(main_times)
     for k, e in main_errs.items():
         errs[k] = max(errs[k], e)
@@ -933,8 +1197,14 @@ def main() -> int:
             replaces="thrill_tpu/core/pallas_kernels.py:239",
             launches=wc4["presence_fill"]),
     }
+    # and on every W=4 path, each counted from zero
+    paths = {"Sort W=4": sort4, "WordCount W=4": wc4,
+             "PageRank step W=4": step4, "pagerank W=4": pr4,
+             "tpch q3 W=4 (verdict)": q3["verdict"]["launches"],
+             "tpch q3 W=4 (location detection on)": q3["on"]["launches"]}
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
-                    **times[k]) for k, m in meta.items()]
+                    **times[k], paths={p: c[k] for p, c in paths.items()})
+               for k, m in meta.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -357,3 +357,53 @@ def test_reduces_on_the_card_match_the_cpu(cuda_device, W):
         assert torch.equal(wc[k].cpu(), wc_c[k])
     assert torch.equal(pr["k"].cpu(), pr_c["k"])
     assert torch.allclose(pr["v"].cpu(), pr_c["v"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 4])
+def test_join_with_location_detection_on_the_card(cuda_device, W):
+    rng = np.random.default_rng(300 + W)
+    left = {"k": rng.integers(0, 5000, 20000).astype(np.int64),
+            "a": rng.integers(0, 99, 20000).astype(np.int32)}
+    right = {"k": rng.integers(2500, 9000, 30000).astype(np.int64)}
+
+    def job(ctx):
+        return tt.InnerJoin(ctx.Distribute(left), ctx.Distribute(right),
+                            lambda t: t["k"], lambda t: t["k"],
+                            lambda l, r: {"k": r["k"], "a": l["a"]},
+                            location_detection=True).AllGatherArrays()
+
+    before = (tpk.presence_fill.launches, tpk.partition_histogram.launches)
+    got = tt.Run(job, W, cuda_device)
+    assert tpk.presence_fill.launches == before[0] + 2      # one per side
+    assert tpk.partition_histogram.launches >= before[1] + 2
+    want = tt.Run(job, W, "cpu")
+    for k in ("k", "a"):
+        assert torch.equal(got[k].cpu(), want[k])
+
+
+@pytest.mark.gpu
+def test_zip_pad_on_the_card(cuda_device):
+    def job(ctx):
+        return tt.Zip(ctx.Generate(1000), ctx.Generate(
+            37, lambda i: {"v": i * 3 + 1, "w": i.to(torch.int32)}),
+            zip_fn=lambda x, s: {"x": x, "v": s["v"], "w": s["w"]},
+            mode="pad").AllGatherArrays()
+
+    got, want = tt.Run(job, 4, cuda_device), tt.Run(job, 4, "cpu")
+    for k in ("x", "v", "w"):
+        assert torch.equal(got[k].cpu(), want[k])
+    assert not got["v"][37:].any() and not got["w"][37:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_page_rank_on_the_card(cuda_device, W):
+    from thrill_tpu_torch.examples import page_rank as tpr
+    edges = tpr.zipf_graph(5000, 60000, seed=W)
+    got = tpr.page_rank(tt.Context(num_workers=W, device=cuda_device), edges,
+                        5000, 3)
+    want = tpr.page_rank(tt.Context(num_workers=W, device="cpu"), edges,
+                         5000, 3)
+    # f64 scatter-adds on the card add in no fixed order
+    assert np.abs(got - want).max() <= 1e-12

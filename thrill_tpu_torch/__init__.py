@@ -5,8 +5,9 @@ dimension on one device. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``. The port imports neither jax nor thrill_tpu.
 """
 
-from .api.context import Context, Run, RunLocalTests
-from .api.functors import FieldReduce
+from .api import (Bind, Context, DIA, FieldReduce, InnerJoin, Iterate, Run,
+                  RunLocalTests, Zip)
 from .parallel.mesh import MeshExec
 
-__all__ = ["Context", "FieldReduce", "MeshExec", "Run", "RunLocalTests"]
+__all__ = ["Bind", "Context", "DIA", "FieldReduce", "InnerJoin", "Iterate",
+           "MeshExec", "Run", "RunLocalTests", "Zip"]

@@ -2,8 +2,9 @@
 (counterpart of the reference package's ``api/dia.py``).
 
 A handle is a node plus a stack of local operations. ``Map``/``Filter``
-extend the stack; ``Sort`` and the reduces cut it with a new node;
-actions run the graph.
+and the device ``FlatMap`` extend the stack; the distributed ops cut it
+with a new node; actions run the graph. ``Zip`` and ``InnerJoin`` take
+several DIAs and live at module level, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,6 +33,20 @@ class DIA:
 
     def Filter(self, fn: Callable) -> "DIA":
         return DIA(self.node, self.stack + (StackOp("filter", fn),))
+
+    def FlatMap(self, fn: Callable, device_fn: Optional[Callable] = None,
+                factor: int = 1) -> "DIA":
+        """``device_fn(tree) -> (tree[n, k, ...], valid[n, k])`` with the
+        static factor ``k``: every item expands into ``k`` candidates,
+        the valid ones stay, in item order. The host form ``fn(item) ->
+        iterable`` needs host storage, which the port does not have."""
+        if device_fn is None:
+            raise ValueError(
+                "FlatMap: the port runs on device storage only; pass the "
+                "batched device_fn(tree) -> (tree[n, k, ...], valid[n, k]) "
+                "with its factor k")
+        return DIA(self.node, self.stack + (StackOp("flat_map", device_fn,
+                                                    int(factor)),))
 
     # -- distributed ops -----------------------------------------------
     def Sort(self, key_fn: Optional[Callable] = None) -> "DIA":
@@ -67,10 +82,33 @@ class DIA:
         from .ops import reduce as _r
         return _r.ReduceToIndex(self, index_fn, reduce_fn, size, neutral)
 
-    # -- consume control -----------------------------------------------
+    def PrefixSum(self, fn: Callable = None, initial: Any = 0) -> "DIA":
+        """Inclusive running sum over the global item order."""
+        from .ops import prefix_sum as _p
+        return _p.PrefixSum(self, fn, initial, inclusive=True)
+
+    def ExPrefixSum(self, fn: Callable = None, initial: Any = 0) -> "DIA":
+        """Exclusive running sum over the global item order."""
+        from .ops import prefix_sum as _p
+        return _p.PrefixSum(self, fn, initial, inclusive=False)
+
+    def ZipWithIndex(self, zip_fn: Callable = None) -> "DIA":
+        """``zip_fn(item, global_index)``, by default the pair."""
+        from .ops import zip_ as _z
+        return _z.ZipWithIndex(self, zip_fn)
+
+    # -- consume control and materialization -----------------------------
     def Keep(self, n: int = 1) -> "DIA":
         self.node.keep(n)
         return self
+
+    def Cache(self) -> "DIA":
+        from .ops import cache as _ca
+        return _ca.Cache(self)
+
+    def Collapse(self) -> "DIA":
+        from .ops import cache as _ca
+        return _ca.Collapse(self)
 
     def Execute(self) -> "DIA":
         self.node.materialize()
@@ -90,3 +128,54 @@ class DIA:
         device, in worker-rank order."""
         from .ops import actions
         return actions.AllGatherArrays(self)
+
+    def AllReduce(self, fn: Callable, initial: Any = None) -> Any:
+        from .ops import actions
+        return actions.AllReduce(self, fn, initial)
+
+    def Sum(self, fn: Callable = None, initial: Any = 0,
+            device: bool = False) -> Any:
+        """The sum of every item, leaf by leaf (``initial`` for an empty
+        DIA); ``device=True`` keeps it as tensors on the device. A custom
+        ``fn`` folds the items on the host (AllReduce)."""
+        from .ops import actions
+        if fn is not None:
+            return actions.AllReduce(self, fn, initial)
+        return actions.Sum(self, initial, device=device)
+
+    def Min(self) -> Any:
+        from .ops import actions
+        return actions.MinMax(self, is_min=True)
+
+    def Max(self) -> Any:
+        from .ops import actions
+        return actions.MinMax(self, is_min=False)
+
+
+# -- free functions over several DIAs ------------------------------------------
+
+def Zip(*dias: DIA, zip_fn: Callable = None, mode: str = "strict") -> DIA:
+    """Item ``i`` of every DIA zipped by ``zip_fn`` (a tuple when None).
+    ``mode``: "strict" (equal sizes), "cut" (the shortest) or "pad" (the
+    longest; short DIAs give zero items)."""
+    from .ops import zip_ as _z
+    return _z.Zip(list(dias), zip_fn, mode)
+
+
+def InnerJoin(left: DIA, right: DIA, left_key_fn: Callable,
+              right_key_fn: Callable, join_fn: Callable,
+              location_detection=None, out_size_hint=None,
+              dense_right_index=None) -> DIA:
+    """``join_fn(l, r)`` of every pair of items with equal keys.
+    ``location_detection`` (reference: LocationDetectionTag) drops items
+    whose key hash has no presence on the other side before the shuffle;
+    None leaves it to the cost model (core/preshuffle.py), True/False
+    force it. ``out_size_hint`` is accepted; the output is sized from the
+    exact per-worker totals. ``dense_right_index=n``: the right side is
+    a dense table of ``n`` rows whose key is its global position, and the
+    join is a gather (``right_key_fn`` must be None)."""
+    from .ops import join as _j
+    return _j.InnerJoin(left, right, left_key_fn, right_key_fn, join_fn,
+                        location_detection=location_detection,
+                        out_size_hint=out_size_hint,
+                        dense_right_index=dense_right_index)

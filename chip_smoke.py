@@ -51,9 +51,31 @@ Phases, each fatal on failure:
      forced on (presence_fill launched once per side) and forced off,
      each exact (int64) against a numpy version; items exchanged in each;
      warm times and a profiler table; then W=1;
-  8. on the inputs the W=4 runs gave the kernels, captured at the call
+  8. k-means end to end, thrill_tpu_torch/examples/k_means.py's k_means
+     (Distribute, Map(Bind) of the distance matmul, ReduceToIndex by
+     cluster, AllGatherArrays, a jit_cached update, Iterate with a tensor
+     carry; f64) over 2^24 normal points x 8 dims, k = 10, 10 iterations
+     at W=4: centers within 1e-9 x (1 + |c|) of a numpy Lloyd with the
+     same distance formula, every iteration's label counts equal; one B1,
+     one upsweep and one pass an iteration; items exchanged, peak memory
+     after iterations 2 and 10 (flat), warm times, a profiler table, the
+     card's idle share and a host profile; then W=1 at 3 iterations;
+  9. select_kth at W=4 (2^24 int64 values in [0, 2^40), k = n/2; Sample's
+     score argsort runs B2): equal to np.partition, rounds printed;
+ 10. sgd at W=4 (2^22 rows, dim 6, 40 iterations; BernoulliSample and
+     Sum(device=True)): at batch fraction 1 within 1e-9 of numpy's
+     full-batch descent; at 0.25 every batch size within 5 sigma of n p
+     and the error to the true weights at most numpy's full-batch error +
+     0.01;
+ 11. suffix_array (prefix doubling) at W=4 over 2^22 random ACGT
+     letters: check_sa holds, one Sort (one B1) a round, pass launches
+     equal the live passes;
+ 12. wavelet_tree at W=4 over 2^20 random bytes: every level equal to
+     numpy's stable partition by the bit;
+ 13. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
-     on the WordCount's and the PageRank step's sorted int64 destinations,
+     on the WordCount's, the PageRank step's and k-means' sorted int64
+     destinations,
      each beside its bound, the parent's int32 copy plus kernel and
      torch.bincount; segment_sum on the PageRank step's ids; presence_fill
      on the WordCount's register ids and on the join's location-filter
@@ -92,6 +114,19 @@ PR_RTOL = 1e-9                 # f64 PageRank vs numpy: of each page's rank
 PR_ATOL = 1e-18
 PR_MEM_SLACK = 1.02            # peak memory after iteration 10 vs 2
 ORDERS = 1 << 22               # TPC-H Q3-lite orders, 4 lines an order
+KM_POINTS = 1 << 24            # k-means points (the example's dim and k)
+KM_DIM = 8
+KM_K = 10
+KM_ITERS = 10
+KM_CHUNK = 1 << 20             # rows a step of the numpy Lloyd
+KM_RTOL = 1e-9                 # centers vs numpy: of 1 + |center|
+SK_VALUES = 1 << 24            # select_kth values in [0, 2^40)
+SGD_ROWS = 1 << 22             # sgd rows (the example's dim)
+SGD_DIM = 6
+SGD_ITERS = 40
+SGD_RTOL = 1e-9                # full-batch weights vs numpy
+SA_BYTES = 1 << 22             # suffix_array text, 4 letters
+WT_BYTES = 1 << 20             # wavelet_tree text, 256 letters
 DEVICE = "cuda"
 
 
@@ -569,18 +604,22 @@ def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
 class Capture:
     """Wraps a kernel wrapper where a module calls it: the call goes
     through unchanged (and counts its launch), its arguments are kept
-    (``args`` the last call's, ``calls`` every call's)."""
+    (``args`` the last call's, ``calls`` every call's unless
+    ``keep_all`` is false: a loop's calls would hold every iteration's
+    tensors)."""
 
-    def __init__(self, module, name: str) -> None:
+    def __init__(self, module, name: str, keep_all: bool = True) -> None:
         self.module, self.name = module, name
         self.inner = getattr(module, name)
+        self.keep_all = keep_all
         self.args = None
         self.calls = []
 
     def __enter__(self):
         def call(*args):
             self.args = args
-            self.calls.append(args)
+            if self.keep_all:
+                self.calls.append(args)
             return self.inner(*args)
         setattr(self.module, self.name, call)
         return self
@@ -784,17 +823,6 @@ def pagerank_step(torch, np, tt, pk, ps, reduce_mod, exchange_mod):
     return launches, cap.args, cap_sc.args
 
 
-def profile_table(torch, fn) -> None:
-    """A torch.profiler table (device time by op) of one call of ``fn``."""
-    from torch.profiler import ProfilerActivity, profile as tprof
-    torch.cuda.synchronize()
-    with tprof(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-
-
 def host_profile(torch, label: str, fn) -> None:
     """The host's time by function (cProfile, sorted by own time) over
     one call of ``fn``: where the host clock goes that the device table
@@ -995,6 +1023,358 @@ def tpch(torch, np, tt, W: int, tables, pk, ps, join_mod):
     return runs
 
 
+def profile_table(torch, fn):
+    """A torch.profiler table (device time by op) of one call of ``fn``;
+    returns the device's busy time in ms (one stream) and the call's wall
+    seconds under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tprof(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    log(avgs.table(sort_by="cuda_time_total", row_limit=25))
+    # the device's own events (kernels, copies): an op's row repeats its
+    # kernels' time, as the table's "Self CUDA time total" leaves it out
+    busy = sum(e.self_device_time_total for e in avgs
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3, wall
+
+
+def warm_seconds(torch, fn, calls: int):
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def lloyd_np(np, pts, c, iters: int):
+    """Lloyd's iterations in numpy with the example's distance formula
+    (x.x - 2 x c^T + c.c, the first minimum), KM_CHUNK rows at a time (the
+    example's k_means_dense builds [n, k, dim]: 10.7 GB here). The points
+    are held transposed, so that the products are one ``c @ x^T`` and
+    every column is contiguous (``x @ c.T`` of a skinny ``x`` took numpy
+    minutes here). Returns the centers and each iteration's count of
+    points per cluster."""
+    k, dim = c.shape
+    pts_t = np.ascontiguousarray(pts.T)
+    xx = np.einsum("ij,ij->i", pts, pts)
+    counts = []
+    for _ in range(iters):
+        sums = np.zeros((k, dim))
+        cnt = np.zeros(k, dtype=np.int64)
+        cc = (c * c).sum(1)
+        for s in range(0, len(pts), KM_CHUNK):
+            xt = pts_t[:, s:s + KM_CHUNK]
+            # (x.x - 2 x c^T) + c.c in place: adding -2 x c^T is the
+            # subtraction, bit for bit
+            d2 = c @ xt
+            d2 *= -2.0
+            d2 += xx[None, s:s + KM_CHUNK]
+            d2 += cc[:, None]
+            # the first minimum, as argmin: a later cluster wins only
+            # when strictly nearer
+            best, lab = d2[0].copy(), np.zeros(xt.shape[1], dtype=np.int64)
+            for j in range(1, k):
+                np.putmask(lab, d2[j] < best, j)
+                np.minimum(best, d2[j], out=best)
+            cnt += np.bincount(lab, minlength=k)
+            for j in range(dim):
+                sums[:, j] += np.bincount(lab, weights=xt[j], minlength=k)
+        counts.append(cnt)
+        c = np.where((cnt > 0)[:, None], sums / np.maximum(cnt, 1)[:, None],
+                     c)
+    return c, counts
+
+
+def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
+           card: str):
+    """``k_means`` of the port's example end to end (points from numpy
+    to numpy centers): held against lloyd_np, centers and every
+    iteration's counts; returns the launches of the checked run and the
+    send_counts input of its last exchange (W > 1)."""
+    from thrill_tpu_torch.examples import k_means as tkm
+    c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
+    t0 = time.perf_counter()
+    want, want_counts = lloyd_np(np, pts, c0, iters)
+    np_secs = time.perf_counter() - t0
+    mem, cnts = {}, []
+    real_iterate, real_update = tkm.Iterate, tkm._center_update
+
+    def update(sum_x, cnt, centers):
+        cnts.append(cnt.clone())
+        return real_update(sum_x, cnt, centers)
+
+    def iterate(ctx, body, carry, n, **kw):
+        calls = [0]
+
+        def body_after(c):
+            calls[0] += 1
+            if calls[0] == 3:      # iterations 1 and 2 are done
+                torch.cuda.synchronize()
+                mem[2] = (torch.cuda.max_memory_allocated(),
+                          torch.cuda.memory_allocated())
+            return body(c)
+
+        out = real_iterate(ctx, body_after, carry, n, **kw)
+        torch.cuda.synchronize()
+        mem[n] = (torch.cuda.max_memory_allocated(),
+                  torch.cuda.memory_allocated())
+        return out
+
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pk, ps)
+    tkm.Iterate, tkm._center_update = iterate, update
+    try:
+        with Capture(exchange_mod, "send_counts", keep_all=False) as cap_sc:
+            t0 = time.perf_counter()
+            got = tkm.k_means(ctx, pts, KM_K, iters)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+    finally:
+        tkm.Iterate, tkm._center_update = real_iterate, real_update
+    launches = read_launches(pk, ps)
+    stats = ctx.overall_stats()
+    err = np.abs(got - want)
+    if (got.shape != (KM_K, KM_DIM) or not np.isfinite(got).all()
+            or not (err <= KM_RTOL * (1 + np.abs(want))).all()):
+        raise AssertionError(f"W={W} k-means centers differ from numpy: max "
+                             f"|diff| {err.max()}")
+    got_counts = [c.cpu().numpy() for c in cnts]
+    if len(got_counts) != iters or any(
+            not np.array_equal(g, w) for g, w in zip(got_counts,
+                                                     want_counts)):
+        raise AssertionError(f"W={W} k-means label counts differ from "
+                             f"numpy: {got_counts} vs {want_counts}")
+    if W > 1:
+        # one range exchange an iteration: its send counts (B1), and one
+        # upsweep and one pass (the destination's 3 bits are one digit)
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+            if launches[name] != iters:
+                raise AssertionError(f"W={W} k-means: {launches[name]} "
+                                     f"{name} launches, expected {iters}")
+        if stats["exchanges"] != iters:
+            raise AssertionError(f"W={W} k-means: {stats['exchanges']} "
+                                 f"exchanges, expected {iters}")
+    if iters > 2 and (mem[iters][0] > PR_MEM_SLACK * mem[2][0]
+                      or mem[iters][1] > PR_MEM_SLACK * mem[2][1]):
+        raise AssertionError(f"W={W} k-means: device memory grew from "
+                             f"iteration 2 to {iters}: (peak, current) "
+                             f"{mem[2]} -> {mem[iters]}")
+    log(f"k-means W={W} points={len(pts)} dim={KM_DIM} k={KM_K} "
+        f"iterations={iters} f64: centers within {KM_RTOL} x (1 + |c|) of "
+        f"numpy's Lloyd (max |diff| {err.max():.6g}), label counts equal in "
+        f"every iteration (last "
+        f"{got_counts[-1].astype(np.int64).tolist()}); {secs:.3f} s "
+        f"(first run, host clock after synchronize, from numpy points to "
+        f"numpy centers; numpy's Lloyd {np_secs:.1f} s); launches "
+        f"{json.dumps(launches)}; exchanges {stats['exchanges']}, items "
+        f"exchanged {stats['items_moved']} ({stats['items_moved'] // iters}"
+        f" an iteration, {stats['bytes_moved'] // iters} bytes); device "
+        f"memory (peak, current) bytes after iteration 2 {mem.get(2)}, "
+        f"after iteration {iters} {mem[iters]} [{card}]")
+
+    def run():
+        tkm.k_means(tt.Context(num_workers=W, device=DEVICE), pts, KM_K,
+                    iters)
+
+    warm = warm_seconds(torch, run, 3)
+    log(f"k-means W={W} warm k_means seconds: {[round(x, 6) for x in warm]} "
+        f"(host clock after synchronize) [{card}]")
+    busy, wall = profile_table(torch, run)
+    med = sorted(warm)[1]
+    log(f"k-means W={W} device busy {busy:.3f} ms in the profiled call "
+        f"({wall:.3f} s under the profiler); idle share against the warm "
+        f"median {med:.3f} s: {1 - busy / 1e3 / med:.4f} [{card}]")
+    if W > 1:
+        host_profile(torch, f"k-means W={W}", run)
+    return launches, cap_sc.args
+
+
+def select_kth_phase(torch, np, tt, pk, ps, card: str):
+    """``select_kth`` of the port's example at W=4 over SK_VALUES int64
+    values in [0, 2^40), k = n/2: equal to np.partition. Returns the
+    launches (each round's Sample argsorts its scores: B2)."""
+    from thrill_tpu_torch.examples import select_kth as tsk
+    vals = np.random.default_rng(SEED + 60).integers(0, 1 << 40, SK_VALUES)
+    k = SK_VALUES // 2
+    want = int(np.partition(vals, k)[k])
+    rounds = [0]
+    real = tt.DIA.Sample
+
+    def sample(self, *a, **kw):
+        rounds[0] += 1
+        return real(self, *a, **kw)
+
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    tt.DIA.Sample = sample
+    try:
+        t0 = time.perf_counter()
+        got = tsk.select_kth(ctx, vals, k)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        tt.DIA.Sample = real
+    launches = read_launches(pk, ps)
+    if got != want:
+        raise AssertionError(f"select_kth = {got}, np.partition {want}")
+    for name in ("radix_upsweep", "radix_pass"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the "
+                                 f"select_kth path")
+    log(f"select_kth W=4 n={SK_VALUES} k={k}: {got}, equal to np.partition;"
+        f" {rounds[0]} Sample rounds; {secs:.3f} s (first run, host clock "
+        f"after synchronize, from numpy values); launches "
+        f"{json.dumps(launches)} [{card}]")
+    return launches
+
+
+def sgd_phase(torch, np, tt, pk, ps, sample_mod, card: str):
+    """``sgd_linear`` of the port's example at W=4: with every row in the
+    batch, within SGD_RTOL of numpy's full-batch descent; at a batch
+    fraction of 0.25 every batch's size within 5 sigma of n p and the
+    error to the true weights at most numpy's full-batch error + 0.01.
+    Returns the launches of the sampled run."""
+    from thrill_tpu_torch.examples import sgd as tsg
+    rng = np.random.default_rng(SEED + 70)
+    true_w = rng.normal(size=SGD_DIM)
+    X = rng.normal(size=(SGD_ROWS, SGD_DIM))
+    y = X @ true_w + 0.01 * rng.normal(size=SGD_ROWS)
+    lr, p = 0.1, 0.25
+    w_np = np.zeros(SGD_DIM)
+    for _ in range(SGD_ITERS):
+        w_np = w_np - lr * (X.T @ (X @ w_np - y)) / SGD_ROWS
+    err_np = float(np.linalg.norm(w_np - true_w))
+    full = tsg.sgd_linear(tt.Context(num_workers=4, device=DEVICE), X, y,
+                          iterations=SGD_ITERS, batch_fraction=1.0)
+    diff = float(np.abs(full - w_np).max())
+    if not diff <= SGD_RTOL * max(1.0, float(np.abs(w_np).max())):
+        raise AssertionError(f"sgd full batch differs from numpy: {diff}")
+    sizes = []
+    real_cv = sample_mod.compact_valid
+
+    def compact(tree, mask):
+        sizes.append(mask.sum())
+        return real_cv(tree, mask)
+
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    sample_mod.compact_valid = compact
+    try:
+        t0 = time.perf_counter()
+        w = tsg.sgd_linear(ctx, X, y, iterations=SGD_ITERS,
+                           batch_fraction=p)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        sample_mod.compact_valid = real_cv
+    launches = read_launches(pk, ps)
+    sizes = [int(s) for s in sizes]
+    sigma = (SGD_ROWS * p * (1 - p)) ** 0.5
+    if len(sizes) != SGD_ITERS or any(abs(s - SGD_ROWS * p) > 5 * sigma
+                                      for s in sizes):
+        raise AssertionError(f"sgd batch sizes {sizes} not within 5 sigma "
+                             f"({sigma:.1f}) of {SGD_ROWS * p}")
+    err = float(np.linalg.norm(w - true_w))
+    if not err <= err_np + 0.01:
+        raise AssertionError(f"sgd error {err} > numpy's full batch "
+                             f"{err_np} + 0.01")
+    log(f"sgd W=4 rows={SGD_ROWS} dim={SGD_DIM} iterations={SGD_ITERS}: full "
+        f"batch within {SGD_RTOL} of numpy (max |diff| {diff:.6g}); at "
+        f"p={p} batch sizes {min(sizes)}..{max(sizes)} (n p = "
+        f"{SGD_ROWS * p:.0f}, 5 sigma = {5 * sigma:.0f}), error to the true "
+        f"weights {err:.6g} against numpy's full batch {err_np:.6g}; "
+        f"{secs:.3f} s (sampled run, host clock after synchronize, from "
+        f"numpy rows); launches {json.dumps(launches)} [{card}]")
+    return launches
+
+
+def suffix_array_phase(torch, np, tt, pk, ps, card: str):
+    """``suffix_array`` (prefix doubling) of the port's example at W=4 over
+    SA_BYTES random letters of ACGT: check_sa must hold; one Sort a round,
+    every pass launch a live pass. Returns the launches."""
+    from thrill_tpu_torch.examples import suffix_sorting as tss
+    rng = np.random.default_rng(SEED + 80)
+    text = np.frombuffer(b"ACGT", dtype=np.uint8)[rng.integers(0, 4,
+                                                                SA_BYTES)]
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    rounds = [0]
+    real = ctx.Distribute
+
+    def distribute(items, storage=None):
+        rounds[0] += 1
+        return real(items, storage)
+
+    ctx.Distribute = distribute
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    sa = tss.suffix_array(ctx, text)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(pk, ps)
+    live = sum(p[0] for p in ctx.mesh_exec.radix_passes)
+    if not tss.check_sa(text, sa):
+        raise AssertionError("suffix_array fails check_sa")
+    if launches["partition_histogram"] != rounds[0]:
+        raise AssertionError(f"suffix_array: {rounds[0]} Sorts but "
+                             f"{launches['partition_histogram']} send counts")
+    if launches["radix_upsweep"] <= 0 or launches["radix_pass"] != live:
+        raise AssertionError(f"suffix_array: {launches['radix_pass']} pass "
+                             f"launches for {live} live passes")
+    warm = warm_seconds(torch, lambda: tss.suffix_array(
+        tt.Context(num_workers=4, device=DEVICE), text), 2)
+    log(f"suffix_array W=4 n={SA_BYTES} (ACGT): check_sa holds; {rounds[0]} "
+        f"doubling rounds; {secs:.3f} s (first run, host clock after "
+        f"synchronize, from numpy text to numpy suffix array), warm "
+        f"{[round(x, 6) for x in warm]}; launches {json.dumps(launches)}; "
+        f"exchanged items {ctx.mesh_exec.stats_items_moved} [{card}]")
+    return launches
+
+
+def wavelet_phase(torch, np, tt, pk, ps, card: str):
+    """``wavelet_tree`` of the port's example at W=4 over WT_BYTES random
+    bytes: every level equal to numpy's stable partition by the bit.
+    Returns the launches."""
+    from thrill_tpu_torch.examples import suffix_sorting as tss
+    text = np.random.default_rng(SEED + 90).integers(0, 256, WT_BYTES
+                                                     ).astype(np.uint8)
+    want, cur = [], text
+    for b in reversed(range(8)):
+        bit = (cur >> b) & 1
+        want.append(np.packbits(bit))
+        cur = cur[np.argsort(bit, kind="stable")]
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    got = tss.wavelet_tree(ctx, text)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches(pk, ps)
+    if len(got) != 8 or any(not np.array_equal(g, w)
+                            for g, w in zip(got, want)):
+        raise AssertionError("wavelet_tree differs from numpy's stable "
+                             "partitions")
+    log(f"wavelet_tree W=4 n={WT_BYTES}: 8 levels equal to numpy's stable "
+        f"partitions; {secs:.3f} s (host clock after synchronize, from "
+        f"numpy text); launches {json.dumps(launches)} [{card}]")
+    return launches
+
+
 def time_send_counts(torch, pk, label, dest, W):
     """The send-count histogram on one captured ``send_counts`` input (the
     kernel reads it as it is): held against the plain version, then timed
@@ -1119,6 +1499,7 @@ def main() -> int:
     from thrill_tpu_torch.common import native_build
     from thrill_tpu_torch.api.ops import join as join_mod
     from thrill_tpu_torch.api.ops import reduce as reduce_mod
+    from thrill_tpu_torch.api.ops import sample as sample_mod
     from thrill_tpu_torch.data import exchange as exchange_mod
     from thrill_tpu_torch.examples import page_rank as tpr
     from thrill_tpu_torch.examples import tpch as ttp
@@ -1154,7 +1535,17 @@ def main() -> int:
     q3 = tpch(torch, np, tt, 4, tables, pk, ps, join_mod)
     tpch(torch, np, tt, 1, tables, pk, ps, join_mod)
     del tables
-    sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr}
+    pts = np.random.default_rng(SEED + 50).normal(size=(KM_POINTS, KM_DIM))
+    km4, sc_km = kmeans(torch, np, tt, 4, KM_ITERS, pts, pk, ps,
+                        exchange_mod, card)
+    kmeans(torch, np, tt, 1, 3, pts, pk, ps, exchange_mod, card)
+    del pts
+    sk4 = select_kth_phase(torch, np, tt, pk, ps, card)
+    sgd4 = sgd_phase(torch, np, tt, pk, ps, sample_mod, card)
+    sa4 = suffix_array_phase(torch, np, tt, pk, ps, card)
+    wt4 = wavelet_phase(torch, np, tt, pk, ps, card)
+    sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr,
+               "k-means": sc_km}
     # the location filter's register ids, left side (orders) then right
     join_pres = {f"Q3-lite {side} location-filter": args for side, args in
                  zip(("orders", "lineitem"), q3["on"]["calls"])}
@@ -1201,7 +1592,9 @@ def main() -> int:
     paths = {"Sort W=4": sort4, "WordCount W=4": wc4,
              "PageRank step W=4": step4, "pagerank W=4": pr4,
              "tpch q3 W=4 (verdict)": q3["verdict"]["launches"],
-             "tpch q3 W=4 (location detection on)": q3["on"]["launches"]}
+             "tpch q3 W=4 (location detection on)": q3["on"]["launches"],
+             "k-means W=4": km4, "select_kth W=4": sk4, "sgd W=4": sgd4,
+             "suffix_array W=4": sa4, "wavelet_tree W=4": wt4}
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()})
                for k, m in meta.items()]

@@ -407,3 +407,80 @@ def test_page_rank_on_the_card(cuda_device, W):
                          5000, 3)
     # f64 scatter-adds on the card add in no fixed order
     assert np.abs(got - want).max() <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_sampling_on_the_card(cuda_device, W):
+    from thrill_tpu_torch.api.ops import sample as tsample
+    from thrill_tpu_torch.common.sampling import hypergeometric_split
+    mex = tt.MeshExec(num_workers=W, device=cuda_device)
+    u = tsample.worker_uniforms(mex, 3, 1 << 16)
+    assert u.device.type == "cuda" and u.dtype == torch.float64
+    ctx = tt.Context(mex)
+    n = W * 50000
+    src = ctx.Generate(n).Filter(lambda x: x % 5 != 0).Cache().Keep(4)
+    inputs = [set(a.tolist()) for a in
+              src.node.materialize().to_worker_arrays()]
+    counts = [len(i) for i in inputs]
+    tps.radix_upsweep.launches = 0
+    smp = ctx.Generate(n).Filter(lambda x: x % 5 != 0).Sample(999, seed=8)
+    per = [a.tolist() for a in smp.node.materialize().to_worker_arrays()]
+    assert tps.radix_upsweep.launches > 0         # the score argsort
+    takes = hypergeometric_split(np.random.default_rng(8), 999, counts)
+    assert [len(p) for p in per] == takes.tolist()
+    for p, i in zip(per, inputs):
+        assert p == sorted(set(p)) and set(p) <= i
+    p = 0.25
+    kept = src.BernoulliSample(p, seed=2)
+    per = [a.tolist() for a in kept.node.materialize().to_worker_arrays()]
+    total = sum(counts)
+    assert abs(sum(len(x) for x in per) - total * p) <= 5 * np.sqrt(
+        total * p * (1 - p))
+    for x, i in zip(per, inputs):
+        assert x == sorted(set(x)) and set(x) <= i
+    assert src.BernoulliSample(1.0, seed=2).Size() == total
+    assert src.BernoulliSample(0.0, seed=2).Size() == 0
+
+
+def _lloyd_np(pts, c, iters):
+    for _ in range(iters):
+        d2 = ((pts * pts).sum(1, keepdims=True) - 2.0 * pts @ c.T
+              + (c * c).sum(1)[None, :])
+        lab = d2.argmin(1)
+        cnt = np.bincount(lab, minlength=len(c)).astype(np.float64)
+        sums = np.stack([np.bincount(lab, weights=pts[:, j],
+                                     minlength=len(c))
+                         for j in range(pts.shape[1])], axis=1)
+        c = np.where((cnt > 0)[:, None], sums / np.maximum(cnt, 1)[:, None],
+                     c)
+    return c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_k_means_on_the_card(cuda_device, W):
+    from thrill_tpu_torch.examples import k_means as tkm
+    rng = np.random.default_rng(W)
+    pts = rng.normal(size=(1 << 16, 8))
+    got = tkm.k_means(tt.Context(num_workers=W, device=cuda_device), pts,
+                      10, iterations=5, seed=1)
+    c0 = pts[np.random.default_rng(1).choice(len(pts), 10, replace=False)]
+    want = _lloyd_np(pts, c0, 5)
+    assert np.abs(got - want).max() <= 1e-9 * (1 + np.abs(want).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_suffix_array_on_the_card(cuda_device, W):
+    from thrill_tpu_torch.examples import suffix_sorting as tss
+    text = np.random.default_rng(W).integers(97, 101, 1 << 16).astype(
+        np.uint8)
+    sa = tss.suffix_array(tt.Context(num_workers=W, device=cuda_device),
+                          text)
+    assert tss.check_sa(text, sa)
+    got = tss.wavelet_tree(tt.Context(num_workers=W, device=cuda_device),
+                           text[:5000])
+    want = tss.wavelet_tree(tt.Context(num_workers=W, device="cpu"),
+                            text[:5000])
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))

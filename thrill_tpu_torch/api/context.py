@@ -6,6 +6,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Sequence
 
+import torch
+
 from ..parallel.mesh import DeviceLike, MeshExec
 
 
@@ -30,9 +32,36 @@ class Context:
         from .ops.sources import Generate
         return Generate(self, size, fn)
 
-    def Distribute(self, items):
+    def Distribute(self, items, storage: Optional[str] = None):
         from .ops.sources import Distribute
-        return Distribute(self, items)
+        return Distribute(self, items, storage)
+
+    def EqualToDIA(self, items, storage: Optional[str] = None):
+        """Data every worker holds alike, as a DIA (reference:
+        api/equal_to_dia.hpp:30); one process holds it for every worker,
+        so this is Distribute."""
+        from .ops.sources import Distribute
+        return Distribute(self, items, storage)
+
+    def ConcatToDIA(self, per_worker_items, storage: Optional[str] = None):
+        from .ops.sources import ConcatToDIA
+        return ConcatToDIA(self, per_worker_items, storage)
+
+    def overall_stats(self) -> dict:
+        """The counters the port keeps (reference: OverallStats): the
+        mesh's exchange traffic, the nodes created and the peak device
+        bytes (``torch.cuda.max_memory_allocated``; 0 on the CPU)."""
+        mex = self.mesh_exec
+        dev = mex.device
+        return {
+            "workers": self.num_workers,
+            "nodes_created": self._next_id,
+            "exchanges": mex.stats_exchanges,
+            "items_moved": mex.stats_items_moved,
+            "bytes_moved": mex.stats_bytes_moved,
+            "hbm_peak": (int(torch.cuda.max_memory_allocated(dev))
+                         if dev.type == "cuda" else 0),
+        }
 
 
 def Run(job: Callable[[Context], Any], num_workers: int = 1,

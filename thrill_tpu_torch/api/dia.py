@@ -48,12 +48,28 @@ class DIA:
         return DIA(self.node, self.stack + (StackOp("flat_map", device_fn,
                                                     int(factor)),))
 
+    def BernoulliSample(self, p: float, seed: int = 0) -> "DIA":
+        """Each item kept with probability ``p``, in order."""
+        from .ops import sample as _sm
+        return _sm.BernoulliSample(self, p, seed)
+
     # -- distributed ops -----------------------------------------------
     def Sort(self, key_fn: Optional[Callable] = None) -> "DIA":
         """Globally sorted by ``key_fn`` (batched, default identity);
         equal keys keep their global order."""
         from .ops import sort as _s
         return _s.Sort(self, key_fn)
+
+    def SortStable(self, key_fn: Optional[Callable] = None) -> "DIA":
+        """Sort: it orders by (key, global index), so it is stable."""
+        from .ops import sort as _s
+        return _s.Sort(self, key_fn)
+
+    def Sample(self, k: int, seed: int = 0) -> "DIA":
+        """A uniform sample of ``min(k, Size())`` items without
+        replacement; each worker keeps its share in order."""
+        from .ops import sample as _sm
+        return _sm.Sample(self, k, seed)
 
     def ReduceByKey(self, key_fn: Callable, reduce_fn: Callable,
                     dup_detection=None) -> "DIA":

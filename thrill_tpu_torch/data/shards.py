@@ -55,14 +55,17 @@ class DeviceShards:
         return ar[None, :] < self.counts_device()[:, None]
 
     @staticmethod
-    def from_global_numpy(mesh_exec: MeshExec, tree: Any) -> "DeviceShards":
-        """Evenly range-split one global pytree (item axis 0; numpy
-        arrays or tensors) across the workers, order preserved."""
+    def from_global_numpy(mesh_exec: MeshExec, tree: Any,
+                          counts=None) -> "DeviceShards":
+        """Range-split one global pytree (item axis 0; numpy arrays or
+        tensors) across the workers, order preserved: evenly, or worker
+        ``w`` taking the next ``counts[w]`` items."""
         W = mesh_exec.num_workers
         dev = mesh_exec.device
         leaves, td = pt.flatten(tree)
         n = int(leaves[0].shape[0]) if leaves else 0
-        bnd = dense_range_bounds(n, W)
+        bnd = (dense_range_bounds(n, W) if counts is None else
+               np.concatenate([[0], np.cumsum(counts)]).astype(np.int64))
         counts = np.diff(bnd)
         cap = round_up_pow2(int(counts.max()))
         # rows past a worker's count repeat row n-1 (masked by counts)

@@ -9,7 +9,7 @@ dimension. Multiple cards and ``torch.distributed`` come later.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,6 +30,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+class CountedCall:
+    """A plain callable plus the count of its calls."""
+
+    __slots__ = ("fn", "calls")
+
+    def __init__(self, fn: Callable) -> None:
+        self.fn = fn
+        self.calls = 0
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.fn(*args, **kwargs)
+
+
 class MeshExec:
     """W workers on one device, plus the mesh's traffic counters."""
 
@@ -47,6 +61,20 @@ class MeshExec:
         self.radix_passes: List[Tuple[int, int]] = []
         # sticky pre-shuffle verdicts by (kind, site) (core/preshuffle.py)
         self.prune_verdicts: Dict[Tuple, bool] = {}
+        self._cache: Dict[Tuple, Any] = {}
+
+    def cached(self, key: Tuple, builder: Callable[[], Any]) -> Any:
+        """``builder()``'s result, built once per key on this mesh."""
+        if key not in self._cache:
+            self._cache[key] = builder()
+        return self._cache[key]
+
+    def jit_cached(self, key: Tuple, fn: Callable) -> "CountedCall":
+        """``fn`` behind a call counter, one per key (reference: a cached
+        ``jax.jit`` of an iterative program's small update step). Torch
+        runs ``fn`` eagerly: there is no trace to cache, only the
+        callable and the count of its calls."""
+        return self.cached(key, lambda: CountedCall(fn))
 
     def put_small(self, arr) -> torch.Tensor:
         """A host array on the mesh's device."""

@@ -72,10 +72,29 @@ Phases, each fatal on failure:
      equal the live passes;
  12. wavelet_tree at W=4 over 2^20 random bytes: every level equal to
      numpy's stable partition by the bit;
- 13. on the inputs the W=4 runs gave the kernels, captured at the call
+ 13. WordCount from a text file: thrill_tpu_torch/examples/word_count.py's
+     word_count_text_device (ReadWordsPacked, tokenized on the card, then
+     ReduceByKey) over a file of W x 2^22 of phase 4's words, a space
+     between words and a newline after every 16th, through
+     AllGatherArrays: W=4 (B1, the upsweep, the pass and B4 launched, the
+     dup verdict on), then W=1; the counts must equal np.bincount of the
+     word ids; first and warm times split into file read, upload,
+     tokenization, placement and reduce, a profiler table, the card's idle
+     share and a host profile;
+ 14. TeraSort from files to files at W=4: 4 files of 2^22 100-byte
+     records (halved while the temporary directory cannot hold input and
+     output), ReadBinary -> Sort on the 10-byte key -> WriteBinary, the
+     output files equal to np.lexsort's order; then Filter to first key
+     bytes below 64 and Rebalance (counts even, order kept) and Concat of
+     that with the sorted DIA (equal to numpy's concatenation);
+ 15. ReadLines -> Size -> WriteLines -> ReadLines at W=4 over phase 13's
+     W=4 text (2^20 lines): the lines equal the file's splitlines(), the
+     written bytes the file's; host-clock times. Phases 13-15 write their
+     inputs into a temporary directory and delete it at their end;
+ 16. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
-     on the WordCount's, the PageRank step's and k-means' sorted int64
-     destinations,
+     on the WordCount's, the PageRank step's, k-means', the text
+     WordCount's and Rebalance's sorted int64 destinations,
      each beside its bound, the parent's int32 copy plus kernel and
      torch.bincount; segment_sum on the PageRank step's ids; presence_fill
      on the WordCount's register ids and on the join's location-filter
@@ -823,10 +842,10 @@ def pagerank_step(torch, np, tt, pk, ps, reduce_mod, exchange_mod):
     return launches, cap.args, cap_sc.args
 
 
-def host_profile(torch, label: str, fn) -> None:
+def host_profile(torch, label: str, fn, card: str = "") -> None:
     """The host's time by function (cProfile, sorted by own time) over
     one call of ``fn``: where the host clock goes that the device table
-    does not show."""
+    does not show. ``card`` ends every line when given."""
     import cProfile
     import io
     import pstats
@@ -841,9 +860,10 @@ def host_profile(torch, label: str, fn) -> None:
     out = io.StringIO()
     pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
     lines = [l for l in out.getvalue().splitlines() if l.strip()]
-    log(f"host profile {label}: {secs:.3f} s under cProfile")
+    end = f" [{card}]" if card else ""
+    log(f"host profile {label}: {secs:.3f} s under cProfile{end}")
     for line in lines[-16:]:
-        log("  " + line.strip())
+        log("  " + line.strip() + end)
 
 
 def page_rank_np(np, edges, n: int, iters: int, damp: float):
@@ -1023,10 +1043,10 @@ def tpch(torch, np, tt, W: int, tables, pk, ps, join_mod):
     return runs
 
 
-def profile_table(torch, fn):
+def profile_table(torch, fn, card: str = ""):
     """A torch.profiler table (device time by op) of one call of ``fn``;
     returns the device's busy time in ms (one stream) and the call's wall
-    seconds under the profiler."""
+    seconds under the profiler. ``card`` ends every line when given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprof
     torch.cuda.synchronize()
@@ -1037,7 +1057,10 @@ def profile_table(torch, fn):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     avgs = prof.key_averages()
-    log(avgs.table(sort_by="cuda_time_total", row_limit=25))
+    end = f" [{card}]" if card else ""
+    for line in avgs.table(sort_by="cuda_time_total",
+                           row_limit=25).splitlines():
+        log(line + end)
     # the device's own events (kernels, copies): an op's row repeats its
     # kernels' time, as the table's "Self CUDA time total" leaves it out
     busy = sum(e.self_device_time_total for e in avgs
@@ -1375,6 +1398,297 @@ def wavelet_phase(torch, np, tt, pk, ps, card: str):
     return launches
 
 
+class Timed:
+    """Wraps a module function where a module calls it and adds the host
+    seconds of each call, the device synchronized before and after (the
+    time a file phase spends in it); ``out`` keeps the last result."""
+
+    def __init__(self, torch, owner, name: str) -> None:
+        import inspect
+        self.torch, self.owner, self.name = torch, owner, name
+        self.raw = inspect.getattr_static(owner, name)
+        self.inner = getattr(owner, name)
+        self.secs = 0.0
+        self.out = None
+
+    def __enter__(self):
+        def call(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.out = self.inner(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            self.secs += time.perf_counter() - t0
+            return out
+        setattr(self.owner, self.name, staticmethod(call) if isinstance(
+            self.raw, staticmethod) else call)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.owner, self.name, self.raw)
+
+
+def write_text(torch, path: str, voc, ids) -> int:
+    """The words ``voc[ids]`` (letters, zero padded) as a text file, a
+    space between words and a newline after every 16th; returns its
+    bytes."""
+    n = ids.numel()
+    sep = torch.full((n, 1), 32, dtype=torch.uint8, device=ids.device)
+    sep[15::16] = 10
+    txt = torch.cat([voc[ids], sep], dim=1).reshape(-1)
+    txt = txt[txt != 0].cpu().numpy()
+    txt.tofile(path)
+    return int(txt.size)
+
+
+def text_input(torch, np, W: int, tmp: str):
+    """WordCount's words for W workers (the wordcount phase's vocabulary
+    and Zipf draw, seeded by W) in ``tmp``/words.txt: (path, bytes,
+    vocabulary rows on the host, np.bincount of the ids)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 100 + W)
+    voc = vocabulary(torch, gen)
+    ids = zipf_ids(torch, W * PER_WORKER, VOCAB, gen)
+    path = os.path.join(tmp, "words.txt")
+    size = write_text(torch, path, voc, ids)
+    return (path, size, voc.cpu().numpy(),
+            np.bincount(ids.cpu().numpy(), minlength=VOCAB))
+
+
+def wordcount_text(torch, np, tt, W: int, pk, ps, rw_mod, text_mod,
+                   shards_mod, exchange_mod, card: str):
+    """``word_count_text_device`` of the port's example over a text file of
+    W x 2^22 words through AllGatherArrays: the counts must equal
+    np.bincount of the word ids. Returns the launches of the checked run
+    and the send_counts input it made (W > 1)."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.examples import word_count as twc
+    tmp = tempfile.mkdtemp(prefix="smoke_wordcount_text_")
+    try:
+        path, size, voc_h, want = text_input(torch, np, W, tmp)
+
+        def run():
+            ctx = tt.Context(num_workers=W, device=DEVICE)
+            out = twc.word_count_text_device(ctx, path).AllGatherArrays()
+            return ctx, out
+
+        def split_run():
+            with Timed(torch, rw_mod, "_read_word_bytes_range") as rd, \
+                    Timed(torch, rw_mod, "_upload_chunks") as up, \
+                    Timed(torch, text_mod, "tokenize_chunks") as tok, \
+                    Timed(torch, shards_mod.DeviceShards,
+                          "from_worker_arrays") as place:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ctx, out = run()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            parts = dict(read=rd.secs, upload=up.secs, tokenize=tok.secs,
+                         place=place.secs)
+            parts["reduce"] = secs - sum(parts.values())
+            return (ctx, out, secs, {k: round(v, 6) for k, v in parts.items()},
+                    place.out)
+
+        zero_launches(pk, ps)
+        with Capture(exchange_mod, "send_counts") as cap_sc:
+            ctx, out, secs, parts, words = split_run()
+        launches = read_launches(pk, ps)
+        verdicts = list(ctx.mesh_exec.prune_verdicts.values())
+        need = ["radix_upsweep", "radix_pass"]
+        if W > 1:
+            need += ["partition_histogram", "presence_fill"]
+            if verdicts != [True]:
+                raise AssertionError(f"W={W} WordCount text: the "
+                                     f"dup-detection verdict is {verdicts}, "
+                                     f"expected on")
+        for name in need:
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the W={W} "
+                                     f"WordCount text path")
+        w, c = out["w"].cpu().numpy(), out["c"].cpu().numpy()
+        got_ids = word_ids(np, w)
+        present = np.flatnonzero(want)
+        if (len(got_ids) != len(present)
+                or not np.array_equal(np.sort(got_ids), present)
+                or not np.array_equal(c, want[got_ids])
+                or not np.array_equal(w, voc_h[got_ids])):
+            raise AssertionError(f"W={W} WordCount text differs from "
+                                 f"np.bincount")
+        del out
+        log(f"wordcount text W={W} n={W * PER_WORKER} words, {size} bytes "
+            f"of text: {len(present)} distinct words, equal to np.bincount; "
+            f"{secs:.3f} s (first run, host clock after synchronize, file "
+            f"to device counts), split {json.dumps(parts)}; words a worker "
+            f"{words.counts.tolist()} in a capacity of {words.cap}; launches "
+            f"{json.dumps(launches)}; dup verdicts {verdicts}; exchanged "
+            f"items {ctx.mesh_exec.stats_items_moved} [{card}]")
+        warm = [split_run()[2:4] for _ in range(2)]
+        log(f"wordcount text W={W} warm seconds {[round(s, 6) for s, _ in warm]}"
+            f", split {json.dumps([p for _, p in warm])} (host clock after "
+            f"synchronize, file in the page cache) [{card}]")
+        if W > 1:
+            busy, wall = profile_table(torch, run, card)
+            med = sorted(s for s, _ in warm)[0]
+            log(f"wordcount text W={W} device busy {busy:.3f} ms in the "
+                f"profiled call ({wall:.3f} s under the profiler); idle share "
+                f"against the faster warm run {med:.3f} s: "
+                f"{1 - busy / 1e3 / med:.4f} [{card}]")
+            host_profile(torch, f"wordcount text W={W}", run, card)
+        return launches, cap_sc.args
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def terasort_file(torch, np, tt, pk, ps, exchange_mod, card: str):
+    """TeraSort from files to files at W=4: ReadBinary of W files of
+    100-byte records -> Sort on the 10-byte key -> WriteBinary, equal to
+    np.lexsort file for file; then Filter to first key bytes below 64,
+    Rebalance (even counts, order kept) and Concat with the unfiltered
+    DIA (equal to numpy). Returns the launches of the file path, of
+    Rebalance and of Concat, and Rebalance's send_counts input."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.common.partition import dense_range_bounds
+    W = 4
+    tmp = tempfile.mkdtemp(prefix="smoke_terasort_file_")
+    try:
+        n = W * PER_WORKER
+        free = shutil.disk_usage(tmp).free
+        while n > W and 2.2 * n * 100 > free:     # input and output
+            n //= 2
+        rng = np.random.default_rng(SEED + 110)
+        rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n,
+                                                                        100)
+        for w, part in enumerate(np.array_split(rec, W)):
+            part.tofile(os.path.join(tmp, f"in-{w:05d}.bin"))
+        out_pat = os.path.join(tmp, "out", "sorted-$$$$$.bin")
+        ctx = tt.Context(num_workers=W, device=DEVICE)
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        src = ctx.ReadBinary(os.path.join(tmp, "in-*.bin"), dtype=np.uint8,
+                             record_shape=(100,))
+        src.Execute()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s = src.Sort(lambda r: r[:, :10]).Keep(2)
+        s.Execute()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        s.WriteBinary(out_pat)
+        t3 = time.perf_counter()
+        launches = read_launches(pk, ps)
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+            if launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched on the "
+                                     f"TeraSort file path")
+        kp = np.zeros((n, 16), dtype=np.uint8)
+        kp[:, :10] = rec[:, :10]
+        kw = kp.view(">u8").astype(np.uint64)
+        del kp
+        order = np.lexsort((kw[:, 1], kw[:, 0]))
+        del kw
+        want = rec[order]
+        del order
+        outs = sorted(os.listdir(os.path.dirname(out_pat)))
+        got = np.concatenate([np.fromfile(os.path.join(
+            os.path.dirname(out_pat), f), dtype=np.uint8) for f in outs])
+        if outs != [f"sorted-{w:05d}.bin" for w in range(W)] or \
+                not np.array_equal(got.reshape(-1, 100), want):
+            raise AssertionError("TeraSort file: the output files differ "
+                                 "from np.lexsort")
+        del got
+        log(f"terasort file W={W} n={n} records ({n * 100} bytes, disk free "
+            f"{free}): output files equal to np.lexsort; read {t1 - t0:.3f} "
+            f"s, sort {t2 - t1:.3f} s, write {t3 - t2:.3f} s (first run, "
+            f"host clock after synchronize); launches "
+            f"{json.dumps(launches)} [{card}]")
+        # Rebalance of the skewed filtered rows
+        zero_launches(pk, ps)
+        with Capture(exchange_mod, "send_counts") as cap_sc:
+            t0 = time.perf_counter()
+            f = s.Filter(lambda r: r[:, 0] < 64).Rebalance().Keep()
+            fs = f.node.materialize()
+            torch.cuda.synchronize()
+            rb_secs = time.perf_counter() - t0
+        rb_launches = read_launches(pk, ps)
+        sel = want[want[:, 0] < 64]
+        if not np.array_equal(fs.counts, np.diff(dense_range_bounds(
+                len(sel), W))):
+            raise AssertionError(f"Rebalance counts {fs.counts.tolist()} are "
+                                 f"not even over {len(sel)} rows")
+        if not np.array_equal(f.AllGatherArrays().cpu().numpy(), sel):
+            raise AssertionError("Rebalance lost the sorted order")
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+            if rb_launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by Rebalance")
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        cat = f.Concat(s).AllGatherArrays()
+        torch.cuda.synchronize()
+        cc_secs = time.perf_counter() - t0
+        cc_launches = read_launches(pk, ps)
+        if not np.array_equal(cat.cpu().numpy(), np.concatenate([sel, want])):
+            raise AssertionError("Concat differs from numpy's concatenation")
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+            if cc_launches[name] <= 0:
+                raise AssertionError(f"{name} was not launched by Concat")
+        log(f"terasort file W={W}: Filter(first key byte < 64) keeps "
+            f"{len(sel)} rows, Rebalance counts {fs.counts.tolist()} even "
+            f"and in order, {rb_secs:.3f} s, launches "
+            f"{json.dumps(rb_launches)}; Concat with the sorted DIA equal to "
+            f"numpy ({len(sel) + n} rows), {cc_secs:.3f} s, launches "
+            f"{json.dumps(cc_launches)} (host clock after synchronize) "
+            f"[{card}]")
+        return launches, rb_launches, cc_launches, cap_sc.args
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def readlines_phase(torch, np, tt, pk, ps, card: str):
+    """ReadLines -> Size -> WriteLines -> ReadLines at W=4 over the W=4
+    WordCount text (2^20 lines), host storage at Python speed: the lines
+    equal the file's splitlines() in order, the written bytes the
+    file's. Returns the launches (none expected)."""
+    import shutil
+    import tempfile
+    W = 4
+    tmp = tempfile.mkdtemp(prefix="smoke_readlines_")
+    try:
+        path, size, _, _ = text_input(torch, np, W, tmp)
+        with open(path, "rb") as fh:
+            raw = fh.read()
+        want = raw.decode().splitlines()
+        out_pat = os.path.join(tmp, "out", "lines-$$$$$.txt")
+        ctx = tt.Context(num_workers=W, device=DEVICE)
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        lines = ctx.ReadLines(path).Keep()
+        n = lines.Size()
+        t1 = time.perf_counter()
+        lines.WriteLines(out_pat)
+        t2 = time.perf_counter()
+        back = ctx.ReadLines(out_pat.replace("$$$$$", "*")).AllGather()
+        t3 = time.perf_counter()
+        launches = read_launches(pk, ps)
+        outs = sorted(os.listdir(os.path.dirname(out_pat)))
+        written = b"".join(open(os.path.join(os.path.dirname(out_pat), f),
+                                "rb").read() for f in outs)
+        if n != len(want) or back != want:
+            raise AssertionError(f"readlines: {n} lines read back "
+                                 f"{len(back)}, the file has {len(want)}")
+        if written != raw or len(outs) != W:
+            raise AssertionError("readlines: the written files differ from "
+                                 "the input's bytes")
+        log(f"readlines W={W} {n} lines, {size} bytes: lines equal to the "
+            f"file's splitlines(), written bytes equal to the file's; "
+            f"ReadLines+Size {t1 - t0:.3f} s, WriteLines {t2 - t1:.3f} s, "
+            f"ReadLines+AllGather of the written files {t3 - t2:.3f} s (host "
+            f"clock); launches {json.dumps(launches)} [{card}]")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def time_send_counts(torch, pk, label, dest, W):
     """The send-count histogram on one captured ``send_counts`` input (the
     kernel reads it as it is): held against the plain version, then timed
@@ -1498,6 +1812,7 @@ def main() -> int:
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
     from thrill_tpu_torch.api.ops import join as join_mod
+    from thrill_tpu_torch.api.ops import read_write as rw_mod
     from thrill_tpu_torch.api.ops import reduce as reduce_mod
     from thrill_tpu_torch.api.ops import sample as sample_mod
     from thrill_tpu_torch.data import exchange as exchange_mod
@@ -1505,6 +1820,8 @@ def main() -> int:
     from thrill_tpu_torch.examples import tpch as ttp
     from thrill_tpu_torch.core import pallas_kernels as pk
     from thrill_tpu_torch.core import pallas_sort as ps
+    from thrill_tpu_torch.core import text as text_mod
+    from thrill_tpu_torch.data import shards as shards_mod
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1544,8 +1861,16 @@ def main() -> int:
     sgd4 = sgd_phase(torch, np, tt, pk, ps, sample_mod, card)
     sa4 = suffix_array_phase(torch, np, tt, pk, ps, card)
     wt4 = wavelet_phase(torch, np, tt, pk, ps, card)
+    wct4, sc_wct = wordcount_text(torch, np, tt, 4, pk, ps, rw_mod, text_mod,
+                                  shards_mod, exchange_mod, card)
+    wordcount_text(torch, np, tt, 1, pk, ps, rw_mod, text_mod, shards_mod,
+                   exchange_mod, card)
+    tsf4, rb4, cc4, sc_rb = terasort_file(torch, np, tt, pk, ps,
+                                          exchange_mod, card)
+    rl4 = readlines_phase(torch, np, tt, pk, ps, card)
     sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr,
-               "k-means": sc_km}
+               "k-means": sc_km, "WordCount text": sc_wct,
+               "Rebalance": sc_rb}
     # the location filter's register ids, left side (orders) then right
     join_pres = {f"Q3-lite {side} location-filter": args for side, args in
                  zip(("orders", "lineitem"), q3["on"]["calls"])}
@@ -1594,7 +1919,10 @@ def main() -> int:
              "tpch q3 W=4 (verdict)": q3["verdict"]["launches"],
              "tpch q3 W=4 (location detection on)": q3["on"]["launches"],
              "k-means W=4": km4, "select_kth W=4": sk4, "sgd W=4": sgd4,
-             "suffix_array W=4": sa4, "wavelet_tree W=4": wt4}
+             "suffix_array W=4": sa4, "wavelet_tree W=4": wt4,
+             "wordcount text W=4": wct4, "terasort file W=4": tsf4,
+             "Rebalance W=4 (terasort file)": rb4,
+             "Concat W=4 (terasort file)": cc4, "readlines W=4": rl4}
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()})
                for k, m in meta.items()]

@@ -484,3 +484,47 @@ def test_suffix_array_on_the_card(cuda_device, W):
     want = tss.wavelet_tree(tt.Context(num_workers=W, device="cpu"),
                             text[:5000])
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_word", [1, 5, 16])
+def test_tokenizer_on_the_card_matches_the_cpu(cuda_device, max_word):
+    from thrill_tpu_torch.core import text as ttext
+    rng = np.random.default_rng(max_word)
+    data = rng.choice(np.frombuffer(b"ab \t\n\r\x0b\x0c\xc3\xa9xyz",
+                                    dtype=np.uint8), size=1 << 20)
+    cpu = torch.from_numpy(data)
+    starts = torch.tensor([0, 1000, 1000, 77777, 500000])
+    for args in ((), (starts,)):
+        want = ttext.tokenize_chunks(cpu, *args, max_word=max_word)
+        got = ttext.tokenize_chunks(cpu.to(cuda_device),
+                                    *[a.to(cuda_device) for a in args],
+                                    max_word=max_word)
+        assert got[0].device.type == "cuda"
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_files_round_trip_on_the_card(cuda_device, tmp_path, W):
+    rng = np.random.default_rng(W)
+    recs = rng.integers(0, 256, size=(3001, 100)).astype(np.uint8)
+    for i, cut in enumerate(np.array_split(recs, 3)):
+        (tmp_path / f"in{i}.bin").write_bytes(cut.tobytes())
+    text = b" ".join(b"w%d" % (i % 97) for i in range(20000))
+    (tmp_path / "t.txt").write_bytes(text)
+
+    def job(dev):
+        ctx = tt.Context(num_workers=W, device=dev)
+        d = ctx.ReadBinary(str(tmp_path / "in*.bin"), dtype=np.uint8,
+                           record_shape=(100,))
+        out = tmp_path / str(dev) / "out-$$$$$.bin"
+        d.Sort(lambda r: r[:, :10]).WriteBinary(str(out))
+        words = ctx.ReadWordsPacked(str(tmp_path / "t.txt")).AllGatherArrays()
+        return (b"".join(open(p, "rb").read() for p in sorted(
+            (tmp_path / str(dev)).iterdir())), words["w"].cpu())
+
+    got, want = job(cuda_device), job("cpu")
+    assert got[0] == want[0] and len(got[0]) == recs.nbytes
+    assert torch.equal(got[1], want[1])

@@ -2,9 +2,8 @@
 
 ``Distribute`` of item sequences (a list of ints, of tuples, of dicts, a
 generator), ``EqualToDIA`` and ``ConcatToDIA`` must give the reference's
-items, per-worker counts included, at W in {1, 2, 4}. What needs host
-storage, which the port does not have yet, raises instead of falling
-back.
+items, per-worker counts included, at W in {1, 2, 4}: on the device for
+numeric items, on the host for strings, objects and ``storage="host"``.
 """
 
 import jax
@@ -157,25 +156,72 @@ def test_concat_to_dia_matches_reference(W, case):
 
 def test_concat_to_dia_places_each_list_on_its_worker():
     ctx = tt.Context(num_workers=4, device="cpu")
-    shards = ctx.ConcatToDIA([[5], [], [6, 7, 8, 9, 10]]).node.materialize()
+    shards = ctx.ConcatToDIA([[5], [], [6, 7, 8, 9, 10]],
+                             storage="device").node.materialize()
     assert shards.counts.tolist() == [1, 0, 5, 0]
     per = shards.to_worker_arrays()
     assert [p.tolist() for p in per] == [[5], [], [6, 7, 8, 9, 10], []]
+    # the default is host storage, as in the reference
+    shards = ctx.ConcatToDIA([[5], [], [6, 7, 8, 9, 10]]).node.materialize()
+    assert shards.counts.tolist() == [1, 0, 5, 0]
+    assert shards.lists == [[5], [], [6, 7, 8, 9, 10], []]
 
 
-@pytest.mark.parametrize("op", ["Distribute", "EqualToDIA", "ConcatToDIA"])
-def test_host_storage_raises(op):
-    ctx = tt.Context(num_workers=2, device="cpu")
-    call = getattr(ctx, op)
-    wrap = (lambda x: [x, x]) if op == "ConcatToDIA" else (lambda x: x)
-    with pytest.raises(NotImplementedError, match="host storage"):
-        call(wrap([1, 2, 3]), storage="host")
-    with pytest.raises(NotImplementedError, match="host storage"):
-        call(wrap(["a", "b"]))
-    with pytest.raises(NotImplementedError, match="host storage"):
-        call(wrap([object()]))
-    with pytest.raises(NotImplementedError, match="host storage"):
-        call(wrap([(1, "x")]))
+class Point:
+    def __init__(self, x):
+        self.x = x
+
+    def __eq__(self, other):
+        return type(other) is Point and other.x == self.x
+
+    def __repr__(self):
+        return f"Point({self.x})"
+
+
+HOST_ITEMS = {
+    "ints with storage='host'": (lambda i: i, "host"),
+    "strings": (lambda i: f"s{i}" * (i % 3), None),
+    "objects": (lambda i: Point(i), None),
+    "mixed tuples": (lambda i: (i, f"k{i}", 0.5 * i), None),
+}
+
+
+def _host_source(src, kind, c, n=11):
+    make, storage = HOST_ITEMS[kind]
+    if src == "Generate":
+        return c.Generate(n, make, storage="host")
+    items = [make(i) for i in range(n)]
+    if src == "ConcatToDIA":
+        return c.ConcatToDIA([items[:3], [], items[3:]], storage=storage)
+    return getattr(c, src)(items, storage=storage)
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+@pytest.mark.parametrize("src", ["Generate", "Distribute", "EqualToDIA",
+                                 "ConcatToDIA"])
+@pytest.mark.parametrize("kind", sorted(HOST_ITEMS))
+def test_host_storage_matches_reference(W, src, kind):
+    def job(c):
+        d = _host_source(src, kind, c).Keep()
+        shards = d.node.materialize()
+        return (type(shards).__name__, [list(l) for l in shards.lists],
+                d.Size(), d.AllGather())
+
+    want, got = _ref(W, job), job(tt.Context(num_workers=W, device="cpu"))
+    assert got[0] == want[0] == "HostShards"
+    assert _same(want[1:], got[1:]), (want, got)
+
+
+@pytest.mark.parametrize("items", [[object(), object()], ["a", "b"],
+                                   [(1, "x")]])
+def test_to_device_of_objects_raises_the_reference_s_error(items):
+    with pytest.raises(TypeError) as want:
+        _ref(2, lambda c: c.Distribute(items).ToDevice().AllGather())
+    with pytest.raises(TypeError) as got:
+        tt.Context(num_workers=2, device="cpu").Distribute(
+            items).ToDevice().AllGather()
+    assert "Only arrays of numeric types are supported" in str(want.value)
+    assert "Only arrays of numeric types are supported" in str(got.value)
 
 
 def test_empty_items_raise_the_reference_s_error():

@@ -308,9 +308,18 @@ def test_device_flat_map(W):
 
 
 def test_flat_map_needs_the_device_form():
+    # without the batched device form, FlatMap takes the host form, as
+    # in the reference: per-item lists on host storage
+    jctx = _jax_ctx(2)
+    try:
+        want = jctx.Generate(5).FlatMap(lambda x: [x] * (x % 3)).node \
+            .materialize().lists
+    finally:
+        jctx.close()
     ctx = tt.Context(num_workers=2, device="cpu")
-    with pytest.raises(ValueError, match="device_fn"):
-        ctx.Generate(4).FlatMap(lambda x: [x, x])
+    got = ctx.Generate(5).FlatMap(lambda x: [x] * (x % 3)).node.materialize()
+    assert type(got).__name__ == "HostShards"
+    assert got.lists == want == [[1], [2, 2, 4]]
 
 
 def _fill(x, v):

@@ -5,9 +5,9 @@ dimension on one device. Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``. The port imports neither jax nor thrill_tpu.
 """
 
-from .api import (Bind, Context, DIA, FieldReduce, InnerJoin, Iterate, Run,
-                  RunLocalTests, Zip)
+from .api import (Bind, Concat, Context, DIA, FieldReduce, InnerJoin, Iterate,
+                  Run, RunLocalTests, Union, Zip)
 from .parallel.mesh import MeshExec
 
-__all__ = ["Bind", "Context", "DIA", "FieldReduce", "InnerJoin", "Iterate",
-           "MeshExec", "Run", "RunLocalTests", "Zip"]
+__all__ = ["Bind", "Concat", "Context", "DIA", "FieldReduce", "InnerJoin",
+           "Iterate", "MeshExec", "Run", "RunLocalTests", "Union", "Zip"]

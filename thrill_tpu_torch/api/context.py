@@ -1,6 +1,8 @@
 """The runtime handle passed to user jobs (counterpart of a minimal
 reference package's ``api/context.py``: no service plane, checkpoints,
-elasticity or host group)."""
+elasticity or host group). Sources take ``storage`` "device" (columnar
+tensors) or "host" (per-worker Python lists); None infers it as the
+reference does."""
 
 from __future__ import annotations
 
@@ -28,9 +30,12 @@ class Context:
         self._next_id += 1
         return self._next_id
 
-    def Generate(self, size: int, fn: Optional[Callable] = None):
+    def Generate(self, size: int, fn: Optional[Callable] = None,
+                 storage: Optional[str] = None):
+        """Items ``fn(i)`` of ``i`` in ``[0, size)``: on the device
+        ``fn`` maps a batch of int64 indices, on the host one int."""
         from .ops.sources import Generate
-        return Generate(self, size, fn)
+        return Generate(self, size, fn, storage)
 
     def Distribute(self, items, storage: Optional[str] = None):
         from .ops.sources import Distribute
@@ -46,6 +51,24 @@ class Context:
     def ConcatToDIA(self, per_worker_items, storage: Optional[str] = None):
         from .ops.sources import ConcatToDIA
         return ConcatToDIA(self, per_worker_items, storage)
+
+    def ReadLines(self, path_or_glob: str):
+        """The text lines of the files (host storage)."""
+        from .ops import read_write
+        return read_write.ReadLines(self, path_or_glob)
+
+    def ReadWordsPacked(self, path_or_glob: str, max_word: int = 16):
+        """The whitespace-separated words of the files as a device DIA of
+        ``{"w": [max_word] uint8}`` rows, tokenized on the device."""
+        from .ops import read_write
+        return read_write.ReadWordsPacked(self, path_or_glob, max_word)
+
+    def ReadBinary(self, path_or_glob: str, dtype, record_shape=()):
+        """Fixed-size records of ``dtype`` and ``record_shape`` as a
+        device DIA."""
+        from .ops import read_write
+        return read_write.ReadBinary(self, path_or_glob, dtype,
+                                     record_shape)
 
     def overall_stats(self) -> dict:
         """The counters the port keeps (reference: OverallStats): the

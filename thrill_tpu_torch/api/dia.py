@@ -2,9 +2,10 @@
 (counterpart of the reference package's ``api/dia.py``).
 
 A handle is a node plus a stack of local operations. ``Map``/``Filter``
-and the device ``FlatMap`` extend the stack; the distributed ops cut it
-with a new node; actions run the graph. ``Zip`` and ``InnerJoin`` take
-several DIAs and live at module level, as in the reference.
+and the device ``FlatMap`` extend the stack; the host ``FlatMap``, the
+distributed ops and ToHost/ToDevice cut it with a new node; actions and
+writers run the graph. ``Zip``, ``InnerJoin``, ``Concat`` and ``Union``
+of several DIAs also live at module level, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,15 +37,14 @@ class DIA:
 
     def FlatMap(self, fn: Callable, device_fn: Optional[Callable] = None,
                 factor: int = 1) -> "DIA":
-        """``device_fn(tree) -> (tree[n, k, ...], valid[n, k])`` with the
-        static factor ``k``: every item expands into ``k`` candidates,
-        the valid ones stay, in item order. The host form ``fn(item) ->
-        iterable`` needs host storage, which the port does not have."""
+        """Host: ``fn(item) -> iterable``. Device storage additionally
+        takes the batched ``device_fn(tree) -> (tree[n, k, ...], valid[n,
+        k])`` with the static factor ``k``: every item expands into ``k``
+        candidates, the valid ones stay, in item order. Without it the
+        pipeline moves to host storage here."""
+        from .ops import lop_nodes
         if device_fn is None:
-            raise ValueError(
-                "FlatMap: the port runs on device storage only; pass the "
-                "batched device_fn(tree) -> (tree[n, k, ...], valid[n, k]) "
-                "with its factor k")
+            return lop_nodes.flat_map_host(self, fn)
         return DIA(self.node, self.stack + (StackOp("flat_map", device_fn,
                                                     int(factor)),))
 
@@ -113,7 +113,35 @@ class DIA:
         from .ops import zip_ as _z
         return _z.ZipWithIndex(self, zip_fn)
 
+    def Concat(self, other: "DIA") -> "DIA":
+        """This DIA's items, then ``other``'s, evenly re-split."""
+        from .ops import concat as _c
+        return _c.Concat(self, other)
+
+    def Union(self, *others: "DIA") -> "DIA":
+        """Every DIA's items on their own workers, no order between
+        DIAs guaranteed and no exchange."""
+        from .ops import union as _u
+        return _u.Union(self, *others)
+
+    def Rebalance(self) -> "DIA":
+        """The items in order, evenly re-split (after a skewing
+        Filter, say)."""
+        from .ops import rebalance as _rb
+        return _rb.Rebalance(self)
+
     # -- consume control and materialization -----------------------------
+    def ToHost(self) -> "DIA":
+        """The items as per-worker Python lists (host storage)."""
+        from .ops import lop_nodes
+        return lop_nodes.to_host(self)
+
+    def ToDevice(self) -> "DIA":
+        """Host items (fixed-shape pytrees of numbers) as columnar
+        device storage."""
+        from .ops import lop_nodes
+        return lop_nodes.to_device(self)
+
     def Keep(self, n: int = 1) -> "DIA":
         self.node.keep(n)
         return self
@@ -167,6 +195,22 @@ class DIA:
         from .ops import actions
         return actions.MinMax(self, is_min=False)
 
+    # -- writers -------------------------------------------------------
+    def WriteLines(self, path_pattern: str) -> None:
+        """One text file per worker, ``str(item)`` a line."""
+        from .ops import read_write
+        read_write.WriteLines(self, path_pattern)
+
+    def WriteLinesOne(self, path: str) -> None:
+        """One text file of every item, in worker-rank order."""
+        from .ops import read_write
+        read_write.WriteLinesOne(self, path)
+
+    def WriteBinary(self, path_pattern: str) -> None:
+        """Raw fixed-size records, one file per worker."""
+        from .ops import read_write
+        read_write.WriteBinary(self, path_pattern)
+
 
 # -- free functions over several DIAs ------------------------------------------
 
@@ -176,6 +220,18 @@ def Zip(*dias: DIA, zip_fn: Callable = None, mode: str = "strict") -> DIA:
     longest; short DIAs give zero items)."""
     from .ops import zip_ as _z
     return _z.Zip(list(dias), zip_fn, mode)
+
+
+def Concat(*dias: DIA) -> DIA:
+    """The DIAs' items in argument order, evenly re-split."""
+    from .ops import concat as _c
+    return _c.ConcatMany(list(dias))
+
+
+def Union(*dias: DIA) -> DIA:
+    """The DIAs' items worker by worker, no exchange."""
+    from .ops import union as _u
+    return _u.UnionMany(list(dias))
 
 
 def InnerJoin(left: DIA, right: DIA, left_key_fn: Callable,

@@ -10,10 +10,12 @@ do.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
-from ..data.shards import DeviceShards
-from .stack import Stack, apply_stack_device
+from ..data.shards import DeviceShards, HostShards, require_device
+from .stack import Stack, apply_stack_device, apply_stack_host
+
+Shards = Union[DeviceShards, HostShards]
 
 NEW = "NEW"
 EXECUTED = "EXECUTED"
@@ -26,10 +28,12 @@ class ParentLink:
     node: "DIABase"
     stack: Stack
 
-    def pull(self, consume: bool = True) -> DeviceShards:
+    def pull(self, consume: bool = True) -> Shards:
         shards = self.node.materialize(consume=consume)
         if not self.stack:
             return shards
+        if isinstance(shards, HostShards):
+            return apply_stack_host(shards, self.stack)
         return apply_stack_device(shards, self.stack)
 
 
@@ -43,14 +47,19 @@ class DIABase:
         self.parents: List[ParentLink] = list(parents)
         self.id = ctx._register_node(self)
         self.state = NEW
-        self._shards: Optional[DeviceShards] = None
+        self._shards: Optional[Shards] = None
         # every node's result may be used once; Keep(n) allows n more
         self.consume_budget = 1
 
-    def compute(self) -> DeviceShards:
+    def compute(self) -> Shards:
         raise NotImplementedError
 
-    def materialize(self, consume: bool = False) -> DeviceShards:
+    def pull_device(self, i: int = 0) -> DeviceShards:
+        """Parent ``i``'s shards, for an op with no host path: host
+        storage raises NotImplementedError."""
+        return require_device(self.parents[i].pull(), self.label)
+
+    def materialize(self, consume: bool = False) -> Shards:
         if self.state == DISPOSED:
             raise RuntimeError(
                 f"DIA node {self.label}#{self.id} was consumed/disposed "

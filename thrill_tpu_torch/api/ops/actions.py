@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ...common import tree as pt
+from ...data.shards import HostShards, itemize, require_device
 from .reduce import _type_max, _type_min
 
 
@@ -24,8 +25,21 @@ def Size(dia) -> int:
 def AllGatherArrays(dia):
     """The items as one pytree of tensors ``[total, ...]`` on the
     device, worker-rank order, sliced from the shards without a host
-    copy."""
-    shards = _pull(dia)
+    copy. Host storage gives numpy-stacked leaves of the same tree
+    shape, and an empty host DIA ``[]``: its item structure is unknown
+    without items."""
+    return _gather_arrays(_pull(dia))
+
+
+def _gather_arrays(shards):
+    if isinstance(shards, HostShards):
+        items = [it for l in shards.lists for it in l]
+        if not items:
+            return []
+        flat = [pt.flatten(it) for it in items]
+        return pt.unflatten(flat[0][1], [
+            np.stack([f[0][i] for f in flat])
+            for i in range(len(flat[0][0]))])
     counts = [int(c) for c in shards.counts]
 
     def cat(leaf):
@@ -38,14 +52,17 @@ def AllGatherArrays(dia):
 
 
 def AllGather(dia) -> list:
-    """The items as a host list: scalar leaves as Python numbers, array
-    leaves as numpy rows, in the item's own pytree shape."""
-    leaves, td = pt.flatten(pt.tree_map(
-        lambda t: t.detach().cpu().numpy(), AllGatherArrays(dia)))
-    cols = [l.tolist() if l.ndim == 1 else list(l) for l in leaves]
-    if td is pt.LEAF:
-        return cols[0]
-    return [pt.unflatten(td, list(vals)) for vals in zip(*cols)]
+    """The items as a host list in worker-rank order: host items as
+    they are; device scalar leaves as Python numbers, array leaves as
+    numpy rows, in the item's own pytree shape."""
+    return _items(_pull(dia))
+
+
+def _items(shards) -> list:
+    if isinstance(shards, HostShards):
+        return [it for l in shards.lists for it in l]
+    return itemize(pt.tree_map(lambda t: t.detach().cpu().numpy(),
+                               _gather_arrays(shards)))
 
 
 def _device_reduce(shards, mode: str, keep_device: bool = False):
@@ -83,7 +100,7 @@ def Sum(dia, initial: Any = 0, device: bool = False) -> Any:
     sum unless it is zero or None (a matching pytree, or one scalar for
     every leaf). ``device=True`` returns tensors on the device, to be fed
     back into a Bind without a host copy."""
-    shards = _pull(dia)
+    shards = require_device(_pull(dia), "Sum")
     if shards.total == 0:
         return initial
     reduced = _device_reduce(shards, "sum", keep_device=device)
@@ -95,15 +112,16 @@ def Sum(dia, initial: Any = 0, device: bool = False) -> Any:
 
 
 def MinMax(dia, is_min: bool) -> Any:
-    shards = _pull(dia)
+    shards = require_device(_pull(dia), "Min" if is_min else "Max")
     if shards.total == 0:
         raise ValueError("Min/Max of empty DIA")
     return _device_reduce(shards, "min" if is_min else "max")
 
 
 def AllReduce(dia, fn: Callable, initial: Any = None) -> Any:
-    """A generic associative fold of every item, on the host."""
-    items = AllGather(dia)
+    """A generic associative fold of every item, on the host, of a
+    device DIA's items (host storage raises: ROADMAP.md queue A)."""
+    items = _items(require_device(_pull(dia), "AllReduce"))
     if not items:
         if initial is None:
             raise ValueError("AllReduce of empty DIA without initial")

@@ -67,8 +67,8 @@ class InnerJoinNode(DIABase):
                                   else int(dense_right_index))
 
     def compute(self) -> DeviceShards:
-        left = self.parents[0].pull()
-        right = self.parents[1].pull()
+        left = self.pull_device(0)
+        right = self.pull_device(1)
         if self.dense_right_index is not None:
             return self._compute_dense(left, right)
         left, right = self._prep_device(left, right)

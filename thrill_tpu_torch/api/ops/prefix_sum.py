@@ -46,7 +46,7 @@ class PrefixSumNode(DIABase):
         self.inclusive = inclusive
 
     def compute(self) -> DeviceShards:
-        shards = self.parents[0].pull()
+        shards = self.pull_device()
         if shards.cap == 0:
             return shards
         mask = shards.valid_mask()

@@ -77,7 +77,7 @@ class ReduceNode(DIABase):
         self.dup_detection = dup_detection
 
     def compute(self) -> DeviceShards:
-        pre = _local_reduce(self.parents[0].pull(), self.key_fn,
+        pre = _local_reduce(self.pull_device(), self.key_fn,
                             self.reduce_fn)
         if self.context.num_workers == 1:
             # the pre phase combined every key: nothing left to merge
@@ -273,7 +273,7 @@ class ReduceToIndexNode(DIABase):
         return exchange.exchange(shards, dest)
 
     def compute(self) -> DeviceShards:
-        shards = self.parents[0].pull()
+        shards = self.pull_device()
         mex = shards.mesh_exec
         W = mex.num_workers
         bounds = self._bounds()

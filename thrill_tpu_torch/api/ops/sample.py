@@ -50,7 +50,7 @@ class BernoulliSampleNode(DIABase):
         self.seed = seed
 
     def compute(self) -> DeviceShards:
-        shards = self.parents[0].pull()
+        shards = self.pull_device()
         mex = shards.mesh_exec
         keep = shards.valid_mask() & (
             worker_uniforms(mex, self.seed, shards.cap) < self.p)
@@ -65,7 +65,7 @@ class SampleNode(DIABase):
         self.seed = seed
 
     def compute(self) -> DeviceShards:
-        shards = self.parents[0].pull()
+        shards = self.pull_device()
         mex = shards.mesh_exec
         cap = shards.cap
         takes = hypergeometric_split(np.random.default_rng(self.seed),

@@ -82,7 +82,7 @@ class SortNode(DIABase):
         self.key_fn = key_fn or (lambda x: x)
 
     def compute(self) -> DeviceShards:
-        return _device_sample_sort(self.parents[0].pull(), self.key_fn)
+        return _device_sample_sort(self.pull_device(), self.key_fn)
 
 
 def _device_sample_sort(shards: DeviceShards,

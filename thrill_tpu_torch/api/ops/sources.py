@@ -1,11 +1,13 @@
-"""Source operations: Generate, Distribute/EqualToDIA and ConcatToDIA,
-device storage only (counterpart of the reference package's
-``api/ops/sources.py``).
+"""Source operations: Generate, Distribute/EqualToDIA and ConcatToDIA
+(counterpart of the reference package's ``api/ops/sources.py``).
 
-A list, a tuple or a generator of numeric item pytrees (ints, floats,
-bools, numpy scalars or arrays, tuples and dicts of them) becomes
-columns, as in the reference. Items that need host storage (strings,
-objects) and ``storage="host"`` raise: the port has no host storage yet.
+Storage is "device" (columnar tensors) or "host" (per-worker Python
+lists of items of any type). Left unset, it is inferred as in the
+reference: columnar input (an array, a tensor, a dict of them) and
+items whose leaves are all numbers (ints, floats, bools, numpy scalars
+or arrays, in tuples and dicts) go to the device, as columns; other
+items go to the host; an empty sequence takes the default, the device.
+ConcatToDIA defaults to the host, as the reference's does.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
-from ...data.shards import DeviceShards, round_up_pow2
+from ...data.shards import (DeviceShards, HostShards, columnarize,
+                            round_up_pow2)
 from ..dia import DIA
 from ..dia_base import DIABase
 from ..stack import _broadcast_outputs
@@ -26,18 +29,24 @@ _NUMERIC = (int, float, bool, np.generic, np.ndarray)
 
 
 class GenerateNode(DIABase):
-    """Indices ``[0, size)`` split evenly; ``fn`` maps a batch of int64
-    indices to items."""
+    """Indices ``[0, size)`` split evenly; on the device ``fn`` maps a
+    batch of int64 indices to items, on the host one index."""
 
-    def __init__(self, ctx, size: int, fn: Optional[Callable]) -> None:
+    def __init__(self, ctx, size: int, fn: Optional[Callable],
+                 storage: str) -> None:
         super().__init__(ctx, "Generate")
         self.size = int(size)
         self.fn = fn
+        self.storage = storage
 
-    def compute(self) -> DeviceShards:
+    def compute(self):
         mex = self.context.mesh_exec
         W = mex.num_workers
         bnd = dense_range_bounds(self.size, W)
+        if self.storage == "host":
+            fn = self.fn or (lambda i: i)
+            return HostShards(W, [[fn(i) for i in range(bnd[w], bnd[w + 1])]
+                                  for w in range(W)])
         counts = np.diff(bnd)
         cap = round_up_pow2(int(counts.max()))
         idx = (mex.put_small(bnd[:W])[:, None]
@@ -50,21 +59,27 @@ class GenerateNode(DIABase):
 
 
 class DistributeNode(DIABase):
-    """A global collection split evenly, order preserved: columnar input
-    (an array, a tensor, or a dict of equal-length ones) as it is, a
-    sequence of numeric items as columns."""
+    """A global collection split evenly, order preserved: on the device,
+    columnar input as it is and a sequence of items as columns; on the
+    host, the items themselves."""
 
     def __init__(self, ctx, items, storage: Optional[str]) -> None:
         super().__init__(ctx, "Distribute")
         # a generator is read once: materialize it before the probe
         if not _is_columnar(items) and not isinstance(items, (list, tuple)):
             items = list(items)
-        _check_device_storage(storage, _infer_storage(items), "Distribute")
-        self.items = _columnarize(items)
+        self.storage = _storage(storage, items)
+        self.items = (list(items) if self.storage == "host"
+                      else _columnarize(items))
 
-    def compute(self) -> DeviceShards:
-        return DeviceShards.from_global_numpy(self.context.mesh_exec,
-                                              self.items)
+    def compute(self):
+        mex = self.context.mesh_exec
+        if self.storage == "host":
+            W = mex.num_workers
+            bnd = dense_range_bounds(len(self.items), W)
+            return HostShards(W, [self.items[bnd[w]:bnd[w + 1]]
+                                  for w in range(W)])
+        return DeviceShards.from_global_numpy(mex, self.items)
 
 
 class ConcatToDIANode(DIABase):
@@ -79,14 +94,14 @@ class ConcatToDIANode(DIABase):
         elif len(lists) > W:
             # the extra lists fold into the last worker, in order
             lists = lists[:W - 1] + [[it for l in lists[W - 1:] for it in l]]
-        items = [it for l in lists for it in l]
-        _check_device_storage(storage, _infer_storage(items), "ConcatToDIA")
-        self.counts = np.array([len(l) for l in lists], dtype=np.int64)
-        self.items = _columnarize(items)
+        self.lists = lists
+        self.storage = _check_storage(storage or "host", "ConcatToDIA")
 
-    def compute(self) -> DeviceShards:
-        return DeviceShards.from_global_numpy(self.context.mesh_exec,
-                                              self.items, self.counts)
+    def compute(self):
+        shards = HostShards(self.context.num_workers, self.lists)
+        if self.storage == "device":
+            return shards.to_device(self.context.mesh_exec)
+        return shards
 
 
 def _is_columnar(items) -> bool:
@@ -114,17 +129,14 @@ def _infer_storage(items) -> str:
     return "device"
 
 
-def _check_device_storage(asked: Optional[str], inferred: str,
-                          op: str) -> None:
-    if asked not in (None, "device", "host"):
-        raise ValueError(f"{op}: unknown storage {asked!r}")
-    if asked == "host" or inferred == "host":
-        raise NotImplementedError(
-            f"{op}: host storage (items of any Python type, and "
-            f"storage='host') is not ported yet; it is ROADMAP queue A "
-            f"'Still to port' item 1. The port takes numeric items: "
-            f"ints, floats, bools, numpy scalars or arrays, and tuples "
-            f"and dicts of them")
+def _check_storage(storage: str, op: str) -> str:
+    if storage not in ("device", "host"):
+        raise ValueError(f"{op}: unknown storage {storage!r}")
+    return storage
+
+
+def _storage(asked: Optional[str], items) -> str:
+    return _check_storage(asked or _infer_storage(items), "Distribute")
 
 
 def _columnarize(items):
@@ -138,15 +150,12 @@ def _columnarize(items):
     if not items:
         raise ValueError("cannot infer schema of empty device DIA; "
                          "use storage='host'")
-    rows = [pt.flatten(it) for it in items]
-    td = rows[0][1]
-    cols = [np.asarray([r[0][i] for r in rows])
-            for i in range(len(rows[0][0]))]
-    return pt.unflatten(td, cols)
+    return columnarize(items)
 
 
-def Generate(ctx, size, fn=None) -> DIA:
-    return DIA(GenerateNode(ctx, size, fn))
+def Generate(ctx, size, fn=None, storage=None) -> DIA:
+    return DIA(GenerateNode(ctx, size, fn,
+                            _check_storage(storage or "device", "Generate")))
 
 
 def Distribute(ctx, items, storage=None) -> DIA:
@@ -155,8 +164,6 @@ def Distribute(ctx, items, storage=None) -> DIA:
 
 def ConcatToDIA(ctx, per_worker, storage=None) -> DIA:
     """Worker ``w`` holds ``per_worker[w]``; missing workers hold no
-    items, lists past the last worker fold into it, in order. The
-    reference's default is host storage; the port has none yet, so it
-    builds device shards straight from the per-worker counts, for
-    numeric items only."""
+    items, lists past the last worker fold into it, in order. Host
+    storage unless ``storage="device"``."""
     return DIA(ConcatToDIANode(ctx, per_worker, storage))

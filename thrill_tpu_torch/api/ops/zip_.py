@@ -64,20 +64,6 @@ def _realign_or_keep(p: DeviceShards, tb: np.ndarray,
     return _realign(p, tb, n_out)
 
 
-def _zero_beyond_count(shards: DeviceShards) -> DeviceShards:
-    """Zero every row at or past its worker's count: the pad items. The
-    exchange leaves copies of shipped rows there."""
-    mask = shards.valid_mask()
-
-    def zero(leaf):
-        m = mask.reshape(mask.shape + (1,) * (leaf.dim() - 2))
-        return torch.where(m, leaf, torch.zeros((), dtype=leaf.dtype,
-                                                device=leaf.device))
-
-    return DeviceShards(shards.mesh_exec, pt.tree_map(zero, shards.tree),
-                        shards.counts.copy())
-
-
 def _repad(shards: DeviceShards, cap: int) -> DeviceShards:
     """Zero rows appended up to capacity ``cap``."""
     if shards.cap >= cap:
@@ -109,7 +95,7 @@ class ZipNode(DIABase):
         return totals[0]
 
     def compute(self) -> DeviceShards:
-        pulls = [l.pull() for l in self.parents]
+        pulls = [self.pull_device(i) for i in range(len(self.parents))]
         mex = pulls[0].mesh_exec
         W = mex.num_workers
         totals = [p.total for p in pulls]
@@ -120,8 +106,9 @@ class ZipNode(DIABase):
             tb = dense_range_bounds(n_out, W)
             counts = np.diff(tb).astype(np.int64)
             aligned = [
-                DeviceShards(mex, _repad(_zero_beyond_count(
-                    _realign_or_keep(p, tb, n_out)), int(counts.max())).tree,
+                DeviceShards(mex, _repad(
+                    _realign_or_keep(p, tb, n_out).zero_beyond_count(),
+                    int(counts.max())).tree,
                              counts.copy())
                 for p in pulls]
         else:
@@ -148,7 +135,7 @@ class ZipWithIndexNode(DIABase):
         self.zip_fn = zip_fn or _zwi_default
 
     def compute(self) -> DeviceShards:
-        shards = self.parents[0].pull()
+        shards = self.pull_device()
         mex = shards.mesh_exec
         W, cap = shards.num_workers, shards.cap
         g = (mex.put_small(_offsets(shards))[:, None]

@@ -1,14 +1,17 @@
-"""Local operation (LOp) stacks: Map, Filter and the device FlatMap as
-batched column functions (counterpart of the reference package's
-``api/stack.py``).
+"""Local operation (LOp) stacks: Map, Filter and the device FlatMap
+(counterpart of the reference package's ``api/stack.py``).
 
 A DIA handle carries a tuple of StackOps; the consuming operator applies
-them to its parent's shards in one go. ``fn`` sees the item pytree with
-a leading item axis over all workers' rows (``[W * cap, ...]`` leaves):
-elementwise lambdas (``lambda x: x * 2``, ``lambda r: r["key"]``) read
-as per-item code, and scalar outputs are broadcast to the item axis.
-A ``flat_map`` op's ``fn(tree) -> (tree[n, k, ...], valid[n, k])``
-expands every item into ``k`` candidates, of which the valid ones stay.
+them to its parent's shards in one go.
+
+* host storage: ``fn`` is applied per item, Thrill-style.
+* device storage: ``fn`` sees the item pytree with a leading item axis
+  over all workers' rows (``[W * cap, ...]`` leaves): elementwise
+  lambdas (``lambda x: x * 2``, ``lambda r: r["key"]``) read as per-item
+  code, and scalar outputs are broadcast to the item axis. A
+  ``flat_map`` op's ``fn(tree) -> (tree[n, k, ...], valid[n, k])``
+  expands every item into ``k`` candidates, of which the valid ones
+  stay.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from ..common import tree as pt
-from ..data.shards import DeviceShards, compact_valid
+from ..data.shards import DeviceShards, HostShards, compact_valid
 
 
 class Bind:
@@ -42,6 +45,10 @@ class Bind:
         dev = leaves[0].device if leaves else torch.device("cpu")
         return self.fn(tree, *pt.tree_map(
             lambda o: torch.as_tensor(o, device=dev), self.operands))
+
+    def call_item(self, item):
+        """``fn(item, *operands)`` on one host item, operands as given."""
+        return self.fn(item, *self.operands)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +83,41 @@ def call_batched(fn: Callable, trees, W: int, cap: int,
                              device)
     return pt.tree_map(lambda l: l.reshape((W, cap) + tuple(l.shape[1:])),
                        out)
+
+
+def _item_fn(fn: Callable) -> Callable:
+    return fn.call_item if isinstance(fn, Bind) else fn
+
+
+def apply_stack_host_item(item: Any, stack: Stack, emit: Callable) -> None:
+    """Apply a stack to one host item, calling ``emit`` per output item
+    (a host FlatMap's ``fn`` returns an iterable)."""
+    if not stack:
+        emit(item)
+        return
+    op, rest = stack[0], stack[1:]
+    fn = _item_fn(op.fn)
+    if op.kind == "map":
+        apply_stack_host_item(fn(item), rest, emit)
+    elif op.kind == "filter":
+        if fn(item):
+            apply_stack_host_item(item, rest, emit)
+    elif op.kind == "flat_map":
+        for out in fn(item):
+            apply_stack_host_item(out, rest, emit)
+    else:
+        raise ValueError(op.kind)
+
+
+def apply_stack_host(shards: HostShards, stack: Stack) -> HostShards:
+    """Run a stack over every worker's item list, per item."""
+    out = []
+    for items in shards.lists:
+        lst: list = []
+        for it in items:
+            apply_stack_host_item(it, stack, lst.append)
+        out.append(lst)
+    return HostShards(shards.num_workers, out)
 
 
 def apply_stack_device(shards: DeviceShards, stack: Stack) -> DeviceShards:

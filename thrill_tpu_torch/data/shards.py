@@ -1,14 +1,20 @@
-"""Distributed item storage: columnar ``[W, cap, ...]`` leaves plus
-per-worker valid counts (counterpart of the reference package's
-``data/shards.py``, device storage only).
+"""Distributed item storage (counterpart of the reference package's
+``data/shards.py``, single controller).
 
-Rows ``[0, counts[w])`` of worker ``w`` are its items; rows past the
-count are padding whose contents are unspecified.
+DeviceShards: columnar ``[W, cap, ...]`` leaves plus per-worker valid
+counts. Rows ``[0, counts[w])`` of worker ``w`` are its items; rows past
+the count are padding whose contents are unspecified unless the maker
+says otherwise (``from_worker_arrays`` and ``zero_beyond_count`` give
+zeros, as the reference's buffers hold; the exchange leaves copies).
+
+HostShards: per-worker Python item lists, for items of any type. Ops
+without a host path call ``require_device``.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Tuple
+import dataclasses
+from typing import Any, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +27,47 @@ from ..parallel.mesh import DeviceLike, MeshExec
 
 def round_up_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def itemize(tree: Any) -> list:
+    """A columnar pytree of numpy leaves (item axis 0) as a list of
+    items: scalar columns as Python numbers, array columns as numpy
+    rows, a bare leaf's items unwrapped. Every place that turns columns
+    into host items goes through here, so item types do not depend on
+    the path that made them."""
+    leaves, td = pt.flatten(tree)
+    if not leaves:
+        return []
+    cols = [l.tolist() if l.ndim == 1 else list(l) for l in leaves]
+    if td is pt.LEAF:
+        return cols[0]
+    return [pt.unflatten(td, list(vals)) for vals in zip(*cols)]
+
+
+def columnarize(items: Sequence[Any]) -> Any:
+    """A non-empty list of fixed-shape item pytrees as one pytree of
+    numpy columns. Leaves that are not numbers raise TypeError, as the
+    reference's device upload does."""
+    rows = [pt.flatten(it) for it in items]
+    td = rows[0][1]
+    cols = [np.asarray([r[0][i] for r in rows])
+            for i in range(len(rows[0][0]))]
+    for c in cols:
+        if c.dtype.kind not in "biufc":
+            raise TypeError(f"Dtype {c.dtype} is not a valid device array "
+                            f"type. Only arrays of numeric types are "
+                            f"supported on device storage")
+    return pt.unflatten(td, cols)
+
+
+def _host_source(leaf: Any, device: torch.device) -> torch.Tensor:
+    """``leaf`` as a tensor to copy to ``device`` from: a host array
+    bound for the card is staged in page-locked memory, so the upload is
+    one DMA that does not block the host."""
+    t = torch.as_tensor(leaf)
+    if device.type == "cuda" and t.device.type == "cpu" and not t.is_pinned():
+        t = t.pin_memory()
+    return t
 
 
 class DeviceShards:
@@ -53,6 +100,38 @@ class DeviceShards:
         """``[W, cap]`` bool: row is one of its worker's items."""
         ar = torch.arange(self.cap, device=self.mesh_exec.device)
         return ar[None, :] < self.counts_device()[:, None]
+
+    @staticmethod
+    def from_worker_arrays(mesh_exec: MeshExec, per_worker: Sequence[Any],
+                           counts=None) -> "DeviceShards":
+        """Shards from W per-worker pytrees (numpy arrays or tensors,
+        item axis 0): worker ``w``'s first ``counts[w]`` rows are copied
+        straight into its ``[cap]`` slice (host arrays through pinned
+        memory, one copy a worker and leaf), and rows past each count
+        are zeros. ``counts`` defaults to each worker's length."""
+        W = mesh_exec.num_workers
+        if len(per_worker) != W:
+            raise ValueError(f"from_worker_arrays: {len(per_worker)} "
+                             f"pytrees for W={W}")
+        flat = [pt.flatten(t) for t in per_worker]
+        td = flat[0][1]
+        if counts is None:
+            counts = [int(leaves[0].shape[0]) if leaves else 0
+                      for leaves, _ in flat]
+        counts = np.asarray(counts, dtype=np.int64)
+        cap = round_up_pow2(int(counts.max()))
+        dev = mesh_exec.device
+        out = []
+        for li in range(len(flat[0][0])):
+            srcs = [_host_source(leaves[li], dev) for leaves, _ in flat]
+            buf = torch.zeros((W, cap) + tuple(srcs[0].shape[1:]),
+                              dtype=srcs[0].dtype, device=dev)
+            for w, src in enumerate(srcs):
+                c = int(counts[w])
+                if c:
+                    buf[w, :c].copy_(src[:c], non_blocking=True)
+            out.append(buf)
+        return DeviceShards(mesh_exec, pt.unflatten(td, out), counts)
 
     @staticmethod
     def from_global_numpy(mesh_exec: MeshExec, tree: Any,
@@ -95,6 +174,78 @@ class DeviceShards:
         per_worker = self.to_worker_arrays()
         return pt.tree_map(lambda *ls: np.concatenate(ls, axis=0),
                            *per_worker)
+
+    def to_host_shards(self, reason: str = "unspecified") -> "HostShards":
+        """Itemize into per-worker Python lists: the pipeline leaves
+        columnar device storage and goes on at Python speed. ``reason``
+        names the op that demoted it (the reference logs it; the port
+        has no logger yet)."""
+        return HostShards(self.num_workers,
+                          [itemize(t) for t in self.to_worker_arrays()])
+
+    def zero_beyond_count(self) -> "DeviceShards":
+        """The same items with every row at or past its worker's count
+        zeroed: the reference's pad items. The exchange leaves copies of
+        shipped rows there (ROADMAP.md fault C4)."""
+        mask = self.valid_mask()
+
+        def zero(leaf):
+            m = mask.reshape(mask.shape + (1,) * (leaf.dim() - 2))
+            return torch.where(m, leaf, torch.zeros(
+                (), dtype=leaf.dtype, device=leaf.device))
+
+        return DeviceShards(self.mesh_exec, pt.tree_map(zero, self.tree),
+                            self.counts.copy())
+
+
+@dataclasses.dataclass
+class HostShards:
+    """Per-worker Python item lists: storage for items of any type, one
+    process holding every worker's list."""
+
+    num_workers: int
+    lists: List[List[Any]]
+
+    @property
+    def counts(self) -> np.ndarray:
+        return np.array([len(l) for l in self.lists], dtype=np.int64)
+
+    @property
+    def total(self) -> int:
+        return sum(len(l) for l in self.lists)
+
+    def repartition(self, new_w: int) -> "HostShards":
+        """The items in worker-rank order, re-split over ``new_w``
+        workers by ``dense_range_bounds``."""
+        merged = [it for items in self.lists for it in items]
+        bounds = dense_range_bounds(len(merged), new_w).tolist()
+        return HostShards(new_w, [merged[bounds[w]:bounds[w + 1]]
+                                  for w in range(new_w)])
+
+    def to_device(self, mesh_exec: MeshExec) -> DeviceShards:
+        """Columnarize each worker's items (fixed-shape pytrees of
+        numbers) into device shards; an empty worker takes the schema of
+        a non-empty one."""
+        per_worker = [columnarize(items) if items else None
+                      for items in self.lists]
+        template = next((t for t in per_worker if t is not None), None)
+        if template is None:
+            raise ValueError("cannot infer schema of an entirely empty DIA")
+        empty = pt.tree_map(lambda a: a[:0], template)
+        return DeviceShards.from_worker_arrays(
+            mesh_exec, [empty if t is None else t for t in per_worker])
+
+
+def require_device(shards, op: str) -> DeviceShards:
+    """``shards`` when they are device shards; host storage raises for
+    the ops whose host path is not ported."""
+    if isinstance(shards, HostShards):
+        raise NotImplementedError(
+            f"{op} of a host-storage DIA is not ported yet: the host paths "
+            f"of the distributed ops and device actions are ROADMAP.md "
+            f"queue A 'Still to port' item 1. ToDevice() first for items "
+            f"of numbers")
+    return shards
 
 
 def from_numpy_shards(tree: Any, counts, device: DeviceLike = None

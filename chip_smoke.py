@@ -91,16 +91,45 @@ Phases, each fatal on failure:
      W=4 text (2^20 lines): the lines equal the file's splitlines(), the
      written bytes the file's; host-clock times. Phases 13-15 write their
      inputs into a temporary directory and delete it at their end;
- 16. on the inputs the W=4 runs gave the kernels, captured at the call
+ 16. GroupByKey at W=4 over 2^24 items {"k": int64 Zipf 1/rank over 2^20
+     keys, "v": f32} with a device_fn of segment folds (count, f32 sum
+     through B3, max): counts and max equal numpy's, sums within 1e-4 of
+     each group's sum of |v| plus 1e-6, every worker's group count equal
+     to the key hash's; first-run and warm times, the device_fn fold on
+     the run's own segment ids beside the same ids with the padding rows
+     parked in each worker's slot cap - 1 (the reference's choice), a
+     profiler table and the card's idle share; then W=1 over 2^22;
+ 17. GroupToIndex at W=4 over 2^24 items with Zipf indices over 2^22, a
+     device_fn sum and neutral -1: within the same tolerance of
+     np.bincount(i, weights=v), empty indices -1;
+ 18. Merge of three key-sorted inputs of 2^23, 2^22 and 2^22 rows {"k"
+     over 2^20 values, "p": input and position} at W=4: equal to
+     np.lexsort by (k, input, position), output counts a worker printed,
+     a profiler table; then W=1 over 2^22 rows in all;
+ 19. Window(16) sums, DisjointWindow(16) max and FlatWindow(2, factor 2)
+     differences of 2^24 f32 at W=4, each DeviceShards through the device
+     path (MeshExec.device_runs must count it): sums within 1e-4, the others
+     exact against sliding_window_view; then ZipWindow((2, 3)) of 2^23
+     and 3 x 2^22 int64 in the default schema, equal to numpy's reshapes;
+ 20. HyperLogLog(14) at W=4 of 2^24 int64 drawn from 2^22 values: the
+     registers bit-equal to numpy's of the same hash, the estimate within
+     3 x 1.04 / 2^7 of np.unique's count;
+ 21. Gather, Print (captured), SizeFuture/AllGatherFuture/SumFuture across
+     an intervening Size, Dispose then RuntimeError, Sort(compare_fn)
+     descending on 2^16 items, at W=4;
+ 22. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
-     WordCount's and Rebalance's sorted int64 destinations,
-     each beside its bound, the parent's int32 copy plus kernel and
-     torch.bincount; segment_sum on the PageRank step's ids; presence_fill
+     WordCount's, Rebalance's, GroupByKey's, GroupToIndex's sorted int64
+     destinations and each Merge input's int32 ones, each beside its
+     bound, the parent's int32 copy plus kernel and torch.bincount;
+     segment_sum on the PageRank step's, GroupByKey's and GroupToIndex's
+     ids, beside its bound, the plain version and index_add_; presence_fill
      on the WordCount's register ids and on the join's location-filter
      ids of both sides (its bound counts every flag and the id of each
      valid row only); then print the card, the kernels line (each kernel
-     with its launches on every W=4 path) and, last, the device line.
+     with its launches on every W=4 path and its timings on every captured
+     input) and, last, the device line.
 
     python3 chip_smoke.py --save-inputs DIR
 
@@ -146,6 +175,17 @@ SGD_ITERS = 40
 SGD_RTOL = 1e-9                # full-batch weights vs numpy
 SA_BYTES = 1 << 22             # suffix_array text, 4 letters
 WT_BYTES = 1 << 20             # wavelet_tree text, 256 letters
+GB_ITEMS = 1 << 24             # GroupByKey items, Zipf keys over GB_KEYS
+GB_KEYS = 1 << 20
+G2I_INDICES = 1 << 22          # GroupToIndex indices (GB_ITEMS items)
+MERGE_ROWS = (1 << 23, 1 << 22, 1 << 22)  # Merge inputs, keys over 2^20
+MERGE_KEYS = 1 << 20
+WIN_ITEMS = 1 << 24            # Window family f32 values
+ZW_ROWS = (1 << 23, 3 << 22)   # ZipWindow inputs, windows (2, 3)
+HLL_ITEMS = 1 << 24            # HyperLogLog items of HLL_VALUES values
+HLL_VALUES = 1 << 22
+HLL_P = 14
+CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
 DEVICE = "cuda"
 
 
@@ -1689,6 +1729,428 @@ def readlines_phase(torch, np, tt, pk, ps, card: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def np_key_hash(np, k):
+    """The hash the port gives one int64 key (``hash_key_words`` of its
+    key word), in numpy: the order word (sign bit flipped) plus the
+    golden ratio, through the splitmix64 finalizer."""
+    with np.errstate(over="ignore"):
+        x = ((k.view(np.uint64) ^ np.uint64(1 << 63))
+             + np.uint64(0x9E3779B97F4A7C15))
+        x = x ^ (x >> np.uint64(30))
+        x = x * np.uint64(0xBF58476D1CE4E5B9)
+        x = x ^ (x >> np.uint64(27))
+        x = x * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def warm_and_profile(torch, label: str, run, card: str, profile: bool,
+                     calls: int = 3):
+    """Warm host-clock seconds of ``run``; with ``profile`` also a
+    profiler table and the device's busy time and idle share."""
+    warm = warm_seconds(torch, run, calls)
+    log(f"{label} warm seconds: {[round(x, 6) for x in warm]} (host clock "
+        f"after synchronize) [{card}]")
+    if profile:
+        busy, wall = profile_table(torch, run, card)
+        med = sorted(warm)[len(warm) // 2]
+        log(f"{label} device busy {busy:.3f} ms in the profiled call "
+            f"({wall:.3f} s under the profiler); idle share against the "
+            f"warm median {med:.6f} s: {1 - busy / 1e3 / med:.4f} [{card}]")
+    return warm
+
+
+def first_run(torch, pk, ps, run):
+    """``run()`` once with the launch counts zeroed just before: (its
+    result, host seconds after synchronize, the launches)."""
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches(pk, ps)
+
+
+def need_launches(launches: dict, names, path: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the {path} "
+                                 f"path")
+
+
+def groupbykey_phase(torch, np, tt, W: int, n: int, pk, ps, card: str):
+    """GroupByKey with a device_fn (count, f32 sum through B3, max of
+    each key's values) at W workers over ``n`` items with Zipf keys over
+    GB_KEYS: counts and max equal numpy's, sums within SEG_RTOL of each
+    group's sum of |v| plus SEG_ATOL, every worker's group count equal to
+    the hash's. Returns the launches and the segment_sum and send_counts
+    inputs of the checked run."""
+    from thrill_tpu_torch.core import segmented as seg
+    from thrill_tpu_torch.data import exchange as exchange_mod
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 100 + W)
+    items = {"k": zipf_ids(torch, n, GB_KEYS, gen),
+             "v": torch.rand(n, device=DEVICE, generator=gen) * 2 - 1}
+    seen = {}
+
+    def device_fn(t, s, nseg):
+        if not seen:        # the checked run's ids, kept once
+            seen["args"] = (t, s, nseg)
+        return {"k": seg.segment_max(t["k"], s, nseg),
+                "n": seg.segment_count(s, nseg),
+                "s": seg.segment_sum(t["v"], s, nseg),
+                "m": seg.segment_max(t["v"], s, nseg)}
+
+    src = tt.Context(num_workers=W, device=DEVICE).Distribute(items).Cache()
+    src.Keep(8).Execute()
+
+    def run():
+        g = src.GroupByKey(lambda r: r["k"], device_fn=device_fn)
+        return g.node.materialize().counts, g.AllGatherArrays()
+
+    with Capture(seg, "_segment_sum_kernel") as cap, \
+            Capture(exchange_mod, "send_counts") as cap_sc:
+        (counts, out), secs, launches = first_run(torch, pk, ps, run)
+    need_launches(launches, ["segment_sum", "radix_upsweep", "radix_pass"]
+                  + (["partition_histogram"] if W > 1 else []),
+                  f"GroupByKey W={W}")
+    kh = items["k"].cpu().numpy()
+    vh = items["v"].cpu().numpy()
+    cnt = np.bincount(kh, minlength=GB_KEYS)
+    keys = np.flatnonzero(cnt)
+    s_want = np.bincount(kh, weights=vh.astype(np.float64),
+                         minlength=GB_KEYS)[keys]
+    s_abs = np.bincount(kh, weights=np.abs(vh).astype(np.float64),
+                        minlength=GB_KEYS)[keys]
+    m_want = np.full(GB_KEYS, -np.inf, dtype=np.float32)
+    np.maximum.at(m_want, kh, vh)
+    got = {f: out[f].cpu().numpy() for f in out}
+    order = np.argsort(got["k"])
+    got = {f: a[order] for f, a in got.items()}
+    per_worker = np.bincount(
+        (np_key_hash(np, keys) % np.uint64(W)).astype(np.int64),
+        minlength=W)
+    err = np.abs(got["s"].astype(np.float64) - s_want)
+    if (not np.array_equal(got["k"], keys)
+            or not np.array_equal(got["n"], cnt[keys])
+            or not np.array_equal(got["m"], m_want[keys])
+            or not (err <= SEG_RTOL * s_abs + SEG_ATOL).all()
+            or not np.array_equal(counts, per_worker)):
+        raise AssertionError(f"GroupByKey W={W} differs from numpy: groups "
+                             f"{len(got['k'])} of {len(keys)}, worker "
+                             f"counts {counts.tolist()} against "
+                             f"{per_worker.tolist()}, max |sum diff| "
+                             f"{err.max()}")
+    log(f"groupbykey W={W} items={n} keys={len(keys)} (Zipf over {GB_KEYS}, "
+        f"largest group {cnt.max()}): counts and max equal to numpy, sums "
+        f"within {SEG_RTOL} (max |diff| {err.max():.6g}), groups a worker "
+        f"{counts.tolist()} equal to the hash's; {secs:.3f} s (first run, "
+        f"host clock after synchronize, data resident); launches "
+        f"{json.dumps(launches)}; items exchanged "
+        f"{src.context.mesh_exec.stats_items_moved} [{card}]")
+    del out
+    # the fold on the checked run's own segment ids, beside the same ids
+    # with the padding rows parked in each worker's last slot cap - 1
+    # (the reference's choice) instead of dropped
+    t, s, nseg = seen["args"]
+    seen["args"] = None
+    cap_w = nseg // W
+    pos = torch.arange(s.numel(), device=s.device)
+    parked = torch.where(s < nseg, s, pos // cap_w * cap_w + cap_w - 1)
+    fold = dict(dropped_ms=cuda_ms(torch, lambda: device_fn(t, s, nseg)),
+                parked_ms=cuda_ms(torch, lambda: device_fn(t, parked,
+                                                           nseg)))
+    log(f"groupbykey W={W} device_fn fold (count, sum, 2 max) over "
+        f"[{s.numel()}] ids, {int((s >= nseg).sum())} padding rows: "
+        f"{json.dumps(fold)} (device time) [{card}]")
+    del t, s, parked
+    warm_and_profile(torch, f"groupbykey W={W}", run, card, profile=W > 1)
+    return launches, cap.args, cap_sc.args
+
+
+def grouptoindex_phase(torch, np, tt, pk, ps, card: str):
+    """GroupToIndex at W=4 over GB_ITEMS items with Zipf indices over
+    G2I_INDICES, a device_fn sum (B3) and neutral -1: sums within
+    SEG_RTOL of np.bincount's, empty indices -1. Returns the launches and
+    the segment_sum and send_counts inputs of the checked run."""
+    from thrill_tpu_torch.core import segmented as seg
+    from thrill_tpu_torch.data import exchange as exchange_mod
+    W, n = 4, GB_ITEMS
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 110)
+    items = {"i": zipf_ids(torch, n, G2I_INDICES, gen),
+             "v": torch.rand(n, device=DEVICE, generator=gen) * 2 - 1}
+    src = tt.Context(num_workers=W, device=DEVICE).Distribute(items).Cache()
+    src.Keep(8).Execute()
+
+    def run():
+        return src.GroupToIndex(
+            lambda r: r["i"], None, G2I_INDICES, neutral=-1,
+            device_fn=lambda t, ids, nseg: seg.segment_sum(
+                t["v"], ids, nseg)).AllGatherArrays()
+
+    with Capture(seg, "_segment_sum_kernel") as cap, \
+            Capture(exchange_mod, "send_counts") as cap_sc:
+        out, secs, launches = first_run(torch, pk, ps, run)
+    need_launches(launches, ["segment_sum", "partition_histogram",
+                             "radix_upsweep", "radix_pass"],
+                  "GroupToIndex W=4")
+    ih = items["i"].cpu().numpy()
+    vh = items["v"].cpu().numpy().astype(np.float64)
+    hit = np.bincount(ih, minlength=G2I_INDICES) > 0
+    want = np.bincount(ih, weights=vh, minlength=G2I_INDICES)
+    scale = np.bincount(ih, weights=np.abs(vh), minlength=G2I_INDICES)
+    got = out.cpu().numpy().astype(np.float64)
+    err = np.abs(got - want)[hit]
+    if (got.shape != (G2I_INDICES,) or not np.isfinite(got).all()
+            or not (err <= SEG_RTOL * scale[hit] + SEG_ATOL).all()
+            or not (got[~hit] == -1).all()):
+        raise AssertionError(f"GroupToIndex differs from np.bincount: max "
+                             f"|diff| {err.max()}")
+    log(f"grouptoindex W={W} items={n} indices={G2I_INDICES} "
+        f"({int((~hit).sum())} empty): sums within {SEG_RTOL} of "
+        f"np.bincount (max |diff| {err.max():.6g}), empty indices -1; "
+        f"{secs:.3f} s (first run, host clock after synchronize, data "
+        f"resident); launches {json.dumps(launches)} [{card}]")
+    del out
+    warm_and_profile(torch, f"grouptoindex W={W}", run, card, profile=False)
+    return launches, cap.args, cap_sc.args
+
+
+def merge_phase(torch, np, tt, W: int, sizes, pk, ps, card: str):
+    """Merge of three key-sorted inputs {"k" over MERGE_KEYS values (heavy
+    ties), "p": input << 32 | position} at W workers: equal to numpy's
+    lexsort by (k, input, position). Returns the launches and the
+    send_counts inputs of the checked run, one an input."""
+    from thrill_tpu_torch.data import exchange as exchange_mod
+    rng = np.random.default_rng(SEED + 120 + W)
+    ins = [{"k": np.sort(rng.integers(0, MERGE_KEYS, m)),
+            "p": (j << 32) + np.arange(m, dtype=np.int64)}
+           for j, m in enumerate(sizes)]
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    srcs = [ctx.Distribute(x).Cache() for x in ins]
+    for s in srcs:
+        s.Keep(8).Execute()
+
+    def run():
+        m = tt.Merge(*srcs, key_fn=lambda r: r["k"])
+        return m.node.materialize().counts, m.AllGatherArrays()
+
+    with Capture(exchange_mod, "send_counts") as cap_sc:
+        (counts, out), secs, launches = first_run(torch, pk, ps, run)
+    need_launches(launches, ["radix_upsweep", "radix_pass"]
+                  + (["partition_histogram"] if W > 1 else []),
+                  f"Merge W={W}")
+    cat = {f: np.concatenate([x[f] for x in ins]) for f in ("k", "p")}
+    order = np.lexsort((cat["p"], cat["k"]))
+    if not (np.array_equal(out["k"].cpu().numpy(), cat["k"][order])
+            and np.array_equal(out["p"].cpu().numpy(), cat["p"][order])):
+        raise AssertionError(f"Merge W={W} differs from np.lexsort")
+    log(f"merge W={W} inputs {list(sizes)} (keys over {MERGE_KEYS}): equal "
+        f"to np.lexsort by (k, input, position); output counts a worker "
+        f"{counts.tolist()}; {secs:.3f} s (first run, host clock after "
+        f"synchronize, data resident); launches {json.dumps(launches)}; "
+        f"items exchanged {ctx.mesh_exec.stats_items_moved} [{card}]")
+    del out
+    warm_and_profile(torch, f"merge W={W}", run, card, profile=W > 1)
+    return launches, cap_sc.calls
+
+
+def window_phase(torch, np, tt, pk, ps, card: str):
+    """Window(16) sums, DisjointWindow(16) max and FlatWindow(2, factor 2)
+    pair differences at W=4 over WIN_ITEMS f32 values, each on the device
+    path (DeviceShards out, counted in MeshExec.device_runs): sums within
+    SEG_RTOL of numpy's f64 sums plus SEG_ATOL, max and differences
+    exact. Returns the launches (none expected)."""
+    from numpy.lib.stride_tricks import sliding_window_view
+    from thrill_tpu_torch.data.shards import DeviceShards
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 130)
+    x = torch.rand(WIN_ITEMS, device=DEVICE, generator=gen)
+    src = tt.Context(num_workers=4, device=DEVICE).Distribute(x).Cache()
+    src.Keep(16).Execute()
+
+    def pairs(w):
+        return (torch.stack([w[:, 1] - w[:, 0], w[:, 0] - w[:, 1]], dim=1),
+                torch.ones((w.shape[0], 2), dtype=torch.bool,
+                           device=w.device))
+
+    ops = {"Window": lambda: src.Window(16, None,
+                                        device_fn=lambda w: w.sum(dim=1)),
+           "DisjointWindow": lambda: src.DisjointWindow(
+               16, None, device_fn=lambda w: w.amax(dim=1)),
+           "FlatWindow": lambda: src.FlatWindow(2, device_fn=pairs,
+                                                factor=2)}
+
+    def run_all():
+        outs = {}
+        for label, make in ops.items():
+            d = make()
+            if not isinstance(d.node.materialize(), DeviceShards):
+                raise AssertionError(f"{label} left the device path")
+            outs[label] = d.AllGatherArrays()
+        return outs
+
+    runs = src.context.mesh_exec.device_runs
+    outs, secs, launches = first_run(torch, pk, ps, run_all)
+    if runs != {label: 1 for label in ops}:
+        raise AssertionError(f"the window ops' device runs: {dict(runs)}")
+    xh = x.cpu().numpy()
+    sums = sliding_window_view(xh.astype(np.float64), 16).sum(axis=1)
+    got = outs["Window"].cpu().numpy().astype(np.float64)
+    err = np.abs(got - sums)
+    d = xh[1:] - xh[:-1]
+    if (got.shape != sums.shape or not (err <= SEG_RTOL * sums
+                                        + SEG_ATOL).all()
+            or not np.array_equal(outs["DisjointWindow"].cpu().numpy(),
+                                  xh.reshape(-1, 16).max(axis=1))
+            or not np.array_equal(outs["FlatWindow"].cpu().numpy(),
+                                  np.stack([d, -d], axis=1).reshape(-1))):
+        raise AssertionError(f"window ops differ from numpy (max |sum "
+                             f"diff| {err.max()})")
+    log(f"window W=4 n={WIN_ITEMS} f32: Window(16) sums within {SEG_RTOL} "
+        f"of sliding_window_view's (max |diff| {err.max():.6g}), "
+        f"DisjointWindow(16) max and FlatWindow(2, factor 2) differences "
+        f"equal; each DeviceShards through the device path; {secs:.3f} s "
+        f"for the three (first run, host clock after synchronize, data "
+        f"resident); launches {json.dumps(launches)} [{card}]")
+    del outs
+    for label, make in ops.items():
+        warm_and_profile(torch, f"window W=4 {label}",
+                         lambda make=make: make().AllGatherArrays(), card,
+                         profile=False)
+    return launches
+
+
+def zipwindow_phase(torch, np, tt, pk, ps, card: str):
+    """ZipWindow((2, 3)) of ZW_ROWS int64 rows at W=4, default schema:
+    the chunks equal numpy's reshapes. Returns the launches."""
+    from thrill_tpu_torch.data.shards import DeviceShards
+    a = torch.arange(ZW_ROWS[0], device=DEVICE)
+    b = torch.arange(ZW_ROWS[1], device=DEVICE) * 7 - 5
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    sa, sb = ctx.Distribute(a).Cache(), ctx.Distribute(b).Cache()
+    for s in (sa, sb):
+        s.Keep(8).Execute()
+
+    def run():
+        z = tt.ZipWindow((2, 3), sa, sb)
+        if not isinstance(z.node.materialize(), DeviceShards):
+            raise AssertionError("ZipWindow left the device path")
+        return z.AllGatherArrays()
+
+    (ca, cb), secs, launches = first_run(torch, pk, ps, run)
+    n_out = min(ZW_ROWS[0] // 2, ZW_ROWS[1] // 3)
+    if not (np.array_equal(ca.cpu().numpy(),
+                           a.cpu().numpy()[:2 * n_out].reshape(-1, 2))
+            and np.array_equal(cb.cpu().numpy(),
+                               b.cpu().numpy()[:3 * n_out].reshape(-1, 3))):
+        raise AssertionError("ZipWindow differs from numpy's reshapes")
+    log(f"zipwindow W=4 inputs {list(ZW_ROWS)}, windows (2, 3): {n_out} "
+        f"items equal to numpy's reshapes, DeviceShards; {secs:.3f} s "
+        f"(first run, host clock after synchronize, data resident); "
+        f"launches {json.dumps(launches)} [{card}]")
+    warm_and_profile(torch, "zipwindow W=4", run, card, profile=False)
+    return launches
+
+
+def hll_phase(torch, np, tt, pk, ps, card: str):
+    """HyperLogLog(HLL_P) at W=4 of HLL_ITEMS int64 drawn from HLL_VALUES
+    values over the whole int64 range: registers bit-equal to numpy's of
+    the same hash, the estimate within 3 x 1.04 / sqrt(2^p) of the
+    distinct count. Returns the launches."""
+    from thrill_tpu_torch.api.ops import hll as hll_mod
+    p = HLL_P
+    rng = np.random.default_rng(SEED + 140)
+    pool = rng.integers(-(1 << 63), (1 << 63) - 1, HLL_VALUES,
+                        dtype=np.int64)
+    xh = pool[rng.integers(0, HLL_VALUES, HLL_ITEMS)]
+    x = torch.as_tensor(xh, device=DEVICE)
+    src = tt.Context(num_workers=4, device=DEVICE).Distribute(x).Cache()
+    src.Keep(8).Execute()
+    with Capture(hll_mod, "_estimate") as cap:
+        est, secs, launches = first_run(torch, pk, ps,
+                                        lambda: src.HyperLogLog(p))
+    regs = cap.args[0]
+    h = np_key_hash(np, xh)
+    idx = (h >> np.uint64(64 - p)).astype(np.int64)
+    rest = h << np.uint64(p)
+    clz = np.zeros(len(h), dtype=np.int32)
+    r = rest.copy()
+    for s in (32, 16, 8, 4, 2, 1):
+        move = (r >> np.uint64(64 - s)) == 0
+        clz += move * s
+        r = np.where(move, r << np.uint64(s), r)
+    rho = np.where(rest == 0, 64 - p + 1, np.minimum(clz + 1, 64 - p + 1))
+    want = np.zeros(1 << p, dtype=np.int32)
+    np.maximum.at(want, idx, rho.astype(np.int32))
+    distinct = len(np.unique(xh))
+    rel = abs(est - distinct) / distinct
+    if not np.array_equal(regs, want) or rel > 3 * 1.04 / np.sqrt(1 << p):
+        raise AssertionError(f"HyperLogLog: registers equal "
+                             f"{np.array_equal(regs, want)}, estimate {est} "
+                             f"for {distinct} distinct values")
+    log(f"hll W=4 n={HLL_ITEMS} p={p}: registers bit-equal to numpy's of "
+        f"the same hash, estimate {est:.1f} for {distinct} distinct "
+        f"(relative error {rel:.5f}, limit "
+        f"{3 * 1.04 / np.sqrt(1 << p):.5f}); {secs:.3f} s (first run, host "
+        f"clock after synchronize, data resident); launches "
+        f"{json.dumps(launches)} [{card}]")
+    warm_and_profile(torch, "hll W=4", lambda: src.HyperLogLog(p), card,
+                     profile=False)
+    return launches
+
+
+def actions_phase(torch, np, tt, pk, ps, card: str):
+    """Gather, Print, SizeFuture/AllGatherFuture/SumFuture across an
+    intervening Size, Dispose, then Sort(compare_fn) descending on
+    CMP_SORT_ITEMS items, at W=4. Returns the launches."""
+    import contextlib
+    import io
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    vals = np.random.default_rng(SEED + 150).integers(0, 1 << 40,
+                                                      CMP_SORT_ITEMS)
+
+    def run():
+        d = ctx.Generate(1000, fn=lambda i: i * 3).Cache()
+        d.Keep(2)
+        got = [int(x) for x in d.Gather(root=2)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            d.Print("smoke", limit=5)
+        fs, fg, fsum = d.SizeFuture(), d.AllGatherFuture(), d.SumFuture()
+        size = d.Size()
+        futures = (fs.get(), [int(x) for x in fg.get()], int(fsum.get()))
+        e = ctx.Generate(10).Cache()
+        e.Execute()
+        e.Dispose()
+        try:
+            e.Size()
+            disposed = False
+        except RuntimeError:
+            disposed = True
+        t0 = time.perf_counter()
+        desc = ctx.Distribute(vals).Sort(
+            compare_fn=lambda a, b: a > b).AllGather()
+        return got, buf.getvalue(), size, futures, disposed, desc, (
+            time.perf_counter() - t0)
+
+    (got, text, size, futures, disposed, desc, sort_secs), secs, launches = \
+        first_run(torch, pk, ps, run)
+    want = [i * 3 for i in range(1000)]
+    if (got != want or size != 1000 or futures != (1000, want, sum(want))
+            or not text.startswith("[smoke] n=1000: [0, 3, 6, 9, 12] ... "
+                                   "(+995 more)")
+            or not disposed or desc != sorted(vals.tolist(), reverse=True)):
+        raise AssertionError(f"actions: gather {got == want}, size {size}, "
+                             f"futures {futures[0]}, print {text!r}, "
+                             f"dispose raised {disposed}, compare sort "
+                             f"{desc == sorted(vals.tolist(), reverse=True)}")
+    log(f"actions W=4: Gather, Print ({text.strip()[:40]}...), futures "
+        f"across an intervening Size, Dispose then RuntimeError, and "
+        f"Sort(compare_fn) descending of {CMP_SORT_ITEMS} items all as "
+        f"expected; {secs:.3f} s in all, the comparator sort "
+        f"{sort_secs:.3f} s (host clock); launches {json.dumps(launches)} "
+        f"[{card}]")
+    return launches
+
+
 def time_send_counts(torch, pk, label, dest, W):
     """The send-count histogram on one captured ``send_counts`` input (the
     kernel reads it as it is): held against the plain version, then timed
@@ -1728,43 +2190,65 @@ def time_main_path_inputs(torch, pk, seg_args, pres_args, sc_args,
     """The kernels on the inputs the W=4 runs gave them: held against the
     plain version, then timed beside the plain version, one library call
     and the bound. Returns the rows of the kernels line (the histogram's
-    and the presence fill's from the WordCount inputs) and the worst
+    and the presence fill's from the WordCount inputs, the segment sum's
+    from the PageRank step's), every input's rows by label, and the worst
     errors."""
-    rows, errs = {}, {}
-    for label, (dest, W) in sc_args.items():
-        row = time_send_counts(torch, pk, label, dest, W)
-        if label == "WordCount":
-            rows["partition_histogram"] = row
+    rows, inputs, errs = {}, {}, {}
+    inputs["partition_histogram"] = {
+        label: time_send_counts(torch, pk, label, dest, W)
+        for label, (dest, W) in sc_args.items()}
+    rows["partition_histogram"] = inputs["partition_histogram"]["WordCount"]
     errs["partition_histogram"] = 0
-    ids, vals, segs = seg_args
-    R, n = ids.shape
+    inputs["segment_sum"], errs["segment_sum"] = {}, 0.0
+    for label, args in seg_args.items():
+        row, err = time_segment_sum(torch, pk, label, *args)
+        inputs["segment_sum"][label] = dict(row, max_abs_err=err)
+        errs["segment_sum"] = max(errs["segment_sum"], err)
+        if label == "PageRank step":
+            rows["segment_sum"] = row
+    rows["presence_fill"] = time_presence_fill(torch, pk, "WordCount",
+                                               *pres_args)
+    inputs["presence_fill"] = {"WordCount": rows["presence_fill"]}
+    for label, args in join_pres.items():
+        inputs["presence_fill"][label] = time_presence_fill(torch, pk, label,
+                                                            *args)
+    errs["presence_fill"] = 0
+    return rows, inputs, errs
+
+
+def time_segment_sum(torch, pk, label, ids, vals, segs):
+    """segment_sum on one captured input (ids ``[n]`` or ``[R, n]`` as the
+    call site passed them): held against the plain version, then timed
+    beside the plain version, one index_add_ and the bound (ids and
+    values read once, the sums written once). Returns (row, max |kernel
+    - plain|)."""
     err, ok = seg_err(torch, pk, ids, vals, segs,
                       pk.segment_sum(ids, vals, segs))
     if not ok:
         raise AssertionError(f"segment_sum disagrees with its plain version "
-                             f"on the main path's inputs: {err}")
-    errs["segment_sum"] = err
-    flat = torch.where((ids >= 0) & (ids < segs), ids.to(torch.int64),
-                       torch.full_like(ids, segs, dtype=torch.int64))
+                             f"on the {label} input: {err}")
+    R, n = (1, ids.shape[0]) if ids.dim() == 1 else ids.shape
+    ids2 = ids.reshape(R, n)
+    flat = torch.where((ids2 >= 0) & (ids2 < segs), ids2.to(torch.int64),
+                       torch.full_like(ids2, segs, dtype=torch.int64))
     flat = (flat + torch.arange(R, device=ids.device)[:, None] * (segs + 1)
             ).reshape(-1)
     acc = torch.zeros(R * (segs + 1), device=ids.device)
     vflat = vals.reshape(-1)
     b, by = bound(R * n * 8 + R * segs * 4, R * n)
-    rows["segment_sum"] = dict(
+    row = dict(
         ms=cuda_ms(torch, lambda: pk.segment_sum(ids, vals, segs)),
         plain_ms=cuda_ms(torch, lambda: pk.segment_sum_plain(ids, vals,
                                                              segs)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(torch, lambda: acc.index_add_(0, flat, vflat)))
-    log(f"time segment_sum at the main path's [{R}, {n}], {segs} segments: "
-        + json.dumps(rows["segment_sum"]))
-    rows["presence_fill"] = time_presence_fill(torch, pk, "WordCount",
-                                               *pres_args)
-    for label, args in join_pres.items():
-        time_presence_fill(torch, pk, label, *args)
-    errs["presence_fill"] = 0
-    return rows, errs
+    valid = (ids2 >= 0) & (ids2 < segs)
+    top = int(torch.bincount(ids2[valid].to(torch.int64)).max()) if bool(
+        valid.any()) else 0
+    log(f"time segment_sum on the {label} input [{R}, {n}], {segs} "
+        f"segments, {int(valid.sum())} kept rows, largest segment {top}: "
+        + json.dumps(row) + f"; max |kernel - plain| {err:.6g}")
+    return row, err
 
 
 def time_presence_fill(torch, pk, label, h, valid, regs):
@@ -1868,9 +2352,27 @@ def main() -> int:
     tsf4, rb4, cc4, sc_rb = terasort_file(torch, np, tt, pk, ps,
                                           exchange_mod, card)
     rl4 = readlines_phase(torch, np, tt, pk, ps, card)
+    t_ops = time.perf_counter()
+    gb4, seg_gb, sc_gb = groupbykey_phase(torch, np, tt, 4, GB_ITEMS, pk,
+                                          ps, card)
+    groupbykey_phase(torch, np, tt, 1, GB_ITEMS // 4, pk, ps, card)
+    g2i4, seg_g2i, sc_g2i = grouptoindex_phase(torch, np, tt, pk, ps, card)
+    mg4, sc_mg = merge_phase(torch, np, tt, 4, MERGE_ROWS, pk, ps, card)
+    merge_phase(torch, np, tt, 1, [m // 4 for m in MERGE_ROWS], pk, ps,
+                card)
+    win4 = window_phase(torch, np, tt, pk, ps, card)
+    zw4 = zipwindow_phase(torch, np, tt, pk, ps, card)
+    hll4 = hll_phase(torch, np, tt, pk, ps, card)
+    act4 = actions_phase(torch, np, tt, pk, ps, card)
+    log(f"op phases (groupbykey to actions): {time.perf_counter() - t_ops:.1f}"
+        f" s of host clock, numpy's references included [{card}]")
     sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr,
                "k-means": sc_km, "WordCount text": sc_wct,
-               "Rebalance": sc_rb}
+               "Rebalance": sc_rb, "GroupByKey W=4": sc_gb,
+               "GroupToIndex W=4": sc_g2i,
+               **{f"Merge W=4 input {j}": a for j, a in enumerate(sc_mg)}}
+    seg_args = {"PageRank step": seg_args, "GroupByKey W=4": seg_gb,
+                "GroupToIndex W=4": seg_g2i}
     # the location filter's register ids, left side (orders) then right
     join_pres = {f"Q3-lite {side} location-filter": args for side, args in
                  zip(("orders", "lineitem"), q3["on"]["calls"])}
@@ -1880,9 +2382,8 @@ def main() -> int:
         torch.save({"send_counts": sc_args, "presence_fill": pres_args,
                     "join_presence_fill": join_pres},
                    os.path.join(out_dir, "main_inputs.pt"))
-    main_times, main_errs = time_main_path_inputs(torch, pk, seg_args,
-                                                  pres_args, sc_args,
-                                                  join_pres)
+    main_times, main_inputs, main_errs = time_main_path_inputs(
+        torch, pk, seg_args, pres_args, sc_args, join_pres)
     times.update(main_times)
     for k, e in main_errs.items():
         errs[k] = max(errs[k], e)
@@ -1922,9 +2423,15 @@ def main() -> int:
              "suffix_array W=4": sa4, "wavelet_tree W=4": wt4,
              "wordcount text W=4": wct4, "terasort file W=4": tsf4,
              "Rebalance W=4 (terasort file)": rb4,
-             "Concat W=4 (terasort file)": cc4, "readlines W=4": rl4}
+             "Concat W=4 (terasort file)": cc4, "readlines W=4": rl4,
+             "groupbykey W=4": gb4, "grouptoindex W=4": g2i4,
+             "merge W=4": mg4, "window W=4": win4, "zipwindow W=4": zw4,
+             "hll W=4": hll4, "actions W=4": act4}
+    # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
-                    **times[k], paths={p: c[k] for p, c in paths.items()})
+                    **times[k], paths={p: c[k] for p, c in paths.items()},
+                    **({"inputs": main_inputs[k]} if k in main_inputs
+                       else {}))
                for k, m in meta.items()]
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -528,3 +528,84 @@ def test_files_round_trip_on_the_card(cuda_device, tmp_path, W):
     got, want = job(cuda_device), job("cpu")
     assert got[0] == want[0] and len(got[0]) == recs.nbytes
     assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64,
+                                   torch.float64])
+def test_segment_folds_on_the_card_match_the_cpu(cuda_device, dtype):
+    """The batched segment helpers drop ids out of range on the card,
+    where scatter_reduce_ would assert; one f32 column sums through the
+    segment-sum kernel (B3)."""
+    from thrill_tpu_torch.core import segmented as tseg
+    rng = np.random.default_rng(3)
+    n, segs = 1 << 18, 1 << 12
+    ids = torch.as_tensor(rng.integers(-50, segs + 50, n))
+    data = torch.as_tensor(rng.integers(-9, 9, (n, 2))).to(dtype)
+    for d in (data[:, 0].contiguous(), data):
+        launches = tpk.segment_sum.launches
+        got = tseg.segment_sum(d.to(cuda_device), ids.to(cuda_device), segs)
+        b3 = dtype == torch.float32 and d.dim() == 1
+        assert tpk.segment_sum.launches == launches + b3
+        assert torch.equal(got.cpu(), tseg.segment_sum(d, ids, segs))
+        for fold in (tseg.segment_max, tseg.segment_min):
+            assert torch.equal(fold(d.to(cuda_device), ids.to(cuda_device),
+                                    segs).cpu(), fold(d, ids, segs))
+    assert torch.equal(tseg.segment_count(ids.to(cuda_device), segs).cpu(),
+                       tseg.segment_count(ids, segs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 3, 4])
+def test_window_halo_on_the_card_matches_the_cpu(cuda_device, W):
+    x = np.random.default_rng(W).random(100003).astype(np.float32)
+
+    def job(ctx):
+        d = ctx.Distribute(x).Filter(lambda v: v < 0.9).Cache().Keep(3)
+        return (d.Window(16, None, device_fn=lambda w: w.sum(1))
+                .AllGatherArrays(),
+                d.DisjointWindow(16, None, device_fn=lambda w: w.amax(1))
+                .AllGatherArrays(),
+                d.FlatWindow(2, device_fn=lambda w: (
+                    (w[:, 1] - w[:, 0])[:, None], w[:, :1] < 0.5),
+                    factor=1).AllGatherArrays(),
+                dict(ctx.mesh_exec.device_runs))
+
+    got = tt.Run(job, W, cuda_device)
+    assert got[3] == {"Window": 1, "DisjointWindow": 1, "FlatWindow": 1}
+    want = tt.Run(job, W, "cpu")
+    assert got[0].device.type == "cuda"
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_group_merge_and_hll_on_the_card_match_the_cpu(cuda_device, W):
+    from thrill_tpu_torch.api.ops import hll as thll
+    from thrill_tpu_torch.core import segmented as tseg
+    rng = np.random.default_rng(W)
+    items = {"k": rng.integers(0, 5000, 1 << 16),
+             "v": rng.integers(0, 100, 1 << 16).astype(np.float32)}
+    a = np.sort(rng.integers(-(1 << 40), 1 << 40, 30000))
+    b = np.sort(rng.integers(-(1 << 40), 1 << 40, 20000))
+
+    def job(ctx):
+        g = ctx.Distribute(items).GroupByKey(
+            lambda r: r["k"], device_fn=lambda t, s, n: (
+                tseg.segment_max(t["k"], s, n), tseg.segment_sum(t["v"], s, n),
+                tseg.segment_count(s, n))).node.materialize()
+        m = tt.Merge(ctx.Distribute(a), ctx.Distribute(b)).node.materialize()
+        regs = thll.device_registers(ctx.Distribute(items["k"])._link().pull(),
+                                     12)
+        return ([x.cpu() for x in g.tree], g.counts, m.to_global_numpy(),
+                m.counts, regs.cpu())
+
+    got, want = tt.Run(job, W, cuda_device), tt.Run(job, W, "cpu")
+    assert np.array_equal(got[1], want[1]) and np.array_equal(got[3], want[3])
+    # integer-valued f32 sums below 2^24 are exact in any order
+    for g, w in zip(got[0], want[0]):
+        assert torch.equal(g[:, :int(got[1].max())], w[:, :int(got[1].max())])
+    assert np.array_equal(got[2], want[2])
+    assert torch.equal(got[4], want[4])

@@ -207,8 +207,7 @@ NO_HOST_PATH = {
     "ReducePair": lambda d: d.Map(lambda x: (x, 1)).ReducePair("sum"),
     "ReduceToIndex": lambda d: d.ReduceToIndex(lambda x: x, lambda a, b: a,
                                                8),
-    "Sort": lambda d: d.Sort(),
-    "SortStable": lambda d: d.SortStable(),
+    "GroupByKey": lambda d: d.GroupByKey(lambda x: x, lambda k, xs: k),
     "Zip": lambda d: tt.Zip(d.Keep(), d),
     "ZipWithIndex": lambda d: d.ZipWithIndex(),
     "InnerJoin": lambda d: tt.InnerJoin(d.Keep(), d, lambda x: x,

@@ -6,8 +6,9 @@ passes ``device="cpu"``. The port imports neither jax nor thrill_tpu.
 """
 
 from .api import (Bind, Concat, Context, DIA, FieldReduce, InnerJoin, Iterate,
-                  Run, RunLocalTests, Union, Zip)
+                  Merge, Run, RunLocalTests, Union, Zip, ZipWindow)
 from .parallel.mesh import MeshExec
 
 __all__ = ["Bind", "Concat", "Context", "DIA", "FieldReduce", "InnerJoin",
-           "Iterate", "MeshExec", "Run", "RunLocalTests", "Union", "Zip"]
+           "Iterate", "Merge", "MeshExec", "Run", "RunLocalTests", "Union",
+           "Zip", "ZipWindow"]

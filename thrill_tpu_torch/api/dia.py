@@ -4,8 +4,9 @@
 A handle is a node plus a stack of local operations. ``Map``/``Filter``
 and the device ``FlatMap`` extend the stack; the host ``FlatMap``, the
 distributed ops and ToHost/ToDevice cut it with a new node; actions and
-writers run the graph. ``Zip``, ``InnerJoin``, ``Concat`` and ``Union``
-of several DIAs also live at module level, as in the reference.
+writers run the graph. ``Zip``, ``ZipWindow``, ``Merge``, ``InnerJoin``,
+``Concat`` and ``Union`` of several DIAs also live at module level, as
+in the reference.
 """
 
 from __future__ import annotations
@@ -54,16 +55,75 @@ class DIA:
         return _sm.BernoulliSample(self, p, seed)
 
     # -- distributed ops -----------------------------------------------
-    def Sort(self, key_fn: Optional[Callable] = None) -> "DIA":
+    def Sort(self, key_fn: Optional[Callable] = None,
+             compare_fn: Optional[Callable] = None) -> "DIA":
         """Globally sorted by ``key_fn`` (batched, default identity);
-        equal keys keep their global order."""
+        equal keys keep their global order. ``compare_fn(a, b)``, a
+        less-than predicate on items, sorts on the host instead, as host
+        storage does (the result is host storage)."""
         from .ops import sort as _s
-        return _s.Sort(self, key_fn)
+        return _s.Sort(self, key_fn, compare_fn)
 
-    def SortStable(self, key_fn: Optional[Callable] = None) -> "DIA":
+    def SortStable(self, key_fn: Optional[Callable] = None,
+                   compare_fn: Optional[Callable] = None) -> "DIA":
         """Sort: it orders by (key, global index), so it is stable."""
         from .ops import sort as _s
-        return _s.Sort(self, key_fn)
+        return _s.Sort(self, key_fn, compare_fn)
+
+    def Merge(self, *others: "DIA", key_fn: Optional[Callable] = None
+              ) -> "DIA":
+        """This sorted DIA merged with the sorted ``others``; see the
+        module-level :func:`Merge`."""
+        return Merge(self, *others, key_fn=key_fn)
+
+    def GroupByKey(self, key_fn: Callable, group_fn: Callable = None,
+                   device_fn: Callable = None) -> "DIA":
+        """``group_fn(key, items)`` once per key, on the host, or the
+        batched segment fold ``device_fn(tree, segment_ids,
+        num_segments)`` on the device (``api/ops/groupby.py`` states the
+        contract: ids ``>= num_segments`` are dropped). Group order is
+        unspecified (the device sorts groups by key words); the worker
+        of a group is fixed by its key's hash."""
+        from .ops import groupby
+        return groupby.GroupByKey(self, key_fn, group_fn,
+                                  device_fn=device_fn)
+
+    def GroupToIndex(self, index_fn: Callable, group_fn: Callable = None,
+                     size: int = 0, neutral: Any = None,
+                     device_fn: Callable = None) -> "DIA":
+        """Dense output of ``size`` rows: row ``i`` is ``group_fn(i,
+        items)`` of the items with ``index_fn == i`` (or the batched
+        ``device_fn``, as GroupByKey's), ``neutral`` where none."""
+        from .ops import groupby
+        return groupby.GroupToIndex(self, index_fn, group_fn, size, neutral,
+                                    device_fn=device_fn)
+
+    def Window(self, k: int, fn: Callable,
+               device_fn: Optional[Callable] = None) -> "DIA":
+        """``fn(index, window)`` of every ``k`` consecutive items; on the
+        device ``device_fn`` maps the batched ``[n, k, ...]`` windows."""
+        from .ops import window as _w
+        return _w.Window(self, k, fn, device_fn, disjoint=False)
+
+    def FlatWindow(self, k: int, fn: Callable = None,
+                   device_fn: Optional[Callable] = None,
+                   factor: int = 0) -> "DIA":
+        """``fn(index, window) -> iterable`` per window; on the device
+        ``device_fn(windows) -> (outputs [n, factor, ...], mask [n,
+        factor])``."""
+        from .ops import window as _w
+        return _w.FlatWindow(self, k, fn, device_fn=device_fn,
+                             factor=factor)
+
+    def DisjointWindow(self, k: int, fn: Callable,
+                       device_fn: Optional[Callable] = None,
+                       partial_fn: Optional[Callable] = None) -> "DIA":
+        """Windows of ``k`` items that do not overlap. ``partial_fn(start,
+        items)`` receives the trailing block of fewer than ``k`` items
+        (Thrill: api/window.hpp:389) and keeps the op on the host."""
+        from .ops import window as _w
+        return _w.Window(self, k, fn, device_fn, disjoint=True,
+                         partial_fn=partial_fn)
 
     def Sample(self, k: int, seed: int = 0) -> "DIA":
         """A uniform sample of ``min(k, Size())`` items without
@@ -158,6 +218,10 @@ class DIA:
         self.node.materialize()
         return self
 
+    def Dispose(self) -> None:
+        """Free the node's result now; a later use raises RuntimeError."""
+        self.node.dispose()
+
     # -- actions -------------------------------------------------------
     def Size(self) -> int:
         from .ops import actions
@@ -166,6 +230,45 @@ class DIA:
     def AllGather(self) -> list:
         from .ops import actions
         return actions.AllGather(self)
+
+    def Gather(self, root: int = 0) -> list:
+        """Every item, delivered to worker ``root``."""
+        from .ops import actions
+        return actions.Gather(self, root)
+
+    def Print(self, label: str = "", limit: int = 100) -> "DIA":
+        from .ops import actions
+        actions.Print(self, label, limit)
+        return self
+
+    def HyperLogLog(self, precision: int = 14) -> float:
+        """Estimated number of distinct items, ``2^precision``
+        registers."""
+        from .ops import hll
+        return hll.HyperLogLog(self, precision)
+
+    # Future variants run when ``get()`` is called (Thrill: Future<T>).
+    # Issuing one reserves a consume unit, so that actions run between
+    # issue and get cannot starve it.
+    def _future(self, thunk):
+        from .future import ActionFuture
+        self.node.keep(1)
+        return ActionFuture(thunk)
+
+    def SizeFuture(self):
+        from .ops import actions
+        return self._future(lambda: actions.Size(self))
+
+    def AllGatherFuture(self):
+        from .ops import actions
+        return self._future(lambda: actions.AllGather(self))
+
+    def SumFuture(self, fn: Callable = None, initial: Any = 0):
+        from .ops import actions
+        if fn is not None:
+            return self._future(lambda: actions.AllReduce(self, fn,
+                                                          initial))
+        return self._future(lambda: actions.Sum(self, initial))
 
     def AllGatherArrays(self):
         """The items as one pytree of tensors ``[total, ...]`` on the
@@ -220,6 +323,23 @@ def Zip(*dias: DIA, zip_fn: Callable = None, mode: str = "strict") -> DIA:
     longest; short DIAs give zero items)."""
     from .ops import zip_ as _z
     return _z.Zip(list(dias), zip_fn, mode)
+
+
+def ZipWindow(window: tuple, *dias: DIA, zip_fn: Callable = None,
+              device_fn: Callable = None) -> DIA:
+    """DIA ``i`` read in chunks of ``window[i]`` items; output item ``j``
+    is ``zip_fn`` of chunk ``j`` of every DIA (the tuple of the chunks
+    when both fns are None), up to the shortest."""
+    from .ops import zip_ as _z
+    return _z.ZipWindow(list(dias), window, zip_fn, device_fn)
+
+
+def Merge(*dias: DIA, key_fn: Callable = None) -> DIA:
+    """The items of DIAs each sorted by ``key_fn``, merged into one
+    sorted DIA; equal keys order by argument position, then by their
+    position in their DIA."""
+    from .ops import merge as _m
+    return _m.Merge(list(dias), key_fn)
 
 
 def Concat(*dias: DIA) -> DIA:

@@ -1,6 +1,7 @@
 """Actions: graph sinks that run the graph and return results
-(counterpart of Size, AllGather, AllGatherArrays, Sum, Min, Max and
-AllReduce in the reference package's ``api/ops/actions.py``)."""
+(counterpart of Size, AllGather, AllGatherArrays, Gather, Print, Sum,
+Min, Max and AllReduce in the reference package's
+``api/ops/actions.py``)."""
 
 from __future__ import annotations
 
@@ -63,6 +64,22 @@ def _items(shards) -> list:
         return [it for l in shards.lists for it in l]
     return itemize(pt.tree_map(lambda t: t.detach().cpu().numpy(),
                                _gather_arrays(shards)))
+
+
+def Gather(dia, root: int = 0) -> list:
+    """The items of the whole DIA, delivered to worker ``root`` (Thrill:
+    ``api/gather.hpp``). One process is every worker here, so it gets
+    them all, in worker-rank order."""
+    return _items(_pull(dia))
+
+
+def Print(dia, label: str = "", limit: int = 100) -> None:
+    """Print the item count and the first ``limit`` items."""
+    items = AllGather(dia)
+    head = items[:limit]
+    suffix = (f" ... (+{len(items) - limit} more)" if len(items) > limit
+              else "")
+    print(f"[{label or 'DIA'}] n={len(items)}: {head}{suffix}")
 
 
 def _device_reduce(shards, mode: str, keep_device: bool = False):

@@ -1,5 +1,5 @@
-"""Zip / ZipWithIndex (counterpart of the reference package's
-``api/ops/zip_.py``; ZipWindow comes later).
+"""Zip, ZipWithIndex and ZipWindow (counterpart of the reference
+package's ``api/ops/zip_.py``).
 
 Realignment is an index-range exchange: item ``g`` of a DIA goes to the
 worker whose bound of the target partition holds it (the first DIA's
@@ -18,7 +18,7 @@ import torch
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
 from ...data import exchange
-from ...data.shards import DeviceShards
+from ...data.shards import DeviceShards, HostShards
 from ..dia import DIA
 from ..dia_base import DIABase
 from ..stack import call_batched
@@ -145,6 +145,65 @@ class ZipWithIndexNode(DIABase):
         return DeviceShards(mex, tree, shards.counts.copy())
 
 
+class ZipWindowNode(DIABase):
+    """Fixed-size windows zipped across DIAs (Thrill:
+    ``api/zip_window.hpp``): DIA ``i`` is read in chunks of
+    ``window[i]`` items, and output item ``j`` combines chunk ``j`` of
+    every DIA, up to the shortest.
+
+    Device path: each input is realigned so that worker ``w`` holds
+    exactly its output chunks ``dense_range_bounds(n_out, W)[w:w+2]``,
+    then viewed as ``[W, chunk_cap, window[i], ...]``; ``device_fn(*chunk
+    trees)`` sees every worker's chunks on one item axis (leaves ``[n,
+    window[i], ...]``), as the Map stack's batching does. Without
+    ``zip_fn`` and ``device_fn`` the output is the reference's default
+    schema, the tuple of the chunks, on the device."""
+
+    def __init__(self, ctx, links, window, zip_fn: Optional[Callable],
+                 device_fn: Optional[Callable] = None) -> None:
+        super().__init__(ctx, "ZipWindow", links)
+        self.window = tuple(int(w) for w in window)
+        self.zip_fn = zip_fn
+        self.device_fn = device_fn
+
+    def compute(self):
+        pulls = [l.pull() for l in self.parents]
+        if all(isinstance(p, DeviceShards) for p in pulls):
+            if self.device_fn is not None or self.zip_fn is None:
+                return self._compute_device(pulls)
+        if self.device_fn is not None and self.zip_fn is None:
+            raise ValueError(
+                "ZipWindow: inputs are host-resident but only device_fn "
+                "was given: pass zip_fn alongside device_fn")
+        flats = [[it for l in (p.to_host_shards("zipwindow").lists
+                               if isinstance(p, DeviceShards) else p.lists)
+                  for it in l] for p in pulls]
+        n_out = min(len(f) // w for f, w in zip(flats, self.window))
+        zf = self.zip_fn or (lambda *chunks: tuple(chunks))
+        out = [zf(*[flats[i][j * w:(j + 1) * w]
+                    for i, w in enumerate(self.window)])
+               for j in range(n_out)]
+        return HostShards(1, [out]).repartition(self.context.num_workers)
+
+    def _compute_device(self, pulls: List[DeviceShards]) -> DeviceShards:
+        mex = pulls[0].mesh_exec
+        W = mex.num_workers
+        n_out = min(p.total // w for p, w in zip(pulls, self.window))
+        cb = dense_range_bounds(n_out, W)                 # chunk bounds
+        chunk_counts = np.diff(cb).astype(np.int64)
+        chunk_cap = max(1, int(chunk_counts.max()))
+        trees = []
+        for p, wsz in zip(pulls, self.window):
+            a = _repad(_realign_or_keep(p, cb * wsz, n_out * wsz),
+                       chunk_cap * wsz)
+            trees.append(pt.tree_map(
+                lambda l, wsz=wsz: l[:, :chunk_cap * wsz].reshape(
+                    (W, chunk_cap, wsz) + tuple(l.shape[2:])), a.tree))
+        return DeviceShards(mex, call_batched(self.device_fn, trees, W,
+                                              chunk_cap, mex.device),
+                            chunk_counts)
+
+
 def Zip(dias: List[DIA], zip_fn=None, mode: str = "strict") -> DIA:
     if len(dias) < 2:
         raise ValueError("Zip needs at least two DIAs")
@@ -154,3 +213,12 @@ def Zip(dias: List[DIA], zip_fn=None, mode: str = "strict") -> DIA:
 
 def ZipWithIndex(dia: DIA, zip_fn=None) -> DIA:
     return DIA(ZipWithIndexNode(dia.context, dia._link(), zip_fn))
+
+
+def ZipWindow(dias: List[DIA], window, zip_fn=None, device_fn=None) -> DIA:
+    if len(dias) != len(window):
+        raise ValueError(f"ZipWindow: {len(window)} window sizes for "
+                         f"{len(dias)} DIAs")
+    return DIA(ZipWindowNode(dias[0].context, [d._link() for d in dias],
+                             window, zip_fn, device_fn))
+

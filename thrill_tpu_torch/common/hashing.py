@@ -13,7 +13,8 @@ int64 with the same bit pattern (see ``core/keys.py``), so:
 
 ``h.view(uint64)`` on the host then gives the reference's hash bit for
 bit. :func:`umod` is the unsigned remainder of such a word, which torch's
-signed ``%`` is not.
+signed ``%`` is not. :func:`stable_host_hash` hashes one Python object on
+the host (HyperLogLog's host path).
 """
 
 from __future__ import annotations
@@ -86,3 +87,39 @@ def np_mix64(x: np.ndarray) -> np.ndarray:
         x = x * np.uint64(0x94D049BB133111EB)
         x = x ^ (x >> np.uint64(31))
     return x
+
+
+def stable_host_hash(obj) -> int:
+    """Deterministic 64-bit hash of a Python object (host path), bit for
+    bit the reference's: strings and bytes by content (FNV-1a), numbers
+    by splitmix64, tuples combined recursively. Values that compare
+    equal hash equal (True == 1, 5.0 == 5, -0.0 == 0.0); unlike the
+    builtin ``hash`` it is not salted per process."""
+    if isinstance(obj, bytes):
+        return _fnv1a(obj)
+    if isinstance(obj, str):
+        return _fnv1a(obj.encode("utf-8"))
+    if isinstance(obj, (bool, np.bool_)):
+        obj = int(obj)
+    if isinstance(obj, (float, np.floating)):
+        f = float(obj) + 0.0          # -0.0 -> +0.0
+        if f.is_integer():
+            obj = int(f)              # wraps mod 2^64 below, as an int
+        else:
+            return int(np_mix64(np.float64(f).view(np.uint64)))
+    if isinstance(obj, (int, np.integer)):
+        return int(np_mix64(np.uint64(int(obj) & 0xFFFFFFFFFFFFFFFF)))
+    if isinstance(obj, tuple):
+        h = np.uint64(0x9E3779B97F4A7C15)
+        for el in obj:
+            h = np_mix64(h ^ np.uint64(stable_host_hash(el)))
+        return int(h)
+    return _fnv1a(repr(obj).encode("utf-8"))
+
+
+def _fnv1a(data: bytes) -> int:
+    h = 0xCBF29CE484222325
+    for b in data:
+        h ^= b
+        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h

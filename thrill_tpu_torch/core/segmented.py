@@ -5,6 +5,13 @@ Equal keys are grouped by a stable sort into runs; each run is folded
 into one item; one representative per run survives. Every function here
 works on all W workers at once: key words and masks are ``[W, n]``,
 tree leaves ``[W, n, ...]``, and runs never cross a worker's row.
+
+The segment folds :func:`segment_sum`, :func:`segment_max`,
+:func:`segment_min` and :func:`segment_count` are the torch counterparts
+of ``jax.ops.segment_*``, which the reference's GroupByKey and
+GroupToIndex ``device_fn`` call: ids outside ``[0, num_segments)`` are
+dropped, where torch's ``index_add_`` raises and CUDA's
+``scatter_reduce_`` asserts.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import torch
 
 from ..common import tree as pt
 from .device_sort import argsort_words
+from .pallas_kernels import segment_sum as _segment_sum_kernel
 from .rowmove import row_cumsum, scatter_slots, take_rows
 
 VALID_BITS = 8   # the invalid word is 0 or 1: one radix digit
@@ -176,3 +184,76 @@ def segmented_reduce_fields(words: List[torch.Tensor], tree: Any,
                 0, idx, src, "amin" if s == "min" else "amax")
         out.append(take_rows(res.reshape((W, region) + trail), seg))
     return words, pt.unflatten(td, out), _rep_mask(starts, valid)
+
+
+# -- segment folds with the drop contract of jax.ops.segment_* ----------------
+
+def _kept_slots(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """int64 scatter index of ``[n]`` ids into ``num_segments + n`` rows:
+    the id where it lies in ``[0, num_segments)``, else the row's own
+    dump slot past them, so dropped rows never collide (C3)."""
+    ids = segment_ids.reshape(-1).to(torch.int64)
+    keep = (ids >= 0) & (ids < num_segments)
+    return torch.where(keep, ids, num_segments + torch.arange(
+        ids.shape[0], device=ids.device))
+
+
+def _fold(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
+          how: str) -> torch.Tensor:
+    data = torch.as_tensor(data, device=segment_ids.device)
+    n = data.shape[0]
+    slots = _kept_slots(segment_ids, num_segments)
+    trail = tuple(data.shape[1:])
+    if how == "sum":
+        out = torch.zeros((num_segments + n,) + trail, dtype=data.dtype,
+                          device=data.device).index_add_(0, slots, data)
+        return out[:num_segments]
+    if data.dtype.is_floating_point:
+        info = torch.finfo(data.dtype)
+        ident = float("inf") if how == "amin" else float("-inf")
+    else:
+        info = torch.iinfo(data.dtype)
+        ident = info.max if how == "amin" else info.min
+    idx = slots.reshape((n,) + (1,) * len(trail)).expand(data.shape)
+    out = torch.full((num_segments + n,) + trail, ident, dtype=data.dtype,
+                     device=data.device).scatter_reduce_(0, idx, data, how)
+    return out[:num_segments]
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Sum of the rows of ``data`` ``[n, ...]`` by ``segment_ids`` ``[n]``
+    into ``[num_segments, ...]``; other ids are dropped. One f32 column
+    on the card goes through the segment-sum kernel (B3), whose contract
+    this is; its sums add in atomic order."""
+    data = torch.as_tensor(data, device=segment_ids.device)
+    if (data.device.type == "cuda" and data.dtype == torch.float32
+            and data.dim() == 1 and num_segments >= 1):
+        ids = segment_ids.reshape(-1)
+        ids = torch.where((ids >= 0) & (ids < num_segments), ids,
+                          torch.full_like(ids, -1)).to(torch.int32)
+        return _segment_sum_kernel(ids.contiguous(), data.contiguous(),
+                                   num_segments)
+    return _fold(data, segment_ids, num_segments, "sum")
+
+
+def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Largest row of each segment; an empty segment holds the dtype's
+    lowest value (-inf for floats), as in ``jax.ops.segment_max``."""
+    return _fold(data, segment_ids, num_segments, "amax")
+
+
+def segment_min(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Smallest row of each segment; an empty segment holds the dtype's
+    highest value (+inf for floats)."""
+    return _fold(data, segment_ids, num_segments, "amin")
+
+
+def segment_count(segment_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """int32 ``[num_segments]`` count of the ids in each segment."""
+    ones = torch.ones(segment_ids.numel(), dtype=torch.int32,
+                      device=segment_ids.device)
+    return _fold(ones, segment_ids, num_segments, "sum")

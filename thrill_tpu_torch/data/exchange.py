@@ -8,7 +8,7 @@ over the mesh axis becomes a transpose of the worker dimension.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +78,64 @@ def account_traffic(mex: MeshExec, S: np.ndarray, item_bytes: int) -> None:
     mex.stats_bytes_moved += moved * item_bytes
 
 
+def ship_presorted(mex: MeshExec, dest: torch.Tensor, S: np.ndarray,
+                   item_bytes: int
+                   ) -> Tuple[Callable[[torch.Tensor], torch.Tensor],
+                              torch.Tensor, int]:
+    """Plan the shipping of rows that are already grouped by destination:
+    the part of an exchange after the destination sort. ``dest`` ``[W,
+    cap]`` holds each worker's valid rows contiguous per destination in
+    rank order (monotone suffices) and ``W`` for invalid rows; ``S`` is
+    the host send matrix of :func:`send_counts`; ``item_bytes`` counts
+    the traffic. Returns (``ship``, the send matrix on the device,
+    ``M_pad``): ``ship(x)`` of ``[W, cap, ...]`` rows in ``dest``'s order
+    gives each receiver's blocks of its senders in rank order, ``[W, W *
+    M_pad, ...]``; receiver ``w``'s block from sender ``s`` holds ``S[s,
+    w]`` rows, then zeros. Ship one leaf at a time: each result is a
+    whole copy of the rows."""
+    W, cap = dest.shape
+    M_pad = max(int(S.max()), 1)
+    account_traffic(mex, S, item_bytes)
+    S_dev = mex.put_small(S)
+    send_idx = send_slot_index(dest, S_dev, W, M_pad, cap)
+
+    def ship(x: torch.Tensor) -> torch.Tensor:
+        return ship_blocks(x, send_idx, W, M_pad)
+
+    return ship, S_dev, M_pad
+
+
+def exchange_presorted(mex: MeshExec, treedef, dest: torch.Tensor,
+                       leaves: Sequence[torch.Tensor],
+                       S: np.ndarray) -> DeviceShards:
+    """Ship rows already grouped by destination (the contract of
+    :func:`ship_presorted`; counterpart of the reference's
+    ``exchange_presorted``, without its phase-B row narrowing): each
+    receiver keeps its senders' runs in rank order, each run in its
+    sender's order. Operators whose upstream order makes destinations
+    monotone (Merge: sorted inputs against sorted splitters) skip the
+    destination sort. The output capacity is the largest receive count
+    rounded up to a power of two; rows past a count repeat shipped rows
+    (ROADMAP.md fault C4)."""
+    W = mex.num_workers
+    dev = mex.device
+    R = S.sum(axis=0)
+    out_cap = round_up_pow2(max(int(R.max()), 1))
+    ship, S_dev, M_pad = ship_presorted(mex, dest, S,
+                                        leaf_item_bytes(leaves))
+    # receiver w's output row r comes from the sender s whose run holds
+    # it: runs start at roff[w, s] and lie in block s of the received
+    # [W * M_pad] rows; rows past R[w] read some shipped row (padding)
+    incl = torch.cumsum(S_dev.T, dim=1)                      # [recv, send]
+    r = torch.arange(out_cap, device=dev).expand(W, out_cap).contiguous()
+    src = torch.searchsorted(incl, r, right=True).clamp(max=W - 1)
+    roff = incl - S_dev.T
+    pos = (src * M_pad + r - torch.gather(roff, 1, src)).clamp(
+        0, W * M_pad - 1)
+    return DeviceShards(mex, pt.unflatten(treedef, [take_rows(ship(l), pos)
+                                                    for l in leaves]), R)
+
+
 def exchange(shards: DeviceShards, dest_builder: Callable) -> DeviceShards:
     """Move every valid item to the worker ``dest_builder`` names
     (counterpart of the reference's ``_phase_a`` plus ``exchange``).
@@ -86,13 +144,11 @@ def exchange(shards: DeviceShards, dest_builder: Callable) -> DeviceShards:
     the ``[W, cap]`` valid mask and the ``[W, 1]`` worker indices and
     returns ``[W, cap]`` destinations; invalid rows are dropped and
     valid ones clipped to ``[0, W)``. Each worker sorts its rows stably
-    by destination, the send matrix is read once on the host, the blocks
-    are shipped, and each receiver keeps its senders' runs in rank order,
-    each run in its sender's order. The output capacity is the largest
-    receive count rounded up to a power of two.
+    by destination, the send matrix is read once on the host, and
+    :func:`exchange_presorted` ships the rows.
     """
     mex = shards.mesh_exec
-    W, cap, dev = mex.num_workers, shards.cap, mex.device
+    W, dev = mex.num_workers, mex.device
     leaves, td = pt.flatten(shards.tree)
     mask = shards.valid_mask()
     widx = torch.arange(W, device=dev)[:, None]
@@ -103,21 +159,4 @@ def exchange(shards: DeviceShards, dest_builder: Callable) -> DeviceShards:
     sorted_dest = torch.gather(dest, 1, perm)
     sorted_leaves = take_rows_multi(leaves, perm)
     S = mex.fetch(send_counts(sorted_dest, W)).astype(np.int64)
-    R = S.sum(axis=0)
-    M_pad = max(int(S.max()), 1)
-    out_cap = round_up_pow2(max(int(R.max()), 1))
-    account_traffic(mex, S, leaf_item_bytes(leaves))
-    S_dev = mex.put_small(S)
-    send_idx = send_slot_index(sorted_dest, S_dev, W, M_pad, cap)
-    # receiver w's output row r comes from the sender s whose run holds
-    # it: runs start at roff[w, s] and lie in block s of the received
-    # [W * M_pad] rows; rows past R[w] read some shipped row (padding)
-    incl = torch.cumsum(S_dev.T, dim=1)                      # [recv, send]
-    r = torch.arange(out_cap, device=dev).expand(W, out_cap).contiguous()
-    src = torch.searchsorted(incl, r, right=True).clamp(max=W - 1)
-    roff = incl - S_dev.T
-    pos = (src * M_pad + r - torch.gather(roff, 1, src)).clamp(
-        0, W * M_pad - 1)
-    out = [take_rows(ship_blocks(l, send_idx, W, M_pad), pos)
-           for l in sorted_leaves]
-    return DeviceShards(mex, pt.unflatten(td, out), R)
+    return exchange_presorted(mex, td, sorted_dest, sorted_leaves, S)

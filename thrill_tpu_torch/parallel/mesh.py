@@ -9,6 +9,7 @@ dimension. Multiple cards and ``torch.distributed`` come later.
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Any, Callable, Dict, List, Tuple, Union
 
 import numpy as np
@@ -61,6 +62,9 @@ class MeshExec:
         self.radix_passes: List[Tuple[int, int]] = []
         # sticky pre-shuffle verdicts by (kind, site) (core/preshuffle.py)
         self.prune_verdicts: Dict[Tuple, bool] = {}
+        # device-path runs, by op label, of the ops whose contract falls
+        # back to the host (the Window family)
+        self.device_runs: Counter = Counter()
         self._cache: Dict[Tuple, Any] = {}
 
     def cached(self, key: Tuple, builder: Callable[[], Any]) -> Any:

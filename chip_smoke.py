@@ -117,11 +117,34 @@ Phases, each fatal on failure:
  21. Gather, Print (captured), SizeFuture/AllGatherFuture/SumFuture across
      an intervening Size, Dispose then RuntimeError, Sort(compare_fn)
      descending on 2^16 items, at W=4;
- 22. on the inputs the W=4 runs gave the kernels, captured at the call
+ 22. host storage, the card idle but in H4 (host seconds, beside the
+     host's CPU model): H1 thrill_tpu_torch/examples/word_count.py's
+     word_count (ReadLines, FlatMap split, Map, host ReduceByKey) over a
+     file of 2^22 of phase 4's words, 16 a line, at W=4, equal to
+     collections.Counter of the file's words exactly, with the dup
+     verdict, the items exchanged, the host seconds of ReadLines, the
+     stack, the pre phase, the exchange and the post phase, and the spill
+     stats; then W=1 over 2^20 words; H2 the same W=4 run with
+     THRILL_TPU_RAM cut to 8M and the spill directory a temporary one:
+     the post tables must spill and recurse, the per-worker lists equal
+     H1's as multisets, the bytes written to disk printed, the directory
+     empty afterwards; H3 GroupByKey of the words with a count group_fn,
+     unspilled and with the grant cut, both equal to the Counter; H4
+     H1's pairs Mapped to {"c": count, "h": the word's stable_host_hash
+     as int64}, ToDevice().Sort by (c, h) and AllGatherArrays, equal to
+     np.lexsort, B1, the upsweep and the pass launched (its send-count
+     input captured); H5 at W=4 over 2^20 (str key, int) items: Zip of
+     two host DIAs and of a host with a device DIA, ZipWithIndex,
+     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^20 x
+     2^18 string keys (location filter by the verdict, on and off),
+     Sample(1024), BernoulliSample(0.01), Sum, Min, Max and AllReduce,
+     each equal to a plain Python version, with its host seconds;
+ 23. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
      WordCount's, Rebalance's, GroupByKey's, GroupToIndex's sorted int64
-     destinations and each Merge input's int32 ones, each beside its
+     destinations, each Merge input's int32 ones and the host-to-card
+     Sort's, each beside its
      bound, the parent's int32 copy plus kernel and torch.bincount;
      segment_sum on the PageRank step's, GroupByKey's and GroupToIndex's
      ids, beside its bound, the plain version and index_add_; presence_fill
@@ -186,6 +209,12 @@ HLL_ITEMS = 1 << 24            # HyperLogLog items of HLL_VALUES values
 HLL_VALUES = 1 << 22
 HLL_P = 14
 CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
+HW_WORDS = 1 << 22             # host WordCount words (W=4), 16 a line
+HW_WORDS_W1 = 1 << 20          # host WordCount words (W=1)
+HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
+HO_ITEMS = 1 << 20             # host ops items (str key, int)
+HO_RIGHT = 1 << 18             # host InnerJoin right side
+HO_KEYS = 1 << 20              # host ops key space
 DEVICE = "cuda"
 
 
@@ -2151,6 +2180,338 @@ def actions_phase(torch, np, tt, pk, ps, card: str):
     return launches
 
 
+def cpu_line() -> str:
+    """The host's CPU model from ``/proc/cpuinfo`` (its vendor, family
+    and model numbers and clock where the model name reads "unknown", as
+    under gVisor) and the cores this process may use."""
+    import platform
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                fields.setdefault(k.strip(), v.strip())
+    except OSError:
+        pass
+    model = fields.get("model name", "unknown")
+    if model == "unknown":
+        model = " ".join(f"{k} {fields[k]}" for k in (
+            "vendor_id", "cpu family", "model", "cpu MHz") if k in fields
+        ) or platform.machine()
+    return f"{model}, {len(os.sched_getaffinity(0))} cores"
+
+
+def host_text(torch, n: int, seed: int, tmp: str):
+    """``n`` of phase 4's words (its vocabulary, Zipf 1/rank over VOCAB),
+    16 a line, in a text file under ``tmp``: (path, bytes, the Counter of
+    the file's words)."""
+    import collections
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    voc = vocabulary(torch, gen)
+    ids = zipf_ids(torch, n, VOCAB, gen)
+    path = os.path.join(tmp, f"host_words_{n}.txt")
+    size = write_text(torch, path, voc, ids)
+    with open(path, encoding="ascii") as f:
+        want = collections.Counter(f.read().split())
+    return path, size, want
+
+
+class EnvSet:
+    """Environment variables set for a ``with`` block, then restored."""
+
+    def __init__(self, **env) -> None:
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def host_wordcount_run(torch, tt, W: int, path: str, want, pk, ps,
+                       rw_mod, base_mod, lop_mod, label: str, host: str):
+    """``word_count(ctx, path)`` of the port's example, the result held
+    to the Counter exactly. Returns (per-worker lists, the reduce node's
+    spill stats, the launches); prints the host seconds of ReadLines, the
+    stack (split and pair), the pre phase, the exchange and the post
+    phase, the dup verdict and the items exchanged."""
+    from thrill_tpu_torch.examples import word_count as twc
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    with Timed(torch, rw_mod.ReadLinesNode, "compute") as rd, \
+            Timed(torch, lop_mod.HostFlatMapNode, "compute") as fm, \
+            Timed(torch, base_mod, "apply_stack_host") as st:
+        t0 = time.perf_counter()
+        red = twc.word_count(ctx, path)
+        lists = [list(l) for l in red.node.materialize().lists]
+        secs = time.perf_counter() - t0
+    launches = read_launches(pk, ps)
+    got = {}
+    for l in lists:
+        for w, c in l:
+            if w in got or type(w) is not str or type(c) is not int:
+                raise AssertionError(f"{label}: ({w!r}, {c!r}) twice or "
+                                     f"of the wrong type")
+            got[w] = c
+    if got != want:
+        raise AssertionError(f"{label}: the counts differ from "
+                             f"collections.Counter of the file's words")
+    node = red.node
+    split = dict(readlines=rd.secs, stack=fm.secs - rd.secs + st.secs,
+                 **node._host_seconds)
+    stats = node._em_stats
+    log(f"{label}: {sum(map(len, lists))} distinct words equal to "
+        f"collections.Counter(text.split()); {secs:.3f} s host clock, split "
+        f"{json.dumps({k: round(v, 6) for k, v in split.items()})}; words "
+        f"a worker after the exchange {[len(l) for l in lists]}; dup verdicts "
+        f"{list(ctx.mesh_exec.prune_verdicts.values())}; items exchanged "
+        f"{ctx.mesh_exec.stats_items_moved}; grant {node.mem_limit} bytes; "
+        f"spill stats {json.dumps(stats)}; launches {json.dumps(launches)} "
+        f"[{host}]")
+    return lists, stats, launches
+
+
+def host_wordcount_phases(torch, np, tt, pk, ps, exchange_mod, card: str):
+    """H1-H4: the host WordCount (W=4 over HW_WORDS words, W=1 over
+    HW_WORDS_W1), the same with the RAM grant cut until its post tables
+    spill, GroupByKey of the words unspilled and spilled, and the pairs
+    to the card and through its Sort. Returns the H4 launches and the
+    send_counts input it captured."""
+    import collections
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.api import dia_base as base_mod
+    from thrill_tpu_torch.api.ops import lop_nodes as lop_mod
+    from thrill_tpu_torch.api.ops import read_write as rw_mod
+    from thrill_tpu_torch.common.hashing import stable_host_hash
+    host = f"host {cpu_line()}; card idle; {card}"
+    W = 4
+    tmp = tempfile.mkdtemp(prefix="smoke_host_")
+    spill = os.path.join(tmp, "spill")
+    os.makedirs(spill)
+    try:
+        path, size, want = host_text(torch, HW_WORDS, SEED + 200, tmp)
+        log(f"host text: {HW_WORDS} words, {size} bytes, {len(want)} "
+            f"distinct [{host}]")
+        args = (pk, ps, rw_mod, base_mod, lop_mod)
+        lists1, stats1, _ = host_wordcount_run(
+            torch, tt, W, path, want, *args, "host wordcount W=4", host)
+        if stats1["spills"]:
+            log(f"host wordcount W=4: spilled under the default grant, "
+                f"the RSS trigger's doing [{host}]")
+        p1, _, want1 = host_text(torch, HW_WORDS_W1, SEED + 201, tmp)
+        host_wordcount_run(torch, tt, 1, p1, want1, *args,
+                           "host wordcount W=1", host)
+
+        # H2: the grant cut until the post tables spill into `spill`
+        with EnvSet(THRILL_TPU_RAM=HW_SPILL_RAM, THRILL_TPU_SPILL_DIR=spill):
+            lists2, stats2, _ = host_wordcount_run(
+                torch, tt, W, path, want, *args,
+                f"host wordcount spill W=4 (THRILL_TPU_RAM={HW_SPILL_RAM})",
+                host)
+        if not (stats2["spills"] > 0 and stats2["max_depth"] >= 1):
+            raise AssertionError(f"host wordcount spill: no spill and "
+                                 f"recursion: {stats2}")
+        if [collections.Counter(l) for l in lists2] != \
+                [collections.Counter(l) for l in lists1]:
+            raise AssertionError("host wordcount spill: the per-worker "
+                                 "lists differ from the unspilled run's")
+        left = os.listdir(spill)
+        if left:
+            raise AssertionError(f"host wordcount spill: {len(left)} spill "
+                                 f"files left behind")
+        log(f"host wordcount spill W=4: per-worker lists equal to H1's as "
+            f"multisets; {stats2['disk_bytes']} bytes went to disk; the "
+            f"spill directory is empty afterwards [{host}]")
+
+        # H3: GroupByKey of the words, unspilled, then with the grant cut
+        for cut in (False, True):
+            env = (dict(THRILL_TPU_RAM=HW_SPILL_RAM, THRILL_TPU_SPILL_DIR=spill)
+                   if cut else {})
+            with EnvSet(**env):
+                ctx = tt.Context(num_workers=W, device=DEVICE)
+                t0 = time.perf_counter()
+                g = ctx.ReadLines(path).FlatMap(lambda line: line.split()) \
+                    .GroupByKey(lambda w: w, lambda k, vs: (k, len(vs)))
+                got = [it for l in g.node.materialize().lists for it in l]
+                secs = time.perf_counter() - t0
+            stats = g.node._em_stats
+            if len(got) != len(want) or dict(got) != want:
+                raise AssertionError(f"host groupbykey W=4 (cut {cut}): the "
+                                     f"groups differ from the Counter")
+            if cut and not stats["spills"]:
+                raise AssertionError(f"host groupbykey W=4: the cut grant "
+                                     f"did not spill: {stats}")
+            if os.listdir(spill):
+                raise AssertionError("host groupbykey: spill files left")
+            log(f"host groupbykey W=4 grant {'cut to THRILL_TPU_RAM=' + HW_SPILL_RAM if cut else 'default'}: "
+                f"{len(got)} groups equal to the Counter; {secs:.3f} s host "
+                f"clock, split {json.dumps({k: round(v, 6) for k, v in g.node._host_seconds.items()})}; "
+                f"grant {g.node.mem_limit}; spill stats {json.dumps(stats)} "
+                f"[{host}]")
+
+        # H4: H1's pairs to the card, sorted there by (count, hash)
+        def signed(h):
+            return h - (1 << 64) if h >= 1 << 63 else h
+
+        ctx = tt.Context(num_workers=W, device=DEVICE)
+        src = ctx.ConcatToDIA(lists1)
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        with Capture(exchange_mod, "send_counts") as cap_sc:
+            t0 = time.perf_counter()
+            rows = src.Map(lambda kv: {"c": kv[1],
+                                       "h": signed(stable_host_hash(kv[0]))}
+                           ).ToDevice().Keep()
+            rows.Execute()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = rows.Sort(key_fn=lambda t: (t["c"], t["h"])
+                            ).AllGatherArrays()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        launches = read_launches(pk, ps)
+        need_launches(launches, ("partition_histogram", "radix_upsweep",
+                                 "radix_pass"), "host to card W=4")
+        c = np.array([kv[1] for l in lists1 for kv in l], dtype=np.int64)
+        h = np.array([signed(stable_host_hash(kv[0])) for l in lists1
+                      for kv in l], dtype=np.int64)
+        order = np.lexsort((h, c))
+        if not (np.array_equal(out["c"].cpu().numpy(), c[order])
+                and np.array_equal(out["h"].cpu().numpy(), h[order])):
+            raise AssertionError("host to card W=4: the Sort differs from "
+                                 "np.lexsort")
+        log(f"host to card W=4: {len(c)} (count, hash) rows equal to "
+            f"np.lexsort; Map+ToDevice {t1 - t0:.3f} s, Sort+AllGatherArrays "
+            f"{t2 - t1:.3f} s (host clock after synchronize); launches "
+            f"{json.dumps(launches)} [{card}]")
+        return launches, cap_sc.args
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sample_np(np, seed: int, k: int, lists):
+    """Sample(k)'s plain version on host lists: the global budget split
+    over the workers by sequential hypergeometric draws, then a uniform
+    subset a worker, in order, from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    counts = [len(l) for l in lists]
+    takes, pop, left = [], sum(counts), min(k, sum(counts))
+    for c in counts:
+        if left <= 0:
+            takes.append(0)
+        elif pop <= c:
+            takes.append(left)
+            left = 0
+        else:
+            t = int(rng.hypergeometric(c, pop - c, left))
+            takes.append(t)
+            left -= t
+            pop -= c
+    out = []
+    for l, t in zip(lists, takes):
+        idx = np.sort(rng.choice(len(l), size=t, replace=False)) if l else []
+        out.append([l[i] for i in idx])
+    return out
+
+
+def host_ops_phase(torch, np, tt, pk, ps, card: str):
+    """H5: the host ops at W=4 over HO_ITEMS (str key, int) items, each
+    against a plain Python version, with its host time."""
+    import collections
+    import functools
+    import itertools
+    host = f"host {cpu_line()}; card idle; {card}"
+    W = 4
+    rng = np.random.default_rng(SEED + 300)
+    n, m = HO_ITEMS, HO_RIGHT
+    items = [(f"k{int(k)}", int(v)) for k, v in zip(
+        rng.integers(0, HO_KEYS, n), rng.integers(0, 1 << 30, n))]
+    right = [(f"k{int(k)}", float(i)) for i, k in
+             enumerate(rng.integers(0, HO_KEYS, m))]
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    zero_launches(pk, ps)
+    times = {}
+
+    def timed(name, fn, want):
+        t0 = time.perf_counter()
+        got = fn()
+        times[name] = round(time.perf_counter() - t0, 6)
+        if not want(got):
+            raise AssertionError(f"host ops W=4: {name} differs from its "
+                                 f"plain version")
+
+    def src():
+        return ctx.Distribute(items, storage="host")
+
+    def flat(d):
+        return [it for l in d.node.materialize().lists for it in l]
+
+    rev = [(k, -v) for k, v in items]
+    timed("Zip host", lambda: flat(tt.Zip(src(), ctx.Distribute(
+        rev, storage="host"))), lambda g: g == list(zip(items, rev)))
+    vals = np.arange(n, dtype=np.int64) * 3
+    timed("Zip host+device", lambda: flat(tt.Zip(
+        src(), ctx.Distribute(vals), zip_fn=lambda a, b: (a[0], b))),
+        lambda g: g == [(k, 3 * i) for i, (k, _) in enumerate(items)]
+        and all(type(b) is int for _, b in g[:100]))
+    timed("ZipWithIndex", lambda: flat(src().ZipWithIndex()),
+          lambda g: g == [(it, i) for i, it in enumerate(items)])
+
+    def run_sum(a, b):
+        return (b[0], a[1] + b[1])
+
+    acc = list(itertools.accumulate(items, run_sum, initial=("", 7)))
+    timed("PrefixSum", lambda: flat(src().PrefixSum(run_sum,
+                                                    initial=("", 7))),
+          lambda g: g == acc[1:])
+    timed("ExPrefixSum", lambda: flat(src().ExPrefixSum(run_sum,
+                                                        initial=("", 7))),
+          lambda g: g == acc[:-1])
+    by_key = collections.defaultdict(list)
+    for k, v in items:
+        by_key[k].append(v)
+    pairs = collections.Counter((k, v, x) for k, x in right
+                                for v in by_key.get(k, ()))
+    for ld in (None, True, False):
+        timed(f"InnerJoin ld={ld}", lambda ld=ld: flat(tt.InnerJoin(
+            src(), ctx.Distribute(right, storage="host"), lambda t: t[0],
+            lambda t: t[0], lambda a, b: (a[0], a[1], b[1]),
+            location_detection=ld)),
+            lambda g: collections.Counter(g) == pairs)
+    lists = src().node.materialize().lists
+    timed("Sample(1024)", lambda: src().Sample(1024, seed=3).node
+          .materialize().lists,
+          lambda g: g == sample_np(np, 3, 1024, lists)
+          and sum(map(len, g)) == 1024)
+    brng = np.random.default_rng(5)
+    bern = [it for it in items if brng.random() < 0.01]
+    timed("BernoulliSample(0.01)", lambda: flat(src().BernoulliSample(
+        0.01, seed=5)), lambda g: g == bern)
+    timed("Sum", lambda: src().Map(lambda t: t[1]).Sum(),
+          lambda g: g == sum(v for _, v in items))
+    timed("Min", lambda: src().Min(), lambda g: g == min(items))
+    timed("Max", lambda: src().Max(), lambda g: g == max(items))
+    timed("AllReduce", lambda: src().AllReduce(run_sum),
+          lambda g: g == functools.reduce(run_sum, items))
+    launches = read_launches(pk, ps)
+    log(f"host ops W=4 over {n} (str, int) items (join right side {m}): "
+        f"each equal to its plain Python version; host seconds "
+        f"{json.dumps(times)}; {len(pairs)} join pairs, "
+        f"{len(bern)} Bernoulli items; launches {json.dumps(launches)} "
+        f"[{host}]")
+    return launches
+
+
 def time_send_counts(torch, pk, label, dest, W):
     """The send-count histogram on one captured ``send_counts`` input (the
     kernel reads it as it is): held against the plain version, then timed
@@ -2366,11 +2727,18 @@ def main() -> int:
     act4 = actions_phase(torch, np, tt, pk, ps, card)
     log(f"op phases (groupbykey to actions): {time.perf_counter() - t_ops:.1f}"
         f" s of host clock, numpy's references included [{card}]")
+    t_host = time.perf_counter()
+    h4, sc_h4 = host_wordcount_phases(torch, np, tt, pk, ps, exchange_mod,
+                                      card)
+    ho4 = host_ops_phase(torch, np, tt, pk, ps, card)
+    log(f"host phases (H1-H5): {time.perf_counter() - t_host:.1f} s of host "
+        f"clock, the plain versions included [host {cpu_line()}; {card}]")
     sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr,
                "k-means": sc_km, "WordCount text": sc_wct,
                "Rebalance": sc_rb, "GroupByKey W=4": sc_gb,
                "GroupToIndex W=4": sc_g2i,
-               **{f"Merge W=4 input {j}": a for j, a in enumerate(sc_mg)}}
+               **{f"Merge W=4 input {j}": a for j, a in enumerate(sc_mg)},
+               "host to card W=4": sc_h4}
     seg_args = {"PageRank step": seg_args, "GroupByKey W=4": seg_gb,
                 "GroupToIndex W=4": seg_g2i}
     # the location filter's register ids, left side (orders) then right
@@ -2426,7 +2794,8 @@ def main() -> int:
              "Concat W=4 (terasort file)": cc4, "readlines W=4": rl4,
              "groupbykey W=4": gb4, "grouptoindex W=4": g2i4,
              "merge W=4": mg4, "window W=4": win4, "zipwindow W=4": zw4,
-             "hll W=4": hll4, "actions W=4": act4}
+             "hll W=4": hll4, "actions W=4": act4,
+             "host to card W=4": h4, "host ops W=4": ho4}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -3,8 +3,11 @@ package's on the CPU, at W in {1, 2, 4}: ``word_count_text_device`` from
 text files and ``word_count_fixed`` from packed words. Counts are int64
 and must be equal; rows are compared sorted by word (the reference runs
 its jitted engine, ``THRILL_TPU_HOST_RADIX=0``, whose row order the
-port's need not share across workers)."""
+port's need not share across workers). ``word_count``, the host
+pipeline over strings, must give the reference's per-worker lists
+exactly, at W in {1, 2, 3, 4}."""
 
+import collections
 import os
 import sys
 
@@ -94,13 +97,40 @@ def test_word_count_fixed_matches_reference(W):
         assert np.array_equal(g, w)
 
 
+def _host_lists(dia):
+    return [list(l) for l in dia.node.materialize().lists]
+
+
+def _word_count_both(W, source):
+    want = _ref(W, lambda c: _host_lists(jwc.word_count(c, source)))
+    got = _host_lists(twc.word_count(tt.Context(num_workers=W,
+                                                device="cpu"), source))
+    assert got == want
+    assert all(type(w) is str and type(c) is int for l in got for w, c in l)
+    return got
+
+
 def test_word_count_host_pipeline_raises_naming_reduce_by_key(tmp_path):
+    """The host pipeline does not raise: from a file and from a list of
+    lines it gives the reference's (word, count) lists at W = 2."""
     path = _text(tmp_path, n_files=1)
-    ctx = tt.Context(num_workers=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ReduceByKey.*queue A"):
-        twc.word_count(ctx, path).AllGather()
-    with pytest.raises(NotImplementedError, match="ReduceByKey.*queue A"):
-        twc.word_count(ctx, ["a b", "b"]).AllGather()
+    text = open(path.replace("*", "0"), encoding="utf-8").read()
+    got = _word_count_both(2, path)
+    assert dict(it for l in got for it in l) == \
+        collections.Counter(text.split())
+    got = _word_count_both(2, ["a b", "b", "", "c  a b"])
+    assert sorted(it for l in got for it in l) == [("a", 2), ("b", 3),
+                                                    ("c", 1)]
+
+
+@pytest.mark.parametrize("W", [1, 3, 4])
+def test_word_count_host_pipeline_matches_reference(tmp_path, W):
+    path = _text(tmp_path, seed=W)
+    got = _word_count_both(W, path)
+    text = b"".join(open(p, "rb").read() for p in sorted(
+        __import__("glob").glob(path))).decode()
+    assert dict(it for l in got for it in l) == \
+        collections.Counter(text.split())
 
 
 def test_main_counts_a_file_on_the_text_device_path(tmp_path, capsys,
@@ -111,7 +141,9 @@ def test_main_counts_a_file_on_the_text_device_path(tmp_path, capsys,
         "--device", "cpu", "--workers", "2"])
     twc.main()
     assert capsys.readouterr().out.split() == ["3", "b", "2", "a", "1", "c"]
+    # the host pipeline counts the same
     monkeypatch.setattr(sys, "argv", [
-        "word_count", str(tmp_path / "in.txt"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ReduceByKey"):
-        twc.main()
+        "word_count", str(tmp_path / "in.txt"), "--device", "cpu",
+        "--workers", "3"])
+    twc.main()
+    assert capsys.readouterr().out.split() == ["3", "b", "2", "a", "1", "c"]

@@ -609,3 +609,39 @@ def test_group_merge_and_hll_on_the_card_match_the_cpu(cuda_device, W):
         assert torch.equal(g[:, :int(got[1].max())], w[:, :int(got[1].max())])
     assert np.array_equal(got[2], want[2])
     assert torch.equal(got[4], want[4])
+
+
+@pytest.mark.gpu
+def test_host_reduce_then_a_device_sort_on_the_card(cuda_device, monkeypatch):
+    """Host ReduceByKey of string pairs, spilled into the default spill
+    directory, then ``ToDevice().Sort()`` on the card by (count, hash):
+    equal to Python's sort, with B1 and the radix pass launched."""
+    import collections
+    import os
+
+    from thrill_tpu_torch.common.hashing import stable_host_hash
+    monkeypatch.setenv("THRILL_TPU_HOST_TABLE_CAP", "64")
+    monkeypatch.setenv("THRILL_TPU_SPILL_RESIDENT", "64K")
+    rng = np.random.default_rng(5)
+    words = [f"w{int(i)}" for i in rng.integers(0, 20000, 60000)]
+    ctx = tt.Context(num_workers=4, device=cuda_device)
+    assert os.access(ctx.config.spill_dir, os.W_OK)
+
+    def signed(h):
+        return h - (1 << 64) if h >= 1 << 63 else h
+
+    red = ctx.Distribute(words, storage="host").Map(
+        lambda w: (w, 1)).ReduceByKey(lambda kv: kv[0],
+                                      lambda a, b: (a[0], a[1] + b[1]))
+    rows = red.Map(lambda kv: {"c": kv[1],
+                               "h": signed(stable_host_hash(kv[0]))})
+    launches = (tpk.partition_histogram.launches, tps.radix_pass.launches)
+    out = rows.ToDevice().Sort(key_fn=lambda t: (t["c"], t["h"])) \
+        .AllGatherArrays()
+    assert red.node._em_stats["disk_bytes"] > 0
+    want = sorted((c, signed(stable_host_hash(w)))
+                  for w, c in collections.Counter(words).items())
+    assert out["c"].device.type == "cuda"
+    assert list(zip(out["c"].cpu().tolist(), out["h"].cpu().tolist())) == want
+    assert tpk.partition_histogram.launches > launches[0]
+    assert tps.radix_pass.launches > launches[1]

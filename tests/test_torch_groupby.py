@@ -185,10 +185,16 @@ def test_group_by_key_tuple_keys_match_reference_per_worker(W):
 
 
 def test_group_by_key_of_host_storage_names_the_roadmap():
+    """GroupByKey of host items gives the reference's groups; a
+    ``device_fn`` alone, or no function, is refused by name."""
+    def job(ctx, L):
+        return ctx.Distribute(["a", "b", "a"]).GroupByKey(
+            lambda s: s, lambda k, it: (k, len(it)))
+
+    ref, port = _both(2, job)
+    assert port == ref
+    assert sorted(g for l in port for g in l) == [("a", 2), ("b", 1)]
     ctx = tt.Context(num_workers=2, device="cpu")
-    d = ctx.Distribute(["a", "b", "a"])
-    with pytest.raises(NotImplementedError, match="items 1 and 5"):
-        d.GroupByKey(lambda s: s, lambda k, it: (k, len(it))).AllGather()
     with pytest.raises(ValueError, match="requires group_fn"):
         ctx.Distribute(["a"]).GroupByKey(
             lambda s: s, device_fn=lambda t, s, n: t).AllGather()

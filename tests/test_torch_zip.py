@@ -192,9 +192,20 @@ def test_prefix_sums(W):
 
 
 def test_prefix_sum_refuses_a_custom_fn():
-    ctx = tt.Context(num_workers=2, device="cpu")
-    with pytest.raises(ValueError, match="host storage"):
-        ctx.Generate(4).PrefixSum(lambda a, b: a * b)
+    """A custom fn is not refused: device items are demoted and fold on
+    the host, equal to the reference's."""
+    def job(ctx, lib):
+        d = ctx.Generate(9).Map(lambda x: x + 1)
+        return d.PrefixSum(lambda a, b: a * b, initial=1).node.materialize()
+
+    jctx = _jax_ctx(2)
+    try:
+        want = job(jctx, _J).lists
+    finally:
+        jctx.close()
+    got = job(tt.Context(num_workers=2, device="cpu"), None).lists
+    assert got == want
+    assert [x for l in got for x in l][-1] == 362880
 
 
 # -- Sum / Min / Max / AllReduce -----------------------------------------------

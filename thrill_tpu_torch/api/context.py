@@ -6,10 +6,14 @@ reference does."""
 
 from __future__ import annotations
 
+import os
+import sys
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
 
+from ..common.config import Config
+from ..mem.manager import MemoryConfig
 from ..parallel.mesh import DeviceLike, MeshExec
 
 
@@ -17,10 +21,14 @@ class Context:
     """Owns the mesh of W virtual workers and the DIA graph's nodes."""
 
     def __init__(self, mesh_exec: Optional[MeshExec] = None,
-                 num_workers: int = 1, device: DeviceLike = None) -> None:
+                 num_workers: int = 1, device: DeviceLike = None,
+                 config: Optional[Config] = None) -> None:
         self.mesh_exec = mesh_exec or MeshExec(num_workers=num_workers,
                                                device=device)
+        self.config = config or Config.from_env()
         self._next_id = 0
+        self._ram_workers: Optional[int] = None
+        self._mem_reserved = 0
 
     @property
     def num_workers(self) -> int:
@@ -29,6 +37,52 @@ class Context:
     def _register_node(self, node) -> int:
         self._next_id += 1
         return self._next_id
+
+    # -- memory grants (reference: the StageBuilder's DIAMemUse split,
+    # api/dia_base.cpp:121-270). A node negotiates as its compute starts
+    # and holds the grant until it ends; a "max" request gets half of
+    # what is left, so nested requesters get smaller shares and the pool
+    # is never over-committed.
+    @property
+    def ram_workers(self) -> int:
+        """The operators' share of the RAM: a third of the configured RAM,
+        else of the physical RAM."""
+        if self._ram_workers is None:
+            total = self.config.ram or self.config.host_ram
+            if not total:
+                try:
+                    total = (os.sysconf("SC_PAGE_SIZE")
+                             * os.sysconf("SC_PHYS_PAGES"))
+                except (ValueError, OSError):
+                    total = 8 << 30
+            self._ram_workers = MemoryConfig.split(total).ram_workers
+        return self._ram_workers
+
+    def negotiate_mem(self, node) -> bool:
+        """Set ``node.mem_limit`` from its ``mem_use()`` request; True
+        when something was granted (then ``release_mem`` after its
+        compute)."""
+        req = node.mem_use()
+        if req is None:
+            node.mem_limit = None
+            return False
+        remaining = max(self.ram_workers - self._mem_reserved, 4096)
+        if req == "max":
+            grant = max(remaining // 2, 4096)
+        else:
+            grant = min(int(req), remaining)
+        self._mem_reserved += grant
+        node.mem_limit = grant
+        node._mem_grant = grant
+        if req != "max" and grant < int(req):
+            print(f"thrill_tpu_torch: mem_negotiate short grant for "
+                  f"{node.label}: requested {req}, granted {grant}",
+                  file=sys.stderr)
+        return True
+
+    def release_mem(self, node) -> None:
+        self._mem_reserved -= node._mem_grant
+        node._mem_grant = 0
 
     def Generate(self, size: int, fn: Optional[Callable] = None,
                  storage: Optional[str] = None):

@@ -1,10 +1,11 @@
 """DIA graph nodes (counterpart of the reference package's
-``api/dia_base.py``, without fusion, checkpoints or memory negotiation).
+``api/dia_base.py``, without fusion or checkpoints).
 
 An action materializes its parent, which recursively computes its own
 parents. A result stays cached on its node until its consume budget is
 spent; ``Keep()`` raises the budget, as the reference's consume counters
-do.
+do. A node that declares a ``MEM_USE`` gets a RAM grant,
+``mem_limit``, for the length of its compute.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Union
 
-from ..data.shards import DeviceShards, HostShards, require_device
+from ..data.shards import DeviceShards, HostShards
 from .stack import Stack, apply_stack_device, apply_stack_host
 
 Shards = Union[DeviceShards, HostShards]
@@ -40,6 +41,11 @@ class ParentLink:
 class DIABase:
     """A node of the DIA dataflow graph."""
 
+    # memory appetite of compute() (reference: DIAMemUse): None =
+    # negligible, "max" = as much as there is (the host reduce and group
+    # tables), an int = fixed bytes
+    MEM_USE = None
+
     def __init__(self, ctx, label: str,
                  parents: Sequence[ParentLink] = ()) -> None:
         self.context = ctx
@@ -50,14 +56,14 @@ class DIABase:
         self._shards: Optional[Shards] = None
         # every node's result may be used once; Keep(n) allows n more
         self.consume_budget = 1
+        self.mem_limit: Optional[int] = None
+        self._mem_grant = 0
+
+    def mem_use(self):
+        return self.MEM_USE
 
     def compute(self) -> Shards:
         raise NotImplementedError
-
-    def pull_device(self, i: int = 0) -> DeviceShards:
-        """Parent ``i``'s shards, for an op with no host path: host
-        storage raises NotImplementedError."""
-        return require_device(self.parents[i].pull(), self.label)
 
     def materialize(self, consume: bool = False) -> Shards:
         if self.state == DISPOSED:
@@ -66,7 +72,13 @@ class DIABase:
                 f"(consume budget exhausted); call .Keep() before reusing "
                 f"a DIA in more than one operation")
         if self._shards is None:
-            self._shards = self.compute()
+            ctx = self.context
+            negotiated = ctx.negotiate_mem(self)
+            try:
+                self._shards = self.compute()
+            finally:
+                if negotiated:
+                    ctx.release_mem(self)
             self.state = EXECUTED
         result = self._shards
         if consume:

@@ -14,12 +14,19 @@ Example (WordCount)::
 
 Ops per field: ``"first"`` (keep the first-seen row's value, the usual
 choice for the carried key field), ``"sum"``, ``"min"``, ``"max"``.
+
+As a callable the spec is a prefix of the item tree, as ``jax.tree.map``
+reads it in the reference: an op applies to the whole subtree at its
+place (``("first", "sum")`` takes a tuple key whole). Host values fold
+with numpy's ``minimum``/``maximum`` (a Python float comes back as
+``np.float64``, as in the reference), tensors with torch's.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..common import tree as pt
@@ -39,25 +46,17 @@ class FieldReduce:
         self.spec = spec
 
     def __call__(self, a, b):
-        spec_leaves, spec_td = pt.flatten(self.spec)
-        (la, td_a), (lb, td_b) = pt.flatten(a), pt.flatten(b)
-        if td_a != spec_td or td_b != spec_td:
+        try:
+            return _combine(self.spec, a, b)
+        except _Mismatch:
+            spec_td = pt.flatten(self.spec)[1]
+            td_a, td_b = pt.flatten(a)[1], pt.flatten(b)[1]
             raise TypeError(
                 f"FieldReduce spec structure {spec_td} does not match the "
                 f"item structure {td_a if td_a != spec_td else td_b}; for "
                 f"ReducePair with a string op the value must be a single "
                 f"leaf; pass an explicit FieldReduce spec mirroring the "
-                f"item tree instead")
-
-        def comb(op, x, y):
-            if op == "first":
-                return x
-            if op == "sum":
-                return x + y
-            return torch.minimum(x, y) if op == "min" else torch.maximum(x, y)
-
-        return pt.unflatten(spec_td, [comb(*z) for z in
-                                      zip(spec_leaves, la, lb)])
+                f"item tree instead") from None
 
     def flat_spec(self, treedef):
         """Per-leaf op strings in ``treedef``'s leaf order, or None if
@@ -77,3 +76,29 @@ class FieldReduce:
 
     def __repr__(self) -> str:
         return f"FieldReduce({self.spec!r})"
+
+
+class _Mismatch(Exception):
+    pass
+
+
+def _combine(spec, a, b):
+    """``a`` and ``b`` combined field by field, ``spec`` read as a
+    prefix of their trees."""
+    if isinstance(spec, dict):
+        if not (isinstance(a, dict) and isinstance(b, dict)
+                and a.keys() == spec.keys() == b.keys()):
+            raise _Mismatch
+        return {k: _combine(spec[k], a[k], b[k]) for k in sorted(spec)}
+    if isinstance(spec, (tuple, list)):
+        if not (type(a) is type(spec) is type(b)
+                and len(a) == len(spec) == len(b)):
+            raise _Mismatch
+        return type(spec)(_combine(s, x, y) for s, x, y in zip(spec, a, b))
+    if spec == "first":
+        return a
+    if spec == "sum":
+        return a + b
+    lib = torch if isinstance(a, torch.Tensor) or isinstance(
+        b, torch.Tensor) else np
+    return lib.minimum(a, b) if spec == "min" else lib.maximum(a, b)

@@ -46,7 +46,7 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
     if checkpoint_every:
         raise NotImplementedError(
             f"Iterate({name!r}, checkpoint_every=...): the port has no "
-            f"checkpoints yet")
+            f"checkpoints yet (ROADMAP.md queue A 'Still to port' item 5)")
     if n <= 0:
         return carry
     dia_mode = isinstance(carry, (DIA, DIABase, DeviceShards))

@@ -1,17 +1,20 @@
 """Actions: graph sinks that run the graph and return results
 (counterpart of Size, AllGather, AllGatherArrays, Gather, Print, Sum,
 Min, Max and AllReduce in the reference package's
-``api/ops/actions.py``)."""
+``api/ops/actions.py``). On host storage Sum, Min, Max and AllReduce
+fold the items in Python, in worker-rank order, as the reference does."""
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from ...common import tree as pt
-from ...data.shards import HostShards, itemize, require_device
+from ...data import multiplexer
+from ...data.shards import HostShards, itemize
 from .reduce import _type_max, _type_min
 
 
@@ -116,8 +119,12 @@ def Sum(dia, initial: Any = 0, device: bool = False) -> Any:
     """The item-wise sum; ``initial`` for an empty DIA, else added to the
     sum unless it is zero or None (a matching pytree, or one scalar for
     every leaf). ``device=True`` returns tensors on the device, to be fed
-    back into a Bind without a host copy."""
-    shards = require_device(_pull(dia), "Sum")
+    back into a Bind without a host copy (device storage only). Host
+    items fold with ``+`` from ``initial``."""
+    shards = _pull(dia)
+    if isinstance(shards, HostShards):
+        items = multiplexer.all_items(dia.context.mesh_exec, shards)
+        return functools.reduce(lambda a, b: a + b, items, initial)
     if shards.total == 0:
         return initial
     reduced = _device_reduce(shards, "sum", keep_device=device)
@@ -129,16 +136,25 @@ def Sum(dia, initial: Any = 0, device: bool = False) -> Any:
 
 
 def MinMax(dia, is_min: bool) -> Any:
-    shards = require_device(_pull(dia), "Min" if is_min else "Max")
+    shards = _pull(dia)
+    if isinstance(shards, HostShards):
+        mex = dia.context.mesh_exec
+        items = multiplexer.all_items(mex, shards)
+        pick = min if is_min else max
+        try:
+            return multiplexer.net_fold(mex, pick(items) if items else None,
+                                        pick, empty=not items)
+        except ValueError:
+            raise ValueError("Min/Max of empty DIA") from None
     if shards.total == 0:
         raise ValueError("Min/Max of empty DIA")
     return _device_reduce(shards, "min" if is_min else "max")
 
 
 def AllReduce(dia, fn: Callable, initial: Any = None) -> Any:
-    """A generic associative fold of every item, on the host, of a
-    device DIA's items (host storage raises: ROADMAP.md queue A)."""
-    items = _items(require_device(_pull(dia), "AllReduce"))
+    """A generic associative fold of every item, on the host, in
+    worker-rank order."""
+    items = _items(_pull(dia))
     if not items:
         if initial is None:
             raise ValueError("AllReduce of empty DIA without initial")

@@ -10,6 +10,12 @@ run starts, then either
 * ``group_fn``: the sorted rows come to the host and Python runs once
   per group.
 
+GroupByKey on host storage (``group_fn`` only): each item's key is
+hashed once with ``stable_host_hash``, the items are exchanged by hash,
+and each worker groups what arrives, in arrival order, in
+``core/em_table.py``'s ``EMGroupBuffer``, which spills sorted runs to
+the spill store past the node's RAM grant.
+
 GroupToIndex on device storage: a range exchange to the workers owning
 ``dense_range_bounds(size, W)``, then ``device_fn`` folds each index's
 items by their local index, and ``neutral`` fills indices that received
@@ -29,6 +35,7 @@ leaves lead with ``num_segments`` rows, worker ``w``'s at ``[w * per,
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -39,8 +46,10 @@ from ...common import tree as pt
 from ...common.partition import dense_range_bounds
 from ...core import keys as keymod
 from ...core import segmented
+from ...core.em_table import EMGroupBuffer
 from ...core.rowmove import row_cumsum
-from ...data import exchange
+from ...data import exchange, multiplexer
+from ...data.block_pool import spill_pool
 from ...data.shards import DeviceShards, HostShards
 from ..dia import DIA
 from ..dia_base import DIABase
@@ -58,6 +67,10 @@ def _per_worker(tree: Any, W: int, per: int) -> Any:
 
 
 class GroupByKeyNode(DIABase):
+    # the host path sizes its group buffer from the grant (Thrill:
+    # DIAMemUse::Max of GroupByKey's sort-and-spill buffer)
+    MEM_USE = "max"
+
     def __init__(self, ctx, link, key_fn: Callable,
                  group_fn: Optional[Callable],
                  device_fn: Optional[Callable] = None) -> None:
@@ -73,11 +86,7 @@ class GroupByKeyNode(DIABase):
                 raise ValueError(
                     "GroupByKey over host storage requires group_fn "
                     "(device_fn needs columnar device shards)")
-            raise NotImplementedError(
-                "GroupByKey of a host-storage DIA is not ported yet: the "
-                "reference groups host items in an external-memory buffer "
-                "(EMGroupBuffer, spill_pool), ROADMAP.md queue A 'Still to "
-                "port' items 1 and 5. ToDevice() first for items of numbers")
+            return self._group_host(shards)
         if self.group_fn is None and self.device_fn is None:
             raise ValueError("GroupByKey needs group_fn (host fold) or "
                              "device_fn (vectorized segment fold)")
@@ -85,6 +94,50 @@ class GroupByKeyNode(DIABase):
         if self.device_fn is not None:
             return self._group_device(shards)
         return self._group_sorted_host(shards)
+
+    def _group_host(self, shards: HostShards) -> HostShards:
+        """The reference's host path, item for item
+        (``thrill_tpu/api/ops/groupby.py:64-123``)."""
+        W = shards.num_workers
+        key_fn = self.key_fn
+        owns_input = self.parents[0].node.state == "DISPOSED"
+        t0 = time.perf_counter()
+        # (hash, key, item), the hash and the hashable key made once
+        pre_lists = []
+        for lst in shards.lists:
+            pre = []
+            for it in lst:
+                k = hashing.hashable(key_fn(it))
+                pre.append((hashing.stable_host_hash(k), k, it))
+            pre_lists.append(pre)
+            if owns_input:
+                lst.clear()
+        t1 = time.perf_counter()
+        ex = multiplexer.host_exchange(self.context.mesh_exec,
+                                       HostShards(W, pre_lists),
+                                       lambda t: t[0], reason="groupby")
+        del pre_lists
+        t2 = time.perf_counter()
+        pool = spill_pool(self.context.config.spill_dir, self.mem_limit)
+        stats: dict = {}
+        out = []
+        try:
+            for items in ex.lists:
+                buf = EMGroupBuffer(pool, self.mem_limit,
+                                    stats=stats or None)
+                stats = buf.stats
+                for h, k, it in items:
+                    buf.add(k, it, h=h)
+                items.clear()
+                out.append([self.group_fn(k, vs) for k, vs in buf.groups()])
+                buf.close()
+        finally:
+            disk_bytes = pool.bytes_spilled
+            pool.close()
+        self._em_stats = dict(stats, disk_bytes=disk_bytes)
+        self._host_seconds = {"hash": t1 - t0, "exchange": t2 - t1,
+                              "group": time.perf_counter() - t2}
+        return HostShards(W, out)
 
     def _exchange_by_key_hash(self, shards: DeviceShards) -> DeviceShards:
         W = shards.num_workers
@@ -140,20 +193,10 @@ class GroupByKeyNode(DIABase):
             n = len(items)
             bounds = np.flatnonzero(starts[w, :n]).tolist() + [n]
             lists.append([
-                self.group_fn(_hashable(self.key_fn(items[lo])),
+                self.group_fn(hashing.hashable(self.key_fn(items[lo])),
                               items[lo:hi])
                 for lo, hi in zip(bounds[:-1], bounds[1:])])
         return HostShards(shards.num_workers, lists)
-
-
-def _hashable(k: Any):
-    if isinstance(k, np.ndarray):
-        return tuple(k.tolist())
-    if isinstance(k, np.generic):
-        return k.item()
-    if isinstance(k, tuple):
-        return tuple(_hashable(x) for x in k)
-    return k
 
 
 class GroupToIndexNode(DIABase):

@@ -93,7 +93,8 @@ def host_registers(lists, p: int) -> np.ndarray:
     regs = np.zeros(1 << p, dtype=np.int32)
     for items in lists:
         for it in items:
-            h = hashing.stable_host_hash(_hashable(it))
+            h = hashing.stable_host_hash(
+                hashing.hashable(it, nested=False))
             idx = h >> (64 - p)
             rest = (h << p) & 0xFFFFFFFFFFFFFFFF
             rho = _rho_max(p) if rest == 0 else _clz64(rest) + 1
@@ -109,13 +110,3 @@ def HyperLogLog(dia: DIA, precision: int = 14) -> float:
     else:
         regs = host_registers(shards.lists, p)
     return _estimate(regs, p)
-
-
-def _hashable(it):
-    # not GroupByKey's: the reference's HLL leaves a tuple's elements as
-    # they are, and the hash of a tuple holding an array depends on it
-    if isinstance(it, np.ndarray):
-        return tuple(it.tolist())
-    if isinstance(it, np.generic):
-        return it.item()
-    return it

@@ -15,6 +15,13 @@ table whose row at global position ``g`` has key ``g``; the join is a
 gather of the table's ``[W * rcap]`` rows by the left keys, with no
 sort and no exchange.
 
+On host storage (either side; device items of a mixed pair are demoted)
+each item's key is hashed once with ``stable_host_hash``; the location
+filter keeps the items whose truncated hash the other side holds; both
+sides go to worker ``hash % W``, and each worker joins in a dict of its
+left items by key. A dense right table is enumerated by its dense
+positions.
+
 Not ported: the reference's hinted path (``out_size_hint`` with a
 deferred overflow check), which needs lazily counted shards; the hint is
 accepted and the output is sized from the exact totals.
@@ -33,11 +40,13 @@ from ...common.partition import dense_range_bounds
 from ...core import keys as keymod
 from ...core import preshuffle
 from ...core import segmented
+from ...core.location_detection import _MASK, common_hashes
 from ...core.device_sort import argsort_words
 from ...core.pallas_kernels import presence_fill
 from ...core.rowmove import row_cumsum, scatter_slots, take_rows
-from ...data import exchange
-from ...data.shards import DeviceShards, compact_valid, round_up_pow2
+from ...data import exchange, multiplexer
+from ...data.shards import (DeviceShards, HostShards, compact_valid,
+                            round_up_pow2)
 from ..dia import DIA
 from ..dia_base import DIABase
 from ..stack import call_batched
@@ -66,13 +75,66 @@ class InnerJoinNode(DIABase):
         self.dense_right_index = (None if dense_right_index is None
                                   else int(dense_right_index))
 
-    def compute(self) -> DeviceShards:
-        left = self.pull_device(0)
-        right = self.pull_device(1)
+    def compute(self):
+        left = self.parents[0].pull()
+        right = self.parents[1].pull()
+        if isinstance(left, HostShards) or isinstance(right, HostShards):
+            return self._compute_host(left, right)
         if self.dense_right_index is not None:
             return self._compute_dense(left, right)
         left, right = self._prep_device(left, right)
         return _sort_merge(left, right, self.lkey, self.rkey, self.join_fn)
+
+    # -- host path ---------------------------------------------------------
+    def _compute_host(self, left, right) -> HostShards:
+        """Reference: ``thrill_tpu/api/ops/join.py:89-206``."""
+        if isinstance(left, DeviceShards):
+            left = left.to_host_shards("join-host-path")
+        if isinstance(right, DeviceShards):
+            right = right.to_host_shards("join-host-path")
+        W = left.num_workers
+        mex = self.context.mesh_exec
+        lkey, rkey, jfn = self.lkey, self.rkey, self.join_fn
+        if self.dense_right_index is not None:
+            # the right key is the row's dense position: worker w's first
+            # row sits at dense_range_bounds[w] by the contract
+            bounds = dense_range_bounds(self.dense_right_index, W).tolist()
+            right = HostShards(W, [[(bounds[w] + i, it)
+                                    for i, it in enumerate(items)]
+                                   for w, items in enumerate(right.lists)])
+            rkey = _enum_key
+            inner = jfn
+            jfn = lambda l, r: inner(l, r[1])  # noqa: E731
+        lh = [[hashing.stable_host_hash(_h(lkey(it))) for it in l]
+              for l in left.lists]
+        rh = [[hashing.stable_host_hash(_h(rkey(it))) for it in l]
+              for l in right.lists]
+        ld = self.location_detection
+        if ld is None:
+            ld = preshuffle.auto_location_detect(
+                mex, left.total + right.total, 32,
+                ("join_host", self.lkey, self.rkey), local_rows=True)
+        if ld and W > 1:
+            common = common_hashes(lh, rh)
+            left, lh = _prune(left, lh, common)
+            right, rh = _prune(right, rh, common)
+
+        def shuffle(shards, hs):
+            # items travel with their hash
+            tagged = HostShards(W, [list(zip(hl, items)) for items, hl
+                                    in zip(shards.lists, hs)])
+            ex = multiplexer.host_exchange(mex, tagged, lambda p: p[0] % W,
+                                           reason="join")
+            return [[it for _, it in l] for l in ex.lists]
+
+        out = []
+        for litems, ritems in zip(shuffle(left, lh), shuffle(right, rh)):
+            table: dict = {}
+            for it in litems:
+                table.setdefault(_h(lkey(it)), []).append(it)
+            out.append([jfn(lt, rt) for rt in ritems
+                        for lt in table.get(_h(rkey(rt)), ())])
+        return HostShards(W, out)
 
     # -- sort-merge join -------------------------------------------------
     def _prep_device(self, left: DeviceShards, right: DeviceShards
@@ -134,6 +196,26 @@ class InnerJoinNode(DIABase):
             return DeviceShards(mex, out, counts)
         tree, _ = compact_valid(out, keep)
         return DeviceShards(mex, tree, counts)
+
+
+def _h(k):
+    return hashing.hashable(k, nested=False)
+
+
+def _enum_key(t):
+    """Key of a position-enumerated (g, item) pair (dense host path)."""
+    return t[0]
+
+
+def _prune(shards: HostShards, hashes, common):
+    """The items (and their hashes) whose truncated hash is in
+    ``common``."""
+    items, kept = [], []
+    for lst, hl in zip(shards.lists, hashes):
+        pairs = [(it, h) for it, h in zip(lst, hl) if h & _MASK in common]
+        items.append([it for it, _ in pairs])
+        kept.append([h for _, h in pairs])
+    return HostShards(shards.num_workers, items), kept
 
 
 def _hash_dest(key_fn: Callable, W: int) -> Callable:

@@ -1,9 +1,9 @@
 """PrefixSum / ExPrefixSum (counterpart of the reference package's
 ``api/ops/prefix_sum.py``): each worker's masked cumulative sum plus the
 sum of the earlier workers' totals, leaf by leaf (floats in their dtype,
-integers in int64, as in the reference).
-The reference runs a generic ``fn`` as a sequential fold on host
-storage, which the port does not have."""
+integers in int64, as in the reference). A generic ``fn``, or host
+storage, folds sequentially over the items in global order on the host,
+as the reference does (device input is demoted first)."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ from typing import Any, Callable, Optional
 import torch
 
 from ...common import tree as pt
-from ...data.shards import DeviceShards
+from ...data import multiplexer
+from ...data.shards import DeviceShards, HostShards
 from ..dia import DIA
 from ..dia_base import DIABase
 
@@ -38,21 +39,42 @@ class PrefixSumNode(DIABase):
                  inclusive: bool) -> None:
         super().__init__(ctx, "PrefixSum" if inclusive else "ExPrefixSum",
                          [link])
-        if fn is not None:
-            raise ValueError(
-                f"{self.label}: a custom fn folds on host storage, which the "
-                f"port does not have; the device form sums each leaf")
+        self.fn = fn
         self.initial = initial
         self.inclusive = inclusive
 
-    def compute(self) -> DeviceShards:
-        shards = self.pull_device()
+    def compute(self):
+        shards = self.parents[0].pull()
+        if isinstance(shards, HostShards) or self.fn is not None:
+            if isinstance(shards, DeviceShards):
+                shards = shards.to_host_shards("prefixsum-nonnumeric-op")
+            return self._compute_host(shards)
         if shards.cap == 0:
             return shards
         mask = shards.valid_mask()
         tree = pt.tree_map(lambda l: _scan(l, mask, self.initial,
                                            self.inclusive), shards.tree)
         return DeviceShards(shards.mesh_exec, tree, shards.counts.copy())
+
+    def _compute_host(self, shards: HostShards) -> HostShards:
+        """Reference: ``thrill_tpu/api/ops/prefix_sum.py:82-110``."""
+        mex = self.context.mesh_exec
+        replicated = multiplexer.ensure_replicated(mex, shards,
+                                                   "prefixsum-host")
+        fn = self.fn or (lambda a, b: a + b)
+        out = []
+        acc = self.initial
+        for items in replicated.lists:
+            lst = []
+            for it in items:
+                if self.inclusive:
+                    acc = fn(acc, it)
+                    lst.append(acc)
+                else:
+                    lst.append(acc)
+                    acc = fn(acc, it)
+            out.append(lst)
+        return multiplexer.localize(mex, HostShards(shards.num_workers, out))
 
 
 def PrefixSum(dia: DIA, fn=None, initial: Any = 0, inclusive=True) -> DIA:

@@ -12,10 +12,19 @@ ReduceToIndex range-partitions items by a dense index and folds each
 worker's range: declarative FieldReduce specs as pure scatters (the f32
 "sum" through kernel ``segment_sum``), other reduce functions through
 the sorted engine.
+
+On host storage both run in Python, as the reference's do: ReduceByKey
+combines each worker's items in a dict, hashes each entry once with
+``stable_host_hash``, keeps globally unique keys on their worker when
+duplicate detection is on, exchanges the rest by hash and folds what
+arrives in ``core/em_table.py``'s external-memory table, which spills to
+the spill store past the node's RAM grant. ReduceToIndex folds into one
+dict a worker.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -26,11 +35,14 @@ from ...common import tree as pt
 from ...common.partition import dense_range_bounds
 from ...core import keys as keymod
 from ...core import preshuffle
-from ...core import segmented
+from ...core import duplicate_detection, segmented
+from ...core.em_table import EMReduceTable
 from ...core.pallas_kernels import presence_fill, segment_sum
 from ...core.rowmove import scatter_slots, take_rows
-from ...data import exchange
-from ...data.shards import DeviceShards, compact_valid, round_up_pow2
+from ...data import exchange, multiplexer
+from ...data.block_pool import spill_pool
+from ...data.shards import (DeviceShards, HostShards, compact_valid,
+                            round_up_pow2)
 from ..dia import DIA
 from ..dia_base import DIABase
 from ..functors import FieldReduce
@@ -65,6 +77,10 @@ def _local_reduce(shards: DeviceShards, key_fn: Callable,
 
 
 class ReduceNode(DIABase):
+    # the host post phase sizes its table from the grant (Thrill:
+    # DIAMemUse::Max of ReduceByKey's tables)
+    MEM_USE = "max"
+
     def __init__(self, ctx, link, key_fn: Callable, reduce_fn: Callable,
                  label: str = "ReduceByKey", dup_detection=None,
                  token=None) -> None:
@@ -76,9 +92,11 @@ class ReduceNode(DIABase):
         # reference: DuplicateDetectionTag; None = the cost model decides
         self.dup_detection = dup_detection
 
-    def compute(self) -> DeviceShards:
-        pre = _local_reduce(self.pull_device(), self.key_fn,
-                            self.reduce_fn)
+    def compute(self):
+        shards = self.parents[0].pull()
+        if isinstance(shards, HostShards):
+            return self._compute_host(shards)
+        pre = _local_reduce(shards, self.key_fn, self.reduce_fn)
         if self.context.num_workers == 1:
             # the pre phase combined every key: nothing left to merge
             return pre
@@ -118,6 +136,80 @@ class ReduceNode(DIABase):
 
         return _local_reduce(exchange.exchange(pre, dest), key_fn,
                              self.reduce_fn)
+
+    def _compute_host(self, shards: HostShards) -> HostShards:
+        """The reference's host path, item for item
+        (``thrill_tpu/api/ops/reduce.py:554-669``)."""
+        W = shards.num_workers
+        mex = self.context.mesh_exec
+        key_fn, reduce_fn = self.key_fn, self.reduce_fn
+        owns_input = self.parents[0].node.state == "DISPOSED"
+        t0 = time.perf_counter()
+        # pre phase: each worker combines its equal keys (Thrill's
+        # ReducePrePhase), bounded by its input, which is in RAM already
+        pre_entries = []
+        for lst in shards.lists:
+            table: dict = {}
+            for it in lst:
+                k = key_fn(it)
+                table[k] = reduce_fn(table[k], it) if k in table else it
+            pre_entries.append(list(table.items()))
+            if owns_input:
+                lst.clear()
+        # one hash an entry, carried through detection and the exchange
+        pre_hashes = [[hashing.stable_host_hash(k) for k, _ in entries]
+                      for entries in pre_entries]
+        dup = self.dup_detection
+        if dup is None:
+            dup = preshuffle.auto_dup_detect(
+                mex, sum(len(h) for h in pre_hashes), 32,
+                ("reduce_dup_host", self.token), local_rows=True)
+        non_unique = (duplicate_detection.find_non_unique_hashes(pre_hashes)
+                      if dup and W > 1 else None)
+        # items travel as (worker kept or None, hash, key, value): the
+        # pre phase's key stays the key, whatever reduce_fn returns
+        pre_lists = []
+        for w, entries in enumerate(pre_entries):
+            lst = []
+            for (k, v), h in zip(entries, pre_hashes[w]):
+                keep = w if (non_unique is not None and
+                             duplicate_detection.is_unique(h, non_unique)
+                             ) else None
+                lst.append((keep, h, k, v))
+            entries.clear()
+            pre_lists.append(lst)
+        del pre_entries, pre_hashes
+        t1 = time.perf_counter()
+        ex = multiplexer.host_exchange(
+            mex, HostShards(W, pre_lists),
+            lambda kv: kv[1] % W if kv[0] is None else kv[0],
+            reason="reduce")
+        t2 = time.perf_counter()
+        # post phase: external-memory tables sized by the grant; a spilled
+        # partition re-reduces recursively (Thrill:
+        # core/reduce_by_hash_post_phase.hpp:44-120)
+        pool = spill_pool(self.context.config.spill_dir, self.mem_limit)
+        stats: dict = {}
+        post_lists = []
+        try:
+            for items in ex.lists:
+                t = EMReduceTable(reduce_fn, pool, self.mem_limit,
+                                  stats=stats or None)
+                stats = t.stats
+                for _, h, k, v in items:
+                    t.insert(k, v, h)
+                items.clear()
+                post_lists.append(list(t.emit()))
+                t.close()
+        finally:
+            disk_bytes = pool.bytes_spilled
+            pool.close()
+        # the tables' spills, recursion and peak entries, the bytes the
+        # spill store wrote to disk, and the phases' host seconds
+        self._em_stats = dict(stats, disk_bytes=disk_bytes)
+        self._host_seconds = {"pre": t1 - t0, "exchange": t2 - t1,
+                              "post": time.perf_counter() - t2}
+        return HostShards(W, post_lists)
 
 
 def ReduceByKey(dia: DIA, key_fn: Callable, reduce_fn: Callable,
@@ -272,11 +364,13 @@ class ReduceToIndexNode(DIABase):
 
         return exchange.exchange(shards, dest)
 
-    def compute(self) -> DeviceShards:
-        shards = self.pull_device()
+    def compute(self):
+        shards = self.parents[0].pull()
+        bounds = self._bounds()
+        if isinstance(shards, HostShards):
+            return self._compute_host(shards, bounds)
         mex = shards.mesh_exec
         W = mex.num_workers
-        bounds = self._bounds()
         if W > 1:
             shards = self._exchange_by_index(shards, bounds)
         leaves, td = pt.flatten(shards.tree)
@@ -305,6 +399,23 @@ class ReduceToIndexNode(DIABase):
         return DeviceShards(mex, pt.tree_map(
             lambda l: l.reshape((W, out_cap) + tuple(l.shape[1:])), out),
             local_sizes)
+
+    def _compute_host(self, shards: HostShards,
+                      bounds: np.ndarray) -> HostShards:
+        """One dict a worker range; ``neutral`` at indices no item
+        reached (reference: ``thrill_tpu/api/ops/reduce.py:1166-1181``)."""
+        W = shards.num_workers
+        index_fn, reduce_fn = self.index_fn, self.reduce_fn
+        tables = [dict() for _ in range(W)]
+        for items in shards.lists:
+            for it in items:
+                i = int(index_fn(it))
+                t = tables[int(np.searchsorted(bounds[1:], i, side="right"))]
+                t[i] = reduce_fn(t[i], it) if i in t else it
+        return HostShards(W, [
+            [tables[w].get(i, self.neutral)
+             for i in range(int(bounds[w]), int(bounds[w + 1]))]
+            for w in range(W)])
 
     def _sorted_reduce(self, shards: DeviceShards, bounds: np.ndarray,
                        out_cap: int) -> Any:

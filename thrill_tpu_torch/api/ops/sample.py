@@ -8,6 +8,12 @@ contract, not its draws: BernoulliSample keeps each item with
 probability p, in order; Sample's per-worker takes are the reference's
 for the same seed (the same numpy hypergeometric split), and each
 worker keeps a uniform subset of that size, in order.
+
+On host storage both draw with numpy as the reference does, so they
+keep the reference's items exactly: BernoulliSample one
+``np.random.default_rng(seed)`` across the workers in order, Sample the
+hypergeometric split and then ``rng.choice`` a worker from the same
+generator.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 from ...common.sampling import hypergeometric_split
 from ...core import keys as keymod
 from ...core.device_sort import argsort_words
-from ...data.shards import DeviceShards, compact_valid
+from ...data import multiplexer
+from ...data.shards import DeviceShards, HostShards, compact_valid
 from ..dia import DIA
 from ..dia_base import DIABase
 
@@ -49,8 +56,13 @@ class BernoulliSampleNode(DIABase):
         self.p = float(p)
         self.seed = seed
 
-    def compute(self) -> DeviceShards:
-        shards = self.pull_device()
+    def compute(self):
+        shards = self.parents[0].pull()
+        if isinstance(shards, HostShards):
+            rng = np.random.default_rng(self.seed)
+            return HostShards(shards.num_workers,
+                              [[it for it in items if rng.random() < self.p]
+                               for items in shards.lists])
         mex = shards.mesh_exec
         keep = shards.valid_mask() & (
             worker_uniforms(mex, self.seed, shards.cap) < self.p)
@@ -64,8 +76,10 @@ class SampleNode(DIABase):
         self.k = int(k)
         self.seed = seed
 
-    def compute(self) -> DeviceShards:
-        shards = self.pull_device()
+    def compute(self):
+        shards = self.parents[0].pull()
+        if isinstance(shards, HostShards):
+            return self._compute_host(shards)
         mex = shards.mesh_exec
         cap = shards.cap
         takes = hypergeometric_split(np.random.default_rng(self.seed),
@@ -84,6 +98,20 @@ class SampleNode(DIABase):
         keep = torch.zeros_like(mask).scatter_(1, order, ranked)
         tree, counts = compact_valid(shards.tree, keep & mask)
         return DeviceShards(mex, tree, mex.fetch(counts))
+
+    def _compute_host(self, shards: HostShards) -> HostShards:
+        """Reference: ``thrill_tpu/api/ops/sample.py:70-87``."""
+        rng = np.random.default_rng(self.seed)
+        takes = hypergeometric_split(
+            rng, self.k, multiplexer.global_counts(self.context.mesh_exec,
+                                                   shards))
+        out = []
+        for items, t in zip(shards.lists, takes):
+            idx = (rng.choice(len(items), size=int(t), replace=False)
+                   if len(items) else np.array([], dtype=np.int64))
+            idx.sort()
+            out.append([items[i] for i in idx])
+        return HostShards(shards.num_workers, out)
 
 
 def BernoulliSample(dia: DIA, p: float, seed: int = 0) -> DIA:

@@ -6,6 +6,11 @@ worker whose bound of the target partition holds it (the first DIA's
 partition cut to the output size, or an even split in pad mode). A
 partition that already matches is kept without an exchange. The local
 zip then calls ``zip_fn`` on the batched columns of every worker.
+
+On host storage Zip calls ``zip_fn`` per item over the inputs in global
+order and splits the output evenly; only mixed storage demotes the
+device inputs to host items. ZipWithIndex on host storage calls
+``zip_fn(item, global_index)`` per item.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
-from ...data import exchange
+from ...data import exchange, multiplexer
 from ...data.shards import DeviceShards, HostShards
 from ..dia import DIA
 from ..dia_base import DIABase
@@ -94,8 +99,12 @@ class ZipNode(DIABase):
                 f"Zip: unequal sizes {totals}; use mode='cut' or 'pad'")
         return totals[0]
 
-    def compute(self) -> DeviceShards:
-        pulls = [self.pull_device(i) for i in range(len(self.parents))]
+    def compute(self):
+        pulls = [l.pull() for l in self.parents]
+        if any(isinstance(p, HostShards) for p in pulls):
+            return self._compute_host([
+                p.to_host_shards("zip-mixed-storage")
+                if isinstance(p, DeviceShards) else p for p in pulls])
         mex = pulls[0].mesh_exec
         W = mex.num_workers
         totals = [p.total for p in pulls]
@@ -122,6 +131,35 @@ class ZipNode(DIABase):
         return DeviceShards(mex, call_batched(self.zip_fn, trees, W, cap,
                                               mex.device), counts)
 
+    def _compute_host(self, pulls: List[HostShards]) -> HostShards:
+        """Reference: ``thrill_tpu/api/ops/zip_.py:190-211``."""
+        W = pulls[0].num_workers
+        mex = self.context.mesh_exec
+        pulls = [multiplexer.ensure_replicated(mex, p, "zip-host")
+                 for p in pulls]
+        lists = [[it for l in p.lists for it in l] for p in pulls]
+        n_out = self._out_size([len(l) for l in lists])
+        if self.mode == "pad":
+            # Thrill's ZipPad pads with default-constructed items
+            lists = [l + [_default_item(l)] * (n_out - len(l))
+                     for l in lists]
+        zf = self.zip_fn or (lambda *xs: tuple(xs))
+        zipped = [zf(*vals) for vals in zip(*[l[:n_out] for l in lists])]
+        bounds = dense_range_bounds(n_out, W).tolist()
+        return multiplexer.localize(
+            mex, HostShards(W, [zipped[bounds[w]:bounds[w + 1]]
+                                for w in range(W)]))
+
+
+def _default_item(items):
+    """A zero or default-constructed item of the first item's schema
+    (None for an empty side, which zips nothing)."""
+    if not items:
+        return None
+    return pt.tree_map(lambda l: (np.zeros_like(np.asarray(l))
+                                  if isinstance(l, (np.ndarray, np.generic))
+                                  else type(l)()), items[0])
+
 
 def _zwi_default(it, i):
     return (it, i)
@@ -134,8 +172,17 @@ class ZipWithIndexNode(DIABase):
         super().__init__(ctx, "ZipWithIndex", [link])
         self.zip_fn = zip_fn or _zwi_default
 
-    def compute(self) -> DeviceShards:
-        shards = self.pull_device()
+    def compute(self):
+        shards = self.parents[0].pull()
+        if isinstance(shards, HostShards):
+            # reference: thrill_tpu/api/ops/zip_.py:336-350
+            counts = multiplexer.global_counts(self.context.mesh_exec,
+                                               shards)
+            offsets = np.concatenate([[0], np.cumsum(counts)])
+            return HostShards(shards.num_workers, [
+                [self.zip_fn(it, int(offsets[w]) + i)
+                 for i, it in enumerate(items)]
+                for w, items in enumerate(shards.lists)])
         mex = shards.mesh_exec
         W, cap = shards.num_workers, shards.cap
         g = (mex.put_small(_offsets(shards))[:, None]

@@ -14,7 +14,8 @@ int64 with the same bit pattern (see ``core/keys.py``), so:
 ``h.view(uint64)`` on the host then gives the reference's hash bit for
 bit. :func:`umod` is the unsigned remainder of such a word, which torch's
 signed ``%`` is not. :func:`stable_host_hash` hashes one Python object on
-the host (HyperLogLog's host path).
+the host (the host paths of the reduces, GroupByKey, InnerJoin and
+HyperLogLog), :func:`hashable` makes a key fit a dict and that hash.
 """
 
 from __future__ import annotations
@@ -115,6 +116,21 @@ def stable_host_hash(obj) -> int:
             h = np_mix64(h ^ np.uint64(stable_host_hash(el)))
         return int(h)
     return _fnv1a(repr(obj).encode("utf-8"))
+
+
+def hashable(k, nested: bool = True):
+    """``k`` as a dict key: an ndarray as the tuple of its values, a
+    numpy scalar as the Python number and, with ``nested``, a tuple's
+    elements the same way (GroupByKey's keys; HyperLogLog and the join
+    take a tuple's elements as they are, as the reference does, so a
+    tuple holding an array hashes by its repr there)."""
+    if isinstance(k, np.ndarray):
+        return tuple(k.tolist())
+    if isinstance(k, np.generic):
+        return k.item()
+    if nested and isinstance(k, tuple):
+        return tuple(hashable(x) for x in k)
+    return k
 
 
 def _fnv1a(data: bytes) -> int:

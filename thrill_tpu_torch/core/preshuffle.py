@@ -70,16 +70,20 @@ def _sticky_verdict(mex, kind: str, token, rows_global: int,
     return verdict
 
 
-def auto_dup_detect(mex, rows_global: int, item_bytes: int, token) -> bool:
+def auto_dup_detect(mex, rows_global: int, item_bytes: int, token,
+                    local_rows: bool = False) -> bool:
     """Cost-model verdict for ReduceByKey duplicate detection (one
-    register side)."""
+    register side). ``local_rows`` marks a count of this process's rows
+    (the host paths), which a run of several controllers would sum
+    first; the port runs one controller, whose count is the global
+    one."""
     return _sticky_verdict(mex, "dup", token, rows_global, item_bytes, 1)
 
 
 def auto_location_detect(mex, rows_global: int, item_bytes: int,
-                         token) -> bool:
+                         token, local_rows: bool = False) -> bool:
     """Cost-model verdict for the join's location filter (two register
-    sides)."""
+    sides); ``local_rows`` as for ``auto_dup_detect``."""
     return _sticky_verdict(mex, "ld", token, rows_global, item_bytes, 2)
 
 

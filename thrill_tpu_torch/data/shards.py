@@ -7,8 +7,7 @@ the count are padding whose contents are unspecified unless the maker
 says otherwise (``from_worker_arrays`` and ``zero_beyond_count`` give
 zeros, as the reference's buffers hold; the exchange leaves copies).
 
-HostShards: per-worker Python item lists, for items of any type. Ops
-without a host path call ``require_device``.
+HostShards: per-worker Python item lists, for items of any type.
 """
 
 from __future__ import annotations
@@ -234,18 +233,6 @@ class HostShards:
         empty = pt.tree_map(lambda a: a[:0], template)
         return DeviceShards.from_worker_arrays(
             mesh_exec, [empty if t is None else t for t in per_worker])
-
-
-def require_device(shards, op: str) -> DeviceShards:
-    """``shards`` when they are device shards; host storage raises for
-    the ops whose host path is not ported."""
-    if isinstance(shards, HostShards):
-        raise NotImplementedError(
-            f"{op} of a host-storage DIA is not ported yet: the host paths "
-            f"of the distributed ops and device actions are ROADMAP.md "
-            f"queue A 'Still to port' item 1. ToDevice() first for items "
-            f"of numbers")
-    return shards
 
 
 def from_numpy_shards(tree: Any, counts, device: DeviceLike = None

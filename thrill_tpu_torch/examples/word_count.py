@@ -1,11 +1,12 @@
 """WordCount: the canonical FlatMap + ReduceByKey pipeline (the port's
 copy of the reference package's ``examples/word_count.py``).
 
+    python -m thrill_tpu_torch.examples.word_count FILE --device cpu
     python -m thrill_tpu_torch.examples.word_count FILE --text-device --device cpu
 
-* ``word_count``: the faithful text pipeline over host strings. Its
-  ReduceByKey runs on host storage, which is not ported yet (ROADMAP.md
-  queue A "Still to port" item 1): running it raises.
+* ``word_count``: the faithful text pipeline over host strings; its
+  ReduceByKey runs on host storage, in Python, with the external-memory
+  post table (``core/em_table.py``).
 * ``word_count_text_device``: words tokenized on the device straight
   from the file (``ctx.ReadWordsPacked``), then a device ReduceByKey.
 * ``word_count_fixed``: the same reduce over pre-packed words.
@@ -81,7 +82,8 @@ def main():
     parser.add_argument("--workers", type=int, default=1)
     parser.add_argument("--text-device", action="store_true",
                         help="tokenize and count on the device "
-                             "(word_count_text_device)")
+                             "(word_count_text_device); without it the "
+                             "host pipeline (word_count) counts")
     parser.add_argument("--device", default=None,
                         help="cuda (the default) or cpu")
     args = parser.parse_args()

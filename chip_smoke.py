@@ -139,7 +139,25 @@ Phases, each fatal on failure:
      2^18 string keys (location filter by the verdict, on and off),
      Sample(1024), BernoulliSample(0.01), Sum, Min, Max and AllReduce,
      each equal to a plain Python version, with its host seconds;
- 23. on the inputs the W=4 runs gave the kernels, captured at the call
+ 23. the memory ladder at W=4 (M1-M3): phase 3's 2^24 records kept with
+     their sorted output under a 2.5 GB HBM-governor limit, so caching
+     the output spills the input to the native host block store and
+     pulling it restores it, bit-equal to the upload (the governor's
+     spill must drop memory_allocated by at least the bytes its ledger
+     freed; spill and restore GB/s beside the host link, the warm Sort
+     with and without the limit); phase 6's PageRank under half its unpressured ledger peak
+     (each checked restore byte-equal to what was spilled, the ranks
+     within phase 6's tolerance of the unpressured run's, whose own
+     repeat differs by the order of the f64 atomic adds); the Sort with
+     two cold kept tables and a ballast leaving the card free memory
+     between its measured working set less the cold bytes and that
+     working set, so it runs out of memory inside its compute and the
+     OOM retry spills the cold tables and finishes (oom_retries >= 1),
+     then the same under THRILL_TPU_HBM_LIMIT, where admission spills
+     them first (admission_spills >= 1, no OOM); each Sort equal to
+     np.lexsort, launches counted; the host RAM each needs is checked
+     first;
+ 24. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
      WordCount's, Rebalance's, GroupByKey's, GroupToIndex's sorted int64
@@ -215,6 +233,7 @@ HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
 HO_ITEMS = 1 << 20             # host ops items (str key, int)
 HO_RIGHT = 1 << 18             # host InnerJoin right side
 HO_KEYS = 1 << 20              # host ops key space
+M1_HBM_LIMIT = int(2.5e9)      # M1's governor limit: 1.5 TeraSort tables
 DEVICE = "cuda"
 
 
@@ -611,11 +630,7 @@ def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
     """One TeraSort through the port's API; returns the kernel launches
     of the checked run and the send_counts inputs it made (W > 1)."""
     n = W * PER_WORKER
-    rng = np.random.default_rng(SEED + W)
-    rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
-    recs = {"key": np.ascontiguousarray(rec[:, :10]),
-            "value": np.ascontiguousarray(rec[:, 10:])}
-    del rec
+    recs, order = terasort_records(np, W)
     ctx = tt.Context(num_workers=W, device=DEVICE)
     torch.cuda.synchronize()
     zero_launches(pk, ps)
@@ -642,19 +657,7 @@ def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
     if launches["radix_pass"] != live:
         raise AssertionError(f"W={W} Sort: {launches['radix_pass']} pass "
                              f"launches for {live} live passes")
-    # reference: np.lexsort of the big-endian key words, stable by index
-    kp = np.zeros((n, 16), dtype=np.uint8)
-    kp[:, :10] = recs["key"]
-    kw = kp.view(">u8").astype(np.uint64)
-    del kp
-    order = np.lexsort((kw[:, 1], kw[:, 0]))
-    del kw
-    for leaf in ("key", "value"):
-        got = out[leaf].cpu().numpy()
-        if got.shape != recs[leaf].shape or not np.array_equal(
-                got, recs[leaf][order]):
-            raise AssertionError(f"W={W} TeraSort {leaf} column differs "
-                                 f"from np.lexsort")
+    check_sorted(np, f"W={W} TeraSort", out, recs, order)
     log(f"terasort W={W} n={n}: equal to np.lexsort; {secs:.3f} s "
         f"(first run, host clock, includes Distribute upload); launches "
         f"{json.dumps(launches)}; radix (live, candidate) passes {passes}; "
@@ -686,7 +689,7 @@ def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
             torch.cuda.synchronize()
         log(prof.key_averages().table(sort_by="cuda_time_total",
                                       row_limit=25))
-    return launches, cap.args
+    return launches, cap.args, recs, order
 
 
 class Capture:
@@ -2512,6 +2515,392 @@ def host_ops_phase(torch, np, tt, pk, ps, card: str):
     return launches
 
 
+def host_ram_check(need: int, phase: str) -> None:
+    """Fail a phase whose host bytes (records, spill store, staging) the
+    machine's free RAM cannot hold."""
+    free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    if free < need:
+        raise AssertionError(f"{phase}: needs {need / 1e9:.1f} GB of host "
+                             f"RAM, {free / 1e9:.1f} GB free")
+
+
+def pcie_line() -> tuple:
+    """The host link as nvidia-smi reads it (generation and width, max
+    then current) and its nominal bytes a second each way; where the
+    machine reports neither, the H100 SXM's PCIe Gen5 x16 (data sheet)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max,"
+         "pcie.link.gen.current,pcie.link.width.current",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip().splitlines()[0]
+    vals = [v.strip() for v in out.split(",")]
+    read = [(vals[i], vals[i + 1]) for i in (0, 2)
+            if vals[i].isdigit() and vals[i + 1].isdigit()]
+    gen, width = (int(read[0][0]), int(read[0][1])) if read else (5, 16)
+    src = f"nvidia-smi {out!r}" if read else (f"nvidia-smi {out!r}, so "
+                                              f"the data sheet's")
+    gts = {1: 2.5, 2: 5.0, 3: 8.0, 4: 16.0, 5: 32.0, 6: 64.0}[gen]
+    coding = 0.8 if gen <= 2 else 128 / 130
+    return gen, width, gts * 1e9 * coding * width / 8, src
+
+
+def terasort_records(np, W: int):
+    """Phase 3's W x 2^22 records (10-byte key, 90-byte value) and
+    np.lexsort's order of their big-endian key words, stable by index."""
+    n = W * PER_WORKER
+    rng = np.random.default_rng(SEED + W)
+    rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
+    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+    del rec
+    kp = np.zeros((n, 16), dtype=np.uint8)
+    kp[:, :10] = recs["key"]
+    kw = kp.view(">u8").astype(np.uint64)
+    del kp
+    return recs, np.lexsort((kw[:, 1], kw[:, 0]))
+
+
+def check_sorted(np, label: str, out, recs, order) -> None:
+    """The Sort's columns against the records in ``order`` (or, with
+    ``order`` None, against records already in order)."""
+    for leaf in ("key", "value"):
+        got = out[leaf].cpu().numpy()
+        want = recs[leaf] if order is None else recs[leaf][order]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"{label}: {leaf} column differs from "
+                                 f"np.lexsort")
+
+
+def check_upload(np, label: str, out, recs) -> None:
+    for leaf in ("key", "value"):
+        if not np.array_equal(out[leaf].cpu().numpy(), recs[leaf]):
+            raise AssertionError(f"{label}: restored {leaf} column differs "
+                                 f"from the upload")
+
+
+def mem_spill_restore(torch, np, tt, pk, ps, hbm_mod, recs, srt, card):
+    """M1: the W=4 TeraSort's input and sorted output kept under a 2.5 GB
+    governor limit: caching the output spills the input, pulling the
+    input restores it bit-equal; spill and restore GB/s against the
+    host link; the Sort's warm time with and without the cut budget."""
+    from thrill_tpu_torch.common.config import Config
+    nbytes = sum(v.nbytes for v in recs.values())
+    host_ram_check(4 * nbytes, "M1")
+    gen, width, link, link_src = pcie_line()
+    cut = Config(hbm_limit=M1_HBM_LIMIT)
+    ctx = tt.Context(num_workers=4, device=DEVICE, config=cut)
+    src = ctx.Distribute(recs).Keep()
+    src.Execute()
+    drops = []                  # the governor's own spills, not rung 2's
+    real_spill = ctx.hbm.spill
+
+    def spill(node):
+        torch.cuda.synchronize()
+        before, ledger = torch.cuda.memory_allocated(), ctx.hbm.mem.total
+        real_spill(node)
+        torch.cuda.synchronize()
+        drops.append((before - torch.cuda.memory_allocated(),
+                      ledger - ctx.hbm.mem.total))
+
+    ctx.hbm.spill = spill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(pk, ps)
+    with Timed(torch, hbm_mod.SpilledShards, "park") as park, \
+            Timed(torch, hbm_mod.SpilledShards, "restore") as restore:
+        out = src.Sort(key_fn=lambda r: r["key"]).Keep()
+        out.Execute()
+        spilled_input = type(src.node._shards).__name__ == "SpilledShards"
+        t_spill = park.secs
+        first_drop = drops[0] if drops else (0, 0)
+        back = src.AllGatherArrays()        # restores the input
+        t_restore = restore.secs
+        sorted_ = out.AllGatherArrays()
+        torch.cuda.synchronize()
+    launches = read_launches(pk, ps)
+    st = ctx.overall_stats()
+    if not spilled_input or st["hbm_spills"] < 1 or st["hbm_restores"] < 1:
+        raise AssertionError(f"M1: the input was not spilled and restored: "
+                             f"{st}")
+    if not ctx.hbm._pool.native:
+        raise AssertionError("M1: the native block store did not run")
+    if first_drop[1] <= 0 or first_drop[0] < first_drop[1]:
+        raise AssertionError(f"M1: the governor's spill freed "
+                             f"{first_drop[0]} bytes on the card where its "
+                             f"ledger freed {first_drop[1]}")
+    check_upload(np, "M1", back, recs)
+    check_sorted(np, "M1", sorted_, srt, None)
+    for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+        if launches[name] <= 0:
+            raise AssertionError(f"M1: {name} was not launched")
+    del back, sorted_
+    log(f"M1 spill/restore W=4: {nbytes} bytes a table, governor limit "
+        f"{cut.hbm_limit}; input spilled on caching the output and restored "
+        f"bit-equal, output equal to np.lexsort; hbm_spills "
+        f"{st['hbm_spills']} hbm_restores {st['hbm_restores']} hbm_peak "
+        f"(ledger) {st['hbm_peak']}; governor spills (memory_allocated "
+        f"dropped, ledger freed) {drops}; first spill {t_spill:.4f} s = "
+        f"{nbytes / t_spill / 1e9:.2f} GB/s, first restore {t_restore:.4f} s "
+        f"= {nbytes / t_restore / 1e9:.2f} GB/s, host link PCIe gen {gen} "
+        f"x{width} ({link_src}) nominal {link / 1e9:.2f} GB/s a direction; "
+        f"native store "
+        f"{ctx.hbm._pool.native}; allocator peak "
+        f"{torch.cuda.max_memory_allocated()}; launches "
+        f"{json.dumps(launches)} [{card}]")
+    ctx.close()
+    del src, out, ctx
+    # the Sort's warm time, kept input and kept output, without and with
+    # the cut budget (with it every Sort spills the input and the next
+    # one restores it)
+    warm = {}
+    for name, cfg in (("plain", Config()), ("cut", cut)):
+        c = tt.Context(num_workers=4, device=DEVICE, config=cfg)
+        s_ = c.Distribute(recs).Keep(4)
+        s_.Execute()
+
+        def run():
+            r = s_.Sort(key_fn=lambda r: r["key"]).Keep()
+            r.Execute()
+            r.Dispose()
+
+        run()
+        with Timed(torch, hbm_mod.SpilledShards, "park") as park, \
+                Timed(torch, hbm_mod.SpilledShards, "restore") as restore:
+            secs = warm_seconds(torch, run, 3)
+        warm[name] = (secs, park.secs / 3, restore.secs / 3,
+                      c.overall_stats()["hbm_spills"])
+        c.close()
+        del s_, c
+        torch.cuda.empty_cache()
+    log(f"M1 warm Sort W=4 (kept input and output) seconds: plain "
+        f"{[round(x, 6) for x in warm['plain'][0]]}; cut to "
+        f"{M1_HBM_LIMIT} {[round(x, 6) for x in warm['cut'][0]]}, of it "
+        f"spill {warm['cut'][1]:.4f} s ({nbytes / warm['cut'][1] / 1e9:.2f} "
+        f"GB/s) and restore {warm['cut'][2]:.4f} s "
+        f"({nbytes / warm['cut'][2] / 1e9:.2f} GB/s) a run, "
+        f"{warm['cut'][3]} spills in all (host clock after synchronize) "
+        f"[{card}]")
+    return launches
+
+
+class ParkCheck:
+    """Wraps SpilledShards.park and .restore: the first ``keep`` parked
+    results are cloned on the card first, and each of their restores must
+    give every leaf back byte for byte."""
+
+    def __init__(self, torch, hbm_mod, keep: int = 4) -> None:
+        self.torch, self.cls, self.keep = torch, hbm_mod.SpilledShards, keep
+        self.saved = {}
+        self.exact = self.checked = 0
+
+    @staticmethod
+    def _bytes(torch, leaf):
+        return leaf.reshape(-1).view(torch.uint8)
+
+    def __enter__(self):
+        torch, real_park, real_restore = (self.torch, self.cls.park,
+                                          self.cls.restore)
+        from thrill_tpu_torch.common import tree as pt
+
+        def park(shards, pool, label):
+            clones = ([self._bytes(torch, l).clone()
+                       for l in pt.leaves(shards.tree)]
+                      if len(self.saved) < self.keep else None)
+            out = real_park(shards, pool, label)
+            if clones is not None:
+                self.saved[id(out)] = clones
+            return out
+
+        def restore(spilled):
+            out = real_restore(spilled)
+            clones = self.saved.pop(id(spilled), None)
+            if clones is not None:
+                self.checked += 1
+                self.exact += all(
+                    torch.equal(self._bytes(torch, l), c)
+                    for l, c in zip(pt.leaves(out.tree), clones))
+            return out
+
+        self.cls.park, self.cls.restore = staticmethod(park), restore
+        self.real = (real_park, real_restore)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.park = staticmethod(self.real[0])
+        self.cls.restore = self.real[1]
+        self.saved.clear()
+
+
+def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
+    """M2: PageRank W=4 at phase 6's size under a governor limit of half
+    the unpressured run's ledger peak: every checked restore gives back
+    the spilled bytes exactly, and the ranks agree with the unpressured
+    run's within phase 6's tolerance (two unpressured runs differ by the
+    order of ReduceToIndex's f64 atomic adds, which is printed)."""
+    from thrill_tpu_torch.common.config import Config
+    from thrill_tpu_torch.examples import page_rank as tpr
+    host_ram_check(4 << 30, "M2")
+
+    def run(cfg):
+        ctx = tt.Context(num_workers=4, device=DEVICE, config=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ranks = tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = ctx.overall_stats()
+        ctx.close()
+        return ranks, secs, st
+
+    want, t_plain, st0 = run(Config())
+    want2, t_plain2, _ = run(Config())
+    limit = st0["hbm_peak"] // 2
+    zero_launches(pk, ps)
+    with ParkCheck(torch, hbm_mod) as chk:
+        got, t_cut, st = run(Config(hbm_limit=limit))
+    launches = read_launches(pk, ps)
+    if st["hbm_spills"] < 1 or st["hbm_restores"] < 1:
+        raise AssertionError(f"M2: nothing spilled under {limit}: {st}")
+    if chk.checked < 1 or chk.exact != chk.checked:
+        raise AssertionError(f"M2: {chk.checked - chk.exact} of "
+                             f"{chk.checked} checked restores differ from "
+                             f"the spilled bytes")
+    err = np.abs(got - want)
+    if not (err <= PR_RTOL * want + PR_ATOL).all():
+        raise AssertionError(f"M2: ranks under the cut budget differ from "
+                             f"the unpressured run's: max |diff| "
+                             f"{err.max()}")
+    for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+        if launches[name] <= 0:
+            raise AssertionError(f"M2: {name} was not launched")
+    log(f"M2 pagerank W=4 pages={PAGES} edges={len(edges)} "
+        f"iterations={PR_ITERS}: unpressured ledger peak {st0['hbm_peak']}, "
+        f"limit {limit}: hbm_spills {st['hbm_spills']} hbm_restores "
+        f"{st['hbm_restores']} ledger peak {st['hbm_peak']}; "
+        f"{chk.exact} of {chk.checked} checked restores byte-equal to what "
+        f"was spilled; ranks within {PR_RTOL} of the unpressured run's "
+        f"(max |diff| {err.max():.3g}; two unpressured runs differ by "
+        f"{np.abs(want2 - want).max():.3g}); warm seconds plain "
+        f"{t_plain:.3f}, {t_plain2:.3f}, cut {t_cut:.3f} (host clock after "
+        f"synchronize); launches {json.dumps(launches)} [{card}]")
+    return launches
+
+
+def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
+    """M3: (a) two cold kept tables and a ballast that leaves the card
+    free memory between the Sort's working set less the cold bytes and
+    that working set: the Sort runs out of memory inside its compute and
+    rung 2 spills the cold tables and finishes; (b) the same with
+    THRILL_TPU_HBM_LIMIT past the watermark: admission spills them
+    first and no OOM happens."""
+    nbytes = sum(v.nbytes for v in recs.values())
+    host_ram_check(6 * nbytes, "M3")
+    dev = torch.device(DEVICE)
+
+    def setup():
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        cold = [ctx.Distribute(recs).Keep() for _ in range(2)]
+        inp = ctx.Distribute(recs).Keep(2)
+        for d in cold + [inp]:
+            d.Execute()
+        torch.cuda.synchronize()
+        return ctx, cold, inp
+
+    def sort(inp):
+        out = inp.Sort(key_fn=lambda r: r["key"]).Keep()
+        out.Execute()
+        return out
+
+    # the Sort's working set, measured: the peak of reserved memory over
+    # what stays reserved, allocator cache emptied first
+    ctx, cold, inp = setup()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = torch.cuda.memory_reserved()
+    out = sort(inp)
+    torch.cuda.synchronize()
+    ws = torch.cuda.max_memory_reserved() - r0
+    out.Dispose()
+    ctx.close()
+    del ctx, cold, inp, out
+    torch.cuda.empty_cache()
+    cold_bytes = 2 * nbytes
+    target = ws - min(cold_bytes, ws) // 2
+    results = {}
+    for case in ("a", "b"):
+        if case == "b":
+            # the ledger (three tables) past the 0.85 watermark, under the
+            # governor's own limit
+            os.environ["THRILL_TPU_HBM_LIMIT"] = str(int(3.3 * nbytes))
+        try:
+            ctx, cold, inp = setup()
+        finally:
+            os.environ.pop("THRILL_TPU_HBM_LIMIT", None)
+        drops = []
+        real_spill = ctx.pressure.spill_cold
+
+        def spill_cold(*a, **k):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            freed = real_spill(*a, **k)
+            torch.cuda.synchronize()
+            drops.append((before - torch.cuda.memory_allocated(), freed))
+            return freed
+
+        ctx.pressure.spill_cold = spill_cold
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info(dev)[0]
+        ballast = torch.empty(max(free - target, 0), dtype=torch.uint8,
+                              device=dev)
+        zero_launches(pk, ps)
+        try:
+            t0 = time.perf_counter()
+            out = sort(inp)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches(pk, ps)
+            st = ctx.overall_stats()
+            spilled = [type(c.node._shards).__name__ for c in cold]
+            sort_drops = list(drops)     # the Sort's, not the checks'
+        finally:
+            del ballast
+            torch.cuda.empty_cache()
+        check_sorted(np, f"M3{case}", out.AllGatherArrays(), srt, None)
+        check_upload(np, f"M3{case} cold table", cold[0].AllGatherArrays(),
+                     recs)
+        if case == "a" and (st["oom_retries"] < 1
+                            or st["admission_spills"] != 0):
+            raise AssertionError(f"M3a: the Sort did not run out of memory "
+                                 f"and retry: {st}")
+        if case == "b" and (st["admission_spills"] < 1
+                            or st["oom_retries"] != 0):
+            raise AssertionError(f"M3b: admission did not spill ahead of "
+                                 f"the Sort: {st}")
+        results[case] = launches
+        log(f"M3{case} W=4 ({'real CUDA OOM, rung 2' if case == 'a' else 'THRILL_TPU_HBM_LIMIT, admission'}): "
+            f"Sort working set {ws} bytes (reserved), cold {cold_bytes}, "
+            f"card left with {target} free; Sort {secs:.3f} s, equal to "
+            f"np.lexsort; oom_retries {st['oom_retries']} admission_spills "
+            f"{st['admission_spills']} hbm_spills {st['hbm_spills']} "
+            f"empty_cache calls {ctx.pressure.cache_flushes}; spills "
+            f"(memory_allocated dropped, ledger freed) {sort_drops}, "
+            f"pressure_spilled_bytes {st['pressure_spilled_bytes']}; cold "
+            f"tables after {spilled}; launches {json.dumps(launches)} "
+            f"[{card}]")
+        ctx.close()
+        del ctx, cold, inp, out
+        torch.cuda.empty_cache()
+    return results["a"], results["b"]
+
+
+def mem_phases(torch, np, tt, pk, ps, hbm_mod, recs, order, card):
+    """M1 and M3 on phase 3's records, sorted once for both."""
+    srt = {leaf: recs[leaf][order] for leaf in recs}
+    m1 = mem_spill_restore(torch, np, tt, pk, ps, hbm_mod, recs, srt, card)
+    m3a, m3b = mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card)
+    return m1, m3a, m3b
+
+
 def time_send_counts(torch, pk, label, dest, W):
     """The send-count histogram on one captured ``send_counts`` input (the
     kernel reads it as it is): held against the plain version, then timed
@@ -2667,6 +3056,7 @@ def main() -> int:
     from thrill_tpu_torch.core import pallas_sort as ps
     from thrill_tpu_torch.core import text as text_mod
     from thrill_tpu_torch.data import shards as shards_mod
+    from thrill_tpu_torch.mem import hbm as hbm_mod
 
     card = card_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2682,7 +3072,8 @@ def main() -> int:
     errs = check_kernels(torch, np, pk, ps)
     times = time_kernels(torch, np, pk, ps)
     time_argsort(torch, np)
-    sort4, sc_sort = terasort(torch, np, tt, 4, pk, ps, exchange_mod)
+    sort4, sc_sort, recs4, order4 = terasort(torch, np, tt, 4, pk, ps,
+                                             exchange_mod)
     terasort(torch, np, tt, 1, pk, ps, exchange_mod)
     wc4, pres_args, sc_wc = wordcount(torch, np, tt, 4, pk, ps, reduce_mod,
                                       exchange_mod)
@@ -2733,6 +3124,16 @@ def main() -> int:
     ho4 = host_ops_phase(torch, np, tt, pk, ps, card)
     log(f"host phases (H1-H5): {time.perf_counter() - t_host:.1f} s of host "
         f"clock, the plain versions included [host {cpu_line()}; {card}]")
+    t_mem = time.perf_counter()
+    m1, m3a, m3b = mem_phases(torch, np, tt, pk, ps, hbm_mod, recs4, order4,
+                              card)
+    del recs4, order4
+    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
+    m2 = mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card)
+    del edges
+    log(f"memory phases (M1-M3): {time.perf_counter() - t_mem:.1f} s of "
+        f"host clock, the numpy references included [host {cpu_line()}; "
+        f"{card}]")
     sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr,
                "k-means": sc_km, "WordCount text": sc_wct,
                "Rebalance": sc_rb, "GroupByKey W=4": sc_gb,
@@ -2795,7 +3196,10 @@ def main() -> int:
              "groupbykey W=4": gb4, "grouptoindex W=4": g2i4,
              "merge W=4": mg4, "window W=4": win4, "zipwindow W=4": zw4,
              "hll W=4": hll4, "actions W=4": act4,
-             "host to card W=4": h4, "host ops W=4": ho4}
+             "host to card W=4": h4, "host ops W=4": ho4,
+             "M1 spill/restore W=4": m1, "M2 pagerank cut W=4": m2,
+             "M3a sort OOM retry W=4": m3a,
+             "M3b sort admission W=4": m3b}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -78,6 +78,7 @@ def _fill(pool, n, size=16 << 10):
 def test_block_pool_spills_past_its_soft_limit_and_restores(tmp_path):
     pool = tbp.BlockPool(spill_dir=str(tmp_path), soft_limit=SOFT)
     blocks, ids = _fill(pool, 20)
+    pool.flush()                           # the store spills behind put
     assert pool.mem_usage == SOFT and pool.num_blocks == 20
     names = sorted(os.listdir(tmp_path))
     assert len(names) == 20 - SOFT // (16 << 10)
@@ -105,11 +106,13 @@ def test_block_pool_pins_and_shared_views(tmp_path):
     blocks, ids = _fill(pool, 8)
 
     def on_disk():
+        pool.flush()
         return {int(n.split("-")[4]) for n in os.listdir(tmp_path)}
 
     assert first not in on_disk()          # pinned: never evicted
-    pool.unpin(first)
-    pool.put(b"y" * (16 << 10))
+    pool.unpin(first)                      # the most recently used now
+    for _ in range(SOFT // (16 << 10)):
+        pool.put(b"y" * (16 << 10))
     assert first in on_disk()
     pool.addref(ids[-1])
     pool.release(ids[-1])
@@ -163,6 +166,7 @@ def test_file_writer_and_readers_match_reference(tmp_path, block_items):
     assert list(tf.keep_reader()) == list(jf.keep_reader()) == items
     assert tf.num_items == 100
     if block_items < 100:                  # past the 1 KiB soft limit
+        tpool.flush()
         assert os.listdir(tmp_path)
     assert list(tf.consume_reader()) == items and tf.blocks == []
     assert tpool.num_blocks == 0

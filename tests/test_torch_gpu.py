@@ -1,4 +1,4 @@
-"""The port's CUDA kernels, its Sort and its reduces on the card.
+"""The port's CUDA kernels, its Sort, its reduces and its memory ladder on the card.
 
 Every test here needs a CUDA device and skips without one. The file
 imports neither jax nor the reference package, so it also runs where
@@ -645,3 +645,67 @@ def test_host_reduce_then_a_device_sort_on_the_card(cuda_device, monkeypatch):
     assert list(zip(out["c"].cpu().tolist(), out["h"].cpu().tolist())) == want
     assert tpk.partition_histogram.launches > launches[0]
     assert tps.radix_pass.launches > launches[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_spill_and_restore_of_cuda_leaves_is_bit_equal(cuda_device, W):
+    """A governor limit below one node: caching the second spills the
+    first through pinned staging into the native store, and its next
+    pull uploads it again with every bit as it was (NaN payloads, int64
+    words with the top bit set, bools, byte rows)."""
+    from thrill_tpu_torch.common.config import Config
+    from thrill_tpu_torch.mem.hbm import SpilledShards
+    rng = np.random.default_rng(11)
+    n = 100_003
+    f32 = rng.standard_normal(n).astype(np.float32)
+    f32.view(np.uint32)[::7] = 0x7fc00000 | rng.integers(0, 1 << 22, 14287,
+                                                         dtype=np.uint32)
+    data = {"k": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "f": f32, "d": rng.standard_normal(n),
+            "b": rng.integers(0, 2, n).astype(bool),
+            "r": rng.integers(0, 256, (n, 10)).astype(np.uint8)}
+    ctx = tt.Context(num_workers=W, device=cuda_device,
+                     config=Config(hbm_limit=1 << 20))
+    a = ctx.Distribute(data).Keep(2)
+    a.Execute()
+    b = ctx.Distribute(np.arange(1 << 18, dtype=np.int64)).Keep()
+    b.Execute()
+    assert isinstance(a.node._shards, SpilledShards)
+    assert ctx.hbm._pool.native
+    got = a.AllGatherArrays()
+    assert ctx.hbm.restore_count == 1 and got["k"].device.type == "cuda"
+    for k, want in data.items():
+        assert got[k].cpu().numpy().tobytes() == want.tobytes(), k
+    ctx.close()
+
+
+@pytest.mark.gpu
+def test_a_real_oom_is_cured_by_rung_2(cuda_device):
+    """Two cold 1 GiB results, and a ballast that leaves 2 GiB free: a
+    Generate of 2^28 int64 (2 GiB, plus its 1 GiB index) runs out of card
+    memory inside its compute, rung 2 spills the cold results and runs it
+    again, and everything reads back exact."""
+    ctx = tt.Context(num_workers=2, device=cuda_device)
+    cold = [ctx.Generate(1 << 27).Keep() for _ in range(2)]
+    for c in cold:
+        c.Execute()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info(cuda_device)[0]
+    ballast = torch.empty(free - (2 << 30), dtype=torch.uint8,
+                          device=cuda_device)
+    try:
+        big = ctx.Generate(1 << 28).Keep()
+        big.Execute()
+        s = ctx.overall_stats()
+        assert s["oom_retries"] >= 1 and s["hbm_spills"] == 2
+        assert s["pressure_spilled_bytes"] == 2 << 30
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    assert big.Sum() == (1 << 28) * ((1 << 28) - 1) // 2
+    for c in cold:
+        assert c.Sum() == (1 << 27) * ((1 << 27) - 1) // 2
+    assert ctx.overall_stats()["hbm_restores"] == 2
+    ctx.close()

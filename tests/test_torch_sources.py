@@ -237,9 +237,21 @@ def test_overall_stats_counts_what_the_port_keeps():
     ctx.Distribute([(i % 3, 1) for i in range(50)]).ReducePair(
         "sum").AllGather()
     s = ctx.overall_stats()
+    ref = JContext(JMeshExec(num_workers=4))
+    ref.Distribute([(i % 3, 1) for i in range(50)]).ReducePair(
+        "sum").AllGather()
+    # the reference's names, hbm_peak its governor ledger's peak (nothing
+    # stayed cached here) and not the allocator's
     assert set(s) == {"workers", "nodes_created", "exchanges", "items_moved",
-                      "bytes_moved", "hbm_peak"}
+                      "bytes_moved", "hbm_peak", "hbm_spills",
+                      "hbm_restores", "hbm_high_watermark", "oom_retries",
+                      "segment_splits", "host_fallbacks", "admission_spills",
+                      "pressure_spilled_bytes"}
+    assert set(s) <= set(ref.overall_stats())
     assert s["workers"] == 4 and s["nodes_created"] == 2
     assert s["exchanges"] == 1 and s["items_moved"] > 0
     assert s["bytes_moved"] >= 16 * s["items_moved"]
-    assert s["hbm_peak"] == 0
+    assert s["hbm_peak"] == ref.overall_stats()["hbm_peak"] == 0
+    assert all(s[k] == 0 for k in set(s) - {"workers", "nodes_created",
+                                             "exchanges", "items_moved",
+                                             "bytes_moved"})

@@ -2,7 +2,9 @@
 reference package's ``api/context.py``: no service plane, checkpoints,
 elasticity or host group). Sources take ``storage`` "device" (columnar
 tensors) or "host" (per-worker Python lists); None infers it as the
-reference does."""
+reference does. A Context owns the JSON event log (``logger``), the HBM
+governor (``hbm``, mem/hbm.py) and the memory-pressure ladder
+(``pressure``, mem/pressure.py); ``close()`` frees the spill store."""
 
 from __future__ import annotations
 
@@ -10,10 +12,12 @@ import os
 import sys
 from typing import Any, Callable, List, Optional, Sequence
 
-import torch
-
+from ..common import faults
 from ..common.config import Config
+from ..common.logger import JsonLogger, default_log_path
+from ..mem.hbm import HbmGovernor
 from ..mem.manager import MemoryConfig
+from ..mem.pressure import PressureMonitor
 from ..parallel.mesh import DeviceLike, MeshExec
 
 
@@ -29,6 +33,13 @@ class Context:
         self._next_id = 0
         self._ram_workers: Optional[int] = None
         self._mem_reserved = 0
+        self.logger = JsonLogger(
+            default_log_path(self.config.log_path, host_rank=0),
+            program="thrill_tpu_torch", workers=self.num_workers, host=0)
+        if self.logger.enabled:
+            faults.REGISTRY.set_logger(self.logger.line)
+        self.hbm = HbmGovernor(self, limit=self.config.hbm_limit)
+        self.pressure = PressureMonitor(self.mesh_exec, governor=self.hbm)
 
     @property
     def num_workers(self) -> int:
@@ -125,26 +136,44 @@ class Context:
                                      record_shape)
 
     def overall_stats(self) -> dict:
-        """The counters the port keeps (reference: OverallStats): the
-        mesh's exchange traffic, the nodes created and the peak device
-        bytes (``torch.cuda.max_memory_allocated``; 0 on the CPU)."""
+        """The counters the port keeps, under the reference's names
+        (OverallStats): the mesh's exchange traffic, the nodes created,
+        the HBM governor's ledger peak (``hbm_peak``: the most bytes of
+        cached device results at once, not the allocator's peak), its
+        spills and restores, and the pressure ladder's counters."""
         mex = self.mesh_exec
-        dev = mex.device
         return {
             "workers": self.num_workers,
             "nodes_created": self._next_id,
             "exchanges": mex.stats_exchanges,
             "items_moved": mex.stats_items_moved,
             "bytes_moved": mex.stats_bytes_moved,
-            "hbm_peak": (int(torch.cuda.max_memory_allocated(dev))
-                         if dev.type == "cuda" else 0),
+            "hbm_peak": self.hbm.mem.peak,
+            "hbm_spills": self.hbm.spill_count,
+            "hbm_restores": self.hbm.restore_count,
+            **self.pressure.stats(),
         }
+
+    def close(self) -> None:
+        """Log the stats, detach the log and free the spill store (a
+        spilled result cannot be pulled after this)."""
+        if self.logger.enabled:
+            self.logger.line(event="overall_stats", **self.overall_stats())
+        if faults.REGISTRY._log == self.logger.line:
+            faults.REGISTRY.set_logger(None)
+        self.logger.close()
+        self.hbm.close()
 
 
 def Run(job: Callable[[Context], Any], num_workers: int = 1,
         device: DeviceLike = None) -> Any:
-    """Run ``job`` on a fresh Context of ``num_workers`` workers."""
-    return job(Context(num_workers=num_workers, device=device))
+    """Run ``job`` on a fresh Context of ``num_workers`` workers; the
+    Context is closed when the job ends, however it ends."""
+    ctx = Context(num_workers=num_workers, device=device)
+    try:
+        return job(ctx)
+    finally:
+        ctx.close()
 
 
 def RunLocalTests(job: Callable[[Context], Any],

@@ -6,6 +6,14 @@ parents. A result stays cached on its node until its consume budget is
 spent; ``Keep()`` raises the budget, as the reference's consume counters
 do. A node that declares a ``MEM_USE`` gets a RAM grant,
 ``mem_limit``, for the length of its compute.
+
+Every materialization goes through the memory ladder at the reference's
+points: stage admission before a compute, the compute under the OOM
+retry (``mem/pressure.py``), the HBM governor's ledger after it
+(``hbm.on_cache``), an LRU bump that uploads a spilled result again on a
+cached pull (``hbm.touch``), and ``hbm.on_release`` when a result is
+consumed or disposed (``mem/hbm.py``). Each pull inside a compute is
+memoised for the retry and admitted against the budget.
 """
 
 from __future__ import annotations
@@ -30,12 +38,24 @@ class ParentLink:
     stack: Stack
 
     def pull(self, consume: bool = True) -> Shards:
+        pres = self.node.context.pressure
+        memo = pres.memos[-1] if pres.memos else None
+        if memo is not None:
+            # a retried compute gets what its failed attempt pulled
+            shards = memo.replay(self, consume)
+            if shards is not None:
+                return shards
         shards = self.node.materialize(consume=consume)
-        if not self.stack:
-            return shards
-        if isinstance(shards, HostShards):
-            return apply_stack_host(shards, self.stack)
-        return apply_stack_device(shards, self.stack)
+        if self.stack:
+            if isinstance(shards, HostShards):
+                shards = apply_stack_host(shards, self.stack)
+            else:
+                shards = apply_stack_device(shards, self.stack)
+        if memo is not None:
+            memo.record(self, consume, shards)
+        if pres.enabled:
+            pres.admit(shards)
+        return shards
 
 
 class DIABase:
@@ -71,28 +91,42 @@ class DIABase:
                 f"DIA node {self.label}#{self.id} was consumed/disposed "
                 f"(consume budget exhausted); call .Keep() before reusing "
                 f"a DIA in more than one operation")
+        ctx = self.context
+        hbm = ctx.hbm
         if self._shards is None:
-            ctx = self.context
+            pres = ctx.pressure
+            if pres.enabled:
+                pres.admit_stage(self)
             negotiated = ctx.negotiate_mem(self)
             try:
-                self._shards = self.compute()
+                self._shards = pres.compute(self)
             finally:
                 if negotiated:
                     ctx.release_mem(self)
             self.state = EXECUTED
+            if not (consume and self.consume_budget <= 1):
+                # a result this very pull releases is never worth
+                # spilling a kept one for
+                hbm.on_cache(self)
+        else:
+            hbm.touch(self)
         result = self._shards
         if consume:
             self.consume_budget -= 1
             if self.consume_budget <= 0:
-                self.dispose()
+                self._shards = None
+                self.state = DISPOSED
+                hbm.on_release(self, None)   # the caller owns `result`
         return result
 
     def keep(self, n: int = 1) -> None:
         self.consume_budget += n
 
     def dispose(self) -> None:
+        dropped = self._shards
         self._shards = None
         self.state = DISPOSED
+        self.context.hbm.on_release(self, dropped)
 
     def __repr__(self) -> str:
         return f"<{type(self).__name__} {self.label}#{self.id} {self.state}>"

@@ -31,8 +31,14 @@ class _LoopCarryNode(DIABase):
         self._carry = shards
 
     def compute(self) -> DeviceShards:
-        shards, self._carry = self._carry, None
-        return shards
+        return self._carry
+
+    def materialize(self, consume: bool = False):
+        # the carry goes once the node holds its result (or has handed
+        # it over): a retried compute still finds it
+        out = super().materialize(consume)
+        self._carry = None
+        return out
 
 
 def _carry_dia(ctx, shards: DeviceShards) -> DIA:

@@ -132,8 +132,8 @@ class GroupByKeyNode(DIABase):
                 out.append([self.group_fn(k, vs) for k, vs in buf.groups()])
                 buf.close()
         finally:
-            disk_bytes = pool.bytes_spilled
             pool.close()
+            disk_bytes = pool.bytes_spilled
         self._em_stats = dict(stats, disk_bytes=disk_bytes)
         self._host_seconds = {"hash": t1 - t0, "exchange": t2 - t1,
                               "group": time.perf_counter() - t2}

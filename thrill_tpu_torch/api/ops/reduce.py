@@ -202,8 +202,8 @@ class ReduceNode(DIABase):
                 post_lists.append(list(t.emit()))
                 t.close()
         finally:
-            disk_bytes = pool.bytes_spilled
             pool.close()
+            disk_bytes = pool.bytes_spilled
         # the tables' spills, recursion and peak entries, the bytes the
         # spill store wrote to disk, and the phases' host seconds
         self._em_stats = dict(stats, disk_bytes=disk_bytes)

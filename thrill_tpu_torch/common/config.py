@@ -1,10 +1,13 @@
-"""Runtime configuration, the part the host phases read (counterpart of
-the reference package's ``common/config.py``): the RAM budgets and the
-spill directory, from the environment as the reference reads them.
+"""Runtime configuration (counterpart of the reference package's
+``common/config.py``, the part the port reads): the RAM and HBM
+budgets, the spill directory and the event log, from the environment
+as the reference reads them.
 
     THRILL_TPU_RAM        RAM the operators may split (0 = detect)
     THRILL_TPU_HOST_RAM   host RAM when THRILL_TPU_RAM is unset
+    THRILL_TPU_HBM_LIMIT  budget of the cached device results (0 = none)
     THRILL_TPU_SPILL_DIR  directory of the spill store's files
+    THRILL_TPU_LOG        JSON event-log path pattern (unset = off)
 
 Sizes take SI and IEC suffixes ("64K", "1Gi", "2GB"). The spill
 directory defaults to the temporary directory (``TMPDIR``), not the
@@ -16,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import tempfile
+from typing import Optional
 
 
 def parse_si_iec_units(s: str) -> int:
@@ -44,6 +48,13 @@ def _env_size(name: str) -> int:
     return parse_si_iec_units(v) if v else 0
 
 
+def _env_flag(name: str, default: bool = True) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v not in ("0", "off", "false")
+
+
 @dataclasses.dataclass
 class Config:
     """Host-level configuration of one Context."""
@@ -52,12 +63,19 @@ class Config:
     # the physical RAM)
     ram: int = 0
     host_ram: int = 0
+    # bytes of cached device results before the coldest spill to the
+    # host store (0 = unlimited; mem/hbm.py)
+    hbm_limit: int = 0
     # directory of the spill store's files
     spill_dir: str = dataclasses.field(default_factory=tempfile.gettempdir)
+    # JSON event-log path pattern (None = off; common/logger.py)
+    log_path: Optional[str] = None
 
     @staticmethod
     def from_env() -> "Config":
         return Config(ram=_env_size("THRILL_TPU_RAM"),
                       host_ram=_env_size("THRILL_TPU_HOST_RAM"),
+                      hbm_limit=_env_size("THRILL_TPU_HBM_LIMIT"),
                       spill_dir=(os.environ.get("THRILL_TPU_SPILL_DIR")
-                                 or tempfile.gettempdir()))
+                                 or tempfile.gettempdir()),
+                      log_path=os.environ.get("THRILL_TPU_LOG") or None)

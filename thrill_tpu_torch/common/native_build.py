@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels from source and load them with ctypes.
+"""Build the port's native code from source and load it with ctypes.
 
 Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface (no PyTorch headers, so
@@ -8,6 +8,12 @@ land through a temporary file and a rename, so concurrent builders race
 safely. Nothing is built when a module is imported: the first launch of
 a kernel builds it, and :func:`build_all` builds every source at once,
 one ``nvcc`` process per source, all started together.
+
+Host C++ (``native/<name>.cpp``, the spill store) takes the other
+route, :func:`load_host`: ``g++ -O3 -shared -fPIC -std=c++17 -pthread``
+at first use, named by the source's hash in the same directory. A failed
+host build prints the compiler's message on stderr once, and the caller
+takes its Python version.
 
 The build directory (``thrill_tpu_torch/_build/``) is listed in
 ``.gitignore``.
@@ -20,11 +26,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 CSRC_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                         "csrc"))
+NATIVE_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
+                                          "native"))
 BUILD_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                          "_build"))
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -99,3 +108,39 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(path)
     return lib
+
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+_host_libs: Dict[str, Optional[ctypes.CDLL]] = {}
+
+
+def load_host(name: str) -> Optional[ctypes.CDLL]:
+    """The loaded library of ``native/<name>.cpp``, built with ``g++``
+    first if needed; None (and the compiler's message on stderr, once)
+    when it cannot be built."""
+    with _lock:
+        if name in _host_libs:
+            return _host_libs[name]
+        src = os.path.join(NATIVE_DIR, name + ".cpp")
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+        lib = None
+        try:
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.tmp.{os.getpid()}"
+                proc = subprocess.run(
+                    [shutil.which("g++") or "g++", *HOST_FLAGS, src,
+                     "-o", tmp], capture_output=True, text=True,
+                    timeout=300)
+                if proc.returncode != 0:
+                    raise RuntimeError(proc.stderr or proc.stdout)
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
+        except (OSError, RuntimeError, subprocess.SubprocessError) as e:
+            print(f"thrill_tpu_torch: building native/{name}.cpp failed; "
+                  f"the Python version runs instead:\n{e}",
+                  file=sys.stderr)
+        _host_libs[name] = lib
+        return lib

@@ -1,7 +1,7 @@
-"""Host memory accounting for the external-memory operators
-(counterpart of the reference package's ``mem/manager.py``: the RSS
-probe, the RSS spill trigger and the RAM split; the accounting tree of
-``MemoryManager`` is not ported).
+"""Memory accounting (counterpart of the reference package's
+``mem/manager.py``): the byte counters of ``MemoryManager`` (the HBM
+governor's ledger), the RSS probe, the RSS spill trigger and the RAM
+split.
 
 Reference: thrill/api/context.cpp:1082-1093 splits total RAM into one
 third block pool, one third operator workspace, one third floating heap.
@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
+from typing import Optional
 
 _PAGE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
 
@@ -23,6 +25,41 @@ def process_rss() -> int:
             return int(f.read().split()[1]) * _PAGE
     except (OSError, ValueError, IndexError):
         return 0
+
+
+class MemoryManager:
+    """Thread-safe byte counter with a peak and a limit; a child adds
+    and subtracts through its parents too (Thrill: mem/manager.hpp)."""
+
+    def __init__(self, parent: Optional["MemoryManager"] = None,
+                 name: str = "root", limit: int = 0) -> None:
+        self.parent = parent
+        self.name = name
+        self.limit = limit          # 0 = unlimited
+        self.total = 0
+        self.peak = 0
+        self.allocs = 0
+        self._lock = threading.Lock()
+
+    def add(self, nbytes: int) -> None:
+        with self._lock:
+            self.total += nbytes
+            self.allocs += 1
+            if self.total > self.peak:
+                self.peak = self.total
+        if self.parent is not None:
+            self.parent.add(nbytes)
+
+    def subtract(self, nbytes: int) -> None:
+        with self._lock:
+            self.total -= nbytes
+        if self.parent is not None:
+            self.parent.subtract(nbytes)
+
+    @property
+    def exceeded(self) -> bool:
+        """Over the limit (Thrill's ``memory_exceeded`` flag)."""
+        return self.limit > 0 and self.total > self.limit
 
 
 class RssBudget:

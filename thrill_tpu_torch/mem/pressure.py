@@ -1,0 +1,346 @@
+"""Memory pressure: admission, the OOM classifier and rungs 1-2 of the
+escalation ladder (counterpart of the reference package's
+``mem/pressure.py``; Thrill's operators degrade to external memory
+instead of dying, data/block_pool.hpp:42, api/sort.hpp:679).
+
+1. **Admission.** Before a node computes (:meth:`PressureMonitor.
+   admit_stage`), and after each pull of its inputs (:meth:`admit`, the
+   inputs' bytes times ``est_factor`` standing in for what the compute
+   will make), cold cached results spill until the governor's ledger
+   fits under the watermark fraction of the HBM budget
+   (``event=mem_spill``). The inputs of the computes in flight are
+   never spilled: they stay alive through the compute, so spilling them
+   frees nothing.
+2. **OOM retry** (:meth:`PressureMonitor.compute`). A node's compute
+   that dies with a device OOM spills every cold cached result and runs
+   again under the shared backoff policy (``event=oom_retry``). The
+   port runs eagerly and has no dispatch choke point, so the retry is at
+   node level: while a compute runs, ``ParentLink.pull`` memoises what
+   it returned (:class:`PullMemo`), and the retry gets the same shards
+   back instead of pulling consumed parents again. The second and later
+   retries of one compute also return the caching allocator's free
+   blocks to the driver (``torch.cuda.empty_cache``).
+
+Rungs 3 and 4 (row-range split, host fallback) stand on the fusion
+planner, which the port does not have yet: when rung 2 gives up the OOM
+surfaces, and an outer compute does not retry it again.
+
+The budget is ``THRILL_TPU_HBM_LIMIT``, else the card's total memory
+(``torch.cuda.mem_get_info``), else 0 on the CPU (admission off).
+``THRILL_TPU_OOM_RETRY=0`` takes the ladder away. Injection sites:
+``mem.oom`` (a :class:`SimulatedOom` after a compute that made device
+shards, so its retry replays every pull), ``mem.spill`` and
+``mem.estimate``. A compute that emptied a consumed host input in place
+is not retried.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import traceback
+from typing import Any, List, Optional
+
+import torch
+
+from ..common import faults
+from ..common.retry import RetryPolicy, default_policy
+from ..data.shards import DeviceShards, HostShards
+from .hbm import device_bytes, storages
+
+OOM_KIND = "oom"
+
+#: the fraction of the HBM budget admission keeps the ledger under
+WATERMARK = 0.85
+#: a compute's working set, as a multiple of its inputs' bytes
+EST_FACTOR = 2.0
+
+
+class SimulatedOom(faults.InjectedFault, RuntimeError):
+    """Injected device OOM, with the runtime's RESOURCE_EXHAUSTED text."""
+
+    def __init__(self, site: str, kind: str = OOM_KIND) -> None:
+        faults.InjectedFault.__init__(self, site, kind)
+        self.args = (f"RESOURCE_EXHAUSTED: injected out of memory "
+                     f"at site '{site}'",)
+
+
+_F_OOM = faults.declare("mem.oom", kind=OOM_KIND, exc=SimulatedOom)
+_F_SPILL = faults.declare("mem.spill")
+_F_EST = faults.declare("mem.estimate")
+
+# the allocation-failure texts of the runtimes; narrow on purpose
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "RESOURCE EXHAUSTED",
+                "Out of memory", "out of memory",
+                "Failed to allocate", "failed to allocate",
+                "Attempting to allocate")
+
+
+def is_oom_error(exc: BaseException) -> bool:
+    """Is this a device or allocator out-of-memory failure? A
+    ``torch.OutOfMemoryError`` is, by its type. Any other CUDA error is
+    not, whatever its text: it leaves the context unusable, so a retry
+    could only fail again."""
+    if isinstance(exc, SimulatedOom):
+        return True
+    if isinstance(exc, torch.OutOfMemoryError):
+        return True
+    if isinstance(exc, faults.InjectedFault):
+        return False
+    if isinstance(exc, MemoryError):
+        return True
+    if not isinstance(exc, (RuntimeError, ValueError, OSError)):
+        return False
+    msg = str(exc)
+    if "CUDA error" in msg or type(exc).__name__ == "AcceleratorError":
+        return False
+    return any(m in msg for m in _OOM_MARKERS)
+
+
+def retry_enabled() -> bool:
+    """``THRILL_TPU_OOM_RETRY=0`` takes the whole ladder away."""
+    return os.environ.get("THRILL_TPU_OOM_RETRY", "1") not in (
+        "0", "off", "false")
+
+
+def detect_hbm_budget(device: Optional[torch.device] = None) -> int:
+    """The HBM budget in bytes: ``THRILL_TPU_HBM_LIMIT``, else the
+    card's total memory on a ``cuda`` mesh, else 0 (admission off)."""
+    env = os.environ.get("THRILL_TPU_HBM_LIMIT")
+    if env:
+        from ..common.config import parse_si_iec_units
+        try:
+            return parse_si_iec_units(env)
+        except (ValueError, TypeError):
+            print(f"thrill_tpu_torch: bad THRILL_TPU_HBM_LIMIT={env!r}; "
+                  f"ignoring", file=sys.stderr)
+    if device is not None and device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[1])
+    return 0
+
+
+class PullMemo:
+    """The shards one compute pulled, in order: a retry of the compute
+    gets them back instead of pulling consumed parents again."""
+
+    def __init__(self) -> None:
+        self.pulls: List[tuple] = []      # (key, shards)
+        self.cursor = 0
+        # a host input whose parent is gone may have been emptied in
+        # place by the compute (the host reduce and group do): a retry
+        # would read it wrong
+        self.host_consumed = False
+
+    @staticmethod
+    def key(link, consume: bool) -> tuple:
+        return (link.node.id, consume, len(link.stack))
+
+    def rewind(self) -> None:
+        self.cursor = 0
+
+    def replay(self, link, consume: bool):
+        """The shards of the pull at the cursor when it is this one."""
+        if self.cursor < len(self.pulls):
+            key, shards = self.pulls[self.cursor]
+            if key == self.key(link, consume):
+                self.cursor += 1
+                return shards
+        return None
+
+    def record(self, link, consume: bool, shards) -> None:
+        if isinstance(shards, HostShards) and link.node.state == "DISPOSED":
+            self.host_consumed = True
+        if self.cursor == len(self.pulls):
+            self.pulls.append((self.key(link, consume), shards))
+            self.cursor += 1
+
+    def storages(self) -> set:
+        out: set = set()
+        for _, shards in self.pulls:
+            out |= storages(shards)
+        return out
+
+
+class _OomRetryPolicy(RetryPolicy):
+    """The shared policy with a device OOM as its one transient class."""
+
+    def classify(self, exc: BaseException) -> str:
+        return faults.TRANSIENT if is_oom_error(exc) else faults.PERMANENT
+
+
+def _drop_frames(exc: BaseException) -> None:
+    """Free the locals of a failed compute's frames: the traceback would
+    keep its device tensors alive through the retry."""
+    if exc.__traceback__ is not None:
+        traceback.clear_frames(exc.__traceback__)
+
+
+class PressureMonitor:
+    """A Context's memory-pressure state: the budget, the watermark, the
+    ladder and its counters."""
+
+    def __init__(self, mesh_exec, governor) -> None:
+        self.mex = mesh_exec
+        self.governor = governor
+        self.budget = detect_hbm_budget(mesh_exec.device)
+        self.watermark = WATERMARK
+        self.enabled = self.budget > 0
+        self.est_factor = EST_FACTOR
+        self.oom_retries = 0
+        self.segment_splits = 0         # rung 3: not ported
+        self.host_fallbacks = 0         # rung 4: not ported
+        self.admission_spills = 0
+        self.spilled_bytes = 0
+        self.high_watermark = 0         # most (ledger + estimate) seen
+        self.cache_flushes = 0          # empty_cache calls of rung 2
+        # the memos of the computes in flight, innermost last
+        self.memos: List[PullMemo] = []
+
+    # -- rung 1: admission ----------------------------------------------
+    def _limit(self) -> int:
+        return int(self.budget * self.watermark)
+
+    def admit_stage(self, node) -> None:
+        """Before ``node`` computes: bring the ledger under the
+        watermark."""
+        live = self.governor.mem.total
+        if live > self.high_watermark:
+            self.high_watermark = live
+        if live <= self._limit():
+            return
+        self._admission_spill(live - self._limit(), node.label,
+                              live=live, exclude=node.id)
+
+    def admit(self, shards) -> None:
+        """After a pull: the pulled bytes times ``est_factor`` is what
+        the compute is about to need; spill cold results until the
+        ledger plus that fits under the watermark."""
+        try:
+            if faults.REGISTRY.active():
+                faults.check(_F_EST)
+            est = int(device_bytes(shards) * self.est_factor)
+        except Exception as e:
+            faults.note("recovery", what="mem.estimate_skipped",
+                        error=repr(e)[:200])
+            return
+        live = self.governor.mem.total
+        if live + est > self.high_watermark:
+            self.high_watermark = live + est
+        if live + est <= self._limit():
+            return
+        self._admission_spill(live + est - self._limit(), "pull",
+                              live=live, estimate=est,
+                              exclude_storage=storages(shards))
+
+    def _admission_spill(self, need: int, label: str, **detail) -> None:
+        exclude = detail.pop("exclude", None)
+        extra = detail.pop("exclude_storage", set())
+        try:
+            freed = self.spill_cold(need=need, exclude=exclude,
+                                    exclude_storage=extra)
+        except Exception as e:
+            faults.note("recovery", what="mem.pressure_spill_skipped",
+                        error=repr(e)[:200])
+            return
+        if freed:
+            faults.note("mem_spill", freed=freed, budget=self.budget,
+                        node=label, **detail)
+
+    def spill_cold(self, need: Optional[int] = None,
+                   exclude: Optional[int] = None,
+                   exclude_storage: Optional[set] = None,
+                   admission: bool = True) -> int:
+        """Spill the coldest cached results until ``need`` bytes left the
+        ledger or nothing cold is left; never a result whose storage is
+        an input of a compute in flight (or in ``exclude_storage``).
+        ``admission=False`` (rung 2) counts the bytes but not an
+        admission spill. Returns the bytes freed."""
+        freed = self.governor.spill_coldest(
+            need=need, exclude=exclude, exclude_storage=exclude_storage,
+            before=lambda node: faults.check(_F_SPILL, node=node.label))
+        if freed:
+            if admission:
+                self.admission_spills += 1
+            self.spilled_bytes += freed
+        return freed
+
+    # -- rung 2: OOM retry ----------------------------------------------
+    def compute(self, node) -> Any:
+        """``node.compute()`` with its pulls memoised, retried after a
+        device OOM (see the module)."""
+        memo = PullMemo()
+        self.memos.append(memo)
+        try:
+            try:
+                return self._attempt(node, memo)
+            except Exception as e:
+                if (not retry_enabled() or not is_oom_error(e)
+                        or getattr(e, "_ladder_done", False)):
+                    raise
+                if memo.host_consumed:
+                    e._ladder_done = True
+                    raise
+                return self._recover(node, memo, e)
+        finally:
+            self.memos.remove(memo)
+
+    @staticmethod
+    def _attempt(node, memo: PullMemo) -> Any:
+        memo.rewind()
+        out = node.compute()
+        if isinstance(out, DeviceShards) and faults.REGISTRY.active():
+            # the injected OOM stands for the device work of the compute
+            faults.check(_F_OOM, node=node.label)
+        return out
+
+    def _recover(self, node, memo: PullMemo, exc: BaseException) -> Any:
+        shared = default_policy()
+        if (shared.max_attempts <= 1
+                or os.environ.get("THRILL_TPU_RETRY", "1") == "0"):
+            exc._ladder_done = True
+            raise exc
+        policy = _OomRetryPolicy(max_attempts=shared.max_attempts - 1,
+                                 base_delay_s=shared.base_delay_s,
+                                 max_delay_s=shared.max_delay_s)
+        state = {"last": exc, "tries": 0}
+        dev = self.mex.device
+
+        def attempt():
+            _drop_frames(state["last"])
+            try:
+                freed = self.spill_cold(exclude=node.id, admission=False)
+            except Exception as e:
+                faults.note("recovery", what="mem.pressure_spill_skipped",
+                            error=repr(e)[:200])
+                freed = 0
+            if state["tries"] and dev.type == "cuda":
+                torch.cuda.empty_cache()
+                self.cache_flushes += 1
+            state["tries"] += 1
+            self.oom_retries += 1
+            faults.note("oom_retry", freed=freed, node=node.label,
+                        error=repr(state["last"])[:200])
+            try:
+                out = self._attempt(node, memo)
+            except Exception as e:
+                state["last"] = e
+                raise
+            faults.note("recovery", what="mem.oom", _quiet=True)
+            return out
+
+        try:
+            return policy.run(attempt, what="mem.oom_retry")
+        except Exception as e:
+            if is_oom_error(e):
+                e._ladder_done = True
+            raise
+
+    def stats(self) -> dict:
+        return {
+            "hbm_high_watermark": self.high_watermark,
+            "oom_retries": self.oom_retries,
+            "segment_splits": self.segment_splits,
+            "host_fallbacks": self.host_fallbacks,
+            "admission_spills": self.admission_spills,
+            "pressure_spilled_bytes": self.spilled_bytes,
+        }

@@ -5,6 +5,7 @@ streams (counterpart of the reference package's ``vfs/file_io.py``).
 into a FileList with exclusive size prefix sums, which split byte
 ranges over workers. Streams decompress ``.gz``, ``.bz2`` and ``.xz``
 by suffix. ``OpenReadStream`` is a plain demand reader.
+``prefetch_depth`` is the readahead depth the spill restores read.
 
 Waiting in ROADMAP.md queue A "Still to port" item 6: the ``s3://``,
 ``hdfs://`` and ``http(s)://`` schemes (they raise here), the retrying
@@ -24,6 +25,15 @@ from typing import IO, List, Optional
 COMPRESSED_SUFFIXES = (".gz", ".bz2", ".xz")
 
 _REMOTE = ("s3", "hdfs", "http", "https")
+
+
+def prefetch_depth() -> int:
+    """``THRILL_TPU_PREFETCH``: blocks a readahead keeps in flight ahead
+    of its consumer (default 4; 0 reads on demand)."""
+    try:
+        return max(0, int(os.environ.get("THRILL_TPU_PREFETCH", "4") or 4))
+    except ValueError:
+        return 4
 
 
 @dataclasses.dataclass

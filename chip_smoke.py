@@ -40,7 +40,8 @@ Phases, each fatal on failure:
      ReduceToIndex, Iterate; f64) over zipf_graph(2^22 pages, 2^24 edges),
      10 iterations at W=4: every page within 1e-9 of its rank plus 1e-18
      of a numpy version (np.bincount in place of np.add.at); Sum(), Min()
-     and Max() of the ranks against numpy; B1 and B2 launched; peak and
+     and Max() of the ranks against numpy; B1, B2 and the ordered fold
+     launched, the fold's last inputs captured (f64 sums); peak and
      current device memory after iterations 2 and 10 (flat within 2 %);
      first-run and warm times and a profiler table; then W=1 at 3
      iterations;
@@ -56,8 +57,10 @@ Phases, each fatal on failure:
      cluster, AllGatherArrays, a jit_cached update, Iterate with a tensor
      carry; f64) over 2^24 normal points x 8 dims, k = 10, 10 iterations
      at W=4: centers within 1e-9 x (1 + |c|) of a numpy Lloyd with the
-     same distance formula, every iteration's label counts equal; one B1,
-     one upsweep and one pass an iteration; items exchanged, peak memory
+     same distance formula, every iteration's label counts equal; two B1,
+     two upsweeps and two passes an iteration (the range exchange and the
+     ordered fold's grouping), two ordered folds (sums and counts, f64),
+     whose last inputs are captured; items exchanged, peak memory
      after iterations 2 and 10 (flat), warm times, a profiler table, the
      card's idle share and a host profile; then W=1 at 3 iterations;
   9. select_kth at W=4 (2^24 int64 values in [0, 2^40), k = n/2; Sample's
@@ -138,7 +141,12 @@ Phases, each fatal on failure:
      PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^20 x
      2^18 string keys (location filter by the verdict, on and off),
      Sample(1024), BernoulliSample(0.01), Sum, Min, Max and AllReduce,
-     each equal to a plain Python version, with its host seconds;
+     each equal to a plain Python version, with its host seconds; H6 the
+     host Sort's external-memory path at W=4 over 2^22 lines
+     "{key:010d}\t{i:08d}payload\n" by their first ten characters, runs
+     of 2^18 spilled through a store that keeps 64 MiB in RAM: equal to
+     Python's sorted(), the native key engine, columnar records, 16 runs,
+     its _em_stats printed;
  23. the memory ladder at W=4 (M1-M3): phase 3's 2^24 records kept with
      their sorted output under a 2.5 GB HBM-governor limit, so caching
      the output spills the input to the native host block store and
@@ -147,8 +155,8 @@ Phases, each fatal on failure:
      freed; spill and restore GB/s beside the host link, the warm Sort
      with and without the limit); phase 6's PageRank under half its unpressured ledger peak
      (each checked restore byte-equal to what was spilled, the ranks
-     within phase 6's tolerance of the unpressured run's, whose own
-     repeat differs by the order of the f64 atomic adds); the Sort with
+     bit-equal to the unpressured run's, which is bit-equal to its own
+     repeat: the f64 sums fold in operand order); the Sort with
      two cold kept tables and a ballast leaving the card free memory
      between its measured working set less the cold bytes and that
      working set, so it runs out of memory inside its compute and the
@@ -157,7 +165,16 @@ Phases, each fatal on failure:
      them first (admission_spills >= 1, no OOM); each Sort equal to
      np.lexsort, launches counted; the host RAM each needs is checked
      first;
- 24. on the inputs the W=4 runs gave the kernels, captured at the call
+ 24. the ordered fold's other call sites at W=4 over 2^22 items {"k":
+     int64 Zipf over 2^16, "v": f64, "w": f32 [3]}: ReduceByKey's
+     FieldReduce sums and GroupByKey's device_fn segment_sum, each run
+     twice, bit-equal, within tolerance of np.bincount, the fold
+     launched; then ordered_segment_sum on every captured input
+     (PageRank's, k-means' sums and counts, these sites'): two launches
+     bit-equal to each other and to the plain version on the CPU, timed
+     beside the plain version, one index_add_ of the same rows and the
+     bound, with the hottest run's rows;
+ 25. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
      WordCount's, Rebalance's, GroupByKey's, GroupToIndex's sorted int64
@@ -176,6 +193,13 @@ Phases, each fatal on failure:
 
 also saves those captured inputs to DIR/main_inputs.pt, for
 ``kernel_times.py --inputs DIR`` to time other versions of the kernels on.
+
+    python3 chip_smoke.py --m1-compare DIR
+
+runs only phase 23's M1 of the tree at DIR (a copy of an earlier commit
+with its own chip_smoke.py) and of this one, in turns (DIR, this, this,
+DIR), each in a process of its own, and prints their spill and restore
+GB/s as "M1 before" and "M1 after" lines.
 
 Exits non-zero without a result line when no CUDA device is present or
 the port's sources are not beside this script.
@@ -234,6 +258,11 @@ HO_ITEMS = 1 << 20             # host ops items (str key, int)
 HO_RIGHT = 1 << 18             # host InnerJoin right side
 HO_KEYS = 1 << 20              # host ops key space
 M1_HBM_LIMIT = int(2.5e9)      # M1's governor limit: 1.5 TeraSort tables
+OF_ITEMS = 1 << 22             # the ordered fold's ReduceByKey/GroupByKey
+OF_KEYS = 1 << 16              # items, Zipf keys over OF_KEYS
+H6_LINES = 1 << 22             # H6: lines of the host EM sort
+H6_RUN = 1 << 18               # THRILL_TPU_HOST_SORT_RUN: 16 runs
+H6_RESIDENT = "64M"            # THRILL_TPU_SPILL_RESIDENT: runs reach disk
 DEVICE = "cuda"
 
 
@@ -720,18 +749,40 @@ class Capture:
 
 
 def zero_launches(pk, ps) -> None:
+    from thrill_tpu_torch.core import ordered_fold as of
     for k in (pk.partition_histogram, ps.radix_upsweep, ps.radix_pass,
-              ps.stable_partition_offsets, pk.segment_sum, pk.presence_fill):
+              ps.stable_partition_offsets, pk.segment_sum, pk.presence_fill,
+              of.ordered_segment_sum):
         k.launches = 0
 
 
 def read_launches(pk, ps) -> dict:
+    from thrill_tpu_torch.core import ordered_fold as of
     return {"partition_histogram": pk.partition_histogram.launches,
             "radix_upsweep": ps.radix_upsweep.launches,
             "radix_pass": ps.radix_pass.launches,
             "stable_partition_offsets": ps.stable_partition_offsets.launches,
             "segment_sum": pk.segment_sum.launches,
-            "presence_fill": pk.presence_fill.launches}
+            "presence_fill": pk.presence_fill.launches,
+            "ordered_segment_sum": of.ordered_segment_sum.launches}
+
+
+class FoldCapture(Capture):
+    """Keeps the last arguments of the ordered fold where ``module``
+    calls it, one set per (trailing shape, dtype) of the values: a
+    k-means iteration folds its sums [T, 8] and its counts [T]."""
+
+    def __init__(self, module, name: str = "ordered_segment_sum") -> None:
+        super().__init__(module, name, keep_all=False)
+        self.by_shape = {}
+
+    def __enter__(self):
+        def call(*args):
+            v = args[0]
+            self.by_shape[(tuple(v.shape[1:]), str(v.dtype)[6:])] = args
+            return self.inner(*args)
+        setattr(self.module, self.name, call)
+        return self
 
 
 def vocabulary(torch, gen):
@@ -975,21 +1026,24 @@ def pagerank(torch, np, tt, W: int, iters: int, edges, pk, ps):
                   torch.cuda.memory_allocated())
         return out
 
+    from thrill_tpu_torch.api.ops import reduce as reduce_mod
     ctx = tt.Context(num_workers=W, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches(pk, ps)
     tpr.Iterate = iterate
     try:
-        t0 = time.perf_counter()
-        got = tpr.page_rank(ctx, edges, PAGES, iters)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
+        with FoldCapture(reduce_mod) as cap_fold:
+            t0 = time.perf_counter()
+            got = tpr.page_rank(ctx, edges, PAGES, iters)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
     finally:
         tpr.Iterate = real_iterate
     launches = read_launches(pk, ps)
     if W > 1:
-        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass",
+                     "ordered_segment_sum"):
             if launches[name] <= 0:
                 raise AssertionError(f"{name} was not launched on the W={W} "
                                      f"PageRank path")
@@ -1041,7 +1095,7 @@ def pagerank(torch, np, tt, W: int, iters: int, edges, pk, ps):
             tt.Context(num_workers=W, device=DEVICE), edges, PAGES, iters))
     host_profile(torch, f"pagerank W={W}", lambda: tpr.page_rank(
         tt.Context(num_workers=W, device=DEVICE), edges, PAGES, iters))
-    return launches
+    return launches, cap_fold.by_shape
 
 
 def q3_np(np, orders, lineitem, cutoff: int = 1250):
@@ -1225,13 +1279,15 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
                   torch.cuda.memory_allocated())
         return out
 
+    from thrill_tpu_torch.api.ops import reduce as reduce_mod
     ctx = tt.Context(num_workers=W, device=DEVICE)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches(pk, ps)
     tkm.Iterate, tkm._center_update = iterate, update
     try:
-        with Capture(exchange_mod, "send_counts", keep_all=False) as cap_sc:
+        with Capture(exchange_mod, "send_counts", keep_all=False) as cap_sc, \
+                FoldCapture(reduce_mod) as cap_fold:
             t0 = time.perf_counter()
             got = tkm.k_means(ctx, pts, KM_K, iters)
             torch.cuda.synchronize()
@@ -1253,11 +1309,16 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
                              f"numpy: {got_counts} vs {want_counts}")
     if W > 1:
         # one range exchange an iteration: its send counts (B1), and one
-        # upsweep and one pass (the destination's 3 bits are one digit)
-        for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
-            if launches[name] != iters:
+        # upsweep and one pass (the destination's 3 bits are one digit);
+        # the ordered fold's grouping of the rows by cluster: B1 for the
+        # run counts, one upsweep and one pass (4 bits), then the fold of
+        # the sums and of the counts (both f64)
+        for name in ("partition_histogram", "radix_upsweep", "radix_pass",
+                     "ordered_segment_sum"):
+            if launches[name] != 2 * iters:
                 raise AssertionError(f"W={W} k-means: {launches[name]} "
-                                     f"{name} launches, expected {iters}")
+                                     f"{name} launches, expected "
+                                     f"{2 * iters}")
         if stats["exchanges"] != iters:
             raise AssertionError(f"W={W} k-means: {stats['exchanges']} "
                                  f"exchanges, expected {iters}")
@@ -1293,7 +1354,7 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
         f"median {med:.3f} s: {1 - busy / 1e3 / med:.4f} [{card}]")
     if W > 1:
         host_profile(torch, f"k-means W={W}", run)
-    return launches, cap_sc.args
+    return launches, cap_sc.args, cap_fold.by_shape
 
 
 def select_kth_phase(torch, np, tt, pk, ps, card: str):
@@ -2702,11 +2763,11 @@ class ParkCheck:
                                           self.cls.restore)
         from thrill_tpu_torch.common import tree as pt
 
-        def park(shards, pool, label):
+        def park(shards, pool, label, **kw):
             clones = ([self._bytes(torch, l).clone()
                        for l in pt.leaves(shards.tree)]
                       if len(self.saved) < self.keep else None)
-            out = real_park(shards, pool, label)
+            out = real_park(shards, pool, label, **kw)
             if clones is not None:
                 self.saved[id(out)] = clones
             return out
@@ -2734,9 +2795,9 @@ class ParkCheck:
 def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
     """M2: PageRank W=4 at phase 6's size under a governor limit of half
     the unpressured run's ledger peak: every checked restore gives back
-    the spilled bytes exactly, and the ranks agree with the unpressured
-    run's within phase 6's tolerance (two unpressured runs differ by the
-    order of ReduceToIndex's f64 atomic adds, which is printed)."""
+    the spilled bytes exactly, and the ranks are bit-equal to the
+    unpressured run's, whose repeat is bit-equal too (the f64 sums fold
+    in operand order)."""
     from thrill_tpu_torch.common.config import Config
     from thrill_tpu_torch.examples import page_rank as tpr
     host_ram_check(4 << 30, "M2")
@@ -2765,12 +2826,16 @@ def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
         raise AssertionError(f"M2: {chk.checked - chk.exact} of "
                              f"{chk.checked} checked restores differ from "
                              f"the spilled bytes")
-    err = np.abs(got - want)
-    if not (err <= PR_RTOL * want + PR_ATOL).all():
+    # the f64 sums fold in operand order: every run gives the same bits
+    if not np.array_equal(want2.view(np.uint64), want.view(np.uint64)):
+        raise AssertionError(f"M2: two unpressured runs differ: max |diff| "
+                             f"{np.abs(want2 - want).max()}")
+    if not np.array_equal(got.view(np.uint64), want.view(np.uint64)):
         raise AssertionError(f"M2: ranks under the cut budget differ from "
                              f"the unpressured run's: max |diff| "
-                             f"{err.max()}")
-    for name in ("partition_histogram", "radix_upsweep", "radix_pass"):
+                             f"{np.abs(got - want).max()}")
+    for name in ("partition_histogram", "radix_upsweep", "radix_pass",
+                 "ordered_segment_sum"):
         if launches[name] <= 0:
             raise AssertionError(f"M2: {name} was not launched")
     log(f"M2 pagerank W=4 pages={PAGES} edges={len(edges)} "
@@ -2778,9 +2843,8 @@ def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
         f"limit {limit}: hbm_spills {st['hbm_spills']} hbm_restores "
         f"{st['hbm_restores']} ledger peak {st['hbm_peak']}; "
         f"{chk.exact} of {chk.checked} checked restores byte-equal to what "
-        f"was spilled; ranks within {PR_RTOL} of the unpressured run's "
-        f"(max |diff| {err.max():.3g}; two unpressured runs differ by "
-        f"{np.abs(want2 - want).max():.3g}); warm seconds plain "
+        f"was spilled; ranks bit-equal to the unpressured run's, and the "
+        f"two unpressured runs bit-equal; warm seconds plain "
         f"{t_plain:.3f}, {t_plain2:.3f}, cut {t_cut:.3f} (host clock after "
         f"synchronize); launches {json.dumps(launches)} [{card}]")
     return launches
@@ -3001,6 +3065,201 @@ def time_segment_sum(torch, pk, label, ids, vals, segs):
     return row, err
 
 
+def time_ordered_fold(torch, label, values, order, offsets):
+    """ordered_segment_sum on one captured input: two launches bit-equal
+    to each other and to the plain version on the CPU, then timed beside
+    the plain version on the card, one index_add_ of the same rows into
+    the same runs (the atomics the fold replaced) and the bound (values,
+    order and offsets read once, the sums written once; one add a value
+    and column). The hottest run's rows are one chain of dependent adds,
+    a floor of its own. Returns the row."""
+    from thrill_tpu_torch.core import ordered_fold as of
+    got = [of.ordered_segment_sum(values, order, offsets) for _ in range(2)]
+    want = of.ordered_segment_sum(values.cpu(), None if order is None
+                                  else order.cpu(), offsets.cpu())
+    for g in got:
+        if g.cpu().numpy().tobytes() != want.numpy().tobytes():
+            raise AssertionError(f"ordered_segment_sum differs from its "
+                                 f"plain version on the {label} input")
+    del got, want
+    S = offsets.shape[0] - 1
+    T = values.shape[0]
+    C = values[0].numel() if T else 1
+    lengths = offsets[1:] - offsets[:-1]
+    hot = int(lengths.max()) if S else 0
+    # each row's run for the index_add_: the rows outside every run (the
+    # dropped ids) go to a dump row S
+    seg = torch.full((T,), S, dtype=torch.int64, device=values.device)
+    runs = torch.repeat_interleave(torch.arange(S, device=values.device),
+                                   lengths)
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    seg[order[lo:hi] if order is not None else
+        torch.arange(lo, hi, device=values.device)] = runs
+    acc = torch.zeros((S + 1,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    esz = values.element_size()
+    nbytes = (T * C * esz + (0 if order is None else T * 8) + (S + 1) * 8
+              + S * C * esz)
+    b, by = bound(nbytes, T * C)
+    row = dict(
+        ms=cuda_ms(torch, lambda: of.ordered_segment_sum(values, order,
+                                                         offsets)),
+        plain_ms=cuda_ms(torch, lambda: of.ordered_segment_sum_plain(
+            values, order, offsets)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: acc.index_add_(0, seg, values)),
+        hottest_run_rows=hot, max_abs_err=0.0)
+    log(f"time ordered_segment_sum on the {label} input: {T} rows x {C} "
+        f"{str(values.dtype)[6:]}, {S} runs, "
+        f"{'through an order' if order is not None else 'runs in place'}; "
+        f"bit-equal to the plain version on the CPU, twice: "
+        + json.dumps(row))
+    return row
+
+
+def time_folds(torch, label, by_shape):
+    """:func:`time_ordered_fold` on every input captured on one path."""
+    return {f"{label} {dt}{list(shape)}": time_ordered_fold(
+        torch, f"{label} {dt}{list(shape)}", *args)
+        for (shape, dt), args in by_shape.items()}
+
+
+def ordered_fold_sites(torch, np, tt, pk, ps, card):
+    """The ordered fold's two other call sites at W=4 over OF_ITEMS
+    items {"k": int64 Zipf over OF_KEYS, "v": f64, "w": f32 [3]}:
+    ReduceByKey's FieldReduce sums (the runs in place after the key
+    sort) and GroupByKey's device_fn segment_sum (the rows grouped by
+    the radix engine). Each runs twice: both runs bit-equal, the f64
+    sums within 1e-9 of the largest of np.bincount's, the f32 ones within
+    SEG_RTOL of each key's sum of |w| plus SEG_ATOL, the fold launched. Returns each
+    site's launches and captured fold inputs."""
+    from thrill_tpu_torch.core import ordered_fold as of
+    from thrill_tpu_torch.core import segmented as seg_mod
+    W = 4
+    rng = np.random.default_rng(SEED + 60)
+    p = 1.0 / np.arange(1, OF_KEYS + 1)
+    data = {"k": rng.choice(OF_KEYS, size=OF_ITEMS, p=p / p.sum()).astype(
+        np.int64), "v": rng.standard_normal(OF_ITEMS) * 1e6,
+        "w": rng.standard_normal((OF_ITEMS, 3)).astype(np.float32)}
+    want_v = np.bincount(data["k"], weights=data["v"], minlength=OF_KEYS)
+    want_w, abs_w = (np.stack([np.bincount(
+        data["k"], weights=f(data["w"][:, j]).astype(np.float64),
+        minlength=OF_KEYS) for j in range(3)], 1) for f in (lambda x: x,
+                                                            np.abs))
+
+    def rbk():
+        return tt.Context(num_workers=W, device=DEVICE).Distribute(
+            data).ReduceByKey(lambda r: r["k"], tt.FieldReduce(
+                {"k": "first", "v": "sum", "w": "sum"})).AllGatherArrays()
+
+    def gbk():
+        def device_fn(t, seg, nseg):
+            return {"k": seg_mod.segment_max(t["k"], seg, nseg),
+                    "v": seg_mod.segment_sum(t["v"], seg, nseg),
+                    "w": seg_mod.segment_sum(t["w"], seg, nseg)}
+        return tt.Context(num_workers=W, device=DEVICE).Distribute(
+            data).GroupByKey(lambda r: r["k"],
+                             device_fn=device_fn).AllGatherArrays()
+
+    out = {}
+    # GroupByKey's fold is captured where segment_sum calls ordered_fold
+    # (values, ids, segments), and its rows grouped after the run
+    for label, run, name in (("ReduceByKey W=4", rbk, "ordered_segment_sum"),
+                             ("GroupByKey W=4 segment_sum", gbk,
+                              "ordered_fold")):
+        zero_launches(pk, ps)
+        with FoldCapture(seg_mod, name) as cap:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first = run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = read_launches(pk, ps)
+        second = run()
+        k = first["k"].cpu().numpy()
+        for leaf in ("v", "w"):
+            a, b = first[leaf].cpu().numpy(), second[leaf].cpu().numpy()
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{label}: two runs differ in {leaf}")
+            # f64 within 1e-9 of the largest sum; f32 within SEG_RTOL of
+            # each key's sum of |w| plus SEG_ATOL
+            want = (want_v if leaf == "v" else want_w)[k]
+            tol = (1e-9 * (1 + np.abs(want_v).max()) if leaf == "v" else
+                   SEG_RTOL * abs_w[k] + SEG_ATOL)
+            if not (np.abs(a - want) <= tol).all():
+                raise AssertionError(f"{label}: {leaf} differs from "
+                                     f"np.bincount")
+        if launches["ordered_segment_sum"] <= 0:
+            raise AssertionError(f"{label}: the ordered fold was not "
+                                 f"launched")
+        log(f"ordered fold {label}: {OF_ITEMS} items, {len(k)} keys; f64 "
+            f"and f32[3] sums bit-equal in two runs, within 1e-9 (f64) and "
+            f"{SEG_RTOL} of the sum of |w| (f32) of np.bincount; first run {secs:.3f} s (host clock after "
+            f"synchronize); launches {json.dumps(launches)} [{card}]")
+        if name == "ordered_fold":
+            cap.by_shape = {k: (v, *of.group_rows(ids, segs))
+                            for k, (v, ids, segs) in cap.by_shape.items()}
+        out[label] = (launches, cap.by_shape)
+    return out
+
+
+def host_em_sort_phase(torch, np, tt, pk, ps, card):
+    """H6: the host Sort's external-memory path at W=4: H6_LINES lines
+    ``"{key:010d}\t{i:08d}payload\n"`` (keys random below 10^10), sorted
+    by their first ten characters under THRILL_TPU_HOST_SORT_RUN=H6_RUN
+    and THRILL_TPU_SPILL_RESIDENT=H6_RESIDENT in a temporary spill
+    directory: equal to Python's stable sorted, with the native key
+    engine, columnar records and 16 runs."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.common.config import Config
+    host = f"host {cpu_line()}; card idle; {card}"
+    rng = np.random.default_rng(SEED + 400)
+    keys = rng.integers(0, 10 ** 10, H6_LINES).tolist()
+    lines = [f"{k:010d}\t{i:08d}payload\n" for i, k in enumerate(keys)]
+    del keys
+    nbytes = sum(map(len, lines))
+    host_ram_check(12 * nbytes, "H6")
+    spill_dir = tempfile.mkdtemp(prefix="h6_spill_")
+    try:
+        with EnvSet(THRILL_TPU_HOST_SORT_RUN=str(H6_RUN),
+                    THRILL_TPU_SPILL_RESIDENT=H6_RESIDENT):
+            ctx = tt.Context(num_workers=4, device=DEVICE,
+                             config=Config(spill_dir=spill_dir))
+            src = ctx.Distribute(lines, storage="host")
+            zero_launches(pk, ps)
+            t0 = time.perf_counter()
+            node = src.Sort(key_fn=lambda s: s[:10]).node
+            got = node.materialize()
+            secs = time.perf_counter() - t0
+            launches = read_launches(pk, ps)
+            st = dict(node._em_stats)
+            counts = [len(l) for l in got.lists]
+            flat = [it for l in got.lists for it in l]
+            del got
+            ctx.close()
+        t0 = time.perf_counter()
+        want = sorted(lines, key=lambda s: s[:10])
+        py_secs = time.perf_counter() - t0
+        if flat != want:
+            raise AssertionError("H6: the EM sort differs from sorted()")
+        if (st["engine"] != "native" or st["records_blocks"] <= 0
+                or st["runs"] != -(-H6_LINES // H6_RUN)):
+            raise AssertionError(f"H6: the EM sort did not run its native "
+                                 f"path over {-(-H6_LINES // H6_RUN)} runs:"
+                                 f" {st}")
+        left = os.listdir(spill_dir)
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    log(f"H6 em sort W=4: {H6_LINES} lines, {nbytes} bytes, by the first "
+        f"ten characters, THRILL_TPU_HOST_SORT_RUN={H6_RUN} "
+        f"THRILL_TPU_SPILL_RESIDENT={H6_RESIDENT}: equal to sorted() "
+        f"({py_secs:.3f} s); Sort {secs:.3f} s (host clock); worker counts "
+        f"{counts}; _em_stats {json.dumps(st)}; spill files left "
+        f"{len(left)}; launches {json.dumps(launches)} [{host}]")
+    return launches
+
+
 def time_presence_fill(torch, pk, label, h, valid, regs):
     """presence_fill on one captured input (the call site's int64
     register ids from hashing.umod): held against the plain version, then
@@ -3036,12 +3295,63 @@ def time_presence_fill(torch, pk, label, h, valid, regs):
     return row
 
 
+M1_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import chip_smoke as cs
+import thrill_tpu_torch as tt
+from thrill_tpu_torch.core import pallas_kernels as pk, pallas_sort as ps
+from thrill_tpu_torch.mem import hbm as hbm_mod
+recs, order = cs.terasort_records(np, 4)
+srt = {leaf: recs[leaf][order] for leaf in recs}
+cs.mem_spill_restore(torch, np, tt, pk, ps, hbm_mod, recs, srt,
+                     cs.card_line())
+"""
+
+
+def m1_compare(other: str) -> int:
+    """M1 of the tree at ``other`` (its chip_smoke.py and package) and of
+    this one, in turns: other, this, this, other, each in a process of
+    its own; prints each run's first spill and restore GB/s and its warm
+    cut Sort's, as "M1 before" (other) and "M1 after" (this) lines."""
+    import re
+    here = os.path.dirname(os.path.abspath(__file__))
+    other = os.path.abspath(other)
+    pat = re.compile(r"first spill ([\d.]+) s = ([\d.]+) GB/s, first "
+                     r"restore ([\d.]+) s = ([\d.]+) GB/s")
+    warm = re.compile(r"spill [\d.]+ s \(([\d.]+) GB/s\) and restore "
+                      r"[\d.]+ s \(([\d.]+) GB/s\)")
+    for tag, tree in (("before", other), ("after", here), ("after", here),
+                      ("before", other)):
+        proc = subprocess.run([sys.executable, "-c", M1_CHILD, tree],
+                              capture_output=True, text=True, timeout=900)
+        out = proc.stdout
+        if proc.returncode != 0:
+            print(out + proc.stderr, file=sys.stderr)
+            raise AssertionError(f"M1 of {tree} failed")
+        m, w = pat.search(out), warm.search(out)
+        if m is None or w is None or "restored bit-equal" not in out:
+            raise AssertionError(f"M1 of {tree} printed no spill line")
+        log(f"M1 {tag} ({tree}): first spill {m.group(2)} GB/s "
+            f"({m.group(1)} s), first restore {m.group(4)} GB/s "
+            f"({m.group(3)} s); warm cut Sort's spill {w.group(1)} GB/s, "
+            f"restore {w.group(2)} GB/s a run; restores bit-equal")
+        for line in out.splitlines():
+            if line.startswith("M1 spill/restore"):
+                log(f"  {line}")
+    log(f"card: {card_line()}")
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--m1-compare" in sys.argv:
+        return m1_compare(sys.argv[sys.argv.index("--m1-compare") + 1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
@@ -3081,7 +3391,9 @@ def main() -> int:
     step4, seg_args, sc_pr = pagerank_step(torch, np, tt, pk, ps, reduce_mod,
                                            exchange_mod)
     edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
-    pr4 = pagerank(torch, np, tt, 4, PR_ITERS, edges, pk, ps)
+    pr4, fold_pr = pagerank(torch, np, tt, 4, PR_ITERS, edges, pk, ps)
+    fold_rows = time_folds(torch, "PageRank W=4", fold_pr)
+    del fold_pr
     pagerank(torch, np, tt, 1, 3, edges, pk, ps)
     del edges
     tables = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
@@ -3089,8 +3401,10 @@ def main() -> int:
     tpch(torch, np, tt, 1, tables, pk, ps, join_mod)
     del tables
     pts = np.random.default_rng(SEED + 50).normal(size=(KM_POINTS, KM_DIM))
-    km4, sc_km = kmeans(torch, np, tt, 4, KM_ITERS, pts, pk, ps,
-                        exchange_mod, card)
+    km4, sc_km, fold_km = kmeans(torch, np, tt, 4, KM_ITERS, pts, pk, ps,
+                                 exchange_mod, card)
+    fold_rows.update(time_folds(torch, "k-means W=4", fold_km))
+    del fold_km
     kmeans(torch, np, tt, 1, 3, pts, pk, ps, exchange_mod, card)
     del pts
     sk4 = select_kth_phase(torch, np, tt, pk, ps, card)
@@ -3122,7 +3436,8 @@ def main() -> int:
     h4, sc_h4 = host_wordcount_phases(torch, np, tt, pk, ps, exchange_mod,
                                       card)
     ho4 = host_ops_phase(torch, np, tt, pk, ps, card)
-    log(f"host phases (H1-H5): {time.perf_counter() - t_host:.1f} s of host "
+    h6 = host_em_sort_phase(torch, np, tt, pk, ps, card)
+    log(f"host phases (H1-H6): {time.perf_counter() - t_host:.1f} s of host "
         f"clock, the plain versions included [host {cpu_line()}; {card}]")
     t_mem = time.perf_counter()
     m1, m3a, m3b = mem_phases(torch, np, tt, pk, ps, hbm_mod, recs4, order4,
@@ -3134,6 +3449,9 @@ def main() -> int:
     log(f"memory phases (M1-M3): {time.perf_counter() - t_mem:.1f} s of "
         f"host clock, the numpy references included [host {cpu_line()}; "
         f"{card}]")
+    sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
+    for label, (_, by_shape) in sites.items():
+        fold_rows.update(time_folds(torch, label, by_shape))
     sc_args = {"Sort": sc_sort, "WordCount": sc_wc, "PageRank step": sc_pr,
                "k-means": sc_km, "WordCount text": sc_wct,
                "Rebalance": sc_rb, "GroupByKey W=4": sc_gb,
@@ -3182,7 +3500,19 @@ def main() -> int:
             source="thrill_tpu_torch/csrc/presence_fill.cu",
             replaces="thrill_tpu/core/pallas_kernels.py:239",
             launches=wc4["presence_fill"]),
+        # no TPU kernel: it stands for XLA's ordered scatter-add, which
+        # the reference's ReduceToIndex float sums lower to
+        "ordered_segment_sum": dict(
+            source="thrill_tpu_torch/csrc/ordered_segment_sum.cu",
+            replaces="thrill_tpu/api/ops/reduce.py:921",
+            launches=km4["ordered_segment_sum"]),
     }
+    km_rows = [k for k in fold_rows if k.startswith("k-means W=4 float64[8]")]
+    times["ordered_segment_sum"] = {
+        k: v for k, v in fold_rows[km_rows[0]].items()
+        if k not in ("hottest_run_rows", "max_abs_err")}
+    errs["ordered_segment_sum"] = 0.0
+    main_inputs["ordered_segment_sum"] = fold_rows
     # and on every W=4 path, each counted from zero
     paths = {"Sort W=4": sort4, "WordCount W=4": wc4,
              "PageRank step W=4": step4, "pagerank W=4": pr4,
@@ -3197,6 +3527,8 @@ def main() -> int:
              "merge W=4": mg4, "window W=4": win4, "zipwindow W=4": zw4,
              "hll W=4": hll4, "actions W=4": act4,
              "host to card W=4": h4, "host ops W=4": ho4,
+             "H6 em sort W=4": h6,
+             **{f"ordered fold {k}": v[0] for k, v in sites.items()},
              "M1 spill/restore W=4": m1, "M2 pagerank cut W=4": m2,
              "M3a sort OOM retry W=4": m3a,
              "M3b sort admission W=4": m3b}

@@ -7,6 +7,8 @@ slices), ``data/block_pool.py`` (spill to disk and restore under a
 ``mem/manager.py`` and the Context's memory grants."""
 
 import os
+import pickle
+import struct
 
 import numpy as np
 import pytest
@@ -64,8 +66,13 @@ def test_serialize_batch_writes_the_references_bytes(name, monkeypatch):
 
 
 def test_a_columnar_payload_is_refused_by_name():
+    """The columnar kind reads since the host Sort's spill came; a kind
+    neither package writes is refused by name."""
     data = jser.serialize_batch([("word", 1), ("more", 2)])
-    with pytest.raises(ValueError, match="only raw and pickled"):
+    assert tser.deserialize_batch(data) == [("word", 1), ("more", 2)]
+    header = pickle.dumps((7, None, 2))
+    data = struct.pack("<I", len(header)) + header + b"\0" * 8
+    with pytest.raises(ValueError, match="only raw, pickled and columnar"):
         tser.deserialize_batch(data)
 
 

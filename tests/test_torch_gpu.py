@@ -709,3 +709,89 @@ def test_a_real_oom_is_cured_by_rung_2(cuda_device):
         assert c.Sum() == (1 << 27) * ((1 << 27) - 1) // 2
     assert ctx.overall_stats()["hbm_restores"] == 2
     ctx.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("cols", [(), (3,), (8,), (40,)])
+@pytest.mark.parametrize("ordered", [True, False])
+def test_ordered_segment_sum_matches_the_cpu_bit_for_bit(cuda_device, dtype,
+                                                         cols, ordered):
+    """Runs of every length (empty, one warp's, many block tiles: the
+    hottest holds a third of the rows), read through an order or in
+    place, give the CPU's sequential bits, and the same bits twice. The
+    halves' sums stay finite: a NaN made on the card (inf - inf) has
+    another sign bit than the CPU's (ROADMAP.md, fault C9)."""
+    from thrill_tpu_torch.core import ordered_fold as tof
+    rng = np.random.default_rng(len(cols) + ordered)
+    n, segs = 200_000, 3000
+    p = 1.0 / np.arange(1, segs + 1) ** 1.3
+    ids = rng.choice(segs, size=n, p=p / p.sum())
+    half = dtype in (torch.float16, torch.bfloat16)
+    mag = (-3, 1) if half else (-6, 7)
+    vals = torch.as_tensor(rng.standard_normal((n,) + cols) * 10.0 **
+                           rng.integers(*mag, (n,) + cols)).to(dtype)
+    if ordered:
+        order, offs = tof.group_rows(torch.as_tensor(ids), segs)
+    else:
+        order = None
+        offs = torch.as_tensor(np.concatenate(
+            [[0], np.cumsum(np.bincount(ids, minlength=segs))]))
+    want = tof.ordered_segment_sum(vals, order, offs)
+    dev = [None if t is None else t.to(cuda_device)
+           for t in (vals, order, offs)]
+    launches = tof.ordered_segment_sum.launches
+    got = [tof.ordered_segment_sum(*dev) for _ in range(2)]
+    assert tof.ordered_segment_sum.launches == launches + 2
+    for g in got:
+        assert g.dtype == dtype and g.shape == want.shape
+        assert g.cpu().view(torch.uint8).numpy().tobytes() == \
+            want.view(torch.uint8).numpy().tobytes()
+
+
+def _float_sum_site(site, ctx, data):
+    from thrill_tpu_torch.core import segmented as tseg
+    FR = tt.FieldReduce
+    spec = {"d": "first", "v": "sum", "w": "sum", "x": "sum"}
+    if site == "reduce_to_index":
+        return ctx.Distribute(data).ReduceToIndex(
+            lambda c: c["d"], FR(spec), 5000).AllGatherArrays()
+    if site == "reduce_by_key":
+        return ctx.Distribute(data).ReduceByKey(
+            lambda c: c["d"], FR(spec)).AllGatherArrays()
+
+    def device_fn(tree, seg, nseg):
+        return {k: tseg.segment_sum(tree[k], seg, nseg)
+                for k in ("v", "w", "x")}
+    return ctx.Distribute(data).GroupByKey(
+        lambda r: r["d"], device_fn=device_fn).AllGatherArrays()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("site", ["reduce_to_index", "reduce_by_key",
+                                  "segment_sum"])
+@pytest.mark.parametrize("W", [1, 4])
+def test_float_sums_on_the_card_are_the_cpus_bits_run_after_run(
+        cuda_device, site, W):
+    """ReduceToIndex's, ReduceByKey's and GroupByKey's float sums (f64
+    scalars, f64 [8], f32 [3]: every sum outside B3) launch the ordered
+    fold, and two runs on the card give the CPU's bits."""
+    from thrill_tpu_torch.core import ordered_fold as tof
+    rng = np.random.default_rng(W)
+    n = 1 << 18
+    p = 1.0 / np.arange(1, 4001)
+    data = {"d": rng.choice(4000, size=n, p=p / p.sum()).astype(np.int64),
+            "v": rng.standard_normal(n) * 1e8,
+            "w": rng.standard_normal((n, 8)),
+            "x": rng.standard_normal((n, 3)).astype(np.float32)}
+    want = _float_sum_site(site, tt.Context(num_workers=W, device="cpu"),
+                           data)
+    for _ in range(2):
+        launches = tof.ordered_segment_sum.launches
+        got = _float_sum_site(site, tt.Context(num_workers=W,
+                                               device=cuda_device), data)
+        assert tof.ordered_segment_sum.launches > launches
+        for k in ("v", "w", "x"):
+            assert got[k].cpu().numpy().tobytes() == \
+                want[k].numpy().tobytes(), k

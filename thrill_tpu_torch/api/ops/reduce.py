@@ -37,6 +37,7 @@ from ...core import keys as keymod
 from ...core import preshuffle
 from ...core import duplicate_detection, segmented
 from ...core.em_table import EMReduceTable
+from ...core.ordered_fold import group_rows, ordered_segment_sum
 from ...core.pallas_kernels import presence_fill, segment_sum
 from ...core.rowmove import scatter_slots, take_rows
 from ...data import exchange, multiplexer
@@ -273,7 +274,9 @@ def _scatter_reduce_apply(tree: Any, pos: torch.Tensor, size: int, specs,
     ``size`` for an item outside its worker's range, which is dropped
     into a slot of its own. "first" takes the item of least arrival (an
     ``amin`` scatter of positions), "sum" adds (f32 scalar leaves through
-    the segment-sum kernel), "min"/"max" scatter-reduce. Untouched rows
+    the segment-sum kernel, other float leaves in operand order through
+    the ordered fold, integers by ``index_add_``), "min"/"max"
+    scatter-reduce. Untouched rows
     hold ``neutral`` (zero when None). Returns ``[size, ...]`` leaves.
     """
     leaves, td = pt.flatten(tree)
@@ -281,7 +284,13 @@ def _scatter_reduce_apply(tree: Any, pos: torch.Tensor, size: int, specs,
     dev = pos.device
     keep = pos < size
     flat = scatter_slots(pos[None], keep[None], size)       # [T]
-    win = None
+    win = grouped = None
+
+    def runs():
+        nonlocal grouped
+        if grouped is None:
+            grouped = group_rows(pos, size)
+        return grouped
 
     def winners():
         nonlocal win
@@ -305,6 +314,9 @@ def _scatter_reduce_apply(tree: Any, pos: torch.Tensor, size: int, specs,
             if leaf.dtype == torch.float32 and not trail:
                 col = segment_sum(pos.to(torch.int32)[None],
                                   leaf.contiguous()[None], size)[0]
+            elif leaf.dtype.is_floating_point:
+                # in operand order, as the reference's scatter adds
+                col = ordered_segment_sum(leaf, *runs())
             else:
                 col = torch.zeros((size + T,) + trail, dtype=leaf.dtype,
                                   device=dev).index_add_(0, flat,

@@ -1,7 +1,8 @@
 """Distributed sample sort (counterpart of the reference package's
 ``api/ops/sort.py``). Host storage, and a ``compare_fn`` on any storage,
-sort the items in memory on the host; device storage takes the sample
-sort below.
+sort the items on the host: in memory up to a run's size, else by the
+external-memory sort (``SortNode._em_sort``: sorted runs spilled to the
+block store and merged); device storage takes the sample sort below.
 
 All W workers run each phase as one batched program over ``[W, cap]``
 tensors; only (validity, key words, global index) go through the sort
@@ -26,12 +27,16 @@ sorted across worker ranks and stable, row for row the reference's.
 from __future__ import annotations
 
 import functools
+import os
+import pickle
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from ...common import tree as pt
+from ...common.partition import dense_range_bounds
 from ...core import keys as keymod
 from ...core.device_sort import argsort_words
 from ...core.rowmove import take_rows, take_rows_multi
@@ -80,6 +85,10 @@ def _lex_greater(words: torch.Tensor, gidx: torch.Tensor,
 
 
 class SortNode(DIABase):
+    # an external-memory operator: it asks for all the RAM it can get
+    # (Thrill: DIAMemUse::Max, api/sort.hpp)
+    MEM_USE = "max"
+
     def __init__(self, ctx, link, key_fn: Optional[Callable],
                  compare_fn: Optional[Callable] = None) -> None:
         super().__init__(ctx, "Sort", [link])
@@ -96,20 +105,393 @@ class SortNode(DIABase):
             return self._compute_host(shards.to_host_shards("sort-compare-fn"))
         return _device_sample_sort(shards, self.key_fn)
 
+    # above this many items the host path sorts external-memory style:
+    # sorted runs spilled to Files and k-way merged (Thrill:
+    # SortAndWriteToFile and PartialMultiwayMerge, api/sort.hpp:216-271,
+    # 665-699); THRILL_TPU_HOST_SORT_RUN sets it
+    HOST_RUN_SIZE = 1 << 20
+
     def _compute_host(self, shards: HostShards) -> HostShards:
-        """Every item sorted in memory by ``key_fn`` per item, or by the
-        less-than predicate ``compare_fn``, stably, then split evenly.
-        The reference spills runs above 2^20 items to files and merges
-        them (``_em_sort``) in the same order; that waits for the
-        out-of-core layer (ROADMAP.md queue A 'Still to port' item 5)."""
+        """Sort host items by ``key_fn`` per item, or by the less-than
+        predicate ``compare_fn``, stably, and split them evenly: in
+        memory up to the run size, else by :meth:`_em_sort`. Items that
+        cannot be spilled (a ``pickle`` error) sort in memory, as in the
+        reference, when the input is still whole; when the sort had
+        already emptied lists of a consumed input the error is raised,
+        where the reference would sort what was left."""
+        W = shards.num_workers
         if self.compare_fn is not None:
             less = self.compare_fn
             sort_key = functools.cmp_to_key(
                 lambda a, b: -1 if less(a, b) else (1 if less(b, a) else 0))
         else:
             sort_key = self.key_fn
-        items = sorted((it for l in shards.lists for it in l), key=sort_key)
-        return HostShards(1, [items]).repartition(shards.num_workers)
+        run_size = int(os.environ.get("THRILL_TPU_HOST_SORT_RUN") or
+                       self._granted_run_size(shards))
+        run_size = max(run_size, 16)
+        n = shards.total
+        if n > run_size:
+            try:
+                return HostShards(W, self._em_sort(shards, sort_key,
+                                                   run_size, W))
+            except (TypeError, ValueError, AttributeError):
+                if shards.total != n:
+                    raise
+        items = [it for l in shards.lists for it in l]
+        items.sort(key=sort_key)
+        bounds = dense_range_bounds(n, W).tolist()
+        return HostShards(W, [items[bounds[w]:bounds[w + 1]]
+                              for w in range(W)])
+
+    def _granted_run_size(self, shards: HostShards) -> int:
+        """Items a run holds under the RAM grant: the grant over the
+        first item's pickled size plus 64 bytes of interpreter overhead
+        (Thrill sizes its ReceiveItems from the grant over the item size,
+        api/sort.hpp:665-699); :data:`HOST_RUN_SIZE` without a grant."""
+        if not self.mem_limit:
+            return self.HOST_RUN_SIZE
+        first = next((it for l in shards.lists for it in l), None)
+        if first is None:
+            return self.HOST_RUN_SIZE
+        try:
+            est = len(pickle.dumps(first,
+                                   protocol=pickle.HIGHEST_PROTOCOL)) + 64
+        except Exception:
+            est = 256
+        return max(16, min(self.mem_limit // est, 1 << 26))
+
+    def _em_sort(self, shards: HostShards, sort_key, run_size: int,
+                 W: int) -> List[list]:
+        """External-memory sort: spill sorted runs, k-way merge them into
+        the W output lists (the reference's ``_em_sort``).
+
+        Items carry their stream position; the order is (key, position),
+        so the sort is stable and the splitters, W-1 draws of a growing
+        reservoir (``np.random.default_rng(17)``, Thrill: the Sort
+        PreOp's ReservoirSamplingGrow, api/sort.hpp:303), cut inside runs
+        of equal keys. A run of ``run_size`` items, or fewer when the
+        process's RSS outgrows the grant, is sorted, serialized and
+        written by one job on the write-behind writer while the next run
+        forms. Keys whose schema byte-encodes (``core/order_key.py``)
+        sort as bytes and merge in C++ (``core/native_merge.py``); a key
+        that deviates from the first key's schema demotes the rest to
+        Python comparisons (``engine`` "py"), and the runs spilled before
+        still merge. Items whose schema vectorizes (``data/records.py``)
+        spill as columnar blocks built natively in the job; a run the
+        records cannot represent takes the per-item path in the job. The
+        merge reads one block ahead a run (``THRILL_TPU_PREFETCH``) and
+        appends straight into the partitioned output. When the input was
+        consumed by this pull, its lists are emptied as they spill.
+        ``self._em_stats`` reports runs, engine, records blocks, runs
+        reused (0: no run store yet), seconds, overlap and bytes."""
+        from ...common import faults
+        from ...common.iostats import IO as _IOSTATS, hit_rate, \
+            overlap_frac
+        from ...common.sampling import ReservoirSamplingGrow
+        from ...core import native_merge, order_key
+        from ...core.multiway_merge import multiway_merge_files
+        from ...data import records as native_records
+        from ...data.block_pool import spill_pool
+        from ...data.file import File
+        from ...data.writeback import AsyncWriter, make_readahead
+        from ...mem.manager import RssBudget
+        from ...vfs.file_io import prefetch_depth
+
+        owns_input = self.parents[0].node.state == "DISPOSED"
+        io_base = _IOSTATS.snapshot()
+        pool = spill_pool(self.context.config.spill_dir, self.mem_limit)
+        sampler = ReservoirSamplingGrow(np.random.default_rng(17))
+        pair_key = lambda t: (sort_key(t[1]), t[0])  # noqa: E731
+        # the key engine: probed from the first item, demoted to None on
+        # any schema deviation; item files always hold (pos, item)
+        # records in key order, so runs spilled before a demotion merge
+        enc = None
+        enc_state = "probe" if native_merge.available() else "off"
+        enc_arr = None      # the array encoder (int and str keys)
+        files: list = []    # item Files, (pos, item) records
+        key_files: list = []  # their key Files (native engine)
+        run: list = []      # native: (kb, pos, item); generic: (pos, item)
+        # a fully columnar run: key rows in S-w arrays, items in a list,
+        # positions col_pos0 + index; a batch the array encoder cannot
+        # take folds it into `run` tuples
+        col_arrs: list = []
+        col_items: list = []
+        col_pos0 = 0
+        # the items' records encoder, probed from the first item
+        rec_probe = "probe"
+        rec_enc = None
+        pos = 0
+        budget = RssBudget(self.mem_limit or 0)
+
+        def run_len():
+            return len(run) + len(col_items)
+
+        def decolumnize():
+            """Fold the columnar batches into (kb, pos, item) tuples."""
+            nonlocal col_arrs, col_items, col_pos0
+            p = col_pos0
+            for arr in col_arrs:
+                w_ = arr.dtype.itemsize
+                raw = arr.tobytes()     # the memory: no NUL stripping
+                n_ = len(arr)
+                run.extend(zip(
+                    (raw[i * w_:(i + 1) * w_] for i in range(n_)),
+                    range(p, p + n_), col_items[p - col_pos0:
+                                                p - col_pos0 + n_]))
+                p += n_
+            col_arrs, col_items, col_pos0 = [], [], 0
+
+        writer = AsyncWriter("em_sort.spill")
+
+        def _widen_concat(arrs):
+            """One S-w key array of batches of several widths (str
+            batches pad to their own longest): zero pads keep the order
+            (``order_key.make_array_batch_encoder``)."""
+            W_ = max(a.dtype.itemsize for a in arrs)
+            for j, a in enumerate(arrs):
+                w_ = a.dtype.itemsize
+                if w_ != W_:
+                    buf = np.zeros((len(a), W_), np.uint8)
+                    buf[:, :w_] = a.view(np.uint8).reshape(len(a), w_)
+                    arrs[j] = buf.reshape(-1).view(f"S{W_}")
+            return arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
+
+        def _columnar_job(arrs, items_, p0, slot):
+            def job():
+                b0 = pool.bytes_put
+                arr = _widen_concat(arrs)
+                order = np.argsort(arr)
+                f = File(pool=pool)
+                with f.writer() as w:
+                    for i in order.tolist():
+                        w.put((p0 + i, items_[i]))
+                kf = File(pool=pool)
+                native_merge.write_key_chunks_fixed(kf, arr[order])
+                files[slot] = f
+                key_files[slot] = kf
+                return pool.bytes_put - b0
+            return job
+
+        def _records_job(arrs, items_, p0, slot):
+            """The whole encode in the job: payload columns, the memcmp
+            argsort, the gather of positions and payload into blocks (the
+            native calls release the GIL). A failed encode (a schema
+            deviation inside the run, an injected
+            ``data.records.encode``) takes the per-item pickle path on
+            the same data: slower, never wrong."""
+            def job():
+                b0 = pool.bytes_put
+                arr = _widen_concat(arrs)
+                order = native_records.argsort_rows(arr)
+                f = File(pool=pool)
+                enc_ = None
+                try:
+                    enc_ = rec_enc(items_)
+                    if enc_ is not None:
+                        native_records.write_run_blocks(
+                            f, order, p0, enc_[1], enc_[0], f.block_items)
+                except Exception as e:
+                    faults.note("recovery",
+                                what="records.encode_degraded",
+                                error=repr(e)[:200])
+                    f.clear()
+                    f = File(pool=pool)
+                    enc_ = None
+                if enc_ is None:
+                    with f.writer() as w:
+                        for i in order.tolist():
+                            w.put((p0 + i, items_[i]))
+                kf = File(pool=pool)
+                native_merge.write_key_chunks_fixed(
+                    kf, native_records.gather_rows(arr, order))
+                files[slot] = f
+                key_files[slot] = kf
+                return pool.bytes_put - b0
+            return job
+
+        def _encoded_job(this_run, slot):
+            def job():
+                b0 = pool.bytes_put
+                this_run.sort()          # kb unique (pos suffix)
+                f = File(pool=pool)
+                with f.writer() as w:
+                    for kb, p, it in this_run:
+                        w.put((p, it))
+                kf = File(pool=pool)
+                native_merge.write_key_chunks(kf, [t[0] for t in this_run])
+                files[slot] = f
+                key_files[slot] = kf
+                return pool.bytes_put - b0
+            return job
+
+        def _generic_job(this_run, slot):
+            def job():
+                b0 = pool.bytes_put
+                files[slot] = _spill_run(pool, this_run, pair_key)
+                return pool.bytes_put - b0
+            return job
+
+        def spill():
+            nonlocal run
+            if col_items and run:
+                decolumnize()           # a mixed run: one representation
+            slot = len(files)
+            files.append(None)
+            key_files.append(None)
+            _IOSTATS.add(spill_runs=1)
+            if col_items:
+                job = (_records_job if rec_enc is not None
+                       else _columnar_job)
+                writer.submit(job(list(col_arrs), list(col_items),
+                                  col_pos0, slot), tag=slot)
+                col_arrs.clear()
+                col_items.clear()
+            elif enc is not None:
+                writer.submit(_encoded_job(run, slot), tag=slot)
+            else:
+                writer.submit(_generic_job(run, slot), tag=slot)
+            run = []
+
+        def demote():
+            """A schema deviation: strip the key bytes from the live run
+            and stop encoding; the spilled runs stay as they are."""
+            nonlocal enc, enc_state, enc_arr, run
+            enc, enc_state, enc_arr = None, "off", None
+            if col_items:
+                run.extend(zip(range(col_pos0, col_pos0 + len(col_items)),
+                               col_items))
+                col_arrs.clear()
+                col_items.clear()
+            else:
+                run = [(p, it) for _kb, p, it in run]
+
+        def append_batch(batch):
+            """One vectorized encode (or one listcomp) and one reservoir
+            call a batch."""
+            nonlocal enc, enc_state, enc_arr, pos, col_pos0
+            nonlocal rec_probe, rec_enc
+            if enc_state == "probe" and batch:
+                enc = order_key.make_batch_encoder(sort_key(batch[0]))
+                enc_state = "on" if enc is not None else "off"
+                if enc is not None:
+                    enc_arr = order_key.make_array_batch_encoder(
+                        sort_key(batch[0]))
+            if rec_probe == "probe" and batch:
+                rec_probe = "done"
+                rec_enc = native_records.make_run_encoder(batch[0])
+            if enc is not None:
+                keys = list(map(sort_key, batch))
+                try:
+                    arr = None
+                    if enc_arr is not None and not run:
+                        arr = enc_arr(keys, pos)
+                    if arr is not None:
+                        if not col_items:
+                            col_pos0 = pos
+                        col_arrs.append(arr)
+                        col_items.extend(batch)
+                    else:
+                        if col_items:
+                            decolumnize()
+                        # every key encoded before `run` is touched: a
+                        # deviation mid-batch leaves nothing half done
+                        kbs = enc(keys, range(pos, pos + len(batch)))
+                        run.extend(zip(kbs, range(pos, pos + len(batch)),
+                                       batch))
+                except order_key.BATCH_ENCODE_ERRORS:
+                    demote()
+                    run.extend(zip(range(pos, pos + len(batch)), batch))
+            else:
+                run.extend(zip(range(pos, pos + len(batch)), batch))
+            sampler.add_batch_indexed(pos, batch)
+            pos += len(batch)
+
+        # one RSS check a batch keeps the grant's feedback prompt however
+        # large the run
+        MAX_BATCH = 1 << 16
+        t_phase0 = time.perf_counter()
+        ra = None
+        try:
+            for lst in shards.lists:
+                idx = 0
+                while idx < len(lst):
+                    take = min(run_size - run_len(), len(lst) - idx,
+                               MAX_BATCH)
+                    append_batch(lst[idx:idx + take])
+                    idx += take
+                    if run_len() >= run_size or \
+                            (budget.exceeded_now() and run_len() >= 16):
+                        spill()
+                        budget.reset()
+                if owns_input:
+                    lst.clear()
+            if run_len():
+                spill()
+            # every run written (a writer error raises here, before the
+            # merge reads a run), then the store's own spills settled
+            writer.flush()
+            pool.flush()
+            t_phase1 = time.perf_counter()
+
+            depth = prefetch_depth()
+            ra = make_readahead(depth)
+            submit = ra.submit if ra is not None else None
+            io_merge0 = _IOSTATS.snapshot()
+            samples = sorted(sampler.samples, key=pair_key)
+            sample_at = [min(len(samples) - 1, (j * len(samples)) // W)
+                         for j in range(1, W)] if samples else []
+            out: List[list] = [[] for _ in range(W)]
+            w = 0
+            if enc is not None and all(kf is not None for kf in key_files):
+                # the splitters' key bytes ride as one more merge run: the
+                # partition advances when one pops
+                split_kb = [enc([sort_key(samples[i][1])],
+                                [samples[i][0]])[0] for i in sample_at]
+                native_merge.merge_partitioned(files, key_files, split_kb,
+                                               out, consume=True,
+                                               submit=submit)
+            else:
+                split_keys = [pair_key(samples[i]) for i in sample_at]
+                for t in multiway_merge_files(files, key=pair_key,
+                                              consume=True, submit=submit):
+                    k = pair_key(t)
+                    while w < len(split_keys) and k > split_keys[w]:
+                        w += 1
+                    out[w].append(t[1])
+
+            io_all = _IOSTATS.delta(_IOSTATS.snapshot(), io_base)
+            io_merge = _IOSTATS.delta(_IOSTATS.snapshot(), io_merge0)
+            self._em_stats = {
+                "runs": len(files),
+                "engine": "native" if enc is not None else "py",
+                "records_blocks": io_all.get("records_blocks", 0),
+                "runs_reused": io_all.get("runs_reused", 0),
+                "spill_s": round(t_phase1 - t_phase0, 3),
+                "merge_s": round(time.perf_counter() - t_phase1, 3),
+                "overlap_frac": round(overlap_frac(io_all), 3),
+                "io_wait_s": io_all["io_wait_s"],
+                "io_busy_s": io_all["io_busy_s"],
+                "prefetch_hit_rate": round(hit_rate(io_merge), 3),
+                "writeback_bytes": writer.bytes_written,
+                "writeback_sync": writer.sync}
+            log = self.context.logger
+            if log.enabled:
+                log.line(event="writeback", what="em_sort.spill",
+                         bytes=writer.bytes_written,
+                         jobs=writer.jobs_run, sync=writer.sync)
+                log.line(event="prefetch", what="em_sort.merge",
+                         hits=io_merge["prefetch_hits"],
+                         misses=io_merge["prefetch_misses"],
+                         wait_s=io_merge["io_wait_s"], depth=depth)
+        finally:
+            writer.close(drain=False)
+            if ra is not None:
+                ra.shutdown(wait=True, cancel_futures=True)
+            for f in files + key_files:
+                if f is not None:
+                    f.clear()
+            pool.close()
+        return out
 
 
 def _device_sample_sort(shards: DeviceShards,
@@ -246,3 +628,14 @@ def _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
 
 def Sort(dia: DIA, key_fn=None, compare_fn=None) -> DIA:
     return DIA(SortNode(dia.context, dia._link(), key_fn, compare_fn))
+
+
+def _spill_run(pool, run, sort_key):
+    """One run of (pos, item) pairs sorted by ``sort_key`` into a File."""
+    from ...data.file import File
+    run.sort(key=sort_key)
+    f = File(pool=pool)
+    with f.writer() as w:
+        for it in run:
+            w.put(it)
+    return f

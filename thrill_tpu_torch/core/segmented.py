@@ -11,7 +11,8 @@ The segment folds :func:`segment_sum`, :func:`segment_max`,
 of ``jax.ops.segment_*``, which the reference's GroupByKey and
 GroupToIndex ``device_fn`` call: ids outside ``[0, num_segments)`` are
 dropped, where torch's ``index_add_`` raises and CUDA's
-``scatter_reduce_`` asserts.
+``scatter_reduce_`` asserts. Float sums go through the ordered fold
+(``core/ordered_fold.py``), integer ones through ``index_add_``.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from ..common import tree as pt
 from .device_sort import argsort_words
+from .ordered_fold import ordered_fold, ordered_segment_sum
 from .pallas_kernels import segment_sum as _segment_sum_kernel
 from .rowmove import row_cumsum, scatter_slots, take_rows
 
@@ -146,7 +148,8 @@ def segmented_reduce_fields(words: List[torch.Tensor], tree: Any,
     "first" gathers each run's start row (the same bits as the
     reference's masked integer segment sum). "sum" adds into a +0.0
     base, so a float run whose true sum is -0.0 comes back +0.0, as in
-    the reference; float sums on a card add in atomic order.
+    the reference; a float sum folds each run left to right (the ordered
+    fold over the contiguous runs), as ``jax.ops.segment_sum`` does.
     """
     W, n = valid.shape
     dev = valid.device
@@ -156,7 +159,7 @@ def segmented_reduce_fields(words: List[torch.Tensor], tree: Any,
     # invalid rows scatter to dump rows, never into a run
     flat_seg = scatter_slots(seg, valid, n)
     leaves, td = pt.flatten(tree)
-    run_start = None
+    run_start = runs = None
     out = []
     for s, leaf in zip(flat_specs, leaves):
         trail = tuple(leaf.shape[2:])
@@ -171,6 +174,13 @@ def segmented_reduce_fields(words: List[torch.Tensor], tree: Any,
             out.append(take_rows(leaf, run_start))
             continue
         src = leaf.reshape((W * n,) + trail)
+        if s == "sum" and leaf.dtype.is_floating_point and W * n:
+            if runs is None:
+                runs = _contiguous_runs(starts, valid)
+            run_of, offsets = runs
+            res = ordered_segment_sum(src, None, offsets)
+            out.append(res.index_select(0, run_of).reshape(leaf.shape))
+            continue
         if s == "sum":
             res = torch.zeros((W * region,) + trail, dtype=leaf.dtype,
                               device=dev).index_add_(0, flat_seg, src)
@@ -184,6 +194,22 @@ def segmented_reduce_fields(words: List[torch.Tensor], tree: Any,
                 0, idx, src, "amin" if s == "min" else "amax")
         out.append(take_rows(res.reshape((W, region) + trail), seg))
     return words, pt.unflatten(td, out), _rep_mask(starts, valid)
+
+
+def _contiguous_runs(starts: torch.Tensor, valid: torch.Tensor):
+    """The key runs of ``[W, n]`` key-sorted rows as runs of the flat
+    ``[W * n]`` rows: (run of each row, ``[R + 1]`` offsets). Every
+    worker's invalid tail is a run of its own, so no run crosses a
+    worker or takes an invalid row."""
+    bnd = starts.clone()
+    bnd[:, 0] = True
+    bnd[:, 1:] |= valid[:, :-1] & ~valid[:, 1:]
+    flat = bnd.reshape(-1)
+    run_of = torch.cumsum(flat.to(torch.int64), 0) - 1
+    offsets = torch.cat([torch.nonzero(flat).reshape(-1),
+                         torch.full((1,), flat.numel(), dtype=torch.int64,
+                                    device=flat.device)])
+    return run_of, offsets
 
 
 # -- segment folds with the drop contract of jax.ops.segment_* ----------------
@@ -204,6 +230,8 @@ def _fold(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
     n = data.shape[0]
     slots = _kept_slots(segment_ids, num_segments)
     trail = tuple(data.shape[1:])
+    if how == "sum" and data.dtype.is_floating_point:
+        return ordered_fold(data, segment_ids, num_segments)
     if how == "sum":
         out = torch.zeros((num_segments + n,) + trail, dtype=data.dtype,
                           device=data.device).index_add_(0, slots, data)
@@ -225,7 +253,8 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     """Sum of the rows of ``data`` ``[n, ...]`` by ``segment_ids`` ``[n]``
     into ``[num_segments, ...]``; other ids are dropped. One f32 column
     on the card goes through the segment-sum kernel (B3), whose contract
-    this is; its sums add in atomic order."""
+    this is; its sums add in atomic order. Other float sums fold each
+    segment in row order, as ``jax.ops.segment_sum`` does."""
     data = torch.as_tensor(data, device=segment_ids.device)
     if (data.device.type == "cuda" and data.dtype == torch.float32
             and data.dim() == 1 and num_segments >= 1):

@@ -25,11 +25,13 @@ class Block:
     def num_items(self) -> int:
         return self.hi - self.lo
 
-    def iter_items(self) -> Iterator[Any]:
-        """The items, decoded at the first pull."""
+    def iter_items(self, project=None) -> Iterator[Any]:
+        """The items, decoded at the first pull; with ``project`` only
+        tuple element ``project`` of each."""
         if self.hi == self.lo:
             return iter(())
-        return deserialize_iter(self.pool.get(self.bid), self.lo, self.hi)
+        return deserialize_iter(self.pool.get(self.bid), self.lo, self.hi,
+                                project)
 
     def release(self) -> None:
         """Give up this view; the pool frees the bytes with the last."""

@@ -1,6 +1,8 @@
 """Bounded write-behind and block readahead: the overlap of the spill
 tier (counterpart of the reference package's ``data/writeback.py``,
-without its I/O statistics and trace spans).
+without its trace spans). Both sides add to the I/O ledger
+(``common/iostats.py``): busy and wait seconds, bytes written, the
+queue's peak, readahead hits, misses and submissions.
 
 :class:`AsyncWriter` runs write jobs on ONE background thread in FIFO
 order behind a bounded queue (:data:`QUEUE_DEPTH` jobs):
@@ -21,11 +23,13 @@ from __future__ import annotations
 import collections
 import sys
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 from ..common import faults
 from ..common.config import _env_flag
+from ..common.iostats import IO as _IOSTATS
 
 #: most write jobs waiting behind the running one
 QUEUE_DEPTH = 2
@@ -78,7 +82,10 @@ class AsyncWriter:
                 self._idle = False
                 self._cv.notify_all()
             try:
+                t0 = time.perf_counter()
                 nbytes = int(fn() or 0)
+                _IOSTATS.add(io_busy_s=time.perf_counter() - t0,
+                             writeback_bytes=nbytes)
                 with self._cv:
                     self.jobs_run += 1
                     self.bytes_written += nbytes
@@ -114,20 +121,28 @@ class AsyncWriter:
         Blocks while ``depth`` jobs wait; raises a pending error."""
         if self.sync:
             nbytes = int(fn() or 0)
+            _IOSTATS.add(writeback_bytes=nbytes)
             with self._cv:
                 self.jobs_run += 1
                 self.bytes_written += nbytes
             return
         self._ensure_thread()
+        t0 = None
         with self._cv:
             self._raise_pending()
             if self._closed:
                 raise RuntimeError(f"{self.what}: writer is closed")
             while len(self._jobs) >= self.depth and self._err is None:
+                if t0 is None:
+                    t0 = time.perf_counter()
                 self._cv.wait(0.1)
             self._raise_pending()
             self._jobs.append((fn, tag))
+            depth_now = len(self._jobs) + (0 if self._idle else 1)
             self._cv.notify_all()
+        if t0 is not None:
+            _IOSTATS.add(io_wait_s=time.perf_counter() - t0)
+        _IOSTATS.note_queue_depth(depth_now)
 
     def flush(self) -> None:
         """Wait until every queued job is done; raises the writer's
@@ -135,10 +150,14 @@ class AsyncWriter:
         if self.sync or self._t is None:
             self._raise_pending()
             return
+        t0 = time.perf_counter()
         with self._cv:
             while (self._jobs or not self._idle) and self._err is None:
                 self._cv.wait(0.1)
+            dt = time.perf_counter() - t0
             self._raise_pending()
+        if dt > 1e-4:
+            _IOSTATS.add(io_wait_s=dt)
 
     def close(self, drain: bool = True) -> None:
         """Stop the writer: ``drain=True`` flushes first (and raises a
@@ -186,17 +205,48 @@ def make_readahead(depth: int, workers: int = 0
 
 def readahead_get(fut, demand: Callable[[], Any], what: str) -> Any:
     """One readahead future's result: a future not yet started is
-    cancelled and a failed one noted, both replaced by the demand read."""
+    cancelled and a failed one noted, both replaced by the demand read
+    (misses); one still running is waited for (a miss, its wait
+    counted); one done is a hit."""
     if fut is None:
         return demand()
-    if not fut.done() and fut.cancel():
-        return demand()
+    waited = False
+    if not fut.done():
+        if fut.cancel():
+            _IOSTATS.add(prefetch_misses=1)
+            return demand()
+        t0 = time.perf_counter()
+        try:
+            fut.result()
+        except BaseException:
+            pass
+        _IOSTATS.add(prefetch_misses=1, io_wait_s=time.perf_counter() - t0)
+        waited = True
     try:
-        return fut.result()
+        out = fut.result()
     except BaseException as e:
+        if not waited:
+            _IOSTATS.add(prefetch_misses=1)
         faults.note("recovery", what=f"{what}.prefetch_degraded",
                     error=repr(e)[:200])
         return demand()
+    if not waited:
+        _IOSTATS.add(prefetch_hits=1)
+    return out
+
+
+def readahead_job(fn: Callable[[], Any]) -> Callable[[], Any]:
+    """``fn`` as a readahead job: one submission counted, its seconds
+    counted busy."""
+    _IOSTATS.add(prefetch_submits=1)
+
+    def job():
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            _IOSTATS.add(io_busy_s=time.perf_counter() - t0)
+    return job
 
 
 def overlapped_fetch(items, fetch: Callable[[Any], Any], what: str,
@@ -214,7 +264,7 @@ def overlapped_fetch(items, fetch: Callable[[Any], Any], what: str,
         if ra is not None and j + 1 < len(items):
             nit = items[j + 1]
             if skip_fn is None or not skip_fn(nit):
-                nxt = ra.submit(fetch, nit)
+                nxt = ra.submit(readahead_job(lambda nit=nit: fetch(nit)))
                 if stats is not None:
                     stats["prefetched"] = stats.get("prefetched", 0) + 1
         out = readahead_get(fut, lambda it=it: fetch(it), what)

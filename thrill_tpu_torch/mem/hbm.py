@@ -10,10 +10,11 @@ coldest nodes' leaves go to the native block store, one block per
 worker slice of each ``[W, cap, ...]`` leaf, and the store spills to
 disk past its own soft limit: HBM -> host DRAM -> disk. A spilled node's
 next pull uploads it again. On a ``cuda`` mesh both directions stage
-through pinned host memory on a side stream: a spill copies block k+1
-off the card while the store takes block k, and a restore reads block
-k+1 from the store on a readahead thread while block k uploads; the
-result's stream waits on the side stream before anyone reads it.
+through the governor's :class:`StagingRing` of pinned buffers on a side
+stream: a spill copies block k+1 off the card while the store takes
+block k, and a restore reads block k+1 from the store while block k
+uploads; the result's stream waits on the side stream before anyone
+reads it.
 
 A spill is best effort: a failure keeps the node resident (over budget
 beats data loss). A restore is mandatory: it retries transient faults
@@ -62,6 +63,51 @@ def storages(shards) -> set:
     return {l.untyped_storage().data_ptr() for l in pt.leaves(shards.tree)}
 
 
+class StagingRing:
+    """The pinned host buffers a governor's spills and restores stage
+    through: :data:`SLOTS` of them, each as large as the largest block so
+    far, allocated once (and again only for a larger block). A block
+    leaves its slot when the store has taken it (a spill's ``put``
+    returns) or when its upload has read it (the event recorded after the
+    copy); :meth:`take` waits for that before it hands the slot out."""
+
+    SLOTS = 2
+
+    def __init__(self) -> None:
+        self.bufs: List[torch.Tensor] = []
+        self.events: List[Optional[torch.cuda.Event]] = [None] * self.SLOTS
+        self.nbytes = 0
+        self._next = 0
+
+    def reserve(self, nbytes: int) -> None:
+        """Slots of at least ``nbytes``: the largest block of a spill or
+        restore, before its first block."""
+        if nbytes > self.nbytes:
+            for ev in self.events:
+                if ev is not None:
+                    ev.synchronize()
+            self.bufs = [torch.empty(nbytes, dtype=torch.uint8,
+                                     pin_memory=True)
+                         for _ in range(self.SLOTS)]
+            self.events = [None] * self.SLOTS
+            self.nbytes = nbytes
+
+    def take(self, nbytes: int) -> Tuple[int, torch.Tensor]:
+        """(slot, its first ``nbytes`` as a pinned uint8 tensor), once the
+        slot's last upload has read it."""
+        self.reserve(nbytes)
+        i = self._next
+        self._next = (i + 1) % self.SLOTS
+        ev, self.events[i] = self.events[i], None
+        if ev is not None:
+            ev.synchronize()
+        return i, self.bufs[i][:nbytes]
+
+    def busy_until(self, slot: int, event: torch.cuda.Event) -> None:
+        """The slot is read by work before ``event`` (an upload)."""
+        self.events[slot] = event
+
+
 class SpilledShards:
     """A DeviceShards parked in the block store: one block per worker
     slice of each leaf, plus what rebuilds the leaves. Counts stay on
@@ -69,19 +115,22 @@ class SpilledShards:
 
     def __init__(self, mesh_exec, treedef, counts: np.ndarray, pool,
                  leaf_blocks: List[List[Tuple[int, int]]],
-                 leaf_meta: List[Tuple[torch.dtype, Tuple[int, ...]]]
-                 ) -> None:
+                 leaf_meta: List[Tuple[torch.dtype, Tuple[int, ...]]],
+                 ring: Optional[StagingRing] = None) -> None:
         self.mesh_exec = mesh_exec
         self.treedef = treedef
         self.counts = counts
         self.pool = pool
         self.leaf_blocks = leaf_blocks      # per leaf: [(worker, block)]
         self.leaf_meta = leaf_meta          # per leaf: (dtype, shape)
+        self.ring = ring
 
     @staticmethod
-    def park(shards, pool, label: str) -> "SpilledShards":
-        """Copy every worker slice of every leaf into ``pool``; on a
-        failure the blocks written so far are dropped and it raises."""
+    def park(shards, pool, label: str,
+             ring: Optional[StagingRing] = None) -> "SpilledShards":
+        """Copy every worker slice of every leaf into ``pool``, on the
+        card through ``ring`` (a ring of its own when None); on a failure
+        the blocks written so far are dropped and it raises."""
         mex = shards.mesh_exec
         dev = mex.device
         leaves, treedef = pt.flatten(shards.tree)
@@ -93,17 +142,20 @@ class SpilledShards:
         if cuda:
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
+            ring = ring or StagingRing()
+            ring.reserve(max((l[0].numel() * l.element_size()
+                              for l in leaves if l.shape[0]), default=0))
 
         def issue(li: int, w: int):
             """Start block (li, w) on its way to the host."""
             src = leaves[li][w]
             if not cuda:
                 return _byte_view(src.contiguous()).numpy(), None
+            # its slot's previous block is in the store: the loop puts
+            # block k before it issues block k + 2
+            _, host = ring.take(src.numel() * src.element_size())
             with torch.cuda.stream(side):
-                src = src.contiguous()
-                host = torch.empty(src.numel() * src.element_size(),
-                                   dtype=torch.uint8, pin_memory=True)
-                host.copy_(_byte_view(src), non_blocking=True)
+                host.copy_(_byte_view(src.contiguous()), non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record(side)
             return host, ev
@@ -131,58 +183,65 @@ class SpilledShards:
             raise
         meta = [(l.dtype, tuple(l.shape)) for l in leaves]
         return SpilledShards(mex, treedef, shards.counts.copy(), pool,
-                             leaf_blocks, meta)
+                             leaf_blocks, meta, ring)
 
     def restore(self):
-        """The DeviceShards again, block k+1 read from the store while
-        block k uploads (``THRILL_TPU_PREFETCH=0`` reads in turn)."""
+        """The DeviceShards again. On the card block k+1 is read from the
+        store into the ring while block k uploads; on the CPU the blocks
+        go straight into the leaves, a disk block read ahead while the
+        one before is copied (``THRILL_TPU_PREFETCH=0`` reads in
+        turn)."""
         mex = self.mesh_exec
         dev = mex.device
-        cuda = dev.type == "cuda"
         leaves = [torch.empty(shape, dtype=dt, device=dev)
                   for dt, shape in self.leaf_meta]
-        side = None
-        if cuda:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
+        flat = [(li, w, bid) for li, blocks in enumerate(self.leaf_blocks)
+                for w, bid in blocks]
 
-        def fetch(item):
-            li, w, bid = item
+        def check(bid):
             if faults.REGISTRY.active():
                 default_policy().run(
                     lambda: faults.check(_F_RESTORE, block=bid),
                     what="hbm.restore")
-            if not cuda:
-                # straight into the leaf's memory
-                self.pool.get_into(bid, _byte_view(leaves[li][w]).numpy())
-                return None
-            buf = torch.empty(self.pool.size(bid), dtype=torch.uint8,
-                              pin_memory=True)
-            self.pool.get_into(bid, buf.numpy())
-            return buf
 
-        flat = [(li, w, bid) for li, blocks in enumerate(self.leaf_blocks)
-                for w, bid in blocks]
-        ra = make_readahead(prefetch_depth()) if len(flat) > 1 else None
-        # on the card the read into pinned memory is worth overlapping
-        # even from RAM; on the CPU only a disk read is
-        skip = None if cuda else (lambda it: self.pool.resident(it[2]))
-        try:
-            for (li, w, _), buf in overlapped_fetch(
-                    flat, fetch, "hbm.restore", ra, skip_fn=skip):
-                if buf is not None:
+        if dev.type == "cuda":
+            ring = self.ring or StagingRing()
+            ring.reserve(max((self.pool.size(bid) for _, _, bid in flat),
+                             default=0))
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            try:
+                for li, w, bid in flat:
+                    check(bid)
+                    slot, buf = ring.take(self.pool.size(bid))
+                    self.pool.get_into(bid, buf.numpy())
                     with torch.cuda.stream(side):
                         _byte_view(leaves[li][w]).copy_(buf,
                                                         non_blocking=True)
-        except BaseException:
-            if side is not None:
+                        ev = torch.cuda.Event()
+                        ev.record(side)
+                    ring.busy_until(slot, ev)
+            except BaseException:
                 side.synchronize()      # before the leaves are freed
-            raise
+                raise
+            torch.cuda.current_stream(dev).wait_stream(side)
+            return DeviceShards(mex, pt.unflatten(self.treedef, leaves),
+                                self.counts.copy())
+
+        def fetch(item):
+            li, w, bid = item
+            check(bid)
+            self.pool.get_into(bid, _byte_view(leaves[li][w]).numpy())
+
+        ra = make_readahead(prefetch_depth()) if len(flat) > 1 else None
+        try:
+            for _ in overlapped_fetch(flat, fetch, "hbm.restore", ra,
+                                      skip_fn=lambda it: self.pool.resident(
+                                          it[2])):
+                pass
         finally:
             if ra is not None:
                 ra.shutdown(wait=True, cancel_futures=True)
-        if cuda:
-            torch.cuda.current_stream(dev).wait_stream(side)
         return DeviceShards(mex, pt.unflatten(self.treedef, leaves),
                             self.counts.copy())
 
@@ -201,6 +260,7 @@ class HbmGovernor:
         self.mem = MemoryManager(name="hbm", limit=limit)
         self._lru: Dict[int, Any] = {}   # node id -> node, coldest first
         self._pool = None
+        self._ring = StagingRing()
         self.spill_count = 0
         self.restore_count = 0
 
@@ -316,7 +376,7 @@ class HbmGovernor:
             return
         try:
             parked = SpilledShards.park(shards, self._spill_pool(),
-                                        node.label)
+                                        node.label, ring=self._ring)
         except Exception as e:
             # the node stays resident and in the LRU for a later pass
             faults.note("recovery", what="hbm.spill_skipped",
@@ -338,3 +398,4 @@ class HbmGovernor:
         if self._pool is not None:
             self._pool.close()
             self._pool = None
+        self._ring = StagingRing()      # its pinned buffers go back

@@ -18,14 +18,24 @@
 //
 // The port's copy of the reference package's native/blockstore.cpp, less
 // its line scanner (bs_scan_lines, which nothing of the port calls), plus
-// one counter: the bytes written to spill files (bs_spilled_bytes).
+// one counter: the bytes written to spill files (bs_spilled_bytes), and
+// one change to how a block's bytes are copied. A block of 2 MiB or more
+// is mapped with its pages populated in one call (MAP_POPULATE) instead
+// of one page fault each 4 KiB as the copy first touches them, a smaller
+// one is malloc'ed without a zeroing pass, and Put fills it outside the
+// store's lock; Put and Get copy a block of 16 MiB or more with several
+// threads. The one copy of a Put into fresh pages was the spill's rate
+// (2.0-2.7 GB/s on an H100 host).
 //
 // Build (thrill_tpu_torch/common/native_build.py does it at first use):
 // g++ -O3 -shared -fPIC -std=c++17 -pthread blockstore.cpp -o libblockstore.so
 
+#include <sys/mman.h>
 #include <unistd.h>
 
+#include <algorithm>
 #include <atomic>
+#include <cstdlib>
 #include <condition_variable>
 #include <cstdint>
 #include <cstdio>
@@ -42,15 +52,85 @@
 
 namespace {
 
+constexpr size_t kMapFrom = size_t(2) << 20;   // mapped from here up
+constexpr int64_t kParallelCopy = int64_t(16) << 20;
+
+// Block memory: uninitialised on resize; a large block mapped with its
+// pages populated.
+template <typename T>
+struct BlockAlloc {
+  using value_type = T;
+  BlockAlloc() = default;
+  template <typename U>
+  BlockAlloc(const BlockAlloc<U>&) {}
+  T* allocate(size_t n) {
+    const size_t bytes = n * sizeof(T);
+    if (bytes < kMapFrom) {
+      void* p = std::malloc(bytes ? bytes : 1);
+      if (!p) throw std::bad_alloc();
+      return static_cast<T*>(p);
+    }
+    void* p = mmap(nullptr, bytes, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_POPULATE, -1, 0);
+    if (p == MAP_FAILED) throw std::bad_alloc();
+    return static_cast<T*>(p);
+  }
+  void deallocate(T* p, size_t n) {
+    if (n * sizeof(T) < kMapFrom) {
+      std::free(p);
+    } else {
+      munmap(p, n * sizeof(T));
+    }
+  }
+  template <typename U>
+  void construct(U* p) noexcept {
+    ::new (static_cast<void*>(p)) U;       // default-init: no zeroing
+  }
+  template <typename U, typename... A>
+  void construct(U* p, A&&... a) {
+    ::new (static_cast<void*>(p)) U(std::forward<A>(a)...);
+  }
+  template <typename U>
+  bool operator==(const BlockAlloc<U>&) const { return true; }
+  template <typename U>
+  bool operator!=(const BlockAlloc<U>&) const { return false; }
+};
+
+using Bytes = std::vector<char, BlockAlloc<char>>;
+
+// memcpy of a large block by several threads: the page faults of fresh
+// destination pages (and the copy) spread over the host's cores.
+void CopyBytes(void* dst, const void* src, int64_t n) {
+  const unsigned hw = std::thread::hardware_concurrency();
+  const int64_t parts =
+      n < kParallelCopy ? 1 : std::min<int64_t>(hw ? hw : 1, 8);
+  if (parts <= 1) {
+    std::memcpy(dst, src, static_cast<size_t>(n));
+    return;
+  }
+  const int64_t step = (n / parts + 4095) / 4096 * 4096;
+  std::vector<std::thread> pool;
+  for (int64_t lo = step; lo < n; lo += step) {
+    const int64_t len = std::min(step, n - lo);
+    pool.emplace_back([=] {
+      std::memcpy(static_cast<char*>(dst) + lo,
+                  static_cast<const char*>(src) + lo,
+                  static_cast<size_t>(len));
+    });
+  }
+  std::memcpy(dst, src, static_cast<size_t>(std::min(step, n)));
+  for (auto& t : pool) t.join();
+}
+
 struct SpillRequest {
   int64_t id = 0;
-  std::vector<char> data;       // owned; IMMUTABLE once enqueued
+  Bytes data;                   // owned; IMMUTABLE once enqueued
   std::string path;
   bool cancelled = false;       // guarded by the store mutex
 };
 
 struct Block {
-  std::vector<char> data;       // empty when spilled or spilling
+  Bytes data;                   // empty when spilled or spilling
   std::string spill_path;       // non-empty when on disk
   std::shared_ptr<SpillRequest> req;  // non-null while write in flight
   int64_t size = 0;
@@ -84,12 +164,14 @@ class BlockStore {
   }
 
   int64_t Put(const void* data, int64_t size) {
+    // the one copy, into the block's own memory, outside the lock
+    Bytes bytes(static_cast<size_t>(size));
+    if (size > 0) CopyBytes(bytes.data(), data, size);
     std::lock_guard<std::mutex> lk(mu_);
     int64_t id = next_id_++;
     Block& b = blocks_[id];
     b.size = size;
-    b.data.assign(static_cast<const char*>(data),
-                  static_cast<const char*>(data) + size);
+    b.data = std::move(bytes);
     mem_usage_ += size;
     Touch(id, b);
     MaybeSpill();
@@ -110,12 +192,12 @@ class BlockStore {
     if (it == blocks_.end()) return -1;
     Block& b = it->second;
     if (!b.data.empty() || b.size == 0) {
-      std::memcpy(out, b.data.data(), b.size);
+      CopyBytes(out, b.data.data(), b.size);
       Touch(id, b);
       return 0;
     }
     if (b.req) {  // write in flight: serve from the request buffer
-      std::memcpy(out, b.req->data.data(), b.size);
+      CopyBytes(out, b.req->data.data(), b.size);
       return 0;
     }
     // fault in from disk (stays spilled; read-through)

@@ -165,7 +165,23 @@ Phases, each fatal on failure:
      them first (admission_spills >= 1, no OOM); each Sort equal to
      np.lexsort, launches counted; the host RAM each needs is checked
      first;
- 24. the ordered fold's other call sites at W=4 over 2^22 items {"k":
+ 24. checkpoints and resume at W=4 (C1-C3), each first run in a child
+     process SIGKILLed mid-job: C1 phase 6's PageRank with the example's
+     Iterate sealing its carry every 3 iterations, killed once an epoch
+     is committed, resumed in a second child: ranks bit-equal to an
+     uninterrupted run, the fold's and the pass's launches those of the
+     iterations it ran, the epoch's bytes, save and restore GB/s,
+     recovery_time_s and each epoch's steps from the manager's log; C2
+     H6's external Sort with a checkpoint directory, killed once 8 run
+     manifests are committed, then run here one after another with no
+     checkpoint directory, with a fresh one (the run store's cost,
+     nothing reused) and relaunched with resume=True: each equal to
+     sorted(), runs_reused at least the committed runs, run formation
+     and merge seconds of the three; C3 phase 4's WordCount
+     with Checkpoint() after its ReduceByKey, killed once the epoch is
+     committed, resumed here: equal to np.bincount, resume_skipped_ops >
+     0 and no presence_fill launch;
+ 25. the ordered fold's other call sites at W=4 over 2^22 items {"k":
      int64 Zipf over 2^16, "v": f64, "w": f32 [3]}: ReduceByKey's
      FieldReduce sums and GroupByKey's device_fn segment_sum, each run
      twice, bit-equal, within tolerance of np.bincount, the fold
@@ -174,7 +190,7 @@ Phases, each fatal on failure:
      bit-equal to each other and to the plain version on the CPU, timed
      beside the plain version, one index_add_ of the same rows and the
      bound, with the hottest run's rows;
- 25. on the inputs the W=4 runs gave the kernels, captured at the call
+ 26. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
      WordCount's, Rebalance's, GroupByKey's, GroupToIndex's sorted int64
@@ -200,6 +216,11 @@ runs only phase 23's M1 of the tree at DIR (a copy of an earlier commit
 with its own chip_smoke.py) and of this one, in turns (DIR, this, this,
 DIR), each in a process of its own, and prints their spill and restore
 GB/s as "M1 before" and "M1 after" lines.
+
+    python3 chip_smoke.py --ckpt-child KIND DIR RESUME
+
+is one job of phase 24 (KIND pagerank, sort or wordcount) in the process
+the phase starts.
 
 Exits non-zero without a result line when no CUDA device is present or
 the port's sources are not beside this script.
@@ -263,6 +284,12 @@ OF_KEYS = 1 << 16              # items, Zipf keys over OF_KEYS
 H6_LINES = 1 << 22             # H6: lines of the host EM sort
 H6_RUN = 1 << 18               # THRILL_TPU_HOST_SORT_RUN: 16 runs
 H6_RESIDENT = "64M"            # THRILL_TPU_SPILL_RESIDENT: runs reach disk
+CK_EVERY = 3                   # C1: PageRank's Iterate(checkpoint_every=)
+# C1: launches a PageRank W=4 iteration makes (PERF.md section 6: 10 of
+# the ordered fold and 41 of the pass over 10 iterations, one pass of
+# them the degree table's)
+PR_PER_ITER = {"ordered_segment_sum": 1, "radix_pass": 4}
+C2_KILL_RUNS = 8               # C2: run manifests committed before the kill
 DEVICE = "cuda"
 
 
@@ -806,17 +833,39 @@ def word_ids(np, w: np.ndarray) -> np.ndarray:
     return (d * (26 ** np.arange(5))[None, :]).sum(axis=1)
 
 
-def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod, exchange_mod):
-    """One WordCount of W x 2^22 words through the port's API; returns
-    the kernel launches of the checked run and the presence_fill and
-    send_counts inputs it made (W > 1)."""
+def wordcount_records(torch, np, W: int):
+    """(vocabulary, records {"w", "c"}, np.bincount of the word ids) of
+    the W x 2^22-word WordCount, made on the card from the seed."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10 + W)
     n = W * PER_WORKER
     voc = vocabulary(torch, gen)
     ids = zipf_ids(torch, n, VOCAB, gen)
     recs = {"w": voc[ids], "c": torch.ones(n, dtype=torch.int64,
                                            device=DEVICE)}
-    want = np.bincount(ids.cpu().numpy(), minlength=VOCAB)
+    return voc, recs, np.bincount(ids.cpu().numpy(), minlength=VOCAB)
+
+
+def check_wordcount(np, label: str, out, voc, want) -> int:
+    """The ReduceByKey's {"w", "c"} rows against np.bincount; returns the
+    distinct words."""
+    w, c = out["w"].cpu().numpy(), out["c"].cpu().numpy()
+    got_ids = word_ids(np, w)
+    voc_h = voc.cpu().numpy()
+    present = np.flatnonzero(want)
+    if (len(got_ids) != len(present)
+            or not np.array_equal(np.sort(got_ids), present)
+            or not np.array_equal(c, want[got_ids])
+            or not np.array_equal(w, voc_h[got_ids])):
+        raise AssertionError(f"{label} differs from np.bincount")
+    return len(present)
+
+
+def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod, exchange_mod):
+    """One WordCount of W x 2^22 words through the port's API; returns
+    the kernel launches of the checked run and the presence_fill and
+    send_counts inputs it made (W > 1)."""
+    n = W * PER_WORKER
+    voc, recs, want = wordcount_records(torch, np, W)
     red = tt.FieldReduce({"w": "first", "c": "sum"})
 
     def run(ctx, src):
@@ -845,16 +894,8 @@ def wordcount(torch, np, tt, W: int, pk, ps, reduce_mod, exchange_mod):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the W={W} "
                                  f"WordCount path")
-    w, c = out["w"].cpu().numpy(), out["c"].cpu().numpy()
-    got_ids = word_ids(np, w)
-    voc_h = voc.cpu().numpy()
-    present = np.flatnonzero(want)
-    if (len(got_ids) != len(present)
-            or not np.array_equal(np.sort(got_ids), present)
-            or not np.array_equal(c, want[got_ids])
-            or not np.array_equal(w, voc_h[got_ids])):
-        raise AssertionError(f"W={W} WordCount differs from np.bincount")
-    log(f"wordcount W={W} n={n}: {len(present)} distinct words, equal to "
+    distinct = check_wordcount(np, f"W={W} WordCount", out, voc, want)
+    log(f"wordcount W={W} n={n}: {distinct} distinct words, equal to "
         f"np.bincount; {secs:.3f} s (first run, host clock after "
         f"synchronize, data resident); launches {json.dumps(launches)}; "
         f"dup verdicts {verdicts}; exchanged items "
@@ -3214,10 +3255,7 @@ def host_em_sort_phase(torch, np, tt, pk, ps, card):
     import tempfile
     from thrill_tpu_torch.common.config import Config
     host = f"host {cpu_line()}; card idle; {card}"
-    rng = np.random.default_rng(SEED + 400)
-    keys = rng.integers(0, 10 ** 10, H6_LINES).tolist()
-    lines = [f"{k:010d}\t{i:08d}payload\n" for i, k in enumerate(keys)]
-    del keys
+    lines = h6_lines(np)
     nbytes = sum(map(len, lines))
     host_ram_check(12 * nbytes, "H6")
     spill_dir = tempfile.mkdtemp(prefix="h6_spill_")
@@ -3226,18 +3264,14 @@ def host_em_sort_phase(torch, np, tt, pk, ps, card):
                     THRILL_TPU_SPILL_RESIDENT=H6_RESIDENT):
             ctx = tt.Context(num_workers=4, device=DEVICE,
                              config=Config(spill_dir=spill_dir))
-            src = ctx.Distribute(lines, storage="host")
             zero_launches(pk, ps)
             t0 = time.perf_counter()
-            node = src.Sort(key_fn=lambda s: s[:10]).node
-            got = node.materialize()
+            lists, st, _ = h6_sort(ctx, lines)
             secs = time.perf_counter() - t0
             launches = read_launches(pk, ps)
-            st = dict(node._em_stats)
-            counts = [len(l) for l in got.lists]
-            flat = [it for l in got.lists for it in l]
-            del got
-            ctx.close()
+            counts = [len(l) for l in lists]
+            flat = [it for l in lists for it in l]
+            del lists
         t0 = time.perf_counter()
         want = sorted(lines, key=lambda s: s[:10])
         py_secs = time.perf_counter() - t0
@@ -3258,6 +3292,29 @@ def host_em_sort_phase(torch, np, tt, pk, ps, card):
         f"{counts}; _em_stats {json.dumps(st)}; spill files left "
         f"{len(left)}; launches {json.dumps(launches)} [{host}]")
     return launches
+
+
+def h6_lines(np) -> list:
+    """H6's H6_LINES lines ``"{key:010d}\t{i:08d}payload\n"``, keys
+    random below 10^10."""
+    rng = np.random.default_rng(SEED + 400)
+    keys = rng.integers(0, 10 ** 10, H6_LINES).tolist()
+    return [f"{k:010d}\t{i:08d}payload\n" for i, k in enumerate(keys)]
+
+
+def h6_sort(ctx, lines):
+    """H6's Sort of ``lines`` by their first ten characters on ``ctx``
+    (the caller sets the run size and the resident bytes); returns the
+    W output lists, ``_em_stats`` and ``overall_stats``. Closes ctx."""
+    node = ctx.Distribute(lines, storage="host").Sort(
+        key_fn=lambda s: s[:10]).node
+    got = node.materialize()
+    st = dict(node._em_stats)
+    stats = ctx.overall_stats()
+    lists = got.lists
+    del got
+    ctx.close()
+    return lists, st, stats
 
 
 def time_presence_fill(torch, pk, label, h, valid, regs):
@@ -3293,6 +3350,378 @@ def time_presence_fill(torch, pk, label, h, valid, regs):
         f"registers, {nvalid} valid rows ({nvalid / (R * n):.4f}; the bound "
         f"that counted 5 bytes a row: {old_b}): " + json.dumps(row))
     return row
+
+def ckpt_child(kind: str, d: str, resume: bool) -> int:
+    """``--ckpt-child KIND DIR RESUME``: one job of the checkpoint phases
+    C1-C3 in a process of its own, checkpointing under DIR/ckpt. It
+    prints "CKPT {json}" lines: each epoch it seals (C1), then its
+    result. A first run (RESUME 0) then waits for the SIGKILL its parent
+    sends once enough is committed, so it always dies mid-job."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.common.config import Config
+    from thrill_tpu_torch.core import pallas_kernels as pk
+    from thrill_tpu_torch.core import pallas_sort as ps
+
+    def emit(rec):
+        print("CKPT " + json.dumps(rec), flush=True)
+
+    ckpt = os.path.join(d, "ckpt")
+    if kind == "pagerank":
+        from thrill_tpu_torch.examples import page_rank as tpr
+        edges = np.load(os.path.join(d, "edges.npy"))
+        # the log's checkpoint and ckpt_restore lines time their steps
+        ctx = tt.Context(num_workers=4, device=DEVICE, config=Config(
+            ckpt_dir=ckpt, log_path=os.path.join(d, f"log{int(resume)}")),
+            resume=resume)
+        mgr = ctx.checkpoint
+        restored = mgr._manifest["node"]["label"] if mgr._manifest else None
+        real_save = mgr.save
+
+        def save(node, shards):
+            torch.cuda.synchronize()
+            t0, b0 = time.perf_counter(), mgr.bytes_written
+            epoch = real_save(node, shards)
+            emit({"save": node.label, "epoch": epoch,
+                  "bytes": mgr.bytes_written - b0,
+                  "seconds": time.perf_counter() - t0})
+            return epoch
+
+        mgr.save = save
+        iters = [0]
+        real_iterate = tpr.Iterate
+
+        def iterate(ctx_, body, carry, n, **kw):
+            def counted(dia):
+                iters[0] += 1
+                return body(dia)
+            return real_iterate(ctx_, counted, carry, n,
+                                checkpoint_every=CK_EVERY, **kw)
+
+        tpr.Iterate = iterate
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        ranks = tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches(pk, ps)
+        np.save(os.path.join(d, f"ranks{int(resume)}.npy"), ranks)
+        emit({"restored": restored, "iterations": iters[0],
+              "launches": launches, "seconds": secs,
+              "stats": ctx.overall_stats()})
+    elif kind == "sort":
+        lines = h6_lines(np)
+        with EnvSet(THRILL_TPU_HOST_SORT_RUN=str(H6_RUN),
+                    THRILL_TPU_SPILL_RESIDENT=H6_RESIDENT):
+            ctx = tt.Context(num_workers=4, device=DEVICE, config=Config(
+                spill_dir=os.path.join(d, "spill"), ckpt_dir=ckpt))
+            _, st, _ = h6_sort(ctx, lines)
+        emit({"em_stats": st})
+    elif kind == "wordcount":
+        _, recs, _ = wordcount_records(torch, np, 4)
+        ctx = tt.Context(num_workers=4, device=DEVICE,
+                         config=Config(ckpt_dir=ckpt))
+        zero_launches(pk, ps)
+        wordcount_checkpointed(tt, ctx, recs)
+        emit({"launches": read_launches(pk, ps)})
+    if not resume:
+        time.sleep(3600)           # the rest of the job: killed here
+    return 0
+
+
+def wordcount_checkpointed(tt, ctx, recs):
+    """C3's job: WordCount's ReduceByKey sealed by ``Checkpoint()``."""
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+    return ctx.Distribute(recs).ReduceByKey(
+        lambda t: t["w"], red).Checkpoint("wordcount").AllGatherArrays()
+
+
+def spawn_ckpt_child(kind: str, d: str, resume: bool):
+    """The child process of ``ckpt_child``; its output goes to files in
+    ``d`` (a full pipe would stall it)."""
+    tag = f"{kind}{int(resume)}"
+    out = open(os.path.join(d, f"{tag}.out"), "w")
+    err = open(os.path.join(d, f"{tag}.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ckpt-child", kind, d,
+         str(int(resume))], stdout=out, stderr=err)
+    out.close()
+    err.close()
+    return proc
+
+
+def child_records(d: str, tag: str) -> list:
+    with open(os.path.join(d, f"{tag}.out")) as f:
+        return [json.loads(l[5:]) for l in f if l.startswith("CKPT ")]
+
+
+def child_failure(d: str, tag: str, label: str, rc) -> AssertionError:
+    with open(os.path.join(d, f"{tag}.err")) as f:
+        err = f.read()[-3000:]
+    return AssertionError(f"{label}: the child exited {rc}: {err}")
+
+
+def kill_when(proc, ready, d: str, tag: str, label: str,
+              timeout: float = 600.0) -> float:
+    """SIGKILL ``proc`` as soon as ``ready()`` holds; returns the seconds
+    from its start. Fails if it exits first or never gets there."""
+    import signal
+    t0 = time.perf_counter()
+    while not ready():
+        rc = proc.poll()
+        if rc is not None:
+            raise child_failure(d, tag, label, rc)
+        if time.perf_counter() - t0 > timeout:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"{label}: nothing committed in {timeout} s")
+        time.sleep(0.002)
+    proc.send_signal(signal.SIGKILL)
+    secs = time.perf_counter() - t0
+    proc.wait()
+    if proc.returncode != -signal.SIGKILL:
+        raise child_failure(d, tag, label, proc.returncode)
+    return secs
+
+
+def wait_child(proc, d: str, tag: str, label: str,
+               timeout: float = 600.0) -> list:
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{label}: no result in {timeout} s")
+    if rc != 0:
+        raise child_failure(d, tag, label, rc)
+    return child_records(d, tag)
+
+
+def manifests(pattern: str) -> list:
+    import glob
+    return sorted(glob.glob(pattern))
+
+
+def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
+    """C1: PageRank W=4 of phase 6 with the example's Iterate sealing
+    its carry every CK_EVERY iterations. A child runs it and is killed
+    once a loop epoch is committed; a second child resumes: its ranks
+    must be the uninterrupted run's bits, its launches of the fold and
+    the pass those of the iterations it ran. Returns its launches."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.examples import page_rank as tpr
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    want = tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
+    torch.cuda.synchronize()
+    full_secs = time.perf_counter() - t0
+    full = read_launches(pk, ps)
+    del ctx
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="c1_ckpt_")
+    try:
+        np.save(os.path.join(d, "edges.npy"), edges)
+        # killed once an epoch is committed and its save line printed
+        kill_s = kill_when(
+            spawn_ckpt_child("pagerank", d, False),
+            lambda: any("save" in r for r in child_records(d, "pagerank0")),
+            d, "pagerank0", "C1 first run")
+        on_disk = [os.path.basename(os.path.dirname(m)) for m in manifests(
+            os.path.join(d, "ckpt", "epoch_*", "MANIFEST.json"))]
+        recs = wait_child(spawn_ckpt_child("pagerank", d, True), d,
+                          "pagerank1", "C1 resume")
+        saves = [r for r in child_records(d, "pagerank0") + recs
+                 if "save" in r]
+        res = [r for r in recs if "restored" in r][-1]
+        got = np.load(os.path.join(d, "ranks1.npy"))
+        with open(os.path.join(d, "ckpt", on_disk[-1], "MANIFEST.json")) as f:
+            node = json.load(f)["node"]
+        epoch_bytes = sum(v["bytes"] for v in node["files"].values())
+        steps = []
+        for tag in ("log0", "log1"):
+            with open(os.path.join(d, f"{tag}-host0.json")) as f:
+                steps += [e for e in map(json.loads, f)
+                          if e["event"] in ("checkpoint", "ckpt_restore")]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    label = res["restored"] or ""
+    if not label.startswith("LoopState[page_rank@"):
+        raise AssertionError(f"C1: the resume restored {label!r}, not a "
+                             f"loop epoch of page_rank")
+    r = int(label[len("LoopState[page_rank@"):-1])
+    ran = res["iterations"]
+    if ran != PR_ITERS - 1 - r:
+        raise AssertionError(f"C1: restored iteration {r} but ran {ran} "
+                             f"iterations of {PR_ITERS}")
+    if got.tobytes() != want.tobytes():
+        raise AssertionError(f"C1: resumed ranks differ from the "
+                             f"uninterrupted run's: max |diff| "
+                             f"{np.abs(got - want).max()}")
+    launches = res["launches"]
+    for name, per in PR_PER_ITER.items():
+        expect = full[name] - (PR_ITERS - ran) * per
+        if launches[name] != expect or full[name] < PR_ITERS * per:
+            raise AssertionError(
+                f"C1: {name} launched {launches[name]} times resuming at "
+                f"iteration {r + 1}; the uninterrupted run's {full[name]} "
+                f"less {PR_ITERS - ran} iterations x {per} is {expect}")
+    st = res["stats"]
+    rec_s = st["recovery_time_s"]
+    save_txt = ", ".join(
+        f"{s['save']} {s['bytes']} B in {s['seconds']:.4f} s = "
+        f"{s['bytes'] / s['seconds'] / 1e9:.3f} GB/s" for s in saves)
+    step_txt = "; ".join(
+        f"epoch {e['epoch']} saved: payloads off the card {e['payload_s']} "
+        f"s, CRC32 and writes {e['write_s']} s, manifest commit "
+        f"{e['commit_s']} s" if e["event"] == "checkpoint" else
+        f"epoch {e['epoch']} restored: reads, CRC32 and decode "
+        f"{e['read_s']} s, allocation and uploads issued {e['upload_s']} s"
+        for e in steps)
+    log(f"C1 pagerank resume W=4: {PAGES} pages, {len(edges)} edges, "
+        f"{PR_ITERS} iterations, Iterate(name='page_rank', checkpoint_every"
+        f"={CK_EVERY}): first child killed {kill_s:.3f} s after its start "
+        f"with {on_disk} committed; saves {save_txt}; resumed from "
+        f"{label}, ran {ran} iterations, ranks bit-equal to the "
+        f"uninterrupted run; launches {json.dumps(launches)} = the "
+        f"uninterrupted run's {json.dumps({k: full[k] for k in PR_PER_ITER})}"
+        f" less {PR_ITERS - ran} iterations x {json.dumps(PR_PER_ITER)}; "
+        f"epoch {epoch_bytes} bytes, restore recovery_time_s {rec_s} = "
+        f"{epoch_bytes / max(rec_s, 1e-9) / 1e9:.3f} GB/s; resume_skipped_"
+        f"ops {st['resume_skipped_ops']}, checkpoint_epochs "
+        f"{st['checkpoint_epochs']}; steps (the manager's log) {step_txt}; "
+        f"resumed page_rank {res['seconds']:.3f} "
+        f"s against the uninterrupted {full_secs:.3f} s (host clock) "
+        f"[{card}]")
+    return launches
+
+
+def ckpt_sort_phase(torch, np, tt, pk, ps, card):
+    """C2: H6's external Sort with a checkpoint directory; a child is
+    killed once C2_KILL_RUNS run manifests are committed. Then, one
+    after another here: the Sort with no checkpoint directory and with a
+    fresh one (the run store's cost: every run committed, none reused),
+    and the relaunch with resume=True, which must reuse at least the
+    committed runs. Each must equal sorted(). Returns the relaunch's
+    launches."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.common.config import Config
+    host = f"host {cpu_line()}; card idle; {card}"
+    d = tempfile.mkdtemp(prefix="c2_ckpt_")
+    try:
+        pattern = os.path.join(d, "ckpt", "em_runs", "*", "run_*.json")
+        kill_s = kill_when(
+            spawn_ckpt_child("sort", d, False),
+            lambda: len(manifests(pattern)) >= C2_KILL_RUNS, d, "sort0",
+            "C2 first run")
+        committed = len(manifests(pattern))
+        lines = h6_lines(np)
+        want = sorted(lines, key=lambda s: s[:10])
+        runs = {}
+        # the relaunch spills where the killed child did, as a user's would
+        for tag, ckpt, spill, resume in (
+                ("no store", None, "spill_plain", False),
+                ("fresh store", "ckpt_fresh", "spill_fresh", False),
+                ("resumed", "ckpt", "spill", True)):
+            with EnvSet(THRILL_TPU_HOST_SORT_RUN=str(H6_RUN),
+                        THRILL_TPU_SPILL_RESIDENT=H6_RESIDENT):
+                ctx = tt.Context(num_workers=4, device=DEVICE, config=Config(
+                    spill_dir=os.path.join(d, spill),
+                    ckpt_dir=os.path.join(d, ckpt) if ckpt else ""),
+                    resume=resume)
+                zero_launches(pk, ps)
+                t0 = time.perf_counter()
+                lists, st, stats = h6_sort(ctx, lines)
+                secs = time.perf_counter() - t0
+                launches = read_launches(pk, ps)
+            flat = [it for l in lists for it in l]
+            del lists
+            if flat != want:
+                raise AssertionError(f"C2: the Sort ({tag}) differs from "
+                                     f"sorted()")
+            runs[tag] = (st, stats, secs)
+        fresh = len(manifests(os.path.join(d, "ckpt_fresh", "em_runs", "*",
+                                           "run_*.json")))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    st, stats, _ = runs["resumed"]
+    if st["runs_reused"] < committed or \
+            stats["resume_skipped_runs"] != st["runs_reused"] or \
+            runs["fresh store"][0]["runs_reused"] != 0 or \
+            fresh != runs["fresh store"][0]["runs"]:
+        raise AssertionError(f"C2: {committed} runs committed before the "
+                             f"kill, the relaunch reused {st['runs_reused']}"
+                             f" (resume_skipped_runs "
+                             f"{stats['resume_skipped_runs']}), the fresh "
+                             f"store reused "
+                             f"{runs['fresh store'][0]['runs_reused']} and "
+                             f"committed {fresh} of "
+                             f"{runs['fresh store'][0]['runs']}")
+    each = "; ".join(
+        f"{tag}: run formation {r[0]['spill_s']} s, merge {r[0]['merge_s']} "
+        f"s, Sort {r[2]:.3f} s" for tag, r in runs.items())
+    log(f"C2 em sort resume W=4: {H6_LINES} lines, runs of {H6_RUN}; "
+        f"first child killed {kill_s:.3f} s after its start with "
+        f"{committed} runs committed; relaunch with resume=True equal to "
+        f"sorted(), runs_reused {st['runs_reused']} of {st['runs']} "
+        f"(resume_skipped_runs {stats['resume_skipped_runs']}); the fresh "
+        f"store committed {fresh} runs; run one "
+        f"after another, each equal to sorted(): {each} (host clock) "
+        f"[{host}]")
+    return launches
+
+
+def ckpt_wordcount_phase(torch, np, tt, pk, ps, card):
+    """C3: WordCount W=4 of phase 4 with Checkpoint() after its
+    ReduceByKey; a child is killed once the epoch is committed, and the
+    job resumed here skips the reduce: resume_skipped_ops > 0, no B4
+    launch, counts equal to np.bincount. Returns its launches."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.common.config import Config
+    d = tempfile.mkdtemp(prefix="c3_ckpt_")
+    try:
+        kill_s = kill_when(
+            spawn_ckpt_child("wordcount", d, False),
+            lambda: manifests(os.path.join(d, "ckpt", "epoch_*",
+                                           "MANIFEST.json")), d,
+            "wordcount0", "C3 first run")
+        voc, recs, want = wordcount_records(torch, np, 4)
+        torch.cuda.synchronize()
+        ctx = tt.Context(num_workers=4, device=DEVICE,
+                         config=Config(ckpt_dir=os.path.join(d, "ckpt")),
+                         resume=True)
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        out = wordcount_checkpointed(tt, ctx, recs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launches(pk, ps)
+        stats = ctx.overall_stats()
+        ctx.close()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    distinct = check_wordcount(np, "C3 resumed WordCount", out, voc, want)
+    if stats["resume_skipped_ops"] <= 0 or launches["presence_fill"] != 0:
+        raise AssertionError(f"C3: the resume skipped "
+                             f"{stats['resume_skipped_ops']} ops and "
+                             f"launched presence_fill "
+                             f"{launches['presence_fill']} times")
+    log(f"C3 wordcount Checkpoint() resume W=4: first child killed "
+        f"{kill_s:.3f} s after its start with its epoch committed; the "
+        f"resumed job equal to np.bincount ({distinct} distinct words), "
+        f"resume_skipped_ops {stats['resume_skipped_ops']}, "
+        f"recovery_time_s {stats['recovery_time_s']}, launches "
+        f"{json.dumps(launches)}; {secs:.3f} s (host clock, restore and "
+        f"AllGatherArrays) [{card}]")
+    return launches
+
 
 
 M1_CHILD = """
@@ -3352,6 +3781,10 @@ def main() -> int:
         return 2
     if "--m1-compare" in sys.argv:
         return m1_compare(sys.argv[sys.argv.index("--m1-compare") + 1])
+    if "--ckpt-child" in sys.argv:
+        i = sys.argv.index("--ckpt-child")
+        return ckpt_child(sys.argv[i + 1], sys.argv[i + 2],
+                          sys.argv[i + 3] == "1")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
@@ -3445,10 +3878,18 @@ def main() -> int:
     del recs4, order4
     edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
     m2 = mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card)
-    del edges
     log(f"memory phases (M1-M3): {time.perf_counter() - t_mem:.1f} s of "
         f"host clock, the numpy references included [host {cpu_line()}; "
         f"{card}]")
+    t_ck = time.perf_counter()
+    torch.cuda.empty_cache()
+    c1 = ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card)
+    del edges
+    c2 = ckpt_sort_phase(torch, np, tt, pk, ps, card)
+    c3 = ckpt_wordcount_phase(torch, np, tt, pk, ps, card)
+    log(f"checkpoint phases (C1-C3): {time.perf_counter() - t_ck:.1f} s of "
+        f"host clock, child processes and references included [host "
+        f"{cpu_line()}; {card}]")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -3531,7 +3972,9 @@ def main() -> int:
              **{f"ordered fold {k}": v[0] for k, v in sites.items()},
              "M1 spill/restore W=4": m1, "M2 pagerank cut W=4": m2,
              "M3a sort OOM retry W=4": m3a,
-             "M3b sort admission W=4": m3b}
+             "M3b sort admission W=4": m3b,
+             "C1 pagerank resume W=4": c1, "C2 em sort resume W=4": c2,
+             "C3 wordcount Checkpoint resume W=4": c3}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -96,7 +96,9 @@ def test_block_pool_spills_past_its_soft_limit_and_restores(tmp_path):
         assert n.startswith(f"ttpu-blk-{os.getpid()}-") and \
             n.endswith(f"-{host}.spill")
     # the oldest blocks went first; every block reads back
-    assert {int(n.split("-")[4]) for n in names} == set(ids[:len(names)])
+    # (each spill names its file <block>.<seq>, fault C13)
+    assert {int(n.split("-")[4].split(".")[0]) for n in names} == \
+        set(ids[:len(names)])
     assert [pool.get(i) for i in ids] == blocks
     pool.drop(ids[0])
     with pytest.raises(KeyError):
@@ -114,7 +116,8 @@ def test_block_pool_pins_and_shared_views(tmp_path):
 
     def on_disk():
         pool.flush()
-        return {int(n.split("-")[4]) for n in os.listdir(tmp_path)}
+        return {int(n.split("-")[4].split(".")[0])
+                for n in os.listdir(tmp_path)}
 
     assert first not in on_disk()          # pinned: never evicted
     pool.unpin(first)                      # the most recently used now
@@ -153,6 +156,31 @@ def test_purge_stale_spills_reclaims_dead_owners_only(tmp_path):
         (tmp_path / n).write_bytes(b"z")
     assert tbp.purge_stale_spills(str(tmp_path)) == 1
     assert sorted(os.listdir(tmp_path)) == sorted(names[1:])
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_purge_stale_spills_reads_the_per_spill_names(tmp_path, native):
+    """The port names each spill ``<block>.<seq>`` inside the block
+    field: a dead pid's file under that name goes, a live one stays."""
+    host = tbp._sanitized_host()
+    dead = 2 ** 22 + 12345
+    pool = tbp.BlockPool(spill_dir=str(tmp_path), soft_limit=1024,
+                         use_native=native)
+    ids = [pool.put(bytes([i]) * 1024) for i in range(3)]
+    pool.flush()
+    live = sorted(os.listdir(tmp_path))
+    assert len(live) == 2
+    for n in live:
+        fields = n[:-len(".spill")].split("-")
+        block, seq = fields[4].split(".")
+        assert int(block) in ids and int(seq) >= 1
+    stale = f"ttpu-blk-{dead}-0x1-7.3-{host}.spill"
+    (tmp_path / stale).write_bytes(b"z")
+    assert tbp.purge_stale_spills(str(tmp_path)) == 1
+    assert sorted(os.listdir(tmp_path)) == live
+    assert jbp.purge_stale_spills(str(tmp_path)) == 0
+    pool.close()
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("block_items", [1, 7, 4096])

@@ -795,3 +795,97 @@ def test_float_sums_on_the_card_are_the_cpus_bits_run_after_run(
         for k in ("v", "w", "x"):
             assert got[k].cpu().numpy().tobytes() == \
                 want[k].numpy().tobytes(), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_a_device_epoch_saves_and_restores_through_the_ring(cuda_device, W,
+                                                            tmp_path):
+    """A device node sealed on the card leaves it through the governor's
+    pinned staging ring and comes back through it on resume: the shard
+    files equal the CPU run's byte for byte, and the restored leaves
+    every bit of the originals (NaN payloads, top-bit int64, bools, byte
+    rows), rows past each count zero."""
+    from thrill_tpu_torch.common.config import Config
+    rng = np.random.default_rng(12)
+    n = 70_001
+    f32 = rng.standard_normal(n).astype(np.float32)
+    f32.view(np.uint32)[::5] = 0x7fc00001
+    data = {"k": rng.integers(-2**63, 2**63 - 1, n, dtype=np.int64),
+            "f": f32, "b": rng.integers(0, 2, n).astype(bool),
+            "r": rng.integers(0, 256, (n, 10)).astype(np.uint8)}
+
+    def job(ctx):
+        got = ctx.Distribute(data).Checkpoint("ring").AllGatherArrays()
+        return ({k: v.cpu().numpy() for k, v in got.items()},
+                ctx.overall_stats())
+
+    dirs = {dev: tmp_path / dev for dev in ("cpu", "cuda")}
+    for dev, d in dirs.items():
+        tt.Run(job, W, device=dev, config=Config(ckpt_dir=str(d)))
+    files = sorted(p.name for p in (dirs["cpu"] / "epoch_000000").iterdir())
+    assert files == sorted(
+        p.name for p in (dirs["cuda"] / "epoch_000000").iterdir())
+    for name in files:
+        assert (dirs["cpu"] / "epoch_000000" / name).read_bytes() == \
+            (dirs["cuda"] / "epoch_000000" / name).read_bytes(), name
+    # the card's epoch restored on the card and on the CPU
+    for dev in (cuda_device, "cpu"):
+        got, stats = tt.Run(job, W, device=dev,
+                            config=Config(ckpt_dir=str(dirs["cuda"])),
+                            resume=True)
+        assert stats["resume_skipped_ops"] == 1
+        assert stats["recovery_time_s"] > 0
+        for k, want in data.items():
+            assert got[k].tobytes() == want.tobytes(), k
+
+
+@pytest.mark.gpu
+def test_a_restored_device_epoch_pads_with_zeros(cuda_device, tmp_path):
+    from thrill_tpu_torch.api.checkpoint import CheckpointManager
+    from thrill_tpu_torch.common.config import Config
+    ctx = tt.Context(num_workers=4, device=cuda_device,
+                     config=Config(ckpt_dir=str(tmp_path)))
+    d = ctx.Distribute(np.arange(1, 10, dtype=np.int64)).Checkpoint()
+    d.Execute()
+    ctx.close()
+    ctx = tt.Context(num_workers=4, device=cuda_device,
+                     config=Config(ckpt_dir=str(tmp_path)), resume=True)
+    assert isinstance(ctx.checkpoint, CheckpointManager)
+    shards = ctx.Distribute(np.arange(1, 10, dtype=np.int64)).Checkpoint() \
+        .node.materialize()
+    assert shards.tree.device.type == "cuda"
+    host = shards.tree.cpu().numpy()
+    for w, c in enumerate(shards.counts):
+        assert (host[w, c:] == 0).all()
+    assert sorted(host[host > 0].tolist()) == list(range(1, 10))
+    ctx.close()
+
+
+@pytest.mark.gpu
+def test_a_loop_resumes_on_the_card(cuda_device, tmp_path):
+    """Iterate(checkpoint_every=2) on the card: the resumed run restores
+    the newest loop epoch, runs the iterations after it alone and gives
+    the uninterrupted run's bits, which are the CPU's."""
+    from thrill_tpu_torch.common.config import Config
+    runs = []
+
+    def job(ctx):
+        def body(d):
+            runs.append(1)
+            return d.Map(lambda x: x * 0.5 + 1.0)
+
+        d = ctx.Distribute(np.linspace(0.0, 1.0, 1001))
+        out = tt.Iterate(ctx, body, d, 6, name="gpu_loop",
+                         checkpoint_every=2)
+        return out.AllGatherArrays().cpu().numpy()
+
+    cfg = Config(ckpt_dir=str(tmp_path))
+    want = tt.Run(job, 4, device=cuda_device, config=cfg)
+    assert len(runs) == 6
+    runs.clear()
+    got = tt.Run(job, 4, device=cuda_device, config=cfg, resume=True)
+    assert len(runs) == 2
+    assert got.tobytes() == want.tobytes()
+    cpu = tt.Run(job, 4, device="cpu")
+    assert got.tobytes() == cpu.tobytes()

@@ -7,6 +7,9 @@ per-worker counts and carried values must be equal: integers bit for
 bit, floats within ``1e-12`` (f64 sums that may associate differently).
 """
 
+import json
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,11 +106,109 @@ def test_iterate_with_a_pytree_carry(W):
 
 
 def test_iterate_zero_times_and_refusals():
+    """No iteration returns the carry; ``checkpoint_every`` with a
+    pytree carry is refused up front, as in the reference
+    (``test_checkpoint_every_rejects_pytree_carry``)."""
     ctx = tt.Context(num_workers=2, device="cpu")
     d = ctx.Generate(5)
     assert tt.Iterate(ctx, lambda x: x.Map(lambda v: v + 1), d, 0) is d
-    with pytest.raises(NotImplementedError, match="checkpoint.*item 5"):
-        tt.Iterate(ctx, lambda x: x, d, 3, checkpoint_every=1)
+    with pytest.raises(ValueError, match="checkpoint_every"):
+        tt.Iterate(ctx, lambda x: x, torch.arange(4.0), 3,
+                   checkpoint_every=2)
+    jctx = _jax_ctx(1)
+    try:
+        with pytest.raises(ValueError, match="checkpoint_every"):
+            JIterate(jctx, lambda x: x, jnp.arange(4.0), 3,
+                     checkpoint_every=2)
+    finally:
+        jctx.close()
+
+
+def _step_half(x):
+    return x * 0.5 + 1.0
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+def test_checkpoint_every_without_a_manager_seals_nothing(W, tmp_path,
+                                                         monkeypatch):
+    """The reference's ``test_fori_with_checkpoint_every_but_no_manager``:
+    no checkpoint directory, so no epoch and the plain loop's values."""
+    monkeypatch.delenv("THRILL_TPU_CKPT_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    vals = np.arange(32, dtype=np.float64)
+    outs = []
+    for ctx, iterate in ((_jax_ctx(W), JIterate),
+                         (tt.Context(num_workers=W, device="cpu"),
+                          tt.Iterate)):
+        try:
+            out = iterate(ctx, lambda d: d.Map(_step_half),
+                          ctx.Distribute(vals), 5, name="nockpt",
+                          checkpoint_every=2)
+            outs.append([float(x) for x in out.AllGather()])
+            assert getattr(ctx, "checkpoint", None) is None
+        finally:
+            ctx.close()
+    want = vals.copy()
+    for _ in range(5):
+        want = want * 0.5 + 1.0
+    assert outs[0] == outs[1] == want.tolist()
+    assert os.listdir(tmp_path) == []
+
+
+_BODY_RUNS = []
+
+
+def _ckpt_job(ctx, iterate):
+    def body(d):
+        _BODY_RUNS.append(1)
+        return d.Map(_step_half)
+
+    d = ctx.Distribute(np.arange(32, dtype=np.float64))
+    out = iterate(ctx, body, d, 6, name="ckpt_loop", checkpoint_every=2)
+    return [float(x) for x in out.AllGather()]
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+def test_loop_checkpoint_resume(W, tmp_path, monkeypatch):
+    """The reference's ``test_loop_checkpoint_resume``: epochs sealed
+    after iterations 2 and 4; the resumed run restores the newest and
+    runs iterations 5 and 6 alone, bit-equal to the reference's resumed
+    run, with the same epoch files."""
+    from thrill_tpu.common.config import Config as JConfig
+    from thrill_tpu_torch.common.config import Config as TConfig
+
+    monkeypatch.setenv("THRILL_TPU_LOOP_REPLAY", "0")
+    runs = {}
+    for side in ("j", "t"):
+        cfg = (JConfig if side == "j" else TConfig)(
+            ckpt_dir=str(tmp_path / side))
+        for resume in (False, True):
+            _BODY_RUNS.clear()
+            if side == "j":
+                ctx = JContext(JMeshExec(num_workers=W), config=cfg,
+                               resume=resume)
+                try:
+                    out = _ckpt_job(ctx, JIterate)
+                finally:
+                    ctx.close()
+            else:
+                out = tt.Run(lambda c: _ckpt_job(c, tt.Iterate), W,
+                             device="cpu", config=cfg, resume=resume)
+            runs[side, resume] = (out, len(_BODY_RUNS))
+    assert runs["t", False] == runs["j", False]
+    assert runs["t", True] == runs["j", True]
+    assert runs["t", False][1] == 6 and runs["t", True][1] == 2
+    assert runs["t", True][0] == runs["t", False][0]
+    for side in ("j", "t"):
+        assert sorted(os.listdir(tmp_path / side)) == [
+            "epoch_000000", "epoch_000001"]
+    for rel in ("epoch_000001/MANIFEST.json",
+                "epoch_000001/n0.w0.bin"):
+        a = (tmp_path / "j" / rel).read_bytes()
+        b = (tmp_path / "t" / rel).read_bytes()
+        if rel.endswith(".json"):
+            a, b = json.loads(a), json.loads(b)
+        assert a == b
 
 
 def test_iterate_frees_each_iteration_and_keeps_kept_sources():

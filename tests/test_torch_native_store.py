@@ -24,6 +24,12 @@ def _blocks(n, size=BLOCK, seed=0):
     return [rng.bytes(size) for _ in range(n)]
 
 
+def _block_of(name):
+    """The block id in a spill file's name: ``<block>`` in the
+    reference's, ``<block>.<seq>`` in the port's."""
+    return int(name.split("-")[4].split(".")[0])
+
+
 def _pools(tmp_path):
     """(name, pool) of the port's native and Python stores and the
     reference's store, each in a directory of its own."""
@@ -61,7 +67,7 @@ def test_put_get_spill_and_read_back_equal_across_stores(tmp_path):
         host = tbp._sanitized_host()
         assert all(f.startswith(f"ttpu-blk-{os.getpid()}-")
                    and f.endswith(f"-{host}.spill") for f in files)
-        on_disk = {int(f.split("-")[4]): (d / f).read_bytes() for f in files}
+        on_disk = {_block_of(f): (d / f).read_bytes() for f in files}
         assert set(on_disk) == set(ids[:16])
         assert all(on_disk[i] == blocks[ids.index(i)] for i in on_disk)
         assert [pool.get(i) for i in ids] == blocks
@@ -104,7 +110,7 @@ def test_pins_keep_blocks_in_ram_and_refcounts_share_them(tmp_path, native):
 
     def on_disk():
         pool.flush()
-        return {int(n.split("-")[4]) for n in os.listdir(tmp_path)}
+        return {_block_of(n) for n in os.listdir(tmp_path)}
 
     first = pool.put(b"x" * BLOCK)
     pool.pin(first)
@@ -221,5 +227,38 @@ def test_concurrent_puts_gets_and_drops_keep_every_block(tmp_path, native):
     finally:
         sys.setswitchinterval(old)
     assert errors == []
+    pool.close()
+    assert os.listdir(tmp_path) == []
+
+
+def test_a_respill_while_the_cancelled_write_is_in_flight_keeps_its_file(
+        tmp_path):
+    """Fault C13: a block whose spill is in flight is pinned (the write
+    is cancelled), unpinned and spilled again before the writer thread
+    finishes the first write. The writer then deletes the cancelled
+    request's file, which must not be the new spill's. The store's
+    writer hold makes the window deterministic."""
+    import time
+
+    pool = tbp.BlockPool(spill_dir=str(tmp_path), soft_limit=BLOCK)
+    lib, h = pool._lib, pool._h
+    a_bytes, b_bytes, c_bytes = _blocks(3, seed=5)
+    lib.bs_hold_writer(h, 1)
+    a = pool.put(a_bytes)
+    b = pool.put(b_bytes)                  # over the limit: a's write
+    deadline = time.monotonic() + 10
+    while lib.bs_hold_writer(h, -1) != 1:  # ... is taken by the writer
+        assert time.monotonic() < deadline
+        time.sleep(0.001)
+    pool.pin(a)                            # cancels the write in flight
+    pool.unpin(a)                          # b goes to disk in its place
+    pool.put(c_bytes)                      # a again, on this thread
+    assert not pool.resident(a)
+    lib.bs_hold_writer(h, 0)
+    pool.flush()
+    files_of_a = [f for f in os.listdir(tmp_path) if _block_of(f) == a]
+    assert len(files_of_a) == 1
+    assert (tmp_path / files_of_a[0]).read_bytes() == a_bytes
+    assert pool.get(a) == a_bytes and pool.get(b) == b_bytes
     pool.close()
     assert os.listdir(tmp_path) == []

@@ -1,10 +1,12 @@
 """The runtime handle passed to user jobs (counterpart of a minimal
-reference package's ``api/context.py``: no service plane, checkpoints,
-elasticity or host group). Sources take ``storage`` "device" (columnar
-tensors) or "host" (per-worker Python lists); None infers it as the
-reference does. A Context owns the JSON event log (``logger``), the HBM
-governor (``hbm``, mem/hbm.py) and the memory-pressure ladder
-(``pressure``, mem/pressure.py); ``close()`` frees the spill store."""
+reference package's ``api/context.py``: no service plane, elasticity or
+host group). Sources take ``storage`` "device" (columnar tensors) or
+"host" (per-worker Python lists); None infers it as the reference does.
+A Context owns the JSON event log (``logger``), the HBM governor
+(``hbm``, mem/hbm.py), the memory-pressure ladder (``pressure``,
+mem/pressure.py) and, when a checkpoint directory is set, the
+checkpoint manager (``checkpoint``, api/checkpoint.py); ``close()``
+frees the spill store."""
 
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ class Context:
 
     def __init__(self, mesh_exec: Optional[MeshExec] = None,
                  num_workers: int = 1, device: DeviceLike = None,
-                 config: Optional[Config] = None) -> None:
+                 config: Optional[Config] = None,
+                 resume: bool = False) -> None:
         self.mesh_exec = mesh_exec or MeshExec(num_workers=num_workers,
                                                device=device)
         self.config = config or Config.from_env()
@@ -40,14 +43,27 @@ class Context:
             faults.REGISTRY.set_logger(self.logger.line)
         self.hbm = HbmGovernor(self, limit=self.config.hbm_limit)
         self.pressure = PressureMonitor(self.mesh_exec, governor=self.hbm)
+        self._aborted = False
+        # checkpoints and resume: None, and nothing made on disk, unless
+        # a checkpoint directory is set
+        self.checkpoint = None
+        if self.config.ckpt_dir:
+            from .checkpoint import CheckpointManager
+            self.checkpoint = CheckpointManager(
+                self, self.config.ckpt_dir,
+                resume=resume or self.config.resume,
+                auto=self.config.ckpt_auto)
 
     @property
     def num_workers(self) -> int:
         return self.mesh_exec.num_workers
 
     def _register_node(self, node) -> int:
+        # ids count from 0 in construction order, as the reference's do:
+        # checkpoint epochs and sort run stores are named by them
+        nid = self._next_id
         self._next_id += 1
-        return self._next_id
+        return nid
 
     # -- memory grants (reference: the StageBuilder's DIAMemUse split,
     # api/dia_base.cpp:121-270). A node negotiates as its compute starts
@@ -140,9 +156,11 @@ class Context:
         (OverallStats): the mesh's exchange traffic, the nodes created,
         the HBM governor's ledger peak (``hbm_peak``: the most bytes of
         cached device results at once, not the allocator's peak), its
-        spills and restores, and the pressure ladder's counters."""
+        spills and restores, the pressure ladder's counters and, with a
+        checkpoint manager, its five (epochs, bytes written, ops and
+        sort runs skipped by resume, restore seconds)."""
         mex = self.mesh_exec
-        return {
+        stats = {
             "workers": self.num_workers,
             "nodes_created": self._next_id,
             "exchanges": mex.stats_exchanges,
@@ -153,6 +171,14 @@ class Context:
             "hbm_restores": self.hbm.restore_count,
             **self.pressure.stats(),
         }
+        if self.checkpoint is not None:
+            stats.update(self.checkpoint.stats())
+        return stats
+
+    def note_failure(self, exc: BaseException) -> None:
+        """The job raised ``exc``: ``close()`` then drops this run's
+        uncommitted epoch and the spill files of dead processes."""
+        self._aborted = True
 
     def close(self) -> None:
         """Log the stats, detach the log and free the spill store (a
@@ -163,15 +189,28 @@ class Context:
             faults.REGISTRY.set_logger(None)
         self.logger.close()
         self.hbm.close()
+        if self._aborted:
+            if self.checkpoint is not None:
+                self.checkpoint.abort_cleanup()
+            from ..data.block_pool import purge_stale_spills
+            purge_stale_spills(self.config.spill_dir)
 
 
 def Run(job: Callable[[Context], Any], num_workers: int = 1,
-        device: DeviceLike = None) -> Any:
+        device: DeviceLike = None, config: Optional[Config] = None,
+        resume: bool = False) -> Any:
     """Run ``job`` on a fresh Context of ``num_workers`` workers; the
-    Context is closed when the job ends, however it ends."""
-    ctx = Context(num_workers=num_workers, device=device)
+    Context is closed when the job ends, however it ends.
+    ``resume=True`` (or ``THRILL_TPU_RESUME=1``) restores the newest
+    committed epoch of the configured checkpoint directory, and only
+    the work after it runs again (api/checkpoint.py)."""
+    ctx = Context(num_workers=num_workers, device=device, config=config,
+                  resume=resume)
     try:
         return job(ctx)
+    except BaseException as e:
+        ctx.note_failure(e)
+        raise
     finally:
         ctx.close()
 

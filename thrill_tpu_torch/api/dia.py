@@ -214,6 +214,15 @@ class DIA:
         from .ops import cache as _ca
         return _ca.Collapse(self)
 
+    def Checkpoint(self, name: Optional[str] = None) -> "DIA":
+        """Materialize here and seal the result into a durable epoch
+        when a checkpoint directory is set (api/checkpoint.py); a resumed
+        run reloads the newest committed epoch and skips this node's
+        upstream graph. Without a directory this is a plain
+        materialization barrier."""
+        from .checkpoint import make_checkpoint_node
+        return make_checkpoint_node(self, name)
+
     def Execute(self) -> "DIA":
         self.node.materialize()
         return self

@@ -1,5 +1,5 @@
 """DIA graph nodes (counterpart of the reference package's
-``api/dia_base.py``, without fusion or checkpoints).
+``api/dia_base.py``, without fusion).
 
 An action materializes its parent, which recursively computes its own
 parents. A result stays cached on its node until its consume budget is
@@ -14,6 +14,11 @@ retry (``mem/pressure.py``), the HBM governor's ledger after it
 cached pull (``hbm.touch``), and ``hbm.on_release`` when a result is
 consumed or disposed (``mem/hbm.py``). Each pull inside a compute is
 memoised for the retry and admitted against the budget.
+
+With a checkpoint manager (api/checkpoint.py) a node the resume epoch
+holds is rebuilt from it instead of computed, so its upstream graph is
+never pulled; with ``THRILL_TPU_CKPT_AUTO=1`` a freshly computed result
+is sealed into an epoch.
 """
 
 from __future__ import annotations
@@ -94,15 +99,22 @@ class DIABase:
         ctx = self.context
         hbm = ctx.hbm
         if self._shards is None:
-            pres = ctx.pressure
-            if pres.enabled:
-                pres.admit_stage(self)
-            negotiated = ctx.negotiate_mem(self)
-            try:
-                self._shards = pres.compute(self)
-            finally:
-                if negotiated:
-                    ctx.release_mem(self)
+            mgr = getattr(ctx, "checkpoint", None)
+            restored = mgr.try_restore(self) if mgr is not None else None
+            if restored is not None:
+                self._shards = restored
+            else:
+                pres = ctx.pressure
+                if pres.enabled:
+                    pres.admit_stage(self)
+                negotiated = ctx.negotiate_mem(self)
+                try:
+                    self._shards = pres.compute(self)
+                finally:
+                    if negotiated:
+                        ctx.release_mem(self)
+                if mgr is not None:
+                    mgr.maybe_autosave(self, self._shards)
             self.state = EXECUTED
             if not (consume and self.consume_budget <= 1):
                 # a result this very pull releases is never worth

@@ -182,17 +182,20 @@ class SortNode(DIABase):
         merge reads one block ahead a run (``THRILL_TPU_PREFETCH``) and
         appends straight into the partitioned output. When the input was
         consumed by this pull, its lists are emptied as they spill.
+        With a checkpoint manager each spilled run is also committed to
+        a run store (``core/em_runs.py``), and a resumed run loads a
+        committed run that matches instead of forming it.
         ``self._em_stats`` reports runs, engine, records blocks, runs
-        reused (0: no run store yet), seconds, overlap and bytes."""
+        reused, seconds, overlap and bytes."""
         from ...common import faults
         from ...common.iostats import IO as _IOSTATS, hit_rate, \
             overlap_frac
         from ...common.sampling import ReservoirSamplingGrow
-        from ...core import native_merge, order_key
+        from ...core import em_runs, native_merge, order_key
         from ...core.multiway_merge import multiway_merge_files
         from ...data import records as native_records
         from ...data.block_pool import spill_pool
-        from ...data.file import File
+        from ...data.file import DEFAULT_BLOCK_ITEMS, File
         from ...data.writeback import AsyncWriter, make_readahead
         from ...mem.manager import RssBudget
         from ...vfs.file_io import prefetch_depth
@@ -200,6 +203,10 @@ class SortNode(DIABase):
         owns_input = self.parents[0].node.state == "DISPOSED"
         io_base = _IOSTATS.snapshot()
         pool = spill_pool(self.context.config.spill_dir, self.mem_limit)
+        # None without a checkpoint manager or with THRILL_TPU_EM_RESUME=0
+        run_store = em_runs.store_for(
+            self.context, node_id=self.id, label=self.label, W=W,
+            run_size=run_size, total=shards.total)
         sampler = ReservoirSamplingGrow(np.random.default_rng(17))
         pair_key = lambda t: (sort_key(t[1]), t[0])  # noqa: E731
         # the key engine: probed from the first item, demoted to None on
@@ -256,7 +263,7 @@ class SortNode(DIABase):
                     arrs[j] = buf.reshape(-1).view(f"S{W_}")
             return arrs[0] if len(arrs) == 1 else np.concatenate(arrs)
 
-        def _columnar_job(arrs, items_, p0, slot):
+        def _columnar_job(arrs, items_, p0, slot, meta=None):
             def job():
                 b0 = pool.bytes_put
                 arr = _widen_concat(arrs)
@@ -269,10 +276,12 @@ class SortNode(DIABase):
                 native_merge.write_key_chunks_fixed(kf, arr[order])
                 files[slot] = f
                 key_files[slot] = kf
+                if meta is not None:
+                    run_store.submit_commit(slot, *meta, f, kf)
                 return pool.bytes_put - b0
             return job
 
-        def _records_job(arrs, items_, p0, slot):
+        def _records_job(arrs, items_, p0, slot, meta=None):
             """The whole encode in the job: payload columns, the memcmp
             argsort, the gather of positions and payload into blocks (the
             native calls release the GIL). A failed encode (a schema
@@ -306,10 +315,12 @@ class SortNode(DIABase):
                     kf, native_records.gather_rows(arr, order))
                 files[slot] = f
                 key_files[slot] = kf
+                if meta is not None:
+                    run_store.submit_commit(slot, *meta, f, kf)
                 return pool.bytes_put - b0
             return job
 
-        def _encoded_job(this_run, slot):
+        def _encoded_job(this_run, slot, meta=None):
             def job():
                 b0 = pool.bytes_put
                 this_run.sort()          # kb unique (pos suffix)
@@ -321,13 +332,18 @@ class SortNode(DIABase):
                 native_merge.write_key_chunks(kf, [t[0] for t in this_run])
                 files[slot] = f
                 key_files[slot] = kf
+                if meta is not None:
+                    run_store.submit_commit(slot, *meta, f, kf)
                 return pool.bytes_put - b0
             return job
 
-        def _generic_job(this_run, slot):
+        def _generic_job(this_run, slot, meta=None):
             def job():
                 b0 = pool.bytes_put
-                files[slot] = _spill_run(pool, this_run, pair_key)
+                f = _spill_run(pool, this_run, pair_key)
+                files[slot] = f
+                if meta is not None:
+                    run_store.submit_commit(slot, *meta, f, None)
                 return pool.bytes_put - b0
             return job
 
@@ -338,18 +354,40 @@ class SortNode(DIABase):
             slot = len(files)
             files.append(None)
             key_files.append(None)
+            meta = None
+            if run_store is not None:
+                # the run's identity in arrival order, before its job
+                # sorts anything: (pos0, n, first item's fingerprint)
+                if col_items:
+                    p0, n_, first = col_pos0, len(col_items), col_items[0]
+                elif enc is not None:
+                    p0, n_, first = run[0][1], len(run), run[0][2]
+                else:
+                    p0, n_, first = run[0][0], len(run), run[0][1]
+                meta = (p0, n_, em_runs.fingerprint(first))
+                got = run_store.try_load(slot, *meta, pool,
+                                         DEFAULT_BLOCK_ITEMS)
+                if got is not None:
+                    # a run the previous launch committed: its blocks
+                    # stand in for the sort, serialize and write
+                    files[slot], key_files[slot] = got
+                    _IOSTATS.add(runs_reused=1)
+                    col_arrs.clear()
+                    col_items.clear()
+                    run = []
+                    return
             _IOSTATS.add(spill_runs=1)
             if col_items:
                 job = (_records_job if rec_enc is not None
                        else _columnar_job)
                 writer.submit(job(list(col_arrs), list(col_items),
-                                  col_pos0, slot), tag=slot)
+                                  col_pos0, slot, meta), tag=slot)
                 col_arrs.clear()
                 col_items.clear()
             elif enc is not None:
-                writer.submit(_encoded_job(run, slot), tag=slot)
+                writer.submit(_encoded_job(run, slot, meta), tag=slot)
             else:
-                writer.submit(_generic_job(run, slot), tag=slot)
+                writer.submit(_generic_job(run, slot, meta), tag=slot)
             run = []
 
         def demote():
@@ -428,8 +466,11 @@ class SortNode(DIABase):
             if run_len():
                 spill()
             # every run written (a writer error raises here, before the
-            # merge reads a run), then the store's own spills settled
+            # merge reads a run), every run's commit joined, then the
+            # store's own spills settled
             writer.flush()
+            if run_store is not None:
+                run_store.drain()
             pool.flush()
             t_phase1 = time.perf_counter()
 
@@ -485,6 +526,8 @@ class SortNode(DIABase):
                          wait_s=io_merge["io_wait_s"], depth=depth)
         finally:
             writer.close(drain=False)
+            if run_store is not None:
+                run_store.close()
             if ra is not None:
                 ra.shutdown(wait=True, cancel_futures=True)
             for f in files + key_files:

@@ -8,6 +8,9 @@ as the reference reads them.
     THRILL_TPU_HBM_LIMIT  budget of the cached device results (0 = none)
     THRILL_TPU_SPILL_DIR  directory of the spill store's files
     THRILL_TPU_LOG        JSON event-log path pattern (unset = off)
+    THRILL_TPU_CKPT_DIR   checkpoint epochs' directory (unset = off)
+    THRILL_TPU_RESUME     1: resume from the newest committed epoch
+    THRILL_TPU_CKPT_AUTO  1: seal every freshly computed op's result
 
 Sizes take SI and IEC suffixes ("64K", "1Gi", "2GB"). The spill
 directory defaults to the temporary directory (``TMPDIR``), not the
@@ -48,6 +51,11 @@ def _env_size(name: str) -> int:
     return parse_si_iec_units(v) if v else 0
 
 
+def _env_int(name: str, default: int = 0) -> int:
+    v = os.environ.get(name)
+    return int(v) if v not in (None, "") else default
+
+
 def _env_flag(name: str, default: bool = True) -> bool:
     v = os.environ.get(name)
     if v is None or v == "":
@@ -70,6 +78,13 @@ class Config:
     spill_dir: str = dataclasses.field(default_factory=tempfile.gettempdir)
     # JSON event-log path pattern (None = off; common/logger.py)
     log_path: Optional[str] = None
+    # checkpoint epochs' directory ("" = the checkpoint manager is off;
+    # api/checkpoint.py)
+    ckpt_dir: str = ""
+    # resume from the newest committed epoch (Run(resume=True) also)
+    resume: bool = False
+    # seal every freshly computed op's result, not only Checkpoint()s
+    ckpt_auto: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -78,4 +93,7 @@ class Config:
                       hbm_limit=_env_size("THRILL_TPU_HBM_LIMIT"),
                       spill_dir=(os.environ.get("THRILL_TPU_SPILL_DIR")
                                  or tempfile.gettempdir()),
-                      log_path=os.environ.get("THRILL_TPU_LOG") or None)
+                      log_path=os.environ.get("THRILL_TPU_LOG") or None,
+                      ckpt_dir=os.environ.get("THRILL_TPU_CKPT_DIR") or "",
+                      resume=bool(_env_int("THRILL_TPU_RESUME")),
+                      ckpt_auto=bool(_env_int("THRILL_TPU_CKPT_AUTO")))

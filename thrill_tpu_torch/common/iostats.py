@@ -15,12 +15,13 @@ overlap instead of inferring it from totals:
   writes; :func:`overlap_frac` is ``1 - io_wait_s / io_busy_s``;
 * ``writeback_bytes`` / ``writeback_queue_peak``: bytes written through
   write-behind and the deepest its queue got;
-* ``spill_runs``, ``prefetch_submits`` and ``records_blocks`` (sorted
-  runs handed to the spiller, readahead jobs submitted, columnar blocks
-  the records format encoded) are exact for a fixed program;
-  ``runs_reused`` stays 0 until resumable runs are ported. The
-  reference's ``restore_overlaps``, ``remote_gets`` and ``remote_puts``
-  wait for the sites that count them.
+* ``spill_runs``, ``prefetch_submits``, ``records_blocks`` and
+  ``runs_reused`` (sorted runs handed to the spiller, readahead jobs
+  submitted, columnar blocks the records format encoded, committed runs
+  a resumed Sort loaded instead of forming them, core/em_runs.py) are
+  exact for a fixed program; ``restore_overlaps`` counts checkpoint
+  restores that read a shard file ahead. The reference's
+  ``remote_gets`` and ``remote_puts`` wait for remote stores.
 
 Counters are process-global (the threads have no Context); a caller
 snapshots them and reports deltas.
@@ -32,7 +33,8 @@ import threading
 
 _COUNTERS = ("prefetch_hits", "prefetch_misses", "io_wait_s",
              "io_busy_s", "writeback_bytes", "spill_runs",
-             "prefetch_submits", "records_blocks", "runs_reused")
+             "prefetch_submits", "records_blocks", "runs_reused",
+             "restore_overlaps")
 
 
 class IoStats:
@@ -48,6 +50,7 @@ class IoStats:
         self.prefetch_submits = 0
         self.records_blocks = 0
         self.runs_reused = 0
+        self.restore_overlaps = 0
 
     def add(self, **kv) -> None:
         with self._lock:

@@ -11,9 +11,11 @@ store runs the same ladder: its evictions go through the write-behind
 of ``data/writeback.py`` (``THRILL_TPU_WRITEBACK=0`` writes them on the
 caller's thread), and a block leaves RAM only once its file is written.
 
-Spill files are named ``ttpu-blk-<pid>-<store>-<block>-<host>.spill``
-as the reference names them, so ``purge_stale_spills`` reclaims the
-files of dead processes of either package.
+Spill files are named ``ttpu-blk-<pid>-<store>-<block>.<seq>-<host>.spill``:
+the fields of the reference's names, with a per-spill sequence number
+inside the block field so that two spills of one block never share a
+file (fault C13). ``purge_stale_spills`` reads the pid and the host
+alone, so it reclaims the files of dead processes of either package.
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ def _load_native() -> Optional[ctypes.CDLL]:
                 ("bs_destroy", None, [vp]),
                 ("bs_flush", None, [vp]),
                 ("bs_pending", i64, [vp]),
+                ("bs_hold_writer", i64, [vp, ctypes.c_int]),
                 ("bs_put", i64, [vp, vp, i64]),
                 ("bs_size", i64, [vp, i64]),
                 ("bs_get", ctypes.c_int, [vp, i64, vp]),
@@ -145,6 +148,7 @@ class BlockPool:
         self._pins: Dict[int, int] = {}
         self._inflight: Dict[int, int] = {}     # block id -> bytes
         self._next = 1
+        self._spill_seq = 0
         self._mem = 0
         self._bytes_spilled = 0
         self._lock = threading.RLock()
@@ -152,9 +156,12 @@ class BlockPool:
 
     # -- the Python store's spill ladder ----------------------------------
     def _spill_path(self, block_id: int) -> str:
+        with self._lock:
+            self._spill_seq += 1
+            seq = self._spill_seq
         return os.path.join(
             self._spill_dir,
-            f"ttpu-blk-{os.getpid()}-{hex(id(self))}-{block_id}-"
+            f"ttpu-blk-{os.getpid()}-{hex(id(self))}-{block_id}.{seq}-"
             f"{self._host_tag}.spill")
 
     def _maybe_spill(self) -> None:

@@ -23,8 +23,9 @@ The template grammar: ``"x"`` is one scalar leaf and column (unboxed by
 bytes); ``"s"`` is an ASCII str leaf stored as an S column (1 byte a
 character) and cast back to str; ``("T", sub, ...)`` a tuple;
 ``("A", dstr, shape)`` a fixed-shape ndarray leaf stored as one column
-of ``|V{row_bytes}`` rows. The per-leaf codec of checkpoints
-(``serialize_leaves``) waits for them.
+of ``|V{row_bytes}`` rows. Checkpoint shard files hold one
+``serialize_leaves`` payload: the leaves of a worker's slice, each a
+length-prefixed ``_RAW`` batch of one array.
 """
 
 from __future__ import annotations
@@ -161,6 +162,73 @@ def deserialize_batch(data: bytes) -> List[Any]:
         return _build_items(tmpl, _cols_views(data, dstrs, shape_or_n,
                                               base, 0, shape_or_n))
     return pickle.loads(payload)
+
+
+def _leaf_prefix(dtype: np.dtype, shape: Tuple[int, ...]) -> bytes:
+    """What a leaves payload holds before an array's bytes: ``[u64
+    len]`` and the header of the ``_RAW`` batch of that one array
+    (``[u32 hlen]`` and the pickled ``(0, dtype_str, (1,) + shape)``)."""
+    header = pickle.dumps((_RAW, dtype.str, (1,) + shape))
+    nbytes = dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+    return struct.pack("<QI", 4 + len(header) + nbytes, len(header)) + \
+        header
+
+
+def pack_leaves(specs, buffers) -> bytearray:
+    """The :func:`serialize_leaves` payload of arrays given as their
+    ``(dtype, shape)`` specs and, in the same order, their bytes in C
+    order. ``buffers`` is iterated once, each buffer copied into the
+    payload before the next is asked for (a staging slot that held it
+    may then be reused)."""
+    specs = [(np.dtype(dt), tuple(int(x) for x in shape))
+             for dt, shape in specs]
+    prefixes = [_leaf_prefix(dt, shape) for dt, shape in specs]
+    sizes = [dt.itemsize * int(np.prod(shape, dtype=np.int64))
+             for dt, shape in specs]
+    buf = bytearray(4 + sum(len(p) for p in prefixes) + sum(sizes))
+    view = memoryview(buf)
+    struct.pack_into("<I", buf, 0, len(specs))
+    off = 4
+    it = iter(buffers)
+    for p, size in zip(prefixes, sizes):
+        view[off:off + len(p)] = p
+        off += len(p)
+        raw = memoryview(next(it)).cast("B")
+        if len(raw) != size:
+            raise ValueError(f"leaf buffer of {len(raw)} bytes, its spec "
+                             f"says {size}")
+        view[off:off + size] = raw
+        off += size
+    return buf
+
+
+def serialize_leaves(leaves: List[np.ndarray]) -> bytearray:
+    """An ordered list of arrays as one payload: ``[u32 n]`` and then,
+    a leaf at a time, ``[u64 len]`` and the ``_RAW`` batch of that one
+    array (the reference's bytes; api/checkpoint.py writes one a node
+    and worker). The arrays' memory is copied once, into the payload."""
+    leaves = [np.ascontiguousarray(leaf) for leaf in leaves]
+    return pack_leaves([(leaf.dtype, leaf.shape) for leaf in leaves],
+                       (leaf.reshape(-1).view(np.uint8) for leaf in leaves))
+
+
+def deserialize_leaves(data: bytes) -> List[np.ndarray]:
+    """The arrays of a :func:`serialize_leaves` payload, views of
+    ``data``."""
+    data = memoryview(data)
+    (n,) = struct.unpack_from("<I", data, 0)
+    pos = 4
+    leaves: List[np.ndarray] = []
+    for _ in range(n):
+        (plen,) = struct.unpack_from("<Q", data, pos)
+        pos += 8
+        batch = deserialize_batch(data[pos:pos + plen])
+        pos += plen
+        if len(batch) != 1:
+            raise ValueError(f"corrupt leaf payload: {len(batch)} items "
+                             f"in a 1-item batch")
+        leaves.append(np.asarray(batch[0]))
+    return leaves
 
 
 def deserialize_slice(data: bytes, lo: int, hi: int) -> List[Any]:

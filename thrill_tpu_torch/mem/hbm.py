@@ -107,6 +107,64 @@ class StagingRing:
         """The slot is read by work before ``event`` (an upload)."""
         self.events[slot] = event
 
+    def download(self, srcs: List[torch.Tensor]):
+        """Yield the bytes of each card tensor of ``srcs`` as a uint8
+        numpy view of a pinned slot: tensor k+1 leaves the card on a
+        side stream while the caller reads tensor k, whose view holds
+        until the caller asks for the next one."""
+        if not srcs:
+            return
+        dev = srcs[0].device
+        self.reserve(max(t.numel() * t.element_size() for t in srcs))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+
+        def issue(t):
+            # its slot's last view was read: the caller asked for the
+            # tensor after it
+            _, host = self.take(t.numel() * t.element_size())
+            with torch.cuda.stream(side):
+                host.copy_(_byte_view(t.contiguous()), non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            return host, ev
+
+        try:
+            nxt = issue(srcs[0])
+            for k in range(len(srcs)):
+                host, ev = nxt
+                nxt = issue(srcs[k + 1]) if k + 1 < len(srcs) else None
+                ev.synchronize()
+                yield host.numpy()
+        finally:
+            side.synchronize()
+
+    def upload(self, items) -> None:
+        """Fill each ``(contiguous card tensor, fill)`` item's tensor:
+        ``fill(buf)`` writes the tensor's bytes into ``buf``, a uint8
+        numpy view of a pinned slot, while the item before uploads on a
+        side stream; the current stream waits for the uploads."""
+        items = list(items)
+        if not items:
+            return
+        dev = items[0][0].device
+        self.reserve(max(t.numel() * t.element_size() for t, _ in items))
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            for dst, fill in items:
+                slot, buf = self.take(dst.numel() * dst.element_size())
+                fill(buf.numpy())
+                with torch.cuda.stream(side):
+                    _byte_view(dst).copy_(buf, non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(side)
+                self.busy_until(slot, ev)
+        except BaseException:
+            side.synchronize()      # before the tensors are freed
+            raise
+        torch.cuda.current_stream(dev).wait_stream(side)
+
 
 class SpilledShards:
     """A DeviceShards parked in the block store: one block per worker
@@ -132,48 +190,23 @@ class SpilledShards:
         card through ``ring`` (a ring of its own when None); on a failure
         the blocks written so far are dropped and it raises."""
         mex = shards.mesh_exec
-        dev = mex.device
         leaves, treedef = pt.flatten(shards.tree)
         leaf_blocks: List[List[Tuple[int, int]]] = [[] for _ in leaves]
         work = [(li, w) for li, l in enumerate(leaves)
                 for w in range(l.shape[0])]
-        cuda = dev.type == "cuda"
-        side = None
-        if cuda:
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
+        if mex.device.type == "cuda":
             ring = ring or StagingRing()
-            ring.reserve(max((l[0].numel() * l.element_size()
-                              for l in leaves if l.shape[0]), default=0))
-
-        def issue(li: int, w: int):
-            """Start block (li, w) on its way to the host."""
-            src = leaves[li][w]
-            if not cuda:
-                return _byte_view(src.contiguous()).numpy(), None
-            # its slot's previous block is in the store: the loop puts
-            # block k before it issues block k + 2
-            _, host = ring.take(src.numel() * src.element_size())
-            with torch.cuda.stream(side):
-                host.copy_(_byte_view(src.contiguous()), non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record(side)
-            return host, ev
-
+            # block k+1 leaves the card while the store takes block k
+            hosts = ring.download([leaves[li][w] for li, w in work])
+        else:
+            hosts = (_byte_view(leaves[li][w].contiguous()).numpy()
+                     for li, w in work)
         try:
-            nxt = issue(*work[0]) if work else None
-            for k, (li, w) in enumerate(work):
-                host, ev = nxt
-                # block k+1 leaves the card while the store takes block k
-                nxt = issue(*work[k + 1]) if k + 1 < len(work) else None
+            for (li, w), host in zip(work, hosts):
                 faults.check(_F_SPILL, node=label)
-                if ev is not None:
-                    ev.synchronize()
-                    host = host.numpy()
                 leaf_blocks[li].append((w, pool.put(host)))
         except BaseException:
-            if side is not None:
-                side.synchronize()
+            hosts.close()              # the copies in flight end first
             for blocks in leaf_blocks:
                 for _, bid in blocks:
                     try:
@@ -205,26 +238,14 @@ class SpilledShards:
                     what="hbm.restore")
 
         if dev.type == "cuda":
-            ring = self.ring or StagingRing()
-            ring.reserve(max((self.pool.size(bid) for _, _, bid in flat),
-                             default=0))
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            try:
-                for li, w, bid in flat:
+            def fill(bid):
+                def into(buf):
                     check(bid)
-                    slot, buf = ring.take(self.pool.size(bid))
-                    self.pool.get_into(bid, buf.numpy())
-                    with torch.cuda.stream(side):
-                        _byte_view(leaves[li][w]).copy_(buf,
-                                                        non_blocking=True)
-                        ev = torch.cuda.Event()
-                        ev.record(side)
-                    ring.busy_until(slot, ev)
-            except BaseException:
-                side.synchronize()      # before the leaves are freed
-                raise
-            torch.cuda.current_stream(dev).wait_stream(side)
+                    self.pool.get_into(bid, buf)
+                return into
+
+            (self.ring or StagingRing()).upload(
+                [(leaves[li][w], fill(bid)) for li, w, bid in flat])
             return DeviceShards(mex, pt.unflatten(self.treedef, leaves),
                                 self.counts.copy())
 

@@ -302,6 +302,20 @@ class BlockStore {
     return static_cast<int64_t>(queue_.size()) + inflight_;
   }
 
+  // Test hook: while held, the writer thread stops after it took a
+  // request off the queue and before it writes, so a test can Pin and
+  // spill a block again while its first write is in flight. Returns
+  // the writes in flight.
+  int64_t HoldWriter(int hold) {
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      if (hold >= 0) hold_ = hold != 0;
+    }
+    cv_work_.notify_all();
+    std::lock_guard<std::mutex> lk(mu_);
+    return inflight_;
+  }
+
  private:
   void WriterLoop() {
     for (;;) {
@@ -318,6 +332,7 @@ class BlockStore {
           continue;
         }
         inflight_++;
+        cv_work_.wait(lk, [this] { return stop_ || !hold_; });
       }
       // file write OUTSIDE the lock: the request buffer is immutable
       bool ok = false;
@@ -365,7 +380,10 @@ class BlockStore {
     // process died without running the destructor (kill -9, abort) —
     // and, on a spill dir shared across hosts, never judge a REMOTE
     // process's file by local pid liveness. Hostname sanitized to
-    // [A-Za-z0-9_] so the dash-delimited name stays parseable.
+    // [A-Za-z0-9_] so the dash-delimited name stays parseable. Every
+    // spill writes its own file (<block>.<seq>): a Pin can cancel a
+    // write in flight and the next Unpin spill the block again, and
+    // the writer thread then deletes the cancelled request's file.
     static const std::string host = [] {
       char h[128] = "unknown";
       gethostname(h, sizeof(h) - 1);
@@ -376,11 +394,12 @@ class BlockStore {
     }();
     char path[512];
     std::snprintf(path, sizeof(path),
-                  "%s/ttpu-blk-%lld-%p-%lld-%s.spill",
+                  "%s/ttpu-blk-%lld-%p-%lld.%lld-%s.spill",
                   spill_dir_.c_str(),
                   static_cast<long long>(getpid()),
                   static_cast<void*>(this),
-                  static_cast<long long>(victim), host.c_str());
+                  static_cast<long long>(victim),
+                  static_cast<long long>(++spill_seq_), host.c_str());
     return path;
   }
 
@@ -436,10 +455,12 @@ class BlockStore {
   int64_t inflight_ = 0;
   int64_t spilling_bytes_ = 0;  // bytes owned by queued/in-flight writes
   bool stop_ = false;
+  bool hold_ = false;           // HoldWriter: the test hook
   std::string spill_dir_;
   int64_t soft_limit_;
   bool async_;
   int64_t next_id_ = 1;
+  int64_t spill_seq_ = 0;       // under mu_: one file name per spill
   int64_t mem_usage_ = 0;
   int64_t spilled_bytes_ = 0;   // bytes of completed spill-file writes
   std::unordered_map<int64_t, Block> blocks_;
@@ -460,6 +481,10 @@ void bs_flush(void* s) { static_cast<BlockStore*>(s)->Flush(); }
 
 int64_t bs_pending(void* s) {
   return static_cast<BlockStore*>(s)->Pending();
+}
+
+int64_t bs_hold_writer(void* s, int hold) {
+  return static_cast<BlockStore*>(s)->HoldWriter(hold);
 }
 
 void bs_destroy(void* s) { delete static_cast<BlockStore*>(s); }

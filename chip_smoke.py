@@ -190,6 +190,23 @@ Phases, each fatal on failure:
      bit-equal to each other and to the plain version on the CPU, timed
      beside the plain version, one index_add_ of the same rows and the
      bound, with the hottest run's rows;
+ 25b. stitching (F1-F4), each part stitched and with THRILL_TPU_FUSE=0
+     in this process: F1 Generate, Map, Filter (half kept), Sort,
+     ZipWithIndex, PrefixSum and Window(4) summed at W=1 over 2^24 rows
+     {k: int64, v: f32}, exact against numpy both ways, the fused
+     dispatches, ops, stages and host fetches the reference's (F1_REF),
+     the radix engine's live-digit reads, launches and warm seconds;
+     F2 phase 6's PageRank W=4, ranks bit-equal both ways, fused
+     dispatches a run, host fetches an iteration, launches, warm
+     seconds; F3 the hinted InnerJoin at Q3-lite's size (W=4) with a
+     Map and a ReduceByKey stitched on, without a hint, with half the
+     true per-worker maximum (one join_overflow_retries) and with the
+     maximum (none), each exact against numpy; F4 the ladder at the
+     stitched dispatch of a row-local Map and Filter at W=4: rung 3
+     under a real CUDA OOM (a ballast leaves half the chain's working
+     set), segment_splits 1 and bit-equal; rung 4 under
+     THRILL_TPU_FAULTS=mem.oom:n=0, host_fallbacks 1; rung 2 under
+     mem.oom:n=1, oom_retries 1;
  26. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
@@ -228,6 +245,7 @@ the port's sources are not beside this script.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -290,6 +308,18 @@ CK_EVERY = 3                   # C1: PageRank's Iterate(checkpoint_every=)
 # them the degree table's)
 PR_PER_ITER = {"ordered_segment_sum": 1, "radix_pass": 4}
 C2_KILL_RUNS = 8               # C2: run manifests committed before the kill
+F1_ROWS = 1 << 24              # F1: Generate rows {k: int64, v: f32}
+F1_WINDOW = 4
+# F1's chain in the reference package (counted on the CPU at a small size
+# by tests/test_torch_fusion.py, which holds the port to the same): its
+# stitched dispatches, their ops, its stages and its counted host fetches
+# (the Window's read of the counts, a barrier after the Filter, and of
+# its own output's)
+F1_REF = {"fused_dispatches": 1, "fused_ops": 4,
+          "fused_stages": {"Stack + Sort + ZipWithIndex + PrefixSum": 1},
+          "fetches": 2}
+F4_ROWS = 1 << 26              # F4: the rung-3 chain's source rows (W=4)
+F4_HOST_ROWS = 1 << 16         # F4: the rung-4 chain, run per item on the host
 DEVICE = "cuda"
 
 
@@ -781,6 +811,7 @@ def zero_launches(pk, ps) -> None:
               ps.stable_partition_offsets, pk.segment_sum, pk.presence_fill,
               of.ordered_segment_sum):
         k.launches = 0
+    ps.live_reads = 0
 
 
 def read_launches(pk, ps) -> dict:
@@ -2928,6 +2959,9 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
     out.Dispose()
     ctx.close()
     del ctx, cold, inp, out
+    # a closed Context's graph is cyclic garbage: collected here, not
+    # by a collection that falls inside the pressured Sort
+    gc.collect()
     torch.cuda.empty_cache()
     cold_bytes = 2 * nbytes
     target = ws - min(cold_bytes, ws) // 2
@@ -2953,6 +2987,7 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
             return freed
 
         ctx.pressure.spill_cold = spill_cold
+        gc.collect()
         torch.cuda.empty_cache()
         free = torch.cuda.mem_get_info(dev)[0]
         ballast = torch.empty(max(free - target, 0), dtype=torch.uint8,
@@ -3739,6 +3774,338 @@ cs.mem_spill_restore(torch, np, tt, pk, ps, hbm_mod, recs, srt,
 """
 
 
+def f1_gen(i):
+    """F1's items: k spread over [0, 2^32) (distinct, odd half kept by
+    the Filter), v 0.0 or 1.0 (f32: its prefix sums stay exact)."""
+    import numpy as np
+    return {"k": (i * 2654435761) % (1 << 32),
+            "v": ((i >> 2) & 1) * np.float32(1)}
+
+
+def f1_map(t):
+    return {"k": t["k"] + 7, "v": t["v"]}
+
+
+def f1_keep(t):
+    return t["k"] % 2 == 0
+
+
+def f1_key(t):
+    return t["k"]
+
+
+def f1_index(t, i):
+    return {"i": i, "k": t["k"], "v": t["v"]}
+
+
+def f1_window(w):
+    return {"s": w["k"].sum(axis=1) + w["i"].sum(axis=1),
+            "v": w["v"].sum(axis=1)}
+
+
+def f1_chain(ctx, n: int):
+    """Generate, Map, Filter (half kept), Sort, ZipWithIndex, PrefixSum,
+    Window(4) summed: the stitched chain of phase F1. Returns the
+    output DIA (the Window is a barrier after the Filter: the chain
+    before it does not keep the source's counts)."""
+    return (ctx.Generate(n, f1_gen).Map(f1_map).Filter(f1_keep)
+            .Sort(key_fn=f1_key).ZipWithIndex(f1_index).PrefixSum()
+            .Window(F1_WINDOW, None, device_fn=f1_window))
+
+
+def f1_np(np, n: int):
+    """F1's output in numpy: ("s" int64, "v" f64 of exact f32 sums)."""
+    i = np.arange(n, dtype=np.int64)
+    k = (i * 2654435761) % (1 << 32) + 7
+    v = ((i >> 2) & 1).astype(np.float64)
+    keep = k % 2 == 0
+    k, v = k[keep], v[keep]
+    order = np.argsort(k, kind="stable")
+    k, v = k[order], v[order]
+    pk_, pv, pi = (np.cumsum(k), np.cumsum(v),
+                   np.cumsum(np.arange(len(k), dtype=np.int64)))
+    m = len(k) - F1_WINDOW + 1
+    s = sum(pk_[j:j + m] + pi[j:j + m] for j in range(F1_WINDOW))
+    return s, sum(pv[j:j + m] for j in range(F1_WINDOW))
+
+
+def fuse_mode(mode: str):
+    """``THRILL_TPU_FUSE`` as ``mode`` ("1" stitched, "0" per op) until
+    the returned function is called."""
+    prev = os.environ.get("THRILL_TPU_FUSE")
+    os.environ["THRILL_TPU_FUSE"] = mode
+
+    def restore():
+        if prev is None:
+            os.environ.pop("THRILL_TPU_FUSE", None)
+        else:
+            os.environ["THRILL_TPU_FUSE"] = prev
+    return restore
+
+
+def f_counts(ctx) -> dict:
+    from thrill_tpu_torch.core import pallas_sort
+    mex = ctx.mesh_exec
+    return {"fused_dispatches": mex.stats_fused_dispatches,
+            "live_digit_reads": pallas_sort.live_reads,
+            "fused_ops": mex.stats_fused_ops,
+            "dispatches": mex.stats_dispatches,
+            "fetches": mex.stats_fetches,
+            "fused_stages": {" + ".join(o): c for o, c in
+                             mex.fused_stage_counts.items()}}
+
+
+def fused_phase_f1(torch, np, tt, pk, ps, card):
+    """F1: the W=1 chain at 2^24 rows, stitched and per op in one
+    process: exact against numpy in both modes, the stitched counts the
+    reference's, launches and warm seconds both ways."""
+    want_s, want_v = f1_np(np, F1_ROWS)
+    out = {}
+    for mode in ("1", "0"):
+        restore = fuse_mode(mode)
+        try:
+            ctx = tt.Context(num_workers=1, device=DEVICE)
+            (got, secs, launches) = first_run(torch, pk, ps, lambda: {
+                k: v.cpu().numpy()
+                for k, v in f1_chain(ctx, F1_ROWS).AllGatherArrays().items()})
+            cnt = f_counts(ctx)
+            ctx.close()
+            warm = warm_seconds(torch, lambda: f1_chain(tt.Context(
+                num_workers=1, device=DEVICE), F1_ROWS).AllGatherArrays(), 2)
+        finally:
+            restore()
+        if not (np.array_equal(got["s"], want_s)
+                and np.array_equal(got["v"].astype(np.float64), want_v)):
+            raise AssertionError(f"F1 ({'stitched' if mode == '1' else 'FUSE=0'})"
+                                 f" differs from numpy")
+        need_launches(launches, ("radix_upsweep", "radix_pass"),
+                      f"F1 chain W=1 (FUSE={mode})")
+        if mode == "1":
+            ref = {k: cnt[k] for k in F1_REF}
+            if ref != F1_REF:
+                raise AssertionError(f"F1 stitched counts {ref}, the "
+                                     f"reference's {F1_REF}")
+        elif cnt["fused_dispatches"]:
+            raise AssertionError(f"F1 FUSE=0 made fused dispatches: {cnt}")
+        out[mode] = launches
+        log(f"F1 chain W=1 rows={F1_ROWS} ({'stitched' if mode == '1' else 'THRILL_TPU_FUSE=0'}): "
+            f"equal to numpy ({len(want_s)} windows); fused dispatches "
+            f"{cnt['fused_dispatches']} fused ops {cnt['fused_ops']} stages "
+            f"{cnt['fused_stages']} (the reference's {F1_REF['fused_dispatches']}"
+            f"/{F1_REF['fused_ops']}/{F1_REF['fused_stages']}); dispatches "
+            f"{cnt['dispatches']}; host fetches {cnt['fetches']} (the "
+            f"reference's {F1_REF['fetches']}) and the radix engine's "
+            f"live-digit reads {cnt['live_digit_reads']}; first run "
+            f"{secs:.3f} s, warm {[round(x, 6) for x in warm]} s (host clock "
+            f"after synchronize); launches {json.dumps(launches)} [{card}]")
+    return out
+
+
+def fused_phase_f2(torch, np, tt, pk, ps, edges, card):
+    """F2: PageRank W=4 (phase 6's graph, 10 f64 iterations) stitched and
+    per op: bit-equal ranks, fused dispatches a run, host fetches an
+    iteration, launches, warm seconds."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    runs = {}
+    for mode in ("1", "0"):
+        restore = fuse_mode(mode)
+        try:
+            ctx = tt.Context(num_workers=4, device=DEVICE)
+            got, secs, launches = first_run(torch, pk, ps, lambda: tpr.page_rank(
+                ctx, edges, PAGES, PR_ITERS))
+            cnt = f_counts(ctx)
+            ctx.close()
+            warm = warm_seconds(torch, lambda: tpr.page_rank(
+                tt.Context(num_workers=4, device=DEVICE), edges, PAGES,
+                PR_ITERS), 1)
+        finally:
+            restore()
+        need_launches(launches, ("partition_histogram", "radix_upsweep",
+                                 "radix_pass", "ordered_segment_sum"),
+                      f"F2 pagerank W=4 (FUSE={mode})")
+        runs[mode] = (got, launches)
+        log(f"F2 pagerank W=4 ({'stitched' if mode == '1' else 'THRILL_TPU_FUSE=0'}): "
+            f"fused dispatches {cnt['fused_dispatches']} ({cnt['fused_ops']} "
+            f"ops; stages {cnt['fused_stages']}); dispatches "
+            f"{cnt['dispatches']}; host fetches {cnt['fetches']} "
+            f"({cnt['fetches'] / PR_ITERS:.1f} an iteration) and live-digit "
+            f"reads {cnt['live_digit_reads']}; first run "
+            f"{secs:.3f} s, warm {[round(x, 6) for x in warm]} s; launches "
+            f"{json.dumps(launches)} [{card}]")
+    if not np.array_equal(runs["1"][0], runs["0"][0]):
+        d = np.abs(runs["1"][0] - runs["0"][0]).max()
+        raise AssertionError(f"F2: stitched ranks differ from the per-op "
+                             f"ones by up to {d}")
+    log(f"F2 pagerank W=4: stitched ranks bit-equal to THRILL_TPU_FUSE=0's "
+        f"[{card}]")
+    return runs["1"][1], runs["0"][1]
+
+
+def f3_join(tt, ctx, orders, lineitem, hint):
+    o = ctx.Distribute(orders).Filter(lambda t: t["date"] < 1250)
+    l = ctx.Distribute(lineitem)
+    return tt.InnerJoin(
+        o, l, lambda t: t["key"], lambda t: t["orderkey"],
+        lambda ot, lt: {"prio": ot["prio"],
+                        "rev": lt["price"] * (100 - lt["discount_pct"])},
+        out_size_hint=hint)
+
+
+def f3_revenue(np, tt, j):
+    r = j.Map(lambda t: {"p": t["prio"], "r": t["rev"]}).ReduceByKey(
+        lambda t: t["p"], tt.FieldReduce({"p": "first", "r": "sum"}))
+    got = np.zeros(5, dtype=np.int64)
+    for t in r.AllGather():
+        got[int(t["p"])] = int(t["r"])
+    return got
+
+
+def fused_phase_f3(torch, np, tt, pk, ps, card):
+    """F3: the hinted join at Q3-lite's size (W=4), a Map and a
+    ReduceByKey stitched on: no hint, a hint at half the true per-worker
+    maximum (one lineage retry), a hint at the maximum (none)."""
+    from thrill_tpu_torch.examples import tpch as ttp
+    orders, lineitem = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
+    want = q3_np(np, orders, lineitem)
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    j = f3_join(tt, ctx, orders, lineitem, None).Keep()
+    j.Execute()
+    worst = int(j.node._shards.counts.max())
+    j.Dispose()
+    ctx.close()
+    out = {}
+    for name, hint, retries in (("no hint", None, 0),
+                                ("hint half the maximum", worst // 2, 1),
+                                ("hint at the maximum", worst, 0)):
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        got, secs, launches = first_run(torch, pk, ps, lambda: f3_revenue(
+            np, tt, f3_join(tt, ctx, orders, lineitem, hint)))
+        st, cnt = ctx.overall_stats(), f_counts(ctx)
+        ctx.close()
+        if not np.array_equal(got, want):
+            raise AssertionError(f"F3 ({name}) = {got.tolist()}, numpy "
+                                 f"{want.tolist()}")
+        if st["join_overflow_retries"] != retries:
+            raise AssertionError(f"F3 ({name}): join_overflow_retries "
+                                 f"{st['join_overflow_retries']}, expected "
+                                 f"{retries}")
+        need_launches(launches, ("partition_histogram", "radix_upsweep",
+                                 "radix_pass"), f"F3 hinted join W=4 ({name})")
+        out[name] = launches
+        log(f"F3 join W=4 {name} (hint {hint}, true per-worker maximum "
+            f"{worst}): equal to numpy {want.tolist()}; "
+            f"join_overflow_retries {st['join_overflow_retries']}; fused "
+            f"dispatches {cnt['fused_dispatches']} stages "
+            f"{cnt['fused_stages']}; host fetches {cnt['fetches']} and "
+            f"live-digit reads {cnt['live_digit_reads']}; "
+            f"{secs:.3f} s (first run, host clock after synchronize); "
+            f"presence_fill {launches['presence_fill']} partition_histogram "
+            f"{launches['partition_histogram']} launches {json.dumps(launches)}"
+            f" [{card}]")
+    return out
+
+
+def f4_chain(d):
+    """A row-local chain, one stitched program: Map to four wide leaves,
+    Filter keeping one row in eight."""
+    return d.Map(lambda x: {"a": x * 3, "b": x * 0.5, "c": x ^ 0x55,
+                            "e": x + 1}).Filter(lambda t: t["a"] % 8 == 0)
+
+
+def f4_source(tt, W: int, n: int):
+    ctx = tt.Context(num_workers=W, device=DEVICE)
+    src = ctx.Generate(n).Keep(4)
+    src.Execute()
+    return ctx, src
+
+
+def f4_result(torch, out):
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def f4_equal(np, a, b) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def fused_phase_f4(torch, np, tt, pk, ps, card):
+    """F4: the ladder at the stitched dispatch. Rung 3 with a real CUDA
+    OOM (a ballast leaves the card less than the whole dispatch's
+    working set, more than a split chunk's); rung 4 with mem.oom firing
+    at every attempt; rung 2 with one injected OOM."""
+    from thrill_tpu_torch.common import faults
+    dev = torch.device(DEVICE)
+    ctx, src = f4_source(tt, 4, F4_ROWS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = torch.cuda.memory_reserved()
+    want = f4_result(torch, f4_chain(src).AllGatherArrays())
+    torch.cuda.synchronize()
+    ws = torch.cuda.max_memory_reserved() - r0
+    host_ram_check(4 * sum(v.nbytes for v in want.values()), "F4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    target = ws // 2
+    free = torch.cuda.mem_get_info(dev)[0]
+    ballast = torch.empty(max(free - target, 0), dtype=torch.uint8,
+                          device=dev)
+    st0 = ctx.overall_stats()
+    zero_launches(pk, ps)
+    try:
+        t0 = time.perf_counter()
+        got = f4_result(torch, f4_chain(src).AllGatherArrays())
+        secs = time.perf_counter() - t0
+        st = {k: v - st0[k] for k, v in ctx.overall_stats().items()
+              if k in ("oom_retries", "segment_splits", "host_fallbacks")}
+    finally:
+        del ballast
+        torch.cuda.empty_cache()
+    launches3 = read_launches(pk, ps)
+    if st["segment_splits"] != 1 or st["host_fallbacks"] != 0 \
+            or not f4_equal(np, got, want):
+        raise AssertionError(f"F4 rung 3: {st}, equal "
+                             f"{f4_equal(np, got, want)}")
+    log(f"F4 rung 3 W=4 rows={F4_ROWS} (real CUDA OOM): chain working set "
+        f"{ws} bytes (reserved), card left with {target} free; "
+        f"oom_retries {st['oom_retries']} segment_splits "
+        f"{st['segment_splits']} host_fallbacks {st['host_fallbacks']}; "
+        f"bit-equal to the unpressured run ({len(want['a'])} rows); "
+        f"{secs:.3f} s; launches {json.dumps(launches3)} [{card}]")
+    ctx.close()
+    del ctx, src, got
+    torch.cuda.empty_cache()
+    res = {"rung 3": launches3}
+    for rung, spec, key in (("rung 4", "mem.oom:n=0", "host_fallbacks"),
+                            ("rung 2", "mem.oom:n=1", "oom_retries")):
+        ctx, src = f4_source(tt, 4, F4_HOST_ROWS)
+        want = f4_result(torch, f4_chain(src).AllGatherArrays())
+        faults.REGISTRY.reset()
+        os.environ[faults.ENV_VAR] = spec
+        zero_launches(pk, ps)
+        try:
+            t0 = time.perf_counter()
+            out = f4_chain(src).AllGatherArrays()
+            secs = time.perf_counter() - t0
+        finally:
+            os.environ.pop(faults.ENV_VAR, None)
+        launches = read_launches(pk, ps)
+        got = ({k: np.asarray(v) for k, v in out.items()}
+               if rung == "rung 4" else f4_result(torch, out))
+        st = ctx.overall_stats()
+        ctx.close()
+        if st[key] != 1 or not f4_equal(np, got, want) or (
+                rung == "rung 2" and st["segment_splits"]):
+            raise AssertionError(f"F4 {rung}: {st}")
+        res[rung] = launches
+        log(f"F4 {rung} W=4 rows={F4_HOST_ROWS} ({spec}): oom_retries "
+            f"{st['oom_retries']} segment_splits {st['segment_splits']} "
+            f"host_fallbacks {st['host_fallbacks']}; equal to the "
+            f"unpressured run; {secs:.3f} s; launches {json.dumps(launches)}"
+            f" [{card}]")
+    return res
+
+
 def m1_compare(other: str) -> int:
     """M1 of the tree at ``other`` (its chip_smoke.py and package) and of
     this one, in turns: other, this, this, other, each in a process of
@@ -3884,12 +4251,21 @@ def main() -> int:
     t_ck = time.perf_counter()
     torch.cuda.empty_cache()
     c1 = ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card)
-    del edges
     c2 = ckpt_sort_phase(torch, np, tt, pk, ps, card)
     c3 = ckpt_wordcount_phase(torch, np, tt, pk, ps, card)
     log(f"checkpoint phases (C1-C3): {time.perf_counter() - t_ck:.1f} s of "
         f"host clock, child processes and references included [host "
         f"{cpu_line()}; {card}]")
+    t_f = time.perf_counter()
+    torch.cuda.empty_cache()
+    f1 = fused_phase_f1(torch, np, tt, pk, ps, card)
+    f2, f2u = fused_phase_f2(torch, np, tt, pk, ps, edges, card)
+    del edges
+    f3 = fused_phase_f3(torch, np, tt, pk, ps, card)
+    f4 = fused_phase_f4(torch, np, tt, pk, ps, card)
+    log(f"stitching phases (F1-F4): {time.perf_counter() - t_f:.1f} s of "
+        f"host clock, numpy references included [host {cpu_line()}; "
+        f"{card}]")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -3974,7 +4350,13 @@ def main() -> int:
              "M3a sort OOM retry W=4": m3a,
              "M3b sort admission W=4": m3b,
              "C1 pagerank resume W=4": c1, "C2 em sort resume W=4": c2,
-             "C3 wordcount Checkpoint resume W=4": c3}
+             "C3 wordcount Checkpoint resume W=4": c3,
+             "F1 chain W=1 (stitched)": f1["1"],
+             "F1 chain W=1 (THRILL_TPU_FUSE=0)": f1["0"],
+             "F2 pagerank W=4 (stitched)": f2,
+             "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
+             **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
+             **{f"F4 {k} W=4": v for k, v in f4.items()}}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -889,3 +889,53 @@ def test_a_loop_resumes_on_the_card(cuda_device, tmp_path):
     assert got.tobytes() == want.tobytes()
     cpu = tt.Run(job, 4, device="cpu")
     assert got.tobytes() == cpu.tobytes()
+
+
+@pytest.mark.gpu
+def test_stitched_chain_syncs_only_for_the_radix_engine_and_the_action(
+        cuda_device, monkeypatch):
+    """Phase F1's chain (chip_smoke.py) at a small size, its source
+    computed first: under ``torch.cuda.set_sync_debug_mode("error")``
+    the stitched Map, Filter, Sort, ZipWithIndex and PrefixSum and the
+    action that reads them make no host sync but the radix engine's one
+    live-digit read and the action's counted fetch of the counts."""
+    import chip_smoke as cs
+    from thrill_tpu_torch.parallel.mesh import MeshExec
+    n = 1 << 14
+    ctx = tt.Context(num_workers=1, device="cuda")
+    src = ctx.Generate(n, cs.f1_gen).Keep()
+    src.Execute()
+    src.node._shards.counts_device()              # uploaded before
+    allowed = {"live_digits": 0, "fetch": 0}
+    real_live, real_raw = tps.live_digits, MeshExec._fetch_raw
+
+    def allow(name, fn):
+        def call(*a, **k):
+            allowed[name] += 1
+            torch.cuda.set_sync_debug_mode(0)
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("error")
+        return call
+
+    monkeypatch.setattr(tps, "live_digits", allow("live_digits", real_live))
+    monkeypatch.setattr(MeshExec, "_fetch_raw", allow("fetch", real_raw))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = (src.Map(cs.f1_map).Filter(cs.f1_keep).Sort(key_fn=cs.f1_key)
+               .ZipWithIndex(cs.f1_index).PrefixSum().AllGatherArrays())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    mex = ctx.mesh_exec
+    assert mex.stats_fused_dispatches == 1 and mex.stats_fused_ops == 4
+    assert allowed == {"live_digits": 1, "fetch": 1}
+    assert mex.stats_fetches == 1
+    i = np.arange(n, dtype=np.int64)
+    k = (i * 2654435761) % (1 << 32) + 7
+    k = np.sort(k[k % 2 == 0])
+    assert np.array_equal(out["k"].cpu().numpy(), np.cumsum(k))
+    assert np.array_equal(out["i"].cpu().numpy(),
+                          np.cumsum(np.arange(len(k))))
+    ctx.close()

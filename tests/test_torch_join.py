@@ -269,3 +269,116 @@ def test_location_filter_sends_int64_register_ids_to_the_kernel(monkeypatch):
                  location_detection=True).Size()
     assert seen == [(torch.int64, torch.bool, (4, 16), 4096),
                     (torch.int64, torch.bool, (4, 4), 4096)]
+
+
+# -- the hinted join (out_size_hint) -----------------------------------------
+# reference cases: tests/api/test_fusion.py:169, :185, :207
+
+def _idk(x):
+    return x
+
+
+def _addp(a, b):
+    return a + b
+
+
+def _hinted_ctxs(W):
+    return ((tt.Context(num_workers=W, device="cpu"), tt.InnerJoin),
+            (_jax_ctx(W), JInnerJoin))
+
+
+@pytest.mark.parametrize("fuse", ["1", "0"])
+@pytest.mark.parametrize("W", WIDTHS)
+def test_hinted_join_overflow_recovers_with_downstream(W, fuse, monkeypatch):
+    """16 pairs of one key against a hint of 4: the deferred check finds
+    the overflow before the rows are read, the join runs again at the
+    true capacity from its lineage (stitched: the plan, with the Map
+    after it), and both the columns and the counts heal."""
+    monkeypatch.setenv("THRILL_TPU_FUSE", fuse)
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    out = []
+    for ctx, join in _hinted_ctxs(W):
+        l = ctx.Distribute([1, 1, 1, 1])
+        r = ctx.Distribute([1, 1, 1, 1])
+        j = join(l, r, _idk, _idk, _addp, out_size_hint=4)
+        got = [int(x) for x in j.Map(lambda x: x * 3).AllGather()]
+        s = ctx.overall_stats()
+        out.append((got, s["join_overflow_retries"], s["fused_dispatches"]))
+        ctx.close()
+    assert out[0] == out[1]
+    assert out[0][0] == [6] * 16 and out[0][1] == 1
+
+
+@pytest.mark.parametrize("fuse", ["1", "0"])
+@pytest.mark.parametrize("W", [2, 4])
+def test_hinted_join_overflow_drains_before_exchange_barrier(W, fuse,
+                                                            monkeypatch):
+    """A hinted join whose output feeds an exchange (ReduceByKey's, which
+    reads the columns through the device counts) is checked at the
+    boundary: truncated pairs never cross the exchange."""
+    monkeypatch.setenv("THRILL_TPU_FUSE", fuse)
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    out = []
+    for ctx, join in _hinted_ctxs(W):
+        l = ctx.Distribute([1, 1, 1, 1])
+        r = ctx.Distribute([1, 1, 1, 1])
+        j = join(l, r, _idk, _idk, _addp, out_size_hint=4)
+        got = sorted((int(t[0]), int(t[1])) for t in
+                     j.Map(lambda x: (x * 0 + 1, x)).ReduceByKey(
+                         lambda t: t[0],
+                         lambda a, b: (a[0], a[1] + b[1])).AllGather())
+        s = ctx.overall_stats()
+        out.append((got, s["join_overflow_retries"], s["fused_dispatches"]))
+        ctx.close()
+    assert out[0] == out[1]
+    assert out[0][0] == [(1, 32)] and out[0][1] == 1
+
+
+@pytest.mark.parametrize("fuse", ["1", "0"])
+@pytest.mark.parametrize("W", WIDTHS)
+def test_hinted_join_overflow_raises_without_recovery(W, fuse, monkeypatch):
+    """``THRILL_TPU_JOIN_RECOVER=0``: the overflow raises; per op the
+    join's cached output raises again at the next read (the check is
+    sticky), stitched the join's own compute raised and cached nothing."""
+    monkeypatch.setenv("THRILL_TPU_FUSE", fuse)
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    monkeypatch.setenv("THRILL_TPU_JOIN_RECOVER", "0")
+    for ctx, join in _hinted_ctxs(W):
+        l = ctx.Distribute([1, 1, 1, 1])
+        r = ctx.Distribute([1, 1, 1, 1])
+        j = join(l, r, _idk, _idk, _addp, out_size_hint=4)
+        j.Keep()
+        with pytest.raises(ValueError, match="out_size_hint"):
+            j.AllGather()
+        if fuse == "0":
+            with pytest.raises(ValueError, match="out_size_hint"):
+                j.AllGather()
+        ctx.close()
+
+
+@pytest.mark.parametrize("hint", [1, 8, 64, 1 << 12])
+@pytest.mark.parametrize("W", WIDTHS)
+def test_hinted_join_equals_the_unhinted_join(W, hint, monkeypatch):
+    """Any hint, under or over the true per-worker pairs, gives the rows
+    of the join without one, in both packages; a retry exactly when the
+    hint's capacity was short."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    rng = np.random.default_rng(11)
+    lk = rng.integers(0, 20, 90).astype(np.int64)
+    rk = rng.integers(0, 20, 70).astype(np.int64)
+    res = []
+    for ctx, join in _hinted_ctxs(W):
+        def run(h):
+            l = ctx.Distribute({"k": lk, "v": np.arange(90)})
+            r = ctx.Distribute({"k": rk, "w": np.arange(70) * 7})
+            j = join(l, r, lambda t: t["k"], lambda t: t["k"],
+                     lambda a, b: {"k": a["k"], "v": a["v"], "w": b["w"]},
+                     out_size_hint=h)
+            return sorted((int(t["k"]), int(t["v"]), int(t["w"]))
+                          for t in j.AllGather())
+        plain = run(None)
+        hinted = run(hint)
+        assert hinted == plain
+        res.append((hinted, ctx.overall_stats()["join_overflow_retries"]))
+        ctx.close()
+    assert res[0] == res[1]

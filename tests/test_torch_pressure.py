@@ -195,14 +195,7 @@ def _count_pulls(monkeypatch):
     return pulls
 
 
-@pytest.mark.parametrize("after", [0, 1, 2])
-@pytest.mark.parametrize("W", WS)
-def test_oom_retry_is_bit_equal_and_pulls_nothing_twice(W, after,
-                                                        monkeypatch):
-    """The same ``mem.oom`` spec in both packages: one injected OOM (on
-    the Distribute, the Sort or the ReduceByKey, by ``after``) is spilled
-    around and retried; the results equal the unfaulted runs and every
-    node is pulled as often as without the fault."""
+def _oom_retry_case(W, after, monkeypatch):
     pulls = _count_pulls(monkeypatch)
     want_t = _pipeline(_tctx(W), tt.FieldReduce)
     clean_pulls = dict(pulls)
@@ -219,6 +212,29 @@ def test_oom_retry_is_bit_equal_and_pulls_nothing_twice(W, after,
     jctx = _jctx(W)
     got_j = _pipeline(jctx, JFieldReduce)
     assert got_t == want_t == got_j == want_j
+
+
+@pytest.mark.parametrize("after", [0, 1, 2])
+@pytest.mark.parametrize("W", WS)
+def test_oom_retry_is_bit_equal_and_pulls_nothing_twice(W, after,
+                                                        monkeypatch):
+    """The same ``mem.oom`` spec in both packages, on the per-op path
+    (``THRILL_TPU_FUSE=0``), where every op is a site: one injected OOM
+    (on the Distribute, the Sort or the ReduceByKey, by ``after``) is
+    spilled around and retried; the results equal the unfaulted runs and
+    every node is pulled as often as without the fault."""
+    monkeypatch.setenv("THRILL_TPU_FUSE", "0")
+    _oom_retry_case(W, after, monkeypatch)
+
+
+@pytest.mark.parametrize("after", [0, 1])
+@pytest.mark.parametrize("W", WS)
+def test_stitched_oom_retry_is_bit_equal_and_pulls_nothing_twice(
+        W, after, monkeypatch):
+    """The same with stitching on: the sites are the Distribute's compute
+    and the stitched dispatches (at W = 1 the Sort, the Map and the
+    ReduceByKey are one); a retry at the dispatch pulls nothing again."""
+    _oom_retry_case(W, after, monkeypatch)
 
 
 def test_oom_retry_spills_a_kept_result_and_restores_it(monkeypatch):
@@ -345,3 +361,119 @@ def test_pagerank_under_pressure_is_bit_equal(monkeypatch):
     s = ctx.overall_stats()
     assert s["oom_retries"] == 1 and s["hbm_spills"] >= 1
     assert np.array_equal(got, want)
+
+
+# -- rungs 2-4 at the stitched dispatch ----------------------------------------
+# reference cases: tests/mem/test_pressure.py:163 (split), :187 (host)
+
+def _map_filter(ctx, n=96):
+    """A kept, computed source, then Map and Filter as one stitched
+    program (the source's own compute is done before any site is armed,
+    so the first armed site is the stitched dispatch in both packages)."""
+    d = ctx.Distribute(np.arange(n, dtype=np.int64))
+    d.Keep()
+    assert d.Size() == n
+    return d
+
+
+def _map_filter_items(d):
+    return sorted(int(x) for x in d.Map(lambda x: x * 3 + 1).Filter(
+        lambda x: x % 2 == 0).AllGather())
+
+
+def _want_map_filter(n=96):
+    return sorted(x * 3 + 1 for x in range(n) if (x * 3 + 1) % 2 == 0)
+
+
+def _ladder_run(W, spec, monkeypatch):
+    """The map-filter chain in both packages under ``spec``: (result,
+    stats, events) each."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    out = []
+    for make, reg in ((_tctx, faults.REGISTRY), (_jctx, jfaults.REGISTRY)):
+        reg.reset()
+        ctx = make(W)
+        d = _map_filter(ctx)
+        monkeypatch.setenv(faults.ENV_VAR, spec)
+        try:
+            got = _map_filter_items(d)
+        finally:
+            monkeypatch.delenv(faults.ENV_VAR)
+        out.append((got, ctx.overall_stats(), list(reg.events)))
+        ctx.close()
+    return out
+
+
+@pytest.mark.parametrize("W", WS)
+def test_oom_split_rung_replans_row_ranges(W, monkeypatch):
+    """Rung 3: with rung 2's budget spent (one attempt), the row-local
+    stitched chain runs as ``split_k`` row-range sub-dispatches
+    (``event=segment_split``), bit-equal to the unpressured run."""
+    monkeypatch.setenv("THRILL_TPU_RETRY_ATTEMPTS", "1")
+    (got, s, ev), (jgot, js, jev) = _ladder_run(W, "mem.oom:n=1:seed=7",
+                                                monkeypatch)
+    assert got == jgot == _want_map_filter()
+    assert s["segment_splits"] == js["segment_splits"] == 1
+    assert s["host_fallbacks"] == js["host_fallbacks"] == 0
+    splits = [e for e in ev if e.get("event") == "segment_split"]
+    jsplits = [e for e in jev if e.get("event") == "segment_split"]
+    assert [e["k"] for e in splits] == [e["k"] for e in jsplits] \
+        == [pressure.split_k(splits[0]["cap"])]
+    assert splits[0]["ops"] == jsplits[0]["ops"] == ["Stack"]
+
+
+@pytest.mark.parametrize("W", WS)
+def test_oom_host_fallback_last_rung(W, monkeypatch):
+    """Rung 4: every dispatch runs out of memory, the split chunks too;
+    the chain runs per item on the host, bit-equal."""
+    monkeypatch.setenv("THRILL_TPU_RETRY_ATTEMPTS", "1")
+    (got, s, ev), (jgot, js, jev) = _ladder_run(W, "mem.oom:n=0:seed=7",
+                                                monkeypatch)
+    assert got == jgot == _want_map_filter()
+    assert s["host_fallbacks"] == js["host_fallbacks"] == 1
+    assert s["segment_splits"] == js["segment_splits"] == 0
+    for events in (ev, jev):
+        assert any(e.get("what") == "mem.host_fallback" for e in events)
+        assert any(e.get("what") == "mem.split_oom" for e in events)
+
+
+@pytest.mark.parametrize("W", WS)
+def test_oom_retry_at_the_dispatch_counts_each_retry_once(W, monkeypatch):
+    """Rung 2 at the dispatch: one injected OOM is one re-dispatch of
+    the stitched program, counted once, in both packages; two fires on
+    one dispatch are two retries of it."""
+    for n in (1, 2):
+        (got, s, ev), (jgot, js, _) = _ladder_run(
+            W, f"mem.oom:n={n}:seed=3", monkeypatch)
+        assert got == jgot == _want_map_filter()
+        assert s["oom_retries"] == js["oom_retries"] == n
+        assert s["segment_splits"] == s["host_fallbacks"] == 0
+        retries = [e for e in ev if e.get("event") == "oom_retry"]
+        assert len(retries) == n
+        assert all(e["level"] == "dispatch" for e in retries)
+
+
+def test_split_k_is_the_reference_s():
+    for cap in (1, 2, 3, 4, 5, 64, 1 << 20):
+        assert pressure.split_k(cap) == jpressure.split_k(cap)
+
+
+def test_an_oom_that_is_not_the_ladder_s_surfaces_from_a_stitched_chain(
+        monkeypatch):
+    """A dispatch that fails for another reason re-raises unchanged: no
+    retry, no split, no host fallback."""
+    from thrill_tpu_torch.api import fusion
+    real = fusion._run_stitched
+
+    def boom(*a, **k):
+        raise RuntimeError("shape mismatch")
+
+    monkeypatch.setattr(fusion, "_run_stitched", boom)
+    ctx = _tctx(2)
+    d = _map_filter(ctx)
+    with pytest.raises(RuntimeError, match="shape mismatch"):
+        _map_filter_items(d)
+    s = ctx.overall_stats()
+    assert s["oom_retries"] == s["segment_splits"] == s["host_fallbacks"] == 0
+    monkeypatch.setattr(fusion, "_run_stitched", real)
+    ctx.close()

@@ -232,7 +232,10 @@ def test_empty_items_raise_the_reference_s_error():
     assert str(got.value) == str(want.value)
 
 
-def test_overall_stats_counts_what_the_port_keeps():
+def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
+    # the reference's jitted engines (its native CPU engine is a fusion
+    # barrier; the port has none)
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
     ctx = tt.Context(num_workers=4, device="cpu")
     ctx.Distribute([(i % 3, 1) for i in range(50)]).ReducePair(
         "sum").AllGather()
@@ -246,12 +249,24 @@ def test_overall_stats_counts_what_the_port_keeps():
                       "bytes_moved", "hbm_peak", "hbm_spills",
                       "hbm_restores", "hbm_high_watermark", "oom_retries",
                       "segment_splits", "host_fallbacks", "admission_spills",
-                      "pressure_spilled_bytes"}
-    assert set(s) <= set(ref.overall_stats())
+                      "pressure_spilled_bytes", "device_dispatches",
+                      "device_fetches", "fused_dispatches", "fused_ops",
+                      "fused_stages", "join_overflow_retries"}
+    rs = ref.overall_stats()
+    assert set(s) <= set(rs)
     assert s["workers"] == 4 and s["nodes_created"] == 2
     assert s["exchanges"] == 1 and s["items_moved"] > 0
     assert s["bytes_moved"] >= 16 * s["items_moved"]
-    assert s["hbm_peak"] == ref.overall_stats()["hbm_peak"] == 0
+    assert s["hbm_peak"] == rs["hbm_peak"] == 0
+    # the reduce's pre and post phases each ran as a stitched program
+    for k in ("fused_dispatches", "fused_ops", "fused_stages"):
+        assert s[k] == rs[k], k
+    assert s["device_dispatches"] >= s["fused_dispatches"] == 2
+    assert s["device_fetches"] > 0
     assert all(s[k] == 0 for k in set(s) - {"workers", "nodes_created",
                                              "exchanges", "items_moved",
-                                             "bytes_moved"})
+                                             "bytes_moved",
+                                             "device_dispatches",
+                                             "device_fetches",
+                                             "fused_dispatches",
+                                             "fused_ops", "fused_stages"})

@@ -43,6 +43,9 @@ class Context:
             faults.REGISTRY.set_logger(self.logger.line)
         self.hbm = HbmGovernor(self, limit=self.config.hbm_limit)
         self.pressure = PressureMonitor(self.mesh_exec, governor=self.hbm)
+        # the dispatch choke point reaches both in one attribute read
+        self.mesh_exec.pressure = self.pressure
+        self.mesh_exec.logger = self.logger
         self._aborted = False
         # checkpoints and resume: None, and nothing made on disk, unless
         # a checkpoint directory is set
@@ -156,9 +159,14 @@ class Context:
         (OverallStats): the mesh's exchange traffic, the nodes created,
         the HBM governor's ledger peak (``hbm_peak``: the most bytes of
         cached device results at once, not the allocator's peak), its
-        spills and restores, the pressure ladder's counters and, with a
-        checkpoint manager, its five (epochs, bytes written, ops and
-        sort runs skipped by resume, restore seconds)."""
+        spills and restores, the pressure ladder's counters, the
+        dispatch choke point's (``device_dispatches``,
+        ``device_fetches``: host syncs), stitching's
+        (``fused_dispatches``, ``fused_ops``, ``fused_stages``: each
+        stitched stage's ops and launches), the hinted join's lineage
+        retries (``join_overflow_retries``) and, with a checkpoint
+        manager, its five (epochs, bytes written, ops and sort runs
+        skipped by resume, restore seconds)."""
         mex = self.mesh_exec
         stats = {
             "workers": self.num_workers,
@@ -166,6 +174,13 @@ class Context:
             "exchanges": mex.stats_exchanges,
             "items_moved": mex.stats_items_moved,
             "bytes_moved": mex.stats_bytes_moved,
+            "device_dispatches": mex.stats_dispatches,
+            "device_fetches": mex.stats_fetches,
+            "fused_dispatches": mex.stats_fused_dispatches,
+            "fused_ops": mex.stats_fused_ops,
+            "fused_stages": {" + ".join(ops): n for ops, n in
+                             mex.fused_stage_counts.items()},
+            "join_overflow_retries": mex.stats_join_overflow_retries,
             "hbm_peak": self.hbm.mem.peak,
             "hbm_spills": self.hbm.spill_count,
             "hbm_restores": self.hbm.restore_count,

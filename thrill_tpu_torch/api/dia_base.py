@@ -1,5 +1,5 @@
 """DIA graph nodes (counterpart of the reference package's
-``api/dia_base.py``, without fusion).
+``api/dia_base.py``).
 
 An action materializes its parent, which recursively computes its own
 parents. A result stays cached on its node until its consume budget is
@@ -19,6 +19,15 @@ With a checkpoint manager (api/checkpoint.py) a node the resume epoch
 holds is rebuilt from it instead of computed, so its upstream graph is
 never pulled; with ``THRILL_TPU_CKPT_AUTO=1`` a freshly computed result
 is sealed into an epoch.
+
+Stitching (api/fusion.py, on unless ``THRILL_TPU_FUSE=0``): a pull goes
+through ``fusion.pull_plan``, and a fusible node (one with a
+``compute_plan``) that is NEW, has this pull as its only consumer and
+no restorable or auto-sealed epoch, defers: its segments run inside the
+consumer's stitched program and the node ends in state FUSED, never
+materialized. Its memory grant is taken around ``compute_plan``. A
+node that cannot defer materializes as above (its own compute stitches
+what its parents deferred into it).
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ Shards = Union[DeviceShards, HostShards]
 NEW = "NEW"
 EXECUTED = "EXECUTED"
 DISPOSED = "DISPOSED"
+# the node's work ran inside its sole consumer's stitched program
+# (api/fusion.py): consumed without ever materializing
+FUSED = "FUSED"
 
 
 @dataclasses.dataclass
@@ -50,16 +62,31 @@ class ParentLink:
             shards = memo.replay(self, consume)
             if shards is not None:
                 return shards
+        from . import fusion
+        if fusion.enabled():
+            # upstream segments deferred into one stitched program run
+            # here, the edge's stack with them
+            shards = fusion.pull_plan(self, consume=consume,
+                                      memo=False).finish()
+        else:
+            shards = self._pull_unfused(consume)
+        if memo is not None:
+            memo.record(self, consume, shards)
+        if pres.enabled:
+            pres.admit(shards)
+        return shards
+
+    def _pull_unfused(self, consume: bool = True) -> Shards:
         shards = self.node.materialize(consume=consume)
+        if isinstance(shards, DeviceShards):
+            # a deferred check (the hinted join's overflow) runs before
+            # any consumer reads the columns
+            shards.validate_pending()
         if self.stack:
             if isinstance(shards, HostShards):
                 shards = apply_stack_host(shards, self.stack)
             else:
                 shards = apply_stack_device(shards, self.stack)
-        if memo is not None:
-            memo.record(self, consume, shards)
-        if pres.enabled:
-            pres.admit(shards)
         return shards
 
 
@@ -90,8 +117,56 @@ class DIABase:
     def compute(self) -> Shards:
         raise NotImplementedError
 
+    def compute_plan(self):
+        """A fusible op overrides this: a :class:`fusion.FusionPlan`
+        whose tail carries this node's segment, or None when the op
+        cannot stitch at all. Once it has pulled a parent it must return
+        a plan (wrapping a result it computed when the input turned out
+        host-resident): the pull consumed the parent."""
+        return None
+
+    def materialize_plan(self, consume: bool = False):
+        """The fused pull: defer this node into its sole consumer's
+        program when it can (stitching on, consuming pull, nothing
+        cached, budget 1, a ``compute_plan``), else materialize. Returns
+        a FusionPlan (deferred) or shards. A node that the resume epoch
+        holds, and every node with parents under auto-epochs, must
+        materialize: restoring beats recomputing its upstream graph, and
+        an epoch seals only materialized results."""
+        from . import fusion
+        mgr = getattr(self.context, "checkpoint", None)
+        if mgr is not None and self.state == NEW and (
+                mgr.restorable(self) or (mgr.auto and self.parents)):
+            return self.materialize(consume=consume)
+        if (fusion.enabled() and consume and self._shards is None
+                and self.state == NEW and self.consume_budget <= 1
+                and type(self).compute_plan is not DIABase.compute_plan):
+            from ..mem.pressure import PullMemo
+            negotiated = self.context.negotiate_mem(self)
+            # the pulls of a deferred node are those of a compute in
+            # flight: the governor spills none of them meanwhile
+            pres = self.context.pressure
+            memo = PullMemo()
+            pres.memos.append(memo)
+            try:
+                plan = self.compute_plan()
+            finally:
+                pres.memos.remove(memo)
+                if negotiated:
+                    self.context.release_mem(self)
+            if plan is not None:
+                self.consume_budget = 0
+                self.state = FUSED
+                log = self.context.logger
+                if log.enabled:
+                    log.line(event="node_fused", node=self.label,
+                             dia_id=self.id,
+                             parents=[p.node.id for p in self.parents])
+                return plan
+        return self.materialize(consume=consume)
+
     def materialize(self, consume: bool = False) -> Shards:
-        if self.state == DISPOSED:
+        if self.state in (DISPOSED, FUSED):
             raise RuntimeError(
                 f"DIA node {self.label}#{self.id} was consumed/disposed "
                 f"(consume budget exhausted); call .Keep() before reusing "

@@ -65,7 +65,8 @@ def AllGather(dia) -> list:
 def _items(shards) -> list:
     if isinstance(shards, HostShards):
         return [it for l in shards.lists for it in l]
-    return itemize(pt.tree_map(lambda t: t.detach().cpu().numpy(),
+    # through the mesh's fetch: counted, and the deferred checks drain
+    return itemize(pt.tree_map(shards.mesh_exec.fetch,
                                _gather_arrays(shards)))
 
 
@@ -110,7 +111,7 @@ def _device_reduce(shards, mode: str, keep_device: bool = False):
     out = pt.tree_map(fold, shards.tree)
     if keep_device:
         return out
-    host = [t.detach().cpu().numpy() for t in pt.leaves(out)]
+    host = [shards.mesh_exec.fetch(t) for t in pt.leaves(out)]
     return pt.unflatten(pt.flatten(out)[1],
                         [h.item() if h.ndim == 0 else h for h in host])
 

@@ -100,7 +100,7 @@ class GroupByKeyNode(DIABase):
         (``thrill_tpu/api/ops/groupby.py:64-123``)."""
         W = shards.num_workers
         key_fn = self.key_fn
-        owns_input = self.parents[0].node.state == "DISPOSED"
+        owns_input = self.parents[0].node.state in ("DISPOSED", "FUSED")
         t0 = time.perf_counter()
         # (hash, key, item), the hash and the hashable key made once
         pre_lists = []

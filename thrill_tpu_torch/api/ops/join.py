@@ -22,19 +22,33 @@ sides go to worker ``hash % W``, and each worker joins in a dict of its
 left items by key. A dense right table is enumerated by its dense
 positions.
 
-Not ported: the reference's hinted path (``out_size_hint`` with a
-deferred overflow check), which needs lazily counted shards; the hint is
-accepted and the output is sized from the exact totals.
+Hinted join (``out_size_hint``, reference:
+``thrill_tpu/api/ops/join.py:263-495, 626-743``): the output is sized
+from the hint instead of the host sync of the totals, and the true
+totals stay on the device. Stitched (api/fusion.py), both phases are the
+head of a plan, so downstream ops run in the same program, and the
+totals ride out as an aux output; per op (``THRILL_TPU_FUSE=0``) the
+output's counts are the device totals. Either way a deferred check
+attaches to the output: it runs when the counts first reach the host,
+when a consumer pulls the shards, or at the next fetch, whichever comes
+first, and before anything reads the columns. On an overflow (a worker
+made more pairs than the hint's power of two) the join runs again at the
+true capacity, from its lineage (the plan's sources, or the sorted sides
+of phase 1), and heals the shards in place (``join_overflow_retries``;
+the governor re-accounts a cached result that grew);
+``THRILL_TPU_JOIN_RECOVER=0`` raises instead, and every later check
+raises again. A dense-index join stitches as a plan head too.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, List, Tuple
 
 import numpy as np
 import torch
 
-from ...common import hashing
+from ...common import faults, hashing
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
 from ...core import keys as keymod
@@ -47,6 +61,7 @@ from ...core.rowmove import row_cumsum, scatter_slots, take_rows
 from ...data import exchange, multiplexer
 from ...data.shards import (DeviceShards, HostShards, compact_valid,
                             round_up_pow2)
+from ...mem.hbm import device_bytes
 from ..dia import DIA
 from ..dia_base import DIABase
 from ..stack import call_batched
@@ -75,7 +90,35 @@ class InnerJoinNode(DIABase):
         self.dense_right_index = (None if dense_right_index is None
                                   else int(dense_right_index))
 
+    def compute_plan(self):
+        """Hinted and dense-index joins stitch: their head traces into
+        the consumer's program. An unhinted join needs the host totals,
+        a barrier, and stays on the per-op path."""
+        from .. import fusion
+        if not fusion.enabled() or (self.out_size_hint is None
+                                    and self.dense_right_index is None):
+            return None
+        left = self.parents[0].pull()
+        right = self.parents[1].pull()
+        if isinstance(left, HostShards) or isinstance(right, HostShards):
+            return fusion.wrap(self._compute_host(left, right))
+        if self.dense_right_index is not None:
+            self._check_dense(right, fetch=False)
+            head = self._dense_head(right.cap)
+            if right._counts_host is None:
+                # device counts: checked when the output's counts reach
+                # the host or a consumer pulls it, not mid-chain
+                head.finalize = lambda plan, out, rc=right._counts_dev: \
+                    self._attach_dense_check(out, rc)
+            return fusion.FusionPlan(left.mesh_exec, [left, right],
+                                     head=head)
+        left, right = self._prep_device(left, right)
+        return self._fused_plan(left, right)
+
     def compute(self):
+        plan = self.compute_plan()
+        if plan is not None:
+            return plan.finish()
         left = self.parents[0].pull()
         right = self.parents[1].pull()
         if isinstance(left, HostShards) or isinstance(right, HostShards):
@@ -83,7 +126,149 @@ class InnerJoinNode(DIABase):
         if self.dense_right_index is not None:
             return self._compute_dense(left, right)
         left, right = self._prep_device(left, right)
+        if self.out_size_hint is not None:
+            return self._hinted(left, right)
         return _sort_merge(left, right, self.lkey, self.rkey, self.join_fn)
+
+    # -- hinted join ---------------------------------------------------------
+    def _fused_plan(self, left: DeviceShards,
+                    right: DeviceShards) -> "FusionPlan":
+        """Both phases as one head segment at the hint's capacity; the
+        true per-worker totals are an aux output for the deferred check
+        (reference: ``thrill_tpu/api/ops/join.py:378-426``)."""
+        from .. import fusion
+        mex = left.mesh_exec
+        lkey, rkey, jfn = self.lkey, self.rkey, self.join_fn
+        node = self
+
+        def make_head(cap_: int) -> fusion.Segment:
+            def trace(fctx, states, _bound):
+                (ltree, lmask), (rtree, rmask) = states
+                ltree_s, rtree_s, lo, matches = _join_phase1(
+                    ltree, lmask, rtree, rmask, lkey, rkey)
+                totals = matches.sum(dim=1)
+                fctx.emit_aux("join_totals", totals)
+                out = _join_expand(ltree_s, rtree_s, lo, matches, cap_, jfn)
+                return out, (torch.arange(cap_, device=lmask.device)[None, :]
+                             < totals[:, None])
+
+            def finalize(plan, out):
+                node._attach_check(mex, out, cap_,
+                                   lambda c: plan.reexecute(c),
+                                   plan.aux["join_totals"], fused=True)
+
+            return fusion.Segment(label="InnerJoin",
+                                  token=("join_fused",
+                                         (lkey, rkey, jfn), cap_),
+                                  trace=trace, already_compact=True,
+                                  refit=make_head, finalize=finalize,
+                                  dia_id=node.id)
+
+        cap = round_up_pow2(max(int(self.out_size_hint), 1))
+        return fusion.FusionPlan(mex, [left, right], head=make_head(cap))
+
+    def _hinted(self, left: DeviceShards,
+                right: DeviceShards) -> DeviceShards:
+        """The per-op hinted join: phase 1, phase 2 at the hint's
+        capacity, counts the device totals, the check deferred; its
+        recovery runs phase 2 again from phase 1's sorted sides."""
+        mex = left.mesh_exec
+        p1 = mex.program(("join_count", (self.lkey, self.rkey)),
+                         _join_phase1)
+        ltree_s, rtree_s, lo, matches = p1(
+            left.tree, left.valid_mask(), right.tree, right.valid_mask(),
+            self.lkey, self.rkey)
+        totals = matches.sum(dim=1)
+        jfn = self.join_fn
+
+        def expand(cap_: int):
+            p2 = mex.program(("join_expand", jfn), _join_expand)
+            return p2(ltree_s, rtree_s, lo, matches, cap_, jfn)
+
+        cap = round_up_pow2(max(int(self.out_size_hint), 1))
+        out = DeviceShards(mex, expand(cap), totals)
+
+        def heal(true_cap: int) -> DeviceShards:
+            return DeviceShards(mex, expand(true_cap), totals)
+
+        self._attach_check(mex, out, cap, heal, totals, fused=False)
+        return out
+
+    def _attach_check(self, mex, out: DeviceShards, cap: int, heal,
+                      totals_dev: torch.Tensor, fused: bool) -> None:
+        """The deferred overflow check on ``out`` (reference:
+        ``thrill_tpu/api/ops/join.py:428-518, 626-743``). It is sticky:
+        once it raised, every later check raises again. Each device
+        reference it holds is dropped as soon as it is resolved, so a
+        check left in the mesh's queue pins nothing."""
+        hint = self.out_size_hint
+        label, dia_id = self.label, self.id
+        hbm = self.context.hbm
+        state = {"ok": False, "err": None, "heal": heal, "out": out,
+                 "totals": totals_dev}
+
+        def resolve() -> None:
+            state["ok"] = state["err"] is None
+            state["heal"] = state["out"] = state["totals"] = None
+
+        def validate(_counts):
+            if state["err"] is not None:
+                raise state["err"]
+            if state["ok"]:
+                return None
+            totals = mex._fetch_raw(state["totals"]).reshape(-1).astype(
+                np.int64)
+            worst = int(totals.max(initial=0))
+            if worst <= cap:
+                resolve()
+                return None
+            if os.environ.get("THRILL_TPU_JOIN_RECOVER", "1") == "0":
+                state["err"] = ValueError(
+                    f"InnerJoin out_size_hint={hint} (cap {cap}) "
+                    f"overflowed: a worker produced {worst} pairs; "
+                    f"results were truncated; raise the hint or drop it")
+                resolve()
+                raise state["err"]
+            true_cap = round_up_pow2(max(worst, 1))
+            o, heal_ = state["out"], state["heal"]
+            # resolved first: a drain started inside the re-run must see
+            # no pending recovery
+            resolve()
+            healed = heal_(true_cap)
+            o.tree = healed.tree
+            o._counts_dev = healed._counts_dev
+            new_counts = mex._fetch_raw(healed._counts_dev).reshape(
+                -1).astype(np.int64)
+            mex.stats_join_overflow_retries += 1
+            # a node that cached these shards had them accounted at the
+            # hint's size: re-account the healed bytes (no spill from in
+            # here: the check runs inside arbitrary frames)
+            for n in list(hbm._lru.values()):
+                if n._shards is o and getattr(n, "_hbm_bytes", 0):
+                    nb = device_bytes(o)
+                    hbm.mem.subtract(n._hbm_bytes)
+                    n._hbm_bytes = nb
+                    hbm.mem.add(nb)
+                    break
+            faults.note("recovery", what="join_out_size_hint", node=label,
+                        dia_id=dia_id, hint=int(hint), true_max=worst,
+                        new_cap=true_cap, fused=fused)
+            return new_counts
+
+        out._counts_check = validate
+
+        def pending_check() -> None:
+            if state["err"] is not None:
+                raise state["err"]
+            if state["ok"]:
+                return
+            o = state["out"]
+            fixed = validate(None)
+            if fixed is not None and o._counts_host is None:
+                o._counts_host = fixed
+            o._counts_check = None
+
+        mex._pending_checks.append(pending_check)
 
     # -- host path ---------------------------------------------------------
     def _compute_host(self, left, right) -> HostShards:
@@ -162,13 +347,70 @@ class InnerJoinNode(DIABase):
         return dense_range_bounds(self.dense_right_index,
                                   self.context.num_workers)
 
-    def _check_dense(self, right: DeviceShards) -> None:
+    def _check_dense(self, right: DeviceShards, fetch: bool = True) -> None:
+        """The right side must be the dense range split; checked on host
+        counts, which ``fetch=False`` (a stitched head) does not fetch
+        for."""
+        if not fetch and right._counts_host is None:
+            return
         expect = np.diff(self._dense_bounds())
         if not np.array_equal(right.counts, expect):
             raise ValueError(
                 f"InnerJoin dense_right_index={self.dense_right_index}: "
                 f"right side counts {right.counts.tolist()} do not form "
                 f"the dense range split {expect.tolist()}")
+
+    def _attach_dense_check(self, out: DeviceShards,
+                            rcounts: torch.Tensor) -> None:
+        """The dense-split check of a right side whose counts stayed on
+        the device, deferred onto the stitched output (sticky)."""
+        mex = out.mesh_exec
+        expect = np.diff(self._dense_bounds())
+        n = self.dense_right_index
+        state = {"err": None, "rc": rcounts, "out": out}
+
+        def validate(_counts):
+            if state["err"] is not None:
+                raise state["err"]
+            if state["rc"] is None:
+                return None
+            got = mex._fetch_raw(state["rc"]).reshape(-1).astype(np.int64)
+            state["rc"] = None
+            if not np.array_equal(got, expect):
+                state["err"] = ValueError(
+                    f"InnerJoin dense_right_index={n}: right side counts "
+                    f"{got.tolist()} do not form the dense range split "
+                    f"{expect.tolist()}")
+                raise state["err"]
+            state["out"] = None
+            return None
+
+        out._counts_check = validate
+
+        def pending_check() -> None:
+            o = state["out"]
+            validate(None)
+            if o is not None:
+                o._counts_check = None
+
+        mex._pending_checks.append(pending_check)
+
+    def _dense_head(self, rcap: int):
+        """The gather join as a plan head (reference:
+        ``thrill_tpu/api/ops/join.py:306-340``)."""
+        from .. import fusion
+        n, lkey, jfn = self.dense_right_index, self.lkey, self.join_fn
+        bounds = self._dense_bounds()
+
+        def trace(fctx, states, _bound):
+            (ltree, lmask), (rtree, _rmask) = states
+            b = torch.as_tensor(bounds, device=lmask.device)
+            return _dense_rows(ltree, lmask, rtree, b, n, lkey, jfn)
+
+        return fusion.Segment(label="InnerJoin",
+                              token=("join_dense",
+                                     (self.lkey, self.rkey, jfn), n),
+                              trace=trace, dia_id=self.id)
 
     def _compute_dense(self, left: DeviceShards,
                        right: DeviceShards) -> DeviceShards:
@@ -178,18 +420,11 @@ class InnerJoinNode(DIABase):
         range gives no pair."""
         self._check_dense(right)
         mex = left.mesh_exec
-        W, lcap, rcap = mex.num_workers, left.cap, right.cap
-        n = self.dense_right_index
-        b = mex.put_small(self._dense_bounds())
-        key = torch.as_tensor(self.lkey(_flat(left.tree)),
-                              device=mex.device).to(torch.int64)
-        w = torch.searchsorted(b[1:], key, right=True).clamp(0, W - 1)
-        gidx = (w * rcap + key - b[w]).clamp(0, W * rcap - 1)
-        rsel = pt.tree_map(lambda l: take_rows(l, gidx).reshape(
-            (W, lcap) + tuple(l.shape[1:])), _flat(right.tree))
-        out = call_batched(self.join_fn, [left.tree, rsel], W, lcap,
-                           mex.device)
-        keep = left.valid_mask() & ((key >= 0) & (key < n)).reshape(W, lcap)
+        prog = mex.program(("join_dense", self.lkey, self.join_fn),
+                           _dense_rows)
+        out, keep = prog(left.tree, left.valid_mask(), right.tree,
+                         mex.put_small(self._dense_bounds()),
+                         self.dense_right_index, self.lkey, self.join_fn)
         counts = mex.fetch(keep.sum(dim=1)).astype(np.int64)
         if np.array_equal(counts, left.counts):
             # every item joined: the rows are in place already
@@ -295,25 +530,50 @@ def _run_bounds(lw: List[torch.Tensor], lvalid: torch.Tensor,
     return counts_below(right_after=False), counts_below(right_after=True)
 
 
-def _sort_merge(left: DeviceShards, right: DeviceShards, lkey, rkey,
-                join_fn) -> DeviceShards:
-    """Phase 1 (sort both sides, count pairs per right item), the host
-    sync of the per-worker totals, phase 2 (expand the pairs)."""
-    mex = left.mesh_exec
-    W, lcap, rcap, dev = mex.num_workers, left.cap, right.cap, mex.device
-    lw = keymod.worker_key_words(lkey, left.tree)
-    rw = keymod.worker_key_words(rkey, right.tree)
+def _dense_rows(ltree, lmask: torch.Tensor, rtree, b: torch.Tensor,
+               n: int, lkey, join_fn):
+    """The gather join: worker ``w``'s table rows lie at ``[w * rcap, w *
+    rcap + count)`` of the right side's ``[W * rcap]`` reshape (the
+    reference's all_gather); a left key in ``[0, n)`` picks its row.
+    Returns (join_fn's output ``[W, lcap, ...]``, ``[W, lcap]`` mask of
+    the valid lefts with a key in range)."""
+    W, lcap = lmask.shape
+    rcap = pt.leaves(rtree)[0].shape[1]
+    key = torch.as_tensor(lkey(_flat(ltree)),
+                          device=lmask.device).to(torch.int64)
+    w = torch.searchsorted(b[1:], key, right=True).clamp(0, W - 1)
+    gidx = (w * rcap + key - b[w]).clamp(0, W * rcap - 1)
+    rsel = pt.tree_map(lambda l: take_rows(l, gidx).reshape(
+        (W, lcap) + tuple(l.shape[1:])), _flat(rtree))
+    out = call_batched(join_fn, [ltree, rsel], W, lcap, lmask.device)
+    return out, lmask & ((key >= 0) & (key < n)).reshape(W, lcap)
+
+
+def _join_phase1(ltree, lmask: torch.Tensor, rtree, rmask: torch.Tensor,
+                 lkey, rkey):
+    """Sort both sides by key words and count, for each right item, its
+    run of equal valid left keys: (sorted left tree, sorted right tree,
+    ``[W, rcap]`` run starts, ``[W, rcap]`` pair counts)."""
+    lw = keymod.worker_key_words(lkey, ltree)
+    rw = keymod.worker_key_words(rkey, rtree)
     if len(lw) != len(rw):
         raise ValueError(f"InnerJoin: the left key has {len(lw)} key words, "
                          f"the right key {len(rw)}")
-    lw, ltree, lvalid = segmented.sort_by_key_words(lw, left.tree,
-                                                    left.valid_mask())
-    rw, rtree, rvalid = segmented.sort_by_key_words(rw, right.tree,
-                                                    right.valid_mask())
+    lw, ltree, lvalid = segmented.sort_by_key_words(lw, ltree, lmask)
+    rw, rtree, rvalid = segmented.sort_by_key_words(rw, rtree, rmask)
     lo, hi = _run_bounds(lw, lvalid, rw, rvalid)
     matches = torch.where(rvalid, hi - lo, torch.zeros_like(lo))
-    totals = mex.fetch(matches.sum(dim=1)).astype(np.int64)
-    out_cap = round_up_pow2(max(int(totals.max()), 1))
+    return ltree, rtree, lo, matches
+
+
+def _join_expand(ltree, rtree, lo: torch.Tensor, matches: torch.Tensor,
+                 out_cap: int, join_fn):
+    """Gather the first ``out_cap`` (left, right) pairs of every worker in
+    sorted right order, each right item's lefts in sorted left order, and
+    apply ``join_fn`` batched."""
+    W, rcap = matches.shape
+    lcap = pt.leaves(ltree)[0].shape[1]
+    dev = matches.device
     ends = row_cumsum(matches)                                  # [W, rcap]
     p = torch.arange(out_cap, device=dev).expand(W, out_cap).contiguous()
     ridx = torch.searchsorted(ends, p, right=True).clamp(0, rcap - 1)
@@ -322,8 +582,23 @@ def _sort_merge(left: DeviceShards, right: DeviceShards, lkey, rkey,
             - torch.gather(starts, 1, ridx)).clamp(0, lcap - 1)
     lsel = pt.tree_map(lambda l: take_rows(l, lidx), ltree)
     rsel = pt.tree_map(lambda l: take_rows(l, ridx), rtree)
-    return DeviceShards(mex, call_batched(join_fn, [lsel, rsel], W, out_cap,
-                                          dev), totals)
+    return call_batched(join_fn, [lsel, rsel], W, out_cap, dev)
+
+
+def _sort_merge(left: DeviceShards, right: DeviceShards, lkey, rkey,
+                join_fn) -> DeviceShards:
+    """Phase 1 (sort both sides, count pairs per right item), the host
+    sync of the per-worker totals, phase 2 (expand the pairs), each
+    phase a program."""
+    mex = left.mesh_exec
+    p1 = mex.program(("join_count", (lkey, rkey)), _join_phase1)
+    ltree, rtree, lo, matches = p1(left.tree, left.valid_mask(), right.tree,
+                                   right.valid_mask(), lkey, rkey)
+    totals = mex.fetch(matches.sum(dim=1)).astype(np.int64)
+    out_cap = round_up_pow2(max(int(totals.max()), 1))
+    p2 = mex.program(("join_expand", join_fn), _join_expand)
+    return DeviceShards(mex, p2(ltree, rtree, lo, matches, out_cap, join_fn),
+                        totals)
 
 
 def InnerJoin(left: DIA, right: DIA, left_key_fn, right_key_fn, join_fn,

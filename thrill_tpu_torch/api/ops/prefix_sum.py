@@ -3,12 +3,17 @@
 sum of the earlier workers' totals, leaf by leaf (floats in their dtype,
 integers in int64, as in the reference). A generic ``fn``, or host
 storage, folds sequentially over the items in global order on the host,
-as the reference does (device input is demoted first)."""
+as the reference does (device input is demoted first).
+
+Stitched (api/fusion.py), the scan is a segment over the chain's mask:
+the earlier workers' totals are a cumulative sum over the worker
+dimension inside the program, so no count is read on the host."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from ...common import tree as pt
@@ -30,8 +35,16 @@ def _scan(leaf: torch.Tensor, mask: torch.Tensor, initial: Any,
     # then takes)
     prev = torch.cumsum(totals, dim=0) - totals
     scan = incl if inclusive else incl - xm
-    init = torch.as_tensor(initial, device=leaf.device).to(leaf.dtype)
+    if isinstance(initial, (int, float)):
+        # a fill on the device: no host-to-device copy inside a chain
+        init = torch.full((), initial, dtype=leaf.dtype, device=leaf.device)
+    else:
+        init = torch.as_tensor(initial, device=leaf.device).to(leaf.dtype)
     return scan + prev[:, None] + init
+
+
+def _scan_tree(tree, mask, initial, inclusive):
+    return pt.tree_map(lambda l: _scan(l, mask, initial, inclusive), tree)
 
 
 class PrefixSumNode(DIABase):
@@ -43,18 +56,51 @@ class PrefixSumNode(DIABase):
         self.initial = initial
         self.inclusive = inclusive
 
+    def _fuse_segment(self):
+        """The masked scan as a segment (reference:
+        ``thrill_tpu/api/ops/prefix_sum.py:34-63``)."""
+        from .. import fusion
+        initial, inclusive = self.initial, self.inclusive
+
+        def trace(fctx, tree, mask, _bound):
+            return pt.tree_map(lambda l: _scan(l, mask, initial, inclusive),
+                               tree), mask
+
+        return fusion.Segment(
+            label=self.label,
+            token=("prefix_sum_fused", inclusive,
+                   np.asarray(initial).tobytes()),
+            trace=trace, preserves_counts=True, dia_id=self.id)
+
+    def compute_plan(self):
+        from .. import fusion
+        if self.fn is not None:
+            return None              # a generic fold: host path only
+        plan = fusion.pull_plan(self.parents[0])
+        if not plan.stitchable:
+            return fusion.wrap(self._compute_on(plan.finish()))
+        plan.append(self._fuse_segment())
+        return plan
+
     def compute(self):
-        shards = self.parents[0].pull()
+        plan = self.compute_plan()
+        if plan is not None:
+            return plan.finish()
+        return self._compute_on(self.parents[0].pull())
+
+    def _compute_on(self, shards):
         if isinstance(shards, HostShards) or self.fn is not None:
             if isinstance(shards, DeviceShards):
                 shards = shards.to_host_shards("prefixsum-nonnumeric-op")
             return self._compute_host(shards)
         if shards.cap == 0:
             return shards
-        mask = shards.valid_mask()
-        tree = pt.tree_map(lambda l: _scan(l, mask, self.initial,
-                                           self.inclusive), shards.tree)
-        return DeviceShards(shards.mesh_exec, tree, shards.counts.copy())
+        mex = shards.mesh_exec
+        prog = mex.program(("prefix_sum", self.inclusive,
+                            np.asarray(self.initial).tobytes()), _scan_tree)
+        tree = prog(shards.tree, shards.valid_mask(), self.initial,
+                    self.inclusive)
+        return DeviceShards(mex, tree, shards.counts_like())
 
     def _compute_host(self, shards: HostShards) -> HostShards:
         """Reference: ``thrill_tpu/api/ops/prefix_sum.py:82-110``."""

@@ -20,12 +20,20 @@ duplicate detection is on, exchanges the rest by hash and folds what
 arrives in ``core/em_table.py``'s external-memory table, which spills to
 the spill store past the node's RAM grant. ReduceToIndex folds into one
 dict a worker.
+
+Stitched (api/fusion.py): ReduceByKey's local combine is a segment
+(``ReduceLocal``), the pre phase's in the chain before the exchange (at
+W = 1 the whole reduce, and the plan is handed on) and the post phase's
+at the head of the chain after it. ReduceToIndex's dense phase is a
+segment after its exchange: the scatter engine over the chain's mask,
+invalid rows dropped into slots of their own, so B3 and the ordered
+fold run exactly where the per-op path runs them.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -61,19 +69,30 @@ def _device_fold_specs(reduce_fn, treedef, leaves):
     return specs
 
 
-def _local_reduce(shards: DeviceShards, key_fn: Callable,
-                  reduce_fn: Callable) -> DeviceShards:
-    """Encode keys, sort, segmented-reduce and compact every worker's
-    rows. The capacity stays the input's."""
-    mex = shards.mesh_exec
-    leaves, td = pt.flatten(shards.tree)
+def _reduce_rows(tree, valid: torch.Tensor, key_fn: Callable,
+                 reduce_fn: Callable):
+    """Encode keys, sort and segmented-reduce every worker's valid rows:
+    (tree, ``[W, cap]`` mask of the runs' representatives)."""
+    leaves, td = pt.flatten(tree)
     specs = _device_fold_specs(reduce_fn, td, leaves)
-    words = keymod.worker_key_words(key_fn, shards.tree)
-    words, tree, valid = segmented.sort_by_key_words(
-        words, shards.tree, shards.valid_mask())
+    words = keymod.worker_key_words(key_fn, tree)
+    words, tree, valid = segmented.sort_by_key_words(words, tree, valid)
     _, tree, rep = segmented.reduce_runs(words, tree, valid, reduce_fn,
                                          specs)
-    tree, counts = compact_valid(tree, rep)
+    return tree, rep
+
+
+def _local_reduce_program(tree, valid, key_fn, reduce_fn):
+    return compact_valid(*_reduce_rows(tree, valid, key_fn, reduce_fn))
+
+
+def _local_reduce(shards: DeviceShards, key_fn: Callable,
+                  reduce_fn: Callable, token) -> DeviceShards:
+    """:func:`_reduce_rows`, then every worker's representatives
+    compacted, as one program. The capacity stays the input's."""
+    mex = shards.mesh_exec
+    prog = mex.program(("reduce_local", token), _local_reduce_program)
+    tree, counts = prog(shards.tree, shards.valid_mask(), key_fn, reduce_fn)
     return DeviceShards(mex, tree, mex.fetch(counts))
 
 
@@ -93,18 +112,50 @@ class ReduceNode(DIABase):
         # reference: DuplicateDetectionTag; None = the cost model decides
         self.dup_detection = dup_detection
 
+    def _fuse_segment(self, phase: str):
+        """The local combine as a segment (reference:
+        ``thrill_tpu/api/ops/reduce.py:358-384``)."""
+        from .. import fusion
+        key_fn, reduce_fn = self.key_fn, self.reduce_fn
+
+        def trace(fctx, tree, mask, _bound):
+            return _reduce_rows(tree, mask, key_fn, reduce_fn)
+
+        return fusion.Segment(label="ReduceLocal",
+                              token=("reduce_local", phase, self.token),
+                              trace=trace, dia_id=self.id)
+
+    def compute_plan(self):
+        from .. import fusion
+        plan = fusion.pull_plan(self.parents[0])
+        if not plan.stitchable:
+            return fusion.wrap(self._compute_on(plan.finish()))
+        plan.append(self._fuse_segment("pre"))
+        if self.context.num_workers == 1:
+            # the pre phase is the whole reduce: downstream ops stitch on
+            return plan
+        # the exchange is a barrier that reads the columns
+        return self._post_exchange(plan.finish())
+
     def compute(self):
-        shards = self.parents[0].pull()
+        return self.compute_plan().finish()
+
+    def _compute_on(self, shards):
+        """The per-op path over pulled shards (``THRILL_TPU_FUSE=0``,
+        and host storage)."""
         if isinstance(shards, HostShards):
             return self._compute_host(shards)
-        pre = _local_reduce(shards, self.key_fn, self.reduce_fn)
+        pre = _local_reduce(shards, self.key_fn, self.reduce_fn,
+                            ("pre", self.token))
         if self.context.num_workers == 1:
             # the pre phase combined every key: nothing left to merge
             return pre
-        return self._post_exchange(pre)
+        return self._post_exchange(pre).finish()
 
-    def _post_exchange(self, pre: DeviceShards) -> DeviceShards:
-        """Shuffle the pre-reduced rows by key hash and combine again."""
+    def _post_exchange(self, pre: DeviceShards):
+        """Shuffle the pre-reduced rows by key hash and combine again;
+        returns a plan whose post phase is pending when stitching is on,
+        so downstream ops can stitch onto it."""
         key_fn = self.key_fn
         mex = self.context.mesh_exec
         W = mex.num_workers
@@ -135,8 +186,14 @@ class ReduceNode(DIABase):
                                                == 1)
             return torch.where(mine_only, widx, hash_dest)
 
-        return _local_reduce(exchange.exchange(pre, dest), key_fn,
-                             self.reduce_fn)
+        from .. import fusion
+        shuffled = exchange.exchange(pre, dest)
+        if fusion.enabled():
+            plan = fusion.FusionPlan(mex, [shuffled])
+            plan.append(self._fuse_segment("post"))
+            return plan
+        return fusion.wrap(_local_reduce(shuffled, key_fn, self.reduce_fn,
+                                         ("post", self.token)))
 
     def _compute_host(self, shards: HostShards) -> HostShards:
         """The reference's host path, item for item
@@ -144,7 +201,7 @@ class ReduceNode(DIABase):
         W = shards.num_workers
         mex = self.context.mesh_exec
         key_fn, reduce_fn = self.key_fn, self.reduce_fn
-        owns_input = self.parents[0].node.state == "DISPOSED"
+        owns_input = self.parents[0].node.state in ("DISPOSED", "FUSED")
         t0 = time.perf_counter()
         # pre phase: each worker combines its equal keys (Thrill's
         # ReducePrePhase), bounded by its input, which is in RAM already
@@ -376,9 +433,66 @@ class ReduceToIndexNode(DIABase):
 
         return exchange.exchange(shards, dest)
 
-    def compute(self):
-        shards = self.parents[0].pull()
+    def _fuse_segment(self, bounds: np.ndarray,
+                      counts: Optional[np.ndarray] = None):
+        """The dense phase after the exchange as a segment (reference:
+        ``thrill_tpu/api/ops/reduce.py:971-1039``): the scatter engine
+        for FieldReduce specs, else the sorted engine; the output is
+        every worker's dense ``[out_cap]`` range, its counts the ranges'
+        sizes. With the input's ``counts`` known on the host (the
+        exchange's output) the scatter engine takes the valid rows only,
+        as the per-op path does; else every row, the invalid ones
+        dropped by the chain's mask."""
+        from .. import fusion
+        W = self.context.num_workers
+        local_sizes = (bounds[1:] - bounds[:-1]).astype(np.int64)
+        out_cap = max(1, round_up_pow2(int(local_sizes.max())))
+        index_fn, reduce_fn, neutral = self.index_fn, self.reduce_fn, \
+            self.neutral
+        ntok = None
+        if neutral is not None:
+            ntok = (str(pt.flatten(neutral)[1]),
+                    tuple(np.asarray(l).tobytes()
+                          for l in pt.leaves(neutral)))
+
+        total = None if counts is None else int(counts.sum())
+        bound = (bounds[:W].astype(np.int64), local_sizes)
+        if total is not None:
+            bound += (np.concatenate([[0], np.cumsum(counts)]),)
+
+        def trace(fctx, tree, mask, bound_t):
+            starts, sizes = bound_t[:2]
+            rows = None if total is None else (total, bound_t[2])
+            out = _dense_rows(tree, mask, index_fn, reduce_fn, neutral,
+                              starts, sizes, out_cap, rows)
+            return out, (torch.arange(out_cap, device=mask.device)[None, :]
+                         < sizes[:, None])
+
+        return fusion.Segment(
+            label="ReduceToIndex",
+            token=("r2i_post_fused", (index_fn, reduce_fn, self.size),
+                   out_cap, ntok, total),
+            trace=trace, bound=bound,
+            already_compact=True, sets_counts=local_sizes, dia_id=self.id)
+
+    def compute_plan(self):
+        from .. import fusion
+        plan = fusion.pull_plan(self.parents[0])
         bounds = self._bounds()
+        if not plan.stitchable:
+            return fusion.wrap(self._compute_on(plan.finish(), bounds))
+        if self.context.num_workers > 1:
+            # the exchange is a barrier: the chain after it starts here
+            shards = self._exchange_by_index(plan.finish(), bounds)
+            plan = fusion.FusionPlan(shards.mesh_exec, [shards])
+        plan.append(self._fuse_segment(bounds, plan.known_counts))
+        return plan
+
+    def compute(self):
+        return self.compute_plan().finish()
+
+    def _compute_on(self, shards, bounds: np.ndarray):
+        """The per-op path (``THRILL_TPU_FUSE=0``, and host storage)."""
         if isinstance(shards, HostShards):
             return self._compute_host(shards, bounds)
         mex = shards.mesh_exec
@@ -390,27 +504,21 @@ class ReduceToIndexNode(DIABase):
         # a power-of-two capacity, as every other producer of shards
         out_cap = max(1, round_up_pow2(int(local_sizes.max())))
         sc = _scatter_fold_specs(self.reduce_fn, td, leaves)
+        prog = mex.program(("r2i", self.index_fn, self.reduce_fn,
+                            self.size), _dense_program)
         if sc is None:
-            out = self._sorted_reduce(shards, bounds, out_cap)
+            out = prog(None, shards.tree, shards.valid_mask(),
+                       self.index_fn, self.reduce_fn, self.neutral,
+                       mex.put_small(bounds[:W]), None, out_cap)
             return DeviceShards(mex, out, local_sizes)
         # the scatter engine takes the valid rows only, worker-major, so
         # no padding row of the [W, cap] shards is scattered
-        cap = shards.cap
         cum = mex.put_small(np.concatenate([[0], np.cumsum(shards.counts)]))
-        t = torch.arange(shards.total, device=mex.device)
-        w_of = torch.searchsorted(cum[1:], t, right=True)
-        sel = t + w_of * cap - cum[w_of]
-        tree = pt.tree_map(lambda l: take_rows(
-            l.reshape((W * cap,) + tuple(l.shape[2:])), sel), shards.tree)
-        local = (torch.as_tensor(self.index_fn(tree), device=mex.device)
-                 .to(torch.int64) - mex.put_small(bounds)[w_of])
-        ok = (local >= 0) & (local < mex.put_small(local_sizes)[w_of])
-        pos = torch.where(ok, w_of * out_cap + local,
-                          torch.full_like(local, W * out_cap))
-        out = _scatter_reduce_apply(tree, pos, W * out_cap, sc, self.neutral)
-        return DeviceShards(mex, pt.tree_map(
-            lambda l: l.reshape((W, out_cap) + tuple(l.shape[1:])), out),
-            local_sizes)
+        out = prog(sc, shards.tree,
+                   _valid_rows(shards.total, cum, shards.cap), self.index_fn,
+                   self.reduce_fn, self.neutral, mex.put_small(bounds),
+                   mex.put_small(local_sizes), out_cap)
+        return DeviceShards(mex, out, local_sizes)
 
     def _compute_host(self, shards: HostShards,
                       bounds: np.ndarray) -> HostShards:
@@ -429,41 +537,107 @@ class ReduceToIndexNode(DIABase):
              for i in range(int(bounds[w]), int(bounds[w + 1]))]
             for w in range(W)])
 
-    def _sorted_reduce(self, shards: DeviceShards, bounds: np.ndarray,
-                       out_cap: int) -> Any:
-        """Sort by index, fold each run, scatter the representatives into
-        the dense ``[W, out_cap]`` rows."""
-        leaves, td = pt.flatten(shards.tree)
-        mex = shards.mesh_exec
-        W, n = shards.num_workers, shards.cap
-        dev = mex.device
-        specs = _device_fold_specs(self.reduce_fn, td, leaves)
-        words, tree, valid = segmented.sort_by_key_words(
-            [_index_of(self.index_fn, shards.tree)], shards.tree,
-            shards.valid_mask())
-        words, tree, rep = segmented.reduce_runs(words, tree, valid,
-                                                 self.reduce_fn, specs)
-        local_idx = words[0] - mex.put_small(bounds[:W])[:, None]
-        # a representative below its range clips to row 0, one past it
-        # is dropped, as the reference's clip into [0, out_cap]
-        flat = scatter_slots(local_idx.clamp(min=0),
-                             rep & (local_idx < out_cap), out_cap)
-        region = out_cap + n
-        nleaves = (pt.leaves(self.neutral) if self.neutral is not None
-                   else [0] * len(leaves))
+def _sorted_dense(tree, valid: torch.Tensor, index_fn, reduce_fn, neutral,
+                  starts: torch.Tensor, out_cap: int):
+    """Sort by index, fold each run, scatter the representatives into
+    the dense ``[W, out_cap]`` rows (``starts`` ``[W]``: each worker's
+    first index)."""
+    leaves, td = pt.flatten(tree)
+    W, n = valid.shape
+    dev = valid.device
+    specs = _device_fold_specs(reduce_fn, td, leaves)
+    words, tree, valid = segmented.sort_by_key_words(
+        [_index_of(index_fn, tree)], tree, valid)
+    words, tree, rep = segmented.reduce_runs(words, tree, valid, reduce_fn,
+                                             specs)
+    local_idx = words[0] - starts[:, None]
+    # a representative below its range clips to row 0, one past it is
+    # dropped, as the reference's clip into [0, out_cap]
+    flat = scatter_slots(local_idx.clamp(min=0),
+                         rep & (local_idx < out_cap), out_cap)
+    region = out_cap + n
+    nleaves = (pt.leaves(neutral) if neutral is not None
+               else [0] * len(leaves))
 
-        def scatter(leaf, nv):
-            trail = tuple(leaf.shape[2:])
-            base = torch.empty((W * region,) + trail, dtype=leaf.dtype,
-                               device=dev)
-            base[:] = torch.as_tensor(np.asarray(nv), device=dev).to(
-                leaf.dtype)
-            # representatives have distinct indices
-            base.index_put_((flat,), leaf.reshape((-1,) + trail))
-            return base.reshape((W, region) + trail)[:, :out_cap]
+    def scatter(leaf, nv):
+        trail = tuple(leaf.shape[2:])
+        base = torch.empty((W * region,) + trail, dtype=leaf.dtype,
+                           device=dev)
+        base[:] = torch.as_tensor(np.asarray(nv), device=dev).to(
+            leaf.dtype)
+        # representatives have distinct indices
+        base.index_put_((flat,), leaf.reshape((-1,) + trail))
+        return base.reshape((W, region) + trail)[:, :out_cap]
 
-        return pt.unflatten(td, [scatter(l, nv) for l, nv in
-                                 zip(pt.leaves(tree), nleaves)])
+    return pt.unflatten(td, [scatter(l, nv) for l, nv in
+                             zip(pt.leaves(tree), nleaves)])
+
+
+def _scatter_dense(tree, index_fn, sc, neutral, w_of: torch.Tensor,
+                   keep: torch.Tensor, starts: torch.Tensor,
+                   sizes: torch.Tensor, W: int, out_cap: int):
+    """The scatter engine over rows ``tree`` (leaves ``[T, ...]``,
+    worker-major) of workers ``w_of`` ``[T]``; a row outside its
+    worker's range, or not in ``keep``, is dropped."""
+    dev = w_of.device
+    local = (torch.as_tensor(index_fn(tree), device=dev).to(torch.int64)
+             - starts[w_of])
+    ok = keep & (local >= 0) & (local < sizes[w_of])
+    pos = torch.where(ok, w_of * out_cap + local,
+                      torch.full_like(local, W * out_cap))
+    out = _scatter_reduce_apply(tree, pos, W * out_cap, sc, neutral)
+    return pt.tree_map(
+        lambda l: l.reshape((W, out_cap) + tuple(l.shape[1:])), out)
+
+
+def _dense_program(sc, tree, rows, index_fn, reduce_fn, neutral, starts,
+                   sizes, out_cap: int):
+    """ReduceToIndex's per-op dense phase: the sorted engine (``sc`` None,
+    ``rows`` the valid mask) or the scatter engine over the valid rows
+    (``rows`` = (their flat index, their worker))."""
+    if sc is None:
+        return _sorted_dense(tree, rows, index_fn, reduce_fn, neutral,
+                             starts, out_cap)
+    sel, w_of = rows
+    W, cap = pt.leaves(tree)[0].shape[:2]
+    flat = pt.tree_map(lambda l: take_rows(
+        l.reshape((W * cap,) + tuple(l.shape[2:])), sel), tree)
+    return _scatter_dense(flat, index_fn, sc, neutral, w_of,
+                          torch.ones_like(w_of, dtype=torch.bool), starts,
+                          sizes, W, out_cap)
+
+
+def _valid_rows(total: int, cum: torch.Tensor, cap: int):
+    """(flat row index, worker) of every valid row, worker-major, from
+    host-known counts (``cum`` their ``[W + 1]`` running sum on the
+    device)."""
+    t = torch.arange(total, device=cum.device)
+    w_of = torch.searchsorted(cum[1:], t, right=True)
+    return t + w_of * cap - cum[w_of], w_of
+
+
+def _dense_rows(tree, mask: torch.Tensor, index_fn, reduce_fn, neutral,
+                starts: torch.Tensor, sizes: torch.Tensor, out_cap: int,
+                rows=None):
+    """The segment's form of :func:`_dense_program`: with ``rows`` =
+    (total, counts' running sum) the scatter engine takes the valid rows
+    as the per-op path does; without, every row of the chain, the
+    invalid ones dropped into slots of their own."""
+    W, cap = mask.shape
+    leaves, td = pt.flatten(tree)
+    sc = _scatter_fold_specs(reduce_fn, td, leaves)
+    if sc is None:
+        return _sorted_dense(tree, mask, index_fn, reduce_fn, neutral,
+                             starts, out_cap)
+    if rows is not None:
+        return _dense_program(sc, tree, _valid_rows(rows[0], rows[1], cap),
+                              index_fn, reduce_fn, neutral, starts, sizes,
+                              out_cap)
+    flat = pt.tree_map(lambda l: l.reshape((W * cap,) + tuple(l.shape[2:])),
+                       tree)
+    w_of = torch.arange(W, device=mask.device).repeat_interleave(cap)
+    return _scatter_dense(flat, index_fn, sc, neutral, w_of,
+                          mask.reshape(-1), starts, sizes, W, out_cap)
 
 
 def ReduceToIndex(dia: DIA, index_fn, reduce_fn, size,

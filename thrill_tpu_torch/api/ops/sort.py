@@ -22,6 +22,11 @@ engine and the payload is gathered once per phase:
 
 The order (words, global index) is total, so the result is globally
 sorted across worker ranks and stable, row for row the reference's.
+
+Stitched (api/fusion.py), the W == 1 sort is a segment: an argsort of
+(invalid, key words, row) over the chain's mask through the radix engine
+and one payload gather, its valid rows a prefix. The W > 1 sample sort
+needs its splitters on the host and an exchange, so it is a barrier.
 """
 
 from __future__ import annotations
@@ -95,8 +100,45 @@ class SortNode(DIABase):
         self.key_fn = key_fn or (lambda x: x)
         self.compare_fn = compare_fn
 
+    def _fuse_segment(self):
+        """The W == 1 sort as a segment (reference:
+        ``thrill_tpu/api/ops/sort.py:90-120``), or None."""
+        from .. import fusion
+        if self.context.num_workers != 1 or self.compare_fn is not None:
+            return None
+        key_fn = self.key_fn
+        mex = self.context.mesh_exec
+
+        def trace(fctx, tree, mask, _bound):
+            out, count = _sort_w1(tree, mask, key_fn, mex.radix_passes,
+                                  validity=True)
+            cap = mask.shape[1]
+            return out, (torch.arange(cap, device=mask.device)[None, :]
+                         < count[:, None])
+
+        return fusion.Segment(label="Sort",
+                              token=("sort_w1_fused", key_fn),
+                              trace=trace, preserves_counts=True,
+                              already_compact=True, dia_id=self.id)
+
+    def compute_plan(self):
+        from .. import fusion
+        seg = self._fuse_segment()
+        if seg is None:
+            return None
+        plan = fusion.pull_plan(self.parents[0])
+        if not plan.stitchable:
+            return fusion.wrap(self._compute_on(plan.finish()))
+        plan.append(seg)
+        return plan
+
     def compute(self):
-        shards = self.parents[0].pull()
+        plan = self.compute_plan()
+        if plan is not None:
+            return plan.finish()
+        return self._compute_on(self.parents[0].pull())
+
+    def _compute_on(self, shards):
         if isinstance(shards, HostShards):
             return self._compute_host(shards)
         if self.compare_fn is not None:
@@ -200,7 +242,7 @@ class SortNode(DIABase):
         from ...mem.manager import RssBudget
         from ...vfs.file_io import prefetch_depth
 
-        owns_input = self.parents[0].node.state == "DISPOSED"
+        owns_input = self.parents[0].node.state in ("DISPOSED", "FUSED")
         io_base = _IOSTATS.snapshot()
         pool = spill_pool(self.context.config.spill_dir, self.mem_limit)
         # None without a checkpoint manager or with THRILL_TPU_EM_RESUME=0
@@ -553,20 +595,17 @@ def _device_sample_sort(shards: DeviceShards,
     # [W, cap]; after the phase-1 argsort the valid rows come first, so
     # the same mask marks the valid rows of the sorted columns
     valid = shards.valid_mask()
+    if W == 1:
+        # one worker: key argsort and one payload gather, no exchange
+        prog = mex.program(("sort_w1", key_fn), _sort_w1)
+        out, _ = prog(shards.tree, valid, key_fn, mex.radix_passes,
+                      validity=not full)
+        return DeviceShards(mex, out, shards.counts.copy())
+
     words = keymod.worker_key_words(key_fn, shards.tree)
     nwords = len(words)
     lead = [] if full else [(~valid).to(torch.int64)]
     lead_bits = [] if full else [VALID_BITS]
-
-    if W == 1:
-        # one worker: key argsort and one payload gather, no exchange
-        iota = ar[None, :].clone()
-        perm = argsort_words(lead + words + [iota],
-                             lead_bits + [64] * (nwords + 1),
-                             passes=mex.radix_passes)
-        out = take_rows_multi(leaves, perm)
-        return DeviceShards(mex, pt.unflatten(treedef, out),
-                            shards.counts.copy())
 
     # ---- phase 1: key argsort + quantile samples (no payload) ---------
     gidx = mex.put_small(offsets.astype(np.int64))[:, None] + ar[None, :]
@@ -593,6 +632,23 @@ def _device_sample_sort(shards: DeviceShards,
     payload = take_rows_multi(leaves, perm)
     out = _fused_exchange_merge(mex, dest, words_s, gidx_s, payload, S)
     return DeviceShards(mex, pt.unflatten(treedef, out), S.sum(axis=0))
+
+
+def _sort_w1(tree, valid: torch.Tensor, key_fn: Callable, passes: list,
+             validity: bool):
+    """One worker's sort: an argsort of ((invalid,) key words, row) and
+    one payload gather; returns (tree, ``[1]`` valid count). The
+    validity word is left out when every row is valid."""
+    cap = valid.shape[1]
+    words = keymod.worker_key_words(key_fn, tree)
+    lead = [(~valid).to(torch.int64)] if validity else []
+    lead_bits = [VALID_BITS] if validity else []
+    iota = torch.arange(cap, device=valid.device)[None, :].clone()
+    perm = argsort_words(lead + words + [iota],
+                         lead_bits + [64] * (len(words) + 1), passes=passes)
+    leaves, treedef = pt.flatten(tree)
+    return (pt.unflatten(treedef, take_rows_multi(leaves, perm)),
+            valid.sum(dim=1))
 
 
 def host_samples(mex, s_words: torch.Tensor, s_idx: torch.Tensor,

@@ -22,8 +22,13 @@ storage, a ``partial_fn``, or a worker other than the last with fewer
 than ``k - 1`` items run ``fn`` per window on the host, and raise when
 only ``device_fn`` was given. ``MeshExec.device_runs`` counts the
 device path's runs by op, so a caller can tell that nothing was
-demoted. Fusion of
-these ops into their neighbours is not ported (ROADMAP.md queue A).
+demoted.
+
+Stitched (api/fusion.py), Window and FlatWindow with a ``device_fn`` are
+segments when the chain before them keeps the source's host-known counts
+(so the halo check needs no fetch): the counts and offsets of the halo
+come from the chain's mask inside the program (reference:
+``thrill_tpu/api/ops/window.py:96-111``).
 """
 
 from __future__ import annotations
@@ -53,26 +58,25 @@ def _halo(leaf: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([torch.zeros_like(h[:1]), h[:-1]], dim=0)
 
 
-def _windows(shards: DeviceShards, k: int):
+def _windows(tree, counts: torch.Tensor, offsets: torch.Tensor, k: int):
     """The windows of every worker's rows: (tree of ``[W * (cap + k - 1)
     - k + 1, k, ...]`` views, window ``w * (cap + k - 1) + j`` ending at
     worker ``w``'s local item ``j``; ``[W, cap]`` mask of the windows
     whose items all exist; ``[W, cap]`` global index of each window's
-    first item)."""
-    mex = shards.mesh_exec
-    W, cap, dev = shards.num_workers, shards.cap, mex.device
-    counts = shards.counts_device()
+    first item). ``counts`` and ``offsets`` (each worker's first global
+    index) are ``[W]`` device tensors."""
+    W, cap = pt.leaves(tree)[0].shape[:2]
+    dev = counts.device
 
     def unfold(leaf):
         ext = torch.cat([_halo(leaf, counts, k), leaf], dim=1)
         flat = ext.reshape((W * (cap + k - 1),) + tuple(leaf.shape[2:]))
         return flat.unfold(0, k, 1).movedim(-1, 1)
 
-    offsets = np.concatenate([[0], np.cumsum(shards.counts)])[:-1]
     j = torch.arange(cap, device=dev)[None, :]
-    g_end = mex.put_small(offsets.astype(np.int64))[:, None] + j
+    g_end = offsets[:, None] + j
     ends_valid = (j < counts[:, None]) & (g_end >= k - 1)
-    return pt.tree_map(unfold, shards.tree), ends_valid, g_end - (k - 1)
+    return pt.tree_map(unfold, tree), ends_valid, g_end - (k - 1)
 
 
 def _per_worker_rows(leaf: torch.Tensor, W: int, cap: int,
@@ -85,27 +89,77 @@ def _per_worker_rows(leaf: torch.Tensor, W: int, cap: int,
         (W, cap + k - 1) + trail)[:, :cap]
 
 
-def _device_window_op(shards: DeviceShards, k: int, make_output,
-                      label: str, factor: int = 0) -> DeviceShards:
+def _window_rows(tree, counts: torch.Tensor, offsets: torch.Tensor, k: int,
+                 make_output, factor: int = 0):
     """Windows, then ``make_output(windows, ends_valid, g_start) -> (out
     tree, keep)`` on the windows' item axis: out leaves ``[n, ...]`` and
     keep ``[W, cap]``, or with a ``factor`` out leaves ``[n, factor,
-    ...]`` and keep ``[W, cap, factor]``; the kept rows are compacted."""
-    mex = shards.mesh_exec
-    W, cap = shards.num_workers, shards.cap
-    windows, ends_valid, g_start = _windows(shards, k)
+    ...]`` and keep ``[W, cap, factor]``. Returns the output as ``[W,
+    rows, ...]`` leaves and its ``[W, rows]`` keep mask, uncompacted."""
+    W, cap = pt.leaves(tree)[0].shape[:2]
+    windows, ends_valid, g_start = _windows(tree, counts, offsets, k)
     out, keep = make_output(windows, ends_valid, g_start)
     lead, rows = (3, cap * factor) if factor else (2, cap)
 
     def per_worker(leaf):
-        r = _per_worker_rows(torch.as_tensor(leaf, device=mex.device),
+        r = _per_worker_rows(torch.as_tensor(leaf, device=counts.device),
                              W, cap, k)
         return r.reshape((W, rows) + tuple(r.shape[lead:]))
 
+    return pt.tree_map(per_worker, out), keep.reshape(W, rows)
+
+
+def _window_program(tree, counts, offsets, k, make_output, factor):
+    return compact_valid(*_window_rows(tree, counts, offsets, k,
+                                       make_output, factor))
+
+
+def _device_window_op(shards: DeviceShards, k: int, make_output,
+                      label: str, token, factor: int = 0) -> DeviceShards:
+    """The windows' outputs of every worker (:func:`_window_rows`), the
+    kept rows compacted, as one program."""
+    mex = shards.mesh_exec
+    offsets = mex.put_small(np.concatenate(
+        [[0], np.cumsum(shards.counts)])[:-1].astype(np.int64))
+    prog = mex.program(("window",) + token, _window_program)
+    tree, counts = prog(shards.tree, shards.counts_device(), offsets, k,
+                        make_output, factor)
     mex.device_runs[label] += 1
-    tree, counts = compact_valid(pt.tree_map(per_worker, out),
-                                 keep.reshape(W, rows))
     return DeviceShards(mex, tree, mex.fetch(counts).astype(np.int64))
+
+
+def _window_segment(node, make_output, token, factor: int = 0):
+    """A Window-family op as a segment: counts and offsets from the
+    chain's mask, whose valid rows are a prefix under the gate of
+    :func:`_fused_window_plan`."""
+    from .. import fusion
+    k, label = node.k, node.label
+    mex = node.context.mesh_exec
+
+    def trace(fctx, tree, mask, _bound):
+        mex.device_runs[label] += 1
+        return _window_rows(tree, fctx.count(mask),
+                            fctx.exclusive_offset(mask), k, make_output,
+                            factor)
+
+    return fusion.Segment(label=label, token=token, trace=trace,
+                          dia_id=node.id)
+
+
+def _fused_window_plan(node):
+    """The Window family's gate (reference:
+    ``thrill_tpu/api/ops/window.py:96-111``): the halo check (every
+    worker but the last holds at least k-1 items) needs host counts, so
+    the op stitches only when the pending chain keeps the source's known
+    counts; otherwise the chain runs and the per-op path takes over."""
+    from .. import fusion
+    plan = fusion.pull_plan(node.parents[0])
+    if plan.stitchable and plan.counts_preserved() \
+            and plan.known_counts is not None \
+            and bool(np.all(plan.known_counts[:-1] >= node.k - 1)):
+        plan.append(node._fuse_segment())
+        return plan
+    return fusion.wrap(node._compute_on(plan.finish()))
 
 
 def _device_ok(shards, k: int) -> bool:
@@ -132,8 +186,34 @@ class WindowNode(DIABase):
                 "Window has no trailing partial block)")
         self.partial_fn = partial_fn
 
+    def _make_output(self):
+        k, fn, disjoint = self.k, self.device_fn, self.disjoint
+
+        def make_output(windows, valid, g_start):
+            if disjoint:
+                # only the windows that start on a multiple of k
+                valid = valid & (g_start % k == 0)
+            return fn(windows), valid
+
+        return make_output
+
+    def _fuse_segment(self):
+        return _window_segment(self, self._make_output(),
+                               ("window_fused", self.device_fn,
+                                self.disjoint, self.k))
+
+    def compute_plan(self):
+        if self.device_fn is None or self.partial_fn is not None:
+            return None
+        return _fused_window_plan(self)
+
     def compute(self):
-        shards = self.parents[0].pull()
+        plan = self.compute_plan()
+        if plan is not None:
+            return plan.finish()
+        return self._compute_on(self.parents[0].pull())
+
+    def _compute_on(self, shards):
         if (self.device_fn is not None and self.partial_fn is None
                 and _device_ok(shards, self.k)):
             return self._compute_device(shards)
@@ -159,15 +239,9 @@ class WindowNode(DIABase):
         return HostShards(1, [out]).repartition(shards.num_workers)
 
     def _compute_device(self, shards: DeviceShards) -> DeviceShards:
-        k, fn, disjoint = self.k, self.device_fn, self.disjoint
-
-        def make_output(windows, valid, g_start):
-            if disjoint:
-                # only the windows that start on a multiple of k
-                valid = valid & (g_start % k == 0)
-            return fn(windows), valid
-
-        return _device_window_op(shards, k, make_output, self.label)
+        return _device_window_op(shards, self.k, self._make_output(),
+                                 self.label, (self.device_fn,
+                                              self.disjoint, self.k))
 
 
 class FlatWindowNode(DIABase):
@@ -190,8 +264,34 @@ class FlatWindowNode(DIABase):
         if fn is None and device_fn is None:
             raise ValueError("FlatWindow needs fn and/or device_fn")
 
+    def _make_output(self):
+        fn, k = self.device_fn, self.k
+
+        def make_output(windows, valid, g_start):
+            out, mask = fn(windows)
+            mask = _per_worker_rows(torch.as_tensor(
+                mask, device=valid.device).to(torch.bool), *valid.shape, k)
+            return out, valid[:, :, None] & mask
+
+        return make_output
+
+    def _fuse_segment(self):
+        return _window_segment(self, self._make_output(),
+                               ("flatwindow_fused", self.device_fn,
+                                self.factor, self.k), self.factor)
+
+    def compute_plan(self):
+        if self.device_fn is None or self.factor <= 0:
+            return None
+        return _fused_window_plan(self)
+
     def compute(self):
-        shards = self.parents[0].pull()
+        plan = self.compute_plan()
+        if plan is not None:
+            return plan.finish()
+        return self._compute_on(self.parents[0].pull())
+
+    def _compute_on(self, shards):
         if self.device_fn is not None and _device_ok(shards, self.k):
             return self._compute_device(shards)
         if self.fn is None:
@@ -208,17 +308,9 @@ class FlatWindowNode(DIABase):
         return HostShards(1, [out]).repartition(shards.num_workers)
 
     def _compute_device(self, shards: DeviceShards) -> DeviceShards:
-        fn, factor = self.device_fn, self.factor
-
-        def make_output(windows, valid, g_start):
-            out, mask = fn(windows)
-            mask = _per_worker_rows(torch.as_tensor(
-                mask, device=valid.device).to(torch.bool), *valid.shape,
-                self.k)
-            return out, valid[:, :, None] & mask
-
-        return _device_window_op(shards, self.k, make_output, self.label,
-                                 factor)
+        return _device_window_op(shards, self.k, self._make_output(),
+                                 self.label, (self.device_fn, self.factor,
+                                              self.k), self.factor)
 
 
 def Window(dia: DIA, k: int, fn, device_fn=None, disjoint: bool = False,

@@ -11,6 +11,11 @@ On host storage Zip calls ``zip_fn`` per item over the inputs in global
 order and splits the output evenly; only mixed storage demotes the
 device inputs to host items. ZipWithIndex on host storage calls
 ``zip_fn(item, global_index)`` per item.
+
+Stitched (api/fusion.py): Zip's local zip is the head of a plan over
+the realigned inputs, so downstream ops run in its program; ZipWithIndex
+is a segment whose indices are each valid row's position in the chain's
+mask plus the earlier workers' valid rows, summed in the program.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from ...data import exchange, multiplexer
 from ...data.shards import DeviceShards, HostShards
 from ..dia import DIA
 from ..dia_base import DIABase
+from ...core.rowmove import row_cumsum
 from ..stack import call_batched
 
 
@@ -99,7 +105,21 @@ class ZipNode(DIABase):
                 f"Zip: unequal sizes {totals}; use mode='cut' or 'pad'")
         return totals[0]
 
+    def compute_plan(self):
+        from .. import fusion
+        res = self._compute_any()
+        if isinstance(res, fusion.FusionPlan):
+            return res
+        return fusion.wrap(res)
+
     def compute(self):
+        from .. import fusion
+        res = self._compute_any()
+        if isinstance(res, fusion.FusionPlan):
+            return res.finish()
+        return res
+
+    def _compute_any(self):
         pulls = [l.pull() for l in self.parents]
         if any(isinstance(p, HostShards) for p in pulls):
             return self._compute_host([
@@ -127,9 +147,28 @@ class ZipNode(DIABase):
             counts = np.diff(tb).astype(np.int64)
             aligned = [_realign_or_keep(p, tb, n_out) for p in pulls]
         cap = max(a.cap for a in aligned)
-        trees = [_repad(a, cap).tree for a in aligned]
-        return DeviceShards(mex, call_batched(self.zip_fn, trees, W, cap,
-                                              mex.device), counts)
+        aligned = [_repad(a, cap) for a in aligned]
+        from .. import fusion
+        if fusion.enabled():
+            # the local zip heads a plan over the aligned inputs, so the
+            # ops downstream run in its program
+            zip_fn = self.zip_fn
+
+            def trace(fctx, states, _bound):
+                return (call_batched(zip_fn, [t for t, _m in states], W,
+                                     cap, mex.device), states[0][1])
+
+            head = fusion.Segment(label="Zip",
+                                  token=("zip_fuse_head", zip_fn,
+                                         self.mode),
+                                  trace=trace, already_compact=True,
+                                  dia_id=self.id)
+            return fusion.FusionPlan(
+                mex, [DeviceShards(mex, a.tree, counts.copy())
+                      for a in aligned], head=head, known_counts=counts)
+        prog = mex.program(("zip", self.zip_fn), call_batched)
+        return DeviceShards(mex, prog(self.zip_fn, [a.tree for a in aligned],
+                                      W, cap, mex.device), counts)
 
     def _compute_host(self, pulls: List[HostShards]) -> HostShards:
         """Reference: ``thrill_tpu/api/ops/zip_.py:190-211``."""
@@ -172,8 +211,37 @@ class ZipWithIndexNode(DIABase):
         super().__init__(ctx, "ZipWithIndex", [link])
         self.zip_fn = zip_fn or _zwi_default
 
+    def _fuse_segment(self):
+        """Global indices from the mask (reference:
+        ``thrill_tpu/api/ops/zip_.py:310-326``): a valid row's position
+        among its worker's valid rows plus the earlier workers' valid
+        rows, both summed in the program."""
+        from .. import fusion
+        zf = self.zip_fn
+
+        def trace(fctx, tree, mask, _bound):
+            W, cap = mask.shape
+            pos = row_cumsum(mask) - 1
+            g = fctx.exclusive_offset(mask)[:, None] + pos
+            return call_batched(zf, [tree, g], W, cap, mask.device), mask
+
+        return fusion.Segment(label="ZipWithIndex",
+                              token=("zip_index_fused", self.zip_fn),
+                              trace=trace, preserves_counts=True,
+                              dia_id=self.id)
+
+    def compute_plan(self):
+        from .. import fusion
+        plan = fusion.pull_plan(self.parents[0])
+        if not plan.stitchable:
+            return fusion.wrap(self._compute_on(plan.finish()))
+        plan.append(self._fuse_segment())
+        return plan
+
     def compute(self):
-        shards = self.parents[0].pull()
+        return self.compute_plan().finish()
+
+    def _compute_on(self, shards):
         if isinstance(shards, HostShards):
             # reference: thrill_tpu/api/ops/zip_.py:336-350
             counts = multiplexer.global_counts(self.context.mesh_exec,
@@ -187,8 +255,8 @@ class ZipWithIndexNode(DIABase):
         W, cap = shards.num_workers, shards.cap
         g = (mex.put_small(_offsets(shards))[:, None]
              + torch.arange(cap, device=mex.device)[None, :])
-        tree = call_batched(self.zip_fn, [shards.tree, g], W, cap,
-                            mex.device)
+        prog = mex.program(("zip_index", self.zip_fn), call_batched)
+        tree = prog(self.zip_fn, [shards.tree, g], W, cap, mex.device)
         return DeviceShards(mex, tree, shards.counts.copy())
 
 

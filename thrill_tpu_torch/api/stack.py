@@ -17,6 +17,7 @@ them to its parent's shards in one go.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Tuple
 
 import numpy as np
@@ -120,43 +121,87 @@ def apply_stack_host(shards: HostShards, stack: Stack) -> HostShards:
     return HostShards(shards.num_workers, out)
 
 
-def apply_stack_device(shards: DeviceShards, stack: Stack) -> DeviceShards:
-    """Run a Map/Filter/FlatMap stack over every worker's rows; rows a
-    Filter or a FlatMap drops are compacted away once, at the end. A
-    FlatMap of factor ``k`` multiplies the capacity by ``k``, each
-    item's candidates side by side."""
-    mex = shards.mesh_exec
-    W, cap = shards.num_workers, shards.cap
+def stack_cache_token(stack: Stack) -> Tuple:
+    """What identifies a stack's program: each op's kind, function and
+    factor (a Bind by its function, not its operands' values)."""
+    return tuple((op.kind, op.fn.fn if isinstance(op.fn, Bind) else op.fn,
+                  op.factor) for op in stack)
+
+
+def stack_bound_operands(stack: Stack) -> list:
+    """The operand pytrees of every Bind op, in stack order (a stitched
+    program takes them as arguments)."""
+    return [op.fn.operands for op in stack if isinstance(op.fn, Bind)]
+
+
+def apply_stack_traced(tree: Any, mask: torch.Tensor, stack: Stack,
+                       bound=None) -> Tuple[Any, torch.Tensor]:
+    """Apply a stack to ``[W, cap, ...]`` leaves with their ``[W, cap]``
+    valid mask, every worker's rows on one item axis; returns the new
+    ``(tree, mask)``, nothing compacted. A FlatMap of factor ``k``
+    multiplies the capacity by ``k``, each item's candidates side by
+    side. ``bound``, when given, holds the Bind ops' operands as device
+    tensors, in stack order."""
+    W, cap = mask.shape
     n = W * cap
+    dev = mask.device
     tree = pt.tree_map(lambda l: l.reshape((n,) + tuple(l.shape[2:])),
-                       shards.tree)
-    mask = shards.valid_mask().reshape(n)
-    filtered = False
+                       tree)
+    mask = mask.reshape(n)
+    bound_iter = iter(bound) if bound is not None else None
     for op in stack:
+        fn = op.fn
+        if isinstance(fn, Bind) and bound_iter is not None:
+            fn = functools.partial(_call_bound, fn.fn, next(bound_iter))
         if op.kind == "map":
-            tree = _broadcast_outputs(op.fn(tree), n, mex.device)
+            tree = _broadcast_outputs(fn(tree), n, dev)
         elif op.kind == "filter":
-            mask = mask & torch.as_tensor(op.fn(tree),
-                                          device=mex.device).to(torch.bool)
-            filtered = True
+            mask = mask & torch.as_tensor(fn(tree), device=dev).to(
+                torch.bool)
         elif op.kind == "flat_map":
-            out, valid = op.fn(tree)
+            out, valid = fn(tree)
             k = op.factor
-            valid = torch.as_tensor(valid, device=mex.device).to(torch.bool)
+            valid = torch.as_tensor(valid, device=dev).to(torch.bool)
             if tuple(valid.shape[:2]) != (n, k):
                 raise ValueError(f"flat_map valid mask must be [n, {k}], "
                                  f"got {tuple(valid.shape)}")
             tree = pt.tree_map(lambda l: torch.as_tensor(
-                l, device=mex.device).reshape((n * k,) + tuple(l.shape[2:])),
-                out)
+                l, device=dev).reshape((n * k,) + tuple(l.shape[2:])), out)
             mask = (mask[:, None] & valid).reshape(n * k)
             n, cap = n * k, cap * k
-            filtered = True
         else:
             raise ValueError(op.kind)
     tree = pt.tree_map(lambda l: l.reshape((W, cap) + tuple(l.shape[1:])),
                        tree)
-    if not filtered:
-        return DeviceShards(mex, tree, shards.counts.copy())
-    tree, counts = compact_valid(tree, mask.reshape(W, cap))
+    return tree, mask.reshape(W, cap)
+
+
+def _call_bound(fn: Callable, operands, tree):
+    return fn(tree, *operands)
+
+
+def apply_stack_host_list(items, stack: Stack) -> list:
+    """A stack over one worker's item list, per item."""
+    out: list = []
+    for it in items:
+        apply_stack_host_item(it, stack, out.append)
+    return out
+
+
+def _stack_program(tree, mask, stack: Stack):
+    tree, mask = apply_stack_traced(tree, mask, stack)
+    if all(op.kind == "map" for op in stack):
+        return tree, None
+    return compact_valid(tree, mask)
+
+
+def apply_stack_device(shards: DeviceShards, stack: Stack) -> DeviceShards:
+    """Run a Map/Filter/FlatMap stack over every worker's rows as one
+    program through the mesh's dispatch choke point; rows a Filter or a
+    FlatMap drops are compacted away once, at the end."""
+    mex = shards.mesh_exec
+    prog = mex.program(("stack", stack_cache_token(stack)), _stack_program)
+    tree, counts = prog(shards.tree, shards.valid_mask(), stack)
+    if counts is None:
+        return DeviceShards(mex, tree, shards.counts_like())
     return DeviceShards(mex, tree, mex.fetch(counts).astype(np.int64))

@@ -22,6 +22,11 @@ both packages. Entries are separated by semicolons::
 A fire raises the site's declared exception class, so the real recovery
 paths run; every fire and every recovery ``note`` is kept in
 :data:`REGISTRY` and written to the attached JSON logger.
+
+Sites declared here rather than by their module: ``api.mesh.dispatch``
+(every call through the mesh's dispatch choke point, retried under the
+shared policy) and ``api.fuse.<Op>`` (one per op label of a stitched
+program, :func:`fuse_site`, checked before its dispatch).
 """
 
 from __future__ import annotations
@@ -276,6 +281,15 @@ REGISTRY = FaultRegistry()
 declare = REGISTRY.declare
 check = REGISTRY.check
 note = REGISTRY.note
+
+#: a call through the mesh's dispatch choke point (parallel/mesh.py)
+F_DISPATCH = declare("api.mesh.dispatch")
+
+
+def fuse_site(label: str) -> str:
+    """The ``api.fuse.<label>`` site of an op stitched into a program
+    (api/fusion.py)."""
+    return declare("api.fuse." + label)
 
 
 class inject:

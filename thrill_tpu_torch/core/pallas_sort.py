@@ -278,6 +278,19 @@ stable_partition_offsets.launches = 0
 
 # -- the LSD driver ----------------------------------------------------------
 
+#: the radix engine's host syncs (:func:`live_digits` calls)
+live_reads = 0
+
+
+def live_digits(varies: torch.Tensor) -> list:
+    """``[K][8]`` on the host: is digit ``j`` of used word ``k`` live in
+    some row. The radix engine's one host sync an argsort, counted in
+    :data:`live_reads`."""
+    global live_reads
+    live_reads += 1
+    return varies.any(dim=1).tolist()
+
+
 def radix_argsort_device(words: Sequence[torch.Tensor],
                          word_bits: Optional[Sequence[int]] = None,
                          passes: Optional[List[Tuple[int, int]]] = None
@@ -307,7 +320,7 @@ def radix_argsort_device(words: Sequence[torch.Tensor],
     if used:
         # a digit is live if some row holds two values of it: the one sync
         varies = torch.stack([hists[k] for k in used]).amax(dim=3) < n
-        live = varies.any(dim=1).tolist()                  # [K][8]
+        live = live_digits(varies)                         # [K][8]
     todo = [(k, [j for j in range(ndig[k]) if live[i][j]])
             for i, k in reversed(list(enumerate(used)))]
     nlive = sum(len(js) for _, js in todo)

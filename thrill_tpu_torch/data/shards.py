@@ -13,7 +13,7 @@ HostShards: per-worker Python item lists, for items of any type.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,14 +70,71 @@ def _host_source(leaf: Any, device: torch.device) -> torch.Tensor:
 
 
 class DeviceShards:
-    """Leaves ``[W, cap, ...]`` on the mesh's device, counts on the host
-    (numpy ``[W]`` int64)."""
+    """Leaves ``[W, cap, ...]`` on the mesh's device plus per-worker
+    valid counts, held in one of two forms that convert lazily
+    (reference: ``thrill_tpu/data/shards.py:90-200``):
 
-    def __init__(self, mesh_exec: MeshExec, tree: Any,
-                 counts: np.ndarray) -> None:
+    * on the host (numpy ``[W]`` int64, ``_counts_host``), which plan
+      steps need (exchange sizing, splitters, action results);
+    * on the device (a ``[W]`` int64 tensor, ``_counts_dev``), the
+      output of a stitched program (api/fusion.py), which is all the
+      next program needs.
+
+    ``counts`` fetches device counts once, on first use, through the
+    mesh's counted :meth:`MeshExec.fetch`, so a chain of device ops
+    makes no host round trip between them and a test can count the
+    ones it makes. ``_counts_check`` is a deferred validation (the
+    hinted join's overflow check) run when the counts first reach the
+    host, or earlier by :meth:`validate_pending`."""
+
+    def __init__(self, mesh_exec: MeshExec, tree: Any, counts) -> None:
         self.mesh_exec = mesh_exec
         self.tree = tree
-        self.counts = np.asarray(counts, dtype=np.int64)
+        if isinstance(counts, torch.Tensor):
+            self._counts_host: Optional[np.ndarray] = None
+            self._counts_dev: Optional[torch.Tensor] = counts.reshape(
+                -1).to(torch.int64)
+        else:
+            self._counts_host = np.asarray(counts, dtype=np.int64)
+            self._counts_dev = None
+        self._counts_check: Optional[Callable] = None
+
+    @property
+    def counts(self) -> np.ndarray:
+        """Host counts; fetched from the device (and kept) on first
+        use. A pending check runs before they are kept: if it raises,
+        the next read checks again; a recovering check may heal the
+        tree in place and return the counts that replace these."""
+        if self._counts_host is None:
+            counts = self.mesh_exec.fetch(self._counts_dev).reshape(
+                -1).astype(np.int64)
+            if self._counts_check is not None:
+                fixed = self._counts_check(counts)
+                self._counts_check = None
+                if fixed is not None:
+                    counts = np.asarray(fixed, dtype=np.int64)
+            self._counts_host = counts
+        return self._counts_host
+
+    def validate_pending(self) -> None:
+        """Run a deferred counts check now (nothing without one): a
+        consumer calls this before it reads the columns, so a hinted
+        join's overflow is found, and healed, before truncated rows can
+        flow on. Its transfer is :meth:`MeshExec._fetch_raw`, which is
+        not counted as a host sync of the chain."""
+        if self._counts_check is None:
+            return
+        if self._counts_host is not None:
+            counts = self._counts_host
+        else:
+            counts = self.mesh_exec._fetch_raw(
+                self._counts_dev).reshape(-1).astype(np.int64)
+        fixed = self._counts_check(counts)      # stays set if it raises
+        self._counts_check = None
+        if fixed is not None:
+            self._counts_host = np.asarray(fixed, dtype=np.int64)
+        elif self._counts_host is None:
+            self._counts_host = counts
 
     @property
     def num_workers(self) -> int:
@@ -92,8 +149,18 @@ class DeviceShards:
         return int(self.counts.sum())
 
     def counts_device(self) -> torch.Tensor:
-        """Counts as a ``[W]`` int64 tensor on the device."""
-        return self.mesh_exec.put_small(self.counts)
+        """Counts as a ``[W]`` int64 tensor on the device, uploaded once
+        when they are host counts."""
+        if self._counts_dev is None:
+            self._counts_dev = self.mesh_exec.put_small(self._counts_host)
+        return self._counts_dev
+
+    def counts_like(self):
+        """These counts in the form they are held (host copy or device
+        tensor), for shards of the same rows, without a fetch."""
+        if self._counts_host is not None:
+            return self._counts_host.copy()
+        return self._counts_dev
 
     def valid_mask(self) -> torch.Tensor:
         """``[W, cap]`` bool: row is one of its worker's items."""
@@ -194,7 +261,7 @@ class DeviceShards:
                 (), dtype=leaf.dtype, device=leaf.device))
 
         return DeviceShards(self.mesh_exec, pt.tree_map(zero, self.tree),
-                            self.counts.copy())
+                            self.counts_like())
 
 
 @dataclasses.dataclass

@@ -5,15 +5,38 @@ worker's shard is one slice of the leading tensor dimension of a
 ``[W, cap, ...]`` leaf, so a per-worker program is one batched torch op
 and an all-to-all between workers is a transpose of the worker
 dimension. Multiple cards and ``torch.distributed`` come later.
+
+The dispatch choke point (reference: ``_CountedJit``,
+``thrill_tpu/parallel/mesh.py:77-260``): a device program is a plain
+function of ``[W, cap, ...]`` tensors behind a :class:`Program`, one a
+key (:meth:`MeshExec.program`). Every call of one goes through
+:meth:`MeshExec.dispatch`, which counts it (``stats_dispatches``),
+admits it against the HBM budget with its output-bytes hint (rung 1),
+runs it under the shared retry policy when the ``api.mesh.dispatch``
+or ``mem.oom`` sites are armed, and retries a device OOM after spilling
+(rung 2, ``mem/pressure.py`` ``recover_dispatch``). The stitched
+programs of ``api/fusion.py`` and the per-op programs of the ops they
+stitch run here. It is neither ``torch.compile`` nor a CUDA graph: the
+function runs eagerly, its kernels queued without a host round trip.
+
+Host fetches go through :meth:`MeshExec.fetch`, which counts them
+(``stats_fetches``) and first drains the deferred checks (the hinted
+join's overflow check), so no result leaves the device past an unrun
+check; :meth:`MeshExec._fetch_raw` is the uncounted transfer the checks
+themselves use.
 """
 
 from __future__ import annotations
 
+import weakref
 from collections import Counter
-from typing import Any, Callable, Dict, List, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..common import faults
+from ..common.retry import default_policy
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -45,6 +68,41 @@ class CountedCall:
         return self.fn(*args, **kwargs)
 
 
+class Program:
+    """A device program behind the mesh's dispatch choke point: calls
+    go through :meth:`MeshExec.dispatch`. ``out_bytes`` is its output's
+    size, learned on its first call while admission is on (the cost
+    model's per-program estimate)."""
+
+    __slots__ = ("mex", "fn", "key", "out_bytes")
+
+    def __init__(self, mex: "MeshExec", fn: Callable, key: Tuple) -> None:
+        # the mesh caches its programs: a strong reference back would
+        # keep both (and every tensor a mesh reaches) alive until the
+        # cyclic collector ran
+        self.mex = weakref.proxy(mex)
+        self.fn = fn
+        self.key = key
+        self.out_bytes: Optional[int] = None
+
+    def __call__(self, *args, **kwargs):
+        return self.mex.dispatch(self, args, kwargs)
+
+    def __repr__(self) -> str:
+        return f"<Program {self.key[0] if self.key else '?'}>"
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of the tensors in a nest of tuples, lists and dicts."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, dict):
+        return sum(tensor_bytes(v) for v in obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(tensor_bytes(v) for v in obj)
+    return 0
+
+
 class MeshExec:
     """W workers on one device, plus the mesh's traffic counters."""
 
@@ -66,6 +124,24 @@ class MeshExec:
         # back to the host (the Window family)
         self.device_runs: Counter = Counter()
         self._cache: Dict[Tuple, Any] = {}
+        # the dispatch choke point's counters: program calls, host
+        # fetches (each a sync of the queue), and program stitching's
+        # (api/fusion.py) stitched dispatches, the op segments they
+        # carried and each stage's composition (op labels -> launches)
+        self.stats_dispatches = 0
+        self.stats_fetches = 0
+        self.stats_fused_dispatches = 0
+        self.stats_fused_ops = 0
+        self.fused_stage_counts: Dict[Tuple[str, ...], int] = {}
+        # hinted joins re-run at their true capacity after an overflow
+        self.stats_join_overflow_retries = 0
+        # deferred validations (the hinted join's overflow check): every
+        # host fetch drains them first
+        self._pending_checks: List[Callable[[], None]] = []
+        # the memory-pressure monitor (mem/pressure.py) and the JSON
+        # logger, attached by the Context; None on a bare mesh
+        self.pressure = None
+        self.logger = None
 
     def cached(self, key: Tuple, builder: Callable[[], Any]) -> Any:
         """``builder()``'s result, built once per key on this mesh."""
@@ -80,13 +156,68 @@ class MeshExec:
         callable and the count of its calls."""
         return self.cached(key, lambda: CountedCall(fn))
 
+    def program(self, key: Tuple, fn: Callable) -> Program:
+        """``fn`` behind the dispatch choke point, one :class:`Program`
+        per key."""
+        return self.cached(key, lambda: Program(self, fn, key))
+
+    def dispatch(self, prog: Program, args: tuple, kwargs: dict):
+        """Run one program call: count it, admit it (rung 1), retry
+        transient faults of the armed ``api.mesh.dispatch`` site under
+        the shared policy, and hand a device OOM to rung 2."""
+        self.stats_dispatches += 1
+        pres = self.pressure
+        if pres is not None and pres.enabled:
+            pres.admit_call(prog, args)
+        try:
+            if not faults.REGISTRY.active():
+                out = prog.fn(*args, **kwargs)
+            else:
+                from ..mem import pressure as _pressure
+
+                def attempt():
+                    faults.check(faults.F_DISPATCH)
+                    faults.check(_pressure._F_OOM)
+                    return prog.fn(*args, **kwargs)
+
+                out = default_policy().run(attempt, what="mesh.dispatch")
+        except Exception as e:
+            from ..mem import pressure as _pressure
+            if not (_pressure.retry_enabled() and _pressure.is_oom_error(e)):
+                raise
+            out = _pressure.recover_dispatch(prog, args, kwargs, e)
+        if pres is not None and pres.enabled and prog.out_bytes is None:
+            prog.out_bytes = tensor_bytes(out)
+        return out
+
     def put_small(self, arr) -> torch.Tensor:
         """A host array on the mesh's device."""
         return torch.as_tensor(np.asarray(arr), device=self.device)
 
     def fetch(self, t: torch.Tensor) -> np.ndarray:
-        """A device tensor on the host (waits for the device)."""
+        """A device tensor on the host (waits for the device): counted
+        in ``stats_fetches``, after the deferred checks have run."""
+        self.stats_fetches += 1
+        self.drain_checks()
+        return self._fetch_raw(t)
+
+    def _fetch_raw(self, t: torch.Tensor) -> np.ndarray:
+        """:meth:`fetch` without the count and the drain, for the
+        deferred checks themselves."""
         return t.detach().cpu().numpy()
+
+    def drain_checks(self) -> None:
+        """Run every queued deferred check. A check that raises keeps
+        the unrun ones queued for the next drain."""
+        if not self._pending_checks:
+            return
+        checks, self._pending_checks = self._pending_checks, []
+        try:
+            while checks:
+                checks.pop(0)()
+        except BaseException:
+            self._pending_checks.extend(checks)
+            raise
 
     def __repr__(self) -> str:
         return f"MeshExec(num_workers={self.num_workers}, device={self.device})"

@@ -153,10 +153,13 @@ Phases, each fatal on failure:
      pulling it restores it, bit-equal to the upload (the governor's
      spill must drop memory_allocated by at least the bytes its ledger
      freed; spill and restore GB/s beside the host link, the warm Sort
-     with and without the limit); phase 6's PageRank under half its unpressured ledger peak
-     (each checked restore byte-equal to what was spilled, the ranks
-     bit-equal to the unpressured run's, which is bit-equal to its own
-     repeat: the f64 sums fold in operand order); the Sort with
+     with and without the limit); phase 6's PageRank under half its
+     unpressured ledger peak with the plain loop (which spills and
+     restores every iteration's carry) and replayed (one capture, the
+     whole loop a CUDA graph): each checked restore byte-equal to what
+     was spilled, the ranks of both bit-equal to the unpressured
+     replayed run's, which is bit-equal to the unpressured plain loop's
+     (the f64 sums fold in operand order); the Sort with
      two cold kept tables and a ballast leaving the card free memory
      between its measured working set less the cold bytes and that
      working set, so it runs out of memory inside its compute and the
@@ -167,10 +170,11 @@ Phases, each fatal on failure:
      first;
  24. checkpoints and resume at W=4 (C1-C3), each first run in a child
      process SIGKILLed mid-job: C1 phase 6's PageRank with the example's
-     Iterate sealing its carry every 3 iterations, killed once an epoch
-     is committed, resumed in a second child: ranks bit-equal to an
-     uninterrupted run, the fold's and the pass's launches those of the
-     iterations it ran, the epoch's bytes, save and restore GB/s,
+     Iterate sealing its carry every 3 iterations, replay on, killed
+     once an epoch is committed, resumed in a second child, which
+     captures once and replays the rest: ranks bit-equal to an
+     uninterrupted run, the iterations it logged those after the epoch,
+     the fold's and the pass's launches those of the iterations it ran, the epoch's bytes, save and restore GB/s,
      recovery_time_s and each epoch's steps from the manager's log; C2
      H6's external Sort with a checkpoint directory, killed once 8 run
      manifests are committed, then run here one after another with no
@@ -207,6 +211,26 @@ Phases, each fatal on failure:
      set), segment_splits 1 and bit-equal; rung 4 under
      THRILL_TPU_FAULTS=mem.oom:n=0, host_fallbacks 1; rung 2 under
      mem.oom:n=1, oom_retries 1;
+ 25c. Iterate's capture and replay (L1-L5; every phase before runs
+     Iterate's default, replay, except the checked first runs of phase
+     6 and of phase 8 at W=1, whose probes hook the loop body and so
+     need the plain loop): L1 phase 6's PageRank W=4
+     and L2 at W=1, L3 phase 8's k-means at W=4 and W=1, each in one
+     process with replay (iterations 2-10 one CUDA graph where the
+     reference lowers the loop), per-iteration replay
+     (THRILL_TPU_LOOP_FORI=0) with release on and off, and the plain
+     loop; each mode bit-equal to the plain loop, which is held to
+     numpy; the loop stats the reference's on the CPU (L_REF); every
+     iteration's host seconds, dispatches, fetches and launches from
+     the JSON log; launches of a replayed iteration not above a plain
+     one's; warm seconds of replay and the plain loop in turns; the
+     graph's replays and one replayed iteration under the profiler
+     (idle share); peak memory from the first replay on with release on
+     and off. L4 PageRank W=1 under api.loop.replay:p=1.0:n=1: one
+     fallback, a second capture, bit-equal. L5 B1, the upsweep, the
+     pass and the ordered fold on L2's inputs, each captured in a
+     torch.cuda.CUDAGraph and replayed, bit-equal to its eager launch
+     and to its plain version on the CPU;
  26. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
@@ -227,6 +251,10 @@ Phases, each fatal on failure:
 also saves those captured inputs to DIR/main_inputs.pt, for
 ``kernel_times.py --inputs DIR`` to time other versions of the kernels on.
 
+    python3 chip_smoke.py --phase-l
+
+builds the kernels and runs phase 25c alone.
+
     python3 chip_smoke.py --m1-compare DIR
 
 runs only phase 23's M1 of the tree at DIR (a copy of an earlier commit
@@ -245,6 +273,7 @@ the port's sources are not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -793,11 +822,11 @@ class Capture:
         self.calls = []
 
     def __enter__(self):
-        def call(*args):
+        def call(*args, **kwargs):
             self.args = args
             if self.keep_all:
                 self.calls.append(args)
-            return self.inner(*args)
+            return self.inner(*args, **kwargs)
         setattr(self.module, self.name, call)
         return self
 
@@ -1105,7 +1134,11 @@ def pagerank(torch, np, tt, W: int, iters: int, edges, pk, ps):
     zero_launches(pk, ps)
     tpr.Iterate = iterate
     try:
-        with FoldCapture(reduce_mod) as cap_fold:
+        # the plain loop: the memory probe after iteration 2 runs in the
+        # body, which a replayed iteration does not call (L1 and L2 hold
+        # the replayed loop at this size); the warm runs below replay
+        with FoldCapture(reduce_mod) as cap_fold, \
+                EnvSet(THRILL_TPU_LOOP_REPLAY="0"):
             t0 = time.perf_counter()
             got = tpr.page_rank(ctx, edges, PAGES, iters)
             torch.cuda.synchronize()
@@ -1326,6 +1359,7 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
     c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
     t0 = time.perf_counter()
     want, want_counts = lloyd_np(np, pts, c0, iters)
+    _LLOYD[iters] = (want, want_counts)
     np_secs = time.perf_counter() - t0
     mem, cnts = {}, []
     real_iterate, real_update = tkm.Iterate, tkm._center_update
@@ -1357,9 +1391,14 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
     torch.cuda.reset_peak_memory_stats()
     zero_launches(pk, ps)
     tkm.Iterate, tkm._center_update = iterate, update
+    # at W > 1 the loop misses its capture twice and runs plain, as the
+    # reference's; at W = 1 it captures, and the probes of the counts
+    # and of the memory run in the body, which a replayed iteration does
+    # not call: the plain loop there (L3 holds the replayed one)
+    plain = {"THRILL_TPU_LOOP_REPLAY": "0"} if W == 1 else {}
     try:
         with Capture(exchange_mod, "send_counts", keep_all=False) as cap_sc, \
-                FoldCapture(reduce_mod) as cap_fold:
+                FoldCapture(reduce_mod) as cap_fold, EnvSet(**plain):
             t0 = time.perf_counter()
             got = tkm.k_means(ctx, pts, KM_K, iters)
             torch.cuda.synchronize()
@@ -2866,60 +2905,81 @@ class ParkCheck:
 
 def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
     """M2: PageRank W=4 at phase 6's size under a governor limit of half
-    the unpressured run's ledger peak: every checked restore gives back
-    the spilled bytes exactly, and the ranks are bit-equal to the
-    unpressured run's, whose repeat is bit-equal too (the f64 sums fold
-    in operand order)."""
+    the unpressured run's ledger peak, with the plain loop
+    (THRILL_TPU_LOOP_REPLAY=0: every iteration's carry a cached result
+    the governor spills and restores) and with Iterate's default (the
+    loop captured once, iterations 2-10 one CUDA graph): every checked
+    restore gives back the spilled bytes exactly, the loop replays under
+    the limit, and both runs' ranks are bit-equal to the unpressured
+    replayed run's, which are bit-equal to the unpressured plain loop's
+    (the f64 sums fold in operand order). Returns the launches of the
+    plain and of the replayed run under the limit."""
     from thrill_tpu_torch.common.config import Config
     from thrill_tpu_torch.examples import page_rank as tpr
     host_ram_check(4 << 30, "M2")
+    plain = {"THRILL_TPU_LOOP_REPLAY": "0"}
 
-    def run(cfg):
-        ctx = tt.Context(num_workers=4, device=DEVICE, config=cfg)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ranks = tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        st = ctx.overall_stats()
-        ctx.close()
-        return ranks, secs, st
+    def run(cfg, env):
+        with EnvSet(**env):
+            ctx = tt.Context(num_workers=4, device=DEVICE, config=cfg)
+            torch.cuda.synchronize()
+            zero_launches(pk, ps)
+            t0 = time.perf_counter()
+            ranks = tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches = read_launches(pk, ps)
+            st = ctx.overall_stats()
+            ctx.close()
+        return ranks, secs, st, launches
 
-    want, t_plain, st0 = run(Config())
-    want2, t_plain2, _ = run(Config())
-    limit = st0["hbm_peak"] // 2
-    zero_launches(pk, ps)
+    want, t_replay, st0, _ = run(Config(), {})
+    want2, t_plain, st2, _ = run(Config(), plain)
+    limit = st2["hbm_peak"] // 2
     with ParkCheck(torch, hbm_mod) as chk:
-        got, t_cut, st = run(Config(hbm_limit=limit))
-    launches = read_launches(pk, ps)
+        got, t_cut, st, launches = run(Config(hbm_limit=limit), plain)
+    with ParkCheck(torch, hbm_mod) as chk_r:
+        got_r, t_cut_r, st_r, launches_r = run(Config(hbm_limit=limit), {})
     if st["hbm_spills"] < 1 or st["hbm_restores"] < 1:
         raise AssertionError(f"M2: nothing spilled under {limit}: {st}")
-    if chk.checked < 1 or chk.exact != chk.checked:
-        raise AssertionError(f"M2: {chk.checked - chk.exact} of "
-                             f"{chk.checked} checked restores differ from "
-                             f"the spilled bytes")
+    if chk.checked < 1 or chk.exact != chk.checked \
+            or chk_r.exact != chk_r.checked:
+        raise AssertionError(f"M2: {chk.checked - chk.exact} and "
+                             f"{chk_r.checked - chk_r.exact} checked "
+                             f"restores differ from the spilled bytes")
+    loop = {k: st_r[k] for k in L_STATS}
+    if st_r["loop_plan_builds"] != 1 or st_r["loop_replays"] \
+            + st_r["loop_fori_iters"] != PR_ITERS - 1:
+        raise AssertionError(f"M2: the loop did not replay under the cut "
+                             f"budget: {loop}")
     # the f64 sums fold in operand order: every run gives the same bits
-    if not np.array_equal(want2.view(np.uint64), want.view(np.uint64)):
-        raise AssertionError(f"M2: two unpressured runs differ: max |diff| "
-                             f"{np.abs(want2 - want).max()}")
-    if not np.array_equal(got.view(np.uint64), want.view(np.uint64)):
-        raise AssertionError(f"M2: ranks under the cut budget differ from "
-                             f"the unpressured run's: max |diff| "
-                             f"{np.abs(got - want).max()}")
+    for label, r in (("the plain unpressured run", want2),
+                     ("the plain run under the limit", got),
+                     ("the replayed run under the limit", got_r)):
+        if not np.array_equal(r.view(np.uint64), want.view(np.uint64)):
+            raise AssertionError(f"M2: {label} differs from the replayed "
+                                 f"unpressured run: max |diff| "
+                                 f"{np.abs(r - want).max()}")
     for name in ("partition_histogram", "radix_upsweep", "radix_pass",
                  "ordered_segment_sum"):
-        if launches[name] <= 0:
+        if launches[name] <= 0 or launches_r[name] <= 0:
             raise AssertionError(f"M2: {name} was not launched")
     log(f"M2 pagerank W=4 pages={PAGES} edges={len(edges)} "
-        f"iterations={PR_ITERS}: unpressured ledger peak {st0['hbm_peak']}, "
-        f"limit {limit}: hbm_spills {st['hbm_spills']} hbm_restores "
-        f"{st['hbm_restores']} ledger peak {st['hbm_peak']}; "
-        f"{chk.exact} of {chk.checked} checked restores byte-equal to what "
-        f"was spilled; ranks bit-equal to the unpressured run's, and the "
-        f"two unpressured runs bit-equal; warm seconds plain "
-        f"{t_plain:.3f}, {t_plain2:.3f}, cut {t_cut:.3f} (host clock after "
-        f"synchronize); launches {json.dumps(launches)} [{card}]")
-    return launches
+        f"iterations={PR_ITERS}: unpressured ledger peak {st2['hbm_peak']}"
+        f" (replayed {st0['hbm_peak']}), limit {limit}; the plain loop "
+        f"under it: hbm_spills {st['hbm_spills']} hbm_restores "
+        f"{st['hbm_restores']} ledger peak {st['hbm_peak']}, {chk.exact} of "
+        f"{chk.checked} checked restores byte-equal to what was spilled; "
+        f"replayed under it: loop stats {loop}, hbm_spills "
+        f"{st_r['hbm_spills']} hbm_restores {st_r['hbm_restores']} ledger "
+        f"peak {st_r['hbm_peak']}, {chk_r.exact} of {chk_r.checked} "
+        f"restores checked; ranks of all four runs bit-equal; seconds "
+        f"(first runs, host clock after synchronize) unpressured replayed "
+        f"{t_replay:.3f}, plain {t_plain:.3f}, under the limit plain "
+        f"{t_cut:.3f}, replayed {t_cut_r:.3f}; launches plain "
+        f"{json.dumps(launches)}, replayed {json.dumps(launches_r)} "
+        f"[{card}]")
+    return launches, launches_r
 
 
 def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
@@ -2929,6 +2989,7 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
     rung 2 spills the cold tables and finishes; (b) the same with
     THRILL_TPU_HBM_LIMIT past the watermark: admission spills them
     first and no OOM happens."""
+    from thrill_tpu_torch.common import faults
     nbytes = sum(v.nbytes for v in recs.values())
     host_ram_check(6 * nbytes, "M3")
     dev = torch.device(DEVICE)
@@ -2993,12 +3054,17 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
         ballast = torch.empty(max(free - target, 0), dtype=torch.uint8,
                               device=dev)
         zero_launches(pk, ps)
+        faults.REGISTRY.events.clear()
         try:
             t0 = time.perf_counter()
             out = sort(inp)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = read_launches(pk, ps)
+            # where rung 2 retried: a dispatch (its program) or a node
+            where = [f"{e['level']} {e.get('program', e.get('node'))}"
+                     for e in faults.REGISTRY.events
+                     if e["event"] == "oom_retry"]
             st = ctx.overall_stats()
             spilled = [type(c.node._shards).__name__ for c in cold]
             sort_drops = list(drops)     # the Sort's, not the checks'
@@ -3022,6 +3088,7 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
             f"card left with {target} free; Sort {secs:.3f} s, equal to "
             f"np.lexsort; oom_retries {st['oom_retries']} admission_spills "
             f"{st['admission_spills']} hbm_spills {st['hbm_spills']} "
+            f"(retried at {where}) "
             f"empty_cache calls {ctx.pressure.cache_flushes}; spills "
             f"(memory_allocated dropped, ledger freed) {sort_drops}, "
             f"pressure_spilled_bytes {st['pressure_spilled_bytes']}; cold "
@@ -3425,14 +3492,10 @@ def ckpt_child(kind: str, d: str, resume: bool) -> int:
             return epoch
 
         mgr.save = save
-        iters = [0]
         real_iterate = tpr.Iterate
 
         def iterate(ctx_, body, carry, n, **kw):
-            def counted(dia):
-                iters[0] += 1
-                return body(dia)
-            return real_iterate(ctx_, counted, carry, n,
+            return real_iterate(ctx_, body, carry, n,
                                 checkpoint_every=CK_EVERY, **kw)
 
         tpr.Iterate = iterate
@@ -3444,7 +3507,9 @@ def ckpt_child(kind: str, d: str, resume: bool) -> int:
         secs = time.perf_counter() - t0
         launches = read_launches(pk, ps)
         np.save(os.path.join(d, f"ranks{int(resume)}.npy"), ranks)
-        emit({"restored": restored, "iterations": iters[0],
+        # the iterations this run made (a replayed one calls no body)
+        emit({"restored": restored,
+              "iterations": ctx.mesh_exec.loop_reports[-1]["iters"],
               "launches": launches, "seconds": secs,
               "stats": ctx.overall_stats()})
     elif kind == "sort":
@@ -3542,10 +3607,13 @@ def manifests(pattern: str) -> list:
 
 def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
     """C1: PageRank W=4 of phase 6 with the example's Iterate sealing
-    its carry every CK_EVERY iterations. A child runs it and is killed
-    once a loop epoch is committed; a second child resumes: its ranks
-    must be the uninterrupted run's bits, its launches of the fold and
-    the pass those of the iterations it ran. Returns its launches."""
+    its carry every CK_EVERY iterations, replay on (Iterate's default).
+    A child runs it and is killed once a loop epoch is committed; a
+    second child resumes, captures the loop again and replays the
+    iterations after the capture one by one (a checkpoint epoch falls
+    inside the loop, so no whole-loop graph): its ranks must be the
+    uninterrupted run's bits, its launches of the fold and the pass
+    those of the iterations it ran. Returns its launches."""
     import shutil
     import tempfile
     from thrill_tpu_torch.examples import page_rank as tpr
@@ -3557,6 +3625,7 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
     torch.cuda.synchronize()
     full_secs = time.perf_counter() - t0
     full = read_launches(pk, ps)
+    full_loop = {k: ctx.overall_stats()[k] for k in L_STATS}
     del ctx
     torch.cuda.empty_cache()
     d = tempfile.mkdtemp(prefix="c1_ckpt_")
@@ -3578,11 +3647,18 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
         with open(os.path.join(d, "ckpt", on_disk[-1], "MANIFEST.json")) as f:
             node = json.load(f)["node"]
         epoch_bytes = sum(v["bytes"] for v in node["files"].values())
-        steps = []
+        steps, made = [], 0
         for tag in ("log0", "log1"):
             with open(os.path.join(d, f"{tag}-host0.json")) as f:
-                steps += [e for e in map(json.loads, f)
-                          if e["event"] in ("checkpoint", "ckpt_restore")]
+                for e in map(json.loads, f):
+                    if e["event"] in ("checkpoint", "ckpt_restore"):
+                        steps.append(e)
+                    # the iterations the resumed run made, as its loop
+                    # logged them: planned ones, and replayed ones
+                    elif tag == "log1" and e["event"] == "iteration":
+                        made += 1
+                    elif tag == "log1" and e["event"] == "loop_replay":
+                        made += e.get("iters", 1)
     finally:
         shutil.rmtree(d, ignore_errors=True)
     label = res["restored"] or ""
@@ -3591,13 +3667,20 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
                              f"loop epoch of page_rank")
     r = int(label[len("LoopState[page_rank@"):-1])
     ran = res["iterations"]
-    if ran != PR_ITERS - 1 - r:
+    if ran != PR_ITERS - 1 - r or made != ran:
         raise AssertionError(f"C1: restored iteration {r} but ran {ran} "
-                             f"iterations of {PR_ITERS}")
+                             f"iterations of {PR_ITERS} ({made} logged)")
     if got.tobytes() != want.tobytes():
         raise AssertionError(f"C1: resumed ranks differ from the "
                              f"uninterrupted run's: max |diff| "
                              f"{np.abs(got - want).max()}")
+    loop = {k: res["stats"][k] for k in L_STATS}
+    if (loop["loop_plan_builds"], loop["loop_replays"],
+            loop["loop_fori_iters"], loop["loop_replay_fallbacks"]) \
+            != (1, ran - 1, 0, 0):
+        raise AssertionError(f"C1: the resumed loop did not capture once "
+                             f"and replay its {ran - 1} other iterations: "
+                             f"{loop}")
     launches = res["launches"]
     for name, per in PR_PER_ITER.items():
         expect = full[name] - (PR_ITERS - ran) * per
@@ -3622,7 +3705,8 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
         f"{PR_ITERS} iterations, Iterate(name='page_rank', checkpoint_every"
         f"={CK_EVERY}): first child killed {kill_s:.3f} s after its start "
         f"with {on_disk} committed; saves {save_txt}; resumed from "
-        f"{label}, ran {ran} iterations, ranks bit-equal to the "
+        f"{label}, ran {ran} iterations, loop stats {loop} (the "
+        f"uninterrupted run's {full_loop}), ranks bit-equal to the "
         f"uninterrupted run; launches {json.dumps(launches)} = the "
         f"uninterrupted run's {json.dumps({k: full[k] for k in PR_PER_ITER})}"
         f" less {PR_ITERS - ran} iterations x {json.dumps(PR_PER_ITER)}; "
@@ -4140,6 +4224,499 @@ def m1_compare(other: str) -> int:
     return 0
 
 
+# -- phase L: Iterate's capture, replay and whole-loop CUDA graph -------------
+
+L_STATS = ("loop_plan_builds", "loop_replays", "loop_fori_iters",
+           "loop_replay_fallbacks", "loop_donated_bytes")
+L_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
+             "ordered_segment_sum")
+# the reference package's loop stats for the smoke's loops (10
+# iterations), counted on the CPU: PageRank captures once at every W and
+# lowers iterations 2-10 into one fori_loop; k-means captures at W = 1
+# and lowers, and at W > 1 misses twice (the exchange's send matrix
+# follows the labels). tests/test_torch_loop_replay.py holds the port to
+# the reference's stats at a small size.
+L_REF = {("pagerank", 4): (1, 0, 9, 0), ("pagerank", 1): (1, 0, 9, 0),
+         ("k-means", 4): (0, 0, 0, 0), ("k-means", 1): (1, 0, 9, 0)}
+_LLOYD = {}                   # the numpy Lloyd of phase 8, by iterations
+L_WARM = 3                    # warm runs of replay and the plain loop each
+
+
+def l_modes(name: str, captures: bool):
+    """(mode, environment) of a loop's runs: replay (the whole loop a CUDA
+    graph), per-iteration replay with release on and off, and the plain
+    loop (THRILL_TPU_LOOP_REPLAY=0)."""
+    modes = [("replay", {})]
+    if captures:
+        modes += [("fori=0 release", {"THRILL_TPU_LOOP_FORI": "0",
+                                      "THRILL_TPU_LOOP_DONATE": "1"}),
+                  ("fori=0 no release", {"THRILL_TPU_LOOP_FORI": "0",
+                                         "THRILL_TPU_LOOP_DONATE": "0"})]
+    return modes + [("plain", {"THRILL_TPU_LOOP_REPLAY": "0"})]
+
+
+def l_log_lines(prefix: str) -> list:
+    import glob
+    out = []
+    for f in sorted(glob.glob(prefix + "*")):
+        with open(f) as fh:
+            for line in fh:
+                try:
+                    rec = json.loads(line)
+                except ValueError:
+                    continue
+                if rec.get("event", "").startswith(("loop", "iteration")):
+                    out.append(rec)
+    return out
+
+
+def l_run(torch, tt, W: int, run, pk, ps, prefix: str,
+          profile=None) -> dict:
+    """One run of ``run(ctx)`` in the current loop mode, its JSON log at
+    ``prefix``: result, stats, host seconds after synchronize, launches,
+    peak device memory and the loop's log lines. ``profile`` = (owner,
+    attr, nth) profiles the nth call of ``owner.attr`` (:func:`l_idle`)."""
+    import dataclasses
+    from thrill_tpu_torch.common.config import Config
+    from thrill_tpu_torch.api import loop as tloop
+    cfg = dataclasses.replace(Config.from_env(), log_path=prefix + ".jsonl")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = tt.Context(num_workers=W, device=DEVICE, config=cfg)
+    # the peak from the first replayed iteration on (the capture holds
+    # every output it records until its analysis): reset there
+    window = []
+    real = {m: getattr(tloop.LoopPlan, m) for m in ("replay", "run_fori")}
+
+    def at_first(m):
+        def call(self, *a, **k):
+            if not window:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                window.append(torch.cuda.max_memory_allocated())
+            return real[m](self, *a, **k)
+        return call
+
+    zero_launches(pk, ps)
+    for m in real:
+        setattr(tloop.LoopPlan, m, at_first(m))
+    idle = {}
+    try:
+        if profile is not None:
+            idle = l_idle(torch, lambda: run(ctx), *profile)
+            got = idle.pop("result")
+        else:
+            t0 = time.perf_counter()
+            got = run(ctx)
+            torch.cuda.synchronize()
+            idle["run_s"] = time.perf_counter() - t0
+    finally:
+        for m, f in real.items():
+            setattr(tloop.LoopPlan, m, f)
+    secs = idle.pop("run_s", None)
+    out = dict(got=got, secs=secs, launches=read_launches(pk, ps),
+               stats=ctx.overall_stats(),
+               peak=torch.cuda.max_memory_allocated(), idle=idle)
+    if window:
+        out["peak_replay"] = out["peak"]
+        out["peak"] = None           # the whole run's peak is not kept
+    ctx.close()
+    out["lines"] = l_log_lines(prefix)
+    return out
+
+
+def l_iterations(lines) -> list:
+    """The per-iteration log lines as (iteration, mode, host seconds,
+    dispatches, fetches, launches of the four kernels, iterations)."""
+    out = []
+    for rec in lines:
+        if rec["event"] == "iteration":
+            mode, k = rec["mode"], 1
+        elif rec["event"] == "loop_replay":
+            k = rec.get("iters", 1)
+            mode = ("graph" if rec.get("graph") else "fori") \
+                if rec.get("fori") else "replay"
+        else:
+            continue
+        out.append(dict(iter=rec["iter"], mode=mode, s=rec["seconds"],
+                        dispatches=rec.get("dispatches"),
+                        fetches=rec.get("fetches"),
+                        launches={n: rec.get("launches", {}).get(n, 0)
+                                  for n in L_KERNELS}, iters=k))
+    return out
+
+
+def profiled(torch, fn):
+    """``fn()`` under torch.profiler (device activity): (result, the
+    device's busy ms, wall seconds between two synchronizes, {device
+    event name: (count, ms)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprof
+    with tprof(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {e.key: (e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    busy = sum(ms for _, ms in kernels.values())
+    return out, busy, wall, kernels
+
+
+class EventSpans:
+    """Device milliseconds of every call of ``owner.attr`` inside a
+    ``with`` block: CUDA events recorded on the current stream before
+    and after each call, read by :meth:`ms` (each span divided by
+    ``count(args)``, the iterations the call ran)."""
+
+    def __init__(self, torch, owner, attr: str, count=None) -> None:
+        self.torch, self.owner, self.attr = torch, owner, attr
+        self.count = count or (lambda a: 1)
+        self.spans = []
+
+    def __enter__(self):
+        torch, orig = self.torch, getattr(self.owner, self.attr)
+        self.orig = orig
+
+        def call(*a, **k):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = orig(*a, **k)
+            ev[1].record()
+            self.spans.append((ev, self.count(a)))
+            return out
+
+        setattr(self.owner, self.attr, call)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.owner, self.attr, self.orig)
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [ev[0].elapsed_time(ev[1]) / n for ev, n in self.spans]
+
+
+def l_idle(torch, fn, owner, attr: str, nth: int) -> dict:
+    """Run ``fn()`` profiling the ``nth`` call of ``owner.attr`` in it:
+    the graph's replays (``api/loop.py`` ``_replay``) or one replayed
+    iteration (``LoopPlan.replay``). Returns its busy ms, wall s and idle
+    share, ``fn``'s result and its host seconds after synchronize (the
+    profiler's start and stop inside)."""
+    orig = getattr(owner, attr)
+    got, calls = {}, [0]
+
+    def wrapped(*a, **k):
+        calls[0] += 1
+        if calls[0] != nth:
+            return orig(*a, **k)
+        out, busy, wall, kernels = profiled(torch, lambda: orig(*a, **k))
+        got.update(busy_ms=busy, wall_s=wall, kernels=kernels,
+                   idle=1 - busy / 1e3 / wall if wall > 0 else None)
+        return out
+
+    setattr(owner, attr, wrapped)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got["result"] = fn()
+        torch.cuda.synchronize()
+        got["run_s"] = time.perf_counter() - t0
+    finally:
+        setattr(owner, attr, orig)
+    return got
+
+
+def l_phase(torch, np, tt, label: str, name: str, W: int, run, pk, ps,
+            tmp: str, card: str, equal, check) -> dict:
+    """One loop in every mode of :func:`l_modes`, one process: the five
+    loop stats, dispatches and fetches, each iteration's host seconds,
+    dispatches, fetches and kernel launches (capture, replayed, plain),
+    first-run and warm seconds, peak memory; every mode's result equal
+    (``equal``) to the plain loop's and held by ``check``; the stats the
+    reference's; the graph's and a replayed iteration's idle share under
+    the profiler. Returns each mode's launches."""
+    from thrill_tpu_torch.api import loop as tloop
+    ref = L_REF[(name, W)]
+    captures = ref[0] > 0
+    res = {}
+    profile = {"replay": (tloop, "_replay", 1),
+               "fori=0 release": (tloop.LoopPlan, "replay", 3)}
+    # device ms of each replayed iteration without the profiler: eager
+    # (fori=0, no release) and the graph's replays (the warm runs)
+    eager = EventSpans(torch, tloop.LoopPlan, "replay")
+    graph = EventSpans(torch, tloop, "_replay", count=lambda a: a[1])
+    for mode, env in l_modes(name, captures):
+        with EnvSet(**env), (eager if mode == "fori=0 no release"
+                             else contextlib.nullcontext()):
+            r = l_run(torch, tt, W, run, pk, ps, os.path.join(
+                tmp, f"{label}-{W}-{mode.replace(' ', '_')}"),
+                profile.get(mode) if captures else None)
+        r["warm"] = []
+        res[mode] = r
+    # warm runs of replay and the plain loop, in turns
+    for _ in range(L_WARM):
+        for mode, env in (("replay", {}),
+                          ("plain", {"THRILL_TPU_LOOP_REPLAY": "0"})):
+            with EnvSet(**env), (graph if mode == "replay"
+                                 else contextlib.nullcontext()):
+                res[mode]["warm"] += warm_seconds(torch, lambda: run(
+                    tt.Context(num_workers=W, device=DEVICE)), 1)
+    for mode, r in res.items():
+        st = r["stats"]
+        its = l_iterations(r["lines"])
+        log(f"{label} {name} W={W} [{mode}]: stats "
+            f"{ {k: st[k] for k in L_STATS} }; dispatches "
+            f"{st['device_dispatches']}, host fetches "
+            f"{st['device_fetches']}; iterations (iter mode host-s "
+            f"dispatches fetches launches[B1 upsweep pass fold]) "
+            + "; ".join(
+                f"{i['iter']} {i['mode']}"
+                + (f"x{i['iters']}" if i["iters"] > 1 else "")
+                + f" {i['s']:.6f} {i['dispatches']} {i['fetches']} "
+                + str([i["launches"][n] for n in L_KERNELS]) for i in its)
+            + f"; first run {r['secs']:.3f} s"
+            + (f" (under the profiler for the idle share)" if r["idle"]
+               else "")
+            + (f", warm {[round(x, 6) for x in r['warm']]} s (host clock "
+               f"after synchronize, replay and plain in turns)"
+               if r["warm"] else "")
+            + f"; peak device memory "
+            + (f"{r['peak']} bytes (the whole run)" if r["peak"] is not None
+               else f"{r['peak_replay']} bytes from the first replayed "
+               f"iteration on")
+            + f"; launches {json.dumps(r['launches'])} [{card}]")
+        for rec in r["lines"]:
+            if rec["event"] in ("loop_capture_miss", "loop_fori_unavailable",
+                                "loop_replay_fallback"):
+                log(f"{label} {name} W={W} [{mode}]: {rec['event']} "
+                    f"{rec.get('reason') or rec.get('error')} [{card}]")
+            elif rec["event"] == "loop_plan":
+                log(f"{label} {name} W={W} [{mode}]: loop_plan of "
+                    f"{rec['calls']} calls ({rec['pruned_invariant']} "
+                    f"invariant and {rec['pruned_dead']} dead pruned), "
+                    f"whole loop {rec['fori']}, {rec['donatable']} "
+                    f"released arguments, calls that touched the host "
+                    f"{rec.get('host_ops')} [{card}]")
+        got_stats = tuple(st[k] for k in L_STATS[:4])
+        if mode == "replay" and got_stats != ref:
+            raise AssertionError(f"{label} {name} W={W}: loop stats "
+                                 f"{got_stats}, the reference's {ref}")
+        if mode == "plain" and any(got_stats):
+            raise AssertionError(f"{label} {name} W={W}: the plain loop "
+                                 f"counted {got_stats}")
+        if mode.startswith("fori=0") and got_stats != (1, 9, 0, 0):
+            raise AssertionError(f"{label} {name} W={W} [{mode}]: stats "
+                                 f"{got_stats}, expected one capture and "
+                                 f"9 replays")
+        # release needs a loop value passed as a whole argument at its
+        # last use (a list or dict argument stays pinned, as in the
+        # reference): the plan's line counts them
+        donatable = sum(rec.get("donatable", 0) for rec in r["lines"]
+                        if rec["event"] == "loop_plan")
+        if mode.startswith("fori=0") and (
+                st["loop_donated_bytes"] > 0) != (
+                mode == "fori=0 release" and donatable > 0):
+            raise AssertionError(f"{label} {name} W={W} [{mode}]: "
+                                 f"loop_donated_bytes "
+                                 f"{st['loop_donated_bytes']}")
+    plain = res["plain"]["got"]
+    for mode, r in res.items():
+        if not equal(r["got"], plain):
+            raise AssertionError(f"{label} {name} W={W}: the {mode} run is "
+                                 f"not bit-equal to the plain loop's")
+    check(plain)
+    if captures:
+        its = l_iterations(res["replay"]["lines"])
+        if not any(i["mode"] == "graph" and i["iters"] == 9 for i in its):
+            raise AssertionError(f"{label} {name} W={W}: iterations 2-10 "
+                                 f"did not run as one CUDA graph: {its}")
+        rep = [i for i in l_iterations(res["fori=0 release"]["lines"])
+               if i["mode"] == "replay"]
+        pln = [i for i in l_iterations(res["plain"]["lines"])
+               if i["iter"] > 0]
+        for n in L_KERNELS:
+            if rep[-1]["launches"][n] > pln[-1]["launches"][n]:
+                raise AssertionError(f"{label} {name} W={W}: {n} launches "
+                                     f"rose on replay: {rep[-1]} vs "
+                                     f"{pln[-1]}")
+        graph_prof = res["replay"]["idle"]
+        one = res["fori=0 release"]["idle"]
+        log(f"{label} {name} W={W}: under the profiler, the graph's 8 "
+            f"replays (iterations 3-10; iteration 2 runs eagerly and "
+            f"warms the capture up) {graph_prof.get('busy_ms', 0):.3f} ms "
+            f"busy in {graph_prof.get('wall_s', 0):.6f} s (idle share "
+            f"{graph_prof.get('idle')}), a replayed iteration (fori=0) "
+            f"{one.get('busy_ms', 0):.3f} ms busy in "
+            f"{one.get('wall_s', 0):.6f} s (idle share {one.get('idle')}); "
+            f"peak device memory over the replayed iterations (fori=0) "
+            f"with release {res['fori=0 release']['peak_replay']}, "
+            f"without {res['fori=0 no release']['peak_replay']} bytes, "
+            f"the graph's {res['replay']['peak_replay']}, the plain "
+            f"run's (all of it) {res['plain']['peak']}; "
+            f"loop_donated_bytes "
+            f"{res['fori=0 release']['stats']['loop_donated_bytes']} "
+            f"[{card}]")
+        # the graph's busy time against the same iteration run eagerly:
+        # CUDA events without the profiler, then each kernel's device
+        # time under it (the graph's 8 replays over 8)
+        g_ms, e_ms = graph.ms(), eager.ms()[1:]
+        gk = {k: ms / 8 for k, (_, ms) in graph_prof.get(
+            "kernels", {}).items()}
+        ek = {k: ms for k, (_, ms) in one.get("kernels", {}).items()}
+        top = sorted(set(gk) | set(ek), key=lambda k: -max(
+            gk.get(k, 0), ek.get(k, 0)))[:10]
+        log(f"{label} {name} W={W}: device ms an iteration by CUDA events "
+            f"without the profiler: the graph's replays "
+            f"{[round(x, 4) for x in g_ms]} (warm runs), a replayed "
+            f"iteration run eagerly (fori=0, no release; iterations 3-10) "
+            f"{[round(x, 4) for x in e_ms]}; under the profiler, graph "
+            f"{graph_prof.get('busy_ms', 0) / 8:.4f}, eager "
+            f"{one.get('busy_ms', 0):.4f}, by device event (graph / "
+            f"eager ms): " + "; ".join(
+                f"{k[:70]} {gk.get(k, 0):.4f} / {ek.get(k, 0):.4f}"
+                for k in top) + f" [{card}]")
+    return {m: r["launches"] for m, r in res.items()}
+
+
+def l_graph_kernels(torch, np, pk, ps, words, fold_args, card) -> None:
+    """L5: B1, the upsweep, the pass and the ordered fold on L2's inputs
+    (its fold's ids and sums), each captured in a torch.cuda.CUDAGraph
+    and replayed: bit-equal to its eager launch and to its plain version
+    on the CPU; graph replay and eager ms."""
+    from thrill_tpu_torch.core import ordered_fold as of
+    from thrill_tpu_torch.core.pallas_kernels import MAX_BINS
+    values, order, offsets = fold_args
+    hist = ps.radix_upsweep(words, 3)
+    cases = {
+        "partition_histogram": (
+            lambda: pk.partition_histogram(words, MAX_BINS),
+            lambda: pk.partition_histogram_plain(words.cpu(), MAX_BINS)),
+        "radix_upsweep": (lambda: ps.radix_upsweep(words, 3),
+                          lambda: ps.radix_upsweep_plain(words.cpu(), 3)),
+        "radix_pass": (lambda: ps.radix_pass(words, None, 0, hist[:, 0]),
+                       lambda: ps.radix_pass_plain(words.cpu(), None, 0)),
+        "ordered_segment_sum": (
+            lambda: of.ordered_segment_sum(values, order, offsets),
+            lambda: of.ordered_segment_sum_plain(
+                values.cpu(), order.cpu(), offsets.cpu())),
+    }
+    for name, (fn, plain_fn) in cases.items():
+        eager = fn()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn()
+        g.replay()
+        torch.cuda.synchronize()
+        plain = plain_fn()
+        flat = lambda x: [t for t in (x if isinstance(x, tuple) else (x,))
+                          if t is not None]
+        for a, b, c in zip(flat(out), flat(eager), flat(plain)):
+            if not (torch.equal(a, b) and torch.equal(a.cpu(), c)):
+                raise AssertionError(f"L5 {name}: the graph's output differs "
+                                     f"from the eager launch or the plain "
+                                     f"version")
+        g_ms = cuda_ms(torch, g.replay)
+        e_ms = cuda_ms(torch, fn)
+        log(f"L5 {name} in a CUDA graph on L2's inputs ({tuple(words.shape)} "
+            f"ids, fold {tuple(values.shape)} {str(values.dtype)[6:]} in "
+            f"{offsets.numel() - 1} runs): bit-equal to its eager launch and "
+            f"to the plain version; graph replay {g_ms:.4f} ms, eager "
+            f"{e_ms:.4f} ms [{card}]")
+        del g, out, eager
+
+
+def loop_phases(torch, np, tt, pk, ps, edges, pts, card) -> dict:
+    """Phase L (L1-L5): PageRank and k-means through Iterate with replay
+    on (the whole loop a CUDA graph), per-iteration replay with release
+    on and off, and THRILL_TPU_LOOP_REPLAY=0, in one process each; an
+    injected api.loop.replay fault; the kernels inside a CUDA graph.
+    Returns each path's launches."""
+    import tempfile
+    from thrill_tpu_torch.api.ops import reduce as reduce_mod
+    from thrill_tpu_torch.common import faults
+    from thrill_tpu_torch.examples import k_means as tkm
+    from thrill_tpu_torch.examples import page_rank as tpr
+    tmp = tempfile.mkdtemp(prefix="thrill-loop-")
+    paths = {}
+    want_pr = page_rank_np(np, edges, PAGES, PR_ITERS, tpr.DAMPENING)
+
+    def pr_run(ctx):
+        return tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
+
+    def pr_check(got):
+        err = np.abs(got - want_pr)
+        if not (err <= PR_RTOL * want_pr + PR_ATOL).all():
+            raise AssertionError(f"L pagerank: max |diff| to numpy "
+                                 f"{err.max()}")
+
+    same = lambda a, b: np.array_equal(a, b)  # noqa: E731
+    for label, W in (("L1", 4), ("L2", 1)):
+        for mode, launches in l_phase(torch, np, tt, label, "pagerank", W,
+                                      pr_run, pk, ps, tmp, card, same,
+                                      pr_check).items():
+            paths[f"{label} pagerank W={W} ({mode})"] = launches
+    c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
+    if KM_ITERS not in _LLOYD:
+        _LLOYD[KM_ITERS] = lloyd_np(np, pts, c0, KM_ITERS)
+    want_km = _LLOYD[KM_ITERS][0]
+
+    def km_run(ctx):
+        return tkm.k_means(ctx, pts, KM_K, KM_ITERS)
+
+    def km_check(got):
+        err = np.abs(got - want_km)
+        if not (err <= KM_RTOL * (1 + np.abs(want_km))).all():
+            raise AssertionError(f"L3 k-means: max |diff| to numpy's Lloyd "
+                                 f"{err.max()}")
+
+    for W in (4, 1):
+        for mode, launches in l_phase(torch, np, tt, "L3", "k-means", W,
+                                      km_run, pk, ps, tmp, card, same,
+                                      km_check).items():
+            paths[f"L3 k-means W={W} ({mode})"] = launches
+    # L4: an injected fault at a replayed iteration
+    plain = None
+    with EnvSet(THRILL_TPU_LOOP_REPLAY="0"):
+        plain = pr_run(tt.Context(num_workers=1, device=DEVICE))
+    with EnvSet(THRILL_TPU_FAULTS="api.loop.replay:p=1.0:n=1"):
+        faults.REGISTRY.reset()
+        r = l_run(torch, tt, 1, pr_run, pk, ps, os.path.join(tmp, "L4"))
+    faults.REGISTRY.reset()
+    st = r["stats"]
+    if st["loop_replay_fallbacks"] != 1 or st["loop_plan_builds"] != 2 \
+            or not np.array_equal(r["got"], plain):
+        raise AssertionError(f"L4: stats { {k: st[k] for k in L_STATS} }, "
+                             f"ranks bit-equal to the plain loop's: "
+                             f"{np.array_equal(r['got'], plain)}")
+    log(f"L4 pagerank W=1 under api.loop.replay:p=1.0:n=1: stats "
+        f"{ {k: st[k] for k in L_STATS} } (one fallback, a second "
+        f"capture); ranks bit-equal to THRILL_TPU_LOOP_REPLAY=0's; "
+        f"{r['secs']:.3f} s; launches {json.dumps(r['launches'])} [{card}]")
+    paths["L4 pagerank W=1 (replay fault)"] = r["launches"]
+    # L5: the kernels in a CUDA graph, on L2's inputs
+    from thrill_tpu_torch.core import ordered_fold as of
+    with EnvSet(THRILL_TPU_LOOP_REPLAY="0"), \
+            Capture(of, "argsort_words", keep_all=False) as cap_keys, \
+            FoldCapture(reduce_mod) as cap_fold:
+        pr_run(tt.Context(num_workers=1, device=DEVICE))
+    words = cap_keys.args[0][0].reshape(1, -1)
+    fold_args = next(iter(cap_fold.by_shape.values()))
+    l_graph_kernels(torch, np, pk, ps, words, fold_args, card)
+    del fold_args, words, cap_fold, cap_keys
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4178,7 +4755,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
-
+    if "--phase-l" in sys.argv:
+        # phase L alone (about a minute with the build)
+        paths = loop_phases(torch, np, tt, pk, ps, tpr.zipf_graph(
+            PAGES, PR_EDGES, seed=SEED + 30), np.random.default_rng(
+                SEED + 50).normal(size=(KM_POINTS, KM_DIM)), card)
+        log(json.dumps(paths))
+        return 0
     errs = check_kernels(torch, np, pk, ps)
     times = time_kernels(torch, np, pk, ps)
     time_argsort(torch, np)
@@ -4244,7 +4827,7 @@ def main() -> int:
                               card)
     del recs4, order4
     edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
-    m2 = mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card)
+    m2, m2r = mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card)
     log(f"memory phases (M1-M3): {time.perf_counter() - t_mem:.1f} s of "
         f"host clock, the numpy references included [host {cpu_line()}; "
         f"{card}]")
@@ -4260,12 +4843,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     f1 = fused_phase_f1(torch, np, tt, pk, ps, card)
     f2, f2u = fused_phase_f2(torch, np, tt, pk, ps, edges, card)
-    del edges
     f3 = fused_phase_f3(torch, np, tt, pk, ps, card)
     f4 = fused_phase_f4(torch, np, tt, pk, ps, card)
     log(f"stitching phases (F1-F4): {time.perf_counter() - t_f:.1f} s of "
         f"host clock, numpy references included [host {cpu_line()}; "
         f"{card}]")
+    t_l = time.perf_counter()
+    torch.cuda.empty_cache()
+    l_paths = loop_phases(torch, np, tt, pk, ps, edges, np.random.default_rng(
+        SEED + 50).normal(size=(KM_POINTS, KM_DIM)), card)
+    del edges
+    log(f"loop phases (L1-L5): {time.perf_counter() - t_l:.1f} s of host "
+        f"clock, numpy references included [host {cpu_line()}; {card}]")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -4347,6 +4936,7 @@ def main() -> int:
              "H6 em sort W=4": h6,
              **{f"ordered fold {k}": v[0] for k, v in sites.items()},
              "M1 spill/restore W=4": m1, "M2 pagerank cut W=4": m2,
+             "M2 pagerank cut W=4 (replayed)": m2r,
              "M3a sort OOM retry W=4": m3a,
              "M3b sort admission W=4": m3b,
              "C1 pagerank resume W=4": c1, "C2 em sort resume W=4": c2,
@@ -4356,7 +4946,8 @@ def main() -> int:
              "F2 pagerank W=4 (stitched)": f2,
              "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
-             **{f"F4 {k} W=4": v for k, v in f4.items()}}
+             **{f"F4 {k} W=4": v for k, v in f4.items()},
+             **l_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

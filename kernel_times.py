@@ -3,6 +3,8 @@
 
     python3 kernel_times.py [--inputs DIR]
     python3 kernel_times.py --paths REPS
+    python3 kernel_times.py --loops REPS
+    python3 kernel_times.py --add-chain
 
 At the main path's shapes: a radix pass over [4, 2^22] int64 keys carrying
 int32 permutation entries (and the same pass reading the word through the
@@ -16,7 +18,10 @@ invalid tail at [4, 2^22], as every W=4 exchange hands it over, and at
 the off-path shape of [4, 2^22] random int32 ids over 256 bins, each in
 five windows with L2 left warm and with L2 flushed before every call;
 presence_fill at [4, 2^22] with a valid prefix of 22 % of each row and
-2^17 registers, as the W=4 WordCount hands it over. With ``--inputs
+2^17 registers, as the W=4 WordCount hands it over; the latency of one
+dependent f64 and f32 add (``add_ns_*``, ``add_cycles_*``: one thread's
+chain of adds with its operands in registers, :func:`add_chain_latency`),
+the floor of the ordered fold on a run of many rows. With ``--inputs
 DIR`` the histogram and presence_fill are timed also on the inputs that
 ``chip_smoke.py --save-inputs DIR`` captured on the main path. Each
 kernel is first held against its plain version. Prints one JSON line of
@@ -26,6 +31,11 @@ for comparing versions of the kernels' sources side by side: the
 histogram and presence_fill are timed as their call sites run them, so
 a version whose wrappers take int32 ids only is timed with the int32
 copy its call sites made.
+
+With ``--loops REPS`` it times instead the two loop examples (PageRank
+and k-means at W=4 and W=1, the smoke's sizes): every run's seconds and
+every loop body's host seconds, as the loop layer's measurements before
+and after need them; it runs unchanged in a copy of an earlier tree.
 
 With ``--paths REPS`` it times instead the three W=4 paths of
 chip_smoke.py end to end, REPS warm runs each (host clock after
@@ -218,6 +228,165 @@ def time_paths(torch, np, reps: int) -> dict:
     return out
 
 
+def time_loops(torch, np, reps: int) -> list:
+    """The loop examples at chip_smoke.py's sizes (PageRank over
+    zipf_graph(2^22, 2^24), k-means over 2^24 x 8 points, 10 iterations,
+    W = 4 and 1): one build-and-warm run, then ``reps`` runs each, every
+    run's host seconds after synchronize and, for every call of the loop
+    body, its host seconds without a synchronize (the body and the pull
+    of its result: the host's planning and issuing of an iteration, its
+    syncs included) and with one. A tree whose Iterate replays calls the
+    body in its capture iterations only."""
+    import time
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.api import loop as loop_mod
+    from thrill_tpu_torch.examples import k_means as tkm
+    from thrill_tpu_torch.examples import page_rank as tpr
+    pages, edges_n = 1 << 22, 1 << 24
+    edges = tpr.zipf_graph(pages, edges_n, seed=SEED + 30)
+    pts = np.random.default_rng(SEED + 50).normal(size=(1 << 24, 8))
+
+    def timed(mod, rec):
+        real = mod.Iterate
+
+        def iterate(ctx, body, carry, n, **kw):
+            def b(x):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = body(x)
+                if hasattr(out, "_link"):
+                    out = loop_mod._carry_dia(ctx, out._link().pull(
+                        consume=True))
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                rec.append((t1 - t0, time.perf_counter() - t0))
+                return out
+            return real(ctx, b, carry, n, **kw)
+        return iterate
+
+    runs = {"pagerank": (tpr, lambda ctx, it: tpr.page_rank(
+                ctx, edges, pages, it)),
+            "k-means": (tkm, lambda ctx, it: tkm.k_means(ctx, pts, 10, it))}
+    out = []
+    for name, (mod, run) in runs.items():
+        for W in (4, 1):
+            for rep in range(reps + 1):
+                rec = []
+                real = mod.Iterate
+                mod.Iterate = timed(mod, rec)
+                try:
+                    ctx = tt.Context(num_workers=W, device="cuda")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run(ctx, 10 if rep else 2)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                finally:
+                    mod.Iterate = real
+                if rep:
+                    out.append({"path": name, "W": W, "warm_s": secs,
+                                "body_host_s": [r[0] for r in rec],
+                                "body_synced_s": [r[1] for r in rec]})
+    return out
+
+
+ADD_CHAIN_CU = r"""
+#include <cuda_runtime.h>
+
+// One thread, one chain of n dependent adds: the two operands sit in
+// registers (loaded once, before the chain), every add reads the sum the
+// one before it wrote. clock64() around the chain gives its cycles.
+template <typename T>
+__global__ void add_chain(const T* in, T* out, long long n,
+                          long long* cycles) {
+  T a = in[0], b = in[1], acc = in[2];
+  long long t0 = clock64();
+  for (long long i = 0; i < n; i += 16) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      acc += a;
+      acc += b;
+    }
+  }
+  long long t1 = clock64();
+  out[0] = acc;
+  cycles[0] = t1 - t0;
+}
+
+extern "C" int add_chain_launch(int f64, const void* in, void* out,
+                                long long n, long long* cycles,
+                                cudaStream_t stream) {
+  if (f64)
+    add_chain<double><<<1, 1, 0, stream>>>(
+        static_cast<const double*>(in), static_cast<double*>(out), n,
+        cycles);
+  else
+    add_chain<float><<<1, 1, 0, stream>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), n, cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def add_chain_latency(torch) -> dict:
+    """The latency of one dependent add on the card, the floor of the
+    ordered fold (a run's adds are one chain): ADD_CHAIN_CU, built here
+    with nvcc for sm_90a, runs one thread through n adds with its
+    operands in registers. Two chain lengths, each timed with CUDA
+    events (mean of 10 launches after 2 warm-ups): the difference over
+    the difference of adds is ns an add, free of the launch. Its sum is
+    held to the exact one, and clock64()
+    gives the cycles an add. Returns ``add_ns_<dtype>`` and
+    ``add_cycles_<dtype>`` for float64 and float32."""
+    import ctypes
+    import hashlib
+    from thrill_tpu_torch.common import native_build as nb
+    digest = hashlib.sha256(ADD_CHAIN_CU.encode()).hexdigest()[:16]
+    lib_path = os.path.join(nb.BUILD_DIR, f"libadd_chain-{digest}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(nb.BUILD_DIR, exist_ok=True)
+        src = lib_path[:-3] + ".cu"
+        with open(src, "w") as f:
+            f.write(ADD_CHAIN_CU)
+        subprocess.run([nb._nvcc(), *nb.ARCH_FLAGS, "-O3", "-shared",
+                        "-Xcompiler", "-fPIC", "-o", lib_path, src],
+                       check=True, timeout=600)
+    lib = ctypes.CDLL(lib_path)
+    lib.add_chain_launch.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+    dev = torch.device("cuda")
+    cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+    out = {}
+    short, long_ = 1 << 20, 1 << 22
+    for dt in (torch.float64, torch.float32):
+        ops = torch.tensor([0.5, 0.25, 1.0], dtype=dt, device=dev)
+        res = torch.zeros(1, dtype=dt, device=dev)
+
+        def launch(n):
+            rc = lib.add_chain_launch(
+                int(dt == torch.float64), ops.data_ptr(), res.data_ptr(),
+                n, cycles.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"add_chain launch failed: {rc}")
+
+        launch(short)
+        # every partial sum is a multiple of 0.25 below 2^21: exact in
+        # both types, so the chain's sum is 1 + 0.375 n
+        if float(res.item()) != 1 + 0.375 * short:
+            raise AssertionError(f"add chain ({dt}) summed {res.item()}, "
+                                 f"not {1 + 0.375 * short}")
+        ms = {n: cuda_ms(torch, lambda n=n: launch(n)) for n in (short,
+                                                                 long_)}
+        launch(long_)
+        torch.cuda.synchronize()
+        name = str(dt)[6:]
+        out[f"add_ns_{name}"] = (ms[long_] - ms[short]) * 1e6 / (
+            long_ - short)
+        out[f"add_cycles_{name}"] = int(cycles.item()) / long_
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
@@ -235,6 +404,15 @@ def main() -> int:
     if "--paths" in sys.argv:
         reps = int(sys.argv[sys.argv.index("--paths") + 1])
         print(json.dumps({"paths_ms": time_paths(torch, np, reps),
+                          "card": card_line()}))
+        return 0
+    if "--add-chain" in sys.argv:
+        print(json.dumps({"ms": add_chain_latency(torch),
+                          "card": card_line()}))
+        return 0
+    if "--loops" in sys.argv:
+        reps = int(sys.argv[sys.argv.index("--loops") + 1])
+        print(json.dumps({"loops": time_loops(torch, np, reps),
                           "card": card_line()}))
         return 0
     from thrill_tpu_torch.core import device_sort, keys
@@ -305,6 +483,7 @@ def main() -> int:
         if not bool(((got - want).abs() <= 1e-4 * want + 1e-6).all()):
             raise AssertionError(f"{name}: outside 1e-4 of the plain sum")
         out[name] = cuda_ms(torch, lambda: pk.segment_sum(ids, v, S))
+    out.update(add_chain_latency(torch))
     print(json.dumps({"ms": out, "windows": windows, "card": card_line()}))
     return 0
 

@@ -863,11 +863,14 @@ def test_a_restored_device_epoch_pads_with_zeros(cuda_device, tmp_path):
 
 
 @pytest.mark.gpu
-def test_a_loop_resumes_on_the_card(cuda_device, tmp_path):
+def test_a_loop_resumes_on_the_card(cuda_device, tmp_path, monkeypatch):
     """Iterate(checkpoint_every=2) on the card: the resumed run restores
     the newest loop epoch, runs the iterations after it alone and gives
-    the uninterrupted run's bits, which are the CPU's."""
+    the uninterrupted run's bits, which are the CPU's. The plain loop
+    (``THRILL_TPU_LOOP_REPLAY=0``, as the reference's test): its body
+    runs count the iterations; a replayed iteration runs no body."""
     from thrill_tpu_torch.common.config import Config
+    monkeypatch.setenv("THRILL_TPU_LOOP_REPLAY", "0")
     runs = []
 
     def job(ctx):
@@ -889,6 +892,41 @@ def test_a_loop_resumes_on_the_card(cuda_device, tmp_path):
     assert got.tobytes() == want.tobytes()
     cpu = tt.Run(job, 4, device="cpu")
     assert got.tobytes() == cpu.tobytes()
+
+
+@pytest.mark.gpu
+def test_a_loop_resumes_with_replay_on_the_card(cuda_device, tmp_path,
+                                                monkeypatch):
+    """The same loop with replay on (the reference's
+    ``test_loop_checkpoint_resume_with_replay``): each run captures once
+    and replays its other iterations one by one (an epoch falls inside
+    the loop, so no whole-loop graph); the resumed run restores the
+    newest epoch, captures again, makes the two iterations after it and
+    gives the uninterrupted run's bits, which are the plain loop's."""
+    from thrill_tpu_torch.common.config import Config
+    stats = []
+
+    def job(ctx):
+        d = ctx.Distribute(np.linspace(0.0, 1.0, 1001))
+        out = tt.Iterate(ctx, lambda d: d.Map(lambda x: x * 0.5 + 1.0), d,
+                         6, name="gpu_loop", checkpoint_every=2)
+        got = out.AllGatherArrays().cpu().numpy()
+        st = ctx.overall_stats()
+        stats.append((st["loop_plan_builds"], st["loop_replays"],
+                      st["loop_fori_iters"], st["loop_replay_fallbacks"],
+                      ctx.mesh_exec.loop_reports[-1]["iters"]))
+        return got
+
+    cfg = Config(ckpt_dir=str(tmp_path))
+    want = tt.Run(job, 4, device=cuda_device, config=cfg)
+    got = tt.Run(job, 4, device=cuda_device, config=cfg, resume=True)
+    assert stats == [(1, 5, 0, 0, 6), (1, 1, 0, 0, 2)]
+    assert got.tobytes() == want.tobytes()
+    monkeypatch.setenv("THRILL_TPU_LOOP_REPLAY", "0")
+    plain = tt.Run(job, 4, device=cuda_device,
+                   config=Config(ckpt_dir=str(tmp_path / "plain")))
+    assert stats[-1][:4] == (0, 0, 0, 0)
+    assert plain.tobytes() == want.tobytes()
 
 
 @pytest.mark.gpu
@@ -939,3 +977,144 @@ def test_stitched_chain_syncs_only_for_the_radix_engine_and_the_action(
     assert np.array_equal(out["i"].cpu().numpy(),
                           np.cumsum(np.arange(len(k))))
     ctx.close()
+
+
+def _graph_of(fn):
+    """``fn()`` captured in a CUDA graph after a warm-up on a side
+    stream, replayed once: (the graph's outputs, the graph)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return out, g
+
+
+def _tensors_of(x):
+    return [t for t in (x if isinstance(x, tuple) else (x,))
+            if t is not None]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["partition_histogram", "radix_upsweep",
+                                    "radix_pass", "ordered_segment_sum",
+                                    "segment_sum", "presence_fill"])
+def test_kernels_inside_a_cuda_graph_are_bit_equal(cuda_device, kernel):
+    """Each wrapper launches on the current stream, so a CUDA graph
+    captures it; its replay is bit-equal to an eager launch and to the
+    plain version (B3's f32 sum: within its usual tolerance of the plain
+    one, its atomics' order being free)."""
+    from thrill_tpu_torch.core import ordered_fold as tof
+    rng = np.random.default_rng(11)
+    n = 1 << 18
+    ids = torch.as_tensor(rng.integers(0, 3000, size=(2, n)),
+                          device=cuda_device)
+    vals = torch.as_tensor(rng.normal(size=n), device=cuda_device)
+    keys = ids.reshape(-1)
+    order = torch.argsort(keys, stable=True)
+    offs = torch.zeros(3001, dtype=torch.int64, device=cuda_device)
+    offs[1:] = torch.cumsum(torch.bincount(keys, minlength=3000), 0)
+    hist = tps.radix_upsweep(ids, 2)
+    f32 = vals.repeat(2).float().reshape(2, -1)
+    valid = ids % 3 > 0
+    fns = {
+        "partition_histogram": (lambda: tpk.partition_histogram(ids, 2048),
+                                lambda: tpk.partition_histogram_plain(
+                                    ids.cpu(), 2048)),
+        "radix_upsweep": (lambda: tps.radix_upsweep(ids, 2),
+                          lambda: tps.radix_upsweep_plain(ids.cpu(), 2)),
+        "radix_pass": (lambda: tps.radix_pass(ids, None, 8, hist[:, 1]),
+                       lambda: tps.radix_pass_plain(ids.cpu(), None, 8)),
+        "ordered_segment_sum": (
+            lambda: tof.ordered_segment_sum(vals.repeat(2), order, offs),
+            lambda: tof.ordered_segment_sum_plain(
+                vals.repeat(2).cpu(), order.cpu(), offs.cpu())),
+        "segment_sum": (lambda: tpk.segment_sum(ids.int(), f32, 3000),
+                        lambda: tpk.segment_sum_plain(ids.int().cpu(),
+                                                      f32.cpu(), 3000)),
+        "presence_fill": (lambda: tpk.presence_fill(ids, valid, 4096),
+                          lambda: tpk.presence_fill_plain(
+                              ids.cpu(), valid.cpu(), 4096)),
+    }
+    fn, plain_fn = fns[kernel]
+    eager = fn()
+    out, g = _graph_of(fn)
+    plain = plain_fn()
+    for a, b, c in zip(_tensors_of(out), _tensors_of(eager),
+                       _tensors_of(plain)):
+        if kernel == "segment_sum":
+            assert torch.allclose(a.cpu(), c, rtol=1e-4, atol=1e-3)
+            continue
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    g.replay()                   # a second replay: the same bits
+    torch.cuda.synchronize()
+    if kernel != "segment_sum":
+        assert all(torch.equal(a, b) for a, b in zip(_tensors_of(out),
+                                                     _tensors_of(eager)))
+
+
+@pytest.mark.gpu
+def test_sync_free_radix_argsort_reads_nothing(cuda_device):
+    """With ``sync_free`` the radix engine sorts by every digit of the
+    given bits and reads nothing back (no live-digit read, no sync under
+    ``set_sync_debug_mode("error")``): the permutation of the plain
+    engine, one pass a digit."""
+    rng = np.random.default_rng(5)
+    keys = torch.as_tensor(rng.integers(0, 1 << 20, size=(4, 1 << 16)),
+                           device=cuda_device)
+    reads, passes = tps.live_reads, tps.radix_pass.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        perm = tps.radix_argsort_device([keys], [20], sync_free=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert tps.live_reads == reads
+    assert tps.radix_pass.launches - passes == 3
+    assert torch.equal(perm, tds.plain_argsort_words([keys]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_page_rank_loop_graph_is_bit_equal(cuda_device, W, monkeypatch):
+    """PageRank's Iterate on the card at a small size: iterations 2..5
+    run as one CUDA graph (``loop_fori_iters`` 4, the graph's replay
+    logged), bit-equal to per-iteration replay (release on) and to the
+    plain loop."""
+    from thrill_tpu_torch.api import loop as tloop
+    from thrill_tpu_torch.examples import page_rank as tpr
+    edges = tpr.zipf_graph(4096, 1 << 15, seed=W)
+    graphs = []
+    real = tloop._graph_loop
+
+    def graph_loop(plan, carry, k):
+        graphs.append(k)
+        return real(plan, carry, k)
+
+    monkeypatch.setattr(tloop, "_graph_loop", graph_loop)
+    got = {}
+    for mode, env in (("graph", {}),
+                      ("replay", {"THRILL_TPU_LOOP_FORI": "0",
+                                  "THRILL_TPU_LOOP_DONATE": "1"}),
+                      ("plain", {"THRILL_TPU_LOOP_REPLAY": "0"})):
+        for k in ("THRILL_TPU_LOOP_FORI", "THRILL_TPU_LOOP_DONATE",
+                  "THRILL_TPU_LOOP_REPLAY"):
+            monkeypatch.delenv(k, raising=False)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        ctx = tt.Context(num_workers=W, device=cuda_device)
+        got[mode] = tpr.page_rank(ctx, edges, 4096, 5)
+        st = ctx.overall_stats()
+        want = {"graph": (1, 0, 4), "replay": (1, 4, 0),
+                "plain": (0, 0, 0)}[mode]
+        assert (st["loop_plan_builds"], st["loop_replays"],
+                st["loop_fori_iters"]) == want
+        ctx.close()
+    assert graphs == [4]
+    assert got["graph"].tobytes() == got["replay"].tobytes() \
+        == got["plain"].tobytes()

@@ -1,8 +1,9 @@
 """The port's Iterate against the reference package's on the CPU, with a
 DIA carry and with a pytree-of-tensors carry, at W in {1, 2, 4}.
 
-The reference captures its first iteration and replays the rest, which
-is bit-identical to its plain loop; the port runs the plain loop. Rows,
+Both packages capture the first iteration and replay the rest, which is
+bit-identical to their plain loops (``tests/test_torch_loop_replay.py``
+holds the port's loop layer to the reference's). Rows,
 per-worker counts and carried values must be equal: integers bit for
 bit, floats within ``1e-12`` (f64 sums that may associate differently).
 """
@@ -211,10 +212,12 @@ def test_loop_checkpoint_resume(W, tmp_path, monkeypatch):
         assert a == b
 
 
-def test_iterate_frees_each_iteration_and_keeps_kept_sources():
-    """Consume budgets across the loop: a source kept for every
-    iteration stays; each iteration's intermediates are disposed once
-    the next iteration has read them."""
+def test_iterate_frees_each_iteration_and_keeps_kept_sources(monkeypatch):
+    """Consume budgets across the plain loop (``THRILL_TPU_LOOP_REPLAY=0``:
+    a replayed iteration pulls nothing, so it consumes no budget): a
+    source kept for every iteration stays; each iteration's
+    intermediates are disposed once the next iteration has read them."""
+    monkeypatch.setenv("THRILL_TPU_LOOP_REPLAY", "0")
     ctx = tt.Context(num_workers=2, device="cpu")
     iters = 4
     table = ctx.Generate(8).Map(lambda g: g * 10).Cache().Keep(iters)

@@ -251,7 +251,9 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "segment_splits", "host_fallbacks", "admission_spills",
                       "pressure_spilled_bytes", "device_dispatches",
                       "device_fetches", "fused_dispatches", "fused_ops",
-                      "fused_stages", "join_overflow_retries"}
+                      "fused_stages", "join_overflow_retries",
+                      "loop_plan_builds", "loop_replays", "loop_fori_iters",
+                      "loop_replay_fallbacks", "loop_donated_bytes"}
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
     assert s["workers"] == 4 and s["nodes_created"] == 2

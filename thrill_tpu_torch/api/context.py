@@ -164,7 +164,9 @@ class Context:
         ``device_fetches``: host syncs), stitching's
         (``fused_dispatches``, ``fused_ops``, ``fused_stages``: each
         stitched stage's ops and launches), the hinted join's lineage
-        retries (``join_overflow_retries``) and, with a checkpoint
+        retries (``join_overflow_retries``), the loop layer's five
+        (``loop_plan_builds``, ``loop_replays``, ``loop_fori_iters``,
+        ``loop_replay_fallbacks``, ``loop_donated_bytes``) and, with a checkpoint
         manager, its five (epochs, bytes written, ops and sort runs
         skipped by resume, restore seconds)."""
         mex = self.mesh_exec
@@ -181,6 +183,11 @@ class Context:
             "fused_stages": {" + ".join(ops): n for ops, n in
                              mex.fused_stage_counts.items()},
             "join_overflow_retries": mex.stats_join_overflow_retries,
+            "loop_plan_builds": mex.stats_loop_plan_builds,
+            "loop_replays": mex.stats_loop_replays,
+            "loop_fori_iters": mex.stats_loop_fori_iters,
+            "loop_replay_fallbacks": mex.stats_loop_fallbacks,
+            "loop_donated_bytes": mex.stats_loop_donated_bytes,
             "hbm_peak": self.hbm.mem.peak,
             "hbm_spills": self.hbm.spill_count,
             "hbm_restores": self.hbm.restore_count,
@@ -192,8 +199,10 @@ class Context:
 
     def note_failure(self, exc: BaseException) -> None:
         """The job raised ``exc``: ``close()`` then drops this run's
-        uncommitted epoch and the spill files of dead processes."""
+        uncommitted epoch and the spill files of dead processes. Its
+        deferred checks and a loop capture in progress are dropped."""
         self._aborted = True
+        self.mesh_exec.reset_run_state()
 
     def close(self) -> None:
         """Log the stats, detach the log and free the spill store (a

@@ -261,9 +261,15 @@ class FusionPlan:
         bound_flat, bound_sig = [], []
         for seg in segs:
             bl, bt = pt.flatten(seg.bound)
-            # values at this run, copied (a bound array may be read-only)
-            bl = [l.to(mex.device) if isinstance(l, torch.Tensor)
-                  else torch.tensor(np.asarray(l), device=mex.device)
+            # values at this run, copied (a bound array may be read-only);
+            # a tensor on the device passes as it is, so a loop capture
+            # knows it, and an upload is a blessed plan constant
+            bl = [l if isinstance(l, torch.Tensor)
+                  and l.device.type == mex.device.type
+                  else mex.bless(l.to(mex.device)
+                                 if isinstance(l, torch.Tensor) else
+                                 torch.tensor(np.asarray(l),
+                                              device=mex.device))
                   for l in bl]
             bound_flat.append((bl, bt))
             bound_sig.append((bt, tuple((l.dtype, tuple(l.shape))

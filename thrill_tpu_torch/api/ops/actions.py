@@ -31,8 +31,34 @@ def AllGatherArrays(dia):
     device, worker-rank order, sliced from the shards without a host
     copy. Host storage gives numpy-stacked leaves of the same tree
     shape, and an empty host DIA ``[]``: its item structure is unknown
-    without items."""
-    return _gather_arrays(_pull(dia))
+    without items. The deferred checks drain first, so no result of an
+    unchecked hinted join leaves through the columns. While a loop
+    capture runs (api/loop.py) the slicing is one program, so a loop
+    that closes through this action (k-means' centers) can be replayed
+    (reference: ``thrill_tpu/api/ops/actions.py:80-103``)."""
+    shards = _pull(dia)
+    mex = dia.context.mesh_exec
+    mex.drain_checks()
+    if mex.loop_recorder is not None and not isinstance(shards, HostShards):
+        counts = tuple(int(c) for c in shards.counts)
+        leaves, td = pt.flatten(shards.tree)
+        prog = mex.program(("allgather_arrays", shards.cap, counts, td,
+                            tuple((l.dtype, tuple(l.shape[2:]))
+                                  for l in leaves)), _concat_program)
+        return pt.unflatten(td, prog(leaves, counts))
+    return _gather_arrays(shards)
+
+
+def _concat_program(leaves, counts):
+    """Program: each leaf's valid rows of every worker, concatenated."""
+    return [_concat_valid(l, counts) for l in leaves]
+
+
+def _concat_valid(leaf, counts):
+    parts = [leaf[w, :c] for w, c in enumerate(counts) if c]
+    if not parts:
+        return leaf[0, :0]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
 def _gather_arrays(shards):
@@ -45,14 +71,7 @@ def _gather_arrays(shards):
             np.stack([f[0][i] for f in flat])
             for i in range(len(flat[0][0]))])
     counts = [int(c) for c in shards.counts]
-
-    def cat(leaf):
-        parts = [leaf[w, :c] for w, c in enumerate(counts) if c]
-        if not parts:
-            return leaf[0, :0]
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-
-    return pt.tree_map(cat, shards.tree)
+    return pt.tree_map(lambda l: _concat_valid(l, counts), shards.tree)
 
 
 def AllGather(dia) -> list:

@@ -400,17 +400,19 @@ class InnerJoinNode(DIABase):
         ``thrill_tpu/api/ops/join.py:306-340``)."""
         from .. import fusion
         n, lkey, jfn = self.dense_right_index, self.lkey, self.join_fn
-        bounds = self._dense_bounds()
 
-        def trace(fctx, states, _bound):
+        def trace(fctx, states, bound_t):
             (ltree, lmask), (rtree, _rmask) = states
-            b = torch.as_tensor(bounds, device=lmask.device)
-            return _dense_rows(ltree, lmask, rtree, b, n, lkey, jfn)
+            return _dense_rows(ltree, lmask, rtree, bound_t[0], n, lkey, jfn)
 
+        # the bounds reach the program as a bound operand, uploaded before
+        # the dispatch: an upload inside it could not go into a CUDA graph
         return fusion.Segment(label="InnerJoin",
                               token=("join_dense",
                                      (self.lkey, self.rkey, jfn), n),
-                              trace=trace, dia_id=self.id)
+                              trace=trace,
+                              bound=(self._dense_bounds().astype(np.int64),),
+                              dia_id=self.id)
 
     def _compute_dense(self, left: DeviceShards,
                        right: DeviceShards) -> DeviceShards:
@@ -421,15 +423,16 @@ class InnerJoinNode(DIABase):
         self._check_dense(right)
         mex = left.mesh_exec
         prog = mex.program(("join_dense", self.lkey, self.join_fn),
-                           _dense_rows)
-        out, keep = prog(left.tree, left.valid_mask(), right.tree,
-                         mex.put_small(self._dense_bounds()),
-                         self.dense_right_index, self.lkey, self.join_fn)
-        counts = mex.fetch(keep.sum(dim=1)).astype(np.int64)
+                           _dense_join)
+        out, keep, kept = prog(left.tree, left.valid_mask(), right.tree,
+                               mex.put_small(self._dense_bounds()),
+                               self.dense_right_index, self.lkey,
+                               self.join_fn)
+        counts = mex.fetch(kept).astype(np.int64)
         if np.array_equal(counts, left.counts):
             # every item joined: the rows are in place already
             return DeviceShards(mex, out, counts)
-        tree, _ = compact_valid(out, keep)
+        tree, _ = mex.program(("compact_valid",), compact_valid)(out, keep)
         return DeviceShards(mex, tree, counts)
 
 
@@ -547,6 +550,13 @@ def _dense_rows(ltree, lmask: torch.Tensor, rtree, b: torch.Tensor,
         (W, lcap) + tuple(l.shape[1:])), _flat(rtree))
     out = call_batched(join_fn, [ltree, rsel], W, lcap, lmask.device)
     return out, lmask & ((key >= 0) & (key < n)).reshape(W, lcap)
+
+
+def _dense_join(ltree, lmask: torch.Tensor, rtree, b: torch.Tensor, n: int,
+                lkey, join_fn):
+    """Program: :func:`_dense_rows` plus each worker's joined rows."""
+    out, keep = _dense_rows(ltree, lmask, rtree, b, n, lkey, join_fn)
+    return out, keep, keep.sum(dim=1)
 
 
 def _join_phase1(ltree, lmask: torch.Tensor, rtree, rmask: torch.Tensor,

@@ -306,6 +306,18 @@ def _type_min(dt: torch.dtype):
     return float("-inf") if dt.is_floating_point else torch.iinfo(dt).min
 
 
+def _fill_value(nv, dtype: torch.dtype, device) -> torch.Tensor:
+    """A neutral (None for zero, a number or a numpy array) as a tensor
+    on ``device``: a fill kernel when every element is one value, so no
+    copy from the host runs inside the program (a CUDA graph holds no
+    pageable copy)."""
+    a = np.asarray(0 if nv is None else nv)
+    if a.size and (a == a.flat[0]).all():
+        return torch.full(a.shape, a.flat[0].item(), dtype=dtype,
+                          device=device)
+    return torch.as_tensor(a, device=device).to(dtype)
+
+
 def _scatter_fold_specs(reduce_fn, treedef, leaves):
     """Flat FieldReduce specs when the sort-free scatter engine applies to
     every leaf: "sum"/"min"/"max" need non-bool leaves, "first" takes any
@@ -391,8 +403,7 @@ def _scatter_reduce_apply(tree: Any, pos: torch.Tensor, size: int, specs,
                              device=dev).scatter_reduce_(
                 0, idx, leaf, "amin" if s == "min" else "amax")[:size]
             present = winners() < T
-        fill = torch.as_tensor(np.asarray(0 if nv is None else nv),
-                               device=dev).to(leaf.dtype)
+        fill = _fill_value(nv, leaf.dtype, dev)
         outs.append(torch.where(present.reshape(present.shape
                                                 + (1,) * len(trail)),
                                 col, fill))
@@ -563,8 +574,7 @@ def _sorted_dense(tree, valid: torch.Tensor, index_fn, reduce_fn, neutral,
         trail = tuple(leaf.shape[2:])
         base = torch.empty((W * region,) + trail, dtype=leaf.dtype,
                            device=dev)
-        base[:] = torch.as_tensor(np.asarray(nv), device=dev).to(
-            leaf.dtype)
+        base[:] = _fill_value(nv, leaf.dtype, dev)
         # representatives have distinct indices
         base.index_put_((flat,), leaf.reshape((-1,) + trail))
         return base.reshape((W, region) + trail)[:, :out_cap]

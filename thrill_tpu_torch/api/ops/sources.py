@@ -49,13 +49,10 @@ class GenerateNode(DIABase):
                                   for w in range(W)])
         counts = np.diff(bnd)
         cap = round_up_pow2(int(counts.max()))
-        idx = (mex.put_small(bnd[:W])[:, None]
-               + torch.arange(cap, device=mex.device)[None, :]).reshape(-1)
-        tree = idx if self.fn is None else _broadcast_outputs(
-            self.fn(idx), W * cap, mex.device)
-        tree = pt.tree_map(
-            lambda l: l.reshape((W, cap) + tuple(l.shape[1:])), tree)
-        return DeviceShards(mex, tree, counts)
+        # one program, as the reference's (a loop capture records it)
+        prog = mex.program(("generate", self.fn, W, cap), _generate)
+        return DeviceShards(mex, prog(mex.put_small(bnd[:W]), self.fn, W,
+                                      cap, mex.device), counts)
 
 
 class DistributeNode(DIABase):
@@ -167,3 +164,14 @@ def ConcatToDIA(ctx, per_worker, storage=None) -> DIA:
     items, lists past the last worker fold into it, in order. Host
     storage unless ``storage="device"``."""
     return DIA(ConcatToDIANode(ctx, per_worker, storage))
+
+
+def _generate(starts: torch.Tensor, fn, W: int, cap: int, device):
+    """Program: ``fn`` of every worker's global indices as ``[W, cap,
+    ...]`` leaves (the indices themselves without ``fn``)."""
+    idx = (starts[:, None]
+           + torch.arange(cap, device=device)[None, :]).reshape(-1)
+    tree = idx if fn is None else _broadcast_outputs(fn(idx), W * cap,
+                                                     device)
+    return pt.tree_map(lambda l: l.reshape((W, cap) + tuple(l.shape[1:])),
+                       tree)

@@ -25,8 +25,9 @@ paths run; every fire and every recovery ``note`` is kept in
 
 Sites declared here rather than by their module: ``api.mesh.dispatch``
 (every call through the mesh's dispatch choke point, retried under the
-shared policy) and ``api.fuse.<Op>`` (one per op label of a stitched
-program, :func:`fuse_site`, checked before its dispatch).
+shared policy), ``api.loop.replay`` (every replayed loop iteration) and
+``api.fuse.<Op>`` (one per op label of a stitched program,
+:func:`fuse_site`, checked before its dispatch).
 """
 
 from __future__ import annotations
@@ -284,6 +285,9 @@ note = REGISTRY.note
 
 #: a call through the mesh's dispatch choke point (parallel/mesh.py)
 F_DISPATCH = declare("api.mesh.dispatch")
+#: a replayed loop iteration (api/loop.py): a fire falls back to a plain,
+#: re-captured iteration
+F_LOOP_REPLAY = declare("api.loop.replay")
 
 
 def fuse_site(label: str) -> str:

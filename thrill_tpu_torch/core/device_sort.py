@@ -33,15 +33,16 @@ def plain_argsort_words(words: Sequence[torch.Tensor]) -> torch.Tensor:
 
 def argsort_words(words: List[torch.Tensor],
                   word_bits: Optional[Sequence[int]] = None,
-                  passes: Optional[List[Tuple[int, int]]] = None
-                  ) -> torch.Tensor:
+                  passes: Optional[List[Tuple[int, int]]] = None,
+                  sync_free: bool = False) -> torch.Tensor:
     """Stable argsort by key words (``[n]`` or per worker ``[W, n]``,
     lexicographic, unsigned order). ``word_bits`` bounds the used bits
-    of each word for the radix engine."""
+    of each word for the radix engine; ``sync_free`` (with ``word_bits``)
+    sorts by every digit of those bits without reading which are live."""
     dev = words[0].device
     if dev.type == "cuda":
         return radix_argsort_device(words, word_bits=word_bits,
-                                    passes=passes)
+                                    passes=passes, sync_free=sync_free)
     if dev.type != "cpu":
         raise ValueError(f"argsort_words: unsupported device {dev}")
     return plain_argsort_words(words)

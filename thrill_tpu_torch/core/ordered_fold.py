@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..common import native_build
+from ..common import native_build, taint
 from .device_sort import argsort_words
 from .pallas_kernels import MAX_BINS, partition_histogram
 
@@ -123,6 +123,7 @@ def _launch(values: torch.Tensor, order: Optional[torch.Tensor],
             raise RuntimeError(f"ordered_segment_sum kernel launch failed: "
                                f"cudaError {err}")
         ordered_segment_sum.launches += 1
+        taint.kernel_edge((rows, order, offs), (out,))
     return out.reshape((S,) + tuple(values.shape[1:]))
 
 
@@ -148,10 +149,13 @@ def group_rows(ids: torch.Tensor, num_segments: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(order, run_offsets) of ``[T]`` segment ids: ``order`` lists the
     rows of segment 0, then of segment 1, ..., each in row order (a
-    stable argsort, the radix engine on a card), with the rows of ids
-    outside ``[0, num_segments)`` last and in no run; ``run_offsets``
-    ``[num_segments + 1]`` int64 (the histogram kernel counts the rows a
-    segment where ``num_segments`` fits it, ``bincount`` past that)."""
+    stable argsort, the radix engine on a card, with no host read), with
+    the rows of ids outside ``[0, num_segments)`` last and in no run;
+    ``run_offsets`` ``[num_segments + 1]`` int64 (the histogram kernel
+    counts the rows a segment where ``num_segments`` fits it, an integer
+    ``index_add_`` past that: ``bincount`` on a card reads the largest
+    id back to the host). Nothing here waits for the device, so a CUDA
+    graph can hold it."""
     ids = ids.reshape(-1).to(torch.int64)
     offsets = torch.zeros(num_segments + 1, dtype=torch.int64,
                           device=ids.device)
@@ -159,12 +163,15 @@ def group_rows(ids: torch.Tensor, num_segments: int
         return ids, offsets
     keys = torch.where((ids >= 0) & (ids < num_segments), ids,
                        torch.full_like(ids, num_segments))
-    order = argsort_words([keys], [max(1, num_segments.bit_length())])
+    # the ids' bits are known: every digit sorts, no host read
+    order = argsort_words([keys], [max(1, num_segments.bit_length())],
+                          sync_free=True)
     if num_segments <= MAX_BINS:
         counts = partition_histogram(keys, num_segments).to(torch.int64)
     else:
-        counts = torch.bincount(keys, minlength=num_segments + 1
-                                )[:num_segments]
+        counts = torch.zeros(num_segments + 1, dtype=torch.int64,
+                             device=ids.device).index_add_(
+            0, keys, torch.ones_like(keys))[:num_segments]
     offsets[1:] = torch.cumsum(counts, 0)
     return order, offsets
 

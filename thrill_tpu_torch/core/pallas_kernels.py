@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from ..common import native_build
+from ..common import native_build, taint
 
 # counters are int32; the TPU's f32 gate does not apply
 MAX_ROWS = (1 << 31) - 1
@@ -97,6 +97,7 @@ def _launch(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
         raise RuntimeError(f"partition_histogram kernel launch failed: "
                            f"cudaError {err}")
     partition_histogram.launches += 1
+    taint.kernel_edge((rows,), (out,))
     return out.reshape(dest.shape[:-1] + (num_bins,))
 
 
@@ -170,6 +171,7 @@ def _seg_launch(seg_ids: torch.Tensor, values: torch.Tensor,
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError "
                            f"{err}")
     segment_sum.launches += 1
+    taint.kernel_edge((rows, vals), (out,))
     return out.reshape(seg_ids.shape[:-1] + (num_segments,))
 
 
@@ -220,6 +222,10 @@ _bitsets = {}
 
 def _bitset_scratch(device: torch.device, stream: int,
                     words: int) -> torch.Tensor:
+    if torch.cuda.is_current_stream_capturing():
+        # a CUDA graph keeps a bitset of its own in its pool: one shared
+        # with eager launches would be written by both
+        return torch.zeros(max(words, 64), dtype=torch.int32, device=device)
     t = _bitsets.get((device, stream))
     if t is None or t.numel() < words:
         t = _bitsets[(device, stream)] = torch.zeros(
@@ -271,6 +277,7 @@ def _pres_launch(h: torch.Tensor, valid: torch.Tensor,
         raise RuntimeError(f"presence_fill kernel launch failed: cudaError "
                            f"{err}")
     presence_fill.launches += 1
+    taint.kernel_edge((rows, flags), (out,))
     return out.reshape(h.shape[:-1] + (num_regs,))
 
 

@@ -24,7 +24,10 @@ counts launches.
 
 ``radix_argsort_device`` runs 8-bit LSD passes over int64 key words
 (``core/keys.py``: unsigned order, most significant word first) and
-skips passes whose digit is the same in every row.
+skips passes whose digit is the same in every row, which costs one host
+read an argsort; ``sync_free`` makes every digit of the known bits a
+pass and reads nothing (a pass over a digit that is the same in every
+row is the identity), so the argsort can run inside a CUDA graph.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..common import native_build
+from ..common import native_build, taint
 from .pallas_kernels import MAX_ROWS, _rows_of, _sms
 
 MAX_BINS = 256                   # bins (plus the sentinel) a block owns
@@ -120,6 +123,7 @@ def radix_upsweep(words: torch.Tensor, ndigits: int = 8) -> torch.Tensor:
                 rows.data_ptr(), hist.data_ptr(), n, R, ndigits,
                 _per_row(n, R, words.device), _stream(words)))
         radix_upsweep.launches += 1
+        taint.kernel_edge((rows,), (hist,))
     return hist.reshape(words.shape[:-1] + (8, RADIX))
 
 
@@ -216,6 +220,7 @@ def radix_pass(keys: torch.Tensor, perm: Optional[torch.Tensor], shift: int,
                 p_out.data_ptr(), h.data_ptr(), h.stride(0), status, counter,
                 n, R, shift, epoch, _stream(keys)))
         radix_pass.launches += 1
+        taint.kernel_edge((rows, pr, h), (k_out, p_out))
     return (k_out.reshape(keys.shape) if write_keys else None,
             p_out.reshape(keys.shape))
 
@@ -261,6 +266,7 @@ def _launch(dest: torch.Tensor, num_bins: int) -> torch.Tensor:
             rows.data_ptr(), scratch.data_ptr(), out.data_ptr(), n, R,
             num_bins, _per_row(n, max(R, 1), dest.device), _stream(dest)))
     stable_partition_offsets.launches += 1
+    taint.kernel_edge((rows,), (out,))
     return out.reshape(dest.shape)
 
 
@@ -285,16 +291,18 @@ live_reads = 0
 def live_digits(varies: torch.Tensor) -> list:
     """``[K][8]`` on the host: is digit ``j`` of used word ``k`` live in
     some row. The radix engine's one host sync an argsort, counted in
-    :data:`live_reads`."""
+    :data:`live_reads` and shown to a loop capture as a host read."""
     global live_reads
     live_reads += 1
-    return varies.any(dim=1).tolist()
+    live = varies.any(dim=1)
+    taint.host_read(live)
+    return live.tolist()
 
 
 def radix_argsort_device(words: Sequence[torch.Tensor],
                          word_bits: Optional[Sequence[int]] = None,
-                         passes: Optional[List[Tuple[int, int]]] = None
-                         ) -> torch.Tensor:
+                         passes: Optional[List[Tuple[int, int]]] = None,
+                         sync_free: bool = False) -> torch.Tensor:
     """Stable LSD radix argsort by int64 key words (``words[0]`` most
     significant, unsigned order) in 8-bit digits, per row: words ``[n]``
     or ``[W, n]`` give an int64 permutation of the same shape.
@@ -305,8 +313,11 @@ def radix_argsort_device(words: Sequence[torch.Tensor],
     host sync per argsort, not one per pass. The first live pass of a word
     reads it through the permutation so far; its later passes carry (key,
     permutation) pairs. ``passes``, when given, receives (live passes,
-    candidate passes).
+    candidate passes). ``sync_free`` (``word_bits`` given) takes every
+    candidate digit as live and makes no host read.
     """
+    if sync_free and word_bits is None:
+        raise ValueError("a sync-free radix argsort needs word_bits")
     shape = words[0].shape
     words = [(w if w.dim() == 2 else w.unsqueeze(0)).contiguous()
              for w in words]
@@ -317,7 +328,9 @@ def radix_argsort_device(words: Sequence[torch.Tensor],
     used = [k for k in range(len(words)) if ndig[k] > 0]
     hists = {k: radix_upsweep(words[k], ndig[k]) for k in used}
     live = []
-    if used:
+    if sync_free:
+        live = [[True] * 8 for _ in used]
+    elif used:
         # a digit is live if some row holds two values of it: the one sync
         varies = torch.stack([hists[k] for k in used]).amax(dim=3) < n
         live = live_digits(varies)                         # [K][8]

@@ -78,6 +78,23 @@ def account_traffic(mex: MeshExec, S: np.ndarray, item_bytes: int) -> None:
     mex.stats_bytes_moved += moved * item_bytes
 
 
+def _slot_index(dest: torch.Tensor, S_dev: torch.Tensor,
+                M_pad: int) -> torch.Tensor:
+    """Program: :func:`send_slot_index` of ``dest`` ``[W, cap]``."""
+    W, cap = dest.shape
+    return send_slot_index(dest, S_dev, W, M_pad, cap)
+
+
+def _ship_leaf(x: torch.Tensor, send_idx: torch.Tensor,
+               M_pad: int) -> torch.Tensor:
+    """Program: :func:`ship_blocks` of one leaf."""
+    return ship_blocks(x, send_idx, x.shape[0], M_pad)
+
+
+def _leaf_sig(leaves: Sequence[torch.Tensor]) -> Tuple:
+    return tuple((l.dtype, tuple(l.shape[1:])) for l in leaves)
+
+
 def ship_presorted(mex: MeshExec, dest: torch.Tensor, S: np.ndarray,
                    item_bytes: int
                    ) -> Tuple[Callable[[torch.Tensor], torch.Tensor],
@@ -92,17 +109,41 @@ def ship_presorted(mex: MeshExec, dest: torch.Tensor, S: np.ndarray,
     gives each receiver's blocks of its senders in rank order, ``[W, W *
     M_pad, ...]``; receiver ``w``'s block from sender ``s`` holds ``S[s,
     w]`` rows, then zeros. Ship one leaf at a time: each result is a
-    whole copy of the rows."""
-    W, cap = dest.shape
+    whole copy of the rows. The slot index and every ``ship`` are
+    programs behind the mesh's dispatch choke point."""
     M_pad = max(int(S.max()), 1)
     account_traffic(mex, S, item_bytes)
     S_dev = mex.put_small(S)
-    send_idx = send_slot_index(dest, S_dev, W, M_pad, cap)
+    send_idx = mex.program(("xchg_slots", tuple(dest.shape), M_pad),
+                           _slot_index)(dest, S_dev, M_pad)
 
     def ship(x: torch.Tensor) -> torch.Tensor:
-        return ship_blocks(x, send_idx, W, M_pad)
+        return mex.program(("xchg_ship_leaf", _leaf_sig([x]), M_pad),
+                           _ship_leaf)(x, send_idx, M_pad)
 
     return ship, S_dev, M_pad
+
+
+def _ship_presorted(dest: torch.Tensor, leaves: List[torch.Tensor],
+                    S_dev: torch.Tensor, M_pad: int,
+                    out_cap: int) -> List[torch.Tensor]:
+    """Program: ship every leaf and lay each receiver's runs out in
+    sender rank order (the device half of :func:`exchange_presorted`)."""
+    W, cap = dest.shape
+    dev = dest.device
+    send_idx = send_slot_index(dest, S_dev, W, M_pad, cap)
+    # receiver w's output row r comes from the sender s whose run holds
+    # it: runs start at roff[w, s] and lie in block s of the received
+    # [W * M_pad] rows; rows past R[w] read some shipped row (padding)
+    St = S_dev.T.to(torch.int64)
+    incl = torch.cumsum(St, dim=1)                           # [recv, send]
+    r = torch.arange(out_cap, device=dev).expand(W, out_cap).contiguous()
+    src = torch.searchsorted(incl, r, right=True).clamp(max=W - 1)
+    roff = incl - St
+    pos = (src * M_pad + r - torch.gather(roff, 1, src)).clamp(
+        0, W * M_pad - 1)
+    return [take_rows(ship_blocks(l, send_idx, W, M_pad), pos)
+            for l in leaves]
 
 
 def exchange_presorted(mex: MeshExec, treedef, dest: torch.Tensor,
@@ -116,24 +157,37 @@ def exchange_presorted(mex: MeshExec, treedef, dest: torch.Tensor,
     monotone (Merge: sorted inputs against sorted splitters) skip the
     destination sort. The output capacity is the largest receive count
     rounded up to a power of two; rows past a count repeat shipped rows
-    (ROADMAP.md fault C4)."""
-    W = mex.num_workers
-    dev = mex.device
+    (ROADMAP.md fault C4). The device work is one program."""
     R = S.sum(axis=0)
     out_cap = round_up_pow2(max(int(R.max()), 1))
-    ship, S_dev, M_pad = ship_presorted(mex, dest, S,
-                                        leaf_item_bytes(leaves))
-    # receiver w's output row r comes from the sender s whose run holds
-    # it: runs start at roff[w, s] and lie in block s of the received
-    # [W * M_pad] rows; rows past R[w] read some shipped row (padding)
-    incl = torch.cumsum(S_dev.T, dim=1)                      # [recv, send]
-    r = torch.arange(out_cap, device=dev).expand(W, out_cap).contiguous()
-    src = torch.searchsorted(incl, r, right=True).clamp(max=W - 1)
-    roff = incl - S_dev.T
-    pos = (src * M_pad + r - torch.gather(roff, 1, src)).clamp(
-        0, W * M_pad - 1)
-    return DeviceShards(mex, pt.unflatten(treedef, [take_rows(ship(l), pos)
-                                                    for l in leaves]), R)
+    M_pad = max(int(S.max()), 1)
+    account_traffic(mex, S, leaf_item_bytes(leaves))
+    S_dev = mex.put_small(S)
+    prog = mex.program(("xchg_ship", tuple(dest.shape), _leaf_sig(leaves),
+                        M_pad, out_cap), _ship_presorted)
+    out = prog(dest, list(leaves), S_dev, M_pad, out_cap)
+    return DeviceShards(mex, pt.unflatten(treedef, out), R)
+
+
+def _sort_by_dest(mex: MeshExec, leaves: List[torch.Tensor],
+                  counts: torch.Tensor, dest_builder: Callable, treedef):
+    """Program: each worker's destinations, its rows sorted stably by
+    them, and the ``[W, W]`` send matrix (the device half of
+    :func:`exchange` before the host reads the matrix)."""
+    W = mex.num_workers
+    dev = leaves[0].device
+    cap = leaves[0].shape[1]
+    mask = torch.arange(cap, device=dev)[None, :] < counts[:, None]
+    widx = torch.arange(W, device=dev)[:, None]
+    dest = torch.as_tensor(dest_builder(pt.unflatten(treedef, leaves), mask,
+                                        widx), device=dev).to(torch.int64)
+    dest = torch.where(mask, dest.clamp(0, W - 1), torch.full_like(dest, W))
+    # the destination's bits are known: every digit sorts, no host read
+    perm = argsort_words([dest], [W.bit_length()], passes=mex.radix_passes,
+                         sync_free=True)
+    sorted_dest = torch.gather(dest, 1, perm)
+    return sorted_dest, take_rows_multi(leaves, perm), send_counts(
+        sorted_dest, W)
 
 
 def exchange(shards: DeviceShards, dest_builder: Callable) -> DeviceShards:
@@ -144,19 +198,15 @@ def exchange(shards: DeviceShards, dest_builder: Callable) -> DeviceShards:
     the ``[W, cap]`` valid mask and the ``[W, 1]`` worker indices and
     returns ``[W, cap]`` destinations; invalid rows are dropped and
     valid ones clipped to ``[0, W)``. Each worker sorts its rows stably
-    by destination, the send matrix is read once on the host, and
-    :func:`exchange_presorted` ships the rows.
+    by destination (one program), the send matrix is read once on the
+    host (:meth:`MeshExec.fetch`), and :func:`exchange_presorted` ships
+    the rows (a second program).
     """
     mex = shards.mesh_exec
-    W, dev = mex.num_workers, mex.device
     leaves, td = pt.flatten(shards.tree)
-    mask = shards.valid_mask()
-    widx = torch.arange(W, device=dev)[:, None]
-    dest = torch.as_tensor(dest_builder(shards.tree, mask, widx),
-                           device=dev).to(torch.int64)
-    dest = torch.where(mask, dest.clamp(0, W - 1), torch.full_like(dest, W))
-    perm = argsort_words([dest], [W.bit_length()], passes=mex.radix_passes)
-    sorted_dest = torch.gather(dest, 1, perm)
-    sorted_leaves = take_rows_multi(leaves, perm)
-    S = mex.fetch(send_counts(sorted_dest, W)).astype(np.int64)
+    prog = mex.program(("xchg_sort", shards.cap, _leaf_sig(leaves), td),
+                       _sort_by_dest)
+    sorted_dest, sorted_leaves, S_dev = prog(
+        mex, leaves, shards.counts_device(), dest_builder, td)
+    S = mex.fetch(S_dev).astype(np.int64)
     return exchange_presorted(mex, td, sorted_dest, sorted_leaves, S)

@@ -196,7 +196,7 @@ class DeviceShards:
                 c = int(counts[w])
                 if c:
                     buf[w, :c].copy_(src[:c], non_blocking=True)
-            out.append(buf)
+            out.append(mesh_exec.bless(buf))
         return DeviceShards(mesh_exec, pt.unflatten(td, out), counts)
 
     @staticmethod
@@ -226,8 +226,9 @@ class DeviceShards:
             return t.index_select(0, idx_t).reshape(
                 (W, cap) + tuple(t.shape[1:]))
 
-        return DeviceShards(mesh_exec, pt.unflatten(td, [place(l) for l in leaves]),
-                            counts)
+        # host uploads: legitimate constants of a loop capture
+        return DeviceShards(mesh_exec, pt.unflatten(
+            td, [mesh_exec.bless(place(l)) for l in leaves]), counts)
 
     def to_worker_arrays(self) -> List[Any]:
         """W pytrees of numpy arrays, trimmed to the counts."""

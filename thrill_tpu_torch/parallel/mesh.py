@@ -24,6 +24,12 @@ Host fetches go through :meth:`MeshExec.fetch`, which counts them
 join's overflow check), so no result leaves the device past an unrun
 check; :meth:`MeshExec._fetch_raw` is the uncounted transfer the checks
 themselves use.
+
+The loop layer (``api/loop.py``) records at the same choke point: while
+a capture runs, ``loop_recorder`` sees every outermost dispatch after it
+returns, every host fetch, and every host upload a program may read
+(:meth:`MeshExec.bless`: ``put_small`` and the other uploads of plan
+values), which are the tape's legitimate constants.
 """
 
 from __future__ import annotations
@@ -54,27 +60,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-class CountedCall:
-    """A plain callable plus the count of its calls."""
-
-    __slots__ = ("fn", "calls")
-
-    def __init__(self, fn: Callable) -> None:
-        self.fn = fn
-        self.calls = 0
-
-    def __call__(self, *args, **kwargs):
-        self.calls += 1
-        return self.fn(*args, **kwargs)
-
-
 class Program:
     """A device program behind the mesh's dispatch choke point: calls
     go through :meth:`MeshExec.dispatch`. ``out_bytes`` is its output's
     size, learned on its first call while admission is on (the cost
     model's per-program estimate)."""
 
-    __slots__ = ("mex", "fn", "key", "out_bytes")
+    __slots__ = ("mex", "fn", "key", "out_bytes", "calls")
 
     def __init__(self, mex: "MeshExec", fn: Callable, key: Tuple) -> None:
         # the mesh caches its programs: a strong reference back would
@@ -84,6 +76,7 @@ class Program:
         self.fn = fn
         self.key = key
         self.out_bytes: Optional[int] = None
+        self.calls = 0
 
     def __call__(self, *args, **kwargs):
         return self.mex.dispatch(self, args, kwargs)
@@ -138,6 +131,18 @@ class MeshExec:
         # deferred validations (the hinted join's overflow check): every
         # host fetch drains them first
         self._pending_checks: List[Callable[[], None]] = []
+        # the loop layer (api/loop.py): plans captured, iterations
+        # replayed, iterations run by a whole-loop program, loud replay
+        # fallbacks, bytes released early on replay, one report a loop
+        self.stats_loop_plan_builds = 0
+        self.stats_loop_replays = 0
+        self.stats_loop_fori_iters = 0
+        self.stats_loop_fallbacks = 0
+        self.stats_loop_donated_bytes = 0
+        self.loop_reports: List[dict] = []
+        # the capture in progress (None: the dispatch pays one read)
+        self.loop_recorder = None
+        self._depth = 0              # dispatches in progress on the stack
         # the memory-pressure monitor (mem/pressure.py) and the JSON
         # logger, attached by the Context; None on a bare mesh
         self.pressure = None
@@ -149,12 +154,12 @@ class MeshExec:
             self._cache[key] = builder()
         return self._cache[key]
 
-    def jit_cached(self, key: Tuple, fn: Callable) -> "CountedCall":
-        """``fn`` behind a call counter, one per key (reference: a cached
-        ``jax.jit`` of an iterative program's small update step). Torch
-        runs ``fn`` eagerly: there is no trace to cache, only the
-        callable and the count of its calls."""
-        return self.cached(key, lambda: CountedCall(fn))
+    def jit_cached(self, key: Tuple, fn: Callable) -> "Program":
+        """``fn`` as a program behind the dispatch choke point, one per
+        key (reference: a cached ``jax.jit`` of an iterative program's
+        small update step, a ``_CountedJit``): its calls count in
+        ``stats_dispatches`` and a loop capture records them."""
+        return self.program(key, fn)
 
     def program(self, key: Tuple, fn: Callable) -> Program:
         """``fn`` behind the dispatch choke point, one :class:`Program`
@@ -164,8 +169,29 @@ class MeshExec:
     def dispatch(self, prog: Program, args: tuple, kwargs: dict):
         """Run one program call: count it, admit it (rung 1), retry
         transient faults of the armed ``api.mesh.dispatch`` site under
-        the shared policy, and hand a device OOM to rung 2."""
+        the shared policy, and hand a device OOM to rung 2. A loop
+        capture records the outermost calls."""
+        rec = self.loop_recorder
+        if rec is not None:
+            if self._depth == 0:
+                rec.begin_call(args)
+            self._depth += 1
+            try:
+                out = self._dispatch(prog, args, kwargs)
+            except BaseException:
+                self._depth -= 1
+                if self._depth == 0:
+                    rec.abort_call()
+                raise
+            self._depth -= 1
+            if self._depth == 0:
+                rec.on_call(prog, args, kwargs, out)
+            return out
+        return self._dispatch(prog, args, kwargs)
+
+    def _dispatch(self, prog: Program, args: tuple, kwargs: dict):
         self.stats_dispatches += 1
+        prog.calls += 1
         pres = self.pressure
         if pres is not None and pres.enabled:
             pres.admit_call(prog, args)
@@ -191,8 +217,21 @@ class MeshExec:
         return out
 
     def put_small(self, arr) -> torch.Tensor:
-        """A host array on the mesh's device."""
-        return torch.as_tensor(np.asarray(arr), device=self.device)
+        """A host array on the mesh's device (blessed: see :meth:`bless`)."""
+        return self.bless(torch.as_tensor(np.asarray(arr),
+                                          device=self.device))
+
+    def bless(self, t: torch.Tensor) -> torch.Tensor:
+        """Mark ``t``, just uploaded from host values, as a legitimate
+        tape constant (reference: ``MeshExec._bless``). A loop capture
+        rejects a tensor made during the body by device math outside a
+        program, which could hold loop data; an upload's host values
+        were read through :meth:`fetch` (where the capture checks them)
+        or never came from the device."""
+        rec = self.loop_recorder
+        if rec is not None:
+            rec.bless(t)
+        return t
 
     def fetch(self, t: torch.Tensor) -> np.ndarray:
         """A device tensor on the host (waits for the device): counted
@@ -203,8 +242,21 @@ class MeshExec:
 
     def _fetch_raw(self, t: torch.Tensor) -> np.ndarray:
         """:meth:`fetch` without the count and the drain, for the
-        deferred checks themselves."""
+        deferred checks themselves. A loop capture sees the read."""
+        rec = self.loop_recorder
+        if rec is not None:
+            rec.on_fetch(t, inside=self._depth > 0)
         return t.detach().cpu().numpy()
+
+    def reset_run_state(self) -> int:
+        """Drop an aborted pipeline's per-run state (reference:
+        ``MeshExec.reset_run_state``): the deferred checks and a capture
+        in progress. Returns the number of checks dropped."""
+        dropped = len(self._pending_checks)
+        self._pending_checks.clear()
+        self.loop_recorder = None
+        self._depth = 0
+        return dropped
 
     def drain_checks(self) -> None:
         """Run every queued deferred check. A check that raises keeps

@@ -123,11 +123,11 @@ Phases, each fatal on failure:
  22. host storage, the card idle but in H4 (host seconds, beside the
      host's CPU model): H1 thrill_tpu_torch/examples/word_count.py's
      word_count (ReadLines, FlatMap split, Map, host ReduceByKey) over a
-     file of 2^22 of phase 4's words, 16 a line, at W=4, equal to
+     file of 2^21 of phase 4's words, 16 a line, at W=4, equal to
      collections.Counter of the file's words exactly, with the dup
      verdict, the items exchanged, the host seconds of ReadLines, the
      stack, the pre phase, the exchange and the post phase, and the spill
-     stats; then W=1 over 2^20 words; H2 the same W=4 run with
+     stats; then W=1 over 2^19 words; H2 the same W=4 run with
      THRILL_TPU_RAM cut to 8M and the spill directory a temporary one:
      the post tables must spill and recurse, the per-worker lists equal
      H1's as multisets, the bytes written to disk printed, the directory
@@ -136,15 +136,15 @@ Phases, each fatal on failure:
      H1's pairs Mapped to {"c": count, "h": the word's stable_host_hash
      as int64}, ToDevice().Sort by (c, h) and AllGatherArrays, equal to
      np.lexsort, B1, the upsweep and the pass launched (its send-count
-     input captured); H5 at W=4 over 2^20 (str key, int) items: Zip of
+     input captured); H5 at W=4 over 2^19 (str key, int) items: Zip of
      two host DIAs and of a host with a device DIA, ZipWithIndex,
-     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^20 x
-     2^18 string keys (location filter by the verdict, on and off),
+     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^19 x
+     2^17 string keys (location filter by the verdict, on and off),
      Sample(1024), BernoulliSample(0.01), Sum, Min, Max and AllReduce,
      each equal to a plain Python version, with its host seconds; H6 the
-     host Sort's external-memory path at W=4 over 2^22 lines
+     host Sort's external-memory path at W=4 over 2^21 lines
      "{key:010d}\t{i:08d}payload\n" by their first ten characters, runs
-     of 2^18 spilled through a store that keeps 64 MiB in RAM: equal to
+     of 2^17 spilled through a store that keeps 64 MiB in RAM: equal to
      Python's sorted(), the native key engine, columnar records, 16 runs,
      its _em_stats printed;
  23. the memory ladder at W=4 (M1-M3): phase 3's 2^24 records kept with
@@ -154,7 +154,9 @@ Phases, each fatal on failure:
      spill must drop memory_allocated by at least the bytes its ledger
      freed; spill and restore GB/s beside the host link, the warm Sort
      with and without the limit); phase 6's PageRank under half its
-     unpressured ledger peak with the plain loop (which spills and
+     unpressured ledger peak (of the plain loop with
+     THRILL_TPU_XCHG_CAP_CACHE=0: the cached results alone, no
+     exchange's kept phase-A rows) with the plain loop (which spills and
      restores every iteration's carry) and replayed (one capture, the
      whole loop a CUDA graph): each checked restore byte-equal to what
      was spilled, the ranks of both bit-equal to the unpressured
@@ -231,6 +233,25 @@ Phases, each fatal on failure:
      pass and the ordered fold on L2's inputs, each captured in a
      torch.cuda.CUDAGraph and replayed, bit-equal to its eager launch
      and to its plain version on the CPU;
+ 25d. the plan layer (P): PageRank W=4 (2^20 pages, 2^22 edges, 5
+     iterations, the plain loop: a replayed loop plans once), Q3-lite
+     W=4 (2^20 orders, module-level functions) and TeraSort W=4 (2^22
+     records), each twice on one Context with the capacity cache on and
+     twice with THRILL_TPU_XCHG_CAP_CACHE=0: every result bit-equal to
+     the first cache-off run's; each run's counted host fetches and
+     device-to-host transfers (the deferred checks' included), exchange
+     device ms (CUDA events around every exchange call), seconds and
+     launches, the cache's hits and misses,
+     bytes_wire_device against its full-width raw count and plan
+     builds; a direct exchange of 2^22 rows whose cached capacity the
+     next input outgrows (one miss, healed bit-equal to the bulk synced
+     full-width run); TeraSort through the chunked generic exchange
+     (THRILL_TPU_SORT_FUSED=0) at THRILL_TPU_XCHG_CHUNKS=1, 2, 4,
+     bit-equal, with the peak bytes; a 100:1 skewed exchange that the
+     planner keeps dense on the card, bit-equal to the 1-factor rounds
+     forced by THRILL_TPU_EXCHANGE=onefactor; a warm
+     restart from a plan store in a second child process
+     (``--plan-child DIR``), plan_builds 0;
  26. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
@@ -253,7 +274,8 @@ also saves those captured inputs to DIR/main_inputs.pt, for
 
     python3 chip_smoke.py --phase-l
 
-builds the kernels and runs phase 25c alone.
+builds the kernels and runs phase 25c alone; ``--phase-p`` phase 25d
+alone, whose warm restart runs ``chip_smoke.py --plan-child DIR``.
 
     python3 chip_smoke.py --m1-compare DIR
 
@@ -319,17 +341,17 @@ HLL_ITEMS = 1 << 24            # HyperLogLog items of HLL_VALUES values
 HLL_VALUES = 1 << 22
 HLL_P = 14
 CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
-HW_WORDS = 1 << 22             # host WordCount words (W=4), 16 a line
-HW_WORDS_W1 = 1 << 20          # host WordCount words (W=1)
+HW_WORDS = 1 << 21             # host WordCount words (W=4), 16 a line
+HW_WORDS_W1 = 1 << 19          # host WordCount words (W=1)
 HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
-HO_ITEMS = 1 << 20             # host ops items (str key, int)
-HO_RIGHT = 1 << 18             # host InnerJoin right side
+HO_ITEMS = 1 << 19             # host ops items (str key, int)
+HO_RIGHT = 1 << 17             # host InnerJoin right side
 HO_KEYS = 1 << 20              # host ops key space
 M1_HBM_LIMIT = int(2.5e9)      # M1's governor limit: 1.5 TeraSort tables
 OF_ITEMS = 1 << 22             # the ordered fold's ReduceByKey/GroupByKey
 OF_KEYS = 1 << 16              # items, Zipf keys over OF_KEYS
-H6_LINES = 1 << 22             # H6: lines of the host EM sort
-H6_RUN = 1 << 18               # THRILL_TPU_HOST_SORT_RUN: 16 runs
+H6_LINES = 1 << 21             # H6: lines of the host EM sort
+H6_RUN = 1 << 17               # THRILL_TPU_HOST_SORT_RUN: 16 runs
 H6_RESIDENT = "64M"            # THRILL_TPU_SPILL_RESIDENT: runs reach disk
 CK_EVERY = 3                   # C1: PageRank's Iterate(checkpoint_every=)
 # C1: launches a PageRank W=4 iteration makes (PERF.md section 6: 10 of
@@ -714,6 +736,7 @@ def time_argsort(torch, np):
     engine (both kernels) against the plain engine (stable torch.argsort
     per word) and one stable torch.sort of the most significant word."""
     from thrill_tpu_torch.core import device_sort, keys
+    from thrill_tpu_torch.core import pallas_sort as ps
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(SEED + 2)
     R, n = 4, PER_WORKER
@@ -723,14 +746,14 @@ def time_argsort(torch, np):
     gidx = torch.arange(R * n, device=dev).reshape(R, n)
     ws = words + [gidx]
     passes = []
-    radix = device_sort.argsort_words(ws, passes=passes)
+    radix = ps.radix_argsort_device(ws, passes=passes)
     plain = device_sort.plain_argsort_words(ws)
     torch.cuda.synchronize()
     if not torch.equal(radix, plain):
         raise AssertionError("radix argsort disagrees with the plain engine")
     out = dict(shape=[R, n], words=len(ws), live_passes=passes[0][0],
                candidate_passes=passes[0][1],
-               radix_ms=cuda_ms(torch, lambda: device_sort.argsort_words(ws),
+               radix_ms=cuda_ms(torch, lambda: ps.radix_argsort_device(ws),
                                 iters=3),
                plain_ms=cuda_ms(torch,
                                 lambda: device_sort.plain_argsort_words(ws),
@@ -2905,7 +2928,8 @@ class ParkCheck:
 
 def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
     """M2: PageRank W=4 at phase 6's size under a governor limit of half
-    the unpressured run's ledger peak, with the plain loop
+    the unpressured plain run's ledger peak (with the capacity cache off,
+    so that peak is the cached results'), with the plain loop
     (THRILL_TPU_LOOP_REPLAY=0: every iteration's carry a cached result
     the governor spills and restores) and with Iterate's default (the
     loop captured once, iterations 2-10 one CUDA graph): every checked
@@ -2934,7 +2958,11 @@ def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
         return ranks, secs, st, launches
 
     want, t_replay, st0, _ = run(Config(), {})
-    want2, t_plain, st2, _ = run(Config(), plain)
+    # the limit from the cached results alone: with the capacity cache
+    # off no exchange holds its phase-A output in the ledger past its
+    # call (an optimistic one does, until its check has run)
+    want2, t_plain, st2, _ = run(Config(), {**plain,
+                                            "THRILL_TPU_XCHG_CAP_CACHE": "0"})
     limit = st2["hbm_peak"] // 2
     with ParkCheck(torch, hbm_mod) as chk:
         got, t_cut, st, launches = run(Config(hbm_limit=limit), plain)
@@ -4717,6 +4745,327 @@ def loop_phases(torch, np, tt, pk, ps, edges, pts, card) -> dict:
     return paths
 
 
+# -- phase P: the plan layer (data/exchange.py, api/planner.py,
+# common/decisions.py, service/plan_store.py) ----------------------------
+
+P_PAGES = 1 << 20              # P: PageRank pages (edges: 4x), W=4
+P_ITERS = 5
+P_ORDERS = 1 << 20             # P: Q3-lite orders, 4 lines an order
+P_RECORDS = 1 << 22            # P: TeraSort records, 100 bytes
+P_XCHG_ROWS = 1 << 22          # P: the forced-miss and skew exchanges
+P_STATS = ("cap_cache_hits", "cap_cache_misses", "exchanges_overlapped",
+           "plan_builds", "plan_store_hits", "bytes_wire_device",
+           "bytes_wire_device_raw", "planner_replans", "planner_switches")
+
+
+def _p_date(t):
+    return t["date"] < 1250
+
+
+def _p_okey(t):
+    return t["key"]
+
+
+def _p_lkey(t):
+    return t["orderkey"]
+
+
+def _p_join(ot, lt):
+    return {"prio": ot["prio"],
+            "rev": lt["price"] * (100 - lt["discount_pct"])}
+
+
+def _p_prio(t):
+    return t["prio"]
+
+
+def _p_add(a, b):
+    return {"prio": a["prio"], "rev": a["rev"] + b["rev"]}
+
+
+def _p_tkey(r):
+    return r["key"]
+
+
+def p_q3(tt, ctx, orders, lineitem):
+    """Q3-lite (``examples/tpch.py``) with module-level functions: a
+    repeated run meets its exchange sites' cached plans."""
+    import numpy as np
+    o = ctx.Distribute(orders).Filter(_p_date)
+    j = tt.InnerJoin(o, ctx.Distribute(lineitem), _p_okey, _p_lkey,
+                     _p_join)
+    return np.asarray([int(t["rev"]) for t in j.ReduceToIndex(
+        _p_prio, _p_add, 5, neutral={"prio": 0, "rev": 0}).AllGather()])
+
+
+class XchgTimer:
+    """CUDA events around every exchange call of the port (the generic
+    exchange, the presorted one and the Sort's fused ship-and-merge);
+    ``ms()`` is their device milliseconds since ``clear()``."""
+
+    def __init__(self, torch) -> None:
+        from thrill_tpu_torch.api.ops import sort as sort_mod
+        from thrill_tpu_torch.data import exchange as ex
+        self.torch, self.spans = torch, []
+        self.sites = [(ex, "exchange"), (ex, "exchange_presorted"),
+                      (sort_mod, "_fused_exchange_merge")]
+        self.saved = []
+
+    def __enter__(self):
+        for mod, name in self.sites:
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+
+            def wrapper(*a, fn=fn, **k):
+                s = self.torch.cuda.Event(enable_timing=True)
+                e = self.torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = fn(*a, **k)
+                e.record()
+                self.spans.append((s, e))
+                return out
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def clear(self) -> None:
+        self.spans = []
+
+    def ms(self) -> float:
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.spans)
+
+
+def p_path(torch, tt, pk, ps, job, cache: str, timer) -> dict:
+    """``job(ctx)`` twice on one W=4 Context with the capacity cache on
+    (``cache`` "1") or off: the result of each run, each run's seconds,
+    counted fetches, device-to-host transfers and exchange device ms,
+    the plan counters and the warm run's launches."""
+    with EnvSet(THRILL_TPU_XCHG_CAP_CACHE=cache, THRILL_TPU_LOOP_REPLAY="0"):
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        runs = []
+        for _ in range(2):
+            timer.clear()
+            zero_launches(pk, ps)
+            f0 = ctx.mesh_exec.stats_fetches
+            x0 = ctx.mesh_exec.stats_transfers
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = job(ctx)
+            torch.cuda.synchronize()
+            runs.append({"secs": time.perf_counter() - t0,
+                         "fetches": ctx.mesh_exec.stats_fetches - f0,
+                         "transfers": ctx.mesh_exec.stats_transfers - x0,
+                         "xchg_ms": timer.ms(), "res": res,
+                         "launches": read_launches(pk, ps)})
+        st = ctx.overall_stats()
+        ctx.close()
+    return {"runs": runs, **{k: st[k] for k in P_STATS}}
+
+
+def p_host(tree):
+    """A result's tensors copied to the host as numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: p_host(v) for k, v in tree.items()}
+    return tree.cpu().numpy() if hasattr(tree, "cpu") else tree
+
+
+def p_same(np, a, b) -> bool:
+    """Bit-equality of two results (nests of dicts, lists and arrays)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(p_same(np, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(p_same(np, x, y)
+                                        for x, y in zip(a, b))
+    return np.asarray(a).dtype == np.asarray(b).dtype and np.array_equal(
+        np.asarray(a), np.asarray(b))
+
+
+def p_direct(torch, tt, ex, W: int, cols, site, env) -> tuple:
+    """Direct exchanges of each of ``cols`` at one site on one Context:
+    each run's per-worker arrays and the plan counters."""
+    with EnvSet(**env):
+        ctx = tt.Context(num_workers=W, device=DEVICE)
+        outs = []
+        for c in cols:
+            shards = ctx.Distribute(c).node.materialize()
+            out = ex.exchange(shards, lambda t, m, w: torch.remainder(
+                t["k"], W), site)
+            outs.append(out.to_worker_arrays())
+        st = ctx.overall_stats()
+        recs = [(d["kind"], d["chosen"]) for d in ctx.decisions.snapshot()
+                if d["kind"] in ("xchg_strategy", "xchg_optimistic")]
+        peak = torch.cuda.max_memory_allocated()
+        ctx.close()
+    return outs, {k: st[k] for k in P_STATS}, recs, peak
+
+
+def plan_child(d: str) -> int:
+    """One WordCount-shaped W=4 run with the plan store at ``d`` (phase
+    P's warm restart, in a process of its own): prints its plan
+    counters as one JSON line."""
+    import numpy as np
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.common.config import Config
+    ctx = tt.Context(num_workers=4, device=DEVICE,
+                     config=Config(plan_store=d))
+    red = tt.FieldReduce({"k": "first", "c": "sum"})
+    vals = (np.arange(1 << 22, dtype=np.int64) * 7919) % (1 << 18)
+    out = ctx.Distribute({"k": vals, "c": np.ones_like(vals)}).ReduceByKey(
+        _p_tkey_k, red).node.materialize().to_global_numpy()
+    got = int(np.asarray(out["c"]).sum())
+    st = ctx.overall_stats()
+    ctx.close()
+    print(json.dumps({"total": got, **{k: st[k] for k in P_STATS},
+                      "fetches": st["device_fetches"]}))
+    return 0
+
+
+def _p_tkey_k(t):
+    return t["k"]
+
+
+def plan_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase P. PageRank W=4 (the plain loop: replay would plan once),
+    Q3-lite W=4 and TeraSort W=4, each with the capacity cache on and
+    off, two runs each; every result of the cache-on runs bit-equal to
+    the cache-off run's; then a forced capacity miss healed, TeraSort
+    through the chunked generic exchange at K = 1, 2, 4
+    (``THRILL_TPU_SORT_FUSED=0``), a 100:1 skewed exchange the planner
+    keeps dense against the configured 1-factor rounds, and a warm restart from a plan store
+    in a child process. Returns each run's launches by path."""
+    from thrill_tpu_torch.data import exchange as ex
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.examples import tpch as ttp
+    t_p = time.perf_counter()
+    rng = np.random.default_rng(SEED + 90)
+    edges = tpr.zipf_graph(P_PAGES, 4 * P_PAGES, seed=SEED + 91)
+    tables = ttp.generate_tables(P_ORDERS, 4, seed=SEED + 92)
+    rec = np.frombuffer(rng.bytes(P_RECORDS * 100), dtype=np.uint8
+                        ).reshape(P_RECORDS, 100)
+    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+    del rec
+    jobs = {
+        "pagerank": lambda ctx: tpr.page_rank(ctx, edges, P_PAGES,
+                                              iterations=P_ITERS),
+        "q3": lambda ctx: p_q3(tt, ctx, *tables),
+        "terasort": lambda ctx: p_host(ctx.Distribute(recs).Sort(
+            key_fn=_p_tkey).AllGatherArrays()),
+    }
+    paths = {}
+    with XchgTimer(torch) as timer:
+        for name, job in jobs.items():
+            on = p_path(torch, tt, pk, ps, job, "1", timer)
+            off = p_path(torch, tt, pk, ps, job, "0", timer)
+            for r in on["runs"] + off["runs"][1:]:
+                if not p_same(np, r["res"], off["runs"][0]["res"]):
+                    raise AssertionError(f"P {name}: a run differs from "
+                                         f"the cache-off run")
+            for mode, st in (("cache on", on), ("cache off", off)):
+                r0, r1 = st["runs"]
+                log(f"P {name} W=4 {mode}: fetches {r0['fetches']} then "
+                    f"{r1['fetches']}; transfers {r0['transfers']} then "
+                    f"{r1['transfers']}; exchange device ms "
+                    f"{r0['xchg_ms']:.2f} then {r1['xchg_ms']:.2f}; "
+                    f"seconds {r0['secs']:.3f} then {r1['secs']:.3f}; "
+                    f"cap_cache_hits {st['cap_cache_hits']} misses "
+                    f"{st['cap_cache_misses']} overlapped "
+                    f"{st['exchanges_overlapped']}; bytes_wire_device "
+                    f"{st['bytes_wire_device']} of raw "
+                    f"{st['bytes_wire_device_raw']}; plan_builds "
+                    f"{st['plan_builds']}; launches {json.dumps(r1['launches'])}"
+                    f" [{card}]")
+                paths[f"P {name} W=4 ({mode})"] = r1["launches"]
+            log(f"P {name} W=4: both runs with the cache on and the second "
+                f"with it off bit-equal to the first cache-off run")
+    # a forced miss: the site's cached capacity, outgrown
+    n = P_XCHG_ROWS
+    bal = {"k": np.arange(n, dtype=np.int64), "v": rng.integers(
+        -(1 << 40), 1 << 40, n).astype(np.int64)}
+    hot = {"k": np.zeros(n, dtype=np.int64) + 4, "v": bal["v"]}
+    on, st_on, _, _ = p_direct(torch, tt, ex, 4, [bal, hot], ("p_miss",),
+                               {})
+    off, st_off, _, _ = p_direct(torch, tt, ex, 4, [bal, hot], ("p_miss",),
+                                 {"THRILL_TPU_XCHG_CAP_CACHE": "0",
+                                  "THRILL_TPU_OVERLAP": "0",
+                                  "THRILL_TPU_XCHG_NARROW": "0"})
+    if st_on["cap_cache_misses"] != 1 or not p_same(np, on, off):
+        raise AssertionError(f"P forced miss: {st_on}")
+    log(f"P forced miss W=4: cap_cache_misses {st_on['cap_cache_misses']}, "
+        f"healed rows bit-equal to the bulk synced full-width run [{card}]")
+    # TeraSort through the chunked generic exchange
+    outs, peaks = {}, {}
+    for K in ("1", "2", "4"):
+        with EnvSet(THRILL_TPU_SORT_FUSED="0", THRILL_TPU_XCHG_CHUNKS=K):
+            torch.cuda.reset_peak_memory_stats()
+            ctx = tt.Context(num_workers=4, device=DEVICE)
+            outs[K] = p_host(ctx.Distribute(recs).Sort(
+                key_fn=_p_tkey).AllGatherArrays())
+            peaks[K] = torch.cuda.max_memory_allocated()
+            ctx.close()
+    if not all(p_same(np, outs[K], outs["1"]) for K in outs):
+        raise AssertionError("P chunks: TeraSort differs across K")
+    log(f"P terasort W=4 THRILL_TPU_SORT_FUSED=0 by chunks K: peak bytes "
+        f"{json.dumps(peaks)}; bit-equal across K [{card}]")
+    # 100:1 skew: on the card the planner keeps the dense plan (the
+    # rounds lost every case of kernel_times.py's sweep); the configured
+    # 1-factor mode runs the rounds, bit-equal
+    per = [4 * (np.arange(1024 + (102400 if w == 3 else 0),
+                          dtype=np.int64) + (1 << 24) * w) for w in range(4)]
+    got = {}
+    for mode, env in (("onefactor", {"THRILL_TPU_EXCHANGE": "onefactor"}),
+                      ("auto", {})):
+        with EnvSet(**env):
+            ctx = tt.Context(num_workers=4, device=DEVICE)
+            shards = ctx.ConcatToDIA(per, storage="device").node.materialize()
+            out = ex.exchange(shards, lambda x, m, w: torch.remainder(x, 4),
+                              ("p_skew",))
+            got[mode] = ([np.asarray(a) for a in out.to_worker_arrays()],
+                         [d["chosen"] for d in ctx.decisions.snapshot()
+                          if d["kind"] == "xchg_strategy"],
+                         ctx.mesh_exec.stats_padded_rows)
+            ctx.close()
+    if got["onefactor"][1] != ["onefactor"] or got["auto"][1] != ["dense"] \
+            or not p_same(np, got["onefactor"][0], got["auto"][0]):
+        raise AssertionError(f"P skew: {got['onefactor'][1]} "
+                             f"{got['auto'][1]}")
+    log(f"P skew 100:1 W=4: the planner chose {got['auto'][1][0]}; "
+        f"THRILL_TPU_EXCHANGE=onefactor ran {got['onefactor'][1][0]}; "
+        f"padded rows {got['onefactor'][2]} against {got['auto'][2]}; "
+        f"rows bit-equal [{card}]")
+    # a warm restart from the plan store, in child processes
+    import tempfile
+    d = tempfile.mkdtemp(prefix="ttpu-plans-")
+    res = []
+    for _ in range(2):
+        p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--plan-child", d], capture_output=True,
+                           text=True, timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"P plan child rc {p.returncode}: "
+                                 f"{p.stderr[-2000:]}")
+        res.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    if res[1]["plan_builds"] != 0 or res[1]["total"] != res[0]["total"] \
+            or res[1]["plan_store_hits"] <= 0:
+        raise AssertionError(f"P warm restart: {res}")
+    log(f"P plan store W=4: cold plan_builds {res[0]['plan_builds']} "
+        f"fetches {res[0]['fetches']}; warm plan_builds "
+        f"{res[1]['plan_builds']} plan_store_hits {res[1]['plan_store_hits']}"
+        f" fetches {res[1]['fetches']} overlapped "
+        f"{res[1]['exchanges_overlapped']} [{card}]")
+    log(f"plan phase (P): {time.perf_counter() - t_p:.1f} s of host clock "
+        f"[host {cpu_line()}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4725,6 +5074,8 @@ def main() -> int:
         return 2
     if "--m1-compare" in sys.argv:
         return m1_compare(sys.argv[sys.argv.index("--m1-compare") + 1])
+    if "--plan-child" in sys.argv:
+        return plan_child(sys.argv[sys.argv.index("--plan-child") + 1])
     if "--ckpt-child" in sys.argv:
         i = sys.argv.index("--ckpt-child")
         return ckpt_child(sys.argv[i + 1], sys.argv[i + 2],
@@ -4755,6 +5106,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    if "--phase-p" in sys.argv:
+        # phase P alone
+        log(json.dumps(plan_phase(torch, np, tt, pk, ps, card)))
+        return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
         paths = loop_phases(torch, np, tt, pk, ps, tpr.zipf_graph(
@@ -4855,6 +5210,8 @@ def main() -> int:
     del edges
     log(f"loop phases (L1-L5): {time.perf_counter() - t_l:.1f} s of host "
         f"clock, numpy references included [host {cpu_line()}; {card}]")
+    torch.cuda.empty_cache()
+    p_paths = plan_phase(torch, np, tt, pk, ps, card)
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -4947,7 +5304,7 @@ def main() -> int:
              "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
-             **l_paths}
+             **l_paths, **p_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

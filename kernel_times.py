@@ -5,6 +5,9 @@
     python3 kernel_times.py --paths REPS
     python3 kernel_times.py --loops REPS
     python3 kernel_times.py --add-chain
+    python3 kernel_times.py --sort-engines
+    python3 kernel_times.py --xchg-crossover
+    python3 kernel_times.py --plan-paths REPS
 
 At the main path's shapes: a radix pass over [4, 2^22] int64 keys carrying
 int32 permutation entries (and the same pass reading the word through the
@@ -43,6 +46,37 @@ synchronize, data resident, a fresh Context per run): TeraSort of 2^24
 100-byte records, WordCount of 2^24 Zipf words over 2^20 16-byte words,
 the PageRank step of 2^24 Zipf edges into 2^22 pages. It prints every
 run's milliseconds, for A/B runs of whole trees in one call.
+
+With ``--sort-engines`` it sweeps the two sort engines of
+``core/device_sort.py`` instead: the radix engine (the histogram and
+stable-partition kernels) and the plain engine (a stable torch.argsort a
+word), on [4, n/4] random full-width int64 words, n = 2^10 to 2^24 rows
+and 1 to 3 words, host milliseconds a whole call after synchronize (the
+radix engine reads its live digits on the host); then the least-squares
+fit of ``sort_engine_policy``'s CUDA constants: radix = launch * (words
++ passes) + rows * passes * per_row_pass, plain = launch * words + rows
+* words * per_row_word (microseconds). The card sorts on the radix engine
+at every size; the constants price the decision records.
+
+With ``--xchg-crossover`` it sweeps the exchange's two phase-B plans at
+W = 4 (``data/exchange.py``): the dense program and the 1-factor rounds,
+on one int64 leaf, over a balanced and a hot-pair send matrix at padded
+volumes from 2^10 to 2^22 rows a pair; host milliseconds after
+synchronize. It prints the copy rate of the dense plan, the per-round
+overhead of the 1-factor plan and their product, the smallest
+``_bytes_eq`` under which the reference's cost model would pick every
+measured winner, and the least at which the rounds won a case (null when
+they won none: then the card's exchange is dense without a cost model,
+``data/exchange.py`` ``_one_card``).
+
+With ``--plan-paths REPS`` it runs instead the plan layer's W=4 paths
+(PageRank with loop replay off, Q3-lite, TeraSort; chip_smoke.py phase
+P's sizes) with the capacity cache on and off
+(``THRILL_TPU_XCHG_CAP_CACHE=0``), REPS warm runs each after one first
+run: every run's host milliseconds, counted host fetches, and the device
+milliseconds of the exchanges (CUDA events around every exchange call).
+It reads the plan counters where the tree has them, so it runs
+unchanged in a copy of an earlier tree.
 """
 
 from __future__ import annotations
@@ -387,6 +421,247 @@ def add_chain_latency(torch) -> dict:
     return out
 
 
+def wall_ms(torch, fn, iters: int = 5) -> float:
+    """Mean host milliseconds of a whole call of ``fn``, synchronized."""
+    import time
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def sort_engines(torch, np) -> dict:
+    """Both sort engines over a sweep of rows and words, and the fit of
+    the policy's CUDA constants."""
+    from thrill_tpu_torch.core import device_sort
+    from thrill_tpu_torch.core import pallas_sort as ps
+    rng = np.random.default_rng(SEED + 7)
+    R = 4
+    rows = []
+    for lg in range(10, 25, 2):
+        n = 1 << lg
+        for nw in (1, 2, 3):
+            ws = [torch.as_tensor(rng.integers(-2**63, 2**63, (R, n // R),
+                                               dtype=np.int64), device="cuda")
+                  for _ in range(nw)]
+            if not torch.equal(ps.radix_argsort_device(ws),
+                               device_sort.plain_argsort_words(ws)):
+                raise AssertionError(f"engines differ at n={n} w={nw}")
+            it = 5 if lg < 22 else 2
+            rows.append({"rows": n, "words": nw, "passes": 8 * nw,
+                         "radix_ms": wall_ms(
+                             torch, lambda: ps.radix_argsort_device(ws), it),
+                         "plain_ms": wall_ms(
+                             torch, lambda: device_sort.plain_argsort_words(
+                                 ws), it)})
+            del ws
+    # least squares, microseconds
+    a = np.array([[r["words"] + r["passes"], r["rows"] * r["passes"]]
+                  for r in rows], dtype=np.float64)
+    b = np.array([[r["words"], r["rows"] * r["words"]] for r in rows],
+                 dtype=np.float64)
+    fr = np.linalg.lstsq(a, [r["radix_ms"] * 1e3 for r in rows],
+                         rcond=None)[0]
+    fp = np.linalg.lstsq(b, [r["plain_ms"] * 1e3 for r in rows],
+                         rcond=None)[0]
+    fit = {"radix_launch_us": float(fr[0]), "radix_row_pass_us": float(fr[1]),
+           "plain_launch_us": float(fp[0]), "plain_row_word_us": float(fp[1])}
+    return {"sweep": rows, "fit": fit}
+
+
+def xchg_crossover(torch, np) -> dict:
+    """The dense and the 1-factor phase-B programs at W = 4 over sized
+    balanced and hot-pair send matrices; the fitted bytes_eq."""
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.data import exchange as ex
+    W = 4
+    ctx = tt.Context(num_workers=W, device="cuda")
+    mex = ctx.mesh_exec
+    rng = np.random.default_rng(SEED + 8)
+    rows = []
+    for lg in range(10, 23, 2):
+        M = 1 << lg
+        for kind in ("balanced", "hot"):
+            if kind == "balanced":
+                S = np.full((W, W), M, dtype=np.int64)
+            else:
+                S = np.full((W, W), max(M // 100, 1), dtype=np.int64)
+                S[3, 0] = M
+            cap = int(S.sum(axis=1).max())
+            cap = 1 << (cap - 1).bit_length()
+            dest = np.full((W, cap), W, dtype=np.int64)
+            for w in range(W):
+                dest[w, :S[w].sum()] = np.repeat(np.arange(W), S[w])
+            dest_t = torch.as_tensor(dest, device="cuda")
+            x = torch.as_tensor(rng.integers(-2**62, 2**62, (W, cap),
+                                             dtype=np.int64), device="cuda")
+            R = S.sum(axis=0)
+            out_cap = 1 << (int(R.max()) - 1).bit_length()
+            M_pad = 1 << (int(S.max()) - 1).bit_length()
+            smat = torch.as_tensor(S.astype(np.int32), device="cuda")
+            rounds = tuple(tuple(int(v) for v in to)
+                           for to in ex.one_factor_rounds(mex))
+            M_rounds = tuple(1 << (max(int(S[np.arange(W), np.asarray(to)]
+                                           .max()), 1) - 1).bit_length()
+                             for to in rounds)
+
+            def dense():
+                return ex._chunk_prog(dest_t, smat, [x], None, M_pad,
+                                      out_cap, 0, M_pad, M_pad, None, True,
+                                      True, True)
+
+            def onefactor():
+                return ex._onefactor_prog(dest_t, smat, [x], rounds,
+                                          M_rounds, out_cap, None)
+
+            d_out = dense()[2][0]
+            o_out = onefactor()[0]
+            for w in range(W):
+                if not torch.equal(d_out[w, :R[w]], o_out[w, :R[w]]):
+                    raise AssertionError(f"plans differ at M={M} {kind}")
+            rows.append({"pair_rows": M, "kind": kind,
+                         "dense_bytes": W * (W - 1) * M_pad * 8,
+                         "onefactor_bytes": W * sum(M_rounds) * 8,
+                         "dense_ms": wall_ms(torch, dense),
+                         "onefactor_ms": wall_ms(torch, onefactor)})
+            del x, dest_t, d_out, o_out
+    ctx.close()
+    bal = [r for r in rows if r["kind"] == "balanced"]
+    # the copy rate of the dense plan from its two largest runs; a round
+    # beyond the dense plan's one program costs (onefactor - dense) /
+    # (W - 1) where there is almost no data
+    rate = float(np.mean([r["dense_bytes"] / (r["dense_ms"] * 1e-3)
+                          for r in bal[-2:]]))
+    over_s = max(bal[0]["onefactor_ms"] - bal[0]["dense_ms"], 0.0) * 1e-3 \
+        / (W - 1)
+    # the smallest constant under which the model (1-factor iff the
+    # padding it saves exceeds (W - 1) * bytes_eq) picks every measured
+    # winner: above the savings of the cases the dense plan won
+    dense_won = [(r["dense_bytes"] - r["onefactor_bytes"]) / (W - 1)
+                 for r in rows if r["dense_ms"] <= r["onefactor_ms"]]
+    of_won = [(r["dense_bytes"] - r["onefactor_bytes"]) / (W - 1)
+              for r in rows if r["dense_ms"] > r["onefactor_ms"]]
+    return {"sweep": rows, "copy_bytes_per_s": rate,
+            "round_overhead_us": over_s * 1e6,
+            "bytes_eq_product": int(over_s * rate),
+            "bytes_eq_crossover": int(max(dense_won, default=0)),
+            "onefactor_won_min_bytes_eq": (int(min(of_won))
+                                           if of_won else None)}
+
+
+def _q3_date(t):
+    return t["date"] < 1250
+
+
+def _q3_okey(t):
+    return t["key"]
+
+
+def _q3_lkey(t):
+    return t["orderkey"]
+
+
+def _q3_join(ot, lt):
+    return {"prio": ot["prio"],
+            "rev": lt["price"] * (100 - lt["discount_pct"])}
+
+
+def _q3_prio(t):
+    return t["prio"]
+
+
+def _q3_add(a, b):
+    return {"prio": a["prio"], "rev": a["rev"] + b["rev"]}
+
+
+def q3_stable(tt, np, ctx, orders, lineitem, prios: int):
+    """``examples/tpch.py``'s Q3-lite with module-level functions, so a
+    repeated run finds its exchange sites' cached plans."""
+    o = ctx.Distribute(orders).Filter(_q3_date)
+    j = tt.InnerJoin(o, ctx.Distribute(lineitem), _q3_okey, _q3_lkey,
+                     _q3_join)
+    return np.asarray([int(t["rev"]) for t in j.ReduceToIndex(
+        _q3_prio, _q3_add, prios, neutral={"prio": 0, "rev": 0}
+    ).AllGather()])
+
+
+def _terasort_key(r):
+    return r["key"]
+
+
+def plan_paths(torch, np, reps: int) -> dict:
+    """The plan layer's W=4 paths with the capacity cache on and off."""
+    import time
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.api.ops import sort as sort_mod
+    from thrill_tpu_torch.data import exchange as ex
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.examples import tpch as ttp
+    spans = []
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            spans.append((s, e))
+            return out
+        return wrapper
+
+    ex.exchange = timed(ex.exchange)
+    ex.exchange_presorted = timed(ex.exchange_presorted)
+    sort_mod._fused_exchange_merge = timed(sort_mod._fused_exchange_merge)
+    W = 4
+    edges = tpr.zipf_graph(1 << 20, 1 << 22, seed=SEED + 30)
+    tables = ttp.generate_tables(1 << 20, W, seed=SEED + 40)
+    rng = np.random.default_rng(SEED)
+    n = 1 << 22
+    rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
+    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+    del rec
+    jobs = {
+        "pagerank": lambda ctx: tpr.page_rank(ctx, edges, 1 << 20,
+                                              iterations=5),
+        "q3": lambda ctx: q3_stable(tt, np, ctx, *tables,
+                                    ttp.NUM_PRIORITIES),
+        "terasort": lambda ctx: ctx.Distribute(recs).Sort(
+            key_fn=_terasort_key).AllGatherArrays(),
+    }
+    keys = ("cap_cache_hits", "cap_cache_misses", "exchanges_overlapped",
+            "bytes_wire_device", "bytes_wire_device_raw")
+    out = {}
+    os.environ["THRILL_TPU_LOOP_REPLAY"] = "0"
+    for cache in ("1", "0"):
+        os.environ["THRILL_TPU_XCHG_CAP_CACHE"] = cache
+        for name, job in jobs.items():
+            ctx = tt.Context(num_workers=W, device="cuda")
+            runs = []
+            for _ in range(reps + 1):
+                spans.clear()
+                f0 = ctx.mesh_exec.stats_fetches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                job(ctx)
+                torch.cuda.synchronize()
+                runs.append({
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    "fetches": ctx.mesh_exec.stats_fetches - f0,
+                    "xchg_ms": sum(s.elapsed_time(e) for s, e in spans),
+                    "exchanges": len(spans)})
+            st = ctx.overall_stats()
+            out[f"{name} cache={cache}"] = {
+                "first": runs[0], "warm": runs[1:],
+                **{k: st.get(k) for k in keys}}
+            ctx.close()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], check=True,
@@ -404,6 +679,19 @@ def main() -> int:
     if "--paths" in sys.argv:
         reps = int(sys.argv[sys.argv.index("--paths") + 1])
         print(json.dumps({"paths_ms": time_paths(torch, np, reps),
+                          "card": card_line()}))
+        return 0
+    if "--sort-engines" in sys.argv:
+        print(json.dumps({"sort_engines": sort_engines(torch, np),
+                          "card": card_line()}))
+        return 0
+    if "--xchg-crossover" in sys.argv:
+        print(json.dumps({"xchg_crossover": xchg_crossover(torch, np),
+                          "card": card_line()}))
+        return 0
+    if "--plan-paths" in sys.argv:
+        reps = int(sys.argv[sys.argv.index("--plan-paths") + 1])
+        print(json.dumps({"plan_paths": plan_paths(torch, np, reps),
                           "card": card_line()}))
         return 0
     if "--add-chain" in sys.argv:
@@ -456,10 +744,10 @@ def main() -> int:
                           device=dev)
     ws = [w.reshape(R, n) for w in keys.encode_key_words(key)]
     ws.append(torch.arange(R * n, device=dev).reshape(R, n))
-    if not torch.equal(device_sort.argsort_words(ws),
+    if not torch.equal(ps.radix_argsort_device(ws),
                        device_sort.plain_argsort_words(ws)):
         raise AssertionError("radix argsort differs from the plain engine")
-    out["argsort"] = cuda_ms(torch, lambda: device_sort.argsort_words(ws), 3)
+    out["argsort"] = cuda_ms(torch, lambda: ps.radix_argsort_device(ws), 3)
     del k, perm, d, key, ws
     inputs_dir = (sys.argv[sys.argv.index("--inputs") + 1]
                   if "--inputs" in sys.argv else None)

@@ -1118,3 +1118,80 @@ def test_page_rank_loop_graph_is_bit_equal(cuda_device, W, monkeypatch):
     assert graphs == [4]
     assert got["graph"].tobytes() == got["replay"].tobytes() \
         == got["plain"].tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1 << 12, 1 << 24])
+def test_auto_sort_engine_is_the_policy_s_and_exact(cuda_device, rows):
+    """On the card ``argsort_words`` takes the radix engine at every
+    size, where the measured cost model would take the plain engine for
+    small sorts too, and gives the plain engine's permutation."""
+    rng = np.random.default_rng(21)
+    words = [torch.as_tensor(rng.integers(-2**63, 2**63, (4, rows // 4),
+                                          dtype=np.int64), device=cuda_device)
+             for _ in range(2)]
+    engine, costs, _ = tds.sort_engine_policy(rows, 128, True, "cuda", 2)
+    b = tps.radix_upsweep.launches
+    assert torch.equal(tds.argsort_words(words),
+                       tds.plain_argsort_words(words))
+    assert tps.radix_upsweep.launches > b
+    assert engine == "radix"
+    assert (costs["plain"] < costs["radix"]) == (rows < (1 << 20))
+
+
+@pytest.mark.gpu
+def test_skewed_exchange_stays_dense_on_a_calibrated_mesh(cuda_device):
+    """On the card the strategy is dense without a cost model: a mesh
+    past the dispatch-latency spine's sample count keeps the dense plan
+    for a 100:1 hot-pair send matrix (the 1-factor rounds lost every case
+    of ``kernel_times.py --xchg-crossover``)."""
+    from thrill_tpu_torch.data import exchange as ex
+    ctx = tt.Context(num_workers=4, device=cuda_device)
+    mex = ctx.mesh_exec
+    mex._disp_lat_n = ex._BYTES_EQ_MIN_SAMPLES + 1
+    mex._disp_lat_min = 1e-6
+    S = np.zeros((4, 4), dtype=np.int64)
+    S[:, 0] = 40_000
+    S[3, 0] = 4_000_000                   # 100:1 on one pair
+    assert ex.dense_all_to_all_applies(mex, S, 16)
+    assert ctx.planner.exchange_strategy(S, 16, "dense")[0] == "dense"
+    ctx.close()
+
+
+@pytest.mark.gpu
+def test_planned_exchange_on_the_card_is_bit_equal(cuda_device,
+                                                   monkeypatch):
+    """The planned exchange on the card: chunks, narrowing and the
+    cached plan against the bulk synced full-width run, at W = 4."""
+    from thrill_tpu_torch.data import exchange as ex
+    rng = np.random.default_rng(22)
+    n = 1 << 16
+    cols = {"k": rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64),
+            "v": rng.integers(-100, 100, n).astype(np.int64)}
+
+    def run(env, runs):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        ctx = tt.Context(num_workers=4, device=cuda_device)
+        outs = []
+        for _ in range(runs):
+            sh = ctx.Distribute(cols).node.materialize()
+            out = ex.exchange(sh, lambda t, m, w: torch.remainder(t["k"], 4),
+                              ("gpu_plan",))
+            outs.append([{k: np.asarray(v) for k, v in t.items()}
+                         for t in out.to_worker_arrays()])
+        st = ctx.overall_stats()
+        ctx.close()
+        for k in env:
+            monkeypatch.delenv(k)
+        return outs, st
+
+    want, _ = run({"THRILL_TPU_XCHG_CAP_CACHE": "0", "THRILL_TPU_OVERLAP": "0",
+                   "THRILL_TPU_XCHG_NARROW": "0"}, 1)
+    for K in ("1", "2", "4"):
+        got, st = run({"THRILL_TPU_XCHG_CHUNKS": K}, 2)
+        assert st["cap_cache_hits"] == 1
+        assert st["bytes_wire_device"] < st["bytes_wire_device_raw"]
+        for g in got:
+            for a, b in zip(g, want[0]):
+                assert all(np.array_equal(a[k], b[k]) for k in a)

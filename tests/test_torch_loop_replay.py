@@ -729,10 +729,10 @@ def test_jit_cached_counts_as_dispatch():
 @pytest.mark.parametrize("W", [1, 2, 4])
 def test_kmeans_dispatches_are_the_reference_s(W):
     """k-means' dispatches (the centre update a program now) equal the
-    reference's at every W; its loop stats too. Its host fetches equal at
-    W = 1; at W > 1 the port's exchange reads the send matrix every
-    iteration, where the reference's optimistic exchange reads it in the
-    two capture attempts only (ROADMAP.md fault C14)."""
+    reference's at every W; its loop stats too; and its host fetches: at
+    W > 1 both exchanges read the send matrix in the two capture attempts
+    only and run the later iterations on the cached capacity plan
+    (ROADMAP.md fault C14, closed)."""
     _, jkm = _ref_examples()
     pts = np.random.default_rng(1).normal(size=(512, 4))
 
@@ -742,11 +742,8 @@ def test_kmeans_dispatches_are_the_reference_s(W):
 
     ref, port = _both(W, run)
     _assert_same(ref, port, LOOP_KEYS + ("device_dispatches",))
-    if W == 1:
-        assert port[1]["device_fetches"] == ref[1]["device_fetches"] == 0
-    else:
-        assert (port[1]["device_fetches"], ref[1]["device_fetches"]) == (
-            10, 2)
+    assert port[1]["device_fetches"] == ref[1]["device_fetches"] == (
+        0 if W == 1 else 2)
 
 
 def test_replayed_release_survives_rung2_retry(monkeypatch):

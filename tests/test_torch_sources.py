@@ -232,6 +232,15 @@ def test_empty_items_raise_the_reference_s_error():
     assert str(got.value) == str(want.value)
 
 
+# the plan layer's thirteen keys (data/exchange.py, api/planner.py,
+# common/decisions.py, service/plan_store.py)
+PLAN = {"exchanges_overlapped", "cap_cache_hits", "cap_cache_misses",
+        "bytes_wire_device", "bytes_wire_device_raw", "device_uploads",
+        "plan_builds", "plan_store_hits", "planner_replans",
+        "planner_switches", "decisions_recorded", "decisions_joined",
+        "decision_accuracy"}
+
+
 def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
     # the reference's jitted engines (its native CPU engine is a fusion
     # barrier; the port has none)
@@ -253,7 +262,7 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "device_fetches", "fused_dispatches", "fused_ops",
                       "fused_stages", "join_overflow_retries",
                       "loop_plan_builds", "loop_replays", "loop_fori_iters",
-                      "loop_replay_fallbacks", "loop_donated_bytes"}
+                      "loop_replay_fallbacks", "loop_donated_bytes"} | PLAN
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
     assert s["workers"] == 4 and s["nodes_created"] == 2
@@ -265,10 +274,17 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
         assert s[k] == rs[k], k
     assert s["device_dispatches"] >= s["fused_dispatches"] == 2
     assert s["device_fetches"] > 0
-    assert all(s[k] == 0 for k in set(s) - {"workers", "nodes_created",
-                                             "exchanges", "items_moved",
-                                             "bytes_moved",
-                                             "device_dispatches",
-                                             "device_fetches",
-                                             "fused_dispatches",
-                                             "fused_ops", "fused_stages"})
+    # the plan layer's: one synced plan, nothing cached yet
+    for k in ("exchanges_overlapped", "cap_cache_hits", "cap_cache_misses",
+              "plan_builds", "plan_store_hits", "planner_replans",
+              "planner_switches"):
+        assert s[k] == rs[k], k
+    assert s["plan_builds"] == 2       # the exchange and the dup verdict
+    assert s["bytes_wire_device"] == s["bytes_wire_device_raw"] > 0
+    assert s["device_uploads"] > 0
+    assert s["decisions_recorded"] >= s["decisions_joined"] > 0
+    assert isinstance(s["decision_accuracy"], dict)
+    assert all(s[k] == 0 for k in set(s) - PLAN - {
+        "workers", "nodes_created", "exchanges", "items_moved",
+        "bytes_moved", "device_dispatches", "device_fetches",
+        "fused_dispatches", "fused_ops", "fused_stages"})

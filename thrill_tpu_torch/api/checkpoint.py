@@ -32,8 +32,9 @@ is copied into the next pinned slot.
 Not ported (ROADMAP item 6): the multi-controller agreement and
 ``poison_on_error``, remote (``s3://``, ``hdfs://``) directories, the
 resize epochs and markers, and ``stage_repartition`` /
-``commit_repartition``. The restore's readahead keeps no planner
-decision record (item 2).
+``commit_repartition``. The restore's readahead depth is the
+planner's learned depth of the ``ckpt.restore`` site, an
+``io_prefetch`` decision audited by the measured hit rate.
 
 With no checkpoint directory nothing here runs: ``Context.checkpoint``
 is None and ``Checkpoint()`` is a plain materialization barrier.
@@ -406,12 +407,30 @@ class CheckpointManager:
         (``THRILL_TPU_PREFETCH=0`` reads in turn). Each read is the whole
         retry and CRC path; a failed background read is read again on
         this thread."""
+        from ..common.decisions import record_of, resolve_io_prefetch
         from ..common.iostats import IO as _IOSTATS
         from ..data.writeback import make_readahead, overlapped_fetch
         from ..vfs.file_io import prefetch_depth
+        from .planner import planner_of
         workers = list(workers)
-        ra = make_readahead(prefetch_depth()) if len(workers) > 1 else None
+        mex = self.ctx.mesh_exec
+        ra = drec = None
         st: dict = {}
+        io0 = _IOSTATS.snapshot()
+        if len(workers) > 1:
+            # only where a readahead pool runs: a one-file restore must
+            # not take a replan mark it cannot exercise
+            depth = prefetch_depth()
+            pl = planner_of(mex)
+            if pl is not None:
+                depth = pl.io_prefetch_depth("ckpt.restore", depth)
+            ra = make_readahead(depth)
+            if ra is not None:
+                drec = record_of(
+                    mex, "io_prefetch", "ckpt.restore", f"depth={depth}",
+                    predicted=1.0, reason="overlap next shard's read with "
+                                          "the current decode+upload",
+                    files=len(workers), depth=depth)
         try:
             yield from overlapped_fetch(
                 workers, lambda w: self._read_file(edir,
@@ -422,6 +441,8 @@ class CheckpointManager:
         finally:
             if ra is not None:
                 ra.shutdown(wait=True, cancel_futures=True)
+            resolve_io_prefetch(
+                mex, drec, _IOSTATS.delta(_IOSTATS.snapshot(), io0))
 
     def _restore_device(self, rec: dict, edir: str) -> DeviceShards:
         mex = self.ctx.mesh_exec

@@ -4,14 +4,18 @@ host group). Sources take ``storage`` "device" (columnar tensors) or
 "host" (per-worker Python lists); None infers it as the reference does.
 A Context owns the JSON event log (``logger``), the HBM governor
 (``hbm``, mem/hbm.py), the memory-pressure ladder (``pressure``,
-mem/pressure.py) and, when a checkpoint directory is set, the
+mem/pressure.py), the decision ledger (``decisions``,
+common/decisions.py), the planner (``planner``, api/planner.py; None
+with ``THRILL_TPU_PLANNER=0``), and, when their directories are set,
+the plan store (``plan_store``, service/plan_store.py) and the
 checkpoint manager (``checkpoint``, api/checkpoint.py); ``close()``
-frees the spill store."""
+saves the plan store and frees the spill store."""
 
 from __future__ import annotations
 
 import os
 import sys
+import weakref
 from typing import Any, Callable, List, Optional, Sequence
 
 from ..common import faults
@@ -34,6 +38,9 @@ class Context:
                                                device=device)
         self.config = config or Config.from_env()
         self._next_id = 0
+        # the nodes made, for explain(): each weakly held (a dropped
+        # node's results must not stay alive) beside its id and label
+        self._nodes: List[tuple] = []
         self._ram_workers: Optional[int] = None
         self._mem_reserved = 0
         self.logger = JsonLogger(
@@ -46,6 +53,44 @@ class Context:
         # the dispatch choke point reaches both in one attribute read
         self.mesh_exec.pressure = self.pressure
         self.mesh_exec.logger = self.logger
+        mex = self.mesh_exec
+        if self.config.exchange:
+            mex.exchange_mode = self.config.exchange
+        from ..data.exchange import resolve_mode
+        resolve_mode(mex)           # an unported mode raises here
+        # the decision ledger: every plan choice of the choke points,
+        # one attribute read away (THRILL_TPU_DECISIONS=0: none)
+        from ..common.decisions import DecisionLedger
+        self.decisions = DecisionLedger(logger=self.logger)
+        mex.decisions = self.decisions
+        # the planner, which re-plans a site when an audit shows its
+        # learned state lied (THRILL_TPU_PLANNER=0: the per-site rules)
+        from .planner import Planner, planner_enabled
+        self.planner = None
+        if planner_enabled():
+            self.planner = Planner(mex)
+            mex.planner = self.planner
+            self.decisions.audit_hook = self.planner.on_audit
+        # the plan store: learned plans seed the fresh mesh, so a warm
+        # restart of a known pipeline builds no plan (off unless set)
+        self.plan_store = None
+        if self.config.plan_store:
+            from ..service.plan_store import PlanStore
+            self.plan_store = PlanStore(self.config.plan_store,
+                                        logger=self.logger)
+            seeded = self.plan_store.attach(mex)
+            if self.logger.enabled:
+                self.logger.line(event="plan_store_load",
+                                 path=self.config.plan_store,
+                                 entries=seeded)
+            if self.decisions.enabled \
+                    and self.plan_store._last_corrupt is not None:
+                self.decisions.record(
+                    "store_skip", "plan_store", "cold",
+                    rejected=[("warm-start", None)],
+                    reason="store corrupt: "
+                           + self.plan_store._last_corrupt[:120],
+                    path=self.config.plan_store)
         self._aborted = False
         # checkpoints and resume: None, and nothing made on disk, unless
         # a checkpoint directory is set
@@ -66,6 +111,8 @@ class Context:
         # checkpoint epochs and sort run stores are named by them
         nid = self._next_id
         self._next_id += 1
+        self._nodes.append((weakref.ref(node), nid, node.label,
+                            [p.node.id for p in node.parents]))
         return nid
 
     # -- memory grants (reference: the StageBuilder's DIAMemUse split,
@@ -154,6 +201,31 @@ class Context:
         return read_write.ReadBinary(self, path_or_glob, dtype,
                                      record_shape)
 
+    def explain(self, pipeline_fn: Optional[Callable] = None,
+                name: str = "") -> str:
+        """The physical plan as an annotated tree: ops, fused segments,
+        the exchange strategy of each shuffle, and every recorded
+        decision with its reason and audit. ``ctx.explain(fn)`` runs
+        ``fn(ctx)`` and renders the nodes it made; ``ctx.explain()``
+        every node still alive. It reads the ledger and changes no
+        plan."""
+        from ..common.decisions import render_plan
+        lo = 0
+        if pipeline_fn is not None:
+            lo = len(self._nodes)
+            pipeline_fn(self)
+        nodes = []
+        for ref, nid, label, parents in self._nodes[lo:]:
+            n = ref()
+            nodes.append({"id": nid, "label": label, "parents": parents,
+                          "state": n.state if n is not None
+                          else "DISPOSED"})
+        return render_plan(
+            nodes,
+            self.decisions.snapshot(), W=self.num_workers,
+            title=name or (getattr(pipeline_fn, "__name__", "")
+                           if pipeline_fn is not None else ""))
+
     def overall_stats(self) -> dict:
         """The counters the port keeps, under the reference's names
         (OverallStats): the mesh's exchange traffic, the nodes created,
@@ -166,9 +238,14 @@ class Context:
         stitched stage's ops and launches), the hinted join's lineage
         retries (``join_overflow_retries``), the loop layer's five
         (``loop_plan_builds``, ``loop_replays``, ``loop_fori_iters``,
-        ``loop_replay_fallbacks``, ``loop_donated_bytes``) and, with a checkpoint
-        manager, its five (epochs, bytes written, ops and sort runs
-        skipped by resume, restore seconds)."""
+        ``loop_replay_fallbacks``, ``loop_donated_bytes``), the plan
+        layer's (``exchanges_overlapped``: phase B with no host read;
+        ``cap_cache_hits``/``_misses``; ``bytes_wire_device`` and its
+        full-width ``_raw``; ``device_uploads``; ``plan_builds``,
+        ``plan_store_hits``; ``planner_replans``/``_switches``;
+        ``decisions_recorded``/``_joined``, ``decision_accuracy``) and,
+        with a checkpoint manager, its five (epochs, bytes written, ops
+        and sort runs skipped by resume, restore seconds)."""
         mex = self.mesh_exec
         stats = {
             "workers": self.num_workers,
@@ -188,6 +265,22 @@ class Context:
             "loop_fori_iters": mex.stats_loop_fori_iters,
             "loop_replay_fallbacks": mex.stats_loop_fallbacks,
             "loop_donated_bytes": mex.stats_loop_donated_bytes,
+            "exchanges_overlapped": mex.stats_exchanges_overlapped,
+            "cap_cache_hits": mex.stats_cap_cache_hits,
+            "cap_cache_misses": mex.stats_cap_cache_misses,
+            "bytes_wire_device": mex.stats_bytes_wire_device,
+            "bytes_wire_device_raw": mex.stats_bytes_wire_device_raw,
+            "device_uploads": mex.stats_uploads,
+            "plan_builds": mex.stats_plan_builds,
+            "plan_store_hits": mex.stats_plan_store_hits,
+            **(self.planner.stats() if self.planner is not None else
+               {"planner_replans": 0, "planner_switches": 0}),
+            "decisions_recorded": sum(self.decisions.kind_counts.values()),
+            "decisions_joined": sum(self.decisions.joined_counts.values()),
+            "decision_accuracy": {
+                k: v["mae_log2"]
+                for k, v in self.decisions.accuracy().items()
+                if v.get("mae_log2") is not None},
             "hbm_peak": self.hbm.mem.peak,
             "hbm_spills": self.hbm.spill_count,
             "hbm_restores": self.hbm.restore_count,
@@ -205,8 +298,19 @@ class Context:
         self.mesh_exec.reset_run_state()
 
     def close(self) -> None:
-        """Log the stats, detach the log and free the spill store (a
-        spilled result cannot be pulled after this)."""
+        """Save the plan store, log the stats, detach the log and free
+        the spill store (a spilled result cannot be pulled after
+        this)."""
+        if self.plan_store is not None:
+            # plans are an optimization: a failing store must not fail
+            # the close of the run that learned them
+            try:
+                self.plan_store.save(self.mesh_exec)
+                if self.decisions.enabled and self.decisions.kind_counts:
+                    self.plan_store.save_ledger(self.decisions.summary())
+            except Exception as e:
+                faults.note("recovery", what="plan_store.save_failed",
+                            error=repr(e)[:200])
         if self.logger.enabled:
             self.logger.line(event="overall_stats", **self.overall_stats())
         if faults.REGISTRY._log == self.logger.line:

@@ -114,6 +114,36 @@ class DIABase:
     def mem_use(self):
         return self.MEM_USE
 
+    def _barrier_decision(self, reason: str) -> None:
+        """The ledger's record of a declined fusion deferral: why this
+        node ends the stitched chain (explain() shows it on the node)."""
+        from ..common import decisions as _decisions
+        led = _decisions.ledger_of(self.context.mesh_exec)
+        if led is not None:
+            led.record("fusion_barrier", f"node:{self.label}#{self.id}",
+                       "materialize", rejected=[("defer", None)],
+                       reason=reason, dia=self.id, node=self.label)
+
+    def _bind_ledger_node(self):
+        """Make this node the current one while it computes: decisions
+        recorded inside land on it in explain(), and the device sort
+        finds the mesh. Returns what :meth:`_unbind_ledger_node` needs."""
+        from ..parallel.mesh import bind_current
+        mex = self.context.mesh_exec
+        prev = bind_current(mex)
+        led = getattr(mex, "decisions", None)
+        if led is not None and led.enabled:
+            led.push_node(self.id, self.label)
+            return led, prev
+        return None, prev
+
+    @staticmethod
+    def _unbind_ledger_node(led, prev_mex) -> None:
+        from ..parallel.mesh import bind_current
+        if led is not None:
+            led.pop_node()
+        bind_current(prev_mex)
+
     def compute(self) -> Shards:
         raise NotImplementedError
 
@@ -137,6 +167,8 @@ class DIABase:
         mgr = getattr(self.context, "checkpoint", None)
         if mgr is not None and self.state == NEW and (
                 mgr.restorable(self) or (mgr.auto and self.parents)):
+            self._barrier_decision("checkpoint restore/auto-epoch "
+                                   "needs materialized shards")
             return self.materialize(consume=consume)
         if (fusion.enabled() and consume and self._shards is None
                 and self.state == NEW and self.consume_budget <= 1
@@ -148,9 +180,11 @@ class DIABase:
             pres = self.context.pressure
             memo = PullMemo()
             pres.memos.append(memo)
+            led, prev_mex = self._bind_ledger_node()
             try:
                 plan = self.compute_plan()
             finally:
+                self._unbind_ledger_node(led, prev_mex)
                 pres.memos.remove(memo)
                 if negotiated:
                     self.context.release_mem(self)
@@ -163,6 +197,14 @@ class DIABase:
                              dia_id=self.id,
                              parents=[p.node.id for p in self.parents])
                 return plan
+            self._barrier_decision("plan ineligible (host storage or "
+                                   "untraceable input)")
+        elif fusion.enabled() and consume \
+                and type(self).compute_plan is not DIABase.compute_plan:
+            # a stitchable op that cannot defer this pull: name why
+            self._barrier_decision(
+                "cached result" if self._shards is not None
+                or self.state != NEW else "multi-consumer (Keep)")
         return self.materialize(consume=consume)
 
     def materialize(self, consume: bool = False) -> Shards:
@@ -183,9 +225,11 @@ class DIABase:
                 if pres.enabled:
                     pres.admit_stage(self)
                 negotiated = ctx.negotiate_mem(self)
+                led, prev_mex = self._bind_ledger_node()
                 try:
                     self._shards = pres.compute(self)
                 finally:
+                    self._unbind_ledger_node(led, prev_mex)
                     if negotiated:
                         ctx.release_mem(self)
                 if mgr is not None:

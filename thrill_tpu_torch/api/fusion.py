@@ -55,6 +55,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..common import decisions as _decisions
 from ..common import faults
 from ..common import tree as pt
 from ..common.retry import default_policy
@@ -277,6 +278,9 @@ class FusionPlan:
         key = ("fused", sigs, tuple(s.token for s in segs),
                tuple(bound_sig))
         prog = mex.program(key, _run_stitched)
+        split = self._proactive_split(prog, srcs, segs)
+        if split is not None:
+            return split
         if faults.REGISTRY.active():
             # every stitched op keeps a site; a transient fire retries
             # the (pure) program under the shared policy. The dispatch's
@@ -296,6 +300,24 @@ class FusionPlan:
             pres.hint_output_bytes(sum(
                 l.numel() * l.element_size()
                 for f in src_flat for l in f[0]))
+        # the ledger's record of the split point: the ops this dispatch
+        # carries and its predicted output bytes (audited below)
+        led = _decisions.ledger_of(mex)
+        dec = None
+        if led is not None:
+            ops_label = "+".join(s.label for s in segs)[:80]
+            pred = prog.out_bytes
+            why = "learned output size"
+            if pred is None and not any(s.expands for s in segs):
+                pred = sum(l.numel() * l.element_size()
+                           for f in src_flat for l in f[0])
+                why = "non-expanding chain: bounded by source bytes"
+            elif pred is None:
+                why = "expanding chain: no bound"
+            dec = led.record("fusion", "fuse:" + ops_label, "fuse",
+                             predicted=pred, reason=why, ops=ops_label,
+                             n_ops=len(segs),
+                             dia_ids=[s.dia_id for s in segs])
         try:
             tree, out_count, aux = prog(
                 self.head, list(self.segments), mex.num_workers,
@@ -315,6 +337,9 @@ class FusionPlan:
         if log is not None and log.enabled:
             log.line(event="fused_dispatch", ops=list(ops),
                      dia_ids=[s.dia_id for s in segs])
+        if dec is not None:
+            led.resolve(dec, sum(l.numel() * l.element_size()
+                                 for l in pt.leaves(tree)))
         self.aux = aux
         if self.known_counts is not None:
             shards = DeviceShards(mex, tree, self.known_counts.copy())
@@ -336,6 +361,63 @@ class FusionPlan:
         plan.known_counts = None
         plan._no_finalize = True
         return plan.execute()
+
+    def _proactive_split(self, prog, srcs, segs):
+        """The planner's split point under the HBM admission estimate
+        (api/planner.py): a row-local single-source chain whose inputs
+        and estimated output cannot fit under the watermark at any
+        spill level runs as rung 3's row-range sub-dispatches before its
+        dispatch, not after a retry budget of failed allocations.
+        Returns the result, or None (dispatch whole). The eligibility is
+        rung 3's."""
+        from .planner import planner_of
+        mex = self.mex
+        pl = planner_of(mex)
+        pres = mex.pressure
+        if pl is None or pres is None or not pres.enabled \
+                or self._no_split or self.head is not None \
+                or len(srcs) != 1 \
+                or not all(s.row_local and s.finalize is None
+                           for s in segs):
+            return None
+        from ..mem import pressure as _pressure
+        if not _pressure.retry_enabled():
+            return None
+        src = srcs[0]
+        src_bytes = sum(l.numel() * l.element_size()
+                        for l in pt.leaves(src.tree))
+        out_est = prog.out_bytes
+        if out_est is None:
+            out_est = (src_bytes if not any(s.expands for s in segs)
+                       else int(src_bytes * pres.est_factor))
+        est = src_bytes + int(out_est)
+        k = pl.fusion_split_k(est, src.cap)
+        if k is None:
+            return None
+        try:
+            out = self._execute_split(src, k)
+        except Exception as e:
+            if not _pressure.is_oom_error(e):
+                raise
+            # the parts did not fit either: dispatch whole and leave the
+            # escalation to the reactive ladder
+            faults.note("recovery", what="mem.split_oom",
+                        ops=[s.label for s in segs], error=repr(e)[:200])
+            return None
+        ops_label = "+".join(s.label for s in segs)[:80]
+        led = _decisions.ledger_of(mex)
+        if led is not None:
+            led.record("fusion_split", "fuse:" + ops_label, f"split:{k}",
+                       predicted=est // k, rejected=[("whole", est)],
+                       reason="admission estimate exceeds the HBM "
+                              "watermark at any spill level",
+                       ops=ops_label, k=k, dia_ids=[s.dia_id for s in segs])
+        pres.segment_splits += 1
+        faults.note("segment_split", k=k, ops=[s.label for s in segs],
+                    cap=src.cap, proactive=True)
+        faults.note("recovery", what="mem.segment_split_proactive",
+                    _quiet=True)
+        return out
 
     # -- the memory ladder's rungs 3-4 (mem/pressure.py) ----------------
     def _execute_degraded(self, exc: BaseException):

@@ -83,8 +83,13 @@ checkpoint epoch after every k-th iteration but the last, when the
 Context has a checkpoint manager (api/checkpoint.py); a resumed run
 restores the newest loop epoch of ``name`` and goes on after it.
 
-Not ported here: the plan store's tape metadata (ROADMAP item 2) and the
-tracer's ``loop`` spans (item 7).
+The plan store (service/plan_store.py) keeps each loop's capture
+outcome under its tape token (name, the body's canonical identity and
+the carry's signature): a loop that rejected capture twice runs plain
+from its first iteration on a warm restart (``loop_seed_nocapture``), a
+captured tape's program keys and wiring are compared with the fresh
+capture's (``loop_seed_stale`` when they differ). Not ported here: the
+tracer's ``loop`` spans (ROADMAP item 7).
 """
 
 from __future__ import annotations
@@ -106,6 +111,77 @@ from .dia import DIA
 from .dia_base import DIABase
 
 _F_REPLAY = faults.F_LOOP_REPLAY
+
+
+# -- plan-state persistence: the loop tapes' outcomes -------------------
+
+def export_plan_state(mex) -> dict:
+    """Each loop's tape metadata as a digest map (the store's
+    ``loop_tape`` kind)."""
+    from ..data.exchange import _ident_digest, merge_unconsumed_seeds
+    return merge_unconsumed_seeds(mex, {
+        "loop_tape": {_ident_digest(k): v for k, v in
+                      getattr(mex, "_loop_tapes", {}).items()},
+    })
+
+
+def import_plan_state(mex, state: dict) -> int:
+    from ..data.exchange import install_plan_seeds
+    return install_plan_seeds(mex, state, ("loop_tape",))
+
+
+def _note_tape(mex, token, meta: Optional[dict]) -> None:
+    """Remember this loop's capture outcome for export."""
+    if meta is None:
+        return
+    tapes = getattr(mex, "_loop_tapes", None)
+    if tapes is None:
+        tapes = mex._loop_tapes = {}
+    tapes[token] = meta
+
+
+def _tape_token(name: str, dia_mode: bool, state, body) -> Optional[Tuple]:
+    """The plan-store identity of a loop's tape: its name, the body's
+    canonical identity (two loops of the default name keep their own
+    records) and the carry's signature; None when the carry cannot be
+    signed (host storage)."""
+    from ..data.exchange import _canon
+    try:
+        body_id = _canon(body)
+        if dia_mode:
+            if not isinstance(state, DeviceShards):
+                return None
+            sig = (_leaf_sig(pt.leaves(state.tree)), state.cap,
+                   state._counts_host is not None)
+        else:
+            sig = (_leaf_sig(pt.leaves(state)),)
+    except Exception:
+        return None
+    return ("loop_tape", name, bool(dia_mode), body_id, repr(sig))
+
+
+def _tape_meta(plan: "LoopPlan") -> dict:
+    """A captured tape's identity: its programs' key digests and a
+    digest of its wiring."""
+    import hashlib
+
+    from ..data.exchange import _canon
+    keys = [hashlib.sha1(_canon(getattr(c.fn, "key", ())).encode())
+            .hexdigest() for c in plan.calls]
+
+    def rsig(ref):
+        if ref[0] == "const":
+            return "c"
+        if ref[0] == "tree":
+            return ("t", tuple(rsig(x) for x in ref[2]))
+        return ref
+
+    wiring = repr((tuple(tuple(rsig(r) for r in c.arg_refs)
+                         for c in plan.calls),
+                   tuple(r if r[0] != "const" else "c"
+                         for r in plan.carry_out)))
+    return {"capture": True, "calls": keys,
+            "wiring": hashlib.sha1(wiring.encode()).hexdigest()}
 
 
 def replay_enabled() -> bool:
@@ -1114,6 +1190,28 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
     # (eager body math, a data-dependent plan); two strikes and the rest
     # of the loop runs plain
     miss_streak = 0
+    # the plan store's record of this loop: a loop known not to capture
+    # skips the capture probes; a captured tape is compared on capture
+    tape_token = _tape_token(name, dia_mode, state, body) \
+        if can_replay else None
+    tape_seed = None
+    # the store's outcome for the loop report: "tape" (the fresh tape
+    # matched its record), "stale" (it did not), "nocapture" (probes
+    # skipped)
+    seed_mode: Optional[str] = None
+    if tape_token is not None:
+        from ..data.exchange import plan_seed as _plan_seed
+        tape_seed = _plan_seed(mex, "loop_tape", tape_token)
+        if isinstance(tape_seed, dict) \
+                and tape_seed.get("capture") is False:
+            miss_streak = 2
+            seed_mode = "nocapture"
+            _note_tape(mex, tape_token, tape_seed)
+            if log.enabled:
+                log.line(event="loop_seed_nocapture", loop=name,
+                         reason=str(tape_seed.get("reason", "?"))[:200])
+            tape_seed = None
+    last_miss: Dict[str, str] = {}
     report = {"name": name, "iters": n - start, "captures": 0, "replays": 0,
               "fori_iters": 0, "fallbacks": 0, "capture_s": 0.0,
               "replay_s": 0.0, "calls": 0, "pruned": 0,
@@ -1127,7 +1225,8 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
             d0, f0, l0 = mex.stats_dispatches, mex.stats_fetches, \
                 _launch_snapshot()
             if can_replay and miss_streak < 2:
-                state, plan = _capture(ctx, run_body, state, name=name, it=i)
+                state, plan = _capture(ctx, run_body, state, name=name,
+                                       it=i, info=last_miss)
                 if plan is not None:
                     miss_streak = 0
                     mex.stats_loop_plan_builds += 1
@@ -1135,8 +1234,28 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
                     report["calls"] = len(plan.calls)
                     report["pruned"] = (plan.pruned_invariant
                                         + plan.pruned_dead)
+                    if tape_token is not None:
+                        meta = _tape_meta(plan)
+                        if isinstance(tape_seed, dict):
+                            if tape_seed.get("calls") == meta["calls"] \
+                                    and tape_seed.get("wiring") \
+                                    == meta["wiring"]:
+                                seed_mode = "tape"
+                            else:
+                                seed_mode = "stale"
+                                if log.enabled:
+                                    log.line(event="loop_seed_stale",
+                                             loop=name, iter=i)
+                        tape_seed = None
+                        _note_tape(mex, tape_token, meta)
                 else:
                     miss_streak += 1
+                    if miss_streak >= 2 and tape_token is not None:
+                        # a deterministic reject: a warm restart skips
+                        # the capture probes
+                        _note_tape(mex, tape_token, {
+                            "capture": False,
+                            "reason": last_miss.get("reason", "?")[:200]})
             else:
                 state = run_body(state)
             dt = time.perf_counter() - t0
@@ -1234,6 +1353,8 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
 
     report["donated_bytes"] = (mex.stats_loop_donated_bytes
                                - report.pop("donated_bytes0"))
+    if seed_mode is not None:
+        report["seed"] = seed_mode
     mex.loop_reports.append(report)
     if log.enabled:
         log.line(event="loop_done", **{k: (round(v, 6)
@@ -1242,13 +1363,15 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
     return _carry_dia(ctx, state) if dia_mode else state
 
 
-def _capture(ctx, run_body, state, name="loop", it=0):
+def _capture(ctx, run_body, state, name="loop", it=0, info=None):
     """Run one body iteration with the tape recorder installed. Returns
-    (next_state, LoopPlan or None)."""
+    (next_state, LoopPlan or None); a miss's reason goes into ``info``."""
     mex = ctx.mesh_exec
     log = ctx.logger
 
     def miss(reason, out_state):
+        if info is not None:
+            info["reason"] = reason
         if log.enabled:
             log.line(event="loop_capture_miss", loop=name, iter=it,
                      reason=reason)

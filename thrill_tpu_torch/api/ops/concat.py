@@ -27,7 +27,8 @@ from ..dia import DIA
 from ..dia_base import DIABase
 
 
-def rebalance_to_even(mex, parts: List[DeviceShards]) -> DeviceShards:
+def rebalance_to_even(mex, parts: List[DeviceShards],
+                      token=()) -> DeviceShards:
     """The parts concatenated in list order (each in its worker-major
     order), evenly re-split: one carrier exchange (B1, and B2 for its
     destinations) and one order-restoring argsort (B2). Rows past the
@@ -48,7 +49,8 @@ def rebalance_to_even(mex, parts: List[DeviceShards]) -> DeviceShards:
     def dest(tree, mask, widx):
         return torch.searchsorted(upper, tree["g"], right=True)
 
-    merged = exchange.exchange(merged, dest)
+    merged = exchange.exchange(merged, dest, ("concat_dest", token, W))
+    merged.validate_pending()       # optimistic-exchange heal point
     # the exchange keeps each sender's run in order, but a worker that
     # held rows of several parts sends them part by part: sort by the
     # carried index, the padding (index n_total) last
@@ -105,7 +107,7 @@ class ConcatNode(DIABase):
             return HostShards(1, [[it for h in hosts for l in h.lists
                                    for it in l]]).repartition(
                                        self.context.num_workers)
-        return rebalance_to_even(self.context.mesh_exec, pulls)
+        return rebalance_to_even(self.context.mesh_exec, pulls, (self.id,))
 
 
 class RebalanceNode(DIABase):
@@ -116,7 +118,8 @@ class RebalanceNode(DIABase):
         shards = self.parents[0].pull()
         if isinstance(shards, HostShards):
             return shards.repartition(shards.num_workers)
-        return rebalance_to_even(self.context.mesh_exec, [shards])
+        return rebalance_to_even(self.context.mesh_exec, [shards],
+                                 (self.id,))
 
 
 def Concat(a: DIA, b: DIA) -> DIA:

@@ -149,7 +149,7 @@ class GroupByKeyNode(DIABase):
             h = hashing.hash_key_words(keymod.worker_key_words(key_fn, tree))
             return hashing.umod(h, W)
 
-        return exchange.exchange(shards, dest)
+        return exchange.exchange(shards, dest, ("groupby_dest", key_fn, W))
 
     def _sorted_runs(self, shards: DeviceShards):
         """Every worker's rows sorted by key words (invalid last) and the
@@ -260,7 +260,9 @@ class GroupToIndexNode(DIABase):
             def dest(tree, mask, widx):
                 return torch.searchsorted(upper, index_of(tree), right=True)
 
-            shards = exchange.exchange(shards, dest)
+            shards = exchange.exchange(shards, dest,
+                                       ("g2i_dest", self.index_fn, n, W))
+            shards.validate_pending()       # optimistic-exchange heal point
         cap = shards.cap
         sizes = np.diff(bounds).astype(np.int64)
         per = max(1, int(sizes.max()))

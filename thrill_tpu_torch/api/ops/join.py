@@ -43,7 +43,7 @@ raises again. A dense-index join stitches as a plan head too.
 from __future__ import annotations
 
 import os
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -330,17 +330,34 @@ class InnerJoinNode(DIABase):
         W = mex.num_workers
         if W == 1:
             return left, right
+        token = (self.lkey, self.rkey, self.join_fn)
         ld = self.location_detection
         if ld is None:
-            rows, item_bytes = preshuffle.join_rows_estimate(left, right)
-            ld = preshuffle.auto_location_detect(
-                mex, rows, item_bytes,
-                ("join_dev", (self.lkey, self.rkey, self.join_fn)))
+            rows, item_bytes = preshuffle.join_rows_estimate(
+                left, right, ("join_l", token, W), ("join_r", token, W))
+            ld = preshuffle.auto_location_detect(mex, rows, item_bytes,
+                                                 ("join_dev", token))
+        pre_rows = None
         if ld:
+            pre_rows = _host_rows(left), _host_rows(right)
             left, right = _location_filter(left, right, self.lkey,
                                            self.rkey)
-        return (exchange.exchange(left, _hash_dest(self.lkey, W)),
-                exchange.exchange(right, _hash_dest(self.rkey, W)))
+        left = exchange.exchange(left, _hash_dest(self.lkey, W),
+                                 ("join_l", token, W))
+        right = exchange.exchange(right, _hash_dest(self.rkey, W),
+                                  ("join_r", token, W))
+        # the join phases read the columns: heal an optimistic miss here
+        left.validate_pending()
+        right.validate_pending()
+        if pre_rows is not None:
+            # teach the site its prune fraction where both counts are
+            # already on the host (never adds a sync)
+            post = _host_rows(left), _host_rows(right)
+            if None not in pre_rows and None not in post:
+                preshuffle.record_prune(mex, ("join_dev", token),
+                                        pre_rows[0] + pre_rows[1],
+                                        post[0] + post[1])
+        return left, right
 
     # -- dense-index join --------------------------------------------------
     def _dense_bounds(self) -> np.ndarray:
@@ -619,3 +636,9 @@ def InnerJoin(left: DIA, right: DIA, left_key_fn, right_key_fn, join_fn,
                              location_detection=location_detection,
                              out_size_hint=out_size_hint,
                              dense_right_index=dense_right_index))
+
+
+def _host_rows(shards) -> Optional[int]:
+    """Global row count when already on the host (no sync), else None."""
+    counts = getattr(shards, "_counts_host", None)
+    return None if counts is None else int(np.asarray(counts).sum())

@@ -187,7 +187,8 @@ class ReduceNode(DIABase):
             return torch.where(mine_only, widx, hash_dest)
 
         from .. import fusion
-        shuffled = exchange.exchange(pre, dest)
+        shuffled = exchange.exchange(pre, dest,
+                                     ("reduce_dest", self.token, W, dup))
         if fusion.enabled():
             plan = fusion.FusionPlan(mex, [shuffled])
             plan.append(self._fuse_segment("post"))
@@ -442,18 +443,24 @@ class ReduceToIndexNode(DIABase):
             idx = _index_of(self.index_fn, tree)
             return torch.searchsorted(upper, idx, right=True)
 
-        return exchange.exchange(shards, dest)
+        W = shards.num_workers
+        return exchange.exchange(
+            shards, dest, ("r2i_dest", (self.index_fn, self.reduce_fn,
+                                        self.size), W))
 
     def _fuse_segment(self, bounds: np.ndarray,
-                      counts: Optional[np.ndarray] = None):
+                      counts: Optional[np.ndarray] = None,
+                      row_bound: Optional[int] = None):
         """The dense phase after the exchange as a segment (reference:
         ``thrill_tpu/api/ops/reduce.py:971-1039``): the scatter engine
         for FieldReduce specs, else the sorted engine; the output is
         every worker's dense ``[out_cap]`` range, its counts the ranges'
         sizes. With the input's ``counts`` known on the host (the
         exchange's output) the scatter engine takes the valid rows only,
-        as the per-op path does; else every row, the invalid ones
-        dropped by the chain's mask."""
+        as the per-op path does; with them on the device (an optimistic
+        exchange) and ``row_bound`` (the exchange input's rows, at least
+        its total) the first ``row_bound`` rows of the valid prefixes;
+        else every row, the invalid ones dropped by the chain's mask."""
         from .. import fusion
         W = self.context.num_workers
         local_sizes = (bounds[1:] - bounds[:-1]).astype(np.int64)
@@ -471,18 +478,21 @@ class ReduceToIndexNode(DIABase):
         if total is not None:
             bound += (np.concatenate([[0], np.cumsum(counts)]),)
 
+        if total is not None:
+            row_bound = None
+
         def trace(fctx, tree, mask, bound_t):
             starts, sizes = bound_t[:2]
             rows = None if total is None else (total, bound_t[2])
             out = _dense_rows(tree, mask, index_fn, reduce_fn, neutral,
-                              starts, sizes, out_cap, rows)
+                              starts, sizes, out_cap, rows, row_bound)
             return out, (torch.arange(out_cap, device=mask.device)[None, :]
                          < sizes[:, None])
 
         return fusion.Segment(
             label="ReduceToIndex",
             token=("r2i_post_fused", (index_fn, reduce_fn, self.size),
-                   out_cap, ntok, total),
+                   out_cap, ntok, total, row_bound),
             trace=trace, bound=bound,
             already_compact=True, sets_counts=local_sizes, dia_id=self.id)
 
@@ -492,11 +502,17 @@ class ReduceToIndexNode(DIABase):
         bounds = self._bounds()
         if not plan.stitchable:
             return fusion.wrap(self._compute_on(plan.finish(), bounds))
+        row_bound = None
         if self.context.num_workers > 1:
-            # the exchange is a barrier: the chain after it starts here
-            shards = self._exchange_by_index(plan.finish(), bounds)
+            # the exchange is a barrier: the chain after it starts here,
+            # its rows the valid prefixes of the exchange's output, at
+            # most as many as the exchange's input rows
+            src = plan.finish()
+            row_bound = src.num_workers * src.cap
+            shards = self._exchange_by_index(src, bounds)
+            del src
             plan = fusion.FusionPlan(shards.mesh_exec, [shards])
-        plan.append(self._fuse_segment(bounds, plan.known_counts))
+        plan.append(self._fuse_segment(bounds, plan.known_counts, row_bound))
         return plan
 
     def compute(self):
@@ -626,13 +642,30 @@ def _valid_rows(total: int, cum: torch.Tensor, cap: int):
     return t + w_of * cap - cum[w_of], w_of
 
 
+def _bounded_rows(mask: torch.Tensor, bound: int):
+    """(flat row index, worker, kept) of the first ``bound`` rows of the
+    valid prefixes of ``mask``, worker-major: the valid rows in
+    :func:`_valid_rows`' order when their total is only bounded on the
+    host (counts on the device), the rows past the total not kept."""
+    W, cap = mask.shape
+    cum = torch.zeros(W + 1, dtype=torch.int64, device=mask.device)
+    cum[1:] = torch.cumsum(mask.sum(dim=1), 0)
+    t = torch.arange(bound, device=mask.device)
+    w_of = torch.searchsorted(cum[1:], t, right=True).clamp(max=W - 1)
+    sel = (t + w_of * cap - cum[w_of]).clamp(0, W * cap - 1)
+    return sel, w_of, t < cum[W]
+
+
 def _dense_rows(tree, mask: torch.Tensor, index_fn, reduce_fn, neutral,
                 starts: torch.Tensor, sizes: torch.Tensor, out_cap: int,
-                rows=None):
+                rows=None, row_bound=None):
     """The segment's form of :func:`_dense_program`: with ``rows`` =
     (total, counts' running sum) the scatter engine takes the valid rows
-    as the per-op path does; without, every row of the chain, the
-    invalid ones dropped into slots of their own."""
+    as the per-op path does; with ``row_bound`` (counts on the device,
+    their total at most that, ``mask`` valid prefixes) the first
+    ``row_bound`` rows of the valid prefixes, in the same order; else
+    every row of the chain, the invalid ones dropped into slots of their
+    own."""
     W, cap = mask.shape
     leaves, td = pt.flatten(tree)
     sc = _scatter_fold_specs(reduce_fn, td, leaves)
@@ -643,6 +676,12 @@ def _dense_rows(tree, mask: torch.Tensor, index_fn, reduce_fn, neutral,
         return _dense_program(sc, tree, _valid_rows(rows[0], rows[1], cap),
                               index_fn, reduce_fn, neutral, starts, sizes,
                               out_cap)
+    if row_bound is not None and row_bound < W * cap:
+        sel, w_of, keep = _bounded_rows(mask, row_bound)
+        flat = pt.tree_map(lambda l: take_rows(
+            l.reshape((W * cap,) + tuple(l.shape[2:])), sel), tree)
+        return _scatter_dense(flat, index_fn, sc, neutral, w_of, keep,
+                              starts, sizes, W, out_cap)
     flat = pt.tree_map(lambda l: l.reshape((W * cap,) + tuple(l.shape[2:])),
                        tree)
     w_of = torch.arange(W, device=mask.device).repeat_interleave(cap)

@@ -516,7 +516,19 @@ class SortNode(DIABase):
             pool.flush()
             t_phase1 = time.perf_counter()
 
+            # the merge's readahead: the planner's learned depth of the
+            # site, an io_prefetch decision audited by the hit rate
+            from ...common.decisions import record_of, resolve_io_prefetch
+            from ..planner import planner_of
+            mex = self.context.mesh_exec
             depth = prefetch_depth()
+            pl = planner_of(mex)
+            if pl is not None:
+                depth = pl.io_prefetch_depth("em_sort.merge", depth)
+            rec = record_of(mex, "io_prefetch", "em_sort.merge",
+                            f"depth={depth}", predicted=1.0,
+                            reason="readahead hit-rate target",
+                            runs=len(files), depth=depth)
             ra = make_readahead(depth)
             submit = ra.submit if ra is not None else None
             io_merge0 = _IOSTATS.snapshot()
@@ -544,6 +556,7 @@ class SortNode(DIABase):
 
             io_all = _IOSTATS.delta(_IOSTATS.snapshot(), io_base)
             io_merge = _IOSTATS.delta(_IOSTATS.snapshot(), io_merge0)
+            resolve_io_prefetch(mex, rec, io_merge)
             self._em_stats = {
                 "runs": len(files),
                 "engine": "native" if enc is not None else "py",
@@ -630,8 +643,33 @@ def _device_sample_sort(shards: DeviceShards,
     dest = torch.where(valid, d, torch.full_like(d, W))
     S = mex.fetch(exchange.send_counts(dest, W)).astype(np.int64)
     payload = take_rows_multi(leaves, perm)
-    out = _fused_exchange_merge(mex, dest, words_s, gidx_s, payload, S)
-    return DeviceShards(mex, pt.unflatten(treedef, out), S.sum(axis=0))
+    row_bytes = exchange.leaf_item_bytes(payload) + 8 * (nwords + 1)
+    # the fused ship-and-merge runs exactly when the generic exchange
+    # would take the dense plan; THRILL_TPU_SORT_FUSED=0 forces the
+    # generic path
+    if os.environ.get("THRILL_TPU_SORT_FUSED", "1") != "0" and \
+            exchange.dense_all_to_all_applies(mex, S, row_bytes):
+        cap_ident = ("sort_fused_caps", key_fn, cap, nwords, treedef,
+                     exchange._leaf_sig(payload))
+        out = _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
+                                    S, cap_ident)
+        return DeviceShards(mex, pt.unflatten(treedef, out),
+                            S.sum(axis=0))
+    # the planned exchange of (words, global index, payload) rows, then
+    # one merge of each receiver's runs
+    carrier = [words_s, gidx_s] + list(payload)
+    nidx = exchange.presorted_range_leaves(mex, cap, carrier)
+    ranges = None
+    if nidx:
+        ranges = mex._fetch_raw(exchange.leaf_ranges_traced(
+            [carrier[i] for i in nidx], valid))
+    got = exchange.exchange_presorted(
+        mex, pt.flatten(carrier)[1], dest, carrier, S,
+        ident=("sort_x", key_fn), ranges=ranges)
+    rl = pt.leaves(got.tree)
+    valid3 = got.valid_mask()
+    out = merge_blocks(mex, [(valid3, rl[0], rl[1], rl[2:])], got.cap)
+    return DeviceShards(mex, pt.unflatten(treedef, out), got.counts_like())
 
 
 def _sort_w1(tree, valid: torch.Tensor, key_fn: Callable, passes: list,
@@ -699,7 +737,7 @@ def merge_blocks(mex, blocks, out_cap: int) -> List[torch.Tensor]:
                                for i, b in enumerate(blocks)]))
         bits.append(len(blocks).bit_length())
     perm = argsort_words(sort_words + [gidx], bits + [64],
-                         passes=mex.radix_passes)
+                         passes=mex.radix_passes, record=False)
     if out_cap > perm.shape[1]:
         perm = torch.cat([perm, perm[:, -1:].expand(
             W, out_cap - perm.shape[1])], dim=1)
@@ -707,22 +745,22 @@ def merge_blocks(mex, blocks, out_cap: int) -> List[torch.Tensor]:
 
 
 def _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
-                          S: np.ndarray) -> List[torch.Tensor]:
+                          S: np.ndarray, cap_ident) -> List[torch.Tensor]:
     """Ship the classified rows and merge each receiver's W runs straight
     from the shipped blocks (:func:`merge_blocks`), with no compaction
-    gather. Returns the payload leaves ``[W, max(received), ...]``."""
+    gather. Returns the payload leaves ``[W, out_cap, ...]``, the site's
+    sticky output capacity."""
     W, dev = mex.num_workers, mex.device
-    ship, S_dev, M_pad = exchange.ship_presorted(
+    ship, S_dev, M_pad, out_cap = exchange.ship_presorted(
         mex, dest, S, exchange.leaf_item_bytes(payload)
-        + 8 * (words_s.shape[2] + 1))
+        + 8 * (words_s.shape[2] + 1), cap_ident)
     wm_r = ship(words_s)                               # [W, W*M_pad, nw]
     gi_r = ship(gidx_s)                                # [W, W*M_pad]
     payload_r = [ship(p) for p in payload]
     j = torch.arange(M_pad, device=dev)
     # receiver w's run from sender s holds S[s, w] rows
     valid = (j[None, None, :] < S_dev.T[:, :, None]).reshape(W, W * M_pad)
-    return merge_blocks(mex, [(valid, wm_r, gi_r, payload_r)],
-                        max(int(S.sum(axis=0).max()), 1))
+    return merge_blocks(mex, [(valid, wm_r, gi_r, payload_r)], out_cap)
 
 
 def Sort(dia: DIA, key_fn=None, compare_fn=None) -> DIA:

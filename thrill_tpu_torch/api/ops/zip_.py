@@ -48,12 +48,13 @@ def _mask_tail(shards: DeviceShards, n_out: int) -> DeviceShards:
 
 
 def _realign(shards: DeviceShards, target_bounds: np.ndarray,
-             n_out: int) -> DeviceShards:
+             n_out: int, token, min_cap: int = 1) -> DeviceShards:
     """Worker ``w`` gets global items ``[target_bounds[w],
     target_bounds[w+1])``; items from ``n_out`` on are dropped. Order is
     kept: the exchange is stable and receivers keep senders' rank
     order."""
     mex = shards.mesh_exec
+    W = mex.num_workers
     offsets = mex.put_small(_offsets(shards))
     upper = mex.put_small(np.asarray(target_bounds[1:], dtype=np.int64))
 
@@ -64,15 +65,18 @@ def _realign(shards: DeviceShards, target_bounds: np.ndarray,
 
     # the exchange clips valid destinations into [0, W): the tail past
     # n_out must be invalid before it runs, or it lands on worker W-1
-    return exchange.exchange(_mask_tail(shards, n_out), dest)
+    out = exchange.exchange(_mask_tail(shards, n_out), dest,
+                            ("realign", token, W), min_cap=min_cap)
+    out.validate_pending()          # optimistic-exchange heal point
+    return out
 
 
-def _realign_or_keep(p: DeviceShards, tb: np.ndarray,
-                     n_out: int) -> DeviceShards:
+def _realign_or_keep(p: DeviceShards, tb: np.ndarray, n_out: int, token,
+                     min_cap: int = 1) -> DeviceShards:
     off = np.concatenate([[0], np.cumsum(p.counts)])
     if len(off) == len(tb) and np.array_equal(np.clip(off, 0, n_out), tb):
         return _mask_tail(p, n_out)
-    return _realign(p, tb, n_out)
+    return _realign(p, tb, n_out, token, min_cap=min_cap)
 
 
 def _repad(shards: DeviceShards, cap: int) -> DeviceShards:
@@ -136,16 +140,19 @@ class ZipNode(DIABase):
             counts = np.diff(tb).astype(np.int64)
             aligned = [
                 DeviceShards(mex, _repad(
-                    _realign_or_keep(p, tb, n_out).zero_beyond_count(),
+                    _realign_or_keep(p, tb, n_out, (self.id, i, "pad"),
+                                     min_cap=int(counts.max())
+                                     ).zero_beyond_count(),
                     int(counts.max())).tree,
                              counts.copy())
-                for p in pulls]
+                for i, p in enumerate(pulls)]
         else:
             # the first DIA's partition, cut to n_out
             tb = np.clip(np.concatenate([[0], np.cumsum(pulls[0].counts)]),
                          0, n_out)
             counts = np.diff(tb).astype(np.int64)
-            aligned = [_realign_or_keep(p, tb, n_out) for p in pulls]
+            aligned = [_realign_or_keep(p, tb, n_out, (self.id, i))
+                       for i, p in enumerate(pulls)]
         cap = max(a.cap for a in aligned)
         aligned = [_repad(a, cap) for a in aligned]
         from .. import fusion
@@ -308,8 +315,10 @@ class ZipWindowNode(DIABase):
         chunk_counts = np.diff(cb).astype(np.int64)
         chunk_cap = max(1, int(chunk_counts.max()))
         trees = []
-        for p, wsz in zip(pulls, self.window):
-            a = _repad(_realign_or_keep(p, cb * wsz, n_out * wsz),
+        for i, (p, wsz) in enumerate(zip(pulls, self.window)):
+            a = _repad(_realign_or_keep(p, cb * wsz, n_out * wsz,
+                                        (self.id, i, "zw"),
+                                        min_cap=chunk_cap * wsz),
                        chunk_cap * wsz)
             trees.append(pt.tree_map(
                 lambda l, wsz=wsz: l[:, :chunk_cap * wsz].reshape(

@@ -11,6 +11,12 @@ as the reference reads them.
     THRILL_TPU_CKPT_DIR   checkpoint epochs' directory (unset = off)
     THRILL_TPU_RESUME     1: resume from the newest committed epoch
     THRILL_TPU_CKPT_AUTO  1: seal every freshly computed op's result
+    THRILL_TPU_EXCHANGE   exchange mode: dense (default), onefactor
+    THRILL_TPU_PLAN_STORE plan store directory (unset = off)
+    THRILL_TPU_OVERLAP    0: bulk-synchronous exchanges (master switch)
+    THRILL_TPU_XCHG_CAP_CACHE  0: no optimistic capacity-plan reuse
+    THRILL_TPU_WIRE_COMPRESS   0: full-width rows (master of NARROW)
+    THRILL_TPU_XCHG_NARROW     0: no phase-B row narrowing
 
 Sizes take SI and IEC suffixes ("64K", "1Gi", "2GB"). The spill
 directory defaults to the temporary directory (``TMPDIR``), not the
@@ -63,6 +69,48 @@ def _env_flag(name: str, default: bool = True) -> bool:
     return v not in ("0", "off", "false")
 
 
+def overlap_enabled() -> bool:
+    """THRILL_TPU_OVERLAP=0 restores the bulk-synchronous exchange
+    exactly: one phase-B dispatch and a host read of every send matrix.
+    Master switch over THRILL_TPU_XCHG_CHUNKS and
+    THRILL_TPU_XCHG_CAP_CACHE."""
+    return _env_flag("THRILL_TPU_OVERLAP", True)
+
+
+def cap_cache_enabled() -> bool:
+    """THRILL_TPU_XCHG_CAP_CACHE=0 turns off the optimistic reuse of a
+    call site's capacity plan: every exchange then reads its ``[W, W]``
+    send matrix on the host before phase B."""
+    return overlap_enabled() and _env_flag("THRILL_TPU_XCHG_CAP_CACHE",
+                                           True)
+
+
+def wire_compress_enabled() -> bool:
+    """THRILL_TPU_WIRE_COMPRESS=0 ships every exchanged row at its
+    declared dtype (the master switch of phase-B narrowing; the host
+    frame codec it also switches in the reference is not ported)."""
+    return _env_flag("THRILL_TPU_WIRE_COMPRESS", True)
+
+
+def xchg_narrow_enabled() -> bool:
+    """THRILL_TPU_XCHG_NARROW=0 turns off phase-B row narrowing alone;
+    results are bit-equal either way (an exact integer cast chosen from
+    observed ranges)."""
+    return wire_compress_enabled() and _env_flag(
+        "THRILL_TPU_XCHG_NARROW", True)
+
+
+def round_up_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    if n <= 1:
+        return 1
+    return 1 << (int(n) - 1).bit_length()
+
+
+def round_up(n: int, granularity: int) -> int:
+    return ((n + granularity - 1) // granularity) * granularity
+
+
 @dataclasses.dataclass
 class Config:
     """Host-level configuration of one Context."""
@@ -85,6 +133,15 @@ class Config:
     resume: bool = False
     # seal every freshly computed op's result, not only Checkpoint()s
     ckpt_auto: bool = False
+    # exchange mode: "dense" (one padded all-to-all, switched to the
+    # 1-factor rounds by the cost model when the send matrix is skewed)
+    # or "onefactor" (always W - 1 rounds, each padded to its own pair
+    # maximum); "ragged" and "stream" are ROADMAP item 2's next slice
+    exchange: str = "dense"
+    # plan store directory ("" = off; service/plan_store.py): learned
+    # capacities, narrow ranges, plan kinds, pre-shuffle verdicts and
+    # loop tape outcomes survive a restart
+    plan_store: str = ""
 
     @staticmethod
     def from_env() -> "Config":
@@ -96,4 +153,8 @@ class Config:
                       log_path=os.environ.get("THRILL_TPU_LOG") or None,
                       ckpt_dir=os.environ.get("THRILL_TPU_CKPT_DIR") or "",
                       resume=bool(_env_int("THRILL_TPU_RESUME")),
-                      ckpt_auto=bool(_env_int("THRILL_TPU_CKPT_AUTO")))
+                      ckpt_auto=bool(_env_int("THRILL_TPU_CKPT_AUTO")),
+                      exchange=os.environ.get("THRILL_TPU_EXCHANGE")
+                      or "dense",
+                      plan_store=os.environ.get("THRILL_TPU_PLAN_STORE")
+                      or "")

@@ -232,6 +232,8 @@ class DeviceShards:
 
     def to_worker_arrays(self) -> List[Any]:
         """W pytrees of numpy arrays, trimmed to the counts."""
+        # a pending check may heal the tree: run it before reading it
+        self.validate_pending()
         host = pt.tree_map(self.mesh_exec.fetch, self.tree)
         return [pt.tree_map(lambda a, w=w: a[w, :int(self.counts[w])], host)
                 for w in range(self.num_workers)]

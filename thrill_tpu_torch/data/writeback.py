@@ -28,7 +28,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
 
 from ..common import faults
-from ..common.config import _env_flag
+from ..common.config import _env_flag, overlap_enabled
 from ..common.iostats import IO as _IOSTATS
 
 #: most write jobs waiting behind the running one
@@ -36,8 +36,9 @@ QUEUE_DEPTH = 2
 
 
 def writeback_enabled() -> bool:
-    """``THRILL_TPU_WRITEBACK=0`` writes spills on the caller's thread."""
-    return _env_flag("THRILL_TPU_WRITEBACK", True)
+    """``THRILL_TPU_WRITEBACK=0`` (or the ``THRILL_TPU_OVERLAP=0``
+    master switch) writes spills on the caller's thread."""
+    return overlap_enabled() and _env_flag("THRILL_TPU_WRITEBACK", True)
 
 
 class AsyncWriter:

@@ -254,7 +254,22 @@ class SpilledShards:
             check(bid)
             self.pool.get_into(bid, _byte_view(leaves[li][w]).numpy())
 
-        ra = make_readahead(prefetch_depth()) if len(flat) > 1 else None
+        from ..common.decisions import record_of, resolve_io_prefetch
+        from ..common.iostats import IO as _IOSTATS
+        depth = prefetch_depth()
+        pl = getattr(mex, "planner", None)
+        if pl is not None and pl.enabled and len(flat) > 1:
+            # the learned depth, consulted only where a readahead runs
+            depth = pl.io_prefetch_depth("hbm.restore", depth)
+        ra = make_readahead(depth) if len(flat) > 1 else None
+        io0 = _IOSTATS.snapshot()
+        rec = None
+        if ra is not None:
+            rec = record_of(mex, "io_prefetch", "hbm.restore",
+                            f"depth={depth}", predicted=1.0,
+                            reason="overlap next block's read with the "
+                                   "current upload",
+                            blocks=len(flat), depth=depth)
         try:
             for _ in overlapped_fetch(flat, fetch, "hbm.restore", ra,
                                       skip_fn=lambda it: self.pool.resident(
@@ -263,6 +278,8 @@ class SpilledShards:
         finally:
             if ra is not None:
                 ra.shutdown(wait=True, cancel_futures=True)
+            resolve_io_prefetch(mex, rec,
+                                _IOSTATS.delta(_IOSTATS.snapshot(), io0))
         return DeviceShards(mex, pt.unflatten(self.treedef, leaves),
                             self.counts.copy())
 

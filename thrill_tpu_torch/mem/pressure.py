@@ -233,6 +233,12 @@ class PressureMonitor:
         # shapes (api/fusion.py); one slot, taken by the dispatch
         self._out_hint: Optional[int] = None
 
+    def inadmissible(self, est_bytes: int) -> bool:
+        """True when ``est_bytes`` cannot fit under the watermark at any
+        spill level: the planner's HBM term (api/planner.py), which
+        splits such a chain before its dispatch."""
+        return self.enabled and est_bytes > self.budget * self.watermark
+
     # -- rung 1: admission ----------------------------------------------
     def _limit(self) -> int:
         return int(self.budget * self.watermark)
@@ -337,6 +343,15 @@ class PressureMonitor:
             if admission:
                 self.admission_spills += 1
             self.spilled_bytes += freed
+            # the eviction choice in the decision ledger: the policy
+            # that ran, what it was asked to free and what it freed
+            from ..common.decisions import record_of, resolve_of
+            rec = record_of(self.mex, "io_evict", "mem.pressure",
+                            "spill-lru-cold",
+                            predicted=need if need else None,
+                            reason="admission watermark" if admission
+                            else "oom-retry ladder")
+            resolve_of(self.mex, rec, freed)
         return freed
 
     # -- rung 2: OOM retry ----------------------------------------------

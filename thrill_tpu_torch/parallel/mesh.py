@@ -22,8 +22,11 @@ function runs eagerly, its kernels queued without a host round trip.
 Host fetches go through :meth:`MeshExec.fetch`, which counts them
 (``stats_fetches``) and first drains the deferred checks (the hinted
 join's overflow check), so no result leaves the device past an unrun
-check; :meth:`MeshExec._fetch_raw` is the uncounted transfer the checks
-themselves use.
+check; :meth:`MeshExec._fetch_raw` is the transfer the checks themselves
+use, outside ``stats_fetches``. Every transfer through the two, counted
+or not, adds one to ``stats_transfers``: each waits for the card's queue
+(the radix engine's live-digit read, ``pallas_sort.live_reads``, is a
+sync outside both).
 
 The loop layer (``api/loop.py``) records at the same choke point: while
 a capture runs, ``loop_recorder`` sees every outermost dispatch after it
@@ -34,6 +37,9 @@ values), which are the tape's legitimate constants.
 
 from __future__ import annotations
 
+import os
+import threading
+import time
 import weakref
 from collections import Counter
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
@@ -45,6 +51,21 @@ from ..common import faults
 from ..common.retry import default_policy
 
 DeviceLike = Union[str, torch.device, None]
+
+# the mesh whose node compute or dispatch is running on this thread
+_TLS = threading.local()
+
+
+def current_mex() -> Optional["MeshExec"]:
+    """The mesh of the dispatch or node compute in progress, or None."""
+    return getattr(_TLS, "mex", None)
+
+
+def bind_current(mex: Optional["MeshExec"]) -> Optional["MeshExec"]:
+    """Make ``mex`` the current mesh; returns the one it replaces."""
+    prev = getattr(_TLS, "mex", None)
+    _TLS.mex = mex
+    return prev
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -66,7 +87,7 @@ class Program:
     size, learned on its first call while admission is on (the cost
     model's per-program estimate)."""
 
-    __slots__ = ("mex", "fn", "key", "out_bytes", "calls")
+    __slots__ = ("mex", "fn", "key", "out_bytes", "calls", "engine_recs")
 
     def __init__(self, mex: "MeshExec", fn: Callable, key: Tuple) -> None:
         # the mesh caches its programs: a strong reference back would
@@ -77,6 +98,9 @@ class Program:
         self.key = key
         self.out_bytes: Optional[int] = None
         self.calls = 0
+        # sort-engine decisions made on the first call, joined with a
+        # later call's host time (core/device_sort.py)
+        self.engine_recs: List[Any] = []
 
     def __call__(self, *args, **kwargs):
         return self.mex.dispatch(self, args, kwargs)
@@ -117,12 +141,16 @@ class MeshExec:
         # back to the host (the Window family)
         self.device_runs: Counter = Counter()
         self._cache: Dict[Tuple, Any] = {}
-        # the dispatch choke point's counters: program calls, host
-        # fetches (each a sync of the queue), and program stitching's
+        # the dispatch choke point's counters: program calls, counted
+        # host fetches (the reference's ``device_fetches``), every
+        # device-to-host transfer (each a sync of the queue; the
+        # deferred checks' too, which the reference leaves uncounted),
+        # and program stitching's
         # (api/fusion.py) stitched dispatches, the op segments they
         # carried and each stage's composition (op labels -> launches)
         self.stats_dispatches = 0
         self.stats_fetches = 0
+        self.stats_transfers = 0
         self.stats_fused_dispatches = 0
         self.stats_fused_ops = 0
         self.fused_stage_counts: Dict[Tuple[str, ...], int] = {}
@@ -147,6 +175,40 @@ class MeshExec:
         # logger, attached by the Context; None on a bare mesh
         self.pressure = None
         self.logger = None
+        # the plan layer (data/exchange.py): exchanges whose phase B ran
+        # with no host read of the send matrix, the capacity-plan
+        # cache's hits and misses, padded rows, the bytes phase B copies
+        # between workers (narrowed) beside their full-width equivalent
+        self.stats_exchanges_overlapped = 0
+        self.stats_cap_cache_hits = 0
+        self.stats_cap_cache_misses = 0
+        self.stats_padded_rows = 0
+        self.stats_bytes_wire_device = 0
+        self.stats_bytes_wire_device_raw = 0
+        # host-to-device uploads (put_small and the sources' bless)
+        self.stats_uploads = 0
+        # data-driven plan constructions from a host send matrix or a
+        # pre-shuffle cost model, and plan-store seeds consumed in their
+        # place (service/plan_store.py): a warm restart makes no builds
+        self.stats_plan_builds = 0
+        self.stats_plan_store_hits = 0
+        # the decision ledger (common/decisions.py) and the planner
+        # (api/planner.py), attached by the Context
+        self.decisions = None
+        self.planner = None
+        # exchange mode: the Context sets it from Config.exchange; the
+        # THRILL_TPU_EXCHANGE override is read once, here
+        self.exchange_mode = "dense"
+        self._env_exchange = os.environ.get("THRILL_TPU_EXCHANGE") or None
+        # the dispatch-latency spine: the least host time a dispatch
+        # took to queue its work (a CUDA launch returns before the work
+        # ends, so this is the launch overhead) and the samples seen;
+        # data/exchange.py calibrates bytes_eq from it
+        self._disp_lat_min = float("inf")
+        self._disp_lat_n = 0
+        # the outermost program running (core/device_sort.py records its
+        # engine decision on a program's first call only)
+        self.current_program: Optional[Program] = None
 
     def cached(self, key: Tuple, builder: Callable[[], Any]) -> Any:
         """``builder()``'s result, built once per key on this mesh."""
@@ -163,8 +225,53 @@ class MeshExec:
 
     def program(self, key: Tuple, fn: Callable) -> Program:
         """``fn`` behind the dispatch choke point, one :class:`Program`
-        per key."""
-        return self.cached(key, lambda: Program(self, fn, key))
+        per key. A plan store's learned output size for the key seeds a
+        new program's admission estimate."""
+        prog = self._cache.get(key)
+        if prog is None:
+            prog = self._cache[key] = Program(self, fn, key)
+            seed = getattr(self, "_out_bytes_seed", None)
+            if seed:
+                self._seed_out_bytes(prog, seed)
+        return prog
+
+    def _seed_out_bytes(self, prog: Program, seed: dict) -> None:
+        from ..data.exchange import _ident_digest
+        v = seed.pop(_ident_digest(prog.key), None)
+        if v is None:
+            return
+        try:
+            prog.out_bytes = int(v)
+        except (TypeError, ValueError):
+            return                   # a bad store value costs nothing
+        self.stats_plan_store_hits += 1
+        led = self.decisions
+        if led is not None and led.enabled:
+            led.record("store_seed", site="prog:" + str(prog.key[0]),
+                       chosen="out_bytes", predicted=prog.out_bytes,
+                       reason="warm-start learned size")
+
+    # -- plan-state persistence (service/plan_store.py) -----------------
+    def export_learned_sizes(self) -> dict:
+        """Learned output sizes of the programs, by key digest, with
+        the imported seeds not consumed."""
+        from ..data.exchange import _ident_digest
+        out = {}
+        for key, prog in self._cache.items():
+            ob = getattr(prog, "out_bytes", None)
+            if isinstance(prog, Program) and ob:
+                out[_ident_digest(key)] = int(ob)
+        for dg, v in (getattr(self, "_out_bytes_seed", None)
+                      or {}).items():
+            out.setdefault(dg, v)
+        return out
+
+    def import_learned_sizes(self, m: dict) -> int:
+        seed = getattr(self, "_out_bytes_seed", None)
+        if seed is None:
+            seed = self._out_bytes_seed = {}
+        seed.update({str(k): v for k, v in m.items()})
+        return len(m)
 
     def dispatch(self, prog: Program, args: tuple, kwargs: dict):
         """Run one program call: count it, admit it (rung 1), retry
@@ -195,6 +302,11 @@ class MeshExec:
         pres = self.pressure
         if pres is not None and pres.enabled:
             pres.admit_call(prog, args)
+        outer = self.current_program
+        if outer is None:
+            self.current_program = prog
+        prev_mex = bind_current(self)
+        t0 = time.perf_counter()
         try:
             if not faults.REGISTRY.active():
                 out = prog.fn(*args, **kwargs)
@@ -212,6 +324,22 @@ class MeshExec:
             if not (_pressure.retry_enabled() and _pressure.is_oom_error(e)):
                 raise
             out = _pressure.recover_dispatch(prog, args, kwargs, e)
+        finally:
+            bind_current(prev_mex)
+            if outer is None:
+                self.current_program = None
+        # the dispatch-latency spine: two clock reads, no sync
+        dt = time.perf_counter() - t0
+        if dt < self._disp_lat_min:
+            self._disp_lat_min = dt
+        self._disp_lat_n += 1
+        if prog.engine_recs and prog.calls > 1:
+            # the first call's time is the build's: a later one joins
+            led = self.decisions
+            if led is not None and led.enabled:
+                for rec in prog.engine_recs:
+                    led.resolve(rec, dt * 1e6)
+            prog.engine_recs = []
         if pres is not None and pres.enabled and prog.out_bytes is None:
             prog.out_bytes = tensor_bytes(out)
         return out
@@ -228,6 +356,7 @@ class MeshExec:
         program, which could hold loop data; an upload's host values
         were read through :meth:`fetch` (where the capture checks them)
         or never came from the device."""
+        self.stats_uploads += 1
         rec = self.loop_recorder
         if rec is not None:
             rec.bless(t)
@@ -242,7 +371,9 @@ class MeshExec:
 
     def _fetch_raw(self, t: torch.Tensor) -> np.ndarray:
         """:meth:`fetch` without the count and the drain, for the
-        deferred checks themselves. A loop capture sees the read."""
+        deferred checks themselves (counted in ``stats_transfers`` only).
+        A loop capture sees the read."""
+        self.stats_transfers += 1
         rec = self.loop_recorder
         if rec is not None:
             rec.on_fetch(t, inside=self._depth > 0)

@@ -29,7 +29,11 @@ _REMOTE = ("s3", "hdfs", "http", "https")
 
 def prefetch_depth() -> int:
     """``THRILL_TPU_PREFETCH``: blocks a readahead keeps in flight ahead
-    of its consumer (default 4; 0 reads on demand)."""
+    of its consumer (default 4; 0 reads on demand, as the
+    ``THRILL_TPU_OVERLAP=0`` master switch does)."""
+    from ..common.config import overlap_enabled
+    if not overlap_enabled():
+        return 0
     try:
         return max(0, int(os.environ.get("THRILL_TPU_PREFETCH", "4") or 4))
     except ValueError:

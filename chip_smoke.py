@@ -802,19 +802,26 @@ def terasort(torch, np, tt, W: int, pk, ps, exchange_mod):
         f"exchanged items {ctx.mesh_exec.stats_items_moved}")
     del d, out
     # warm repeat, data already resident: the Sort alone
-    warm = []
+    warm, disp = [], []
     for _ in range(2):
         ctx2 = tt.Context(num_workers=W, device=DEVICE)
         src = ctx2.Distribute(recs).Keep()
         src.Execute()
         torch.cuda.synchronize()
+        d0 = ctx2.mesh_exec.stats_dispatches
         t0 = time.perf_counter()
         res = src.Sort(key_fn=lambda r: r["key"]).AllGatherArrays()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
+        disp.append(ctx2.mesh_exec.stats_dispatches - d0)
         del res
+    # the reference's programs: sort_keys, sort_classify, sort_fused
+    if W > 1 and disp != [3, 3]:
+        raise AssertionError(f"W={W} Sort: {disp} dispatches a sort, "
+                             f"expected 3")
     log(f"terasort W={W} warm Sort+AllGatherArrays seconds: "
-        f"{[round(s, 6) for s in warm]} (host clock after synchronize)")
+        f"{[round(s, 6) for s in warm]} (host clock after synchronize); "
+        f"device_dispatches a sort {disp}")
     if W > 1:
         from torch.profiler import ProfilerActivity, profile as tprof
         ctx3 = tt.Context(num_workers=W, device=DEVICE)
@@ -1468,7 +1475,10 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
         f"{got_counts[-1].astype(np.int64).tolist()}); {secs:.3f} s "
         f"(first run, host clock after synchronize, from numpy points to "
         f"numpy centers; numpy's Lloyd {np_secs:.1f} s); launches "
-        f"{json.dumps(launches)}; exchanges {stats['exchanges']}, items "
+        f"{json.dumps(launches)}; cap_cache_misses "
+        f"{stats['cap_cache_misses']} hits {stats['cap_cache_hits']} "
+        f"plan_builds {stats['plan_builds']}; exchanges "
+        f"{stats['exchanges']}, items "
         f"exchanged {stats['items_moved']} ({stats['items_moved'] // iters}"
         f" an iteration, {stats['bytes_moved'] // iters} bytes); device "
         f"memory (peak, current) bytes after iteration 2 {mem.get(2)}, "
@@ -4982,6 +4992,10 @@ def plan_phase(torch, np, tt, pk, ps, card: str) -> dict:
                     f"{st['plan_builds']}; launches {json.dumps(r1['launches'])}"
                     f" [{card}]")
                 paths[f"P {name} W=4 ({mode})"] = r1["launches"]
+            if name == "q3" and on["runs"][1]["fetches"] != 3:
+                # the reference's 3: the filter's counts stay on the card
+                raise AssertionError(f"P q3: {on['runs'][1]['fetches']} "
+                                     f"warm counted fetches, expected 3")
             log(f"P {name} W=4: both runs with the cache on and the second "
                 f"with it off bit-equal to the first cache-off run")
     # a forced miss: the site's cached capacity, outgrown
@@ -5066,6 +5080,236 @@ def plan_phase(torch, np, tt, pk, ps, card: str) -> dict:
     return paths
 
 
+X_WORDS = 1 << 22              # X1: streamed WordCount words, W=4
+X_VOCAB = 1 << 20              # X1: Zipf keys over this many words
+X_DRAW = 1 << 18               # X3: threefry draws a key
+
+
+def _x_word(t):
+    return t["w"]
+
+
+def x_rows(sh):
+    """A result's per-worker rows as numpy arrays, for bit-equality."""
+    return [{k: v.copy() for k, v in t.items()} if isinstance(t, dict)
+            else t.copy() for t in sh.to_worker_arrays()]
+
+
+def x_stream(torch, np, tt, pk, ps, card: str) -> dict:
+    """X1: the streamed WordCount (``THRILL_TPU_REDUCE_STREAM=1``) at W=4
+    over X_WORDS Zipf words, its counts bit-equal to the default path's
+    worker for worker. Prints the rounds, plan builds, launches, counted
+    fetches, transfers, warm seconds against the default and each path's
+    peak ``memory_allocated``. Returns the launches of both paths."""
+    from thrill_tpu_torch.data import exchange as ex
+    rng = np.random.default_rng(SEED + 110)
+    w = ((rng.zipf(1.2, X_WORDS) - 1) % X_VOCAB).astype(np.int64)
+    recs = {"w": w, "c": np.ones_like(w)}
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+    rounds = [0]
+    real = ex.exchange_stream
+
+    def counted(*a, **k):
+        for block in real(*a, **k):
+            rounds[0] += 1
+            yield block
+
+    res = {}
+    for mode, env in (("default", {}),
+                      ("stream", {"THRILL_TPU_REDUCE_STREAM": "1"})):
+        with EnvSet(**env):
+            ex.exchange_stream = counted
+            try:
+                ctx = tt.Context(num_workers=4, device=DEVICE)
+                mex = ctx.mesh_exec
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launches(pk, ps)
+                rounds[0] = 0
+                f0, x0 = mex.stats_fetches, mex.stats_transfers
+                t0 = time.perf_counter()
+                out = x_rows(ctx.Distribute(recs).ReduceByKey(
+                    _x_word, red).node.materialize())
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                st = ctx.overall_stats()
+                res[mode] = dict(
+                    rows=out, first=first, rounds=rounds[0],
+                    launches=read_launches(pk, ps),
+                    fetches=mex.stats_fetches - f0,
+                    transfers=mex.stats_transfers - x0,
+                    plan_builds=st["plan_builds"],
+                    peak=torch.cuda.max_memory_allocated())
+                warm = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    ctx.Distribute(recs).ReduceByKey(
+                        _x_word, red).node.materialize().counts
+                    torch.cuda.synchronize()
+                    warm.append(time.perf_counter() - t0)
+                res[mode]["warm"] = warm
+                ctx.close()
+            finally:
+                ex.exchange_stream = real
+    a, b = res["stream"], res["default"]
+    if not p_same(np, a["rows"], b["rows"]):
+        raise AssertionError("X1: the streamed WordCount differs from the "
+                             "default path")
+    if int(sum(r["c"].sum() for r in a["rows"])) != X_WORDS:
+        raise AssertionError("X1: the counts do not add up to the words")
+    if a["rounds"] != 4 or b["rounds"] != 0:
+        raise AssertionError(f"X1: rounds {a['rounds']} (stream) "
+                             f"{b['rounds']} (default)")
+    for name in ("partition_histogram", "radix_upsweep", "radix_pass",
+                 "presence_fill"):
+        if a["launches"][name] <= 0:
+            raise AssertionError(f"X1: {name} was not launched on the "
+                                 f"streamed path")
+    for mode in ("stream", "default"):
+        r = res[mode]
+        log(f"X1 wordcount W=4 {mode} ({X_WORDS} Zipf words over "
+            f"{X_VOCAB}): rounds {r['rounds']}; plan_builds "
+            f"{r['plan_builds']}; launches [B1 upsweep pass B4] "
+            f"{[r['launches'][k] for k in ('partition_histogram', 'radix_upsweep', 'radix_pass', 'presence_fill')]}"
+            f"; counted fetches {r['fetches']}; transfers {r['transfers']}; "
+            f"first run {r['first']:.4f} s, warm {[round(x, 6) for x in r['warm']]}"
+            f" s (host clock after synchronize, from numpy words); peak "
+            f"memory_allocated {r['peak']} bytes [{card}]")
+    log(f"X1 wordcount W=4: the streamed counts bit-equal to the default "
+        f"path's, worker for worker [{card}]")
+    return {"X1 wordcount W=4 (stream)": a["launches"],
+            "X1 wordcount W=4 (default)": b["launches"]}
+
+
+def x_ragged(torch, np, tt, pk, ps, card: str) -> dict:
+    """X2: ``THRILL_TPU_EXCHANGE=ragged`` against dense on phase P's three
+    W=4 jobs (PageRank on the plain loop, Q3-lite, TeraSort), each on one
+    Context, twice: the warm run's result bit-equal to dense, its device
+    bytes against the full-width ones, its peak memory, its exchange
+    device ms (CUDA events) and launches."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.examples import tpch as ttp
+    rng = np.random.default_rng(SEED + 90)
+    edges = tpr.zipf_graph(P_PAGES, 4 * P_PAGES, seed=SEED + 91)
+    tables = ttp.generate_tables(P_ORDERS, 4, seed=SEED + 92)
+    rec = np.frombuffer(rng.bytes(P_RECORDS * 100), dtype=np.uint8
+                        ).reshape(P_RECORDS, 100)
+    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+    del rec
+    jobs = {
+        "pagerank": lambda ctx: tpr.page_rank(ctx, edges, P_PAGES,
+                                              iterations=P_ITERS),
+        "q3": lambda ctx: p_q3(tt, ctx, *tables),
+        "terasort": lambda ctx: p_host(ctx.Distribute(recs).Sort(
+            key_fn=_p_tkey).AllGatherArrays()),
+    }
+    paths = {}
+    with XchgTimer(torch) as timer:
+        for name, job in jobs.items():
+            got = {}
+            for mode in ("dense", "ragged"):
+                with EnvSet(THRILL_TPU_EXCHANGE=mode,
+                            THRILL_TPU_LOOP_REPLAY="0"):
+                    ctx = tt.Context(num_workers=4, device=DEVICE)
+                    job(ctx)
+                    s0 = ctx.overall_stats()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    zero_launches(pk, ps)
+                    timer.clear()
+                    t0 = time.perf_counter()
+                    res = job(ctx)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    s1 = ctx.overall_stats()
+                    got[mode] = dict(
+                        res=res, secs=secs, xchg_ms=timer.ms(),
+                        peak=torch.cuda.max_memory_allocated(),
+                        launches=read_launches(pk, ps),
+                        **{k: s1[k] - s0[k] for k in (
+                            "bytes_wire_device", "bytes_wire_device_raw",
+                            "device_dispatches", "device_fetches")})
+                    ctx.close()
+                    torch.cuda.empty_cache()
+            if not p_same(np, got["ragged"]["res"], got["dense"]["res"]):
+                raise AssertionError(f"X2 {name}: ragged differs from dense")
+            for mode in ("dense", "ragged"):
+                r = got[mode]
+                log(f"X2 {name} W=4 {mode} (warm run): bytes_wire_device "
+                    f"{r['bytes_wire_device']} of raw "
+                    f"{r['bytes_wire_device_raw']}; peak memory_allocated "
+                    f"{r['peak']} bytes; exchange device ms "
+                    f"{r['xchg_ms']:.3f}; {r['secs']:.4f} s; dispatches "
+                    f"{r['device_dispatches']}; counted fetches "
+                    f"{r['device_fetches']}; launches "
+                    f"{json.dumps(r['launches'])} [{card}]")
+                paths[f"X2 {name} W=4 ({mode})"] = r["launches"]
+            log(f"X2 {name} W=4: ragged bit-equal to dense [{card}]")
+    return paths
+
+
+def x_draws(torch, np, tt, pk, ps, card: str) -> dict:
+    """X3: the threefry bits and f64 uniforms drawn on the card are
+    bit-equal to the same function on CPU tensors; Sample and
+    BernoulliSample at W=4 keep the CPU mesh's items."""
+    from thrill_tpu_torch.common import threefry
+    for seed in (0, 1, (1 << 31) - 1, (1 << 32) + 5, -3):
+        kc = threefry.fold_in(threefry.prng_key(seed),
+                              torch.arange(8, device=DEVICE))
+        kh = kc.cpu()
+        for what, fn in (("bits32", lambda k: threefry.random_bits(
+                k, 32, (X_DRAW,))),
+                         ("bits64", lambda k: threefry.random_bits(
+                             k, 64, (X_DRAW,))),
+                         ("f64", lambda k: threefry.uniform(k, (X_DRAW,))),
+                         ("f32", lambda k: threefry.uniform(
+                             k, (X_DRAW,), torch.float32))):
+            if not torch.equal(fn(kc).cpu(), fn(kh)):
+                raise AssertionError(f"X3 threefry {what} seed {seed}: "
+                                     f"the card differs from the CPU")
+    log(f"X3 threefry: keys, 32/64-bit draws and f64/f32 uniforms of 8 "
+        f"workers x {X_DRAW} on the card bit-equal to the CPU's, seeds 0, "
+        f"1, 2^31 - 1, 2^32 + 5, -3 [{card}]")
+    vals = np.random.default_rng(SEED + 120).integers(0, 1 << 40, 1 << 20)
+    got = {}
+    for dev in (DEVICE, "cpu"):
+        ctx = tt.Context(num_workers=4, device=dev)
+        src = ctx.Distribute(vals).Cache().Keep(2)
+        if dev == DEVICE:
+            zero_launches(pk, ps)
+        got[dev] = ([a.tolist() for a in src.Sample(
+            64, seed=1 << 22).node.materialize().to_worker_arrays()],
+                    [a.tolist() for a in src.BernoulliSample(
+                        1e-3, seed=7).node.materialize().to_worker_arrays()])
+        if dev == DEVICE:
+            launches = read_launches(pk, ps)
+        ctx.close()
+    if got[DEVICE] != got["cpu"]:
+        raise AssertionError("X3: Sample/BernoulliSample on the card keep "
+                             "other items than on the CPU")
+    log(f"X3 Sample(64) and BernoulliSample(1e-3) W=4 over {len(vals)} "
+        f"values: the card keeps the CPU mesh's items ("
+        f"{sum(len(r) for r in got['cpu'][0])} and "
+        f"{sum(len(r) for r in got['cpu'][1])}); launches "
+        f"{json.dumps(launches)} [{card}]")
+    return {"X3 sample W=4": launches}
+
+
+def x_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase X: the streamed WordCount, the ragged exchange, the draws."""
+    t_x = time.perf_counter()
+    paths = x_stream(torch, np, tt, pk, ps, card)
+    torch.cuda.empty_cache()
+    paths.update(x_ragged(torch, np, tt, pk, ps, card))
+    torch.cuda.empty_cache()
+    paths.update(x_draws(torch, np, tt, pk, ps, card))
+    log(f"exchange phase (X): {time.perf_counter() - t_x:.1f} s of host "
+        f"clock [host {cpu_line()}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5109,6 +5353,10 @@ def main() -> int:
     if "--phase-p" in sys.argv:
         # phase P alone
         log(json.dumps(plan_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-x" in sys.argv:
+        # phase X alone
+        log(json.dumps(x_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -5212,6 +5460,8 @@ def main() -> int:
         f"clock, numpy references included [host {cpu_line()}; {card}]")
     torch.cuda.empty_cache()
     p_paths = plan_phase(torch, np, tt, pk, ps, card)
+    torch.cuda.empty_cache()
+    x_paths = x_phase(torch, np, tt, pk, ps, card)
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -5304,7 +5554,7 @@ def main() -> int:
              "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
-             **l_paths, **p_paths}
+             **l_paths, **p_paths, **x_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

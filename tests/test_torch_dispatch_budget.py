@@ -145,8 +145,8 @@ def test_kmeans_full_run_fetches(W):
 def test_bytes_wire_device_is_the_reference_s(W):
     """A ReduceByKey's padded phase-B bytes: the dense plan's W (W - 1)
     M_pad rows times the item bytes, in both packages: equal to the
-    reference's for one padded row (the padded capacity M_pad is rounded
-    differently, ``exchange.round_cap``)."""
+    reference's for one padded row (a CPU mesh rounds M_pad as the
+    reference, the card by ``exchange.round_cap``)."""
     vals = np.arange(2048, dtype=np.int64)
     got = {}
     for pkg in ("port", "ref"):

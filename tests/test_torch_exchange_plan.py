@@ -426,10 +426,30 @@ def test_chunk_fault_retries_transient(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", ["ragged", "stream"])
-def test_unported_modes_raise(mode, monkeypatch):
+@pytest.mark.parametrize("W", [2, 4])
+def test_configured_modes_run_against_the_reference(mode, W, monkeypatch):
+    """``THRILL_TPU_EXCHANGE=ragged`` and ``=stream`` run (no mode of the
+    reference's raises): three exchanges at one site give the
+    reference's dense rows worker for worker, each plans from the host
+    send matrix (no cached plan, no overlapped exchange), and under
+    ``stream``, which the reference takes as a synced dense plan, the
+    plan counters are the reference's under the same setting."""
+    cols = _columns(np.random.default_rng(W + 40), 3000)
+    want = _direct(_ref(W), cols, 3)
     monkeypatch.setenv("THRILL_TPU_EXCHANGE", mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
-        _port(2)
+    ctx = _port(W)
+    got = _direct(ctx, cols, 3)
+    st = _stats(ctx)
+    ctx.close()
+    for g, w in zip(got, want):
+        _same(g, w)
+    assert st["cap_cache_hits"] == st["exchanges_overlapped"] == 0
+    assert st["plan_builds"] == 3
+    if mode == "stream":
+        jctx = _ref(W)
+        _direct(jctx, cols, 3)
+        assert st == _stats(jctx)
+        jctx.close()
 
 
 def test_bytes_eq_live_calibration(monkeypatch):

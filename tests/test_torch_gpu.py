@@ -1195,3 +1195,172 @@ def test_planned_exchange_on_the_card_is_bit_equal(cuda_device,
         for g in got:
             for a, b in zip(g, want[0]):
                 assert all(np.array_equal(a[k], b[k]) for k in a)
+
+
+# -- the streamed and ragged exchanges, the draws, the filter, the Sort -----
+
+def _worker_rows(shards):
+    return [{k: np.asarray(v) for k, v in t.items()}
+            for t in shards.to_worker_arrays()]
+
+
+def _cols(n, seed):
+    rng = np.random.default_rng(seed)
+    return {"k": rng.integers(-(1 << 40), 1 << 40, n).astype(np.int64),
+            "small": rng.integers(0, 200, n).astype(np.int64),
+            "f": rng.normal(size=n)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 2, 4])
+def test_stream_rounds_on_the_card_are_the_cpu_s(cuda_device, W):
+    """Every round of the streamed exchange on the card: the rows and
+    counts the CPU mesh yields."""
+    from thrill_tpu_torch.data import exchange as ex
+    cols = _cols(1 << 15, W)
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        ctx = tt.Context(num_workers=W, device=dev)
+        sh = ctx.Distribute(cols).node.materialize()
+        got[str(dev)] = [(_worker_rows(b), b.counts.tolist()) for b in
+                         ex.exchange_stream(sh, lambda t, m, w: torch.remainder(
+                             t["small"], W), ("gpu_stream",))]
+        ctx.close()
+    a, b = got[str(cuda_device)], got["cpu"]
+    assert len(a) == len(b) == W
+    for (ra, ca), (rb, cb) in zip(a, b):
+        assert ca == cb
+        for wa, wb in zip(ra, rb):
+            assert all(np.array_equal(wa[k], wb[k]) for k in wa)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 4])
+def test_streamed_reduce_on_the_card_is_the_cpu_s(cuda_device, W,
+                                                  monkeypatch):
+    monkeypatch.setenv("THRILL_TPU_REDUCE_STREAM", "1")
+    rng = np.random.default_rng(W)
+    w = (rng.zipf(1.3, 1 << 16) % 5000).astype(np.int64)
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        ctx = tt.Context(num_workers=W, device=dev)
+        out = ctx.Distribute({"w": w, "c": np.ones_like(w)}).ReduceByKey(
+            lambda t: t["w"], tt.FieldReduce({"w": "first", "c": "sum"}))
+        got[str(dev)] = _worker_rows(out.node.materialize())
+        ctx.close()
+    for wa, wb in zip(got[str(cuda_device)], got["cpu"]):
+        assert all(np.array_equal(wa[k], wb[k]) for k in wa)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 4])
+def test_ragged_scatter_on_the_card_is_the_dense_exchange(cuda_device, W,
+                                                          monkeypatch):
+    """The ragged program's one scatter into the receivers' rows: the
+    rows of the dense exchange, with and without narrowing."""
+    from thrill_tpu_torch.data import exchange as ex
+    cols = _cols(1 << 17, W + 3)
+
+    def run(mode):
+        monkeypatch.setenv("THRILL_TPU_EXCHANGE", mode)
+        ctx = tt.Context(num_workers=W, device=cuda_device)
+        outs = []
+        for _ in range(2):
+            sh = ctx.Distribute(cols).node.materialize()
+            outs.append(_worker_rows(ex.exchange(
+                sh, lambda t, m, w: torch.remainder(t["small"], W),
+                ("gpu_ragged",))))
+        st = ctx.overall_stats()
+        ctx.close()
+        return outs, st
+
+    dense, _ = run("dense")
+    ragged, st = run("ragged")
+    assert st["bytes_wire_device"] < st["bytes_wire_device_raw"]
+    for g, want in zip(ragged, dense):
+        for wa, wb in zip(g, want):
+            assert all(np.array_equal(wa[k], wb[k]) for k in wa)
+
+
+@pytest.mark.gpu
+def test_threefry_on_the_card_is_the_cpu_s(cuda_device):
+    from thrill_tpu_torch.api.ops import sample as tsample
+    from thrill_tpu_torch.common import threefry
+    for seed in (0, 1, (1 << 31) - 1, (1 << 32) + 5, -3):
+        keys = threefry.fold_in(threefry.prng_key(seed),
+                                torch.arange(8, device=cuda_device))
+        assert keys.cpu().tolist() == threefry.fold_in(
+            threefry.prng_key(seed), torch.arange(8)).tolist()
+        for bits in (32, 64):
+            assert torch.equal(threefry.random_bits(keys, bits, (4097,)).cpu(),
+                               threefry.random_bits(keys.cpu(), bits, (4097,)))
+        for dt in (torch.float64, torch.float32):
+            assert torch.equal(threefry.uniform(keys, (4097,), dt).cpu(),
+                               threefry.uniform(keys.cpu(), (4097,), dt))
+    u = tsample.worker_uniforms(tt.MeshExec(num_workers=4,
+                                            device=cuda_device), 9, 1 << 16)
+    assert torch.equal(u.cpu(), tsample.worker_uniforms(
+        tt.MeshExec(num_workers=4, device="cpu"), 9, 1 << 16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_samples_on_the_card_keep_the_cpu_items(cuda_device, W):
+    vals = np.random.default_rng(4).integers(0, 1 << 40, 1 << 16)
+    got = {}
+    for dev in (cuda_device, "cpu"):
+        ctx = tt.Context(num_workers=W, device=dev)
+        src = ctx.Distribute(vals).Cache().Keep(2)
+        got[str(dev)] = (
+            [a.tolist() for a in src.Sample(64, seed=1 << 16).node
+             .materialize().to_worker_arrays()],
+            [a.tolist() for a in src.BernoulliSample(0.01, seed=5).node
+             .materialize().to_worker_arrays()])
+        ctx.close()
+    assert got[str(cuda_device)] == got["cpu"]
+
+
+@pytest.mark.gpu
+def test_location_filter_counts_stay_on_the_card(cuda_device):
+    """The join's location filter is one program whose counts stay on the
+    device: no transfer until the exchange after it reads its send
+    matrix."""
+    from thrill_tpu_torch.api.ops import join as tjoin
+    ctx = tt.Context(num_workers=4, device=cuda_device)
+    mex = ctx.mesh_exec
+    rng = np.random.default_rng(3)
+    left = ctx.Distribute({"k": rng.integers(0, 5000, 1 << 14)}
+                          ).node.materialize()
+    right = ctx.Distribute({"k": rng.integers(2500, 9000, 1 << 14)}
+                           ).node.materialize()
+    left.counts, right.counts
+    x0, d0 = mex.stats_transfers, mex.stats_dispatches
+    fl, fr = tjoin._location_filter(left, right, lambda t: t["k"],
+                                    lambda t: t["k"], ("gpu_ld",))
+    assert mex.stats_transfers == x0 and mex.stats_dispatches == d0 + 1
+    assert fl._counts_host is None and fr._counts_host is None
+    lk = np.concatenate([a["k"] for a in fl.to_worker_arrays()])
+    rk = np.concatenate([a["k"] for a in fr.to_worker_arrays()])
+    # every key with a partner survives (false positives may stay)
+    common = set(left.to_global_numpy()["k"].tolist()) & set(
+        right.to_global_numpy()["k"].tolist())
+    assert common <= set(lk.tolist()) and common <= set(rk.tolist())
+    assert len(lk) <= left.total and len(rk) <= right.total
+    ctx.close()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [2, 4])
+def test_sample_sort_on_the_card_is_three_programs(cuda_device, W):
+    rng = np.random.default_rng(W)
+    recs = {"key": rng.integers(0, 256, (1 << 16, 10)).astype(np.uint8),
+            "value": rng.integers(0, 256, (1 << 16, 6)).astype(np.uint8)}
+    ctx = tt.Context(num_workers=W, device=cuda_device)
+    src = ctx.Distribute(recs).Cache()
+    src.Keep().Size()
+    d0 = ctx.mesh_exec.stats_dispatches
+    out = src.Sort(key_fn=lambda r: r["key"]).AllGatherArrays()
+    assert ctx.mesh_exec.stats_dispatches - d0 == 3
+    ctx.close()
+    order = np.lexsort(recs["key"].T[::-1])
+    assert np.array_equal(out["key"].cpu().numpy(), recs["key"][order])

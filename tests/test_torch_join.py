@@ -382,3 +382,76 @@ def test_hinted_join_equals_the_unhinted_join(W, hint, monkeypatch):
         res.append((hinted, ctx.overall_stats()["join_overflow_retries"]))
         ctx.close()
     assert res[0] == res[1]
+
+
+# -- the location filter's counts (ROADMAP.md fault C17) ---------------------
+
+def _q3_date(t):
+    return t["date"] < 1250
+
+
+def _q3_okey(t):
+    return t["key"]
+
+
+def _q3_lkey(t):
+    return t["orderkey"]
+
+
+def _q3_join(ot, lt):
+    return {"prio": ot["prio"],
+            "rev": lt["price"] * (100 - lt["discount_pct"])}
+
+
+def _q3_prio(t):
+    return t["prio"]
+
+
+def _q3_add(a, b):
+    return {"prio": a["prio"], "rev": a["rev"] + b["rev"]}
+
+
+def _q3(ctx, join, tables, ld):
+    """Q3-lite (``examples/tpch.py``) with module-level functions, so a
+    second run meets its exchange sites' cached plans."""
+    orders, lineitem = tables
+    o = ctx.Distribute(orders).Filter(_q3_date)
+    j = join(o, ctx.Distribute(lineitem), _q3_okey, _q3_lkey, _q3_join,
+             location_detection=ld)
+    return [int(t["rev"]) for t in j.ReduceToIndex(
+        _q3_prio, _q3_add, 5, neutral={"prio": 0, "rev": 0}).AllGather()]
+
+
+@pytest.mark.parametrize("W,orders,ld", [(4, 1 << 14, None),
+                                         (2, 1 << 12, True)])
+def test_location_filter_keeps_its_counts_on_the_device(W, orders, ld,
+                                                        monkeypatch):
+    """Q3-lite with the location filter on (the cost model's verdict at
+    W = 4 and 2^14 orders, forced at W = 2): two runs on one Context make
+    the reference's counted fetches and dispatches, run by run (the
+    filter is one program whose counts stay on the device: 6 then 3
+    fetches at W = 4, where a synced filter made 7 then 4)."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    from thrill_tpu_torch.examples import tpch as ttp
+    tables = ttp.generate_tables(orders, 4, seed=3)
+    out = {}
+    for pkg, make, join in (("ref", _jax_ctx, JInnerJoin),
+                            ("port", lambda W: tt.Context(
+                                num_workers=W, device="cpu"),
+                             tt.InnerJoin)):
+        ctx = make(W)
+        runs = []
+        for _ in range(2):
+            f0 = ctx.overall_stats()
+            res = _q3(ctx, join, tables, ld)
+            f1 = ctx.overall_stats()
+            runs.append((res, f1["device_fetches"] - f0["device_fetches"],
+                         f1["device_dispatches"]
+                         - f0["device_dispatches"]))
+        if pkg == "port":
+            filtered = any(isinstance(k, tuple) and k[:1] == ("join_ld",)
+                           for k in ctx.mesh_exec._cache)
+        ctx.close()
+        out[pkg] = runs
+    assert filtered
+    assert out["port"] == out["ref"]

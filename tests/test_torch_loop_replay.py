@@ -797,3 +797,71 @@ def test_a_capture_holds_nothing_for_the_collector(W):
     assert builds == (1 if W == 1 else 0)
     assert alive == 0
     ctx.close()
+
+
+# ----------------------------------------------------------------------
+# padded capacities on a CPU mesh (ROADMAP.md fault C18)
+# ----------------------------------------------------------------------
+
+PLAN_COUNTS = ("cap_cache_misses", "plan_builds", "cap_cache_hits",
+               "device_dispatches")
+
+
+@pytest.mark.parametrize("data_seed", [1, 3])
+def test_kmeans_plan_counters_at_size_are_the_reference_s(data_seed,
+                                                          monkeypatch):
+    """k-means cold at W = 4 (2^16 points of dimension 4, k = 5, 4
+    iterations, the plain loop): the capacity-plan cache's misses, plan
+    builds, hits and the dispatches equal the reference's (0, 1, 3): on
+    a CPU mesh the padded capacities round to powers of two, as the
+    reference's, so clusters drifting between iterations stay under the
+    cached plan (with five-bit capacities the points of seed 3 missed
+    twice: 2, 3 and 1)."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    monkeypatch.setenv("THRILL_TPU_LOOP_REPLAY", "0")
+    _, jkm = _ref_examples()
+    pts = np.random.default_rng(data_seed).normal(size=(1 << 16, 4))
+
+    def run(ctx, pkg):
+        mod = jkm if pkg == "ref" else tkm
+        return mod.k_means(ctx, pts, 5, iterations=4, seed=0)[0]
+
+    (rv, rs), (pv, ps) = _both(4, run)
+    assert {k: ps[k] for k in PLAN_COUNTS} == {k: rs[k] for k in PLAN_COUNTS}
+    assert ps["cap_cache_misses"] == 0
+    assert np.abs(_np(pv) - _np(rv)).max() <= 1e-9
+
+
+def test_pagerank_chunks_and_dispatches_at_size_are_the_reference_s(
+        monkeypatch):
+    """PageRank at W = 4 (2^14 pages, 2^16 edges, 4 iterations, the plain
+    loop), a cold run then a warm one on one Context: every run's
+    dispatches and plan counters equal the reference's. The contribution
+    exchange's padded volume reaches the 1 MiB chunk threshold with
+    power-of-two capacities, so it ships in 4 chunks as the reference's
+    (38 dispatches a run, where five-bit capacities shipped one chunk
+    and made 26)."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    monkeypatch.setenv("THRILL_TPU_LOOP_REPLAY", "0")
+    jpr, _ = _ref_examples()
+    edges = tpr.zipf_graph(1 << 14, 1 << 16)
+
+    def run(ctx, pkg):
+        mod = jpr if pkg == "ref" else tpr
+        per_run = []
+        for _ in range(2):
+            s0 = ctx.overall_stats()
+            ranks = mod.page_rank(ctx, edges, 1 << 14, iterations=4)
+            s1 = ctx.overall_stats()
+            per_run.append({k: s1[k] - s0[k] for k in PLAN_COUNTS})
+        chunks = []
+        if pkg == "port":
+            chunks = [d["chosen"] for d in ctx.decisions.snapshot()
+                      if d["kind"] == "xchg_chunks"]
+        return _np(ranks), per_run, chunks
+
+    (rv, _), (pv, _) = _both(4, run)
+    assert pv[1] == rv[1]
+    assert pv[1][1]["device_dispatches"] == 38
+    assert "4" in pv[2]
+    assert np.abs(pv[0] - rv[0]).max() <= PR_ATOL

@@ -190,8 +190,9 @@ def test_stale_seeded_capacity_as_the_reference(planner, tmp_path,
     the planner the guaranteed miss is caught before the dispatch (no
     healed miss, one replan, the cold run's capacities); without it the
     optimistic dispatch overflows and heals. Either way the results and
-    the plan counters are the reference's (the capacities themselves are
-    rounded differently: ``exchange.round_cap``)."""
+    the plan counters are the reference's (on a CPU mesh the capacities
+    round to powers of two as the reference's; the card's by
+    ``exchange.round_cap``)."""
     monkeypatch.setenv("THRILL_TPU_PLANNER", planner)
     out = {}
     for name, make, cfg_i in (("port", _port, 0), ("ref", _ref, 1)):

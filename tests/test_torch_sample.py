@@ -1,17 +1,19 @@
 """The port's Sample, BernoulliSample, SortStable and MeshExec.jit_cached
 against the reference package on the CPU, at W in {1, 2, 4}.
 
-The port draws with ``torch.Generator``s and cannot reproduce
-``jax.random``'s bits, so the sampling tests hold the contract: Sample's
-per-worker takes equal the reference's for the same seed (both split
-the budget with the same numpy hypergeometric draws), its rows are a
-subset in their original order; BernoulliSample keeps each item with
-probability p (counts within 5 sigma of the binomial mean), in order,
-the same rows for the same seed. SortStable must equal the reference
-row for row.
+The port draws ``jax.random``'s bits (``common/threefry.py``): the
+threefry keys, the 32- and 64-bit draws and the f64 and f32 uniforms are
+bit-equal to ``jax.random`` over the seeds 0, 1, 2^31 - 1, 2^32 + 5 and
+-3 and the workers 0-7, and Sample and BernoulliSample keep exactly the
+reference's items (tolerance: none). The contract tests stay: Sample's
+per-worker takes equal the reference's, its rows are a subset in their
+original order; BernoulliSample keeps each item with probability p
+(counts within 5 sigma of the binomial mean), in order. SortStable must
+equal the reference row for row.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,9 +24,11 @@ from thrill_tpu.parallel.mesh import MeshExec as JMeshExec
 
 import thrill_tpu_torch as tt
 from thrill_tpu_torch.api.ops import sample as tsample
+from thrill_tpu_torch.common import threefry
 from thrill_tpu_torch.common.sampling import hypergeometric_split
 
 WIDTHS = [1, 2, 4]
+SEEDS = [0, 1, (1 << 31) - 1, (1 << 32) + 5, -3]
 
 
 def _jax_ctx(W):
@@ -139,28 +143,121 @@ def test_bernoulli_sample_keeps_each_item_with_probability_p(W):
             assert r == sorted(set(r))
 
 
-def test_bernoulli_sample_seeds_and_worker_streams():
-    W, per = 4, 4096
-    src = _ctx(W).Generate(W * per).Cache().Keep(3)
-    a = _per_worker(src.BernoulliSample(0.5, seed=7))
-    assert _per_worker(src.BernoulliSample(0.5, seed=7)) == a
-    assert _per_worker(src.BernoulliSample(0.5, seed=8)) != a
-    # each worker draws its own stream: the kept local offsets differ
-    local = [tuple(x - w * per for x in r) for w, r in enumerate(a)]
-    assert len(set(local)) == W
+@pytest.mark.parametrize("seed", SEEDS)
+def test_threefry_bits_are_jax_random_s(seed):
+    """Keys, fold_in over the workers 0-7, 32- and 64-bit draws and f64
+    and f32 uniforms, bit for bit."""
+    jkey = jax.random.PRNGKey(seed)
+    key = threefry.prng_key(seed)
+    assert list(key) == np.asarray(jkey).tolist()
+    batch = threefry.fold_in(key, torch.arange(8))
+    for w in range(8):
+        jk = jax.random.fold_in(jkey, w)
+        assert list(threefry.fold_in(key, w)) == np.asarray(jk).tolist()
+        assert batch[w].tolist() == np.asarray(jk).tolist()
+        for shape in ((257,), (3, 5)):
+            k = threefry.fold_in(key, w)
+            assert np.array_equal(
+                threefry.random_bits(k, 32, shape).numpy(),
+                np.asarray(jax.random.bits(jk, shape, jnp.uint32)).astype(
+                    np.int64))
+            assert np.array_equal(
+                threefry.random_bits(k, 64, shape).numpy(),
+                np.asarray(jax.random.bits(jk, shape, jnp.uint64)).view(
+                    np.int64))
+            u = np.asarray(jax.random.uniform(jk, shape))
+            assert u.dtype == np.float64        # x64 on: f64 by default
+            assert np.array_equal(threefry.uniform(k, shape).numpy().view(
+                np.int64), u.view(np.int64))
+            u32 = np.asarray(jax.random.uniform(jk, shape, jnp.float32))
+            assert np.array_equal(threefry.uniform(
+                k, shape, torch.float32).numpy().view(np.int32),
+                u32.view(np.int32))
 
 
-def test_worker_uniforms_are_f64_on_the_mesh_device():
-    mex = tt.MeshExec(num_workers=3, device="cpu")
-    u = tsample.worker_uniforms(mex, 5, 1000)
-    assert u.dtype == torch.float64 and u.shape == (3, 1000)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_worker_uniforms_are_the_reference_draws(seed):
+    """Row w of the mesh's uniforms is the reference's draw of worker w:
+    ``uniform(fold_in(PRNGKey(seed), w), (cap,))``, f64 on the mesh's
+    device."""
+    mex = tt.MeshExec(num_workers=8, device="cpu")
+    u = tsample.worker_uniforms(mex, seed, 1000)
+    assert u.dtype == torch.float64 and u.shape == (8, 1000)
     assert u.device == mex.device
-    assert ((u >= 0) & (u < 1)).all()
-    assert torch.equal(u, tsample.worker_uniforms(mex, 5, 1000))
-    assert not torch.equal(u, tsample.worker_uniforms(mex, 5, 1000,
-                                                      stream=1))
-    # f32 draws would take at most 2^24 values: f64 ones do not tie here
-    assert len(torch.unique(u)) == u.numel()
+    for w in range(8):
+        want = np.asarray(jax.random.uniform(
+            jax.random.fold_in(jax.random.PRNGKey(seed), w), (1000,)))
+        assert np.array_equal(u[w].numpy().view(np.int64),
+                              want.view(np.int64))
+
+
+def _both_items(W, job):
+    jctx = _jax_ctx(W)
+    try:
+        want = [np.asarray(a).tolist() for a in
+                job(jctx).node.materialize().to_worker_arrays()]
+    finally:
+        jctx.close()
+    return _per_worker(job(_ctx(W))), want
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+@pytest.mark.parametrize("seed", [7, -3])
+def test_bernoulli_sample_keeps_the_reference_items(W, seed):
+    got, want = _both_items(W, lambda c: _uneven(c, 6000).BernoulliSample(
+        0.3, seed=seed))
+    assert got == want and 0 < sum(len(r) for r in got) < 6000
+
+
+@pytest.mark.parametrize("W", WIDTHS)
+@pytest.mark.parametrize("seed", [1 << 10, (1 << 16) + 3])
+def test_sample_keeps_the_reference_items(W, seed):
+    """``Sample(64, seed=n)`` as select_kth draws it: every worker keeps
+    the reference's items."""
+    got, want = _both_items(W, lambda c: c.Distribute(
+        np.random.default_rng(W).integers(0, 1 << 40, 5000)).Sample(
+            64, seed=seed))
+    assert got == want and sum(len(r) for r in got) == 64
+
+
+def test_select_kth_rounds_and_fetches_are_the_reference_s():
+    """select_kth at W = 4 over 2^16 values: the reference's rounds (its
+    Sample calls), counted fetches and dispatches, and the k-th value
+    (ROADMAP.md fault C20: other draws took 4 rounds against 2)."""
+    import os
+    import sys
+    from thrill_tpu.api.ops import sample as jsample
+    from thrill_tpu.parallel.mesh import MeshExec as JMex
+    from thrill_tpu_torch.examples import select_kth as tkth
+    ex_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "examples")
+    if ex_dir not in sys.path:
+        sys.path.insert(0, ex_dir)
+    import select_kth as jkth
+    vals = np.random.default_rng(3).integers(0, 1 << 40, 1 << 16)
+    out = {}
+    for pkg, mod, node in (("ref", jkth, jsample.SampleNode),
+                           ("port", tkth, tsample.SampleNode)):
+        calls = []
+        orig = node.compute
+
+        def counted(self, orig=orig, calls=calls):
+            calls.append(self.k)
+            return orig(self)
+
+        node.compute = counted
+        try:
+            ctx = (JContext(JMex(num_workers=4)) if pkg == "ref"
+                   else _ctx(4))
+            kth = mod.select_kth(ctx, vals, 12345)
+            st = ctx.overall_stats()
+            ctx.close()
+        finally:
+            node.compute = orig
+        out[pkg] = (int(kth), len(calls), st["device_fetches"],
+                    st["device_dispatches"])
+    assert out["port"] == out["ref"]
+    assert out["port"][0] == int(np.sort(vals)[12345])
 
 
 @pytest.mark.parametrize("W", WIDTHS)

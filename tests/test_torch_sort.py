@@ -191,3 +191,86 @@ def test_port_imports_neither_jax_nor_reference():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                    check=True, timeout=120, capture_output=True)
+
+
+# -- the W > 1 sort's programs (ROADMAP.md fault C19) ------------------------
+
+def _tkey(r):
+    return r["key"]
+
+
+@pytest.mark.parametrize("W", [2, 4])
+@pytest.mark.parametrize("n", [1 << 12, 1 << 16])
+def test_sample_sort_dispatches_the_reference_s_programs(W, n, monkeypatch):
+    """A W > 1 Sort of TeraSort records runs the reference's three
+    programs (``sort_keys``, ``sort_classify``, ``sort_fused``: 3
+    dispatches, where an eager classify and a ship program a leaf made
+    5) and makes its counted fetches (the samples and the send matrix);
+    rows equal."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    import terasort as jts
+    recs = jts.generate_records(n, seed=5)
+    out = {}
+    for pkg, make in (("ref", _jax_ctx), ("port", lambda W: tt.Context(
+            num_workers=W, device="cpu"))):
+        ctx = make(W)
+        src = ctx.Distribute(recs).Cache()
+        src.Keep().Size()
+        s0 = ctx.overall_stats()
+        got = src.Sort(key_fn=_tkey).node.materialize()
+        s1 = ctx.overall_stats()
+        out[pkg] = ({k: s1[k] - s0[k] for k in ("device_dispatches",
+                                                  "device_fetches")},
+                    got.to_global_numpy())
+        if pkg == "port":
+            progs = sorted(k[0] for k in ctx.mesh_exec._cache
+                           if isinstance(k, tuple) and k
+                           and str(k[0]).startswith("sort_"))
+        ctx.close()
+    assert out["port"][0] == out["ref"][0]
+    assert out["port"][0]["device_dispatches"] == 3
+    assert progs == ["sort_classify", "sort_fused", "sort_keys"]
+    for k in out["ref"][1]:
+        assert np.array_equal(out["port"][1][k], np.asarray(out["ref"][1][k]))
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_percentiles_dispatches_are_the_reference_s(W, monkeypatch):
+    """``examples/percentiles.py`` (a W > 1 Sort, then ZipWithIndex and a
+    Filter): the reference's answer, dispatches and counted fetches."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    sys.path.insert(0, os.path.join(REPO, "examples"))
+    import percentiles as jp
+    from thrill_tpu_torch.examples import percentiles as tp
+    v = np.random.default_rng(2).integers(0, 1 << 40, 1 << 14)
+    out = {}
+    for pkg, mod, make in (("ref", jp, _jax_ctx),
+                           ("port", tp, lambda W: tt.Context(
+                               num_workers=W, device="cpu"))):
+        ctx = make(W)
+        res = mod.percentiles(ctx, v)
+        st = ctx.overall_stats()
+        out[pkg] = (res, st["device_dispatches"], st["device_fetches"])
+        ctx.close()
+    assert out["port"] == out["ref"]
+
+
+@pytest.mark.parametrize("W", [2, 4])
+def test_generic_path_runs_a_final_merge_program(W, monkeypatch):
+    """``THRILL_TPU_SORT_FUSED=0``: the classify program, the planned
+    exchange's phase B and one ``sort_final`` program; rows equal to the
+    reference's generic path and to the fused one."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+    rng = np.random.default_rng(W)
+    items = {"k": rng.integers(0, 1 << 20, 3000).astype(np.int64),
+             "v": np.arange(3000, dtype=np.int64)}
+    fused = _both(W, lambda c: c.Distribute(items).Sort(key_fn=_tkey_k))
+    monkeypatch.setenv("THRILL_TPU_SORT_FUSED", "0")
+    ref, port = _both(W, lambda c: c.Distribute(items).Sort(key_fn=_tkey_k))
+    _assert_same(ref, port)
+    _assert_same(fused[1], port)
+
+
+def _tkey_k(r):
+    return r["k"]

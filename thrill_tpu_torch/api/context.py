@@ -56,8 +56,6 @@ class Context:
         mex = self.mesh_exec
         if self.config.exchange:
             mex.exchange_mode = self.config.exchange
-        from ..data.exchange import resolve_mode
-        resolve_mode(mex)           # an unported mode raises here
         # the decision ledger: every plan choice of the choke points,
         # one attribute read away (THRILL_TPU_DECISIONS=0: none)
         from ..common.decisions import DecisionLedger

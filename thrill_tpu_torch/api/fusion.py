@@ -42,8 +42,9 @@ tensor, so no count reaches the host between the ops.
 ``THRILL_TPU_FUSE=0`` gives the per-op path exactly. ``stats_fused_
 dispatches``/``stats_fused_ops``/``fused_stage_counts`` on the mesh and
 ``event=fused_dispatch``/``node_fused`` log lines say what was stitched.
-Not ported here: the planner's proactive split and the decision records
-(ROADMAP item 2) and the tracer spans (item 7).
+The planner's proactive split runs at the stitched dispatch
+(``_proactive_split``) and records its decision. Not ported here: the
+tracer spans (ROADMAP item 7).
 """
 
 from __future__ import annotations

@@ -54,7 +54,7 @@ from ...common.partition import dense_range_bounds
 from ...core import keys as keymod
 from ...core import preshuffle
 from ...core import segmented
-from ...core.location_detection import _MASK, common_hashes
+from ...core.location_detection import _MASK, LocationDetection
 from ...core.device_sort import argsort_words
 from ...core.pallas_kernels import presence_fill
 from ...core.rowmove import row_cumsum, scatter_slots, take_rows
@@ -300,7 +300,13 @@ class InnerJoinNode(DIABase):
                 mex, left.total + right.total, 32,
                 ("join_host", self.lkey, self.rkey), local_rows=True)
         if ld and W > 1:
-            common = common_hashes(lh, rh)
+            # every worker's fingerprint through the Golomb codec, as the
+            # reference's location exchange
+            ld_l, ld_r = LocationDetection(W), LocationDetection(W)
+            for w in range(W):
+                ld_l.add_worker(w, lh[w])
+                ld_r.add_worker(w, rh[w])
+            common = ld_l.common_hashes(ld_r)
             left, lh = _prune(left, lh, common)
             right, rh = _prune(right, rh, common)
 
@@ -341,7 +347,7 @@ class InnerJoinNode(DIABase):
         if ld:
             pre_rows = _host_rows(left), _host_rows(right)
             left, right = _location_filter(left, right, self.lkey,
-                                           self.rkey)
+                                           self.rkey, token)
         left = exchange.exchange(left, _hash_dest(self.lkey, W),
                                  ("join_l", token, W))
         right = exchange.exchange(right, _hash_dest(self.rkey, W),
@@ -480,29 +486,46 @@ def _hash_dest(key_fn: Callable, W: int) -> Callable:
     return dest
 
 
-def _location_filter(left: DeviceShards, right: DeviceShards, lkey, rkey
-                     ) -> Tuple[DeviceShards, DeviceShards]:
-    """Device LocationDetection (reference: LocationDetectionTag): each
-    side's key hashes, ``umod M``, fill its presence registers (kernel
-    ``presence_fill``), ORed over the workers (the reference's pmax); a
-    row stays when its register is set on the other side. False
+def _location_filter_prog(ltree, lcounts: torch.Tensor, rtree,
+                          rcounts: torch.Tensor, lkey, rkey, M: int):
+    """Program: each side's key hashes, ``umod M``, fill its presence
+    registers (kernel ``presence_fill``), ORed over the workers (the
+    reference's pmax); a row stays when its register is set on the
+    other side. Returns both sides compacted, with ``[W]`` device
+    counts."""
+    lcap = pt.leaves(ltree)[0].shape[1]
+    rcap = pt.leaves(rtree)[0].shape[1]
+    dev = lcounts.device
+    lvalid = torch.arange(lcap, device=dev)[None, :] < lcounts[:, None]
+    rvalid = torch.arange(rcap, device=dev)[None, :] < rcounts[:, None]
+    # int64 register ids as umod makes them: the kernel reads them as is
+    hl = hashing.umod(hashing.hash_key_words(
+        keymod.worker_key_words(lkey, ltree)), M)
+    hr = hashing.umod(hashing.hash_key_words(
+        keymod.worker_key_words(rkey, rtree)), M)
+    pres_l = presence_fill(hl, lvalid, M).amax(dim=0)
+    pres_r = presence_fill(hr, rvalid, M).amax(dim=0)
+    ltree, lcount = compact_valid(ltree, lvalid & (pres_r[hl] > 0))
+    rtree, rcount = compact_valid(rtree, rvalid & (pres_l[hr] > 0))
+    return ltree, lcount, rtree, rcount
+
+
+def _location_filter(left: DeviceShards, right: DeviceShards, lkey, rkey,
+                     token) -> Tuple[DeviceShards, DeviceShards]:
+    """Device LocationDetection (reference: LocationDetectionTag) as one
+    program (:func:`_location_filter_prog`). The compacted counts stay
+    on the device, as the reference's, so the filter adds no host sync;
+    the exchanges after it read them with their send matrices. False
     positives cost exchange traffic, never a pair."""
     mex = left.mesh_exec
     M = preshuffle.register_width((left.cap + right.cap)
                                   * mex.num_workers)
-    lvalid, rvalid = left.valid_mask(), right.valid_mask()
-    # int64 register ids as umod makes them: the kernel reads them as is
-    hl = hashing.umod(hashing.hash_key_words(
-        keymod.worker_key_words(lkey, left.tree)), M)
-    hr = hashing.umod(hashing.hash_key_words(
-        keymod.worker_key_words(rkey, right.tree)), M)
-    pres_l = presence_fill(hl, lvalid, M).amax(dim=0)
-    pres_r = presence_fill(hr, rvalid, M).amax(dim=0)
-    ltree, lcount = compact_valid(left.tree, lvalid & (pres_r[hl] > 0))
-    rtree, rcount = compact_valid(right.tree, rvalid & (pres_l[hr] > 0))
-    counts = mex.fetch(torch.stack([lcount, rcount])).astype(np.int64)
-    return (DeviceShards(mex, ltree, counts[0]),
-            DeviceShards(mex, rtree, counts[1]))
+    prog = mex.program(("join_ld", token, M), _location_filter_prog)
+    ltree, lcount, rtree, rcount = prog(
+        left.tree, left.counts_device(), right.tree, right.counts_device(),
+        lkey, rkey, M)
+    return DeviceShards(mex, ltree, lcount), DeviceShards(mex, rtree,
+                                                          rcount)
 
 
 def _run_bounds(lw: List[torch.Tensor], lvalid: torch.Tensor,

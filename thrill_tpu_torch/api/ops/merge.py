@@ -114,7 +114,7 @@ def _device_merge(inputs: List[DeviceShards],
         inputs = [DeviceShards(mex, c.tree[2], c.counts) for c in shipped]
         carriers = [(c.tree[0], c.tree[1]) for c in shipped]
     new_counts = sum(s.counts for s in inputs)
-    out = merge_blocks(mex, [(s.valid_mask(), wm, gidx, pt.leaves(s.tree))
+    out = merge_blocks(mex.radix_passes, [(s.valid_mask(), wm, gidx, pt.leaves(s.tree))
                              for s, (wm, gidx) in zip(inputs, carriers)],
                        round_up_pow2(int(new_counts.max())))
     return DeviceShards(mex, pt.unflatten(pt.flatten(inputs[0].tree)[1],

@@ -8,6 +8,12 @@ the post phase combines what arrived. With DuplicateDetection the
 destination program fills presence registers (kernel ``presence_fill``)
 and keeps rows whose key hash no other worker holds.
 
+With ``THRILL_TPU_REDUCE_STREAM=1`` the post phase is streamed (the
+reference's MixStream post phase): the exchange yields its rounds
+(``exchange.exchange_stream``) and each is folded into a binary counter
+of partial results by one program a fold (``_fold_reduce_device``), the
+counts staying on the device.
+
 ReduceToIndex range-partitions items by a dense index and folds each
 worker's range: declarative FieldReduce specs as pure scatters (the f32
 "sum" through kernel ``segment_sum``), other reduce functions through
@@ -32,8 +38,9 @@ fold run exactly where the per-op path runs them.
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -94,6 +101,48 @@ def _local_reduce(shards: DeviceShards, key_fn: Callable,
     prog = mex.program(("reduce_local", token), _local_reduce_program)
     tree, counts = prog(shards.tree, shards.valid_mask(), key_fn, reduce_fn)
     return DeviceShards(mex, tree, mex.fetch(counts))
+
+
+def _fold_program(ta, ca: torch.Tensor, tb, cb: torch.Tensor,
+                  key_fn: Callable, reduce_fn: Callable, out_cap: int):
+    """Program: the valid rows of two reduced shards concatenated, sorted
+    by key words (the radix engine), their runs reduced and compacted,
+    padded with zeros to ``out_cap`` rows; (tree, ``[W]`` counts)."""
+    la, td = pt.flatten(ta)
+    lb = pt.leaves(tb)
+    capA, capB = la[0].shape[1], lb[0].shape[1]
+    dev = ca.device
+    valid = torch.cat([torch.arange(capA, device=dev)[None, :] < ca[:, None],
+                       torch.arange(capB, device=dev)[None, :] < cb[:, None]],
+                      dim=1)
+    tree = pt.unflatten(td, [torch.cat([a, b], dim=1)
+                             for a, b in zip(la, lb)])
+    tree, counts = compact_valid(*_reduce_rows(tree, valid, key_fn,
+                                               reduce_fn))
+    pad = out_cap - (capA + capB)
+
+    def padded(l):
+        if not pad:
+            return l
+        return torch.cat([l, torch.zeros((l.shape[0], pad) + tuple(
+            l.shape[2:]), dtype=l.dtype, device=l.device)], dim=1)
+
+    return pt.tree_map(padded, tree), counts
+
+
+def _fold_reduce_device(acc: DeviceShards, block: DeviceShards,
+                        key_fn: Callable, reduce_fn: Callable,
+                        token) -> DeviceShards:
+    """Fold two reduced shards into one (:func:`_fold_program`), counts
+    on the device. The output capacity is ``round_up_pow2(capA +
+    capB)``: a caller folds a stream as a binary counter, never linearly
+    through one accumulator, whose capacity would double every fold."""
+    mex = acc.mesh_exec
+    out_cap = round_up_pow2(acc.cap + block.cap)
+    prog = mex.program(("reduce_fold", token), _fold_program)
+    tree, counts = prog(acc.tree, acc.counts_device(), block.tree,
+                        block.counts_device(), key_fn, reduce_fn, out_cap)
+    return DeviceShards(mex, tree, counts)
 
 
 class ReduceNode(DIABase):
@@ -187,6 +236,11 @@ class ReduceNode(DIABase):
             return torch.where(mine_only, widx, hash_dest)
 
         from .. import fusion
+        if os.environ.get("THRILL_TPU_REDUCE_STREAM") == "1":
+            # the streamed post phase (reference: use_post_thread_
+            # overlap, api/reduce_by_key.hpp:142-168, over MixStream's
+            # arbitrary-order delivery)
+            return fusion.wrap(self._compute_device_stream(pre, dest, dup))
         shuffled = exchange.exchange(pre, dest,
                                      ("reduce_dest", self.token, W, dup))
         if fusion.enabled():
@@ -195,6 +249,37 @@ class ReduceNode(DIABase):
             return plan
         return fusion.wrap(_local_reduce(shuffled, key_fn, self.reduce_fn,
                                          ("post", self.token)))
+
+    def _compute_device_stream(self, pre: DeviceShards, dest: Callable,
+                               dup: bool) -> DeviceShards:
+        """The streamed post phase: every round the exchange yields folds
+        into a binary counter (``levels[i]`` holds the reduction of 2^i
+        rounds; a new round folds up through the full levels), so every
+        fold is between shards of one magnitude and the capacities walk
+        a power-of-two ladder; the leftover levels fold last."""
+        key_fn, reduce_fn, token = self.key_fn, self.reduce_fn, self.token
+        W = self.context.num_workers
+        levels: List[Optional[DeviceShards]] = []
+        for block in exchange.exchange_stream(
+                pre, dest, ("reduce_dest", token, W, dup)):
+            # a round's rows are pre-reduced (unique keys): any round is
+            # a partial result already
+            cur, i = block, 0
+            while i < len(levels) and levels[i] is not None:
+                cur = _fold_reduce_device(levels[i], cur, key_fn,
+                                          reduce_fn, token)
+                levels[i] = None
+                i += 1
+            if i == len(levels):
+                levels.append(cur)
+            else:
+                levels[i] = cur
+        acc: Optional[DeviceShards] = None
+        for lv in levels:
+            if lv is not None:
+                acc = lv if acc is None else _fold_reduce_device(
+                    lv, acc, key_fn, reduce_fn, token)
+        return acc
 
     def _compute_host(self, shards: HostShards) -> HostShards:
         """The reference's host path, item for item

@@ -1,13 +1,16 @@
 """BernoulliSample and Sample(k) (counterpart of the reference package's
 ``api/ops/sample.py``).
 
-Both draw on the mesh's device from one ``torch.Generator`` a worker,
-seeded from (seed, worker) through ``np.random.SeedSequence``. The port
-cannot reproduce ``jax.random``'s bits, so it holds the reference's
-contract, not its draws: BernoulliSample keeps each item with
-probability p, in order; Sample's per-worker takes are the reference's
-for the same seed (the same numpy hypergeometric split), and each
-worker keeps a uniform subset of that size, in order.
+Both draw on the mesh's device exactly the reference's bits:
+``common/threefry.py`` is jax's default PRNG (threefry2x32, partitionable
+counters, f64 uniforms as under x64) in masked int64 arithmetic, so the
+CPU and the card draw the same. Worker ``w`` draws from
+``fold_in(PRNGKey(seed), w)``: BernoulliSample keeps an item when its
+uniform is below p; Sample scores its items with the uniforms of
+``fold_in(PRNGKey(seed ^ 0x5A), w)``, its per-worker takes the
+reference's numpy hypergeometric split, and keeps the ``t`` best scores,
+in their original order. So both keep the reference's items. Each runs
+as one program whose counts stay on the device, as the reference's.
 
 On host storage both draw with numpy as the reference does, so they
 keep the reference's items exactly: BernoulliSample one
@@ -18,11 +21,11 @@ generator.
 
 from __future__ import annotations
 
-from typing import List
-
 import numpy as np
 import torch
 
+from ...common import threefry
+from ...common import tree as pt
 from ...common.sampling import hypergeometric_split
 from ...core import keys as keymod
 from ...core.device_sort import argsort_words
@@ -31,23 +34,35 @@ from ...data.shards import DeviceShards, HostShards, compact_valid
 from ..dia import DIA
 from ..dia_base import DIABase
 
-_SAMPLE_STREAM = 0x5A   # Sample's draws are not BernoulliSample's
+_SAMPLE_SALT = 0x5A   # Sample's seed is the reference's seed ^ 0x5A
 
 
-def worker_uniforms(mex, seed: int, cap: int, stream: int = 0
-                    ) -> torch.Tensor:
-    """``[W, cap]`` f64 uniforms in [0, 1) on the mesh's device, worker
-    ``w``'s from its own generator: the w-th child of
-    ``SeedSequence([stream, seed])``."""
-    children = np.random.SeedSequence(
-        [stream, int(seed) % (1 << 64)]).spawn(mex.num_workers)
-    rows: List[torch.Tensor] = []
-    for child in children:
-        gen = torch.Generator(device=mex.device)
-        gen.manual_seed(int(child.generate_state(1, np.uint64)[0]))
-        rows.append(torch.rand(cap, dtype=torch.float64, generator=gen,
-                               device=mex.device))
-    return torch.stack(rows)
+def uniforms(seed: int, W: int, cap: int, device) -> torch.Tensor:
+    """``[W, cap]`` f64 uniforms in [0, 1) on ``device``: row ``w`` is
+    ``jax.random.uniform(fold_in(PRNGKey(seed), w), (cap,))``, bit for
+    bit."""
+    keys = threefry.fold_in(threefry.prng_key(seed),
+                            torch.arange(W, device=device))
+    return threefry.uniform(keys, (cap,))
+
+
+def worker_uniforms(mex, seed: int, cap: int) -> torch.Tensor:
+    """:func:`uniforms` of the mesh's workers on its device."""
+    return uniforms(seed, mex.num_workers, cap, mex.device)
+
+
+def _valid(tree, counts: torch.Tensor) -> torch.Tensor:
+    cap = pt.leaves(tree)[0].shape[1]
+    return torch.arange(cap, device=counts.device)[None, :] < counts[:, None]
+
+
+def _bernoulli_prog(tree, counts: torch.Tensor, p: float, seed: int):
+    """Program: keep each valid item whose uniform is below ``p``,
+    compacted; (tree, ``[W]`` counts)."""
+    mask = _valid(tree, counts)
+    W, cap = mask.shape
+    return compact_valid(tree, mask & (uniforms(seed, W, cap, mask.device)
+                                       < p))
 
 
 class BernoulliSampleNode(DIABase):
@@ -64,10 +79,26 @@ class BernoulliSampleNode(DIABase):
                               [[it for it in items if rng.random() < self.p]
                                for items in shards.lists])
         mex = shards.mesh_exec
-        keep = shards.valid_mask() & (
-            worker_uniforms(mex, self.seed, shards.cap) < self.p)
-        tree, counts = compact_valid(shards.tree, keep)
-        return DeviceShards(mex, tree, mex.fetch(counts))
+        prog = mex.program(("bernoulli", self.p, self.seed), _bernoulli_prog)
+        tree, counts = prog(shards.tree, shards.counts_device(), self.p,
+                            self.seed)
+        return DeviceShards(mex, tree, counts)
+
+
+def _sample_prog(tree, counts: torch.Tensor, takes: torch.Tensor,
+                 seed: int, passes: list):
+    """Program: score each worker's items with its uniforms, push the
+    padding last (2.0), keep the ``takes[w]`` best in their original
+    order; (tree, ``[W]`` counts)."""
+    mask = _valid(tree, counts)
+    W, cap = mask.shape
+    dev = mask.device
+    scores = torch.where(mask, uniforms(seed ^ _SAMPLE_SALT, W, cap, dev),
+                         torch.full((), 2.0, dtype=torch.float64, device=dev))
+    order = argsort_words(keymod.encode_key_words(scores), passes=passes)
+    ranked = torch.arange(cap, device=dev)[None, :] < takes[:, None]
+    keep = torch.zeros_like(mask).scatter_(1, order, ranked)
+    return compact_valid(tree, keep & mask)
 
 
 class SampleNode(DIABase):
@@ -81,23 +112,13 @@ class SampleNode(DIABase):
         if isinstance(shards, HostShards):
             return self._compute_host(shards)
         mex = shards.mesh_exec
-        cap = shards.cap
         takes = hypergeometric_split(np.random.default_rng(self.seed),
                                      self.k, shards.counts)
-        # each worker scores its items, pushes the padding last (2.0) and
-        # keeps the t best, in their original order; f64 scores, as the
-        # reference's x64 draws, so ties stay rare at millions of rows
-        mask = shards.valid_mask()
-        scores = torch.where(
-            mask, worker_uniforms(mex, self.seed, cap, _SAMPLE_STREAM),
-            torch.full((), 2.0, dtype=torch.float64, device=mex.device))
-        order = argsort_words(keymod.encode_key_words(scores),
-                              passes=mex.radix_passes)
-        ranked = (torch.arange(cap, device=mex.device)[None, :]
-                  < mex.put_small(takes)[:, None])
-        keep = torch.zeros_like(mask).scatter_(1, order, ranked)
-        tree, counts = compact_valid(shards.tree, keep & mask)
-        return DeviceShards(mex, tree, mex.fetch(counts))
+        prog = mex.program(("sample_k", self.seed), _sample_prog)
+        tree, counts = prog(shards.tree, shards.counts_device(),
+                            mex.put_small(takes.astype(np.int64)),
+                            self.seed, mex.radix_passes)
+        return DeviceShards(mex, tree, counts)
 
     def _compute_host(self, shards: HostShards) -> HostShards:
         """Reference: ``thrill_tpu/api/ops/sample.py:70-87``."""

@@ -595,7 +595,7 @@ class SortNode(DIABase):
 def _device_sample_sort(shards: DeviceShards,
                         key_fn: Callable) -> DeviceShards:
     mex = shards.mesh_exec
-    W, cap, dev = mex.num_workers, shards.cap, mex.device
+    W, cap = mex.num_workers, shards.cap
     leaves, treedef = pt.flatten(shards.tree)
     if shards.total == 0:
         return shards
@@ -604,45 +604,35 @@ def _device_sample_sort(shards: DeviceShards,
     # every shard full: the validity word is dropped (the common case
     # after Distribute/Generate)
     full = bool(np.all(shards.counts == cap))
-    ar = torch.arange(cap, device=dev)
-    # [W, cap]; after the phase-1 argsort the valid rows come first, so
-    # the same mask marks the valid rows of the sorted columns
-    valid = shards.valid_mask()
     if W == 1:
         # one worker: key argsort and one payload gather, no exchange
         prog = mex.program(("sort_w1", key_fn), _sort_w1)
-        out, _ = prog(shards.tree, valid, key_fn, mex.radix_passes,
-                      validity=not full)
+        out, _ = prog(shards.tree, shards.valid_mask(), key_fn,
+                      mex.radix_passes, validity=not full)
         return DeviceShards(mex, out, shards.counts.copy())
 
-    words = keymod.worker_key_words(key_fn, shards.tree)
-    nwords = len(words)
-    lead = [] if full else [(~valid).to(torch.int64)]
-    lead_bits = [] if full else [VALID_BITS]
-
+    passes = mex.radix_passes
     # ---- phase 1: key argsort + quantile samples (no payload) ---------
-    gidx = mex.put_small(offsets.astype(np.int64))[:, None] + ar[None, :]
-    perm = argsort_words(lead + words + [gidx],
-                         lead_bits + [64] * (nwords + 1),
-                         passes=mex.radix_passes)
-    words_s = torch.stack([torch.gather(w, 1, perm) for w in words], dim=2)
-    gidx_s = torch.gather(gidx, 1, perm)
-    qpos = quantile_positions(counts, cap)                    # [W, S]
-    s_words = take_rows(words_s, qpos)                        # [W, S, nw]
-    s_idx = torch.gather(gidx_s, 1, qpos)
-    s_valid = qpos < counts[:, None]
+    keys = mex.program(("sort_keys", key_fn, full), _sort_keys_prog)
+    words_s, gidx_s, perm, s_words, s_idx, s_valid = keys(
+        shards.tree, counts, mex.put_small(offsets.astype(np.int64)),
+        key_fn, full, passes)
+    nwords = words_s.shape[2]
 
     # ---- host: choose splitters (the "worker 0" step) -----------------
     splitters = device_splitters(
         mex, host_samples(mex, s_words, s_idx, s_valid), W, nwords + 1)
 
     # ---- phase 2: classify sorted keys + the one payload gather -------
-    d = torch.zeros((W, cap), dtype=torch.int32, device=dev)
-    for j in range(W - 1):
-        d += _lex_greater(words_s, gidx_s, splitters[j]).to(torch.int32)
-    dest = torch.where(valid, d, torch.full_like(d, W))
-    S = mex.fetch(exchange.send_counts(dest, W)).astype(np.int64)
-    payload = take_rows_multi(leaves, perm)
+    # the narrowing's range analysis of the generic path's carrier rides
+    # this program (the rows are here already)
+    carrier_sig = [words_s, gidx_s] + list(leaves)
+    nidx = exchange.presorted_range_leaves(mex, cap, carrier_sig)
+    classify = mex.program(("sort_classify", key_fn, nidx),
+                           _sort_classify_prog)
+    out2 = classify(splitters, words_s, gidx_s, perm, counts, leaves, nidx)
+    dest, send_mat, payload = out2[0], out2[1], list(out2[2])
+    S = mex.fetch(send_mat).astype(np.int64)
     row_bytes = exchange.leaf_item_bytes(payload) + 8 * (nwords + 1)
     # the fused ship-and-merge runs exactly when the generic exchange
     # would take the dense plan; THRILL_TPU_SORT_FUSED=0 forces the
@@ -652,24 +642,78 @@ def _device_sample_sort(shards: DeviceShards,
         cap_ident = ("sort_fused_caps", key_fn, cap, nwords, treedef,
                      exchange._leaf_sig(payload))
         out = _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
-                                    S, cap_ident)
+                                    S, cap_ident, key_fn)
         return DeviceShards(mex, pt.unflatten(treedef, out),
                             S.sum(axis=0))
     # the planned exchange of (words, global index, payload) rows, then
     # one merge of each receiver's runs
-    carrier = [words_s, gidx_s] + list(payload)
-    nidx = exchange.presorted_range_leaves(mex, cap, carrier)
-    ranges = None
-    if nidx:
-        ranges = mex._fetch_raw(exchange.leaf_ranges_traced(
-            [carrier[i] for i in nidx], valid))
+    carrier = [words_s, gidx_s] + payload
+    ranges = mex._fetch_raw(out2[3]) if nidx else None
     got = exchange.exchange_presorted(
         mex, pt.flatten(carrier)[1], dest, carrier, S,
         ident=("sort_x", key_fn), ranges=ranges)
-    rl = pt.leaves(got.tree)
-    valid3 = got.valid_mask()
-    out = merge_blocks(mex, [(valid3, rl[0], rl[1], rl[2:])], got.cap)
+    final = mex.program(("sort_final", key_fn), _sort_final_prog)
+    out = final(got.tree, got.counts_device(), passes)
     return DeviceShards(mex, pt.unflatten(treedef, out), got.counts_like())
+
+
+def _sort_keys_prog(tree, counts: torch.Tensor, offsets: torch.Tensor,
+                    key_fn: Callable, full: bool, passes: list):
+    """Program ``sort_keys``: each worker's argsort of ((invalid,) key
+    words, global index) and its OVERSAMPLE quantile samples. Returns
+    (sorted words ``[W, cap, nw]``, sorted global index, the permutation,
+    sample words ``[W, S, nw]``, sample index, sample validity)."""
+    W, cap = pt.leaves(tree)[0].shape[:2]
+    dev = counts.device
+    ar = torch.arange(cap, device=dev)
+    words = keymod.worker_key_words(key_fn, tree)
+    nwords = len(words)
+    lead, lead_bits = [], []
+    if not full:
+        lead = [(ar[None, :] >= counts[:, None]).to(torch.int64)]
+        lead_bits = [VALID_BITS]
+    gidx = offsets[:, None] + ar[None, :]
+    perm = argsort_words(lead + words + [gidx],
+                         lead_bits + [64] * (nwords + 1), passes=passes)
+    words_s = torch.stack([torch.gather(w, 1, perm) for w in words], dim=2)
+    gidx_s = torch.gather(gidx, 1, perm)
+    qpos = quantile_positions(counts, cap)                    # [W, S]
+    return (words_s, gidx_s, perm, take_rows(words_s, qpos),
+            torch.gather(gidx_s, 1, qpos), qpos < counts[:, None])
+
+
+def _sort_classify_prog(splitters: torch.Tensor, words_s: torch.Tensor,
+                        gidx_s: torch.Tensor, perm: torch.Tensor,
+                        counts: torch.Tensor, leaves: list, nidx: tuple):
+    """Program ``sort_classify``: each sorted item's destination (its
+    rank among the splitters; ``W`` for the padding), the send matrix
+    (the histogram kernel), the one payload gather and, for leaves
+    ``nidx`` of the carrier (words, global index, payload), their
+    ranges."""
+    W, cap = gidx_s.shape
+    valid = (torch.arange(cap, device=gidx_s.device)[None, :]
+             < counts[:, None])              # sorted: the valid rows first
+    d = torch.zeros((W, cap), dtype=torch.int32, device=gidx_s.device)
+    for j in range(W - 1):
+        d += _lex_greater(words_s, gidx_s, splitters[j]).to(torch.int32)
+    dest = torch.where(valid, d, torch.full_like(d, W))
+    payload = take_rows_multi(leaves, perm)
+    out = (dest, exchange.send_counts(dest, W), payload)
+    if nidx:
+        carrier = [words_s, gidx_s] + list(payload)
+        out = out + (exchange.leaf_ranges_traced(
+            [carrier[i] for i in nidx], valid),)
+    return out
+
+
+def _sort_final_prog(tree, counts: torch.Tensor, passes: list):
+    """Program ``sort_final`` (the generic path): merge each receiver's
+    runs of (words, global index, payload) rows."""
+    rl = pt.leaves(tree)
+    cap = rl[1].shape[1]
+    valid = (torch.arange(cap, device=counts.device)[None, :]
+             < counts[:, None])
+    return merge_blocks(passes, [(valid, rl[0], rl[1], rl[2:])], cap)
 
 
 def _sort_w1(tree, valid: torch.Tensor, key_fn: Callable, passes: list,
@@ -711,21 +755,22 @@ def device_splitters(mex, samples: list, W: int,
         np.int64))
 
 
-def merge_blocks(mex, blocks, out_cap: int) -> List[torch.Tensor]:
+def merge_blocks(passes: list, blocks, out_cap: int) -> List[torch.Tensor]:
     """Merge each worker's sorted runs with one argsort and one payload
     gather. ``blocks`` holds per input (valid ``[W, n]``, key words ``[W,
     n, nw]``, global index ``[W, n]``, payload leaves ``[W, n, ...]``);
     the argsort is of (invalid, key words, input index where there are
     several inputs, global index), so equal keys order by input, then by
-    original position. Returns the payload leaves ``[W, out_cap, ...]``;
-    rows past the counts are invalid rows, repeated where ``out_cap``
-    passes the blocks' width."""
-    W = mex.num_workers
+    original position. ``passes`` collects the radix engine's passes.
+    Returns the payload leaves ``[W, out_cap, ...]``; rows past the
+    counts are invalid rows, repeated where ``out_cap`` passes the
+    blocks' width."""
 
     def cat(xs):
         return xs[0] if len(xs) == 1 else torch.cat(xs, dim=1)
 
     valid, words, gidx = (cat([b[i] for b in blocks]) for i in range(3))
+    W = valid.shape[0]
     payload = [cat(list(ls)) for ls in zip(*(b[3] for b in blocks))]
     nwords = words.shape[2]
     sort_words = ([(~valid).to(torch.int64)]
@@ -736,31 +781,49 @@ def merge_blocks(mex, blocks, out_cap: int) -> List[torch.Tensor]:
                                           device=gidx.device)
                                for i, b in enumerate(blocks)]))
         bits.append(len(blocks).bit_length())
-    perm = argsort_words(sort_words + [gidx], bits + [64],
-                         passes=mex.radix_passes, record=False)
+    perm = argsort_words(sort_words + [gidx], bits + [64], passes=passes,
+                         record=False)
     if out_cap > perm.shape[1]:
         perm = torch.cat([perm, perm[:, -1:].expand(
             W, out_cap - perm.shape[1])], dim=1)
     return take_rows_multi(payload, perm[:, :out_cap])
 
 
-def _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
-                          S: np.ndarray, cap_ident) -> List[torch.Tensor]:
-    """Ship the classified rows and merge each receiver's W runs straight
-    from the shipped blocks (:func:`merge_blocks`), with no compaction
-    gather. Returns the payload leaves ``[W, out_cap, ...]``, the site's
-    sticky output capacity."""
-    W, dev = mex.num_workers, mex.device
-    ship, S_dev, M_pad, out_cap = exchange.ship_presorted(
-        mex, dest, S, exchange.leaf_item_bytes(payload)
-        + 8 * (words_s.shape[2] + 1), cap_ident)
-    wm_r = ship(words_s)                               # [W, W*M_pad, nw]
-    gi_r = ship(gidx_s)                                # [W, W*M_pad]
-    payload_r = [ship(p) for p in payload]
-    j = torch.arange(M_pad, device=dev)
+def _sort_fused_prog(dest: torch.Tensor, S_dev: torch.Tensor,
+                     words_s: torch.Tensor, gidx_s: torch.Tensor,
+                     payload: list, M_pad: int, out_cap: int,
+                     passes: list) -> List[torch.Tensor]:
+    """Program ``sort_fused``: ship every leaf of the classified rows
+    into ``[W, W * M_pad]`` receive blocks (one slot index for all) and
+    merge each receiver's W runs straight from them."""
+    W, cap = dest.shape
+    send_idx = exchange.send_slot_index(dest, S_dev, W, M_pad, cap)
+
+    def ship(x):
+        return exchange.ship_blocks(x, send_idx, W, M_pad)
+
+    j = torch.arange(M_pad, device=dest.device)
     # receiver w's run from sender s holds S[s, w] rows
     valid = (j[None, None, :] < S_dev.T[:, :, None]).reshape(W, W * M_pad)
-    return merge_blocks(mex, [(valid, wm_r, gi_r, payload_r)], out_cap)
+    return merge_blocks(passes, [(valid, ship(words_s), ship(gidx_s),
+                                  [ship(p) for p in payload])], out_cap)
+
+
+def _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
+                          S: np.ndarray, cap_ident,
+                          token=None) -> List[torch.Tensor]:
+    """Ship the classified rows and merge each receiver's W runs straight
+    from the shipped blocks, with no compaction gather: the plan from
+    the host send matrix, then one program (:func:`_sort_fused_prog`).
+    Returns the payload leaves ``[W, out_cap, ...]``, the site's sticky
+    output capacity."""
+    S_dev, M_pad, out_cap = exchange.plan_presorted(
+        mex, S, exchange.leaf_item_bytes(payload)
+        + 8 * (words_s.shape[2] + 1), cap_ident)
+    prog = mex.program(("sort_fused", token, M_pad, out_cap),
+                       _sort_fused_prog)
+    return prog(dest, S_dev, words_s, gidx_s, payload, M_pad, out_cap,
+                mex.radix_passes)
 
 
 def Sort(dia: DIA, key_fn=None, compare_fn=None) -> DIA:

@@ -134,9 +134,10 @@ class Config:
     # seal every freshly computed op's result, not only Checkpoint()s
     ckpt_auto: bool = False
     # exchange mode: "dense" (one padded all-to-all, switched to the
-    # 1-factor rounds by the cost model when the send matrix is skewed)
-    # or "onefactor" (always W - 1 rounds, each padded to its own pair
-    # maximum); "ragged" and "stream" are ROADMAP item 2's next slice
+    # 1-factor rounds by the cost model when the send matrix is skewed),
+    # "onefactor" (always W - 1 rounds, each padded to its own pair
+    # maximum) or "ragged" (no padding: every row written straight to
+    # its receiver's slot); another string takes the synced dense plan
     exchange: str = "dense"
     # plan store directory ("" = off; service/plan_store.py): learned
     # capacities, narrow ranges, plan kinds, pre-shuffle verdicts and

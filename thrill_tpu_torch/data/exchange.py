@@ -43,6 +43,15 @@ The plan layer on top:
   pair maximum, copy less. The cost model (``_strategy_costs``, owned by
   the planner when one is attached) chooses; ``THRILL_TPU_EXCHANGE``
   (or ``Config.exchange``) forces ``dense`` or ``onefactor``.
+* **The ragged exchange** (``THRILL_TPU_EXCHANGE=ragged``): no per-pair
+  padding. One program writes each phase-A row straight to its
+  receiver's slot (the exclusive prefix of its sender's send row and
+  ``landing[s, d] = sum(S[0:s, d])``), in the dense path's order; a
+  synced plan every time (``_exchange_ragged``).
+* **The streamed exchange** (:func:`exchange_stream`): the identity
+  round, then one program a 1-factor round, each yielded as its own
+  shards for a consumer that folds them as they come (ReduceByKey's
+  streamed post phase, ``THRILL_TPU_REDUCE_STREAM=1``).
 * **Plan state** (capacities, plan kinds, ranges) exports to and
   imports from the plan store (``service/plan_store.py``) by digest.
 
@@ -50,8 +59,9 @@ Every value of the plan layer is correctness-neutral: a lying capacity
 or range is caught by the flag and healed, so results are bit-equal to
 the bulk, synced, full-width exchange for any setting.
 
-Not ported yet (ROADMAP item 2, next slice): the streamed exchange and
-the ragged one; ``THRILL_TPU_EXCHANGE=stream|ragged`` raises.
+Any other mode string takes the synced dense plan, as the reference's
+(``stream`` as a mode is such a string: the streamed delivery is the
+consumer's choice, not the exchange's).
 """
 
 from __future__ import annotations
@@ -226,11 +236,11 @@ def _seeded_caps(mex: MeshExec, ident: Tuple) -> Optional[Tuple[int, ...]]:
 
 def round_cap(n: int) -> int:
     """``n`` rounded up to five significant bits, at most 1/16 more: the
-    padded capacities of phase B. The reference rounds them to powers of
-    two, so XLA compiles one program a power; an eager program has no
-    compile to save, and a power of two doubled the phase-B buffers of
-    every W = 4 exchange whose per-pair counts sit just past one (2^20 +
-    a few rows a pair)."""
+    padded capacities of phase B on the card. The reference rounds them
+    to powers of two, so XLA compiles one program a power; an eager
+    program has no compile to save, and a power of two doubled the
+    phase-B buffers of every W = 4 exchange whose per-pair counts sit
+    just past one (2^20 + a few rows a pair)."""
     n = max(int(n), 1)
     shift = max(n.bit_length() - 5, 0)
     return -(-n >> shift) << shift
@@ -240,20 +250,29 @@ def _sticky_caps(mex: MeshExec, ident: Tuple, needed: Tuple[int, ...],
                  pow2_out: bool = True) -> Tuple[int, ...]:
     """Capacities per program identity that only grow: a loop reaches a
     steady plan and its shapes stop changing, and a small wiggle of the
-    counts stays under the cached capacity. The padded ones round by
-    :func:`round_cap`; the last, the output shards' capacity, to a power
-    of two as the reference's (checkpoint manifests record it) unless
-    ``pow2_out`` is off (the Sort's merged output, which keeps its own).
-    A plan-store seed ratchets a site to its remembered capacities."""
+    counts stays under the cached capacity. A plan-store seed ratchets a
+    site to its remembered capacities.
+
+    The rounding rule: on a CPU mesh every capacity rounds up to a power
+    of two, as the reference's do, so the capacity-plan cache's hits and
+    misses, the chunk rule's volume and the dispatches are the
+    reference's. On the card the padded ones round by :func:`round_cap`
+    (at most 1/16 headroom, which saved the Sort's memory) and the last,
+    the output shards' capacity, to a power of two as the reference's
+    (checkpoint manifests record it) unless ``pow2_out`` is off (the
+    Sort's merged output, which keeps its own)."""
     cache = getattr(mex, "_sticky_caps", None)
     if cache is None:
         cache = mex._sticky_caps = {}
     prev = cache.get(ident)
     if prev is None:
         prev = _seeded_caps(mex, ident)
-    grown = tuple(round_cap(n) for n in needed)
-    if pow2_out:
-        grown = grown[:-1] + (round_up_pow2(needed[-1]),)
+    if mex.device.type == "cuda":
+        grown = tuple(round_cap(n) for n in needed)
+        if pow2_out:
+            grown = grown[:-1] + (round_up_pow2(needed[-1]),)
+    else:
+        grown = tuple(round_up_pow2(n) for n in needed)
     if prev is not None and len(prev) == len(grown):
         grown = tuple(max(p, g) for p, g in zip(prev, grown))
     cache[ident] = grown
@@ -448,21 +467,14 @@ def _planner_of(mex):
     return None
 
 
-_MODES = ("dense", "onefactor")
-
-
 def resolve_mode(mex: MeshExec) -> str:
     """The exchange mode: THRILL_TPU_EXCHANGE (read once, when the mesh
-    was made), then the mesh's configured mode, then dense. The modes
-    the reference adds, ``ragged`` and ``stream``, are ROADMAP item 2's
-    next slice and raise."""
+    was made), then the mesh's configured mode, then dense. ``dense``
+    lets the cost model choose the 1-factor rounds; ``onefactor`` and
+    ``ragged`` force theirs; any other string, ``stream`` among them,
+    takes the synced dense plan, as in the reference."""
     env = getattr(mex, "_env_exchange", None)
-    mode = env or getattr(mex, "exchange_mode", "dense") or "dense"
-    if mode not in _MODES:
-        raise NotImplementedError(
-            f"exchange mode {mode!r} is not ported yet (ROADMAP item 2: "
-            f"the streamed and ragged exchanges); use dense or onefactor")
-    return mode
+    return env or getattr(mex, "exchange_mode", "dense") or "dense"
 
 
 def leaf_item_bytes(leaves: Sequence[torch.Tensor]) -> int:
@@ -932,6 +944,147 @@ def _exchange_onefactor(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     return DeviceShards(mex, pt.unflatten(treedef, out), R.astype(np.int64))
 
 
+def _ragged_prog(sdest: torch.Tensor, srow: torch.Tensor,
+                 landing: torch.Tensor, leaves: List[torch.Tensor],
+                 out_cap: int, narrow):
+    """Program: the ragged exchange on one card, one scatter a leaf
+    straight into the receivers' rows. Row ``i`` of sender ``s``, bound
+    for ``d``, lands at row ``landing[s, d] + i - off[s, d]`` of receiver
+    ``d`` (``off`` the exclusive prefix of ``s``'s send row): each
+    receiver's rows by sender in rank order, each run in its sender's
+    order, as the dense path. The senders' runs partition every
+    receiver's rows, so no slot is written twice; an invalid row goes to
+    a dump slot of its own past the ``W * out_cap`` rows."""
+    W, cap = sdest.shape
+    dev = sdest.device
+    S = srow.to(torch.int64)
+    off = _ex_cumsum(S, 1)                                 # [src, dst]
+    d = sdest.to(torch.int64)
+    dc = d.clamp(0, W - 1)
+    i = torch.arange(cap, device=dev)[None, :]
+    pos = torch.gather(landing.to(torch.int64), 1, dc) + i - torch.gather(
+        off, 1, dc)
+    dump = W * out_cap + torch.arange(W, device=dev)[:, None] * cap + i
+    flat = torch.where((d < W) & (pos < out_cap), dc * out_cap + pos,
+                       dump).reshape(-1)
+    outs = []
+    for li, l in enumerate(leaves):
+        trail = tuple(l.shape[2:])
+        nd = narrow[li] if narrow is not None else None
+        x = _to_narrow(l, nd) if nd is not None else l
+        buf = torch.zeros((W * (out_cap + cap),) + trail, dtype=x.dtype,
+                          device=dev)
+        buf.index_put_((flat,), x.reshape((-1,) + trail))
+        y = buf[:W * out_cap].reshape((W, out_cap) + trail)
+        if nd is not None:
+            y = _from_narrow(y, nd, l.dtype)
+        outs.append(y.contiguous())
+    return outs
+
+
+def _exchange_ragged(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
+                     S: np.ndarray, min_cap: int = 1,
+                     narrow=None) -> DeviceShards:
+    """The ragged exchange (reference: ``lax.ragged_all_to_all``): no
+    per-pair padding, so the bytes counted are the off-diagonal items
+    (narrowed on ``bytes_wire_device``, full width on ``_raw``). The
+    output capacity is the power of two of the largest receive count,
+    not sticky, as the reference's."""
+    R = S.sum(axis=0)
+    ragged_items = int(S.sum()) - int(np.trace(S))
+    mex.stats_bytes_wire_device += ragged_items * _narrow_item_bytes(
+        sorted_leaves, narrow)
+    mex.stats_bytes_wire_device_raw += ragged_items * leaf_item_bytes(
+        sorted_leaves)
+    out_cap = round_up_pow2(max(int(R.max()), min_cap, 1))
+    # landing[s, d]: rows of senders before s at receiver d
+    landing = np.cumsum(S, axis=0) - S
+    prog = mex.program(("xchg_ragged", out_cap, treedef, narrow,
+                        _leaf_sig(sorted_leaves)), _ragged_prog)
+    out = prog(sorted_dest, mex.put_small(S.astype(np.int64)),
+               mex.put_small(landing.astype(np.int64)), sorted_leaves,
+               out_cap, narrow)
+    return DeviceShards(mex, pt.unflatten(treedef, out), R.astype(np.int64))
+
+
+def _stream_round_prog(sdest: torch.Tensor, srow: torch.Tensor,
+                       leaves: List[torch.Tensor], r: int, M_r: int):
+    """Program: round ``r`` of the streamed exchange (the schedule of
+    :func:`one_factor_rounds`; 0 the identity round). Worker ``w`` sends
+    its rows bound for ``(w + r) % W`` in a block of ``M_r`` rows, zeros
+    past them, and receives the block of ``(w - r) % W``."""
+    W, cap = sdest.shape
+    dev = sdest.device
+    S = srow.to(torch.int64)
+    off = _ex_cumsum(S, 1)
+    widx = torch.arange(W, device=dev)
+    d_r = (widx + r) % W
+    slot = torch.arange(cap, device=dev)[None, :] - off[widx, d_r][:, None]
+    sel = sdest.to(torch.int64) == d_r[:, None]
+    send = scatter_slots(slot, sel & (slot < M_r), M_r)
+    src = (widx - r) % W
+    outs = []
+    for x in leaves:
+        trail = tuple(x.shape[2:])
+        buf = torch.zeros((W * (M_r + cap),) + trail, dtype=x.dtype,
+                          device=dev)
+        buf.index_put_((send,), x.reshape((-1,) + trail))
+        outs.append(buf.reshape((W, M_r + cap) + trail)[src, :M_r]
+                    .contiguous())
+    return outs
+
+
+def exchange_stream(shards: DeviceShards, dest_builder: Callable,
+                    cache_key: Tuple):
+    """Yield the received rows round by round instead of one compacted
+    shard (reference: MixStream, thrill/data/mix_stream.hpp:126): the
+    identity round first, then the 1-factor schedule, one program a
+    round, each yielded as its own ``DeviceShards`` with host counts, so
+    the consumer folds one while the next is queued. No rank-order
+    guarantee. The plan syncs the host send matrix (per-round capacities
+    need it), and rounds ship full width: no range analysis."""
+    mex = shards.mesh_exec
+    W = mex.num_workers
+    treedef, sorted_dest, sorted_leaves, send_mat, _ = _phase_a(
+        shards, dest_builder, cache_key, want_ranges=False)
+    S = mex.fetch(send_mat).astype(np.int64)
+    item_bytes = leaf_item_bytes(sorted_leaves)
+    account_traffic(mex, S, item_bytes, site=_site(cache_key))
+    cap = sorted_dest.shape[1]
+    if W == 1:
+        yield DeviceShards(mex, pt.unflatten(treedef, sorted_leaves),
+                           np.diag(S).astype(np.int64).copy())
+        return
+    count_plan_build(mex)
+    led = _decisions.ledger_of(mex)
+    if led is not None:
+        rec = led.record("xchg_strategy", _site(cache_key), "stream",
+                         reason="MixStream delivery requested",
+                         items=int(S.sum()))
+        led.resolve(rec, (int(S.sum()) - int(np.trace(S))) * item_bytes)
+    rounds = one_factor_rounds(mex)
+    cap_ident = ("xchg_stream_caps", cache_key, cap, treedef,
+                 _leaf_sig(sorted_leaves))
+    needed = (max(int(np.diag(S).max()), 1),) + tuple(
+        max(int(S[np.arange(W), to].max()), 1) for to in rounds)
+    caps = _sticky_caps(mex, cap_ident, needed, pow2_out=False)
+    mex.stats_padded_rows += sum(caps)
+    # the identity round is a local copy; the rounds after it cross
+    stream_bytes = W * sum(caps[1:]) * item_bytes
+    mex.stats_bytes_wire_device += stream_bytes
+    mex.stats_bytes_wire_device_raw += stream_bytes
+    srow = mex.put_small(S.astype(np.int32))
+    sig = _leaf_sig(sorted_leaves)
+    widx = np.arange(W)
+    for r in range(W):
+        prog = mex.program(("xchg_stream_round", cap, caps[r], r, treedef,
+                            sig), _stream_round_prog)
+        out = prog(sorted_dest, srow, sorted_leaves, r, caps[r])
+        # receiver w's rows came from (w - r) % W
+        yield DeviceShards(mex, pt.unflatten(treedef, out),
+                           S[(widx - r) % W, widx].astype(np.int64))
+
+
 def _dense_cap_ident(ident: Tuple, cap: int, treedef,
                      sorted_leaves) -> Tuple:
     """The capacity-plan cache's key for the dense plan: per call site,
@@ -969,7 +1122,11 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
         skew = mode == "dense" and _skewed(S, item_bytes, mex)
     led = _decisions.ledger_of(mex)
     if led is not None:
-        if mode == "onefactor" or skew:
+        if mode == "ragged":
+            chosen, pred, rej, why = "ragged", (
+                (int(S.sum()) - int(np.trace(S))) * item_bytes), \
+                [("dense", dense_b)], "configured mode"
+        elif mode == "onefactor" or skew:
             chosen, pred, rej = "onefactor", of_b, [("dense", dense_b)]
             why = "skewed send matrix" if skew else "configured mode"
         else:
@@ -989,6 +1146,10 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     plans = getattr(mex, "_xchg_plan", None)
     if plans is None:
         plans = mex._xchg_plan = {}
+    if mode == "ragged":
+        plans[cap_ident] = "sync"
+        return _exchange_ragged(mex, treedef, sorted_dest, sorted_leaves, S,
+                                min_cap, narrow=narrow)
     if mode == "onefactor" or skew:
         # a skew-flipped site stays synced: the choice needs the host S
         plans[cap_ident] = "sync"
@@ -1254,33 +1415,15 @@ def ship_blocks(x: torch.Tensor, send_idx: torch.Tensor, W: int,
     return blocks.transpose(0, 1).reshape((W, W * M_pad) + trail)
 
 
-def _slot_index(dest: torch.Tensor, S_dev: torch.Tensor,
-                M_pad: int) -> torch.Tensor:
-    """Program: :func:`send_slot_index` of ``dest`` ``[W, cap]``."""
-    W, cap = dest.shape
-    return send_slot_index(dest, S_dev, W, M_pad, cap)
-
-
-def _ship_leaf(x: torch.Tensor, send_idx: torch.Tensor,
-               M_pad: int) -> torch.Tensor:
-    """Program: :func:`ship_blocks` of one leaf."""
-    return ship_blocks(x, send_idx, x.shape[0], M_pad)
-
-
-def ship_presorted(mex: MeshExec, dest: torch.Tensor, S: np.ndarray,
-                   item_bytes: int, cap_ident: Tuple = ()
-                   ) -> Tuple[Callable[[torch.Tensor], torch.Tensor],
-                              torch.Tensor, int, int]:
+def plan_presorted(mex: MeshExec, S: np.ndarray, item_bytes: int,
+                   cap_ident: Tuple = ()) -> Tuple[torch.Tensor, int, int]:
     """Plan the shipping of rows already grouped by destination for a
-    consumer that merges the shipped blocks itself (the Sort's fused
-    path). ``S`` is the host send matrix; ``item_bytes`` counts the
-    traffic; ``cap_ident`` keys the site's sticky capacities. Returns
-    (``ship``, the send matrix on the device, ``M_pad``, the output
-    capacity): ``ship(x)`` of ``[W, cap, ...]`` rows in ``dest``'s order
-    gives each receiver its senders' blocks in rank order, ``[W, W *
-    M_pad, ...]``; receiver ``w``'s block from sender ``s`` holds ``S[s,
-    w]`` rows, then zeros. The plan is built from the synced host
-    matrix every time."""
+    consumer that ships and merges them in its own program (the Sort's
+    fused path, :func:`send_slot_index` and :func:`ship_blocks`). ``S``
+    is the host send matrix; ``item_bytes`` counts the traffic;
+    ``cap_ident`` keys the site's sticky capacities. Returns (the send
+    matrix on the device, ``M_pad``, the output capacity). The plan is
+    built from the synced host matrix every time."""
     W = mex.num_workers
     count_plan_build(mex)
     M_pad, out_cap = _sticky_caps(
@@ -1291,12 +1434,4 @@ def ship_presorted(mex: MeshExec, dest: torch.Tensor, S: np.ndarray,
     mex.stats_bytes_wire_device += wire
     mex.stats_bytes_wire_device_raw += wire
     account_traffic(mex, S, item_bytes, site=_site(cap_ident))
-    S_dev = mex.put_small(S)
-    send_idx = mex.program(("xchg_slots", tuple(dest.shape), M_pad),
-                           _slot_index)(dest, S_dev, M_pad)
-
-    def ship(x: torch.Tensor) -> torch.Tensor:
-        return mex.program(("xchg_ship_leaf", _leaf_sig([x]), M_pad),
-                           _ship_leaf)(x, send_idx, M_pad)
-
-    return ship, S_dev, M_pad, out_cap
+    return mex.put_small(S), M_pad, out_cap

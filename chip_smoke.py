@@ -4142,12 +4142,38 @@ def f4_source(tt, W: int, n: int):
 
 
 def f4_result(torch, out):
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    """AllGatherArrays' leaves as numpy: device tensors, or the arrays of
+    a chain that rung 4 ran on the host."""
+    import numpy as np
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in out.items()}
 
 
 def f4_equal(np, a, b) -> bool:
     return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
                                         for k in a)
+
+
+def plug_cache(torch, dev) -> tuple:
+    """Fill the free room inside the segments the caching allocator keeps
+    for live tensors (earlier phases leave gigabytes of it), so that a
+    ballast of new memory bounds what the next job can use. Returns the
+    plugs (free them after the job) and their bytes."""
+    plugs, size = [], (torch.cuda.memory_reserved(dev)
+                       - torch.cuda.memory_allocated(dev))
+    while size >= 1 << 20:
+        r = torch.cuda.memory_reserved(dev)
+        t = torch.empty(size, dtype=torch.uint8, device=dev)
+        if torch.cuda.memory_reserved(dev) > r:
+            # no kept block was that large: give the new segment back
+            del t
+            torch.cuda.empty_cache()
+            size //= 2
+        else:
+            plugs.append(t)
+            size = min(size, torch.cuda.memory_reserved(dev)
+                       - torch.cuda.memory_allocated(dev))
+    return plugs, sum(t.numel() for t in plugs)
 
 
 def fused_phase_f4(torch, np, tt, pk, ps, card):
@@ -4160,6 +4186,11 @@ def fused_phase_f4(torch, np, tt, pk, ps, card):
     ctx, src = f4_source(tt, 4, F4_ROWS)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # the kept room is plugged before the working set is measured: a
+    # chain that ran partly inside it would grow the reserved bytes by
+    # less than it needs, and the room left free would then be too
+    # small for the split as well (rung 4 ran in its place)
+    plugs, slack = plug_cache(torch, dev)
     torch.cuda.reset_peak_memory_stats()
     r0 = torch.cuda.memory_reserved()
     want = f4_result(torch, f4_chain(src).AllGatherArrays())
@@ -4169,6 +4200,9 @@ def fused_phase_f4(torch, np, tt, pk, ps, card):
     gc.collect()
     torch.cuda.empty_cache()
     target = ws // 2
+    more, slack2 = plug_cache(torch, dev)
+    plugs += more
+    slack += slack2
     free = torch.cuda.mem_get_info(dev)[0]
     ballast = torch.empty(max(free - target, 0), dtype=torch.uint8,
                           device=dev)
@@ -4181,15 +4215,18 @@ def fused_phase_f4(torch, np, tt, pk, ps, card):
         st = {k: v - st0[k] for k, v in ctx.overall_stats().items()
               if k in ("oom_retries", "segment_splits", "host_fallbacks")}
     finally:
-        del ballast
+        del ballast, plugs, more
         torch.cuda.empty_cache()
     launches3 = read_launches(pk, ps)
     if st["segment_splits"] != 1 or st["host_fallbacks"] != 0 \
             or not f4_equal(np, got, want):
         raise AssertionError(f"F4 rung 3: {st}, equal "
-                             f"{f4_equal(np, got, want)}")
+                             f"{f4_equal(np, got, want)}; working set {ws} "
+                             f"bytes, {target} left free, {slack} plugged "
+                             f"inside kept segments")
     log(f"F4 rung 3 W=4 rows={F4_ROWS} (real CUDA OOM): chain working set "
-        f"{ws} bytes (reserved), card left with {target} free; "
+        f"{ws} bytes (reserved), card left with {target} free ({slack} "
+        f"bytes of free room inside kept segments plugged first); "
         f"oom_retries {st['oom_retries']} segment_splits "
         f"{st['segment_splits']} host_fallbacks {st['host_fallbacks']}; "
         f"bit-equal to the unpressured run ({len(want['a'])} rows); "
@@ -5310,6 +5347,425 @@ def x_phase(torch, np, tt, pk, ps, card: str) -> dict:
     return paths
 
 
+T_PAGES = 1 << 20              # T1: PageRank pages (4x edges), W=4, 5 iters
+T_ITERS = 5
+T_RECORDS = 1 << 22            # T1, T3: TeraSort records, 100 bytes
+T_WORDS = 1 << 22              # T1: WordCount words, Zipf over T_VOCAB
+T_VOCAB = 1 << 20
+
+
+class SpanClock:
+    """Host time inside the tracer's own methods (``begin``, ``end``,
+    ``instant``, ``emit_span``; a span's ``with`` exit goes through
+    ``end``) while the block runs: the span code's cost, two clock reads
+    a call of it included."""
+
+    NAMES = ("begin", "end", "instant", "emit_span")
+
+    def __init__(self, trace_mod) -> None:
+        self.cls = trace_mod.Tracer
+        self.seconds = 0.0
+        self.saved = {}
+
+    def __enter__(self):
+        clock = self
+        for name in self.NAMES:
+            inner = getattr(self.cls, name)
+            self.saved[name] = inner
+
+            def timed(*a, _inner=inner, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _inner(*a, **k)
+                finally:
+                    clock.seconds += time.perf_counter() - t0
+            setattr(self.cls, name, timed)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for name, inner in self.saved.items():
+            setattr(self.cls, name, inner)
+
+
+def t_run(torch, tt, pk, ps, job, env: dict, clock=None) -> dict:
+    """``job(ctx)`` once on a fresh W=4 Context under ``env``: its host
+    result, host seconds (after synchronize), the choke point's
+    counters, the kernels' launches, the tracer's lanes and records and
+    the spans made."""
+    from thrill_tpu_torch.common import trace
+    with EnvSet(**env):
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        mex = ctx.mesh_exec
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        d0, f0, x0 = mex.stats_dispatches, mex.stats_fetches, \
+            mex.stats_transfers
+        s0 = trace.SPANS_CREATED
+        with (clock if clock is not None else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            res = job(ctx)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        out = dict(res=res, secs=secs,
+                   dispatches=mex.stats_dispatches - d0,
+                   fetches=mex.stats_fetches - f0,
+                   transfers=mex.stats_transfers - x0,
+                   launches=read_launches(pk, ps),
+                   lanes=dict(ctx.tracer.lane_counts),
+                   ring=list(ctx.tracer.ring or ()),
+                   spans=trace.SPANS_CREATED - s0,
+                   stats=ctx.overall_stats())
+        ctx.close()
+    return out
+
+
+def t_inputs(np):
+    """Phase T's inputs from the seed: phase P's PageRank graph and
+    TeraSort records, and X1's Zipf words."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    rng = np.random.default_rng(SEED + 130)
+    edges = tpr.zipf_graph(T_PAGES, 4 * T_PAGES, seed=SEED + 131)
+    rec = np.frombuffer(rng.bytes(T_RECORDS * 100), dtype=np.uint8
+                        ).reshape(T_RECORDS, 100)
+    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+    w = ((rng.zipf(1.2, T_WORDS) - 1) % T_VOCAB).astype(np.int64)
+    return edges, recs, {"w": w, "c": np.ones_like(w)}
+
+
+def t_jobs(tt, edges, recs, words) -> dict:
+    from thrill_tpu_torch.examples import page_rank as tpr
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+    return {
+        "pagerank": lambda ctx: tpr.page_rank(ctx, edges, T_PAGES,
+                                              iterations=T_ITERS),
+        "terasort": lambda ctx: p_host(ctx.Distribute(recs).Sort(
+            key_fn=_p_tkey).AllGatherArrays()),
+        "wordcount": lambda ctx: x_rows(ctx.Distribute(words).ReduceByKey(
+            _x_word, red).node.materialize()),
+    }
+
+
+T_COUNTERS = ("dispatches", "fetches", "transfers", "launches")
+# the kernels each traced path must launch (B1 in every
+# exchange's phase A, the radix engine's sorts, B4 in the WordCount's
+# duplicate detection, the ordered fold in PageRank's f64 sums)
+T_KERNELS = {"pagerank": ("partition_histogram", "radix_upsweep",
+                          "radix_pass", "ordered_segment_sum"),
+             "terasort": ("partition_histogram", "radix_upsweep",
+                          "radix_pass"),
+             "wordcount": ("partition_histogram", "radix_upsweep",
+                           "radix_pass", "presence_fill")}
+
+
+def t_traced(torch, np, tt, pk, ps, jobs, tmp: str, card: str) -> dict:
+    """T1: each job warm, then traced with a log, traced without one and
+    untraced (``THRILL_TPU_TRACE=0``), on fresh W=4 Contexts. Returns the
+    traced runs with a log (their logs under ``tmp``) and the launches
+    by path."""
+    from thrill_tpu_torch.common import trace
+    runs, paths = {}, {}
+    for name, job in jobs.items():
+        plain = {"THRILL_TPU_LOOP_REPLAY": "0"} if name == "pagerank" else {}
+        t_run(torch, tt, pk, ps, job, plain)
+        log_path = os.path.join(tmp, f"{name}.json")
+        clock, clock_nolog = SpanClock(trace), SpanClock(trace)
+        on = t_run(torch, tt, pk, ps, job,
+                   {**plain, "THRILL_TPU_LOG": log_path}, clock)
+        nolog = t_run(torch, tt, pk, ps, job, plain, clock_nolog)
+        off = t_run(torch, tt, pk, ps, job, {**plain, "THRILL_TPU_TRACE": "0"})
+        for other, what in ((nolog, "traced without a log"),
+                            (off, "untraced")):
+            if not p_same(np, on["res"], other["res"]):
+                raise AssertionError(f"T1 {name}: traced and {what} "
+                                     f"results differ")
+            for k in T_COUNTERS:
+                if on[k] != other[k]:
+                    raise AssertionError(f"T1 {name}: {k} {on[k]} traced, "
+                                         f"{other[k]} {what}")
+        if on["lanes"].get("dispatch") != on["dispatches"]:
+            raise AssertionError(f"T1 {name}: dispatch lane "
+                                 f"{on['lanes'].get('dispatch')} against "
+                                 f"{on['dispatches']} dispatches")
+        if off["spans"] != 0 or off["lanes"]:
+            raise AssertionError(f"T1 {name}: THRILL_TPU_TRACE=0 made "
+                                 f"{off['spans']} spans")
+        need_launches(on["launches"], T_KERNELS[name], f"T1 {name} W=4")
+        records = sum(on["lanes"].values())
+        log(f"T1 {name} W=4: lane_counts {json.dumps(on['lanes'], sort_keys=True)}"
+            f"; spans made {on['spans']}, records {records}; warm seconds "
+            f"traced with a log {on['secs']:.4f}, without "
+            f"{nolog['secs']:.4f}, untraced {off['secs']:.4f} (host clock "
+            f"after synchronize); host us a record in the tracer's methods "
+            f"{1e6 * clock.seconds / max(records, 1):.2f} with the log, "
+            f"{1e6 * clock_nolog.seconds / max(records, 1):.2f} without "
+            f"({1e3 * clock.seconds:.3f} and "
+            f"{1e3 * clock_nolog.seconds:.3f} ms); "
+            f"dispatches {on['dispatches']}, counted fetches "
+            f"{on['fetches']}, transfers {on['transfers']}, launches "
+            f"{json.dumps(on['launches'])}, equal in the other two runs; "
+            f"results bit-equal [{card}]")
+        on["log"] = log_path.replace(".json", "-host0.json")
+        runs[name] = on
+        paths[f"T1 {name} W=4 (traced)"] = on["launches"]
+        paths[f"T1 {name} W=4 (untraced)"] = off["launches"]
+        del off, nolog
+    return runs, paths
+
+
+def t_graph(torch, np, tt, pk, ps, card: str) -> dict:
+    """T2: L1's PageRank W=4 replayed in the whole-loop CUDA graph, warm,
+    traced and untraced: the graph is still taken (loop_fori_iters
+    equal), results bit-equal, launches equal; the loop lane holds one
+    capture and one replay span, and the window one dispatch span."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
+
+    def job(ctx):
+        return tpr.page_rank(ctx, edges, PAGES, iterations=PR_ITERS)
+
+    ring = {"THRILL_TPU_TRACE_RING": "65536"}     # every record kept
+    t_run(torch, tt, pk, ps, job, {})
+    on = t_run(torch, tt, pk, ps, job, ring)
+    off = t_run(torch, tt, pk, ps, job, {"THRILL_TPU_TRACE": "0"})
+    del edges
+    fori = (on["stats"]["loop_fori_iters"], off["stats"]["loop_fori_iters"])
+    if fori[0] != fori[1] or fori[0] <= 0:
+        raise AssertionError(f"T2: loop_fori_iters {fori} (traced, "
+                             f"untraced): the graph was not taken")
+    if not p_same(np, on["res"], off["res"]):
+        raise AssertionError("T2: traced and untraced ranks differ")
+    for k in T_COUNTERS:
+        if on[k] != off[k]:
+            raise AssertionError(f"T2: {k} {on[k]} traced, {off[k]} "
+                                 f"untraced")
+    loop = [r for r in on["ring"] if r["cat"] == "loop"]
+    replays = [r for r in loop if r["name"] == "replay"]
+    kinds = {n: sum(r["name"] == n for r in loop)
+             for n in ("capture", "replay")}
+    window = [r["name"] for r in on["ring"] if r["cat"] == "dispatch"
+              and replays and r.get("parent") == replays[0]["span"]]
+    if kinds != {"capture": 1, "replay": 1} or window != ["loop_fori"]:
+        raise AssertionError(f"T2: loop lane {kinds}, the window's "
+                             f"dispatch spans {window}")
+    log(f"T2 pagerank W=4 graph ({PAGES} pages, {PR_EDGES} edges, "
+        f"{PR_ITERS} iterations): loop_fori_iters {fori[0]} traced and "
+        f"untraced; loop lane {json.dumps(kinds)}; the replay window "
+        f"({replays[0].get('fori_iters')} iterations, "
+        f"{replays[0]['dur_us']} us) holds dispatch spans {window}; "
+        f"warm seconds traced {on['secs']:.4f}, untraced {off['secs']:.4f}"
+        f"; launches {json.dumps(on['launches'])}, equal untraced; ranks "
+        f"bit-equal [{card}]")
+    return {"T2 pagerank graph W=4 (traced)": on["launches"],
+            "T2 pagerank graph W=4 (untraced)": off["launches"]}
+
+
+def t_flight(torch, np, tt, pk, ps, recs, want, tmp: str, card: str):
+    """T3: a fault at every dispatch from the TeraSort's exchange program
+    (``sort_fused``, the fused ship-and-merge) on: the job fails, a
+    flight dump and its decision-ledger sibling appear, the dump's last
+    record carries the error and its failing dispatch span names the
+    program; the next job on a fresh Context runs clean."""
+    from thrill_tpu_torch.common import faults
+
+    def job(ctx):
+        return p_host(ctx.Distribute(recs).Sort(
+            key_fn=_p_tkey).AllGatherArrays())
+
+    # where the exchange's dispatch falls: its span id's rank among the
+    # dispatch spans (ids count in begin order)
+    probe = t_run(torch, tt, pk, ps, job, {"THRILL_TPU_TRACE_RING": "65536"})
+    disp = sorted((r["span"], r["name"]) for r in probe["ring"]
+                  if r["cat"] == "dispatch")
+    at = [n for _, n in disp].index("sort_fused")
+    fdir = os.path.join(tmp, "flight")
+    spec = f"api.mesh.dispatch:n=0:after={at}"
+    with EnvSet(THRILL_TPU_FLIGHT_DIR=fdir, THRILL_TPU_FAULTS=spec):
+        faults.REGISTRY.reset()
+        try:
+            tt.Run(job, 4, device=DEVICE)
+        except faults.InjectedFault as e:
+            err = repr(e)
+        else:
+            raise AssertionError("T3: the faulted TeraSort did not fail")
+        finally:
+            faults.REGISTRY.reset()
+    dumps = sorted(f for f in os.listdir(fdir) if f.startswith("flight-"))
+    if len(dumps) != 1 or not os.path.exists(
+            os.path.join(fdir, "decisions-" + dumps[0][len("flight-"):])):
+        raise AssertionError(f"T3: flight files {os.listdir(fdir)}")
+    with open(os.path.join(fdir, dumps[0])) as f:
+        lines = [json.loads(l) for l in f]
+    recs_d = lines[1:]
+    failed = [r for r in recs_d if r["cat"] == "dispatch" and "error" in r]
+    if "error" not in recs_d[-1] or not failed \
+            or failed[-1]["name"] != "sort_fused":
+        raise AssertionError(f"T3: the dump's last record {recs_d[-1]}, "
+                             f"failed dispatches {failed}")
+    again = t_run(torch, tt, pk, ps, job, {})
+    if not p_same(np, again["res"], want):
+        raise AssertionError("T3: the TeraSort after the failure differs")
+    log(f"T3 terasort W=4 under {spec} (the dispatch of sort_fused, "
+        f"dispatch {at + 1} of {len(disp)}): failed with {err[:80]}; "
+        f"{dumps[0]} ({len(recs_d)} records; header reason "
+        f"{lines[0]['reason'][:60]!r}) and its decisions- sibling written; "
+        f"last record {recs_d[-1]['cat']}:{recs_d[-1]['name']} with "
+        f"error; failing dispatch span {failed[-1]['name']}; the next "
+        f"TeraSort on a fresh Context bit-equal to T1's [{card}]")
+    return {"T3 terasort W=4 (after the failure)": again["launches"]}
+
+
+def t_tool(mod, argv) -> str:
+    """A report tool's ``main()`` under ``argv``: its standard output."""
+    import io
+    out = io.StringIO()
+    saved = sys.argv
+    sys.argv = [mod.__name__.rsplit(".", 1)[-1]] + list(argv)
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        sys.argv = saved
+    return out.getvalue()
+
+
+def t_readers(torch, np, tt, pk, ps, runs, edges, tmp: str, card: str):
+    """T4: trace2perfetto and doctor_report of T1's PageRank log; the
+    doctor's skew ratio on phase P's 100:1 skewed exchange; scrapes of
+    the metrics endpoint during a PageRank run; the profile thread's
+    device-memory fields."""
+    import socket
+    import threading
+    import urllib.request
+    from thrill_tpu_torch.common import doctor, profile
+    from thrill_tpu_torch.common.logger import JsonLogger
+    from thrill_tpu_torch.data import exchange as ex
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.tools import doctor_report, trace2perfetto
+    pr_log = runs["pagerank"]["log"]
+    doc = json.loads(t_tool(trace2perfetto, [pr_log]))
+    evs = doc["traceEvents"]
+    pids = {e["pid"] for e in evs if e.get("ph") == "M"
+            and e.get("name") == "process_name"}
+    tids = {e["args"]["name"] for e in evs if e.get("ph") == "M"
+            and e.get("name") == "thread_name"}
+    want_tids = set(runs["pagerank"]["lanes"])
+    if pids != {0} or not want_tids <= tids:
+        raise AssertionError(f"T4 trace2perfetto: pid lanes {pids}, tid "
+                             f"lanes {tids}")
+    rep = t_tool(doctor_report, [pr_log])
+    cp = rep.split("-- critical path", 1)
+    edges_cp = [l for l in cp[1].splitlines()[1:] if "us excl" in l] \
+        if len(cp) == 2 else []
+    depth = max((l.count(" > ") + 1 for l in edges_cp), default=0)
+    if len(edges_cp) < 3 or depth < 3:
+        raise AssertionError(f"T4 doctor_report: {rep}")
+    log(f"T4 trace2perfetto of T1's PageRank log: {len(evs)} events, pid "
+        f"lanes {sorted(pids)}, tid lanes {sorted(tids)}; doctor_report: "
+        f"critical path of {len(edges_cp)} edges, the deepest "
+        f"{edges_cp[[l.count(' > ') for l in edges_cp].index(depth - 1)].split('  ')[-1]!r} [{card}]")
+    # phase P's 100:1 skew: every row lands on worker 0
+    per = [4 * (np.arange(1024 + (102400 if w == 3 else 0),
+                          dtype=np.int64) + (1 << 24) * w) for w in range(4)]
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    shards = ctx.ConcatToDIA(per, storage="device").node.materialize()
+    ex.exchange(shards, lambda x, m, w: torch.remainder(x, 4), ("t_skew",))
+    ratio = ctx.overall_stats()["skew_ratio"]
+    hot = ctx.doctor.hot_sites()
+    ctx.close()
+    if ratio < doctor.skew_hot_ratio() or not hot:
+        raise AssertionError(f"T4 skew: ratio {ratio}, hot sites {hot}")
+    log(f"T4 skew 100:1 W=4 (phase P's exchange): skew_ratio {ratio} >= "
+        f"THRILL_TPU_SKEW_HOT {doctor.skew_hot_ratio()}; hot worker "
+        f"{hot[0]['worker']} ({hot[0]['rows']} rows) [{card}]")
+    # the metrics endpoint, scraped while PageRank runs
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    scrapes, stop = [], threading.Event()
+    prof_path = os.path.join(tmp, "profile.json")
+    with EnvSet(THRILL_TPU_METRICS_PORT=str(port)):
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+    url = f"http://127.0.0.1:{ctx._metrics.port}/metrics"
+
+    def scrape():
+        while not stop.is_set():
+            with urllib.request.urlopen(url, timeout=10) as r:
+                scrapes.append(r.read().decode())
+            stop.wait(0.05)
+
+    plog = JsonLogger(prof_path)
+    prof = profile.ProfileThread(plog, interval=0.05,
+                                 device=ctx.mesh_exec.device).start()
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    try:
+        tpr.page_rank(ctx, edges, T_PAGES, iterations=T_ITERS)
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        th.join(timeout=30)
+        prof.stop()
+        plog.close()
+    with urllib.request.urlopen(url, timeout=10) as r:
+        last = r.read().decode()
+    st = ctx.overall_stats()
+    ctx.close()
+    parsed = []
+    for text in scrapes + [last]:
+        m = {}
+        for line in text.splitlines():
+            if line.startswith("# TYPE thrill_tpu_"):
+                continue
+            name, value = line.rsplit(" ", 1)
+            if not name.startswith("thrill_tpu_"):
+                raise AssertionError(f"T4 metrics: line {line!r}")
+            m[name] = float(value)
+        parsed.append(m)
+    if not scrapes or parsed[-1]["thrill_tpu_device_dispatches"] \
+            != st["device_dispatches"]:
+        raise AssertionError(f"T4 metrics: {len(scrapes)} scrapes, last "
+                             f"{parsed[-1].get('thrill_tpu_device_dispatches')}"
+                             f" against {st['device_dispatches']}")
+    with open(prof_path) as f:
+        samples = [json.loads(l) for l in f]
+    fields = ("bytes_in_use", "bytes_limit", "peak_bytes_in_use")
+    if not samples or not all(all(k in s for k in fields) for s in samples):
+        raise AssertionError(f"T4 profile: {samples[:2]}")
+    log(f"T4 metrics: {len(scrapes)} scrapes during PageRank W=4 parse as "
+        f"Prometheus text (device_dispatches seen "
+        f"{[int(p.get('thrill_tpu_device_dispatches', 0)) for p in parsed[:-1]][:8]}"
+        f"...), the last {int(parsed[-1]['thrill_tpu_device_dispatches'])} "
+        f"= overall_stats(); profile: {len(samples)} samples, bytes_in_use "
+        f"{min(s['bytes_in_use'] for s in samples)}-"
+        f"{max(s['bytes_in_use'] for s in samples)} of bytes_limit "
+        f"{samples[0]['bytes_limit']} [{card}]")
+
+
+def t_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase T: the tracer on the card (T1-T4)."""
+    import shutil
+    import tempfile
+    t_t = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ttpu-trace-")
+    try:
+        edges, recs, words = t_inputs(np)
+        runs, paths = t_traced(torch, np, tt, pk, ps,
+                               t_jobs(tt, edges, recs, words), tmp, card)
+        torch.cuda.empty_cache()
+        paths.update(t_graph(torch, np, tt, pk, ps, card))
+        torch.cuda.empty_cache()
+        paths.update(t_flight(torch, np, tt, pk, ps, recs,
+                              runs["terasort"]["res"], tmp, card))
+        del recs, words
+        t_readers(torch, np, tt, pk, ps, runs, edges, tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"tracing phase (T): {time.perf_counter() - t_t:.1f} s of host "
+        f"clock [host {cpu_line()}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5357,6 +5813,10 @@ def main() -> int:
     if "--phase-x" in sys.argv:
         # phase X alone
         log(json.dumps(x_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-t" in sys.argv:
+        # phase T alone
+        log(json.dumps(t_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -5462,6 +5922,8 @@ def main() -> int:
     p_paths = plan_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     x_paths = x_phase(torch, np, tt, pk, ps, card)
+    torch.cuda.empty_cache()
+    t_paths = t_phase(torch, np, tt, pk, ps, card)
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -5554,7 +6016,7 @@ def main() -> int:
              "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
-             **l_paths, **p_paths, **x_paths}
+             **l_paths, **p_paths, **x_paths, **t_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -1,7 +1,8 @@
 """The decision ledger (``thrill_tpu_torch/common/decisions.py``) and
 ``Context.explain()`` against the reference package on the CPU: the
 counterpart of the reference's ``tests/common/test_decisions.py`` (the
-flight-recorder dump, ``dump_beside``, belongs to ROADMAP item 7).
+ledger's flight-recorder sibling, ``dump_beside``, is tested with the
+tracer in ``test_torch_trace.py``).
 
 Tolerance: results are compared exactly; the audit math to 1e-12 (one
 float log2); the PageRank run's decision kinds and verdicts equal the

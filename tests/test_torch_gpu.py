@@ -1364,3 +1364,96 @@ def test_sample_sort_on_the_card_is_three_programs(cuda_device, W):
     ctx.close()
     order = np.lexsort(recs["key"].T[::-1])
     assert np.array_equal(out["key"].cpu().numpy(), recs["key"][order])
+
+
+# -- the tracer on the card (common/trace.py) ---------------------------
+
+def _traced(run, W, env, monkeypatch):
+    """``run(ctx)`` on a fresh W-worker card Context under ``env``: the
+    result on the host, the choke point's counters, the kernels'
+    launches and the tracer's lanes and records."""
+    from thrill_tpu_torch.core import ordered_fold as tof
+    kernels = (tpk.partition_histogram, tps.radix_upsweep, tps.radix_pass,
+               tpk.segment_sum, tpk.presence_fill, tof.ordered_segment_sum)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    ctx = tt.Context(num_workers=W, device="cuda")
+    mex = ctx.mesh_exec
+    l0 = [k.launches for k in kernels]
+    c0 = (mex.stats_dispatches, mex.stats_fetches, mex.stats_transfers)
+    out = run(ctx)
+    torch.cuda.synchronize()
+    got = {"res": out,
+           "counts": (mex.stats_dispatches - c0[0],
+                      mex.stats_fetches - c0[1],
+                      mex.stats_transfers - c0[2]),
+           "launches": [k.launches - b for k, b in zip(kernels, l0)],
+           "lanes": dict(ctx.tracer.lane_counts),
+           "ring": list(ctx.tracer.ring or ()),
+           "fori": ctx.overall_stats()["loop_fori_iters"]}
+    ctx.close()
+    for k in env:
+        monkeypatch.delenv(k)
+    return got
+
+
+def _pagerank(ctx):
+    from thrill_tpu_torch.examples import page_rank as tpr
+    return np.asarray(tpr.page_rank(ctx, tpr.zipf_graph(1 << 12, 1 << 14,
+                                                        seed=4),
+                                    1 << 12, iterations=4))
+
+
+def _terasort(ctx):
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 1 << 62, size=1 << 16, dtype=np.int64)
+    return ctx.Distribute(keys).Sort().AllGatherArrays().cpu().numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("job,replay", [(_pagerank, "0"), (_pagerank, "1"),
+                                        (_terasort, "1")])
+def test_tracing_changes_no_count_on_the_card(cuda_device, monkeypatch,
+                                              job, replay):
+    """Traced and untraced W = 4 runs: bit-equal results, equal
+    dispatches, counted fetches, transfers and launches; the dispatch
+    lane counts the dispatches."""
+    env = {"THRILL_TPU_LOOP_REPLAY": replay,
+           "THRILL_TPU_TRACE_RING": "65536"}
+    on = _traced(job, 4, env, monkeypatch)
+    off = _traced(job, 4, {**env, "THRILL_TPU_TRACE": "0"}, monkeypatch)
+    assert np.array_equal(on["res"], off["res"])
+    assert on["counts"] == off["counts"]
+    assert on["launches"] == off["launches"]
+    assert on["lanes"]["dispatch"] == on["counts"][0]
+    assert off["lanes"] == {}
+
+
+@pytest.mark.gpu
+def test_the_graph_window_is_one_replay_span(cuda_device, monkeypatch):
+    """The whole-loop CUDA graph is still taken with tracing on, and its
+    window is one ``replay`` span holding one ``loop_fori`` dispatch."""
+    env = {"THRILL_TPU_TRACE_RING": "65536"}
+    on = _traced(_pagerank, 4, env, monkeypatch)
+    off = _traced(_pagerank, 4, {"THRILL_TPU_TRACE": "0"}, monkeypatch)
+    assert on["fori"] == off["fori"] == 3
+    loop = [r for r in on["ring"] if r["cat"] == "loop"]
+    assert [r["name"] for r in loop] == ["capture", "replay"]
+    window = [r["name"] for r in on["ring"] if r["cat"] == "dispatch"
+              and r.get("parent") == loop[1]["span"]]
+    assert window == ["loop_fori"]
+    assert loop[1]["fori_iters"] == 3
+
+
+@pytest.mark.gpu
+def test_device_memory_stats_read_the_allocator(cuda_device):
+    from thrill_tpu_torch.common import profile
+    x = torch.empty(1 << 20, dtype=torch.uint8, device=cuda_device)
+    got = profile._device_memory_stats(cuda_device)
+    assert got["bytes_in_use"] == torch.cuda.memory_allocated()
+    assert got["bytes_in_use"] >= x.numel()
+    assert got["bytes_limit"] == \
+        torch.cuda.get_device_properties(0).total_memory
+    assert got["peak_bytes_in_use"] >= got["bytes_in_use"]
+    assert profile._device_memory_stats("cpu") == {}
+    del x

@@ -239,6 +239,10 @@ PLAN = {"exchanges_overlapped", "cap_cache_hits", "cap_cache_misses",
         "plan_builds", "plan_store_hits", "planner_replans",
         "planner_switches", "decisions_recorded", "decisions_joined",
         "decision_accuracy"}
+# the performance doctor's (common/doctor.py): host seconds blocked at
+# exchange barriers, the worst skew ratio
+DOCTOR = {"collective_wait_s", "wait_net_s", "wait_exchange_s", "wait_io_s",
+          "wait_skew_s", "straggler_waits", "skew_ratio"}
 
 
 def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
@@ -262,7 +266,8 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "device_fetches", "fused_dispatches", "fused_ops",
                       "fused_stages", "join_overflow_retries",
                       "loop_plan_builds", "loop_replays", "loop_fori_iters",
-                      "loop_replay_fallbacks", "loop_donated_bytes"} | PLAN
+                      "loop_replay_fallbacks", "loop_donated_bytes",
+                      "faults_delayed"} | PLAN | DOCTOR
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
     assert s["workers"] == 4 and s["nodes_created"] == 2
@@ -284,7 +289,12 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
     assert s["device_uploads"] > 0
     assert s["decisions_recorded"] >= s["decisions_joined"] > 0
     assert isinstance(s["decision_accuracy"], dict)
-    assert all(s[k] == 0 for k in set(s) - PLAN - {
+    # one controller: no host-group waits, no peers; the reduce's one
+    # exchange is balanced
+    assert s["wait_net_s"] == 0.0 and s["straggler_waits"] == {}
+    assert s["collective_wait_s"] >= s["wait_exchange_s"] >= 0.0
+    assert 1.0 <= s["skew_ratio"] == rs["skew_ratio"] < 3.0
+    assert all(s[k] == 0 for k in set(s) - PLAN - DOCTOR - {
         "workers", "nodes_created", "exchanges", "items_moved",
         "bytes_moved", "device_dispatches", "device_fetches",
         "fused_dispatches", "fused_ops", "fused_stages"})

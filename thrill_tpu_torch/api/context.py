@@ -9,7 +9,15 @@ common/decisions.py), the planner (``planner``, api/planner.py; None
 with ``THRILL_TPU_PLANNER=0``), and, when their directories are set,
 the plan store (``plan_store``, service/plan_store.py) and the
 checkpoint manager (``checkpoint``, api/checkpoint.py); ``close()``
-saves the plan store and frees the spill store."""
+saves the plan store and frees the spill store.
+
+Observability: the tracer (``tracer``, common/trace.py; its ring is the
+flight recorder that :meth:`Context.note_failure` dumps), the
+performance doctor (``doctor``, common/doctor.py; None with
+``THRILL_TPU_DOCTOR=0``; :meth:`Context.doctor_report`), the profile
+thread (``Config.profile``, ``THRILL_TPU_PROFILE=1``, with a log) and
+the metrics endpoint (``THRILL_TPU_METRICS_PORT``,
+common/metrics.py)."""
 
 from __future__ import annotations
 
@@ -48,6 +56,18 @@ class Context:
             program="thrill_tpu_torch", workers=self.num_workers, host=0)
         if self.logger.enabled:
             faults.REGISTRY.set_logger(self.logger.line)
+        # the fault counters are the process's: this Context reports
+        # what happened since it was made
+        self._faults_base = faults.REGISTRY.stats()
+        # the tracer and the doctor: one attribute read away from every
+        # choke point (THRILL_TPU_TRACE=0: no spans; THRILL_TPU_DOCTOR=0:
+        # no doctor)
+        from ..common.doctor import Doctor, doctor_enabled
+        from ..common.trace import Tracer
+        self.tracer = Tracer(rank=0, logger=self.logger)
+        self.doctor = Doctor(rank=0) if doctor_enabled() else None
+        self.mesh_exec.tracer = self.tracer
+        self.mesh_exec.doctor = self.doctor
         self.hbm = HbmGovernor(self, limit=self.config.hbm_limit)
         self.pressure = PressureMonitor(self.mesh_exec, governor=self.hbm)
         # the dispatch choke point reaches both in one attribute read
@@ -59,7 +79,8 @@ class Context:
         # the decision ledger: every plan choice of the choke points,
         # one attribute read away (THRILL_TPU_DECISIONS=0: none)
         from ..common.decisions import DecisionLedger
-        self.decisions = DecisionLedger(logger=self.logger)
+        self.decisions = DecisionLedger(logger=self.logger,
+                                        tracer=self.tracer)
         mex.decisions = self.decisions
         # the planner, which re-plans a site when an audit shows its
         # learned state lied (THRILL_TPU_PLANNER=0: the per-site rules)
@@ -99,6 +120,14 @@ class Context:
                 self, self.config.ckpt_dir,
                 resume=resume or self.config.resume,
                 auto=self.config.ckpt_auto)
+        self._profiler = None
+        if self.config.profile and self.logger.enabled:
+            from ..common.profile import ProfileThread
+            self._profiler = ProfileThread(
+                self.logger, device=self.mesh_exec.device).start()
+        # the live metrics endpoint (off unless THRILL_TPU_METRICS_PORT)
+        from ..common.metrics import maybe_start
+        self._metrics = maybe_start(self)
 
     @property
     def num_workers(self) -> int:
@@ -149,7 +178,13 @@ class Context:
         self._mem_reserved += grant
         node.mem_limit = grant
         node._mem_grant = grant
-        if req != "max" and grant < int(req):
+        short = req != "max" and grant < int(req)
+        if self.logger.enabled:
+            self.logger.line(event="mem_negotiate", node=node.label,
+                             dia_id=node.id, grant=grant,
+                             reserved=self._mem_reserved,
+                             short=short or None)
+        if short:
             print(f"thrill_tpu_torch: mem_negotiate short grant for "
                   f"{node.label}: requested {req}, granted {grant}",
                   file=sys.stderr)
@@ -245,6 +280,7 @@ class Context:
         with a checkpoint manager, its five (epochs, bytes written, ops
         and sort runs skipped by resume, restore seconds)."""
         mex = self.mesh_exec
+        fstats = faults.REGISTRY.stats()
         stats = {
             "workers": self.num_workers,
             "nodes_created": self._next_id,
@@ -255,8 +291,10 @@ class Context:
             "device_fetches": mex.stats_fetches,
             "fused_dispatches": mex.stats_fused_dispatches,
             "fused_ops": mex.stats_fused_ops,
+            # a snapshot: the metrics thread reads this while the
+            # dispatch inserts stages
             "fused_stages": {" + ".join(ops): n for ops, n in
-                             mex.fused_stage_counts.items()},
+                             dict(mex.fused_stage_counts).items()},
             "join_overflow_retries": mex.stats_join_overflow_retries,
             "loop_plan_builds": mex.stats_loop_plan_builds,
             "loop_replays": mex.stats_loop_replays,
@@ -283,22 +321,52 @@ class Context:
             "hbm_spills": self.hbm.spill_count,
             "hbm_restores": self.hbm.restore_count,
             **self.pressure.stats(),
+            **(self.doctor.stats() if self.doctor is not None else
+               {"collective_wait_s": 0.0, "wait_net_s": 0.0,
+                "wait_exchange_s": 0.0, "wait_io_s": 0.0,
+                "wait_skew_s": 0.0, "straggler_waits": {},
+                "skew_ratio": 0.0}),
+            "faults_delayed": (fstats["faults_delayed"]
+                               - self._faults_base["faults_delayed"]),
         }
         if self.checkpoint is not None:
             stats.update(self.checkpoint.stats())
         return stats
 
+    def doctor_report(self, k: int = 5) -> dict:
+        """The performance doctor's diagnosis: its stats, the wait and
+        skew tables, and the critical path over the tracer's ring (the
+        top ``k`` edges by exclusive time). Empty with
+        ``THRILL_TPU_DOCTOR=0``."""
+        if self.doctor is None:
+            return {}
+        ring = self.tracer.ring if self.tracer.enabled else None
+        return self.doctor.report(ring=ring or (), k=k)
+
     def note_failure(self, exc: BaseException) -> None:
-        """The job raised ``exc``: ``close()`` then drops this run's
+        """The job raised ``exc``: the flight recorder dumps its ring
+        with the decision ledger beside it (best-effort: a failing dump
+        never masks the failure), and ``close()`` then drops this run's
         uncommitted epoch and the spill files of dead processes. Its
         deferred checks and a loop capture in progress are dropped."""
         self._aborted = True
+        try:
+            self.decisions.dump_beside(self.tracer.dump_flight(
+                f"{type(exc).__name__}: {exc}"))
+        except Exception:
+            pass
         self.mesh_exec.reset_run_state()
 
     def close(self) -> None:
         """Save the plan store, log the stats, detach the log and free
         the spill store (a spilled result cannot be pulled after
         this)."""
+        if self._profiler is not None:
+            self._profiler.stop()
+            self._profiler = None
+        if self._metrics is not None:
+            self._metrics.close()
+            self._metrics = None
         if self.plan_store is not None:
             # plans are an optimization: a failing store must not fail
             # the close of the run that learned them

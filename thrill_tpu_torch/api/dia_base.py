@@ -216,6 +216,11 @@ class DIABase:
         ctx = self.context
         hbm = ctx.hbm
         if self._shards is None:
+            log = ctx.logger
+            if log.enabled:
+                log.line(event="node_execute_start", node=self.label,
+                         dia_id=self.id,
+                         parents=[p.node.id for p in self.parents])
             mgr = getattr(ctx, "checkpoint", None)
             restored = mgr.try_restore(self) if mgr is not None else None
             if restored is not None:
@@ -239,6 +244,18 @@ class DIABase:
                 # a result this very pull releases is never worth
                 # spilling a kept one for
                 hbm.on_cache(self)
+            if log.enabled:
+                # host counts only: the log line never forces a fetch
+                sh = self._shards
+                host_counts = (sh.counts if isinstance(sh, HostShards)
+                               else getattr(sh, "_counts_host", None))
+                log.line(event="node_execute_done", node=self.label,
+                         dia_id=self.id,
+                         items=(int(host_counts.sum())
+                                if host_counts is not None else None),
+                         per_worker=(host_counts.tolist()
+                                     if host_counts is not None
+                                     else None))
         else:
             hbm.touch(self)
         result = self._shards

@@ -43,8 +43,11 @@ tensor, so no count reaches the host between the ops.
 dispatches``/``stats_fused_ops``/``fused_stage_counts`` on the mesh and
 ``event=fused_dispatch``/``node_fused`` log lines say what was stitched.
 The planner's proactive split runs at the stitched dispatch
-(``_proactive_split``) and records its decision. Not ported here: the
-tracer spans (ROADMAP item 7).
+(``_proactive_split``) and records its decision. Tracing
+(common/trace.py): one ``fusion`` span a stitched dispatch, named by its
+segments' labels joined with ``+`` (cut to 120 characters) with ``ops``,
+holding the dispatch spans; the rung-3/4 degradations are ``mem``
+instants ``segment_split`` and ``host_fallback``.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ..common import decisions as _decisions
 from ..common import faults
 from ..common import tree as pt
 from ..common.retry import default_policy
+from ..common.trace import instant_of
 from ..data.shards import DeviceShards, HostShards, compact_valid
 from .stack import (Stack, apply_stack_device, apply_stack_host_list,
                     apply_stack_traced, stack_bound_operands,
@@ -251,11 +255,20 @@ class FusionPlan:
     def execute(self):
         """Run the chain as one dispatch; DeviceShards, or HostShards
         when rung 4 ran it on the host."""
+        segs = self.all_segments
+        if not segs:
+            return self.sources[0]
+        tr = self.mex.tracer
+        if tr is None or not tr.enabled:
+            return self._execute_inner()
+        with tr.span("fusion", "+".join(s.label for s in segs)[:120],
+                     ops=len(segs)):
+            return self._execute_inner()
+
+    def _execute_inner(self):
         mex = self.mex
         srcs = self.sources
         segs = self.all_segments
-        if not segs:
-            return srcs[0]
         for s in srcs:
             s.validate_pending()
         src_flat = [pt.flatten(s.tree) for s in srcs]
@@ -418,6 +431,7 @@ class FusionPlan:
                     cap=src.cap, proactive=True)
         faults.note("recovery", what="mem.segment_split_proactive",
                     _quiet=True)
+        instant_of(mex.tracer, "mem", "segment_split", k=k, proactive=True)
         return out
 
     # -- the memory ladder's rungs 3-4 (mem/pressure.py) ----------------
@@ -450,10 +464,13 @@ class FusionPlan:
                 faults.note("segment_split", k=k, ops=labels, cap=src.cap)
                 faults.note("recovery", what="mem.segment_split",
                             _quiet=True)
+                instant_of(self.mex.tracer, "mem", "segment_split", k=k)
                 return out
         if all(s.host_apply is not None for s in segs):
             pres.host_fallbacks += 1
             faults.note("recovery", what="mem.host_fallback", ops=labels)
+            instant_of(self.mex.tracer, "mem", "host_fallback",
+                       ops=len(labels))
             shards = src.to_host_shards(reason="memory_pressure")
             lists = shards.lists
             for seg in segs:

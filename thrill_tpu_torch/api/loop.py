@@ -88,8 +88,15 @@ outcome under its tape token (name, the body's canonical identity and
 the carry's signature): a loop that rejected capture twice runs plain
 from its first iteration on a warm restart (``loop_seed_nocapture``), a
 captured tape's program keys and wiring are compared with the fresh
-capture's (``loop_seed_stale`` when they differ). Not ported here: the
-tracer's ``loop`` spans (ROADMAP item 7).
+capture's (``loop_seed_stale`` when they differ).
+
+Tracing (common/trace.py): a ``loop`` span ``capture`` for every capture
+or plain iteration (``mode`` says which) and ``replay`` for every
+replayed iteration, or one for the whole-loop window with its
+``fori_iters``, as the reference's. The window's one dispatch span is
+the ``loop_fori`` program's: on the card it holds the graph's capture
+and replays, and the span code runs outside the capture, so the graph
+records no host work of it.
 """
 
 from __future__ import annotations
@@ -1216,6 +1223,8 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
               "fori_iters": 0, "fallbacks": 0, "capture_s": 0.0,
               "replay_s": 0.0, "calls": 0, "pruned": 0,
               "donated_bytes0": mex.stats_loop_donated_bytes}
+    tracer = getattr(ctx, "tracer", None)
+    tr_on = tracer is not None and tracer.enabled
     i = start
     fresh_plan = ckpt = False
     while i < n:
@@ -1224,40 +1233,49 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
             t0 = time.perf_counter()
             d0, f0, l0 = mex.stats_dispatches, mex.stats_fetches, \
                 _launch_snapshot()
-            if can_replay and miss_streak < 2:
-                state, plan = _capture(ctx, run_body, state, name=name,
-                                       it=i, info=last_miss)
-                if plan is not None:
-                    miss_streak = 0
-                    mex.stats_loop_plan_builds += 1
-                    report["captures"] += 1
-                    report["calls"] = len(plan.calls)
-                    report["pruned"] = (plan.pruned_invariant
-                                        + plan.pruned_dead)
-                    if tape_token is not None:
-                        meta = _tape_meta(plan)
-                        if isinstance(tape_seed, dict):
-                            if tape_seed.get("calls") == meta["calls"] \
-                                    and tape_seed.get("wiring") \
-                                    == meta["wiring"]:
-                                seed_mode = "tape"
-                            else:
-                                seed_mode = "stale"
-                                if log.enabled:
-                                    log.line(event="loop_seed_stale",
-                                             loop=name, iter=i)
-                        tape_seed = None
-                        _note_tape(mex, tape_token, meta)
+            sp = (tracer.begin("loop", "capture", loop=name, iter=i)
+                  if tr_on else None)
+            try:
+                if can_replay and miss_streak < 2:
+                    state, plan = _capture(ctx, run_body, state, name=name,
+                                           it=i, info=last_miss)
+                    if plan is not None:
+                        miss_streak = 0
+                        mex.stats_loop_plan_builds += 1
+                        report["captures"] += 1
+                        report["calls"] = len(plan.calls)
+                        report["pruned"] = (plan.pruned_invariant
+                                            + plan.pruned_dead)
+                        if tape_token is not None:
+                            meta = _tape_meta(plan)
+                            if isinstance(tape_seed, dict):
+                                if (tape_seed.get("calls")
+                                        == meta["calls"]
+                                        and tape_seed.get("wiring")
+                                        == meta["wiring"]):
+                                    seed_mode = "tape"
+                                else:
+                                    seed_mode = "stale"
+                                    if log.enabled:
+                                        log.line(event="loop_seed_stale",
+                                                 loop=name, iter=i)
+                            tape_seed = None
+                            _note_tape(mex, tape_token, meta)
+                    else:
+                        miss_streak += 1
+                        if miss_streak >= 2 and tape_token is not None:
+                            # a deterministic reject: a warm restart skips
+                            # the capture probes
+                            _note_tape(mex, tape_token, {
+                                "capture": False,
+                                "reason":
+                                    last_miss.get("reason", "?")[:200]})
                 else:
-                    miss_streak += 1
-                    if miss_streak >= 2 and tape_token is not None:
-                        # a deterministic reject: a warm restart skips
-                        # the capture probes
-                        _note_tape(mex, tape_token, {
-                            "capture": False,
-                            "reason": last_miss.get("reason", "?")[:200]})
-            else:
-                state = run_body(state)
+                    state = run_body(state)
+            finally:
+                if sp is not None:
+                    tracer.end(sp, mode=("capture" if plan is not None
+                                         else "plain"))
             dt = time.perf_counter() - t0
             report["capture_s"] += dt
             if log.enabled:
@@ -1288,68 +1306,82 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
         d0, f0, l0 = mex.stats_dispatches, mex.stats_fetches, \
             _launch_snapshot()
         donating = donate and not faults.REGISTRY.active()
+        # one replay span a replayed iteration, or for the whole-loop
+        # window (holding its one loop_fori dispatch span)
+        sp = (tracer.begin("loop", "replay", loop=name, iter=i)
+              if tr_on else None)
         try:
-            if faults.REGISTRY.active():
-                faults.check(_F_REPLAY, loop=name, iter=i)
-            if fori_ok:
-                out = plan.run_fori(leaves, remaining)
-                if out is not None:
-                    mex.stats_loop_fori_iters += remaining
-                    report["fori_iters"] += remaining
-                    state = _rebuild_carry(out, treedef, dia_mode, mex, plan)
-                    dt = time.perf_counter() - t0
-                    report["replay_s"] += dt
-                    if log.enabled:
-                        log.line(event="loop_replay", loop=name, iter=i,
-                                 iters=remaining, fori=True,
-                                 graph=mex.device.type == "cuda",
-                                 seconds=round(dt, 6),
-                                 dispatches=mex.stats_dispatches - d0,
-                                 fetches=mex.stats_fetches - f0,
-                                 launches=_launch_delta(l0))
-                    i = n
-                    continue
-            if donating and not fresh_plan and not ckpt:
-                state = None                 # the tape owns the carry now
-            out = plan.replay(leaves, donating,
-                              donate_carry=not fresh_plan and not ckpt)
-        except Exception as e:
-            # LOUD degradation: a failed replayed iteration runs plain
-            # (and captures again); the loop slows down, it never lies.
-            # Unless the tape already dropped part of the carry: then
-            # there is nothing to re-plan from
-            if state is None:
-                if any(l is None for l in leaves):
-                    raise RuntimeError(
-                        f"loop '{name}' iteration {i}: a replayed dispatch "
-                        f"failed after part of the loop carry was "
-                        f"released; cannot degrade to re-planning. Re-run "
-                        f"with THRILL_TPU_LOOP_DONATE=0 (or from the last "
-                        f"checkpoint epoch).") from e
-                state = _rebuild_carry(leaves, treedef, dia_mode, mex, plan)
-            mex.stats_loop_fallbacks += 1
-            report["fallbacks"] += 1
-            faults.note("recovery", what="loop_replay", loop=name, iter=i,
-                        error=repr(e)[:200])
+            try:
+                if faults.REGISTRY.active():
+                    faults.check(_F_REPLAY, loop=name, iter=i)
+                if fori_ok:
+                    out = plan.run_fori(leaves, remaining)
+                    if out is not None:
+                        mex.stats_loop_fori_iters += remaining
+                        report["fori_iters"] += remaining
+                        state = _rebuild_carry(out, treedef, dia_mode, mex,
+                                               plan)
+                        dt = time.perf_counter() - t0
+                        report["replay_s"] += dt
+                        if sp is not None:
+                            sp.attrs["fori_iters"] = remaining
+                        if log.enabled:
+                            log.line(event="loop_replay", loop=name,
+                                     iter=i, iters=remaining, fori=True,
+                                     graph=mex.device.type == "cuda",
+                                     seconds=round(dt, 6),
+                                     dispatches=mex.stats_dispatches - d0,
+                                     fetches=mex.stats_fetches - f0,
+                                     launches=_launch_delta(l0))
+                        i = n
+                        continue
+                if donating and not fresh_plan and not ckpt:
+                    state = None             # the tape owns the carry now
+                out = plan.replay(leaves, donating,
+                                  donate_carry=not fresh_plan and not ckpt)
+            except Exception as e:
+                # LOUD degradation: a failed replayed iteration runs plain
+                # (and captures again); the loop slows down, it never
+                # lies. Unless the tape already dropped part of the
+                # carry: then there is nothing to re-plan from
+                if sp is not None:
+                    sp.attrs["error"] = repr(e)[:200]
+                if state is None:
+                    if any(l is None for l in leaves):
+                        raise RuntimeError(
+                            f"loop '{name}' iteration {i}: a replayed "
+                            f"dispatch failed after part of the loop carry "
+                            f"was released; cannot degrade to re-planning. "
+                            f"Re-run with THRILL_TPU_LOOP_DONATE=0 (or from "
+                            f"the last checkpoint epoch).") from e
+                    state = _rebuild_carry(leaves, treedef, dia_mode, mex,
+                                           plan)
+                mex.stats_loop_fallbacks += 1
+                report["fallbacks"] += 1
+                faults.note("recovery", what="loop_replay", loop=name,
+                            iter=i, error=repr(e)[:200])
+                if log.enabled:
+                    log.line(event="loop_replay_fallback", loop=name,
+                             iter=i, error=repr(e)[:200])
+                plan = None
+                continue
+            mex.stats_loop_replays += 1
+            report["replays"] += 1
+            state = _rebuild_carry(out, treedef, dia_mode, mex, plan)
+            out = leaves = None         # the state holds the carry alone
+            dt = time.perf_counter() - t0
+            report["replay_s"] += dt
             if log.enabled:
-                log.line(event="loop_replay_fallback", loop=name, iter=i,
-                         error=repr(e)[:200])
-            plan = None
-            continue
-        mex.stats_loop_replays += 1
-        report["replays"] += 1
-        state = _rebuild_carry(out, treedef, dia_mode, mex, plan)
-        out = leaves = None             # the state holds the carry alone
-        dt = time.perf_counter() - t0
-        report["replay_s"] += dt
-        if log.enabled:
-            log.line(event="loop_replay", loop=name, iter=i,
-                     dispatches=mex.stats_dispatches - d0,
-                     fetches=mex.stats_fetches - f0,
-                     launches=_launch_delta(l0), seconds=round(dt, 6))
-        ckpt = seal(state, i)
-        fresh_plan = False
-        i += 1
+                log.line(event="loop_replay", loop=name, iter=i,
+                         dispatches=mex.stats_dispatches - d0,
+                         fetches=mex.stats_fetches - f0,
+                         launches=_launch_delta(l0), seconds=round(dt, 6))
+            ckpt = seal(state, i)
+            fresh_plan = False
+            i += 1
+        finally:
+            if sp is not None:
+                tracer.end(sp)
 
     report["donated_bytes"] = (mex.stats_loop_donated_bytes
                                - report.pop("donated_bytes0"))

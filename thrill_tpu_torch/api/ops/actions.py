@@ -78,22 +78,28 @@ def AllGather(dia) -> list:
     """The items as a host list in worker-rank order: host items as
     they are; device scalar leaves as Python numbers, array leaves as
     numpy rows, in the item's own pytree shape."""
-    return _items(_pull(dia))
+    return _items(_pull(dia), "allgather-action")
 
 
-def _items(shards) -> list:
+def _items(shards, reason: str) -> list:
+    """The items on the host; leaving device storage logs
+    ``event=device_to_host`` with ``reason``, as every demotion does."""
     if isinstance(shards, HostShards):
         return [it for l in shards.lists for it in l]
     # through the mesh's fetch: counted, and the deferred checks drain
-    return itemize(pt.tree_map(shards.mesh_exec.fetch,
-                               _gather_arrays(shards)))
+    mex = shards.mesh_exec
+    out = itemize(pt.tree_map(mex.fetch, _gather_arrays(shards)))
+    log = mex.logger
+    if log is not None and log.enabled:
+        log.line(event="device_to_host", reason=reason, items=len(out))
+    return out
 
 
 def Gather(dia, root: int = 0) -> list:
     """The items of the whole DIA, delivered to worker ``root`` (Thrill:
     ``api/gather.hpp``). One process is every worker here, so it gets
     them all, in worker-rank order."""
-    return _items(_pull(dia))
+    return _items(_pull(dia), "gather-action")
 
 
 def Print(dia, label: str = "", limit: int = 100) -> None:
@@ -174,7 +180,7 @@ def MinMax(dia, is_min: bool) -> Any:
 def AllReduce(dia, fn: Callable, initial: Any = None) -> Any:
     """A generic associative fold of every item, on the host, in
     worker-rank order."""
-    items = _items(_pull(dia))
+    items = _items(_pull(dia), "allreduce-action")
     if not items:
         if initial is None:
             raise ValueError("AllReduce of empty DIA without initial")

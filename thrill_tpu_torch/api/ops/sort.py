@@ -42,6 +42,7 @@ import torch
 
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
+from ...common.trace import span_of
 from ...core import keys as keymod
 from ...core.device_sort import argsort_words
 from ...core.rowmove import take_rows, take_rows_multi
@@ -290,7 +291,9 @@ class SortNode(DIABase):
                 p += n_
             col_arrs, col_items, col_pos0 = [], [], 0
 
-        writer = AsyncWriter("em_sort.spill")
+        writer = AsyncWriter(
+            "em_sort.spill",
+            tracer=getattr(self.context.mesh_exec, "tracer", None))
 
         def _widen_concat(arrs):
             """One S-w key array of batches of several widths (str
@@ -822,8 +825,10 @@ def _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
         + 8 * (words_s.shape[2] + 1), cap_ident)
     prog = mex.program(("sort_fused", token, M_pad, out_cap),
                        _sort_fused_prog)
-    return prog(dest, S_dev, words_s, gidx_s, payload, M_pad, out_cap,
-                mex.radix_passes)
+    with span_of(mex.tracer, "exchange", "sort_fused", m_pad=M_pad,
+                 out_cap=out_cap):
+        return prog(dest, S_dev, words_s, gidx_s, payload, M_pad,
+                    out_cap, mex.radix_passes)
 
 
 def Sort(dia: DIA, key_fn=None, compare_fn=None) -> DIA:

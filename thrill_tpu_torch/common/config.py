@@ -17,6 +17,8 @@ as the reference reads them.
     THRILL_TPU_XCHG_CAP_CACHE  0: no optimistic capacity-plan reuse
     THRILL_TPU_WIRE_COMPRESS   0: full-width rows (master of NARROW)
     THRILL_TPU_XCHG_NARROW     0: no phase-B row narrowing
+    THRILL_TPU_PROFILE    1: sample CPU, RAM and device memory into the
+                          log every 0.5 s (common/profile.py)
 
 Sizes take SI and IEC suffixes ("64K", "1Gi", "2GB"). The spill
 directory defaults to the temporary directory (``TMPDIR``), not the
@@ -143,6 +145,9 @@ class Config:
     # capacities, narrow ranges, plan kinds, pre-shuffle verdicts and
     # loop tape outcomes survive a restart
     plan_store: str = ""
+    # sample host CPU and RAM and the card's memory into the JSON log
+    # (common/profile.py; needs a log path)
+    profile: bool = False
 
     @staticmethod
     def from_env() -> "Config":
@@ -158,4 +163,5 @@ class Config:
                       exchange=os.environ.get("THRILL_TPU_EXCHANGE")
                       or "dense",
                       plan_store=os.environ.get("THRILL_TPU_PLAN_STORE")
-                      or "")
+                      or "",
+                      profile=bool(_env_int("THRILL_TPU_PROFILE", 0)))

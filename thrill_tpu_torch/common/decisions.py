@@ -18,22 +18,28 @@ engine, plan-store seeds, readahead depths) becomes a record:
 * :func:`render_plan`: the annotated plan tree ``Context.explain()``
   prints.
 
+With a tracer (``tracer=``, common/trace.py) every record and audit is
+also an instant on the trace's ``plan`` lane, and
+:meth:`DecisionLedger.dump_beside` archives the ledger next to a
+flight-recorder dump.
+
 ``THRILL_TPU_DECISIONS=0`` makes the ledger a no-op: the choke points
 pay one attribute read and allocate no record
 (:data:`RECORDS_CREATED` stays flat). A dropped record changes no plan.
-The reference's flight-recorder dump (``dump_beside``) is ROADMAP item
-7's.
 """
 
 from __future__ import annotations
 
 import collections
 import itertools
+import json
 import math
+import os
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 from .config import _env_flag, _env_int
+from .stats import Aggregate
 
 #: DecisionRecord objects allocated in this process (the
 #: THRILL_TPU_DECISIONS=0 test holds it flat)
@@ -56,29 +62,6 @@ def ring_capacity() -> int:
         return max(_env_int("THRILL_TPU_DECISIONS_RING", 4096), 0)
     except ValueError:
         return 4096
-
-
-class _Aggregate:
-    """Running count, mean and sample standard deviation."""
-
-    __slots__ = ("count", "mean", "_m2")
-
-    def __init__(self) -> None:
-        self.count = 0
-        self.mean = 0.0
-        self._m2 = 0.0
-
-    def add(self, x: float) -> None:
-        self.count += 1
-        d = x - self.mean
-        self.mean += d / self.count
-        self._m2 += d * (x - self.mean)
-
-    @property
-    def stdev(self) -> float:
-        if self.count < 2:
-            return 0.0
-        return math.sqrt(self._m2 / (self.count - 1))
 
 
 class DecisionRecord:
@@ -142,11 +125,13 @@ class DecisionLedger:
     aggregates; ``enabled`` False makes every guarded site allocate
     nothing."""
 
-    def __init__(self, logger=None, ring: Optional[int] = None,
+    def __init__(self, logger=None, tracer=None,
+                 ring: Optional[int] = None,
                  enabled: Optional[bool] = None) -> None:
         self.enabled = decisions_enabled() if enabled is None \
             else enabled
         self.logger = logger
+        self.tracer = tracer
         # the planner's re-optimization trigger (api/planner.py
         # Planner.on_audit), called with every record whose actual
         # just joined; None: a pure observatory
@@ -158,7 +143,7 @@ class DecisionLedger:
         self._lock = threading.Lock()
         self.kind_counts: Dict[str, int] = {}
         self.joined_counts: Dict[str, int] = {}
-        self._acc: Dict[str, _Aggregate] = {}
+        self._acc: Dict[str, Aggregate] = {}
         self._site_err: Dict[Tuple[str, str], List[float]] = {}
         # records awaiting a resolve_site() join from another scope
         self._open: Dict[Tuple[str, str], DecisionRecord] = {}
@@ -208,6 +193,10 @@ class DecisionLedger:
         log = self.logger
         if log is not None and log.enabled:
             log.line(**rec.rec())
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.instant("plan", kind, site=site, chosen=chosen,
+                       predicted=rec.predicted, reason=reason)
         return rec
 
     # -- joining actuals ------------------------------------------------
@@ -230,7 +219,7 @@ class DecisionLedger:
             with self._lock:
                 self.joined_counts[rec.kind] = \
                     self.joined_counts.get(rec.kind, 0) + 1
-                self._acc.setdefault(rec.kind, _Aggregate()).add(
+                self._acc.setdefault(rec.kind, Aggregate()).add(
                     abs(rec.err_log2))
                 se = self._site_err.setdefault((rec.kind, rec.site),
                                                [0, 0.0])
@@ -244,6 +233,12 @@ class DecisionLedger:
         log = self.logger
         if log is not None and log.enabled:
             log.line(**rec.audit_rec())
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.instant("plan", rec.kind + "_audit", site=rec.site,
+                       verdict=rec.verdict,
+                       err_log2=(round(rec.err_log2, 3)
+                                 if rec.err_log2 is not None else None))
         hook = self.audit_hook
         if hook is not None:
             # planning is performance and the join observability:
@@ -313,6 +308,29 @@ class DecisionLedger:
                 "decisions": sum(self.kind_counts.values()),
                 "accuracy": self.accuracy(),
                 "worst_sites": self.worst_sites()}
+
+    def dump_beside(self, flight_path: Optional[str]) -> Optional[str]:
+        """Archive the ledger next to a flight-recorder dump:
+        ``flight-*.json`` gains a sibling ``decisions-*.json`` with the
+        summary and the ring's records. Best-effort like the dump: the
+        path, or None."""
+        if flight_path is None or not self.enabled:
+            return None
+        recs = self.snapshot()
+        if not recs:
+            return None
+        d, name = os.path.split(flight_path)
+        if not name.startswith("flight-"):
+            return None
+        path = os.path.join(d, "decisions-" + name[len("flight-"):])
+        try:
+            with open(path, "w") as f:
+                f.write(json.dumps(self.summary(), default=str) + "\n")
+                for r in recs:
+                    f.write(json.dumps(r, default=str) + "\n")
+        except OSError:
+            return None
+        return path
 
 
 def _num(v) -> Optional[float]:

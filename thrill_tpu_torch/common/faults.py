@@ -15,9 +15,11 @@ both packages. Entries are separated by semicolons::
 - ``n=<int>`` the most fires of the entry (default 1; 0 = unbounded);
 - ``seed=<int>`` seeds a stream per ``(seed, site)`` (default 0);
 - ``after=<int>`` skips the first k hits (default 0);
-- ``delay=<dur>`` (``50ms``, ``2s`` or seconds) is parsed as in the
-  reference, but such an entry arms nothing here: the latency mode is
-  not ported.
+- ``delay=<dur>`` (``50ms``, ``2s`` or seconds): the latency mode. A
+  fire sleeps that long at the site instead of raising: a slow site
+  made on demand, so the performance doctor's wait attribution
+  (common/doctor.py) can be tested without real contention. Delayed
+  fires count apart (``faults_delayed``) and log with ``kind=delay``.
 
 A fire raises the site's declared exception class, so the real recovery
 paths run; every fire and every recovery ``note`` is kept in
@@ -37,6 +39,7 @@ import os
 import random
 import sys
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 ENV_VAR = "THRILL_TPU_FAULTS"
@@ -79,7 +82,7 @@ class _Arm:
         self.n = n                  # 0 = unbounded
         self.seed = seed
         self.after = after
-        self.delay = delay          # latency mode: parsed, not run
+        self.delay = delay          # latency mode: sleep, not raise
         self._rngs: Dict[str, random.Random] = {}
         self._fired: Dict[str, int] = {}
         self._seen: Dict[str, int] = {}
@@ -111,6 +114,7 @@ class FaultRegistry:
         self.sites: Dict[str, Site] = {}
         self.events: List[dict] = []      # recent records, bounded
         self.injected = 0
+        self.delayed = 0
         self.retries = 0
         self.recoveries = 0
         self.aborts = 0
@@ -151,21 +155,33 @@ class FaultRegistry:
                                                InjectedIOError)
             fired = None
             for arm in self._arms:
-                if arm.delay is None and arm.matches(name):
+                if arm.matches(name):
                     site.hits += 1
                     if arm.fire(name):
                         fired = arm
                         break
             if fired is None:
                 return
-            site.fires += 1
-            self.injected += 1
-            rec = {"event": "fault_injected", "site": name,
-                   "kind": site.kind, "fire": site.fires}
+            delay_s = fired.delay
+            if delay_s is not None:
+                # the latency mode: a slow site, not an error
+                self.delayed += 1
+                rec = {"event": "fault_injected", "site": name,
+                       "kind": "delay", "delay_s": delay_s}
+            else:
+                site.fires += 1
+                self.injected += 1
+                rec = {"event": "fault_injected", "site": name,
+                       "kind": site.kind, "fire": site.fires}
             rec.update(detail)
             self._keep(rec)
             log = self._log
         self._emit(log, rec)
+        if delay_s is not None:
+            # outside the lock: a slow site must not hold up every other
+            # thread's check
+            time.sleep(delay_s)
+            return
         raise site.exc(name, site.kind)
 
     def note(self, event: str, _quiet: bool = False,
@@ -208,6 +224,7 @@ class FaultRegistry:
     def stats(self) -> dict:
         with self._lock:
             return {"faults_injected": self.injected,
+                    "faults_delayed": self.delayed,
                     "retries": self.retries,
                     "recoveries": self.recoveries,
                     "aborts": self.aborts}
@@ -218,7 +235,7 @@ class FaultRegistry:
             self._spec = None
             self._arms = []
             self.events = []
-            self.injected = self.retries = 0
+            self.injected = self.retries = self.delayed = 0
             self.recoveries = self.aborts = 0
             for s in self.sites.values():
                 s.hits = s.fires = 0

@@ -62,12 +62,20 @@ the bulk, synced, full-width exchange for any setting.
 Any other mode string takes the synced dense plan, as the reference's
 (``stream`` as a mode is such a string: the streamed delivery is the
 consumer's choice, not the exchange's).
+
+Observability (common/trace.py, common/doctor.py): ``exchange`` spans
+``phase_a``, ``phase_b`` (``chunks``, ``narrowed``), ``optimistic``
+(``m_pad``, ``out_cap``) and ``synced`` (``mode``); the deferred
+check's ``cap_hit``/``capacity_miss`` instant once its flag is read;
+the doctor's waits at the plan sync and the deferred check, and its skew
+record in :func:`account_traffic`, where the send matrix is on the host.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
+import time
 import weakref
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -81,6 +89,7 @@ from ..common.config import (cap_cache_enabled, overlap_enabled,
                              round_up_pow2, xchg_narrow_enabled)
 from ..common.partition import dense_range_bounds
 from ..common.retry import default_policy
+from ..common.trace import instant_of, span_of
 from ..core.device_sort import argsort_words
 from ..core.pallas_kernels import partition_histogram
 from ..core.rowmove import scatter_slots, take_rows_multi
@@ -587,14 +596,25 @@ def account_traffic(mex: MeshExec, S: np.ndarray, item_bytes: int,
                     site: str = "", **log_extra: Any) -> None:
     """Count one logical exchange of send matrix ``S``: items and bytes
     that leave their worker (the diagonal stays). An optimistic exchange
-    counts at its deferred check, or its healed re-run does."""
+    counts at its deferred check, or its healed re-run does. The
+    performance doctor's skew record rides here, where ``S`` is already
+    on the host: each worker's receive rows, the diagonal included."""
     moved = int(S.sum()) - int(np.trace(S))
     mex.stats_exchanges += 1
     mex.stats_items_moved += moved
     mex.stats_bytes_moved += moved * item_bytes
+    skew = None
+    doc = mex.doctor
+    if doc is not None and S.shape[0] > 1:
+        skew = doc.record_exchange(site or "xchg:?", S.sum(axis=0),
+                                   item_bytes, tracer=mex.tracer,
+                                   ledger=_decisions.ledger_of(mex))
     log = mex.logger
     if log is not None and log.enabled and S.shape[0] > 1:
         extra = {"site": site} if site else {}
+        if skew is not None:
+            extra.update(skew_ratio=round(skew[0], 3),
+                         hot_worker=skew[1], hot_rows=skew[2])
         log.line(event="exchange", items=moved, bytes=moved * item_bytes,
                  per_worker_sent=(S.sum(axis=1) - np.diag(S)).tolist(),
                  per_worker_recv=(S.sum(axis=0) - np.diag(S)).tolist(),
@@ -648,7 +668,10 @@ def _phase_a(shards: DeviceShards, dest_builder: Callable,
             if want_ranges and _narrow_worth(mex, cap, leaves) else ())
     prog = mex.program(("xchg_a", cache_key, cap, td, nidx,
                         _leaf_sig(leaves)), _phase_a_prog)
-    out = prog(mex, leaves, shards.counts_device(), dest_builder, td, nidx)
+    with span_of(mex.tracer, "exchange", "phase_a",
+                 rows=mex.num_workers * cap):
+        out = prog(mex, leaves, shards.counts_device(), dest_builder, td,
+                   nidx)
     return td, out[0], list(out[2]), out[1], (out[3] if nidx else None)
 
 
@@ -827,22 +850,24 @@ def _dispatch_chunked(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     in_place = mex.loop_recorder is None
     counts_dev = flag = None
     accs: Optional[List] = None
-    for j, (lo, hi) in enumerate(ranges):
-        first, last = j == 0, j == len(ranges) - 1
-        prog = mex.program(("xchg_chunk", cap, M_pad, out_cap, lo, hi,
-                            first, last, W, treedef, sig, narrow),
-                           _chunk_prog)
-        if armed:
-            default_policy().run(
-                lambda j=j: faults.check(_F_CHUNK, chunk=j,
-                                         chunks=len(ranges)),
-                what="xchg.chunk")
-        out = prog(sorted_dest, smat, sorted_leaves, accs, M_pad, out_cap,
-                   lo, hi, M_c, narrow, first, last, in_place)
-        if first:
-            counts_dev, flag, accs = out
-        else:
-            accs = out
+    with span_of(mex.tracer, "exchange", "phase_b", chunks=len(ranges),
+                 narrowed=narrow is not None or None):
+        for j, (lo, hi) in enumerate(ranges):
+            first, last = j == 0, j == len(ranges) - 1
+            prog = mex.program(("xchg_chunk", cap, M_pad, out_cap, lo, hi,
+                                first, last, W, treedef, sig, narrow),
+                               _chunk_prog)
+            if armed:
+                default_policy().run(
+                    lambda j=j: faults.check(_F_CHUNK, chunk=j,
+                                             chunks=len(ranges)),
+                    what="xchg.chunk")
+            out = prog(sorted_dest, smat, sorted_leaves, accs, M_pad,
+                       out_cap, lo, hi, M_c, narrow, first, last, in_place)
+            if first:
+                counts_dev, flag, accs = out
+            else:
+                accs = out
     mex.stats_padded_rows += W * M_pad
     wire_rows = W * (W - 1) * M_pad
     mex.stats_bytes_wire_device += wire_rows * _narrow_item_bytes(
@@ -1047,7 +1072,7 @@ def exchange_stream(shards: DeviceShards, dest_builder: Callable,
     W = mex.num_workers
     treedef, sorted_dest, sorted_leaves, send_mat, _ = _phase_a(
         shards, dest_builder, cache_key, want_ranges=False)
-    S = mex.fetch(send_mat).astype(np.int64)
+    S = _plan_sync(mex, send_mat)
     item_bytes = leaf_item_bytes(sorted_leaves)
     account_traffic(mex, S, item_bytes, site=_site(cache_key))
     cap = sorted_dest.shape[1]
@@ -1146,26 +1171,29 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     plans = getattr(mex, "_xchg_plan", None)
     if plans is None:
         plans = mex._xchg_plan = {}
-    if mode == "ragged":
-        plans[cap_ident] = "sync"
-        return _exchange_ragged(mex, treedef, sorted_dest, sorted_leaves, S,
-                                min_cap, narrow=narrow)
-    if mode == "onefactor" or skew:
-        # a skew-flipped site stays synced: the choice needs the host S
-        plans[cap_ident] = "sync"
-        return _exchange_onefactor(mex, treedef, sorted_dest,
-                                   sorted_leaves, S, min_cap, ident=ident,
-                                   narrow=narrow)
-    M_pad, out_cap = _sticky_caps(
-        mex, cap_ident, (max(int(S.max()), 1), max(int(R.max()), min_cap,
-                                                   1)))
-    plans[cap_ident] = "dense"
-    smat = smat_dev if smat_dev is not None else mex.put_small(
-        S.astype(np.int32))
-    out, _, _ = _dispatch_chunked(mex, treedef, sorted_dest, sorted_leaves,
-                                  smat, M_pad, out_cap, narrow=narrow,
-                                  ident=ident)
-    return DeviceShards(mex, pt.unflatten(treedef, out), new_counts)
+    with span_of(mex.tracer, "exchange", "synced", mode=mode):
+        if mode == "ragged":
+            plans[cap_ident] = "sync"
+            return _exchange_ragged(mex, treedef, sorted_dest,
+                                    sorted_leaves, S, min_cap,
+                                    narrow=narrow)
+        if mode == "onefactor" or skew:
+            # a skew-flipped site stays synced: the choice needs the
+            # host S
+            plans[cap_ident] = "sync"
+            return _exchange_onefactor(mex, treedef, sorted_dest,
+                                       sorted_leaves, S, min_cap,
+                                       ident=ident, narrow=narrow)
+        M_pad, out_cap = _sticky_caps(
+            mex, cap_ident, (max(int(S.max()), 1),
+                             max(int(R.max()), min_cap, 1)))
+        plans[cap_ident] = "dense"
+        smat = smat_dev if smat_dev is not None else mex.put_small(
+            S.astype(np.int32))
+        out, _, _ = _dispatch_chunked(mex, treedef, sorted_dest,
+                                      sorted_leaves, smat, M_pad, out_cap,
+                                      narrow=narrow, ident=ident)
+        return DeviceShards(mex, pt.unflatten(treedef, out), new_counts)
 
 
 def _optimistic_ok(mex: MeshExec, cap_ident: Tuple, min_cap: int,
@@ -1267,9 +1295,11 @@ def _exchange_optimistic(mex: MeshExec, treedef, sorted_dest,
         mex, "xchg_optimistic", _site(ident), "optimistic",
         predicted=out_cap, rejected=[("synced", None)], unit="rows",
         reason="capacity plan cached; host sync elided", m_pad=M_pad)
-    out_leaves, counts_dev, flag = _dispatch_chunked(
-        mex, treedef, sorted_dest, sorted_leaves, send_mat, M_pad, out_cap,
-        narrow=narrow, ident=ident)
+    with span_of(mex.tracer, "exchange", "optimistic", m_pad=M_pad,
+                 out_cap=out_cap):
+        out_leaves, counts_dev, flag = _dispatch_chunked(
+            mex, treedef, sorted_dest, sorted_leaves, send_mat, M_pad,
+            out_cap, narrow=narrow, ident=ident)
     shards = DeviceShards(mex, pt.unflatten(treedef, out_leaves),
                           counts_dev)
     gov = _governor_of(mex)
@@ -1285,8 +1315,17 @@ def _exchange_optimistic(mex: MeshExec, treedef, sorted_dest,
             held[0] = 0
 
     def check(counts: np.ndarray):
+        doc = mex.doctor
+        t0 = time.perf_counter() if doc is not None else 0.0
         overflowed = bool(mex._fetch_raw(flag).reshape(-1)[0])
         S = mex._fetch_raw(send_mat).astype(np.int64)
+        if doc is not None:
+            doc.record_wait("xchg.deferred_check", None,
+                            time.perf_counter() - t0, lane="exchange")
+        # the verdict, once the flag has been read
+        instant_of(mex.tracer, "exchange",
+                   "capacity_miss" if overflowed else "cap_hit",
+                   m_pad=M_pad, out_cap=out_cap)
         _decisions.resolve_of(mex, dec, max(int(S.sum(axis=0).max()), 1),
                               verdict="miss" if overflowed else "hit")
         if not overflowed:
@@ -1329,6 +1368,20 @@ def _exchange_optimistic(mex: MeshExec, treedef, sorted_dest,
     return shards
 
 
+def _plan_sync(mex: MeshExec, send_mat: torch.Tensor) -> np.ndarray:
+    """The exchange barrier: phase A's send matrix read on the host (a
+    counted fetch). The doctor charges the blocked time to
+    ``xchg.plan_sync``: on the card, the host waiting for the device's
+    queue to reach the read."""
+    doc = mex.doctor
+    t0 = time.perf_counter() if doc is not None else 0.0
+    S = mex.fetch(send_mat).astype(np.int64)
+    if doc is not None:
+        doc.record_wait("xchg.plan_sync", None, time.perf_counter() - t0,
+                        lane="exchange")
+    return S
+
+
 def exchange(shards: DeviceShards, dest_builder: Callable,
              cache_key: Tuple = (), min_cap: int = 1) -> DeviceShards:
     """Move every valid item to the worker ``dest_builder`` names.
@@ -1356,7 +1409,7 @@ def exchange(shards: DeviceShards, dest_builder: Callable,
             return _exchange_optimistic(
                 mex, td, sorted_dest, sorted_leaves, send_mat, caps,
                 ident=cache_key, min_cap=min_cap, range_mat=range_mat)
-    S = mex.fetch(send_mat).astype(np.int64)
+    S = _plan_sync(mex, send_mat)
     # the tiny range matrix rides the same host read (uncounted)
     ranges = None if range_mat is None else mex._fetch_raw(range_mat)
     return _exchange_planned(mex, td, sorted_dest, sorted_leaves, S,

@@ -98,7 +98,8 @@ class File:
         def start(b):
             if pool.resident(b.bid):
                 return None
-            return submit(readahead_job(lambda: pool.get(b.bid)))
+            return submit(readahead_job(lambda: pool.get(b.bid),
+                                        "file.prefetch"))
 
         b = next_block()
         fut = start(b) if b is not None else None

@@ -6,6 +6,11 @@ Every worker's item list lives in this process, so the exchange buckets
 items in process and the replication helpers are identities. A mesh of
 several processes (``num_processes > 1``) raises NotImplementedError:
 its TCP data plane is ROADMAP.md queue A "Still to port" item 6.
+
+Tracing: every host exchange is a ``host`` span ``host_exchange`` with
+its ``reason`` and ``mode`` (``local``: in-process bucketing). The
+reference opens its span only across processes, around the frames it
+sends; one controller has no frames, and the span times the bucketing.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Any, Callable, List
 
 import numpy as np
 
+from ..common.trace import span_of
 from .shards import HostShards
 
 
@@ -34,11 +40,13 @@ def host_exchange(mex, shards: HostShards, dest_fn: Callable[[Any], int],
     W = shards.num_workers
     buckets: List[List[Any]] = [[] for _ in range(W)]
     moved = 0
-    for src, items in enumerate(shards.lists):
-        for it in items:
-            w = dest_fn(it) % W
-            buckets[w].append(it)
-            moved += w != src
+    with span_of(getattr(mex, "tracer", None), "host", "host_exchange",
+                 reason=reason, mode="local"):
+        for src, items in enumerate(shards.lists):
+            for it in items:
+                w = dest_fn(it) % W
+                buckets[w].append(it)
+                moved += w != src
     mex.stats_exchanges += 1
     mex.stats_items_moved += moved
     return HostShards(W, buckets)

@@ -246,11 +246,15 @@ class DeviceShards:
 
     def to_host_shards(self, reason: str = "unspecified") -> "HostShards":
         """Itemize into per-worker Python lists: the pipeline leaves
-        columnar device storage and goes on at Python speed. ``reason``
-        names the op that demoted it (the reference logs it; the port
-        has no logger yet)."""
-        return HostShards(self.num_workers,
-                          [itemize(t) for t in self.to_worker_arrays()])
+        columnar device storage and goes on at Python speed. Every such
+        demotion logs ``event=device_to_host`` with ``reason`` (the op
+        that forced it) and the items, counted off the lists made."""
+        lists = [itemize(t) for t in self.to_worker_arrays()]
+        log = getattr(self.mesh_exec, "logger", None)
+        if log is not None and log.enabled:
+            log.line(event="device_to_host", reason=reason,
+                     items=sum(len(l) for l in lists))
+        return HostShards(self.num_workers, lists)
 
     def zero_beyond_count(self) -> "DeviceShards":
         """The same items with every row at or past its worker's count

@@ -1,6 +1,6 @@
 """Bounded write-behind and block readahead: the overlap of the spill
-tier (counterpart of the reference package's ``data/writeback.py``,
-without its trace spans). Both sides add to the I/O ledger
+tier (counterpart of the reference package's ``data/writeback.py``).
+Both sides add to the I/O ledger
 (``common/iostats.py``): busy and wait seconds, bytes written, the
 queue's peak, readahead hits, misses and submissions.
 
@@ -16,6 +16,13 @@ job inline on the caller.
 the next block's fetch runs on a short-lived pool while the caller
 consumes the current one; a failed or not yet started background fetch
 falls back to the demand read on the caller's thread.
+
+Two fault sites: ``data.spill.writeback`` fires on the writer thread
+before a job runs (nothing written yet; a poison writer raises it at
+the next barrier, a degrading one keeps the data in RAM), and
+``vfs.prefetch`` before a readahead job's read (the demand read takes
+over). With a tracer, each write job is an ``io`` span
+``writeback`` parented to the span that made the writer.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ from ..common.iostats import IO as _IOSTATS
 #: most write jobs waiting behind the running one
 QUEUE_DEPTH = 2
 
+_F_WRITEBACK = faults.declare("data.spill.writeback")
+_F_PREFETCH = faults.declare("vfs.prefetch")
+
 
 def writeback_enabled() -> bool:
     """``THRILL_TPU_WRITEBACK=0`` (or the ``THRILL_TPU_OVERLAP=0``
@@ -46,6 +56,7 @@ class AsyncWriter:
 
     def __init__(self, what: str, depth: Optional[int] = None,
                  sync: Optional[bool] = None, poison: bool = True,
+                 tracer=None,
                  on_error: Optional[Callable[[BaseException, Any],
                                              None]] = None) -> None:
         self.what = what
@@ -53,6 +64,10 @@ class AsyncWriter:
         self.depth = QUEUE_DEPTH if depth is None else depth
         self.poison = poison
         self.on_error = on_error
+        self._tracer = tracer
+        self._parent = (tracer.current_id()
+                        if tracer is not None and tracer.enabled
+                        else None)
         self._cv = threading.Condition()
         self._jobs: collections.deque = collections.deque()
         self._err: Optional[BaseException] = None
@@ -69,6 +84,7 @@ class AsyncWriter:
             self._t.start()
 
     def _run(self) -> None:
+        tr = self._tracer
         while True:
             with self._cv:
                 while not self._jobs and not self._closed:
@@ -83,8 +99,15 @@ class AsyncWriter:
                 self._idle = False
                 self._cv.notify_all()
             try:
+                if faults.REGISTRY.active():
+                    faults.check(_F_WRITEBACK, what=self.what, tag=tag)
                 t0 = time.perf_counter()
-                nbytes = int(fn() or 0)
+                if tr is not None and tr.enabled:
+                    with tr.span("io", "writeback", parent=self._parent,
+                                 what=self.what, tag=tag):
+                        nbytes = int(fn() or 0)
+                else:
+                    nbytes = int(fn() or 0)
                 _IOSTATS.add(io_busy_s=time.perf_counter() - t0,
                              writeback_bytes=nbytes)
                 with self._cv:
@@ -236,12 +259,14 @@ def readahead_get(fut, demand: Callable[[], Any], what: str) -> Any:
     return out
 
 
-def readahead_job(fn: Callable[[], Any]) -> Callable[[], Any]:
-    """``fn`` as a readahead job: one submission counted, its seconds
-    counted busy."""
+def readahead_job(fn: Callable[[], Any], what: str) -> Callable[[], Any]:
+    """``fn`` as a readahead job: one submission counted, the
+    ``vfs.prefetch`` site checked, its seconds counted busy."""
     _IOSTATS.add(prefetch_submits=1)
 
     def job():
+        if faults.REGISTRY.active():
+            faults.check(_F_PREFETCH, what=what)
         t0 = time.perf_counter()
         try:
             return fn()
@@ -265,7 +290,8 @@ def overlapped_fetch(items, fetch: Callable[[Any], Any], what: str,
         if ra is not None and j + 1 < len(items):
             nit = items[j + 1]
             if skip_fn is None or not skip_fn(nit):
-                nxt = ra.submit(readahead_job(lambda nit=nit: fetch(nit)))
+                nxt = ra.submit(readahead_job(lambda nit=nit: fetch(nit),
+                                              what))
                 if stats is not None:
                     stats["prefetched"] = stats.get("prefetched", 0) + 1
         out = readahead_get(fut, lambda it=it: fetch(it), what)

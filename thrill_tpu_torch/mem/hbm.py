@@ -32,6 +32,7 @@ import torch
 from ..common import faults
 from ..common import tree as pt
 from ..common.retry import default_policy
+from ..common.trace import span_of
 from ..data.block_pool import BlockPool, resident_override
 from ..data.shards import DeviceShards
 from ..data.writeback import make_readahead, overlapped_fetch
@@ -237,6 +238,7 @@ class SpilledShards:
                     lambda: faults.check(_F_RESTORE, block=bid),
                     what="hbm.restore")
 
+        tr = mex.tracer
         if dev.type == "cuda":
             def fill(bid):
                 def into(buf):
@@ -244,8 +246,11 @@ class SpilledShards:
                     self.pool.get_into(bid, buf)
                 return into
 
-            (self.ring or StagingRing()).upload(
-                [(leaves[li][w], fill(bid)) for li, w, bid in flat])
+            # the ring's slots are the read-ahead depth on the card
+            with span_of(tr, "io", "hbm_restore", blocks=len(flat),
+                         depth=StagingRing.SLOTS if len(flat) > 1 else 0):
+                (self.ring or StagingRing()).upload(
+                    [(leaves[li][w], fill(bid)) for li, w, bid in flat])
             return DeviceShards(mex, pt.unflatten(self.treedef, leaves),
                                 self.counts.copy())
 
@@ -271,10 +276,12 @@ class SpilledShards:
                                    "current upload",
                             blocks=len(flat), depth=depth)
         try:
-            for _ in overlapped_fetch(flat, fetch, "hbm.restore", ra,
-                                      skip_fn=lambda it: self.pool.resident(
-                                          it[2])):
-                pass
+            with span_of(tr, "io", "hbm_restore", blocks=len(flat),
+                         depth=depth if ra is not None else 0):
+                for _ in overlapped_fetch(
+                        flat, fetch, "hbm.restore", ra,
+                        skip_fn=lambda it: self.pool.resident(it[2])):
+                    pass
         finally:
             if ra is not None:
                 ra.shutdown(wait=True, cancel_futures=True)

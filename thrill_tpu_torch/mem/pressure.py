@@ -63,6 +63,7 @@ import torch
 
 from ..common import faults
 from ..common.retry import RetryPolicy, default_policy
+from ..common.trace import instant_of
 from ..data.shards import DeviceShards, HostShards
 from .hbm import device_bytes, storages
 
@@ -326,6 +327,7 @@ class PressureMonitor:
         if freed:
             faults.note("mem_spill", freed=freed, budget=self.budget,
                         node=label, **detail)
+            self._trace_rung("admission_spill", freed=freed)
 
     def spill_cold(self, need: Optional[int] = None,
                    exclude: Optional[int] = None,
@@ -428,6 +430,12 @@ class PressureMonitor:
                 e._ladder_done = True
             raise
 
+    def _trace_rung(self, rung: str, **attrs) -> None:
+        """A ladder rung as an instant on the ``mem`` trace lane
+        (common/trace.py): the timeline shows when each escalation fired
+        among the dispatch and exchange spans around it."""
+        instant_of(self.mex.tracer, "mem", rung, **attrs)
+
     def stats(self) -> dict:
         return {
             "hbm_high_watermark": self.high_watermark,
@@ -506,6 +514,7 @@ def recover_dispatch(prog, args, kwargs, exc: BaseException):
         faults.note("oom_retry", freed=freed, level="dispatch",
                     program=str(prog.key[0]) if prog.key else "?",
                     error=repr(state["last"])[:200])
+        pres._trace_rung("oom_retry", freed=freed)
         try:
             if faults.REGISTRY.active():
                 faults.check(_F_OOM, retry=True)

@@ -87,7 +87,8 @@ class Program:
     size, learned on its first call while admission is on (the cost
     model's per-program estimate)."""
 
-    __slots__ = ("mex", "fn", "key", "out_bytes", "calls", "engine_recs")
+    __slots__ = ("mex", "fn", "key", "out_bytes", "calls", "engine_recs",
+                 "_trace_label")
 
     def __init__(self, mex: "MeshExec", fn: Callable, key: Tuple) -> None:
         # the mesh caches its programs: a strong reference back would
@@ -101,6 +102,21 @@ class Program:
         # sort-engine decisions made on the first call, joined with a
         # later call's host time (core/device_sort.py)
         self.engine_recs: List[Any] = []
+        self._trace_label: Optional[str] = None
+
+    def label(self) -> str:
+        """The dispatch span's name: the key's first string ("xchg_a",
+        "fused", ...), else the function's name (reference:
+        ``_CountedJit._label``)."""
+        lbl = self._trace_label
+        if lbl is None:
+            key = self.key
+            if isinstance(key, tuple) and key and isinstance(key[0], str):
+                lbl = key[0]
+            else:
+                lbl = getattr(self.fn, "__name__", None) or "jit"
+            self._trace_label = lbl
+        return lbl
 
     def __call__(self, *args, **kwargs):
         return self.mex.dispatch(self, args, kwargs)
@@ -171,10 +187,15 @@ class MeshExec:
         # the capture in progress (None: the dispatch pays one read)
         self.loop_recorder = None
         self._depth = 0              # dispatches in progress on the stack
-        # the memory-pressure monitor (mem/pressure.py) and the JSON
-        # logger, attached by the Context; None on a bare mesh
+        # the memory-pressure monitor (mem/pressure.py), the JSON logger,
+        # the tracer (common/trace.py) and the performance doctor
+        # (common/doctor.py), attached by the Context; None on a bare
+        # mesh. A None or disabled tracer costs the dispatch one
+        # attribute read and one predicate, and allocates nothing
         self.pressure = None
         self.logger = None
+        self.tracer = None
+        self.doctor = None
         # the plan layer (data/exchange.py): exchanges whose phase B ran
         # with no host read of the send matrix, the capacity-plan
         # cache's hits and misses, padded rows, the bytes phase B copies
@@ -284,7 +305,7 @@ class MeshExec:
                 rec.begin_call(args)
             self._depth += 1
             try:
-                out = self._dispatch(prog, args, kwargs)
+                out = self._traced_dispatch(prog, args, kwargs)
             except BaseException:
                 self._depth -= 1
                 if self._depth == 0:
@@ -294,7 +315,17 @@ class MeshExec:
             if self._depth == 0:
                 rec.on_call(prog, args, kwargs, out)
             return out
-        return self._dispatch(prog, args, kwargs)
+        return self._traced_dispatch(prog, args, kwargs)
+
+    def _traced_dispatch(self, prog: Program, args: tuple, kwargs: dict):
+        """:meth:`_dispatch` inside a ``dispatch`` span named by the
+        program's label (a host-time span: it ends when the work is
+        queued). Tracing off: one attribute read and one predicate."""
+        tr = self.tracer
+        if tr is None or not tr.enabled:
+            return self._dispatch(prog, args, kwargs)
+        with tr.span("dispatch", prog.label()):
+            return self._dispatch(prog, args, kwargs)
 
     def _dispatch(self, prog: Program, args: tuple, kwargs: dict):
         self.stats_dispatches += 1

@@ -252,6 +252,21 @@ Phases, each fatal on failure:
      forced by THRILL_TPU_EXCHANGE=onefactor; a warm
      restart from a plan store in a second child process
      (``--plan-child DIR``), plan_builds 0;
+ 25e. a mesh of two processes (D), after the plan, exchange and tracing
+     phases: the parent runs TeraSort (2^22 records a worker) and
+     WordCount (2^22 Zipf words a worker over 2^20) at W = 4 on one
+     process, then starts two children (``--dist-child``) on the one
+     card through RunDistributed, gloo, 2 workers each (W = 4), which
+     run the same two jobs and the host-plane battery of the reference's
+     tests/net/distributed_child.py (ctx.net.all_gather, the host text
+     WordCount over the multiplexer, the host Sort(compare_fn), the
+     ReadWordsPacked device WordCount, the host InnerJoin with and
+     without LocationDetection, collective_mean_stdev). Every rank's
+     sorted records, counts and battery must be bit-equal to the
+     one-process run's; each child prints its launches of B1, the
+     upsweep, the pass and B4 (each must be non-zero), the bytes that
+     crossed processes, its device-to-host transfers, the backend and
+     its warm seconds beside the one-process run's;
  26. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
@@ -276,6 +291,11 @@ also saves those captured inputs to DIR/main_inputs.pt, for
 
 builds the kernels and runs phase 25c alone; ``--phase-p`` phase 25d
 alone, whose warm restart runs ``chip_smoke.py --plan-child DIR``.
+
+    python3 chip_smoke.py --phase-d
+
+builds the kernels and runs phase 25e alone; its children are
+``chip_smoke.py --dist-child COORDINATOR RANK DIR``.
 
     python3 chip_smoke.py --m1-compare DIR
 
@@ -341,17 +361,17 @@ HLL_ITEMS = 1 << 24            # HyperLogLog items of HLL_VALUES values
 HLL_VALUES = 1 << 22
 HLL_P = 14
 CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
-HW_WORDS = 1 << 21             # host WordCount words (W=4), 16 a line
-HW_WORDS_W1 = 1 << 19          # host WordCount words (W=1)
+HW_WORDS = 1 << 20             # host WordCount words (W=4), 16 a line
+HW_WORDS_W1 = 1 << 18          # host WordCount words (W=1)
 HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
-HO_ITEMS = 1 << 19             # host ops items (str key, int)
-HO_RIGHT = 1 << 17             # host InnerJoin right side
+HO_ITEMS = 1 << 18             # host ops items (str key, int)
+HO_RIGHT = 1 << 16             # host InnerJoin right side
 HO_KEYS = 1 << 20              # host ops key space
 M1_HBM_LIMIT = int(2.5e9)      # M1's governor limit: 1.5 TeraSort tables
 OF_ITEMS = 1 << 22             # the ordered fold's ReduceByKey/GroupByKey
 OF_KEYS = 1 << 16              # items, Zipf keys over OF_KEYS
-H6_LINES = 1 << 21             # H6: lines of the host EM sort
-H6_RUN = 1 << 17               # THRILL_TPU_HOST_SORT_RUN: 16 runs
+H6_LINES = 1 << 20             # H6: lines of the host EM sort
+H6_RUN = 1 << 16                # THRILL_TPU_HOST_SORT_RUN: 16 runs
 H6_RESIDENT = "64M"            # THRILL_TPU_SPILL_RESIDENT: runs reach disk
 CK_EVERY = 3                   # C1: PageRank's Iterate(checkpoint_every=)
 # C1: launches a PageRank W=4 iteration makes (PERF.md section 6: 10 of
@@ -2749,15 +2769,20 @@ def pcie_line() -> tuple:
     return gen, width, gts * 1e9 * coding * width / 8, src
 
 
-def terasort_records(np, W: int):
-    """Phase 3's W x 2^22 records (10-byte key, 90-byte value) and
-    np.lexsort's order of their big-endian key words, stable by index."""
+def records_only(np, W: int):
+    """Phase 3's W x 2^22 records (10-byte key, 90-byte value)."""
     n = W * PER_WORKER
     rng = np.random.default_rng(SEED + W)
     rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
-    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+    return {"key": np.ascontiguousarray(rec[:, :10]),
             "value": np.ascontiguousarray(rec[:, 10:])}
-    del rec
+
+
+def terasort_records(np, W: int):
+    """Phase 3's records and np.lexsort's order of their big-endian key
+    words, stable by index."""
+    recs = records_only(np, W)
+    n = W * PER_WORKER
     kp = np.zeros((n, 16), dtype=np.uint8)
     kp[:, :10] = recs["key"]
     kw = kp.view(">u8").astype(np.uint64)
@@ -5766,6 +5791,288 @@ def t_phase(torch, np, tt, pk, ps, card: str) -> dict:
     return paths
 
 
+# ----------------------------------------------------------------------
+# phase D: a mesh of two processes on the one card
+# ----------------------------------------------------------------------
+
+D_PROCS = 2                    # D: processes, D_WPP workers each (W = 4)
+D_WPP = 2
+D_TIMEOUT_S = 240              # D: the children's deadline
+D_TEXT = "\n".join(             # D: the battery's text (the reference's)
+    f"line {i} word{i % 7} again word{i % 3}" for i in range(211)) + "\n"
+D_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
+             "presence_fill")
+
+
+def d_digest(torch, tree) -> str:
+    """SHA-256 of a dict of tensors' bytes, leaves in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        t = tree[k].detach().contiguous().cpu()
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def d_battery(torch, np, tt, ctx, text_path: str) -> dict:
+    """The host-plane battery of the reference's distributed child."""
+    from thrill_tpu_torch.api.dia import InnerJoin
+    words = ctx.ReadLines(text_path).FlatMap(lambda line: line.split())
+    words.Keep()
+    wc = words.Map(lambda w: (w, 1)).ReducePair(lambda a, b: a + b)
+    host_counts = sorted((k, int(v)) for k, v in wc.AllGather())
+    host_total = int(words.Size())
+    host_sorted = ctx.ReadLines(text_path) \
+        .FlatMap(lambda line: line.split()) \
+        .Sort(compare_fn=lambda a, b: a < b).AllGather()
+    red = ctx.ReadWordsPacked(text_path, max_word=12).Map(lambda t: {
+        "w": t["w"], "c": torch.ones_like(t["w"][..., 0],
+                                          dtype=torch.int64)}) \
+        .ReduceByKey(lambda t: t["w"],
+                     lambda a, b: {"w": a["w"], "c": a["c"] + b["c"]})
+    device_counts = sorted(
+        (bytes(np.asarray(it["w"])).rstrip(b"\x00").decode(),
+         int(it["c"])) for it in red.AllGather())
+
+    def mkj(ld):
+        left = [(f"A{i % 10}", i) for i in range(60)]
+        right = [(f"A{i % 5}" if i % 2 else f"B{i}", -i)
+                 for i in range(60)]
+        return InnerJoin(ctx.Distribute(left, storage="host"),
+                         ctx.Distribute(right, storage="host"),
+                         lambda t: t[0], lambda t: t[0],
+                         lambda a, b: (a[0], a[1], b[1]),
+                         location_detection=ld)
+
+    mex = ctx.mesh_exec
+    base = mex.stats_items_moved
+    join_plain = sorted(map(list, mkj(False).AllGather()))
+    moved_plain = mex.stats_items_moved - base
+    base = mex.stats_items_moved
+    join_ld = sorted(map(list, mkj(True).AllGather()))
+    moved_ld = mex.stats_items_moved - base
+    ms = ctx.collective_mean_stdev(float(ctx.host_rank))
+    return {"totals": ctx.net.all_gather(host_total),
+            "host_counts": host_counts, "host_total": host_total,
+            "host_sorted": host_sorted, "device_counts": device_counts,
+            "join_plain": join_plain, "join_ld": join_ld,
+            "moved_plain": moved_plain, "moved_ld": moved_ld,
+            "rank_mean_stdev": [round(ms[0], 6), round(ms[1], 6)]}
+
+
+def d_run(torch, np, tt, ctx, pk, ps, text_path: str) -> dict:
+    """Phase D's jobs on ``ctx`` (one process, or one of the mesh's):
+    TeraSort and WordCount, each first run with the launch counters set
+    to 0 just before and read just after, then a warm run, then the
+    battery. Returns digests, launches, counters and seconds."""
+    mex = ctx.mesh_exec
+    out = {"rank": ctx.host_rank, "backend": mex.backend or "none"}
+    recs = records_only(np, D_PROCS * D_WPP)
+    key = lambda r: r["key"]                              # noqa: E731
+    torch.cuda.synchronize()
+    b0, x0 = mex.stats_bytes_cross, mex.stats_transfers
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    d = ctx.Distribute(recs).Sort(key_fn=key).Keep()
+    size = d.Size()
+    arr = d.AllGatherArrays()
+    torch.cuda.synchronize()
+    out["sort_first_s"] = time.perf_counter() - t0
+    out["sort_launches"] = read_launches(pk, ps)
+    out["sort_size"] = size
+    out["sort_digest"] = d_digest(torch, arr)
+    out["sort_cross_bytes"] = mex.stats_bytes_cross - b0
+    out["sort_transfers"] = mex.stats_transfers - x0
+    del d, arr
+    src = ctx.Distribute(recs).Keep()
+    src.Execute()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = src.Sort(key_fn=key).AllGatherArrays()
+    torch.cuda.synchronize()
+    out["sort_warm_s"] = time.perf_counter() - t0
+    del src, warm, recs
+    voc, wrecs, _ = wordcount_records(torch, np, 4)
+    del voc
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+    src = ctx.Distribute(wrecs).Keep()
+    src.Execute()
+    torch.cuda.synchronize()
+    b0, x0 = mex.stats_bytes_cross, mex.stats_transfers
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    got = src.ReduceByKey(lambda t: t["w"], red).AllGatherArrays()
+    torch.cuda.synchronize()
+    out["wc_first_s"] = time.perf_counter() - t0
+    out["wc_launches"] = read_launches(pk, ps)
+    out["wc_digest"] = d_digest(torch, got)
+    out["wc_distinct"] = int(got["c"].shape[0])
+    out["wc_cross_bytes"] = mex.stats_bytes_cross - b0
+    out["wc_transfers"] = mex.stats_transfers - x0
+    out["dup_verdicts"] = list(mex.prune_verdicts.values())
+    del got
+    t0 = time.perf_counter()
+    warm = src.ReduceByKey(lambda t: t["w"], red).AllGatherArrays()
+    torch.cuda.synchronize()
+    out["wc_warm_s"] = time.perf_counter() - t0
+    del src, warm, wrecs
+    out["battery"] = d_battery(torch, np, tt, ctx, text_path)
+    out["items_moved"] = mex.stats_items_moved
+    out["collectives"] = mex.stats_collectives
+    out["host_wire_bytes"] = getattr(mex, "stats_bytes_wire_host", 0)
+    return out
+
+
+def dist_child(coordinator: str, rank: int, d: str) -> int:
+    """One process of phase D's mesh: its result on a DRESULT line."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.core import pallas_kernels as pk
+    from thrill_tpu_torch.core import pallas_sort as ps
+    res = tt.RunDistributed(
+        lambda ctx: d_run(torch, np, tt, ctx, pk, ps,
+                          os.path.join(d, "words.txt")),
+        coordinator_address=coordinator, num_processes=D_PROCS,
+        process_id=rank, workers_per_process=D_WPP)
+    print("DRESULT " + json.dumps(res), flush=True)
+    return 0
+
+
+def d_free_ports(n: int) -> list:
+    import socket
+    socks, ports = [], []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        socks.append(s)
+        ports.append(s.getsockname()[1])
+    for s in socks:
+        s.close()
+    return ports
+
+
+def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase D (see the module): the one-process run, then the two
+    children; returns the children's launches for the kernels line."""
+    import tempfile
+    t_d = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="ttpu-d-")
+    try:
+        with open(os.path.join(d, "words.txt"), "w") as f:
+            f.write(D_TEXT)
+        one = tt.Run(lambda ctx: d_run(torch, np, tt, ctx, pk, ps,
+                                       os.path.join(d, "words.txt")),
+                     num_workers=D_PROCS * D_WPP)
+        torch.cuda.empty_cache()
+        ports = d_free_ports(1 + D_PROCS)
+        hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+        secret = os.urandom(16).hex()
+        procs = []
+        for rank in range(D_PROCS):
+            env = dict(os.environ, THRILL_TPU_HOSTLIST=hostlist,
+                       THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-child",
+                 f"127.0.0.1:{ports[0]}", str(rank), d],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        import concurrent.futures as cf
+        try:
+            with cf.ThreadPoolExecutor(len(procs)) as ex:
+                futs = [ex.submit(p.communicate, None, D_TIMEOUT_S)
+                        for p in procs]
+                drained = [f.result(timeout=D_TIMEOUT_S + 30) for f in futs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        kids = []
+        for p, (o, e) in zip(procs, drained):
+            lines = [l for l in o.splitlines() if l.startswith("DRESULT ")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"D: child failed (rc {p.returncode}):"
+                                     f"\n{o[-2000:]}\n{e[-4000:]}")
+            kids.append(json.loads(lines[-1][len("DRESULT "):]))
+    finally:
+        import shutil
+        shutil.rmtree(d, ignore_errors=True)
+    # every rank bit-equal to the one-process run
+    same = ("sort_size", "sort_digest", "wc_digest", "wc_distinct",
+            "dup_verdicts")
+    bat_same = ("host_counts", "host_total", "host_sorted",
+                "device_counts", "join_plain", "join_ld")
+    battery1 = json.loads(json.dumps(one["battery"]))
+    for k in kids:
+        for f in same:
+            if k[f] != one[f]:
+                raise AssertionError(f"D rank {k['rank']}: {f} differs from "
+                                     f"the one-process run")
+        for f in bat_same:
+            if k["battery"][f] != battery1[f]:
+                raise AssertionError(f"D rank {k['rank']}: battery {f} "
+                                     f"differs from the one-process run")
+        if k["battery"]["totals"] != [one["battery"]["host_total"]] * D_PROCS:
+            raise AssertionError(f"D rank {k['rank']}: ctx.net.all_gather "
+                                 f"gave {k['battery']['totals']}")
+        if k["battery"]["rank_mean_stdev"] != [0.5, 0.5]:
+            raise AssertionError(f"D rank {k['rank']}: collective mean and "
+                                 f"stdev {k['battery']['rank_mean_stdev']}")
+        for job in ("sort", "wc"):
+            need = D_KERNELS if job == "wc" else D_KERNELS[:3]
+            for name in need:
+                if k[f"{job}_launches"][name] <= 0:
+                    raise AssertionError(f"D rank {k['rank']}: {name} was "
+                                         f"not launched on the {job} path")
+    moved = [sum(k["battery"][f] for k in kids)
+             for f in ("moved_plain", "moved_ld")]
+    if not moved[1] < moved[0]:
+        raise AssertionError(f"D: location detection moved {moved[1]} "
+                             f"items, the plain join {moved[0]}")
+    if moved != [one["battery"]["moved_plain"], one["battery"]["moved_ld"]]:
+        raise AssertionError(f"D: the processes moved {moved} join items, "
+                             f"one process {one['battery']}")
+    if sum(k["items_moved"] for k in kids) != one["items_moved"]:
+        raise AssertionError("D: the processes' items moved do not sum to "
+                             "the one-process run's")
+    log(f"D one process W=4: terasort {one['sort_size']} records "
+        f"first {one['sort_first_s']:.3f} s warm {one['sort_warm_s']:.3f} s; "
+        f"wordcount {one['wc_distinct']} words first "
+        f"{one['wc_first_s']:.3f} s warm {one['wc_warm_s']:.3f} s; launches "
+        f"sort {json.dumps(one['sort_launches'])} wordcount "
+        f"{json.dumps(one['wc_launches'])}; transfers sort "
+        f"{one['sort_transfers']} wordcount {one['wc_transfers']} [{card}]")
+    paths = {}
+    for k in kids:
+        r = k["rank"]
+        log(f"D process {r} of {D_PROCS} (W=4, {D_WPP} workers, backend "
+            f"{k['backend']}, collectives {k['collectives']}): terasort "
+            f"bit-equal, first "
+            f"{k['sort_first_s']:.3f} s warm {k['sort_warm_s']:.3f} s "
+            f"(one process {one['sort_warm_s']:.3f} s), launches "
+            f"{json.dumps(k['sort_launches'])}, bytes across processes "
+            f"{k['sort_cross_bytes']}, device-to-host transfers "
+            f"{k['sort_transfers']}; wordcount bit-equal, dup verdicts "
+            f"{k['dup_verdicts']}, first {k['wc_first_s']:.3f} s warm "
+            f"{k['wc_warm_s']:.3f} s (one process {one['wc_warm_s']:.3f} s), "
+            f"launches {json.dumps(k['wc_launches'])}, bytes across "
+            f"processes {k['wc_cross_bytes']}, device-to-host transfers "
+            f"{k['wc_transfers']}; battery equal (host frames "
+            f"{k['host_wire_bytes']} bytes, join items moved plain "
+            f"{k['battery']['moved_plain']} ld {k['battery']['moved_ld']}) "
+            f"[{card}]")
+        paths[f"D terasort W=4 (process {r} of {D_PROCS})"] = \
+            k["sort_launches"]
+        paths[f"D wordcount W=4 (process {r} of {D_PROCS})"] = \
+            k["wc_launches"]
+    log(f"process mesh phase (D): {time.perf_counter() - t_d:.1f} s of host "
+        f"clock, the one-process run and the children's start included "
+        f"[host {cpu_line()}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5780,6 +6087,10 @@ def main() -> int:
         i = sys.argv.index("--ckpt-child")
         return ckpt_child(sys.argv[i + 1], sys.argv[i + 2],
                           sys.argv[i + 3] == "1")
+    if "--dist-child" in sys.argv:
+        i = sys.argv.index("--dist-child")
+        return dist_child(sys.argv[i + 1], int(sys.argv[i + 2]),
+                          sys.argv[i + 3])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
@@ -5817,6 +6128,10 @@ def main() -> int:
     if "--phase-t" in sys.argv:
         # phase T alone
         log(json.dumps(t_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-d" in sys.argv:
+        # phase D alone
+        log(json.dumps(d_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -5924,6 +6239,8 @@ def main() -> int:
     x_paths = x_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     t_paths = t_phase(torch, np, tt, pk, ps, card)
+    torch.cuda.empty_cache()
+    d_paths = d_phase(torch, np, tt, pk, ps, card)
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -6016,7 +6333,7 @@ def main() -> int:
              "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
-             **l_paths, **p_paths, **x_paths, **t_paths}
+             **l_paths, **p_paths, **x_paths, **t_paths, **d_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -114,11 +114,6 @@ def test_a_balanced_exchange_stays_cool():
         assert r["skew_ratio"] < 3.0 and r["hot"] == []
 
 
-def _strip_times(edges):
-    return [{k: v for k, v in e.items() if k not in ("dur_us", "excl_us")}
-            for e in edges]
-
-
 @pytest.mark.parametrize("pkg", ["port", "ref"])
 @pytest.mark.parametrize("k", [1, 3, 5, 20])
 def test_critical_path_is_the_reference_s_on_the_same_records(hot, pkg, k):
@@ -156,13 +151,66 @@ def test_critical_path_offline_over_merged_ranks():
     assert edges[0]["path"].startswith("loop:replay")
 
 
+def _structural_trees(ring):
+    """The span records of ``ring`` with ``ts`` and ``dur_us`` rewritten
+    from the span tree alone, one list of records a root span in span-id
+    order: a span lasts 1 + its number of descendants, its children are
+    laid out one after another from its start in span-id order, and a
+    root starts at 0. A critical path over these records depends on the
+    tree, never on the clock, and a root's duration counts every span
+    under it."""
+    spans = [dict(r) for r in ring
+             if r.get("event") == "span" and r.get("kind") != "instant"]
+    by_key = {(r.get("rank", 0), r.get("trace"), r.get("span")): r
+              for r in spans}
+    kids = {}
+    roots = []
+    for key, r in sorted(by_key.items(), key=lambda kv: kv[0][2] or 0):
+        pkey = (key[0], key[1], r.get("parent"))
+        if r.get("parent") is not None and pkey in by_key:
+            kids.setdefault(pkey, []).append(key)
+        else:
+            roots.append(key)
+
+    def size(key):
+        n = 1 + sum(size(c) for c in kids.get(key, ()))
+        by_key[key]["dur_us"] = n
+        return n
+
+    def place(key, ts, tree):
+        by_key[key]["ts"] = ts
+        tree.append(by_key[key])
+        for c in kids.get(key, ()):
+            place(c, ts, tree)
+            ts += by_key[c]["dur_us"]
+        return tree
+
+    for key in roots:
+        size(key)
+    return [place(key, 0, []) for key in roots]
+
+
+def _structural_paths(cp, ring):
+    """``cp`` (a package's ``critical_path``) over each root's tree of
+    :func:`_structural_trees`, every edge kept."""
+    return [cp(tree, k=len(tree)) for tree in _structural_trees(ring)]
+
+
 def test_the_reports_have_the_reference_s_keys(hot):
     port, ref = hot["port"]["report"], hot["ref"]["report"]
     assert sorted(port) == sorted(ref)
     assert hot["port"]["wait_keys"] == hot["ref"]["wait_keys"]
     assert port["skew_sites"] == ref["skew_sites"]
-    assert _strip_times(port["critical_path"]) == \
-        _strip_times(ref["critical_path"])
+    # each package's own critical path over its own span tree, timed by
+    # the tree's structure: two runs' measured durations differ under
+    # load, their trees do not
+    port_paths = _structural_paths(doctor.critical_path,
+                                   hot["port"]["ring"])
+    assert port_paths == _structural_paths(jdoctor.critical_path,
+                                           hot["ref"]["ring"])
+    assert len(port_paths) > 1
+    assert [e["path"] for e in port["critical_path"]] and \
+        [e["path"] for e in ref["critical_path"]]
 
 
 def test_doctor_off_is_a_pinned_no_op(monkeypatch):

@@ -1457,3 +1457,137 @@ def test_device_memory_stats_read_the_allocator(cuda_device):
     assert got["peak_bytes_in_use"] >= got["bytes_in_use"]
     assert profile._device_memory_stats("cpu") == {}
     del x
+
+
+# -- a mesh of two processes on the one card (RunDistributed) ---------------
+
+_DIST_CHILD = r'''
+import hashlib, json, sys
+import numpy as np, torch
+import thrill_tpu_torch as tt
+from thrill_tpu_torch.core import pallas_kernels as pk, pallas_sort as ps
+
+
+def job(ctx):
+    rng = np.random.default_rng(7)
+    recs = {"key": rng.integers(0, 256, (1 << 16, 10), dtype=np.uint8),
+            "val": np.arange(1 << 16, dtype=np.int64)}
+    pk.partition_histogram.launches = ps.radix_pass.launches = 0
+    out = ctx.Distribute(recs).Sort(key_fn=lambda r: r["key"]) \
+        .AllGatherArrays()
+    h = hashlib.sha256()
+    for k in sorted(out):
+        h.update(out[k].cpu().numpy().tobytes())
+    pairs = sorted((int(k), int(v)) for k, v in ctx.Distribute(
+        np.arange(1 << 15, dtype=np.int64)).Map(lambda x: (x % 97, x))
+        .ReducePair(lambda a, b: a + b).AllGather())
+    return {"sort": h.hexdigest(), "pairs": pairs,
+            "launches": [pk.partition_histogram.launches,
+                         ps.radix_pass.launches],
+            "cross": ctx.mesh_exec.stats_bytes_cross,
+            "device": str(ctx.mesh_exec.device)}
+
+
+if sys.argv[1] == "one":
+    print("RESULT " + json.dumps(tt.Run(job, 4)), flush=True)
+else:
+    print("RESULT " + json.dumps(tt.RunDistributed(
+        job, coordinator_address=sys.argv[2], num_processes=2,
+        process_id=int(sys.argv[3]), workers_per_process=2)), flush=True)
+'''
+
+
+def _run_children(tmp_path, argvs, env_of):
+    import json
+    import os
+    import subprocess
+    import sys
+    child = tmp_path / "dist_child.py"
+    child.write_text(_DIST_CHILD)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, str(child)] + a, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=repo, **env_of(i)))
+        for i, a in enumerate(argvs)]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=300)
+            assert p.returncode == 0, e[-3000:]
+            out.append(json.loads([l for l in o.splitlines()
+                                   if l.startswith("RESULT ")][-1][7:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+@pytest.mark.gpu
+def test_two_processes_on_the_card_equal_one(cuda_device, tmp_path):
+    """A Sort and a ReducePair on a mesh of two processes sharing the
+    card (gloo, 2 workers each) are bit-equal to the one-process W = 4
+    run; each process launches the histogram and the pass kernels and
+    sends bytes to the other."""
+    import socket
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    hosts = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+    one = _run_children(tmp_path, [["one"]], lambda i: {})[0]
+    two = _run_children(
+        tmp_path, [["two", f"127.0.0.1:{ports[0]}", str(r)]
+                   for r in range(2)],
+        lambda i: {"THRILL_TPU_HOSTLIST": hosts, "THRILL_TPU_RANK": str(i),
+                   "THRILL_TPU_SECRET": "gpu-test"})
+    for r in two:
+        assert r["sort"] == one["sort"] and r["pairs"] == one["pairs"]
+        assert r["device"].startswith("cuda")
+        assert min(r["launches"]) > 0 and r["cross"] > 0
+    assert one["cross"] == 0
+
+
+_BUILD_CHILD = r'''
+import json, sys, time
+from thrill_tpu_torch.common import native_build
+native_build.BUILD_DIR = sys.argv[2]
+while time.time() < float(sys.argv[1]):
+    time.sleep(0.005)
+native_build.build_all()
+print("RESULT " + json.dumps(sorted(native_build.build_logs)), flush=True)
+'''
+
+
+@pytest.mark.gpu
+def test_two_processes_build_the_kernels_once(cuda_device, tmp_path):
+    """Two processes that build every kernel at once into one build
+    directory compile each source once between them (the file lock) and
+    both load the libraries."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    child = tmp_path / "build_child.py"
+    child.write_text(_BUILD_CHILD)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    start = str(time.time() + 3.0)
+    procs = [subprocess.Popen([sys.executable, str(child), start,
+                               str(tmp_path / "build")],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for _ in range(2)]
+    built = []
+    for p in procs:
+        o, e = p.communicate(timeout=600)
+        assert p.returncode == 0, e[-3000:]
+        built += json.loads([l for l in o.splitlines()
+                             if l.startswith("RESULT ")][-1][7:])
+    from thrill_tpu_torch.common import native_build
+    assert sorted(built) == native_build.sources()
+    libs = [f for f in os.listdir(tmp_path / "build") if f.endswith(".so")]
+    assert len(libs) == len(native_build.sources())

@@ -23,6 +23,7 @@ from thrill_tpu.parallel.mesh import MeshExec as JMeshExec
 
 import thrill_tpu_torch as tt
 from thrill_tpu_torch.data import multiplexer
+from thrill_tpu_torch.data.shards import HostShards
 
 WIDTHS = [1, 2, 3, 4]
 
@@ -345,10 +346,14 @@ def test_the_single_controller_data_plane():
 
 
 def test_a_mesh_of_several_processes_raises_naming_item_6():
-    mex = tt.MeshExec(num_workers=2, device="cpu")
-    mex.num_processes = 2
-    shards = tt.Context(mesh_exec=mex).Distribute(
-        ["a", "b"], storage="host").node.materialize()
+    """Item 6's first part ported the multiplexer's TCP half: a mesh of
+    several processes without the host control plane (no
+    THRILL_TPU_HOSTLIST) now raises naming the missing plane, where it
+    raised naming item 6 (tests/test_torch_distributed.py runs the
+    plane)."""
+    mex = tt.MeshExec(num_workers=2, device="cpu", process_index=0,
+                      num_processes=2)
+    shards = HostShards(2, [["a"], ["b"]])
     for call in (lambda: multiplexer.host_exchange(mex, shards, len),
                  lambda: multiplexer.ensure_replicated(mex, shards),
                  lambda: multiplexer.localize(mex, shards),
@@ -356,5 +361,5 @@ def test_a_mesh_of_several_processes_raises_naming_item_6():
                  lambda: multiplexer.global_total(mex, shards),
                  lambda: multiplexer.all_items(mex, shards),
                  lambda: multiplexer.net_fold(mex, 1, max)):
-        with pytest.raises(NotImplementedError, match="item 6"):
+        with pytest.raises(RuntimeError, match="host control plane"):
             call()

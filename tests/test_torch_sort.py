@@ -187,7 +187,12 @@ def test_port_imports_neither_jax_nor_reference():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'thrill_tpu' or m.startswith('thrill_tpu.')]\n"
-        "print(len(sys.modules)); assert not bad, bad\n")
+        "print(len(sys.modules)); assert not bad, bad\n"
+        # the modules of the mesh of several processes among them
+        "new = ['thrill_tpu_torch.' + m for m in ('net.group', 'net.mock',"
+        " 'net.flow', 'net.tcp', 'net.wire', 'common.platform',"
+        " 'common.timeouts', 'api.device_exec', 'data.multiplexer')]\n"
+        "assert all(m in sys.modules for m in new), new\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
                    check=True, timeout=120, capture_output=True)

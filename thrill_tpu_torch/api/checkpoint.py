@@ -29,7 +29,8 @@ save copies slice k+1 off the card while slice k goes into its worker's
 payload (its one host copy), a restore uploads slice k while slice k+1
 is copied into the next pinned slot.
 
-Not ported (ROADMAP item 6): the multi-controller agreement and
+Not ported (ROADMAP item 6, its checkpoint part): the multi-controller
+agreement and
 ``poison_on_error``, remote (``s3://``, ``hdfs://``) directories, the
 resize epochs and markers, and ``stage_repartition`` /
 ``commit_repartition``. The restore's readahead depth is the
@@ -105,7 +106,8 @@ class CheckpointManager:
         if _remote(directory):
             raise NotImplementedError(
                 f"checkpoint directory {directory!r}: remote stores are "
-                f"not ported yet (ROADMAP.md queue A item 6)")
+                f"not ported yet (ROADMAP.md queue A item 6, its "
+                f"remote-vfs part)")
         self.ctx = ctx
         self.dir = directory
         self.auto = auto
@@ -367,7 +369,7 @@ class CheckpointManager:
         """Rebuild the manifest node's shards: (shards, seconds), or None
         after a loud note when the epoch is corrupt. One controller
         agrees with itself; the multi-controller agreement waits for
-        ROADMAP item 6."""
+        ROADMAP item 6, its checkpoint part."""
         m = self._manifest
         rec = m["node"]
         t0 = time.perf_counter()

@@ -1,6 +1,6 @@
-"""The runtime handle passed to user jobs (counterpart of a minimal
-reference package's ``api/context.py``: no service plane, elasticity or
-host group). Sources take ``storage`` "device" (columnar tensors) or
+"""The runtime handle passed to user jobs (counterpart of the reference
+package's ``api/context.py`` without its service plane, elasticity or
+generations). Sources take ``storage`` "device" (columnar tensors) or
 "host" (per-worker Python lists); None infers it as the reference does.
 A Context owns the JSON event log (``logger``), the HBM governor
 (``hbm``, mem/hbm.py), the memory-pressure ladder (``pressure``,
@@ -17,7 +17,17 @@ performance doctor (``doctor``, common/doctor.py; None with
 ``THRILL_TPU_DOCTOR=0``; :meth:`Context.doctor_report`), the profile
 thread (``Config.profile``, ``THRILL_TPU_PROFILE=1``, with a log) and
 the metrics endpoint (``THRILL_TPU_METRICS_PORT``,
-common/metrics.py)."""
+common/metrics.py).
+
+A mesh of several processes (``RunDistributed``): each process runs the
+same job on its own Context, whose mesh holds its local workers' rows
+(parallel/mesh.py). ``ctx.net`` is the host control plane, a
+FlowControlChannel over the authenticated TCP group made from
+``THRILL_TPU_HOSTLIST``/``_RANK``/``_SECRET`` (net/tcp.py); the
+host-storage multiplexer (data/multiplexer.py) and
+:meth:`Context.collective_mean_stdev` ride it. ``host_rank`` is the
+process's rank; ``overall_stats()`` gathers every process's counters
+unless ``local_only``, with ``hosts`` the number of processes."""
 
 from __future__ import annotations
 
@@ -32,7 +42,7 @@ from ..common.logger import JsonLogger, default_log_path
 from ..mem.hbm import HbmGovernor
 from ..mem.manager import MemoryConfig
 from ..mem.pressure import PressureMonitor
-from ..parallel.mesh import DeviceLike, MeshExec
+from ..parallel.mesh import DeviceLike, MeshExec, resolve_device
 
 
 class Context:
@@ -45,6 +55,11 @@ class Context:
         self.mesh_exec = mesh_exec or MeshExec(num_workers=num_workers,
                                                device=device)
         self.config = config or Config.from_env()
+        self.host_rank = self.mesh_exec.process_index
+        # the host control plane (one process: a group of one)
+        from ..net import FlowControlChannel
+        self.net = FlowControlChannel(self._construct_host_group())
+        self.mesh_exec.host_net = self.net
         self._next_id = 0
         # the nodes made, for explain(): each weakly held (a dropped
         # node's results must not stay alive) beside its id and label
@@ -52,8 +67,9 @@ class Context:
         self._ram_workers: Optional[int] = None
         self._mem_reserved = 0
         self.logger = JsonLogger(
-            default_log_path(self.config.log_path, host_rank=0),
-            program="thrill_tpu_torch", workers=self.num_workers, host=0)
+            default_log_path(self.config.log_path, host_rank=self.host_rank),
+            program="thrill_tpu_torch", workers=self.num_workers,
+            host=self.host_rank)
         if self.logger.enabled:
             faults.REGISTRY.set_logger(self.logger.line)
         # the fault counters are the process's: this Context reports
@@ -64,8 +80,11 @@ class Context:
         # no doctor)
         from ..common.doctor import Doctor, doctor_enabled
         from ..common.trace import Tracer
-        self.tracer = Tracer(rank=0, logger=self.logger)
-        self.doctor = Doctor(rank=0) if doctor_enabled() else None
+        self.tracer = Tracer(rank=self.host_rank, logger=self.logger)
+        self.doctor = (Doctor(rank=self.host_rank) if doctor_enabled()
+                       else None)
+        self.net.group.tracer = self.tracer
+        self.net.group.doctor = self.doctor
         self.mesh_exec.tracer = self.tracer
         self.mesh_exec.doctor = self.doctor
         self.hbm = HbmGovernor(self, limit=self.config.hbm_limit)
@@ -128,6 +147,34 @@ class Context:
         # the live metrics endpoint (off unless THRILL_TPU_METRICS_PORT)
         from ..common.metrics import maybe_start
         self._metrics = maybe_start(self)
+
+    def _construct_host_group(self):
+        """The TCP group of the processes (reference:
+        ``api/context.py:395-437``; its ``mpi`` branch waits with
+        ``net/mpi.py``, ROADMAP.md item 6): from the environment when the
+        mesh spans processes, checked against the mesh's process count
+        and rank; a group of one otherwise."""
+        from ..net import tcp
+        mex = self.mesh_exec
+        if mex.multiprocess:
+            grp = tcp.construct_from_env()
+            if grp is not None:
+                if grp.num_hosts != mex.num_processes:
+                    raise ValueError(
+                        f"THRILL_TPU_HOSTLIST has {grp.num_hosts} hosts "
+                        f"but the mesh spans {mex.num_processes} processes")
+                if grp.my_rank != mex.process_index:
+                    raise ValueError(
+                        f"THRILL_TPU_RANK={grp.my_rank} disagrees with the "
+                        f"mesh's process index {mex.process_index}: the "
+                        f"host control plane and the device mesh must use "
+                        f"the same rank order")
+                return grp
+            print("thrill_tpu_torch: multi-process run without "
+                  "THRILL_TPU_HOSTLIST: the host control plane is "
+                  "process-local, and host-storage pipelines raise",
+                  file=sys.stderr)
+        return tcp.TcpGroup(0, 1, {})
 
     @property
     def num_workers(self) -> int:
@@ -259,7 +306,24 @@ class Context:
             title=name or (getattr(pipeline_fn, "__name__", "")
                            if pipeline_fn is not None else ""))
 
-    def overall_stats(self) -> dict:
+    def collective_mean_stdev(self, value: float):
+        """(mean, stdev) of a per-process scalar over the processes: a
+        collective every process calls (reference:
+        PrintCollectiveMeanStdev, api/context.hpp:352-375)."""
+        vals = [float(v) for v in self.net.all_gather(float(value))]
+        mean = sum(vals) / len(vals)
+        var = sum((v - mean) ** 2 for v in vals) / len(vals)
+        return mean, var ** 0.5
+
+    def print_collective_mean_stdev(self, label: str,
+                                    value: float) -> None:
+        """Rank 0 prints the mean and stdev of a per-process scalar."""
+        mean, stdev = self.collective_mean_stdev(value)
+        if self.host_rank == 0:
+            print(f"{label}: mean {mean:.6g} stdev {stdev:.6g} over "
+                  f"{self.net.num_workers} hosts", flush=True)
+
+    def overall_stats(self, local_only: bool = False) -> dict:
         """The counters the port keeps, under the reference's names
         (OverallStats): the mesh's exchange traffic, the nodes created,
         the HBM governor's ledger peak (``hbm_peak``: the most bytes of
@@ -278,7 +342,13 @@ class Context:
         ``plan_store_hits``; ``planner_replans``/``_switches``;
         ``decisions_recorded``/``_joined``, ``decision_accuracy``) and,
         with a checkpoint manager, its five (epochs, bytes written, ops
-        and sort runs skipped by resume, restore seconds)."""
+        and sort runs skipped by resume, restore seconds). Across
+        processes (unless ``local_only``) the counters are gathered:
+        items and bytes moved, waits and delayed faults sum over the
+        processes, ``hbm_peak`` and ``skew_ratio`` take the largest,
+        every other counter is process 0's (a plan counter is the same
+        on every process), and ``hosts`` counts the processes
+        (reference: ``api/context.py:911``)."""
         mex = self.mesh_exec
         fstats = faults.REGISTRY.stats()
         stats = {
@@ -331,6 +401,17 @@ class Context:
         }
         if self.checkpoint is not None:
             stats.update(self.checkpoint.stats())
+        if self.net.num_workers > 1 and not local_only \
+                and not self._aborted:
+            per_host = self.net.all_gather(stats)
+            peaks = {"hbm_peak", "skew_ratio"}
+            sums = {"items_moved", "bytes_moved", "faults_delayed",
+                    "collective_wait_s", "wait_net_s", "wait_exchange_s",
+                    "wait_io_s", "wait_skew_s"}
+            stats = {k: (max(h[k] for h in per_host) if k in peaks
+                         else sum(h[k] for h in per_host) if k in sums
+                         else per_host[0][k]) for k in stats}
+            stats["hosts"] = len(per_host)
         return stats
 
     def doctor_report(self, k: int = 5) -> dict:
@@ -346,7 +427,9 @@ class Context:
     def note_failure(self, exc: BaseException) -> None:
         """The job raised ``exc``: the flight recorder dumps its ring
         with the decision ledger beside it (best-effort: a failing dump
-        never masks the failure), and ``close()`` then drops this run's
+        never masks the failure), the other processes of a mesh are
+        poisoned with the cause (a received abort is not sent back), and
+        ``close()`` then drops this run's
         uncommitted epoch and the spill files of dead processes. Its
         deferred checks and a loop capture in progress are dropped."""
         self._aborted = True
@@ -355,6 +438,11 @@ class Context:
                 f"{type(exc).__name__}: {exc}"))
         except Exception:
             pass
+        from ..net.group import ClusterAbort
+        if self.net.num_workers > 1 and not isinstance(exc, ClusterAbort):
+            # the other processes, blocked in a host collective, abort
+            # with this root cause instead of waiting on this process
+            self.net.group.poison_peers(exc)
         self.mesh_exec.reset_run_state()
 
     def close(self) -> None:
@@ -378,11 +466,13 @@ class Context:
                 faults.note("recovery", what="plan_store.save_failed",
                             error=repr(e)[:200])
         if self.logger.enabled:
-            self.logger.line(event="overall_stats", **self.overall_stats())
+            self.logger.line(event="overall_stats",
+                             **self.overall_stats(local_only=True))
         if faults.REGISTRY._log == self.logger.line:
             faults.REGISTRY.set_logger(None)
         self.logger.close()
         self.hbm.close()
+        self.net.group.close()
         if self._aborted:
             if self.checkpoint is not None:
                 self.checkpoint.abort_cleanup()
@@ -415,3 +505,83 @@ def RunLocalTests(job: Callable[[Context], Any],
     """Sweep ``job`` over several worker counts on one device
     (reference: api::RunLocalTests)."""
     return [Run(job, w, device) for w in worker_counts]
+
+
+def RunLocalMock(job: Callable[[Context], Any], workers: int,
+                 config: Optional[Config] = None,
+                 device: DeviceLike = "cpu") -> Any:
+    """Run on a fixed-size mesh of ``workers`` workers on the CPU
+    (reference: RunLocalMock, ``api/context.py:1634``)."""
+    return Run(job, workers, device=device, config=config)
+
+
+def RunSupervised(job: Callable[[Context], Any], num_workers: int = 1,
+                  device: DeviceLike = None,
+                  config: Optional[Config] = None,
+                  max_restarts: int = 2) -> Any:
+    """Run with supervised re-execution (reference: ``api/context.py:
+    1604``): an abort-class failure (a ClusterAbort, a lost link, a
+    timeout) runs the same job again with ``resume=True``, so a
+    committed checkpoint epoch bounds the work done again."""
+    from ..net.group import ClusterAbort
+    attempt = 0
+    while True:
+        try:
+            return Run(job, num_workers, device=device, config=config,
+                       resume=attempt > 0)
+        except (ClusterAbort, ConnectionError, TimeoutError) as e:
+            if attempt >= max_restarts:
+                raise
+            attempt += 1
+            faults.note("recovery", what="supervised_restart",
+                        attempt=attempt, error=repr(e))
+            print(f"thrill_tpu_torch: supervised restart {attempt}/"
+                  f"{max_restarts} after {e!r} (resume=True)",
+                  file=sys.stderr)
+
+
+def RunDistributed(job: Callable[[Context], Any],
+                   coordinator_address: Optional[str] = None,
+                   num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None,
+                   workers_per_process: int = 1,
+                   device: DeviceLike = None,
+                   config: Optional[Config] = None,
+                   resume: bool = False) -> Any:
+    """Run ``job`` as process ``process_id`` of ``num_processes``, each
+    with ``workers_per_process`` workers on its device (``cuda`` unless
+    the caller names another; the processes may share one card), so the
+    mesh has ``num_processes * workers_per_process`` workers (reference:
+    ``api/context.py:1653-1709``). Every process runs this function with
+    the same job. ``coordinator_address`` (``host:port``) is where the
+    ``torch.distributed`` process group meets; the host control plane
+    is the TCP group of ``THRILL_TPU_HOSTLIST``/``_RANK``/``_SECRET``.
+    Sources that take global data (Distribute, Generate) expect the same
+    input on every process, and each keeps its workers' part; per-process
+    data enters through ConcatToDIA. The process group is destroyed when
+    the job ends, however it ends."""
+    P = int(num_processes or 1)
+    rank = int(process_id or 0)
+    dev = resolve_device(device)
+    if P > 1:
+        from ..common.platform import init_process_group
+        if not coordinator_address:
+            raise ValueError("RunDistributed needs a coordinator_address "
+                             "for more than one process")
+        init_process_group(coordinator_address, P, rank, dev)
+    try:
+        mex = MeshExec(num_workers=P * int(workers_per_process),
+                       device=dev, process_index=rank, num_processes=P)
+        ctx = Context(mex, config=config, resume=resume)
+        try:
+            return job(ctx)
+        except BaseException as e:
+            ctx.note_failure(e)
+            raise
+        finally:
+            ctx.close()
+    finally:
+        if P > 1:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()

@@ -334,7 +334,7 @@ class FusionPlan:
                              dia_ids=[s.dia_id for s in segs])
         try:
             tree, out_count, aux = prog(
-                self.head, list(self.segments), mex.num_workers,
+                self.head, list(self.segments), mex.num_local,
                 mex.device, [s.counts_device() for s in srcs], src_flat,
                 bound_flat)
         except Exception as e:

@@ -2,7 +2,11 @@
 (counterpart of Size, AllGather, AllGatherArrays, Gather, Print, Sum,
 Min, Max and AllReduce in the reference package's
 ``api/ops/actions.py``). On host storage Sum, Min, Max and AllReduce
-fold the items in Python, in worker-rank order, as the reference does."""
+fold the items in Python, in worker-rank order, as the reference does.
+Across processes every action gathers from every process: device rows
+through :meth:`MeshExec.gather_workers`, host items through the
+multiplexer (``all_items``, ``global_total``), so every process returns
+the one-process result."""
 
 from __future__ import annotations
 
@@ -23,7 +27,10 @@ def _pull(dia):
 
 
 def Size(dia) -> int:
-    return _pull(dia).total
+    shards = _pull(dia)
+    if isinstance(shards, HostShards):
+        return multiplexer.global_total(dia.context.mesh_exec, shards)
+    return shards.total
 
 
 def AllGatherArrays(dia):
@@ -39,6 +46,9 @@ def AllGatherArrays(dia):
     shards = _pull(dia)
     mex = dia.context.mesh_exec
     mex.drain_checks()
+    if isinstance(shards, HostShards) and mex.multiprocess:
+        shards = multiplexer.ensure_replicated(mex, shards,
+                                               "allgather-arrays")
     if mex.loop_recorder is not None and not isinstance(shards, HostShards):
         counts = tuple(int(c) for c in shards.counts)
         leaves, td = pt.flatten(shards.tree)
@@ -70,24 +80,29 @@ def _gather_arrays(shards):
         return pt.unflatten(flat[0][1], [
             np.stack([f[0][i] for f in flat])
             for i in range(len(flat[0][0]))])
-    counts = [int(c) for c in shards.counts]
-    return pt.tree_map(lambda l: _concat_valid(l, counts), shards.tree)
+    mex = shards.mesh_exec
+    counts = [int(c) for c in shards.global_counts]
+    return pt.tree_map(lambda l: _concat_valid(mex.gather_workers(l),
+                                               counts), shards.tree)
 
 
 def AllGather(dia) -> list:
     """The items as a host list in worker-rank order: host items as
     they are; device scalar leaves as Python numbers, array leaves as
     numpy rows, in the item's own pytree shape."""
-    return _items(_pull(dia), "allgather-action")
+    return _items(dia.context.mesh_exec, _pull(dia), "allgather-action")
 
 
-def _items(shards, reason: str) -> list:
+def _items(mex, shards, reason: str) -> list:
     """The items on the host; leaving device storage logs
     ``event=device_to_host`` with ``reason``, as every demotion does."""
+    if isinstance(shards, HostShards):
+        shards = multiplexer.ensure_replicated(mex, shards, reason)
     if isinstance(shards, HostShards):
         return [it for l in shards.lists for it in l]
     # through the mesh's fetch: counted, and the deferred checks drain
     mex = shards.mesh_exec
+    mex.drain_checks()
     out = itemize(pt.tree_map(mex.fetch, _gather_arrays(shards)))
     log = mex.logger
     if log is not None and log.enabled:
@@ -99,7 +114,7 @@ def Gather(dia, root: int = 0) -> list:
     """The items of the whole DIA, delivered to worker ``root`` (Thrill:
     ``api/gather.hpp``). One process is every worker here, so it gets
     them all, in worker-rank order."""
-    return _items(_pull(dia), "gather-action")
+    return _items(dia.context.mesh_exec, _pull(dia), "gather-action")
 
 
 def Print(dia, label: str = "", limit: int = 100) -> None:
@@ -112,26 +127,28 @@ def Print(dia, label: str = "", limit: int = 100) -> None:
 
 
 def _device_reduce(shards, mode: str, keep_device: bool = False):
-    """Each worker folds its valid rows, then the W partials fold (the
+    """Each worker folds its valid rows, then the W partials fold in
+    worker order, every process's partials gathered first (the
     reference's masked local fold plus psum/pmin/pmax; integer sums in
     int64, as there). Leaves come back
     as tensors on the device, or as host values: Python numbers for
     scalar leaves, numpy arrays otherwise."""
     mask = shards.valid_mask()
+    gather = shards.mesh_exec.gather_workers
 
     def fold(leaf):
         m = mask.reshape(mask.shape + (1,) * (leaf.dim() - 2))
         if mode == "sum":
-            return torch.where(m, leaf, torch.zeros((), dtype=leaf.dtype,
-                                                    device=leaf.device)
-                               ).sum(dim=1).sum(dim=0)
+            return gather(torch.where(m, leaf, torch.zeros(
+                (), dtype=leaf.dtype, device=leaf.device)).sum(dim=1)
+                          ).sum(dim=0)
         fill = _type_max(leaf.dtype) if mode == "min" else _type_min(
             leaf.dtype)
         x = torch.where(m, leaf, torch.full((), fill, dtype=leaf.dtype,
                                             device=leaf.device))
         if mode == "min":
-            return x.amin(dim=1).amin(dim=0)
-        return x.amax(dim=1).amax(dim=0)
+            return gather(x.amin(dim=1)).amin(dim=0)
+        return gather(x.amax(dim=1)).amax(dim=0)
 
     out = pt.tree_map(fold, shards.tree)
     if keep_device:
@@ -180,7 +197,7 @@ def MinMax(dia, is_min: bool) -> Any:
 def AllReduce(dia, fn: Callable, initial: Any = None) -> Any:
     """A generic associative fold of every item, on the host, in
     worker-rank order."""
-    items = _items(_pull(dia), "allreduce-action")
+    items = _items(dia.context.mesh_exec, _pull(dia), "allreduce-action")
     if not items:
         if initial is None:
             raise ValueError("AllReduce of empty DIA without initial")

@@ -302,10 +302,15 @@ class InnerJoinNode(DIABase):
         if ld and W > 1:
             # every worker's fingerprint through the Golomb codec, as the
             # reference's location exchange
+            # across processes the fingerprints are gathered, so every
+            # process finds the same common set (reference:
+            # thrill_tpu/api/ops/join.py:143-158)
+            lh_all = multiplexer.global_lists(mex, lh)
+            rh_all = multiplexer.global_lists(mex, rh)
             ld_l, ld_r = LocationDetection(W), LocationDetection(W)
             for w in range(W):
-                ld_l.add_worker(w, lh[w])
-                ld_r.add_worker(w, rh[w])
+                ld_l.add_worker(w, lh_all[w])
+                ld_r.add_worker(w, rh_all[w])
             common = ld_l.common_hashes(ld_r)
             left, lh = _prune(left, lh, common)
             right, rh = _prune(right, rh, common)
@@ -334,6 +339,11 @@ class InnerJoinNode(DIABase):
         forced), then the hash exchange of both sides."""
         mex = left.mesh_exec
         W = mex.num_workers
+        if mex.multiprocess:
+            raise NotImplementedError(
+                "a device InnerJoin across processes is not ported yet: "
+                "ROADMAP.md queue A item 6, its op-sweep part (a host "
+                "InnerJoin runs)")
         if W == 1:
             return left, right
         token = (self.lkey, self.rkey, self.join_fn)

@@ -7,7 +7,10 @@ write_binary.hpp:36).
 The global byte stream of the files (in ``Glob`` order) is split evenly
 over the workers. A line or word belongs to the worker whose byte range
 holds its first byte; a file boundary ends every item. Compressed input
-is read whole-file, each file placed by its size prefix sum.
+is read whole-file, each file placed by its size prefix sum. Across
+processes each process reads its own workers' byte ranges only, and a
+device source's capacity comes from every worker's count
+(``DeviceShards.from_worker_arrays``).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
 from ...core import text as textmod
+from ...data import multiplexer
 from ...data.shards import DeviceShards, HostShards
 from ...vfs import file_io
 from ..dia import DIA
@@ -55,15 +59,18 @@ class ReadLinesNode(DIABase):
 
     def compute(self) -> HostShards:
         W = self.context.num_workers
+        local = multiplexer.local_worker_set(self.context.mesh_exec)
         fl = _glob_nonempty(self.pattern, "ReadLines")
         lists: List[List[str]] = [[] for _ in range(W)]
         if fl.contains_compressed:
             for fi in fl.files:
-                lists[_whole_file_worker(fi, fl.total_size, W)].extend(
-                    _read_whole(fi.path).decode("utf-8").splitlines())
+                w = _whole_file_worker(fi, fl.total_size, W)
+                if w in local:
+                    lists[w].extend(
+                        _read_whole(fi.path).decode("utf-8").splitlines())
             return HostShards(W, lists)
         bounds = dense_range_bounds(fl.total_size, W).tolist()
-        for w in range(W):
+        for w in sorted(local):
             for data in _read_delimited_range(
                     fl, bounds[w], bounds[w + 1], lambda b: b == b"\n",
                     lambda b: b.find(b"\n"), include_delim=True):
@@ -183,14 +190,16 @@ class ReadWordsPackedNode(DIABase):
         mex = self.context.mesh_exec
         W = mex.num_workers
         fl = _glob_nonempty(self.pattern, "ReadWordsPacked")
+        local = set(mex.local_workers)
         chunks: List[List[bytes]] = [[] for _ in range(W)]
         if fl.contains_compressed:
             for fi in fl.files:
-                chunks[_whole_file_worker(fi, fl.total_size, W)].append(
-                    _read_whole(fi.path))
+                w = _whole_file_worker(fi, fl.total_size, W)
+                if w in local:
+                    chunks[w].append(_read_whole(fi.path))
         else:
             bounds = dense_range_bounds(fl.total_size, W).tolist()
-            for w in range(W):
+            for w in sorted(local):
                 chunks[w] = _read_word_bytes_range(fl, bounds[w],
                                                    bounds[w + 1])
         data, chunk_start, worker_start = _upload_chunks(chunks, mex.device)

@@ -227,10 +227,11 @@ class ReduceNode(DIABase):
                 # fewer than 256 workers cannot wrap
                 local = presence_fill(reg, mask, M)
             else:
-                local = torch.zeros((W, M), dtype=torch.int32,
+                local = torch.zeros((reg.shape[0], M), dtype=torch.int32,
                                     device=reg.device).scatter_reduce_(
                     1, reg, mask.to(torch.int32), "amax")
-            holders = local.sum(dim=0)                   # the psum over W
+            # the psum over W (an all-reduce across processes)
+            holders = mex.worker_sum(local, dtype=torch.int32)
             mine_only = (holders[reg] == 1) & (torch.gather(local, 1, reg)
                                                == 1)
             return torch.where(mine_only, widx, hash_dest)
@@ -308,8 +309,13 @@ class ReduceNode(DIABase):
             dup = preshuffle.auto_dup_detect(
                 mex, sum(len(h) for h in pre_hashes), 32,
                 ("reduce_dup_host", self.token), local_rows=True)
-        non_unique = (duplicate_detection.find_non_unique_hashes(pre_hashes)
-                      if dup and W > 1 else None)
+        non_unique = None
+        if dup and W > 1:
+            # across processes the fingerprints (not the items) are
+            # gathered, so every process finds the same non-unique set
+            # (reference: thrill_tpu/api/ops/reduce.py:597-610)
+            non_unique = duplicate_detection.find_non_unique_hashes(
+                multiplexer.global_lists(mex, pre_hashes))
         # items travel as (worker kept or None, hash, key, value): the
         # pre phase's key stays the key, whatever reduce_fn returns
         pre_lists = []

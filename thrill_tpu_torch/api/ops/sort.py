@@ -47,7 +47,9 @@ from ...core import keys as keymod
 from ...core.device_sort import argsort_words
 from ...core.rowmove import take_rows, take_rows_multi
 from ...data import exchange
+from ...data import multiplexer
 from ...data.shards import DeviceShards, HostShards
+from ...parallel.mesh import current_mex
 from ..dia import DIA
 from ..dia_base import DIABase
 
@@ -141,12 +143,24 @@ class SortNode(DIABase):
 
     def _compute_on(self, shards):
         if isinstance(shards, HostShards):
-            return self._compute_host(shards)
+            return self._compute_host_global(shards)
         if self.compare_fn is not None:
             # a comparator sees items, not columns: the items move to the
             # host, as in the reference
-            return self._compute_host(shards.to_host_shards("sort-compare-fn"))
+            return self._compute_host_global(
+                shards.to_host_shards("sort-compare-fn"))
         return _device_sample_sort(shards, self.key_fn)
+
+    def _compute_host_global(self, shards: HostShards) -> HostShards:
+        """:meth:`_compute_host` of every worker's items: across
+        processes the items are replicated, every process sorts them
+        alike and keeps its own workers' lists (reference:
+        ``thrill_tpu/api/ops/sort.py:153-161``)."""
+        mex = self.context.mesh_exec
+        if multiplexer.multiprocess(mex):
+            rep = multiplexer.ensure_replicated(mex, shards, "sort-host")
+            return multiplexer.localize(mex, self._compute_host(rep))
+        return self._compute_host(shards)
 
     # above this many items the host path sorts external-memory style:
     # sorted runs spilled to Files and k-way merged (Thrill:
@@ -603,10 +617,13 @@ def _device_sample_sort(shards: DeviceShards,
     if shards.total == 0:
         return shards
     counts = shards.counts_device()
-    offsets = np.concatenate([[0], np.cumsum(shards.counts)])[:-1]
+    # across processes: every worker's counts, the local workers' offsets
+    gcounts = shards.global_counts
+    lo, Wl = mex.worker_base, mex.num_local
+    offsets = np.concatenate([[0], np.cumsum(gcounts)])[lo:lo + Wl]
     # every shard full: the validity word is dropped (the common case
     # after Distribute/Generate)
-    full = bool(np.all(shards.counts == cap))
+    full = bool(np.all(gcounts == cap))
     if W == 1:
         # one worker: key argsort and one payload gather, no exchange
         prog = mex.program(("sort_w1", key_fn), _sort_w1)
@@ -635,7 +652,7 @@ def _device_sample_sort(shards: DeviceShards,
                            _sort_classify_prog)
     out2 = classify(splitters, words_s, gidx_s, perm, counts, leaves, nidx)
     dest, send_mat, payload = out2[0], out2[1], list(out2[2])
-    S = mex.fetch(send_mat).astype(np.int64)
+    S = mex.fetch_global(send_mat).astype(np.int64)
     row_bytes = exchange.leaf_item_bytes(payload) + 8 * (nwords + 1)
     # the fused ship-and-merge runs exactly when the generic exchange
     # would take the dense plan; THRILL_TPU_SORT_FUSED=0 forces the
@@ -647,7 +664,7 @@ def _device_sample_sort(shards: DeviceShards,
         out = _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
                                     S, cap_ident, key_fn)
         return DeviceShards(mex, pt.unflatten(treedef, out),
-                            S.sum(axis=0))
+                            S.sum(axis=0)[lo:lo + Wl])
     # the planned exchange of (words, global index, payload) rows, then
     # one merge of each receiver's runs
     carrier = [words_s, gidx_s] + payload
@@ -693,10 +710,11 @@ def _sort_classify_prog(splitters: torch.Tensor, words_s: torch.Tensor,
     (the histogram kernel), the one payload gather and, for leaves
     ``nidx`` of the carrier (words, global index, payload), their
     ranges."""
-    W, cap = gidx_s.shape
+    Wl, cap = gidx_s.shape
+    W = splitters.shape[0] + 1               # every worker, W > 1
     valid = (torch.arange(cap, device=gidx_s.device)[None, :]
              < counts[:, None])              # sorted: the valid rows first
-    d = torch.zeros((W, cap), dtype=torch.int32, device=gidx_s.device)
+    d = torch.zeros((Wl, cap), dtype=torch.int32, device=gidx_s.device)
     for j in range(W - 1):
         d += _lex_greater(words_s, gidx_s, splitters[j]).to(torch.int32)
     dest = torch.where(valid, d, torch.full_like(d, W))
@@ -742,10 +760,11 @@ def host_samples(mex, s_words: torch.Tensor, s_idx: torch.Tensor,
     unsigned ints, ``*tag``, global index), so that Python's tuple order
     is the unsigned order of the words (C1). ``s_words`` ``[W, S, nw]``,
     ``s_idx`` and ``s_valid`` ``[W, S]``."""
-    W, S, nwords = s_words.shape
-    sw = mex.fetch(s_words).view(np.uint64).reshape(W * S, nwords)
-    si = mex.fetch(s_idx).reshape(-1)
-    sv = mex.fetch(s_valid).reshape(-1)
+    _, S, nwords = s_words.shape
+    # every worker's samples, every process's across processes
+    sw = mex.fetch_global(s_words).view(np.uint64).reshape(-1, nwords)
+    si = mex.fetch_global(s_idx).reshape(-1)
+    sv = mex.fetch_global(s_valid).reshape(-1)
     return [tuple(int(x) for x in sw[i]) + tag + (int(si[i]),)
             for i in range(len(sv)) if sv[i]]
 
@@ -799,15 +818,20 @@ def _sort_fused_prog(dest: torch.Tensor, S_dev: torch.Tensor,
     """Program ``sort_fused``: ship every leaf of the classified rows
     into ``[W, W * M_pad]`` receive blocks (one slot index for all) and
     merge each receiver's W runs straight from them."""
-    W, cap = dest.shape
+    Wl, cap = dest.shape
+    W = S_dev.shape[0]
     send_idx = exchange.send_slot_index(dest, S_dev, W, M_pad, cap)
 
     def ship(x):
         return exchange.ship_blocks(x, send_idx, W, M_pad)
 
     j = torch.arange(M_pad, device=dest.device)
-    # receiver w's run from sender s holds S[s, w] rows
-    valid = (j[None, None, :] < S_dev.T[:, :, None]).reshape(W, W * M_pad)
+    # receiver w's run from sender s holds S[s, w] rows (the local
+    # receivers' across processes)
+    mex = current_mex()
+    b = mex.worker_base if mex is not None else 0
+    valid = (j[None, None, :] < S_dev.T[b:b + Wl, :, None]).reshape(
+        Wl, W * M_pad)
     return merge_blocks(passes, [(valid, ship(words_s), ship(gidx_s),
                                   [ship(p) for p in payload])], out_cap)
 

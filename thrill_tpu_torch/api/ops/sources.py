@@ -8,6 +8,11 @@ items whose leaves are all numbers (ints, floats, bools, numpy scalars
 or arrays, in tuples and dicts) go to the device, as columns; other
 items go to the host; an empty sequence takes the default, the device.
 ConcatToDIA defaults to the host, as the reference's does.
+
+Across processes (``RunDistributed``) Generate and Distribute take the
+same input on every process and each process keeps its own workers'
+part; ConcatToDIA keeps the lists of the local workers (the local
+portion) and drops the rest.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import torch
 
 from ...common import tree as pt
 from ...common.partition import dense_range_bounds
+from ...data.multiplexer import local_worker_set, localize
 from ...data.shards import (DeviceShards, HostShards, columnarize,
                             round_up_pow2)
 from ..dia import DIA
@@ -45,14 +51,17 @@ class GenerateNode(DIABase):
         bnd = dense_range_bounds(self.size, W)
         if self.storage == "host":
             fn = self.fn or (lambda i: i)
+            local = local_worker_set(mex)
             return HostShards(W, [[fn(i) for i in range(bnd[w], bnd[w + 1])]
-                                  for w in range(W)])
+                                  if w in local else [] for w in range(W)])
         counts = np.diff(bnd)
         cap = round_up_pow2(int(counts.max()))
+        lo, Wl = mex.worker_base, mex.num_local
         # one program, as the reference's (a loop capture records it)
-        prog = mex.program(("generate", self.fn, W, cap), _generate)
-        return DeviceShards(mex, prog(mex.put_small(bnd[:W]), self.fn, W,
-                                      cap, mex.device), counts)
+        prog = mex.program(("generate", self.fn, Wl, cap), _generate)
+        return DeviceShards(mex, prog(mex.put_small(bnd[lo:lo + Wl]),
+                                      self.fn, Wl, cap, mex.device),
+                            counts[lo:lo + Wl])
 
 
 class DistributeNode(DIABase):
@@ -74,8 +83,9 @@ class DistributeNode(DIABase):
         if self.storage == "host":
             W = mex.num_workers
             bnd = dense_range_bounds(len(self.items), W)
+            local = local_worker_set(mex)
             return HostShards(W, [self.items[bnd[w]:bnd[w + 1]]
-                                  for w in range(W)])
+                                  if w in local else [] for w in range(W)])
         return DeviceShards.from_global_numpy(mex, self.items)
 
 
@@ -95,7 +105,8 @@ class ConcatToDIANode(DIABase):
         self.storage = _check_storage(storage or "host", "ConcatToDIA")
 
     def compute(self):
-        shards = HostShards(self.context.num_workers, self.lists)
+        shards = localize(self.context.mesh_exec,
+                          HostShards(self.context.num_workers, self.lists))
         if self.storage == "device":
             return shards.to_device(self.context.mesh_exec)
         return shards

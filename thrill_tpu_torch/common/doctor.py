@@ -1,5 +1,5 @@
 """Performance doctor: where did the time go? (counterpart of the
-reference package's ``common/doctor.py``, one controller).
+reference package's ``common/doctor.py``).
 
 Three attributions on top of the trace spine (common/trace.py) and the
 decision ledger (common/decisions.py):
@@ -12,8 +12,8 @@ decision ledger (common/decisions.py):
   queued before it, not a peer. The totals decompose in
   ``overall_stats()``:
 
-  - ``wait_net_s``      blocked in host-group collectives: always 0
-    in the port, which has one controller and no host group yet;
+  - ``wait_net_s``      blocked in host-group collectives (the
+    processes of a mesh; 0 in one process, whose group has no peer);
   - ``wait_exchange_s`` blocked at exchange barriers;
   - ``wait_io_s``       the part that overlapped busy background I/O;
   - ``wait_skew_s``     the remainder.

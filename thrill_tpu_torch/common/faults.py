@@ -57,6 +57,10 @@ class InjectedFault(Exception):
         self.kind = kind
 
 
+class InjectedConnectionError(InjectedFault, ConnectionError):
+    """Injected transport fault (a dial, frame send or flush)."""
+
+
 class InjectedIOError(InjectedFault, IOError):
     """Injected storage fault (spill or restore I/O)."""
 

@@ -5,8 +5,9 @@
 /metrics`` (any path, in fact) with its ``overall_stats()`` counters,
 the HBM governor's live bytes and the tracer's span counts per lane, in
 Prometheus text exposition format, so a long job can be scraped while
-it runs. The port has one controller, so every scrape reads the local
-view.
+it runs. A scrape reads this process's view (``overall_stats(
+local_only=True)``): gathering every process's counters would be a
+collective on the scrape thread.
 
 A scrape reads host counters only: plain attribute reads under the
 GIL, with the live dicts copied before they are iterated. It makes no
@@ -46,7 +47,7 @@ def render_prometheus(ctx) -> str:
         lines.append(f"{name}{labels} {value}")
 
     try:
-        stats = ctx.overall_stats()
+        stats = ctx.overall_stats(local_only=True)
     except Exception as e:  # a scrape must answer, never raise
         return f"# thrill_tpu stats unavailable: {e!r}\n"
     for k in sorted(stats):

@@ -4,10 +4,13 @@ Each ``csrc/<name>.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into
 its own shared library with a plain C interface (no PyTorch headers, so
 a build takes seconds). The library name embeds the SHA-256 of the
 source, so an edited source is never served by a stale binary. Builds
-land through a temporary file and a rename, so concurrent builders race
-safely. Nothing is built when a module is imported: the first launch of
-a kernel builds it, and :func:`build_all` builds every source at once,
-one ``nvcc`` process per source, all started together.
+land through a temporary file and a rename, under an exclusive file lock
+beside the library (``<library>.lock``, ``fcntl.flock``): processes that
+build at once, as the ranks of a multi-process mesh on one machine do,
+make each library once, and the others wait for it and load it. Nothing
+is built when a module is imported: the first launch of a kernel builds
+it, and :func:`build_all` builds every source at once, one ``nvcc``
+process per source, all started together.
 
 Host C++ (``native/<name>.cpp``, the spill store) takes the other
 route, :func:`load_host`: ``g++ -O3 -shared -fPIC -std=c++17 -pthread``
@@ -21,7 +24,9 @@ The build directory (``thrill_tpu_torch/_build/``) is listed in
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -43,6 +48,22 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # compiler messages of the builds made by this process (ptxas register
 # and shared-memory reports), keyed by source name
 build_logs: Dict[str, str] = {}
+# the host libraries this process compiled itself (not found built)
+host_builds: List[str] = []
+
+
+@contextlib.contextmanager
+def _file_locks(outs: Sequence[str]):
+    """Hold the exclusive build lock of every library in ``outs``, taken
+    in sorted order so two processes building overlapping sets cannot
+    deadlock."""
+    with contextlib.ExitStack() as stack:
+        for out in sorted(set(outs)):
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            f = stack.enter_context(open(out + ".lock", "a"))
+            fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+            stack.callback(fcntl.flock, f.fileno(), fcntl.LOCK_UN)
+        yield
 
 
 def sources() -> List[str]:
@@ -66,7 +87,6 @@ def _artifact(name: str) -> str:
 
 
 def _start(name: str, out: str) -> subprocess.Popen:
-    os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp.{os.getpid()}"
     cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
            "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
@@ -90,8 +110,12 @@ def build_all(names: Sequence[str] = ()) -> Dict[str, str]:
     Returns {name: library path}."""
     names = list(names) or sources()
     outs = {n: _artifact(n) for n in names}
-    with _lock:
-        procs = {n: _start(n, outs[n]) for n in names
+    missing = [n for n in names if not os.path.exists(outs[n])]
+    if not missing:
+        return outs
+    with _lock, _file_locks([outs[n] for n in missing]):
+        # another process may have built them while this one waited
+        procs = {n: _start(n, outs[n]) for n in missing
                  if not os.path.exists(outs[n])}
         for n, p in procs.items():
             _finish(n, outs[n], p)
@@ -128,15 +152,17 @@ def load_host(name: str) -> Optional[ctypes.CDLL]:
         lib = None
         try:
             if not os.path.exists(out):
-                os.makedirs(BUILD_DIR, exist_ok=True)
-                tmp = f"{out}.tmp.{os.getpid()}"
-                proc = subprocess.run(
-                    [shutil.which("g++") or "g++", *HOST_FLAGS, src,
-                     "-o", tmp], capture_output=True, text=True,
-                    timeout=300)
-                if proc.returncode != 0:
-                    raise RuntimeError(proc.stderr or proc.stdout)
-                os.replace(tmp, out)
+                with _file_locks([out]):
+                    if not os.path.exists(out):
+                        tmp = f"{out}.tmp.{os.getpid()}"
+                        proc = subprocess.run(
+                            [shutil.which("g++") or "g++", *HOST_FLAGS,
+                             src, "-o", tmp], capture_output=True,
+                            text=True, timeout=300)
+                        if proc.returncode != 0:
+                            raise RuntimeError(proc.stderr or proc.stdout)
+                        os.replace(tmp, out)
+                        host_builds.append(name)
             lib = ctypes.CDLL(out)
         except (OSError, RuntimeError, subprocess.SubprocessError) as e:
             print(f"thrill_tpu_torch: building native/{name}.cpp failed; "

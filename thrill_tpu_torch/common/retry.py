@@ -48,8 +48,12 @@ class RetryPolicy:
 
     def classify(self, exc: BaseException) -> str:
         """'transient' or 'permanent'; permanent wins. Deterministic
-        OSErrors (a missing file, permissions) are permanent."""
-        if isinstance(exc, (FileNotFoundError, PermissionError,
+        OSErrors (a missing file, permissions), a failed authentication
+        and a cluster abort (a coordinated shutdown) are permanent."""
+        from ..net import wire
+        from ..net.group import ClusterAbort
+        if isinstance(exc, (wire.AuthError, ClusterAbort,
+                            FileNotFoundError, PermissionError,
                             IsADirectoryError, NotADirectoryError)
                       + tuple(self.permanent)):
             return faults.PERMANENT

@@ -22,7 +22,7 @@ rank), so the same program maps each Sort to the same directory.
 ``THRILL_TPU_EM_RESUME=0`` turns the store off. No entry point raises:
 a store failure leaves the sort without resume.
 
-Not ported (ROADMAP item 6): orphan adoption (``adopt_orphan_runs``,
+Not ported (ROADMAP item 6, its checkpoint part): orphan adoption (``adopt_orphan_runs``,
 ``OWNER.json``/``ADOPTED.json``) and remote stores.
 """
 

@@ -24,8 +24,9 @@ Verdicts stick per (mesh, site) and are re-evaluated every
 an audited prune fraction far from its prediction re-evaluates at the
 next use. ``THRILL_TPU_LOCATION_DETECT=0/1`` and
 ``THRILL_TPU_DUP_DETECT=0/1`` force either way (unset or ``auto``: the
-cost model). The reference's multi-controller agreement of the inputs
-belongs to ROADMAP item 6.
+cost model). Across processes the host paths' row counts are summed over
+the processes first and every verdict is process 0's
+(``MeshExec.agree``), so all processes run the same collectives.
 """
 
 from __future__ import annotations
@@ -168,8 +169,10 @@ def _sticky_decision(mex, kind: str, token, compute) -> bool:
     else:
         verdict, uses = entry
         pl = _planner_of(mex)
-        why = pl.take_replan(_prune_site(token)) if pl is not None \
-            else None
+        # a replan mark is a process's own: across processes a verdict
+        # is only re-evaluated on the use count, the same everywhere
+        why = pl.take_replan(_prune_site(token)) \
+            if pl is not None and not mex.multiprocess else None
         if why is not None:
             # the observed fraction contradicted the prediction:
             # re-evaluate now from it (a correction, no decay)
@@ -266,6 +269,9 @@ def _auto_verdict(mex, which: str, kind: str, token, rows_global: int,
                                     frac)
                    if pl is not None
                    else _pays(rows_global, item_bytes, W, sides, M, frac))
+        # one verdict on every process: a learned fraction is a
+        # process's own, and the verdict decides the collectives run
+        verdict = mex.agree(verdict)
         return _record_verdict(mex, which, token, verdict, rows_global,
                                item_bytes, sides, frac, "cost model")
     return _sticky_decision(mex, kind, token, compute)
@@ -275,8 +281,9 @@ def auto_location_detect(mex, rows_global: int, item_bytes: int,
                          token, local_rows: bool = False) -> bool:
     """The verdict of the join's location filter (two register sides).
     ``local_rows`` marks a count of this process's rows (the host
-    paths), which several controllers would sum first; the port runs
-    one controller, whose count is the global one."""
+    paths), which the processes of a mesh sum first."""
+    if local_rows and mex.multiprocess:
+        rows_global = sum(mex.allgather_object(int(rows_global)))
     forced = location_mode()
     if forced is not None:
         return _record_verdict(
@@ -290,6 +297,8 @@ def auto_dup_detect(mex, rows_global: int, item_bytes: int, token,
                     local_rows: bool = False) -> bool:
     """The verdict of ReduceByKey's duplicate detection (one register
     side); ``local_rows`` as for :func:`auto_location_detect`."""
+    if local_rows and mex.multiprocess:
+        rows_global = sum(mex.allgather_object(int(rows_global)))
     forced = dup_mode()
     if forced is not None:
         return _record_verdict(

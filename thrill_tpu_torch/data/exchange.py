@@ -63,6 +63,20 @@ Any other mode string takes the synced dense plan, as the reference's
 (``stream`` as a mode is such a string: the streamed delivery is the
 consumer's choice, not the exchange's).
 
+Across processes (parallel/mesh.py) a process holds its local workers'
+rows. Phase A's send rows are the local ones; the plan reads the global
+``[W, W]`` send matrix (:meth:`MeshExec.fetch_global`: the local rows,
+gathered), so every process builds the same plan; phase B's transpose
+is :meth:`MeshExec.worker_transpose`, one ``all_to_all_single`` of the
+padded blocks bound for each process, and receivers keep source-worker
+order, so results are bit-equal to the one-process run of W workers.
+Every choice a process could make from its own state is fixed instead:
+the plan is synced every time (no optimistic dispatch, whose deferred
+check would need a collective of its own), rows ship at full width, the
+exchange is dense, and the chunk count is the volume rule's. The
+1-factor, ragged and streamed modes across processes raise
+NotImplementedError (ROADMAP.md item 6, its exchange-modes part).
+
 Observability (common/trace.py, common/doctor.py): ``exchange`` spans
 ``phase_a``, ``phase_b`` (``chunks``, ``narrowed``), ``optimistic``
 (``m_pad``, ``out_cap``) and ``synced`` (``mode``); the deferred
@@ -93,7 +107,7 @@ from ..common.trace import instant_of, span_of
 from ..core.device_sort import argsort_words
 from ..core.pallas_kernels import partition_histogram
 from ..core.rowmove import scatter_slots, take_rows_multi
-from ..parallel.mesh import MeshExec
+from ..parallel.mesh import MeshExec, current_mex
 from .shards import DeviceShards
 
 # a chunk of phase B, before its program launches (nothing dispatched
@@ -451,7 +465,7 @@ def _narrow_worth(mex: MeshExec, cap: int, leaves) -> bool:
     """Range analysis pays on volume, at W > 1, with narrowing on and
     no loop capture recording (ranges are values of loop data)."""
     W = mex.num_workers
-    return (W > 1 and xchg_narrow_enabled()
+    return (W > 1 and xchg_narrow_enabled() and not mex.multiprocess
             and mex.loop_recorder is None
             and W * cap * leaf_item_bytes(leaves) >= _NARROW_MIN_BYTES)
 
@@ -483,7 +497,13 @@ def resolve_mode(mex: MeshExec) -> str:
     ``ragged`` force theirs; any other string, ``stream`` among them,
     takes the synced dense plan, as in the reference."""
     env = getattr(mex, "_env_exchange", None)
-    return env or getattr(mex, "exchange_mode", "dense") or "dense"
+    mode = env or getattr(mex, "exchange_mode", "dense") or "dense"
+    if getattr(mex, "multiprocess", False) and mode in ("onefactor",
+                                                      "ragged"):
+        raise NotImplementedError(
+            f"the {mode} exchange across processes is not ported yet: "
+            f"ROADMAP.md queue A item 6, its exchange-modes part")
+    return mode
 
 
 def leaf_item_bytes(leaves: Sequence[torch.Tensor]) -> int:
@@ -577,8 +597,9 @@ def _strategy_costs(mex: MeshExec, S: np.ndarray,
 
 def _skewed(S: np.ndarray, row_bytes: int, mex: MeshExec) -> bool:
     """Does the cost model prefer the 1-factor rounds for ``S``? Never
-    on the card."""
-    if _one_card(mex):
+    on the card, and never across processes (a calibrated cost is a
+    process's own)."""
+    if _one_card(mex) or getattr(mex, "multiprocess", False):
         return False
     dense_b, of_b, n_rounds = _strategy_costs(mex, S, row_bytes)
     return dense_b - of_b > n_rounds * _bytes_eq(mex)
@@ -599,7 +620,11 @@ def account_traffic(mex: MeshExec, S: np.ndarray, item_bytes: int,
     counts at its deferred check, or its healed re-run does. The
     performance doctor's skew record rides here, where ``S`` is already
     on the host: each worker's receive rows, the diagonal included."""
-    moved = int(S.sum()) - int(np.trace(S))
+    # the items this process's workers send to another worker (every
+    # worker's in one process): the processes' counts sum to the global
+    lo, Wl = mex.worker_base, mex.num_local
+    rows = S[lo:lo + Wl]
+    moved = int(rows.sum()) - int(np.trace(S[lo:lo + Wl, lo:lo + Wl]))
     mex.stats_exchanges += 1
     mex.stats_items_moved += moved
     mex.stats_bytes_moved += moved * item_bytes
@@ -638,7 +663,7 @@ def _phase_a_prog(mex: MeshExec, leaves: List[torch.Tensor],
     dev = leaves[0].device
     cap = leaves[0].shape[1]
     mask = torch.arange(cap, device=dev)[None, :] < counts[:, None]
-    widx = torch.arange(W, device=dev)[:, None]
+    widx = mex.local_ids()
     dest = torch.as_tensor(dest_builder(pt.unflatten(treedef, leaves), mask,
                                         widx), device=dev).to(torch.int64)
     dest = torch.where(mask, dest.clamp(0, W - 1), torch.full_like(dest, W))
@@ -697,12 +722,16 @@ def _chunk_prog(sdest: torch.Tensor, smat: torch.Tensor,
     accumulators and also returns the receive counts and the overflow
     flag (capacities, and learned ranges the values outgrew), both
     functions of ``smat``; the last widens and trims them."""
-    W, cap = sdest.shape
+    # across processes: the local workers' rows [b, b + Wl) of the W
+    mex = current_mex()
+    Wl, cap = sdest.shape
+    W = smat.shape[0]
+    b = mex.worker_base if mex is not None else 0
     dev = sdest.device
     M_j = hi - lo
     S = smat.to(torch.int64)
-    off = _ex_cumsum(S, 1)                                 # [src, dst]
-    roff = _ex_cumsum(S.T, 1)                              # [dst, src]
+    off = _ex_cumsum(S, 1)[b:b + Wl]                       # [src, dst]
+    roff = _ex_cumsum(S.T, 1)[b:b + Wl]                    # [dst, src]
     d = sdest
     dc = d.clamp(0, W - 1)
     slot = torch.arange(cap, device=dev)[None, :] - torch.gather(off, 1, dc)
@@ -710,13 +739,13 @@ def _chunk_prog(sdest: torch.Tensor, smat: torch.Tensor,
     send_idx = scatter_slots(dc * M_j + (slot - lo), sel, W * M_j)
     # receiver r's rows from sender s: j < S[s, r] - lo of this chunk
     j = torch.arange(M_j, device=dev)
-    n_from = (S.T - lo).clamp(0, M_j)                      # [dst, src]
+    n_from = (S.T[b:b + Wl] - lo).clamp(0, M_j)            # [dst, src]
     pos = roff[:, :, None] + lo + j[None, None, :]         # [dst, src, M_j]
     keep = (j[None, None, :] < n_from[:, :, None]) & (pos < out_cap)
     dump = out_cap + torch.arange(W, device=dev)[:, None] * M_c + j[None, :]
     pos = torch.where(keep, pos, dump[None, :, :])
     region = out_cap + W * M_c
-    flat_pos = (pos + torch.arange(W, device=dev)[:, None, None] * region
+    flat_pos = (pos + torch.arange(Wl, device=dev)[:, None, None] * region
                 ).reshape(-1)
     range_bad = torch.zeros((), dtype=torch.bool, device=dev)
     outs = []
@@ -727,18 +756,19 @@ def _chunk_prog(sdest: torch.Tensor, smat: torch.Tensor,
         if nd is not None:
             if first:
                 info = np.iinfo(np.dtype(nd))
-                vm = (d < W).reshape((W, cap) + (1,) * len(trail))
+                vm = (d < W).reshape((Wl, cap) + (1,) * len(trail))
                 range_bad = range_bad | (vm & ((x < info.min)
                                                | (x > info.max))).any()
             x = _to_narrow(x, nd)
         per = W * M_j + cap
-        buf = torch.zeros((W * per,) + trail, dtype=x.dtype, device=dev)
+        buf = torch.zeros((Wl * per,) + trail, dtype=x.dtype, device=dev)
         buf.index_put_((send_idx,), x.reshape((-1,) + trail))
-        blocks = buf.reshape((W, per) + trail)[:, :W * M_j].reshape(
-            (W, W, M_j) + trail)                      # [src, dst, M_j]
-        recv = blocks.transpose(0, 1).reshape((-1,) + trail)
+        blocks = buf.reshape((Wl, per) + trail)[:, :W * M_j].reshape(
+            (Wl, W, M_j) + trail)                     # [src, dst, M_j]
+        recv = (mex.worker_transpose(blocks) if mex is not None
+                else blocks.transpose(0, 1)).reshape((-1,) + trail)
         if first:
-            acc = torch.zeros((W * region,) + trail, dtype=x.dtype,
+            acc = torch.zeros((Wl * region,) + trail, dtype=x.dtype,
                               device=dev)
         else:
             acc = accs[li]
@@ -747,7 +777,7 @@ def _chunk_prog(sdest: torch.Tensor, smat: torch.Tensor,
         else:
             acc = acc.index_put((flat_pos,), recv)
         if last:
-            y = acc.reshape((W, region) + trail)[:, :out_cap]
+            y = acc.reshape((Wl, region) + trail)[:, :out_cap]
             if nd is not None:
                 y = _from_narrow(y, nd, l.dtype)
             outs.append(y.contiguous())
@@ -757,7 +787,7 @@ def _chunk_prog(sdest: torch.Tensor, smat: torch.Tensor,
         return outs
     counts = S.sum(dim=0)
     ovf = (S.max() > M_pad) | (counts.max() > out_cap) | range_bad
-    return counts, ovf.reshape(1), outs
+    return counts[b:b + Wl], ovf.reshape(1), outs
 
 
 _CHUNK_DEFAULT = 4
@@ -796,6 +826,10 @@ def chunk_policy(W: int, M_pad: int, item_bytes: int,
 
 def _chunk_count(mex: MeshExec, W: int, M_pad: int,
                  item_bytes: int) -> int:
+    if mex.multiprocess:
+        # the volume rule alone: every process must make as many chunk
+        # dispatches, each one all-to-all, whatever its own HBM budget
+        return chunk_policy(W, M_pad, item_bytes, mex.device.type, None)
     pl = _planner_of(mex)
     if pl is not None:
         return pl.chunk_count(W, M_pad, item_bytes)
@@ -1069,6 +1103,10 @@ def exchange_stream(shards: DeviceShards, dest_builder: Callable,
     guarantee. The plan syncs the host send matrix (per-round capacities
     need it), and rounds ship full width: no range analysis."""
     mex = shards.mesh_exec
+    if mex.multiprocess:
+        raise NotImplementedError(
+            "the streamed exchange across processes is not ported yet: "
+            "ROADMAP.md queue A item 6, its exchange-modes part")
     W = mex.num_workers
     treedef, sorted_dest, sorted_leaves, send_mat, _ = _phase_a(
         shards, dest_builder, cache_key, want_ranges=False)
@@ -1128,7 +1166,9 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     W = mex.num_workers
     cap = sorted_dest.shape[1]
     R = S.sum(axis=0)
-    new_counts = R.astype(np.int64)
+    # the local receivers' counts (every worker's in one process)
+    new_counts = R.astype(np.int64)[mex.worker_base:
+                                    mex.worker_base + mex.num_local]
     item_bytes = leaf_item_bytes(sorted_leaves)
     account_traffic(mex, S, item_bytes, site=_site(ident))
     if W == 1:
@@ -1142,7 +1182,8 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     pl = _planner_of(mex)
     if pl is not None:
         chosen_mode, _, _, _ = pl.exchange_strategy(S, item_bytes, mode)
-        skew = mode == "dense" and chosen_mode == "onefactor"
+        skew = (mode == "dense" and chosen_mode == "onefactor"
+                and not mex.multiprocess)
     else:
         skew = mode == "dense" and _skewed(S, item_bytes, mex)
     led = _decisions.ledger_of(mex)
@@ -1156,7 +1197,9 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
             why = "skewed send matrix" if skew else "configured mode"
         else:
             chosen, pred, rej = "dense", dense_b, [("onefactor", of_b)]
-            why = ("one card: the workers share one device"
+            why = ("processes: one plan on every process"
+                   if mex.multiprocess
+                   else "one card: the workers share one device"
                    if _one_card(mex) else "balanced send matrix")
         rec = led.record("xchg_strategy", _site(ident), chosen,
                          predicted=pred, rejected=rej, reason=why,
@@ -1188,8 +1231,9 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
             mex, cap_ident, (max(int(S.max()), 1),
                              max(int(R.max()), min_cap, 1)))
         plans[cap_ident] = "dense"
-        smat = smat_dev if smat_dev is not None else mex.put_small(
-            S.astype(np.int32))
+        # across processes phase A's device matrix holds the local rows
+        smat = (smat_dev if smat_dev is not None and not mex.multiprocess
+                else mex.put_small(S.astype(np.int32)))
         out, _, _ = _dispatch_chunked(mex, treedef, sorted_dest,
                                       sorted_leaves, smat, M_pad, out_cap,
                                       narrow=narrow, ident=ident)
@@ -1375,7 +1419,7 @@ def _plan_sync(mex: MeshExec, send_mat: torch.Tensor) -> np.ndarray:
     queue to reach the read."""
     doc = mex.doctor
     t0 = time.perf_counter() if doc is not None else 0.0
-    S = mex.fetch(send_mat).astype(np.int64)
+    S = mex.fetch_global(send_mat).astype(np.int64)
     if doc is not None:
         doc.record_wait("xchg.plan_sync", None, time.perf_counter() - t0,
                         lane="exchange")
@@ -1400,7 +1444,7 @@ def exchange(shards: DeviceShards, dest_builder: Callable,
     td, sorted_dest, sorted_leaves, send_mat, range_mat = _phase_a(
         shards, dest_builder, cache_key,
         want_ranges=mex.loop_recorder is None)
-    if mex.num_workers > 1:
+    if mex.num_workers > 1 and not mex.multiprocess:
         cap = sorted_dest.shape[1]
         cap_ident = _dense_cap_ident(cache_key, cap, td, sorted_leaves)
         caps = _optimistic_ok(mex, cap_ident, min_cap, ident=cache_key,
@@ -1445,7 +1489,10 @@ def send_slot_index(dest: torch.Tensor, S: torch.Tensor, W: int,
     item goes to its dump row. ``dest`` must be grouped by destination
     per worker."""
     S = S.to(torch.int64)
-    off = torch.cumsum(S, dim=1) - S                  # [W, W] exclusive
+    mex = current_mex()
+    b = mex.worker_base if mex is not None else 0
+    # the local senders' rows of the [W, W] exclusive offsets
+    off = (torch.cumsum(S, dim=1) - S)[b:b + dest.shape[0]]
     dc = dest.to(torch.int64).clamp(0, W - 1)
     slot = torch.arange(cap, device=dest.device)[None, :] - torch.gather(
         off, 1, dc)
@@ -1460,12 +1507,16 @@ def ship_blocks(x: torch.Tensor, send_idx: torch.Tensor, W: int,
     its senders in rank order. ``send_idx`` comes from
     :func:`send_slot_index`; no two rows share a slot."""
     trail = tuple(x.shape[2:])
+    Wl = x.shape[0]
     per = W * M_pad + x.shape[1]
-    buf = torch.zeros((W * per,) + trail, dtype=x.dtype, device=x.device)
+    buf = torch.zeros((Wl * per,) + trail, dtype=x.dtype, device=x.device)
     buf.index_put_((send_idx,), x.reshape((-1,) + trail))
-    blocks = buf.reshape((W, per) + trail)[:, :W * M_pad].reshape(
-        (W, W, M_pad) + trail)                        # [src, dst, M_pad]
-    return blocks.transpose(0, 1).reshape((W, W * M_pad) + trail)
+    blocks = buf.reshape((Wl, per) + trail)[:, :W * M_pad].reshape(
+        (Wl, W, M_pad) + trail)                       # [src, dst, M_pad]
+    mex = current_mex()
+    out = (mex.worker_transpose(blocks) if mex is not None
+           else blocks.transpose(0, 1))
+    return out.reshape((Wl, W * M_pad) + trail)
 
 
 def plan_presorted(mex: MeshExec, S: np.ndarray, item_bytes: int,

@@ -1,13 +1,19 @@
 """Distributed item storage (counterpart of the reference package's
-``data/shards.py``, single controller).
+``data/shards.py``).
 
 DeviceShards: columnar ``[W, cap, ...]`` leaves plus per-worker valid
-counts. Rows ``[0, counts[w])`` of worker ``w`` are its items; rows past
+counts. In a mesh of several processes (parallel/mesh.py) a process
+holds its local workers' rows only, ``[W_local, cap, ...]`` leaves and
+``W_local`` counts; ``global_counts`` and ``total`` are every worker's,
+agreed over the processes, and every process's shards of one DIA share
+one ``cap``. Rows ``[0, counts[w])`` of worker ``w`` are its items; rows past
 the count are padding whose contents are unspecified unless the maker
 says otherwise (``from_worker_arrays`` and ``zero_beyond_count`` give
 zeros, as the reference's buffers hold; the exchange leaves copies).
 
-HostShards: per-worker Python item lists, for items of any type.
+HostShards: per-worker Python item lists, for items of any type. Across
+processes a process fills only its local workers' lists, the others stay
+empty (the reference's host-storage invariant, data/multiplexer.py).
 """
 
 from __future__ import annotations
@@ -98,6 +104,17 @@ class DeviceShards:
             self._counts_host = np.asarray(counts, dtype=np.int64)
             self._counts_dev = None
         self._counts_check: Optional[Callable] = None
+        self._counts_global: Optional[np.ndarray] = None
+
+    @property
+    def global_counts(self) -> np.ndarray:
+        """Every worker's count, ``[W]``: :attr:`counts` in one process,
+        gathered from every process in several."""
+        if not self.mesh_exec.multiprocess:
+            return self.counts
+        if self._counts_global is None:
+            self._counts_global = self.mesh_exec.gather_host(self.counts)
+        return self._counts_global
 
     @property
     def counts(self) -> np.ndarray:
@@ -146,7 +163,8 @@ class DeviceShards:
 
     @property
     def total(self) -> int:
-        return int(self.counts.sum())
+        """Every worker's items (every process's, across processes)."""
+        return int(self.global_counts.sum())
 
     def counts_device(self) -> torch.Tensor:
         """Counts as a ``[W]`` int64 tensor on the device, uploaded once
@@ -174,23 +192,29 @@ class DeviceShards:
         item axis 0): worker ``w``'s first ``counts[w]`` rows are copied
         straight into its ``[cap]`` slice (host arrays through pinned
         memory, one copy a worker and leaf), and rows past each count
-        are zeros. ``counts`` defaults to each worker's length."""
+        are zeros. ``counts`` defaults to each worker's length. Across
+        processes a process reads its local workers' pytrees (the
+        others may be empty) and the capacity comes from every
+        worker's count."""
         W = mesh_exec.num_workers
         if len(per_worker) != W:
             raise ValueError(f"from_worker_arrays: {len(per_worker)} "
                              f"pytrees for W={W}")
-        flat = [pt.flatten(t) for t in per_worker]
+        lo, Wl = mesh_exec.worker_base, mesh_exec.num_local
+        flat = [pt.flatten(t) for t in per_worker[lo:lo + Wl]]
         td = flat[0][1]
         if counts is None:
             counts = [int(leaves[0].shape[0]) if leaves else 0
                       for leaves, _ in flat]
+        else:
+            counts = np.asarray(counts, dtype=np.int64)[lo:lo + Wl]
         counts = np.asarray(counts, dtype=np.int64)
-        cap = round_up_pow2(int(counts.max()))
+        cap = round_up_pow2(int(mesh_exec.gather_host(counts).max()))
         dev = mesh_exec.device
         out = []
         for li in range(len(flat[0][0])):
             srcs = [_host_source(leaves[li], dev) for leaves, _ in flat]
-            buf = torch.zeros((W, cap) + tuple(srcs[0].shape[1:]),
+            buf = torch.zeros((Wl, cap) + tuple(srcs[0].shape[1:]),
                               dtype=srcs[0].dtype, device=dev)
             for w, src in enumerate(srcs):
                 c = int(counts[w])
@@ -204,8 +228,11 @@ class DeviceShards:
                           counts=None) -> "DeviceShards":
         """Range-split one global pytree (item axis 0; numpy arrays or
         tensors) across the workers, order preserved: evenly, or worker
-        ``w`` taking the next ``counts[w]`` items."""
+        ``w`` taking the next ``counts[w]`` items. Across processes
+        every process is given the same pytree and keeps its local
+        workers' ranges."""
         W = mesh_exec.num_workers
+        lo, Wl = mesh_exec.worker_base, mesh_exec.num_local
         dev = mesh_exec.device
         leaves, td = pt.flatten(tree)
         n = int(leaves[0].shape[0]) if leaves else 0
@@ -214,43 +241,60 @@ class DeviceShards:
         counts = np.diff(bnd)
         cap = round_up_pow2(int(counts.max()))
         # rows past a worker's count repeat row n-1 (masked by counts)
-        idx = np.minimum(np.arange(cap)[None, :] + bnd[:W, None],
+        idx = np.minimum(np.arange(cap)[None, :] + bnd[lo:lo + Wl, None],
                          max(n - 1, 0)).reshape(-1)
         idx_t = torch.as_tensor(idx, device=dev)
 
         def place(leaf):
-            t = torch.as_tensor(leaf).to(dev)
+            t = torch.as_tensor(leaf)
             if n == 0:
-                return torch.zeros((W, cap) + tuple(t.shape[1:]),
+                return torch.zeros((Wl, cap) + tuple(t.shape[1:]),
                                    dtype=t.dtype, device=dev)
-            return t.index_select(0, idx_t).reshape(
-                (W, cap) + tuple(t.shape[1:]))
+            if Wl < W and t.device != dev:
+                # only the local ranges cross to the device
+                t = t[int(bnd[lo]):int(bnd[lo + Wl])]
+                sel = idx_t - int(bnd[lo])
+                sel = sel.clamp(0, max(t.shape[0] - 1, 0))
+                return t.to(dev).index_select(0, sel).reshape(
+                    (Wl, cap) + tuple(t.shape[1:]))
+            return t.to(dev).index_select(0, idx_t).reshape(
+                (Wl, cap) + tuple(t.shape[1:]))
 
         # host uploads: legitimate constants of a loop capture
         return DeviceShards(mesh_exec, pt.unflatten(
-            td, [mesh_exec.bless(place(l)) for l in leaves]), counts)
+            td, [mesh_exec.bless(place(l)) for l in leaves]),
+            counts[lo:lo + Wl])
 
     def to_worker_arrays(self) -> List[Any]:
-        """W pytrees of numpy arrays, trimmed to the counts."""
+        """The local workers' pytrees of numpy arrays (every worker's in
+        one process), trimmed to the counts."""
         # a pending check may heal the tree: run it before reading it
         self.validate_pending()
         host = pt.tree_map(self.mesh_exec.fetch, self.tree)
         return [pt.tree_map(lambda a, w=w: a[w, :int(self.counts[w])], host)
-                for w in range(self.num_workers)]
+                for w in range(len(self.counts))]
 
     def to_global_numpy(self) -> Any:
-        """All workers' items concatenated in worker-rank order."""
+        """All workers' items concatenated in worker-rank order (every
+        process's, across processes)."""
         per_worker = self.to_worker_arrays()
-        return pt.tree_map(lambda *ls: np.concatenate(ls, axis=0),
-                           *per_worker)
+        local = pt.tree_map(lambda *ls: np.concatenate(ls, axis=0),
+                            *per_worker)
+        parts = self.mesh_exec.allgather_object(local)
+        if len(parts) == 1:
+            return local
+        return pt.tree_map(lambda *ls: np.concatenate(ls, axis=0), *parts)
 
     def to_host_shards(self, reason: str = "unspecified") -> "HostShards":
         """Itemize into per-worker Python lists: the pipeline leaves
         columnar device storage and goes on at Python speed. Every such
         demotion logs ``event=device_to_host`` with ``reason`` (the op
         that forced it) and the items, counted off the lists made."""
-        lists = [itemize(t) for t in self.to_worker_arrays()]
-        log = getattr(self.mesh_exec, "logger", None)
+        mex = self.mesh_exec
+        lists = [[] for _ in range(mex.worker_base)] + [
+            itemize(t) for t in self.to_worker_arrays()]
+        lists += [[] for _ in range(self.num_workers - len(lists))]
+        log = getattr(mex, "logger", None)
         if log is not None and log.enabled:
             log.line(event="device_to_host", reason=reason,
                      items=sum(len(l) for l in lists))
@@ -298,7 +342,10 @@ class HostShards:
     def to_device(self, mesh_exec: MeshExec) -> DeviceShards:
         """Columnarize each worker's items (fixed-shape pytrees of
         numbers) into device shards; an empty worker takes the schema of
-        a non-empty one."""
+        a non-empty one (of any process's, across processes)."""
+        if mesh_exec.multiprocess:
+            from .multiplexer import host_to_device
+            return host_to_device(mesh_exec, self)
         per_worker = [columnarize(items) if items else None
                       for items in self.lists]
         template = next((t for t in per_worker if t is not None), None)

@@ -1,10 +1,29 @@
-"""The worker mesh: W virtual workers in one process on one device.
+"""The worker mesh: W virtual workers on one device per process.
 
 Counterpart of the reference package's ``parallel/mesh.py``. Every
 worker's shard is one slice of the leading tensor dimension of a
 ``[W, cap, ...]`` leaf, so a per-worker program is one batched torch op
 and an all-to-all between workers is a transpose of the worker
-dimension. Multiple cards and ``torch.distributed`` come later.
+dimension.
+
+A mesh of several processes (reference: ``parallel/mesh.py:403-460``)
+splits the W workers into ``num_processes`` equal blocks: process ``p``
+owns workers ``[p * W_local, (p + 1) * W_local)`` and holds only their
+rows, ``[W_local, cap, ...]`` leaves on its device, with their counts.
+Every plan decision reads global numbers, the same on every process:
+:meth:`MeshExec.fetch_global` gathers the rows of a fetched per-worker
+tensor from every process (the reference's
+``multihost_utils.process_allgather``), :meth:`MeshExec.agree` hands
+rank 0's value of a learned verdict to all. Inside programs the
+cross-process data plane is ``torch.distributed`` over the default
+process group (``common/platform.py`` names its backend):
+:meth:`MeshExec.worker_transpose` is the all-to-all of the exchange
+(``all_to_all_single`` of the padded blocks), :meth:`MeshExec.worker_sum`
+the psum over workers (``all_reduce``) and :meth:`MeshExec.gather_workers`
+the gather of per-worker rows (``all_gather``). In one process each is
+the local transpose, sum or the rows themselves. ``stats_collectives``
+counts the collectives and ``stats_bytes_cross`` the bytes this process
+sent to others through them.
 
 The dispatch choke point (reference: ``_CountedJit``,
 ``thrill_tpu/parallel/mesh.py:77-260``): a device program is a plain
@@ -140,11 +159,34 @@ class MeshExec:
     """W workers on one device, plus the mesh's traffic counters."""
 
     def __init__(self, num_workers: int = 1,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, process_index: int = 0,
+                 num_processes: int = 1) -> None:
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
+        if num_processes < 1 or num_workers % num_processes:
+            raise ValueError(f"{num_workers} workers do not split evenly "
+                             f"over {num_processes} processes")
         self.num_workers = int(num_workers)
         self.device = resolve_device(device)
+        # controller topology: process p owns the contiguous block of
+        # workers [p * num_local, (p + 1) * num_local)
+        self.num_processes = int(num_processes)
+        self.process_index = int(process_index)
+        self.num_local = self.num_workers // self.num_processes
+        self.worker_base = self.process_index * self.num_local
+        self.worker_process = np.repeat(np.arange(self.num_processes),
+                                        self.num_local)
+        # the host control plane between the processes (a
+        # FlowControlChannel over the TCP group), wired by the Context
+        self.host_net = None
+        # the device data plane across processes: its backend, the
+        # collectives run and the bytes sent to other processes
+        self.backend = None
+        if self.num_processes > 1:
+            from ..common.platform import backend_for
+            self.backend = backend_for(self.device)
+        self.stats_collectives = 0
+        self.stats_bytes_cross = 0
         # exchange traffic (reference: net::Manager tx/rx counters)
         self.stats_exchanges = 0
         self.stats_items_moved = 0
@@ -433,5 +475,118 @@ class MeshExec:
             self._pending_checks.extend(checks)
             raise
 
+    # -- controller topology (reference: parallel/mesh.py:446-460) ------
+    @property
+    def multiprocess(self) -> bool:
+        return self.num_processes > 1
+
+    @property
+    def local_workers(self) -> List[int]:
+        """The worker ids whose rows this process holds (all of them in
+        one process)."""
+        return list(range(self.worker_base,
+                          self.worker_base + self.num_local))
+
+    def local_ids(self) -> torch.Tensor:
+        """``[W_local, 1]`` int64 ids of the local workers, on the
+        device."""
+        return torch.arange(self.worker_base,
+                            self.worker_base + self.num_local,
+                            device=self.device)[:, None]
+
+    # -- the data plane across processes --------------------------------
+    def worker_transpose(self, blocks: torch.Tensor) -> torch.Tensor:
+        """The all-to-all between workers: ``blocks`` ``[W_local, W,
+        ...]`` (local senders by global receiver) become ``[W_local, W,
+        ...]`` (local receivers by global sender, in rank order). One
+        process: a transpose of the worker dimensions; several: one
+        ``all_to_all_single`` of the blocks bound for each process."""
+        if not self.multiprocess:
+            return blocks.transpose(0, 1)
+        import torch.distributed as dist
+        P, Wl = self.num_processes, self.num_local
+        trail = tuple(blocks.shape[2:])
+        x = blocks.reshape((Wl, P, Wl) + trail).transpose(0, 1).contiguous()
+        self.stats_bytes_cross += (x.numel() * x.element_size()
+                                   * (P - 1) // P)
+
+        self.stats_collectives += 1
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        # out[p]: process p's senders' blocks for the local receivers
+        return out.reshape((P * Wl, Wl) + trail).transpose(0, 1)
+
+    def worker_sum(self, t: torch.Tensor,
+                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The sum over every worker of ``t`` ``[W_local, ...]`` (the
+        reference's psum over the worker axis), in ``dtype`` if given."""
+        s = t.sum(dim=0, dtype=dtype)
+        if not self.multiprocess:
+            return s
+        import torch.distributed as dist
+        s = s.contiguous()
+        self.stats_bytes_cross += s.numel() * s.element_size()
+        self.stats_collectives += 1
+        dist.all_reduce(s)
+        return s
+
+    def gather_workers(self, t: torch.Tensor) -> torch.Tensor:
+        """Every worker's rows of ``t`` ``[W_local, ...]`` as ``[W,
+        ...]``, in worker order, on every process."""
+        if not self.multiprocess:
+            return t
+        import torch.distributed as dist
+        t = t.contiguous()
+        self.stats_bytes_cross += (t.numel() * t.element_size()
+                                   * (self.num_processes - 1))
+        self.stats_collectives += 1
+        parts = [torch.empty_like(t) for _ in range(self.num_processes)]
+        dist.all_gather(parts, t)
+        return torch.cat(parts, dim=0)
+
+    # -- the host plane of plan values ----------------------------------
+    def gather_host(self, arr) -> np.ndarray:
+        """Host rows ``[W_local, ...]`` of every process as ``[W,
+        ...]`` (the local rows themselves in one process)."""
+        arr = np.ascontiguousarray(arr)
+        if not self.multiprocess:
+            return arr
+        import torch.distributed as dist
+        t = torch.from_numpy(arr.view(np.uint8) if arr.dtype == bool
+                             else arr)
+        parts = [torch.empty_like(t) for _ in range(self.num_processes)]
+        dist.all_gather(parts, t)
+        out = torch.cat(parts, dim=0).numpy()
+        return out.view(bool) if arr.dtype == bool else out
+
+    def fetch_global(self, t: torch.Tensor) -> np.ndarray:
+        """:meth:`fetch` of a per-worker tensor ``[W_local, ...]``, with
+        every process's rows: ``[W, ...]``."""
+        return self.gather_host(self.fetch(t))
+
+    def allgather_object(self, obj: Any) -> List[Any]:
+        """Every process's ``obj``, in process order (``[obj]`` in one
+        process)."""
+        if not self.multiprocess:
+            return [obj]
+        import torch.distributed as dist
+        out: List[Any] = [None] * self.num_processes
+        dist.all_gather_object(out, obj)
+        return out
+
+    def agree(self, value: Any) -> Any:
+        """Process 0's ``value`` on every process: a choice made from
+        local state (a learned verdict, a timed calibration) must be
+        one choice, or the processes would run different collectives."""
+        if not self.multiprocess:
+            return value
+        import torch.distributed as dist
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     def __repr__(self) -> str:
-        return f"MeshExec(num_workers={self.num_workers}, device={self.device})"
+        extra = (f", process {self.process_index} of "
+                 f"{self.num_processes}" if self.multiprocess else "")
+        return (f"MeshExec(num_workers={self.num_workers}, "
+                f"device={self.device}{extra})")

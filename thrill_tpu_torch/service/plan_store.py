@@ -26,7 +26,8 @@ warm restart of a known pipeline makes no data-driven plan build
   the plans (``decisions.json``).
 
 Local paths and ``file://`` only: a remote scheme raises, and the
-multi-controller broadcast of the entries belongs to ROADMAP item 6.
+multi-controller broadcast of the entries belongs to ROADMAP item 6, its
+service-plane part.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ ranges over workers. Streams decompress ``.gz``, ``.bz2`` and ``.xz``
 by suffix. ``OpenReadStream`` is a plain demand reader.
 ``prefetch_depth`` is the readahead depth the spill restores read.
 
-Waiting in ROADMAP.md queue A "Still to port" item 6: the ``s3://``,
+Waiting in ROADMAP.md queue A "Still to port" item 6, its remote-vfs
+part: the ``s3://``,
 ``hdfs://`` and ``http(s)://`` schemes (they raise here), the retrying
 and prefetching readers, fault injection and the I/O statistics.
 """
@@ -82,7 +83,8 @@ def _local(path: str) -> str:
     if scheme in _REMOTE:
         raise NotImplementedError(
             f"vfs scheme '{scheme}' is not ported yet; it is ROADMAP.md "
-            f"queue A 'Still to port' item 6. Plain paths and file:// are")
+            f"queue A 'Still to port' item 6, its remote-vfs part. Plain "
+            f"paths and file:// are")
     if scheme != "file":
         raise NotImplementedError(
             f"vfs scheme '{scheme}' is not implemented; file://, s3://, "

@@ -123,11 +123,11 @@ Phases, each fatal on failure:
  22. host storage, the card idle but in H4 (host seconds, beside the
      host's CPU model): H1 thrill_tpu_torch/examples/word_count.py's
      word_count (ReadLines, FlatMap split, Map, host ReduceByKey) over a
-     file of 2^21 of phase 4's words, 16 a line, at W=4, equal to
+     file of 2^19 of phase 4's words, 16 a line, at W=4, equal to
      collections.Counter of the file's words exactly, with the dup
      verdict, the items exchanged, the host seconds of ReadLines, the
      stack, the pre phase, the exchange and the post phase, and the spill
-     stats; then W=1 over 2^19 words; H2 the same W=4 run with
+     stats; then W=1 over 2^17 words; H2 the same W=4 run with
      THRILL_TPU_RAM cut to 8M and the spill directory a temporary one:
      the post tables must spill and recurse, the per-worker lists equal
      H1's as multisets, the bytes written to disk printed, the directory
@@ -136,15 +136,15 @@ Phases, each fatal on failure:
      H1's pairs Mapped to {"c": count, "h": the word's stable_host_hash
      as int64}, ToDevice().Sort by (c, h) and AllGatherArrays, equal to
      np.lexsort, B1, the upsweep and the pass launched (its send-count
-     input captured); H5 at W=4 over 2^19 (str key, int) items: Zip of
+     input captured); H5 at W=4 over 2^17 (str key, int) items: Zip of
      two host DIAs and of a host with a device DIA, ZipWithIndex,
-     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^19 x
-     2^17 string keys (location filter by the verdict, on and off),
+     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^17 x
+     2^15 string keys (location filter by the verdict, on and off),
      Sample(1024), BernoulliSample(0.01), Sum, Min, Max and AllReduce,
      each equal to a plain Python version, with its host seconds; H6 the
-     host Sort's external-memory path at W=4 over 2^21 lines
+     host Sort's external-memory path at W=4 over 2^19 lines
      "{key:010d}\t{i:08d}payload\n" by their first ten characters, runs
-     of 2^17 spilled through a store that keeps 64 MiB in RAM: equal to
+     of 2^15 spilled through a store that keeps 64 MiB in RAM: equal to
      Python's sorted(), the native key engine, columnar records, 16 runs,
      its _em_stats printed;
  23. the memory ladder at W=4 (M1-M3): phase 3's 2^24 records kept with
@@ -266,7 +266,28 @@ Phases, each fatal on failure:
      one-process run's; each child prints its launches of B1, the
      upsweep, the pass and B4 (each must be non-zero), the bytes that
      crossed processes, its device-to-host transfers, the backend and
-     its warm seconds beside the one-process run's;
+     its warm seconds beside the one-process run's. Then the op sweep
+     across the same processes (``d_ops_run``), first at W = 4 in one
+     process, then in each child: PageRank (the example on
+     zipf_graph(2^22, 2^24), f64, D_PR_ITERS = 5 iterations, cut from
+     10), the PageRank step (an f32 ReduceToIndex of 2^24 edges into
+     2^22 pages: B3), k-means (2^24 x 8, k = 10, D_KM_ITERS = 4
+     iterations, cut from 10), Q3-lite (2^22 orders, 2^24 lineitems,
+     location detection forced on: B4) and the op battery
+     (thrill_tpu_torch/examples/op_battery.py, which the CPU test of
+     the op sweep runs too) at its own size. Every child's results are
+     bit-equal to the one-process run's, except the sums B3 adds in
+     atomic order (every child's step sums and three battery entries),
+     held within SEG_RTOL; PageRank, k-means and Q3-lite are also held
+     against numpy (computed while the children run; k-means' Lloyd
+     continues phase 8's shallower run), the step against np.bincount.
+     Each child prints, per job, its launches of B1, the upsweep, the
+     pass, B3, B4 and the ordered fold (each non-zero on the path that
+     runs it), the loop mode that ran, the bytes that crossed
+     processes, its device-to-host transfers and its first and warm
+     seconds beside the one-process run's one run (one process runs
+     each job once, for time). The smoke fails if jax, jaxlib or the
+     reference package was loaded;
  26. on the inputs the W=4 runs gave the kernels, captured at the call
      sites: the send-count histogram on the Sort's int32 destinations and
      on the WordCount's, the PageRank step's, k-means', the text
@@ -341,7 +362,8 @@ KM_POINTS = 1 << 24            # k-means points (the example's dim and k)
 KM_DIM = 8
 KM_K = 10
 KM_ITERS = 10
-KM_CHUNK = 1 << 20             # rows a step of the numpy Lloyd
+KM_CHUNK = 1 << 16             # rows a step of the numpy Lloyd (its
+                               # [k, chunk] distances stay in cache)
 KM_RTOL = 1e-9                 # centers vs numpy: of 1 + |center|
 SK_VALUES = 1 << 24            # select_kth values in [0, 2^40)
 SGD_ROWS = 1 << 22             # sgd rows (the example's dim)
@@ -361,17 +383,17 @@ HLL_ITEMS = 1 << 24            # HyperLogLog items of HLL_VALUES values
 HLL_VALUES = 1 << 22
 HLL_P = 14
 CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
-HW_WORDS = 1 << 20             # host WordCount words (W=4), 16 a line
-HW_WORDS_W1 = 1 << 18          # host WordCount words (W=1)
+HW_WORDS = 1 << 19             # host WordCount words (W=4), 16 a line
+HW_WORDS_W1 = 1 << 17          # host WordCount words (W=1)
 HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
-HO_ITEMS = 1 << 18             # host ops items (str key, int)
-HO_RIGHT = 1 << 16             # host InnerJoin right side
+HO_ITEMS = 1 << 17             # host ops items (str key, int)
+HO_RIGHT = 1 << 15             # host InnerJoin right side
 HO_KEYS = 1 << 20              # host ops key space
 M1_HBM_LIMIT = int(2.5e9)      # M1's governor limit: 1.5 TeraSort tables
 OF_ITEMS = 1 << 22             # the ordered fold's ReduceByKey/GroupByKey
 OF_KEYS = 1 << 16              # items, Zipf keys over OF_KEYS
-H6_LINES = 1 << 20             # H6: lines of the host EM sort
-H6_RUN = 1 << 16                # THRILL_TPU_HOST_SORT_RUN: 16 runs
+H6_LINES = 1 << 19             # H6: lines of the host EM sort
+H6_RUN = 1 << 15                # THRILL_TPU_HOST_SORT_RUN: 16 runs
 H6_RESIDENT = "64M"            # THRILL_TPU_SPILL_RESIDENT: runs reach disk
 CK_EVERY = 3                   # C1: PageRank's Iterate(checkpoint_every=)
 # C1: launches a PageRank W=4 iteration makes (PERF.md section 6: 10 of
@@ -396,6 +418,15 @@ DEVICE = "cuda"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_T0 = time.perf_counter()
+
+
+def clock(done: str) -> None:
+    """The smoke's own time so far, after ``done`` (its budget is set in
+    ROADMAP.md; PERF.md section 4 reads these lines)."""
+    log(f"clock: {time.perf_counter() - _T0:.1f} s after {done}")
 
 
 def card_line() -> str:
@@ -1360,14 +1391,14 @@ def warm_seconds(torch, fn, calls: int):
     return out
 
 
-def lloyd_np(np, pts, c, iters: int):
+def lloyd_np(np, pts, c, iters: int, seen=None):
     """Lloyd's iterations in numpy with the example's distance formula
     (x.x - 2 x c^T + c.c, the first minimum), KM_CHUNK rows at a time (the
     example's k_means_dense builds [n, k, dim]: 10.7 GB here). The points
     are held transposed, so that the products are one ``c @ x^T`` and
     every column is contiguous (``x @ c.T`` of a skinny ``x`` took numpy
     minutes here). Returns the centers and each iteration's count of
-    points per cluster."""
+    points per cluster; ``seen`` gets each iteration's centers."""
     k, dim = c.shape
     pts_t = np.ascontiguousarray(pts.T)
     xx = np.einsum("ij,ij->i", pts, pts)
@@ -1396,7 +1427,26 @@ def lloyd_np(np, pts, c, iters: int):
         counts.append(cnt)
         c = np.where((cnt > 0)[:, None], sums / np.maximum(cnt, 1)[:, None],
                      c)
+        if seen is not None:
+            seen.append(c)
     return c, counts
+
+
+def lloyd_cached(np, pts, c0, iters: int):
+    """lloyd_np from the first centers ``c0``, continued from the
+    deepest run of fewer iterations already made; every iteration's
+    centers are kept, so a shallower run is free after a deeper one
+    (every phase draws the same points and first centers, and an
+    iteration is a function of the centers alone, so a continued run is
+    the whole run bit for bit)."""
+    if iters not in _LLOYD:
+        done = max((i for i in _LLOYD if i < iters), default=0)
+        c, counts = _LLOYD[done] if done else (c0, [])
+        seen = []
+        _, more = lloyd_np(np, pts, c, iters - done, seen)
+        for j, cj in enumerate(seen, 1):
+            _LLOYD[done + j] = (cj, list(counts) + more[:j])
+    return _LLOYD[iters]
 
 
 def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
@@ -1408,8 +1458,7 @@ def kmeans(torch, np, tt, W: int, iters: int, pts, pk, ps, exchange_mod,
     from thrill_tpu_torch.examples import k_means as tkm
     c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
     t0 = time.perf_counter()
-    want, want_counts = lloyd_np(np, pts, c0, iters)
-    _LLOYD[iters] = (want, want_counts)
+    want, want_counts = lloyd_cached(np, pts, c0, iters)
     np_secs = time.perf_counter() - t0
     mem, cnts = {}, []
     real_iterate, real_update = tkm.Iterate, tkm._center_update
@@ -4338,8 +4387,8 @@ L_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
 # the reference's stats at a small size.
 L_REF = {("pagerank", 4): (1, 0, 9, 0), ("pagerank", 1): (1, 0, 9, 0),
          ("k-means", 4): (0, 0, 0, 0), ("k-means", 1): (1, 0, 9, 0)}
-_LLOYD = {}                   # the numpy Lloyd of phase 8, by iterations
-L_WARM = 3                    # warm runs of replay and the plain loop each
+_LLOYD = {}                   # numpy Lloyd runs by iterations (lloyd_cached)
+L_WARM = 2                    # warm runs of replay and the plain loop each
 
 
 def l_modes(name: str, captures: bool):
@@ -4765,9 +4814,7 @@ def loop_phases(torch, np, tt, pk, ps, edges, pts, card) -> dict:
                                       pr_check).items():
             paths[f"{label} pagerank W={W} ({mode})"] = launches
     c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
-    if KM_ITERS not in _LLOYD:
-        _LLOYD[KM_ITERS] = lloyd_np(np, pts, c0, KM_ITERS)
-    want_km = _LLOYD[KM_ITERS][0]
+    want_km = lloyd_cached(np, pts, c0, KM_ITERS)[0]
 
     def km_run(ctx):
         return tkm.k_means(ctx, pts, KM_K, KM_ITERS)
@@ -5797,11 +5844,27 @@ def t_phase(torch, np, tt, pk, ps, card: str) -> dict:
 
 D_PROCS = 2                    # D: processes, D_WPP workers each (W = 4)
 D_WPP = 2
-D_TIMEOUT_S = 240              # D: the children's deadline
+D_TIMEOUT_S = 420              # D: the children's deadline
 D_TEXT = "\n".join(             # D: the battery's text (the reference's)
     f"line {i} word{i % 7} again word{i % 3}" for i in range(211)) + "\n"
 D_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
              "presence_fill")
+D_PR_ITERS = 5                 # D: PageRank's and k-means' depth (cut)
+D_KM_ITERS = 4
+# D: the op sweep's jobs and the kernels each must launch there
+D_OPS_KERNELS = {
+    "pagerank": ("partition_histogram", "radix_upsweep", "radix_pass",
+                 "ordered_segment_sum"),
+    "pagerank_step": ("partition_histogram", "radix_upsweep", "radix_pass",
+                      "segment_sum"),
+    "kmeans": ("partition_histogram", "radix_upsweep", "radix_pass",
+               "ordered_segment_sum"),
+    "q3": ("partition_histogram", "radix_upsweep", "radix_pass",
+           "presence_fill"),
+    "battery": ()}
+# D: the battery's entries summed by B3, whose f32 adds run in atomic
+# order (its contract): held within SEG_RTOL, not bit for bit
+D_B3_KEYS = ("group_to_index", "group_by_key_dev_fn", "reduce_to_index_f32")
 
 
 def d_digest(torch, tree) -> str:
@@ -5923,21 +5986,315 @@ def d_run(torch, np, tt, ctx, pk, ps, text_path: str) -> dict:
     return out
 
 
+def d_timed(torch, pk, ps, mex, fn):
+    """``fn()`` with the launch counters set to 0 just before and read
+    just after: (result, seconds after synchronize, launches, bytes that
+    crossed processes, device-to-host transfers)."""
+    torch.cuda.synchronize()
+    b0, x0 = mex.stats_bytes_cross, mex.stats_transfers
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, read_launches(pk, ps),
+            mex.stats_bytes_cross - b0, mex.stats_transfers - x0)
+
+
+def d_np_digest(np, a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def d_ops_run(torch, np, tt, ctx, pk, ps, tmp: str) -> dict:
+    """The op sweep's jobs of phase D on ``ctx`` (one process, or one of
+    the mesh's): PageRank (the example, f64, D_PR_ITERS iterations),
+    the PageRank step (an f32 ReduceToIndex: B3), k-means (the example,
+    D_KM_ITERS iterations), Q3-lite with location detection forced on,
+    and the op battery (``thrill_tpu_torch/examples/op_battery.py``) at
+    its own size. Each first run counts its launches from 0; across
+    processes PageRank, k-means and Q3-lite also run warm (one process
+    runs each job once: its seconds are its first run's)."""
+    from thrill_tpu_torch.examples import op_battery
+    from thrill_tpu_torch.examples import k_means as tkm
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.examples import tpch as ttp
+    mex = ctx.mesh_exec
+    out = {"rank": ctx.host_rank}
+    moved0 = mex.stats_items_moved
+
+    warm_moved = [0]
+
+    def warm(fn):
+        # a warm rerun across processes; its items stay out of the
+        # items moved, which sum to the one-process run's
+        if not mex.multiprocess:
+            return None
+        m0 = mex.stats_items_moved
+        secs = warm_seconds(torch, fn, 1)[0]
+        warm_moved[0] += mex.stats_items_moved - m0
+        return secs
+
+    def note(job, res):
+        _, secs, launches, cross, xfers = res
+        out[job] = dict(first_s=secs, launches=launches, cross_bytes=cross,
+                        transfers=xfers)
+        return res[0]
+
+    def loop_mode():
+        r = mex.loop_reports[-1]
+        return {k: r.get(k) for k in ("captures", "replays", "fori_iters",
+                                      "fallbacks", "graph_off")}
+
+    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
+    ranks = note("pagerank", d_timed(torch, pk, ps, mex, lambda: (
+        tpr.page_rank(ctx, edges, PAGES, D_PR_ITERS))))
+    out["pagerank"].update(digest=d_np_digest(np, ranks),
+                           loop=loop_mode(),
+                           warm_s=warm(lambda: tpr.page_rank(
+                               ctx, edges, PAGES, D_PR_ITERS)))
+    if not mex.multiprocess:
+        out["pagerank_ranks"] = ranks
+    del edges, ranks
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    n = 4 * PER_WORKER
+    step_in = {"d": zipf_ids(torch, n, PAGES, gen),
+               "v": torch.rand(n, device=DEVICE, generator=gen)}
+    src = ctx.Distribute(step_in).Keep()
+    src.Execute()
+    step = note("pagerank_step", d_timed(
+        torch, pk, ps, mex, lambda: src.ReduceToIndex(
+            lambda c: c["d"], tt.FieldReduce({"d": "first", "v": "sum"}),
+            PAGES, neutral={"d": 0, "v": 0.0}).AllGatherArrays()))
+    out["pagerank_step"].update(
+        d_digest=d_digest(torch, {"d": step["d"]}),
+        v_digest=d_digest(torch, {"v": step["v"]}))
+    # every process's sums, each held against one process's within
+    # SEG_RTOL (B3 adds in atomic order)
+    out["pagerank_step_v"] = step["v"].cpu().numpy()
+    if not mex.multiprocess:
+        out["pagerank_step_in"] = {k: v.cpu().numpy()
+                                   for k, v in step_in.items()}
+    del src, step, step_in
+    pts = np.random.default_rng(SEED + 50).normal(size=(KM_POINTS, KM_DIM))
+    cent = note("kmeans", d_timed(torch, pk, ps, mex, lambda: tkm.k_means(
+        ctx, pts, KM_K, D_KM_ITERS)))
+    out["kmeans"].update(digest=d_np_digest(np, cent), loop=loop_mode(),
+                         warm_s=warm(lambda: tkm.k_means(
+                             ctx, pts, KM_K, D_KM_ITERS)))
+    out["kmeans_centers"] = cent.tolist()
+    del pts
+    orders, lineitem = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
+    q3 = note("q3", d_timed(torch, pk, ps, mex, lambda: ttp.q3_lite(
+        ctx, orders, lineitem, location_detection=True)))
+    out["q3"].update(result=q3.tolist(),
+                     warm_s=warm(lambda: ttp.q3_lite(
+                         ctx, orders, lineitem, location_detection=True)))
+    del orders, lineitem
+    os.makedirs(tmp, exist_ok=True)
+    bat = note("battery", d_timed(torch, pk, ps, mex, lambda: (
+        op_battery.battery(ctx, op_battery.Port(), tmp))))
+    out["battery"]["result"] = bat
+    out["items_moved"] = mex.stats_items_moved - moved0 - warm_moved[0]
+    out["collectives"] = mex.stats_collectives
+    return out
+
+
+def d_np_refs(np) -> dict:
+    """Phase D's numpy references: PageRank's ranks, k-means' centers
+    (Lloyd's iterations from the example's first centers) and Q3-lite's
+    revenues, from the inputs the jobs make."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.examples import tpch as ttp
+    t0 = time.perf_counter()
+    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
+    ranks = page_rank_np(np, edges, PAGES, D_PR_ITERS, tpr.DAMPENING)
+    del edges
+    pts = np.random.default_rng(SEED + 50).normal(size=(KM_POINTS, KM_DIM))
+    c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
+    cent, _ = lloyd_cached(np, pts, c0, D_KM_ITERS)
+    del pts
+    orders, lineitem = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
+    return {"ranks": ranks, "centers": cent,
+            "q3": q3_np(np, orders, lineitem).tolist(),
+            "seconds": time.perf_counter() - t0}
+
+
+def d_close(a, b) -> bool:
+    """Equal, floats within SEG_RTOL of their magnitude plus SEG_ATOL
+    (the entries B3 sums in atomic order)."""
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(d_close(x, y) for x, y in zip(a, b))
+    if isinstance(a, float) and isinstance(b, float):
+        return abs(a - b) <= SEG_RTOL * abs(b) + SEG_ATOL
+    return a == b
+
+
+def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
+    """Phase D's op sweep against the one-process run and numpy; logs
+    every process's line and returns its launches by path for the
+    kernels line."""
+    want = refs["ranks"]
+    err = np.abs(one["pagerank_ranks"] - want)
+    if not (err <= PR_RTOL * want + PR_ATOL).all():
+        raise AssertionError(f"D PageRank W=4: max |diff| {err.max()} from "
+                             f"numpy")
+    cent = np.asarray(one["kmeans_centers"])
+    kerr = np.abs(cent - refs["centers"])
+    if not (kerr <= KM_RTOL * (1 + np.abs(refs["centers"]))).all():
+        raise AssertionError(f"D k-means W=4: max |diff| {kerr.max()} from "
+                             f"numpy")
+    if one["q3"]["result"] != refs["q3"]:
+        raise AssertionError(f"D Q3-lite W=4: {one['q3']['result']}, numpy "
+                             f"{refs['q3']}")
+    din, dout = one["pagerank_step_in"], one["pagerank_step_v"]
+    sums = np.bincount(din["d"], weights=din["v"].astype(np.float64),
+                       minlength=PAGES)
+    serr = np.abs(dout.astype(np.float64) - sums)
+    if not (serr <= SEG_RTOL * sums + SEG_ATOL).all():
+        raise AssertionError(f"D PageRank step W=4: max |diff| {serr.max()} "
+                             f"from np.bincount")
+    bat1 = json.loads(json.dumps(one["battery"]["result"]))
+    # the battery's counters of the context (a child's ran phase D's
+    # first jobs too) and its per-process join counts, summed below
+    per_rank = ("items_moved_local", "items_moved", "moved_ld",
+                "moved_plain")
+    paths = {}
+    for job, need in D_OPS_KERNELS.items():
+        for name in need:
+            if one[job]["launches"][name] <= 0:
+                raise AssertionError(f"D one process: {name} was not "
+                                     f"launched on the {job} path")
+    for k in kids:
+        r = k["rank"]
+        for job, need in D_OPS_KERNELS.items():
+            for name in need:
+                if k[job]["launches"][name] <= 0:
+                    raise AssertionError(f"D rank {r}: {name} was not "
+                                         f"launched on the {job} path")
+            paths[f"D {job} W=4 (process {r} of {D_PROCS})"] = \
+                k[job]["launches"]
+        for job in ("pagerank", "kmeans"):
+            if k[job]["digest"] != one[job]["digest"]:
+                raise AssertionError(f"D rank {r}: {job} differs from the "
+                                     f"one-process run")
+        if k["q3"]["result"] != one["q3"]["result"]:
+            raise AssertionError(f"D rank {r}: Q3-lite differs")
+        if k["pagerank_step"]["d_digest"] != one["pagerank_step"]["d_digest"]:
+            raise AssertionError(f"D rank {r}: the step's indices differ")
+        step_bits = k["pagerank_step"]["v_digest"] == \
+            one["pagerank_step"]["v_digest"]
+        step_gap = np.abs(k["pagerank_step_v"].astype(np.float64)
+                          - dout.astype(np.float64))
+        if not (step_gap <= SEG_RTOL * sums + SEG_ATOL).all():
+            raise AssertionError(f"D rank {r}: the step's sums are "
+                                 f"{step_gap.max()} from the one-process "
+                                 f"run's")
+        bat = json.loads(json.dumps(k["battery"]["result"]))
+        for key, v in bat1.items():
+            if key in per_rank:
+                continue
+            if key == "loops":
+                # one process replays its tape as a CUDA graph, the
+                # processes per iteration: the same replayed iterations
+                def mode(ls):
+                    return [(l["name"], l["captures"],
+                             l["replays"] + l["fori_iters"]) for l in ls]
+                ok = mode(bat[key]) == mode(v)
+            elif key in D_B3_KEYS:
+                ok = d_close(bat[key], v)
+            else:
+                ok = bat[key] == v
+            if not ok:
+                raise AssertionError(f"D rank {r}: battery {key} differs "
+                                     f"from the one-process run")
+        b3_bits = all(bat[key] == bat1[key] for key in D_B3_KEYS)
+        log(f"D op sweep process {r} of {D_PROCS} (W=4): pagerank "
+            f"{PAGES} pages {PR_EDGES} edges {D_PR_ITERS} iterations f64 "
+            f"bit-equal to one process, loop {json.dumps(k['pagerank']['loop'])}"
+            f", first {k['pagerank']['first_s']:.3f} s warm "
+            f"{k['pagerank']['warm_s']:.3f} s (one process, run once, "
+            f"{one['pagerank']['first_s']:.3f} s, loop "
+            f"{json.dumps(one['pagerank']['loop'])}); pagerank step f32 "
+            f"indices bit-equal, sums bit-equal {step_bits} (within "
+            f"{SEG_RTOL} of one process's), first "
+            f"{k['pagerank_step']['first_s']:.3f} s (one process "
+            f"{one['pagerank_step']['first_s']:.3f} s); k-means "
+            f"{KM_POINTS}x{KM_DIM} k={KM_K} {D_KM_ITERS} iterations "
+            f"bit-equal, loop {json.dumps(k['kmeans']['loop'])}, first "
+            f"{k['kmeans']['first_s']:.3f} s warm {k['kmeans']['warm_s']:.3f}"
+            f" s (one process, run once, {one['kmeans']['first_s']:.3f} s); "
+            f"q3 {ORDERS} "
+            f"orders location detection on equal {k['q3']['result']}, first "
+            f"{k['q3']['first_s']:.3f} s warm {k['q3']['warm_s']:.3f} s (one "
+            f"process, run once, {one['q3']['first_s']:.3f} s); battery of "
+            f"{len(bat1)} entries equal (B3 entries bit-equal {b3_bits}), "
+            f"{k['battery']['first_s']:.3f} s (one process "
+            f"{one['battery']['first_s']:.3f} s) [{card}]")
+        for job in D_OPS_KERNELS:
+            log(f"D op sweep process {r} {job}: launches "
+                f"{json.dumps(k[job]['launches'])}, bytes across processes "
+                f"{k[job]['cross_bytes']}, device-to-host transfers "
+                f"{k[job]['transfers']} (one process "
+                f"{one[job]['transfers']}) [{card}]")
+    for key in ("moved_ld", "moved_plain"):
+        got = sum(k["battery"]["result"][key] for k in kids)
+        if got != one["battery"]["result"][key]:
+            raise AssertionError(f"D battery: the processes' {key} sum to "
+                                 f"{got}, one process "
+                                 f"{one['battery']['result'][key]}")
+    if sum(k["items_moved"] for k in kids) != one["items_moved"]:
+        raise AssertionError("D op sweep: the processes' items moved do not "
+                             "sum to the one-process run's")
+    log(f"D op sweep one process W=4: pagerank within {PR_RTOL} of numpy "
+        f"(max |diff| {err.max():.6g}); k-means within {KM_RTOL} x (1 + |c|)"
+        f" of numpy (max |diff| {kerr.max():.6g}); step within {SEG_RTOL} of "
+        f"np.bincount (max |diff| {serr.max():.6g}); q3 equal to numpy; "
+        f"launches {json.dumps({j: one[j]['launches'] for j in D_OPS_KERNELS})}"
+        f"; numpy references {refs['seconds']:.1f} s while the children ran "
+        f"[{card}]")
+    return paths
+
+
 def dist_child(coordinator: str, rank: int, d: str) -> int:
-    """One process of phase D's mesh: its result on a DRESULT line."""
+    """One process of phase D's mesh: its result in a file of ``d``
+    (long; a pipe may cut a long line at the process's exit), and the
+    file's name on a DRESULT line."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.core import pallas_kernels as pk
     from thrill_tpu_torch.core import pallas_sort as ps
+
+    def job(ctx):
+        # started beside the parent's one-process run: work begins at
+        # its signal, so that no job here overlaps a job timed there
+        while not os.path.exists(os.path.join(d, "go")):
+            time.sleep(0.05)
+        res = d_run(torch, np, tt, ctx, pk, ps, os.path.join(d, "words.txt"))
+        res["ops"] = d_ops_run(torch, np, tt, ctx, pk, ps,
+                               os.path.join(d, "procs"))
+        return res
+
     res = tt.RunDistributed(
-        lambda ctx: d_run(torch, np, tt, ctx, pk, ps,
-                          os.path.join(d, "words.txt")),
-        coordinator_address=coordinator, num_processes=D_PROCS,
+        job, coordinator_address=coordinator, num_processes=D_PROCS,
         process_id=rank, workers_per_process=D_WPP)
-    print("DRESULT " + json.dumps(res), flush=True)
+    assert_port_alone()
+    path = os.path.join(d, f"dresult-{rank}.pkl")
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump(res, f)
+    print("DRESULT " + path, flush=True)
     return 0
+
+
+def assert_port_alone() -> None:
+    """The smoke drives the port alone: neither jax nor the reference
+    package may be loaded, by the smoke or by anything it imported."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "thrill_tpu"))
+    if bad:
+        raise AssertionError(f"the smoke loaded {bad[:5]}")
 
 
 def d_free_ports(n: int) -> list:
@@ -5954,22 +6311,22 @@ def d_free_ports(n: int) -> list:
 
 
 def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
-    """Phase D (see the module): the one-process run, then the two
-    children; returns the children's launches for the kernels line."""
+    """Phase D (see the module): the children start and wait while the
+    one-process run goes on, then work; returns the children's launches
+    for the kernels line."""
+    import concurrent.futures as cf
+    import pickle
     import tempfile
     t_d = time.perf_counter()
     d = tempfile.mkdtemp(prefix="ttpu-d-")
+    ex = cf.ThreadPoolExecutor(D_PROCS)
+    procs = []
     try:
         with open(os.path.join(d, "words.txt"), "w") as f:
             f.write(D_TEXT)
-        one = tt.Run(lambda ctx: d_run(torch, np, tt, ctx, pk, ps,
-                                       os.path.join(d, "words.txt")),
-                     num_workers=D_PROCS * D_WPP)
-        torch.cuda.empty_cache()
         ports = d_free_ports(1 + D_PROCS)
         hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
         secret = os.urandom(16).hex()
-        procs = []
         for rank in range(D_PROCS):
             env = dict(os.environ, THRILL_TPU_HOSTLIST=hostlist,
                        THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret)
@@ -5978,25 +6335,42 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
                  f"127.0.0.1:{ports[0]}", str(rank), d],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                 env=env))
-        import concurrent.futures as cf
-        try:
-            with cf.ThreadPoolExecutor(len(procs)) as ex:
-                futs = [ex.submit(p.communicate, None, D_TIMEOUT_S)
-                        for p in procs]
-                drained = [f.result(timeout=D_TIMEOUT_S + 30) for f in futs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
+        futs = [ex.submit(p.communicate, None, D_TIMEOUT_S) for p in procs]
+        # the children import, reach the card and join their mesh while
+        # the one-process run goes on; they start work at the "go" file
+        one = tt.Run(lambda ctx: d_run(torch, np, tt, ctx, pk, ps,
+                                       os.path.join(d, "words.txt")),
+                     num_workers=D_PROCS * D_WPP)
+        torch.cuda.empty_cache()
+        one_ops = tt.Run(lambda ctx: d_ops_run(torch, np, tt, ctx, pk, ps,
+                                               os.path.join(d, "one")),
+                         num_workers=D_PROCS * D_WPP)
+        torch.cuda.empty_cache()
+        t_kids = time.perf_counter()
+        one_s = t_kids - t_d
+        open(os.path.join(d, "go"), "w").close()
+        # the numpy references while the children work
+        refs = d_np_refs(np)
+        drained = [f.result(timeout=D_TIMEOUT_S + 30) for f in futs]
+        kids_s = time.perf_counter() - t_kids
         kids = []
         for p, (o, e) in zip(procs, drained):
             lines = [l for l in o.splitlines() if l.startswith("DRESULT ")]
             if p.returncode != 0 or not lines:
                 raise AssertionError(f"D: child failed (rc {p.returncode}):"
                                      f"\n{o[-2000:]}\n{e[-4000:]}")
-            kids.append(json.loads(lines[-1][len("DRESULT "):]))
+            with open(lines[-1][len("DRESULT "):], "rb") as f:
+                kid = pickle.load(f)
+            # as through JSON, as before (tuples as lists); the op
+            # sweep's arrays as they are
+            ops = kid.pop("ops")
+            kids.append(dict(json.loads(json.dumps(kid)), ops=ops))
     finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ex.shutdown(wait=True)
         import shutil
         shutil.rmtree(d, ignore_errors=True)
     # every rank bit-equal to the one-process run
@@ -6067,8 +6441,14 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
             k["sort_launches"]
         paths[f"D wordcount W=4 (process {r} of {D_PROCS})"] = \
             k["wc_launches"]
+    paths.update(d_ops_check(np, one_ops, [k["ops"] for k in kids], refs,
+                             card))
+    assert_port_alone()
     log(f"process mesh phase (D): {time.perf_counter() - t_d:.1f} s of host "
-        f"clock, the one-process run and the children's start included "
+        f"clock: the one-process runs {one_s:.1f} s (the children "
+        f"starting beside them), the children {kids_s:.1f} s from their "
+        f"signal to their exit (the numpy references {refs['seconds']:.1f}"
+        f" s of it), the checks after "
         f"[host {cpu_line()}; {card}]")
     return paths
 
@@ -6143,6 +6523,7 @@ def main() -> int:
     errs = check_kernels(torch, np, pk, ps)
     times = time_kernels(torch, np, pk, ps)
     time_argsort(torch, np)
+    clock("the kernel checks and timings")
     sort4, sc_sort, recs4, order4 = terasort(torch, np, tt, 4, pk, ps,
                                              exchange_mod)
     terasort(torch, np, tt, 1, pk, ps, exchange_mod)
@@ -6157,6 +6538,7 @@ def main() -> int:
     del fold_pr
     pagerank(torch, np, tt, 1, 3, edges, pk, ps)
     del edges
+    clock("TeraSort, WordCount and PageRank")
     tables = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
     q3 = tpch(torch, np, tt, 4, tables, pk, ps, join_mod)
     tpch(torch, np, tt, 1, tables, pk, ps, join_mod)
@@ -6168,6 +6550,7 @@ def main() -> int:
     del fold_km
     kmeans(torch, np, tt, 1, 3, pts, pk, ps, exchange_mod, card)
     del pts
+    clock("Q3-lite and k-means")
     sk4 = select_kth_phase(torch, np, tt, pk, ps, card)
     sgd4 = sgd_phase(torch, np, tt, pk, ps, sample_mod, card)
     sa4 = suffix_array_phase(torch, np, tt, pk, ps, card)
@@ -6179,6 +6562,7 @@ def main() -> int:
     tsf4, rb4, cc4, sc_rb = terasort_file(torch, np, tt, pk, ps,
                                           exchange_mod, card)
     rl4 = readlines_phase(torch, np, tt, pk, ps, card)
+    clock("select_kth to readlines")
     t_ops = time.perf_counter()
     gb4, seg_gb, sc_gb = groupbykey_phase(torch, np, tt, 4, GB_ITEMS, pk,
                                           ps, card)
@@ -6200,6 +6584,7 @@ def main() -> int:
     h6 = host_em_sort_phase(torch, np, tt, pk, ps, card)
     log(f"host phases (H1-H6): {time.perf_counter() - t_host:.1f} s of host "
         f"clock, the plain versions included [host {cpu_line()}; {card}]")
+    clock("the op and host phases")
     t_mem = time.perf_counter()
     m1, m3a, m3b = mem_phases(torch, np, tt, pk, ps, hbm_mod, recs4, order4,
                               card)
@@ -6233,6 +6618,7 @@ def main() -> int:
     del edges
     log(f"loop phases (L1-L5): {time.perf_counter() - t_l:.1f} s of host "
         f"clock, numpy references included [host {cpu_line()}; {card}]")
+    clock("the memory, checkpoint, stitching and loop phases")
     torch.cuda.empty_cache()
     p_paths = plan_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
@@ -6241,6 +6627,7 @@ def main() -> int:
     t_paths = t_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     d_paths = d_phase(torch, np, tt, pk, ps, card)
+    clock("phases P, X, T and D")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -6340,6 +6727,8 @@ def main() -> int:
                     **({"inputs": main_inputs[k]} if k in main_inputs
                        else {}))
                for k, m in meta.items()]
+    assert_port_alone()
+    clock("the kernels on the main path's inputs")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -281,12 +281,16 @@ def test_two_processes_equal_the_reference_and_one_process(tmp_path):
         sum(r["moved_plain"] for r in procs_results)
 
 
-def test_unported_ops_raise_across_processes():
-    """A mesh of several processes refuses the ops this slice has not
-    ported, by name."""
+def test_unported_ops_raise_across_processes(tmp_path):
+    """Every op is made on a mesh of several processes (the op sweep
+    runs them, ``test_torch_distributed_ops.py``); what is still not
+    ported across processes raises by name: the exchange modes other
+    than the synced dense plan and a checkpoint directory (ROADMAP.md
+    item 6, its exchange-modes and checkpoint parts)."""
     import pytest
 
     import thrill_tpu_torch as tt
+    from thrill_tpu_torch.data import exchange
     from thrill_tpu_torch.parallel.mesh import MeshExec
 
     mex = MeshExec(num_workers=4, device="cpu", process_index=0,
@@ -294,14 +298,23 @@ def test_unported_ops_raise_across_processes():
     ctx = tt.Context(mex)
     try:
         d = ctx.Distribute(np.arange(8, dtype=np.int64))
-        with pytest.raises(NotImplementedError, match="item 6"):
-            d.PrefixSum()
-        with pytest.raises(NotImplementedError, match="item 6"):
-            d.ZipWithIndex()
-        with pytest.raises(NotImplementedError, match="item 6"):
-            d.Rebalance()
+        for made in (d.PrefixSum(), d.ZipWithIndex(), d.Rebalance(),
+                     d.Window(2, None, device_fn=lambda w: w.sum(1)),
+                     d.Sample(3), d.ReduceToIndex(lambda x: x, None, 8)):
+            assert made.node.context is ctx
+        for mode in ("onefactor", "ragged"):
+            mex.exchange_mode = mode
+            with pytest.raises(NotImplementedError,
+                               match="item 6, its exchange-modes part"):
+                exchange.resolve_mode(mex)
     finally:
         ctx.close()
+    from thrill_tpu_torch.common.config import Config
+    with pytest.raises(NotImplementedError,
+                       match="item 6, its checkpoint part"):
+        tt.Context(MeshExec(num_workers=4, device="cpu", process_index=0,
+                            num_processes=2),
+                   config=Config(ckpt_dir=str(tmp_path)))
 
 
 def failing_job(ctx):

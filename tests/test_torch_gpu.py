@@ -1591,3 +1591,135 @@ def test_two_processes_build_the_kernels_once(cuda_device, tmp_path):
     assert sorted(built) == native_build.sources()
     libs = [f for f in os.listdir(tmp_path / "build") if f.endswith(".so")]
     assert len(libs) == len(native_build.sources())
+
+
+# -- the op sweep across processes on the one card --------------------------
+
+_OPS_CHILD = r'''
+import hashlib, json, sys
+import numpy as np, torch
+import thrill_tpu_torch as tt
+from thrill_tpu_torch.core import ordered_fold as of, pallas_kernels as pk
+from thrill_tpu_torch.examples import page_rank as tpr
+
+
+def job(ctx):
+    edges = tpr.zipf_graph(1 << 12, 1 << 16, seed=3)
+    of.ordered_segment_sum.launches = 0
+    ranks = tpr.page_rank(ctx, edges, 1 << 12, 5)
+    fold = of.ordered_segment_sum.launches
+    loop = dict(ctx.mesh_exec.loop_reports[-1])
+    rng = np.random.default_rng(4)
+    left = {"k": rng.integers(0, 3000, 1 << 14), "a": np.arange(1 << 14)}
+    right = {"k": rng.integers(1500, 6000, 1 << 13), "b": np.arange(1 << 13)}
+    pk.presence_fill.launches = 0
+    pairs = tt.InnerJoin(ctx.Distribute(left), ctx.Distribute(right),
+                         lambda t: t["k"], lambda t: t["k"],
+                         lambda a, b: {"k": a["k"], "a": a["a"],
+                                       "b": b["b"]},
+                         location_detection=True).AllGatherArrays()
+    order = np.lexsort([pairs[c].cpu().numpy() for c in ("b", "a", "k")])
+    h = hashlib.sha256()
+    for c in ("k", "a", "b"):
+        h.update(pairs[c].cpu().numpy()[order].tobytes())
+    return {"ranks": hashlib.sha256(ranks.tobytes()).hexdigest(),
+            "fold": fold, "loop": loop, "join": h.hexdigest(),
+            "pairs": int(len(order)), "presence": pk.presence_fill.launches}
+
+
+if sys.argv[1] == "one":
+    print("RESULT " + json.dumps(tt.Run(job, 4)), flush=True)
+else:
+    print("RESULT " + json.dumps(tt.RunDistributed(
+        job, coordinator_address=sys.argv[2], num_processes=2,
+        process_id=int(sys.argv[3]), workers_per_process=2)), flush=True)
+'''
+
+
+@pytest.fixture(scope="module")
+def op_sweep_runs(tmp_path_factory):
+    """PageRank (f64, 5 iterations) and a device InnerJoin with the
+    location filter, at W = 4 on one process and across two processes
+    sharing the card (gloo, 2 workers each)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    tmp = tmp_path_factory.mktemp("ops")
+    child = tmp / "ops_child.py"
+    child.write_text(_OPS_CHILD)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    hosts = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+
+    def run(argvs, env_of):
+        procs = [subprocess.Popen(
+            [sys.executable, str(child)] + a, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=repo, **env_of(i)))
+            for i, a in enumerate(argvs)]
+        out = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=300)
+                assert p.returncode == 0, e[-3000:]
+                out.append(json.loads([l for l in o.splitlines()
+                                       if l.startswith("RESULT ")][-1][7:]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        return out
+
+    one = run([["one"]], lambda i: {})[0]
+    two = run([["two", f"127.0.0.1:{ports[0]}", str(r)] for r in range(2)],
+              lambda i: {"THRILL_TPU_HOSTLIST": hosts,
+                         "THRILL_TPU_RANK": str(i),
+                         "THRILL_TPU_SECRET": "gpu-test"})
+    return one, two
+
+
+@pytest.mark.gpu
+def test_page_rank_across_processes_on_the_card_is_bit_equal(op_sweep_runs):
+    """PageRank's f64 ranks across two processes are bit-equal to one
+    process's: each process folds its pages' sums with the ordered fold,
+    in the one-process order."""
+    one, two = op_sweep_runs
+    assert one["fold"] > 0
+    for r in two:
+        assert r["ranks"] == one["ranks"]
+        assert r["fold"] > 0
+
+
+@pytest.mark.gpu
+def test_device_join_across_processes_on_the_card(op_sweep_runs):
+    """A device InnerJoin with the location filter across two processes
+    gives the one-process pairs, and each process fills its presence
+    registers with B4."""
+    one, two = op_sweep_runs
+    assert one["presence"] >= 2 and one["pairs"] > 0
+    for r in two:
+        assert r["join"] == one["join"] and r["pairs"] == one["pairs"]
+        assert r["presence"] >= 2
+
+
+@pytest.mark.gpu
+def test_the_loop_graph_is_off_across_processes(op_sweep_runs):
+    """One process replays PageRank's tape as one CUDA graph; across
+    processes the tape replays per iteration, and the loop's report
+    says why the graph is off."""
+    one, two = op_sweep_runs
+    assert one["loop"]["fori_iters"] == 4 and "graph_off" not in one["loop"]
+    for r in two:
+        loop = r["loop"]
+        assert loop["captures"] == 1 and loop["replays"] == 4
+        assert loop["fori_iters"] == 0
+        assert "CUDA graph" in loop["graph_off"]

@@ -125,11 +125,18 @@ def test_prefetch_depth_matches_reference(monkeypatch, env):
 
 
 def _fetch_all(mod, depth, fail=(), skip=None):
+    """Every item through ``overlapped_fetch``. The background read of
+    an item in ``fail`` raises; before the consumer asks for such an
+    item, it waits until that read has started, so the pool cannot be
+    beaten to it (a future no thread started yet is cancelled and read
+    on the caller without a failure to note)."""
     calls = []
+    started = {i: threading.Event() for i in fail}
 
     def fetch(i):
         calls.append((i, threading.current_thread().name))
         if i in fail and threading.current_thread().name != "MainThread":
+            started[i].set()
             raise IOError(f"background read {i}")
         time.sleep(1e-3)
         return i * i
@@ -137,8 +144,13 @@ def _fetch_all(mod, depth, fail=(), skip=None):
     ra = mod.make_readahead(depth)
     st = {}
     try:
-        out = list(mod.overlapped_fetch(range(8), fetch, "test", ra,
-                                        skip_fn=skip, stats=st))
+        out = []
+        for it, v in mod.overlapped_fetch(range(8), fetch, "test", ra,
+                                          skip_fn=skip, stats=st):
+            out.append((it, v))
+            if ra is not None and it + 1 in started:
+                # the next item's read was submitted before this yield
+                assert started[it + 1].wait(timeout=60)
     finally:
         if ra is not None:
             ra.shutdown(wait=True)
@@ -156,6 +168,7 @@ def test_overlapped_fetch_yields_in_order(depth):
 
 
 def test_overlapped_fetch_falls_back_to_the_demand_read():
+    faults.REGISTRY.events.clear()
     got, _, calls = _fetch_all(wb, 4, fail={2, 5})
     assert got == [(i, i * i) for i in range(8)]
     # the failed background reads were read again on the caller

@@ -108,6 +108,13 @@ class CheckpointManager:
                 f"checkpoint directory {directory!r}: remote stores are "
                 f"not ported yet (ROADMAP.md queue A item 6, its "
                 f"remote-vfs part)")
+        if ctx.mesh_exec.multiprocess:
+            # every process would seal and restore its own epochs with
+            # no agreement between them
+            raise NotImplementedError(
+                "checkpoints on a mesh of several processes are not "
+                "ported yet (ROADMAP.md queue A item 6, its checkpoint "
+                "part)")
         self.ctx = ctx
         self.dir = directory
         self.auto = auto

@@ -90,14 +90,6 @@ class ParentLink:
         return shards
 
 
-#: the ops that run on a mesh of several processes (RunDistributed);
-#: making any other there raises NotImplementedError
-MULTIPROCESS_OPS = frozenset({
-    "Generate", "Distribute", "ConcatToDIA", "ReadLines", "ReadWordsPacked",
-    "ReduceByKey", "ReducePair", "Sort", "InnerJoin", "FlatMapHost",
-    "Cache", "Collapse"})
-
-
 class DIABase:
     """A node of the DIA dataflow graph."""
 
@@ -108,10 +100,6 @@ class DIABase:
 
     def __init__(self, ctx, label: str,
                  parents: Sequence[ParentLink] = ()) -> None:
-        if ctx.mesh_exec.multiprocess and label not in MULTIPROCESS_OPS:
-            raise NotImplementedError(
-                f"{label} across processes is not ported yet: ROADMAP.md "
-                f"queue A item 6, its op-sweep part")
         self.context = ctx
         self.label = label
         self.parents: List[ParentLink] = list(parents)

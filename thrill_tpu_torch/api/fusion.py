@@ -91,9 +91,11 @@ class TraceCtx:
     @staticmethod
     def exclusive_offset(mask: torch.Tensor) -> torch.Tensor:
         """``[W]`` int64: the valid rows of the workers before each one,
-        the global index of its first valid row."""
-        cnt = mask.sum(dim=1, dtype=torch.int64)
-        return torch.cumsum(cnt, dim=0) - cnt
+        the global index of its first valid row (every process's
+        workers counted, across processes)."""
+        from ..parallel.mesh import current_mex, worker_exscan
+        return worker_exscan(mask.sum(dim=1, dtype=torch.int64),
+                             current_mex())
 
     def emit_aux(self, name: str, value: torch.Tensor) -> None:
         """A ``[W]`` value as an extra output of the program (the hinted

@@ -90,6 +90,15 @@ from its first iteration on a warm restart (``loop_seed_nocapture``), a
 captured tape's program keys and wiring are compared with the fresh
 capture's (``loop_seed_stale`` when they differ).
 
+Across processes (a mesh of several processes) every process captures
+its own tape, whose programs hold the collectives; the loop replays only
+when every process captured (a ``loop_plan`` decision record says which
+mode ran and why), so every process replays the same calls with the
+same host fetches. On the card the whole-loop graph is off there: gloo's
+collectives run on the host (``graph_off`` in the loop's report,
+``loop_fori_unavailable`` in the log), and the replays run per
+iteration.
+
 Tracing (common/trace.py): a ``loop`` span ``capture`` for every capture
 or plain iteration (``mode`` says which) and ``replay`` for every
 replayed iteration, or one for the whole-loop window with its
@@ -110,6 +119,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..common import decisions as _decisions
 from ..common import faults, taint
 from ..common import tree as pt
 from ..core import ordered_fold, pallas_kernels, pallas_sort
@@ -657,10 +667,20 @@ class _Recorder:
             if any(t.device.type == "cuda" for t in ins):
                 cur.read = cur.read | lab
             cur.host_ops.add(name)
+        in_keys = {_skey(t) for t in ins}
+        mut_keys = {_skey(t) for t in mutated}
         for o in outs + mutated:
             k = _skey(o)
-            if k is not None:
+            if k is None:
+                continue
+            if k in in_keys or k in mut_keys:
+                # a view of an input, or a write into part of a storage:
+                # the rest of the storage keeps what it held
                 cur.local[k] = cur.local.get(k, frozenset()) | lab
+            else:
+                # a new tensor holds what its inputs made; its storage
+                # may reuse a freed temporary's, whose labels are stale
+                cur.local[k] = lab
 
 
 # ----------------------------------------------------------------------
@@ -984,10 +1004,14 @@ class LoopPlan:
         loop over its calls, as the reference lowers any all-device
         tape); on the card a tape whose every live call ran without a
         host read or a CPU tensor during the capture (a CUDA graph holds
-        no host work)."""
-        return bool(self.calls) and (
-            self.mex.device.type != "cuda"
-            or not any(c.host_read for c in self.calls))
+        no host work), on a mesh of one process (see
+        :func:`graph_off_reason`)."""
+        if not self.calls:
+            return False
+        if self.mex.device.type != "cuda":
+            return True
+        return (graph_off_reason(self.mex) is None
+                and not any(c.host_read for c in self.calls))
 
     def run_fori(self, carry: List[Any], k: int) -> Optional[List[Any]]:
         """The remaining ``k`` iterations as ONE dispatch through the
@@ -1011,6 +1035,46 @@ class LoopPlan:
 
 class _GraphUnavailable(Exception):
     """The tape could not be captured in a CUDA graph."""
+
+
+def graph_off_reason(mex) -> Optional[str]:
+    """Why the whole-loop CUDA graph cannot run on this mesh, or None:
+    across processes the collectives of the tape (gloo) run on the host,
+    and a CUDA graph holds no host work."""
+    if mex.multiprocess and mex.device.type == "cuda":
+        return ("collectives across processes run on the host (gloo) "
+                "and cannot be captured in a CUDA graph")
+    return None
+
+
+def _agree_plan(ctx, name: str, plan: Optional["LoopPlan"],
+                info: Dict[str, str]) -> Optional["LoopPlan"]:
+    """Across processes, replay only when every process captured: each
+    replays its tape with its collectives, and a process running the
+    plain body would run other ones. The choice is a ``loop_plan``
+    decision record; one process's miss drops every plan."""
+    mex = ctx.mesh_exec
+    votes = mex.allgather_object(
+        None if plan is not None else info.get("reason", "?"))
+    missed = [(p, r) for p, r in enumerate(votes) if r is not None]
+    if missed and plan is not None:
+        plan = None
+        info["reason"] = (f"process {missed[0][0]} missed its capture: "
+                          f"{missed[0][1]}")[:200]
+        if ctx.logger.enabled:
+            ctx.logger.line(event="loop_capture_miss", loop=name,
+                            reason=info["reason"])
+    led = _decisions.ledger_of(mex)
+    if led is not None:
+        led.record("loop_plan", "loop:" + name,
+                   "replay" if plan is not None else "plain",
+                   rejected=[("plain" if plan is not None else "replay",
+                              None)],
+                   reason=("every process captured" if plan is not None
+                           else info.get("reason", "?")),
+                   processes=mex.num_processes,
+                   graph_off=graph_off_reason(mex))
+    return plan
 
 
 def _whole_loop(plan: LoopPlan, carry: List[Any], k: int) -> List[Any]:
@@ -1223,6 +1287,13 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
               "fori_iters": 0, "fallbacks": 0, "capture_s": 0.0,
               "replay_s": 0.0, "calls": 0, "pruned": 0,
               "donated_bytes0": mex.stats_loop_donated_bytes}
+    graph_off = graph_off_reason(mex) if can_replay else None
+    if graph_off is not None:
+        # the loop's stats say why the replays run per iteration
+        report["graph_off"] = graph_off
+        if log.enabled:
+            log.line(event="loop_fori_unavailable", loop=name,
+                     error=graph_off)
     tracer = getattr(ctx, "tracer", None)
     tr_on = tracer is not None and tracer.enabled
     i = start
@@ -1239,6 +1310,8 @@ def Iterate(ctx, body: Callable, carry: Any, n: int, *, name: str = "loop",
                 if can_replay and miss_streak < 2:
                     state, plan = _capture(ctx, run_body, state, name=name,
                                            it=i, info=last_miss)
+                    if mex.multiprocess:
+                        plan = _agree_plan(ctx, name, plan, last_miss)
                     if plan is not None:
                         miss_streak = 0
                         mex.stats_loop_plan_builds += 1

@@ -19,6 +19,7 @@ import torch
 from ...common import tree as pt
 from ...data import multiplexer
 from ...data.shards import HostShards, itemize
+from ...parallel.mesh import current_mex
 from .reduce import _type_max, _type_min
 
 
@@ -50,7 +51,7 @@ def AllGatherArrays(dia):
         shards = multiplexer.ensure_replicated(mex, shards,
                                                "allgather-arrays")
     if mex.loop_recorder is not None and not isinstance(shards, HostShards):
-        counts = tuple(int(c) for c in shards.counts)
+        counts = tuple(int(c) for c in shards.global_counts)
         leaves, td = pt.flatten(shards.tree)
         prog = mex.program(("allgather_arrays", shards.cap, counts, td,
                             tuple((l.dtype, tuple(l.shape[2:]))
@@ -60,8 +61,11 @@ def AllGatherArrays(dia):
 
 
 def _concat_program(leaves, counts):
-    """Program: each leaf's valid rows of every worker, concatenated."""
-    return [_concat_valid(l, counts) for l in leaves]
+    """Program: each leaf's valid rows of every worker (every process's,
+    across processes), concatenated."""
+    mex = current_mex()
+    return [_concat_valid(l if mex is None else mex.gather_workers(l),
+                          counts) for l in leaves]
 
 
 def _concat_valid(leaf, counts):

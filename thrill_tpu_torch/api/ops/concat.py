@@ -7,7 +7,9 @@ to the worker that owns that index under an even split, and a stable
 argsort by the carried index restores the order (the reference's
 CatStream rank-ordered concatenation). Host path: the item lists in
 order, re-split by ``dense_range_bounds``. Mixed storage demotes the
-device inputs to the host.
+device inputs to the host. Across processes the global offsets and the
+capacities come from every worker's counts, and the host path
+replicates the items and keeps its own workers' share.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ...common import tree as pt
 from ...common.partition import dense_range_bounds
 from ...core.device_sort import argsort_words
 from ...core.rowmove import take_rows
-from ...data import exchange
+from ...data import exchange, multiplexer
 from ...data.shards import DeviceShards, HostShards, round_up_pow2
 from ..dia import DIA
 from ..dia_base import DIABase
@@ -37,7 +39,7 @@ def rebalance_to_even(mex, parts: List[DeviceShards],
     n_total = 0
     carriers = []
     for p in parts:
-        offs = np.concatenate([[0], np.cumsum(p.counts)])[:-1] + n_total
+        offs = p.offsets() + n_total
         n_total += p.total
         g = (mex.put_small(offs.astype(np.int64))[:, None]
              + torch.arange(p.cap, device=dev)[None, :])
@@ -73,7 +75,8 @@ def _local_concat(parts: List[DeviceShards]) -> DeviceShards:
         raise ValueError("Concat/Union requires matching schemas")
     pc = np.stack([p.counts for p in parts])               # [P, W]
     counts = pc.sum(axis=0)
-    cap = round_up_pow2(int(counts.max()))
+    # one capacity on every process: every worker's largest count
+    cap = round_up_pow2(int(mex.gather_host(counts).max()))
     cum = mex.put_small(np.cumsum(pc, axis=0).T.copy())     # [W, P]
     start = cum - mex.put_small(pc.T.copy())
     cap_off = mex.put_small(np.concatenate(
@@ -104,9 +107,11 @@ class ConcatNode(DIABase):
         pulls = [l.pull() for l in self.parents]
         if any(isinstance(p, HostShards) for p in pulls):
             hosts = host_lists(pulls, "concat-mixed-storage")
-            return HostShards(1, [[it for h in hosts for l in h.lists
-                                   for it in l]]).repartition(
-                                       self.context.num_workers)
+            mex = self.context.mesh_exec
+            return multiplexer.split_even(
+                mex, [it for h in hosts
+                      for it in multiplexer.all_items(mex, h)],
+                self.context.num_workers)
         return rebalance_to_even(self.context.mesh_exec, pulls, (self.id,))
 
 
@@ -117,7 +122,9 @@ class RebalanceNode(DIABase):
     def compute(self):
         shards = self.parents[0].pull()
         if isinstance(shards, HostShards):
-            return shards.repartition(shards.num_workers)
+            mex = self.context.mesh_exec
+            return multiplexer.split_even(
+                mex, multiplexer.all_items(mex, shards), shards.num_workers)
         return rebalance_to_even(self.context.mesh_exec, [shards],
                                  (self.id,))
 

@@ -30,7 +30,9 @@ rows with an id ``>= num_segments`` must be dropped, as
 ``jax.ops.segment_*`` and ``core/segmented.py``'s ``segment_sum``,
 ``segment_max``, ``segment_min`` and ``segment_count`` do. The result's
 leaves lead with ``num_segments`` rows, worker ``w``'s at ``[w * per,
-(w + 1) * per)``.
+(w + 1) * per)``. Across processes ``device_fn`` sees the local workers'
+rows, ``w`` counting them from 0, and the host paths hold their own
+workers' groups.
 """
 
 from __future__ import annotations
@@ -169,7 +171,7 @@ class GroupByKeyNode(DIABase):
         those W slots would take every padding row of the exchange's
         power-of-two capacity, the hottest addresses of the folds."""
         mex = shards.mesh_exec
-        W, cap = shards.num_workers, shards.cap
+        W, cap = mex.num_local, shards.cap
         tree_s, valid_s, starts = self._sorted_runs(shards)
         seg = row_cumsum(starts) - 1
         nseg = starts.sum(dim=1)
@@ -191,7 +193,12 @@ class GroupByKeyNode(DIABase):
         for w, items in enumerate(
                 sorted_shards.to_host_shards("groupbykey-group-fn").lists):
             n = len(items)
-            bounds = np.flatnonzero(starts[w, :n]).tolist() + [n]
+            if not n:
+                lists.append([])
+                continue
+            # the run starts of the local workers only
+            bounds = np.flatnonzero(
+                starts[w - mex.worker_base, :n]).tolist() + [n]
             lists.append([
                 self.group_fn(hashing.hashable(self.key_fn(items[lo])),
                               items[lo:hi])
@@ -230,16 +237,20 @@ class GroupToIndexNode(DIABase):
         ``[0, size)`` are dropped, and an index without items gives
         ``neutral``."""
         W, n = shards.num_workers, self.size
+        mex = self.context.mesh_exec
         groups: dict = {}
-        for items in shards.lists:
+        for items in multiplexer.ensure_replicated(mex, shards,
+                                                   "grouptoindex").lists:
             for it in items:
                 i = int(self.index_fn(it))
                 if 0 <= i < n:
                     groups.setdefault(i, []).append(it)
         bounds = dense_range_bounds(n, W).tolist()
+        local = multiplexer.local_worker_set(mex)
         return HostShards(W, [
             [self.group_fn(i, groups[i]) if i in groups else self.neutral
-             for i in range(bounds[w], bounds[w + 1])] for w in range(W)])
+             for i in range(bounds[w], bounds[w + 1])] if w in local else []
+            for w in range(W)])
 
     def _compute_device(self, shards: DeviceShards) -> DeviceShards:
         """Range exchange, then ``device_fn`` (the batched contract of
@@ -250,6 +261,7 @@ class GroupToIndexNode(DIABase):
         mex = shards.mesh_exec
         W, n, dev = shards.num_workers, self.size, mex.device
         bounds = dense_range_bounds(n, W)
+        Wl = mex.num_local
 
         def index_of(tree):
             return _index_of(self.index_fn, tree)
@@ -266,16 +278,19 @@ class GroupToIndexNode(DIABase):
         cap = shards.cap
         sizes = np.diff(bounds).astype(np.int64)
         per = max(1, int(sizes.max()))
-        local = index_of(shards.tree) - mex.put_small(bounds[:-1])[:, None]
+        # the local workers' ranges and segments
+        local = (index_of(shards.tree)
+                 - mex.put_small(mex.local(bounds[:-1]))[:, None])
         keep = shards.valid_mask() & (local >= 0) & (local < per)
         ids = torch.where(
-            keep, local + torch.arange(W, device=dev)[:, None] * per,
-            torch.full_like(local, W * per)).reshape(-1)
-        out = self.device_fn(_flat(shards.tree, W, cap), ids, W * per)
+            keep, local + torch.arange(Wl, device=dev)[:, None] * per,
+            torch.full_like(local, Wl * per)).reshape(-1)
+        out = self.device_fn(_flat(shards.tree, Wl, cap), ids, Wl * per)
         if self.neutral is not None:
             out = _fill_neutral(out, self.neutral,
-                                segmented.segment_count(ids, W * per) > 0)
-        return DeviceShards(mex, _per_worker(out, W, per), sizes)
+                                segmented.segment_count(ids, Wl * per) > 0)
+        return DeviceShards(mex, _per_worker(out, Wl, per),
+                            mex.local(sizes))
 
 
 def _fill_neutral(out: Any, neutral: Any, filled: torch.Tensor) -> Any:

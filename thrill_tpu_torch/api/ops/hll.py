@@ -4,10 +4,12 @@ package's ``api/ops/hll.py``; Thrill's ``api/hyperloglog.hpp``).
 Device path: each item's key words hashed (``hash_key_words``), the
 register index the hash's top ``p`` bits and ``rho`` one plus the
 leading zeros of the rest, a per-worker ``scatter_reduce_(..., "amax")``
-into ``2^p`` int32 registers, an amax over the worker dimension, and the
-estimate on the host. Every shift is logical on int64 bit patterns
-(ROADMAP.md fault C1), so the registers equal the reference's bit for
-bit. The host path hashes items with ``stable_host_hash``.
+into ``2^p`` int32 registers, an amax over the worker dimension (and
+over the processes: ``mesh.worker_max``, or the host path's
+``net_fold`` of the registers), and the estimate on the host. Every
+shift is logical on int64 bit patterns (ROADMAP.md fault C1), so the
+registers equal the reference's bit for bit. The host path hashes
+items with ``stable_host_hash``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,9 @@ import torch
 
 from ...common import hashing
 from ...core import keys as keymod
+from ...data import multiplexer
 from ...data.shards import DeviceShards
+from ...parallel.mesh import worker_max
 from ..dia import DIA
 
 
@@ -74,8 +78,9 @@ def _rho_max(p: int) -> int:
 
 
 def device_registers(shards: DeviceShards, p: int) -> torch.Tensor:
-    """int32 ``[2^p]`` registers of the items of device shards."""
-    W, cap = shards.num_workers, shards.cap
+    """int32 ``[2^p]`` registers of the items of device shards (every
+    process's, max-folded, across processes)."""
+    W = shards.mesh_exec.num_local
     h = hashing.hash_key_words(keymod.worker_key_words(lambda t: t,
                                                        shards.tree))
     idx = hashing._shr(h, 64 - p)
@@ -85,7 +90,7 @@ def device_registers(shards: DeviceShards, p: int) -> torch.Tensor:
                       0).to(torch.int32)
     regs = torch.zeros((W, 1 << p), dtype=torch.int32, device=h.device)
     regs.scatter_reduce_(1, idx, rho, "amax")
-    return regs.amax(dim=0)
+    return worker_max(regs, shards.mesh_exec)
 
 
 def host_registers(lists, p: int) -> np.ndarray:
@@ -108,5 +113,9 @@ def HyperLogLog(dia: DIA, precision: int = 14) -> float:
     if isinstance(shards, DeviceShards):
         regs = shards.mesh_exec.fetch(device_registers(shards, p))
     else:
-        regs = host_registers(shards.lists, p)
+        # the sketch merges by elementwise max: across processes the
+        # registers travel, not the items
+        regs = multiplexer.net_fold(dia.context.mesh_exec,
+                                    host_registers(shards.lists, p),
+                                    np.maximum)
     return _estimate(regs, p)

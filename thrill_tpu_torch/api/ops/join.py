@@ -38,6 +38,12 @@ of phase 1), and heals the shards in place (``join_overflow_retries``;
 the governor re-accounts a cached result that grew);
 ``THRILL_TPU_JOIN_RECOVER=0`` raises instead, and every later check
 raises again. A dense-index join stitches as a plan head too.
+
+Across processes (a mesh of several processes) the location filter's
+u8 registers are max-folded over every process (``mesh.worker_max``),
+the output capacity and the healed capacity are the largest of every
+worker's totals, the cost model's verdict is process 0's, and the dense
+join gathers every process's rows of the table.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from ...data import exchange, multiplexer
 from ...data.shards import (DeviceShards, HostShards, compact_valid,
                             round_up_pow2)
 from ...mem.hbm import device_bytes
+from ...parallel.mesh import current_mex, worker_max
 from ..dia import DIA
 from ..dia_base import DIABase
 from ..stack import call_batched
@@ -218,7 +225,8 @@ class InnerJoinNode(DIABase):
                 return None
             totals = mex._fetch_raw(state["totals"]).reshape(-1).astype(
                 np.int64)
-            worst = int(totals.max(initial=0))
+            # every process's worst: the healed capacity is one capacity
+            worst = int(mex.gather_host(totals).max(initial=0))
             if worst <= cap:
                 resolve()
                 return None
@@ -339,11 +347,6 @@ class InnerJoinNode(DIABase):
         forced), then the hash exchange of both sides."""
         mex = left.mesh_exec
         W = mex.num_workers
-        if mex.multiprocess:
-            raise NotImplementedError(
-                "a device InnerJoin across processes is not ported yet: "
-                "ROADMAP.md queue A item 6, its op-sweep part (a host "
-                "InnerJoin runs)")
         if W == 1:
             return left, right
         token = (self.lkey, self.rkey, self.join_fn)
@@ -387,10 +390,11 @@ class InnerJoinNode(DIABase):
         if not fetch and right._counts_host is None:
             return
         expect = np.diff(self._dense_bounds())
-        if not np.array_equal(right.counts, expect):
+        got = right.global_counts
+        if not np.array_equal(got, expect):
             raise ValueError(
                 f"InnerJoin dense_right_index={self.dense_right_index}: "
-                f"right side counts {right.counts.tolist()} do not form "
+                f"right side counts {got.tolist()} do not form "
                 f"the dense range split {expect.tolist()}")
 
     def _attach_dense_check(self, out: DeviceShards,
@@ -398,7 +402,9 @@ class InnerJoinNode(DIABase):
         """The dense-split check of a right side whose counts stayed on
         the device, deferred onto the stitched output (sticky)."""
         mex = out.mesh_exec
-        expect = np.diff(self._dense_bounds())
+        # the local workers' share of the split: each process checks its
+        # own counts
+        expect = mex.local(np.diff(self._dense_bounds()))
         n = self.dense_right_index
         state = {"err": None, "rc": rcounts, "out": out}
 
@@ -462,7 +468,8 @@ class InnerJoinNode(DIABase):
                                self.dense_right_index, self.lkey,
                                self.join_fn)
         counts = mex.fetch(kept).astype(np.int64)
-        if np.array_equal(counts, left.counts):
+        # one choice on every process: every worker's counts
+        if np.array_equal(mex.gather_host(counts), left.global_counts):
             # every item joined: the rows are in place already
             return DeviceShards(mex, out, counts)
         tree, _ = mex.program(("compact_valid",), compact_valid)(out, keep)
@@ -513,8 +520,12 @@ def _location_filter_prog(ltree, lcounts: torch.Tensor, rtree,
         keymod.worker_key_words(lkey, ltree)), M)
     hr = hashing.umod(hashing.hash_key_words(
         keymod.worker_key_words(rkey, rtree)), M)
-    pres_l = presence_fill(hl, lvalid, M).amax(dim=0)
-    pres_r = presence_fill(hr, rvalid, M).amax(dim=0)
+    pres_l = presence_fill(hl, lvalid, M)
+    pres_r = presence_fill(hr, rvalid, M)
+    # the u8 registers ORed over every worker, every process's across
+    # processes (an all-reduce MAX of a quarter of an i32 sum's bytes)
+    mex = current_mex()
+    pres_l, pres_r = worker_max(pres_l, mex), worker_max(pres_r, mex)
     ltree, lcount = compact_valid(ltree, lvalid & (pres_r[hl] > 0))
     rtree, rcount = compact_valid(rtree, rvalid & (pres_l[hr] > 0))
     return ltree, lcount, rtree, rcount
@@ -590,16 +601,21 @@ def _dense_rows(ltree, lmask: torch.Tensor, rtree, b: torch.Tensor,
     reference's all_gather); a left key in ``[0, n)`` picks its row.
     Returns (join_fn's output ``[W, lcap, ...]``, ``[W, lcap]`` mask of
     the valid lefts with a key in range)."""
-    W, lcap = lmask.shape
+    Wl, lcap = lmask.shape
+    W = b.shape[0] - 1
+    mex = current_mex()
+    if mex is not None and mex.multiprocess:
+        # every process's rows of the table
+        rtree = pt.tree_map(mex.gather_workers, rtree)
     rcap = pt.leaves(rtree)[0].shape[1]
     key = torch.as_tensor(lkey(_flat(ltree)),
                           device=lmask.device).to(torch.int64)
     w = torch.searchsorted(b[1:], key, right=True).clamp(0, W - 1)
     gidx = (w * rcap + key - b[w]).clamp(0, W * rcap - 1)
     rsel = pt.tree_map(lambda l: take_rows(l, gidx).reshape(
-        (W, lcap) + tuple(l.shape[1:])), _flat(rtree))
-    out = call_batched(join_fn, [ltree, rsel], W, lcap, lmask.device)
-    return out, lmask & ((key >= 0) & (key < n)).reshape(W, lcap)
+        (Wl, lcap) + tuple(l.shape[1:])), _flat(rtree))
+    out = call_batched(join_fn, [ltree, rsel], Wl, lcap, lmask.device)
+    return out, lmask & ((key >= 0) & (key < n)).reshape(Wl, lcap)
 
 
 def _dense_join(ltree, lmask: torch.Tensor, rtree, b: torch.Tensor, n: int,
@@ -655,7 +671,8 @@ def _sort_merge(left: DeviceShards, right: DeviceShards, lkey, rkey,
     ltree, rtree, lo, matches = p1(left.tree, left.valid_mask(), right.tree,
                                    right.valid_mask(), lkey, rkey)
     totals = mex.fetch(matches.sum(dim=1)).astype(np.int64)
-    out_cap = round_up_pow2(max(int(totals.max()), 1))
+    # one capacity on every process: every worker's largest total
+    out_cap = round_up_pow2(max(int(mex.gather_host(totals).max()), 1))
     p2 = mex.program(("join_expand", join_fn), _join_expand)
     return DeviceShards(mex, p2(ltree, rtree, lo, matches, out_cap, join_fn),
                         totals)

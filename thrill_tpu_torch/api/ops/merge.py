@@ -24,7 +24,9 @@ workers at once:
               against 2^23 compacted at W = 4 in ``chip_smoke.py``).
 
 W == 1 skips the first two. Host storage merges the inputs' items with
-``multiway_merge``.
+``multiway_merge``. Across processes the samples and the send matrices
+are every process's (``MeshExec.fetch_global``), so every process picks
+the same splitters and plans the same exchange.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ...common import tree as pt
 from ...core import keys as keymod
 from ...core.multiway_merge import multiway_merge
 from ...core.rowmove import take_rows
-from ...data import exchange
+from ...data import exchange, multiplexer
 from ...data.shards import DeviceShards, HostShards, round_up_pow2
 from ..dia import DIA
 from ..dia_base import DIABase
@@ -54,12 +56,13 @@ class MergeNode(DIABase):
     def compute(self):
         pulls = [l.pull() for l in self.parents]
         if any(isinstance(p, HostShards) for p in pulls):
-            seqs = [[it for l in (p.to_host_shards("merge-host-path").lists
-                                  if isinstance(p, DeviceShards) else p.lists)
-                     for it in l] for p in pulls]
+            mex = self.context.mesh_exec
+            seqs = [multiplexer.all_items(
+                mex, p.to_host_shards("merge-host-path")
+                if isinstance(p, DeviceShards) else p) for p in pulls]
             merged = list(multiway_merge(seqs, key=self.key_fn))
-            return HostShards(1, [merged]).repartition(
-                self.context.num_workers)
+            return multiplexer.split_even(mex, merged,
+                                          self.context.num_workers)
         return _device_merge(pulls, self.key_fn)
 
 
@@ -67,8 +70,7 @@ def _carrier(shards: DeviceShards, key_fn: Callable):
     """(key words ``[W, cap, nw]``, global index ``[W, cap]``) of an
     input's rows."""
     mex = shards.mesh_exec
-    offsets = np.concatenate([[0], np.cumsum(shards.counts)])[:-1]
-    gidx = (mex.put_small(offsets.astype(np.int64))[:, None]
+    gidx = (mex.put_small(shards.offsets())[:, None]
             + torch.arange(shards.cap, device=mex.device)[None, :])
     words = keymod.worker_key_words(key_fn, shards.tree)
     return torch.stack(words, dim=2), gidx
@@ -107,16 +109,19 @@ def _device_merge(inputs: List[DeviceShards],
             for j in range(W - 1):
                 d += _lex_greater(words, gidx, spl[j]).to(torch.int32)
             dest = torch.where(s.valid_mask(), d, torch.full_like(d, W))
-            S = mex.fetch(exchange.send_counts(dest, W)).astype(np.int64)
+            S = mex.fetch_global(exchange.send_counts(dest, W)).astype(
+                np.int64)
             leaves, td = pt.flatten((wm, gidx, s.tree))
             shipped.append(exchange.exchange_presorted(mex, td, dest,
                                                        leaves, S))
         inputs = [DeviceShards(mex, c.tree[2], c.counts) for c in shipped]
         carriers = [(c.tree[0], c.tree[1]) for c in shipped]
     new_counts = sum(s.counts for s in inputs)
-    out = merge_blocks(mex.radix_passes, [(s.valid_mask(), wm, gidx, pt.leaves(s.tree))
-                             for s, (wm, gidx) in zip(inputs, carriers)],
-                       round_up_pow2(int(new_counts.max())))
+    # one capacity on every process: every worker's largest count
+    out = merge_blocks(mex.radix_passes,
+                       [(s.valid_mask(), wm, gidx, pt.leaves(s.tree))
+                        for s, (wm, gidx) in zip(inputs, carriers)],
+                       round_up_pow2(int(mex.gather_host(new_counts).max())))
     return DeviceShards(mex, pt.unflatten(pt.flatten(inputs[0].tree)[1],
                                           out), new_counts)
 

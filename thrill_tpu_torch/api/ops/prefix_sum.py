@@ -7,7 +7,9 @@ as the reference does (device input is demoted first).
 
 Stitched (api/fusion.py), the scan is a segment over the chain's mask:
 the earlier workers' totals are a cumulative sum over the worker
-dimension inside the program, so no count is read on the host."""
+dimension inside the program, so no count is read on the host. Across
+processes the earlier workers' totals come from every process
+(``mesh.worker_exscan``)."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from ...common import tree as pt
 from ...data import multiplexer
 from ...data.shards import DeviceShards, HostShards
+from ...parallel.mesh import current_mex, worker_exscan
 from ..dia import DIA
 from ..dia_base import DIABase
 
@@ -32,8 +35,8 @@ def _scan(leaf: torch.Tensor, mask: torch.Tensor, initial: Any,
     totals = incl[:, -1]
     # each worker's offset: the totals of the workers before it, summed
     # as the reference sums them (integers in int64, which the result
-    # then takes)
-    prev = torch.cumsum(totals, dim=0) - totals
+    # then takes), every process's workers across processes
+    prev = worker_exscan(totals, current_mex())
     scan = incl if inclusive else incl - xm
     if isinstance(initial, (int, float)):
         # a fill on the device: no host-to-device copy inside a chain

@@ -10,7 +10,9 @@ holds its first byte; a file boundary ends every item. Compressed input
 is read whole-file, each file placed by its size prefix sum. Across
 processes each process reads its own workers' byte ranges only, and a
 device source's capacity comes from every worker's count
-(``DeviceShards.from_worker_arrays``).
+(``DeviceShards.from_worker_arrays``); each process writes its own
+workers' files, and WriteLinesOne's file is process 0's; a writer
+returns when every process has written.
 """
 
 from __future__ import annotations
@@ -235,8 +237,14 @@ class ReadBinaryNode(DIABase):
                      * self.dtype.itemsize)
         bounds = dense_range_bounds(fl.total_size // rec_bytes, W).tolist()
         native = self.dtype.newbyteorder("=")
+        local = set(mex.local_workers)
         per_worker = []
         for w in range(W):
+            if w not in local:
+                # another process reads this worker's byte range
+                per_worker.append(np.empty((0,) + self.record_shape,
+                                           dtype=native))
+                continue
             buf = torch.empty((bounds[w + 1] - bounds[w]) * rec_bytes,
                               dtype=torch.uint8,
                               pin_memory=mex.device.type == "cuda")
@@ -303,15 +311,30 @@ def _write_lines(f, items) -> None:
 
 
 def WriteLines(dia, path_pattern: str) -> None:
-    """One text file per worker, empty ones included."""
+    """One text file per worker, empty ones included; across processes
+    each process writes its own workers' files."""
+    local = multiplexer.local_worker_set(dia.context.mesh_exec)
     for w, items in enumerate(_host_lists(dia).lists):
+        if w not in local:
+            continue
         with file_io.OpenWriteStream(_worker_path(path_pattern, w)) as f:
             _write_lines(f, items)
+    multiplexer.barrier(dia.context.mesh_exec)
 
 
 def WriteLinesOne(dia, path: str) -> None:
-    """One text file of every worker's lines, in worker-rank order."""
+    """One text file of every worker's lines, in worker-rank order;
+    across processes the lines gather to process 0, which writes the
+    file alone."""
     shards = _host_lists(dia)
+    mex = dia.context.mesh_exec
+    if multiplexer.multiprocess(mex):
+        items = multiplexer.all_items(mex, shards)
+        if mex.process_index == 0:
+            with file_io.OpenWriteStream(path) as f:
+                _write_lines(f, items)
+        multiplexer.barrier(mex)
+        return
     with file_io.OpenWriteStream(path) as f:
         for items in shards.lists:
             _write_lines(f, items)
@@ -320,18 +343,22 @@ def WriteLinesOne(dia, path: str) -> None:
 def WriteBinary(dia, path_pattern: str) -> None:
     """Raw records, one file per worker. Device storage writes each
     leaf's valid rows in turn (leaf order of the item pytree); host
-    storage writes each item's bytes."""
+    storage writes each item's bytes. Across processes each process
+    writes its own workers' files."""
     shards = dia._link().pull()
-    for w in range(shards.num_workers):
+    mex = dia.context.mesh_exec
+    for w in sorted(multiplexer.local_worker_set(mex)):
         with file_io.OpenWriteStream(_worker_path(path_pattern, w)) as f:
             if isinstance(shards, HostShards):
                 for it in shards.lists[w]:
                     f.write(np.asarray(it).tobytes())
                 continue
-            c = int(shards.counts[w])
+            lw = w - mex.worker_base
+            c = int(shards.counts[lw])
             for leaf in pt.leaves(shards.tree):
                 f.write(np.ascontiguousarray(
-                    leaf[w, :c].cpu().numpy()).data)
+                    leaf[lw, :c].cpu().numpy()).data)
+    multiplexer.barrier(mex)
 
 
 def ReadLines(ctx, path_or_glob: str) -> DIA:

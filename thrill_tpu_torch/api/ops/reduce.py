@@ -553,9 +553,13 @@ class ReduceToIndexNode(DIABase):
         its total) the first ``row_bound`` rows of the valid prefixes;
         else every row, the invalid ones dropped by the chain's mask."""
         from .. import fusion
+        mex = self.context.mesh_exec
         W = self.context.num_workers
         local_sizes = (bounds[1:] - bounds[:-1]).astype(np.int64)
         out_cap = max(1, round_up_pow2(int(local_sizes.max())))
+        # across processes the local workers' ranges
+        starts_l, local_sizes = (mex.local(bounds[:W].astype(np.int64)),
+                                 mex.local(local_sizes))
         index_fn, reduce_fn, neutral = self.index_fn, self.reduce_fn, \
             self.neutral
         ntok = None
@@ -565,7 +569,7 @@ class ReduceToIndexNode(DIABase):
                           for l in pt.leaves(neutral)))
 
         total = None if counts is None else int(counts.sum())
-        bound = (bounds[:W].astype(np.int64), local_sizes)
+        bound = (starts_l, local_sizes)
         if total is not None:
             bound += (np.concatenate([[0], np.cumsum(counts)]),)
 
@@ -621,21 +625,24 @@ class ReduceToIndexNode(DIABase):
         local_sizes = (bounds[1:] - bounds[:-1]).astype(np.int64)
         # a power-of-two capacity, as every other producer of shards
         out_cap = max(1, round_up_pow2(int(local_sizes.max())))
+        # across processes the local workers' ranges
+        starts, local_sizes = mex.local(bounds[:W]), mex.local(local_sizes)
         sc = _scatter_fold_specs(self.reduce_fn, td, leaves)
         prog = mex.program(("r2i", self.index_fn, self.reduce_fn,
                             self.size), _dense_program)
         if sc is None:
             out = prog(None, shards.tree, shards.valid_mask(),
                        self.index_fn, self.reduce_fn, self.neutral,
-                       mex.put_small(bounds[:W]), None, out_cap)
+                       mex.put_small(starts), None, out_cap)
             return DeviceShards(mex, out, local_sizes)
         # the scatter engine takes the valid rows only, worker-major, so
         # no padding row of the [W, cap] shards is scattered
         cum = mex.put_small(np.concatenate([[0], np.cumsum(shards.counts)]))
         out = prog(sc, shards.tree,
-                   _valid_rows(shards.total, cum, shards.cap), self.index_fn,
-                   self.reduce_fn, self.neutral, mex.put_small(bounds),
-                   mex.put_small(local_sizes), out_cap)
+                   _valid_rows(int(shards.counts.sum()), cum, shards.cap),
+                   self.index_fn, self.reduce_fn, self.neutral,
+                   mex.put_small(starts), mex.put_small(local_sizes),
+                   out_cap)
         return DeviceShards(mex, out, local_sizes)
 
     def _compute_host(self, shards: HostShards,
@@ -644,16 +651,21 @@ class ReduceToIndexNode(DIABase):
         reached (reference: ``thrill_tpu/api/ops/reduce.py:1166-1181``)."""
         W = shards.num_workers
         index_fn, reduce_fn = self.index_fn, self.reduce_fn
+        mex = self.context.mesh_exec
         tables = [dict() for _ in range(W)]
-        for items in shards.lists:
+        # every item, in global order, on every process: each folds the
+        # ranges of its own workers
+        for items in multiplexer.ensure_replicated(mex, shards,
+                                                   "reducetoindex").lists:
             for it in items:
                 i = int(index_fn(it))
                 t = tables[int(np.searchsorted(bounds[1:], i, side="right"))]
                 t[i] = reduce_fn(t[i], it) if i in t else it
+        local = multiplexer.local_worker_set(mex)
         return HostShards(W, [
             [tables[w].get(i, self.neutral)
              for i in range(int(bounds[w]), int(bounds[w + 1]))]
-            for w in range(W)])
+            if w in local else [] for w in range(W)])
 
 def _sorted_dense(tree, valid: torch.Tensor, index_fn, reduce_fn, neutral,
                   starts: torch.Tensor, out_cap: int):

@@ -29,6 +29,11 @@ segments when the chain before them keeps the source's host-known counts
 (so the halo check needs no fetch): the counts and offsets of the halo
 come from the chain's mask inside the program (reference:
 ``thrill_tpu/api/ops/window.py:96-111``).
+
+Across processes the halo's shift and the offsets take every process's
+workers (``mesh.worker_shift``, ``worker_exscan``), the checks read
+the global counts, and the host paths replicate the items and keep
+their own workers' share of the output.
 """
 
 from __future__ import annotations
@@ -39,7 +44,9 @@ import numpy as np
 import torch
 
 from ...common import tree as pt
+from ...data import multiplexer
 from ...data.shards import DeviceShards, HostShards, compact_valid
+from ...parallel.mesh import current_mex, worker_shift
 from ..dia import DIA
 from ..dia_base import DIABase
 
@@ -55,7 +62,9 @@ def _halo(leaf: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
             ).reshape(-1)
     h = leaf.reshape((W * cap,) + tuple(leaf.shape[2:])).index_select(
         0, flat).reshape((W, k - 1) + tuple(leaf.shape[2:]))
-    return torch.cat([torch.zeros_like(h[:1]), h[:-1]], dim=0)
+    # across processes the first local worker's halo comes from the
+    # last worker of the process before
+    return worker_shift(h, current_mex())
 
 
 def _windows(tree, counts: torch.Tensor, offsets: torch.Tensor, k: int):
@@ -119,8 +128,7 @@ def _device_window_op(shards: DeviceShards, k: int, make_output,
     """The windows' outputs of every worker (:func:`_window_rows`), the
     kept rows compacted, as one program."""
     mex = shards.mesh_exec
-    offsets = mex.put_small(np.concatenate(
-        [[0], np.cumsum(shards.counts)])[:-1].astype(np.int64))
+    offsets = mex.put_small(shards.offsets())
     prog = mex.program(("window",) + token, _window_program)
     tree, counts = prog(shards.tree, shards.counts_device(), offsets, k,
                         make_output, factor)
@@ -156,7 +164,8 @@ def _fused_window_plan(node):
     plan = fusion.pull_plan(node.parents[0])
     if plan.stitchable and plan.counts_preserved() \
             and plan.known_counts is not None \
-            and bool(np.all(plan.known_counts[:-1] >= node.k - 1)):
+            and bool(np.all(node.context.mesh_exec.gather_host(
+                plan.known_counts)[:-1] >= node.k - 1)):
         plan.append(node._fuse_segment())
         return plan
     return fusion.wrap(node._compute_on(plan.finish()))
@@ -164,7 +173,7 @@ def _fused_window_plan(node):
 
 def _device_ok(shards, k: int) -> bool:
     return (isinstance(shards, DeviceShards)
-            and bool(np.all(shards.counts[:-1] >= k - 1)))
+            and bool(np.all(shards.global_counts[:-1] >= k - 1)))
 
 
 class WindowNode(DIABase):
@@ -229,14 +238,15 @@ class WindowNode(DIABase):
 
     def _compute_host(self, shards: HostShards) -> HostShards:
         k, fn = self.k, self.fn
-        flat = [it for l in shards.lists for it in l]
+        mex = self.context.mesh_exec
+        flat = multiplexer.all_items(mex, shards)
         step = k if self.disjoint else 1
         out = [fn(i, flat[i:i + k])
                for i in range(0, len(flat) - k + 1, step)]
         if self.disjoint and self.partial_fn is not None and len(flat) % k:
             rest = flat[len(flat) - len(flat) % k:]
             out.append(self.partial_fn(len(flat) - len(rest), rest))
-        return HostShards(1, [out]).repartition(shards.num_workers)
+        return multiplexer.split_even(mex, out, shards.num_workers)
 
     def _compute_device(self, shards: DeviceShards) -> DeviceShards:
         return _device_window_op(shards, self.k, self._make_output(),
@@ -301,11 +311,12 @@ class FlatWindowNode(DIABase):
                 "given: pass fn alongside device_fn")
         if isinstance(shards, DeviceShards):
             shards = shards.to_host_shards("flatwindow")
-        flat = [it for l in shards.lists for it in l]
+        mex = self.context.mesh_exec
+        flat = multiplexer.all_items(mex, shards)
         out = []
         for i in range(len(flat) - self.k + 1):
             out.extend(self.fn(i, flat[i:i + self.k]))
-        return HostShards(1, [out]).repartition(shards.num_workers)
+        return multiplexer.split_even(mex, out, shards.num_workers)
 
     def _compute_device(self, shards: DeviceShards) -> DeviceShards:
         return _device_window_op(shards, self.k, self._make_output(),

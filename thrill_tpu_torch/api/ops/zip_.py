@@ -35,14 +35,9 @@ from ...core.rowmove import row_cumsum
 from ..stack import call_batched
 
 
-def _offsets(shards: DeviceShards) -> np.ndarray:
-    return np.concatenate([[0], np.cumsum(shards.counts)])[:-1].astype(
-        np.int64)
-
-
 def _mask_tail(shards: DeviceShards, n_out: int) -> DeviceShards:
     """Trim counts so only the first ``n_out`` global items stay valid."""
-    new_counts = np.clip(n_out - _offsets(shards), 0, shards.counts)
+    new_counts = np.clip(n_out - shards.offsets(), 0, shards.counts)
     return DeviceShards(shards.mesh_exec, shards.tree,
                         new_counts.astype(np.int64))
 
@@ -55,7 +50,7 @@ def _realign(shards: DeviceShards, target_bounds: np.ndarray,
     order."""
     mex = shards.mesh_exec
     W = mex.num_workers
-    offsets = mex.put_small(_offsets(shards))
+    offsets = mex.put_small(shards.offsets())
     upper = mex.put_small(np.asarray(target_bounds[1:], dtype=np.int64))
 
     def dest(tree, mask, widx):
@@ -73,7 +68,7 @@ def _realign(shards: DeviceShards, target_bounds: np.ndarray,
 
 def _realign_or_keep(p: DeviceShards, tb: np.ndarray, n_out: int, token,
                      min_cap: int = 1) -> DeviceShards:
-    off = np.concatenate([[0], np.cumsum(p.counts)])
+    off = np.concatenate([[0], np.cumsum(p.global_counts)])
     if len(off) == len(tb) and np.array_equal(np.clip(off, 0, n_out), tb):
         return _mask_tail(p, n_out)
     return _realign(p, tb, n_out, token, min_cap=min_cap)
@@ -130,27 +125,26 @@ class ZipNode(DIABase):
                 p.to_host_shards("zip-mixed-storage")
                 if isinstance(p, DeviceShards) else p for p in pulls])
         mex = pulls[0].mesh_exec
-        W = mex.num_workers
+        W, Wl = mex.num_workers, mex.num_local
         totals = [p.total for p in pulls]
         n_out = self._out_size(totals)
         if self.mode == "pad" and max(totals) != min(totals):
             # every input realigned to an even split of n_out; a short
             # input's missing rows are zero items
             tb = dense_range_bounds(n_out, W)
-            counts = np.diff(tb).astype(np.int64)
+            pad_cap = int(np.diff(tb).max())
+            counts = mex.local(np.diff(tb).astype(np.int64))
             aligned = [
                 DeviceShards(mex, _repad(
                     _realign_or_keep(p, tb, n_out, (self.id, i, "pad"),
-                                     min_cap=int(counts.max())
-                                     ).zero_beyond_count(),
-                    int(counts.max())).tree,
-                             counts.copy())
+                                     min_cap=pad_cap).zero_beyond_count(),
+                    pad_cap).tree, counts.copy())
                 for i, p in enumerate(pulls)]
         else:
             # the first DIA's partition, cut to n_out
-            tb = np.clip(np.concatenate([[0], np.cumsum(pulls[0].counts)]),
-                         0, n_out)
-            counts = np.diff(tb).astype(np.int64)
+            tb = np.clip(np.concatenate(
+                [[0], np.cumsum(pulls[0].global_counts)]), 0, n_out)
+            counts = mex.local(np.diff(tb).astype(np.int64))
             aligned = [_realign_or_keep(p, tb, n_out, (self.id, i))
                        for i, p in enumerate(pulls)]
         cap = max(a.cap for a in aligned)
@@ -162,7 +156,7 @@ class ZipNode(DIABase):
             zip_fn = self.zip_fn
 
             def trace(fctx, states, _bound):
-                return (call_batched(zip_fn, [t for t, _m in states], W,
+                return (call_batched(zip_fn, [t for t, _m in states], Wl,
                                      cap, mex.device), states[0][1])
 
             head = fusion.Segment(label="Zip",
@@ -175,7 +169,7 @@ class ZipNode(DIABase):
                       for a in aligned], head=head, known_counts=counts)
         prog = mex.program(("zip", self.zip_fn), call_batched)
         return DeviceShards(mex, prog(self.zip_fn, [a.tree for a in aligned],
-                                      W, cap, mex.device), counts)
+                                      Wl, cap, mex.device), counts)
 
     def _compute_host(self, pulls: List[HostShards]) -> HostShards:
         """Reference: ``thrill_tpu/api/ops/zip_.py:190-211``."""
@@ -259,8 +253,8 @@ class ZipWithIndexNode(DIABase):
                  for i, it in enumerate(items)]
                 for w, items in enumerate(shards.lists)])
         mex = shards.mesh_exec
-        W, cap = shards.num_workers, shards.cap
-        g = (mex.put_small(_offsets(shards))[:, None]
+        W, cap = mex.num_local, shards.cap
+        g = (mex.put_small(shards.offsets())[:, None]
              + torch.arange(cap, device=mex.device)[None, :])
         prog = mex.program(("zip_index", self.zip_fn), call_batched)
         tree = prog(self.zip_fn, [shards.tree, g], W, cap, mex.device)
@@ -297,19 +291,20 @@ class ZipWindowNode(DIABase):
             raise ValueError(
                 "ZipWindow: inputs are host-resident but only device_fn "
                 "was given: pass zip_fn alongside device_fn")
-        flats = [[it for l in (p.to_host_shards("zipwindow").lists
-                               if isinstance(p, DeviceShards) else p.lists)
-                  for it in l] for p in pulls]
+        mex = self.context.mesh_exec
+        flats = [multiplexer.all_items(
+            mex, p.to_host_shards("zipwindow")
+            if isinstance(p, DeviceShards) else p) for p in pulls]
         n_out = min(len(f) // w for f, w in zip(flats, self.window))
         zf = self.zip_fn or (lambda *chunks: tuple(chunks))
         out = [zf(*[flats[i][j * w:(j + 1) * w]
                     for i, w in enumerate(self.window)])
                for j in range(n_out)]
-        return HostShards(1, [out]).repartition(self.context.num_workers)
+        return multiplexer.split_even(mex, out, self.context.num_workers)
 
     def _compute_device(self, pulls: List[DeviceShards]) -> DeviceShards:
         mex = pulls[0].mesh_exec
-        W = mex.num_workers
+        W, Wl = mex.num_workers, mex.num_local
         n_out = min(p.total // w for p, w in zip(pulls, self.window))
         cb = dense_range_bounds(n_out, W)                 # chunk bounds
         chunk_counts = np.diff(cb).astype(np.int64)
@@ -322,10 +317,10 @@ class ZipWindowNode(DIABase):
                        chunk_cap * wsz)
             trees.append(pt.tree_map(
                 lambda l, wsz=wsz: l[:, :chunk_cap * wsz].reshape(
-                    (W, chunk_cap, wsz) + tuple(l.shape[2:])), a.tree))
-        return DeviceShards(mex, call_batched(self.device_fn, trees, W,
+                    (Wl, chunk_cap, wsz) + tuple(l.shape[2:])), a.tree))
+        return DeviceShards(mex, call_batched(self.device_fn, trees, Wl,
                                               chunk_cap, mex.device),
-                            chunk_counts)
+                            mex.local(chunk_counts))
 
 
 def Zip(dias: List[DIA], zip_fn=None, mode: str = "strict") -> DIA:

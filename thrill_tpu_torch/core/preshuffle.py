@@ -314,15 +314,13 @@ def join_rows_estimate(left, right, token_l=None,
     on the host where they are, else the learned capacities of the
     side's exchange site (``token_l``, ``token_r``), else the padded
     capacity; the item bytes are the mean of the two sides'."""
-    import numpy as np
-
     from ..data.exchange import leaf_item_bytes
     mex = left.mesh_exec
 
     def side_rows(shards, ident):
-        counts = getattr(shards, "_counts_host", None)
-        if counts is not None:
-            return int(np.asarray(counts).sum())
+        if getattr(shards, "_counts_host", None) is not None:
+            # every process's rows, so the verdict is one process's
+            return int(shards.global_counts.sum())
         learned = learned_site_rows(mex, ident)
         if learned is not None:
             return learned * mex.num_workers

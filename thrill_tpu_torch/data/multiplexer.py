@@ -16,6 +16,8 @@ group of net/tcp.py):
 * ``ensure_replicated``: every process gets every worker's items (for
   host ops that need a global view), and ``localize`` drops the other
   processes' lists again.
+* ``split_even``: a replicated item list split evenly, localized.
+* ``barrier``: every process reaches it before any goes on.
 * ``global_counts``, ``global_total``, ``all_items``, ``net_fold``:
   agreed counts and folds.
 * ``host_to_device``: HostShards to DeviceShards with a capacity and a
@@ -245,6 +247,22 @@ def localize(mex, shards: HostShards) -> HostShards:
     return HostShards(shards.num_workers,
                       [shards.lists[w] if w in local else []
                        for w in range(shards.num_workers)])
+
+
+def split_even(mex, items: List[Any], W: int) -> HostShards:
+    """A global item list, the same on every process, split evenly over
+    ``W`` workers by ``dense_range_bounds``; each process keeps its own
+    workers' lists."""
+    return localize(mex, HostShards(1, [items]).repartition(W))
+
+
+def barrier(mex) -> None:
+    """Every process reaches this point before any goes on (nothing in
+    one process): a writer's files are all written when it returns."""
+    if multiprocess(mex):
+        net = _net(mex)
+        with poison_on_error(net.group, "barrier"):
+            net.barrier()
 
 
 def global_counts(mex, shards: HostShards) -> np.ndarray:

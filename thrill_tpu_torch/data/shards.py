@@ -166,6 +166,13 @@ class DeviceShards:
         """Every worker's items (every process's, across processes)."""
         return int(self.global_counts.sum())
 
+    def offsets(self) -> np.ndarray:
+        """``[W_local]`` int64: the global index of each local worker's
+        first item (the items of every worker before it)."""
+        g = self.global_counts
+        return self.mesh_exec.local(
+            np.concatenate([[0], np.cumsum(g)])[:-1].astype(np.int64))
+
     def counts_device(self) -> torch.Tensor:
         """Counts as a ``[W]`` int64 tensor on the device, uploaded once
         when they are host counts."""

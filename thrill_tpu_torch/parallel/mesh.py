@@ -20,8 +20,15 @@ process group (``common/platform.py`` names its backend):
 :meth:`MeshExec.worker_transpose` is the all-to-all of the exchange
 (``all_to_all_single`` of the padded blocks), :meth:`MeshExec.worker_sum`
 the psum over workers (``all_reduce``) and :meth:`MeshExec.gather_workers`
-the gather of per-worker rows (``all_gather``). In one process each is
-the local transpose, sum or the rows themselves. ``stats_collectives``
+the gather of per-worker rows (``all_gather``), and from the gather
+:func:`worker_exscan` (the exclusive scan over the global worker order)
+and :func:`worker_shift` (a row to the next worker); :func:`worker_max`
+is the pmax (``all_reduce`` MAX). In one process each is the local
+transpose, sum, scan, shift, max or the rows themselves; the three
+functions take the mesh as an argument and do the local op when it is
+None. Each collective reports its edge to a loop capture
+(``common/taint.py``): what another process sent arrives through no
+aten op the capture sees. ``stats_collectives``
 counts the collectives and ``stats_bytes_cross`` the bytes this process
 sent to others through them.
 
@@ -66,7 +73,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..common import faults
+from ..common import faults, taint
 from ..common.retry import default_policy
 
 DeviceLike = Union[str, torch.device, None]
@@ -85,6 +92,51 @@ def bind_current(mex: Optional["MeshExec"]) -> Optional["MeshExec"]:
     prev = getattr(_TLS, "mex", None)
     _TLS.mex = mex
     return prev
+
+
+def worker_max(t: torch.Tensor,
+               mex: Optional["MeshExec"] = None) -> torch.Tensor:
+    """The elementwise max over every worker of ``t`` ``[W_local, ...]``
+    (the reference's pmax: HyperLogLog's registers, the join's presence
+    registers), in ``t``'s dtype. One process (or ``mex`` None): the
+    local ``amax``; several: one ``all_reduce`` MAX."""
+    m = t.amax(dim=0)
+    if mex is None or not mex.multiprocess:
+        return m
+    import torch.distributed as dist
+    m = m.contiguous()
+    mex.stats_bytes_cross += m.numel() * m.element_size()
+    mex.stats_collectives += 1
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    taint.kernel_edge([t], [m])
+    return m
+
+
+def worker_exscan(t: torch.Tensor,
+                  mex: Optional["MeshExec"] = None) -> torch.Tensor:
+    """Each local worker's sum of ``t`` ``[W_local, ...]`` over the
+    workers before it in the global order (PrefixSum's carry, the
+    offsets of ZipWithIndex and the Window family in a stitched
+    program). One process (or ``mex`` None): the local exclusive
+    ``cumsum``; several: every process sums every worker's rows in
+    worker order, so the sums are bit-equal to one process's."""
+    if mex is None or not mex.multiprocess:
+        return torch.cumsum(t, dim=0) - t
+    every = mex.gather_workers(t)
+    return mex.local(torch.cumsum(every, dim=0) - every)
+
+
+def worker_shift(t: torch.Tensor,
+                 mex: Optional["MeshExec"] = None) -> torch.Tensor:
+    """Each local worker's row of ``t`` ``[W_local, ...]`` from the
+    worker before it, zeros for worker 0 (the reference's ring
+    ``ppermute``: the Window family's halo). One process (or ``mex``
+    None): a shift of the local rows; several: from every process's
+    gathered rows."""
+    if mex is not None and mex.multiprocess:
+        t = mex.gather_workers(t)
+    out = torch.cat([torch.zeros_like(t[:1]), t[:-1]], dim=0)
+    return out if mex is None else mex.local(out)
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -513,6 +565,7 @@ class MeshExec:
         self.stats_collectives += 1
         out = torch.empty_like(x)
         dist.all_to_all_single(out, x)
+        taint.kernel_edge([x], [out])
         # out[p]: process p's senders' blocks for the local receivers
         return out.reshape((P * Wl, Wl) + trail).transpose(0, 1)
 
@@ -528,6 +581,7 @@ class MeshExec:
         self.stats_bytes_cross += s.numel() * s.element_size()
         self.stats_collectives += 1
         dist.all_reduce(s)
+        taint.kernel_edge([t], [s])
         return s
 
     def gather_workers(self, t: torch.Tensor) -> torch.Tensor:
@@ -542,7 +596,15 @@ class MeshExec:
         self.stats_collectives += 1
         parts = [torch.empty_like(t) for _ in range(self.num_processes)]
         dist.all_gather(parts, t)
+        taint.kernel_edge([t], parts)
         return torch.cat(parts, dim=0)
+
+    def local(self, rows):
+        """The local workers' entries of a per-worker ``[W, ...]`` array
+        or tensor (all of it in one process)."""
+        if not self.multiprocess:
+            return rows
+        return rows[self.worker_base:self.worker_base + self.num_local]
 
     # -- the host plane of plan values ----------------------------------
     def gather_host(self, arr) -> np.ndarray:

@@ -3121,13 +3121,33 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
         return out
 
     # the Sort's working set, measured: the peak of reserved memory over
-    # what stays reserved, allocator cache emptied first
+    # what stays reserved, allocator cache emptied first. The collector
+    # is off while the Sort runs, here and in the pressured runs below:
+    # cyclic garbage freed inside the Sort would serve it from memory
+    # already reserved, and whether a collection falls there depends on
+    # the count of objects the process made before (a longer smoke
+    # measured 1.5 GB less and left M3b too little room)
+    # The free room inside the segments that earlier phases keep for
+    # live tensors is plugged before each setup (as F4 does), so that the
+    # tables and the Sort get segments of their own: a Sort that ran
+    # partly inside that room measured a working set up to 1.5 GB too
+    # small, the ballast then left too little room, and the Sort retried
+    # after the spill ran out of memory again at every rung-2 attempt.
+    # The room a setup leaves is not plugged: a plug beside a cold table
+    # would keep its segment when the table is spilled
+    gc.collect()
+    torch.cuda.empty_cache()
+    plugs, slack = plug_cache(torch, dev)
     ctx, cold, inp = setup()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     r0 = torch.cuda.memory_reserved()
-    out = sort(inp)
-    torch.cuda.synchronize()
+    gc.disable()
+    try:
+        out = sort(inp)
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
     ws = torch.cuda.max_memory_reserved() - r0
     out.Dispose()
     ctx.close()
@@ -3144,6 +3164,9 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
             # the ledger (three tables) past the 0.85 watermark, under the
             # governor's own limit
             os.environ["THRILL_TPU_HBM_LIMIT"] = str(int(3.3 * nbytes))
+        more, slack2 = plug_cache(torch, dev)
+        plugs += more
+        slack += slack2
         try:
             ctx, cold, inp = setup()
         finally:
@@ -3167,10 +3190,12 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
                               device=dev)
         zero_launches(pk, ps)
         faults.REGISTRY.events.clear()
+        gc.disable()
         try:
             t0 = time.perf_counter()
             out = sort(inp)
             torch.cuda.synchronize()
+            gc.enable()
             secs = time.perf_counter() - t0
             launches = read_launches(pk, ps)
             # where rung 2 retried: a dispatch (its program) or a node
@@ -3181,6 +3206,7 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
             spilled = [type(c.node._shards).__name__ for c in cold]
             sort_drops = list(drops)     # the Sort's, not the checks'
         finally:
+            gc.enable()
             del ballast
             torch.cuda.empty_cache()
         check_sorted(np, f"M3{case}", out.AllGatherArrays(), srt, None)
@@ -3197,7 +3223,9 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
         results[case] = launches
         log(f"M3{case} W=4 ({'real CUDA OOM, rung 2' if case == 'a' else 'THRILL_TPU_HBM_LIMIT, admission'}): "
             f"Sort working set {ws} bytes (reserved), cold {cold_bytes}, "
-            f"card left with {target} free; Sort {secs:.3f} s, equal to "
+            f"card left with {target} free ({slack} bytes of free room "
+            f"inside kept segments plugged before the setups); Sort "
+            f"{secs:.3f} s, equal to "
             f"np.lexsort; oom_retries {st['oom_retries']} admission_spills "
             f"{st['admission_spills']} hbm_spills {st['hbm_spills']} "
             f"(retried at {where}) "
@@ -3209,6 +3237,8 @@ def mem_oom_ladder(torch, np, tt, pk, ps, recs, srt, card):
         ctx.close()
         del ctx, cold, inp, out
         torch.cuda.empty_cache()
+    del plugs, more
+    torch.cuda.empty_cache()
     return results["a"], results["b"]
 
 
@@ -6255,6 +6285,291 @@ def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
     return paths
 
 
+D_MODE_RECORDS = 1 << 20       # D-modes: TeraSort records a worker
+D_STREAM_WORDS = 1 << 20       # D-stream: Zipf words a worker
+D_OPT_ITERS = 3                # D-optimistic: PageRank over P_PAGES
+D_HOST_LINES = 1 << 15         # D-host: text lines, 8 words a line
+D_MODES = ("dense", "onefactor", "ragged")
+
+
+def d_mode_records(np):
+    """D-modes' 4 x 2^20 TeraSort records (10-byte key, 90-byte value)."""
+    n = D_PROCS * D_WPP * D_MODE_RECORDS
+    rec = np.frombuffer(np.random.default_rng(SEED + 160).bytes(n * 100),
+                        dtype=np.uint8).reshape(n, 100)
+    return {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+
+
+def d_host_text(path: str) -> None:
+    """D-host's text: 2^15 lines of 8 words from a vocabulary of 2^16,
+    so each process's pre-reduced frame passes the TCP group's async
+    threshold (256 KiB)."""
+    rng = __import__("random").Random(SEED + 170)
+    with open(path, "w") as f:
+        for _ in range(D_HOST_LINES):
+            f.write(" ".join(f"w{rng.randrange(1 << 16):05x}"
+                             for _ in range(8)) + "\n")
+
+
+def d_shrink_caps(mex) -> int:
+    """Cut every cached dense plan's padded capacity to a quarter, the
+    same sites on every process: the next optimistic dispatch at each
+    overflows and heals."""
+    n = 0
+    plans = getattr(mex, "_xchg_plan", {})
+    for k, v in list(getattr(mex, "_sticky_caps", {}).items()):
+        if plans.get(k) == "dense" and len(v) == 2 and v[0] > 4:
+            mex._sticky_caps[k] = (v[0] // 4, v[1])
+            n += 1
+    return n
+
+
+def d_modes_run(torch, np, tt, ctx, pk, ps, d: str) -> dict:
+    """Phase D's exchange-mode jobs on ``ctx`` (one process, or one of
+    the mesh's). D-modes: TeraSort at 2^20 records a worker under the
+    dense, 1-factor and ragged exchanges (one process: dense alone),
+    each first run with the launch counters set to 0, then warm; across
+    processes the ragged Sort again with narrowing off (D-narrow).
+    D-stream: WordCount at 2^20 Zipf words a worker with the streamed
+    post phase. D-optimistic: PageRank over P's 2^20 pages, 3 iterations,
+    plan by plan (no loop replay): cold, twice warm with the capacity
+    cache on, once with it off, and once more after every cached dense
+    plan's capacity was cut (forced misses). D-host: the host text
+    WordCount with ``THRILL_TPU_HOST_MIX=1`` (the background sender is
+    the default), and the engine the TCP group chose."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    mex = ctx.mesh_exec
+    out = {"rank": ctx.host_rank}
+    recs = d_mode_records(np)
+    key = lambda r: r["key"]                              # noqa: E731
+
+    def sort():
+        # the Sort alone: its bytes across processes are the exchange's
+        # (and the splitters'), not the gather's of the padded output
+        srt = ctx.Distribute(recs).Sort(key_fn=key).Keep()
+        srt.Execute()
+        return srt
+
+    for mode in (D_MODES if mex.multiprocess else ("dense",)):
+        mex.exchange_mode = mode
+        srt, secs, launches, cross, _ = d_timed(torch, pk, ps, mex, sort)
+        digest = d_digest(torch, srt.AllGatherArrays())
+        del srt
+        warm = warm_seconds(torch, sort, 1)[0]
+        out["sort_" + mode] = dict(digest=digest, first_s=secs,
+                                   warm_s=warm, launches=launches,
+                                   cross_bytes=cross)
+    if mex.multiprocess:
+        with EnvSet(THRILL_TPU_XCHG_NARROW="0"):
+            srt, secs, _, cross, _ = d_timed(torch, pk, ps, mex, sort)
+        out["sort_ragged_wide"] = dict(
+            digest=d_digest(torch, srt.AllGatherArrays()), first_s=secs,
+            cross_bytes=cross)
+        del srt
+    mex.exchange_mode = "dense"
+    del recs
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 180)
+    n = D_PROCS * D_WPP * D_STREAM_WORDS
+    voc = vocabulary(torch, gen)
+    ids = zipf_ids(torch, n, VOCAB, gen)
+    src = ctx.Distribute({"w": voc[ids], "c": torch.ones(
+        n, dtype=torch.int64, device=DEVICE)}).Keep()
+    src.Execute()
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+    with EnvSet(THRILL_TPU_REDUCE_STREAM="1"):
+        got, secs, launches, cross, _ = d_timed(
+            torch, pk, ps, mex, lambda: src.ReduceByKey(
+                lambda t: t["w"], red).AllGatherArrays())
+        warm = warm_seconds(torch, lambda: src.ReduceByKey(
+            lambda t: t["w"], red).AllGatherArrays(), 1)[0]
+    w, c = got["w"].cpu().numpy(), got["c"].cpu().numpy()
+    order = np.lexsort(w.T[::-1])
+    out["stream"] = dict(
+        digest=d_np_digest(np, np.concatenate(
+            [w[order].view(np.uint8).reshape(len(c), -1),
+             c[order].view(np.uint8).reshape(len(c), -1)], axis=1)),
+        distinct=int(len(c)), first_s=secs, warm_s=warm,
+        launches=launches, cross_bytes=cross)
+    if not mex.multiprocess:
+        want = np.bincount(ids.cpu().numpy(), minlength=VOCAB)
+        check_wordcount(np, "D-stream one process W=4", got, voc, want)
+    del src, got, voc, ids
+    edges = tpr.zipf_graph(P_PAGES, 4 * P_PAGES, seed=SEED + 91)
+
+    def pagerank():
+        return tpr.page_rank(ctx, edges, P_PAGES, iterations=D_OPT_ITERS)
+
+    runs = {}
+    with EnvSet(THRILL_TPU_LOOP_REPLAY="0"):
+        for name, env in (("cold", {}), ("warm1", {}), ("warm2", {}),
+                          ("off", {"THRILL_TPU_XCHG_CAP_CACHE": "0"}),
+                          ("forced", {})):
+            if name == "forced":
+                cut = d_shrink_caps(mex)
+                seq0 = max((r.seq for r in ctx.decisions.records),
+                           default=-1)
+            with EnvSet(**env):
+                f0, h0 = mex.stats_fetches, mex.stats_cap_cache_misses
+                o0 = mex.stats_exchanges_overlapped
+                ranks, secs, launches, cross, xfers = d_timed(
+                    torch, pk, ps, mex, pagerank)
+            runs[name] = dict(
+                digest=d_np_digest(np, ranks), secs=secs,
+                launches=launches, cross_bytes=cross, transfers=xfers,
+                fetches=mex.stats_fetches - f0,
+                misses=mex.stats_cap_cache_misses - h0,
+                overlapped=mex.stats_exchanges_overlapped - o0)
+            if not mex.multiprocess:
+                break                  # one process: the cold run only
+    if "forced" in runs:
+        runs["forced"]["cut_sites"] = cut
+        runs["forced"]["records"] = [
+            [r.kind, r.site, r.chosen, r.verdict]
+            for r in ctx.decisions.records
+            if r.seq > seq0 and r.kind.startswith("xchg")]
+    out["optimistic"] = runs
+    del edges
+    text = os.path.join(d, "host_words.txt")
+    with EnvSet(THRILL_TPU_HOST_MIX="1"):
+        counts, secs, _, _, _ = d_timed(
+            torch, pk, ps, mex, lambda: ctx.ReadLines(text).FlatMap(
+                lambda line: line.split()).Map(lambda w: (w, 1))
+            .ReducePair(lambda a, b: a + b).AllGather())
+    grp = ctx.net.group
+    out["host"] = dict(
+        counts=sorted([k, int(v)] for k, v in counts), secs=secs,
+        engine=type(getattr(grp, "_disp", None)).__name__,
+        heartbeat=getattr(grp, "_heartbeat", None) is not None,
+        frame_bytes=getattr(mex, "stats_bytes_wire_host", 0))
+    return out
+
+
+def d_modes_check(one: dict, kids: list, card: str) -> dict:
+    """Phase D's exchange-mode jobs against the one-process run; logs
+    every process's lines, then checks them, and returns their launches
+    by path."""
+    paths = {}
+    dense1 = one["sort_dense"]["digest"]
+    for k in kids:
+        r = k["rank"]
+        st, opt, host = k["stream"], k["optimistic"], k["host"]
+        wide = k["sort_ragged_wide"]
+        modes = "; ".join(
+            f"{m} first {k['sort_' + m]['first_s']:.3f} s warm "
+            f"{k['sort_' + m]['warm_s']:.3f} s, bytes across processes "
+            f"{k['sort_' + m]['cross_bytes']}, launches "
+            f"{json.dumps(k['sort_' + m]['launches'])}" for m in D_MODES)
+        log(f"D-modes process {r} of {D_PROCS} (W=4): terasort "
+            f"{D_MODE_RECORDS} records a worker (one process's dense Sort "
+            f"first {one['sort_dense']['first_s']:.3f} s warm "
+            f"{one['sort_dense']['warm_s']:.3f} s): {modes}; D-narrow: "
+            f"ragged with narrowing off, bytes across processes "
+            f"{wide['cross_bytes']} (on: {k['sort_ragged']['cross_bytes']}),"
+            f" first {wide['first_s']:.3f} s [{card}]")
+        log(f"D-stream process {r}: wordcount {D_STREAM_WORDS} Zipf words "
+            f"a worker, THRILL_TPU_REDUCE_STREAM=1, {st['distinct']} "
+            f"words (one process {one['stream']['distinct']}, np.bincount "
+            f"there), first {st['first_s']:.3f} s warm {st['warm_s']:.3f} s"
+            f" (one process {one['stream']['first_s']:.3f} s warm "
+            f"{one['stream']['warm_s']:.3f} s), bytes across processes "
+            f"{st['cross_bytes']}, launches {json.dumps(st['launches'])} "
+            f"[{card}]")
+        log(f"D-optimistic process {r}: pagerank {P_PAGES} pages "
+            f"{D_OPT_ITERS} iterations, no loop replay (one process, cold "
+            f"{one['optimistic']['cold']['secs']:.3f} s, counted fetches "
+            f"{one['optimistic']['cold']['fetches']}); " + "; ".join(
+                f"{n} {v['secs']:.3f} s, counted fetches {v['fetches']}, "
+                f"transfers {v['transfers']}, overlapped {v['overlapped']},"
+                f" misses {v['misses']}, bytes across processes "
+                f"{v['cross_bytes']}" for n, v in opt.items())
+            + f"; the forced run cut {opt['forced']['cut_sites']} sites "
+            f"and made {len(opt['forced']['records'])} exchange decision "
+            f"records; launches warm {json.dumps(opt['warm2']['launches'])}"
+            f" [{card}]")
+        log(f"D-host process {r}: host text wordcount {D_HOST_LINES} "
+            f"lines, THRILL_TPU_HOST_MIX=1, background sender, heartbeat "
+            f"0.5 s, {len(host['counts'])} words, {host['secs']:.3f} s (one "
+            f"process {one['host']['secs']:.3f} s), engine {host['engine']},"
+            f" host frame bytes {host['frame_bytes']} [{card}]")
+    for k in kids:
+        r = k["rank"]
+        tag = f"(process {r} of {D_PROCS})"
+        for mode in D_MODES:
+            j = k["sort_" + mode]
+            if j["digest"] != dense1:
+                raise AssertionError(f"D-modes rank {r}: the {mode} Sort "
+                                     f"differs from one process's dense")
+            for name in D_KERNELS[:3]:
+                if j["launches"][name] <= 0:
+                    raise AssertionError(f"D-modes rank {r}: {name} was "
+                                         f"not launched under {mode}")
+            paths[f"D-modes terasort {mode} W=4 {tag}"] = j["launches"]
+        if not k["sort_ragged"]["cross_bytes"] < \
+                k["sort_dense"]["cross_bytes"]:
+            raise AssertionError(f"D-modes rank {r}: ragged crossed "
+                                 f"{k['sort_ragged']['cross_bytes']} bytes,"
+                                 f" dense {k['sort_dense']['cross_bytes']}")
+        wide = k["sort_ragged_wide"]
+        if wide["digest"] != dense1:
+            raise AssertionError(f"D-narrow rank {r}: the Sort with "
+                                 f"narrowing off differs")
+        if not k["sort_ragged"]["cross_bytes"] < wide["cross_bytes"]:
+            raise AssertionError(f"D-narrow rank {r}: narrowed "
+                                 f"{k['sort_ragged']['cross_bytes']} bytes,"
+                                 f" wide {wide['cross_bytes']}")
+        st = k["stream"]
+        if (st["digest"], st["distinct"]) != (one["stream"]["digest"],
+                                             one["stream"]["distinct"]):
+            raise AssertionError(f"D-stream rank {r}: the streamed counts "
+                                 f"differ from one process's")
+        for name in ("partition_histogram", "presence_fill"):
+            if st["launches"][name] <= 0:
+                raise AssertionError(f"D-stream rank {r}: {name} was not "
+                                     f"launched")
+        paths[f"D-stream wordcount W=4 {tag}"] = st["launches"]
+        opt = k["optimistic"]
+        want = one["optimistic"]["cold"]["digest"]
+        for name, run in opt.items():
+            if run["digest"] != want:
+                raise AssertionError(f"D-optimistic rank {r}: the {name} "
+                                     f"ranks differ from one process's")
+        if not opt["warm2"]["fetches"] < opt["off"]["fetches"]:
+            raise AssertionError(
+                f"D-optimistic rank {r}: warm {opt['warm2']['fetches']} "
+                f"counted fetches, cache off {opt['off']['fetches']}")
+        if opt["warm2"]["overlapped"] <= 0 or opt["off"]["overlapped"]:
+            raise AssertionError(f"D-optimistic rank {r}: overlapped "
+                                 f"{opt['warm2']['overlapped']} warm, "
+                                 f"{opt['off']['overlapped']} off")
+        if opt["forced"]["misses"] <= 0:
+            raise AssertionError(f"D-optimistic rank {r}: the cut "
+                                 f"capacities missed no plan")
+        if opt["forced"]["records"] != kids[0]["optimistic"]["forced"][
+                "records"]:
+            raise AssertionError(f"D-optimistic rank {r}: the forced run's "
+                                 f"decision records differ from rank 0's")
+        paths[f"D-optimistic pagerank warm W=4 {tag}"] = \
+            opt["warm2"]["launches"]
+        host = k["host"]
+        if host["counts"] != one["host"]["counts"]:
+            raise AssertionError(f"D-host rank {r}: the counts differ")
+        if host["engine"] != "_NativeDispatcher" or not host["heartbeat"]:
+            raise AssertionError(f"D-host rank {r}: engine "
+                                 f"{host['engine']}, heartbeat "
+                                 f"{host['heartbeat']}")
+    log(f"D-modes, D-narrow, D-stream, D-optimistic and D-host: every "
+        f"process bit-equal to one process (the streamed counts as a set; "
+        f"one process's against np.bincount), B1, the upsweep and the "
+        f"pass launched under every mode, B1 and B4 on the streamed "
+        f"WordCount, ragged and narrowing below dense and wide in bytes "
+        f"across processes, fewer counted fetches warm than with the "
+        f"cache off, the forced misses healed with equal records in both "
+        f"processes, the native dispatcher and the heartbeat in each "
+        f"[{card}]")
+    return paths
+
+
 def dist_child(coordinator: str, rank: int, d: str) -> int:
     """One process of phase D's mesh: its result in a file of ``d``
     (long; a pipe may cut a long line at the process's exit), and the
@@ -6274,6 +6589,7 @@ def dist_child(coordinator: str, rank: int, d: str) -> int:
         res = d_run(torch, np, tt, ctx, pk, ps, os.path.join(d, "words.txt"))
         res["ops"] = d_ops_run(torch, np, tt, ctx, pk, ps,
                                os.path.join(d, "procs"))
+        res["modes"] = d_modes_run(torch, np, tt, ctx, pk, ps, d)
         return res
 
     res = tt.RunDistributed(
@@ -6324,12 +6640,14 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
     try:
         with open(os.path.join(d, "words.txt"), "w") as f:
             f.write(D_TEXT)
+        d_host_text(os.path.join(d, "host_words.txt"))
         ports = d_free_ports(1 + D_PROCS)
         hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
         secret = os.urandom(16).hex()
         for rank in range(D_PROCS):
             env = dict(os.environ, THRILL_TPU_HOSTLIST=hostlist,
-                       THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret)
+                       THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret,
+                       THRILL_TPU_HEARTBEAT_S="0.5")
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--dist-child",
                  f"127.0.0.1:{ports[0]}", str(rank), d],
@@ -6345,6 +6663,10 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
         one_ops = tt.Run(lambda ctx: d_ops_run(torch, np, tt, ctx, pk, ps,
                                                os.path.join(d, "one")),
                          num_workers=D_PROCS * D_WPP)
+        torch.cuda.empty_cache()
+        one_modes = tt.Run(lambda ctx: d_modes_run(torch, np, tt, ctx, pk,
+                                                   ps, d),
+                           num_workers=D_PROCS * D_WPP)
         torch.cuda.empty_cache()
         t_kids = time.perf_counter()
         one_s = t_kids - t_d
@@ -6364,7 +6686,9 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
             # as through JSON, as before (tuples as lists); the op
             # sweep's arrays as they are
             ops = kid.pop("ops")
-            kids.append(dict(json.loads(json.dumps(kid)), ops=ops))
+            modes = kid.pop("modes")
+            kids.append(dict(json.loads(json.dumps(kid)), ops=ops,
+                             modes=modes))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -6443,6 +6767,7 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
             k["wc_launches"]
     paths.update(d_ops_check(np, one_ops, [k["ops"] for k in kids], refs,
                              card))
+    paths.update(d_modes_check(one_modes, [k["modes"] for k in kids], card))
     assert_port_alone()
     log(f"process mesh phase (D): {time.perf_counter() - t_d:.1f} s of host "
         f"clock: the one-process runs {one_s:.1f} s (the children "

@@ -283,10 +283,10 @@ def test_two_processes_equal_the_reference_and_one_process(tmp_path):
 
 def test_unported_ops_raise_across_processes(tmp_path):
     """Every op is made on a mesh of several processes (the op sweep
-    runs them, ``test_torch_distributed_ops.py``); what is still not
-    ported across processes raises by name: the exchange modes other
-    than the synced dense plan and a checkpoint directory (ROADMAP.md
-    item 6, its exchange-modes and checkpoint parts)."""
+    runs them, ``test_torch_distributed_ops.py``), and every exchange
+    mode is taken there (``test_torch_exchange_modes_mp.py`` runs them);
+    what is still not ported across processes raises by name: a
+    checkpoint directory (ROADMAP.md item 6, its checkpoint part)."""
     import pytest
 
     import thrill_tpu_torch as tt
@@ -304,9 +304,7 @@ def test_unported_ops_raise_across_processes(tmp_path):
             assert made.node.context is ctx
         for mode in ("onefactor", "ragged"):
             mex.exchange_mode = mode
-            with pytest.raises(NotImplementedError,
-                               match="item 6, its exchange-modes part"):
-                exchange.resolve_mode(mex)
+            assert exchange.resolve_mode(mex) == mode
     finally:
         ctx.close()
     from thrill_tpu_torch.common.config import Config

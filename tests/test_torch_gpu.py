@@ -1723,3 +1723,159 @@ def test_the_loop_graph_is_off_across_processes(op_sweep_runs):
         assert loop["captures"] == 1 and loop["replays"] == 4
         assert loop["fori_iters"] == 0
         assert "CUDA graph" in loop["graph_off"]
+
+
+# -- the exchange modes across processes on the one card ---------------------
+
+_MODES_CHILD = r'''
+import hashlib, json, sys
+import numpy as np, torch
+import thrill_tpu_torch as tt
+from thrill_tpu_torch.data import exchange as ex
+
+
+def job(ctx):
+    mex = ctx.mesh_exec
+    W, P, me = mex.num_workers, mex.num_processes, mex.process_index
+    out = {}
+    if mex.multiprocess:
+        # the uneven all-to-all: process p sends (p + 1) * (q + 2) rows
+        # to process q, each row holding 100 p + q
+        send = [(me + 1) * (q + 2) for q in range(P)]
+        recv = [(p + 1) * (me + 2) for p in range(P)]
+        for dt in (torch.int64, torch.float64, torch.int16, torch.uint8):
+            x = torch.cat([torch.full((send[q], 3), 100 * me + q,
+                                      device="cuda").to(dt)
+                           for q in range(P)])
+            b0 = mex.stats_bytes_cross
+            y = mex.exchange_rows(x, send, recv)
+            want = torch.cat([torch.full((recv[p], 3), 100 * p + me,
+                                         device="cuda").to(dt)
+                              for p in range(P)])
+            out[str(dt)] = [y.device.type, y.dtype == dt,
+                            bool(torch.equal(y, want)),
+                            mex.stats_bytes_cross - b0]
+    rng = np.random.default_rng(5)
+    recs = {"key": rng.integers(0, 256, (1 << 16, 10), dtype=np.uint8),
+            "val": np.arange(1 << 16, dtype=np.int64)}
+    for mode in ("dense", "onefactor", "ragged"):
+        mex.exchange_mode = mode
+        o = ctx.Distribute(recs).Sort(key_fn=lambda r: r["key"]) \
+            .AllGatherArrays()
+        h = hashlib.sha256()
+        for k in sorted(o):
+            h.update(o[k].cpu().numpy().tobytes())
+        out["sort_" + mode] = h.hexdigest()
+    mex.exchange_mode = "dense"
+    # a capacity overflow in the second process's rows only, on the
+    # cached plan: the folded verdict heals both processes
+    vals = np.arange(1 << 16, dtype=np.int64)
+
+    def run_site(dest):
+        s = ctx.Distribute(vals).node.materialize()
+        m0 = mex.stats_cap_cache_misses
+        got = np.asarray(ex.exchange(s, dest, ("ovf_card", W))
+                         .to_global_numpy())
+        return got, mex.stats_cap_cache_misses - m0
+    run_site(lambda t, m, w: t % W)
+    healed, misses = run_site(lambda t, m, w: torch.where(
+        w >= W // 2, torch.zeros_like(t), t % W))
+    out["ovf"] = hashlib.sha256(healed.tobytes()).hexdigest()
+    out["ovf_misses"] = misses
+    return out
+
+
+if sys.argv[1] == "one":
+    print("RESULT " + json.dumps(tt.Run(job, 4)), flush=True)
+else:
+    print("RESULT " + json.dumps(tt.RunDistributed(
+        job, coordinator_address=sys.argv[2], num_processes=2,
+        process_id=int(sys.argv[3]), workers_per_process=2)), flush=True)
+'''
+
+
+@pytest.fixture(scope="module")
+def modes_runs(tmp_path_factory):
+    """The uneven all-to-all, a Sort under each exchange mode and a
+    capacity overflow in one process's rows, at W = 4 on one process and
+    across two processes sharing the card (gloo, 2 workers each)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    tmp = tmp_path_factory.mktemp("modes")
+    child = tmp / "modes_child.py"
+    child.write_text(_MODES_CHILD)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    socks = [socket.socket() for _ in range(3)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    hosts = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+
+    def run(argvs, env_of):
+        procs = [subprocess.Popen(
+            [sys.executable, str(child)] + a, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True,
+            env=dict(os.environ, PYTHONPATH=repo, **env_of(i)))
+            for i, a in enumerate(argvs)]
+        out = []
+        try:
+            for p in procs:
+                o, e = p.communicate(timeout=300)
+                assert p.returncode == 0, e[-3000:]
+                out.append(json.loads([l for l in o.splitlines()
+                                       if l.startswith("RESULT ")][-1][7:]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        return out
+
+    one = run([["one"]], lambda i: {})[0]
+    two = run([["two", f"127.0.0.1:{ports[0]}", str(r)] for r in range(2)],
+              lambda i: {"THRILL_TPU_HOSTLIST": hosts,
+                         "THRILL_TPU_RANK": str(i),
+                         "THRILL_TPU_SECRET": "gpu-test"})
+    return one, two
+
+
+@pytest.mark.gpu
+def test_the_uneven_all_to_all_moves_cuda_tensors(modes_runs):
+    """``MeshExec.exchange_rows`` with uneven splits takes CUDA tensors
+    through gloo, the 16-bit type as its bytes, and counts the bytes
+    sent to the other process."""
+    _, two = modes_runs
+    for r, res in enumerate(two):
+        for dt, size in (("torch.int64", 8), ("torch.float64", 8),
+                         ("torch.int16", 2), ("torch.uint8", 1)):
+            dev, same_type, equal, cross = res[dt]
+            assert dev == "cuda" and same_type and equal, dt
+            assert cross == (r + 1) * (1 - r + 2) * 3 * size, dt
+
+
+@pytest.mark.gpu
+def test_every_exchange_mode_across_processes_on_the_card(modes_runs):
+    """The Sort under the 1-factor and the ragged exchange across two
+    processes is bit-equal to one process's dense Sort."""
+    one, two = modes_runs
+    for mode in ("dense", "onefactor", "ragged"):
+        assert one["sort_" + mode] == one["sort_dense"]
+        for r in two:
+            assert r["sort_" + mode] == one["sort_dense"], mode
+
+
+@pytest.mark.gpu
+def test_a_folded_overflow_heals_in_both_processes(modes_runs):
+    """An overflow in one process's rows of an optimistic exchange is
+    every process's verdict: both heal once, and the rows are one
+    process's."""
+    one, two = modes_runs
+    assert one["ovf_misses"] == 1
+    for r in two:
+        assert r["ovf_misses"] == 1 and r["ovf"] == one["ovf"]

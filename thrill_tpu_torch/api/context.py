@@ -23,7 +23,8 @@ A mesh of several processes (``RunDistributed``): each process runs the
 same job on its own Context, whose mesh holds its local workers' rows
 (parallel/mesh.py). ``ctx.net`` is the host control plane, a
 FlowControlChannel over the authenticated TCP group made from
-``THRILL_TPU_HOSTLIST``/``_RANK``/``_SECRET`` (net/tcp.py); the
+``THRILL_TPU_HOSTLIST``/``_RANK``/``_SECRET`` (net/tcp.py), or the MPI
+world under ``THRILL_TPU_NET=mpi`` (net/mpi.py); the
 host-storage multiplexer (data/multiplexer.py) and
 :meth:`Context.collective_mean_stdev` ride it. ``host_rank`` is the
 process's rank; ``overall_stats()`` gathers every process's counters
@@ -149,14 +150,29 @@ class Context:
         self._metrics = maybe_start(self)
 
     def _construct_host_group(self):
-        """The TCP group of the processes (reference:
-        ``api/context.py:395-437``; its ``mpi`` branch waits with
-        ``net/mpi.py``, ROADMAP.md item 6): from the environment when the
-        mesh spans processes, checked against the mesh's process count
-        and rank; a group of one otherwise."""
+        """The host group of the processes (reference:
+        ``api/context.py:395-437``): when the mesh spans processes, the
+        MPI world under ``THRILL_TPU_NET=mpi`` (net/mpi.py, one
+        tag-namespace group over ``COMM_WORLD``), else the TCP group
+        from the environment, either checked against the mesh's process
+        count and rank; a group of one otherwise."""
         from ..net import tcp
         mex = self.mesh_exec
         if mex.multiprocess:
+            if os.environ.get("THRILL_TPU_NET") == "mpi":
+                from ..net import mpi as mpi_net
+                grp = mpi_net.construct(1)[0]
+                if grp.num_hosts != mex.num_processes:
+                    raise ValueError(
+                        f"the MPI world has {grp.num_hosts} ranks but the "
+                        f"mesh spans {mex.num_processes} processes")
+                if grp.my_rank != mex.process_index:
+                    raise ValueError(
+                        f"MPI rank {grp.my_rank} disagrees with the mesh's "
+                        f"process index {mex.process_index}: the host "
+                        f"control plane and the device mesh must use the "
+                        f"same rank order")
+                return grp
             grp = tcp.construct_from_env()
             if grp is not None:
                 if grp.num_hosts != mex.num_processes:

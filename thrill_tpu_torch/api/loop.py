@@ -142,9 +142,11 @@ def export_plan_state(mex) -> dict:
     })
 
 
-def import_plan_state(mex, state: dict) -> int:
+def import_plan_state(mex, state: dict, *,
+                      symmetric: bool = False) -> int:
     from ..data.exchange import install_plan_seeds
-    return install_plan_seeds(mex, state, ("loop_tape",))
+    return install_plan_seeds(mex, state, ("loop_tape",),
+                              symmetric=symmetric)
 
 
 def _note_tape(mex, token, meta: Optional[dict]) -> None:

@@ -115,9 +115,12 @@ class GroupByKeyNode(DIABase):
             if owns_input:
                 lst.clear()
         t1 = time.perf_counter()
+        # a hash partition: the receive order is free
+        # (THRILL_TPU_HOST_MIX may take frames as they arrive)
         ex = multiplexer.host_exchange(self.context.mesh_exec,
                                        HostShards(W, pre_lists),
-                                       lambda t: t[0], reason="groupby")
+                                       lambda t: t[0], reason="groupby",
+                                       rank_order=False)
         del pre_lists
         t2 = time.perf_counter()
         pool = spill_pool(self.context.config.spill_dir, self.mem_limit)

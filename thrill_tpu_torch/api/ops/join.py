@@ -327,8 +327,10 @@ class InnerJoinNode(DIABase):
             # items travel with their hash
             tagged = HostShards(W, [list(zip(hl, items)) for items, hl
                                     in zip(shards.lists, hs)])
+            # matched by key: the arrival order only permutes the
+            # output's rows under THRILL_TPU_HOST_MIX=1
             ex = multiplexer.host_exchange(mex, tagged, lambda p: p[0] % W,
-                                           reason="join")
+                                           reason="join", rank_order=False)
             return [[it for _, it in l] for l in ex.lists]
 
         out = []

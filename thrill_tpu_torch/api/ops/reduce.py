@@ -330,10 +330,13 @@ class ReduceNode(DIABase):
             pre_lists.append(lst)
         del pre_entries, pre_hashes
         t1 = time.perf_counter()
+        # a hash partition: the post phase folds each key's entries, so
+        # the receive order is free (THRILL_TPU_HOST_MIX may take frames
+        # as they arrive; the reduce_fn's order contract is the user's)
         ex = multiplexer.host_exchange(
             mex, HostShards(W, pre_lists),
             lambda kv: kv[1] % W if kv[0] is None else kv[0],
-            reason="reduce")
+            reason="reduce", rank_order=False)
         t2 = time.perf_counter()
         # post phase: external-memory tables sized by the grant; a spilled
         # partition re-reduces recursively (Thrill:

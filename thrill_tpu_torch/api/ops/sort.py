@@ -668,7 +668,7 @@ def _device_sample_sort(shards: DeviceShards,
     # the planned exchange of (words, global index, payload) rows, then
     # one merge of each receiver's runs
     carrier = [words_s, gidx_s] + payload
-    ranges = mex._fetch_raw(out2[3]) if nidx else None
+    ranges = exchange.fetch_ranges(mex, out2[3]) if nidx else None
     got = exchange.exchange_presorted(
         mex, pt.flatten(carrier)[1], dest, carrier, S,
         ident=("sort_x", key_fn), ranges=ranges)

@@ -309,6 +309,9 @@ F_DISPATCH = declare("api.mesh.dispatch")
 #: a replayed loop iteration (api/loop.py): a fire falls back to a plain,
 #: re-captured iteration
 F_LOOP_REPLAY = declare("api.loop.replay")
+#: a liveness probe (net/heartbeat.py): a transient fire is absorbed by
+#: the retry policy, a persistent one takes the dead-peer verdict path
+F_HEARTBEAT = declare("net.heartbeat", exc=InjectedConnectionError)
 
 
 def fuse_site(label: str) -> str:

@@ -7,9 +7,11 @@ Its backend is gloo in both cases this slice runs:
 
 * a mesh on the CPU (the tests);
 * a mesh on CUDA whose processes share one card. gloo takes CUDA tensors
-  for ``all_to_all_single``, ``all_gather``, ``broadcast`` and
+  for ``all_to_all_single`` (even splits and the uneven ones of
+  ``MeshExec.exchange_rows``), ``all_gather``, ``broadcast`` and
   ``all_reduce`` (every collective the mesh runs; checked on the H100)
-  and stages them through host memory itself. NCCL would be the backend
+  and stages them through host memory itself. It moves no 16-bit
+  integers or bools: the mesh ships those as their bytes. NCCL would be the backend
   for processes on distinct cards, but it refuses two ranks on one
   device, and it waits for a machine with two cards (ROADMAP.md queue A
   item 6).

@@ -13,7 +13,9 @@ exchange, of which loop iteration bounded the run. The choke points:
 * ``data/exchange.py`` and ``api/ops/sort.py``: phase A, chunked phase
   B, the optimistic and synced plans, the Sort's fused ship-and-merge,
   and the deferred capacity verdicts (``exchange``);
-* ``data/multiplexer.py``: the host exchange (``host``);
+* ``data/multiplexer.py``: the host exchange (``host``), and the
+  background sender's ``async_send`` span a frame, parented under the
+  exchange's span across the thread boundary;
 * ``mem/pressure.py``: the ladder's rungs (``mem`` instants);
   ``mem/hbm.py`` and ``data/writeback.py``: restores and write-behind
   jobs (``io``);
@@ -21,8 +23,10 @@ exchange, of which loop iteration bounded the run. The choke points:
   audits and skew verdicts (``plan`` instants);
 * ``api/loop.py``: capture and replay iterations (``loop``).
 
-The reference's ``net`` and ``service`` lanes belong to the
-multi-process and service code, which the port has not taken yet.
+* ``net/tcp.py``: link repairs (``net`` instants).
+
+The reference's ``service`` lane belongs to the service code, which the
+port has not taken yet.
 
 Spans time the host (``time.perf_counter``), as the reference's do: a
 span around a dispatch measures the host's time to queue the work, not

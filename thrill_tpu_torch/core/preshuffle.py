@@ -213,11 +213,13 @@ def export_plan_state(mex) -> dict:
     })
 
 
-def import_plan_state(mex, state: dict) -> int:
+def import_plan_state(mex, state: dict, *,
+                      symmetric: bool = False) -> int:
     """Install pre-shuffle seeds into the mesh's seed table."""
     from ..data.exchange import install_plan_seeds
     return install_plan_seeds(mex, state,
-                              ("prune_decisions", "prune_history"))
+                              ("prune_decisions", "prune_history"),
+                              symmetric=symmetric)
 
 
 def _pays_est(rows: int, item_bytes: int, W: int, sides: int, M: int,

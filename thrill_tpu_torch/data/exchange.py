@@ -64,18 +64,31 @@ Any other mode string takes the synced dense plan, as the reference's
 consumer's choice, not the exchange's).
 
 Across processes (parallel/mesh.py) a process holds its local workers'
-rows. Phase A's send rows are the local ones; the plan reads the global
-``[W, W]`` send matrix (:meth:`MeshExec.fetch_global`: the local rows,
-gathered), so every process builds the same plan; phase B's transpose
-is :meth:`MeshExec.worker_transpose`, one ``all_to_all_single`` of the
-padded blocks bound for each process, and receivers keep source-worker
-order, so results are bit-equal to the one-process run of W workers.
-Every choice a process could make from its own state is fixed instead:
-the plan is synced every time (no optimistic dispatch, whose deferred
-check would need a collective of its own), rows ship at full width, the
-exchange is dense, and the chunk count is the volume rule's. The
-1-factor, ragged and streamed modes across processes raise
-NotImplementedError (ROADMAP.md item 6, its exchange-modes part).
+rows of one global plan, and every mode runs. Phase A's send rows are
+the local ones; a synced plan reads the global ``[W, W]`` send matrix
+(:meth:`MeshExec.fetch_global`: the local rows, gathered), so every
+process builds the same plan. The dense phase B's transpose is
+:meth:`MeshExec.worker_transpose` (one ``all_to_all_single`` of the
+padded blocks bound for each process); the ragged exchange packs each
+local sender's rows by receiving process and ships them with
+:meth:`MeshExec.exchange_rows` (uneven splits from the global matrix),
+and the 1-factor and streamed rounds ship each round's blocks the same
+way, one collective a round on every process, its own blocks empty or
+not. Receivers keep source-worker order, so results are bit-equal to
+the one-process run of W workers (the streamed delivery promises no
+order, in one process or several). Every choice reads global numbers:
+the skew flip reads the global ``S`` with the static ``bytes_eq`` (a
+calibration is a process's own); narrowing folds each leaf's ``[min,
+max]`` over the processes (``worker_min``, ``worker_max``) before a
+spec is made; the optimistic dispatch gathers the global send matrix on
+the device, so its overflow flag is a function of that matrix and of a
+range verdict max-folded over the processes, the same on every process,
+and every process heals or none does, at the drain points the processes
+share. Seeds installed without the ``symmetric`` attestation (a store
+read by each process) turn optimism off across processes, as in the
+reference (``install_plan_seeds``). The chunk count stays the volume
+rule's: a per-process HBM budget would give the processes different
+chunk counts, and so different collectives.
 
 Observability (common/trace.py, common/doctor.py): ``exchange`` spans
 ``phase_a``, ``phase_b`` (``chunks``, ``narrowed``), ``optimistic``
@@ -107,7 +120,7 @@ from ..common.trace import instant_of, span_of
 from ..core.device_sort import argsort_words
 from ..core.pallas_kernels import partition_histogram
 from ..core.rowmove import scatter_slots, take_rows_multi
-from ..parallel.mesh import MeshExec, current_mex
+from ..parallel.mesh import MeshExec, current_mex, worker_max, worker_min
 from .shards import DeviceShards
 
 # a chunk of phase B, before its program launches (nothing dispatched
@@ -212,9 +225,17 @@ def merge_unconsumed_seeds(mex, out: dict) -> dict:
     return out
 
 
-def install_plan_seeds(mex, state: dict, kinds) -> int:
+def install_plan_seeds(mex, state: dict, kinds, *,
+                       symmetric: bool = False) -> int:
     """Merge digest maps of ``kinds`` into the mesh's seed table; the
-    number of entries that arrived."""
+    number of entries that arrived. ``symmetric`` attests that every
+    process of the mesh installs these same entries; seeds that arrive
+    without it (a store each process read for itself) turn
+    ``mex._plan_seed_symmetric`` off, and with it the optimistic
+    dispatch across processes (:func:`_optimistic_ok`): seeds that may
+    differ between processes would give them different plans, and so
+    different collectives. State learned in the run derives from the
+    global send matrix and needs no attestation (the flag's default)."""
     seeds = getattr(mex, "_plan_seed", None)
     if seeds is None:
         seeds = mex._plan_seed = {}
@@ -224,6 +245,8 @@ def install_plan_seeds(mex, state: dict, kinds) -> int:
         if isinstance(m, dict) and m:
             seeds.setdefault(kind, {}).update(m)
             n += len(m)
+    if n and not symmetric:
+        mex._plan_seed_symmetric = False
     return n
 
 
@@ -242,9 +265,11 @@ def export_plan_state(mex: MeshExec) -> dict:
     })
 
 
-def import_plan_state(mex: MeshExec, state: dict) -> int:
+def import_plan_state(mex: MeshExec, state: dict, *,
+                      symmetric: bool = False) -> int:
     """Install exchange seeds (:func:`export_plan_state`'s form)."""
-    return install_plan_seeds(mex, state, ("caps", "plan", "ranges"))
+    return install_plan_seeds(mex, state, ("caps", "plan", "ranges"),
+                              symmetric=symmetric)
 
 
 def _seeded_caps(mex: MeshExec, ident: Tuple) -> Optional[Tuple[int, ...]]:
@@ -465,9 +490,24 @@ def _narrow_worth(mex: MeshExec, cap: int, leaves) -> bool:
     """Range analysis pays on volume, at W > 1, with narrowing on and
     no loop capture recording (ranges are values of loop data)."""
     W = mex.num_workers
-    return (W > 1 and xchg_narrow_enabled() and not mex.multiprocess
+    return (W > 1 and xchg_narrow_enabled()
             and mex.loop_recorder is None
             and W * cap * leaf_item_bytes(leaves) >= _NARROW_MIN_BYTES)
+
+
+def fetch_ranges(mex: MeshExec, range_mat: Optional[torch.Tensor]
+                 ) -> Optional[np.ndarray]:
+    """The ``[L, 2]`` leaf ranges on the host (an uncounted read that
+    rides the plan sync), across processes every process's folded first
+    (``worker_min`` of the lows, ``worker_max`` of the highs), so every
+    process makes the same narrow spec."""
+    if range_mat is None:
+        return None
+    if mex.multiprocess:
+        range_mat = torch.stack([worker_min(range_mat[None, :, 0], mex),
+                                 worker_max(range_mat[None, :, 1], mex)],
+                                dim=1)
+    return mex._fetch_raw(range_mat)
 
 
 def presorted_range_leaves(mex: MeshExec, cap: int,
@@ -494,16 +534,11 @@ def resolve_mode(mex: MeshExec) -> str:
     """The exchange mode: THRILL_TPU_EXCHANGE (read once, when the mesh
     was made), then the mesh's configured mode, then dense. ``dense``
     lets the cost model choose the 1-factor rounds; ``onefactor`` and
-    ``ragged`` force theirs; any other string, ``stream`` among them,
-    takes the synced dense plan, as in the reference."""
+    ``ragged`` force theirs, in one process or several; any other
+    string, ``stream`` among them, takes the synced dense plan, as in
+    the reference."""
     env = getattr(mex, "_env_exchange", None)
-    mode = env or getattr(mex, "exchange_mode", "dense") or "dense"
-    if getattr(mex, "multiprocess", False) and mode in ("onefactor",
-                                                      "ragged"):
-        raise NotImplementedError(
-            f"the {mode} exchange across processes is not ported yet: "
-            f"ROADMAP.md queue A item 6, its exchange-modes part")
-    return mode
+    return env or getattr(mex, "exchange_mode", "dense") or "dense"
 
 
 def leaf_item_bytes(leaves: Sequence[torch.Tensor]) -> int:
@@ -559,8 +594,11 @@ def _bytes_eq(mex: MeshExec) -> int:
     # live calibration from the dispatch-latency spine once it has
     # enough samples (fresh meshes, and so every plan-choice test, keep
     # the static constant), clamped to [static / 4, static * 4];
-    # THRILL_TPU_XCHG_BYTES_EQ_CAL=0 pins the static value
+    # THRILL_TPU_XCHG_BYTES_EQ_CAL=0 pins the static value. Across
+    # processes the static value: a latency is a process's own, and a
+    # cost read from it could flip one process's plan only
     if (os.environ.get("THRILL_TPU_XCHG_BYTES_EQ_CAL", "1") != "0"
+            and not mex.multiprocess
             and mex._disp_lat_n >= _BYTES_EQ_MIN_SAMPLES):
         bw = _BYTES_EQ_BANDWIDTH.get(platform,
                                      _BYTES_EQ_BANDWIDTH_FALLBACK)
@@ -597,9 +635,9 @@ def _strategy_costs(mex: MeshExec, S: np.ndarray,
 
 def _skewed(S: np.ndarray, row_bytes: int, mex: MeshExec) -> bool:
     """Does the cost model prefer the 1-factor rounds for ``S``? Never
-    on the card, and never across processes (a calibrated cost is a
-    process's own)."""
-    if _one_card(mex) or getattr(mex, "multiprocess", False):
+    on the card. Across processes ``S`` is the global matrix and
+    ``bytes_eq`` the static constant, so every process flips alike."""
+    if _one_card(mex):
         return False
     dense_b, of_b, n_rounds = _strategy_costs(mex, S, row_bytes)
     return dense_b - of_b > n_rounds * _bytes_eq(mex)
@@ -785,6 +823,11 @@ def _chunk_prog(sdest: torch.Tensor, smat: torch.Tensor,
             outs.append(acc)
     if not first:
         return outs
+    if narrow is not None and mex is not None and mex.multiprocess:
+        # a learned range any process's rows outgrew: every process's
+        # verdict, so every process heals or none does
+        range_bad = worker_max(range_bad.reshape(1, 1).to(torch.int32),
+                               mex).reshape(()) > 0
     counts = S.sum(dim=0)
     ovf = (S.max() > M_pad) | (counts.max() > out_cap) | range_bad
     return counts[b:b + Wl], ovf.reshape(1), outs
@@ -910,27 +953,72 @@ def _dispatch_chunked(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     return accs, counts_dev, flag
 
 
+def _round_blocks(blocks: torch.Tensor, to: np.ndarray) -> torch.Tensor:
+    """One round of the pairwise schedule: ``blocks`` ``[W_local, M,
+    ...]`` holds local sender ``w``'s block bound for worker ``to[w]``
+    (``to`` the round's global permutation); the result ``[W_local, M,
+    ...]`` holds each local receiver's block from the worker that sends
+    to it. One process: a gather of the worker dimension. Several: the
+    local senders' blocks ordered by receiving process, one
+    :meth:`MeshExec.exchange_rows`, and the received blocks (every
+    process's senders in rank order) ordered by receiver."""
+    to = np.asarray(to, dtype=np.int64)
+    W = len(to)
+    inv = np.empty(W, dtype=np.int64)
+    inv[to] = np.arange(W)
+    mex = current_mex()
+    dev = blocks.device
+    if mex is None or not mex.multiprocess:
+        return blocks[torch.as_tensor(inv, device=dev)]
+    P, Wl, b, me = (mex.num_processes, mex.num_local, mex.worker_base,
+                    mex.process_index)
+    M = blocks.shape[1]
+    trail = tuple(blocks.shape[2:])
+    dst_proc = to // Wl
+    order = np.argsort(dst_proc[b:b + Wl], kind="stable")
+    send = np.bincount(dst_proc[b:b + Wl], minlength=P) * M
+    # the senders whose partner is local here, in rank order: the order
+    # the received blocks come in
+    senders = np.flatnonzero(dst_proc == me)
+    recv = np.bincount(senders // Wl, minlength=P) * M
+    rank_of = {int(s): k for k, s in enumerate(senders)}
+    recv_order = [rank_of[int(inv[b + v])] for v in range(Wl)]
+    x = blocks if np.array_equal(order, np.arange(Wl)) else \
+        blocks[torch.as_tensor(order, device=dev)]
+    y = mex.exchange_rows(x.reshape((Wl * M,) + trail), send.tolist(),
+                          recv.tolist()).reshape((Wl, M) + trail)
+    if recv_order == list(range(Wl)):
+        return y
+    return y[torch.as_tensor(recv_order, device=dev)]
+
+
 def _onefactor_prog(sdest: torch.Tensor, srow: torch.Tensor,
                     leaves: List[torch.Tensor], rounds: Tuple,
                     M_rounds: Tuple[int, ...], out_cap: int, narrow):
     """Program: the 1-factor exchange. The identity round copies each
     worker's own rows; round ``r`` ships worker ``w``'s rows bound for
-    ``rounds[r][w]`` in a block padded to that round's pair maximum, and
-    the partner writes them at the dense plan's positions."""
-    W, cap = sdest.shape
+    ``rounds[r][w]`` in a block padded to that round's pair maximum
+    (:func:`_round_blocks`), and the partner writes them at the dense
+    plan's positions. Across processes the local workers' rows ``[b, b
+    + W_local)`` of the W; every process runs every round."""
+    mex = current_mex()
+    Wl, cap = sdest.shape
+    W = srow.shape[0]
+    b = mex.worker_base if mex is not None else 0
     dev = sdest.device
     S = srow.to(torch.int64)
-    off = _ex_cumsum(S, 1)
-    roff = _ex_cumsum(S.T, 1)                              # [dst, src]
+    off = _ex_cumsum(S, 1)[b:b + Wl]                       # [src, dst]
+    roff = _ex_cumsum(S.T, 1)[b:b + Wl]                    # [dst, src]
     d = sdest
     i = torch.arange(cap, device=dev)[None, :]
-    widx = torch.arange(W, device=dev)
+    lw = torch.arange(Wl, device=dev)
+    gw = lw + b                                  # the local workers' ids
     xs = [l if narrow is None or narrow[li] is None
           else _to_narrow(l, narrow[li]) for li, l in enumerate(leaves)]
     region = out_cap + max(cap, max(M_rounds, default=0))
-    outs = [torch.zeros((W * region,) + tuple(x.shape[2:]), dtype=x.dtype,
+    outs = [torch.zeros((Wl * region,) + tuple(x.shape[2:]), dtype=x.dtype,
                         device=dev) for x in xs]
-    base = widx[:, None] * region
+    base = lw[:, None] * region
 
     def place(pos, keep, rows):
         dump = out_cap + torch.arange(pos.shape[1], device=dev)[None, :]
@@ -940,32 +1028,33 @@ def _onefactor_prog(sdest: torch.Tensor, srow: torch.Tensor,
             o.index_put_((flat,), r.reshape((-1,) + tuple(r.shape[2:])))
 
     # identity round: worker w's rows for itself, no exchange
-    slot0 = i - off[widx, widx][:, None]
-    place(roff[widx, widx][:, None] + slot0, d == widx[:, None], xs)
+    slot0 = i - off[lw, gw][:, None]
+    place(roff[lw, gw][:, None] + slot0, d == gw[:, None], xs)
     for r, to in enumerate(rounds):
-        to_t = torch.as_tensor(np.asarray(to), device=dev)
+        to = np.asarray(to, dtype=np.int64)
         inv = np.empty(W, dtype=np.int64)
-        inv[np.asarray(to)] = np.arange(W)
-        inv_t = torch.as_tensor(inv, device=dev)
+        inv[to] = np.arange(W)
+        to_t = torch.as_tensor(to, device=dev)[gw]
+        src_t = torch.as_tensor(inv, device=dev)[gw]
         M_r = M_rounds[r]
         sel = d == to_t[:, None]
-        slot = i - off[widx, to_t][:, None]
+        slot = i - off[lw, to_t][:, None]
         send = scatter_slots(slot, sel & (slot < M_r), M_r)
         blocks = []
         for x in xs:
             trail = tuple(x.shape[2:])
             per = M_r + cap
-            buf = torch.zeros((W * per,) + trail, dtype=x.dtype, device=dev)
+            buf = torch.zeros((Wl * per,) + trail, dtype=x.dtype, device=dev)
             buf.index_put_((send,), x.reshape((-1,) + trail))
-            # the permutation: receiver to[w] takes sender w's block
-            blocks.append(buf.reshape((W, per) + trail)[:, :M_r][inv_t])
+            blocks.append(_round_blocks(
+                buf.reshape((Wl, per) + trail)[:, :M_r], to))
         jj = torch.arange(M_r, device=dev)[None, :]
-        n_recv = S[inv_t, widx][:, None]                   # from inv[r]
-        pos = roff[widx, inv_t][:, None] + jj
+        n_recv = S[src_t, gw][:, None]
+        pos = roff[lw, src_t][:, None] + jj
         place(pos, jj < n_recv, blocks)
     res = []
     for li, (o, l) in enumerate(zip(outs, leaves)):
-        y = o.reshape((W, region) + tuple(o.shape[1:]))[:, :out_cap]
+        y = o.reshape((Wl, region) + tuple(o.shape[1:]))[:, :out_cap]
         if narrow is not None and narrow[li] is not None:
             y = _from_narrow(y, narrow[li], l.dtype)
         res.append(y.contiguous())
@@ -1000,7 +1089,8 @@ def _exchange_onefactor(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     srow = mex.put_small(S.astype(np.int32))
     out = prog(sorted_dest, srow, sorted_leaves, rounds_key, M_rounds,
                out_cap, narrow)
-    return DeviceShards(mex, pt.unflatten(treedef, out), R.astype(np.int64))
+    return DeviceShards(mex, pt.unflatten(treedef, out),
+                        mex.local(R.astype(np.int64)))
 
 
 def _ragged_prog(sdest: torch.Tensor, srow: torch.Tensor,
@@ -1041,6 +1131,63 @@ def _ragged_prog(sdest: torch.Tensor, srow: torch.Tensor,
     return outs
 
 
+def _ragged_mp_prog(sdest: torch.Tensor, srow: torch.Tensor,
+                    landing: torch.Tensor, leaves: List[torch.Tensor],
+                    out_cap: int, narrow, send: Tuple[int, ...],
+                    recv: Tuple[int, ...]):
+    """Program: the ragged exchange across processes. Each local
+    sender's valid rows are packed by receiving process ``q`` (within
+    it by sender, then by receiver: the order they lie in, sorted by
+    destination) into ``send[q]`` rows, one
+    :meth:`MeshExec.exchange_rows` ships them, and each receiver writes
+    the rows it got from sender ``s`` at ``landing[s, d] + j``: the
+    one-card program's positions, so the result is its result."""
+    mex = current_mex()
+    P, b = mex.num_processes, mex.worker_base
+    Wl, cap = sdest.shape
+    W = srow.shape[0]
+    dev = sdest.device
+    S = srow.to(torch.int64)
+    Sl = S[b:b + Wl]                                       # [src, dst]
+    d = sdest.to(torch.int64)
+    dc = d.clamp(0, W - 1)
+    q = dc // Wl                                 # the receiving process
+    Sq = Sl.reshape(Wl, P, Wl).sum(2)                      # [src, proc]
+    start = (_ex_cumsum(Sq.sum(0), 0)[None, :]
+             + _ex_cumsum(Sq, 0))                          # [src, proc]
+    off = _ex_cumsum(Sl, 1)
+    i = torch.arange(cap, device=dev)[None, :]
+    pos = torch.gather(start, 1, q) + i - torch.gather(off, 1, q * Wl)
+    n_send, n_recv = sum(send), sum(recv)
+    dump = n_send + torch.arange(Wl, device=dev)[:, None] * cap + i
+    flat = torch.where(d < W, pos, dump).reshape(-1)
+    # the received rows: by sender in rank order, by local receiver,
+    # each run in its sender's order
+    runs = S[:, b:b + Wl].reshape(-1)                      # [src * dst]
+    first = (landing.to(torch.int64)[:, b:b + Wl]
+             + torch.arange(Wl, device=dev)[None, :] * out_cap).reshape(-1)
+    run = torch.repeat_interleave(torch.arange(runs.numel(), device=dev),
+                                  runs, output_size=n_recv)
+    rpos = first[run] + torch.arange(n_recv, device=dev) \
+        - _ex_cumsum(runs, 0)[run]
+    outs = []
+    for li, l in enumerate(leaves):
+        trail = tuple(l.shape[2:])
+        nd = narrow[li] if narrow is not None else None
+        x = _to_narrow(l, nd) if nd is not None else l
+        buf = torch.zeros((n_send + Wl * cap,) + trail, dtype=x.dtype,
+                          device=dev)
+        buf.index_put_((flat,), x.reshape((-1,) + trail))
+        got = mex.exchange_rows(buf[:n_send], list(send), list(recv))
+        y = torch.zeros((Wl * out_cap,) + trail, dtype=x.dtype, device=dev)
+        y.index_put_((rpos,), got)
+        y = y.reshape((Wl, out_cap) + trail)
+        if nd is not None:
+            y = _from_narrow(y, nd, l.dtype)
+        outs.append(y)
+    return outs
+
+
 def _exchange_ragged(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
                      S: np.ndarray, min_cap: int = 1,
                      narrow=None) -> DeviceShards:
@@ -1048,7 +1195,9 @@ def _exchange_ragged(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     per-pair padding, so the bytes counted are the off-diagonal items
     (narrowed on ``bytes_wire_device``, full width on ``_raw``). The
     output capacity is the power of two of the largest receive count,
-    not sticky, as the reference's."""
+    not sticky, as the reference's. Across processes
+    :func:`_ragged_mp_prog`, whose split sizes come from the global
+    ``S``."""
     R = S.sum(axis=0)
     ragged_items = int(S.sum()) - int(np.trace(S))
     mex.stats_bytes_wire_device += ragged_items * _narrow_item_bytes(
@@ -1058,12 +1207,24 @@ def _exchange_ragged(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     out_cap = round_up_pow2(max(int(R.max()), min_cap, 1))
     # landing[s, d]: rows of senders before s at receiver d
     landing = np.cumsum(S, axis=0) - S
-    prog = mex.program(("xchg_ragged", out_cap, treedef, narrow,
-                        _leaf_sig(sorted_leaves)), _ragged_prog)
-    out = prog(sorted_dest, mex.put_small(S.astype(np.int64)),
-               mex.put_small(landing.astype(np.int64)), sorted_leaves,
-               out_cap, narrow)
-    return DeviceShards(mex, pt.unflatten(treedef, out), R.astype(np.int64))
+    srow = mex.put_small(S.astype(np.int64))
+    land = mex.put_small(landing.astype(np.int64))
+    if mex.multiprocess:
+        P, Wl, b = mex.num_processes, mex.num_local, mex.worker_base
+        send = tuple(int(n) for n in
+                     S[b:b + Wl].reshape(Wl, P, Wl).sum(axis=(0, 2)))
+        recv = tuple(int(n) for n in
+                     S[:, b:b + Wl].reshape(P, Wl, Wl).sum(axis=(1, 2)))
+        prog = mex.program(("xchg_ragged_mp", out_cap, treedef, narrow,
+                            _leaf_sig(sorted_leaves)), _ragged_mp_prog)
+        out = prog(sorted_dest, srow, land, sorted_leaves, out_cap, narrow,
+                   send, recv)
+    else:
+        prog = mex.program(("xchg_ragged", out_cap, treedef, narrow,
+                            _leaf_sig(sorted_leaves)), _ragged_prog)
+        out = prog(sorted_dest, srow, land, sorted_leaves, out_cap, narrow)
+    return DeviceShards(mex, pt.unflatten(treedef, out),
+                        mex.local(R.astype(np.int64)))
 
 
 def _stream_round_prog(sdest: torch.Tensor, srow: torch.Tensor,
@@ -1071,24 +1232,29 @@ def _stream_round_prog(sdest: torch.Tensor, srow: torch.Tensor,
     """Program: round ``r`` of the streamed exchange (the schedule of
     :func:`one_factor_rounds`; 0 the identity round). Worker ``w`` sends
     its rows bound for ``(w + r) % W`` in a block of ``M_r`` rows, zeros
-    past them, and receives the block of ``(w - r) % W``."""
-    W, cap = sdest.shape
+    past them, and receives the block of ``(w - r) % W``
+    (:func:`_round_blocks`; across processes the local workers')."""
+    mex = current_mex()
+    Wl, cap = sdest.shape
+    W = srow.shape[0]
+    b = mex.worker_base if mex is not None else 0
     dev = sdest.device
     S = srow.to(torch.int64)
-    off = _ex_cumsum(S, 1)
-    widx = torch.arange(W, device=dev)
-    d_r = (widx + r) % W
-    slot = torch.arange(cap, device=dev)[None, :] - off[widx, d_r][:, None]
+    off = _ex_cumsum(S, 1)[b:b + Wl]
+    lw = torch.arange(Wl, device=dev)
+    d_r = (lw + b + r) % W
+    slot = torch.arange(cap, device=dev)[None, :] - off[lw, d_r][:, None]
     sel = sdest.to(torch.int64) == d_r[:, None]
     send = scatter_slots(slot, sel & (slot < M_r), M_r)
-    src = (widx - r) % W
+    to = (np.arange(W) + r) % W
     outs = []
     for x in leaves:
         trail = tuple(x.shape[2:])
-        buf = torch.zeros((W * (M_r + cap),) + trail, dtype=x.dtype,
+        buf = torch.zeros((Wl * (M_r + cap),) + trail, dtype=x.dtype,
                           device=dev)
         buf.index_put_((send,), x.reshape((-1,) + trail))
-        outs.append(buf.reshape((W, M_r + cap) + trail)[src, :M_r]
+        blocks = buf.reshape((Wl, M_r + cap) + trail)[:, :M_r]
+        outs.append((blocks if r == 0 else _round_blocks(blocks, to))
                     .contiguous())
     return outs
 
@@ -1101,12 +1267,10 @@ def exchange_stream(shards: DeviceShards, dest_builder: Callable,
     round, each yielded as its own ``DeviceShards`` with host counts, so
     the consumer folds one while the next is queued. No rank-order
     guarantee. The plan syncs the host send matrix (per-round capacities
-    need it), and rounds ship full width: no range analysis."""
+    need it), and rounds ship full width: no range analysis. Across
+    processes each round is one exchange of the round's blocks on every
+    process, and each yield holds the local receivers' rows."""
     mex = shards.mesh_exec
-    if mex.multiprocess:
-        raise NotImplementedError(
-            "the streamed exchange across processes is not ported yet: "
-            "ROADMAP.md queue A item 6, its exchange-modes part")
     W = mex.num_workers
     treedef, sorted_dest, sorted_leaves, send_mat, _ = _phase_a(
         shards, dest_builder, cache_key, want_ranges=False)
@@ -1118,6 +1282,7 @@ def exchange_stream(shards: DeviceShards, dest_builder: Callable,
         yield DeviceShards(mex, pt.unflatten(treedef, sorted_leaves),
                            np.diag(S).astype(np.int64).copy())
         return
+    widx = np.arange(mex.worker_base, mex.worker_base + mex.num_local)
     count_plan_build(mex)
     led = _decisions.ledger_of(mex)
     if led is not None:
@@ -1138,7 +1303,6 @@ def exchange_stream(shards: DeviceShards, dest_builder: Callable,
     mex.stats_bytes_wire_device_raw += stream_bytes
     srow = mex.put_small(S.astype(np.int32))
     sig = _leaf_sig(sorted_leaves)
-    widx = np.arange(W)
     for r in range(W):
         prog = mex.program(("xchg_stream_round", cap, caps[r], r, treedef,
                             sig), _stream_round_prog)
@@ -1182,8 +1346,7 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
     pl = _planner_of(mex)
     if pl is not None:
         chosen_mode, _, _, _ = pl.exchange_strategy(S, item_bytes, mode)
-        skew = (mode == "dense" and chosen_mode == "onefactor"
-                and not mex.multiprocess)
+        skew = mode == "dense" and chosen_mode == "onefactor"
     else:
         skew = mode == "dense" and _skewed(S, item_bytes, mex)
     led = _decisions.ledger_of(mex)
@@ -1197,9 +1360,7 @@ def _exchange_planned(mex: MeshExec, treedef, sorted_dest, sorted_leaves,
             why = "skewed send matrix" if skew else "configured mode"
         else:
             chosen, pred, rej = "dense", dense_b, [("onefactor", of_b)]
-            why = ("processes: one plan on every process"
-                   if mex.multiprocess
-                   else "one card: the workers share one device"
+            why = ("one card: the workers share one device"
                    if _one_card(mex) else "balanced send matrix")
         rec = led.record("xchg_strategy", _site(ident), chosen,
                          predicted=pred, rejected=rej, reason=why,
@@ -1250,8 +1411,13 @@ def _optimistic_ok(mex: MeshExec, cap_ident: Tuple, min_cap: int,
     dense and its capacities are cached. With a planner, a site marked
     for re-optimization or host-known ``counts`` that prove the cached
     capacities cannot hold re-plan synced from current data. Every
-    ``_CAP_RESYNC_EVERY``-th use re-syncs anyway."""
+    ``_CAP_RESYNC_EVERY``-th use re-syncs anyway. Across processes every
+    input of the verdict is global (the caller passes no local counts),
+    and seeds of unattested provenance keep the synced plan
+    (:func:`install_plan_seeds`)."""
     if not cap_cache_enabled() or mex.loop_recorder is not None:
+        return None
+    if mex.multiprocess and not getattr(mex, "_plan_seed_symmetric", True):
         return None
     if resolve_mode(mex) != "dense":
         return None
@@ -1327,9 +1493,13 @@ def _exchange_optimistic(mex: MeshExec, treedef, sorted_dest,
     by the next consumer) that the plan held. A miss re-runs the synced
     plan from the retained phase-A output and heals the shards in place.
     The retained rows are counted in the HBM governor's ledger until the
-    check has run."""
+    check has run. Across processes phase B reads the global send matrix
+    gathered on the device (no host read), so the flag is the same on
+    every process and the check needs no collective unless it heals."""
     M_pad, out_cap = caps
     cap = sorted_dest.shape[1]
+    # the global [W, W] matrix (phase A's own in one process)
+    send_mat = mex.gather_workers(send_mat)
     item_bytes = leaf_item_bytes(sorted_leaves)
     cap_ident = _dense_cap_ident(ident, cap, treedef, sorted_leaves)
     narrow = None
@@ -1387,7 +1557,7 @@ def _exchange_optimistic(mex: MeshExec, treedef, sorted_dest,
         mex.stats_cap_cache_misses += 1
         faults.note("recovery", what="xchg.capacity_miss",
                     cached=(M_pad, out_cap))
-        ranges = None if range_mat is None else mex._fetch_raw(range_mat)
+        ranges = fetch_ranges(mex, range_mat)
         healed = _exchange_planned(mex, treedef, sorted_dest, sorted_leaves,
                                    S, min_cap=min_cap, ident=ident,
                                    smat_dev=send_mat, ranges=ranges)
@@ -1444,18 +1614,20 @@ def exchange(shards: DeviceShards, dest_builder: Callable,
     td, sorted_dest, sorted_leaves, send_mat, range_mat = _phase_a(
         shards, dest_builder, cache_key,
         want_ranges=mex.loop_recorder is None)
-    if mex.num_workers > 1 and not mex.multiprocess:
+    if mex.num_workers > 1:
         cap = sorted_dest.shape[1]
         cap_ident = _dense_cap_ident(cache_key, cap, td, sorted_leaves)
+        # a process's own counts would make its verdict its own
         caps = _optimistic_ok(mex, cap_ident, min_cap, ident=cache_key,
-                              counts=shards._counts_host)
+                              counts=None if mex.multiprocess
+                              else shards._counts_host)
         if caps is not None:
             return _exchange_optimistic(
                 mex, td, sorted_dest, sorted_leaves, send_mat, caps,
                 ident=cache_key, min_cap=min_cap, range_mat=range_mat)
     S = _plan_sync(mex, send_mat)
     # the tiny range matrix rides the same host read (uncounted)
-    ranges = None if range_mat is None else mex._fetch_raw(range_mat)
+    ranges = fetch_ranges(mex, range_mat)
     return _exchange_planned(mex, td, sorted_dest, sorted_leaves, S,
                              min_cap=min_cap, ident=cache_key,
                              smat_dev=send_mat, ranges=ranges)

@@ -23,13 +23,22 @@ group of net/tcp.py):
 * ``host_to_device``: HostShards to DeviceShards with a capacity and a
   schema agreed by every process.
 
-Frames are sent synchronously. Two processes that both send a frame
-larger than the socket buffers before reading would wait on each other,
-so the peers are paired in the rounds of a 1-factorization and, in each
-pair, the lower rank sends first and the higher receives first. The
-reference's background sender (``_exchange_frames_async``) and its
-arrival-order delivery (``THRILL_TPU_HOST_MIX``) wait with the
-asynchronous dispatcher, a later part of ROADMAP.md item 6.
+Frames ride a background sender (``_exchange_frames_async``, the
+multiplexer's send thread, thrill/data/multiplexer.cpp:282) with a
+bounded queue (``THRILL_TPU_SEND_QUEUE`` frames, 4), so this process's
+sends overlap its receives; large frames go out through the TCP group's
+asynchronous engine (net/dispatcher.py). ``THRILL_TPU_ASYNC_SEND=0``, or
+the ``THRILL_TPU_OVERLAP=0`` master switch, sends from the caller's
+thread instead: then two processes that both send a frame larger than
+the socket buffers before reading could wait on each other, so the
+peers are paired in the rounds of a 1-factorization and, in each pair,
+the lower rank sends first. Either way each receiver gets its batches
+in source-worker rank order, unless a call site declares it needs no
+order (``rank_order=False``: the host ReduceByKey, GroupByKey and
+InnerJoin, whose targets are hash partitions) and
+``THRILL_TPU_HOST_MIX=1`` is set: then frames are taken as they arrive
+(an any-source receive) and their batches appended in that order (the
+MixStream order, thrill/data/mix_stream.hpp:126).
 
 Items moved count, on every process, the items its workers send to
 another worker (in one process, those that change worker), so the sum
@@ -37,17 +46,23 @@ over the processes is the one-process count. Bytes moved between
 processes are ``stats_bytes_wire_host``, as the transport measured them.
 
 Tracing: every host exchange is a ``host`` span ``host_exchange`` with
-its ``reason`` and ``mode`` (``local``: in-process bucketing; ``serial``:
-framed batches over the TCP group).
+its ``reason`` and ``mode`` (``local``: in-process bucketing; ``async``:
+framed batches from the background sender; ``serial``: from the
+caller's thread), and each frame the background sender ships is a
+``host`` span ``async_send`` with its ``peer``.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
 from typing import Any, Callable, List
 
 import numpy as np
 
 from ..common import faults
+from ..common.config import _env_flag, overlap_enabled
 from ..common.retry import default_policy
 from ..common.trace import span_of
 from ..net.group import poison_on_error
@@ -62,7 +77,35 @@ _F_SEND = faults.declare("net.multiplexer.frame_send",
                          exc=faults.InjectedConnectionError)
 _F_RECV = faults.declare("net.multiplexer.frame_recv",
                          exc=faults.InjectedConnectionError)
+# in the background sender, before a frame reaches the transport
+# (nothing sent yet: a retry is safe); a failure is raised again on the
+# exchange's thread
+_F_ASYNC = faults.declare("net.multiplexer.async_send",
+                          exc=faults.InjectedConnectionError)
 _FRAME_RETRY = dict(transient=(faults.InjectedConnectionError,))
+
+
+def _async_send_enabled() -> bool:
+    """The background sender: on unless ``THRILL_TPU_ASYNC_SEND=0`` or
+    ``THRILL_TPU_OVERLAP=0``."""
+    return overlap_enabled() and _env_flag("THRILL_TPU_ASYNC_SEND", True)
+
+
+def _mix_delivery(rank_order: bool) -> bool:
+    """Arrival-order delivery: only at call sites that declared they
+    need no order (``rank_order=False``) and only under
+    ``THRILL_TPU_HOST_MIX=1``; by default every site keeps source-rank
+    order, bit-equal to the serial plane (float folds depend on
+    order)."""
+    return (not rank_order) and _env_flag("THRILL_TPU_HOST_MIX", False)
+
+
+def _send_queue_depth() -> int:
+    try:
+        return max(1, int(os.environ.get("THRILL_TPU_SEND_QUEUE",
+                                         "4") or 4))
+    except ValueError:
+        return 4
 
 
 def _frame_bytes(msg: Any) -> int:
@@ -94,6 +137,19 @@ def _recv_frame(group, peer: int, what: str) -> Any:
     def op():
         faults.check(_F_RECV, peer=peer, what=what)
         return group.recv_from(peer)
+    return default_policy(**_FRAME_RETRY).run(op, what=f"{what}:recv")
+
+
+def _recv_frame_any(group, peers, what: str):
+    """Any-source receive: the frame of whichever peer's lands first;
+    returns (peer, msg). The injection site fires before the receive
+    (nothing consumed), so a retry is safe."""
+    if not faults.REGISTRY.active():
+        return group.recv_any(peers)
+
+    def op():
+        faults.check(_F_RECV, peer=-1, what=what)
+        return group.recv_any(peers)
     return default_policy(**_FRAME_RETRY).run(op, what=f"{what}:recv")
 
 
@@ -143,12 +199,17 @@ def local_worker_set(mex) -> set:
 
 
 def host_exchange(mex, shards: HostShards, dest_fn: Callable[[Any], int],
-                  reason: str = "host-exchange") -> HostShards:
+                  reason: str = "host-exchange",
+                  rank_order: bool = True) -> HostShards:
     """Every item to worker ``dest_fn(item) % W``. Each receiver gets its
     items in source-worker rank order, each source's in its order (the
     CatStream order, thrill/data/cat_stream.hpp:155). Across processes
     this process buckets its local workers' items and ships each other
-    process one framed ``{dest_worker: {src_worker: [items]}}``."""
+    process one framed ``{dest_worker: {src_worker: [items]}}``, from
+    the background sender unless it is off (see the module). A site
+    whose consumer needs no order passes ``rank_order=False``; under
+    ``THRILL_TPU_HOST_MIX=1`` its receivers then take the frames in
+    arrival order, each frame's batches in source order."""
     W = shards.num_workers
     if not multiprocess(mex):
         buckets: List[List[Any]] = [[] for _ in range(W)]
@@ -179,25 +240,40 @@ def host_exchange(mex, shards: HostShards, dest_fn: Callable[[Any], int],
     received = [outgoing[me]]
     wire_bytes = 0
     group = net.group
+    use_async = _async_send_enabled()
+    mix = _mix_delivery(rank_order)
     with span_of(getattr(mex, "tracer", None), "host", "host_exchange",
-                 reason=reason, mode="serial"), \
+                 reason=reason, mode="async" if use_async else "serial"), \
             poison_on_error(group, "host_exchange"), \
             group._at("host_exchange"):
-        for peer in pair_rounds(P, me):
-            if peer < 0:
-                continue
-            # the lower rank of a pair sends first: two blocking senders
-            # never wait on each other
-            if me < peer:
-                wire_bytes += _send_frame(group, peer, outgoing[peer],
-                                          "host_exchange")
-                received.append(_recv_frame(group, peer, "host_exchange"))
-            else:
-                received.append(_recv_frame(group, peer, "host_exchange"))
-                wire_bytes += _send_frame(group, peer, outgoing[peer],
-                                          "host_exchange")
+        if use_async:
+            wire_bytes = _exchange_frames_async(mex, group, outgoing,
+                                                received, me, P, mix)
+        else:
+            for peer in pair_rounds(P, me):
+                if peer < 0:
+                    continue
+                # the lower rank of a pair sends first: two blocking
+                # senders never wait on each other
+                if me < peer:
+                    wire_bytes += _send_frame(group, peer, outgoing[peer],
+                                              "host_exchange")
+                    received.append(_recv_frame(group, peer,
+                                                "host_exchange"))
+                else:
+                    received.append(_recv_frame(group, peer,
+                                                "host_exchange"))
+                    wire_bytes += _send_frame(group, peer, outgoing[peer],
+                                              "host_exchange")
     lists: List[List[Any]] = [[] for _ in range(W)]
     for w in mex.local_workers:
+        if mix:
+            # frames in arrival order, each frame's batches in source
+            # order (deterministic within a frame only)
+            for msg in received:
+                for sw in sorted(msg.get(w, {})):
+                    lists[w].extend(msg[w][sw])
+            continue
         per_src: dict = {}
         for msg in received:
             per_src.update(msg.get(w, {}))
@@ -210,9 +286,117 @@ def host_exchange(mex, shards: HostShards, dest_fn: Callable[[Any], int],
     log = getattr(mex, "logger", None)
     if log is not None and log.enabled:
         log.line(event="host_exchange", reason=reason, items_sent=moved,
-                 processes=P, bytes=wire_bytes, mode="cat",
-                 async_send=False)
+                 processes=P, bytes=wire_bytes,
+                 mode="mix" if mix else "cat", async_send=use_async)
     return HostShards(W, lists)
+
+
+def _exchange_frames_async(mex, group, outgoing: List[dict],
+                           received: List[dict], me: int, P: int,
+                           mix: bool = False) -> int:
+    """Ship the P - 1 outgoing frames from a background sender thread
+    (a bounded queue) while this thread takes the P - 1 receives;
+    returns the bytes sent. Frame ``r`` goes to ``(me + r) % P`` and the
+    receives come from ``(me - r) % P``, or, with ``mix`` on a transport
+    that can probe readiness, from whichever peer's frame lands first.
+    A sender failure is raised here, inside the caller's
+    ``poison_on_error`` scope, and the sender poisons the peers first so
+    that a receive blocked on it is freed; posting never waits on a dead
+    sender."""
+    q: "queue.Queue" = queue.Queue(maxsize=_send_queue_depth())
+    err: List[BaseException] = []
+    sent = [0]
+    # the sender's spans parent under the exchange's span, opened on
+    # this thread (a thread-local stack cannot cross)
+    tr = getattr(mex, "tracer", None)
+    tr_on = tr is not None and tr.enabled
+    parent_id = tr.current_id() if tr_on else None
+
+    def _sender():
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                peer, msg = item
+                if faults.REGISTRY.active():
+                    default_policy(**_FRAME_RETRY).run(
+                        lambda peer=peer: faults.check(_F_ASYNC, peer=peer),
+                        what="host_exchange:async_send")
+                if tr_on:
+                    with tr.span("host", "async_send", parent=parent_id,
+                                 peer=peer):
+                        sent[0] += _send_frame(group, peer, msg,
+                                               "host_exchange")
+                else:
+                    sent[0] += _send_frame(group, peer, msg,
+                                           "host_exchange")
+        except BaseException as e:    # raised on the exchange's thread
+            err.append(e)
+            # this thread's receive may now wait for ever, and a peer
+            # may wait on us: poison, so every process aborts with the
+            # cause
+            try:
+                group.poison_peers(e)
+            except Exception:
+                pass
+
+    def _post(item) -> None:
+        while True:
+            if err:
+                raise err[0]
+            try:
+                q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
+    t = threading.Thread(target=_sender, daemon=True,
+                         name="thrill-tpu-torch-mux-send")
+    t.start()
+    posted_end = False
+    try:
+        for r in range(1, P):
+            to = (me + r) % P
+            _post((to, outgoing[to]))
+        _post(None)
+        posted_end = True
+        if mix and getattr(group, "supports_recv_any", False):
+            pending = [(me - r) % P for r in range(1, P)]
+            while pending:
+                frm, msg = _recv_frame_any(group, pending, "host_exchange")
+                pending.remove(frm)
+                received.append(msg)
+        else:
+            for r in range(1, P):
+                received.append(_recv_frame(group, (me - r) % P,
+                                            "host_exchange"))
+    finally:
+        if err or not posted_end:
+            # stop the sender on every failure path: drop the frames
+            # still queued so the end mark fits
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            try:
+                q.put_nowait(None)
+            except queue.Full:
+                pass
+    from ..net.group import hang_timeout_s
+    t.join(timeout=hang_timeout_s())
+    if err:
+        raise err[0]
+    if t.is_alive():
+        # the receives never wait on this process's own sends, so they
+        # can end while a send is still wedged: a peer would wait for
+        # the frame with nothing naming the cause
+        raise RuntimeError(
+            "host_exchange async sender exceeded the hang deadline "
+            "with a frame still in flight (wedged send to a peer); "
+            "aborting the exchange")
+    return sent[0]
 
 
 def ensure_replicated(mex, shards: HostShards,

@@ -19,12 +19,16 @@ Retries cover staggered process starts. A dropped link is repaired by
 :meth:`TcpGroup._heal_transport` (same roles as the bootstrap, the same
 authentication, then a session handshake).
 
-Sends are synchronous: every frame is written by the caller's thread.
-The reference's asynchronous dispatcher (``net/dispatcher.py`` with
-``native/dispatcher.cpp``), its heartbeats and the join of a rank into a
-live group (``join_tcp_group``) are later parts of ROADMAP.md item 6.
-The multiplexer pairs its peers so that two blocking senders never wait
-on each other (data/multiplexer.py).
+Small control frames are written by the caller's thread. A connection
+of a bootstrapped group hands its socket to the group's asynchronous
+engine (net/dispatcher.py, the epoll loop of ``native/dispatcher.cpp``
+on its own thread) at its first frame of 256 KiB or when a blocking
+send stalls, so bulk frames to many peers progress together and two
+peers that both send first cannot wait on each other's kernel buffers.
+Sends through the engine borrow the caller's buffers until ``flush()``.
+``THRILL_TPU_HEARTBEAT_S`` starts the liveness monitor
+(net/heartbeat.py) with the group. The join of a rank into a live group
+(``join_tcp_group``) is a later part of ROADMAP.md item 6.
 
 Env (reference: THRILL_RANK/THRILL_HOSTLIST, api/context.cpp:204-272):
 THRILL_TPU_RANK, THRILL_TPU_HOSTLIST="host0:port0 host1:port1 ...",
@@ -130,8 +134,23 @@ class TcpConnection(Connection):
         self._recv_seq = 0
         self._send_lock = threading.Lock()
         self._recv_lock = threading.Lock()
+        # the async engine (net/dispatcher.py); None: blocking socket
+        # ops. Small control frames stay on the blocking path; the
+        # engine attaches at the first frame of _ASYNC_THRESHOLD bytes
+        # when a supplier is set, and owns the fd from then on
+        self._disp = None
+        # in-flight async sends: (rid, nbytes), bounded by
+        # bytes (a few giant borrowed frames pin more than many small)
+        self._disp_inflight: "deque" = None
+        self._inflight_bytes = 0
+        self._max_inflight_bytes = _ASYNC_INFLIGHT_BYTES
+        self._reap_stalled_rid = None
+        self._disp_supplier = None
+        # an async send failure seen outside send() (the reap in recv),
+        # raised at the next send or flush
+        self._send_error = None
         # monotonic timestamp of the last heartbeat frame seen on this
-        # connection (liveness chatter of a peer that sends it)
+        # connection (net/heartbeat.py liveness chatter)
         self.last_heartbeat = 0.0
         # link verdict: set when the stream died (peer closed, torn
         # frame, injected disconnect). A broken connection refuses
@@ -139,9 +158,15 @@ class TcpConnection(Connection):
         self.broken = False
 
     def _drop_link(self) -> None:
-        """Tear this link down for real: close the fd, mark broken. The
-        peer sees EOF on its next read."""
+        """Tear this link down for real: detach from the async engine,
+        close the fd, mark broken. The peer sees EOF on its next read."""
         self.broken = True
+        if self._disp is not None:
+            try:
+                self._disp.unregister(self.sock)
+            except Exception:
+                pass
+            self._disp = None
         try:
             self.sock.close()
         except OSError:
@@ -171,15 +196,94 @@ class TcpConnection(Connection):
             self.broken = True
 
 
+    def set_dispatcher_supplier(self, supplier) -> None:
+        """Enable the lazy attach: ``supplier()`` returns the shared
+        engine the first time a large frame (or a stalled send) needs
+        it."""
+        self._disp_supplier = supplier
+
+    def attach_dispatcher(self, disp,
+                          max_inflight_bytes: Optional[int] = None) -> None:
+        """Route all traffic through the async engine from now on: sends
+        enqueue and return (in-flight bytes bounded), receives complete
+        on the engine's thread. Safe while a blocking recv runs on
+        another thread: the direct receive path tolerates the fd turning
+        non-blocking mid-frame, finishes its frame with direct reads
+        under ``_recv_lock``, and the next recv goes through the
+        engine."""
+        with self._send_lock:
+            if self._disp is not None:
+                return
+            self._attach_locked(disp, max_inflight_bytes)
+
+    def _attach_locked(self, disp,
+                       max_inflight_bytes: Optional[int] = None) -> None:
+        disp.register(self.sock)
+        self._disp = disp
+        from collections import deque
+        self._disp_inflight = deque()
+        self._inflight_bytes = 0
+        if max_inflight_bytes is not None:
+            self._max_inflight_bytes = max_inflight_bytes
+
+    # bounded wait when over the in-flight byte cap: when both peers
+    # enqueue past the cap before either reads, the head write retires
+    # only once the peer reads; past this wait sends queue past the cap
+    # (memory over deadlock: Thrill's dispatcher queues writes unbounded)
+    _REAP_TIMEOUT_S = 0.5
+
+    def _enqueue_send(self, rid: int, nbytes: int) -> None:
+        self._disp_inflight.append((rid, nbytes))
+        self._inflight_bytes += nbytes
+
+    def _retire_head(self) -> None:
+        """Caller holds _send_lock; the head request is complete."""
+        rid, nb = self._disp_inflight.popleft()
+        self._inflight_bytes -= nb
+        self._reap_stalled_rid = None
+        self._disp.fetch(rid)         # raises if the write failed
+
+    def _reap_sends(self, block: bool) -> None:
+        """Caller holds _send_lock. Retire completed async sends; with
+        ``block``, wait (bounded) until back under the in-flight byte
+        cap. A head that timed out once is not waited on again: the
+        peer is stalled, so an over-cap burst queues at enqueue speed
+        after the first stall."""
+        q = self._disp_inflight
+        while q:
+            rid = q[0][0]
+            if self._disp.poll(rid) == 0:
+                if not (block
+                        and self._inflight_bytes > self._max_inflight_bytes):
+                    return
+                if rid == self._reap_stalled_rid:
+                    return
+                if self._disp.wait(rid, self._REAP_TIMEOUT_S) == 0:
+                    self._reap_stalled_rid = rid
+                    return
+            self._retire_head()
+
     def flush(self) -> None:
-        """Sends are synchronous: a returned send has hit the socket.
-        Kept for the injection site and the Connection contract."""
+        """Block until every queued async send has hit the socket."""
         _frame_site_check(_F_FLUSH)
+        if self._disp is None:
+            return
+        with self._send_lock:
+            if self._send_error is not None:
+                e, self._send_error = self._send_error, None
+                raise e
+            q = self._disp_inflight
+            while q:
+                self._disp.wait(q[0][0])
+                self._retire_head()
 
     def send(self, obj: Any) -> int:
         """Send one message; returns the serialized payload byte count
         (the wire truth, measured here where the frame is encoded: the
-        multiplexer's byte accounting reads it)."""
+        multiplexer's byte accounting reads it). Large bytes and ndarray
+        payloads are borrowed (scatter-gather, no copy): on a connection
+        with the engine attached the buffer must not change until the
+        send completes, and ``flush()`` is the point where it has."""
         _frame_site_check(_F_SEND)
         self._check_link()
         parts = wire.dumps_parts(obj, allow_pickle=self.authenticated)
@@ -187,6 +291,9 @@ class TcpConnection(Connection):
         bufs = [struct.pack("<I", total), *parts]
         try:
             with self._send_lock:
+                if self._send_error is not None:
+                    e, self._send_error = self._send_error, None
+                    raise e
                 if self._session_key is not None:
                     # per-frame MAC: the handshake alone does not protect
                     # the stream from on-path frame injection
@@ -194,7 +301,17 @@ class TcpConnection(Connection):
                         self._session_key, self._send_dir, self._send_seq,
                         parts))
                     self._send_seq += 1
-                self._sendall_parts(bufs)
+                if (self._disp is None and self._disp_supplier is not None
+                        and total >= _ASYNC_THRESHOLD):
+                    # the first bulk frame hands the fd to the engine
+                    self._attach_locked(self._disp_supplier())
+                if self._disp is not None:
+                    self._reap_sends(block=True)
+                    for b in bufs:
+                        self._enqueue_send(
+                            self._disp.async_write(self.sock, b), len(b))
+                else:
+                    self._sendall_parts(bufs)
         except (ConnectionError, OSError) as e:
             self._mark_broken(e)
             raise
@@ -202,13 +319,15 @@ class TcpConnection(Connection):
 
     def send_bounded(self, obj: Any, deadline_s: float) -> None:
         """Send one message with a hard bound on blocking time (the
-        abort protocol, net/group.py ``poison_peers``: writing to a peer
-        whose socket buffer is full must not hang the caller). A
-        deadline that fires before any byte hit the wire raises
-        TimeoutError and leaves the stream (and the MAC sequence) as
-        before the call; one that fires mid-frame raises ConnectionError
-        (the stream is torn). A sender already holding the send lock
-        counts against the deadline."""
+        abort protocol, net/group.py ``poison_peers``, and the heartbeat
+        probes: writing to a peer whose socket buffer is full must not
+        hang the caller). A deadline that fires before any byte hit the
+        wire raises TimeoutError and leaves the stream (and the MAC
+        sequence) as before the call; one that fires mid-frame raises
+        ConnectionError (the stream is torn). A sender already holding
+        the send lock counts against the deadline. With the engine
+        attached the frame is enqueued, never waited on, after a reap
+        that raises a dead peer's failed write (the prober's verdict)."""
         if self.broken:
             raise ConnectionError(
                 "tcp link is down (awaiting reconnect)")
@@ -217,6 +336,9 @@ class TcpConnection(Connection):
             raise TimeoutError("send_bounded: send lock busy past the "
                                "deadline")
         try:
+            if self._send_error is not None:
+                e, self._send_error = self._send_error, None
+                raise e
             parts = wire.dumps_parts(obj,
                                      allow_pickle=self.authenticated)
             total = sum(len(p) for p in parts)
@@ -228,6 +350,14 @@ class TcpConnection(Connection):
                 bufs.append(wire.frame_mac_parts(
                     self._session_key, self._send_dir, self._send_seq,
                     parts))
+            if self._disp is not None:
+                self._reap_sends(block=False)
+                for b in bufs:
+                    self._enqueue_send(
+                        self._disp.async_write(self.sock, b), len(b))
+                if self._session_key is not None:
+                    self._send_seq += 1
+                return
             mvs = [memoryview(b).cast("B") for b in bufs]
             frame_bytes = sum(len(m) for m in mvs)
             sent = 0
@@ -260,31 +390,62 @@ class TcpConnection(Connection):
                 if self._session_key is not None:
                     self._send_seq += 1
             finally:
-                try:
-                    self.sock.setblocking(True)
-                except OSError:
-                    pass
+                if self._disp is None:
+                    try:
+                        self.sock.setblocking(True)
+                    except OSError:
+                        pass
         except (ConnectionError, OSError) as e:
             self._mark_broken(e)
             raise
         finally:
             self._send_lock.release()
 
+    # a blocking send making no progress for this long escapes to the
+    # async engine, whatever the frame size
+    _BLOCKING_SEND_STALL_S = 2.0
+
     def _sendall_parts(self, bufs) -> None:
         """sendmsg-based sendall over a list of buffers (zero-copy
         scatter-gather; handles partial sends). Caller holds
-        _send_lock."""
+        _send_lock. With a dispatcher supplier, a stalled send (a peer
+        not draining, as when both sides of a pair send first) hands
+        its unsent tail to the engine instead of blocking on kernel
+        buffers; the socket runs non-blocking under the poll loop
+        meanwhile, since a blocking ``sendmsg`` could park in the kernel
+        mid-frame where no stall check runs. The concurrent reader
+        tolerates the mode flip (:meth:`_recv_exact`)."""
         mvs = [memoryview(b).cast("B") for b in bufs]
-        while mvs:
-            try:
-                n = self.sock.sendmsg(mvs)
-            except InterruptedError:
-                continue
-            while mvs and n >= len(mvs[0]):
-                n -= len(mvs[0])
-                mvs.pop(0)
-            if mvs and n:
-                mvs[0] = mvs[0][n:]
+        can_escape = self._disp_supplier is not None
+        if can_escape:
+            self.sock.setblocking(False)
+        try:
+            while mvs:
+                if can_escape and not _wait_fd(
+                        self.sock, write=True,
+                        timeout=self._BLOCKING_SEND_STALL_S):
+                    # no progress: switch this connection to the engine
+                    # and enqueue a copy of the tail (the caller may
+                    # reuse its buffer once a blocking send returns)
+                    self._attach_locked(self._disp_supplier())
+                    for mv in mvs:
+                        b = bytes(mv)
+                        self._enqueue_send(
+                            self._disp.async_write(self.sock, b), len(b))
+                    return
+                try:
+                    n = self.sock.sendmsg(mvs)
+                except (BlockingIOError, InterruptedError):
+                    continue
+                while mvs and n >= len(mvs[0]):
+                    n -= len(mvs[0])
+                    mvs.pop(0)
+                if mvs and n:
+                    mvs[0] = mvs[0][n:]
+        finally:
+            # blocking again unless the engine took the fd
+            if can_escape and self._disp is None:
+                self.sock.setblocking(True)
 
     def recv(self) -> Any:
         return self._recv_msg(None)
@@ -334,6 +495,18 @@ class TcpConnection(Connection):
                     raise
                 obj = wire.loads(payload,
                                  allow_pickle=self.authenticated)
+            # retire completed async sends (send and recv alternate in
+            # every collective, so the pins last one phase); a send
+            # failure found here is raised at the next send or flush,
+            # never in place of the received message
+            if self._disp is not None and self._send_lock.acquire(
+                    blocking=False):
+                try:
+                    self._reap_sends(block=False)
+                except ConnectionError as e:
+                    self._send_error = e
+                finally:
+                    self._send_lock.release()
             if isinstance(obj, dict) and HEARTBEAT_KEY in obj:
                 # filtered at the TRANSPORT so every consumer —
                 # collectives, multiplexer bulk frames — stays
@@ -357,6 +530,21 @@ class TcpConnection(Connection):
 
     def _recv_exact(self, n: int,
                     deadline_at: Optional[float] = None) -> bytes:
+        if self._disp is not None:
+            rid = self._disp.async_read(self.sock, n)
+            if deadline_at is None:
+                self._disp.wait(rid)
+            else:
+                remaining = deadline_at - time.monotonic()
+                if remaining <= 0 or self._disp.wait(
+                        rid, remaining) == 0:
+                    # the orphaned read stays queued and would take the
+                    # next bytes: the stream cannot resynchronize
+                    self.broken = True
+                    raise CollectiveHangTimeout(
+                        f"no frame within the recv deadline "
+                        f"({n} bytes outstanding)")
+            return self._disp.fetch(rid)
         chunks = []
         while n > 0:
             if deadline_at is not None:
@@ -375,9 +563,10 @@ class TcpConnection(Connection):
             try:
                 b = self.sock.recv(n)
             except (BlockingIOError, InterruptedError):
-                # a concurrent send_bounded flipped the fd to
-                # non-blocking mid-frame; finish this frame with
-                # direct reads (we hold _recv_lock)
+                # a concurrent send_bounded or engine attach flipped the
+                # fd to non-blocking mid-frame; finish this frame with
+                # direct reads (we hold _recv_lock, so the engine has no
+                # read racing us)
                 _wait_fd(self.sock, write=False, timeout=0.2)
                 continue
             if not b:
@@ -387,6 +576,21 @@ class TcpConnection(Connection):
         return b"".join(chunks)
 
     def close(self) -> None:
+        try:
+            self.flush()
+        except (ConnectionError, OSError) as e:
+            # close() must not raise in clean-up paths, but queued
+            # messages were lost: say so (a caller that needs the
+            # guarantee calls flush() itself)
+            import sys
+            print(f"thrill_tpu_torch.net.tcp: async sends lost at close: "
+                  f"{e}", file=sys.stderr)
+        if self._disp is not None:
+            try:
+                self._disp.unregister(self.sock)
+            except OSError:
+                pass
+            self._disp = None
         try:
             self.sock.close()
         except OSError:
@@ -398,6 +602,13 @@ class TcpGroup(Group):
                  conns: Dict[int, TcpConnection]) -> None:
         super().__init__(my_rank, num_hosts)
         self._conns = conns
+        # the group's shared async engine, made at the first bulk frame
+        self._disp = None
+        self._disp_owned = False
+        self._disp_lock = threading.Lock()
+        # the liveness monitor (net/heartbeat.py); None unless
+        # THRILL_TPU_HEARTBEAT_S is set
+        self._heartbeat = None
         # reconnect endpoints: construct_tcp_group stores the hostlist
         # + shared secret so a dropped link can be re-dialed with the
         # same session-handshake guarantees as bootstrap. None
@@ -505,6 +716,8 @@ class TcpGroup(Group):
             faults.note("recovery", what="net.reconnect_failed",
                         peer=peer, gen=self.generation, error=repr(e))
             return False
+        if old is not None and old._disp_supplier is not None:
+            conn.set_dispatcher_supplier(self._shared_dispatcher)
         self._conns[peer] = conn
         self.stats_reconnects += 1
         faults.note("recovery", what="net.reconnect", peer=peer,
@@ -648,15 +861,68 @@ class TcpGroup(Group):
             srv.close()
 
     # ------------------------------------------------------------------
-    # elastic membership (Group.resize transport hooks)
+    # the async engine
     # ------------------------------------------------------------------
+    def _shared_dispatcher(self):
+        """One async engine per group, made at the first bulk frame (a
+        DispatcherThread per host, Thrill: net/dispatcher_thread.hpp:
+        60)."""
+        with self._disp_lock:
+            if self._disp is None:
+                from .dispatcher import Dispatcher
+                self._disp = Dispatcher()
+                self._disp_owned = True
+            return self._disp
+
+    def enable_lazy_async(self) -> None:
+        """Connections keep the blocking path for control frames and
+        hand their fd to the shared engine at the first frame past the
+        async threshold (or a stalled send)."""
+        for c in self._conns.values():
+            c.set_dispatcher_supplier(self._shared_dispatcher)
+
+    def attach_dispatcher(self, disp=None) -> None:
+        """Drive every frame through one async engine from now on. An
+        engine the caller passes stays the caller's (``close()`` does
+        not close it). Once an engine is active for this group it cannot
+        be replaced: attach before any bulk traffic, or pass none to use
+        the group's own."""
+        if disp is None:
+            disp = self._shared_dispatcher()
+        else:
+            with self._disp_lock:
+                if self._disp is not None and self._disp is not disp:
+                    raise ValueError(
+                        "group already has an active dispatcher; "
+                        "attach before any bulk traffic or pass no "
+                        "engine to reuse the group's own")
+                self._disp = disp
+                self._disp_owned = False
+        for c in self._conns.values():
+            c.attach_dispatcher(disp)
+
     def flush(self) -> None:
         for c in self._conns.values():
             c.flush()
 
     def close(self) -> None:
+        if self._heartbeat is not None:
+            self._heartbeat.stop()
+            self._heartbeat = None
         for c in self._conns.values():
             c.close()
+        if self._disp is not None and self._disp_owned:
+            self._disp.close()
+        self._disp = None
+
+
+# a connection hands its fd to the async engine at its first frame of
+# this many bytes: control frames keep the blocking path (Thrill's flow
+# group is synchronous), bulk frames ride the engine
+_ASYNC_THRESHOLD = 1 << 18
+# a connection's unretired async send bytes past which send() waits,
+# bounded, for the engine to drain (pinned borrowed buffers)
+_ASYNC_INFLIGHT_BYTES = 64 << 20
 
 
 def _exchange_auth_flag(conn: TcpConnection, have_secret: bool) -> None:
@@ -843,6 +1109,12 @@ def construct_tcp_group(rank: int, hosts: List[Tuple[str, int]],
     # link through the same authenticated handshake
     group._hosts = list(hosts)
     group._secret = secret
+    # the lazy async engine
+    group.enable_lazy_async()
+    # liveness heartbeats (THRILL_TPU_HEARTBEAT_S): a killed peer
+    # becomes an attributable ClusterAbort between collectives too
+    from . import heartbeat
+    group._heartbeat = heartbeat.maybe_start(group)
     return group
 
 

@@ -23,9 +23,12 @@ the psum over workers (``all_reduce``) and :meth:`MeshExec.gather_workers`
 the gather of per-worker rows (``all_gather``), and from the gather
 :func:`worker_exscan` (the exclusive scan over the global worker order)
 and :func:`worker_shift` (a row to the next worker); :func:`worker_max`
-is the pmax (``all_reduce`` MAX). In one process each is the local
-transpose, sum, scan, shift, max or the rows themselves; the three
-functions take the mesh as an argument and do the local op when it is
+and :func:`worker_min` are the pmax and pmin (``all_reduce`` MAX, MIN);
+:meth:`MeshExec.exchange_rows` is the uneven all-to-all of the ragged
+exchange and the 1-factor rounds (``all_to_all_single`` with split
+sizes from the global send matrix). In one process each is the local
+transpose, sum, scan, shift, max, min or the rows themselves; the
+four functions take the mesh as an argument and do the local op when it is
 None. Each collective reports its edge to a loop capture
 (``common/taint.py``): what another process sent arrives through no
 aten op the capture sees. ``stats_collectives``
@@ -94,22 +97,56 @@ def bind_current(mex: Optional["MeshExec"]) -> Optional["MeshExec"]:
     return prev
 
 
-def worker_max(t: torch.Tensor,
-               mex: Optional["MeshExec"] = None) -> torch.Tensor:
-    """The elementwise max over every worker of ``t`` ``[W_local, ...]``
-    (the reference's pmax: HyperLogLog's registers, the join's presence
-    registers), in ``t``'s dtype. One process (or ``mex`` None): the
-    local ``amax``; several: one ``all_reduce`` MAX."""
-    m = t.amax(dim=0)
+def _worker_fold(t: torch.Tensor, mex: Optional["MeshExec"],
+                 op: str) -> torch.Tensor:
+    m = t.amax(dim=0) if op == "MAX" else t.amin(dim=0)
     if mex is None or not mex.multiprocess:
         return m
     import torch.distributed as dist
     m = m.contiguous()
     mex.stats_bytes_cross += m.numel() * m.element_size()
     mex.stats_collectives += 1
-    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    dist.all_reduce(m, op=getattr(dist.ReduceOp, op))
     taint.kernel_edge([t], [m])
     return m
+
+
+# element types gloo's all-to-all moves as they are; every other type
+# (bool, int16, the narrowed exchange's 16-bit containers) crosses as its
+# bytes
+_WIRE_TYPES = (torch.float32, torch.float64, torch.int32, torch.int64,
+               torch.uint8, torch.int8)
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a tensor gloo's all-to-all takes: itself, or its bytes
+    as one more trailing dimension (undone by :func:`_from_bytes`)."""
+    if x.dtype in _WIRE_TYPES:
+        return x
+    return x.contiguous().unsqueeze(-1).view(torch.uint8)
+
+
+def _from_bytes(y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    if dtype in _WIRE_TYPES:
+        return y
+    return y.view(dtype).squeeze(-1)
+
+
+def worker_max(t: torch.Tensor,
+               mex: Optional["MeshExec"] = None) -> torch.Tensor:
+    """The elementwise max over every worker of ``t`` ``[W_local, ...]``
+    (the reference's pmax: HyperLogLog's registers, the join's presence
+    registers, the exchange's overflow verdict and ranges), in ``t``'s
+    dtype. One process (or ``mex`` None): the local ``amax``; several:
+    one ``all_reduce`` MAX."""
+    return _worker_fold(t, mex, "MAX")
+
+
+def worker_min(t: torch.Tensor,
+               mex: Optional["MeshExec"] = None) -> torch.Tensor:
+    """:func:`worker_max` with min (the low ends of the exchange's leaf
+    ranges): the local ``amin``, or one ``all_reduce`` MIN."""
+    return _worker_fold(t, mex, "MIN")
 
 
 def worker_exscan(t: torch.Tensor,
@@ -557,6 +594,8 @@ class MeshExec:
             return blocks.transpose(0, 1)
         import torch.distributed as dist
         P, Wl = self.num_processes, self.num_local
+        dtype = blocks.dtype
+        blocks = _as_bytes(blocks)
         trail = tuple(blocks.shape[2:])
         x = blocks.reshape((Wl, P, Wl) + trail).transpose(0, 1).contiguous()
         self.stats_bytes_cross += (x.numel() * x.element_size()
@@ -567,7 +606,37 @@ class MeshExec:
         dist.all_to_all_single(out, x)
         taint.kernel_edge([x], [out])
         # out[p]: process p's senders' blocks for the local receivers
-        return out.reshape((P * Wl, Wl) + trail).transpose(0, 1)
+        return _from_bytes(out.reshape((P * Wl, Wl) + trail)
+                           .transpose(0, 1), dtype)
+
+    def exchange_rows(self, x: torch.Tensor, send_rows: List[int],
+                      recv_rows: List[int]) -> torch.Tensor:
+        """The uneven all-to-all between processes: ``x`` ``[N, ...]``
+        holds ``send_rows[p]`` rows for each process ``p`` in process
+        order (this process's own among them); the result holds
+        ``recv_rows[p]`` rows from each process, in process order. The
+        ragged exchange and the 1-factor and streamed rounds ride it.
+        One process: ``x`` itself; several: one ``all_to_all_single``
+        with the split sizes, which every process calls, its own rows
+        empty or not. ``stats_bytes_cross`` counts the rows sent to
+        other processes."""
+        if not self.multiprocess:
+            return x
+        import torch.distributed as dist
+        dtype = x.dtype
+        x = _as_bytes(x).contiguous()
+        trail = tuple(x.shape[1:])
+        row = x.element_size() * int(np.prod(trail, dtype=np.int64))
+        send_rows = [int(n) for n in send_rows]
+        recv_rows = [int(n) for n in recv_rows]
+        self.stats_bytes_cross += (sum(send_rows)
+                                   - send_rows[self.process_index]) * row
+        self.stats_collectives += 1
+        out = x.new_empty((sum(recv_rows),) + trail)
+        dist.all_to_all_single(out, x, output_split_sizes=recv_rows,
+                               input_split_sizes=send_rows)
+        taint.kernel_edge([x], [out])
+        return _from_bytes(out, dtype)
 
     def worker_sum(self, t: torch.Tensor,
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -67,19 +67,28 @@ def _for_width(entries: dict, w: int) -> dict:
             for kind, m in entries.items() if isinstance(m, dict)}
 
 
-def install_entries(mex, entries: dict) -> int:
+def install_entries(mex, entries: dict, *,
+                    symmetric: bool = False) -> int:
     """Install loaded entries of the mesh's width into its seed tables;
-    the number that arrived. Each site takes its seed at first use."""
+    the number that arrived. Each site takes its seed at first use.
+    ``symmetric`` attests that every process of the mesh installs these
+    same entries (``exchange.install_plan_seeds``); a store this
+    process read for itself passes none, which keeps the optimistic
+    dispatch off across processes."""
     from ..api import loop
     from ..core import preshuffle
     from ..data import exchange
     entries = _for_width(entries, mex.num_workers)
-    n = exchange.import_plan_state(mex, entries)
-    n += preshuffle.import_plan_state(mex, entries)
-    n += loop.import_plan_state(mex, entries)
+    n = exchange.import_plan_state(mex, entries, symmetric=symmetric)
+    n += preshuffle.import_plan_state(mex, entries, symmetric=symmetric)
+    n += loop.import_plan_state(mex, entries, symmetric=symmetric)
     ob = entries.get("out_bytes")
     if isinstance(ob, dict) and hasattr(mex, "import_learned_sizes"):
-        n += mex.import_learned_sizes(ob)
+        n_ob = mex.import_learned_sizes(ob)
+        if n_ob and not symmetric:
+            # learned sizes follow the seeds' provenance rule
+            mex._plan_seed_symmetric = False
+        n += n_ob
     return n
 
 

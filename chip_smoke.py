@@ -318,6 +318,29 @@ alone, whose warm restart runs ``chip_smoke.py --plan-child DIR``.
 builds the kernels and runs phase 25e alone; its children are
 ``chip_smoke.py --dist-child COORDINATOR RANK DIR``.
 
+    python3 chip_smoke.py --phase-r
+
+builds the kernels and runs phase R alone (after phase D in the whole
+smoke): R1 keeps a TeraSort result of 2^20 records a worker at W = 4
+and resizes the Context 4 -> 2 -> 4 -> 3 with a Sort, a WordCount and
+an f32 PageRank step (B3's sums, within SEG_RTOL of np.bincount) after
+each step, the Sort and WordCount bit-equal to a fresh W' Context's,
+the kept layout a fresh W' Distribute's, the return to W = 4 as warm
+as a second W = 4 run, memory growth equal to the HBM ledger's; R2
+aborts phase P's PageRank inside ``ctx.pipeline()`` by a user Map
+error, an injected OOM and an error raised first inside the whole-loop
+graph's capture (the loop ends the capture and falls back to
+per-iteration replays, where the error aborts the pipeline), and after
+each heal holds ``memory_allocated`` at its level before the pipeline
+and the next PageRank bit-equal to a fresh Context's; R3 is two
+``chip_smoke.py --r3-child COORDINATOR RANK DIR`` processes, where a
+failure both meet heals and one process's own failure ends in bounded
+time; R4 is ``run-scripts/supervise.sh -n 1 -- python3 chip_smoke.py
+--resize-child DIR``, the supervised move 2 -> 3 -> 2, each relaunch
+restoring the RESIZE epoch in a fresh W' layout. R3 and R4 run beside
+R1 and R2. Phase D's one process and children also run the op
+battery's element types (int16, uint16/32/64, bool: faults C21-C23).
+
     python3 chip_smoke.py --m1-compare DIR
 
 runs only phase 23's M1 of the tree at DIR (a copy of an earlier commit
@@ -6124,9 +6147,58 @@ def d_ops_run(torch, np, tt, ctx, pk, ps, tmp: str) -> dict:
     bat = note("battery", d_timed(torch, pk, ps, mex, lambda: (
         op_battery.battery(ctx, op_battery.Port(), tmp))))
     out["battery"]["result"] = bat
+    # the element types of faults C21-C23 (int16, uint16/32/64, bool)
+    items0 = mex.stats_items_moved
+    out["dtypes"] = json.loads(json.dumps(op_battery.dtype_battery(
+        ctx, op_battery.Port())))
+    warm_moved[0] += mex.stats_items_moved - items0
     out["items_moved"] = mex.stats_items_moved - moved0 - warm_moved[0]
     out["collectives"] = mex.stats_collectives
     return out
+
+
+def d_dtypes_check(np, one: dict, kids: list, card: str) -> None:
+    """Phase D's element-type battery (faults C21-C23): every process
+    equal to the one-process run, which numpy holds on its Sort, Max,
+    Min, Sum (uint64 wrapping), the min and max folds of ReduceByKey and
+    ReduceToIndex and the egress element types."""
+    from thrill_tpu_torch.examples.op_battery import (DTYPE_COLUMNS,
+                                                      dtype_column)
+    for k in kids:
+        bad = [e for e in one if k.get(e) != one[e]]
+        if bad or set(k) != set(one):
+            raise AssertionError(f"D element types: a process differs from "
+                                 f"one process on {bad[:5]}")
+    for name in DTYPE_COLUMNS:
+        col = dtype_column(name)
+        want = {"sort": np.sort(col).astype(np.int64).tolist()
+                if col.dtype != np.uint64 else
+                [int(v) for v in np.sort(col).tolist()],
+                "all_gather_arrays": [str(col.dtype),
+                                      [int(v) for v in col.tolist()]],
+                "sum": int(col.sum(dtype=np.uint64 if col.dtype.kind == "u"
+                                   else np.int64)) % (1 << 64)
+                if col.dtype.kind == "u" else int(col.sum(dtype=np.int64))}
+        if col.dtype != np.bool_:
+            want["max"] = int(col.max())
+            if name != "uint64":
+                want["min"] = int(col.min())
+            # the battery's keys; its min and max folds of the column
+            keys = np.random.default_rng(8).integers(0, 13, len(col))
+            for fold, f in (("min", np.min), ("max", np.max)):
+                got = [[int(k), int(f(col[keys == k]))] if (keys == k).any()
+                       else [0, 0] for k in range(13)]
+                want[f"reduce_to_index_{fold}"] = got
+                want[f"reduce_by_key_{fold}"] = [
+                    g for k, g in enumerate(got) if (keys == k).any()]
+        for op, v in want.items():
+            if one[f"{name}/{op}"] != v:
+                raise AssertionError(f"D element types {name}/{op} differs "
+                                     f"from numpy")
+    log(f"D element types ({', '.join(DTYPE_COLUMNS)}): {len(one)} results "
+        f"a process, every process equal to the one-process run, which "
+        f"numpy holds on Sort, Max, Min, Sum, the min and max folds and the "
+        f"egress types [{card}]")
 
 
 def d_np_refs(np) -> dict:
@@ -6275,6 +6347,7 @@ def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
     if sum(k["items_moved"] for k in kids) != one["items_moved"]:
         raise AssertionError("D op sweep: the processes' items moved do not "
                              "sum to the one-process run's")
+    d_dtypes_check(np, one["dtypes"], [k["dtypes"] for k in kids], card)
     log(f"D op sweep one process W=4: pagerank within {PR_RTOL} of numpy "
         f"(max |diff| {err.max():.6g}); k-means within {KM_RTOL} x (1 + |c|)"
         f" of numpy (max |diff| {kerr.max():.6g}); step within {SEG_RTOL} of "
@@ -6778,6 +6851,503 @@ def d_phase(torch, np, tt, pk, ps, card: str) -> dict:
     return paths
 
 
+
+# ----------------------------------------------------------------------
+# phase R: resize, failure domains and the supervised move
+# ----------------------------------------------------------------------
+
+R_RECORDS = 1 << 22            # R1: TeraSort records (2^20 a worker at W=4)
+R_WORDS = 1 << 22              # R1: WordCount words, Zipf over R_VOCAB ids
+R_VOCAB = 1 << 16
+R_WIDTHS = (2, 4, 3)           # R1: the resize cycle after W = 4
+R_PR_ITERS = 5                 # R2: phase P's PageRank over P_PAGES
+R_ITEMS = 1 << 20              # R4: the supervised move's items
+R_HEAL_TIMEOUT_S = 5           # R3: THRILL_TPU_HEAL_TIMEOUT_S of the children
+R_BOUND_S = 40.0               # R3: a rank-local failure ends within this
+R_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass")
+R_MEM_SLACK = 64 << 20         # R1: memory growth the ledger need not count
+R_EDGES = 1 << 20              # R1: the f32 PageRank step's edges
+R_PAGES = 1 << 18              # R1: ... into these pages
+_R_SUM = None
+_R_RANK = None
+
+
+def _r_key(r):
+    return r["key"]
+
+
+def _r_word(t):
+    return t["w"]
+
+
+def _r_page(e):
+    return e["d"]
+
+
+def r_inputs(np):
+    """R1's records, words and f32 PageRank contributions, from the
+    smoke's seed."""
+    rng = np.random.default_rng(SEED + 110)
+    rec = np.frombuffer(rng.bytes(R_RECORDS * 100), dtype=np.uint8
+                        ).reshape(R_RECORDS, 100)
+    recs = {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+    w = (rng.zipf(1.2, R_WORDS) % R_VOCAB).astype(np.int64)
+    edges = {"d": (rng.zipf(1.2, R_EDGES) % R_PAGES).astype(np.int64),
+             "v": rng.random(R_EDGES, dtype=np.float32)}
+    return recs, {"w": w, "c": np.ones(R_WORDS, dtype=np.int64)}, edges
+
+
+def r_rows(torch, sh):
+    """Every worker's valid rows of ``sh``, concatenated on the card."""
+    from thrill_tpu_torch.common import tree as pt
+    counts = [int(c) for c in sh.counts]
+    return [torch.cat([l[w, :c] for w, c in enumerate(counts)])
+            for l in pt.leaves(sh.tree)]
+
+
+def r_same(torch, a, b) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def r_jobs(torch, np, tt, ctx, recs, words, edges):
+    """R1's Sort, WordCount and f32 PageRank step (a ReduceToIndex whose
+    sums B3 folds) on ``ctx``: (the Sort's rows on the card, the
+    WordCount's (word, count) pairs). The step's sums must lie within
+    SEG_RTOL of np.bincount's in f64 (B3 adds in its own order, so the
+    sums are not held bit for bit). The Sort's node is disposed: only
+    the kept result stays cached."""
+    global _R_SUM, _R_RANK
+    if _R_SUM is None:
+        _R_SUM = tt.FieldReduce({"w": "first", "c": "sum"})
+        _R_RANK = tt.FieldReduce({"d": "first", "v": "sum"})
+    srt = ctx.Distribute(recs).Sort(key_fn=_r_key).Execute()
+    rows = r_rows(torch, srt.node._shards)
+    srt.Dispose()
+    wc = ctx.Distribute(words).ReduceByKey(_r_word, _R_SUM)
+    pairs = sorted((int(t["w"]), int(t["c"])) for t in wc.AllGather())
+    out = ctx.Distribute(edges).ReduceToIndex(
+        _r_page, _R_RANK, R_PAGES, neutral={"d": 0, "v": 0.0}
+    ).AllGatherArrays()
+    want = np.bincount(edges["d"], weights=edges["v"].astype(np.float64),
+                       minlength=R_PAGES)
+    got = out["v"].cpu().numpy().astype(np.float64)
+    err = np.abs(got - want)
+    if got.shape != (R_PAGES,) or not (err <= SEG_RTOL * want
+                                       + SEG_ATOL).all():
+        raise AssertionError(f"R1 W={ctx.num_workers}: the f32 PageRank "
+                             f"step differs from np.bincount by "
+                             f"{err.max()}")
+    return rows, pairs
+
+
+def r_resize(torch, np, tt, pk, ps, card: str) -> dict:
+    """R1: a TeraSort result kept at W = 4, then ``ctx.resize`` through
+    R_WIDTHS with a Sort, a WordCount and an f32 PageRank step after
+    each step; the kept result and each new Sort and WordCount bit-equal
+    to a fresh W' Context's, the kept layout a fresh W' Distribute's
+    (zeros past the counts); the return to W = 4 as warm as a second
+    W = 4 run."""
+    from thrill_tpu_torch.common.partition import dense_range_bounds
+    recs, words, edges = r_inputs(np)
+    stats = ("cap_cache_hits", "cap_cache_misses", "plan_builds")
+    paths, fresh = {}, {}
+    for W in (4,) + R_WIDTHS[:1] + R_WIDTHS[2:]:
+        f = tt.Context(num_workers=W, device=DEVICE)
+        try:
+            fresh[W] = r_jobs(torch, np, tt, f, recs, words, edges)
+        finally:
+            f.close()
+    torch.cuda.empty_cache()
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    try:
+        kept = ctx.Distribute(recs).Sort(key_fn=_r_key).Keep(8)
+        kept.Execute()
+        r_jobs(torch, np, tt, ctx, recs, words, edges)      # the first W = 4 run
+        s0 = ctx.overall_stats()
+        r_jobs(torch, np, tt, ctx, recs, words, edges)      # a warm W = 4 run
+        s1 = ctx.overall_stats()
+        warm = {k: s1[k] - s0[k] for k in stats}
+        torch.cuda.synchronize()
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        led0 = ctx.hbm.mem.total
+        want = fresh[4][0]
+        for W in R_WIDTHS:
+            dt = ctx.resize(W)
+            info = ctx.last_resize
+            sh = kept.node._shards
+            n = int(sh.counts.sum())
+            if sh.counts.tolist() != np.diff(dense_range_bounds(
+                    n, W)).tolist():
+                raise AssertionError(f"R1 W={W}: counts {sh.counts}")
+            if not r_same(torch, r_rows(torch, sh), want):
+                raise AssertionError(f"R1 W={W}: the kept Sort differs")
+            from thrill_tpu_torch.common import tree as pt
+            for leaf in pt.leaves(sh.tree):
+                for w, c in enumerate(sh.counts):
+                    if bool(leaf[w, int(c):].any()):
+                        raise AssertionError(f"R1 W={W}: worker {w} pads "
+                                             f"with non-zeros")
+            a = ctx.overall_stats()
+            got, secs, launches = first_run(
+                torch, pk, ps, lambda: r_jobs(torch, np, tt, ctx, recs, words, edges))
+            b = ctx.overall_stats()
+            moved = {k: b[k] - a[k] for k in stats}
+            rows, pairs = got
+            ref = fresh[W] if W in fresh else fresh[4]
+            if not r_same(torch, rows, ref[0]):
+                raise AssertionError(f"R1 W={W}: the Sort differs from a "
+                                     f"fresh W={W} Context's")
+            if pairs != ref[1]:
+                raise AssertionError(f"R1 W={W}: the WordCount differs")
+            need_launches(launches, R_KERNELS + ("segment_sum",),
+                          f"R1 W={W}")
+            if W == 4 and (moved != warm or moved["cap_cache_hits"] <= 0):
+                raise AssertionError(f"R1 back at W=4: {moved}, a warm "
+                                     f"W=4 run {warm}")
+            del rows, got
+            log(f"R1 resize to W={W}: {dt:.4f} s, {info['nodes_moved']} "
+                f"results and {info['bytes']} bytes re-split on the card; "
+                f"kept TeraSort bit-equal to a fresh W={W} Context's, layout "
+                f"a fresh Distribute's; Sort and WordCount after it bit-equal, "
+                f"the f32 PageRank step within {SEG_RTOL} of np.bincount "
+                f"({secs:.3f} s), counters {json.dumps(moved)}"
+                + (f" (a warm W=4 run: {json.dumps(warm)})" if W == 4
+                   else "") + f"; launches {json.dumps(launches)} [{card}]")
+            paths[f"R1 sort, wordcount and pagerank step after resize to "
+                  f"W={W}"] = launches
+        torch.cuda.synchronize()
+        gc.collect()
+        mem1 = torch.cuda.memory_allocated()
+        led1 = ctx.hbm.mem.total
+        # the growth is the kept result's larger W=3 layout, which the
+        # HBM ledger counts; a parked W holds no tensor of its own
+        if mem1 - mem0 > led1 - led0 + R_MEM_SLACK:
+            raise AssertionError(f"R1: memory_allocated grew {mem1 - mem0} "
+                                 f"bytes over the cycle, the ledger "
+                                 f"{led1 - led0}")
+        log(f"R1 memory_allocated around the cycle 4->2->4->3: {mem0} "
+            f"before, {mem1} after; the HBM ledger {led0} and {led1} (the "
+            f"kept result's layout at W=3: cap {kept.node._shards.cap}) "
+            f"[{card}]")
+    finally:
+        ctx.close()
+    return paths
+
+
+def r_fault_run(torch, tt, ctx, edges, fclass):
+    """PageRank in a pipeline that ``fclass`` aborts: ``user`` raises
+    in the dampening Map from the third call on (iteration 3 of the
+    per-iteration replays), ``capture`` first inside the whole-loop
+    graph's capture and on every call after it (the loop's ``finally``
+    ends the capture, the loop falls back to per-iteration replays and
+    the error there aborts the pipeline), ``oom`` an injected OOM at a
+    dispatch past the first iterations. Returns the PipelineError's
+    origin, cause and generation, and the calls that raised inside a
+    capture."""
+    from thrill_tpu_torch.common import faults
+    from thrill_tpu_torch.examples import page_rank as tpr
+    orig = tpr._dampen
+    calls = [0]
+    in_capture = [0]
+
+    def dampen(t, base):
+        calls[0] += 1
+        if fclass == "capture":
+            if torch.cuda.is_current_stream_capturing():
+                in_capture[0] += 1
+            if in_capture[0]:
+                raise RuntimeError(f"user Map failed at call {calls[0]} "
+                                   f"({in_capture[0]} inside a capture)")
+        elif calls[0] >= 3:
+            raise RuntimeError(f"user Map failed at call {calls[0]}")
+        return orig(t, base)
+
+    env = {"user": {"THRILL_TPU_LOOP_FORI": "0"}, "capture": {},
+           "oom": {"THRILL_TPU_OOM_RETRY": "0",
+                   "THRILL_TPU_FAULTS": "mem.oom:n=0:after=6"}}[fclass]
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    faults.REGISTRY.reset()
+    if fclass != "oom":
+        tpr._dampen = dampen
+    try:
+        with ctx.pipeline(f"R2 {fclass}"):
+            tpr.page_rank(ctx, edges, P_PAGES, R_PR_ITERS)
+    except tt.PipelineError as e:
+        return e.origin, e.cause, e.generation, in_capture[0]
+    finally:
+        tpr._dampen = orig
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.REGISTRY.reset()
+    raise AssertionError(f"R2 {fclass}: the pipeline did not fail")
+
+
+def r_heal(torch, np, tt, pk, ps, card: str) -> dict:
+    """R2: phase P's PageRank in ``ctx.pipeline()``, aborted by a user
+    Map error mid-iteration, an injected OOM at a dispatch and an error
+    inside the whole-loop graph capture; after each heal the card's
+    allocated memory is back at its level before the pipeline and the
+    next PageRank is bit-equal to a fresh Context's."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    edges = tpr.zipf_graph(P_PAGES, 4 * P_PAGES, seed=SEED + 91)
+    f = tt.Context(num_workers=4, device=DEVICE)
+    try:
+        want = tpr.page_rank(f, edges, P_PAGES, R_PR_ITERS)
+    finally:
+        f.close()
+    paths = {}
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    try:
+        with ctx.pipeline("R2 warm"):
+            tpr.page_rank(ctx, edges, P_PAGES, R_PR_ITERS)
+        for fclass in ("user", "oom", "capture"):
+            torch.cuda.synchronize()
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            origin, cause, gen, in_capture = r_fault_run(
+                torch, tt, ctx, edges, fclass)
+            heal_s = ctx.stats_heal_time_s
+            if fclass == "capture" and (
+                    in_capture < 1 or torch.cuda.is_current_stream_capturing()):
+                raise AssertionError(f"R2 capture: {in_capture} calls raised "
+                                     f"inside the whole-loop capture, the "
+                                     f"stream capturing after the heal: "
+                                     f"{torch.cuda.is_current_stream_capturing()}")
+            gc.collect()
+            torch.cuda.synchronize()
+            mem1 = torch.cuda.memory_allocated()
+            if mem1 > mem0:
+                raise AssertionError(f"R2 {fclass}: memory_allocated {mem1} "
+                                     f"after the heal, {mem0} before")
+            with ctx.pipeline("R2 after"):
+                got, secs, launches = first_run(
+                    torch, pk, ps, lambda: tpr.page_rank(
+                        ctx, edges, P_PAGES, R_PR_ITERS))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"R2 {fclass}: PageRank after the heal "
+                                     f"differs from a fresh Context's")
+            need_launches(launches, R_KERNELS + ("ordered_segment_sum",),
+                          f"R2 after {fclass}")
+            log(f"R2 pagerank W=4 abort by {fclass}: PipelineError origin "
+                f"{origin} generation {gen}, cause {cause[:90]!r}"
+                + (f" (first raised inside the whole-loop graph capture, "
+                   f"which the loop ended; the stream not capturing after "
+                   f"the heal)" if fclass == "capture" else "")
+                + f"; abort and "
+                f"heal {time.perf_counter() - t0:.3f} s (heals so far "
+                f"{heal_s:.4f} s); memory_allocated {mem0} before the "
+                f"pipeline, {mem1} after its heal; the next PageRank "
+                f"bit-equal to a fresh Context's ({secs:.3f} s), launches "
+                f"{json.dumps(launches)} [{card}]")
+            paths[f"R2 pagerank W=4 after the {fclass} heal"] = launches
+        s = ctx.overall_stats()
+        log(f"R2 stats: pipeline_aborts {s['pipeline_aborts']}, heal_time_s "
+            f"{s['heal_time_s']}, generation {s['generation']} [{card}]")
+    finally:
+        ctx.close()
+    return paths
+
+
+def r3_child(coordinator: str, rank: int, d: str) -> int:
+    """One process of R3 (two, two workers each): a failure both meet at
+    the same point, which must heal, then one process's own failure
+    while the other waits in a Sort's exchange, which must end in
+    bounded time (each process escalates: the device plane's gloo group
+    is not used after a collective failed halfway)."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    vals = np.arange(1 << 20, dtype=np.int64)[::-1].copy()
+
+    def job(ctx):
+        out = {"rank": ctx.host_rank}
+        with ctx.pipeline("warm"):
+            first = ctx.Distribute(vals).Sort().AllGatherArrays().cpu()
+        for mode in ("same", "local"):
+            t0 = time.perf_counter()
+            try:
+                with ctx.pipeline(mode):
+                    if mode == "same" or ctx.host_rank == 1:
+                        raise RuntimeError(f"{mode} failure on process "
+                                           f"{ctx.host_rank}")
+                    ctx.Distribute(vals).Sort().AllGatherArrays()
+                out[mode] = {"way": "no error"}
+            except tt.PipelineError as e:
+                out[mode] = {"way": "healed", "generation": e.generation}
+            except Exception as e:
+                out[mode] = {"way": "escalated", "error": repr(e)[:200]}
+            out[mode]["seconds"] = time.perf_counter() - t0
+            if out[mode]["way"] == "healed":
+                with ctx.pipeline("after"):
+                    again = ctx.Distribute(vals).Sort().AllGatherArrays()
+                out[mode]["after_equal"] = bool(torch.equal(first,
+                                                            again.cpu()))
+        return out
+
+    res = tt.RunDistributed(job, coordinator_address=coordinator,
+                            num_processes=D_PROCS, process_id=rank,
+                            workers_per_process=D_WPP, device=DEVICE)
+    assert_port_alone()
+    with open(os.path.join(d, f"r3-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def resize_child(d: str) -> int:
+    """One launch of R4 under ``run-scripts/supervise.sh``: a phase of
+    the 2 -> 3 -> 2 move. Each restores the RESIZE epoch (after the
+    first), checks its layout against a fresh W' split and moves on;
+    prints a RPHASE line with its timestamps."""
+    t_start = time.time()
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.common.config import Config
+    from thrill_tpu_torch.common.partition import dense_range_bounds
+    path = os.path.join(d, "phase")
+    phase = int(open(path).read()) + 1 if os.path.exists(path) else 0
+    with open(path, "w") as f:
+        f.write(str(phase))
+    w = int(os.environ.get("THRILL_TPU_RESIZE_W", "2"))
+    resumed = os.environ.get("THRILL_TPU_RESUME") == "1"
+    vals = np.arange(R_ITEMS, dtype=np.int64) * 3 + 1
+    ctx = tt.Context(num_workers=w, device=DEVICE, config=Config(
+        ckpt_dir=os.path.join(d, "ck")), resume=resumed)
+    t_ctx = time.time()
+    dd = ctx.Distribute(np.arange(R_ITEMS, dtype=np.int64)).Map(
+        lambda x: x * 3 + 1).Checkpoint("stage").Keep(4)
+    dd.Execute()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t_ready = time.time()
+    sh = dd.node._shards
+    b = dense_range_bounds(R_ITEMS, w)
+    ok = (sh.counts.tolist() == np.diff(b).tolist() and all(
+        np.array_equal(sh.tree[i, :int(c)].cpu().numpy(), vals[b[i]:b[i + 1]])
+        and not bool(sh.tree[i, int(c):].any())
+        for i, c in enumerate(sh.counts)))
+    stats = ctx.overall_stats()
+    print("RPHASE " + json.dumps({
+        "phase": phase, "w": w, "resumed": resumed, "layout_ok": bool(ok),
+        "skipped": stats.get("resume_skipped_ops", 0),
+        "t_start": t_start, "t_ctx": t_ctx, "t_ready": t_ready,
+        "t_exit": time.time(), "marker": os.path.exists(
+            os.path.join(d, "ck", "RESIZE.json"))}), flush=True)
+    assert_port_alone()
+    if phase < 2:
+        try:
+            ctx.resize_processes(3 if phase == 0 else 2, state=dd)
+        finally:
+            print("RPHASE_EXIT " + json.dumps({"phase": phase,
+                                               "t": time.time()}),
+                  flush=True)
+    ctx.close()
+    return 0
+
+
+def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase R: R3's two processes and R4's supervised move start first
+    and run beside R1 (resize) and R2 (heals) in this process; then
+    their results are checked. Returns each path's launches."""
+    import shutil
+    import tempfile
+    t_r = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="ttpu-r-")
+    procs = []
+    try:
+        ports = d_free_ports(1 + D_PROCS)
+        hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+        secret = os.urandom(16).hex()
+        for rank in range(D_PROCS):
+            env = dict(os.environ, THRILL_TPU_HOSTLIST=hostlist,
+                       THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret,
+                       THRILL_TPU_HEAL_TIMEOUT_S=str(R_HEAL_TIMEOUT_S))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--r3-child",
+                 f"127.0.0.1:{ports[0]}", str(rank), d],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env))
+        env = dict(os.environ, THRILL_TPU_CKPT_DIR=os.path.join(d, "ck"))
+        for k in ("THRILL_TPU_RESUME", "THRILL_TPU_RESIZE_W"):
+            env.pop(k, None)
+        here = os.path.dirname(os.path.abspath(__file__))
+        t_sup = time.time()
+        sup = subprocess.Popen(
+            ["bash", os.path.join(here, "run-scripts", "supervise.sh"),
+             "-n", "1", "--", sys.executable, os.path.abspath(__file__),
+             "--resize-child", d], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env)
+        procs.append(sup)
+        paths = r_resize(torch, np, tt, pk, ps, card)
+        torch.cuda.empty_cache()
+        paths.update(r_heal(torch, np, tt, pk, ps, card))
+        torch.cuda.empty_cache()
+        t_local = time.perf_counter()
+        outs = [p.communicate(timeout=300) for p in procs]
+        for p, (o, e) in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"R: child failed (rc {p.returncode}):"
+                                     f"\n{o[-2000:]}\n{e[-3000:]}")
+        # R3
+        for rank in range(D_PROCS):
+            with open(os.path.join(d, f"r3-{rank}.json")) as f:
+                r = json.load(f)
+            same, local = r["same"], r["local"]
+            if same["way"] != "healed" or not same.get("after_equal"):
+                raise AssertionError(f"R3 process {rank}: {same}")
+            if local["way"] == "no error" or local["seconds"] > R_BOUND_S:
+                raise AssertionError(f"R3 process {rank}: {local}")
+            log(f"R3 process {rank} of {D_PROCS}: a failure both processes "
+                f"meet healed in {same['seconds']:.3f} s (generation "
+                f"{same['generation']}), the Sort after it bit-equal; a "
+                f"failure of process 1 alone ended in {local['way']} after "
+                f"{local['seconds']:.3f} s (THRILL_TPU_HEAL_TIMEOUT_S="
+                f"{R_HEAL_TIMEOUT_S}, bound {R_BOUND_S} s)"
+                + (f": {local['error'][:120]}" if "error" in local else "")
+                + f" [{card}]")
+        # R4
+        out, err = outs[-1]
+        ph = [json.loads(l[len("RPHASE "):]) for l in out.splitlines()
+              if l.startswith("RPHASE ")]
+        ex = [json.loads(l[len("RPHASE_EXIT "):]) for l in out.splitlines()
+              if l.startswith("RPHASE_EXIT ")]
+        if [p["w"] for p in ph] != [2, 3, 2] or not all(
+                p["layout_ok"] for p in ph) or \
+                [p["resumed"] for p in ph] != [False, True, True] or \
+                not all(p["skipped"] >= 1 for p in ph[1:]) or \
+                any(p["marker"] for p in ph):
+            raise AssertionError(f"R4: phases {ph}\n{err[-2000:]}")
+        relaunch = [ph[i + 1]["t_ready"] - ex[i]["t"] for i in range(2)]
+        log(f"R4 supervised move 2->3->2 (supervise.sh -n 1): each relaunch"
+            f" restored the RESIZE epoch ({R_ITEMS} items) in a fresh W' "
+            f"layout; relaunch seconds from the exit to the restored result "
+            f"{relaunch[0]:.2f} and {relaunch[1]:.2f} (process start to "
+            f"Context {ph[1]['t_ctx'] - ph[1]['t_start']:.2f} and "
+            f"{ph[2]['t_ctx'] - ph[2]['t_start']:.2f}); the first launch "
+            f"{ph[0]['t_ready'] - t_sup:.2f} s after the supervisor started "
+            f"[{card}]")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    assert_port_alone()
+    log(f"resize phase (R): {time.perf_counter() - t_r:.1f} s of host clock "
+        f"(R1 and R2 {t_local - t_r:.1f} s beside R3's and R4's children) "
+        f"[host {cpu_line()}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6796,6 +7366,12 @@ def main() -> int:
         i = sys.argv.index("--dist-child")
         return dist_child(sys.argv[i + 1], int(sys.argv[i + 2]),
                           sys.argv[i + 3])
+    if "--r3-child" in sys.argv:
+        i = sys.argv.index("--r3-child")
+        return r3_child(sys.argv[i + 1], int(sys.argv[i + 2]),
+                        sys.argv[i + 3])
+    if "--resize-child" in sys.argv:
+        return resize_child(sys.argv[sys.argv.index("--resize-child") + 1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
@@ -6837,6 +7413,10 @@ def main() -> int:
     if "--phase-d" in sys.argv:
         # phase D alone
         log(json.dumps(d_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-r" in sys.argv:
+        # phase R alone
+        log(json.dumps(r_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -6952,7 +7532,9 @@ def main() -> int:
     t_paths = t_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     d_paths = d_phase(torch, np, tt, pk, ps, card)
-    clock("phases P, X, T and D")
+    torch.cuda.empty_cache()
+    r_paths = r_phase(torch, np, tt, pk, ps, card)
+    clock("phases P, X, T, D and R")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -7045,7 +7627,8 @@ def main() -> int:
              "F2 pagerank W=4 (THRILL_TPU_FUSE=0)": f2u,
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
-             **l_paths, **p_paths, **x_paths, **t_paths, **d_paths}
+             **l_paths, **p_paths, **x_paths, **t_paths, **d_paths,
+             **r_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -1879,3 +1879,145 @@ def test_a_folded_overflow_heals_in_both_processes(modes_runs):
     assert one["ovf_misses"] == 1
     for r in two:
         assert r["ovf_misses"] == 1 and r["ovf"] == one["ovf"]
+
+
+# -- failure domains, resize and the element types of C21-C23 -----------
+
+@pytest.mark.gpu
+def test_resize_of_a_live_result_on_the_card(cuda_device):
+    """A kept Sort result on CUDA tensors re-split from W = 4 to 2 on the
+    card: the items bit-equal, the layout a fresh W = 2 Distribute's
+    (zeros past the counts), the Sort's kernels launched after it."""
+    from thrill_tpu_torch.common import tree as pt
+    rng = np.random.default_rng(3)
+    vals = rng.integers(0, 1 << 40, 50_000).astype(np.int64)
+    ctx = tt.Context(num_workers=4)
+    try:
+        kept = ctx.Distribute(vals).Sort().Keep(4)
+        kept.Execute()
+        ctx.resize(2)
+        sh = kept.node._shards
+        assert sh.tree.device.type == "cuda"
+        assert sh.counts.tolist() == [25_000, 25_000]
+        rows = torch.cat([sh.tree[w, :int(c)] for w, c in
+                          enumerate(sh.counts)]).cpu().numpy()
+        assert np.array_equal(rows, np.sort(vals))
+        for w, c in enumerate(sh.counts):
+            assert not bool(sh.tree[w, int(c):].any())
+        before = tps.radix_pass.launches
+        assert [int(x) for x in ctx.Distribute(vals).Sort().AllGather()] \
+            == np.sort(vals).tolist()
+        assert tps.radix_pass.launches > before
+        assert pt.leaves(sh.tree)[0].shape[1] >= 25_000
+    finally:
+        ctx.close()
+
+
+@pytest.mark.gpu
+def test_a_heal_after_an_oom_frees_the_card(cuda_device, monkeypatch):
+    """A real ``torch.OutOfMemoryError`` inside a pipeline is recoverable:
+    the PipelineError names it, the heal releases the failed run's
+    memory and the next pipeline is bit-equal to a fresh Context's."""
+    import gc
+    vals = np.arange(1 << 20, dtype=np.int64)[::-1].copy()
+    monkeypatch.setenv("THRILL_TPU_OOM_RETRY", "0")
+    ctx = tt.Context(num_workers=4)
+    try:
+        with ctx.pipeline("warm"):
+            want = ctx.Distribute(vals).Sort().AllGatherArrays().cpu()
+        torch.cuda.synchronize()
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        free = torch.cuda.mem_get_info()[0]
+        with pytest.raises(tt.PipelineError) as ei:
+            with ctx.pipeline("oom"):
+                d = ctx.Distribute(vals).Map(lambda x: x + 1).Keep(2)
+                d.Execute()
+                torch.empty(free * 2, dtype=torch.uint8,
+                            device=cuda_device)
+        assert "OutOfMemoryError" in ei.value.cause
+        del ei
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() <= mem0
+        with ctx.pipeline("after"):
+            got = ctx.Distribute(vals).Sort().AllGatherArrays().cpu()
+        assert torch.equal(got, want)
+        assert ctx.overall_stats()["pipeline_aborts"] == 1
+    finally:
+        ctx.close()
+
+
+_STICKY_CHILD = r'''
+import sys, torch
+import thrill_tpu_torch as tt
+ctx = tt.Context(num_workers=2)
+try:
+    with ctx.pipeline("sticky"):
+        x = torch.zeros(4, device="cuda")
+        idx = torch.tensor([1 << 40], device="cuda")
+        x[idx] = 1.0                       # an illegal address
+        torch.cuda.synchronize()
+except tt.PipelineError as e:
+    print("HEALED", e.cause)
+    sys.exit(3)
+except Exception as e:
+    print("ESCALATED", type(e).__name__, ctx._aborted)
+    sys.exit(0)
+'''
+
+
+@pytest.mark.gpu
+def test_a_sticky_cuda_error_escalates_in_its_own_process(cuda_device):
+    """An illegal address poisons the process's CUDA context: the heal
+    classifies it unrecoverable and the original error is raised (the
+    supervised relaunch's case), in a process of its own."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-c", _STICKY_CHILD],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=repo),
+                       cwd=repo)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
+    assert "ESCALATED" in p.stdout and "True" in p.stdout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dt", [np.int16, np.uint16, np.uint32, np.uint64])
+def test_narrow_and_unsigned_columns_on_the_card(cuda_device, dt):
+    """Faults C21-C22 on CUDA tensors: Sort, Max, Sum, a Map of ``x + 1``,
+    ReduceByKey keyed by the column and ReduceByKey's min and max folds
+    of the column give numpy's answers."""
+    info = np.iinfo(dt)
+    col = np.random.default_rng(5).integers(info.min, info.max, 3000,
+                                            dtype=dt, endpoint=True)
+    ctx = tt.Context(num_workers=4)
+    try:
+        d = ctx.Distribute(col).Keep(4)
+        assert [int(x) for x in d.Sort().AllGather()] == \
+            [int(v) for v in np.sort(col)]
+        assert int(d.Max()) == int(col.max())
+        s = int(d.Sum())
+        if col.dtype.kind == "u":
+            assert s % (1 << 64) == int(col.sum(dtype=np.uint64))
+        else:
+            assert s == int(col.sum(dtype=np.int64))
+        add = d.Map(lambda x: x + 1).AllGatherArrays().cpu().numpy()
+        assert add.dtype == dt and add.tolist() == (col + dt(1)).tolist()
+        kv = ctx.Distribute({"k": col, "v": np.ones(len(col), np.int64)}) \
+            .ReduceByKey(lambda t: t["k"],
+                         tt.FieldReduce({"k": "first", "v": "sum"}))
+        got = sorted((int(t["k"]), int(t["v"])) for t in kv.AllGather())
+        u, c = np.unique(col, return_counts=True)
+        assert got == [(int(a), int(b)) for a, b in zip(u, c)]
+        keys = np.arange(len(col), dtype=np.int64) % 7
+        for fold, np_fold in (("min", np.min), ("max", np.max)):
+            kv = ctx.Distribute({"k": keys, "v": col}).ReduceByKey(
+                lambda t: t["k"], tt.FieldReduce({"k": "first", "v": fold}))
+            got = sorted((int(t["k"]), int(t["v"])) for t in kv.AllGather())
+            assert got == [(k, int(np_fold(col[keys == k])))
+                           for k in range(7)], fold
+    finally:
+        ctx.close()

@@ -166,10 +166,56 @@ def test_an_injected_hang_aborts_as_in_the_reference():
             g0.recv_from(1)
 
 
-def test_generations_wait_for_a_later_part_of_item_6():
-    g0, _ = MockNetwork.construct(2)
-    for call in (lambda: g0.begin_generation(1), lambda: g0.resize(3, 1),
-                 lambda: g0.prepare_relaunch(3, 1)):
-        with pytest.raises(NotImplementedError,
-                           match="item 6, its generations-and-resize"):
-            call()
+def _heal_grow_shrink_relaunch(net_cls):
+    """Lockstep phases on a mock network: a heal after a poison, a grow
+    2 -> 3 through the network's grow and ``Group.resize``, a shrink
+    3 -> 2, and the relaunch gate; each phase's generations, widths and
+    a collective's values."""
+    net = net_cls(2)
+    groups = {r: net.group(r) for r in range(2)}
+    out = []
+
+    def phase(jobs):
+        res = {}
+        ts = [threading.Thread(target=lambda r=r, f=f: res.__setitem__(
+            r, f()), daemon=True) for r, f in jobs.items()]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=20)
+        assert len(res) == len(jobs), "phase deadlocked"
+        return [res[r] for r in sorted(res)]
+
+    groups[0].poison_peers("boom")
+    out.append(phase({r: (lambda g=g: g.begin_generation(1))
+                      for r, g in groups.items()}))
+    joiners = dict(zip([2], net.grow(3, from_hosts=2)))
+    jobs = {r: (lambda g=g: g.resize(3, 2)) for r, g in groups.items()}
+    jobs.update({r: (lambda g=g: g.begin_generation(2))
+                 for r, g in joiners.items()})
+    phase(jobs)
+    groups.update(joiners)
+    out.append(phase({r: (lambda g=g: (g.num_hosts, g.generation,
+                                       g.all_reduce(g.my_rank + 1)))
+                      for r, g in groups.items()}))
+    phase({r: (lambda g=g: g.resize(2, 3)) for r, g in groups.items()})
+    groups = {r: g for r, g in groups.items() if r < 2}
+    out.append(phase({r: (lambda g=g: (g.num_hosts, g.generation,
+                                       g.all_gather(g.my_rank * 10)))
+                      for r, g in groups.items()}))
+    phase({r: (lambda g=g: g.prepare_relaunch(3, 4))
+           for r, g in groups.items()})
+    out.append([g.generation for g in groups.values()])
+    return out
+
+
+def test_generations_heal_resize_and_relaunch_as_in_the_reference():
+    """The generation barrier, ``resize`` and ``prepare_relaunch`` (once
+    stubs that raised until this part of item 6) give the reference's
+    generations, widths and collective values over the mock network."""
+    port = _heal_grow_shrink_relaunch(MockNetwork)
+    ref = _heal_grow_shrink_relaunch(JMock)
+    assert port == ref
+    assert port[1] == [(3, 2, 6)] * 3
+    assert port[2] == [(2, 3, [0, 10])] * 2
+    assert port[3] == [4, 4]

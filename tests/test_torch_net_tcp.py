@@ -147,8 +147,12 @@ def test_a_dropped_link_is_repaired_as_in_the_reference(secret):
     assert port[1] == ("closed", True, ("after", 0), 1, 3)
 
 
-def test_parse_hostlist_and_join_waits():
+def test_parse_hostlist_and_join_checks_its_rank():
     assert parse_hostlist("a:1 b:2,c:3") == [("a", 1), ("b", 2), ("c", 3)]
     assert parse_hostlist(":7000") == [("127.0.0.1", 7000)]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        join_tcp_group(1, [("127.0.0.1", 1), ("127.0.0.1", 2)], 1)
+    # a joining rank outside its hostlist is refused, as in the
+    # reference (the joins themselves: tests/test_torch_elastic.py)
+    from thrill_tpu.net.tcp import join_tcp_group as jjoin
+    for join in (join_tcp_group, jjoin):
+        with pytest.raises(ValueError, match="outside hostlist"):
+            join(2, [("127.0.0.1", 1), ("127.0.0.1", 2)], 1)

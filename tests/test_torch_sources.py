@@ -267,7 +267,10 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "fused_stages", "join_overflow_retries",
                       "loop_plan_builds", "loop_replays", "loop_fori_iters",
                       "loop_replay_fallbacks", "loop_donated_bytes",
-                      "faults_delayed"} | PLAN | DOCTOR
+                      "faults_delayed", "generation", "pipeline_aborts",
+                      "heal_time_s", "resizes", "resize_time_s",
+                      "resizes_proc", "conn_reconnects",
+                      "stale_frames_dropped"} | PLAN | DOCTOR
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
     assert s["workers"] == 4 and s["nodes_created"] == 2
@@ -294,7 +297,9 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
     assert s["wait_net_s"] == 0.0 and s["straggler_waits"] == {}
     assert s["collective_wait_s"] >= s["wait_exchange_s"] >= 0.0
     assert 1.0 <= s["skew_ratio"] == rs["skew_ratio"] < 3.0
+    # a fresh Context's failure domain is generation 1, as the reference's
+    assert s["generation"] == rs["generation"] == 1
     assert all(s[k] == 0 for k in set(s) - PLAN - DOCTOR - {
         "workers", "nodes_created", "exchanges", "items_moved",
         "bytes_moved", "device_dispatches", "device_fetches",
-        "fused_dispatches", "fused_ops", "fused_stages"})
+        "fused_dispatches", "fused_ops", "fused_stages", "generation"})

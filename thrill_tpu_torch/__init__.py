@@ -8,11 +8,13 @@ thrill_tpu.
 """
 
 from .api import (Bind, Concat, Context, DIA, FieldReduce, InnerJoin, Iterate,
-                  Merge, Run, RunDistributed, RunLocalMock, RunLocalTests,
-                  RunSupervised, Union, Zip, ZipWindow)
+                  Merge, PipelineError, ResizeRelaunch, Run, RunDistributed,
+                  RunLocalMock, RunLocalTests, RunSupervised, Union, Zip,
+                  ZipWindow)
 from .parallel.mesh import MeshExec
 
 __all__ = ["Bind", "Concat", "Context", "DIA", "FieldReduce", "InnerJoin",
-           "Iterate", "Merge", "MeshExec", "Run", "RunDistributed",
+           "Iterate", "Merge", "MeshExec", "PipelineError",
+           "ResizeRelaunch", "Run", "RunDistributed",
            "RunLocalMock", "RunLocalTests", "RunSupervised", "Union",
            "Zip", "ZipWindow"]

@@ -1,5 +1,6 @@
-from .context import (Context, Run, RunDistributed, RunLocalMock,  # noqa: F401
-                      RunLocalTests, RunSupervised)
+from .context import (RESIZE_EXIT_CODE, Context,  # noqa: F401
+                      PipelineError, ResizeRelaunch, Run, RunDistributed,
+                      RunLocalMock, RunLocalTests, RunSupervised)
 from .dia import (DIA, Concat, InnerJoin, Merge, Union, Zip,  # noqa: F401
                   ZipWindow)
 from .functors import FieldReduce  # noqa: F401

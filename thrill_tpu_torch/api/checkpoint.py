@@ -29,11 +29,17 @@ save copies slice k+1 off the card while slice k goes into its worker's
 payload (its one host copy), a restore uploads slice k while slice k+1
 is copied into the next pinned slot.
 
+Elasticity (reference: ``api/checkpoint.py:100-150, 425-578,
+961-1030``): ``stage_repartition`` / ``commit_repartition`` re-split a
+live result across a new W for ``Context.resize`` (a device result on
+its device); ``seal_resize`` writes a RESIZE epoch already re-split to
+the target W and ``commit_resize_marker`` the ``RESIZE.json`` marker
+that ``run-scripts/supervise.sh`` reads; a resume at the target W
+consumes the marker (``Context.resize_processes``, one controller).
+
 Not ported (ROADMAP item 6, its checkpoint part): the multi-controller
-agreement and
-``poison_on_error``, remote (``s3://``, ``hdfs://``) directories, the
-resize epochs and markers, and ``stage_repartition`` /
-``commit_repartition``. The restore's readahead depth is the
+agreement and ``poison_on_error``, and remote (``s3://``, ``hdfs://``)
+directories. The restore's readahead depth is the
 planner's learned depth of the ``ckpt.restore`` site, an
 ``io_prefetch`` decision audited by the measured hit rate.
 
@@ -70,6 +76,11 @@ from ..vfs import file_io
 
 MANIFEST = "MANIFEST.json"
 _EPOCH_FMT = "epoch_{:06d}"
+#: the commit record of a process-level resize (Context.resize_processes):
+#: written atomically after the RESIZE epoch sealed and the host group
+#: agreed to relaunch; the supervisor reads ``target_w`` from it and the
+#: relaunched run at that W consumes it
+RESIZE_MARKER = "RESIZE.json"
 
 # the writes are idempotent (whole files, an atomic manifest), so
 # transient storage faults retry under the shared policy
@@ -77,9 +88,56 @@ _F_WRITE = faults.declare("ckpt.write")
 _F_READ = faults.declare("ckpt.read")
 _F_MANIFEST = faults.declare("ckpt.manifest")
 
+# Context.resize: fired when a live result is staged, before any shard or
+# the mesh changed, so a failure leaves the old W whole and the next
+# attempt starts from the same state
+_F_REPART = faults.declare("ckpt.repartition")
+
+# Context.resize_processes: fired as the RESIZE epoch's seal starts and
+# again as the marker commits, each before its writes: a failure leaves
+# nothing (seal) or a sealed epoch no marker announces, which an old-W
+# resume rejects by its worker count
+_F_RESIZE_MANIFEST = faults.declare("ckpt.resize_manifest")
+
 
 def node_key(node) -> str:
     return f"{node.id}:{node.label}"
+
+
+def resize_marker_path(directory: str) -> str:
+    return os.path.join(directory, RESIZE_MARKER)
+
+
+def pending_resize_target(directory: str) -> Optional[dict]:
+    """The committed, unconsumed resize marker under ``directory``, or
+    None (needs no Context: a relaunched child reads it to size its mesh
+    first). A corrupt marker says so and counts as absent: the relaunch
+    then runs at the old W, whose epochs are still committed."""
+    path = resize_marker_path(directory)
+    try:
+        if not os.path.isfile(path):
+            return None
+        with open(path, "rb") as f:
+            m = json.loads(f.read().decode())
+        if int(m.get("target_w", 0)) < 1:
+            raise ValueError(f"bad target_w {m.get('target_w')!r}")
+        return m
+    except FileNotFoundError:
+        return None
+    except (ValueError, KeyError, OSError) as e:
+        print(f"thrill_tpu_torch.checkpoint: ignoring corrupt resize "
+              f"marker {path}: {e}", file=sys.stderr)
+        return None
+
+
+def clear_resize_marker(directory: str) -> bool:
+    """Consume the resize marker (the relaunched run is up at the
+    target W)."""
+    try:
+        os.remove(resize_marker_path(directory))
+        return True
+    except OSError:
+        return False
 
 
 def _epoch_num(path: str) -> Optional[int]:
@@ -143,6 +201,19 @@ class CheckpointManager:
                 if log.enabled:
                     log.line(event="resume", epoch=self.resume_epoch,
                              node=self._manifest["node"]["key"])
+            # a committed resize marker is consumed once the relaunch is
+            # up at its target W: the move is complete and the
+            # supervisor must not relaunch again. A marker for another W
+            # stays (this run is not the relaunch it asked for; epochs
+            # are gated by their worker count)
+            marker = pending_resize_target(self.dir)
+            if marker is not None and int(marker["target_w"]) \
+                    == ctx.mesh_exec.num_workers:
+                clear_resize_marker(self.dir)
+                faults.note("recovery", what="ckpt.resize_complete",
+                            target_w=int(marker["target_w"]),
+                            from_w=marker.get("from_w"),
+                            epoch=marker.get("epoch"))
 
     def _epoch_dirs(self) -> List[str]:
         return [p for p in glob.glob(os.path.join(self.dir, "epoch_*"))
@@ -278,6 +349,104 @@ class CheckpointManager:
                "label": node.label, "kind": "host",
                "counts": counts, "files": files}
         return rec, nbytes
+
+    # -- the process-level resize (Context.resize_processes) -------------
+    def seal_resize(self, node, shards, target_w: int) -> int:
+        """Seal a RESIZE epoch: ``shards`` re-split to ``target_w``
+        workers now and written as a ``target_w``-worker epoch, which
+        the relaunched W'-wide run restores through the usual resume
+        (its worker count matches) in the layout a fixed-W' run of the
+        same items has. The ``ckpt.resize_manifest`` site fires before
+        any byte lands; an uncommitted epoch (a SIGKILL mid-seal) is
+        swept at the next resume; a committed W' epoch without a marker
+        is rejected by an old-W resume. One controller: files and
+        manifest are the reference's, byte for byte."""
+        t0 = time.perf_counter()
+        target_w = int(target_w)
+        old_w = self.ctx.mesh_exec.num_workers
+        faults.check(_F_RESIZE_MANIFEST, stage="seal", target=target_w,
+                     old=old_w)
+        epoch = self._next_epoch
+        self._next_epoch += 1
+        edir = os.path.join(self.dir, _EPOCH_FMT.format(epoch))
+        if isinstance(shards, DeviceShards):
+            from ..data.shards import resplit_leaves
+            per_worker = shards.to_worker_arrays()
+            leaves, treedef = pt.flatten(shards.tree)
+            skeleton = pt.unflatten(treedef, list(range(len(leaves))))
+            new_leaves = resplit_leaves(
+                [[np.asarray(l) for l in pt.leaves(t)] for t in per_worker],
+                target_w)
+            counts = [int(l[0].shape[0]) if l else 0 for l in new_leaves]
+            payloads = [serialize_leaves(l) for l in new_leaves]
+            rec: Dict[str, Any] = {
+                "key": node_key(node), "dia_id": node.id,
+                "label": node.label, "kind": "device",
+                "counts": counts, "cap": max([1] + counts),
+                "skeleton": base64.b64encode(
+                    pickle.dumps(skeleton)).decode("ascii")}
+        elif isinstance(shards, HostShards):
+            lists = [deserialize_batch(serialize_batch(list(items)))
+                     for items in shards.lists]
+            new = HostShards(old_w, lists).repartition(target_w)
+            counts = [len(l) for l in new.lists]
+            payloads = [serialize_batch(l) for l in new.lists]
+            rec = {"key": node_key(node), "dia_id": node.id,
+                   "label": node.label, "kind": "host", "counts": counts}
+        else:
+            raise TypeError(
+                f"cannot seal {type(shards).__name__} for a resize")
+        os.makedirs(edir, exist_ok=True)
+        self._inflight_dir = edir
+        files: Dict[str, Any] = {}
+        nbytes = 0
+        for w in range(target_w):
+            files[str(w)] = self._write_file(edir, f"n{node.id}.w{w}.bin",
+                                             payloads[w])
+            nbytes += len(payloads[w])
+        rec["files"] = files
+        manifest = {"format": 1, "epoch": epoch, "workers": target_w,
+                    "resize": {"from": old_w, "to": target_w},
+                    "node": rec}
+        payload = json.dumps(manifest, sort_keys=True).encode()
+
+        def commit():
+            faults.check(_F_MANIFEST, epoch=epoch)
+            file_io.write_file_atomic(os.path.join(edir, MANIFEST), payload)
+
+        default_policy().run(commit, what="ckpt.manifest")
+        self._inflight_dir = None
+        self.epochs_written += 1
+        self.bytes_written += nbytes
+        log = self.ctx.logger
+        if log.enabled:
+            log.line(event="resize_seal", epoch=epoch, node=node.label,
+                     dia_id=node.id, workers_old=old_w,
+                     workers_new=target_w, bytes=nbytes,
+                     seconds=round(time.perf_counter() - t0, 4))
+        return epoch
+
+    def commit_resize_marker(self, target_w: int,
+                             epoch: Optional[int] = None,
+                             generation: Optional[int] = None,
+                             procs: Optional[int] = None) -> str:
+        """Commit the move: the marker tells the supervisor, and any
+        relaunch however the process died, to relaunch at ``target_w``.
+        Atomic (a temporary file renamed); the fault site fires first,
+        so a failure commits nothing."""
+        faults.check(_F_RESIZE_MANIFEST, stage="marker",
+                     target=int(target_w))
+        payload = json.dumps(
+            {"format": 1, "target_w": int(target_w),
+             "from_w": self.ctx.mesh_exec.num_workers,
+             "target_procs": int(procs) if procs else 1,
+             "epoch": epoch, "generation": generation},
+            sort_keys=True).encode()
+        path = resize_marker_path(self.dir)
+        default_policy().run(
+            lambda: file_io.write_file_atomic(path, payload),
+            what="ckpt.resize_marker")
+        return path
 
     # -- resume ---------------------------------------------------------
     def _try_load_manifest(self, edir: str) -> Optional[dict]:
@@ -577,6 +746,45 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
 
 def _torch_dtype(dt: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=dt)).dtype
+
+
+# ----------------------------------------------------------------------
+# the re-split of a live result for Context.resize
+# ----------------------------------------------------------------------
+
+def stage_repartition(shards) -> dict:
+    """Stage one live shard store for a W change; returns what
+    :func:`commit_repartition` consumes, with its ``bytes``. Reads only:
+    the shards stay valid and unchanged. A device store stays on its
+    device (its leaves and host counts are held); a host store is
+    serialized, as the reference's."""
+    faults.check(_F_REPART, kind=type(shards).__name__,
+                 workers=shards.num_workers)
+    if isinstance(shards, DeviceShards):
+        shards.validate_pending()
+        counts = np.asarray(shards.counts, dtype=np.int64).copy()
+        n = int(counts.sum())
+        nbytes = sum(n * (l.element_size() * int(np.prod(l.shape[2:],
+                                                         dtype=np.int64)))
+                     for l in pt.leaves(shards.tree))
+        return {"kind": "device", "tree": shards.tree, "counts": counts,
+                "bytes": int(nbytes)}
+    if isinstance(shards, HostShards):
+        payloads = [serialize_batch(list(items)) for items in shards.lists]
+        return {"kind": "host", "payloads": payloads,
+                "bytes": sum(len(p) for p in payloads)}
+    raise TypeError(f"cannot repartition {type(shards).__name__}")
+
+
+def commit_repartition(mex, staged: dict):
+    """Rebuild one staged store on the resized mesh: a device store by
+    one gather on its device (data/shards.py :func:`resplit_device`), a
+    host store deserialized and re-split by ``dense_range_bounds``."""
+    if staged["kind"] == "host":
+        lists = [deserialize_batch(p) for p in staged["payloads"]]
+        return HostShards(len(lists), lists).repartition(mex.num_workers)
+    from ..data.shards import resplit_device
+    return resplit_device(mex, staged["tree"], staged["counts"])
 
 
 def _count_upstream_new(node) -> int:

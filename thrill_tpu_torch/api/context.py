@@ -1,6 +1,5 @@
 """The runtime handle passed to user jobs (counterpart of the reference
-package's ``api/context.py`` without its service plane, elasticity or
-generations). Sources take ``storage`` "device" (columnar tensors) or
+package's ``api/context.py`` without its service plane). Sources take ``storage`` "device" (columnar tensors) or
 "host" (per-worker Python lists); None infers it as the reference does.
 A Context owns the JSON event log (``logger``), the HBM governor
 (``hbm``, mem/hbm.py), the memory-pressure ladder (``pressure``,
@@ -28,14 +27,40 @@ world under ``THRILL_TPU_NET=mpi`` (net/mpi.py); the
 host-storage multiplexer (data/multiplexer.py) and
 :meth:`Context.collective_mean_stdev` ride it. ``host_rank`` is the
 process's rank; ``overall_stats()`` gathers every process's counters
-unless ``local_only``, with ``hosts`` the number of processes."""
+unless ``local_only``, with ``hosts`` the number of processes.
+
+Failure domains (reference: ``api/context.py:1187-1395``): every
+pipeline run inside ``with ctx.pipeline():`` carries a fresh generation
+id; an error escaping the block aborts only that run. The heal disposes
+the failed generation's nodes (their HBM ledger entries, spilled blocks
+and memory grants), drops its deferred checks and a loop capture in
+progress (a CUDA graph capture that a failure interrupted was already
+ended by the loop, api/loop.py ``_graph_loop``), waits for the card's
+queue, then runs the generation barrier over the host group;
+the caller gets a :class:`PipelineError` and the Context serves the next
+pipeline as a fresh one would. A sticky CUDA error (an illegal address,
+a device-side assert) poisons the process's CUDA context: it is
+classified unrecoverable and the original error is raised, so a
+supervised relaunch takes over, as for a dead peer.
+
+Elasticity: :meth:`Context.resize` changes W at a generation boundary
+(every live result re-split to the W' layout a fresh W'-wide run makes,
+the old W's plan state parked per W in the mesh), and
+:meth:`Context.resize_processes` is the supervised move of one
+controller (seal a RESIZE epoch, commit the marker, exit
+``RESIZE_EXIT_CODE`` for ``run-scripts/supervise.sh``)."""
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import os
 import sys
+import time
 import weakref
 from typing import Any, Callable, List, Optional, Sequence
+
+import torch
 
 from ..common import faults
 from ..common.config import Config
@@ -44,6 +69,92 @@ from ..mem.hbm import HbmGovernor
 from ..mem.manager import MemoryConfig
 from ..mem.pressure import PressureMonitor
 from ..parallel.mesh import DeviceLike, MeshExec, resolve_device
+
+
+class PipelineError(RuntimeError):
+    """One pipeline run on a Context failed, and only that run: the
+    Context healed and stays usable (reference: ``api/context.py:54``).
+    Carries the root cause: ``origin`` rank, ``cause`` text,
+    ``generation`` of the failed run and ``root``, the original
+    exception. Not a ConnectionError: retry policies classify it
+    permanent and ``RunSupervised`` does not relaunch for it."""
+
+    def __init__(self, origin: int, cause: str, generation: int,
+                 root: Optional[BaseException] = None) -> None:
+        super().__init__(
+            f"pipeline generation {generation} aborted "
+            f"(origin rank {origin}): {cause}")
+        self.origin = origin
+        self.cause = cause
+        self.generation = generation
+        self.root = root
+
+
+#: the exit code of a supervised worker once a resize move is committed
+#: (EX_TEMPFAIL): the supervisor reads the RESIZE marker and relaunches
+#: the job at the target W with resume (reference:
+#: ``api/context.py:80``)
+RESIZE_EXIT_CODE = 75
+
+
+class ResizeRelaunch(SystemExit):
+    """Raised by :meth:`Context.resize_processes` once the move is
+    committed: the process exits with :data:`RESIZE_EXIT_CODE` so
+    ``run-scripts/supervise.sh`` relaunches the job at ``target_w`` with
+    ``THRILL_TPU_RESUME=1``. Raise it on the main thread only."""
+
+    def __init__(self, target_w: int, epoch: Optional[int] = None,
+                 generation: Optional[int] = None) -> None:
+        super().__init__(RESIZE_EXIT_CODE)
+        self.target_w = int(target_w)
+        self.epoch = epoch
+        self.generation = generation
+
+    def __str__(self) -> str:
+        return (f"resize move to W={self.target_w} committed: exiting "
+                f"{RESIZE_EXIT_CODE} for supervised relaunch")
+
+
+#: the texts of CUDA errors that poison the process's CUDA context: no
+#: heal can clear them, only a new process
+_STICKY_CUDA = ("illegal memory access", "device-side assert",
+                "unspecified launch failure", "misaligned address",
+                "illegal instruction", "an illegal address",
+                "cudaErrorIllegalAddress", "cudaErrorAssert",
+                "CUDA error: unknown error")
+
+
+def device_plane_broken(exc: BaseException) -> bool:
+    """Did ``exc`` (or an exception it chains) come from a failed
+    collective of the device data plane across processes (gloo)? A gloo
+    group whose collective failed or timed out halfway is not used
+    again: no heal can tell which of its messages were delivered."""
+    import torch.distributed as dist
+    broken = getattr(dist, "DistBackendError", ())
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if (broken and isinstance(exc, broken)) or any(
+                s in str(exc) for s in ("Gloo", "gloo", "Connection closed "
+                                        "by peer", "Connection reset by "
+                                        "peer")):
+            return True
+        exc = exc.__cause__ or exc.__context__
+    return False
+
+
+def sticky_cuda_error(exc: BaseException) -> bool:
+    """Is ``exc`` (or an exception it chains) a CUDA error that leaves
+    the CUDA context unusable for the rest of the process?"""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        if not isinstance(exc, torch.OutOfMemoryError):
+            text = str(exc)
+            if any(s in text for s in _STICKY_CUDA):
+                return True
+        exc = exc.__cause__ or exc.__context__
+    return False
 
 
 class Context:
@@ -131,6 +242,22 @@ class Context:
                            + self.plan_store._last_corrupt[:120],
                     path=self.config.plan_store)
         self._aborted = False
+        self._closed = False
+        # failure domains: every pipeline run carries the current
+        # generation id, which the host group's poison frames and
+        # barriers carry too; the counter never re-issues an id
+        self.generation = 1
+        self._gen_counter = 1
+        self.net.group.generation = self.generation
+        self.stats_pipeline_aborts = 0
+        self.stats_heal_time_s = 0.0
+        # elasticity: resizes of W on this Context and their seconds,
+        # process-level moves committed, and the latch that makes the
+        # close of a committed move local
+        self.stats_resizes = 0
+        self.stats_resize_time_s = 0.0
+        self.stats_resizes_proc = 0
+        self._resize_exiting = False
         # checkpoints and resume: None, and nothing made on disk, unless
         # a checkpoint directory is set
         self.checkpoint = None
@@ -204,6 +331,172 @@ class Context:
         self._nodes.append((weakref.ref(node), nid, node.label,
                             [p.node.id for p in node.parents]))
         return nid
+
+    # -- elasticity: W is a property of a generation -----------------------
+    def resize(self, num_workers: int) -> float:
+        """Resize the mesh to ``num_workers`` workers at a generation
+        boundary; returns the seconds it took (reference:
+        ``api/context.py:493``).
+
+        Every live cached result (a node's shards held by ``Keep`` or a
+        pending consumer) is re-split across the new W in the layout a
+        fresh W'-wide run makes (data/shards.py :func:`resplit`), so
+        later pipelines compute bit-identical to a fixed-W' Context; on
+        the card a device result re-splits on the card. The old W's plan
+        state is parked per W in the mesh (a later resize back finds it
+        warm); the HBM ledger re-admits each moved result at its new
+        size. One process only. The port has no service plane yet: the
+        fence that runs this between the jobs of a serving Context is
+        ROADMAP.md item 6, its service-plane part. ``THRILL_TPU_RESIZE=0``
+        makes this raise."""
+        from ..net.group import resize_enabled
+        if self._closed:
+            raise RuntimeError("Context is closed")
+        if not resize_enabled():
+            raise RuntimeError(
+                "THRILL_TPU_RESIZE=0 pins the worker count for this "
+                "process; unset it to allow Context.resize")
+        new_w = int(num_workers)
+        if new_w < 1:
+            raise ValueError("cannot resize to an empty mesh")
+        if self.mesh_exec.multiprocess or self.net.num_workers > 1:
+            raise RuntimeError(
+                "Context.resize is one-process only: on a mesh of several "
+                "processes the membership changes in the host group "
+                "(net.Group.resize, net.tcp.join_tcp_group) and the job "
+                "relaunches at the new W")
+        if new_w == self.num_workers:
+            return 0.0
+        return self._resize_now(new_w)
+
+    def _resize_now(self, new_w: int) -> float:
+        from ..mem.hbm import SpilledShards
+        from .checkpoint import commit_repartition, stage_repartition
+        t0 = time.monotonic()
+        mex = self.mesh_exec
+        old_w = mex.num_workers
+        # 1) stage every live result: reads only, and the
+        # ckpt.repartition site fires before anything changed
+        live = []
+        for ref, *_ in self._nodes:
+            node = ref()
+            if node is None or getattr(node, "_shards", None) is None:
+                continue
+            if isinstance(node._shards, SpilledShards):
+                self.hbm.touch(node)
+            live.append((node, stage_repartition(node._shards)))
+        # 2) swap the mesh's W (its per-W plan state parks inside)
+        mex.resize(new_w)
+        # 3) rebuild each staged result at W' and re-admit it to the
+        # ledger at its new size
+        moved = 0
+        for node, staged in live:
+            self.hbm.on_release(node, None)
+            node._shards = commit_repartition(mex, staged)
+            moved += staged.get("bytes", 0)
+            self.hbm.on_cache(node)
+        # 4) a fresh generation: what is computed from here belongs to
+        # the W' failure domain
+        self._gen_counter += 1
+        self.generation = self._gen_counter
+        self.net.group.begin_generation(self.generation)
+        dt = time.monotonic() - t0
+        self.stats_resizes += 1
+        self.stats_resize_time_s += dt
+        self.last_resize = {"workers_old": old_w, "workers_new": new_w,
+                            "nodes_moved": len(live), "bytes": moved,
+                            "seconds": dt}
+        if self.logger.enabled:
+            self.logger.line(event="resize", workers_old=old_w,
+                             workers_new=new_w, nodes_moved=len(live),
+                             bytes_moved=moved,
+                             generation=self.generation,
+                             resize_time_s=round(dt, 4))
+        return dt
+
+    def resize_processes(self, num_workers: int, state=None,
+                         drain_timeout_s: Optional[float] = None):
+        """The supervised process-level move of one controller
+        (reference: ``api/context.py:620``): seal a RESIZE checkpoint
+        epoch of ``state`` re-split to ``num_workers`` workers, pass the
+        relaunch gate of the host group, commit the RESIZE marker and
+        raise :class:`ResizeRelaunch`, which exits the process with
+        :data:`RESIZE_EXIT_CODE`; ``run-scripts/supervise.sh`` then
+        relaunches the job at W' with ``THRILL_TPU_RESUME=1``, and the
+        resume restores the sealed epoch. Never returns.
+
+        ``state`` is the DIA whose materialized shards carry across
+        (``Execute()``/``Keep`` it first); None commits a move without
+        data. The steps and their fault sites: SEAL
+        (``ckpt.resize_manifest``: a SIGKILL leaves an uncommitted
+        epoch, swept at the next resume; a committed epoch without a
+        marker is inert), GATE (``net.group.relaunch``: nothing changed
+        yet), MARKER (``ckpt.resize_manifest`` at stage ``marker``: the
+        point of no return; a relaunch after it completes the move),
+        EXIT. The port has no service plane to drain yet (ROADMAP.md
+        item 6, its service-plane part). On a mesh of several processes
+        this raises NotImplementedError before any step: the agreement
+        between controllers is item 6, its checkpoint part."""
+        from ..net.group import resize_enabled
+        if self._closed:
+            raise RuntimeError("Context is closed")
+        if not resize_enabled():
+            raise RuntimeError(
+                "THRILL_TPU_RESIZE=0 pins the worker count for this "
+                "job; unset it to allow Context.resize_processes")
+        if self.mesh_exec.multiprocess or self.net.num_workers > 1:
+            raise NotImplementedError(
+                "resize_processes across processes needs the checkpoint "
+                "agreement between controllers: ROADMAP.md queue A item "
+                "6, its checkpoint part")
+        if self.checkpoint is None:
+            raise ValueError(
+                "resize_processes needs THRILL_TPU_CKPT_DIR: the RESIZE "
+                "epoch and the relaunch marker live in the checkpoint "
+                "directory")
+        new_w = int(num_workers)
+        if new_w < 1:
+            raise ValueError("cannot resize to an empty mesh")
+        old_w = self.num_workers
+        if new_w == old_w:
+            raise ValueError(
+                f"already running W={old_w}: resize_processes is a "
+                f"whole-process relaunch, a same-W move would restart "
+                f"the job for nothing")
+        t0 = time.monotonic()
+        # 1) seal
+        epoch = None
+        if state is not None:
+            node = getattr(state, "node", state)
+            shards = getattr(node, "_shards", None)
+            if shards is None:
+                raise ValueError(
+                    f"resize_processes state {node.label!r} has no "
+                    f"materialized shards; Execute()/Keep() it before "
+                    f"the move")
+            epoch = self.checkpoint.seal_resize(node, shards, new_w)
+        # 2) gate: settle the move's generation over the old group
+        gen = self._gen_counter + 1
+        self.net.group.prepare_relaunch(1, gen)
+        self._gen_counter = gen
+        self.generation = gen
+        # 3) marker: the point of no return
+        self.checkpoint.commit_resize_marker(new_w, epoch=epoch,
+                                             generation=gen, procs=1)
+        # 4) exit
+        self._resize_exiting = True
+        self.stats_resizes_proc += 1
+        dt = time.monotonic() - t0
+        self.stats_resize_time_s += dt
+        faults.note("recovery", what="ctx.resize_processes",
+                    old_w=old_w, new_w=new_w, epoch=epoch,
+                    generation=gen, _quiet=True)
+        if self.logger.enabled:
+            self.logger.line(event="resize_processes", workers_old=old_w,
+                             workers_new=new_w, procs_old=1, procs_new=1,
+                             epoch=epoch, generation=gen,
+                             seconds=round(dt, 4))
+        raise ResizeRelaunch(new_w, epoch=epoch, generation=gen)
 
     # -- memory grants (reference: the StageBuilder's DIAMemUse split,
     # api/dia_base.cpp:121-270). A node negotiates as its compute starts
@@ -322,6 +615,180 @@ class Context:
             title=name or (getattr(pipeline_fn, "__name__", "")
                            if pipeline_fn is not None else ""))
 
+    # -- failure domains ---------------------------------------------------
+    @contextlib.contextmanager
+    def pipeline(self, name: str = ""):
+        """A failure domain for one pipeline run (reference:
+        ``api/context.py:1187``). An error escaping the block aborts
+        only this run: the Context heals (:meth:`_heal`) and the block
+        raises a :class:`PipelineError` with the root cause and the
+        failed generation; the next pipeline runs as on a fresh
+        Context. An unrecoverable verdict (a heartbeat's dead peer, a
+        sticky CUDA error, a heal that failed) raises the original
+        error. Entering starts a fresh generation (never re-used), so
+        results cached by earlier pipelines survive this block's abort;
+        a nested block's clean exit restores the enclosing domain.
+        Across processes every process enters and leaves the block at
+        the same program points. Yields the generation id."""
+        parent = self.generation
+        self._gen_counter += 1
+        self.generation = self._gen_counter
+        self.net.group.generation = self.generation
+        gen = self.generation
+        try:
+            yield gen
+            # a deferred check crossing the boundary belongs to this run
+            self.mesh_exec.drain_checks()
+        except PipelineError:
+            # a nested block already healed and wrapped this failure
+            self.generation = parent
+            raise
+        except Exception as e:
+            replacement = self._pipeline_failed(e, name)
+            if replacement is e:
+                raise
+            # healed: stamping resumes in the enclosing domain, the wire
+            # generation stays past the failed one (its frames are stale)
+            self.generation = parent
+            try:
+                raise replacement from e
+            finally:
+                # the frame would hold the error (and through its
+                # traceback the failed run's tensors) in a cycle
+                replacement = None
+        else:
+            self.generation = parent
+            self.net.group.generation = parent
+
+    def _pipeline_failed(self, exc: BaseException,
+                         name: str = "") -> BaseException:
+        """The abort's bookkeeping and the heal; returns what the caller
+        raises: a PipelineError after a heal, ``exc`` itself when the
+        failure cannot be healed."""
+        from ..net.group import ClusterAbort
+        failed_gen = self.generation
+        unrecoverable = ((isinstance(exc, ClusterAbort)
+                          and not getattr(exc, "recoverable", True))
+                         or sticky_cuda_error(exc)
+                         or (self.mesh_exec.multiprocess
+                             and device_plane_broken(exc)))
+        origin = int(getattr(exc, "origin", self.host_rank))
+        cause = str(getattr(exc, "cause", "") or
+                    f"{type(exc).__name__}: {exc}")
+        self.stats_pipeline_aborts += 1
+        if self.logger.enabled:
+            self.logger.line(event="pipeline_abort", origin=origin,
+                             generation=failed_gen, pipeline=name or None,
+                             recoverable=not unrecoverable,
+                             cause=cause[:300])
+        try:
+            self.decisions.dump_beside(
+                self.tracer.dump_flight(cause, generation=failed_gen))
+        except Exception:
+            pass
+        if self.net.num_workers > 1 and not isinstance(exc, ClusterAbort):
+            # a failure of this process alone: the peers abort this
+            # generation too and meet this process at the barrier
+            try:
+                self.net.group.poison_peers(cause)
+            except Exception:
+                pass
+        if not unrecoverable:
+            try:
+                self._heal(failed_gen)
+            except Exception as he:
+                unrecoverable = True
+                faults.note("recovery", what="heal_failed",
+                            gen=failed_gen, error=repr(he)[:300])
+        if unrecoverable:
+            self._aborted = True
+            if self.mesh_exec.multiprocess:
+                # a peer may wait inside a gloo collective this process
+                # will not enter: closing the device plane releases it
+                # now (it then escalates too) rather than after gloo's
+                # own timeout
+                from ..common.platform import abandon_process_group
+                abandon_process_group()
+            return exc
+        return PipelineError(origin, cause, failed_gen, root=exc)
+
+    def _heal(self, failed_gen: int) -> None:
+        """Tear generation ``failed_gen`` down (reference:
+        ``api/context.py:1306``): drop the mesh's per-run state (the
+        deferred checks and a loop capture), wait for the card's queue (the failed run's kernels
+        and copies end before any of their buffers is reused; a sticky
+        CUDA error shows here and fails the heal), dispose the failed
+        run's nodes (their HBM ledger entries, spilled blocks and
+        memory grants), then run the generation barrier over the host
+        group. Raises when the mesh cannot be healed."""
+        from .dia_base import DISPOSED
+        t0 = time.monotonic()
+        mex = self.mesh_exec
+        self._gen_counter = max(self._gen_counter, failed_gen) + 1
+        self.generation = self._gen_counter
+        checks_dropped = mex.reset_run_state()
+        if mex.device.type == "cuda":
+            torch.cuda.synchronize(mex.device)
+        released = 0
+        for ref, *_ in self._nodes:
+            node = ref()
+            if node is None or getattr(node, "_generation", 0) != failed_gen:
+                continue
+            self.release_mem(node)
+            if node.state == DISPOSED:
+                continue
+            try:
+                node.dispose()
+                released += 1
+            except Exception:
+                pass           # best effort: the ledger entry is gone
+        stale = self.net.group.begin_generation(self.generation)
+        # a process that missed the abort adopts the generation its
+        # peers' barrier markers announced
+        self.generation = max(self.generation, self.net.group.generation)
+        self._gen_counter = max(self._gen_counter, self.generation)
+        hb = getattr(self.net.group, "_heartbeat", None)
+        if hb is not None and (hb._thread is None
+                               or not hb._thread.is_alive()):
+            from ..net import heartbeat
+            self.net.group._heartbeat = heartbeat.maybe_start(
+                self.net.group)
+        self._aborted = False
+        gc.collect()
+        dt = time.monotonic() - t0
+        self.stats_heal_time_s += dt
+        if self.logger.enabled:
+            self.logger.line(event="heal", generation=self.generation,
+                             heal_time_s=round(dt, 4),
+                             nodes_released=released,
+                             checks_dropped=checks_dropped,
+                             stale_frames=stale)
+
+    def abort(self, cause: Any) -> None:
+        """Coordinated abort (reference: ``api/context.py:1367``): send
+        ``cause`` as a poison frame to every process (each surfaces it
+        as a ClusterAbort with this root cause), log ``event=abort``,
+        then raise it here."""
+        from ..net.group import ClusterAbort
+        self._aborted = True
+        if self.logger.enabled:
+            cause_s = (f"{type(cause).__name__}: {cause}"
+                       if isinstance(cause, BaseException) else str(cause))
+            self.logger.line(event="abort", origin=self.host_rank,
+                             generation=self.generation,
+                             cause=cause_s[:300])
+        try:
+            self.decisions.dump_beside(self.tracer.dump_flight(
+                cause, generation=self.generation))
+        except Exception:
+            pass
+        if self.net.num_workers > 1:
+            self.net.group.poison_peers(cause)
+        if isinstance(cause, BaseException):
+            raise cause
+        raise ClusterAbort(self.host_rank, str(cause),
+                           generation=self.generation)
+
     def collective_mean_stdev(self, value: float):
         """(mean, stdev) of a per-process scalar over the processes: a
         collective every process calls (reference:
@@ -414,6 +881,17 @@ class Context:
                 "skew_ratio": 0.0}),
             "faults_delayed": (fstats["faults_delayed"]
                                - self._faults_base["faults_delayed"]),
+            # failure domains and elasticity
+            "generation": self.generation,
+            "pipeline_aborts": self.stats_pipeline_aborts,
+            "heal_time_s": round(self.stats_heal_time_s, 4),
+            "resizes": self.stats_resizes,
+            "resize_time_s": round(self.stats_resize_time_s, 4),
+            "resizes_proc": self.stats_resizes_proc,
+            "conn_reconnects": getattr(self.net.group, "stats_reconnects",
+                                       0),
+            "stale_frames_dropped": getattr(self.net.group,
+                                            "stats_stale_dropped", 0),
         }
         if self.checkpoint is not None:
             stats.update(self.checkpoint.stats())
@@ -465,6 +943,7 @@ class Context:
         """Save the plan store, log the stats, detach the log and free
         the spill store (a spilled result cannot be pulled after
         this)."""
+        self._closed = True
         if self._profiler is not None:
             self._profiler.stop()
             self._profiler = None

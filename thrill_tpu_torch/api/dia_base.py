@@ -35,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Union
 
+from ..core import unsigned
 from ..data.shards import DeviceShards, HostShards
 from .stack import Stack, apply_stack_device, apply_stack_host
 
@@ -55,6 +56,13 @@ class ParentLink:
     stack: Stack
 
     def pull(self, consume: bool = True) -> Shards:
+        shards = self._pull(consume)
+        # a compute that reads a wide unsigned column runs as the
+        # reference's unsigned arrays from here on (fault C22)
+        unsigned.on_pull(shards)
+        return shards
+
+    def _pull(self, consume: bool) -> Shards:
         pres = self.node.context.pressure
         memo = pres.memos[-1] if pres.memos else None
         if memo is not None:
@@ -104,6 +112,9 @@ class DIABase:
         self.label = label
         self.parents: List[ParentLink] = list(parents)
         self.id = ctx._register_node(self)
+        # the failure domain: a heal disposes the nodes of the failed
+        # generation only, and earlier pipelines' cached results stay
+        self._generation = getattr(ctx, "generation", 0)
         self.state = NEW
         self._shards: Optional[Shards] = None
         # every node's result may be used once; Keep(n) allows n more
@@ -232,7 +243,8 @@ class DIABase:
                 negotiated = ctx.negotiate_mem(self)
                 led, prev_mex = self._bind_ledger_node()
                 try:
-                    self._shards = pres.compute(self)
+                    with unsigned.node_scope():
+                        self._shards = pres.compute(self)
                 finally:
                     self._unbind_ledger_node(led, prev_mex)
                     if negotiated:

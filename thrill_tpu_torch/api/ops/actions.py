@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ...common import tree as pt
+from ...core import unsigned
 from ...data import multiplexer
 from ...data.shards import HostShards, itemize
 from ...parallel.mesh import current_mex
@@ -154,7 +155,8 @@ def _device_reduce(shards, mode: str, keep_device: bool = False):
             return gather(x.amin(dim=1)).amin(dim=0)
         return gather(x.amax(dim=1)).amax(dim=0)
 
-    out = pt.tree_map(fold, shards.tree)
+    with unsigned.scope_for(shards.tree):
+        out = pt.tree_map(fold, shards.tree)
     if keep_device:
         return out
     host = [shards.mesh_exec.fetch(t) for t in pt.leaves(out)]

@@ -26,9 +26,27 @@ from ..dia import DIA
 from ..dia_base import DIABase
 
 
+def _scan_bool(leaf: torch.Tensor, m: torch.Tensor, initial: Any,
+               inclusive: bool) -> torch.Tensor:
+    """The reference's scan of a bool leaf (ROADMAP.md fault C23):
+    ``jnp.where(m, x, 0)`` is int64, its ``cumsum(dtype=bool)`` a running
+    OR; each worker adds the count of earlier workers whose OR is true
+    and ``bool(initial)``, so the result is int64. The OR is an int64
+    cumsum read back as bools (torch has no bool cumsum)."""
+    xm = torch.where(m, leaf, False).to(torch.int64)
+    incl = torch.cumsum(xm, dim=1) > 0                          # [W, cap]
+    prev = worker_exscan(incl[:, -1].to(torch.int64), current_mex())
+    scan = incl.to(torch.int64)
+    if not inclusive:
+        scan = scan - xm
+    return scan + prev[:, None] + int(bool(np.asarray(initial)))
+
+
 def _scan(leaf: torch.Tensor, mask: torch.Tensor, initial: Any,
           inclusive: bool) -> torch.Tensor:
     m = mask.reshape(mask.shape + (1,) * (leaf.dim() - 2))
+    if leaf.dtype == torch.bool:
+        return _scan_bool(leaf, m, initial, inclusive)
     xm = torch.where(m, leaf, torch.zeros((), dtype=leaf.dtype,
                                           device=leaf.device))
     incl = torch.cumsum(xm, dim=1, dtype=leaf.dtype)            # [W, cap]

@@ -10,8 +10,11 @@ Its backend is gloo in both cases this slice runs:
   for ``all_to_all_single`` (even splits and the uneven ones of
   ``MeshExec.exchange_rows``), ``all_gather``, ``broadcast`` and
   ``all_reduce`` (every collective the mesh runs; checked on the H100)
-  and stages them through host memory itself. It moves no 16-bit
-  integers or bools: the mesh ships those as their bytes. NCCL would be the backend
+  and stages them through host memory itself. It refuses bools,
+  16-bit integers and uint32/uint64: the mesh's exchanges and gathers
+  ship those as their bytes, and its sums, maxima and minima widen them
+  to int64 (uint64 with its sign bit flipped for an order) and narrow
+  the result back (parallel/mesh.py ``_reducible``). NCCL would be the backend
   for processes on distinct cards, but it refuses two ranks on one
   device, and it waits for a machine with two cards (ROADMAP.md queue A
   item 6).
@@ -55,3 +58,19 @@ def init_process_group(coordinator_address: str, num_processes: int,
                             timeout=datetime.timedelta(
                                 seconds=scaled(300.0)))
     return backend
+
+
+def abandon_process_group() -> bool:
+    """Tear this process's side of the device data plane down after an
+    unrecoverable failure: a peer blocked in a gloo collective that this
+    process will never enter sees its connections close and fails at
+    once, instead of waiting out gloo's timeout. True when a group was
+    torn down."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return False
+    try:
+        dist.destroy_process_group()
+    except Exception:
+        return False
+    return True

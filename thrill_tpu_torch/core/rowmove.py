@@ -15,6 +15,8 @@ from typing import List, Sequence
 
 import torch
 
+from .unsigned import SIGNED_OF
+
 # one element per row for these row sizes (bytes); complex128 is only a
 # 16-byte container here, copied bit for bit, never computed on
 _WIDE = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64,
@@ -27,6 +29,10 @@ def _select(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     trail = tuple(x.shape[1:])
     wide = _WIDE.get(x.element_size() * x[:1].numel()) if trail else None
     if wide is None or not x.is_contiguous():
+        if x.dtype in SIGNED_OF:
+            # a uint16/32/64 column moves as its signed bits (C22)
+            return x.view(SIGNED_OF[x.dtype]).index_select(0, idx).view(
+                x.dtype)
         return x.index_select(0, idx)
     rows = x.view(torch.uint8).reshape(x.shape[0], -1).view(wide)
     return rows.reshape(-1).index_select(0, idx).view(torch.uint8).view(

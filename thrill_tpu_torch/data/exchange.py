@@ -282,6 +282,16 @@ def _seeded_caps(mex: MeshExec, ident: Tuple) -> Optional[Tuple[int, ...]]:
         return None
 
 
+#: MeshExec attributes owned by this module whose values are shaped by
+#: the worker count W (per-worker capacity vectors, W-specific plan
+#: kinds and narrow ranges, unconsumed store seeds learned at this W):
+#: ``MeshExec.resize`` parks them per W (reference:
+#: ``data/exchange.py:232``), so a W' pipeline never reads a W-long
+#: capacity vector
+W_STATE_ATTRS = ("_sticky_caps", "_sticky_ranges", "_xchg_plan",
+                 "_xchg_plan_uses", "_plan_seed")
+
+
 def round_cap(n: int) -> int:
     """``n`` rounded up to five significant bits, at most 1/16 more: the
     padded capacities of phase B on the card. The reference rounds them

@@ -27,11 +27,74 @@ import torch
 from ..common import tree as pt
 from ..common.partition import dense_range_bounds
 from ..core.rowmove import row_cumsum, scatter_slots, take_rows
+from ..core.unsigned import SIGNED_OF, signed
 from ..parallel.mesh import DeviceLike, MeshExec
 
 
 def round_up_pow2(n: int) -> int:
     return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def resplit_leaves(per_worker_leaves: List[List[np.ndarray]],
+                   new_w: int) -> List[List[np.ndarray]]:
+    """Per-worker host leaf lists re-split over ``new_w`` workers: their
+    concatenation in worker order cut at ``dense_range_bounds(total,
+    new_w)``, the layout a fresh ``new_w``-wide run makes (reference:
+    ``data/shards.py:34``; the RESIZE epochs of api/checkpoint.py)."""
+    if not per_worker_leaves:
+        return [[] for _ in range(new_w)]
+    nleaves = len(per_worker_leaves[0])
+    merged = [np.concatenate([pw[i] for pw in per_worker_leaves], axis=0)
+              for i in range(nleaves)]
+    n = merged[0].shape[0] if merged else 0
+    bounds = dense_range_bounds(n, new_w).tolist()
+    return [[leaf[bounds[w]:bounds[w + 1]] for leaf in merged]
+            for w in range(new_w)]
+
+
+def resplit_device(mesh_exec: MeshExec, tree: Any,
+                   counts) -> "DeviceShards":
+    """The items of ``[W, cap, ...]`` leaves ``tree`` with per-worker
+    ``counts`` re-split over ``mesh_exec``'s (new) worker count, on the
+    leaves' device: one gather by global index a leaf, no trip through
+    host bytes. Worker ``w'`` takes the items ``dense_range_bounds(n,
+    W')[w']`` up to the next bound, in the old worker order; the
+    capacity is the power of two of the largest count and rows past a
+    count are zeros, the layout :meth:`DeviceShards.from_worker_arrays`
+    of the same items makes (Context.resize)."""
+    counts = np.asarray(counts, dtype=np.int64)
+    W_old, W = len(counts), mesh_exec.num_workers
+    n = int(counts.sum())
+    bnd = dense_range_bounds(n, W)
+    new_counts = np.diff(bnd)
+    cap = round_up_pow2(int(new_counts.max()))
+    leaves, td = pt.flatten(tree)
+    dev = mesh_exec.device
+    out = []
+    if n == 0:
+        out = [torch.zeros((W, cap) + tuple(l.shape[2:]), dtype=l.dtype,
+                           device=dev) for l in leaves]
+        return DeviceShards(mesh_exec, pt.unflatten(td, out), new_counts)
+    old_cap = int(leaves[0].shape[1])
+    ends = torch.as_tensor(np.cumsum(counts), device=dev)
+    starts = ends - torch.as_tensor(counts, device=dev)
+    r = torch.arange(cap, device=dev)
+    valid = r[None, :] < torch.as_tensor(new_counts, device=dev)[:, None]
+    g = torch.where(valid, torch.as_tensor(bnd[:-1], device=dev)[:, None]
+                    + r[None, :], 0)
+    # the old worker holding global item g (empty workers skipped)
+    w = torch.searchsorted(ends, g, right=True).clamp_max(W_old - 1)
+    flat = (w * old_cap + (g - starts[w])).reshape(-1)
+    for leaf in leaves:
+        tail = tuple(leaf.shape[2:])
+        # a uint16/32/64 column moves as its signed bits (C22)
+        bits = signed(leaf)
+        got = bits.reshape((W_old * old_cap,) + tail).index_select(0, flat)
+        m = valid.reshape((W, cap) + (1,) * len(tail))
+        out.append(torch.where(m, got.reshape((W, cap) + tail),
+                               torch.zeros((), dtype=bits.dtype,
+                                           device=dev)).view(leaf.dtype))
+    return DeviceShards(mesh_exec, pt.unflatten(td, out), new_counts)
 
 
 def itemize(tree: Any) -> list:
@@ -254,6 +317,9 @@ class DeviceShards:
 
         def place(leaf):
             t = torch.as_tensor(leaf)
+            if t.dtype in SIGNED_OF:
+                # a uint16/32/64 column moves as its signed bits (C22)
+                return place(t.view(SIGNED_OF[t.dtype])).view(t.dtype)
             if n == 0:
                 return torch.zeros((Wl, cap) + tuple(t.shape[1:]),
                                    dtype=t.dtype, device=dev)
@@ -268,9 +334,9 @@ class DeviceShards:
                 (Wl, cap) + tuple(t.shape[1:]))
 
         # host uploads: legitimate constants of a loop capture
-        return DeviceShards(mesh_exec, pt.unflatten(
-            td, [mesh_exec.bless(place(l)) for l in leaves]),
-            counts[lo:lo + Wl])
+        placed = [mesh_exec.bless(place(l)) for l in leaves]
+        return DeviceShards(mesh_exec, pt.unflatten(td, placed),
+                            counts[lo:lo + Wl])
 
     def to_worker_arrays(self) -> List[Any]:
         """The local workers' pytrees of numpy arrays (every worker's in

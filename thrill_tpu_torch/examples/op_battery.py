@@ -78,6 +78,9 @@ class Port:
     def stack1(self, xs):
         return self.xp.stack(xs, dim=1)
 
+    def to_f64(self, x):
+        return x.to(self.xp.float64)
+
     def ones_like(self, x):
         return self.xp.ones_like(x)
 
@@ -303,6 +306,136 @@ def battery(ctx, L, tmp: str) -> dict:
     if L.name == "port":
         out["items_moved_local"] = int(mex.stats_items_moved)
         out["items_moved"] = ctx.overall_stats()["items_moved"]
+    return out
+
+
+#: the element types of :func:`dtype_battery`'s columns
+DTYPE_COLUMNS = ("int16", "uint16", "uint32", "uint64", "bool")
+
+
+def _host(a) -> np.ndarray:
+    """An egress array on the host as numpy (a tensor on the card is
+    copied off it)."""
+    return np.asarray(a.cpu() if hasattr(a, "cpu") else a)
+
+
+def _vals(a) -> list:
+    """A column of results as Python ints (bools as 0 and 1); a list is
+    read item by item (numpy would turn uint64 values past 2^63 mixed
+    with smaller ones into floats)."""
+    if isinstance(a, (list, tuple)):
+        return [int(v) for v in a]
+    return [int(v) for v in _host(a).reshape(-1).tolist()]
+
+
+def dtype_column(name: str, n: int = 1000) -> np.ndarray:
+    """``n`` values of element type ``name`` from a fixed seed, spread
+    over the whole range (unsigned values above the signed maximum
+    among them)."""
+    rng = np.random.default_rng(7)
+    dt = np.dtype(name)
+    if dt == np.bool_:
+        return rng.random(n) < 0.5
+    info = np.iinfo(dt)
+    return rng.integers(info.min, info.max, size=n, dtype=dt,
+                        endpoint=True)
+
+
+def dtype_battery(ctx, L, dtypes=DTYPE_COLUMNS, n: int = 1000) -> dict:
+    """The ops over one column of each element type in ``dtypes``:
+    AllGatherArrays, Gather, Sort, Min, Max, Sum, Size, PrefixSum and
+    ExPrefixSum, Window and DisjointWindow, Zip, Merge, Sample,
+    BernoulliSample, Rebalance, ReduceToIndex, ReduceByKey on the column
+    and keyed by it, GroupByKey keyed by it, and for the integer types
+    ReduceByKey and ReduceToIndex with a min and a max fold of the
+    column, a Map of ``x + 1``, ``x // 3`` and the conversion to float64
+    and a Filter of ``x > c``. Min and Max of bools are left out (both
+    packages refuse them). Returns JSON-able results by
+    ``"<dtype>/<op>"``, with the element type each egress returned."""
+    api = L.api
+    out = {}
+    for name in dtypes:
+        col = dtype_column(name, n)
+        is_bool = col.dtype == np.bool_
+        keys = np.random.default_rng(8).integers(0, 13, n).astype(np.int64)
+        ones = np.ones(n, dtype=np.int64)
+
+        def d(c=col):
+            return ctx.Distribute(c)
+
+        def put(op, value):
+            out[f"{name}/{op}"] = value
+
+        arr = d().AllGatherArrays()
+        put("all_gather_arrays", [str(_host(arr).dtype), _vals(arr)])
+        put("gather", _vals(d().Gather(0)))
+        put("sort", _vals(d().Sort().AllGather()))
+        if not is_bool and name != "uint64":
+            put("min", int(d().Min()))
+        if not is_bool:
+            put("max", int(d().Max()))
+        put("sum", int(d().Sum()))
+        put("size", int(d().Size()))
+        put("prefix_sum", _vals(d().PrefixSum().AllGather()))
+        put("ex_prefix_sum", _vals(d().ExPrefixSum(initial=1)
+                                   .AllGather()))
+        put("window", _vals(d().Window(
+            3, lambda i, w: w[-1], device_fn=lambda w: w[:, -1])
+            .AllGather()))
+        put("disjoint_window", _vals(d().DisjointWindow(
+            4, lambda i, w: w[0], device_fn=lambda w: w[:, 0])
+            .AllGather()))
+        put("zip", _vals(api.Zip(d(), d(col[::-1].copy()),
+                                 zip_fn=lambda a, b: a ^ b).AllGather()))
+        half = n // 2
+        put("merge", _vals(api.Merge(
+            ctx.Distribute(np.sort(col[:half])),
+            ctx.Distribute(np.sort(col[half:]))).AllGather()))
+        put("sample", _vals(d().Sample(50, seed=3).AllGather()))
+        put("bernoulli", _vals(d().BernoulliSample(0.2, seed=5)
+                               .AllGather()))
+        reb = api.Concat(d(col[:300].copy()), d(col[300:].copy()))
+        put("rebalance", _vals(reb.Rebalance().AllGather()))
+        rti = ctx.Distribute({"i": keys, "v": col}).ReduceToIndex(
+            lambda t: t["i"], api.FieldReduce({"i": "first", "v": "sum"}),
+            13, neutral={"i": 0, "v": col[:1][0] * 0}).AllGather()
+        put("reduce_to_index", [[int(t["i"]), int(t["v"])] for t in rti])
+        rv = ctx.Distribute({"k": keys, "v": col}).ReduceByKey(
+            lambda t: t["k"], api.FieldReduce({"k": "first", "v": "sum"}))
+        put("reduce_by_key_value", sorted(
+            (int(t["k"]), int(t["v"])) for t in rv.AllGather()))
+        rk = ctx.Distribute({"k": col, "v": ones}).ReduceByKey(
+            lambda t: t["k"], api.FieldReduce({"k": "first", "v": "sum"}))
+        put("reduce_by_key_keyed", sorted(
+            (int(t["k"]), int(t["v"])) for t in rk.AllGather()))
+        if not is_bool:
+            # the min and max folds read the unsigned value
+            for fold in ("min", "max"):
+                red = api.FieldReduce({"k": "first", "v": fold})
+                rv = ctx.Distribute({"k": keys, "v": col}).ReduceByKey(
+                    lambda t: t["k"], red)
+                put(f"reduce_by_key_{fold}", sorted(
+                    (int(t["k"]), int(t["v"])) for t in rv.AllGather()))
+                ri = ctx.Distribute({"k": keys, "v": col}).ReduceToIndex(
+                    lambda t: t["k"], red, 13,
+                    neutral={"k": 0, "v": col[:1][0] * 0}).AllGather()
+                put(f"reduce_to_index_{fold}",
+                    [[int(t["k"]), int(t["v"])] for t in ri])
+        gk = ctx.Distribute({"k": col, "v": ones}).GroupByKey(
+            lambda t: t["k"], lambda k, items: (int(k), len(items)))
+        put("group_by_key", sorted(map(list, gk.AllGather())))
+        if not is_bool:
+            c = int(col[n // 3])
+            put("map_add", _vals(d().Map(lambda x: x + 1).AllGather()))
+            put("map_floordiv", _vals(d().Map(lambda x: x // 3)
+                                      .AllGather()))
+            put("filter_gt", _vals(d().Filter(lambda x, c=c: x > c)
+                                   .AllGather()))
+            f64 = d().Map(L.to_f64).AllGatherArrays()
+            put("map_f64", [str(_host(f64).dtype),
+                            [float(v) for v in _host(f64).tolist()]])
+            m = d().Map(lambda x: x + 1).AllGatherArrays()
+            put("map_dtype", str(_host(m).dtype))
     return out
 
 

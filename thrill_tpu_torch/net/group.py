@@ -15,11 +15,11 @@ is ``torch.distributed`` inside the device programs
 around them (scalar agreement, the host-storage multiplexer's frames,
 barriers, the abort protocol).
 
-Failure domains and elastic membership (``begin_generation``,
-``resize``, ``prepare_relaunch``) are a later part of ROADMAP.md item 6
-and raise NotImplementedError here; a poison frame or generation marker
-from a peer is still recognised, so an abort is attributed to its
-origin.
+Failure domains and elastic membership: ``begin_generation`` settles a
+new generation after a pipeline abort (drains every channel up to the
+peers' barrier markers, repairs dropped links), ``resize`` grows or
+shrinks the membership at a generation boundary, ``prepare_relaunch``
+is the relaunch gate of a process-level resize.
 """
 
 from __future__ import annotations
@@ -70,11 +70,42 @@ _F_STALE = faults.declare("net.group.stale_frame")
 #: collective entry like any site (nothing sent yet — a clean abort).
 _F_DELAY = faults.declare("net.group.delay")
 
-#: the message of the parts of the reference's group that a later part of
-#: ROADMAP.md item 6 ports
-_LATER = ("generations, heals and resize of a host group are not ported "
-          "yet: ROADMAP.md queue A item 6, its generations-and-resize "
-          "part")
+#: elastic-mesh resize handshake (Group.resize / tcp.join_tcp_group):
+#: fired before any membership mutation, so an injected failure leaves
+#: the old membership intact — the generation settles among the
+#: survivors and the NEXT resize attempt starts from a clean group
+F_RESIZE = faults.declare("net.group.resize_handshake",
+                          exc=faults.InjectedConnectionError)
+
+#: orchestrated process-level relaunch (Context.resize_processes):
+#: fired at the relaunch GATE — after the RESIZE epoch sealed, before
+#: the resize marker commits and before any membership drains — so an
+#: injected failure aborts the whole move with the old-W group fully
+#: intact (the sealed W' epoch is inert: an old-W resume rejects it by
+#: the workers gate) and a clean retry re-runs the identical move
+F_RELAUNCH = faults.declare("net.group.relaunch",
+                            exc=faults.InjectedConnectionError)
+
+
+def resize_enabled() -> bool:
+    """Elastic membership changes are on by default;
+    ``THRILL_TPU_RESIZE=0`` pins W for the process lifetime (a caller
+    asking anyway gets a loud RuntimeError, never a silent no-op)."""
+    return os.environ.get("THRILL_TPU_RESIZE", "1") != "0"
+
+
+def resize_timeout_s() -> float:
+    """Budget for one membership change (join handshakes + the
+    generation barrier on the new membership):
+    ``THRILL_TPU_RESIZE_TIMEOUT_S``, default = the heal budget. Like
+    the heal it MUST be bounded — waiting forever on a joiner that
+    died mid-handshake is a hang, not patience."""
+    v = os.environ.get("THRILL_TPU_RESIZE_TIMEOUT_S", "")
+    try:
+        t = float(v)
+    except ValueError:
+        return heal_timeout_s()
+    return t if t > 0 else heal_timeout_s()
 
 
 
@@ -547,25 +578,329 @@ class Group(abc.ABC):
         defeat the heal. Base transports have no repair path."""
         return False
 
-
-    # ------------------------------------------------------------------
-    # failure domains and elastic membership: a later part of item 6
-    # ------------------------------------------------------------------
-
     def begin_generation(self, gen: int) -> int:
-        """Enter failure domain ``gen`` after a pipeline abort (the
-        reference's generation barrier). Not ported yet."""
-        raise NotImplementedError(_LATER)
+        """Enter failure domain ``gen`` after a pipeline abort: clear
+        the pipeline-scoped abort latch, repair dropped links (tcp),
+        send every peer a generation-barrier marker and DRAIN each
+        inbound channel up to the peer's marker — everything queued
+        before it (bulk frames of the aborted exchange, late poison,
+        stray collective payloads) belongs to the dead generation and
+        is discarded. On return the group is exactly as quiet as a
+        freshly bootstrapped one.
+
+        Raises the latched abort when it is unrecoverable (heartbeat
+        dead-peer verdict), :class:`CollectiveHangTimeout` when a peer
+        never delivers its marker within THRILL_TPU_HEAL_TIMEOUT_S,
+        and :class:`ClusterAbort` when a CURRENT-generation poison
+        arrives mid-drain (a new failure during the heal itself).
+        Returns the number of stale frames dropped."""
+        tr = self.tracer
+        if tr is None or not tr.enabled:
+            return self._begin_generation(gen)
+        with tr.span("net", "heal", gen=int(gen)) as sp:
+            dropped = self._begin_generation(gen)
+            sp.attrs["settled_gen"] = self.generation
+            sp.attrs["stale_dropped"] = dropped
+            sp.attrs["reconnects"] = self.stats_reconnects
+            return dropped
+
+    def _begin_generation(self, gen: int) -> int:
+        gen = int(gen)
+        if self._gen_markers:
+            # ADOPT a newer generation announced by peers whose heal
+            # this rank missed: the barrier only completes when every
+            # rank targets the same id
+            gen = max(gen, max(self._gen_markers.values()))
+        ab = self._pending_abort
+        if ab is not None:
+            if (getattr(ab, "recoverable", True)
+                    and getattr(ab, "generation", -1) < gen):
+                # pipeline-scoped verdict of the aborted generation:
+                # the new domain starts clean
+                self._pending_abort = None
+            else:
+                raise ab
+        self._poison_relayed.clear()
+        self.generation = gen
+        dropped = 0
+        if self.num_hosts > 1:
+            deadline_at = time.monotonic() + heal_timeout_s()
+            self._heal_transport(deadline_at)
+            frame = {GENERATION_KEY: {"gen": self.generation,
+                                      "rank": self.my_rank}}
+            for peer in range(self.num_hosts):
+                if peer == self.my_rank:
+                    continue
+                while True:
+                    try:
+                        dropped += self._gen_barrier_peer(
+                            peer, frame, deadline_at)
+                        break
+                    except (ClusterAbort, CollectiveHangTimeout):
+                        raise
+                    except (ConnectionError, OSError) as e:
+                        if (isinstance(e, TimeoutError)
+                                and not isinstance(e, ConnectionError)):
+                            # bounded-send expiry with nothing written:
+                            # the stream is INTACT (the peer is just
+                            # slow to drain) — retry the barrier within
+                            # the heal deadline instead of dropping a
+                            # healthy authenticated link (duplicate
+                            # markers are filtered on receipt)
+                            if time.monotonic() >= deadline_at:
+                                raise
+                            continue
+                        # the link itself died (or was already dead on
+                        # this side): give the transport one repair
+                        # attempt per error, bounded by the heal
+                        # deadline
+                        if (time.monotonic() >= deadline_at
+                                or not self._repair_connection(
+                                    peer, deadline_at, e)):
+                            raise
+        # markers at or below the settled generation are used up; only
+        # evidence of an even NEWER domain (a concurrent further heal)
+        # survives for the next barrier
+        self._gen_markers = {p: g for p, g in self._gen_markers.items()
+                             if g > self.generation}
+        self.stats_stale_dropped += dropped
+        if dropped:
+            faults.note("recovery", what="net.generation_drain",
+                        gen=self.generation, dropped=dropped)
+        return dropped
+
+    def _gen_barrier_peer(self, peer: int, frame: dict,
+                          deadline_at: float) -> int:
+        """Send ``peer`` the generation marker, then drain its channel
+        up to the peer's own marker. Returns stale frames dropped."""
+        conn = self.connection(peer)
+        conn.send_bounded(frame,
+                          min(max(deadline_at - time.monotonic(), 0.1),
+                              5.0))
+        if self._gen_markers.get(peer, 0) >= self.generation:
+            # the peer's marker was already consumed by a payload recv
+            # (the missed-abort path): the barrier is satisfied
+            return 0
+        dropped = 0
+        while True:
+            remaining = deadline_at - time.monotonic()
+            if remaining <= 0:
+                raise CollectiveHangTimeout(
+                    f"generation barrier: no gen-{self.generation} "
+                    f"marker from rank {peer} within "
+                    f"{heal_timeout_s()}s (THRILL_TPU_HEAL_TIMEOUT_S)")
+            obj = conn.recv_deadline(remaining)
+            if isinstance(obj, dict) and HEARTBEAT_KEY in obj:
+                self._hb_last[peer] = time.monotonic()
+                continue
+            if isinstance(obj, dict) and GENERATION_KEY in obj:
+                g = int(obj[GENERATION_KEY].get("gen", 0))
+                if g >= self.generation:
+                    return dropped          # barrier reached
+                dropped += 1                # stale marker of an older heal
+                continue
+            if isinstance(obj, dict) and POISON_KEY in obj:
+                info = obj[POISON_KEY]
+                g = int(info.get("gen", self.generation))
+                if g >= self.generation:
+                    # a NEW failure arrived during the heal itself
+                    raise ClusterAbort(
+                        int(info.get("origin", peer)),
+                        str(info.get("cause", "unknown")),
+                        generation=g,
+                        recoverable=not bool(info.get("unrecoverable",
+                                                      False)))
+                dropped += 1
+                continue
+            dropped += 1                    # pre-abort payload frame
+
+    # ------------------------------------------------------------------
+    # elastic membership (resize at a generation boundary)
+    # ------------------------------------------------------------------
+
+    def _grow_transport(self, new_num_hosts: int, gen: int,
+                        deadline_at: float) -> None:
+        """Admit ranks ``[num_hosts, new_num_hosts)``: establish an
+        authenticated connection to each joiner (transport-specific;
+        tcp accepts the joiner's dial on this rank's own hostlist
+        port, mock extends the queue matrix). Must NOT mutate
+        ``_num_hosts`` — the caller commits membership only after
+        every joiner connected."""
+        raise NotImplementedError(
+            f"{type(self).__name__} cannot admit new ranks")
+
+    def _shrink_transport(self, new_num_hosts: int) -> None:
+        """Drop connections to ranks ``>= new_num_hosts`` (they have
+        drained and left, or were already dead). Default: nothing —
+        queue-backed transports just stop addressing them."""
 
     def resize(self, new_num_hosts: int, gen: int) -> None:
-        """Change the membership to ``new_num_hosts`` ranks. Not ported
-        yet."""
-        raise NotImplementedError(_LATER)
+        """Collective membership change: every CURRENT rank (including
+        the ranks about to leave) calls this in lockstep with the same
+        ``(new_num_hosts, gen)``. A JOINING rank does not call it — it
+        enters through the transport's join constructor
+        (``tcp.join_tcp_group`` / ``MockNetwork.grow``) and then runs
+        ``begin_generation(gen)`` like everyone else.
+
+        Grow: admit the joiners, commit the new membership, then
+        barrier on it — the joiners' first collective is the
+        generation barrier itself. A failed admission (joiner died
+        mid-handshake, injected ``net.group.resize_handshake``) rolls
+        the membership back and settles ``gen`` among the old ranks,
+        so the group is healed and the next resize attempt starts
+        clean.
+
+        Shrink: barrier on the OLD membership first — the departing
+        rank's in-flight frames drain behind the existing generation
+        barrier — then the survivors drop the departed links. A
+        departing peer that is ALREADY DEAD is skipped with a note:
+        scale-down of a dead peer is the graceful form of the
+        dead-peer verdict (it was leaving anyway). A departing rank
+        returns with its frames drained; the caller closes the group.
+        """
+        new_w = int(new_num_hosts)
+        old_w = self.num_hosts
+        gen = int(gen)
+        if not resize_enabled():
+            raise RuntimeError(
+                "elastic resize is disabled (THRILL_TPU_RESIZE=0); "
+                "the worker count is pinned for the process lifetime")
+        if new_w < 1:
+            raise ValueError(f"cannot resize to {new_w} hosts")
+        faults.check(F_RESIZE, old=old_w, new=new_w, gen=gen,
+                     rank=self.my_rank)
+        if new_w == old_w:
+            self.begin_generation(gen)
+            return
+        if new_w > old_w:
+            deadline_at = time.monotonic() + resize_timeout_s()
+            try:
+                self._grow_transport(new_w, gen, deadline_at)
+                self._num_hosts = new_w
+                self.begin_generation(gen)
+            except (ConnectionError, OSError, TimeoutError):
+                # roll back: drop whatever joiner links landed, settle
+                # the generation among the OLD membership so a retry
+                # (or plain continued traffic) starts from a healed
+                # group instead of a half-admitted one
+                self._num_hosts = old_w
+                self._shrink_transport(old_w)
+                faults.note("recovery", what="net.resize_rollback",
+                            old=old_w, new=new_w, gen=gen)
+                self.begin_generation(gen)
+                raise
+            faults.note("recovery", what="net.resize", old=old_w,
+                        new=new_w, gen=gen, _quiet=True)
+            return
+        # -- shrink --------------------------------------------------
+        departing = frozenset(range(new_w, old_w))
+        self._resize_barrier(gen, lenient=departing)
+        if self.my_rank in departing:
+            return                  # drained; caller closes the group
+        self._num_hosts = new_w
+        self._shrink_transport(new_w)
+        self._hb_last = {p: t for p, t in self._hb_last.items()
+                         if p < new_w}
+        faults.note("recovery", what="net.resize", old=old_w,
+                    new=new_w, gen=gen, _quiet=True)
 
     def prepare_relaunch(self, new_num_hosts: int, gen: int) -> None:
-        """The relaunch gate of a process-level resize. Not ported
-        yet."""
-        raise NotImplementedError(_LATER)
+        """The net-layer step of an orchestrated process-level resize
+        (``Context.resize_processes``): agree the group is ready to be
+        torn down and relaunched at ``new_num_hosts``.
+
+        Collective over the CURRENT membership, and deliberately
+        mutation-free: every process — survivor, departing, and (for
+        a grow) the current ranks the joiners will meet again — exits
+        for the supervised relaunch right after the move commits, so
+        the only job here is agreement that every current rank
+        reached the relaunch point. Shrink settles the generation
+        through the lenient departing-peer barrier (an
+        already-dead departing rank must not wedge the survivors'
+        move); grow is a plain generation barrier (the joiners do not
+        exist until the supervisor spawns them — admission happens in
+        the relaunched processes' authenticated bootstrap). Because
+        nothing mutates, the marker commit that follows still runs
+        its cross-rank barrier over the intact old membership, and an
+        injected failure at ANY point before the marker leaves the
+        old-W group exactly as it was. The ``net.group.relaunch``
+        fault site fires FIRST — the nothing-mutated proof for this
+        step."""
+        new_w = int(new_num_hosts)
+        old_w = self.num_hosts
+        gen = int(gen)
+        if not resize_enabled():
+            raise RuntimeError(
+                "elastic resize is disabled (THRILL_TPU_RESIZE=0); "
+                "the worker count is pinned for the process lifetime")
+        faults.check(F_RELAUNCH, old=old_w, new=new_w,
+                     gen=gen, rank=self.my_rank)
+        if new_w < old_w:
+            departing = frozenset(range(new_w, old_w))
+            self._resize_barrier(gen, lenient=departing)
+        else:
+            self.begin_generation(gen)
+        faults.note("recovery", what="net.relaunch_ready",
+                    old=old_w, new=new_w, gen=gen, _quiet=True)
+
+    def _resize_barrier(self, gen: int, lenient: frozenset) -> int:
+        """Generation barrier over the CURRENT membership in which a
+        barrier failure against a ``lenient`` peer (the departing set)
+        is skipped instead of escalated — an unreachable peer that is
+        leaving anyway must not wedge the survivors. Mirrors
+        :meth:`_begin_generation` otherwise (marker exchange, stale
+        drain, pending-abort latch, repair-retry for survivors)."""
+        gen = int(gen)
+        if self._gen_markers:
+            gen = max(gen, max(self._gen_markers.values()))
+        ab = self._pending_abort
+        if ab is not None:
+            if (getattr(ab, "recoverable", True)
+                    and getattr(ab, "generation", -1) < gen):
+                self._pending_abort = None
+            else:
+                raise ab
+        self._poison_relayed.clear()
+        self.generation = gen
+        dropped = 0
+        if self.num_hosts > 1:
+            deadline_at = time.monotonic() + resize_timeout_s()
+            frame = {GENERATION_KEY: {"gen": self.generation,
+                                      "rank": self.my_rank}}
+            for peer in range(self.num_hosts):
+                if peer == self.my_rank:
+                    continue
+                while True:
+                    try:
+                        dropped += self._gen_barrier_peer(
+                            peer, frame, deadline_at)
+                        break
+                    except ClusterAbort:
+                        raise
+                    except (CollectiveHangTimeout, ConnectionError,
+                            OSError) as e:
+                        if peer in lenient:
+                            # already-dead departing peer: the
+                            # graceful form of the dead-peer verdict
+                            faults.note("recovery",
+                                        what="net.resize_skip_dead",
+                                        peer=peer, gen=gen,
+                                        error=repr(e)[:200])
+                            break
+                        if isinstance(e, CollectiveHangTimeout):
+                            raise
+                        if (time.monotonic() >= deadline_at
+                                or not self._repair_connection(
+                                    peer, deadline_at, e)):
+                            raise
+        self._gen_markers = {p: g for p, g in self._gen_markers.items()
+                             if g > self.generation}
+        self.stats_stale_dropped += dropped
+        if dropped:
+            faults.note("recovery", what="net.generation_drain",
+                        gen=self.generation, dropped=dropped)
+        return dropped
+
 
     # ------------------------------------------------------------------
     # collectives (reference: net/collective.hpp)

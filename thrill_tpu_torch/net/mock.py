@@ -1,6 +1,5 @@
 """In-process mock network backend (counterpart of the reference
-package's ``net/mock.py``; growing a network waits with elastic
-membership, a later part of ROADMAP.md item 6).
+package's ``net/mock.py``).
 
 Equivalent of the reference's net/mock backend
 (reference: thrill/net/mock/group.hpp:41,116,171): connections enqueue
@@ -62,7 +61,9 @@ class MockGroup(Group):
     def __init__(self, my_rank: int, num_hosts: int,
                  queues: List[List["queue.Queue[Any]"]]) -> None:
         super().__init__(my_rank, num_hosts)
-        # queues[src][dst] carries messages src -> dst
+        # queues[src][dst] carries messages src -> dst; the matrix is
+        # kept so an elastic grow can wire connections to ranks added
+        # by MockNetwork.grow after this group was built
         self._queues = queues
         self._conns = [
             _MockConnection(queues[my_rank][peer], queues[peer][my_rank])
@@ -73,6 +74,23 @@ class MockGroup(Group):
         if peer == self.my_rank:
             raise ValueError("no connection to self")
         return self._conns[peer]
+
+    def _grow_transport(self, new_num_hosts: int, gen: int,
+                        deadline_at: float) -> None:
+        """Wire connections to ranks the shared MockNetwork already
+        grew (MockNetwork.grow extends the queue matrix in place, so
+        every live group sees the new rows)."""
+        if len(self._queues) < new_num_hosts:
+            raise ConnectionError(
+                f"mock network has {len(self._queues)} ranks; grow the "
+                f"MockNetwork to {new_num_hosts} before resizing")
+        for peer in range(len(self._conns), new_num_hosts):
+            self._conns.append(_MockConnection(
+                self._queues[self.my_rank][peer],
+                self._queues[peer][self.my_rank]))
+
+    def _shrink_transport(self, new_num_hosts: int) -> None:
+        del self._conns[new_num_hosts:]
 
     def drop_link(self, peer: int) -> None:
         """Simulate a dropped link to ``peer`` (tests): traffic raises
@@ -140,6 +158,47 @@ class MockNetwork:
 
     def group(self, rank: int) -> MockGroup:
         return MockGroup(rank, self.num_hosts, self._queues)
+
+    def grow(self, new_num_hosts: int,
+             from_hosts: Optional[int] = None) -> List[MockGroup]:
+        """Extend the queue matrix in place to ``new_num_hosts`` ranks
+        and return groups for the NEW ranks (the mock analog of
+        ``tcp.join_tcp_group``). Live groups built from this network
+        pick the new rows up through ``Group.resize``; each returned
+        joiner group still owes a ``begin_generation`` to enter the
+        membership.
+
+        ``from_hosts`` is the LIVE membership width the grow starts
+        from; it defaults to the matrix high-water mark (a first
+        grow). A RE-grow after a shrink must pass the live width:
+        dormant rank slots inside the matrix are re-activated with
+        FRESH queues — the mock analog of a joiner's fresh sockets, so
+        nothing a departed tenant of the slot left behind can leak
+        into the new rank's inbox."""
+        old_matrix = len(self._queues)
+        live = old_matrix if from_hosts is None else int(from_hosts)
+        if not (0 < live <= old_matrix):
+            raise ValueError(
+                f"from_hosts={live} outside the {old_matrix}-rank "
+                f"matrix")
+        if new_num_hosts < live:
+            raise ValueError(
+                f"grow to {new_num_hosts} < live {live}; shrink "
+                f"happens through Group.resize, not the network")
+        width = max(old_matrix, new_num_hosts)
+        for row in self._queues:
+            row.extend(queue.Queue()
+                       for _ in range(len(row), width))
+        self._queues.extend(
+            [queue.Queue() for _ in range(width)]
+            for _ in range(old_matrix, width))
+        self.num_hosts = width
+        for r in range(live, min(new_num_hosts, old_matrix)):
+            for p in range(width):
+                self._queues[r][p] = queue.Queue()
+                self._queues[p][r] = queue.Queue()
+        return [MockGroup(r, new_num_hosts, self._queues)
+                for r in range(live, new_num_hosts)]
 
     @staticmethod
     def construct(num_hosts: int) -> List[MockGroup]:

@@ -27,8 +27,8 @@ send stalls, so bulk frames to many peers progress together and two
 peers that both send first cannot wait on each other's kernel buffers.
 Sends through the engine borrow the caller's buffers until ``flush()``.
 ``THRILL_TPU_HEARTBEAT_S`` starts the liveness monitor
-(net/heartbeat.py) with the group. The join of a rank into a live group
-(``join_tcp_group``) is a later part of ROADMAP.md item 6.
+(net/heartbeat.py) with the group. ``join_tcp_group`` admits a rank
+into a live group mid-resize (``Group.resize`` on the members' side).
 
 Env (reference: THRILL_RANK/THRILL_HOSTLIST, api/context.cpp:204-272):
 THRILL_TPU_RANK, THRILL_TPU_HOSTLIST="host0:port0 host1:port1 ...",
@@ -47,8 +47,8 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..common import faults
 from ..common.retry import default_policy
 from . import wire
-from .group import (HEARTBEAT_KEY, CollectiveHangTimeout, Connection, Group,
-                    hang_timeout_s)
+from .group import (F_RESIZE, HEARTBEAT_KEY, CollectiveHangTimeout,
+                    Connection, Group, hang_timeout_s, resize_timeout_s)
 
 
 # Injection sites fire BEFORE any bytes hit the wire, so the internal
@@ -861,6 +861,53 @@ class TcpGroup(Group):
             srv.close()
 
     # ------------------------------------------------------------------
+    # elastic membership (Group.resize transport hooks)
+    # ------------------------------------------------------------------
+
+    def _grow_transport(self, new_num_hosts: int, gen: int,
+                        deadline_at: float) -> None:
+        """Admit joining ranks ``[num_hosts, new_num_hosts)``: each
+        joiner dials this rank's own hostlist port (the same
+        lower-listens role as bootstrap and reconnect) and runs the
+        authenticated ``resize_join`` handshake — rank, target
+        generation, new W — before its link is trusted. The joiner's
+        announced endpoint is appended to the hostlist so later link
+        repairs can re-dial it."""
+        if self._hosts is None:
+            raise ConnectionError(
+                f"rank {self.my_rank}: no hostlist endpoints (this "
+                f"group was not built by construct_tcp_group); cannot "
+                f"admit ranks")
+        expect = set(range(self.num_hosts, new_num_hosts))
+        got = _accept_resize_joins(
+            self._hosts[self.my_rank], self.my_rank, expect, gen,
+            new_num_hosts, self._secret, deadline_at)
+        lazy = any(c._disp_supplier is not None
+                   for c in self._conns.values())
+        for j in sorted(got):
+            conn, endpoint = got[j]
+            if lazy:
+                conn.set_dispatcher_supplier(self._shared_dispatcher)
+            self._conns[j] = conn
+            while len(self._hosts) <= j:
+                self._hosts.append(("127.0.0.1", 0))
+            if endpoint is not None:
+                self._hosts[j] = endpoint
+
+    def _shrink_transport(self, new_num_hosts: int) -> None:
+        """Close and forget links to ranks ``>= new_num_hosts`` (they
+        drained and left, or were dead already)."""
+        for peer in sorted(p for p in self._conns
+                           if p >= new_num_hosts):
+            try:
+                self._conns[peer].close()
+            except OSError:
+                pass
+            del self._conns[peer]
+        if self._hosts is not None:
+            del self._hosts[new_num_hosts:]
+
+    # ------------------------------------------------------------------
     # the async engine
     # ------------------------------------------------------------------
     def _shared_dispatcher(self):
@@ -942,15 +989,205 @@ def _exchange_auth_flag(conn: TcpConnection, have_secret: bool) -> None:
 
 
 
+def _resize_frame(rank: int, gen: int, new_w: int,
+                  endpoint: Optional[Tuple[str, int]] = None) -> dict:
+    """The ``resize_join`` handshake frame: like the reconnect
+    handshake (rank, generation, fresh frame seq) plus the NEW group
+    width, so both sides prove they are executing the SAME membership
+    change, not a reconnect or a different resize."""
+    f = {"resize_join": int(rank), "gen": int(gen),
+         "num_hosts": int(new_w), "seq": 0}
+    if endpoint is not None:
+        f["host"], f["port"] = str(endpoint[0]), int(endpoint[1])
+    return f
+
+
+def _validate_resize_frame(obj: Any, gen: int, new_w: int,
+                           want_ranks) -> int:
+    if not (isinstance(obj, dict) and "resize_join" in obj):
+        raise ConnectionError(f"bad resize handshake {obj!r}")
+    j = int(obj["resize_join"])
+    if j not in want_ranks:
+        raise ConnectionError(
+            f"resize handshake from unexpected rank {j} "
+            f"(awaiting {sorted(want_ranks)})")
+    if int(obj.get("seq", 0)) != 0:
+        raise ConnectionError(
+            f"resize handshake with nonzero frame seq "
+            f"{obj.get('seq')!r} — only fresh sessions join a group")
+    if int(obj.get("gen", -1)) != int(gen):
+        raise ConnectionError(
+            f"resize handshake generation mismatch: peer targets gen "
+            f"{obj.get('gen')!r}, this rank gen {gen}")
+    if int(obj.get("num_hosts", -1)) != int(new_w):
+        raise ConnectionError(
+            f"resize handshake width mismatch: peer targets W="
+            f"{obj.get('num_hosts')!r}, this rank W={new_w}")
+    return j
+
+
+def _accept_resize_joins(endpoint: Tuple[str, int], my_rank: int,
+                         expect, gen: int, new_w: int,
+                         secret: Optional[bytes],
+                         deadline_at: float) -> dict:
+    """Accept ``resize_join`` dials from every rank in ``expect`` on
+    ``endpoint`` (this rank's own hostlist port — the reconnect
+    role). Returns ``{rank: (conn, joiner_endpoint_or_None)}``.
+    Rogue/mismatched connections are rejected and the listener keeps
+    going, exactly like the reconnect acceptor."""
+    expect = set(expect)
+    got: dict = {}
+    if not expect:
+        return got
+    host, port = endpoint
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        srv.bind((host if host != "localhost" else "127.0.0.1", port))
+        srv.listen(4)
+        srv.settimeout(0.5)
+        while expect - set(got):
+            if time.monotonic() >= deadline_at:
+                raise ConnectionError(
+                    f"rank {my_rank}: resize accept timed out awaiting "
+                    f"ranks {sorted(expect - set(got))} "
+                    f"(THRILL_TPU_RESIZE_TIMEOUT_S)")
+            try:
+                s, addr = srv.accept()
+            except socket.timeout:
+                continue
+            s.settimeout(min(10.0, max(
+                deadline_at - time.monotonic(), 1.0)))
+            conn = TcpConnection(s)
+            try:
+                _exchange_auth_flag(conn, secret is not None)
+                if secret is not None:
+                    conn.authenticate(secret, role="server")
+                obj = conn.recv()
+                j = _validate_resize_frame(obj, gen, new_w,
+                                           expect - set(got))
+                conn.send(_resize_frame(my_rank, gen, new_w))
+            except wire.AuthError:
+                conn.close()
+                raise               # definitive: never degrade auth
+            except Exception as e:
+                conn.close()
+                import sys
+                print(f"thrill_tpu_torch.net.tcp: rank {my_rank} rejected "
+                      f"resize join from {addr}: {e}", file=sys.stderr)
+                continue
+            s.settimeout(None)
+            ep = None
+            if obj.get("host") is not None and obj.get("port"):
+                ep = (str(obj["host"]), int(obj["port"]))
+            got[j] = (conn, ep)
+        return got
+    finally:
+        srv.close()
+
+
+def _dial_resize_join(endpoint: Tuple[str, int], my_rank: int,
+                      peer: int, gen: int, new_w: int,
+                      my_endpoint: Tuple[str, int],
+                      secret: Optional[bytes],
+                      deadline_at: float) -> TcpConnection:
+    """One joiner->member dial with the authenticated ``resize_join``
+    handshake, retried under the shared full-jitter backoff until the
+    resize deadline (the member may still be draining its current
+    generation when the joiner starts dialing)."""
+    import random
+    policy = default_policy(max_attempts=1 << 30,
+                            base_delay_s=0.05, max_delay_s=1.0)
+    rng = random.Random(f"resize:{my_rank}:{peer}")
+    rounds = 0
+    while True:
+        try:
+            s = socket.create_connection(endpoint, timeout=2.0)
+            s.settimeout(min(10.0, max(
+                deadline_at - time.monotonic(), 1.0)))
+            conn = TcpConnection(s)
+            try:
+                _exchange_auth_flag(conn, secret is not None)
+                if secret is not None:
+                    conn.authenticate(secret, role="client")
+                conn.send(_resize_frame(my_rank, gen, new_w,
+                                        my_endpoint))
+                _validate_resize_frame(conn.recv(), gen, new_w,
+                                       (peer,))
+            except Exception:
+                conn.close()
+                raise
+            s.settimeout(None)
+            return conn
+        except wire.AuthError:
+            raise
+        except OSError as e:
+            rounds += 1
+            if time.monotonic() >= deadline_at:
+                raise ConnectionError(
+                    f"rank {my_rank}: resize join to rank {peer} at "
+                    f"{endpoint} failed after {rounds} rounds") from e
+            d = policy.delay(min(rounds, 6), rng)
+            faults.note("retry", _quiet=rounds > 3,
+                        what="tcp.resize_dial", peer=peer,
+                        attempt=rounds, delay_s=round(d, 4),
+                        error=repr(e))
+            time.sleep(min(d, max(
+                deadline_at - time.monotonic(), 0.0)))
+
+
 def join_tcp_group(rank: int, hosts: List[Tuple[str, int]],
-                   generation: int, timeout: Optional[float] = None,
+                   generation: int,
+                   timeout: Optional[float] = None,
                    secret: Optional[bytes] = None) -> TcpGroup:
-    """Bootstrap of a joining rank into a live group mid-resize. Not
-    ported yet: elastic membership is a later part of ROADMAP.md item
-    6."""
-    raise NotImplementedError(
-        "join_tcp_group is not ported yet: ROADMAP.md queue A item 6, "
-        "its generations-and-resize part")
+    """Bootstrap of a JOINING rank into a live group mid-resize.
+
+    ``hosts`` is the NEW full hostlist (width W'); this process takes
+    rank ``rank`` (>= the old width). It dials every lower rank — the
+    live members, which are inside ``Group.resize`` accepting on their
+    own hostlist ports, plus any lower-ranked fellow joiner — and
+    accepts dials from higher-ranked fellow joiners, so a multi-rank
+    grow wires the same full mesh bootstrap does. The caller then runs
+    ``begin_generation(generation)``: the joiner's first collective is
+    the generation barrier that commits the new membership everywhere.
+    """
+    p = len(hosts)
+    if not (0 <= rank < p):
+        raise ValueError(f"joining rank {rank} outside hostlist "
+                         f"of {p}")
+    faults.check(F_RESIZE, new=p, gen=int(generation), rank=rank,
+                 side="join")
+    deadline_at = time.monotonic() + (resize_timeout_s()
+                                      if timeout is None
+                                      else float(timeout))
+    conns: Dict[int, TcpConnection] = {}
+    try:
+        for peer in range(rank):
+            conns[peer] = _dial_resize_join(
+                hosts[peer], rank, peer, generation, p, hosts[rank],
+                secret, deadline_at)
+        for j, (conn, _) in _accept_resize_joins(
+                hosts[rank], rank, range(rank + 1, p), generation, p,
+                secret, deadline_at).items():
+            conns[j] = conn
+    except BaseException:
+        for c in conns.values():
+            try:
+                c.close()
+            except OSError:
+                pass
+        raise
+    group = TcpGroup(rank, p, conns)
+    group._hosts = list(hosts)
+    group._secret = secret
+    group.enable_lazy_async()
+    from . import heartbeat
+    group._heartbeat = heartbeat.maybe_start(group)
+    # orphan-run adoption (a joiner claiming a departed rank's committed
+    # EM runs, core/em_runs.py) comes with ROADMAP.md item 6, its
+    # checkpoint part. The reference's adoption is best-effort and only
+    # adds: without it the runs re-form and results are the same.
+    return group
 
 
 def parse_hostlist(s: str) -> List[Tuple[str, int]]:

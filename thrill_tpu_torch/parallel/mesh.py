@@ -78,6 +78,7 @@ import torch
 
 from ..common import faults, taint
 from ..common.retry import default_policy
+from ..core import unsigned
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -97,16 +98,40 @@ def bind_current(mex: Optional["MeshExec"]) -> Optional["MeshExec"]:
     return prev
 
 
+def _reducible(x: torch.Tensor, ordered: bool):
+    """``x`` in a type gloo's ``all_reduce`` takes, and the function that
+    turns the reduced tensor back into ``x``'s type (fault C21: gloo
+    refuses 16-bit and wide unsigned integers). Sums widen to int64 and
+    narrow back with the reference's wrap; an ``ordered`` (MAX, MIN)
+    uint64 flips its sign bit, so the signed order is the unsigned one."""
+    dt = x.dtype
+    if dt in _WIRE_TYPES:
+        return x, lambda y: y
+    if dt == torch.bool:
+        return x.to(torch.uint8), lambda y: y.to(torch.bool)
+    from ..core.unsigned import SIGNED_OF, unsigned_values
+    if dt == torch.uint64:
+        sign = -(1 << 63) if ordered else 0
+        return (x.view(torch.int64) ^ sign,
+                lambda y: (y ^ sign).view(torch.uint64))
+    if dt in SIGNED_OF:
+        return (unsigned_values(x),
+                lambda y: y.to(SIGNED_OF[dt]).view(dt))
+    return x.to(torch.int64), lambda y: y.to(dt)
+
+
 def _worker_fold(t: torch.Tensor, mex: Optional["MeshExec"],
                  op: str) -> torch.Tensor:
     m = t.amax(dim=0) if op == "MAX" else t.amin(dim=0)
     if mex is None or not mex.multiprocess:
         return m
     import torch.distributed as dist
-    m = m.contiguous()
-    mex.stats_bytes_cross += m.numel() * m.element_size()
+    r, back = _reducible(m.contiguous(), ordered=True)
+    r = r.contiguous()
+    mex.stats_bytes_cross += r.numel() * r.element_size()
     mex.stats_collectives += 1
-    dist.all_reduce(m, op=getattr(dist.ReduceOp, op))
+    dist.all_reduce(r, op=getattr(dist.ReduceOp, op))
+    m = back(r)
     taint.kernel_edge([t], [m])
     return m
 
@@ -451,7 +476,14 @@ class MeshExec:
     def _traced_dispatch(self, prog: Program, args: tuple, kwargs: dict):
         """:meth:`_dispatch` inside a ``dispatch`` span named by the
         program's label (a host-time span: it ends when the work is
-        queued). Tracing off: one attribute read and one predicate."""
+        queued). Tracing off: one attribute read and one predicate, and
+        a scan of the arguments' leaves: arguments that hold a wide
+        unsigned column compute as the reference's unsigned arrays
+        (core/unsigned.py, fault C22)."""
+        with unsigned.scope_for((args, kwargs)):
+            return self._spanned_dispatch(prog, args, kwargs)
+
+    def _spanned_dispatch(self, prog: Program, args: tuple, kwargs: dict):
         tr = self.tracer
         if tr is None or not tr.enabled:
             return self._dispatch(prog, args, kwargs)
@@ -543,13 +575,70 @@ class MeshExec:
 
     def reset_run_state(self) -> int:
         """Drop an aborted pipeline's per-run state (reference:
-        ``MeshExec.reset_run_state``): the deferred checks and a capture
-        in progress. Returns the number of checks dropped."""
+        ``MeshExec.reset_run_state``): the deferred checks and a loop
+        capture in progress. A CUDA graph capture needs nothing here:
+        api/loop.py ``_graph_loop`` ends its capture in a ``finally``,
+        whatever raised inside it. Returns the number of checks
+        dropped."""
         dropped = len(self._pending_checks)
         self._pending_checks.clear()
         self.loop_recorder = None
         self._depth = 0
+        self.current_program = None
         return dropped
+
+    # -- elastic resize (api/context.py Context.resize) -----------------
+    def _w_state_attrs(self) -> Tuple[str, ...]:
+        """The attributes whose values are shaped by W and swap with
+        the worker count: the exchange's plan state, the pre-shuffle
+        verdicts and their history, the loop tapes' records, learned
+        output sizes and the program cache (reference:
+        ``MeshExec._w_state_attrs``)."""
+        from ..data.exchange import W_STATE_ATTRS
+        return W_STATE_ATTRS + ("_prune_decisions", "_prune_history",
+                                "prune_verdicts", "_loop_tapes",
+                                "_out_bytes_seed", "_cache")
+
+    def resize(self, num_workers: int) -> None:
+        """Re-point the mesh at ``num_workers`` workers at a generation
+        boundary (reference: ``parallel/mesh.py:740-798``). The W
+        workers are logical and all on this mesh's one device, so any W
+        fits. The old W's learned state is parked in a per-W archive,
+        not dropped, and the state last learned at the new W comes
+        back, so a W = 4 -> 2 -> 4 cycle returns to warm plans. The
+        archive holds host values and programs only (no tensor of a
+        run): the per-run state (deferred checks, a capture in
+        progress) is dropped. The caller re-splits the live shards;
+        they must be staged before this call. One process only: across
+        processes the membership changes in the host group and the job
+        relaunches."""
+        new_w = int(num_workers)
+        if new_w < 1:
+            raise ValueError("cannot resize to an empty mesh")
+        if self.multiprocess:
+            raise RuntimeError(
+                "MeshExec.resize is one-process only: the processes of "
+                "a mesh change through the host group "
+                "(net.Group.resize, net.tcp.join_tcp_group) and a "
+                "relaunch at the new W")
+        old_w = self.num_workers
+        if new_w == old_w:
+            return
+        arch = self.__dict__.setdefault("_w_archive", {})
+        arch[old_w] = {a: self.__dict__.pop(a)
+                       for a in self._w_state_attrs()
+                       if a in self.__dict__}
+        for a, v in arch.pop(new_w, {}).items():
+            setattr(self, a, v)
+        if "_cache" not in self.__dict__:
+            self._cache = {}
+        if "prune_verdicts" not in self.__dict__:
+            self.prune_verdicts = {}
+        self.num_workers = new_w
+        self.num_local = new_w
+        self.worker_base = 0
+        self.worker_process = np.zeros(new_w, dtype=np.int64)
+        self.reset_run_state()
 
     def drain_checks(self) -> None:
         """Run every queued deferred check. A check that raises keeps
@@ -646,10 +735,12 @@ class MeshExec:
         if not self.multiprocess:
             return s
         import torch.distributed as dist
-        s = s.contiguous()
-        self.stats_bytes_cross += s.numel() * s.element_size()
+        r, back = _reducible(s.contiguous(), ordered=False)
+        r = r.contiguous()
+        self.stats_bytes_cross += r.numel() * r.element_size()
         self.stats_collectives += 1
-        dist.all_reduce(s)
+        dist.all_reduce(r)
+        s = back(r)
         taint.kernel_edge([t], [s])
         return s
 
@@ -659,14 +750,15 @@ class MeshExec:
         if not self.multiprocess:
             return t
         import torch.distributed as dist
-        t = t.contiguous()
-        self.stats_bytes_cross += (t.numel() * t.element_size()
+        dtype = t.dtype
+        x = _as_bytes(t).contiguous()
+        self.stats_bytes_cross += (x.numel() * x.element_size()
                                    * (self.num_processes - 1))
         self.stats_collectives += 1
-        parts = [torch.empty_like(t) for _ in range(self.num_processes)]
-        dist.all_gather(parts, t)
-        taint.kernel_edge([t], parts)
-        return torch.cat(parts, dim=0)
+        parts = [torch.empty_like(x) for _ in range(self.num_processes)]
+        dist.all_gather(parts, x)
+        taint.kernel_edge([x], parts)
+        return _from_bytes(torch.cat(parts, dim=0), dtype)
 
     def local(self, rows):
         """The local workers' entries of a per-worker ``[W, ...]`` array
@@ -683,12 +775,15 @@ class MeshExec:
         if not self.multiprocess:
             return arr
         import torch.distributed as dist
-        t = torch.from_numpy(arr.view(np.uint8) if arr.dtype == bool
-                             else arr)
+        wire = arr.dtype in (np.float32, np.float64, np.int32, np.int64,
+                             np.uint8, np.int8)
+        # any other type (bool, 16-bit, wide unsigned) as its bytes
+        t = torch.from_numpy(arr if wire else arr.reshape(
+            arr.shape + (1,)).view(np.uint8))
         parts = [torch.empty_like(t) for _ in range(self.num_processes)]
         dist.all_gather(parts, t)
         out = torch.cat(parts, dim=0).numpy()
-        return out.view(bool) if arr.dtype == bool else out
+        return out if wire else out.view(arr.dtype)[..., 0]
 
     def fetch_global(self, t: torch.Tensor) -> np.ndarray:
         """:meth:`fetch` of a per-worker tensor ``[W_local, ...]``, with

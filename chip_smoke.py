@@ -337,8 +337,23 @@ and the next PageRank bit-equal to a fresh Context's; R3 is two
 failure both meet heals and one process's own failure ends in bounded
 time; R4 is ``run-scripts/supervise.sh -n 1 -- python3 chip_smoke.py
 --resize-child DIR``, the supervised move 2 -> 3 -> 2, each relaunch
-restoring the RESIZE epoch in a fresh W' layout. R3 and R4 run beside
-R1 and R2. Phase D's one process and children also run the op
+restoring the RESIZE epoch in a fresh W' layout. R5 is two
+``chip_smoke.py --r5-child COORDINATOR RANK DIR RESUME`` processes of
+two workers with one checkpoint directory: a TeraSort kept past
+``Checkpoint()``, then PageRank with a loop epoch every R5_EVERY
+iterations; process 1 SIGKILLs itself entering its second loop epoch's
+save, the survivor must end within R5_BOUND_S, and the relaunch resumes,
+bit-equal to one process at W = 4, then runs an f32 PageRank step and a
+WordCount (B1, the upsweep, the pass, B3, B4 and the fold must launch);
+each prints its save and restore GB/s beside one process's. R6 is
+``run-scripts/supervise.sh -n 1 -w 2 -- python3 chip_smoke.py
+--resize-mp-child DIR``: two processes of two workers holding a sorted
+TeraSort move to three and back, each relaunch's rows a fresh W'
+layout, sorted and counted again, each process printing
+``mem_get_info``. R7 is the tenant ledger at W = 4: an over-budget
+tenant's cold result spills alone, ``memory_allocated`` falling by its
+ledger bytes. R3-R6's children run beside R1, R2, R7 and R5's
+one-process run. Phase D's one process and children also run the op
 battery's element types (int16, uint16/32/64, bool: faults C21-C23).
 
     python3 chip_smoke.py --m1-compare DIR
@@ -363,6 +378,7 @@ import contextlib
 import gc
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -7254,6 +7270,556 @@ def resize_child(d: str) -> int:
     return 0
 
 
+# R5: checkpoints across processes on the card, a SIGKILL and the resume
+R5_RECORDS = 1 << 20           # R5: TeraSort records a worker (W = 4)
+R5_PAGES = 1 << 20             # R5: PageRank pages, f64
+R5_EDGES = 1 << 22             # R5: ... and Zipf edges
+R5_ITERS = 6
+R5_EVERY = 2                   # R5: Iterate(checkpoint_every=)
+R5_KILL_LOOP_EPOCH = 2         # R5: process 1 dies entering this loop epoch
+R5_WORDS = 1 << 20             # R5: WordCount words a worker after the resume
+R5_HANG_S = 20                 # R5: THRILL_TPU_HANG_TIMEOUT_S of the children
+R5_BOUND_S = 30.0              # R5: the survivor ends within this
+R5_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
+              "segment_sum", "presence_fill", "ordered_segment_sum")
+R6_RECORDS = 1 << 20           # R6: TeraSort records a worker (W = 4, 6, 4)
+R6_WIDTHS = (4, 6, 4)
+R6_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass")
+R7_ITEMS = 1 << 22             # R7: int64 items of each tenant's result
+
+
+def r5_records(np):
+    rng = np.random.default_rng(SEED + 120)
+    n = D_PROCS * D_WPP * R5_RECORDS
+    rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
+    return {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+
+
+def r5_step_inputs(np):
+    """The f32 PageRank step's contributions (R1's shape)."""
+    rng = np.random.default_rng(SEED + 121)
+    return {"d": (rng.zipf(1.2, R_EDGES) % R_PAGES).astype(np.int64),
+            "v": rng.random(R_EDGES, dtype=np.float32)}
+
+
+class CkptMeter:
+    """Times a checkpoint manager's saves and restores (the card's queue
+    drained before and after each) and counts their bytes: this
+    process's shard files. After a restore, before anything reads the
+    restored leaves, it holds their rows against the epoch's files."""
+
+    def __init__(self, torch, mgr) -> None:
+        self.saves, self.restores = [], []
+        real_save, real_restore = mgr.save, mgr._restore_agreed
+
+        def save(node, shards):
+            torch.cuda.synchronize()
+            t0, b0 = time.perf_counter(), mgr.bytes_written
+            epoch = real_save(node, shards)
+            self.saves.append({"label": node.label, "epoch": epoch,
+                               "bytes": mgr.bytes_written - b0,
+                               "s": time.perf_counter() - t0})
+            return epoch
+
+        def restore(label, fallback):
+            import numpy as np
+            from thrill_tpu_torch.common import tree as pt
+            from thrill_tpu_torch.data.serializer import deserialize_leaves
+            rec, edir = mgr._manifest["node"], mgr._manifest["_dir"]
+            local = mgr._local_workers()
+            nb = sum(rec["files"][str(w)]["bytes"] for w in local)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real_restore(label, fallback)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            same = res is not None
+            if same and rec["kind"] == "device":
+                sh = res[0]
+                for j, w in enumerate(local):
+                    with open(os.path.join(edir, rec["files"][str(w)][
+                            "name"]), "rb") as f:
+                        want = deserialize_leaves(f.read())
+                    c = int(sh.counts[j])
+                    same = same and all(
+                        np.array_equal(l[j, :c].cpu().numpy(), a)
+                        for l, a in zip(pt.leaves(sh.tree), want))
+            self.restores.append({"label": label, "bytes": nb,
+                                  "s": t1 - t0, "ok": res is not None,
+                                  "bit_equal": bool(same),
+                                  "check_s": time.perf_counter() - t1})
+            return res
+
+        mgr.save, mgr._restore_agreed = save, restore
+
+
+def r5_job(torch, np, tt, ctx, pk, ps, kill_in=None) -> dict:
+    """R5's job on ``ctx`` (one process of W = 4, or one of two): a
+    TeraSort kept past Checkpoint(), then PageRank with an epoch every
+    R5_EVERY iterations, then an f32 PageRank step and a WordCount.
+    ``kill_in(label)`` runs as each save starts (the crash run's hook)."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    out = {"rank": ctx.host_rank}
+    meter = CkptMeter(torch, ctx.checkpoint)
+    if kill_in is not None:
+        real = ctx.checkpoint.save
+
+        def save(node, shards):
+            kill_in(node.label)
+            return real(node, shards)
+
+        ctx.checkpoint.save = save
+    recs = r5_records(np)
+    edges = tpr.zipf_graph(R5_PAGES, R5_EDGES, seed=SEED + 122)
+    real_iter = tpr.Iterate
+
+    def iterate(ctx_, body, carry, n, **kw):
+        return real_iter(ctx_, body, carry, n, checkpoint_every=R5_EVERY,
+                         **kw)
+
+    def sort_and_rank():
+        srt = ctx.Distribute(recs).Sort(key_fn=_r_key).Checkpoint(
+            "r5 sort").Keep()
+        digest = d_digest(torch, srt.AllGatherArrays())
+        tpr.Iterate = iterate
+        try:
+            ranks = tpr.page_rank(ctx, edges, R5_PAGES, R5_ITERS)
+        finally:
+            tpr.Iterate = real_iter
+        return digest, ranks
+
+    (out["sort"], ranks), out["first_s"], out["launches"] = first_run(
+        torch, pk, ps, sort_and_rank)
+    out["ranks"] = d_digest(torch, {"r": torch.from_numpy(ranks)})
+    del recs, edges
+    step = r5_step_inputs(np)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 123)
+    n = D_PROCS * D_WPP * R5_WORDS
+    voc = vocabulary(torch, gen)
+    ids = zipf_ids(torch, n, VOCAB, gen)
+    words = {"w": voc[ids], "c": torch.ones(n, dtype=torch.int64,
+                                            device=DEVICE)}
+    red = tt.FieldReduce({"w": "first", "c": "sum"})
+
+    def step_and_count():
+        v = ctx.Distribute(step).ReduceToIndex(
+            _r_page, tt.FieldReduce({"d": "first", "v": "sum"}), R_PAGES,
+            neutral={"d": 0, "v": 0.0}).AllGatherArrays()["v"]
+        wc = ctx.Distribute(words).ReduceByKey(_r_word, red) \
+            .AllGatherArrays()
+        return v, wc
+
+    (v, wc), out["after_s"], out["after_launches"] = first_run(
+        torch, pk, ps, step_and_count)
+    want = np.bincount(step["d"], weights=step["v"].astype(np.float64),
+                       minlength=R_PAGES)
+    err = np.abs(v.cpu().numpy().astype(np.float64) - want)
+    out["step_ok"] = bool(v.shape[0] == R_PAGES
+                          and (err <= SEG_RTOL * want + SEG_ATOL).all())
+    out["step_err"] = float(err.max())
+    out["wc"] = d_digest(torch, wc)
+    out["wc_distinct"] = check_wordcount(
+        np, "R5 wordcount", wc, voc, np.bincount(ids.cpu().numpy(),
+                                                 minlength=VOCAB))
+    out["dup_verdicts"] = list(ctx.mesh_exec.prune_verdicts.values())
+    out["saves"], out["restores"] = meter.saves, meter.restores
+    out["resume_epoch"] = ctx.checkpoint.resume_epoch
+    out["stats"] = {k: v for k, v in ctx.overall_stats().items()
+                    if k in ("resume_skipped_ops", "checkpoint_epochs",
+                             "ckpt_bytes_written", "hosts")}
+    return out
+
+
+def r5_child(coordinator: str, rank: int, d: str, resume: bool) -> int:
+    """One process of R5 (two, two workers each, one checkpoint
+    directory): the first run's process 1 SIGKILLs itself entering its
+    R5_KILL_LOOP_EPOCH-th loop epoch's save (after writing the time);
+    the relaunch resumes. The result goes to a file of ``d``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.core import pallas_kernels as pk
+    from thrill_tpu_torch.core import pallas_sort as ps
+    loops = [0]
+
+    def kill_in(label):
+        if label.startswith("LoopState["):
+            loops[0] += 1
+            if loops[0] == R5_KILL_LOOP_EPOCH:
+                with open(os.path.join(d, "r5-killed"), "w") as f:
+                    f.write(repr(time.time()))
+                sys.stdout.flush()
+                os.kill(os.getpid(), signal.SIGKILL)
+
+    res = tt.RunDistributed(
+        lambda ctx: r5_job(torch, np, tt, ctx, pk, ps,
+                           kill_in if rank == 1 and not resume else None),
+        coordinator_address=coordinator, num_processes=D_PROCS,
+        process_id=rank, workers_per_process=D_WPP, resume=resume)
+    assert_port_alone()
+    with open(os.path.join(d, f"r5-{int(resume)}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def r5_launch(d: str, resume: bool, secret: str) -> list:
+    ports = d_free_ports(1 + D_PROCS)
+    hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+    procs = []
+    for rank in range(D_PROCS):
+        env = dict(os.environ, THRILL_TPU_HOSTLIST=hostlist,
+                   THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret,
+                   THRILL_TPU_CKPT_DIR=os.path.join(d, "ck"),
+                   THRILL_TPU_HANG_TIMEOUT_S=str(R5_HANG_S))
+        env.pop("THRILL_TPU_RESUME", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--r5-child",
+             f"127.0.0.1:{ports[0]}", str(rank), d, str(int(resume))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env))
+    return procs
+
+
+def r_gbs(recs) -> str:
+    nb = sum(r["bytes"] for r in recs)
+    s = sum(r["s"] for r in recs)
+    return f"{nb} bytes in {s:.3f} s, {nb / max(s, 1e-9) / 1e9:.2f} GB/s"
+
+
+def r5_one(torch, np, tt, pk, ps, d: str) -> dict:
+    """R5's job in one process at W = 4 (the reference of the children's
+    results, and its save and restore rates); then a Context that
+    resumes restores the newest (loop) epoch alone, timed."""
+    from thrill_tpu_torch.common.config import Config
+    ck = os.path.join(d, "one")
+    one = tt.Run(lambda ctx: r5_job(torch, np, tt, ctx, pk, ps),
+                 D_PROCS * D_WPP, device=DEVICE, config=Config(ckpt_dir=ck))
+    ctx = tt.Context(num_workers=D_PROCS * D_WPP, device=DEVICE,
+                     config=Config(ckpt_dir=ck), resume=True)
+    try:
+        meter = CkptMeter(torch, ctx.checkpoint)
+        if ctx.checkpoint.try_restore_loop("page_rank") is None or \
+                not all(x["bit_equal"] for x in meter.restores):
+            raise AssertionError("R5 one process: the loop epoch did not "
+                                 "restore")
+        one["restores"] = meter.restores
+    finally:
+        ctx.close()
+    torch.cuda.empty_cache()
+    return one
+
+
+def r5_check(np, d: str, one: dict, crash: list, card: str) -> dict:
+    """R5's checks: the crash run's survivor, the resumed processes'
+    results against the one-process run's. Returns the paths."""
+    (rc0, t0), (rc1, _) = crash
+    with open(os.path.join(d, "r5-killed")) as f:
+        t_kill = float(f.read())
+    survivor_s = t0 - t_kill
+    log(f"R5 SIGKILL of process 1 entering its loop epoch "
+        f"{R5_KILL_LOOP_EPOCH}'s save: process 1 rc {rc1}, the survivor rc "
+        f"{rc0} {survivor_s:.3f} s after the kill "
+        f"(THRILL_TPU_HANG_TIMEOUT_S={R5_HANG_S}, bound {R5_BOUND_S} s) "
+        f"[{card}]")
+    if rc1 != -9 or rc0 == 0 or survivor_s > R5_BOUND_S:
+        raise AssertionError(f"R5 crash run: rc {rc0} {rc1}, survivor "
+                             f"{survivor_s:.3f} s")
+    paths = {}
+    log(f"R5 one process W=4: sort {one['first_s']:.3f} s with pagerank, "
+        f"saves {r_gbs(one['saves'])} ({len(one['saves'])} epochs), the "
+        f"loop epoch's restore {r_gbs(one['restores'])} [{card}]")
+    for rank in range(D_PROCS):
+        with open(os.path.join(d, f"r5-1-{rank}.json")) as f:
+            r = json.load(f)
+        for k in ("sort", "ranks", "wc", "wc_distinct"):
+            if r[k] != one[k]:
+                raise AssertionError(f"R5 process {rank}: {k} differs from "
+                                     f"the one-process W=4 run's")
+        if not r["step_ok"] or not one["step_ok"]:
+            raise AssertionError(f"R5 process {rank}: the f32 step is off "
+                                 f"by {r['step_err']}")
+        if r["stats"]["resume_skipped_ops"] < 1 and not r["restores"]:
+            raise AssertionError(f"R5 process {rank}: nothing restored")
+        if not r["restores"] or not all(x["ok"] and x["bit_equal"]
+                                        for x in r["restores"]):
+            raise AssertionError(f"R5 process {rank}: restores "
+                                 f"{r['restores']}")
+        need_launches({k: r["launches"][k] + r["after_launches"][k]
+                       for k in r["launches"]}, R5_KERNELS,
+                      f"R5 resumed process {rank}")
+        need_launches(r["after_launches"], ("segment_sum", "presence_fill"),
+                      f"R5 after the resume process {rank}")
+        log(f"R5 process {rank} of {D_PROCS} resumed from epoch "
+            f"{r['resume_epoch']} ({r['restores'][0]['label']}; the "
+            f"restored leaves bit-equal to the epoch's files before any "
+            f"read): ranks, "
+            f"sort and wordcount bit-equal to one process's, the f32 step "
+            f"within {SEG_RTOL} of np.bincount (max err {r['step_err']:.3g}); "
+            f"saves {r_gbs(r['saves'])}, restore {r_gbs(r['restores'])}; "
+            f"dup verdicts {r['dup_verdicts']}; launches {json.dumps(r['launches'])}, "
+            f"after {json.dumps(r['after_launches'])} [{card}]")
+        paths[f"R5 resumed sort and pagerank W=4 process {rank}"] = \
+            r["launches"]
+        paths[f"R5 f32 step and wordcount after the resume W=4 process "
+              f"{rank}"] = r["after_launches"]
+    return paths
+
+
+# R6: the supervised move of processes, 2 -> 3 -> 2
+
+def r6_records(np):
+    rng = np.random.default_rng(SEED + 130)
+    n = R6_WIDTHS[0] * R6_RECORDS
+    rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
+    return {"key": np.ascontiguousarray(rec[:, :10]),
+            "value": np.ascontiguousarray(rec[:, 10:])}
+
+
+def r6_order(np, recs):
+    """np.lexsort's order of the records' big-endian key words."""
+    kp = np.zeros((len(recs["key"]), 16), dtype=np.uint8)
+    kp[:, :10] = recs["key"]
+    kw = kp.view(">u8").astype(np.uint64)
+    return np.lexsort((kw[:, 1], kw[:, 0]))
+
+
+def resize_mp_child(d: str) -> int:
+    """One process of a round of R6 under ``supervise.sh -w``: a mesh of
+    THRILL_TPU_NPROC processes of two workers; round 0 sorts and
+    checkpoints, each later round restores the RESIZE epoch, checks its
+    rows against a fresh W' layout, sorts and counts words on it; rounds
+    0 and 1 move on (W 4 -> 6 -> 4). Its record goes to a file of ``d``."""
+    t_start = time.time()
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.common import tree as pt
+    from thrill_tpu_torch.common.partition import dense_range_bounds
+    from thrill_tpu_torch.core import pallas_kernels as pk
+    from thrill_tpu_torch.core import pallas_sort as ps
+    rank = int(os.environ["THRILL_TPU_RANK"])
+    nproc = int(os.environ["THRILL_TPU_NPROC"])
+    rnd = int(os.environ.get("THRILL_TPU_SUPERVISE_ROUND", "0"))
+    w = int(os.environ.get("THRILL_TPU_RESIZE_W", str(R6_WIDTHS[0])))
+    resumed = os.environ.get("THRILL_TPU_RESUME") == "1"
+    with open(os.path.join(d, "r6-ports")) as f:
+        ports = f.read().split()[4 * rnd:4 * rnd + 4]
+    os.environ["THRILL_TPU_HOSTLIST"] = " ".join(
+        f"127.0.0.1:{p}" for p in ports[1:1 + nproc])
+    recs = r6_records(np)
+    n = len(recs["key"])
+
+    def job(ctx):
+        out = {"round": rnd, "rank": rank, "procs": nproc, "w": w,
+               "resumed": resumed, "t_start": t_start, "t_ctx": time.time()}
+        meter = CkptMeter(torch, ctx.checkpoint)
+        srt = ctx.Distribute(recs).Sort(key_fn=_r_key).Checkpoint(
+            "r6 sorted").Keep(4)
+        srt.Execute()
+        torch.cuda.synchronize()
+        out["t_ready"] = time.time()
+        out["restores"] = meter.restores
+        order = r6_order(np, recs)
+        sh = srt.node._shards
+        b = dense_range_bounds(n, w)
+        mine = ctx.mesh_exec.local_workers
+        counts = [int(c) for c in sh.counts]
+        ok = counts == [int(b[g + 1] - b[g]) for g in mine]
+        leaves = dict(zip(("key", "value"), pt.leaves(sh.tree)))
+        for j, g in enumerate(mine):
+            rows = order[b[g]:b[g + 1]]
+            for k in ("key", "value"):
+                leaf = leaves[k]
+                ok = ok and np.array_equal(
+                    leaf[j, :counts[j]].cpu().numpy(), recs[k][rows]) \
+                    and not bool(leaf[j, counts[j]:].any())
+        # a relaunch's rows are the RESIZE epoch's: a fresh W' layout
+        # (round 0's are the Sort's own split)
+        out["layout_ok"] = bool(ok) if resumed else None
+        free, total = torch.cuda.mem_get_info()
+        out["mem_get_info"] = [int(free), int(total)]
+        out["memory_allocated"] = int(torch.cuda.memory_allocated())
+        print(f"R6 round {rnd} process {rank} of {nproc} (W={w}): "
+              f"mem_get_info free {free} of {total} bytes, this process "
+              f"allocated {torch.cuda.memory_allocated()}", flush=True)
+
+        def sort_and_count():
+            again = srt.Sort(key_fn=_r_key).Execute()
+            wc = srt.Map(_r6_prefix).ReduceByKey(
+                _r_word, tt.FieldReduce({"w": "first", "c": "sum"})) \
+                .AllGatherArrays()
+            return again, wc
+
+        (again, wc), out["jobs_s"], out["launches"] = first_run(
+            torch, pk, ps, sort_and_count)
+        # this process's sorted rows against numpy's order at their
+        # global offsets (no gather of every row to every process)
+        ash = again.node._shards
+        aleaves = dict(zip(("key", "value"), pt.leaves(ash.tree)))
+        ok = True
+        for j, (off, c) in enumerate(zip(ash.offsets(), ash.counts)):
+            rows = order[int(off):int(off) + int(c)]
+            ok = ok and all(np.array_equal(
+                aleaves[k][j, :int(c)].cpu().numpy(), recs[k][rows])
+                for k in ("key", "value"))
+        out["sort_ok"] = bool(ok) and int(ash.total) == n
+        pre = recs["key"][:, 0].astype(np.int64) * 256 + recs["key"][:, 1]
+        want = np.bincount(pre, minlength=1 << 16)
+        got_w = wc["w"].cpu().numpy().astype(np.int64)
+        got = np.zeros(1 << 16, dtype=np.int64)
+        got[got_w[:, 0] * 256 + got_w[:, 1]] = wc["c"].cpu().numpy()
+        out["wc_ok"] = bool(np.array_equal(got, want))
+        out["marker"] = os.path.exists(os.path.join(
+            ctx.checkpoint.dir, "RESIZE.json"))
+        out["t_exit"] = time.time()
+        with open(os.path.join(d, f"r6-{rnd}-{rank}.json"), "w") as f:
+            json.dump(out, f)
+        if rnd < len(R6_WIDTHS) - 1:
+            try:
+                ctx.resize_processes(R6_WIDTHS[rnd + 1], state=srt)
+            finally:
+                with open(os.path.join(d, f"r6-exit-{rnd}-{rank}"),
+                          "w") as f:
+                    f.write(repr(time.time()))
+        return 0
+
+    tt.RunDistributed(job, coordinator_address=f"127.0.0.1:{ports[0]}",
+                      num_processes=nproc, process_id=rank,
+                      workers_per_process=w // nproc, resume=resumed)
+    assert_port_alone()
+    return 0
+
+
+def _r6_prefix(r):
+    import torch
+    return {"w": r["key"][:, :2],
+            "c": torch.ones_like(r["key"][:, 0], dtype=torch.int64)}
+
+
+def r6_check(d: str, sup, card: str) -> dict:
+    """R6's checks from the rounds' records. Returns the paths."""
+    out, err = sup
+    recs = []
+    for name in sorted(os.listdir(d)):
+        if name.startswith("r6-") and name.endswith(".json"):
+            with open(os.path.join(d, name)) as f:
+                recs.append(json.load(f))
+    recs.sort(key=lambda r: (r["round"], r["rank"]))
+    got = [(r["round"], r["rank"], r["w"]) for r in recs]
+    want = [(i, p, w) for i, w in enumerate(R6_WIDTHS)
+            for p in range(w // D_WPP)]
+    if got != want or not all((r["layout_ok"] if r["round"] else
+                               r["layout_ok"] is None)
+                              and r["sort_ok"] and r["wc_ok"]
+                              and r["resumed"] == (r["round"] > 0)
+                              and not r["marker"] for r in recs):
+        raise AssertionError(f"R6: {[{k: r[k] for k in ('round', 'rank', 'w', 'resumed', 'layout_ok', 'sort_ok', 'wc_ok', 'marker')} for r in recs]}\n{err[-3000:]}")
+    paths = {}
+    for i in range(1, len(R6_WIDTHS)):
+        exits = [float(open(os.path.join(d, f"r6-exit-{i - 1}-{p}")).read())
+                 for p in range(R6_WIDTHS[i - 1] // D_WPP)]
+        rs = [r for r in recs if r["round"] == i]
+        if not all(r["restores"] and all(x["ok"] and x["bit_equal"]
+                                         for x in r["restores"])
+                   for r in rs):
+            raise AssertionError(f"R6 round {i}: restores "
+                                 f"{[r['restores'] for r in rs]}")
+        # the check of the restored rows against the files is not the
+        # relaunch's
+        relaunch = max(r["t_ready"] - sum(x["check_s"] for x in r["restores"])
+                       for r in rs) - max(exits)
+        log(f"R6 relaunch {R6_WIDTHS[i - 1] // D_WPP}->"
+            f"{R6_WIDTHS[i] // D_WPP} processes (W={R6_WIDTHS[i - 1]}->"
+            f"{R6_WIDTHS[i]}): {relaunch:.2f} s from the last exit to every "
+            f"process's restored RESIZE epoch (process start to Context "
+            f"{max(r['t_ctx'] - r['t_start'] for r in rs):.2f} s, Context "
+            f"to restored {max(r['t_ready'] - r['t_ctx'] - sum(x['check_s'] for x in r['restores']) for r in rs):.2f} "
+            f"s); per process the restore "
+            + "; ".join(f"{r['rank']}: {r_gbs(r['restores'])}" for r in rs)
+            + f"; rows a fresh W' layout, Sort and WordCount on it equal to "
+            f"numpy's; mem_get_info free "
+            f"{[r['mem_get_info'][0] for r in rs]} bytes [{card}]")
+    for r in recs:
+        need_launches(r["launches"], R6_KERNELS,
+                      f"R6 round {r['round']} process {r['rank']}")
+        paths[f"R6 sort and wordcount at W={r['w']} process {r['rank']} "
+              f"(round {r['round']})"] = r["launches"]
+    return paths
+
+
+# R7: the tenant ledger on the card
+
+def r7_tenants(torch, np, tt, pk, ps, card: str) -> dict:
+    """R7: two tenants' device results of R7_ITEMS int64 items at W = 4,
+    tenant a's budget 1.5 of its node: caching a's second result spills
+    a's cold node only; memory_allocated falls by its ledger bytes, b's
+    nodes stay on the card and the spilled node restores exactly."""
+    from thrill_tpu_torch.mem.hbm import SpilledShards
+    ctx = tt.Context(num_workers=4, device=DEVICE)
+    drops = []
+    try:
+        real_spill = ctx.hbm.spill
+
+        def spill(node):
+            # no garbage of earlier computes may be freed inside the spill
+            gc.collect()
+            torch.cuda.synchronize()
+            m0, nb = torch.cuda.memory_allocated(), node._hbm_bytes
+            real_spill(node)
+            torch.cuda.synchronize()
+            drops.append((node._tenant, nb,
+                          m0 - torch.cuda.memory_allocated()))
+
+        ctx.hbm.spill = spill
+
+        def cache(tenant, k):
+            ctx.current_tenant = tenant
+            d = ctx.Distribute(torch.arange(R7_ITEMS, device=DEVICE) * k)
+            d.Keep()
+            d.node.materialize(consume=False)
+            ctx.current_tenant = None
+            return d.node
+
+        b1, b2, a1 = cache("b", 1), cache("b", 3), cache("a", 5)
+        unit = a1._hbm_bytes
+        ctx.hbm.tenant_budgets["a"] = int(1.5 * unit)
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        a2 = cache("a", 7)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        spilled = [isinstance(x._shards, SpilledShards)
+                   for x in (b1, b2, a1, a2)]
+        s = ctx.overall_stats()
+        if spilled != [False, False, True, False] or drops != [
+                ("a", unit, unit)] or s["tenant_spills"] != 1:
+            raise AssertionError(f"R7: spilled {spilled}, drops {drops}, "
+                                 f"tenant_spills {s['tenant_spills']}")
+        if any(x._shards.tree.device.type != "cuda" for x in (b1, b2, a2)):
+            raise AssertionError("R7: a resident result left the card")
+        ctx.hbm.touch(a1)
+        launches = read_launches(pk, ps)
+        got = a1._shards.to_global_numpy()
+        if not np.array_equal(got, np.arange(R7_ITEMS) * 5):
+            raise AssertionError("R7: the restored result differs")
+        log(f"R7 tenant ledger W=4: a's second result ({unit} ledger bytes a "
+            f"node, budget {ctx.hbm.tenant_budgets['a']}) spilled a's cold "
+            f"node only ({secs:.3f} s with the cache): memory_allocated fell "
+            f"{drops[0][2]} bytes, its ledger bytes {drops[0][1]}; b's two "
+            f"results stayed on the card; tenant_bytes "
+            f"{dict(ctx.hbm.tenant_bytes)} before the restore, "
+            f"tenant_hbm_peaks {s['tenant_hbm_peaks']}, tenant_spills "
+            f"{s['tenant_spills']}; the restore exact; launches "
+            f"{json.dumps(launches)} [{card}]")
+    finally:
+        ctx.close()
+    return {"R7 tenant spill and restore W=4": launches}
+
+
 def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
     """Phase R: R3's two processes and R4's supervised move start first
     and run beside R1 (resize) and R2 (heals) in this process; then
@@ -7263,6 +7829,7 @@ def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
     t_r = time.perf_counter()
     d = tempfile.mkdtemp(prefix="ttpu-r-")
     procs = []
+    sup6 = None
     try:
         ports = d_free_ports(1 + D_PROCS)
         hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
@@ -7287,12 +7854,56 @@ def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
              "--resize-child", d], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True, env=env)
         procs.append(sup)
+        n34 = len(procs)
+        # R5's first run (process 1 killed) and R6's supervised move
+        import concurrent.futures as cf
+        pool = cf.ThreadPoolExecutor(3)
+
+        def reap(p):
+            p.communicate(timeout=300)
+            return p.returncode, time.time()
+
+        d5 = os.path.join(d, "r5")
+        os.makedirs(d5)
+        crash = r5_launch(d5, False, secret)
+
+        def r5_runs():
+            # the survivor (process 0) reaped first, for its exit time;
+            # the relaunch with resume starts as soon as both ended
+            crash_res = [reap(p) for p in crash]
+            resumed = r5_launch(d5, True, secret)
+            procs.extend(resumed)
+            outs = [p.communicate(timeout=300) for p in resumed]
+            return crash_res, [(p.returncode, o, e)
+                               for p, (o, e) in zip(resumed, outs)]
+
+        r5_fut = pool.submit(r5_runs)
+        d6 = os.path.join(d, "r6")
+        os.makedirs(d6)
+        with open(os.path.join(d6, "r6-ports"), "w") as f:
+            f.write(" ".join(map(str, d_free_ports(4 * len(R6_WIDTHS)))))
+        env6 = dict(os.environ, THRILL_TPU_CKPT_DIR=os.path.join(d6, "ck"),
+                    THRILL_TPU_SECRET=secret,
+                    THRILL_TPU_HANG_TIMEOUT_S=str(R5_HANG_S))
+        for k in ("THRILL_TPU_RESUME", "THRILL_TPU_RESIZE_W"):
+            env6.pop(k, None)
+        sup6 = subprocess.Popen(
+            ["bash", os.path.join(here, "run-scripts", "supervise.sh"),
+             "-n", "1", "-w", str(D_PROCS), "--", sys.executable,
+             os.path.abspath(__file__), "--resize-mp-child", d6],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env6, start_new_session=True)
+        sup6_fut = pool.submit(lambda: sup6.communicate(timeout=600))
+        procs += crash + [sup6]
         paths = r_resize(torch, np, tt, pk, ps, card)
         torch.cuda.empty_cache()
         paths.update(r_heal(torch, np, tt, pk, ps, card))
         torch.cuda.empty_cache()
+        t_12 = time.perf_counter()
+        paths.update(r7_tenants(torch, np, tt, pk, ps, card))
+        one5 = r5_one(torch, np, tt, pk, ps, d5)
         t_local = time.perf_counter()
-        outs = [p.communicate(timeout=300) for p in procs]
+        outs = [p.communicate(timeout=300) for p in procs[:n34]]
         for p, (o, e) in zip(procs, outs):
             if p.returncode != 0:
                 raise AssertionError(f"R: child failed (rc {p.returncode}):"
@@ -7335,16 +7946,35 @@ def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
             f"{ph[2]['t_ctx'] - ph[2]['t_start']:.2f}); the first launch "
             f"{ph[0]['t_ready'] - t_sup:.2f} s after the supervisor started "
             f"[{card}]")
+        crash_res, resumed = r5_fut.result()
+        for rc, o, e in resumed:
+            if rc != 0:
+                raise AssertionError(f"R5 resumed child failed (rc {rc}):"
+                                     f"\n{o[-2000:]}\n{e[-3000:]}")
+        paths.update(r5_check(np, d5, one5, crash_res, card))
+        out6, err6 = sup6_fut.result()
+        if sup6.returncode != 0:
+            raise AssertionError(f"R6: supervise.sh rc {sup6.returncode}:\n"
+                                 f"{out6[-2000:]}\n{err6[-3000:]}")
+        for line in out6.splitlines():
+            if line.startswith("R6 round"):
+                log(f"{line} [{card}]")
+        paths.update(r6_check(d6, (out6, err6), card))
+        pool.shutdown(wait=True)
     finally:
         for p in procs:
             if p.poll() is None:
+                if p is sup6:
+                    os.killpg(sup6.pid, signal.SIGKILL)
                 p.kill()
                 p.wait()
         shutil.rmtree(d, ignore_errors=True)
     assert_port_alone()
-    log(f"resize phase (R): {time.perf_counter() - t_r:.1f} s of host clock "
-        f"(R1 and R2 {t_local - t_r:.1f} s beside R3's and R4's children) "
-        f"[host {cpu_line()}; {card}]")
+    t_end = time.perf_counter()
+    log(f"resize phase (R): {t_end - t_r:.1f} s of host clock (R1 and R2 "
+        f"{t_12 - t_r:.1f} s, R7 and R5's one-process run "
+        f"{t_local - t_12:.1f} s, beside R3's to R6's children; R5-R7 "
+        f"{t_end - t_12:.1f} s after R2) [host {cpu_line()}; {card}]")
     return paths
 
 
@@ -7372,6 +8002,13 @@ def main() -> int:
                         sys.argv[i + 3])
     if "--resize-child" in sys.argv:
         return resize_child(sys.argv[sys.argv.index("--resize-child") + 1])
+    if "--r5-child" in sys.argv:
+        i = sys.argv.index("--r5-child")
+        return r5_child(sys.argv[i + 1], int(sys.argv[i + 2]),
+                        sys.argv[i + 3], sys.argv[i + 4] == "1")
+    if "--resize-mp-child" in sys.argv:
+        return resize_mp_child(
+            sys.argv[sys.argv.index("--resize-mp-child") + 1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build

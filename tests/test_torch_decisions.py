@@ -191,6 +191,67 @@ def test_explain_wordcount_snapshot():
     ctx.close()
 
 
+def _spine(txt):
+    """The plan tree's node lines (label, id and state), in order."""
+    return [ln.rstrip() for ln in txt.splitlines()
+            if ln.lstrip().startswith("- ")]
+
+
+def test_dia_explain_wordcount_is_the_reference_s():
+    """``DIA.explain()`` of the WordCount result: the reference's text
+    (title, the upstream nodes with their states, each decision)."""
+    from thrill_tpu_torch.examples import word_count as twc
+    if _REF_EXAMPLES not in sys.path:
+        sys.path.insert(0, _REF_EXAMPLES)
+    import word_count as jwc
+    lines = ["the quick brown fox", "the lazy dog", "the quick dog"] * 8
+    txt = {}
+    for name, ctx, mod in (
+            ("port", tt.Context(num_workers=2, device="cpu"), twc),
+            ("ref", JContext(JMeshExec(devices=jax.devices("cpu")[:2])),
+             jwc)):
+        d = mod.word_count(ctx, lines)
+        d.Keep()
+        assert dict(d.AllGather())["the"] == 24
+        txt[name] = d.explain()
+        # it reads the ledger and changes nothing
+        assert d.explain() == txt[name]
+        ctx.close()
+    assert txt["port"] == txt["ref"]
+    assert txt["port"].splitlines()[0] == "ReduceByKey#2 (W=2)"
+
+
+def test_dia_explain_pagerank_degrees():
+    """``DIA.explain()`` of the PageRank example's degree table in both
+    packages: the reference's text, decisions and audits included, but
+    for the sort-engine record."""
+    port_ctx = tt.Context(num_workers=2, device="cpu")
+    ref_ctx = JContext(JMeshExec(devices=jax.devices("cpu")[:2]))
+    txt = {}
+    try:
+        edges = tpr.zipf_graph(64, 256, seed=5)
+        for name, ctx, mod in (("port", port_ctx, tpr),
+                               ("ref", ref_ctx, _ref_pagerank())):
+            deg = ctx.Distribute(edges[:, 0].astype(np.int64)).Map(
+                mod._src_one).ReduceToIndex(
+                    mod._page_first, mod._ADD_PAIRS, 64,
+                    neutral=(0, 0)).Keep()
+            deg.Execute()
+            txt[name] = deg.explain()
+    finally:
+        port_ctx.close()
+        ref_ctx.close()
+    assert _spine(txt["port"]) == _spine(txt["ref"])
+    # the whole text but the sort-engine record (the port's CPU engine is
+    # its plain one, the reference's XLA's sort)
+    same = {name: [ln for ln in t.splitlines()
+                   if not ln.strip().startswith(". sort_engine:")]
+            for name, t in txt.items()}
+    assert same["port"] == same["ref"]
+    assert any(ln.strip().startswith(". xchg_strategy:")
+               for ln in same["port"])
+
+
 def test_ledger_persists_next_to_plan_store(tmp_path):
     store = str(tmp_path / "plans")
     ctx = tt.Context(num_workers=2, device="cpu",

@@ -281,15 +281,14 @@ def test_two_processes_equal_the_reference_and_one_process(tmp_path):
         sum(r["moved_plain"] for r in procs_results)
 
 
-def test_unported_ops_raise_across_processes(tmp_path):
+def test_ops_and_a_checkpoint_manager_are_made_across_processes(tmp_path):
     """Every op is made on a mesh of several processes (the op sweep
     runs them, ``test_torch_distributed_ops.py``), and every exchange
     mode is taken there (``test_torch_exchange_modes_mp.py`` runs them);
-    what is still not ported across processes raises by name: a
-    checkpoint directory (ROADMAP.md item 6, its checkpoint part)."""
-    import pytest
-
+    a checkpoint directory gives each process a checkpoint manager whose
+    workers are its own (``test_torch_ckpt_mp.py`` runs its epochs)."""
     import thrill_tpu_torch as tt
+    from thrill_tpu_torch.common.config import Config
     from thrill_tpu_torch.data import exchange
     from thrill_tpu_torch.parallel.mesh import MeshExec
 
@@ -307,12 +306,15 @@ def test_unported_ops_raise_across_processes(tmp_path):
             assert exchange.resolve_mode(mex) == mode
     finally:
         ctx.close()
-    from thrill_tpu_torch.common.config import Config
-    with pytest.raises(NotImplementedError,
-                       match="item 6, its checkpoint part"):
-        tt.Context(MeshExec(num_workers=4, device="cpu", process_index=0,
-                            num_processes=2),
-                   config=Config(ckpt_dir=str(tmp_path)))
+    for rank, mine in ((0, [0, 1]), (1, [2, 3])):
+        ctx = tt.Context(MeshExec(num_workers=4, device="cpu",
+                                  process_index=rank, num_processes=2),
+                         config=Config(ckpt_dir=str(tmp_path)))
+        try:
+            assert ctx.checkpoint is not None
+            assert ctx.checkpoint._local_workers() == mine
+        finally:
+            ctx.close()
 
 
 def failing_job(ctx):

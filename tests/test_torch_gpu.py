@@ -2021,3 +2021,162 @@ def test_narrow_and_unsigned_columns_on_the_card(cuda_device, dt):
                            for k in range(7)], fold
     finally:
         ctx.close()
+
+
+# -- checkpoints across processes and the tenant ledger on the card ---------
+
+_CKPT_CHILD = r'''
+import json, os, sys
+import numpy as np, torch
+import thrill_tpu_torch as tt
+from thrill_tpu_torch.common.config import Config
+
+
+def job(ctx):
+    rng = np.random.default_rng(31)
+    n = 1 << 16
+    recs = {"key": rng.integers(0, 256, (n, 10), dtype=np.uint8),
+            "u": rng.integers(0, 2 ** 64 - 1, n, dtype=np.uint64),
+            "s": rng.integers(-2 ** 15, 2 ** 15 - 1, n, dtype=np.int16),
+            "val": np.arange(n, dtype=np.int64)}
+    d = ctx.Distribute(recs).Sort(key_fn=lambda r: r["key"]) \
+        .Checkpoint("sorted").Keep()
+    d.Execute()
+    sh = d.node._shards
+    out = {k: v.cpu().numpy() for k, v in d.AllGatherArrays().items()}
+    mgr = ctx.checkpoint
+    return {"device": str(sh.tree["key"].device),
+            "restored": mgr.restored_nodes,
+            "cols": {k: [str(int(x)) for x in v.reshape(-1)[:64]]
+                     + [str(int(v.astype(np.int64).sum()))]
+                     for k, v in out.items()}}
+
+
+cfg = Config(ckpt_dir=sys.argv[2])
+resume = os.environ.get("THRILL_TPU_RESUME") == "1"
+if sys.argv[1] == "one":
+    res = tt.Run(job, 4, config=cfg, resume=resume)
+else:
+    res = tt.RunDistributed(job, coordinator_address=sys.argv[3],
+                            num_processes=2, process_id=int(sys.argv[4]),
+                            workers_per_process=2, config=cfg, resume=resume)
+print("RESULT " + json.dumps(res), flush=True)
+'''
+
+
+def _ckpt_children(tmp_path, mode, ck, resume=False):
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    child = tmp_path / "ckpt_child.py"
+    child.write_text(_CKPT_CHILD)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("THRILL_TPU_RESUME", None)
+    if resume:
+        env["THRILL_TPU_RESUME"] = "1"
+    if mode == "one":
+        argvs, envs = [["one", ck]], [env]
+    else:
+        socks = [socket.socket() for _ in range(3)]
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        ports = [s.getsockname()[1] for s in socks]
+        for s in socks:
+            s.close()
+        hosts = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+        argvs = [["two", ck, f"127.0.0.1:{ports[0]}", str(r)]
+                 for r in range(2)]
+        envs = [dict(env, THRILL_TPU_HOSTLIST=hosts,
+                     THRILL_TPU_RANK=str(r), THRILL_TPU_SECRET="gpu-test")
+                for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(child)] + a,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=e) for a, e in zip(argvs, envs)]
+    out = []
+    try:
+        for p in procs:
+            o, e = p.communicate(timeout=300)
+            assert p.returncode == 0, e[-3000:]
+            out.append(json.loads([l for l in o.splitlines()
+                                   if l.startswith("RESULT ")][-1][7:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return out
+
+
+@pytest.mark.gpu
+def test_an_epoch_of_two_processes_on_the_card_is_one_process_s(
+        cuda_device, tmp_path):
+    """Two processes (two workers each) save their CUDA shards of a
+    sorted result with uint64 and int16 columns through the staging
+    ring: the epoch is one process's at W = 4, byte for byte, and both
+    restore it on the card with the same values."""
+    import os
+    ck1, ck2 = str(tmp_path / "one"), str(tmp_path / "two")
+    one = _ckpt_children(tmp_path, "one", ck1)[0]
+    two = _ckpt_children(tmp_path, "two", ck2)
+
+    def files(d):
+        return sorted(os.path.relpath(os.path.join(r, f), d)
+                      for r, _, fs in os.walk(d) for f in fs)
+
+    assert files(ck1) == files(ck2) and files(ck1)
+    for rel in files(ck1):
+        with open(os.path.join(ck1, rel), "rb") as a, \
+                open(os.path.join(ck2, rel), "rb") as b:
+            assert a.read() == b.read(), rel
+    again = _ckpt_children(tmp_path, "two", ck2, resume=True)
+    for r in two + again:
+        assert r["cols"] == one["cols"] and r["device"].startswith("cuda")
+    assert [r["restored"] for r in again] == [1, 1]
+
+
+@pytest.mark.gpu
+def test_a_tenant_spill_on_the_card_frees_its_ledger_bytes(cuda_device):
+    """An over-budget tenant's cold result leaves the card by its
+    ledger bytes (``memory_allocated``), the other tenant's results stay
+    on the card, and the restore is exact."""
+    from thrill_tpu_torch.mem.hbm import SpilledShards
+    ctx = tt.Context(num_workers=4)
+    drops = []
+    try:
+        real = ctx.hbm.spill
+
+        def spill(node):
+            # no garbage of earlier computes may be freed inside the spill
+            import gc
+            gc.collect()
+            torch.cuda.synchronize()
+            m0, nb = torch.cuda.memory_allocated(), node._hbm_bytes
+            real(node)
+            torch.cuda.synchronize()
+            drops.append((nb, m0 - torch.cuda.memory_allocated()))
+
+        ctx.hbm.spill = spill
+
+        def cache(tenant, k):
+            ctx.current_tenant = tenant
+            d = ctx.Distribute(torch.arange(1 << 20, device="cuda") * k)
+            d.Keep()
+            d.node.materialize(consume=False)
+            ctx.current_tenant = None
+            return d.node
+
+        b1, a1 = cache("b", 1), cache("a", 3)
+        ctx.hbm.tenant_budgets["a"] = int(1.5 * a1._hbm_bytes)
+        a2 = cache("a", 5)
+        assert isinstance(a1._shards, SpilledShards)
+        assert all(x._shards.tree.device.type == "cuda" for x in (b1, a2))
+        # 2^20 int64 items over four workers: [4, 2^18] int64, 8 MiB
+        assert drops == [(8 << 20, 8 << 20)]
+        assert ctx.overall_stats()["tenant_spills"] == 1
+        ctx.hbm.touch(a1)
+        assert np.array_equal(a1._shards.to_global_numpy(),
+                              np.arange(1 << 20) * 3)
+    finally:
+        ctx.close()

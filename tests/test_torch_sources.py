@@ -270,7 +270,8 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "faults_delayed", "generation", "pipeline_aborts",
                       "heal_time_s", "resizes", "resize_time_s",
                       "resizes_proc", "conn_reconnects",
-                      "stale_frames_dropped"} | PLAN | DOCTOR
+                      "stale_frames_dropped", "runs_adopted",
+                      "tenant_hbm_peaks", "tenant_spills"} | PLAN | DOCTOR
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
     assert s["workers"] == 4 and s["nodes_created"] == 2
@@ -299,7 +300,10 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
     assert 1.0 <= s["skew_ratio"] == rs["skew_ratio"] < 3.0
     # a fresh Context's failure domain is generation 1, as the reference's
     assert s["generation"] == rs["generation"] == 1
+    # no tenant was set: the tenant ledger is empty, as the reference's
+    assert s["tenant_hbm_peaks"] == rs["tenant_hbm_peaks"] == {}
     assert all(s[k] == 0 for k in set(s) - PLAN - DOCTOR - {
+        "tenant_hbm_peaks",
         "workers", "nodes_created", "exchanges", "items_moved",
         "bytes_moved", "device_dispatches", "device_fetches",
         "fused_dispatches", "fused_ops", "fused_stages", "generation"})

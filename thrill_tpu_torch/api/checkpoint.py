@@ -1,6 +1,5 @@
 """Checkpoints and resume: durable epochs of materialized DIAs
-(counterpart of the reference package's ``api/checkpoint.py``, its
-single-controller part).
+(counterpart of the reference package's ``api/checkpoint.py``).
 
 At a ``dia.Checkpoint()`` barrier (every freshly computed op with
 ``THRILL_TPU_CKPT_AUTO=1``, every k iterations of
@@ -35,13 +34,27 @@ live result across a new W for ``Context.resize`` (a device result on
 its device); ``seal_resize`` writes a RESIZE epoch already re-split to
 the target W and ``commit_resize_marker`` the ``RESIZE.json`` marker
 that ``run-scripts/supervise.sh`` reads; a resume at the target W
-consumes the marker (``Context.resize_processes``, one controller).
+consumes the marker (``Context.resize_processes``).
 
-Not ported (ROADMAP item 6, its checkpoint part): the multi-controller
-agreement and ``poison_on_error``, and remote (``s3://``, ``hdfs://``)
-directories. The restore's readahead depth is the
-planner's learned depth of the ``ckpt.restore`` site, an
-``io_prefetch`` decision audited by the measured hit rate.
+A mesh of several processes (reference: ``api/checkpoint.py:196-246,
+293-361, 425-578, 704-745``; the directory is shared): the processes
+agree on the epoch numbers, rank 0 alone sweeps incomplete epochs, and a
+resume takes the newest epoch every process can load, agreed to be held
+everywhere. Each process writes the shard files of its own workers,
+named by the global worker index, from its ``[W_local, cap]`` leaves;
+the file tables and counts are gathered over the host control plane,
+rank 0 commits the manifest and a barrier follows, all under the abort
+protocol (``poison_on_error``). A device epoch so written is the one a
+single process of the same W writes, byte for byte. ``seal_resize``
+gathers every worker's payload to rank 0, which re-splits and writes
+the W' epoch; rank 0 writes and consumes the marker. A restore reads
+the local workers' files only and is all-or-nothing across processes: a
+process whose restore fails makes every process compute the node.
+
+Not ported: remote (``s3://``, ``hdfs://``) directories (ROADMAP item
+6, its remote-vfs part). The restore's readahead depth is the planner's
+learned depth of the ``ckpt.restore`` site, an ``io_prefetch`` decision
+audited by the measured hit rate.
 
 With no checkpoint directory nothing here runs: ``Context.checkpoint``
 is None and ``Checkpoint()`` is a plain materialization barrier.
@@ -166,13 +179,6 @@ class CheckpointManager:
                 f"checkpoint directory {directory!r}: remote stores are "
                 f"not ported yet (ROADMAP.md queue A item 6, its "
                 f"remote-vfs part)")
-        if ctx.mesh_exec.multiprocess:
-            # every process would seal and restore its own epochs with
-            # no agreement between them
-            raise NotImplementedError(
-                "checkpoints on a mesh of several processes are not "
-                "ported yet (ROADMAP.md queue A item 6, its checkpoint "
-                "part)")
         self.ctx = ctx
         self.dir = directory
         self.auto = auto
@@ -192,9 +198,28 @@ class CheckpointManager:
         self._next_epoch = 1 + max(
             (e for e in (_epoch_num(p) for p in self._epoch_dirs())
              if e is not None), default=-1)
+        if self._multihost():
+            # one epoch numbering: a process whose scan raced rank 0's
+            # sweep would write into another epoch's directory
+            self._next_epoch = max(ctx.net.all_gather(self._next_epoch))
         if resume:
-            self.cleanup_incomplete()
+            if self._host_rank() == 0:
+                self.cleanup_incomplete()
             self._manifest = self._load_newest_manifest()
+            if self._multihost():
+                # one resume epoch or none: the oldest of the newest
+                # each process sees (every process can load it; -1
+                # anywhere: nobody resumes), then agreed to be held
+                # everywhere
+                mine = (int(self._manifest["epoch"])
+                        if self._manifest is not None else -1)
+                agreed = min(ctx.net.all_gather(mine))
+                if agreed < 0:
+                    self._manifest = None
+                elif agreed != mine:
+                    self._manifest = self._load_manifest_for(agreed)
+                if not all(ctx.net.all_gather(self._manifest is not None)):
+                    self._manifest = None
             if self._manifest is not None:
                 self.resume_epoch = int(self._manifest["epoch"])
                 log = ctx.logger
@@ -207,13 +232,24 @@ class CheckpointManager:
             # stays (this run is not the relaunch it asked for; epochs
             # are gated by their worker count)
             marker = pending_resize_target(self.dir)
-            if marker is not None and int(marker["target_w"]) \
-                    == ctx.mesh_exec.num_workers:
+            if marker is not None and self._host_rank() == 0 \
+                    and int(marker["target_w"]) == ctx.mesh_exec.num_workers:
                 clear_resize_marker(self.dir)
                 faults.note("recovery", what="ckpt.resize_complete",
                             target_w=int(marker["target_w"]),
                             from_w=marker.get("from_w"),
                             epoch=marker.get("epoch"))
+
+    # -- the processes ---------------------------------------------------
+    def _host_rank(self) -> int:
+        return self.ctx.net.my_rank if self._multihost() else 0
+
+    def _multihost(self) -> bool:
+        return self.ctx.net.num_workers > 1
+
+    def _local_workers(self) -> List[int]:
+        """The global indices of this process's workers."""
+        return list(self.ctx.mesh_exec.local_workers)
 
     def _epoch_dirs(self) -> List[str]:
         return [p for p in glob.glob(os.path.join(self.dir, "epoch_*"))
@@ -233,7 +269,16 @@ class CheckpointManager:
 
     def save(self, node, shards) -> int:
         """Write one epoch holding ``shards`` for ``node``; returns its
-        number. The epoch is durable once the manifest lands."""
+        number. The epoch is durable once the manifest lands. Across
+        processes the whole save runs under the abort protocol: a process
+        whose write fails poisons its peers before they wait for its file
+        table."""
+        from ..net.group import poison_on_error
+        grp = self.ctx.net.group if self._multihost() else None
+        with poison_on_error(grp, "ckpt.save"):
+            return self._save_guarded(node, shards)
+
+    def _save_guarded(self, node, shards) -> int:
         t0 = time.perf_counter()
         epoch = self._next_epoch
         self._next_epoch += 1
@@ -247,17 +292,22 @@ class CheckpointManager:
             rec, nbytes = self._save_host(node, shards, edir, steps)
         else:
             raise TypeError(f"cannot checkpoint {type(shards).__name__}")
-        manifest = {"format": 1, "epoch": epoch,
-                    "workers": self.ctx.mesh_exec.num_workers,
-                    "node": rec}
-        payload = json.dumps(manifest, sort_keys=True).encode()
-
-        def commit():
-            faults.check(_F_MANIFEST, epoch=epoch)
-            file_io.write_file_atomic(os.path.join(edir, MANIFEST), payload)
-
         t_commit = time.perf_counter()
-        default_policy().run(commit, what="ckpt.manifest")
+        W = self.ctx.mesh_exec.num_workers
+        if self._multihost() or rec["kind"] == "device":
+            # every process's file table, and every worker's counts as a
+            # list (a host epoch of one process keeps the reference's
+            # dict); rank 0 commits for all of them
+            tables = (self.ctx.net.all_gather((rec["files"], rec["counts"]))
+                      if self._multihost()
+                      else [(rec["files"], rec["counts"])])
+            rec["files"], rec["counts"] = {}, [0] * W
+            for tab, cnts in tables:
+                rec["files"].update(tab)
+                for w, c in cnts.items():
+                    rec["counts"][int(w)] = int(c)
+        self._commit(edir, {"format": 1, "epoch": epoch, "workers": W,
+                            "node": rec})
         t_end = time.perf_counter()
         self._inflight_dir = None
         self.epochs_written += 1
@@ -272,6 +322,23 @@ class CheckpointManager:
                      commit_s=t_end - t_commit)
         return epoch
 
+    def _commit(self, edir: str, manifest: Optional[dict]) -> None:
+        """Rank 0 writes the epoch's ``manifest`` (the commit); across
+        processes a barrier follows, so no process goes on before the
+        epoch is committed."""
+        if self._host_rank() == 0:
+            payload = json.dumps(manifest, sort_keys=True).encode()
+
+            def commit():
+                faults.check(_F_MANIFEST, epoch=manifest["epoch"])
+                file_io.write_file_atomic(os.path.join(edir, MANIFEST),
+                                          payload)
+
+            default_policy().run(commit, what="ckpt.manifest")
+            self._inflight_dir = None
+        if self._multihost():
+            self.ctx.net.barrier()
+
     def _write_file(self, edir: str, name: str, payload: bytes) -> dict:
         path = os.path.join(edir, name)
 
@@ -285,23 +352,28 @@ class CheckpointManager:
                 "bytes": len(payload)}
 
     def _worker_payloads(self, shards: DeviceShards):
-        """Yield ``(worker, its serialize_leaves payload)``, workers in
-        order. On the card each worker slice leaves through the
-        governor's staging ring (the next slice's copy runs while this
-        one is taken) and is copied once, into its worker's payload."""
+        """Yield ``(global worker index, its serialize_leaves payload)``
+        for this process's workers, in order: the rows of its
+        ``[W_local, cap]`` leaves only. On the card each worker slice
+        leaves through the governor's staging ring (the next slice's copy
+        runs while this one is taken) and is copied once, into its
+        worker's payload."""
+        shards.validate_pending()
         leaves = pt.leaves(shards.tree)
-        W, L = shards.num_workers, len(leaves)
+        L = len(leaves)
         counts = [int(c) for c in shards.counts]
+        base = shards.mesh_exec.worker_base
         if shards.mesh_exec.device.type != "cuda":
-            for w in range(W):
-                yield w, serialize_leaves(
-                    [leaf[w, :counts[w]].numpy() for leaf in leaves])
+            for w, c in enumerate(counts):
+                yield base + w, serialize_leaves(
+                    [leaf[w, :c].numpy() for leaf in leaves])
             return
-        slices = [leaf[w, :counts[w]] for w in range(W) for leaf in leaves]
+        slices = [leaf[w, :c] for w, c in enumerate(counts)
+                  for leaf in leaves]
         staged = self.ctx.hbm._ring.download(slices)
-        for w in range(W):
+        for w in range(len(counts)):
             mine = slices[w * L:(w + 1) * L]
-            yield w, pack_leaves(
+            yield base + w, pack_leaves(
                 [(_np_dtype(t.dtype), t.shape) for t in mine], staged)
 
     def _write_payloads(self, node, edir: str, payloads, steps: dict):
@@ -330,9 +402,13 @@ class CheckpointManager:
         skeleton = pt.unflatten(treedef, list(range(len(leaves))))
         files, nbytes = self._write_payloads(
             node, edir, self._worker_payloads(shards), steps)
+        # this process's counts by global worker; ``save`` makes them the
+        # manifest's list of every worker's
+        counts = {str(w): int(c) for w, c in zip(self._local_workers(),
+                                                 shards.counts)}
         rec = {"key": node_key(node), "dia_id": node.id,
                "label": node.label, "kind": "device",
-               "counts": [int(c) for c in shards.counts],
+               "counts": counts,
                "cap": int(shards.cap),
                "skeleton": base64.b64encode(
                    pickle.dumps(skeleton)).decode("ascii"),
@@ -341,10 +417,14 @@ class CheckpointManager:
 
     def _save_host(self, node, shards: HostShards, edir: str,
                    steps: dict):
+        local = self._local_workers()
         files, nbytes = self._write_payloads(
-            node, edir, ((w, serialize_batch(list(items)))
-                         for w, items in enumerate(shards.lists)), steps)
-        counts = {str(w): len(items) for w, items in enumerate(shards.lists)}
+            node, edir, ((w, serialize_batch(list(shards.lists[w])))
+                         for w in local), steps)
+        # a dict in one process, as the reference's; across processes
+        # ``save`` merges every process's into a list, as the
+        # reference's does
+        counts = {str(w): len(shards.lists[w]) for w in local}
         rec = {"key": node_key(node), "dia_id": node.id,
                "label": node.label, "kind": "host",
                "counts": counts, "files": files}
@@ -359,63 +439,80 @@ class CheckpointManager:
         same items has. The ``ckpt.resize_manifest`` site fires before
         any byte lands; an uncommitted epoch (a SIGKILL mid-seal) is
         swept at the next resume; a committed W' epoch without a marker
-        is rejected by an old-W resume. One controller: files and
+        is rejected by an old-W resume. Across processes every process
+        sends its workers' payloads to rank 0 over the host control
+        plane (the joiners of a grow do not exist yet), which re-splits
+        and writes every W' file, under the abort protocol. Files and
         manifest are the reference's, byte for byte."""
+        from ..net.group import poison_on_error
+        grp = self.ctx.net.group if self._multihost() else None
+        with poison_on_error(grp, "ckpt.seal_resize"):
+            return self._seal_resize_guarded(node, shards, target_w)
+
+    def _seal_resize_guarded(self, node, shards, target_w: int) -> int:
+        from ..data.shards import resplit_leaves
         t0 = time.perf_counter()
         target_w = int(target_w)
         old_w = self.ctx.mesh_exec.num_workers
         faults.check(_F_RESIZE_MANIFEST, stage="seal", target=target_w,
                      old=old_w)
-        epoch = self._next_epoch
-        self._next_epoch += 1
-        edir = os.path.join(self.dir, _EPOCH_FMT.format(epoch))
+        # this process's workers' payloads, then every worker's at rank 0
         if isinstance(shards, DeviceShards):
-            from ..data.shards import resplit_leaves
-            per_worker = shards.to_worker_arrays()
             leaves, treedef = pt.flatten(shards.tree)
             skeleton = pt.unflatten(treedef, list(range(len(leaves))))
-            new_leaves = resplit_leaves(
-                [[np.asarray(l) for l in pt.leaves(t)] for t in per_worker],
-                target_w)
-            counts = [int(l[0].shape[0]) if l else 0 for l in new_leaves]
-            payloads = [serialize_leaves(l) for l in new_leaves]
-            rec: Dict[str, Any] = {
-                "key": node_key(node), "dia_id": node.id,
-                "label": node.label, "kind": "device",
-                "counts": counts, "cap": max([1] + counts),
-                "skeleton": base64.b64encode(
-                    pickle.dumps(skeleton)).decode("ascii")}
+            local_tab = dict(self._worker_payloads(shards))
+            kind = "device"
         elif isinstance(shards, HostShards):
-            lists = [deserialize_batch(serialize_batch(list(items)))
-                     for items in shards.lists]
-            new = HostShards(old_w, lists).repartition(target_w)
-            counts = [len(l) for l in new.lists]
-            payloads = [serialize_batch(l) for l in new.lists]
-            rec = {"key": node_key(node), "dia_id": node.id,
-                   "label": node.label, "kind": "host", "counts": counts}
+            skeleton = None
+            local_tab = {w: serialize_batch(list(shards.lists[w]))
+                         for w in self._local_workers()}
+            kind = "host"
         else:
             raise TypeError(
                 f"cannot seal {type(shards).__name__} for a resize")
-        os.makedirs(edir, exist_ok=True)
-        self._inflight_dir = edir
-        files: Dict[str, Any] = {}
-        nbytes = 0
-        for w in range(target_w):
-            files[str(w)] = self._write_file(edir, f"n{node.id}.w{w}.bin",
-                                             payloads[w])
-            nbytes += len(payloads[w])
-        rec["files"] = files
-        manifest = {"format": 1, "epoch": epoch, "workers": target_w,
-                    "resize": {"from": old_w, "to": target_w},
-                    "node": rec}
-        payload = json.dumps(manifest, sort_keys=True).encode()
-
-        def commit():
-            faults.check(_F_MANIFEST, epoch=epoch)
-            file_io.write_file_atomic(os.path.join(edir, MANIFEST), payload)
-
-        default_policy().run(commit, what="ckpt.manifest")
-        self._inflight_dir = None
+        if self._multihost():
+            full: Dict[int, bytes] = {}
+            for tab in self.ctx.net.all_gather(local_tab):
+                full.update({int(w): p for w, p in tab.items()})
+        else:
+            full = local_tab
+        epoch = self._next_epoch
+        self._next_epoch += 1
+        edir = os.path.join(self.dir, _EPOCH_FMT.format(epoch))
+        nbytes, manifest = 0, None
+        if self._host_rank() == 0:
+            if kind == "device":
+                new_leaves = resplit_leaves(
+                    [deserialize_leaves(full[w]) for w in range(old_w)],
+                    target_w)
+                counts = [int(l[0].shape[0]) if l else 0 for l in new_leaves]
+                payloads = [serialize_leaves(l) for l in new_leaves]
+                rec: Dict[str, Any] = {
+                    "key": node_key(node), "dia_id": node.id,
+                    "label": node.label, "kind": "device",
+                    "counts": counts, "cap": max([1] + counts),
+                    "skeleton": base64.b64encode(
+                        pickle.dumps(skeleton)).decode("ascii")}
+            else:
+                lists = [deserialize_batch(full[w]) for w in range(old_w)]
+                new = HostShards(old_w, lists).repartition(target_w)
+                counts = [len(l) for l in new.lists]
+                payloads = [serialize_batch(l) for l in new.lists]
+                rec = {"key": node_key(node), "dia_id": node.id,
+                       "label": node.label, "kind": "host",
+                       "counts": counts}
+            os.makedirs(edir, exist_ok=True)
+            self._inflight_dir = edir
+            files: Dict[str, Any] = {}
+            for w in range(target_w):
+                files[str(w)] = self._write_file(
+                    edir, f"n{node.id}.w{w}.bin", payloads[w])
+                nbytes += len(payloads[w])
+            rec["files"] = files
+            manifest = {"format": 1, "epoch": epoch, "workers": target_w,
+                        "resize": {"from": old_w, "to": target_w},
+                        "node": rec}
+        self._commit(edir, manifest)
         self.epochs_written += 1
         self.bytes_written += nbytes
         log = self.ctx.logger
@@ -431,9 +528,10 @@ class CheckpointManager:
                              generation: Optional[int] = None,
                              procs: Optional[int] = None) -> str:
         """Commit the move: the marker tells the supervisor, and any
-        relaunch however the process died, to relaunch at ``target_w``.
-        Atomic (a temporary file renamed); the fault site fires first,
-        so a failure commits nothing."""
+        relaunch however the process died, to relaunch at ``target_w``
+        (``target_procs`` processes in its ``-w`` mode). Atomic (a
+        temporary file renamed) and written by rank 0, then a barrier;
+        the fault site fires first, so a failure commits nothing."""
         faults.check(_F_RESIZE_MANIFEST, stage="marker",
                      target=int(target_w))
         payload = json.dumps(
@@ -443,12 +541,21 @@ class CheckpointManager:
              "epoch": epoch, "generation": generation},
             sort_keys=True).encode()
         path = resize_marker_path(self.dir)
-        default_policy().run(
-            lambda: file_io.write_file_atomic(path, payload),
-            what="ckpt.resize_marker")
+        if self._host_rank() == 0:
+            default_policy().run(
+                lambda: file_io.write_file_atomic(path, payload),
+                what="ckpt.resize_marker")
+        if self._multihost():
+            self.ctx.net.barrier()
         return path
 
     # -- resume ---------------------------------------------------------
+    def _load_manifest_for(self, epoch: int) -> Optional[dict]:
+        """One epoch's manifest (the agreement between processes chose an
+        epoch older than this process's newest)."""
+        return self._try_load_manifest(
+            os.path.join(self.dir, _EPOCH_FMT.format(epoch)))
+
     def _try_load_manifest(self, edir: str) -> Optional[dict]:
         mpath = os.path.join(edir, MANIFEST)
         if not os.path.isfile(mpath):
@@ -543,9 +650,13 @@ class CheckpointManager:
 
     def _restore_agreed(self, label: str, fallback: str):
         """Rebuild the manifest node's shards: (shards, seconds), or None
-        after a loud note when the epoch is corrupt. One controller
-        agrees with itself; the multi-controller agreement waits for
-        ROADMAP item 6, its checkpoint part."""
+        after a loud note when the epoch is corrupt. All or nothing
+        across processes: one process computing the node while the
+        others restore it would enter its upstream exchanges alone. The
+        agreement runs in lockstep (``restorable()`` is the same on every
+        process after the startup agreement), and a process that
+        restored but whose peer failed notes ``ckpt.restore_abandoned``
+        and computes too."""
         m = self._manifest
         rec = m["node"]
         t0 = time.perf_counter()
@@ -560,6 +671,15 @@ class CheckpointManager:
                   file=sys.stderr)
             faults.note("recovery", what="ckpt.restore_failed",
                         node=label, epoch=m["epoch"], error=repr(e))
+            shards = None
+        if self._multihost():
+            oks = self.ctx.net.all_gather(shards is not None)
+            if not all(oks) and shards is not None:
+                faults.note("recovery", what="ckpt.restore_abandoned",
+                            node=label, epoch=m["epoch"],
+                            peers_failed=oks.count(False))
+                shards = None
+        if shards is None:
             return None
         dt = time.perf_counter() - t0
         self.restored_nodes += 1
@@ -623,16 +743,19 @@ class CheckpointManager:
                 mex, drec, _IOSTATS.delta(_IOSTATS.snapshot(), io0))
 
     def _restore_device(self, rec: dict, edir: str) -> DeviceShards:
+        """This process's workers' files into ``[W_local, cap]`` leaves,
+        on the card through the staging ring; the current stream waits
+        for the uploads before anything reads the leaves."""
         mex = self.ctx.mesh_exec
-        W = mex.num_workers
         counts = np.asarray([int(c) for c in rec["counts"]], dtype=np.int64)
         cap = int(rec["cap"])
         skeleton = pickle.loads(base64.b64decode(rec["skeleton"]))
         ids, treedef = pt.flatten(skeleton)
         n_leaves = len(ids)
+        local = self._local_workers()
         per_worker: Dict[int, List[np.ndarray]] = {}
         t0 = time.perf_counter()
-        for w, data in self._overlapped_reads(edir, rec, range(W)):
+        for w, data in self._overlapped_reads(edir, rec, local):
             leaves = deserialize_leaves(data)
             if len(leaves) != n_leaves:
                 raise IOError(f"worker {w}: {len(leaves)} leaves, the "
@@ -643,21 +766,22 @@ class CheckpointManager:
             per_worker[w] = leaves
         t1 = time.perf_counter()
         dev = mex.device
+        first = local[0]
         out_leaves, items = [], []
         for i in range(n_leaves):
-            tail = per_worker[0][i].shape[1:]
-            dtype = per_worker[0][i].dtype
-            for w in range(W):
+            tail = per_worker[first][i].shape[1:]
+            dtype = per_worker[first][i].dtype
+            for w in local:
                 arr = per_worker[w][i]
                 if arr.dtype != dtype or arr.shape[1:] != tail:
                     raise IOError(
                         f"worker {w} leaf {i}: {arr.dtype}{arr.shape} does "
-                        f"not match worker 0's {dtype}(*, {tail}): corrupt "
-                        f"epoch")
-            leaf = torch.zeros((W, cap) + tuple(tail),
+                        f"not match worker {first}'s {dtype}(*, {tail}): "
+                        f"corrupt epoch")
+            leaf = torch.zeros((len(local), cap) + tuple(tail),
                                dtype=_torch_dtype(dtype), device=dev)
-            items += [(leaf[w, :int(counts[w])], per_worker[w][i])
-                      for w in range(W)]
+            items += [(leaf[j, :int(counts[w])], per_worker[w][i])
+                      for j, w in enumerate(local)]
             out_leaves.append(leaf)
         if dev.type == "cuda":
             self.ctx.hbm._ring.upload(
@@ -665,7 +789,11 @@ class CheckpointManager:
         else:
             for dst, arr in items:
                 dst.numpy()[...] = arr
-        shards = DeviceShards(mex, pt.unflatten(treedef, out_leaves), counts)
+        shards = DeviceShards(mex, pt.unflatten(treedef, out_leaves),
+                              counts[local[0]:local[-1] + 1])
+        if mex.multiprocess:
+            # every worker's counts are the manifest's: no gather needed
+            shards._counts_global = counts
         log = self.ctx.logger
         if log.enabled:
             # read_s: the shard files read, CRC-checked and decoded;
@@ -678,13 +806,16 @@ class CheckpointManager:
         return shards
 
     def _restore_host(self, rec: dict, edir: str) -> HostShards:
+        """This process's workers' lists (the others stay empty across
+        processes, the reference's host-storage invariant)."""
         W = self.ctx.mesh_exec.num_workers
         lists: List[List[Any]] = [[] for _ in range(W)]
-        for w in range(W):
+        local = self._local_workers()
+        for w in local:
             if rec["files"].get(str(w)) is None:
                 raise IOError(f"worker {w}: shard file missing from "
                               f"manifest")
-        for w, data in self._overlapped_reads(edir, rec, range(W)):
+        for w, data in self._overlapped_reads(edir, rec, local):
             lists[w] = deserialize_batch(data)
             want = (int(rec["counts"].get(str(w), len(lists[w])))
                     if isinstance(rec["counts"], dict)
@@ -703,7 +834,7 @@ class CheckpointManager:
     def cleanup_incomplete(self) -> int:
         """Remove the epoch directories without a manifest (a crashed
         run's half-written epoch); only at resume, when the run that
-        wrote them is gone."""
+        wrote them is gone, and by rank 0 alone across processes."""
         removed = 0
         for edir in self._epoch_dirs():
             if os.path.isfile(os.path.join(edir, MANIFEST)):

@@ -46,9 +46,17 @@ supervised relaunch takes over, as for a dead peer.
 Elasticity: :meth:`Context.resize` changes W at a generation boundary
 (every live result re-split to the W' layout a fresh W'-wide run makes,
 the old W's plan state parked per W in the mesh), and
-:meth:`Context.resize_processes` is the supervised move of one
-controller (seal a RESIZE epoch, commit the marker, exit
-``RESIZE_EXIT_CODE`` for ``run-scripts/supervise.sh``)."""
+:meth:`Context.resize_processes` is the supervised move (seal a RESIZE
+epoch, commit the marker, exit ``RESIZE_EXIT_CODE`` for
+``run-scripts/supervise.sh``), of one controller or of every process of
+a mesh.
+
+Tenants: ``current_tenant`` is stamped on every node made while it is
+set (``node._tenant``, beside ``_generation``) and on the tracer's
+spans; the HBM governor keeps a ledger of each tenant's device bytes
+and spills an over-budget tenant's own results (mem/hbm.py). The port
+has no scheduler yet (ROADMAP.md item 6, its service-plane part): the
+caller sets it."""
 
 from __future__ import annotations
 
@@ -65,6 +73,7 @@ import torch
 from ..common import faults
 from ..common.config import Config
 from ..common.logger import JsonLogger, default_log_path
+from ..core.em_runs import adopted_total
 from ..mem.hbm import HbmGovernor
 from ..mem.manager import MemoryConfig
 from ..mem.pressure import PressureMonitor
@@ -193,6 +202,10 @@ class Context:
         from ..common.doctor import Doctor, doctor_enabled
         from ..common.trace import Tracer
         self.tracer = Tracer(rank=self.host_rank, logger=self.logger)
+        # the tenant that nodes made now belong to (set by the caller;
+        # the service plane's scheduler will set it around each job)
+        self.current_tenant: Optional[str] = None
+        self.tracer.tenant_fn = lambda: self.current_tenant
         self.doctor = (Doctor(rank=self.host_rank) if doctor_enabled()
                        else None)
         self.net.group.tracer = self.tracer
@@ -416,14 +429,20 @@ class Context:
 
     def resize_processes(self, num_workers: int, state=None,
                          drain_timeout_s: Optional[float] = None):
-        """The supervised process-level move of one controller
-        (reference: ``api/context.py:620``): seal a RESIZE checkpoint
-        epoch of ``state`` re-split to ``num_workers`` workers, pass the
-        relaunch gate of the host group, commit the RESIZE marker and
-        raise :class:`ResizeRelaunch`, which exits the process with
+        """The supervised process-level move (reference:
+        ``api/context.py:620-729``): seal a RESIZE checkpoint epoch of
+        ``state`` re-split to ``num_workers`` workers, pass the relaunch
+        gate of the host group, commit the RESIZE marker and raise
+        :class:`ResizeRelaunch`, which exits the process with
         :data:`RESIZE_EXIT_CODE`; ``run-scripts/supervise.sh`` then
         relaunches the job at W' with ``THRILL_TPU_RESUME=1``, and the
-        resume restores the sealed epoch. Never returns.
+        resume restores the sealed epoch. Never returns. On a mesh of
+        several processes every process calls it at the same point: W'
+        must be a multiple of the workers each process holds, the marker
+        names ``target_procs`` (W' over them), which ``supervise.sh -w``
+        launches, and every process exits on its own from the marker's
+        barrier on (``close`` and ``overall_stats`` run no collective
+        then).
 
         ``state`` is the DIA whose materialized shards carry across
         (``Execute()``/``Keep`` it first); None commits a move without
@@ -434,9 +453,7 @@ class Context:
         yet), MARKER (``ckpt.resize_manifest`` at stage ``marker``: the
         point of no return; a relaunch after it completes the move),
         EXIT. The port has no service plane to drain yet (ROADMAP.md
-        item 6, its service-plane part). On a mesh of several processes
-        this raises NotImplementedError before any step: the agreement
-        between controllers is item 6, its checkpoint part."""
+        item 6, its service-plane part)."""
         from ..net.group import resize_enabled
         if self._closed:
             raise RuntimeError("Context is closed")
@@ -444,11 +461,6 @@ class Context:
             raise RuntimeError(
                 "THRILL_TPU_RESIZE=0 pins the worker count for this "
                 "job; unset it to allow Context.resize_processes")
-        if self.mesh_exec.multiprocess or self.net.num_workers > 1:
-            raise NotImplementedError(
-                "resize_processes across processes needs the checkpoint "
-                "agreement between controllers: ROADMAP.md queue A item "
-                "6, its checkpoint part")
         if self.checkpoint is None:
             raise ValueError(
                 "resize_processes needs THRILL_TPU_CKPT_DIR: the RESIZE "
@@ -463,6 +475,14 @@ class Context:
                 f"already running W={old_w}: resize_processes is a "
                 f"whole-process relaunch, a same-W move would restart "
                 f"the job for nothing")
+        procs = self.mesh_exec.num_processes
+        local = max(1, old_w // procs)
+        if procs > 1 and new_w % local:
+            raise ValueError(
+                f"W'={new_w} is not a multiple of the {local} workers each "
+                f"process contributes; the supervisor relaunches whole "
+                f"processes")
+        target_procs = new_w // local if procs > 1 else 1
         t0 = time.monotonic()
         # 1) seal
         epoch = None
@@ -477,12 +497,13 @@ class Context:
             epoch = self.checkpoint.seal_resize(node, shards, new_w)
         # 2) gate: settle the move's generation over the old group
         gen = self._gen_counter + 1
-        self.net.group.prepare_relaunch(1, gen)
+        self.net.group.prepare_relaunch(target_procs, gen)
         self._gen_counter = gen
         self.generation = gen
         # 3) marker: the point of no return
         self.checkpoint.commit_resize_marker(new_w, epoch=epoch,
-                                             generation=gen, procs=1)
+                                             generation=gen,
+                                             procs=target_procs)
         # 4) exit
         self._resize_exiting = True
         self.stats_resizes_proc += 1
@@ -493,7 +514,8 @@ class Context:
                     generation=gen, _quiet=True)
         if self.logger.enabled:
             self.logger.line(event="resize_processes", workers_old=old_w,
-                             workers_new=new_w, procs_old=1, procs_new=1,
+                             workers_new=new_w, procs_old=procs,
+                             procs_new=target_procs,
                              epoch=epoch, generation=gen,
                              seconds=round(dt, 4))
         raise ResizeRelaunch(new_w, epoch=epoch, generation=gen)
@@ -811,7 +833,10 @@ class Context:
         (OverallStats): the mesh's exchange traffic, the nodes created,
         the HBM governor's ledger peak (``hbm_peak``: the most bytes of
         cached device results at once, not the allocator's peak), its
-        spills and restores, the pressure ladder's counters, the
+        spills and restores, its tenant ledger's peaks
+        (``tenant_hbm_peaks``) and spills (``tenant_spills``), the runs
+        of the external Sort adopted from departed processes
+        (``runs_adopted``), the pressure ladder's counters, the
         dispatch choke point's (``device_dispatches``,
         ``device_fetches``: host syncs), stitching's
         (``fused_dispatches``, ``fused_ops``, ``fused_stages``: each
@@ -826,11 +851,12 @@ class Context:
         ``decisions_recorded``/``_joined``, ``decision_accuracy``) and,
         with a checkpoint manager, its five (epochs, bytes written, ops
         and sort runs skipped by resume, restore seconds). Across
-        processes (unless ``local_only``) the counters are gathered:
-        items and bytes moved, waits and delayed faults sum over the
-        processes, ``hbm_peak`` and ``skew_ratio`` take the largest,
-        every other counter is process 0's (a plan counter is the same
-        on every process), and ``hosts`` counts the processes
+        processes (unless ``local_only``, or once a committed resize
+        move is exiting) the counters are gathered: items and bytes
+        moved, waits, delayed faults, adopted runs and tenant spills sum
+        over the processes, ``hbm_peak`` and ``skew_ratio`` take the
+        largest, every other counter is process 0's (a plan counter is
+        the same on every process), and ``hosts`` counts the processes
         (reference: ``api/context.py:911``)."""
         mex = self.mesh_exec
         fstats = faults.REGISTRY.stats()
@@ -871,6 +897,8 @@ class Context:
                 for k, v in self.decisions.accuracy().items()
                 if v.get("mae_log2") is not None},
             "hbm_peak": self.hbm.mem.peak,
+            "tenant_hbm_peaks": dict(self.hbm.tenant_peaks),
+            "tenant_spills": self.hbm.tenant_spill_count,
             "hbm_spills": self.hbm.spill_count,
             "hbm_restores": self.hbm.restore_count,
             **self.pressure.stats(),
@@ -888,6 +916,7 @@ class Context:
             "resizes": self.stats_resizes,
             "resize_time_s": round(self.stats_resize_time_s, 4),
             "resizes_proc": self.stats_resizes_proc,
+            "runs_adopted": adopted_total(),
             "conn_reconnects": getattr(self.net.group, "stats_reconnects",
                                        0),
             "stale_frames_dropped": getattr(self.net.group,
@@ -896,12 +925,16 @@ class Context:
         if self.checkpoint is not None:
             stats.update(self.checkpoint.stats())
         if self.net.num_workers > 1 and not local_only \
-                and not self._aborted:
+                and not self._aborted and not self._resize_exiting:
             per_host = self.net.all_gather(stats)
             peaks = {"hbm_peak", "skew_ratio"}
+            # runs adopted and tenant spills are each process's own
+            # events; tenant_hbm_peaks stays process 0's (the
+            # reference's rule)
             sums = {"items_moved", "bytes_moved", "faults_delayed",
                     "collective_wait_s", "wait_net_s", "wait_exchange_s",
-                    "wait_io_s", "wait_skew_s"}
+                    "wait_io_s", "wait_skew_s", "runs_adopted",
+                    "tenant_spills"}
             stats = {k: (max(h[k] for h in per_host) if k in peaks
                          else sum(h[k] for h in per_host) if k in sums
                          else per_host[0][k]) for k in stats}
@@ -925,7 +958,11 @@ class Context:
         poisoned with the cause (a received abort is not sent back), and
         ``close()`` then drops this run's
         uncommitted epoch and the spill files of dead processes. Its
-        deferred checks and a loop capture in progress are dropped."""
+        deferred checks and a loop capture in progress are dropped. The
+        exit of a committed resize move (:class:`ResizeRelaunch`) is no
+        failure: it changes nothing."""
+        if isinstance(exc, ResizeRelaunch) and self._resize_exiting:
+            return
         self._aborted = True
         try:
             self.decisions.dump_beside(self.tracer.dump_flight(
@@ -942,7 +979,8 @@ class Context:
     def close(self) -> None:
         """Save the plan store, log the stats, detach the log and free
         the spill store (a spilled result cannot be pulled after
-        this)."""
+        this). It runs no collective: after a committed resize move
+        every process exits at its own pace."""
         self._closed = True
         if self._profiler is not None:
             self._profiler.stop()

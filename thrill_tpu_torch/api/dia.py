@@ -231,6 +231,27 @@ class DIA:
         """Free the node's result now; a later use raises RuntimeError."""
         self.node.dispose()
 
+    def explain(self) -> str:
+        """This DIA's upstream plan as an annotated tree (reference:
+        ``api/dia.py:208``): its ops, fused segments, the exchange of
+        each shuffle and every recorded decision with its reason and
+        audit (``Context.explain`` renders every node). It reads the
+        decision ledger and changes nothing."""
+        from ..common.decisions import render_plan
+        nodes, stack, seen = [], [self.node], set()
+        while stack:
+            n = stack.pop()
+            if n.id in seen:
+                continue
+            seen.add(n.id)
+            nodes.append(n)
+            stack.extend(p.node for p in n.parents)
+        return render_plan(
+            [{"id": n.id, "label": n.label, "state": n.state,
+              "parents": [p.node.id for p in n.parents]} for n in nodes],
+            self.context.decisions.snapshot(), W=self.context.num_workers,
+            title=f"{self.node.label}#{self.node.id}")
+
     # -- actions -------------------------------------------------------
     def Size(self) -> int:
         from .ops import actions

@@ -115,6 +115,8 @@ class DIABase:
         # the failure domain: a heal disposes the nodes of the failed
         # generation only, and earlier pipelines' cached results stay
         self._generation = getattr(ctx, "generation", 0)
+        # the tenant: its device bytes count in that tenant's HBM ledger
+        self._tenant = getattr(ctx, "current_tenant", None)
         self.state = NEW
         self._shards: Optional[Shards] = None
         # every node's result may be used once; Keep(n) allows n more

@@ -255,8 +255,10 @@ class InnerJoinNode(DIABase):
                 if n._shards is o and getattr(n, "_hbm_bytes", 0):
                     nb = device_bytes(o)
                     hbm.mem.subtract(n._hbm_bytes)
+                    hbm._tenant_sub(n, n._hbm_bytes)
                     n._hbm_bytes = nb
                     hbm.mem.add(nb)
+                    hbm._tenant_add(n, nb)
                     break
             faults.note("recovery", what="join_out_size_hint", node=label,
                         dia_id=dia_id, hint=int(hint), true_max=worst,

@@ -22,8 +22,14 @@ rank), so the same program maps each Sort to the same directory.
 ``THRILL_TPU_EM_RESUME=0`` turns the store off. No entry point raises:
 a store failure leaves the sort without resume.
 
-Not ported (ROADMAP item 6, its checkpoint part): orphan adoption (``adopt_orphan_runs``,
-``OWNER.json``/``ADOPTED.json``) and remote stores.
+Orphan adoption (reference: ``core/em_runs.py:60-183``): every store
+records its owner process in ``OWNER.json``. A process that joins a
+group in a departed rank's place (``net/tcp.py`` ``join_tcp_group``)
+calls :func:`adopt_orphan_runs`, which claims the committed runs of its
+rank's stores whose owner is gone and marks each such store
+``ADOPTED.json``; an adopted store loads its runs without resume mode.
+Both files are the reference's, byte for byte. Remote stores are
+ROADMAP item 6, its remote-vfs part.
 """
 
 from __future__ import annotations
@@ -43,6 +49,17 @@ _F_MANIFEST = faults.declare("em.run.manifest")
 
 _MAGIC = 0x454D5231  # "EMR1"
 
+# orphan adoption: OWNER.json names the process that owns a store (a
+# store whose owner still runs is no orphan); ADOPTED.json marks a store
+# claimed by a joiner, whose RunStore then loads runs without resume
+# mode. Only the same rank id adopts: the host rank in the signature
+# pins the input that rank saw, so another rank's runs would never pass
+# the identity check
+_OWNER = "OWNER.json"
+_ADOPTED = "ADOPTED.json"
+_adopt_lock = threading.Lock()
+_adopted = 0
+
 # width of the pool that commits runs (and, on resume, reads manifests
 # and keeps bins in flight): the reference's default, which nothing sets
 COMMIT_CONC = 4
@@ -50,6 +67,97 @@ COMMIT_CONC = 4
 
 def _enabled() -> bool:
     return os.environ.get("THRILL_TPU_EM_RESUME", "1") != "0"
+
+
+def adopted_total() -> int:
+    """Runs this process adopted from departed owners
+    (``runs_adopted`` of ``Context.overall_stats``)."""
+    with _adopt_lock:
+        return _adopted
+
+
+def _pid_alive(pid: int) -> bool:
+    try:
+        os.kill(int(pid), 0)
+        return True
+    except (OSError, ValueError, TypeError):
+        return False
+
+
+def adopt_orphan_runs(ckpt_dir: str, my_rank: int) -> int:
+    """Adopt the committed runs a departed rank left: scan
+    ``<ckpt_dir>/em_runs/*_h<my_rank>`` for stores whose owner process
+    is gone, check each committed run (its manifest parses and holds
+    every key, its bin has the manifest's size; the CRC is checked when
+    the run loads), take the ownership and mark the store adopted.
+    Returns the runs adopted; never raises, and a missing store adopts
+    nothing. Remote directories are skipped."""
+    global _adopted
+    if not _enabled() or not ckpt_dir or "://" in ckpt_dir:
+        return 0
+    from ..vfs.file_io import write_file_atomic
+    base = os.path.join(ckpt_dir.rstrip("/"), "em_runs")
+    suffix = f"_h{int(my_rank)}"
+    total = 0
+    try:
+        sigs = sorted(os.listdir(base))
+    except OSError:
+        return 0
+    for sig in sigs:
+        if not sig.endswith(suffix):
+            continue
+        sdir = os.path.join(base, sig)
+        if not os.path.isdir(sdir) \
+                or os.path.isfile(os.path.join(sdir, _ADOPTED)):
+            continue
+        try:
+            opath = os.path.join(sdir, _OWNER)
+            try:
+                with open(opath, "rb") as fh:
+                    owner = json.loads(fh.read().decode("ascii"))
+            except (OSError, ValueError):
+                owner = None           # a store without an owner record
+            if owner is not None:
+                pid = owner.get("pid")
+                if pid == os.getpid() or _pid_alive(pid):
+                    continue           # this process's, or a live owner's
+            verified = 0
+            for name in sorted(os.listdir(sdir)):
+                if not (name.startswith("run_") and name.endswith(".json")):
+                    continue
+                try:
+                    with open(os.path.join(sdir, name), "rb") as fh:
+                        man = json.loads(fh.read().decode("ascii"))
+                    if not all(k in man for k in ("slot", "pos0", "n", "fp",
+                                                  "crc", "bin_bytes")):
+                        raise ValueError("manifest missing keys")
+                    bin_path = os.path.join(sdir,
+                                            name[:-len(".json")] + ".bin")
+                    if os.path.getsize(bin_path) != man["bin_bytes"]:
+                        raise ValueError("bin size mismatch")
+                    verified += 1
+                except (OSError, ValueError) as e:
+                    faults.note("recovery", what="em_runs.adopt_skipped_run",
+                                sig=sig, run=name, error=repr(e)[:200])
+            if not verified:
+                continue
+            write_file_atomic(
+                os.path.join(sdir, _ADOPTED),
+                json.dumps({"runs": verified, "by_pid": os.getpid(),
+                            "from_pid": (owner or {}).get("pid")}
+                           ).encode("ascii"))
+            write_file_atomic(opath, json.dumps(
+                {"pid": os.getpid(), "rank": int(my_rank)}).encode("ascii"))
+            total += verified
+            faults.note("recovery", what="em_runs.adopted", sig=sig,
+                        runs=verified, _quiet=True)
+        except Exception as e:
+            faults.note("recovery", what="em_runs.adopt_failed", sig=sig,
+                        error=repr(e)[:200])
+    if total:
+        with _adopt_lock:
+            _adopted += total
+    return total
 
 
 def fingerprint(item) -> int:
@@ -89,6 +197,11 @@ class RunStore:
         self.base = base
         self.mgr = mgr          # the CheckpointManager (resume counters)
         self.resume = bool(getattr(mgr, "resume", False))
+        # a store a joiner adopted loads its runs without resume mode
+        # (probed only once this process adopted something)
+        if not self.resume and adopted_total() > 0 \
+                and os.path.isfile(os.path.join(base, _ADOPTED)):
+            self.resume = True
         # commits of different runs are independent: a small pool
         # overlaps them, unless write-behind is off
         # (THRILL_TPU_WRITEBACK=0 commits in the caller's thread)
@@ -102,6 +215,14 @@ class RunStore:
         self._binfut: dict = {}             # bin path -> Future
         self._warm_evt: Optional[threading.Event] = None
         os.makedirs(base, exist_ok=True)
+        # the owner record the adoption scan reads; best effort (a store
+        # without one is adoptable once its runs check out)
+        try:
+            from ..vfs.file_io import write_file_atomic
+            write_file_atomic(os.path.join(base, _OWNER),
+                              json.dumps({"pid": os.getpid()}).encode("ascii"))
+        except Exception:
+            pass
         if self.resume:
             self._warm_evt = threading.Event()
             threading.Thread(target=self._warm_bg, daemon=True,

@@ -1,7 +1,7 @@
 """The HBM governor: a ledger of the cached device results and their
 spill to the host block store (counterpart of the reference package's
-``mem/hbm.py``, without the tenant ledger; Thrill: the BlockPool's soft
-and hard limits, data/block_pool.hpp:42, and ``memory_exceeded``,
+``mem/hbm.py``; Thrill: the BlockPool's soft and hard limits,
+data/block_pool.hpp:42, and ``memory_exceeded``,
 mem/malloc_tracker.hpp:36-43).
 
 The governor keeps an LRU of the nodes that hold device results and
@@ -19,6 +19,13 @@ reads it.
 A spill is best effort: a failure keeps the node resident (over budget
 beats data loss). A restore is mandatory: it retries transient faults
 and then raises.
+
+The tenant ledger (reference: ``mem/hbm.py:169-306``): beside the
+global ledger each tenant's device bytes and their peak, by the tenant
+a node was made under (``node._tenant``, ``Context.current_tenant``). A
+tenant past its budget (``tenant_budgets``) spills its own coldest
+results, never another tenant's, and never one a running compute holds
+(ROADMAP.md fault C16).
 """
 
 from __future__ import annotations
@@ -308,6 +315,13 @@ class HbmGovernor:
         self._ring = StagingRing()
         self.spill_count = 0
         self.restore_count = 0
+        # the tenant ledger: budgets (set by the caller; the service
+        # plane's tenancy will), bytes held, their peaks, and the spills
+        # an over-budget tenant made of its own results
+        self.tenant_budgets: Dict[str, int] = {}
+        self.tenant_bytes: Dict[str, int] = {}
+        self.tenant_peaks: Dict[str, int] = {}
+        self.tenant_spill_count = 0
 
     def _spill_pool(self):
         """The store, made at the first spill: the block pool's soft
@@ -327,6 +341,45 @@ class HbmGovernor:
             self._pool = BlockPool(spill_dir=cfg.spill_dir, soft_limit=soft)
         return self._pool
 
+    # -- the tenant ledger ---------------------------------------------
+    def _tenant_add(self, node, nb: int) -> None:
+        t = getattr(node, "_tenant", None)
+        if t is None or not nb:
+            return
+        b = self.tenant_bytes.get(t, 0) + nb
+        self.tenant_bytes[t] = b
+        if b > self.tenant_peaks.get(t, 0):
+            self.tenant_peaks[t] = b
+
+    def _tenant_sub(self, node, nb: int) -> None:
+        t = getattr(node, "_tenant", None)
+        if t is None or not nb:
+            return
+        self.tenant_bytes[t] = max(self.tenant_bytes.get(t, 0) - nb, 0)
+
+    def maybe_spill_tenant(self, node) -> None:
+        """While ``node``'s tenant is over its budget, spill that
+        tenant's coldest results (never ``node``, another tenant's, or
+        one a running compute holds). Best effort, like the global
+        spill; only spills that moved the tenant's bytes count."""
+        t = getattr(node, "_tenant", None)
+        if t is None:
+            return
+        budget = self.tenant_budgets.get(t)
+        if not budget or self.tenant_bytes.get(t, 0) <= budget:
+            return
+        n0 = self.spill_count
+        self.spill_coldest(need=self.tenant_bytes[t] - budget,
+                           exclude=node.id,
+                           only=lambda n: getattr(n, "_tenant", None) == t)
+        spilled = self.spill_count - n0
+        if spilled:
+            self.tenant_spill_count += spilled
+            log = self.context.logger
+            if log.enabled:
+                log.line(event="tenant_spill", tenant=t, nodes=spilled,
+                         bytes=self.tenant_bytes.get(t, 0), budget=budget)
+
     # -- node lifecycle (DIABase.materialize and dispose) ---------------
     def on_cache(self, node) -> None:
         """A node just cached a freshly computed result."""
@@ -335,7 +388,9 @@ class HbmGovernor:
             return
         node._hbm_bytes = nb
         self.mem.add(nb)
+        self._tenant_add(node, nb)
         self._lru[node.id] = node
+        self.maybe_spill_tenant(node)
         self.maybe_spill(exclude=node.id)
 
     def touch(self, node) -> None:
@@ -349,6 +404,7 @@ class HbmGovernor:
             nb = device_bytes(node._shards)
             node._hbm_bytes = nb
             self.mem.add(nb)
+            self._tenant_add(node, nb)
             log = self.context.logger
             if log.enabled:
                 log.line(event="hbm_restore", node=node.label,
@@ -357,6 +413,7 @@ class HbmGovernor:
             self._lru[node.id] = self._lru.pop(node.id)
         elif getattr(node, "_hbm_bytes", 0):
             self._lru[node.id] = node
+        self.maybe_spill_tenant(node)
         self.maybe_spill(exclude=node.id)
 
     def on_release(self, node, dropped) -> None:
@@ -366,6 +423,7 @@ class HbmGovernor:
         nb = getattr(node, "_hbm_bytes", 0)
         if nb:
             self.mem.subtract(nb)
+            self._tenant_sub(node, nb)
             node._hbm_bytes = 0
         self._lru.pop(node.id, None)
 
@@ -389,20 +447,21 @@ class HbmGovernor:
     def spill_coldest(self, need: Optional[int] = None,
                       exclude: Optional[int] = None,
                       exclude_storage: Optional[set] = None,
-                      before: Optional[Callable[[Any], None]] = None
-                      ) -> int:
+                      before: Optional[Callable[[Any], None]] = None,
+                      only: Optional[Callable[[Any], bool]] = None) -> int:
         """Spill the coldest cached results until ``need`` bytes left the
-        ledger (all of them when None); never node ``exclude``, nor a
-        result whose storage is held (:meth:`held_storages`, or in
-        ``exclude_storage``). ``before(node)`` runs ahead of each spill
-        and may raise to stop the walk. Returns the bytes freed."""
+        ledger (all of them when None); never node ``exclude``, a node
+        ``only(node)`` rejects, nor a result whose storage is held
+        (:meth:`held_storages`, or in ``exclude_storage``).
+        ``before(node)`` runs ahead of each spill and may raise to stop
+        the walk. Returns the bytes freed."""
         held = self.held_storages() | set(exclude_storage or ())
         freed = 0
         for nid in list(self._lru.keys()):
             if nid == exclude:
                 continue
             node = self._lru.get(nid)
-            if node is None:
+            if node is None or (only is not None and not only(node)):
                 continue
             if held and storages(node._shards) & held:
                 continue
@@ -431,6 +490,7 @@ class HbmGovernor:
         nb = getattr(node, "_hbm_bytes", 0)
         if nb:
             self.mem.subtract(nb)
+            self._tenant_sub(node, nb)
             node._hbm_bytes = 0
         self._lru.pop(node.id, None)
         self.spill_count += 1

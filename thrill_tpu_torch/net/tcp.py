@@ -1183,10 +1183,18 @@ def join_tcp_group(rank: int, hosts: List[Tuple[str, int]],
     group.enable_lazy_async()
     from . import heartbeat
     group._heartbeat = heartbeat.maybe_start(group)
-    # orphan-run adoption (a joiner claiming a departed rank's committed
-    # EM runs, core/em_runs.py) comes with ROADMAP.md item 6, its
-    # checkpoint part. The reference's adoption is best-effort and only
-    # adds: without it the runs re-form and results are the same.
+    # orphan-run adoption: a joiner in a departed rank's place claims
+    # that rank's committed runs of the external Sort (core/em_runs.py),
+    # so its first Sort loads them; best effort, a failure only means
+    # the runs are formed again
+    ckpt_dir = os.environ.get("THRILL_TPU_CKPT_DIR", "")
+    if ckpt_dir:
+        try:
+            from ..core.em_runs import adopt_orphan_runs
+            adopt_orphan_runs(ckpt_dir, rank)
+        except Exception as e:
+            faults.note("recovery", what="em_runs.adopt_failed",
+                        error=repr(e)[:200])
     return group
 
 

@@ -356,6 +356,33 @@ ledger bytes. R3-R6's children run beside R1, R2, R7 and R5's
 one-process run. Phase D's one process and children also run the op
 battery's element types (int16, uint16/32/64, bool: faults C21-C23).
 
+    python3 chip_smoke.py --phase-s
+
+builds the kernels and runs phase S alone (after phase R in the whole
+smoke), the service plane at the main path's widths, three seeds a
+kind (two of PageRank): S1 runs each WordCount (2^22 Zipf words a worker over 2^20),
+TeraSort (2^20 records a worker), PageRank (3 f64 iterations over
+2^22 pages and 2^24 edges) and f32 PageRank step (2^22 Zipf edges a
+worker) directly on one W = 4 Context, held against numpy, then warm
+for its counters; then six client threads of tenants a, b, c (weights
+3:1:1) submit 12, 8, 3 and 3 of them, each result equal to its direct
+run (bit for bit, the f32 step within SEG_RTOL), each job's launches,
+dispatches, counted fetches and loop counters its warm direct run's;
+S2 a job failing after device work mid-queue (its PipelineError, the
+jobs behind it S1's, ``memory_allocated`` back within R_MEM_SLACK);
+S3 tenant b's budget below its two kept TeraSorts (b's cold result
+spills by its ledger bytes, a's stay, the next jobs S1's); S4 the live
+autoscaler from W = 2 (S_AUTOSCALE) through a burst of 12 WordCounts to
+4 and back, each job at one W and equal to a fixed-W Context's; S5 the
+front door with HMAC: a TeraSort streamed in 256 KiB chunks, five
+WordCounts at one job a second (typed rate-limited rejects, retried);
+S6 two pairs of ``chip_smoke.py --s6-child COORDINATOR RANK DIR
+LAUNCH`` processes of 2 workers (gloo) serving 4 WordCounts, 2
+TeraSorts and a failing job in lockstep, digests S1's, the second pair
+warm from the first's plan store (``store_broadcast``, ``plan_builds``
+0 for its first WordCount). S6's processes start with the phase and
+wait: the first pair works from the end of S1 on, beside S2-S5.
+
     python3 chip_smoke.py --m1-compare DIR
 
 runs only phase 23's M1 of the tree at DIR (a copy of an earlier commit
@@ -7978,6 +8005,936 @@ def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
     return paths
 
 
+S_RECORDS = 1 << 22            # S: TeraSort records (2^20 a worker, W = 4)
+S_PR_ITERS = 3                 # S: PageRank iterations over PAGES, PR_EDGES
+S_SEEDS = 3                    # S: seeds of each kind of job, but
+S_PR_SEEDS = 2                 # PageRank's (cut from 3 for time)
+S_MIX = (("wordcount", 12), ("terasort", 8), ("pagerank", 3),
+         ("pagerank step", 3))  # S1: the served jobs
+S_TENANTS = ("a", "a", "b", "b", "c", "c")   # S1: the six clients' tenants
+S_WEIGHTS = "a=3,b=1,c=1"      # S1: THRILL_TPU_SERVE_WEIGHTS
+S_KERNELS = {"wordcount": ("partition_histogram", "radix_upsweep",
+                           "radix_pass", "presence_fill"),
+             "terasort": ("partition_histogram", "radix_upsweep",
+                          "radix_pass"),
+             "pagerank": ("partition_histogram", "radix_upsweep",
+                          "radix_pass", "ordered_segment_sum"),
+             "pagerank step": ("partition_histogram", "radix_upsweep",
+                               "radix_pass", "segment_sum")}
+S_AUTOSCALE = {"THRILL_TPU_AUTOSCALE_S": "0.2",
+               "THRILL_TPU_AUTOSCALE_MIN_W": "2",
+               "THRILL_TPU_AUTOSCALE_MAX_W": "4",
+               "THRILL_TPU_AUTOSCALE_UP_QUEUE": "4",
+               # one hot tick decides and no cooldown follows: both steps
+               # up land while the burst is still queued
+               "THRILL_TPU_AUTOSCALE_CONFIRM": "1",
+               "THRILL_TPU_AUTOSCALE_COOLDOWN": "0"}
+S_UNCOMPARED = ("plan_builds", "replays")   # S1: counters not held equal
+S6_TIMEOUT_S = 300             # S6: a launch's deadline
+_S = {"sum": None, "step": None}
+_S_TS = {}                     # seed -> the TeraSort's numpy records
+_S_PR = {}                     # seed -> the PageRank's numpy edges
+_S_LOCK = __import__("threading").Lock()
+_S_GRAPH_MISSES = []           # (thread, cause) of each loop graph not made
+
+
+def s_seeds(kind: str) -> int:
+    return S_PR_SEEDS if kind == "pagerank" else S_SEEDS
+
+
+def s_sum():
+    import thrill_tpu_torch as tt
+    if _S["sum"] is None:
+        _S["sum"] = tt.FieldReduce({"w": "first", "c": "sum"})
+        _S["step"] = tt.FieldReduce({"d": "first", "v": "sum"})
+    return _S["sum"], _S["step"]
+
+
+def s_wc_input(torch, seed: int):
+    """The WordCount's W=4 x 2^22 words and their ids, made on the card
+    (by the thread that runs the job)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 300 + seed)
+    voc = vocabulary(torch, gen)
+    ids = zipf_ids(torch, 4 * PER_WORKER, VOCAB, gen)
+    return {"w": voc[ids], "c": torch.ones(len(ids), dtype=torch.int64,
+                                           device=DEVICE)}, voc, ids
+
+
+def s_step_input(torch, seed: int):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 320 + seed)
+    d = zipf_ids(torch, 4 * PER_WORKER, PAGES, gen)
+    return {"d": d, "v": torch.rand(len(d), device=DEVICE, generator=gen)}
+
+
+def s_ts_input(np, seed: int):
+    if seed not in _S_TS:
+        rng = np.random.default_rng(SEED + 310 + seed)
+        rec = np.frombuffer(rng.bytes(S_RECORDS * 100), dtype=np.uint8
+                            ).reshape(S_RECORDS, 100)
+        _S_TS[seed] = {"key": np.ascontiguousarray(rec[:, :10]),
+                       "value": np.ascontiguousarray(rec[:, 10:])}
+    return _S_TS[seed]
+
+
+def s_pr_input(np, tpr, seed: int):
+    """Seed 0 is the main path's graph; seeds 1 and 2 relabel its pages
+    by a permutation, so their ranks are seed 0's relabelled exactly."""
+    if seed not in _S_PR:
+        if 0 not in _S_PR:
+            _S_PR[0] = (tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30),
+                        None)
+        if seed:
+            perm = np.random.default_rng(SEED + 330 + seed).permutation(PAGES)
+            _S_PR[seed] = (perm[_S_PR[0][0]], perm)
+    return _S_PR[seed]
+
+
+def s_job(torch, np, kind: str, seed: int, check: bool = False):
+    """``kind``'s job on ``seed`` at the main path's width; ``check``
+    also returns what the numpy check reads."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    red, step = s_sum()
+
+    def job(ctx):
+        if kind == "wordcount":
+            recs, voc, ids = s_wc_input(torch, seed)
+            out = ctx.Distribute(recs).ReduceByKey(_r_word, red) \
+                .AllGatherArrays()
+            return (out, voc, ids) if check else out
+        if kind == "terasort":
+            return ctx.Distribute(s_ts_input(np, seed)).Sort(
+                key_fn=_r_key).AllGatherArrays()
+        if kind == "pagerank":
+            return tpr.page_rank(ctx, s_pr_input(np, tpr, seed)[0], PAGES,
+                                 S_PR_ITERS)
+        edges = s_step_input(torch, seed)
+        out = ctx.Distribute(edges).ReduceToIndex(
+            _r_page, step, PAGES, neutral={"d": 0, "v": 0.0}
+        ).AllGatherArrays()
+        return (out, edges) if check else out
+    return job
+
+
+def s_counters(pk, ps, mex) -> dict:
+    c = read_launches(pk, ps)
+    c.update(dispatches=mex.stats_dispatches, fetches=mex.stats_fetches,
+             fori=mex.stats_loop_fori_iters,
+             fallbacks=mex.stats_loop_fallbacks,
+             replays=mex.stats_loop_replays,
+             plan_builds=mex.stats_plan_builds)
+    return c
+
+
+def s_counted(torch, pk, ps, fn):
+    """``fn`` wrapped: (its result, the counters it moved, its seconds
+    after synchronize, the W at its start and end). The launches of a
+    job are its own: the dispatcher runs one job at a time."""
+    def job(ctx):
+        mex = ctx.mesh_exec
+        torch.cuda.synchronize()
+        w0, c0 = ctx.num_workers, s_counters(pk, ps, mex)
+        t0 = time.perf_counter()
+        out = fn(ctx)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        c1 = s_counters(pk, ps, mex)
+        return out, {k: c1[k] - c0[k] for k in c1}, secs, (w0,
+                                                           ctx.num_workers)
+    return job
+
+
+def s_same(torch, np, kind: str, a, b) -> bool:
+    """Bit-equality of two results of ``kind``; the f32 step's sums
+    within SEG_RTOL (B3 adds in an order of its own)."""
+    if kind == "pagerank":
+        return bool(np.array_equal(a, b))
+    if sorted(a) != sorted(b):
+        return False
+    if kind == "pagerank step":
+        scale = b["v"].double().abs()
+        return bool(torch.equal(a["d"], b["d"])) and bool(
+            ((a["v"].double() - b["v"].double()).abs()
+             <= SEG_RTOL * scale + SEG_ATOL).all())
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def s_served(torch, np, pk, ps, kind: str, seed: int, refs: dict):
+    """The served form of ``kind`` on ``seed``: compares its result with
+    ``refs[(kind, seed, W)]`` or ``refs[(kind, seed)]`` inside the job
+    (on the dispatcher thread), and returns (equal, counters, seconds,
+    the W it saw)."""
+    inner = s_counted(torch, pk, ps, s_job(torch, np, kind, seed))
+
+    def job(ctx):
+        out, cnt, secs, ws = inner(ctx)
+        ref = refs.get((kind, seed, ws[0]), refs.get((kind, seed)))
+        return s_same(torch, np, kind, out, ref), cnt, secs, ws
+    job.__name__ = f"{kind.replace(' ', '_')}_{seed}"
+    return job
+
+
+def s_host(torch, kind: str, got):
+    """A direct run's result (and inputs) copied to the host, where the
+    numpy check reads them on another thread."""
+    def host(x):
+        if isinstance(x, dict):
+            return {k: v.cpu() for k, v in x.items()}
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    return tuple(host(x) for x in got) if isinstance(got, tuple) \
+        else host(got)
+
+
+def s_check(np, kind: str, seed: int, got) -> None:
+    """A direct run's result, copied to the host, against numpy."""
+    from thrill_tpu_torch.examples import page_rank as tpr
+    label = f"S1 direct {kind} seed {seed}"
+    if kind == "wordcount":
+        out, voc, ids = got
+        want = np.bincount(ids.numpy(), minlength=VOCAB)
+        check_wordcount(np, label, out, voc, want)
+    elif kind == "terasort":
+        recs = s_ts_input(np, seed)
+        kp = np.zeros((S_RECORDS, 16), dtype=np.uint8)
+        kp[:, :10] = recs["key"]
+        kw = kp.view(">u8").astype(np.uint64)
+        check_sorted(np, label, got, recs,
+                     np.lexsort((kw[:, 1], kw[:, 0])))
+    elif kind == "pagerank":
+        with _S_LOCK:
+            if "pr0" not in _S:
+                _S["pr0"] = page_rank_np(np, s_pr_input(np, tpr, 0)[0],
+                                         PAGES, S_PR_ITERS, tpr.DAMPENING)
+        want = _S["pr0"]
+        perm = s_pr_input(np, tpr, seed)[1]
+        if perm is not None:
+            relabelled = np.empty_like(want)
+            relabelled[perm] = want
+            want = relabelled
+        err = np.abs(got - want)
+        if got.shape != (PAGES,) or not (err <= PR_RTOL * want
+                                         + PR_ATOL).all():
+            raise AssertionError(f"{label}: max |diff| {err.max()}")
+    else:
+        out, edges = got
+        want = np.bincount(edges["d"].numpy(), weights=edges["v"].numpy(
+        ).astype(np.float64), minlength=PAGES)
+        err = np.abs(out["v"].numpy().astype(np.float64) - want)
+        if out["v"].shape != (PAGES,) or not (err <= SEG_RTOL * want
+                                              + SEG_ATOL).all():
+            raise AssertionError(f"{label}: max |diff| {err.max()}")
+
+
+def s_mem_probe(torch):
+    """A job: ``memory_allocated`` after the collector and the card's
+    queue."""
+    def job(ctx):
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+    return job
+
+
+def s_served_run(torch, np, tt, pk, ps, ctx, refs, counts, card) -> dict:
+    """S1: six client threads of three tenants (weights S_WEIGHTS)
+    submit S_MIX at once; each job's result and counters against its
+    direct runs'."""
+    import threading
+    jobs = [(kind, i % s_seeds(kind)) for kind, n in S_MIX
+            for i in range(n)]
+    # interleave the kinds over the clients
+    jobs = [j for _, j in sorted(enumerate(jobs),
+                                 key=lambda e: (e[0] % len(S_TENANTS),
+                                                e[0]))]
+    per_client = [jobs[c::len(S_TENANTS)] for c in range(len(S_TENANTS))]
+    futs = [None] * len(S_TENANTS)
+
+    def client(c):
+        futs[c] = [(kind, seed, ctx.submit(
+            s_served(torch, np, pk, ps, kind, seed, refs),
+            tenant=S_TENANTS[c], name=f"{kind}-{seed}-c{c}-{i}"))
+            for i, (kind, seed) in enumerate(per_client[c])]
+
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(S_TENANTS))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    done = [(kind, seed, f, f.result(600)) for fl in futs
+            for kind, seed, f in fl]
+    secs = time.perf_counter() - t0
+    launches = read_launches(pk, ps)
+    summed = {k: 0 for k in launches}
+    waits, run_s = {}, {}
+    for kind, seed, f, (same, cnt, js, ws) in done:
+        if not same:
+            raise AssertionError(f"S1: served {f.name} differs from its "
+                                 f"direct run")
+        want = counts[(kind, seed)]
+        # plan_builds and replays are kept out: a pre-shuffle verdict is
+        # re-evaluated every 16th use of its site, whichever job that is
+        keep = [k for k in cnt if k not in S_UNCOMPARED]
+        if {k: cnt[k] for k in keep} != {k: want[k] for k in keep}:
+            raise AssertionError(f"S1: served {f.name} counters {cnt}, its "
+                                 f"direct run's {want}; loop graphs not "
+                                 f"made: {_S_GRAPH_MISSES}")
+        if ws != (4, 4):
+            raise AssertionError(f"S1: {f.name} saw W {ws}")
+        if kind == "pagerank" and cnt["fallbacks"]:
+            raise AssertionError(f"S1: {f.name} fell back: {cnt}")
+        need_launches(cnt, S_KERNELS[kind], f"S1 served {kind}")
+        for k in summed:
+            summed[k] += cnt[k]
+        waits.setdefault(f.tenant, []).append(f.queue_wait_s)
+        run_s.setdefault(kind, []).append(js)
+    if summed != launches:
+        raise AssertionError(f"S1: launches {launches}, the jobs' own "
+                             f"{summed}")
+    st = ctx.overall_stats()
+    log(f"S1 served W=4: {len(done)} jobs ({', '.join(f'{n} {k}' for k, n in S_MIX)}, "
+        f"{S_SEEDS} seeds a kind, {S_PR_SEEDS} of PageRank) from "
+        f"{len(S_TENANTS)} client threads of "
+        f"tenants a, b, c (THRILL_TPU_SERVE_WEIGHTS={S_WEIGHTS}) in "
+        f"{secs:.3f} s: {len(done) / secs:.3f} jobs a second; every "
+        f"result equal to its direct run on this Context (bit for bit; the "
+        f"f32 step within {SEG_RTOL}), every job's launches, dispatches, "
+        f"counted fetches and loop counters equal to its warm direct "
+        f"run's, loop_replay_fallbacks 0; serve_p50_ms "
+        f"{st['serve_p50_ms']}, serve_p99_ms {st['serve_p99_ms']}; mean "
+        f"queue_wait_s by tenant "
+        f"{ {t: round(sum(v) / len(v), 4) for t, v in sorted(waits.items())} }; "
+        f"mean run seconds by kind "
+        f"{ {k: round(sum(v) / len(v), 4) for k, v in run_s.items()} }; "
+        f"queue_depth_peak {st['queue_depth_peak']}; loop graphs not made "
+        f"{_S_GRAPH_MISSES}; launches {json.dumps(launches)} [{card}]")
+    return {"launches": launches, "run_s": run_s}
+
+
+S_DIRECT = ("wordcount", "pagerank step", "terasort", "pagerank")
+
+
+def s_direct(torch, np, pk, ps, ctx, inputs, card):
+    """S1's direct runs on ``ctx``, before it serves: each (kind, seed)
+    once checked against numpy (its result kept as the reference; the
+    checks run on host threads beside the next runs), then once warm
+    (its counters kept). The kinds whose inputs are made on the card run
+    first, while ``inputs`` (a future) makes the numpy ones."""
+    import concurrent.futures as cf
+    refs, counts, secs = {}, {}, {}
+    checks = []
+    with cf.ThreadPoolExecutor(3) as pool:
+        for rnd in (0, 1):
+            for kind in S_DIRECT:
+                if kind in ("terasort", "pagerank"):
+                    inputs.result()
+                for seed in range(s_seeds(kind)):
+                    run = s_counted(torch, pk, ps, s_job(
+                        torch, np, kind, seed, check=rnd == 0))
+                    out, cnt, js, _ = run(ctx)
+                    if rnd == 0:
+                        checks.append(pool.submit(
+                            s_check, np, kind, seed, s_host(torch, kind, out)))
+                        refs[(kind, seed)] = out if kind in (
+                            "terasort", "pagerank") else out[0]
+                        continue
+                    if not s_same(torch, np, kind, out, refs[(kind, seed)]):
+                        raise AssertionError(f"S1: a second direct {kind} "
+                                             f"on seed {seed} differs")
+                    need_launches(cnt, S_KERNELS[kind], f"S1 direct {kind}")
+                    counts[(kind, seed)] = cnt
+                    secs.setdefault(kind, []).append(js)
+                    del out
+        for c in checks:
+            c.result()
+    log(f"S1 direct W=4 (before serving, on the same Context): every "
+        f"result against numpy; warm seconds by kind "
+        f"{ {k: [round(x, 4) for x in v] for k, v in secs.items()} }; "
+        f"counters of seed 0 "
+        f"{ {k: counts[(k, 0)] for k, _ in S_MIX} } [{card}]")
+    return refs, counts
+
+
+def s_failing(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
+    """S2: a job that fails after device work, mid-queue, and the jobs
+    queued behind it."""
+    def fail(c):
+        c.Distribute(s_ts_input(np, 0)).Sort(key_fn=_r_key).Execute()
+        raise RuntimeError("S2: a job failing after device work")
+
+    before = ctx.submit(s_mem_probe(torch), tenant="s2").result(300)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    order = [("wordcount", 0), None, ("terasort", 1), ("wordcount", 2),
+             ("pagerank step", 1)]
+    futs = [ctx.submit(fail if o is None else s_served(
+        torch, np, pk, ps, o[0], o[1], refs), tenant="s2",
+        name="fail" if o is None else f"{o[0]}-{o[1]}") for o in order]
+    err = futs[1].exception(600)
+    if not isinstance(err, tt.PipelineError) or "S2:" not in str(err):
+        raise AssertionError(f"S2: the failing job's future holds {err!r}")
+    for o, f in zip(order, futs):
+        if o is not None and not f.result(600)[0]:
+            raise AssertionError(f"S2: {f.name} after the failure differs")
+    launches = read_launches(pk, ps)
+    after = ctx.submit(s_mem_probe(torch), tenant="s2").result(300)
+    if after - before > R_MEM_SLACK:
+        raise AssertionError(f"S2: memory_allocated {before} before the "
+                             f"failing job, {after} after the heal")
+    log(f"S2 a failing job mid-queue W=4: its future raised PipelineError "
+        f"(generation {err.generation}: {err.cause[:80]}); the "
+        f"{len(order) - 1} jobs behind it equal to S1's; memory_allocated "
+        f"{before} before, {after} after the heal (bound {R_MEM_SLACK} "
+        f"bytes more); launches {json.dumps(launches)} [{card}]")
+    return launches
+
+
+def s_tenants(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
+    """S3: tenant b's budget below its two kept results: b's coldest
+    spills, a's stay on the card, and both tenants' next jobs give S1's
+    results."""
+    from thrill_tpu_torch.mem.hbm import SpilledShards
+    from thrill_tpu_torch.service import tenancy
+    drops = []
+    real_spill = ctx.hbm.spill
+
+    def spill(node):
+        # runs on the dispatcher thread, inside b's job
+        gc.collect()
+        torch.cuda.synchronize()
+        m0, nb = torch.cuda.memory_allocated(), node._hbm_bytes
+        real_spill(node)
+        torch.cuda.synchronize()
+        drops.append((node._tenant, nb, m0 - torch.cuda.memory_allocated()))
+
+    def keep(seed):
+        def job(c):
+            d = c.Distribute(s_ts_input(np, seed)).Sort(key_fn=_r_key).Keep()
+            d.Execute()
+            return d
+        return job
+
+    ctx.hbm.spill = spill
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    try:
+        kept = {("a", 0): ctx.submit(keep(0), tenant="a"),
+                ("a", 1): ctx.submit(keep(1), tenant="a"),
+                ("b", 0): ctx.submit(keep(0), tenant="b")}
+        kept = {k: f.result(600) for k, f in kept.items()}
+        unit = kept[("b", 0)].node._hbm_bytes
+        tenancy.set_budget(ctx, "b", int(1.5 * unit))
+        kept[("b", 2)] = ctx.submit(keep(2), tenant="b").result(600)
+        spilled = {k: isinstance(d.node._shards, SpilledShards)
+                   for k, d in kept.items()}
+        st = ctx.overall_stats()
+        want = {("a", 0): False, ("a", 1): False, ("b", 0): True,
+                ("b", 2): False}
+        # every spill is b's; the kept result's frees its ledger bytes
+        # (b's other cold nodes, a Sort's source, may spill too)
+        if spilled != want or st["tenant_spills"] < 1 \
+                or any(t != "b" for t, _, _ in drops) \
+                or (unit, unit) not in [(nb, dr) for _, nb, dr in drops]:
+            raise AssertionError(f"S3: spilled {spilled}, drops {drops}, "
+                                 f"tenant_spills {st['tenant_spills']}")
+        nxt = [ctx.submit(s_served(torch, np, pk, ps, "wordcount", 0, refs),
+                          tenant="a"),
+               ctx.submit(s_served(torch, np, pk, ps, "terasort", 1, refs),
+                          tenant="b")]
+        if not all(f.result(600)[0] for f in nxt):
+            raise AssertionError("S3: a tenant's next job differs from S1's")
+        launches = read_launches(pk, ps)
+        log(f"S3 tenants under budgets W=4: tenant b's budget "
+            f"{ctx.hbm.tenant_budgets['b']} bytes (1.5 of one kept "
+            f"TeraSort, {unit} ledger bytes) below its two kept results: "
+            f"b's coldest kept result spilled; b's spills (ledger bytes, "
+            f"memory_allocated drop) {[(nb, dr) for _, nb, dr in drops]}; "
+            f"a's two results stayed "
+            f"on the card (no budget); tenant_spills {st['tenant_spills']}, "
+            f"tenant_hbm_peaks {st['tenant_hbm_peaks']}; both tenants' next "
+            f"jobs equal to S1's; launches {json.dumps(launches)} [{card}]")
+    finally:
+        ctx.hbm.spill = real_spill
+    return launches
+
+
+def s_autoscale(torch, np, tt, pk, ps, card) -> dict:
+    """S4: the live autoscaler on a Context that starts at W = 2: a burst
+    of 12 WordCounts scales it to 4 through the fence, idle ticks back to
+    2; every job's result, copied to the host inside the job, equal to a
+    fixed-W Context's run at the W it saw whole (run after the burst, at
+    the widths seen). Two served jobs of the burst's tenant, one first and one
+    after the first WordCount, wait until the autoscaler has decided its
+    first and its second resize, so each step up is decided while the
+    burst is queued."""
+    import threading
+
+    def wordcount(seed):
+        # served: the result leaves the card on the dispatcher thread
+        inner = s_counted(torch, pk, ps, s_job(torch, np, "wordcount", seed))
+
+        def job(c):
+            out, cnt, secs, ws = inner(c)
+            return {k: v.cpu() for k, v in out.items()}, cnt, secs, ws
+        return job
+
+    with EnvSet(**S_AUTOSCALE):
+        ctx = tt.Context(num_workers=2, device=DEVICE)
+    resizes = []
+    try:
+        real = ctx._resize_now
+
+        def resize_now(w):
+            old = ctx.num_workers
+            dt = real(w)
+            resizes.append((old, w, dt, threading.current_thread().name))
+            return dt
+
+        ctx._resize_now = resize_now
+
+        def hold(k):
+            # a served job that waits, on the dispatcher thread, until the
+            # autoscaler has decided its k-th resize: the fence then runs
+            # before the next job, with the burst still queued
+            def job(c):
+                deadline = time.monotonic() + 30
+                while c.autoscaler.decisions_made < k and \
+                        time.monotonic() < deadline:
+                    time.sleep(0.005)
+                if c.autoscaler.decisions_made < k:
+                    raise AssertionError(f"S4: no resize decision {k}")
+                return c.num_workers
+            return job
+
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        jobs = [("hold", 0)] + [("wordcount", i) for i in range(12)]
+        jobs.insert(2, ("hold", 1))
+        futs = [ctx.submit(hold(i + 1) if kind == "hold" else wordcount(
+            i % S_SEEDS), tenant="burst", name=f"{kind}-{i}")
+            for kind, i in jobs]
+        held = [f.result(120) for (kind, _), f in zip(jobs, futs)
+                if kind == "hold"]
+        res = [f.result(600) for (kind, _), f in zip(jobs, futs)
+               if kind != "hold"]
+        t_burst = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while (ctx.num_workers != 2 or len(resizes) < 4) and \
+                time.monotonic() < deadline:
+            time.sleep(0.05)
+        launches = read_launches(pk, ps)
+        a = ctx.autoscaler.stats()
+        seen = sorted({r[3] for r in res})
+    finally:
+        ctx.close()
+    path = [resizes[0][0]] + [r[1] for r in resizes]
+    if path[:3] != [2, 3, 4] or path[-1] != 2 or \
+            {r[3] for r in resizes} != {"thrill-serve-dispatch"}:
+        raise AssertionError(f"S4: resizes {resizes}")
+    # each job against a fixed-W Context's run at the W it saw
+    seeds = [i % S_SEEDS for i in range(12)]
+    for W in sorted({ws[0] for _, _, _, ws in res}):
+        f = tt.Context(num_workers=W, device=DEVICE)
+        try:
+            for seed in sorted({sd for sd, r in zip(seeds, res)
+                                if r[3][0] == W}):
+                want = {k: v.cpu() for k, v in s_job(
+                    torch, np, "wordcount", seed)(f).items()}
+                for sd, (out, cnt, js, ws) in zip(seeds, res):
+                    if sd != seed or ws[0] != W:
+                        continue
+                    if ws[1] != W or sorted(out) != sorted(want) or not all(
+                            torch.equal(out[k], want[k]) for k in want):
+                        raise AssertionError(f"S4: a job saw W {ws} and "
+                                             f"differs from a fixed-W "
+                                             f"Context's")
+        finally:
+            f.close()
+    need_launches(launches, S_KERNELS["wordcount"], "S4 autoscaled")
+    log(f"S4 autoscale W=2->4->2 ({', '.join(f'{k}={v}' for k, v in S_AUTOSCALE.items())}): "
+        f"the burst of 12 WordCounts ran in {t_burst:.3f} s at W "
+        f"{[r[3][0] for r in res]}; each job saw one W, its result equal to "
+        f"a fixed-W Context's; resizes (old, new, seconds) "
+        f"{[(r[0], r[1], round(r[2], 4)) for r in resizes]} on the "
+        f"dispatcher thread; autoscaler {a}; widths seen {seen}; launches "
+        f"{json.dumps(launches)} [{card}]")
+    return launches
+
+
+def s_front_door(torch, np, tt, pk, ps, refs, card) -> dict:
+    """S5: the front door on a loopback port with THRILL_TPU_SECRET set:
+    a TeraSort's result streamed in 256 KiB chunks, equal to S1's, and
+    beside it from a client of its own a burst of 5 at
+    THRILL_TPU_SERVE_RATE 1 job a second: typed RateLimited rejects,
+    then the client's retries succeed."""
+    import threading
+    from thrill_tpu_torch.service.client import FrontDoorClient, Rejected
+    from thrill_tpu_torch.service.front_door import FrontDoor
+    host = {}
+    for (kind, seed), out in refs.items():
+        if kind in ("wordcount", "terasort"):
+            host[(kind, seed)] = {k: v.cpu().numpy() for k, v in out.items()}
+
+    def pipeline(kind):
+        def fn(c, args):
+            return s_job(torch, np, kind, int(args["seed"]))(c)
+        fn.__name__ = kind
+        return fn
+
+    def same(kind, seed, got):
+        want = host[(kind, seed)]
+        return sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+
+    env = dict(THRILL_TPU_SECRET=os.urandom(16).hex(),
+               THRILL_TPU_SERVE_RATE="burst=1")
+    with EnvSet(**env):
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        fd = FrontDoor(ctx, port=0)
+        try:
+            fd.register("wordcount", pipeline("wordcount"))
+            fd.register("terasort", pipeline("terasort"))
+            torch.cuda.synchronize()
+            zero_launches(pk, ps)
+            burst_out = {}
+
+            def burst_client():
+                # the burst and its retries, beside the stream: the
+                # retries' waits overlap the TeraSort's egress
+                with FrontDoorClient("127.0.0.1", fd.port,
+                                     tenant="burst") as c:
+                    burst = [c.submit("wordcount", {"seed": i % S_SEEDS})
+                             for i in range(5)]
+                    verdicts = []
+                    for i, j in enumerate(burst):
+                        try:
+                            j.wait_accepted(120)
+                            verdicts.append(("accept", i))
+                        except Rejected as e:
+                            verdicts.append((e.kind, e.retry_after_s))
+                    burst_out["verdicts"] = verdicts
+                    rejected = [i for i, v in enumerate(verdicts)
+                                if v[0] != "accept"]
+                    burst_out["rejected"] = rejected
+                    t0 = time.perf_counter()
+                    for i in range(5):
+                        j = burst[i] if i not in rejected else c.submit_retry(
+                            "wordcount", {"seed": i % S_SEEDS}, attempts=10,
+                            seed=i)
+                        burst_out[i] = same("wordcount", i % S_SEEDS,
+                                            j.result(600))
+                    burst_out["t_retry"] = time.perf_counter() - t0
+
+            with FrontDoorClient("127.0.0.1", fd.port, tenant="stream") as c:
+                if not c.conn.authenticated:
+                    raise AssertionError("S5: the link is not authenticated")
+                t0 = time.perf_counter()
+                job = c.submit("terasort", {"seed": 1})
+                job.wait_accepted(120)
+                bt = threading.Thread(target=burst_client)
+                bt.start()
+                got = job.result(600)
+                t_stream = time.perf_counter() - t0
+                nbytes = sum(len(p) for p in job._raw)
+                chunks = len(job._raw)
+            if not same("terasort", 1, got):
+                raise AssertionError("S5: the streamed TeraSort differs from "
+                                     "S1's")
+            if chunks < nbytes // (256 << 10):
+                raise AssertionError(f"S5: {chunks} chunks for {nbytes} "
+                                     f"bytes")
+            del got
+            bt.join(600)
+            verdicts, rejected = burst_out["verdicts"], burst_out["rejected"]
+            t_retry = burst_out["t_retry"]
+            if not rejected or any(
+                    verdicts[i][0] != "rate_limited"
+                    or not verdicts[i][1] > 0 for i in rejected):
+                raise AssertionError(f"S5: the burst's verdicts {verdicts}")
+            if not all(burst_out[i] for i in range(5)):
+                raise AssertionError(f"S5: the burst's results {burst_out}")
+            launches = read_launches(pk, ps)
+            stats = fd.stats()
+            st = ctx.overall_stats()
+        finally:
+            fd.close()
+            ctx.close()
+    need_launches(launches, S_KERNELS["terasort"] + ("presence_fill",),
+                  "S5 front door")
+    log(f"S5 front door W=4 (HMAC on): a TeraSort's {nbytes} bytes in "
+        f"{chunks} chunks of 256 KiB in {t_stream:.3f} s from submit to the "
+        f"last chunk, {nbytes / t_stream / 1e6:.1f} MB/s, equal to S1's; a "
+        f"burst of 5 at THRILL_TPU_SERVE_RATE=burst=1: verdicts "
+        f"{[(v[0], round(v[1], 3)) for v in verdicts]}, the {len(rejected)}"
+        f" rejected retried and equal to S1's in {t_retry:.3f} s (beside "
+        f"the stream); "
+        f"jobs_rate_limited {st['jobs_rate_limited']}; front door {stats}; "
+        f"launches {json.dumps(launches)} [{card}]")
+    return launches
+
+
+S6_JOBS = (("wc-a0", "a", "wordcount", 0), ("ts-a0", "a", "terasort", 0),
+           ("fail", "a", None, 0), ("wc-a2", "a", "wordcount", 2),
+           ("wc-b1", "b", "wordcount", 1), ("ts-b1", "b", "terasort", 1),
+           ("wc-b0", "b", "wordcount", 0))
+
+
+def s6_child(coordinator: str, rank: int, d: str, launch: str) -> int:
+    """One process of S6's mesh (two workers): S6_JOBS submitted from
+    the main thread in the same per-tenant order as the other process;
+    each job's digest, counters and seconds into a file of ``d``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import thrill_tpu_torch as tt
+    from thrill_tpu_torch.core import pallas_kernels as pk
+    from thrill_tpu_torch.core import pallas_sort as ps
+
+    def digest_job(kind, seed):
+        inner = s_counted(torch, pk, ps, s_job(torch, np, kind, seed))
+
+        def job(ctx):
+            out, cnt, secs, ws = inner(ctx)
+            return d_digest(torch, out), cnt, secs, ws
+        return job
+
+    def fail(ctx):
+        ctx.Distribute(s_ts_input(np, 0)).Sort(key_fn=_r_key).Execute()
+        raise RuntimeError("S6: a job failing after device work")
+
+    def job(ctx):
+        for seed in (0, 1):
+            s_ts_input(np, seed)
+        # started beside the parent's S1: work begins at its signal
+        s6_wait_file(os.path.join(d, "go"))
+        torch.cuda.synchronize()
+        zero_launches(pk, ps)
+        t0 = time.perf_counter()
+        futs = [(name, ctx.submit(fail if kind is None else digest_job(
+            kind, seed), tenant=tenant, name=name))
+            for name, tenant, kind, seed in S6_JOBS]
+        out = {"rank": rank, "jobs": {}}
+        for name, f in futs:
+            err = f.exception(600)
+            out["jobs"][name] = ([type(err).__name__, str(err)[:200]]
+                                 if err is not None else f.result())
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = read_launches(pk, ps)
+        out["records"] = [[r.kind, r.chosen, r.inputs.get("entries")]
+                          for r in ctx.decisions.records
+                          if r.kind in ("store_broadcast", "store_skip")]
+        out["stats"] = {k: v for k, v in ctx.overall_stats().items()
+                        if k in ("jobs_submitted", "jobs_failed",
+                                 "pipeline_aborts")}
+        return out
+
+    if launch == "warm":
+        # the warm launch reads the plan store the first one wrote
+        s6_wait_file(os.path.join(d, "cold-done"))
+    res = tt.RunDistributed(job, coordinator_address=coordinator,
+                            num_processes=D_PROCS, process_id=rank,
+                            workers_per_process=D_WPP)
+    assert_port_alone()
+    with open(os.path.join(d, f"s6-{launch}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def s6_wait_file(path: str) -> None:
+    deadline = time.monotonic() + S6_TIMEOUT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"S6: {path} never appeared")
+        time.sleep(0.05)
+
+
+def s6_launch(d: str, launch: str, ports: list) -> list:
+    """Two S6 processes with the plan store in ``d``, on ``ports``
+    (coordinator, then the host group's)."""
+    hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
+    secret = os.urandom(16).hex()
+    procs = []
+    for rank in range(D_PROCS):
+        env = dict(os.environ, THRILL_TPU_HOSTLIST=hostlist,
+                   THRILL_TPU_RANK=str(rank), THRILL_TPU_SECRET=secret,
+                   THRILL_TPU_PLAN_STORE=os.path.join(d, "plans"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--s6-child",
+             f"127.0.0.1:{ports[0]}", str(rank), d, launch],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env))
+    return procs
+
+
+def s6_reap(d: str, procs: dict) -> dict:
+    """The cold pair's end (then the warm pair's gate opens), then the
+    warm pair's: each launch's (return code, stdout, stderr)."""
+    out = {}
+    for launch in ("cold", "warm"):
+        res = [p.communicate(timeout=2 * S6_TIMEOUT_S)
+               for p in procs[launch]]
+        out[launch] = [(p.returncode, o, e)
+                       for p, (o, e) in zip(procs[launch], res)]
+        if launch == "cold":
+            open(os.path.join(d, "cold-done"), "w").close()
+    return out
+
+
+def s6_check(torch, np, d: str, runs: dict, refs: dict, s1_run_s: dict,
+             card: str) -> dict:
+    """S6's two launches against S1's one-process results."""
+    digests = {(k, s): d_digest(torch, v) for (k, s), v in refs.items()
+               if k in ("wordcount", "terasort")}
+    paths = {}
+    for launch, outs in runs.items():
+        for rank, (rc, o, e) in enumerate(outs):
+            if rc != 0:
+                raise AssertionError(f"S6 {launch} process {rank} failed "
+                                     f"(rc {rc}):\n{o[-2000:]}\n{e[-3000:]}")
+        res = []
+        for rank in range(D_PROCS):
+            with open(os.path.join(d, f"s6-{launch}-{rank}.json")) as f:
+                res.append(json.load(f))
+        for r in res:
+            for name, tenant, kind, seed in S6_JOBS:
+                got = r["jobs"][name]
+                if kind is None:
+                    if got[0] != "PipelineError" or "S6:" not in got[1]:
+                        raise AssertionError(f"S6 {launch} process "
+                                             f"{r['rank']}: {got}")
+                    continue
+                if got[0] != digests[(kind, seed)] or got[3] != [4, 4]:
+                    raise AssertionError(f"S6 {launch} process {r['rank']}:"
+                                         f" {name} differs from S1's")
+                need_launches(got[1], S_KERNELS[kind], f"S6 {kind}")
+            chosen = "cold" if launch == "cold" else "warm-start"
+            if [x[:2] for x in r["records"]] != [["store_broadcast",
+                                                  chosen]]:
+                raise AssertionError(f"S6 {launch}: records {r['records']}")
+            if r["stats"] != {"jobs_submitted": len(S6_JOBS),
+                              "jobs_failed": 1, "pipeline_aborts": 1}:
+                raise AssertionError(f"S6 {launch}: stats {r['stats']}")
+        if len({r["records"][0][2] for r in res}) != 1:
+            raise AssertionError(f"S6 {launch}: the processes installed "
+                                 f"{[r['records'] for r in res]}")
+        first_wc = [r["jobs"]["wc-a0"][1]["plan_builds"] for r in res]
+        if launch == "warm" and first_wc != [0, 0]:
+            raise AssertionError(f"S6 warm: the first WordCount built "
+                                 f"{first_wc} plans")
+        by_kind = {}
+        for r in res:
+            for name, tenant, kind, seed in S6_JOBS:
+                if kind is not None:
+                    by_kind.setdefault(kind, []).append(r["jobs"][name][2])
+        for r in res:
+            log(f"S6 {launch} launch, process {r['rank']} of {D_PROCS} "
+                f"(gloo, {D_WPP} workers each, W=4): {len(S6_JOBS)} jobs "
+                f"submitted in the same per-tenant order in both processes "
+                f"in {r['seconds']:.3f} s, every result's digest equal to "
+                f"S1's one-process W=4 result, the failing job's future a "
+                f"PipelineError; plan store {r['records']}, the first "
+                f"WordCount's plan_builds {r['jobs']['wc-a0'][1]['plan_builds']}; "
+                f"launches {json.dumps(r['launches'])} [{card}]")
+            paths[f"S6 served jobs W=4 ({launch} plan store, process "
+                  f"{r['rank']} of {D_PROCS})"] = r["launches"]
+        log(f"S6 {launch} launch: mean run seconds by kind "
+            f"{ {k: round(sum(v) / len(v), 4) for k, v in by_kind.items()} } "
+            f"beside S1's one process "
+            f"{ {k: round(sum(s1_run_s[k]) / len(s1_run_s[k]), 4) for k in by_kind} } "
+            f"[{card}]")
+    return paths
+
+
+def s_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase S, the service plane: S1-S3 on one Context, S4 and S5 on
+    their own. S6's two pairs of processes start first and wait: the
+    first pair works from the end of S1 on, beside S2-S5, and the second
+    (warm) pair once the first has exited. Then their results are
+    checked. Returns each path's launches."""
+    import concurrent.futures as cf
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.examples import page_rank as tpr
+    from thrill_tpu_torch.api import loop as tloop
+    t_s = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="ttpu-s-")
+    pool = cf.ThreadPoolExecutor(2)
+    real_graph_loop = tloop._graph_loop
+
+    def graph_loop(*args):
+        # a loop whose graph is not made falls back to per-iteration
+        # replays: keep why, for the counters' check to name it
+        try:
+            return real_graph_loop(*args)
+        except tloop._GraphUnavailable as e:
+            import threading
+            _S_GRAPH_MISSES.append((threading.current_thread().name,
+                                    repr(e.__cause__)[:300]))
+            raise
+
+    tloop._graph_loop = graph_loop
+    paths = {}
+    ports = d_free_ports(2 * (1 + D_PROCS))
+    kids = {"cold": s6_launch(d, "cold", ports[:1 + D_PROCS]),
+            "warm": s6_launch(d, "warm", ports[1 + D_PROCS:])}
+    try:
+        s6 = pool.submit(s6_reap, d, kids)
+        inputs = pool.submit(lambda: (
+            [s_ts_input(np, seed) for seed in range(S_SEEDS)],
+            [s_pr_input(np, tpr, seed) for seed in range(S_PR_SEEDS)]))
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        try:
+            refs, counts = s_direct(torch, np, pk, ps, ctx, inputs, card)
+            t_direct = time.perf_counter()
+            with EnvSet(THRILL_TPU_SERVE_WEIGHTS=S_WEIGHTS):
+                s1 = s_served_run(torch, np, tt, pk, ps, ctx, refs, counts,
+                                  card)
+            paths["S1 served jobs W=4"] = s1["launches"]
+            t_s1 = time.perf_counter()
+            # S6's processes work from here, beside S2-S5
+            open(os.path.join(d, "go"), "w").close()
+            paths["S2 jobs around a failing job W=4"] = s_failing(
+                torch, np, tt, pk, ps, ctx, refs, card)
+            paths["S3 tenants under budgets W=4"] = s_tenants(
+                torch, np, tt, pk, ps, ctx, refs, card)
+        finally:
+            ctx.close()
+        torch.cuda.empty_cache()
+        t_13 = time.perf_counter()
+        paths["S4 autoscaled wordcounts W=2-4"] = s_autoscale(
+            torch, np, tt, pk, ps, card)
+        paths["S5 front door W=4"] = s_front_door(torch, np, tt, pk, ps,
+                                                  refs, card)
+        t_local = time.perf_counter()
+        runs = s6.result(timeout=4 * S6_TIMEOUT_S)
+        t_kids = time.perf_counter()
+        paths.update(s6_check(torch, np, d, runs, refs, s1["run_s"], card))
+        del refs
+    finally:
+        for launch in kids.values():
+            for p in launch:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        pool.shutdown(wait=True)
+        shutil.rmtree(d, ignore_errors=True)
+        tloop._graph_loop = real_graph_loop
+        _S_TS.clear()
+        _S_PR.clear()
+        _S.pop("pr0", None)
+    torch.cuda.empty_cache()
+    assert_port_alone()
+    log(f"service phase (S): {time.perf_counter() - t_s:.1f} s of host clock "
+        f"(S1's direct runs {t_direct - t_s:.1f} s, their numpy inputs and "
+        f"checks beside them, S1 served {t_s1 - t_direct:.1f} s, S2 and S3 "
+        f"{t_13 - t_s1:.1f} s, S4 and S5 {t_local - t_13:.1f} s beside "
+        f"S6's launches, which ended {t_kids - t_local:.1f} s later) "
+        f"[host {cpu_line()}; {card}]")
+    return paths
+
 def main() -> int:
     import numpy as np
     import torch
@@ -8009,6 +8966,10 @@ def main() -> int:
     if "--resize-mp-child" in sys.argv:
         return resize_mp_child(
             sys.argv[sys.argv.index("--resize-mp-child") + 1])
+    if "--s6-child" in sys.argv:
+        i = sys.argv.index("--s6-child")
+        return s6_child(sys.argv[i + 1], int(sys.argv[i + 2]),
+                        sys.argv[i + 3], sys.argv[i + 4])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common import native_build
@@ -8054,6 +9015,10 @@ def main() -> int:
     if "--phase-r" in sys.argv:
         # phase R alone
         log(json.dumps(r_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-s" in sys.argv:
+        # phase S alone
+        log(json.dumps(s_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -8171,7 +9136,9 @@ def main() -> int:
     d_paths = d_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     r_paths = r_phase(torch, np, tt, pk, ps, card)
-    clock("phases P, X, T, D and R")
+    torch.cuda.empty_cache()
+    s_paths = s_phase(torch, np, tt, pk, ps, card)
+    clock("phases P, X, T, D, R and S")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -8265,7 +9232,7 @@ def main() -> int:
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
              **l_paths, **p_paths, **x_paths, **t_paths, **d_paths,
-             **r_paths}
+             **r_paths, **s_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

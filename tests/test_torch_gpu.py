@@ -2180,3 +2180,196 @@ def test_a_tenant_spill_on_the_card_frees_its_ledger_bytes(cuda_device):
                               np.arange(1 << 20) * 3)
     finally:
         ctx.close()
+
+
+# -- the service plane on the card ---------------------------------------------
+
+def _service_launches():
+    from thrill_tpu_torch.core import ordered_fold as tof
+    return {"partition_histogram": tpk.partition_histogram.launches,
+            "radix_upsweep": tps.radix_upsweep.launches,
+            "radix_pass": tps.radix_pass.launches,
+            "segment_sum": tpk.segment_sum.launches,
+            "presence_fill": tpk.presence_fill.launches,
+            "ordered_segment_sum": tof.ordered_segment_sum.launches}
+
+
+def _svc_word(t):
+    return t["w"]
+
+
+_SVC = {}
+
+
+def _svc_counted(job):
+    """``job`` with its own launches and loop counters (the dispatcher
+    runs one job at a time)."""
+    def run(ctx):
+        mex = ctx.mesh_exec
+        torch.cuda.synchronize()
+        l0 = _service_launches()
+        f0 = (mex.stats_loop_fori_iters, mex.stats_loop_fallbacks)
+        out = job(ctx)
+        torch.cuda.synchronize()
+        l1 = _service_launches()
+        return out, {k: l1[k] - l0[k] for k in l0}, (
+            mex.stats_loop_fori_iters - f0[0], mex.stats_loop_fallbacks - f0[1])
+    return run
+
+
+def _svc_wordcount(ctx):
+    if "sum" not in _SVC:
+        _SVC["sum"] = tt.FieldReduce({"w": "first", "c": "sum"})
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    voc = torch.randint(97, 123, (1 << 14, 12), device="cuda",
+                        generator=gen, dtype=torch.uint8)
+    ids = torch.randint(0, 1 << 14, (1 << 20,), device="cuda", generator=gen)
+    recs = {"w": voc[ids], "c": torch.ones(1 << 20, dtype=torch.int64,
+                                           device="cuda")}
+    out = ctx.Distribute(recs).ReduceByKey(_svc_word, _SVC["sum"]) \
+        .AllGatherArrays()
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def _svc_pagerank(ctx):
+    from thrill_tpu_torch.examples import page_rank as tpr
+    if "edges" not in _SVC:
+        _SVC["edges"] = tpr.zipf_graph(1 << 14, 1 << 16, seed=5)
+    return tpr.page_rank(ctx, _SVC["edges"], 1 << 14, 4)
+
+
+@pytest.mark.gpu
+def test_served_jobs_launch_as_their_direct_runs(cuda_device):
+    """A WordCount and a PageRank served from four client threads run on
+    the scheduler's dispatcher thread: each result bit-equal to the
+    direct run's on the same Context, each job's kernel launches its
+    warm direct run's, and the served PageRank's whole-loop graph
+    captures there (``loop_fori_iters`` its direct run's, no
+    fallback)."""
+    import threading
+    ctx = tt.Context(num_workers=4)
+    try:
+        want = {}
+        for name, job in (("wc", _svc_wordcount), ("pr", _svc_pagerank)):
+            for _ in range(2):              # the second run is warm
+                want[name] = _svc_counted(job)(ctx)
+        assert want["wc"][1]["presence_fill"] > 0
+        assert want["pr"][1]["ordered_segment_sum"] > 0
+        assert want["pr"][2][0] > 0 and want["pr"][2][1] == 0
+        futs = []
+        lock = threading.Lock()
+
+        def client(i):
+            for name, job in (("wc", _svc_wordcount), ("pr", _svc_pagerank)):
+                f = ctx.submit(_svc_counted(job), tenant=f"t{i}")
+                with lock:
+                    futs.append((name, f))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for name, f in futs:
+            out, launches, loop = f.result(600)
+            if name == "wc":
+                assert all(torch.equal(out[k], want["wc"][0][k])
+                           for k in out)
+            else:
+                assert np.array_equal(out, want["pr"][0])
+            assert launches == want[name][1], name
+            assert loop == want[name][2], name
+        assert ctx.overall_stats()["loop_replay_fallbacks"] == 0
+    finally:
+        ctx.close()
+
+
+@pytest.mark.gpu
+def test_a_served_tenant_spill_on_the_card(cuda_device):
+    """Tenant b's budget below its two kept results, set through
+    ``tenancy.set_budget``: b's cold result leaves the card by its
+    ledger bytes inside b's served job, a's results stay, and the
+    restore is exact."""
+    from thrill_tpu_torch.mem.hbm import SpilledShards
+    from thrill_tpu_torch.service import tenancy
+    ctx = tt.Context(num_workers=4)
+    drops = []
+    try:
+        real = ctx.hbm.spill
+
+        def spill(node):
+            import gc
+            gc.collect()
+            torch.cuda.synchronize()
+            m0, nb = torch.cuda.memory_allocated(), node._hbm_bytes
+            real(node)
+            torch.cuda.synchronize()
+            drops.append((node._tenant, nb, m0 - torch.cuda.memory_allocated()))
+
+        ctx.hbm.spill = spill
+
+        def keep(k):
+            def job(c):
+                d = c.Distribute(torch.arange(1 << 20, device="cuda") * k)
+                d.Keep()
+                d.node.materialize(consume=False)
+                return d
+            return job
+
+        a1 = ctx.submit(keep(1), tenant="a").result(300)
+        a2 = ctx.submit(keep(2), tenant="a").result(300)
+        b1 = ctx.submit(keep(3), tenant="b").result(300)
+        tenancy.set_budget(ctx, "b", int(1.5 * b1.node._hbm_bytes))
+        b2 = ctx.submit(keep(5), tenant="b").result(300)
+        assert isinstance(b1.node._shards, SpilledShards)
+        assert all(d.node._shards.tree.device.type == "cuda"
+                   for d in (a1, a2, b2))
+        # 2^20 int64 items over four workers: [4, 2^18] int64, 8 MiB
+        assert drops == [("b", 8 << 20, 8 << 20)]
+        assert ctx.overall_stats()["tenant_spills"] == 1
+        got = ctx.submit(lambda c: sorted(int(x) for x in b1.AllGather()[:4]),
+                         tenant="b").result(300)
+        assert got == [0, 3, 6, 9]
+    finally:
+        ctx.close()
+
+
+@pytest.mark.gpu
+def test_a_loop_graph_captures_when_the_cache_holds_the_card(cuda_device,
+                                                             monkeypatch):
+    """A whole-loop graph's private pool cannot take the caching
+    allocator's free blocks, and a capture cannot release them: with the
+    cache holding nearly all of the card just before the capture, the
+    capture runs out of memory, the loop releases the cache and captures
+    again, so the graph runs (``loop_fori_iters`` as without the filled
+    cache) and the ranks are bit-equal."""
+    from thrill_tpu_torch.api import loop as tloop
+    from thrill_tpu_torch.examples import page_rank as tpr
+    edges = tpr.zipf_graph(1 << 14, 1 << 16, seed=5)
+    ctx = tt.Context(num_workers=4)
+    real = tloop._capture_graph
+    calls = []
+
+    def capture(*args):
+        if not calls:
+            torch.cuda.synchronize()
+            free = torch.cuda.mem_get_info()[0]
+            hold = torch.empty(free - (4 << 20), dtype=torch.uint8,
+                               device="cuda")
+            del hold                      # cached now, not free
+        calls.append(1)
+        return real(*args)
+
+    try:
+        want = tpr.page_rank(ctx, edges, 1 << 14, 4)
+        fori = ctx.mesh_exec.stats_loop_fori_iters
+        assert fori > 0
+        monkeypatch.setattr(tloop, "_capture_graph", capture)
+        got = tpr.page_rank(ctx, edges, 1 << 14, 4)
+        assert len(calls) == 2            # out of memory once, then made
+        assert ctx.mesh_exec.stats_loop_fori_iters == 2 * fori
+        assert np.array_equal(got, want)
+    finally:
+        ctx.close()
+        torch.cuda.empty_cache()

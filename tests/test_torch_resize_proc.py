@@ -8,9 +8,9 @@ one controller under ``run-scripts/supervise.sh``, 2 -> 3 -> 2.
   the marker committed and the process exits 75. The supervisor
   relaunches at W = 3 with resume; the relaunch restores the RESIZE
   epoch (bit-identical result, the layout of a fresh W = 3 run),
-  consumes the marker and moves back to 2 the same way. (The
-  reference's autoscale policy that picks the target is ROADMAP.md item
-  6, its service-plane part: the child calls ``resize_processes`` itself.)
+  consumes the marker and moves back to 2 the same way. (The child
+  calls ``resize_processes`` itself; a serving mesh's move, drained
+  first, is in ``tests/test_torch_service_mp.py``.)
 * A SIGKILL between the marker's commit and the exit is completed by
   the supervisor on its crash path: the move lands at W = 3.
 * The chaos sweep over the move's sites: whichever fires, nothing

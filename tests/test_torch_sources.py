@@ -243,6 +243,15 @@ PLAN = {"exchanges_overlapped", "cap_cache_hits", "cap_cache_misses",
 # exchange barriers, the worst skew ratio
 DOCTOR = {"collective_wait_s", "wait_net_s", "wait_exchange_s", "wait_io_s",
           "wait_skew_s", "straggler_waits", "skew_ratio"}
+# the service plane's (service/): the scheduler's, the front door's and
+# the autoscaler's counters, all zero before a Context serves, and the
+# per-tenant serve-latency quantiles
+SERVICE = {"jobs_submitted", "jobs_failed", "jobs_rejected",
+           "jobs_rate_limited", "queue_depth_peak", "fd_conns_accepted",
+           "fd_conns_dropped", "fd_jobs_submitted", "fd_jobs_rejected",
+           "fd_chunks_sent", "fd_slow_clients", "fd_deadline_expired",
+           "autoscale_decisions", "autoscale_ticks", "serve_p50_ms",
+           "serve_p99_ms"}
 
 
 def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
@@ -271,9 +280,11 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "heal_time_s", "resizes", "resize_time_s",
                       "resizes_proc", "conn_reconnects",
                       "stale_frames_dropped", "runs_adopted",
-                      "tenant_hbm_peaks", "tenant_spills"} | PLAN | DOCTOR
+                      "tenant_hbm_peaks", "tenant_spills"} | PLAN | DOCTOR \
+        | SERVICE
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
+    assert {k: s[k] for k in SERVICE} == {k: rs[k] for k in SERVICE}
     assert s["workers"] == 4 and s["nodes_created"] == 2
     assert s["exchanges"] == 1 and s["items_moved"] > 0
     assert s["bytes_moved"] >= 16 * s["items_moved"]
@@ -302,8 +313,9 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
     assert s["generation"] == rs["generation"] == 1
     # no tenant was set: the tenant ledger is empty, as the reference's
     assert s["tenant_hbm_peaks"] == rs["tenant_hbm_peaks"] == {}
+    assert s["serve_p50_ms"] == s["serve_p99_ms"] == {}
     assert all(s[k] == 0 for k in set(s) - PLAN - DOCTOR - {
-        "tenant_hbm_peaks",
+        "tenant_hbm_peaks", "serve_p50_ms", "serve_p99_ms",
         "workers", "nodes_created", "exchanges", "items_moved",
         "bytes_moved", "device_dispatches", "device_fetches",
         "fused_dispatches", "fused_ops", "fused_stages", "generation"})

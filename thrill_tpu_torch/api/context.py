@@ -1,5 +1,5 @@
 """The runtime handle passed to user jobs (counterpart of the reference
-package's ``api/context.py`` without its service plane). Sources take ``storage`` "device" (columnar tensors) or
+package's ``api/context.py``). Sources take ``storage`` "device" (columnar tensors) or
 "host" (per-worker Python lists); None infers it as the reference does.
 A Context owns the JSON event log (``logger``), the HBM governor
 (``hbm``, mem/hbm.py), the memory-pressure ladder (``pressure``,
@@ -54,9 +54,21 @@ a mesh.
 Tenants: ``current_tenant`` is stamped on every node made while it is
 set (``node._tenant``, beside ``_generation``) and on the tracer's
 spans; the HBM governor keeps a ledger of each tenant's device bytes
-and spills an over-budget tenant's own results (mem/hbm.py). The port
-has no scheduler yet (ROADMAP.md item 6, its service-plane part): the
-caller sets it."""
+and spills an over-budget tenant's own results (mem/hbm.py). The
+scheduler sets it around each job; ``service/tenancy.py``'s
+``activate`` is the direct form.
+
+Serving (service/): :meth:`Context.submit` queues ``fn(ctx)`` from any
+thread and returns a ``JobFuture``; the first submit builds the
+scheduler (``service``), whose one dispatcher thread runs the jobs in
+weighted-fair order across tenants, each in its own failure domain.
+``THRILL_TPU_SERVE_PORT`` starts the front door (``front_door``) and
+``THRILL_TPU_AUTOSCALE_S`` the autoscaler (``autoscaler``). On a
+serving Context :meth:`Context.resize` runs fenced between two jobs,
+:meth:`Context.resize_processes` drains the front door and the queue
+first, ``overall_stats`` runs no collective once the Context has
+served, and ``close`` stops the autoscaler, the front door, then the
+scheduler."""
 
 from __future__ import annotations
 
@@ -64,6 +76,7 @@ import contextlib
 import gc
 import os
 import sys
+import threading
 import time
 import weakref
 from typing import Any, Callable, List, Optional, Sequence
@@ -202,10 +215,12 @@ class Context:
         from ..common.doctor import Doctor, doctor_enabled
         from ..common.trace import Tracer
         self.tracer = Tracer(rank=self.host_rank, logger=self.logger)
-        # the tenant that nodes made now belong to (set by the caller;
-        # the service plane's scheduler will set it around each job)
+        # the tenant that nodes made now belong to (the scheduler sets
+        # it around each job; service/tenancy.py's activate() is the
+        # direct form)
         self.current_tenant: Optional[str] = None
         self.tracer.tenant_fn = lambda: self.current_tenant
+        self.tracer.gen_fn = lambda: getattr(self, "generation", None)
         self.doctor = (Doctor(rank=self.host_rank) if doctor_enabled()
                        else None)
         self.net.group.tracer = self.tracer
@@ -237,7 +252,9 @@ class Context:
         # the plan store: learned plans seed the fresh mesh, so a warm
         # restart of a known pipeline builds no plan (off unless set)
         self.plan_store = None
-        if self.config.plan_store:
+        if self.config.plan_store and mex.num_processes > 1:
+            self._plan_store_broadcast()
+        elif self.config.plan_store:
             from ..service.plan_store import PlanStore
             self.plan_store = PlanStore(self.config.plan_store,
                                         logger=self.logger)
@@ -256,6 +273,13 @@ class Context:
                     path=self.config.plan_store)
         self._aborted = False
         self._closed = False
+        # the service plane: the scheduler is made by the first
+        # submit(), under the lock, so one dispatcher owns the mesh; the
+        # front door and the autoscaler start from the environment below
+        self.service = None
+        self._service_lock = threading.Lock()
+        self.front_door = None
+        self.autoscaler = None
         # failure domains: every pipeline run carries the current
         # generation id, which the host group's poison frames and
         # barriers carry too; the counter never re-issues an id
@@ -288,6 +312,60 @@ class Context:
         # the live metrics endpoint (off unless THRILL_TPU_METRICS_PORT)
         from ..common.metrics import maybe_start
         self._metrics = maybe_start(self)
+        # the front door (THRILL_TPU_SERVE_PORT) and the autoscaler
+        # (THRILL_TPU_AUTOSCALE_S): off unless set; close() stops the
+        # autoscaler first, so no decision fires into a draining service
+        from ..service.front_door import maybe_start as fd_start
+        fd_start(self)
+        from ..service.autoscale import maybe_start as as_start
+        self.autoscaler = as_start(self)
+
+    def _plan_store_broadcast(self) -> None:
+        """The plan store on a mesh of several processes (reference:
+        ``api/context.py:300-360``): rank 0 alone reads the store and
+        broadcasts the entries over the host group, so every process
+        installs the same seeds (``symmetric=True``) and the optimistic
+        exchange stays open; rank 0 keeps the store and is its only
+        writer at close. Without a host group that spans the processes
+        there is no channel for the entries: a notice and a cold start."""
+        from ..service.plan_store import PlanStore, install_entries
+        mex = self.mesh_exec
+        path = self.config.plan_store
+        if self.net.num_workers != mex.num_processes:
+            print("thrill_tpu.service: THRILL_TPU_PLAN_STORE "
+                  "ignored on a multi-process mesh without a "
+                  "spanning host control plane (no channel to "
+                  "broadcast rank 0's entries); recompiling cold",
+                  file=sys.stderr)
+            if self.decisions.enabled:
+                self.decisions.record(
+                    "store_skip", "plan_store", "cold",
+                    rejected=[("warm-start", None)],
+                    reason="multi-process mesh without a host "
+                           "control plane: rank-0 entries cannot "
+                           "be broadcast",
+                    path=path)
+            return
+        entries = None
+        if self.host_rank == 0:
+            self.plan_store = PlanStore(path, logger=self.logger)
+            entries = self.plan_store.load()
+        entries = self.net.broadcast(entries, origin=0)
+        seeded = install_entries(mex, entries or {}, symmetric=True)
+        # every process now holds the same seeds, and what it learns
+        # from here derives from the replicated send matrix
+        mex._plan_seed_symmetric = True
+        if self.logger.enabled:
+            self.logger.line(event="plan_store_load", path=path,
+                             entries=seeded, broadcast=True)
+        if self.decisions.enabled:
+            self.decisions.record(
+                "store_broadcast", "plan_store",
+                "warm-start" if seeded else "cold",
+                rejected=[("per-rank-read", None)],
+                reason="rank-0 load broadcast over ctx.net "
+                       "keeps SPMD plan seeds symmetric",
+                entries=seeded, path=path)
 
     def _construct_host_group(self):
         """The host group of the processes (reference:
@@ -345,6 +423,41 @@ class Context:
                             [p.node.id for p in node.parents]))
         return nid
 
+    # -- the service plane (service/) --------------------------------------
+    def submit(self, pipeline_fn: Callable[["Context"], Any],
+               tenant: str = "default", name: str = "",
+               weight: Optional[float] = None):
+        """Queue ``pipeline_fn(ctx) -> result`` on this Context and return
+        a :class:`~thrill_tpu_torch.service.scheduler.JobFuture`
+        (reference: ``api/context.py:456-489``).
+
+        Thread-safe: any number of client threads may submit; the jobs
+        run one after another on the scheduler's dispatcher thread, in
+        weighted-fair order across tenants (service/scheduler.py), each
+        in its own :meth:`pipeline` failure domain with
+        ``current_tenant`` set: a failing job raises its
+        :class:`PipelineError` from ``future.result()`` while the
+        Context heals and later jobs run. Once a Context serves, run all
+        its pipelines through submit(): a pipeline on another thread
+        would interleave its device work with the dispatcher's. A submit
+        after ``close()`` resolves failed."""
+        svc = self.service
+        if svc is None:
+            # the first submit may race across client threads: one
+            # scheduler, one dispatcher thread, ever owns the mesh
+            with self._service_lock:
+                if self._closed:
+                    from ..service.scheduler import JobFuture
+                    return JobFuture.failed(
+                        0, tenant, name or "job-0",
+                        RuntimeError("Context is closed"))
+                svc = self.service
+                if svc is None:
+                    from ..service.scheduler import Scheduler
+                    svc = self.service = Scheduler(self)
+        return svc.submit(pipeline_fn, tenant=tenant, name=name,
+                          weight=weight)
+
     # -- elasticity: W is a property of a generation -----------------------
     def resize(self, num_workers: int) -> float:
         """Resize the mesh to ``num_workers`` workers at a generation
@@ -358,10 +471,16 @@ class Context:
         the card a device result re-splits on the card. The old W's plan
         state is parked per W in the mesh (a later resize back finds it
         warm); the HBM ledger re-admits each moved result at its new
-        size. One process only. The port has no service plane yet: the
-        fence that runs this between the jobs of a serving Context is
-        ROADMAP.md item 6, its service-plane part. ``THRILL_TPU_RESIZE=0``
-        makes this raise."""
+        size. One process only.
+
+        On a serving Context the swap runs on the dispatcher thread at
+        the next job boundary (``Scheduler.fence``), ahead of the queued
+        jobs: the job in flight finishes at the old W, every queued job
+        runs at the new one, and no job sees a half-swapped mesh. The
+        front door's verdict gate is closed around it, so an accept frame
+        names the generation after the swap (reference:
+        ``api/context.py:544-558``). ``THRILL_TPU_RESIZE=0`` makes this
+        raise."""
         from ..net.group import resize_enabled
         if self._closed:
             raise RuntimeError("Context is closed")
@@ -380,6 +499,16 @@ class Context:
                 "relaunches at the new W")
         if new_w == self.num_workers:
             return 0.0
+        svc = self.service
+        if svc is not None and svc.alive:
+            fd = self.front_door
+            if fd is not None:
+                fd.begin_resize_fence()
+            try:
+                return svc.fence(lambda: self._resize_now(new_w))
+            finally:
+                if fd is not None:
+                    fd.end_resize_fence()
         return self._resize_now(new_w)
 
     def _resize_now(self, new_w: int) -> float:
@@ -430,7 +559,8 @@ class Context:
     def resize_processes(self, num_workers: int, state=None,
                          drain_timeout_s: Optional[float] = None):
         """The supervised process-level move (reference:
-        ``api/context.py:620-729``): seal a RESIZE checkpoint epoch of
+        ``api/context.py:620-729``): drain the service plane (the front
+        door, then the scheduler's queue), seal a RESIZE checkpoint epoch of
         ``state`` re-split to ``num_workers`` workers, pass the relaunch
         gate of the host group, commit the RESIZE marker and raise
         :class:`ResizeRelaunch`, which exits the process with
@@ -452,9 +582,13 @@ class Context:
         marker is inert), GATE (``net.group.relaunch``: nothing changed
         yet), MARKER (``ckpt.resize_manifest`` at stage ``marker``: the
         point of no return; a relaunch after it completes the move),
-        EXIT. The port has no service plane to drain yet (ROADMAP.md
-        item 6, its service-plane part)."""
-        from ..net.group import resize_enabled
+        EXIT. DRAIN comes first and changes nothing durable: the front
+        door rejects new submits with ``draining``, the queue runs dry
+        (``drain_timeout_s``, default ``THRILL_TPU_RESIZE_TIMEOUT_S``),
+        and across processes the scheduler closes collectively, so the
+        move's collectives cannot race a follower's wait for ordering
+        frames. Call it on the main thread, not from a job."""
+        from ..net.group import resize_enabled, resize_timeout_s
         if self._closed:
             raise RuntimeError("Context is closed")
         if not resize_enabled():
@@ -483,7 +617,13 @@ class Context:
                 f"process contributes; the supervisor relaunches whole "
                 f"processes")
         target_procs = new_w // local if procs > 1 else 1
+        timeout = (drain_timeout_s if drain_timeout_s is not None
+                   else resize_timeout_s())
         t0 = time.monotonic()
+        # 0) drain
+        if self.front_door is not None:
+            self.front_door.drain()
+        self._quiesce_service(timeout)
         # 1) seal
         epoch = None
         if state is not None:
@@ -519,6 +659,38 @@ class Context:
                              epoch=epoch, generation=gen,
                              seconds=round(dt, 4))
         raise ResizeRelaunch(new_w, epoch=epoch, generation=gen)
+
+    def _quiesce_service(self, timeout: float) -> None:
+        """Wait until the scheduler has no queued or running job
+        (reference: ``api/context.py:731-768``). The front door is
+        draining already, so no new work arrives from a socket; direct
+        ``submit`` callers stop submitting around a move (under
+        sustained direct traffic this times out and the move aborts with
+        nothing changed). Across processes the scheduler then closes:
+        rank 0's close broadcasts the drain sentinel, every dispatcher
+        exits at the same point of the host group, and a submit after an
+        aborted move builds a fresh scheduler."""
+        svc = self.service
+        if svc is None or not svc.alive:
+            return
+        deadline = time.monotonic() + max(0.1, float(timeout))
+        while True:
+            with svc._cv:
+                idle = (svc.queue.depth == 0
+                        and svc.jobs_done >= svc.jobs_submitted)
+            if idle:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"resize_processes: service did not drain within "
+                    f"{timeout:.1f}s (queued={svc.queue.depth}, "
+                    f"in_flight="
+                    f"{svc.jobs_submitted - svc.jobs_done}); the move "
+                    f"aborted with nothing mutated")
+            time.sleep(0.02)
+        if self.net.num_workers > 1:
+            svc.close(timeout=timeout)
+            self.service = None
 
     # -- memory grants (reference: the StageBuilder's DIAMemUse split,
     # api/dia_base.cpp:121-270). A node negotiates as its compute starts
@@ -850,9 +1022,16 @@ class Context:
         ``plan_store_hits``; ``planner_replans``/``_switches``;
         ``decisions_recorded``/``_joined``, ``decision_accuracy``) and,
         with a checkpoint manager, its five (epochs, bytes written, ops
-        and sort runs skipped by resume, restore seconds). Across
-        processes (unless ``local_only``, or once a committed resize
-        move is exiting) the counters are gathered: items and bytes
+        and sort runs skipped by resume, restore seconds). The service
+        plane adds the scheduler's (``jobs_submitted``, ``jobs_failed``,
+        ``jobs_rejected``, ``jobs_rate_limited``, ``queue_depth_peak``),
+        the front door's ``fd_*`` and the autoscaler's
+        (``autoscale_decisions``, ``autoscale_ticks``), all zero without
+        them, and per tenant the accept-to-result quantiles
+        ``serve_p50_ms``/``serve_p99_ms`` (reference:
+        ``api/context.py:1013-1080``). Across processes (unless
+        ``local_only``, once the Context has served, or once a committed
+        resize move is exiting) the counters are gathered: items and bytes
         moved, waits, delayed faults, adopted runs and tenant spills sum
         over the processes, ``hbm_peak`` and ``skew_ratio`` take the
         largest, every other counter is process 0's (a plan counter is
@@ -916,16 +1095,35 @@ class Context:
             "resizes": self.stats_resizes,
             "resize_time_s": round(self.stats_resize_time_s, 4),
             "resizes_proc": self.stats_resizes_proc,
+            **(self.autoscaler.stats() if self.autoscaler is not None
+               else {"autoscale_decisions": 0, "autoscale_ticks": 0}),
             "runs_adopted": adopted_total(),
             "conn_reconnects": getattr(self.net.group, "stats_reconnects",
                                        0),
             "stale_frames_dropped": getattr(self.net.group,
                                             "stats_stale_dropped", 0),
+            **(self.service.stats() if self.service is not None else
+               {"jobs_submitted": 0, "jobs_failed": 0,
+                "jobs_rejected": 0, "jobs_rate_limited": 0,
+                "queue_depth_peak": 0}),
+            **(self.front_door.stats() if self.front_door is not None
+               else {"fd_conns_accepted": 0, "fd_conns_dropped": 0,
+                     "fd_jobs_submitted": 0, "fd_jobs_rejected": 0,
+                     "fd_chunks_sent": 0, "fd_slow_clients": 0,
+                     "fd_deadline_expired": 0}),
+            **({"serve_p50_ms": {}, "serve_p99_ms": {}}
+               if self.service is None
+               else self.service.latency_quantiles()),
         }
         if self.checkpoint is not None:
             stats.update(self.checkpoint.stats())
+        # once a process has served, its view stays local: a follower's
+        # dispatcher waits on the host group for rank 0's ordering frames,
+        # and a gather from this thread would race it for them (the
+        # scheduler is made in lockstep, so every process skips alike)
         if self.net.num_workers > 1 and not local_only \
-                and not self._aborted and not self._resize_exiting:
+                and not self._aborted and self.service is None \
+                and not self._resize_exiting:
             per_host = self.net.all_gather(stats)
             peaks = {"hbm_peak", "skew_ratio"}
             # runs adopted and tenant spills are each process's own
@@ -977,17 +1175,41 @@ class Context:
         self.mesh_exec.reset_run_state()
 
     def close(self) -> None:
-        """Save the plan store, log the stats, detach the log and free
-        the spill store (a spilled result cannot be pulled after
-        this). It runs no collective: after a committed resize move
-        every process exits at its own pace."""
-        self._closed = True
-        if self._profiler is not None:
-            self._profiler.stop()
-            self._profiler = None
+        """Stop the service plane (the autoscaler, then the front door,
+        which flushes its streams while the dispatcher still runs their
+        jobs, then the scheduler, which drains its queue), save the plan
+        store (across processes rank 0 alone holds it), log the stats,
+        detach the log and free the spill store (a spilled result cannot
+        be pulled after this). It runs no collective: after a committed
+        resize move every process exits at its own pace."""
         if self._metrics is not None:
             self._metrics.close()
             self._metrics = None
+        with self._service_lock:
+            self._closed = True
+        if self.autoscaler is not None:
+            try:
+                self.autoscaler.stop()
+            except Exception as e:
+                faults.note("recovery", what="autoscale.stop_failed",
+                            error=repr(e)[:200])
+            self.autoscaler = None
+        if self.front_door is not None:
+            try:
+                self.front_door.close()
+            except Exception as e:
+                faults.note("recovery", what="front_door.close_failed",
+                            error=repr(e)[:200])
+            self.front_door = None
+        if self.service is not None:
+            try:
+                self.service.close()
+            except Exception as e:
+                faults.note("recovery", what="service.close_failed",
+                            error=repr(e)[:200])
+        if self._profiler is not None:
+            self._profiler.stop()
+            self._profiler = None
         if self.plan_store is not None:
             # plans are an optimization: a failing store must not fail
             # the close of the run that learned them

@@ -1097,9 +1097,10 @@ def _graph_loop(plan: LoopPlan, carry: List[Any], k: int) -> List[Any]:
     ``k - 1`` times. Every kernel wrapper launches on
     ``torch.cuda.current_stream()``, the capture stream during the
     capture. The wrappers' launch counts follow what runs: the capture
-    launches nothing, each replay what the capture recorded. A failure
-    before the replays raises :class:`_GraphUnavailable`; the carry is
-    untouched."""
+    launches nothing, each replay what the capture recorded. A capture
+    that runs out of memory releases the caching allocator's free blocks
+    and runs once more. A failure before the replays raises
+    :class:`_GraphUnavailable`; the carry is untouched."""
     counters = _launch_counters()
     cur = torch.cuda.current_stream()
     side = torch.cuda.Stream()
@@ -1114,24 +1115,20 @@ def _graph_loop(plan: LoopPlan, carry: List[Any], k: int) -> List[Any]:
         static = [o.clone() for o in out]
         del out
         keys = {_skey(t) for t in static}
-        before = [f.launches for f in counters]
-        graph = torch.cuda.CUDAGraph()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            graph.capture_begin()
+        for attempt in (0, 1):
             try:
-                outs = plan._run_calls(list(static), raw=True)
-                # an output that is (a view of) a carry buffer is read
-                # before the copies below overwrite it
-                outs = [o.clone() if _skey(o) in keys else o for o in outs]
-                for s, o in zip(static, outs):
-                    s.copy_(o)
-                del outs
-            finally:
-                per_iter = [f.launches - b for f, b in zip(counters, before)]
-                for f, b in zip(counters, before):
-                    f.launches = b
-                graph.capture_end()
+                graph, per_iter = _capture_graph(plan, static, keys,
+                                                 counters, side, cur)
+                break
+            except torch.OutOfMemoryError:
+                if attempt:
+                    raise
+            # the graph's private pool cannot take the caching allocator's
+            # free blocks, and a capture cannot release them: release them
+            # (the failed capture's too, now that its frame is gone) and
+            # capture once more; the capture ran nothing, so the carry
+            # buffers are as they were
+            torch.cuda.empty_cache()
         cur.wait_stream(side)
     except Exception as e:
         raise _GraphUnavailable() from e
@@ -1139,6 +1136,36 @@ def _graph_loop(plan: LoopPlan, carry: List[Any], k: int) -> List[Any]:
     for f, n in zip(counters, per_iter):
         f.launches += n * (k - 1)
     return static
+
+
+def _capture_graph(plan: LoopPlan, static: List[Any], keys, counters,
+                   side, cur):
+    """One iteration of the tape captured over the carry buffers
+    ``static`` on the stream ``side``: (the graph, each counted kernel's
+    launches an iteration). The capture launches nothing, so the
+    counters are restored."""
+    before = [f.launches for f in counters]
+    graph = torch.cuda.CUDAGraph()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        # thread_local: a CUDA call another thread makes meanwhile (a
+        # served job's client, a metrics scrape) cannot break a capture on
+        # the scheduler's dispatcher thread
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            outs = plan._run_calls(list(static), raw=True)
+            # an output that is (a view of) a carry buffer is read before
+            # the copies below overwrite it
+            outs = [o.clone() if _skey(o) in keys else o for o in outs]
+            for s, o in zip(static, outs):
+                s.copy_(o)
+            del outs
+        finally:
+            per_iter = [f.launches - b for f, b in zip(counters, before)]
+            for f, b in zip(counters, before):
+                f.launches = b
+            graph.capture_end()
+    return graph, per_iter
 
 
 def _replay(graph: "torch.cuda.CUDAGraph", n: int) -> None:

@@ -54,6 +54,28 @@ def parse_si_iec_units(s: str) -> int:
     return int(float(s.strip()) * mult)
 
 
+def parse_kv_spec(spec: str, parse_value, what: str) -> dict:
+    """Parse a "name=value,name=value" env spec, skipping malformed
+    entries with a notice (a typo must not silently drop a tenant's
+    weight or budget). ``parse_value`` converts and validates one value
+    (raise ValueError to reject); the service plane's weight, rate and
+    budget knobs parse with it (service/scheduler.py,
+    service/tenancy.py)."""
+    out: dict = {}
+    for entry in (spec or "").split(","):
+        entry = entry.strip()
+        if not entry:
+            continue
+        name, _, v = entry.partition("=")
+        try:
+            out[name.strip()] = parse_value(v)
+        except (ValueError, IndexError):
+            import sys
+            print(f"thrill_tpu: malformed {what} entry {entry!r} "
+                  f"ignored", file=sys.stderr)
+    return out
+
+
 def _env_size(name: str) -> int:
     v = os.environ.get(name)
     return parse_si_iec_units(v) if v else 0

@@ -3,7 +3,10 @@
 
 ``THRILL_TPU_METRICS_PORT=<port>`` makes every Context serve ``GET
 /metrics`` (any path, in fact) with its ``overall_stats()`` counters,
-the HBM governor's live bytes and the tracer's span counts per lane, in
+the live service gauges (``thrill_tpu_queue_depth``,
+``thrill_tpu_jobs_in_flight`` and the per-tenant histogram
+``thrill_tpu_serve_latency_ms``), the HBM governor's live bytes, total
+and per tenant, and the tracer's span counts per lane, in
 Prometheus text exposition format, so a long job can be scraped while
 it runs. A scrape reads this process's view (``overall_stats(
 local_only=True)``): gathering every process's counters would be a
@@ -62,10 +65,49 @@ def render_prometheus(ctx) -> str:
                 lines.append(f"# TYPE {name} gauge")
                 for t, b in sub:
                     gauge(name, b, f'{{key="{_label(t)}"}}')
+    # what is queued or running now
+    svc = getattr(ctx, "service", None)
+    if svc is not None:
+        depth = getattr(getattr(svc, "queue", None), "depth", 0)
+        done = getattr(svc, "jobs_done", 0)
+        sub = getattr(svc, "jobs_submitted", 0)
+        lines.append("# TYPE thrill_tpu_queue_depth gauge")
+        gauge("thrill_tpu_queue_depth", depth)
+        lines.append("# TYPE thrill_tpu_jobs_in_flight gauge")
+        gauge("thrill_tpu_jobs_in_flight", max(sub - done, 0))
+        # per-tenant accept-to-result latency: cumulative ``le`` buckets
+        # at the scheduler's log2 boundaries
+        hist = getattr(svc, "latency_histogram", None)
+        hist = hist() if callable(hist) else {}
+        if hist:
+            name = "thrill_tpu_serve_latency_ms"
+            lines.append(f"# TYPE {name} histogram")
+            for tenant, (counts, count, sum_ms) in hist.items():
+                t = _label(tenant)
+                cum = 0
+                for i, c in enumerate(counts[:-1]):
+                    # the last bucket clamps the latencies past every
+                    # boundary: it folds into +Inf only
+                    if not c:
+                        continue
+                    cum += c
+                    gauge(f"{name}_bucket", cum,
+                          f'{{tenant="{t}",le="{1 << i}"}}')
+                gauge(f"{name}_bucket", count,
+                      f'{{tenant="{t}",le="+Inf"}}')
+                gauge(f"{name}_count", count, f'{{tenant="{t}"}}')
+                gauge(f"{name}_sum", round(sum_ms, 3),
+                      f'{{tenant="{t}"}}')
     hbm = getattr(ctx, "hbm", None)
     if hbm is not None:
         lines.append("# TYPE thrill_tpu_hbm_live_bytes gauge")
         gauge("thrill_tpu_hbm_live_bytes", hbm.mem.total)
+        tb = dict(getattr(hbm, "tenant_bytes", None) or {})
+        if tb:
+            lines.append("# TYPE thrill_tpu_tenant_hbm_bytes gauge")
+            for t, b in sorted(tb.items()):
+                gauge("thrill_tpu_tenant_hbm_bytes", b,
+                      f'{{tenant="{_label(t)}"}}')
     tr = getattr(ctx, "tracer", None)
     lanes = dict(tr.lane_counts) if tr is not None else {}
     if lanes:

@@ -24,9 +24,11 @@ exchange, of which loop iteration bounded the run. The choke points:
 * ``api/loop.py``: capture and replay iterations (``loop``).
 
 * ``net/tcp.py``: link repairs (``net`` instants).
-
-The reference's ``service`` lane belongs to the service code, which the
-port has not taken yet.
+* ``service/scheduler.py``: each served job's ``queue_wait`` bar and its
+  ``job:<name>`` span with ``tenant``, ``job`` and ``job_id``
+  (``service``), ``current_job`` set around the run so the job's nested
+  spans carry its name; ``service/front_door.py``: ``admit`` and
+  ``stream:<pipeline>`` (``front_door``).
 
 Spans time the host (``time.perf_counter``), as the reference's do: a
 span around a dispatch measures the host's time to queue the work, not
@@ -193,8 +195,8 @@ class Tracer:
         self._ids = itertools.count(1)
         self._tls = threading.local()
         # context binders: generation / tenant of the moment a span
-        # starts, and the job name nested spans carry (unset in the
-        # port, which has no failure domains or service plane yet)
+        # starts (the Context sets both), and the job name nested spans
+        # carry (the scheduler sets it around a served job)
         self.gen_fn = None
         self.tenant_fn = None
         self.current_job: Optional[str] = None

@@ -72,6 +72,14 @@ _FRAME_TRANSIENT = (faults.InjectedConnectionError,)
 # reconnects the link for the next one.
 _F_DISCONNECT = faults.declare("net.tcp.disconnect", kind="permanent")
 
+# an external client vanishing mid-session (SIGKILL, network
+# partition) as seen from the serving edge: fired in the front door's
+# per-connection reader (service/front_door.py), an armed fire drops
+# exactly that client's connection. Permanent by nature: its in-flight
+# jobs still complete and other tenants never notice.
+F_CLIENT_DISCONNECT = faults.declare("net.tcp.client_disconnect",
+                                     kind="permanent")
+
 
 def _reconnect_enabled() -> bool:
     """THRILL_TPU_RECONNECT=0 disables link repair: a dropped socket

@@ -1,5 +1,5 @@
 """The plan store: learned plan state across restarts (counterpart of
-the reference package's ``service/plan_store.py``, single controller).
+the reference package's ``service/plan_store.py``).
 
 A Context learns its plans in-process: sticky exchange capacities,
 narrow ranges and plan kinds (data/exchange.py), pre-shuffle verdicts
@@ -25,9 +25,15 @@ warm restart of a known pipeline makes no data-driven plan build
 * ``save_ledger`` writes the decision ledger's accuracy summary beside
   the plans (``decisions.json``).
 
-Local paths and ``file://`` only: a remote scheme raises, and the
-multi-controller broadcast of the entries belongs to ROADMAP item 6, its
-service-plane part.
+On a mesh of several processes rank 0 alone opens and reads the store
+and broadcasts the entries over the host group; every process installs
+them with ``install_entries(..., symmetric=True)``, the attestation
+that keeps the optimistic exchange open, and rank 0 alone saves at
+close (``Context._plan_store_broadcast``). Without a host group that
+spans the processes the store is skipped with a notice.
+
+Local paths and ``file://`` only: a remote scheme raises (ROADMAP item
+6, its remote-vfs part).
 """
 
 from __future__ import annotations

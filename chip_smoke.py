@@ -123,11 +123,12 @@ Phases, each fatal on failure:
  22. host storage, the card idle but in H4 (host seconds, beside the
      host's CPU model): H1 thrill_tpu_torch/examples/word_count.py's
      word_count (ReadLines, FlatMap split, Map, host ReduceByKey) over a
-     file of 2^19 of phase 4's words, 16 a line, at W=4, equal to
+     file of 2^18 of phase 4's words (halved a fourth time for time),
+     16 a line, at W=4, equal to
      collections.Counter of the file's words exactly, with the dup
      verdict, the items exchanged, the host seconds of ReadLines, the
      stack, the pre phase, the exchange and the post phase, and the spill
-     stats; then W=1 over 2^17 words; H2 the same W=4 run with
+     stats; then W=1 over 2^16 words; H2 the same W=4 run with
      THRILL_TPU_RAM cut to 8M and the spill directory a temporary one:
      the post tables must spill and recurse, the per-worker lists equal
      H1's as multisets, the bytes written to disk printed, the directory
@@ -383,6 +384,27 @@ warm from the first's plan store (``store_broadcast``, ``plan_builds``
 0 for its first WordCount). S6's processes start with the phase and
 wait: the first pair works from the end of S1 on, beside S2-S5.
 
+    python3 chip_smoke.py --phase-v
+
+builds the kernels and runs phase V alone (after phase S in the whole
+smoke), the remote vfs: the port's object server on loopback, no
+latency added, each check against the same job over file://, results
+bit-equal and the launches equal. V1 is the text WordCount W = 4 of the
+wordcount text path's input, as four objects over http:// (ReadWordsPacked
+ranges). V2 is TeraSort W = 4 at the terasort file path's size,
+ReadBinary -> Sort -> WriteBinary over s3:// through the REST transport
+(THRILL_TPU_OBJECT_STORE_ENDPOINT). V3 is the reference's flagship
+pipeline, ReadLines -> Sort -> Checkpoint -> AllGather of one of V1's
+objects with the checkpoint directory on the server, then resumed from
+the remote epoch; an external host Sort (V_EM_LINES lines, runs of
+V_EM_RUN) whose run store is on the server, resumed with every run
+reused; and a WordCount-shaped ReduceByKey with its plan store on
+s3://, cold then warm (plan_builds 0). V4: V1 on a server failing
+V_FAIL_RATE of its requests, V1 with ``vfs.prefetch`` armed on every
+readahead (each falls back to demand reads), and a server ignoring
+Range, where ReadBinary must raise. V1-V3 print seconds, MB/s,
+remote_gets, remote_puts, get_p50_ms and the device's busy share.
+
     python3 chip_smoke.py --m1-compare DIR
 
 runs only phase 23's M1 of the tree at DIR (a copy of an earlier commit
@@ -449,8 +471,8 @@ HLL_ITEMS = 1 << 24            # HyperLogLog items of HLL_VALUES values
 HLL_VALUES = 1 << 22
 HLL_P = 14
 CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
-HW_WORDS = 1 << 19             # host WordCount words (W=4), 16 a line
-HW_WORDS_W1 = 1 << 17          # host WordCount words (W=1)
+HW_WORDS = 1 << 18             # host WordCount words (W=4), 16 a line
+HW_WORDS_W1 = 1 << 16          # host WordCount words (W=1)
 HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
 HO_ITEMS = 1 << 17             # host ops items (str key, int)
 HO_RIGHT = 1 << 15             # host InnerJoin right side
@@ -4484,7 +4506,8 @@ L_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
 L_REF = {("pagerank", 4): (1, 0, 9, 0), ("pagerank", 1): (1, 0, 9, 0),
          ("k-means", 4): (0, 0, 0, 0), ("k-means", 1): (1, 0, 9, 0)}
 _LLOYD = {}                   # numpy Lloyd runs by iterations (lloyd_cached)
-L_WARM = 2                    # warm runs of replay and the plain loop each
+L_WARM = 1                    # warm runs of replay and the plain loop each
+                               # (cut from 2 for time)
 
 
 def l_modes(name: str, captures: bool):
@@ -8391,6 +8414,24 @@ def s_failing(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
     return launches
 
 
+def held_blocks(torch, shards):
+    """(bytes of the storages of a DeviceShards' leaves (views share
+    one), bytes of the caching allocator's blocks under them and under
+    its device counts). A block exceeds its storage by the allocator's
+    rounding: to 512 bytes, or a free block's remainder of up to 1 MiB
+    that it does not split off."""
+    from thrill_tpu_torch.common import tree as pt
+    leaves = {l.untyped_storage().data_ptr(): l.untyped_storage().nbytes()
+              for l in pt.leaves(shards.tree)}
+    ptrs = set(leaves)
+    dev_counts = getattr(shards, "_counts_dev", None)
+    if dev_counts is not None:
+        ptrs.add(dev_counts.untyped_storage().data_ptr())
+    blocks = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"}
+    return sum(leaves.values()), sum(blocks[p] for p in ptrs)
+
+
 def s_tenants(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
     """S3: tenant b's budget below its two kept results: b's coldest
     spills, a's stay on the card, and both tenants' next jobs give S1's
@@ -8405,9 +8446,11 @@ def s_tenants(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
         gc.collect()
         torch.cuda.synchronize()
         m0, nb = torch.cuda.memory_allocated(), node._hbm_bytes
+        held, blocks = held_blocks(torch, node._shards)
         real_spill(node)
         torch.cuda.synchronize()
-        drops.append((node._tenant, nb, m0 - torch.cuda.memory_allocated()))
+        drops.append((node._tenant, nb, m0 - torch.cuda.memory_allocated(),
+                      held, blocks))
 
     def keep(seed):
         def job(c):
@@ -8432,11 +8475,15 @@ def s_tenants(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
         st = ctx.overall_stats()
         want = {("a", 0): False, ("a", 1): False, ("b", 0): True,
                 ("b", 2): False}
-        # every spill is b's; the kept result's frees its ledger bytes
-        # (b's other cold nodes, a Sort's source, may spill too)
+        # every spill is b's (b's other cold nodes, the degree table and
+        # edges S1's PageRanks kept, may spill too), and each frees the
+        # allocator's blocks of what it holds, whose bytes are its ledger
+        # bytes and its device counts (C25)
         if spilled != want or st["tenant_spills"] < 1 \
-                or any(t != "b" for t, _, _ in drops) \
-                or (unit, unit) not in [(nb, dr) for _, nb, dr in drops]:
+                or any(d[0] != "b" for d in drops) \
+                or unit not in [d[1] for d in drops] \
+                or any(dr != bl or held != nb for
+                       _, nb, dr, held, bl in drops):
             raise AssertionError(f"S3: spilled {spilled}, drops {drops}, "
                                  f"tenant_spills {st['tenant_spills']}")
         nxt = [ctx.submit(s_served(torch, np, pk, ps, "wordcount", 0, refs),
@@ -8450,8 +8497,9 @@ def s_tenants(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
             f"{ctx.hbm.tenant_budgets['b']} bytes (1.5 of one kept "
             f"TeraSort, {unit} ledger bytes) below its two kept results: "
             f"b's coldest kept result spilled; b's spills (ledger bytes, "
-            f"memory_allocated drop) {[(nb, dr) for _, nb, dr in drops]}; "
-            f"a's two results stayed "
+            f"memory_allocated drop) {[d[1:3] for d in drops]}, each drop "
+            f"the allocator's blocks of its leaves and device counts; a's "
+            f"two results stayed "
             f"on the card (no budget); tenant_spills {st['tenant_spills']}, "
             f"tenant_hbm_peaks {st['tenant_hbm_peaks']}; both tenants' next "
             f"jobs equal to S1's; launches {json.dumps(launches)} [{card}]")
@@ -8935,6 +8983,457 @@ def s_phase(torch, np, tt, pk, ps, card: str) -> dict:
         f"[host {cpu_line()}; {card}]")
     return paths
 
+# -- phase V: the remote vfs on the card -------------------------------------
+
+V_EM_LINES = 1 << 17           # V3: lines of the external Sort (runs of
+V_EM_RUN = 1 << 13             # ... this many: 16 runs, on the server)
+V_FAIL_RATE = 0.05             # V4: the flaky server's 503 share
+V_FAIL_SEED = 22               # V4: its draws (seed 22: the third fails)
+V_RANGE_RECORDS = 1000         # V4: records of the Range-ignoring read
+V_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
+             "presence_fill")
+
+
+def v_remote(torch, pk, ps, fn, label: str):
+    """``fn()`` with the launches zeroed just before, under the profiler:
+    {out, secs, launches, gets, puts, p50 (ms), busy (device ms), label}.
+    The I/O ledger's remote counters and the GET latency ledger are read
+    around the call."""
+    from thrill_tpu_torch.common.iostats import IO
+    from thrill_tpu_torch.vfs import object_store
+    object_store.latency_reset()
+    io0 = IO.snapshot()
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    out, busy, wall, _ = profiled(torch, fn)
+    launches = read_launches(pk, ps)
+    d = IO.delta(IO.snapshot(), io0)
+    return dict(out=out, secs=wall, launches=launches, label=label,
+                gets=d["remote_gets"], puts=d["remote_puts"],
+                p50=object_store.get_p50_ms(), busy=busy)
+
+
+def v_same_launches(label: str, remote: dict, local: dict,
+                    need=V_KERNELS) -> None:
+    if remote != local:
+        raise AssertionError(f"{label}: launches over the object store "
+                             f"{remote} differ from file:// {local}")
+    need_launches(remote, need, label)
+
+
+def v_line(r: dict, nbytes: int, card: str) -> str:
+    return (f"{r['secs']:.3f} s, {nbytes / r['secs'] / 1e6:.1f} MB/s of "
+            f"object bytes, remote_gets {r['gets']}, remote_puts "
+            f"{r['puts']}, get_p50_ms {r['p50']:.3f}, device busy "
+            f"{r['busy']:.3f} ms (share {r['busy'] / 1e3 / r['secs']:.4f}; "
+            f"under the profiler, host clock after synchronize) [{card}]")
+
+
+def v_split_text(path: str, parts: int):
+    """The text file's bytes cut into ``parts`` pieces at line ends."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    cuts = [0]
+    for k in range(1, parts):
+        cuts.append(raw.index(b"\n", len(raw) * k // parts) + 1)
+    cuts.append(len(raw))
+    return [raw[a:b] for a, b in zip(cuts, cuts[1:])]
+
+
+def v_wordcount(torch, np, tt, pk, ps, srv, tmp: str, card: str):
+    """V1: the text WordCount W=4 of the wordcount text path's input
+    (2^24 Zipf words) as four objects over http:// and as four files:
+    both equal to np.bincount and bit-equal, the same launches."""
+    from thrill_tpu_torch.examples import word_count as twc
+    t0 = time.perf_counter()
+    path, size, voc_h, want = text_input(torch, np, 4, tmp)
+    os.makedirs(os.path.join(tmp, "wc"))
+    pieces = v_split_text(path, 4)
+    os.unlink(path)
+    for i, b in enumerate(pieces):
+        srv.put(f"b/wc/words-{i:02d}.txt", b)
+        with open(os.path.join(tmp, "wc", f"words-{i:02d}.txt"), "wb") as f:
+            f.write(b)
+    del pieces
+
+    def job(pattern):
+        def run():
+            ctx = tt.Context(num_workers=4, device=DEVICE)
+            out = twc.word_count_text_device(ctx, pattern).AllGatherArrays()
+            ctx.close()
+            return out
+        return run
+
+    url = f"{srv.url}/b/wc/words-*"
+    setup = time.perf_counter() - t0
+    local, l_secs, l_launches = first_run(torch, pk, ps, job(
+        os.path.join(tmp, "wc", "words-*")))
+    w, c = local["w"].cpu().numpy(), local["c"].cpu().numpy()
+    got_ids = word_ids(np, w)
+    present = np.flatnonzero(want)
+    if (len(got_ids) != len(present)
+            or not np.array_equal(np.sort(got_ids), present)
+            or not np.array_equal(c, want[got_ids])):
+        raise AssertionError("V1: the file:// WordCount differs from "
+                             "np.bincount")
+    r = v_remote(torch, pk, ps, job(url), "V1")
+    if not all(torch.equal(r["out"][k], local[k]) for k in local):
+        raise AssertionError("V1: the http:// WordCount differs from the "
+                             "file:// one")
+    v_same_launches("V1 wordcount text W=4", r["launches"], l_launches)
+    if r["gets"] < 4 or r["puts"] != 0:
+        raise AssertionError(f"V1: {r['gets']} GETs, {r['puts']} PUTs")
+    log(f"V1 wordcount text W=4 over http:// (four objects, {size} bytes, "
+        f"{len(present)} distinct words; its text made and put in "
+        f"{setup:.3f} s): bit-equal to file:// ({l_secs:.3f} s) and "
+        f"np.bincount, launches equal {json.dumps(r['launches'])}; "
+        f"{v_line(r, size, card)}")
+    return {"job": job(url), "want": local, "bytes": size, "remote": r,
+            "launches": l_launches}
+
+
+def v_terasort(torch, np, tt, pk, ps, srv, tmp: str, card: str):
+    """V2: TeraSort W=4 at the terasort file path's size, ReadBinary ->
+    Sort -> WriteBinary over s3:// (the REST transport, the endpoint
+    from THRILL_TPU_OBJECT_STORE_ENDPOINT) and over files: the output
+    objects bit-equal to the output files, sorted, the same launches."""
+    import shutil
+    from thrill_tpu_torch.vfs import s3_file
+    if s3_file._rest() is None:
+        raise AssertionError("V2: s3:// would not take the REST transport "
+                             "(boto3 importable, or no endpoint)")
+    W = 4
+    t0 = time.perf_counter()
+    n = W * PER_WORKER
+    free = shutil.disk_usage(tmp).free
+    while n > W and 2.2 * n * 100 > free:     # input and output files
+        n //= 2
+    rng = np.random.default_rng(SEED + 110)
+    rec = np.frombuffer(rng.bytes(n * 100), dtype=np.uint8).reshape(n, 100)
+    os.makedirs(os.path.join(tmp, "ts"))
+    for w, part in enumerate(np.array_split(rec, W)):
+        part.tofile(os.path.join(tmp, "ts", f"in-{w:05d}.bin"))
+        srv.put(f"b/ts/in-{w:05d}.bin", part.tobytes())
+    del rec, part
+
+    def job(src, dst):
+        def run():
+            # the read, the Sort and the write, each after synchronize
+            ctx = tt.Context(num_workers=W, device=DEVICE)
+            t = [time.perf_counter()]
+            d = ctx.ReadBinary(src, dtype=np.uint8, record_shape=(100,))
+            d.Execute()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            s = d.Sort(lambda r: r[:, :10]).Keep()
+            s.Execute()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            s.WriteBinary(dst)
+            t.append(time.perf_counter())
+            ctx.close()
+            return [round(b - a, 3) for a, b in zip(t, t[1:])]
+        return run
+
+    setup = time.perf_counter() - t0
+    l_split, l_secs, l_launches = first_run(torch, pk, ps, job(
+        os.path.join(tmp, "ts", "in-*.bin"),
+        os.path.join(tmp, "ts", "out", "sorted-$$$$$.bin")))
+    r = v_remote(torch, pk, ps, job("s3://b/ts/in-*.bin",
+                                    "s3://b/ts/out/sorted-$$$$$.bin"), "V2")
+    prev = None
+    for w in range(W):
+        with open(os.path.join(tmp, "ts", "out", f"sorted-{w:05d}.bin"),
+                  "rb") as f:
+            local = f.read()
+        obj = srv.objects.get(f"b/ts/out/sorted-{w:05d}.bin")
+        if obj != local:
+            raise AssertionError(f"V2: output object {w} differs from its "
+                                 f"file")
+        keys = np.frombuffer(local, dtype=np.uint8).reshape(-1, 100)[:, :10]
+        hi = keys[:, :8].copy().view(">u8").reshape(-1).astype(np.uint64)
+        lo = keys[:, 8:].copy().view(">u2").reshape(-1).astype(np.uint64)
+        if prev is not None and len(hi):
+            hi, lo = np.concatenate([[prev[0]], hi]), np.concatenate(
+                [[prev[1]], lo])
+        if len(hi) > 1 and not np.all((hi[1:] > hi[:-1]) | (
+                (hi[1:] == hi[:-1]) & (lo[1:] >= lo[:-1]))):
+            raise AssertionError(f"V2: output {w} is not sorted")
+        if len(hi):
+            prev = (hi[-1], lo[-1])
+        del local, obj, keys, hi, lo
+    v_same_launches("V2 terasort W=4", r["launches"], l_launches,
+                    V_KERNELS[:3])
+    nbytes = 2 * n * 100
+    log(f"V2 terasort W=4 over s3:// n={n} records ({n * 100} bytes in, as "
+        f"many out; disk free {free}; made and put in {setup:.3f} s): "
+        f"ReadBinary -> Sort -> WriteBinary (read, sort, write "
+        f"{r['out']} s), output objects bit-equal to the file:// run's "
+        f"files ({l_secs:.3f} s; {l_split} s) and sorted, launches equal "
+        f"{json.dumps(r['launches'])}; {v_line(r, nbytes, card)}")
+    for k in [k for k in srv.objects if k.startswith("b/ts/")]:
+        del srv.objects[k]
+    shutil.rmtree(os.path.join(tmp, "ts"), ignore_errors=True)
+    return r
+
+
+def _v_first10(s):
+    return s[:10]
+
+
+def v_flagship(torch, np, tt, pk, ps, srv, tmp: str, card: str):
+    """V3: the reference's flagship pipeline W=4 (ReadLines -> Sort ->
+    Checkpoint -> AllGather) with its checkpoint directory on the
+    server, then resumed from the remote epoch; an external Sort whose
+    run store is on the server, resumed with every run reused; a plan
+    store on s3://, cold then warm. Each bit-equal to file://, with the
+    same launches."""
+    from thrill_tpu_torch.common.config import Config
+    url_in = f"{srv.url}/b/wc/words-00.txt"
+    loc_in = os.path.join(tmp, "wc", "words-00.txt")
+    in_bytes = os.path.getsize(loc_in)
+    with open(loc_in, encoding="ascii") as f:
+        want = sorted(f.read().splitlines())
+
+    def flagship(src, ckpt, resume=False):
+        def run():
+            ctx = tt.Context(num_workers=4, device=DEVICE,
+                             config=Config(ckpt_dir=ckpt), resume=resume)
+            out = ctx.ReadLines(src).Sort().Checkpoint().AllGather()
+            st = ctx.overall_stats()
+            ctx.close()
+            return out, st
+        return run
+
+    rows, launches = [], {}
+    for tag, resume in (("run", False), ("resumed", True)):
+        (lout, lst), l_secs, l_launches = first_run(torch, pk, ps, flagship(
+            loc_in, os.path.join(tmp, "ck"), resume))
+        r = v_remote(torch, pk, ps, flagship(url_in, f"{srv.url}/b/ck",
+                                             resume), f"V3 {tag}")
+        out, st = r["out"]
+        if out != lout or out != want:
+            raise AssertionError(f"V3 flagship ({tag}): the http:// lines "
+                                 f"differ from file:// or sorted()")
+        v_same_launches(f"V3 flagship {tag}", r["launches"], l_launches, ())
+        if resume and (st["resume_skipped_ops"] < 1
+                       or lst["resume_skipped_ops"] < 1):
+            raise AssertionError(f"V3: the resume skipped "
+                                 f"{st['resume_skipped_ops']} ops")
+        if not any(k.startswith("b/ck/epoch_") for k in srv.objects):
+            raise AssertionError("V3: no epoch on the server")
+        rows.append(r)
+        launches[f"V3 flagship W=4 ({tag}, http)"] = r["launches"]
+        log(f"V3 flagship W=4 ({tag}) over http:// ({len(want)} lines, "
+            f"checkpoint on the server, resume_skipped_ops "
+            f"{st['resume_skipped_ops']}): lines equal to file:// "
+            f"({l_secs:.3f} s) and sorted(); {v_line(r, in_bytes, card)}")
+    # the external Sort's run store on the server
+    rng = np.random.default_rng(SEED + 410)
+    keys = rng.integers(0, 10 ** 10, V_EM_LINES).tolist()
+    lines = [f"{k:010d}\t{i:08d}payload\n" for i, k in enumerate(keys)]
+    em_want = sorted(lines, key=_v_first10)
+
+    def em_sort(ckpt, resume=False):
+        def run():
+            ctx = tt.Context(num_workers=4, device=DEVICE,
+                             config=Config(ckpt_dir=ckpt), resume=resume)
+            node = ctx.Distribute(lines, storage="host").Sort(
+                key_fn=_v_first10).node
+            got = node.materialize()
+            flat = [it for l in got.lists for it in l]
+            st = dict(node._em_stats)
+            ctx.close()
+            return flat, st
+        return run
+
+    with EnvSet(THRILL_TPU_HOST_SORT_RUN=str(V_EM_RUN),
+                THRILL_TPU_SPILL_RESIDENT=H6_RESIDENT):
+        em = {}
+        for tag, resume in (("run", False), ("resumed", True)):
+            (lflat, lst), _, l_launches = first_run(torch, pk, ps, em_sort(
+                os.path.join(tmp, "emck"), resume))
+            r = v_remote(torch, pk, ps, em_sort(f"{srv.url}/b/emck", resume),
+                         f"V3 em {tag}")
+            flat, st = r["out"]
+            if flat != lflat or flat != em_want:
+                raise AssertionError(f"V3 em sort ({tag}) differs from "
+                                     f"file:// or sorted()")
+            v_same_launches(f"V3 em sort {tag}", r["launches"], l_launches,
+                            ())
+            em[tag] = (st, lst, r)
+            launches[f"V3 em sort W=4 ({tag}, http)"] = r["launches"]
+    st0, lst0, _ = em["run"]
+    st1, lst1, r1 = em["resumed"]
+    n_runs = sum(1 for k in srv.objects if k.startswith("b/emck/em_runs/")
+                 and k.endswith(".json"))
+    if not (st0["runs"] > 1 and st0["runs_reused"] == 0
+            and n_runs == st0["runs"] and st1["runs_reused"] == st0["runs"]
+            and lst1["runs_reused"] == lst0["runs"] == st0["runs"]):
+        raise AssertionError(f"V3 em sort: formed {st0}, resumed {st1}, "
+                             f"file:// {lst0} {lst1}, {n_runs} manifests")
+    em_bytes = sum(len(v) for k, v in srv.objects.items()
+                   if k.startswith("b/emck/em_runs/"))
+    log(f"V3 em sort W=4 with its run store over http:// ({V_EM_LINES} "
+        f"lines, runs of {V_EM_RUN}): {st0['runs']} runs formed and "
+        f"committed as {n_runs} manifests ({em_bytes} bytes), the resume "
+        f"reused {st1['runs_reused']}; equal to file:// and sorted(); "
+        f"first run {v_line(em['run'][2], em_bytes, card)}")
+    log(f"V3 em sort W=4 resumed: {v_line(r1, em_bytes, card)}")
+    rows += [em["run"][2], r1]
+    # a plan store on s3://, cold then warm
+    vals = (np.arange(1 << 22, dtype=np.int64) * 7919) % (1 << 18)
+
+    def planned(store):
+        def run():
+            ctx = tt.Context(num_workers=4, device=DEVICE,
+                             config=Config(plan_store=store))
+            red = tt.FieldReduce({"k": "first", "c": "sum"})
+            out = ctx.Distribute({"k": vals, "c": np.ones_like(vals)}
+                                 ).ReduceByKey(_p_tkey_k, red).AllGatherArrays()
+            st = ctx.overall_stats()
+            ctx.close()
+            return out, st
+        return run
+
+    for tag in ("cold", "warm"):
+        (lout, lst), _, l_launches = first_run(torch, pk, ps, planned(
+            os.path.join(tmp, "plans")))
+        r = v_remote(torch, pk, ps, planned("s3://b/plans"),
+                     f"V3 plans {tag}")
+        out, st = r["out"]
+        if not all(torch.equal(out[k], lout[k]) for k in lout) \
+                or int(out["c"].sum()) != len(vals):
+            raise AssertionError(f"V3 plan store ({tag}): the s3:// run "
+                                 f"differs from file://")
+        v_same_launches(f"V3 plan store {tag}", r["launches"], l_launches,
+                        V_KERNELS[:3])
+        if tag == "warm" and (st["plan_builds"] != 0
+                              or st["plan_builds"] != lst["plan_builds"]
+                              or st["plan_store_hits"] <= 0):
+            raise AssertionError(f"V3 plan store warm: plan_builds "
+                                 f"{st['plan_builds']}, file:// "
+                                 f"{lst['plan_builds']}, hits "
+                                 f"{st['plan_store_hits']}")
+        if "b/plans/plans.json" not in srv.objects:
+            raise AssertionError("V3: no plan store object on the server")
+        rows.append(r)
+        launches[f"V3 plan store WordCount W=4 ({tag}, s3)"] = r["launches"]
+        log(f"V3 plan store on s3:// W=4 ({tag}): plan_builds "
+            f"{st['plan_builds']} (file:// {lst['plan_builds']}), "
+            f"plan_store_hits {st['plan_store_hits']}; result and launches "
+            f"equal to file:// {json.dumps(r['launches'])}; "
+            f"{v_line(r, len(srv.objects['b/plans/plans.json']), card)}")
+    secs = sum(r["secs"] for r in rows)
+    busy = sum(r["busy"] for r in rows)
+    log(f"V3 in all: {secs:.3f} s over the server, remote_gets "
+        f"{sum(r['gets'] for r in rows)}, remote_puts "
+        f"{sum(r['puts'] for r in rows)}, device busy {busy:.3f} ms (share "
+        f"{busy / 1e3 / secs:.4f}) [{card}]")
+    return launches
+
+
+def v_faults(torch, np, tt, pk, ps, srv, v1: dict, card: str):
+    """V4: V1's WordCount on a server failing V_FAIL_RATE of its requests,
+    then with ``vfs.prefetch`` armed on every readahead thread: both
+    equal to V1; then a server that ignores Range: ReadBinary raises."""
+    from thrill_tpu_torch.common import faults
+    want = v1["want"]
+    out = {}
+    s0 = srv.stats()
+    srv.set_fail_rate(V_FAIL_RATE, seed=V_FAIL_SEED)
+    try:
+        r = v_remote(torch, pk, ps, v1["job"], "V4 flaky")
+    finally:
+        srv.set_fail_rate(0.0)
+    s1 = srv.stats()
+    failed = (s1["requests"] - s0["requests"]) - (s1["gets"] - s0["gets"]) \
+        - (s1["lists"] - s0["lists"])
+    if not all(torch.equal(r["out"][k], want[k]) for k in want) or failed < 1:
+        raise AssertionError(f"V4: the flaky server's WordCount differs "
+                             f"from V1's, or no request failed ({failed})")
+    v_same_launches("V4 flaky", r["launches"], v1["launches"])
+    out["V4 wordcount text W=4 (5 % of requests fail)"] = r["launches"]
+    rec0 = faults.REGISTRY.stats()["recoveries"]
+    with EnvSet(THRILL_TPU_FAULTS="vfs.prefetch:p=1.0:n=0"):
+        p = v_remote(torch, pk, ps, v1["job"], "V4 prefetch")
+    degraded = faults.REGISTRY.stats()["recoveries"] - rec0
+    faults.REGISTRY.reset()
+    if not all(torch.equal(p["out"][k], want[k]) for k in want) \
+            or degraded < 1:
+        raise AssertionError(f"V4: vfs.prefetch armed: equal "
+                             f"{[torch.equal(p['out'][k], want[k]) for k in want]}"
+                             f", {degraded} readers degraded")
+    v_same_launches("V4 prefetch", p["launches"], v1["launches"])
+    out["V4 wordcount text W=4 (vfs.prefetch armed)"] = p["launches"]
+    srv.put("b/rng/recs.bin", np.arange(V_RANGE_RECORDS * 8,
+                                        dtype=np.int64).tobytes())
+    srv.set_honor_range(False)
+    err = None
+    try:
+        ctx = tt.Context(num_workers=4, device=DEVICE)
+        try:
+            ctx.ReadBinary(f"{srv.url}/b/rng/recs.bin", dtype=np.int64,
+                           record_shape=(8,)).Size()
+        finally:
+            ctx.close()
+    except Exception as e:        # the failure may come wrapped
+        err = e
+    finally:
+        srv.set_honor_range(True)
+    chain, e = [], err
+    while e is not None and len(chain) < 8:
+        chain.append(repr(e))
+        e = e.__cause__ or e.__context__
+    if err is None or not any("ignored Range" in c for c in chain):
+        raise AssertionError(f"V4: a server ignoring Range gave {chain}")
+    log(f"V4 faults W=4: a server failing {V_FAIL_RATE} of requests "
+        f"({failed} answered 503, retried) gave V1's counts bit for bit in "
+        f"{r['secs']:.3f} s, remote_gets {r['gets']}; vfs.prefetch armed on "
+        f"every readahead: {degraded} readers fell back to demand reads, "
+        f"V1's counts in {p['secs']:.3f} s; a server ignoring Range: "
+        f"ReadBinary raised {chain[-1][:120]}; launches equal to V1's "
+        f"[{card}]")
+    return out
+
+
+def v_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase V, the remote vfs: the port's object server on loopback
+    (no latency added), V1-V4 against the same jobs over file://.
+    Returns each remote path's launches."""
+    import shutil
+    import tempfile
+    from thrill_tpu_torch.tools.object_server import ObjectServer
+    t_v = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ttpu-v-")
+    srv = ObjectServer(latency_s=0.0)
+    paths = {}
+    try:
+        with EnvSet(THRILL_TPU_OBJECT_STORE_ENDPOINT=srv.url):
+            v1 = v_wordcount(torch, np, tt, pk, ps, srv, tmp, card)
+            paths["V1 wordcount text W=4 (http)"] = v1["remote"]["launches"]
+            t1 = time.perf_counter()
+            paths["V2 terasort W=4 (s3)"] = v_terasort(
+                torch, np, tt, pk, ps, srv, tmp, card)["launches"]
+            t2 = time.perf_counter()
+            paths.update(v_flagship(torch, np, tt, pk, ps, srv, tmp, card))
+            t3 = time.perf_counter()
+            paths.update(v_faults(torch, np, tt, pk, ps, srv, v1, card))
+        st = srv.stats()
+    finally:
+        srv.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    assert_port_alone()
+    log(f"remote vfs phase (V): {time.perf_counter() - t_v:.1f} s of host "
+        f"clock (V1 {t1 - t_v:.1f} s with its text, V2 {t2 - t1:.1f} s with "
+        f"its records, V3 {t3 - t2:.1f} s, V4 "
+        f"{time.perf_counter() - t3:.1f} s); the server answered "
+        f"{st['requests']} requests ({st['gets']} GETs, {st['puts']} PUTs, "
+        f"{st['lists']} listings) [host {cpu_line()}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9019,6 +9518,10 @@ def main() -> int:
     if "--phase-s" in sys.argv:
         # phase S alone
         log(json.dumps(s_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-v" in sys.argv:
+        # phase V alone
+        log(json.dumps(v_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -9138,7 +9641,9 @@ def main() -> int:
     r_paths = r_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     s_paths = s_phase(torch, np, tt, pk, ps, card)
-    clock("phases P, X, T, D, R and S")
+    torch.cuda.empty_cache()
+    v_paths = v_phase(torch, np, tt, pk, ps, card)
+    clock("phases P, X, T, D, R, S and V")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -9232,7 +9737,7 @@ def main() -> int:
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
              **l_paths, **p_paths, **x_paths, **t_paths, **d_paths,
-             **r_paths, **s_paths}
+             **r_paths, **s_paths, **v_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

@@ -371,10 +371,38 @@ def test_config_reads_the_references_variables(monkeypatch, tmp_path):
     ctx.close()
 
 
-def test_a_remote_checkpoint_directory_names_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tt.Context(num_workers=1, device="cpu",
-                   config=TConfig(ckpt_dir="s3://bucket/ckpt"))
+def test_a_remote_checkpoint_directory_is_the_references(tmp_path,
+                                                        monkeypatch):
+    """A checkpoint directory on an object server: the epochs are the
+    reference's objects, the resume skips the upstream op as in the
+    reference, the resize marker is read from the server and not
+    consumed, and no local directory is made for the URL."""
+    from thrill_tpu_torch.api import checkpoint as tck
+    from thrill_tpu_torch.tools.object_server import ObjectServer
+    monkeypatch.chdir(tmp_path)
+    calls = []
+    job = _device_job(calls)
+    with ObjectServer() as srv:
+        want = _jrun(job, 2, f"{srv.url}/b/j")
+        got = _trun(job, 2, f"{srv.url}/b/t")
+        assert got == want and got[0] == [x * 3 for x in range(64)]
+        keys = {side: sorted(k[4:] for k in srv.objects
+                             if k.startswith(f"b/{side}/"))
+                for side in ("j", "t")}
+        assert keys["t"] == keys["j"] and keys["t"]
+        for k in keys["t"]:
+            if k.endswith("MANIFEST.json"):
+                continue             # its skeleton pickles each package
+            assert srv.objects[f"b/t/{k}"] == srv.objects[f"b/j/{k}"], k
+        calls.clear()
+        again = _trun(job, 2, f"{srv.url}/b/t", resume=True)
+        assert again[0] == got[0] and calls == []
+        assert again[1]["resume_skipped_ops"] >= 1
+        srv.put("b/t/RESIZE.json", b'{"target_w": 3}')
+        assert tck.pending_resize_target(f"{srv.url}/b/t")["target_w"] == 3
+        assert not tck.clear_resize_marker(f"{srv.url}/b/t")
+        assert tck.pending_resize_target(f"{srv.url}/b/none") is None
+    assert os.listdir(tmp_path) == []
 
 
 def test_a_failed_job_drops_its_uncommitted_epoch(tmp_path):

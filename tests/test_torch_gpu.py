@@ -2373,3 +2373,167 @@ def test_a_loop_graph_captures_when_the_cache_holds_the_card(cuda_device,
     finally:
         ctx.close()
         torch.cuda.empty_cache()
+
+
+# -- the ledger's bytes on the card (C25) and the remote vfs ------------------
+
+def _c25_key(r):
+    return r["key"]
+
+
+def _c25_one(s):
+    return (s, 1)
+
+
+def _c25_first(kv):
+    return kv[0]
+
+
+def _held_blocks(shards):
+    """(bytes of the storages of a DeviceShards' leaves, bytes of the
+    caching allocator's blocks under them and under its device counts)."""
+    from thrill_tpu_torch.common import tree as pt
+    leaves = {l.untyped_storage().data_ptr(): l.untyped_storage().nbytes()
+              for l in pt.leaves(shards.tree)}
+    ptrs = set(leaves)
+    if shards._counts_dev is not None:
+        ptrs.add(shards._counts_dev.untyped_storage().data_ptr())
+    blocks = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
+              for b in seg["blocks"] if b["state"] == "active_allocated"}
+    return sum(leaves.values()), [blocks[p] for p in ptrs], len(ptrs)
+
+
+@pytest.mark.gpu
+def test_spilling_a_kept_sort_and_its_upstream_frees_their_ledger_bytes(
+        cuda_device):
+    """A kept W = 4 Sort, its cached source and a degree table (a
+    ReduceToIndex of integer sums, whose column was a view of a larger
+    scatter buffer, ROADMAP.md fault C25) spilled one by one: each node's
+    ledger bytes are the bytes of its leaves' storages, its spill lowers
+    ``memory_allocated`` by exactly the caching allocator's blocks under
+    them and its device counts (a block exceeds its storage by the
+    allocator's rounding: 512 bytes, or a free block's unsplit remainder
+    of up to 1 MiB), and each restores exactly."""
+    from thrill_tpu_torch.common import tree as pt
+    rng = np.random.default_rng(31)
+    n = 1 << 20
+    rec = rng.integers(0, 256, (n, 16)).astype(np.uint8)
+    ids = rng.integers(0, 1 << 18, n).astype(np.int64)
+    ctx = tt.Context(num_workers=4)
+    try:
+        src = ctx.Distribute({"key": rec[:, :10], "value": rec[:, 10:]}
+                             ).Cache().Keep()
+        srt = src.Sort(key_fn=_c25_key).Keep()
+        deg = ctx.Distribute(ids).Map(_c25_one).ReduceToIndex(
+            _c25_first, tt.FieldReduce(("first", "sum")), 1 << 18,
+            neutral=(0, 0)).Cache().Keep()
+        nodes = [src.node, srt.node, deg.node]
+        for node in nodes:
+            node.materialize(consume=False)
+        want = [node._shards.to_global_numpy() for node in nodes]
+        drops = []
+        for node in nodes:
+            import gc
+            gc.collect()
+            torch.cuda.synchronize()
+            nb = node._hbm_bytes
+            held, blocks, n_st = _held_blocks(node._shards)
+            m0 = torch.cuda.memory_allocated()
+            ctx.hbm.spill(node)
+            torch.cuda.synchronize()
+            drops.append((node.label, nb, held, m0
+                          - torch.cuda.memory_allocated(), blocks, n_st))
+        for label, nb, held, dr, blocks, n_st in drops:
+            assert nb > 0 and nb == held, drops
+            assert dr == sum(blocks), drops
+            assert 0 <= dr - held <= n_st * (1 << 20), drops
+        for node, w in zip(nodes, want):
+            ctx.hbm.touch(node)
+            got = pt.leaves(node._shards.to_global_numpy())
+            assert len(got) == len(pt.leaves(w)) and all(
+                np.array_equal(a, b) for a, b in zip(got, pt.leaves(w)))
+    finally:
+        ctx.close()
+
+
+def _remote_words(tmp_path, srv, n_words=1 << 18, parts=4):
+    """A Zipf text of ``n_words`` words 16 to a line, as ``parts``
+    objects on ``srv`` and as files; (the URL glob, the file glob)."""
+    rng = np.random.default_rng(32)
+    ranks = np.arange(1, 4097, dtype=np.float64)
+    w = rng.choice(4096, n_words, p=(1 / ranks) / (1 / ranks).sum())
+    words = [f"w{v:x}" for v in w.tolist()]
+    lines = [" ".join(words[i:i + 16]) for i in range(0, n_words, 16)]
+    per = -(-len(lines) // parts)
+    for k in range(parts):
+        body = ("\n".join(lines[k * per:(k + 1) * per]) + "\n").encode()
+        srv.put(f"b/words-{k:02d}.txt", body)
+        (tmp_path / f"words-{k:02d}.txt").write_bytes(body)
+    return f"{srv.url}/b/words-*", str(tmp_path / "words-*")
+
+
+@pytest.mark.gpu
+def test_a_remote_text_wordcount_on_the_card_is_the_file_one(cuda_device,
+                                                              tmp_path):
+    """Phase V1 at a small size: the text WordCount W = 4 of four objects
+    over http:// gives the counts of the same four files, bit for bit,
+    with the same launches of B1, the radix engine and B4."""
+    from thrill_tpu_torch.examples import word_count as twc
+    from thrill_tpu_torch.tools.object_server import ObjectServer
+    with ObjectServer() as srv:
+        url, local = _remote_words(tmp_path, srv)
+        got = {}
+        for src in (url, local):
+            ctx = tt.Context(num_workers=4)
+            torch.cuda.synchronize()
+            before = _service_launches()
+            out = twc.word_count_text_device(ctx, src).AllGatherArrays()
+            torch.cuda.synchronize()
+            after = _service_launches()
+            got[src] = (out, {k: after[k] - before[k] for k in after})
+            ctx.close()
+    (ro, rl), (lo, ll) = got[url], got[local]
+    assert all(torch.equal(ro[k], lo[k]) for k in lo)
+    assert int(lo["c"].sum()) == 1 << 18
+    assert rl == ll
+    assert all(rl[k] > 0 for k in ("partition_histogram", "radix_upsweep",
+                                   "radix_pass", "presence_fill"))
+
+
+def _ckpt_triple(x):
+    return x * 3
+
+
+@pytest.mark.gpu
+def test_a_remote_checkpoint_resumes_on_the_card(cuda_device, tmp_path):
+    """Phase V3's checkpoint at a small size: a device result and the
+    flagship ReadLines -> Sort -> Checkpoint -> AllGather, each with its
+    checkpoint directory on the object server, then resumed from the
+    remote epoch; equal to the first runs and to file://."""
+    from thrill_tpu_torch.common.config import Config
+    from thrill_tpu_torch.tools.object_server import ObjectServer
+
+    def device_job(ctx):
+        d = ctx.Distribute(np.arange(1 << 16, dtype=np.int64)).Map(
+            _ckpt_triple).Checkpoint()
+        return (d.AllGatherArrays().cpu().numpy(),
+                ctx.overall_stats()["resume_skipped_ops"])
+
+    def lines_job(src):
+        def job(ctx):
+            return ctx.ReadLines(src).Sort().Checkpoint().AllGather()
+        return job
+
+    with ObjectServer() as srv:
+        url, local = _remote_words(tmp_path, srv, n_words=1 << 14)
+        want_lines = tt.Run(lines_job(local), 4,
+                            config=Config(ckpt_dir=str(tmp_path / "ck")))
+        for resume in (False, True):
+            arr, skipped = tt.Run(device_job, 4, resume=resume, config=Config(
+                ckpt_dir=f"{srv.url}/b/ck-dev"))
+            assert np.array_equal(np.sort(arr), np.arange(1 << 16) * 3)
+            assert (skipped >= 1) == resume
+            assert tt.Run(lines_job(url), 4, resume=resume, config=Config(
+                ckpt_dir=f"{srv.url}/b/ck-lines")) == want_lines
+        assert any(k.startswith("b/ck-dev/epoch_") for k in srv.objects)
+        assert any(k.startswith("b/ck-lines/epoch_") for k in srv.objects)

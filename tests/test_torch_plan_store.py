@@ -214,11 +214,36 @@ def test_unconsumed_seeds_survive_a_save_cycle(tmp_path):
     assert stats["plan_builds"] == 0
 
 
-@pytest.mark.parametrize("path", ["s3://bucket/plans", "hdfs://nn/plans"])
-def test_remote_store_raises_naming_item_6(path):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tt.Context(num_workers=2, device="cpu",
-                   config=Config(plan_store=path))
+@pytest.mark.parametrize("scheme", ["s3", "http"])
+def test_a_remote_store_saves_and_warms_a_restart(scheme, tmp_path,
+                                                  monkeypatch):
+    """A store on an object server (``s3://`` through the REST transport,
+    or ``http://``): the save lands as one object, last writer wins
+    without a lock, and a warm restart builds no plan, as over a local
+    directory; no local directory is made for the URL."""
+    import builtins
+
+    from thrill_tpu_torch.tools.object_server import ObjectServer
+    real_import = builtins.__import__
+
+    def no_boto3(name, *a, **kw):
+        if name == "boto3":
+            raise ImportError("no boto3")
+        return real_import(name, *a, **kw)
+    monkeypatch.setattr(builtins, "__import__", no_boto3)
+    monkeypatch.chdir(tmp_path)
+    with ObjectServer() as srv:
+        monkeypatch.setenv("THRILL_TPU_OBJECT_STORE_ENDPOINT", srv.url)
+        path = "s3://b/plans" if scheme == "s3" else f"{srv.url}/b/plans"
+        cold_res, cold = _run("port", path, runs=2)
+        assert "b/plans/plans.json" in srv.objects
+        assert PlanStore(path).load()["caps"]
+        warm_res, warm = _run("port", path)
+        assert warm_res[0] == cold_res[0]
+        assert warm["plan_builds"] == 0 and warm["plan_store_hits"] > 0
+        local_res, local = _run("port", tmp_path / "local", runs=2)
+        assert local_res == cold_res and local == cold
+    assert os.listdir(tmp_path) == ["local"]
 
 
 def test_env_names_the_store(tmp_path, monkeypatch):

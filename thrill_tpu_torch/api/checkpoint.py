@@ -51,8 +51,13 @@ the W' epoch; rank 0 writes and consumes the marker. A restore reads
 the local workers' files only and is all-or-nothing across processes: a
 process whose restore fails makes every process compute the node.
 
-Not ported: remote (``s3://``, ``hdfs://``) directories (ROADMAP item
-6, its remote-vfs part). The restore's readahead depth is the planner's
+A remote directory (``s3://``, ``http(s)://``, ``hdfs://``; reference:
+``_is_remote``) makes no directories and removes none: epochs are found
+by ``Glob`` of the ``epoch_*`` keys, a missing manifest is the read's
+FileNotFoundError, an epoch without one is never resumed (so it is not
+swept), and the resize marker is not consumed (a relaunch at the target
+W makes a stale one harmless). Shards and manifests already go through
+the vfs. The restore's readahead depth is the planner's
 learned depth of the ``ckpt.restore`` site, an ``io_prefetch`` decision
 audited by the measured hit rate.
 
@@ -128,10 +133,15 @@ def pending_resize_target(directory: str) -> Optional[dict]:
     then runs at the old W, whose epochs are still committed."""
     path = resize_marker_path(directory)
     try:
-        if not os.path.isfile(path):
-            return None
-        with open(path, "rb") as f:
-            m = json.loads(f.read().decode())
+        if file_io.is_remote(directory):
+            with file_io.OpenReadStream(path) as f:
+                raw = f.read()
+        else:
+            if not os.path.isfile(path):
+                return None
+            with open(path, "rb") as f:
+                raw = f.read()
+        m = json.loads(raw.decode())
         if int(m.get("target_w", 0)) < 1:
             raise ValueError(f"bad target_w {m.get('target_w')!r}")
         return m
@@ -145,7 +155,9 @@ def pending_resize_target(directory: str) -> Optional[dict]:
 
 def clear_resize_marker(directory: str) -> bool:
     """Consume the resize marker (the relaunched run is up at the
-    target W)."""
+    target W). A remote store has no delete on the vfs: False."""
+    if file_io.is_remote(directory):
+        return False
     try:
         os.remove(resize_marker_path(directory))
         return True
@@ -163,10 +175,6 @@ def _epoch_num(path: str) -> Optional[int]:
         return None
 
 
-def _remote(path: str) -> bool:
-    return "://" in path and not path.startswith("file://")
-
-
 class CheckpointManager:
     """Owned by :class:`api.context.Context` when a checkpoint directory
     is set: seals materialized shards into epochs and restores them on
@@ -174,11 +182,6 @@ class CheckpointManager:
 
     def __init__(self, ctx, directory: str, resume: bool = False,
                  auto: bool = False) -> None:
-        if _remote(directory):
-            raise NotImplementedError(
-                f"checkpoint directory {directory!r}: remote stores are "
-                f"not ported yet (ROADMAP.md queue A item 6, its "
-                f"remote-vfs part)")
         self.ctx = ctx
         self.dir = directory
         self.auto = auto
@@ -194,7 +197,9 @@ class CheckpointManager:
         self.resume_epoch: Optional[int] = None
         self._inflight_dir: Optional[str] = None
         self._manifest: Optional[dict] = None
-        os.makedirs(self.dir, exist_ok=True)
+        self.remote = file_io.is_remote(directory)
+        if not self.remote:
+            os.makedirs(self.dir, exist_ok=True)
         self._next_epoch = 1 + max(
             (e for e in (_epoch_num(p) for p in self._epoch_dirs())
              if e is not None), default=-1)
@@ -252,6 +257,20 @@ class CheckpointManager:
         return list(self.ctx.mesh_exec.local_workers)
 
     def _epoch_dirs(self) -> List[str]:
+        if self.remote:
+            # no directories in an object store: the epoch_* keys' first
+            # path component
+            base = self.dir.rstrip("/")
+            seen: Dict[str, None] = {}
+            try:
+                listing = file_io.Glob(base + "/epoch_*")
+            except (OSError, NotImplementedError):
+                return []
+            for fi in listing:
+                rest = fi.path[len(base) + 1:]
+                if "/" in rest:
+                    seen.setdefault(rest.split("/", 1)[0], None)
+            return [f"{base}/{d}" for d in seen]
         return [p for p in glob.glob(os.path.join(self.dir, "epoch_*"))
                 if os.path.isdir(p)]
 
@@ -283,7 +302,8 @@ class CheckpointManager:
         epoch = self._next_epoch
         self._next_epoch += 1
         edir = os.path.join(self.dir, _EPOCH_FMT.format(epoch))
-        os.makedirs(edir, exist_ok=True)
+        if not self.remote:
+            os.makedirs(edir, exist_ok=True)
         self._inflight_dir = edir
         steps = {"payload_s": 0.0, "write_s": 0.0}
         if isinstance(shards, DeviceShards):
@@ -501,7 +521,8 @@ class CheckpointManager:
                 rec = {"key": node_key(node), "dia_id": node.id,
                        "label": node.label, "kind": "host",
                        "counts": counts}
-            os.makedirs(edir, exist_ok=True)
+            if not self.remote:
+                os.makedirs(edir, exist_ok=True)
             self._inflight_dir = edir
             files: Dict[str, Any] = {}
             for w in range(target_w):
@@ -558,11 +579,19 @@ class CheckpointManager:
 
     def _try_load_manifest(self, edir: str) -> Optional[dict]:
         mpath = os.path.join(edir, MANIFEST)
-        if not os.path.isfile(mpath):
+        if not self.remote and not os.path.isfile(mpath):
             return None
         try:
-            with open(mpath, "rb") as f:
-                m = json.loads(f.read().decode())
+            if self.remote:
+                try:
+                    with file_io.OpenReadStream(mpath) as f:
+                        raw = f.read()
+                except FileNotFoundError:
+                    return None          # an epoch never committed
+            else:
+                with open(mpath, "rb") as f:
+                    raw = f.read()
+            m = json.loads(raw.decode())
             if m.get("format") != 1:
                 raise ValueError(f"unknown format {m.get('format')}")
             W = self.ctx.mesh_exec.num_workers
@@ -834,7 +863,11 @@ class CheckpointManager:
     def cleanup_incomplete(self) -> int:
         """Remove the epoch directories without a manifest (a crashed
         run's half-written epoch); only at resume, when the run that
-        wrote them is gone, and by rank 0 alone across processes."""
+        wrote them is gone, and by rank 0 alone across processes. A
+        remote store has no delete on the vfs; its epochs without a
+        manifest are never resumed."""
+        if self.remote:
+            return 0
         removed = 0
         for edir in self._epoch_dirs():
             if os.path.isfile(os.path.join(edir, MANIFEST)):
@@ -853,6 +886,8 @@ class CheckpointManager:
         """Drop this run's epoch in flight, if its manifest never
         landed."""
         edir, self._inflight_dir = self._inflight_dir, None
+        if edir and self.remote:
+            return
         if edir and not os.path.isfile(os.path.join(edir, MANIFEST)):
             try:
                 shutil.rmtree(edir)

@@ -270,7 +270,8 @@ def _read_records_into(fl: file_io.FileList, lo: int,
         start = max(lo, f_lo) - f_lo
         end = min(hi, f_hi) - f_lo
         dst = memoryview(out)[start + f_lo - lo:end + f_lo - lo]
-        with file_io.OpenReadStream(fi.path, offset=start) as f:
+        with file_io.OpenReadStream(fi.path, offset=start,
+                                    readahead_to=end) as f:
             got = 0
             while got < len(dst):
                 n = f.readinto(dst[got:])

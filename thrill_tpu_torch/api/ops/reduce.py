@@ -482,9 +482,11 @@ def _scatter_reduce_apply(tree: Any, pos: torch.Tensor, size: int, specs,
                 # in operand order, as the reference's scatter adds
                 col = ordered_segment_sum(leaf, *runs())
             else:
+                # a copy of the kept rows: a view would pin the dump
+                # slots' storage, which the HBM ledger does not charge
                 col = torch.zeros((size + T,) + trail, dtype=leaf.dtype,
                                   device=dev).index_add_(0, flat,
-                                                         leaf)[:size]
+                                                         leaf)[:size].clone()
             if nv is None or not np.any(np.asarray(nv)):
                 # a zero neutral is the sum's base: no presence needed
                 outs.append(col)

@@ -208,6 +208,16 @@ class FaultRegistry:
             log = self._log
         self._emit(log, rec)
 
+    def log_line(self, event: str, **detail: Any) -> None:
+        """One JSON line through the attached logger, kept out of the
+        events ring: the I/O summaries (a prefetching reader's hits and
+        misses) would push the fault records out of it."""
+        with self._lock:
+            log = self._log
+        rec = {"event": event}
+        rec.update(detail)
+        self._emit(log, rec)
+
     def _keep(self, rec: dict) -> None:
         self.events.append(rec)
         if len(self.events) > 1024:

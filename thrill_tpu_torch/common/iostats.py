@@ -20,8 +20,11 @@ overlap instead of inferring it from totals:
   submitted, columnar blocks the records format encoded, committed runs
   a resumed Sort loaded instead of forming them, core/em_runs.py) are
   exact for a fixed program; ``restore_overlaps`` counts checkpoint
-  restores that read a shard file ahead. The reference's
-  ``remote_gets`` and ``remote_puts`` wait for remote stores.
+  restores that read a shard file ahead;
+* ``remote_gets`` / ``remote_puts``: the requests the object-store
+  transport sent (``vfs/object_store.py``: a GET for each ranged read
+  stream, a PUT for each object or multipart part), exact for a fixed
+  program, so a silent fall back to whole-object reads shows.
 
 Counters are process-global (the threads have no Context); a caller
 snapshots them and reports deltas.
@@ -34,7 +37,7 @@ import threading
 _COUNTERS = ("prefetch_hits", "prefetch_misses", "io_wait_s",
              "io_busy_s", "writeback_bytes", "spill_runs",
              "prefetch_submits", "records_blocks", "runs_reused",
-             "restore_overlaps")
+             "restore_overlaps", "remote_gets", "remote_puts")
 
 
 class IoStats:
@@ -51,6 +54,8 @@ class IoStats:
         self.records_blocks = 0
         self.runs_reused = 0
         self.restore_overlaps = 0
+        self.remote_gets = 0
+        self.remote_puts = 0
 
     def add(self, **kv) -> None:
         with self._lock:

@@ -3,7 +3,9 @@
 
 Attempt k sleeps ``uniform(0, min(max_delay, base * 2**k))``. An
 exception listed in ``permanent`` never retries, even if it is also
-transient; injected faults carry their class in ``.kind``. Settings:
+transient; injected faults carry their class in ``.kind``, and an
+object store's error its ``http_status`` (5xx, 408 and 429 are
+transient, any other 4xx permanent). Settings:
 ``THRILL_TPU_RETRY_ATTEMPTS`` (4), ``THRILL_TPU_RETRY_BASE_S`` (0.05),
 ``THRILL_TPU_RETRY_MAX_S`` (2.0); ``THRILL_TPU_RETRY=0`` turns every
 retry off.
@@ -59,6 +61,13 @@ class RetryPolicy:
             return faults.PERMANENT
         if isinstance(exc, faults.InjectedFault):
             return exc.kind
+        # an object store's answer (vfs/object_store.py): a server error
+        # or a throttle is worth another try, any other 4xx is not
+        status = getattr(exc, "http_status", None)
+        if status is not None:
+            return (faults.TRANSIENT
+                    if status >= 500 or status in (408, 429)
+                    else faults.PERMANENT)
         if isinstance(exc, tuple(self.transient)):
             return faults.TRANSIENT
         return faults.PERMANENT

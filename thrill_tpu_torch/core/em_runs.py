@@ -28,8 +28,13 @@ group in a departed rank's place (``net/tcp.py`` ``join_tcp_group``)
 calls :func:`adopt_orphan_runs`, which claims the committed runs of its
 rank's stores whose owner is gone and marks each such store
 ``ADOPTED.json``; an adopted store loads its runs without resume mode.
-Both files are the reference's, byte for byte. Remote stores are
-ROADMAP item 6, its remote-vfs part.
+Both files are the reference's, byte for byte.
+
+Under a remote checkpoint directory (``s3://``, ``http(s)://``,
+``hdfs://``) the bins and manifests are objects written and read
+through the vfs (``vfs/file_io.py``); the store makes no directory and
+writes no ``OWNER.json``, and adoption skips it (an object store offers
+no cheap listing of live owners; a joiner's resume covers it).
 """
 
 from __future__ import annotations
@@ -93,9 +98,9 @@ def adopt_orphan_runs(ckpt_dir: str, my_rank: int) -> int:
     Returns the runs adopted; never raises, and a missing store adopts
     nothing. Remote directories are skipped."""
     global _adopted
-    if not _enabled() or not ckpt_dir or "://" in ckpt_dir:
+    from ..vfs.file_io import is_remote, write_file_atomic
+    if not _enabled() or not ckpt_dir or is_remote(ckpt_dir):
         return 0
-    from ..vfs.file_io import write_file_atomic
     base = os.path.join(ckpt_dir.rstrip("/"), "em_runs")
     suffix = f"_h{int(my_rank)}"
     total = 0
@@ -194,12 +199,14 @@ class RunStore:
     would be submitted."""
 
     def __init__(self, base: str, mgr=None) -> None:
+        from ..vfs.file_io import is_remote
         self.base = base
         self.mgr = mgr          # the CheckpointManager (resume counters)
         self.resume = bool(getattr(mgr, "resume", False))
+        self.remote = is_remote(base)
         # a store a joiner adopted loads its runs without resume mode
         # (probed only once this process adopted something)
-        if not self.resume and adopted_total() > 0 \
+        if not self.resume and adopted_total() > 0 and not self.remote \
                 and os.path.isfile(os.path.join(base, _ADOPTED)):
             self.resume = True
         # commits of different runs are independent: a small pool
@@ -214,15 +221,17 @@ class RunStore:
         self._committed: Optional[set] = None   # slots listed
         self._binfut: dict = {}             # bin path -> Future
         self._warm_evt: Optional[threading.Event] = None
-        os.makedirs(base, exist_ok=True)
-        # the owner record the adoption scan reads; best effort (a store
-        # without one is adoptable once its runs check out)
-        try:
-            from ..vfs.file_io import write_file_atomic
-            write_file_atomic(os.path.join(base, _OWNER),
-                              json.dumps({"pid": os.getpid()}).encode("ascii"))
-        except Exception:
-            pass
+        if not self.remote:
+            os.makedirs(base, exist_ok=True)
+            # the owner record the adoption scan reads; best effort (a
+            # store without one is adoptable once its runs check out)
+            try:
+                from ..vfs.file_io import write_file_atomic
+                write_file_atomic(
+                    os.path.join(base, _OWNER),
+                    json.dumps({"pid": os.getpid()}).encode("ascii"))
+            except Exception:
+                pass
         if self.resume:
             self._warm_evt = threading.Event()
             threading.Thread(target=self._warm_bg, daemon=True,
@@ -240,8 +249,11 @@ class RunStore:
                 thread_name_prefix="thrill-tpu-em-commit")
         return self._pool
 
-    @staticmethod
-    def _read_path(path: str) -> bytes:
+    def _read_path(self, path: str) -> bytes:
+        if self.remote:
+            from ..vfs.file_io import OpenReadStream
+            with OpenReadStream(path) as r:
+                return r.read()
         with open(path, "rb") as r:
             return r.read()
 

@@ -140,7 +140,8 @@ def segment_sum_plain(seg_ids: torch.Tensor, values: torch.Tensor,
     out = torch.zeros(R * nb, dtype=torch.float32, device=d.device)
     out.index_add_(0, safe.reshape(-1),
                    values.reshape(-1).to(torch.float32))
-    return out.reshape(R, nb)[:, :num_segments].reshape(
+    # a copy: a view would pin the dump bins in a result's storage
+    return out.reshape(R, nb)[:, :num_segments].clone().reshape(
         seg_ids.shape[:-1] + (num_segments,))
 
 

@@ -235,7 +235,7 @@ def _fold(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
     if how == "sum":
         out = torch.zeros((num_segments + n,) + trail, dtype=data.dtype,
                           device=data.device).index_add_(0, slots, data)
-        return out[:num_segments]
+        return out[:num_segments].clone()
     if data.dtype.is_floating_point:
         info = torch.finfo(data.dtype)
         ident = float("inf") if how == "amin" else float("-inf")
@@ -245,7 +245,8 @@ def _fold(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
     idx = slots.reshape((n,) + (1,) * len(trail)).expand(data.shape)
     out = torch.full((num_segments + n,) + trail, ident, dtype=data.dtype,
                      device=data.device).scatter_reduce_(0, idx, data, how)
-    return out[:num_segments]
+    # a copy: a view of the first rows would pin the dump slots too
+    return out[:num_segments].clone()
 
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,

@@ -20,8 +20,11 @@ warm restart of a known pipeline makes no data-driven plan build
   by the exchange's flag and healed; a wrong kind or verdict costs time.
   So any parse, CRC or version failure starts cold, with a line on
   stderr, never from a partial read.
-* Writes go through ``vfs.write_file_atomic``, merged with what is on
-  disk (capacities element-wise max) under an ``flock``.
+* Writes go through ``vfs.write_file_atomic``, merged with what is
+  stored (capacities element-wise max), under an ``flock`` on a local
+  directory. The directory may be remote (``s3://``, ``http(s)://``,
+  ``hdfs://``, reference: ``service/plan_store.py:180-200``): an object
+  store has no lock, so there the last writer wins.
 * ``save_ledger`` writes the decision ledger's accuracy summary beside
   the plans (``decisions.json``).
 
@@ -31,9 +34,6 @@ them with ``install_entries(..., symmetric=True)``, the attestation
 that keeps the optimistic exchange open, and rank 0 alone saves at
 close (``Context._plan_store_broadcast``). Without a host group that
 spans the processes the store is skipped with a notice.
-
-Local paths and ``file://`` only: a remote scheme raises (ROADMAP item
-6, its remote-vfs part).
 """
 
 from __future__ import annotations
@@ -104,7 +104,8 @@ class PlanStore:
     def __init__(self, path: str, logger=None) -> None:
         from ..vfs import file_io
         self.path = path
-        self.dir = file_io._local(path)      # remote schemes raise here
+        self.remote = file_io.is_remote(path)
+        self.dir = path.rstrip("/") if self.remote else file_io._local(path)
         self.file = os.path.join(self.dir, _FILE)
         self.logger = logger
         self._last_corrupt: Optional[str] = None
@@ -113,10 +114,11 @@ class PlanStore:
     def load(self) -> dict:
         """Entries by kind; {} when cold. Never raises: any failure but
         a missing file starts cold, loudly."""
+        from ..vfs import file_io
         self._last_corrupt = None
         try:
             faults.check(_F_CORRUPT, path=self.file)
-            with open(self.file, "rb") as f:
+            with file_io.OpenReadStream(self.file) as f:
                 raw = f.read()
         except FileNotFoundError:
             return {}
@@ -156,13 +158,17 @@ class PlanStore:
     def save(self, mex) -> None:
         """Write the mesh's plan state, merged with the file's under an
         ``flock`` (capacities element-wise max, other sites' entries
-        kept), so concurrent savers only ratchet. A corrupt file is
-        replaced whole."""
+        kept), so concurrent savers only ratchet; a remote store has no
+        lock, and its last writer wins. A corrupt file is replaced
+        whole."""
         with self._save_lock():
             self._save_locked(mex)
 
     @contextlib.contextmanager
     def _save_lock(self):
+        if self.remote:
+            yield
+            return
         os.makedirs(self.dir, exist_ok=True)
         with open(os.path.join(self.dir, ".plans.lock"), "w") as lk:
             fcntl.flock(lk, fcntl.LOCK_EX)

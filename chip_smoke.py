@@ -137,10 +137,10 @@ Phases, each fatal on failure:
      H1's pairs Mapped to {"c": count, "h": the word's stable_host_hash
      as int64}, ToDevice().Sort by (c, h) and AllGatherArrays, equal to
      np.lexsort, B1, the upsweep and the pass launched (its send-count
-     input captured); H5 at W=4 over 2^17 (str key, int) items: Zip of
+     input captured); H5 at W=4 over 2^16 (str key, int) items: Zip of
      two host DIAs and of a host with a device DIA, ZipWithIndex,
-     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^17 x
-     2^15 string keys (location filter by the verdict, on and off),
+     PrefixSum and ExPrefixSum with a generic fn, InnerJoin of 2^16 x
+     2^14 string keys (location filter by the verdict, on and off),
      Sample(1024), BernoulliSample(0.01), Sum, Min, Max and AllReduce,
      each equal to a plain Python version, with its host seconds; H6 the
      host Sort's external-memory path at W=4 over 2^19 lines
@@ -172,7 +172,9 @@ Phases, each fatal on failure:
      np.lexsort, launches counted; the host RAM each needs is checked
      first;
  24. checkpoints and resume at W=4 (C1-C3), each first run in a child
-     process SIGKILLed mid-job: C1 phase 6's PageRank with the example's
+     process SIGKILLed mid-job (the four children start together when
+     the phases begin and each waits for its turn, since PR 25): C1
+     phase 6's PageRank with the example's
      Iterate sealing its carry every 3 iterations, replay on, killed
      once an epoch is committed, resumed in a second child, which
      captures once and replays the rest: ranks bit-equal to an
@@ -254,8 +256,9 @@ Phases, each fatal on failure:
      restart from a plan store in a second child process
      (``--plan-child DIR``), plan_builds 0;
  25e. a mesh of two processes (D), after the plan, exchange and tracing
-     phases: the parent runs TeraSort (2^22 records a worker) and
-     WordCount (2^22 Zipf words a worker over 2^20) at W = 4 on one
+     phases: the parent runs TeraSort (2^20 records a worker, cut from
+     2^22 in PR 25) and WordCount (2^20 Zipf words a worker over 2^20,
+     likewise) at W = 4 on one
      process, then starts two children (``--dist-child``) on the one
      card through RunDistributed, gloo, 2 workers each (W = 4), which
      run the same two jobs and the host-plane battery of the reference's
@@ -270,11 +273,12 @@ Phases, each fatal on failure:
      its warm seconds beside the one-process run's. Then the op sweep
      across the same processes (``d_ops_run``), first at W = 4 in one
      process, then in each child: PageRank (the example on
-     zipf_graph(2^22, 2^24), f64, D_PR_ITERS = 5 iterations, cut from
-     10), the PageRank step (an f32 ReduceToIndex of 2^24 edges into
-     2^22 pages: B3), k-means (2^24 x 8, k = 10, D_KM_ITERS = 4
-     iterations, cut from 10), Q3-lite (2^22 orders, 2^24 lineitems,
-     location detection forced on: B4) and the op battery
+     zipf_graph(2^20, 2^22), f64, D_PR_ITERS = 3 iterations; PR 25 cut
+     these from 2^22 and 2^24 and 5 iterations), the PageRank step (an
+     f32 ReduceToIndex of 2^22 edges into 2^20 pages: B3), k-means (2^22
+     x 8, k = 10, D_KM_ITERS = 2 iterations; 2^24 and 4 before PR 25),
+     Q3-lite (2^20 orders, 2^22 lineitems, location detection forced
+     on: B4; 2^22 before PR 25) and the op battery
      (thrill_tpu_torch/examples/op_battery.py, which the CPU test of
      the op sweep runs too) at its own size. Every child's results are
      bit-equal to the one-process run's, except the sums B3 adds in
@@ -360,13 +364,14 @@ battery's element types (int16, uint16/32/64, bool: faults C21-C23).
     python3 chip_smoke.py --phase-s
 
 builds the kernels and runs phase S alone (after phase R in the whole
-smoke), the service plane at the main path's widths, three seeds a
-kind (two of PageRank): S1 runs each WordCount (2^22 Zipf words a worker over 2^20),
-TeraSort (2^20 records a worker), PageRank (3 f64 iterations over
-2^22 pages and 2^24 edges) and f32 PageRank step (2^22 Zipf edges a
-worker) directly on one W = 4 Context, held against numpy, then warm
-for its counters; then six client threads of tenants a, b, c (weights
-3:1:1) submit 12, 8, 3 and 3 of them, each result equal to its direct
+smoke), the service plane at the main path's widths, two seeds a kind
+(three before PR 25): S1 runs each WordCount (2^22 Zipf words a
+worker over 2^20), TeraSort (2^20 records a worker), PageRank (3 f64
+iterations over 2^22 pages and 2^24 edges) and f32 PageRank step
+(2^22 Zipf edges a worker) directly on one W = 4 Context, held against
+numpy, then warm for its counters; then six client threads of tenants
+a, b, c (weights 3:1:1) submit 8, 4, 2 and 2 of them (12, 8, 3 and 3
+before PR 25), each result equal to its direct
 run (bit for bit, the f32 step within SEG_RTOL), each job's launches,
 dispatches, counted fetches and loop counters its warm direct run's;
 S2 a job failing after device work mid-queue (its PipelineError, the
@@ -404,6 +409,22 @@ V_FAIL_RATE of its requests, V1 with ``vfs.prefetch`` armed on every
 readahead (each falls back to demand reads), and a server ignoring
 Range, where ReadBinary must raise. V1-V3 print seconds, MB/s,
 remote_gets, remote_puts, get_p50_ms and the device's busy share.
+
+    python3 chip_smoke.py --phase-n
+
+builds the kernels and runs phase N alone (after phase V in the whole
+smoke), the native CPU engine (thrill_tpu_torch/core/host_radix.py over
+native/hostsort.cpp), which a CPU mesh runs for Sort at W = 1 and the
+local phases of ReduceByKey, ReduceToIndex and GroupByKey: hostsort.cpp
+must build and load on the card's host; N1 TeraSort W = 1 of 2^22
+records and N2 a Zipf WordCount W = 4 of N_WORDS words (a ReduceByKey
+with a generic reduce_fn, then a GroupByKey of the word ids with a
+group_fn) run on a CPU mesh through the engine and on the card, with
+results bit-equal (N2's as sets: the engine's groups come in
+first-appearance order) and no kernel launched on the CPU; each prints
+the two runs' host seconds and counted dispatches. Then
+``perf_sentinel --check`` holds the CPU and the cuda contracts
+(thrill_tpu_torch/tools/perf_contract_*.json).
 
     python3 chip_smoke.py --m1-compare DIR
 
@@ -474,8 +495,9 @@ CMP_SORT_ITEMS = 1 << 16       # Sort(compare_fn) items
 HW_WORDS = 1 << 18             # host WordCount words (W=4), 16 a line
 HW_WORDS_W1 = 1 << 16          # host WordCount words (W=1)
 HW_SPILL_RAM = "8M"            # THRILL_TPU_RAM that makes the tables spill
-HO_ITEMS = 1 << 17             # host ops items (str key, int)
-HO_RIGHT = 1 << 15             # host InnerJoin right side
+HO_ITEMS = 1 << 16             # host ops items (str key, int; 2^17
+HO_RIGHT = 1 << 14             # and 2^15 before PR 25) and the host
+                               # InnerJoin's right side
 HO_KEYS = 1 << 20              # host ops key space
 M1_HBM_LIMIT = int(2.5e9)      # M1's governor limit: 1.5 TeraSort tables
 OF_ITEMS = 1 << 22             # the ordered fold's ReduceByKey/GroupByKey
@@ -505,6 +527,10 @@ DEVICE = "cuda"
 
 
 def log(msg: str) -> None:
+    if os.environ.get("CHIP_SMOKE_STAMP"):
+        # the smoke's own seconds before every line, to find where the
+        # time goes between the clock lines
+        msg = f"[{time.perf_counter() - _T0:.1f}] {msg}"
     print(msg, flush=True)
 
 
@@ -3098,13 +3124,17 @@ class ParkCheck:
         self.saved.clear()
 
 
+M2_ITERS = 5                   # M2: PageRank's iterations (10 before PR 25)
+
+
 def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
-    """M2: PageRank W=4 at phase 6's size under a governor limit of half
+    """M2: PageRank W=4 at phase 6's size (M2_ITERS iterations) under a
+    governor limit of half
     the unpressured plain run's ledger peak (with the capacity cache off,
     so that peak is the cached results'), with the plain loop
     (THRILL_TPU_LOOP_REPLAY=0: every iteration's carry a cached result
     the governor spills and restores) and with Iterate's default (the
-    loop captured once, iterations 2-10 one CUDA graph): every checked
+    loop captured once, the later iterations one CUDA graph): every checked
     restore gives back the spilled bytes exactly, the loop replays under
     the limit, and both runs' ranks are bit-equal to the unpressured
     replayed run's, which are bit-equal to the unpressured plain loop's
@@ -3121,7 +3151,7 @@ def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
             torch.cuda.synchronize()
             zero_launches(pk, ps)
             t0 = time.perf_counter()
-            ranks = tpr.page_rank(ctx, edges, PAGES, PR_ITERS)
+            ranks = tpr.page_rank(ctx, edges, PAGES, M2_ITERS)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             launches = read_launches(pk, ps)
@@ -3149,7 +3179,7 @@ def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
                              f"restores differ from the spilled bytes")
     loop = {k: st_r[k] for k in L_STATS}
     if st_r["loop_plan_builds"] != 1 or st_r["loop_replays"] \
-            + st_r["loop_fori_iters"] != PR_ITERS - 1:
+            + st_r["loop_fori_iters"] != M2_ITERS - 1:
         raise AssertionError(f"M2: the loop did not replay under the cut "
                              f"budget: {loop}")
     # the f64 sums fold in operand order: every run gives the same bits
@@ -3165,7 +3195,7 @@ def mem_pagerank(torch, np, tt, pk, ps, hbm_mod, edges, card):
         if launches[name] <= 0 or launches_r[name] <= 0:
             raise AssertionError(f"M2: {name} was not launched")
     log(f"M2 pagerank W=4 pages={PAGES} edges={len(edges)} "
-        f"iterations={PR_ITERS}: unpressured ledger peak {st2['hbm_peak']}"
+        f"iterations={M2_ITERS}: unpressured ledger peak {st2['hbm_peak']}"
         f" (replayed {st0['hbm_peak']}), limit {limit}; the plain loop "
         f"under it: hbm_spills {st['hbm_spills']} hbm_restores "
         f"{st['hbm_restores']} ledger peak {st['hbm_peak']}, {chk.exact} of "
@@ -3683,12 +3713,28 @@ def time_presence_fill(torch, pk, label, h, valid, regs):
         f"that counted 5 bytes a row: {old_b}): " + json.dumps(row))
     return row
 
-def ckpt_child(kind: str, d: str, resume: bool) -> int:
-    """``--ckpt-child KIND DIR RESUME``: one job of the checkpoint phases
-    C1-C3 in a process of its own, checkpointing under DIR/ckpt. It
-    prints "CKPT {json}" lines: each epoch it seals (C1), then its
-    result. A first run (RESUME 0) then waits for the SIGKILL its parent
-    sends once enough is committed, so it always dies mid-job."""
+def await_go(torch, go: Optional[str]) -> None:
+    """A child started ahead of its turn: reach the card, then wait for
+    its parent's ``go`` file, so its start (about 8 s) overlaps the
+    parent's work instead of adding to the smoke's time."""
+    if go is None:
+        return
+    parent = os.getppid()
+    torch.zeros(1, device=DEVICE)
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(1)            # the parent is gone: never started
+        time.sleep(0.005)
+
+
+def ckpt_child(kind: str, d: str, resume: bool,
+               go: Optional[str] = None) -> int:
+    """``--ckpt-child KIND DIR RESUME [GO]``: one job of the checkpoint
+    phases C1-C3 in a process of its own, checkpointing under DIR/ckpt,
+    started once the file GO exists (:func:`await_go`). It prints "CKPT
+    {json}" lines: each epoch it seals (C1), then its result. A first run
+    (RESUME 0) then waits for the SIGKILL its parent sends once enough is
+    committed, so it always dies mid-job."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -3696,6 +3742,7 @@ def ckpt_child(kind: str, d: str, resume: bool) -> int:
     from thrill_tpu_torch.common.config import Config
     from thrill_tpu_torch.core import pallas_kernels as pk
     from thrill_tpu_torch.core import pallas_sort as ps
+    await_go(torch, go)
 
     def emit(rec):
         print("CKPT " + json.dumps(rec), flush=True)
@@ -3769,7 +3816,8 @@ def wordcount_checkpointed(tt, ctx, recs):
         lambda t: t["w"], red).Checkpoint("wordcount").AllGatherArrays()
 
 
-def spawn_ckpt_child(kind: str, d: str, resume: bool):
+def spawn_ckpt_child(kind: str, d: str, resume: bool,
+                     go: Optional[str] = None):
     """The child process of ``ckpt_child``; its output goes to files in
     ``d`` (a full pipe would stall it)."""
     tag = f"{kind}{int(resume)}"
@@ -3777,10 +3825,44 @@ def spawn_ckpt_child(kind: str, d: str, resume: bool):
     err = open(os.path.join(d, f"{tag}.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--ckpt-child", kind, d,
-         str(int(resume))], stdout=out, stderr=err)
+         str(int(resume))] + ([go] if go else []), stdout=out, stderr=err)
     out.close()
     err.close()
     return proc
+
+
+class CkptChildren:
+    """The checkpoint phases' children, started together when the phases
+    begin, each waiting for its go file: C1's first run and resume, C2's
+    and C3's first runs, each in its phase's directory (``dirs``)."""
+
+    KIDS = (("pagerank", False), ("pagerank", True), ("sort", False),
+            ("wordcount", False))
+
+    def __init__(self) -> None:
+        import tempfile
+        self.dirs = {k: tempfile.mkdtemp(prefix=f"c_{k}_ckpt_")
+                     for k in ("pagerank", "sort", "wordcount")}
+        self.procs = {}
+        for kind, resume in self.KIDS:
+            go = os.path.join(self.dirs[kind], f"go{int(resume)}")
+            self.procs[(kind, resume)] = (
+                spawn_ckpt_child(kind, self.dirs[kind], resume, go), go)
+
+    def release(self, kind: str, resume: bool):
+        """Let the child go; its Popen."""
+        proc, go = self.procs[(kind, resume)]
+        open(go, "w").close()
+        return proc
+
+    def close(self) -> None:
+        import shutil
+        for proc, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for d in self.dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def child_records(d: str, tag: str) -> list:
@@ -3835,7 +3917,8 @@ def manifests(pattern: str) -> list:
     return sorted(glob.glob(pattern))
 
 
-def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
+def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card,
+                        kids: CkptChildren):
     """C1: PageRank W=4 of phase 6 with the example's Iterate sealing
     its carry every CK_EVERY iterations, replay on (Iterate's default).
     A child runs it and is killed once a loop epoch is committed; a
@@ -3845,7 +3928,6 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
     uninterrupted run's bits, its launches of the fold and the pass
     those of the iterations it ran. Returns its launches."""
     import shutil
-    import tempfile
     from thrill_tpu_torch.examples import page_rank as tpr
     ctx = tt.Context(num_workers=4, device=DEVICE)
     torch.cuda.synchronize()
@@ -3858,17 +3940,17 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
     full_loop = {k: ctx.overall_stats()[k] for k in L_STATS}
     del ctx
     torch.cuda.empty_cache()
-    d = tempfile.mkdtemp(prefix="c1_ckpt_")
+    d = kids.dirs["pagerank"]
     try:
         np.save(os.path.join(d, "edges.npy"), edges)
         # killed once an epoch is committed and its save line printed
         kill_s = kill_when(
-            spawn_ckpt_child("pagerank", d, False),
+            kids.release("pagerank", False),
             lambda: any("save" in r for r in child_records(d, "pagerank0")),
             d, "pagerank0", "C1 first run")
         on_disk = [os.path.basename(os.path.dirname(m)) for m in manifests(
             os.path.join(d, "ckpt", "epoch_*", "MANIFEST.json"))]
-        recs = wait_child(spawn_ckpt_child("pagerank", d, True), d,
+        recs = wait_child(kids.release("pagerank", True), d,
                           "pagerank1", "C1 resume")
         saves = [r for r in child_records(d, "pagerank0") + recs
                  if "save" in r]
@@ -3933,7 +4015,7 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
         for e in steps)
     log(f"C1 pagerank resume W=4: {PAGES} pages, {len(edges)} edges, "
         f"{PR_ITERS} iterations, Iterate(name='page_rank', checkpoint_every"
-        f"={CK_EVERY}): first child killed {kill_s:.3f} s after its start "
+        f"={CK_EVERY}): first child killed {kill_s:.3f} s after its go "
         f"with {on_disk} committed; saves {save_txt}; resumed from "
         f"{label}, ran {ran} iterations, loop stats {loop} (the "
         f"uninterrupted run's {full_loop}), ranks bit-equal to the "
@@ -3950,7 +4032,7 @@ def ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card):
     return launches
 
 
-def ckpt_sort_phase(torch, np, tt, pk, ps, card):
+def ckpt_sort_phase(torch, np, tt, pk, ps, card, kids: CkptChildren):
     """C2: H6's external Sort with a checkpoint directory; a child is
     killed once C2_KILL_RUNS run manifests are committed. Then, one
     after another here: the Sort with no checkpoint directory and with a
@@ -3959,14 +4041,13 @@ def ckpt_sort_phase(torch, np, tt, pk, ps, card):
     committed runs. Each must equal sorted(). Returns the relaunch's
     launches."""
     import shutil
-    import tempfile
     from thrill_tpu_torch.common.config import Config
     host = f"host {cpu_line()}; card idle; {card}"
-    d = tempfile.mkdtemp(prefix="c2_ckpt_")
+    d = kids.dirs["sort"]
     try:
         pattern = os.path.join(d, "ckpt", "em_runs", "*", "run_*.json")
         kill_s = kill_when(
-            spawn_ckpt_child("sort", d, False),
+            kids.release("sort", False),
             lambda: len(manifests(pattern)) >= C2_KILL_RUNS, d, "sort0",
             "C2 first run")
         committed = len(manifests(pattern))
@@ -4016,7 +4097,7 @@ def ckpt_sort_phase(torch, np, tt, pk, ps, card):
         f"{tag}: run formation {r[0]['spill_s']} s, merge {r[0]['merge_s']} "
         f"s, Sort {r[2]:.3f} s" for tag, r in runs.items())
     log(f"C2 em sort resume W=4: {H6_LINES} lines, runs of {H6_RUN}; "
-        f"first child killed {kill_s:.3f} s after its start with "
+        f"first child killed {kill_s:.3f} s after its go with "
         f"{committed} runs committed; relaunch with resume=True equal to "
         f"sorted(), runs_reused {st['runs_reused']} of {st['runs']} "
         f"(resume_skipped_runs {stats['resume_skipped_runs']}); the fresh "
@@ -4026,18 +4107,18 @@ def ckpt_sort_phase(torch, np, tt, pk, ps, card):
     return launches
 
 
-def ckpt_wordcount_phase(torch, np, tt, pk, ps, card):
+def ckpt_wordcount_phase(torch, np, tt, pk, ps, card,
+                         kids: CkptChildren):
     """C3: WordCount W=4 of phase 4 with Checkpoint() after its
     ReduceByKey; a child is killed once the epoch is committed, and the
     job resumed here skips the reduce: resume_skipped_ops > 0, no B4
     launch, counts equal to np.bincount. Returns its launches."""
     import shutil
-    import tempfile
     from thrill_tpu_torch.common.config import Config
-    d = tempfile.mkdtemp(prefix="c3_ckpt_")
+    d = kids.dirs["wordcount"]
     try:
         kill_s = kill_when(
-            spawn_ckpt_child("wordcount", d, False),
+            kids.release("wordcount", False),
             lambda: manifests(os.path.join(d, "ckpt", "epoch_*",
                                            "MANIFEST.json")), d,
             "wordcount0", "C3 first run")
@@ -4063,7 +4144,7 @@ def ckpt_wordcount_phase(torch, np, tt, pk, ps, card):
                              f"launched presence_fill "
                              f"{launches['presence_fill']} times")
     log(f"C3 wordcount Checkpoint() resume W=4: first child killed "
-        f"{kill_s:.3f} s after its start with its epoch committed; the "
+        f"{kill_s:.3f} s after its go with its epoch committed; the "
         f"resumed job equal to np.bincount ({distinct} distinct words), "
         f"resume_skipped_ops {stats['resume_skipped_ops']}, "
         f"recovery_time_s {stats['recovery_time_s']}, launches "
@@ -5142,14 +5223,16 @@ def p_direct(torch, tt, ex, W: int, cols, site, env) -> tuple:
     return outs, {k: st[k] for k in P_STATS}, recs, peak
 
 
-def plan_child(d: str) -> int:
+def plan_child(d: str, go: Optional[str] = None) -> int:
     """One WordCount-shaped W=4 run with the plan store at ``d`` (phase
-    P's warm restart, in a process of its own): prints its plan
-    counters as one JSON line."""
+    P's warm restart, in a process of its own, started once the file
+    ``go`` exists): prints its plan counters as one JSON line."""
     import numpy as np
+    import torch
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import thrill_tpu_torch as tt
     from thrill_tpu_torch.common.config import Config
+    await_go(torch, go)
     ctx = tt.Context(num_workers=4, device=DEVICE,
                      config=Config(plan_store=d))
     red = tt.FieldReduce({"k": "first", "c": "sum"})
@@ -5177,10 +5260,18 @@ def plan_phase(torch, np, tt, pk, ps, card: str) -> dict:
     (``THRILL_TPU_SORT_FUSED=0``), a 100:1 skewed exchange the planner
     keeps dense against the configured 1-factor rounds, and a warm restart from a plan store
     in a child process. Returns each run's launches by path."""
+    import tempfile
     from thrill_tpu_torch.data import exchange as ex
     from thrill_tpu_torch.examples import page_rank as tpr
     from thrill_tpu_torch.examples import tpch as ttp
     t_p = time.perf_counter()
+    # the warm restart's two children start now and wait for their turns
+    plan_dir = tempfile.mkdtemp(prefix="ttpu-plans-")
+    plan_kids = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--plan-child",
+         plan_dir, os.path.join(plan_dir, f"go{i}")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
     rng = np.random.default_rng(SEED + 90)
     edges = tpr.zipf_graph(P_PAGES, 4 * P_PAGES, seed=SEED + 91)
     tables = ttp.generate_tables(P_ORDERS, 4, seed=SEED + 92)
@@ -5281,20 +5372,24 @@ def plan_phase(torch, np, tt, pk, ps, card: str) -> dict:
         f"THRILL_TPU_EXCHANGE=onefactor ran {got['onefactor'][1][0]}; "
         f"padded rows {got['onefactor'][2]} against {got['auto'][2]}; "
         f"rows bit-equal [{card}]")
-    # a warm restart from the plan store, in child processes
-    import tempfile
-    d = tempfile.mkdtemp(prefix="ttpu-plans-")
+    # a warm restart from the plan store, in child processes started
+    # with the phase, one after the other
     res = []
-    for _ in range(2):
-        p = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--plan-child", d], capture_output=True,
-                           text=True, timeout=300)
-        if p.returncode != 0:
-            raise AssertionError(f"P plan child rc {p.returncode}: "
-                                 f"{p.stderr[-2000:]}")
-        res.append(json.loads(p.stdout.strip().splitlines()[-1]))
-    import shutil
-    shutil.rmtree(d, ignore_errors=True)
+    try:
+        for i, kid in enumerate(plan_kids):
+            open(os.path.join(plan_dir, f"go{i}"), "w").close()
+            out, err = kid.communicate(timeout=300)
+            if kid.returncode != 0:
+                raise AssertionError(f"P plan child rc {kid.returncode}: "
+                                     f"{err[-2000:]}")
+            res.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        import shutil
+        for kid in plan_kids:
+            if kid.poll() is None:
+                kid.kill()
+                kid.wait()
+        shutil.rmtree(plan_dir, ignore_errors=True)
     if res[1]["plan_builds"] != 0 or res[1]["total"] != res[0]["total"] \
             or res[1]["plan_store_hits"] <= 0:
         raise AssertionError(f"P warm restart: {res}")
@@ -5968,8 +6063,19 @@ D_TEXT = "\n".join(             # D: the battery's text (the reference's)
     f"line {i} word{i % 7} again word{i % 3}" for i in range(211)) + "\n"
 D_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
              "presence_fill")
-D_PR_ITERS = 5                 # D: PageRank's and k-means' depth (cut)
-D_KM_ITERS = 4
+D_PR_ITERS = 3                 # D: PageRank's and k-means' depth (cut
+D_KM_ITERS = 2                 # from 5 and 4 in PR 25)
+# D's op sweep: PageRank and its step over D_PAGES pages and D_EDGES
+# edges, k-means over D_KM_POINTS points, Q3-lite over D_ORDERS orders
+# (the main path's 2^22, 2^24, 2^24 and 2^22 before PR 25)
+D_PAGES = 1 << 20
+D_EDGES = 1 << 22
+D_KM_POINTS = 1 << 22
+D_ORDERS = 1 << 20
+D_JOB_W = 1                    # D: TeraSort and WordCount of
+                               # terasort_records/wordcount_records at
+                               # this W: 2^22 items, 2^20 a worker (cut
+                               # from W = 4's 2^24 in PR 25)
 # D: the op sweep's jobs and the kernels each must launch there
 D_OPS_KERNELS = {
     "pagerank": ("partition_histogram", "radix_upsweep", "radix_pass",
@@ -6049,7 +6155,7 @@ def d_run(torch, np, tt, ctx, pk, ps, text_path: str) -> dict:
     battery. Returns digests, launches, counters and seconds."""
     mex = ctx.mesh_exec
     out = {"rank": ctx.host_rank, "backend": mex.backend or "none"}
-    recs = records_only(np, D_PROCS * D_WPP)
+    recs = records_only(np, D_JOB_W)
     key = lambda r: r["key"]                              # noqa: E731
     torch.cuda.synchronize()
     b0, x0 = mex.stats_bytes_cross, mex.stats_transfers
@@ -6074,7 +6180,7 @@ def d_run(torch, np, tt, ctx, pk, ps, text_path: str) -> dict:
     torch.cuda.synchronize()
     out["sort_warm_s"] = time.perf_counter() - t0
     del src, warm, recs
-    voc, wrecs, _ = wordcount_records(torch, np, 4)
+    voc, wrecs, _ = wordcount_records(torch, np, D_JOB_W)
     del voc
     red = tt.FieldReduce({"w": "first", "c": "sum"})
     src = ctx.Distribute(wrecs).Keep()
@@ -6164,26 +6270,26 @@ def d_ops_run(torch, np, tt, ctx, pk, ps, tmp: str) -> dict:
         return {k: r.get(k) for k in ("captures", "replays", "fori_iters",
                                       "fallbacks", "graph_off")}
 
-    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
+    edges = tpr.zipf_graph(D_PAGES, D_EDGES, seed=SEED + 30)
     ranks = note("pagerank", d_timed(torch, pk, ps, mex, lambda: (
-        tpr.page_rank(ctx, edges, PAGES, D_PR_ITERS))))
+        tpr.page_rank(ctx, edges, D_PAGES, D_PR_ITERS))))
     out["pagerank"].update(digest=d_np_digest(np, ranks),
                            loop=loop_mode(),
                            warm_s=warm(lambda: tpr.page_rank(
-                               ctx, edges, PAGES, D_PR_ITERS)))
+                               ctx, edges, D_PAGES, D_PR_ITERS)))
     if not mex.multiprocess:
         out["pagerank_ranks"] = ranks
     del edges, ranks
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
-    n = 4 * PER_WORKER
-    step_in = {"d": zipf_ids(torch, n, PAGES, gen),
+    n = D_EDGES
+    step_in = {"d": zipf_ids(torch, n, D_PAGES, gen),
                "v": torch.rand(n, device=DEVICE, generator=gen)}
     src = ctx.Distribute(step_in).Keep()
     src.Execute()
     step = note("pagerank_step", d_timed(
         torch, pk, ps, mex, lambda: src.ReduceToIndex(
             lambda c: c["d"], tt.FieldReduce({"d": "first", "v": "sum"}),
-            PAGES, neutral={"d": 0, "v": 0.0}).AllGatherArrays()))
+            D_PAGES, neutral={"d": 0, "v": 0.0}).AllGatherArrays()))
     out["pagerank_step"].update(
         d_digest=d_digest(torch, {"d": step["d"]}),
         v_digest=d_digest(torch, {"v": step["v"]}))
@@ -6194,7 +6300,7 @@ def d_ops_run(torch, np, tt, ctx, pk, ps, tmp: str) -> dict:
         out["pagerank_step_in"] = {k: v.cpu().numpy()
                                    for k, v in step_in.items()}
     del src, step, step_in
-    pts = np.random.default_rng(SEED + 50).normal(size=(KM_POINTS, KM_DIM))
+    pts = np.random.default_rng(SEED + 50).normal(size=(D_KM_POINTS, KM_DIM))
     cent = note("kmeans", d_timed(torch, pk, ps, mex, lambda: tkm.k_means(
         ctx, pts, KM_K, D_KM_ITERS)))
     out["kmeans"].update(digest=d_np_digest(np, cent), loop=loop_mode(),
@@ -6202,7 +6308,7 @@ def d_ops_run(torch, np, tt, ctx, pk, ps, tmp: str) -> dict:
                              ctx, pts, KM_K, D_KM_ITERS)))
     out["kmeans_centers"] = cent.tolist()
     del pts
-    orders, lineitem = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
+    orders, lineitem = ttp.generate_tables(D_ORDERS, 4, seed=SEED + 40)
     q3 = note("q3", d_timed(torch, pk, ps, mex, lambda: ttp.q3_lite(
         ctx, orders, lineitem, location_detection=True)))
     out["q3"].update(result=q3.tolist(),
@@ -6274,14 +6380,16 @@ def d_np_refs(np) -> dict:
     from thrill_tpu_torch.examples import page_rank as tpr
     from thrill_tpu_torch.examples import tpch as ttp
     t0 = time.perf_counter()
-    edges = tpr.zipf_graph(PAGES, PR_EDGES, seed=SEED + 30)
-    ranks = page_rank_np(np, edges, PAGES, D_PR_ITERS, tpr.DAMPENING)
+    edges = tpr.zipf_graph(D_PAGES, D_EDGES, seed=SEED + 30)
+    ranks = page_rank_np(np, edges, D_PAGES, D_PR_ITERS, tpr.DAMPENING)
     del edges
-    pts = np.random.default_rng(SEED + 50).normal(size=(KM_POINTS, KM_DIM))
+    pts = np.random.default_rng(SEED + 50).normal(size=(D_KM_POINTS,
+                                                         KM_DIM))
     c0 = pts[np.random.default_rng(0).choice(len(pts), KM_K, replace=False)]
-    cent, _ = lloyd_cached(np, pts, c0, D_KM_ITERS)
+    # not lloyd_cached: its iterations are those of the main path's points
+    cent, _ = lloyd_np(np, pts, c0, D_KM_ITERS)
     del pts
-    orders, lineitem = ttp.generate_tables(ORDERS, 4, seed=SEED + 40)
+    orders, lineitem = ttp.generate_tables(D_ORDERS, 4, seed=SEED + 40)
     return {"ranks": ranks, "centers": cent,
             "q3": q3_np(np, orders, lineitem).tolist(),
             "seconds": time.perf_counter() - t0}
@@ -6316,7 +6424,7 @@ def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
                              f"{refs['q3']}")
     din, dout = one["pagerank_step_in"], one["pagerank_step_v"]
     sums = np.bincount(din["d"], weights=din["v"].astype(np.float64),
-                       minlength=PAGES)
+                       minlength=D_PAGES)
     serr = np.abs(dout.astype(np.float64) - sums)
     if not (serr <= SEG_RTOL * sums + SEG_ATOL).all():
         raise AssertionError(f"D PageRank step W=4: max |diff| {serr.max()} "
@@ -6377,7 +6485,7 @@ def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
                                      f"from the one-process run")
         b3_bits = all(bat[key] == bat1[key] for key in D_B3_KEYS)
         log(f"D op sweep process {r} of {D_PROCS} (W=4): pagerank "
-            f"{PAGES} pages {PR_EDGES} edges {D_PR_ITERS} iterations f64 "
+            f"{D_PAGES} pages {D_EDGES} edges {D_PR_ITERS} iterations f64 "
             f"bit-equal to one process, loop {json.dumps(k['pagerank']['loop'])}"
             f", first {k['pagerank']['first_s']:.3f} s warm "
             f"{k['pagerank']['warm_s']:.3f} s (one process, run once, "
@@ -6387,11 +6495,11 @@ def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
             f"{SEG_RTOL} of one process's), first "
             f"{k['pagerank_step']['first_s']:.3f} s (one process "
             f"{one['pagerank_step']['first_s']:.3f} s); k-means "
-            f"{KM_POINTS}x{KM_DIM} k={KM_K} {D_KM_ITERS} iterations "
+            f"{D_KM_POINTS}x{KM_DIM} k={KM_K} {D_KM_ITERS} iterations "
             f"bit-equal, loop {json.dumps(k['kmeans']['loop'])}, first "
             f"{k['kmeans']['first_s']:.3f} s warm {k['kmeans']['warm_s']:.3f}"
             f" s (one process, run once, {one['kmeans']['first_s']:.3f} s); "
-            f"q3 {ORDERS} "
+            f"q3 {D_ORDERS} "
             f"orders location detection on equal {k['q3']['result']}, first "
             f"{k['q3']['first_s']:.3f} s warm {k['q3']['warm_s']:.3f} s (one "
             f"process, run once, {one['q3']['first_s']:.3f} s); battery of "
@@ -6424,10 +6532,12 @@ def d_ops_check(np, one: dict, kids: list, refs: dict, card: str) -> dict:
     return paths
 
 
-D_MODE_RECORDS = 1 << 20       # D-modes: TeraSort records a worker
-D_STREAM_WORDS = 1 << 20       # D-stream: Zipf words a worker
+# D-modes' TeraSort records a worker, D-stream's Zipf words a worker and
+# D-host's text lines (8 words a line): halved in PR 25 (2^20, 2^20, 2^15)
+D_MODE_RECORDS = 1 << 19
+D_STREAM_WORDS = 1 << 19
 D_OPT_ITERS = 3                # D-optimistic: PageRank over P_PAGES
-D_HOST_LINES = 1 << 15         # D-host: text lines, 8 words a line
+D_HOST_LINES = 1 << 14
 D_MODES = ("dense", "onefactor", "ragged")
 
 
@@ -6441,7 +6551,7 @@ def d_mode_records(np):
 
 
 def d_host_text(path: str) -> None:
-    """D-host's text: 2^15 lines of 8 words from a vocabulary of 2^16,
+    """D-host's text: D_HOST_LINES lines of 8 words from a vocabulary of 2^16,
     so each process's pre-reduced frame passes the TCP group's async
     threshold (256 KiB)."""
     rng = __import__("random").Random(SEED + 170)
@@ -6466,7 +6576,7 @@ def d_shrink_caps(mex) -> int:
 
 def d_modes_run(torch, np, tt, ctx, pk, ps, d: str) -> dict:
     """Phase D's exchange-mode jobs on ``ctx`` (one process, or one of
-    the mesh's). D-modes: TeraSort at 2^20 records a worker under the
+    the mesh's). D-modes: TeraSort at 2^19 records a worker under the
     dense, 1-factor and ragged exchanges (one process: dense alone),
     each first run with the launch counters set to 0, then warm; across
     processes the ragged Sort again with narrowing off (D-narrow).
@@ -7321,7 +7431,8 @@ def resize_child(d: str) -> int:
 
 
 # R5: checkpoints across processes on the card, a SIGKILL and the resume
-R5_RECORDS = 1 << 20           # R5: TeraSort records a worker (W = 4)
+R5_RECORDS = 1 << 19           # R5: TeraSort records a worker (W = 4;
+                               # 2^20 before PR 25)
 R5_PAGES = 1 << 20             # R5: PageRank pages, f64
 R5_EDGES = 1 << 22             # R5: ... and Zipf edges
 R5_ITERS = 6
@@ -7332,7 +7443,8 @@ R5_HANG_S = 20                 # R5: THRILL_TPU_HANG_TIMEOUT_S of the children
 R5_BOUND_S = 30.0              # R5: the survivor ends within this
 R5_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass",
               "segment_sum", "presence_fill", "ordered_segment_sum")
-R6_RECORDS = 1 << 20           # R6: TeraSort records a worker (W = 4, 6, 4)
+R6_RECORDS = 1 << 19           # R6: TeraSort records a worker (W = 4, 6,
+                               # 4; 2^20 before PR 25)
 R6_WIDTHS = (4, 6, 4)
 R6_KERNELS = ("partition_histogram", "radix_upsweep", "radix_pass")
 R7_ITEMS = 1 << 22             # R7: int64 items of each tenant's result
@@ -8030,10 +8142,10 @@ def r_phase(torch, np, tt, pk, ps, card: str) -> dict:
 
 S_RECORDS = 1 << 22            # S: TeraSort records (2^20 a worker, W = 4)
 S_PR_ITERS = 3                 # S: PageRank iterations over PAGES, PR_EDGES
-S_SEEDS = 3                    # S: seeds of each kind of job, but
-S_PR_SEEDS = 2                 # PageRank's (cut from 3 for time)
-S_MIX = (("wordcount", 12), ("terasort", 8), ("pagerank", 3),
-         ("pagerank step", 3))  # S1: the served jobs
+S_SEEDS = 2                    # S: seeds of each kind of job (3 before
+S_PR_SEEDS = 2                 # PR 25; PageRank's cut from 3 in PR 23)
+S_MIX = (("wordcount", 8), ("terasort", 4), ("pagerank", 2),
+         ("pagerank step", 2))  # S1: the served jobs (26 before PR 25)
 S_TENANTS = ("a", "a", "b", "b", "c", "c")   # S1: the six clients' tenants
 S_WEIGHTS = "a=3,b=1,c=1"      # S1: THRILL_TPU_SERVE_WEIGHTS
 S_KERNELS = {"wordcount": ("partition_histogram", "radix_upsweep",
@@ -8390,7 +8502,7 @@ def s_failing(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
     before = ctx.submit(s_mem_probe(torch), tenant="s2").result(300)
     torch.cuda.synchronize()
     zero_launches(pk, ps)
-    order = [("wordcount", 0), None, ("terasort", 1), ("wordcount", 2),
+    order = [("wordcount", 0), None, ("terasort", 1), ("wordcount", 1),
              ("pagerank step", 1)]
     futs = [ctx.submit(fail if o is None else s_served(
         torch, np, pk, ps, o[0], o[1], refs), tenant="s2",
@@ -8417,15 +8529,20 @@ def s_failing(torch, np, tt, pk, ps, ctx, refs, card) -> dict:
 def held_blocks(torch, shards):
     """(bytes of the storages of a DeviceShards' leaves (views share
     one), bytes of the caching allocator's blocks under them and under
-    its device counts). A block exceeds its storage by the allocator's
-    rounding: to 512 bytes, or a free block's remainder of up to 1 MiB
-    that it does not split off."""
+    its device counts, unless ``MeshExec.put_small``'s content cache
+    holds the counts: every upload of equal counts shares those, and a
+    spill cannot free them). A block exceeds its storage by the
+    allocator's rounding: to 512 bytes, or a free block's remainder of up
+    to 1 MiB that it does not split off."""
     from thrill_tpu_torch.common import tree as pt
     leaves = {l.untyped_storage().data_ptr(): l.untyped_storage().nbytes()
               for l in pt.leaves(shards.tree)}
     ptrs = set(leaves)
     dev_counts = getattr(shards, "_counts_dev", None)
-    if dev_counts is not None:
+    cached = {t.untyped_storage().data_ptr() for t in getattr(
+        shards.mesh_exec, "_put_small_cache", {}).values()}
+    if dev_counts is not None and \
+            dev_counts.untyped_storage().data_ptr() not in cached:
         ptrs.add(dev_counts.untyped_storage().data_ptr())
     blocks = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
               for b in seg["blocks"] if b["state"] == "active_allocated"}
@@ -8725,7 +8842,7 @@ def s_front_door(torch, np, tt, pk, ps, refs, card) -> dict:
 
 
 S6_JOBS = (("wc-a0", "a", "wordcount", 0), ("ts-a0", "a", "terasort", 0),
-           ("fail", "a", None, 0), ("wc-a2", "a", "wordcount", 2),
+           ("fail", "a", None, 0), ("wc-a1", "a", "wordcount", 1),
            ("wc-b1", "b", "wordcount", 1), ("ts-b1", "b", "terasort", 1),
            ("wc-b0", "b", "wordcount", 0))
 
@@ -9434,6 +9551,194 @@ def v_phase(torch, np, tt, pk, ps, card: str) -> dict:
     return paths
 
 
+N_WORDS = 1 << 22              # N2: the WordCount's words (W = 4)
+
+
+def _n_word(t):
+    return t["w"]
+
+
+def _n_add(a, b):
+    return {"w": a["w"], "c": a["c"] + b["c"]}
+
+
+def _n_ident(x):
+    return x
+
+
+def _n_group(k, items):
+    return (k, len(items))
+
+
+def n_engine_run(torch, tt, pk, ps, device: str, W: int, build) -> dict:
+    """``build(ctx)`` on a fresh Context on ``device``: {out, secs (host
+    clock after synchronize), dispatches (counted), launches, eligible
+    (the native engine's gate on this mesh)}."""
+    from thrill_tpu_torch.core import host_radix
+    ctx = tt.Context(num_workers=W, device=device)
+    eligible = host_radix.eligible(ctx.mesh_exec)
+    torch.cuda.synchronize()
+    zero_launches(pk, ps)
+    d0 = ctx.mesh_exec.stats_dispatches
+    t0 = time.perf_counter()
+    out = build(ctx)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    r = dict(out=out, secs=secs, launches=read_launches(pk, ps),
+             dispatches=ctx.mesh_exec.stats_dispatches - d0,
+             eligible=eligible)
+    ctx.close()
+    return r
+
+
+def n_line(label: str, cpu: dict, card: dict, host: str, cardl: str) -> str:
+    return (f"{label}: native engine (CPU mesh) {cpu['secs']:.3f} s, "
+            f"{cpu['dispatches']} dispatches, launches "
+            f"{sum(cpu['launches'].values())}; card {card['secs']:.3f} s, "
+            f"{card['dispatches']} dispatches, launches "
+            f"{json.dumps(card['launches'])} (host clock after synchronize, "
+            f"first runs) [host {host}; {cardl}]")
+
+
+def n_phase(torch, np, tt, pk, ps, card: str) -> dict:
+    """Phase N, the native CPU engine (thrill_tpu_torch/core/host_radix.py
+    over native/hostsort.cpp), which a CPU mesh runs for Sort at W = 1
+    and the local phases of ReduceByKey, ReduceToIndex and GroupByKey:
+    hostsort.cpp must build and load on the card's host; N1 TeraSort W =
+    1 of 2^22 records and N2 a Zipf WordCount W = 4 of N_WORDS words
+    (a generic-reduce_fn ReduceByKey, then a GroupByKey of the word ids)
+    run on a CPU mesh through the native engine and on the card, their
+    results bit-equal (the groups as sets: the card's come key-sorted,
+    the engine's in first-appearance order), the CPU runs launching no
+    kernel; then ``perf_sentinel --check`` holds both devices' contracts.
+    Returns the card runs' launches."""
+    from thrill_tpu_torch.common import native_build
+    from thrill_tpu_torch.core import host_radix
+    t_n = time.perf_counter()
+    host = cpu_line()
+    # the perf sentinel holds each device's contract exactly, in a
+    # process of its own beside N1 and N2 (its counters are its own)
+    sentinels = {dev: subprocess.Popen(
+        [sys.executable, "-m", "thrill_tpu_torch.tools.perf_sentinel",
+         "--check", "--device", dev], cwd=os.path.dirname(
+             os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for dev in ("cpu", DEVICE)}
+    try:
+        built = "hostsort" not in native_build._host_libs
+        lib = native_build.load_host("hostsort")
+        if lib is None or not host_radix.available():
+            raise AssertionError("N: native/hostsort.cpp did not build or "
+                                 "load on the card's host")
+        log(f"N build: native/hostsort.cpp "
+            f"{'built' if 'hostsort' in native_build.host_builds else 'found'}"
+            f" and loaded in {time.perf_counter() - t_n:.3f} s "
+            f"({'first load' if built else 'loaded before'}) [host {host}]")
+        paths = {}
+
+        def both(label, W, build, need):
+            cpu = n_engine_run(torch, tt, pk, ps, "cpu", W, build)
+            crd = n_engine_run(torch, tt, pk, ps, DEVICE, W, build)
+            if not cpu["eligible"] or crd["eligible"]:
+                raise AssertionError(f"{label}: the native engine's gate is "
+                                     f"{cpu['eligible']} on the CPU mesh and "
+                                     f"{crd['eligible']} on the card")
+            if any(cpu["launches"].values()):
+                raise AssertionError(f"{label}: the CPU mesh launched kernels "
+                                     f"{cpu['launches']}")
+            need_launches(crd["launches"], need, f"{label} (card)")
+            log(n_line(label, cpu, crd, host, card))
+            paths[f"{label} (card)"] = crd["launches"]
+            return cpu["out"], crd["out"]
+
+        # N1: TeraSort W=1, the native stable radix sort against the card's
+        recs, order = terasort_records(np, 1)
+
+        def terasort(ctx):
+            out = ctx.Distribute(recs).Sort(
+                lambda r: r["key"]).AllGatherArrays()
+            return {k: v.cpu() for k, v in out.items()}
+
+        cpu, crd = both("N1 terasort W=1", 1, terasort,
+                        ["radix_upsweep", "radix_pass"])
+        if not all(torch.equal(cpu[k], crd[k]) for k in ("key", "value")):
+            raise AssertionError("N1: the native sort differs from the card's")
+        check_sorted(np, "N1 terasort W=1 (native)", cpu, recs, order)
+        del recs, order, cpu, crd
+
+        # N2: the Zipf WordCount W=4, a generic reduce_fn and a GroupByKey
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+        voc = vocabulary(torch, gen)
+        ids = zipf_ids(torch, N_WORDS, VOCAB, gen)
+        words = {"w": voc[ids].cpu().numpy(),
+                 "c": np.ones(N_WORDS, dtype=np.int64)}
+        ids_h = ids.cpu().numpy()
+        want = np.bincount(ids_h, minlength=VOCAB)
+        del voc, ids
+
+        def wordcount(ctx):
+            out = ctx.Distribute(words).ReduceByKey(
+                _n_word, _n_add).AllGatherArrays()
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+        cpu, crd = both("N2 wordcount W=4 (generic reduce_fn)", 4, wordcount,
+                        ["partition_histogram", "radix_upsweep", "radix_pass"])
+        # the engines' orders differ (first appearance, key order): rows
+        # sorted by word, then bit-equal
+        rows = []
+        for out in (cpu, crd):
+            o = np.lexsort(out["w"].T[::-1])
+            rows.append((out["w"][o], out["c"][o]))
+        if not (np.array_equal(rows[0][0], rows[1][0])
+                and np.array_equal(rows[0][1], rows[1][1])):
+            raise AssertionError("N2: the native ReduceByKey differs from the "
+                                 "card's")
+        got_ids = word_ids(np, rows[0][0])
+        if not np.array_equal(rows[0][1], want[got_ids]) or \
+                len(got_ids) != np.count_nonzero(want):
+            raise AssertionError("N2: the ReduceByKey differs from "
+                                 "np.bincount")
+        del cpu, crd, rows
+
+        def groups(ctx):
+            return ctx.Distribute(ids_h).GroupByKey(_n_ident,
+                                                    _n_group).AllGather()
+
+        cpu, crd = both("N2 groupbykey W=4 (group_fn)", 4, groups,
+                        ["partition_histogram", "radix_upsweep", "radix_pass"])
+        if sorted(cpu) != sorted(crd):
+            raise AssertionError("N2: the native GroupByKey differs from the "
+                                 "card's")
+        present = np.flatnonzero(want)
+        if sorted(cpu) != [(int(i), int(want[i])) for i in present]:
+            raise AssertionError("N2: the GroupByKey differs from np.bincount")
+        log(f"N2 wordcount W=4: {N_WORDS} words, {len(present)} distinct, the "
+            f"native engine's rows bit-equal to the card's and to np.bincount "
+            f"[{card}]")
+        del cpu, crd, words, ids_h
+
+        for dev, proc in sentinels.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(
+                    f"N: perf_sentinel --check --device {dev} exited "
+                    f"{proc.returncode}:\n{err[-3000:]}")
+            log(f"N perf_sentinel --check --device {dev}: "
+                f"{out.strip().splitlines()[-1]} (a process beside N1 and N2, "
+                f"{time.perf_counter() - t_n:.1f} s after N began) "
+                f"[host {host}; {card}]")
+    finally:
+        for proc in sentinels.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    torch.cuda.empty_cache()
+    assert_port_alone()
+    log(f"native engine phase (N): {time.perf_counter() - t_n:.1f} s of "
+        f"host clock, numpy's references included [host {host}; {card}]")
+    return paths
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9443,11 +9748,14 @@ def main() -> int:
     if "--m1-compare" in sys.argv:
         return m1_compare(sys.argv[sys.argv.index("--m1-compare") + 1])
     if "--plan-child" in sys.argv:
-        return plan_child(sys.argv[sys.argv.index("--plan-child") + 1])
+        i = sys.argv.index("--plan-child")
+        return plan_child(sys.argv[i + 1],
+                          sys.argv[i + 2] if len(sys.argv) > i + 2 else None)
     if "--ckpt-child" in sys.argv:
         i = sys.argv.index("--ckpt-child")
         return ckpt_child(sys.argv[i + 1], sys.argv[i + 2],
-                          sys.argv[i + 3] == "1")
+                          sys.argv[i + 3] == "1",
+                          sys.argv[i + 4] if len(sys.argv) > i + 4 else None)
     if "--dist-child" in sys.argv:
         i = sys.argv.index("--dist-child")
         return dist_child(sys.argv[i + 1], int(sys.argv[i + 2]),
@@ -9522,6 +9830,10 @@ def main() -> int:
     if "--phase-v" in sys.argv:
         # phase V alone
         log(json.dumps(v_phase(torch, np, tt, pk, ps, card)))
+        return 0
+    if "--phase-n" in sys.argv:
+        # phase N alone
+        log(json.dumps(n_phase(torch, np, tt, pk, ps, card)))
         return 0
     if "--phase-l" in sys.argv:
         # phase L alone (about a minute with the build)
@@ -9606,9 +9918,15 @@ def main() -> int:
         f"{card}]")
     t_ck = time.perf_counter()
     torch.cuda.empty_cache()
-    c1 = ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card)
-    c2 = ckpt_sort_phase(torch, np, tt, pk, ps, card)
-    c3 = ckpt_wordcount_phase(torch, np, tt, pk, ps, card)
+    # the children start together and wait for their turns
+    ck_kids = CkptChildren()
+    try:
+        c1 = ckpt_pagerank_phase(torch, np, tt, pk, ps, edges, card,
+                                 ck_kids)
+        c2 = ckpt_sort_phase(torch, np, tt, pk, ps, card, ck_kids)
+        c3 = ckpt_wordcount_phase(torch, np, tt, pk, ps, card, ck_kids)
+    finally:
+        ck_kids.close()
     log(f"checkpoint phases (C1-C3): {time.perf_counter() - t_ck:.1f} s of "
         f"host clock, child processes and references included [host "
         f"{cpu_line()}; {card}]")
@@ -9643,7 +9961,9 @@ def main() -> int:
     s_paths = s_phase(torch, np, tt, pk, ps, card)
     torch.cuda.empty_cache()
     v_paths = v_phase(torch, np, tt, pk, ps, card)
-    clock("phases P, X, T, D, R, S and V")
+    torch.cuda.empty_cache()
+    n_paths = n_phase(torch, np, tt, pk, ps, card)
+    clock("phases P, X, T, D, R, S, V and N")
     sites = ordered_fold_sites(torch, np, tt, pk, ps, card)
     for label, (_, by_shape) in sites.items():
         fold_rows.update(time_folds(torch, label, by_shape))
@@ -9737,7 +10057,7 @@ def main() -> int:
              **{f"F3 join W=4 ({k})": v for k, v in f3.items()},
              **{f"F4 {k} W=4": v for k, v in f4.items()},
              **l_paths, **p_paths, **x_paths, **t_paths, **d_paths,
-             **r_paths, **s_paths, **v_paths}
+             **r_paths, **s_paths, **v_paths, **n_paths}
     # "inputs": the same timings on every captured main-path input
     kernels = [dict(name=k, route="cuda", max_abs_err=errs[k], **m,
                     **times[k], paths={p: c[k] for p, c in paths.items()},

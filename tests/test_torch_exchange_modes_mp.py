@@ -252,7 +252,7 @@ def _free_ports(n):
     return ports
 
 
-def _launch(nproc):
+def _launch(nproc, out_dir):
     ports = _free_ports(1 + nproc)
     coordinator = f"127.0.0.1:{ports[0]}"
     hostlist = " ".join(f"127.0.0.1:{p}" for p in ports[1:])
@@ -268,7 +268,7 @@ def _launch(nproc):
             env.pop(var, None)
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), coordinator,
-             str(rank), str(nproc)],
+             str(rank), str(nproc), _result_path(out_dir, rank)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
             env=env))
     return procs
@@ -278,7 +278,11 @@ class _ChildTimeout(Exception):
     pass
 
 
-def _drain(procs, timeout_s):
+def _result_path(out_dir, rank):
+    return os.path.join(str(out_dir), f"result-{rank}.json")
+
+
+def _drain(procs, timeout_s, out_dir):
     import concurrent.futures as cf
 
     from thrill_tpu_torch.common.timeouts import scaled
@@ -292,22 +296,29 @@ def _drain(procs, timeout_s):
                 q.kill()
             raise _ChildTimeout(f"children timed out ({timeout_s:.0f}s)")
     results = []
-    for p, (out, err) in zip(procs, drained):
+    for rank, (p, (out, err)) in enumerate(zip(procs, drained)):
         assert p.returncode == 0, f"child failed:\n{err[-3000:]}"
-        lines = [l for l in out.splitlines() if l.startswith("RESULT ")]
-        assert lines, f"no RESULT line:\n{out}\n{err[-2000:]}"
-        results.append(json.loads(lines[-1][len("RESULT "):]))
+        # the result comes through a file the child wrote whole and
+        # renamed into place: a 300 KB line through the stdout pipe was
+        # read cut in two under load
+        path = _result_path(out_dir, rank)
+        assert os.path.exists(path), f"no result file:\n{out}\n{err[-2000:]}"
+        with open(path) as f:
+            results.append(json.load(f))
     return results
 
 
-def _run_children(nproc, timeout_s=150):
+def _run_children(nproc, out_dir, timeout_s=150):
     """Launch and drain, with one retry on a timeout or a child's
     failure (a load spike, not a fault, fails once)."""
     try:
-        return _drain(_launch(nproc), timeout_s)
+        return _drain(_launch(nproc, out_dir), timeout_s, out_dir)
     except (_ChildTimeout, AssertionError) as e:
         print(f"first attempt failed; retrying once:\n{e}", flush=True)
-        return _drain(_launch(nproc), timeout_s)
+        for rank in range(nproc):
+            if os.path.exists(_result_path(out_dir, rank)):
+                os.remove(_result_path(out_dir, rank))
+        return _drain(_launch(nproc, out_dir), timeout_s, out_dir)
 
 
 def _close(a, b, tol):
@@ -317,13 +328,13 @@ def _close(a, b, tol):
 
 
 def test_every_mode_across_processes_is_one_process_and_the_reference(
-        monkeypatch):
+        monkeypatch, tmp_path):
     import thrill_tpu_torch as tt
 
     for var in ("THRILL_TPU_EXCHANGE", "THRILL_TPU_REDUCE_STREAM",
                 "THRILL_TPU_XCHG_NARROW", "THRILL_TPU_XCHG_CAP_CACHE"):
         monkeypatch.delenv(var, raising=False)
-    kids = _run_children(2)
+    kids = _run_children(2, tmp_path)
     one = json.loads(json.dumps(tt.Run(port_job, 4, device="cpu")))
     ref = json.loads(json.dumps(ref_run()))
 
@@ -371,13 +382,16 @@ def test_every_mode_across_processes_is_one_process_and_the_reference(
     assert one["ovf_misses"] == 1 and one["unattested_overlapped"] == 1
 
 
-def _child(coordinator, rank, nproc):
+def _child(coordinator, rank, nproc, out_path):
     import thrill_tpu_torch as tt
     res = tt.RunDistributed(port_job, coordinator_address=coordinator,
                             num_processes=nproc, process_id=rank,
                             workers_per_process=2, device="cpu")
-    print("RESULT " + json.dumps(res), flush=True)
+    tmp = out_path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(res, f)
+    os.replace(tmp, out_path)
 
 
 if __name__ == "__main__":
-    _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
+    _child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

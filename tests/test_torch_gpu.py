@@ -24,6 +24,15 @@ def cuda_device():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def device_engines(monkeypatch):
+    """The CPU run a test holds the card against takes the device
+    engines, which the card runs: a CPU mesh otherwise takes the native
+    engine (core/host_radix.py), whose rows come in first-appearance
+    order and whose float sums group in another order."""
+    monkeypatch.setenv("THRILL_TPU_HOST_RADIX", "0")
+
+
 # int64 ids at and beyond 32 bits: a kernel that cut them to int32 would
 # count 2^32 + 1 in bin 1
 _WIDE_IDS = [2**31 - 1, 2**31, 2**32, 2**32 + 1, 2**32 + 3, -2**31,
@@ -334,7 +343,7 @@ def test_presence_fill_failed_launch_leaves_no_stale_bits(cuda_device,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("W", [1, 2, 4])
-def test_reduces_on_the_card_match_the_cpu(cuda_device, W):
+def test_reduces_on_the_card_match_the_cpu(cuda_device, device_engines, W):
     rng = np.random.default_rng(200 + W)
     n = 1 << 15
     recs = {"k": rng.integers(0, 3000, n).astype(np.int64),
@@ -773,7 +782,7 @@ def _float_sum_site(site, ctx, data):
                                   "segment_sum"])
 @pytest.mark.parametrize("W", [1, 4])
 def test_float_sums_on_the_card_are_the_cpus_bits_run_after_run(
-        cuda_device, site, W):
+        cuda_device, device_engines, site, W):
     """ReduceToIndex's, ReduceByKey's and GroupByKey's float sums (f64
     scalars, f64 [8], f32 [3]: every sum outside B3) launch the ordered
     fold, and two runs on the card give the CPU's bits."""
@@ -1237,6 +1246,7 @@ def test_stream_rounds_on_the_card_are_the_cpu_s(cuda_device, W):
 @pytest.mark.gpu
 @pytest.mark.parametrize("W", [2, 4])
 def test_streamed_reduce_on_the_card_is_the_cpu_s(cuda_device, W,
+                                                  device_engines,
                                                   monkeypatch):
     monkeypatch.setenv("THRILL_TPU_REDUCE_STREAM", "1")
     rng = np.random.default_rng(W)
@@ -2391,12 +2401,18 @@ def _c25_first(kv):
 
 def _held_blocks(shards):
     """(bytes of the storages of a DeviceShards' leaves, bytes of the
-    caching allocator's blocks under them and under its device counts)."""
+    caching allocator's blocks under them and under its device counts).
+    Counts that ``MeshExec.put_small``'s content cache holds are not the
+    node's: every upload of equal counts shares them, and a spill cannot
+    free them."""
     from thrill_tpu_torch.common import tree as pt
     leaves = {l.untyped_storage().data_ptr(): l.untyped_storage().nbytes()
               for l in pt.leaves(shards.tree)}
     ptrs = set(leaves)
-    if shards._counts_dev is not None:
+    cached = {t.untyped_storage().data_ptr()
+              for t in shards.mesh_exec._put_small_cache.values()}
+    if shards._counts_dev is not None and \
+            shards._counts_dev.untyped_storage().data_ptr() not in cached:
         ptrs.add(shards._counts_dev.untyped_storage().data_ptr())
     blocks = {b["address"]: b["size"] for seg in torch.cuda.memory_snapshot()
               for b in seg["blocks"] if b["state"] == "active_allocated"}
@@ -2537,3 +2553,78 @@ def test_a_remote_checkpoint_resumes_on_the_card(cuda_device, tmp_path):
                 ckpt_dir=f"{srv.url}/b/ck-lines")) == want_lines
         assert any(k.startswith("b/ck-dev/epoch_") for k in srv.objects)
         assert any(k.startswith("b/ck-lines/epoch_") for k in srv.objects)
+
+
+def _nk_word(t):
+    return t["w"]
+
+
+def _nk_add(a, b):
+    return {"w": a["w"], "c": a["c"] + b["c"]}
+
+
+def _nk_group(k, items):
+    return (k, len(items), sum(int(i["c"]) for i in items))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", [1, 4])
+def test_the_card_s_sort_reduce_and_groups_are_the_native_engine_s(
+        cuda_device, W):
+    """Sort, ReduceByKey (FieldReduce and a generic reduce_fn) and
+    GroupByKey on the card give what a CPU mesh's native engine
+    (core/host_radix.py) gives: the Sort row for row, the reduces' and
+    groups' rows as sets (the card's come key-sorted, the engine's in
+    first-appearance order), integer sums exactly."""
+    from thrill_tpu_torch.core import host_radix
+    rng = np.random.default_rng(70 + W)
+    n = 50000
+    recs = {"key": rng.integers(0, 256, (n, 10)).astype(np.uint8),
+            "pay": rng.integers(0, 256, (n, 6)).astype(np.uint8)}
+    words = {"w": rng.integers(0, 3, (n, 4)).astype(np.uint8)
+             * np.uint8(40) + np.uint8(97),
+             "c": rng.integers(1, 5, n).astype(np.int64)}
+
+    def rows(out):
+        w, c = out["w"].cpu().numpy(), out["c"].cpu().numpy()
+        return sorted(zip(map(bytes, w), c.tolist()))
+
+    got = {}
+    for dev in ("cpu", "cuda"):
+        ctx = tt.Context(num_workers=W, device=dev)
+        assert host_radix.eligible(ctx.mesh_exec) == (dev == "cpu")
+        srt = ctx.Distribute(recs).Sort(lambda r: r["key"]).AllGatherArrays()
+        fr = ctx.Distribute(words).ReduceByKey(
+            _nk_word, tt.FieldReduce({"w": "first", "c": "sum"})
+        ).AllGatherArrays()
+        gen = ctx.Distribute(words).ReduceByKey(_nk_word, _nk_add) \
+            .AllGatherArrays()
+        grp = ctx.Distribute(words).GroupByKey(_nk_word, _nk_group) \
+            .AllGather()
+        got[dev] = ({k: v.cpu() for k, v in srt.items()}, rows(fr),
+                    rows(gen), sorted(grp))
+        ctx.close()
+    cpu, card = got["cpu"], got["cuda"]
+    assert all(torch.equal(cpu[0][k], card[0][k]) for k in recs)
+    assert cpu[1] == card[1] == cpu[2] == card[2]
+    assert cpu[3] == card[3]
+    assert sum(c for _, c in cpu[1]) == int(words["c"].sum())
+
+
+@pytest.mark.gpu
+def test_perf_sentinel_check_is_clean_on_the_card(cuda_device, capsys):
+    from thrill_tpu_torch.tools import perf_sentinel
+    assert perf_sentinel.main(["--check", "--device", "cuda"]) == 0
+    assert "clean: 11 workloads match" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_the_native_engine_loads_but_never_runs_on_a_card_mesh(cuda_device):
+    from thrill_tpu_torch.core import host_radix
+    assert host_radix.available()         # hostsort.cpp builds on the host
+    ctx = tt.Context(num_workers=4, device="cuda")
+    assert not host_radix.eligible(ctx.mesh_exec)
+    ctx.close()
+    ctx = tt.Context(num_workers=4, device="cpu")
+    assert host_radix.eligible(ctx.mesh_exec)
+    ctx.close()

@@ -9,8 +9,10 @@ live service gauges of ``common/metrics.py``.
   makes nests under the job's span and carries its name (the tracer's
   ``current_job``).
 * The ``job_submit`` and ``job_done`` log lines have the reference's
-  fields and values (but for host seconds), and ``json2profile`` prints
-  the reference's bytes for the served log.
+  fields and values (but for host seconds), job by job (a job's
+  ``job_done`` and the next job's ``job_submit`` come from two threads
+  in either order, in both packages), and ``json2profile`` prints the
+  reference's bytes for the served log.
 * ``render_prometheus`` prints the reference's bytes for the same
   service state (queue depth, jobs in flight, the per-tenant latency
   histogram, the tenants' HBM bytes); a scrape of a serving Context has
@@ -127,6 +129,15 @@ def test_the_service_lane_and_the_job_lines_are_the_reference_s(W, tmp_path):
                 if rec.get("event") in ("job_submit", "job_done"):
                     rec.pop("program", None)
                     lines.append(_clean_rec(rec))
+        # in both packages the dispatcher thread resolves a job's future
+        # before it writes the job's job_done line, and the test thread,
+        # woken by the future, writes the next job's job_submit: those
+        # two lines race. A job's own lines are in order: compare by job
+        order = [(r["job"], r["event"]) for r in lines]
+        for job in {j for j, _ in order}:
+            assert [e for j, e in order if j == job] == [
+                "job_submit", "job_done"], (side, order)
+        lines.sort(key=lambda r: (r["job"], r["event"] != "job_submit"))
         got[side] = (ok, type(err).__name__, service, lines)
     assert got["t"] == got["j"]
     service = got["t"][2]

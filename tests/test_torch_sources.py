@@ -252,6 +252,13 @@ SERVICE = {"jobs_submitted", "jobs_failed", "jobs_rejected",
            "fd_chunks_sent", "fd_slow_clients", "fd_deadline_expired",
            "autoscale_decisions", "autoscale_ticks", "serve_p50_ms",
            "serve_p99_ms"}
+# the spill tier's I/O ledger (common/iostats.py) and the bytes between
+# processes, device and host frames (the perf sentinel's counters)
+IO = {"prefetch_hits", "prefetch_misses", "io_wait_s", "io_busy_s",
+      "writeback_bytes", "spill_runs",
+      "prefetch_submits", "records_blocks", "runs_reused",
+      "restore_overlaps", "remote_gets", "remote_puts", "bytes_wire_host",
+      "bytes_on_wire", "bytes_on_wire_raw"}
 
 
 def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
@@ -281,7 +288,7 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
                       "resizes_proc", "conn_reconnects",
                       "stale_frames_dropped", "runs_adopted",
                       "tenant_hbm_peaks", "tenant_spills"} | PLAN | DOCTOR \
-        | SERVICE
+        | SERVICE | IO
     rs = ref.overall_stats()
     assert set(s) <= set(rs)
     assert {k: s[k] for k in SERVICE} == {k: rs[k] for k in SERVICE}
@@ -314,8 +321,12 @@ def test_overall_stats_counts_what_the_port_keeps(monkeypatch):
     # no tenant was set: the tenant ledger is empty, as the reference's
     assert s["tenant_hbm_peaks"] == rs["tenant_hbm_peaks"] == {}
     assert s["serve_p50_ms"] == s["serve_p99_ms"] == {}
+    # one process: the bytes on the wire are the device exchange's
+    assert s["bytes_on_wire"] == s["bytes_wire_device"]
+    assert s["bytes_on_wire_raw"] == s["bytes_wire_device_raw"]
     assert all(s[k] == 0 for k in set(s) - PLAN - DOCTOR - {
         "tenant_hbm_peaks", "serve_p50_ms", "serve_p99_ms",
         "workers", "nodes_created", "exchanges", "items_moved",
         "bytes_moved", "device_dispatches", "device_fetches",
-        "fused_dispatches", "fused_ops", "fused_stages", "generation"})
+        "fused_dispatches", "fused_ops", "fused_stages", "generation",
+        "bytes_on_wire", "bytes_on_wire_raw"})

@@ -93,6 +93,15 @@ from ..mem.pressure import PressureMonitor
 from ..parallel.mesh import DeviceLike, MeshExec, resolve_device
 
 
+def _wire_totals(stats: dict) -> None:
+    """``bytes_on_wire`` (device exchanges' and host frames' bytes
+    between processes) and its full-width ``_raw`` into ``stats``."""
+    stats["bytes_on_wire"] = (stats["bytes_wire_device"]
+                              + stats["bytes_wire_host"])
+    stats["bytes_on_wire_raw"] = (stats["bytes_wire_device_raw"]
+                                  + stats["bytes_wire_host"])
+
+
 class PipelineError(RuntimeError):
     """One pipeline run on a Context failed, and only that run: the
     Context healed and stays usable (reference: ``api/context.py:54``).
@@ -209,6 +218,10 @@ class Context:
         # the fault counters are the process's: this Context reports
         # what happened since it was made
         self._faults_base = faults.REGISTRY.stats()
+        # the out-of-core I/O ledger (common/iostats.py) is the
+        # process's too
+        from ..common.iostats import IO as _iostats
+        self._io_base = _iostats.snapshot()
         # the tracer and the doctor: one attribute read away from every
         # choke point (THRILL_TPU_TRACE=0: no spans; THRILL_TPU_DOCTOR=0:
         # no doctor)
@@ -1117,6 +1130,19 @@ class Context:
         }
         if self.checkpoint is not None:
             stats.update(self.checkpoint.stats())
+        # the spill tier's I/O since this Context was made: spilled runs,
+        # columnar blocks, readahead, write-behind bytes, object-store
+        # requests (reference: api/context.py:1093-1095); the write-behind
+        # queue's high-water mark is the process's, not this Context's,
+        # so it stays out
+        from ..common.iostats import IO as _iostats
+        io = _iostats.delta(_iostats.snapshot(), self._io_base)
+        io.pop("writeback_queue_peak")
+        stats.update(io)
+        # bytes between processes: the device exchanges' and the host
+        # frames' (reference: bytes_on_wire, api/context.py:937-960)
+        stats["bytes_wire_host"] = getattr(mex, "stats_bytes_wire_host", 0)
+        _wire_totals(stats)
         # once a process has served, its view stays local: a follower's
         # dispatcher waits on the host group for rank 0's ordering frames,
         # and a gather from this thread would race it for them (the
@@ -1132,10 +1158,16 @@ class Context:
             sums = {"items_moved", "bytes_moved", "faults_delayed",
                     "collective_wait_s", "wait_net_s", "wait_exchange_s",
                     "wait_io_s", "wait_skew_s", "runs_adopted",
-                    "tenant_spills"}
+                    "tenant_spills", "bytes_wire_host",
+                    # the spill tier's I/O is each process's own
+                    "prefetch_hits", "prefetch_misses", "io_wait_s",
+                    "io_busy_s", "writeback_bytes", "spill_runs",
+                    "prefetch_submits", "records_blocks", "runs_reused",
+                    "restore_overlaps", "remote_gets", "remote_puts"}
             stats = {k: (max(h[k] for h in per_host) if k in peaks
                          else sum(h[k] for h in per_host) if k in sums
                          else per_host[0][k]) for k in stats}
+            _wire_totals(stats)
             stats["hosts"] = len(per_host)
         return stats
 

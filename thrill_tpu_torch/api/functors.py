@@ -102,3 +102,42 @@ def _combine(spec, a, b):
     lib = torch if isinstance(a, torch.Tensor) or isinstance(
         b, torch.Tensor) else np
     return lib.minimum(a, b) if spec == "min" else lib.maximum(a, b)
+
+
+def acc_plan(op: str, dtype, ndim: int):
+    """The native accumulator of one FieldReduce column (reference:
+    ``thrill_tpu/api/functors.py:116``): ``(opcode, conv_dtype)`` for
+    ``native/hostsort.cpp`` ``hash_group_acc_u64`` given the op, the
+    column's numpy dtype and its ndim, or None when the column must go
+    through the generic fold. ``"first"`` is ``(-1, None)``: its rows
+    are gathered from the groups' heads.
+
+    ``conv_dtype`` is the 8-byte type the column is converted to for the
+    pass; the result converts back to the column's type, exactly mod
+    2**bits for integer sums (numpy's wraparound) and, for float32 sums,
+    after an f64 accumulation."""
+    dtype = np.dtype(dtype)
+    if op == "first":
+        return (-1, None)
+    if ndim != 1:
+        return None
+    if op == "sum":
+        if dtype == np.uint64:
+            return (0, np.uint64)
+        if np.issubdtype(dtype, np.integer):
+            return (0, np.int64)
+        if np.issubdtype(dtype, np.floating):
+            return (3, np.float64)
+        return None
+    if op in ("min", "max"):
+        lo = op == "min"
+        if dtype == np.uint64:
+            return (6 if lo else 7, np.uint64)
+        if np.issubdtype(dtype, np.signedinteger):
+            return (1 if lo else 2, np.int64)
+        if np.issubdtype(dtype, np.unsignedinteger):
+            return (6 if lo else 7, np.uint64)
+        if np.issubdtype(dtype, np.floating):
+            return (4 if lo else 5, np.float64)
+        return None
+    return None

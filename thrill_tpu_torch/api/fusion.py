@@ -359,6 +359,9 @@ class FusionPlan:
         self.aux = aux
         if self.known_counts is not None:
             shards = DeviceShards(mex, tree, self.known_counts.copy())
+            # the program's counts, on the device already: the next
+            # program reads them with no upload
+            shards._counts_dev = out_count.reshape(-1).to(torch.int64)
         else:
             shards = DeviceShards(mex, tree, out_count)
         if not self._no_finalize:

@@ -8,7 +8,9 @@ run starts, then either
 
 * ``device_fn``: the user's fold over segment ids on the card, or
 * ``group_fn``: the sorted rows come to the host and Python runs once
-  per group.
+  per group. On a CPU mesh the native engine (``core/host_radix.py``)
+  groups them by a hash table instead, in first-appearance order, as the
+  reference's does.
 
 GroupByKey on host storage (``group_fn`` only): each item's key is
 hashed once with ``stable_host_hash``, the items are exchanged by hash,
@@ -187,7 +189,11 @@ class GroupByKeyNode(DIABase):
 
     def _group_sorted_host(self, shards: DeviceShards) -> HostShards:
         """Arbitrary ``group_fn``: the card sorts and marks run starts,
-        the host calls ``group_fn(key, items)`` once per run."""
+        the host calls ``group_fn(key, items)`` once per run. On a CPU
+        mesh the native engine groups instead (:func:`_group_host_radix`)."""
+        out = _group_host_radix(shards, self.key_fn, self.group_fn)
+        if out is not None:
+            return out
         mex = shards.mesh_exec
         tree_s, _, starts = self._sorted_runs(shards)
         starts = mex.fetch(starts)
@@ -207,6 +213,63 @@ class GroupByKeyNode(DIABase):
                               items[lo:hi])
                 for lo, hi in zip(bounds[:-1], bounds[1:])])
         return HostShards(shards.num_workers, lists)
+
+
+def _group_host_radix(shards: DeviceShards, key_fn: Callable,
+                      group_fn: Callable) -> Optional[HostShards]:
+    """GroupByKey's grouping on a CPU mesh (reference:
+    ``thrill_tpu/api/ops/groupby.py:237-295``): the native hash grouping
+    (``core/host_radix.py``), one table probe a row, as ReduceByKey's
+    engine. GroupByKey only needs equal keys adjacent, so groups come out
+    in first-appearance order, not key-sorted, as in the reference.
+    Returns None where the engine does not apply (another device, the
+    library missing, a key_fn that fails on these columns). ``group_fn``
+    is an arbitrary host function and may have side effects: its
+    exceptions propagate and it never runs twice."""
+    from ...core import host_radix
+    from ...data.shards import itemize
+
+    mex = shards.mesh_exec
+    if not host_radix.eligible(mex):
+        return None
+    W = mex.num_workers
+    # the counts first: a pending check they run may heal the columns
+    counts = [int(c) for c in shards.counts]
+    # the rows leave columnar storage here, as through to_host_shards
+    log = getattr(mex, "logger", None)
+    if log is not None and log.enabled:
+        log.line(event="device_to_host", reason="groupbykey-group-fn",
+                 items=sum(counts))
+    leaves, td = pt.flatten(shards.tree)
+    per_worker = []
+    try:
+        leaves_np = [mex.host_view(l) for l in leaves]
+        for w in range(W):
+            cnt = counts[w]
+            if cnt == 0:
+                per_worker.append((0, None, None))
+                continue
+            cols = [l[w][:cnt] for l in leaves_np]
+            words = keymod.encode_key_words(key_fn(pt.unflatten(
+                td, [torch.from_numpy(c) for c in cols])))
+            perm, lens = host_radix.hash_group(words)
+            srt = [host_radix.gather_rows(np.ascontiguousarray(a), perm)
+                   for a in cols]
+            per_worker.append((cnt, srt, [0] + np.cumsum(lens).tolist()))
+    except host_radix.NativeEngineError:
+        raise
+    except Exception:
+        return None
+    lists = []
+    for cnt, srt, bounds in per_worker:
+        if cnt == 0:
+            lists.append([])
+            continue
+        items = itemize(pt.unflatten(td, srt))
+        lists.append([group_fn(hashing.hashable(key_fn(items[lo])),
+                               items[lo:hi])
+                      for lo, hi in zip(bounds[:-1], bounds[1:])])
+    return HostShards(W, lists)
 
 
 class GroupToIndexNode(DIABase):

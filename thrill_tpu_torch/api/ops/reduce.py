@@ -27,6 +27,13 @@ arrives in ``core/em_table.py``'s external-memory table, which spills to
 the spill store past the node's RAM grant. ReduceToIndex folds into one
 dict a worker.
 
+On a CPU mesh (``core/host_radix.py`` ``eligible``) the local combine
+and ReduceToIndex's generic dense phase take the native engine instead,
+as the reference's do: a hash grouping of the key words in
+``native/hostsort.cpp``, then one accumulating pass for a FieldReduce or
+a log-depth fold of any other ``reduce_fn`` (:func:`_host_reduce_shards`,
+:func:`_host_reduce_to_index`). Such a combine is not stitched.
+
 Stitched (api/fusion.py): ReduceByKey's local combine is a segment
 (``ReduceLocal``), the pre phase's in the chain before the exchange (at
 W = 1 the whole reduce, and the plan is handed on) and the post phase's
@@ -96,11 +103,197 @@ def _local_reduce_program(tree, valid, key_fn, reduce_fn):
 def _local_reduce(shards: DeviceShards, key_fn: Callable,
                   reduce_fn: Callable, token) -> DeviceShards:
     """:func:`_reduce_rows`, then every worker's representatives
-    compacted, as one program. The capacity stays the input's."""
+    compacted, as one program. The capacity stays the input's. On a CPU
+    mesh the native engine reduces instead (:func:`_host_reduce_shards`)."""
     mex = shards.mesh_exec
+    out = _host_reduce_shards(shards, key_fn, reduce_fn)
+    if out is not None:
+        return out
     prog = mex.program(("reduce_local", token), _local_reduce_program)
     tree, counts = prog(shards.tree, shards.valid_mask(), key_fn, reduce_fn)
     return DeviceShards(mex, tree, mex.fetch(counts))
+
+
+# -- the native CPU engine ---------------------------------------------------
+
+def _host_leaves(mex, tree) -> Optional[tuple]:
+    """``(leaves, treedef)`` of a CPU mesh's tree as numpy views
+    (:meth:`MeshExec.host_view`), or None for a leaf numpy cannot hold
+    (bfloat16)."""
+    leaves, td = pt.flatten(tree)
+    try:
+        return [mex.host_view(l) for l in leaves], td
+    except TypeError:
+        return None
+
+
+def _tensors(td, arrays) -> Any:
+    """numpy leaves as a tree of CPU tensors sharing their memory: what a
+    user's function sees, as on the device engine."""
+    return pt.unflatten(td, [torch.from_numpy(np.asarray(a))
+                             for a in arrays])
+
+
+def _host_reduce_shards(shards: DeviceShards, key_fn: Callable,
+                        reduce_fn: Callable) -> Optional[DeviceShards]:
+    """The local reduce on a CPU mesh (reference:
+    ``thrill_tpu/api/ops/reduce.py:94-166``): native hash grouping
+    (``core/host_radix.py``), one table probe a row, then a FieldReduce
+    accumulates in the same pass (:func:`_fused_field_reduce`) or any
+    other ``reduce_fn`` folds each group in log2(longest group) calls
+    (:func:`_strided_run_fold`). ReduceByKey only needs equal keys
+    adjacent, so groups come in first-appearance order; the output's
+    capacity is the power of two above the most groups of a worker.
+
+    Returns None where the engine does not apply (another device, the
+    library missing, a key_fn or reduce_fn that fails on these columns),
+    and the device engine runs. A :class:`host_radix.NativeEngineError`
+    propagates: the engine is broken, not inapplicable."""
+    from ...core import host_radix
+
+    mex = shards.mesh_exec
+    if not host_radix.eligible(mex):
+        return None
+    # an optimistic exchange's output may owe its capacity check: heal
+    # before the columns are read
+    shards.validate_pending()
+    hl = _host_leaves(mex, shards.tree)
+    if hl is None:
+        return None
+    leaves_np, td = hl
+    W = mex.num_workers
+    out_counts = np.zeros(W, dtype=np.int64)
+    per_worker = []
+    try:
+        for w in range(W):
+            cnt = int(shards.counts[w])
+            cols = [l[w][:cnt] for l in leaves_np]
+            if cnt == 0:
+                per_worker.append(pt.unflatten(td, cols))
+                continue
+            words = keymod.encode_key_words(key_fn(_tensors(td, cols)))
+            fused = _fused_field_reduce(cols, td, words, reduce_fn)
+            if fused is not None:
+                cols, ngroups = fused
+            else:
+                perm, lens = host_radix.hash_group(words)
+                cols = [host_radix.gather_rows(np.ascontiguousarray(a), perm)
+                        for a in cols]
+                # the identity write-back skip is sound only for a
+                # functor known pure; a black-box reduce_fn may change
+                # its left argument in place and return it
+                cols = _strided_run_fold(
+                    cols, td, lens, reduce_fn,
+                    allow_identity_skip=isinstance(reduce_fn, FieldReduce))
+                ngroups = len(lens)
+            per_worker.append(pt.unflatten(td, cols))
+            out_counts[w] = ngroups
+    except host_radix.NativeEngineError:
+        raise
+    except Exception:
+        return None
+    return DeviceShards.from_worker_arrays(mex, per_worker,
+                                           counts=out_counts)
+
+
+def _fused_field_reduce(cols, td, words, reduce_fn):
+    """A FieldReduce whose accumulated leaves are all scalar columns of a
+    supported type, as one native probe pass (``hash_group_acc_u64``):
+    grouping and accumulation fused, no permutation, gather or fold
+    after it (reference: ``thrill_tpu/api/ops/reduce.py:168-210``; the
+    runtime analog of the reference framework's templates inlining the
+    functor into its probing table). Returns ``(leaves, ngroups)`` or
+    None for the generic fold."""
+    from ...core import host_radix
+    from ..functors import acc_plan
+
+    if not isinstance(reduce_fn, FieldReduce):
+        return None
+    specs = reduce_fn.flat_spec(td)
+    if specs is None:
+        return None
+    plans = []
+    for spec, a in zip(specs, cols):
+        p = acc_plan(spec, a.dtype, a.ndim)
+        if p is None:
+            return None
+        plans.append(p)
+    acc_cols, ops = [], []
+    for (opcode, conv), a in zip(plans, cols):
+        if opcode >= 0:              # "first" columns are gathered below
+            ops.append(opcode)
+            acc_cols.append(a.astype(conv, copy=False))
+    heads, accs = host_radix.hash_group_acc(words, acc_cols, ops)
+    out, ai = [], 0
+    for (opcode, _), a in zip(plans, cols):
+        if opcode < 0:
+            out.append(host_radix.gather_rows(np.ascontiguousarray(a),
+                                              heads))
+        else:
+            acc = accs[ai]
+            ai += 1
+            out.append(acc if acc.dtype == a.dtype else acc.astype(a.dtype))
+    return out, len(heads)
+
+
+def _strided_run_fold(leaves, td, lens: np.ndarray, reduce_fn: Callable,
+                      allow_identity_skip: bool = False):
+    """Fold each run of group-contiguous rows into its head row, in
+    place, then gather the heads (reference:
+    ``thrill_tpu/api/ops/reduce.py:212-273``).
+
+    A power-of-two strided up-sweep over the rows: the row at in-run
+    position p > 0 is absorbed once, at step s = p & -p, into the row s
+    slots left of it, which by then holds the fold of positions
+    [p-s, p); after every step each head holds the left-to-right
+    grouping of its whole run. The native ``fold_plan`` emits every
+    level's rows in one O(n) pass. ``reduce_fn`` sees (left rows, right
+    rows) as trees of CPU tensors, the left rows earlier in their run,
+    so an associative, non-commutative function is safe. Its float sums
+    group in this log-depth order, not the ordered fold's.
+
+    Changes ``leaves`` (numpy, freshly gathered) in place; returns the
+    heads' leaves (``len(lens)`` rows)."""
+    from ...core import host_radix
+
+    leaves = [np.ascontiguousarray(a) for a in leaves]
+    ri_all, level_counts = host_radix.fold_plan(lens)
+    off = 0
+    for lvl in range(32):
+        lc = int(level_counts[lvl])
+        if lc == 0:
+            continue
+        ri = ri_all[off:off + lc]
+        off += lc
+        li = (ri - np.uint32(1 << lvl)).astype(np.uint32, copy=False)
+        left = _tensors(td, [host_radix.gather_rows(a, li) for a in leaves])
+        right = _tensors(td, [host_radix.gather_rows(a, ri) for a in leaves])
+        left_leaves = pt.leaves(left)
+        merged = reduce_fn(left, right)
+        m_leaves, m_td = pt.flatten(merged)
+        if m_td != td:
+            # a positional zip would scatter mispaired leaves: a malformed
+            # reduce_fn is an error, as on the device engine
+            raise ValueError(f"reduce_fn returned tree structure {m_td} "
+                             f"!= item structure {td}")
+        for a, m, ll in zip(leaves, m_leaves, left_leaves):
+            if allow_identity_skip and m is ll:
+                # a pure functor's "first" passed the left rows through:
+                # writing them back is a no-op
+                continue
+            host_radix.scatter_rows(
+                a, li, np.ascontiguousarray(_to_numpy(m), dtype=a.dtype))
+    starts = np.zeros(len(lens), dtype=np.uint32)
+    np.cumsum(lens[:-1], dtype=np.uint32, out=starts[1:])
+    return [host_radix.gather_rows(a, starts) for a in leaves]
+
+
+def _to_numpy(x) -> np.ndarray:
+    """A user function's result leaf (a CPU tensor, numpy or a number)
+    as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _fold_program(ta, ca: torch.Tensor, tb, cb: torch.Tensor,
@@ -163,8 +356,12 @@ class ReduceNode(DIABase):
 
     def _fuse_segment(self, phase: str):
         """The local combine as a segment (reference:
-        ``thrill_tpu/api/ops/reduce.py:358-384``)."""
+        ``thrill_tpu/api/ops/reduce.py:358-384``), or None on a CPU
+        mesh, where the native engine reduces unstitched."""
         from .. import fusion
+        from ...core import host_radix
+        if host_radix.eligible(self.context.mesh_exec):
+            return None
         key_fn, reduce_fn = self.key_fn, self.reduce_fn
 
         def trace(fctx, tree, mask, _bound):
@@ -177,9 +374,10 @@ class ReduceNode(DIABase):
     def compute_plan(self):
         from .. import fusion
         plan = fusion.pull_plan(self.parents[0])
-        if not plan.stitchable:
+        seg = self._fuse_segment("pre") if plan.stitchable else None
+        if seg is None:
             return fusion.wrap(self._compute_on(plan.finish()))
-        plan.append(self._fuse_segment("pre"))
+        plan.append(seg)
         if self.context.num_workers == 1:
             # the pre phase is the whole reduce: downstream ops stitch on
             return plan
@@ -244,9 +442,10 @@ class ReduceNode(DIABase):
             return fusion.wrap(self._compute_device_stream(pre, dest, dup))
         shuffled = exchange.exchange(pre, dest,
                                      ("reduce_dest", self.token, W, dup))
-        if fusion.enabled():
+        seg = self._fuse_segment("post") if fusion.enabled() else None
+        if seg is not None:
             plan = fusion.FusionPlan(mex, [shuffled])
-            plan.append(self._fuse_segment("post"))
+            plan.append(seg)
             return plan
         return fusion.wrap(_local_reduce(shuffled, key_fn, self.reduce_fn,
                                          ("post", self.token)))
@@ -533,13 +732,20 @@ class ReduceToIndexNode(DIABase):
 
     def _exchange_by_index(self, shards: DeviceShards,
                            bounds: np.ndarray) -> DeviceShards:
-        upper = shards.mesh_exec.put_small(bounds[1:])
+        W, n = shards.num_workers, self.size
 
         def dest(tree, mask, widx):
+            # the worker w with bounds[w] <= idx < bounds[w + 1]
+            # (dense_range_bounds: bounds[w] = w * n // W), 0 below the
+            # range and W past it, as a search of bounds[1:] gives,
+            # computed from the index alone: no bounds tensor to upload
+            # (the reference bakes its bounds into the program)
             idx = _index_of(self.index_fn, tree)
-            return torch.searchsorted(upper, idx, right=True)
+            if n == 0:
+                return (idx >= 0).to(torch.int64) * W
+            return torch.div((idx + 1) * W - 1, n,
+                             rounding_mode="floor").clamp(0, W)
 
-        W = shards.num_workers
         return exchange.exchange(
             shards, dest, ("r2i_dest", (self.index_fn, self.reduce_fn,
                                         self.size), W))
@@ -598,9 +804,15 @@ class ReduceToIndexNode(DIABase):
 
     def compute_plan(self):
         from .. import fusion
+        from ...core import host_radix
         plan = fusion.pull_plan(self.parents[0])
         bounds = self._bounds()
-        if not plan.stitchable:
+        # a FieldReduce keeps the scatter engine, on a CPU mesh too; any
+        # other reduce_fn takes the native engine there, unstitched
+        # (reference: thrill_tpu/api/ops/reduce.py:1041-1060)
+        if not plan.stitchable or (
+                host_radix.eligible(self.context.mesh_exec)
+                and not isinstance(self.reduce_fn, FieldReduce)):
             return fusion.wrap(self._compute_on(plan.finish(), bounds))
         row_bound = None
         if self.context.num_workers > 1:
@@ -633,6 +845,14 @@ class ReduceToIndexNode(DIABase):
         # across processes the local workers' ranges
         starts, local_sizes = mex.local(bounds[:W]), mex.local(local_sizes)
         sc = _scatter_fold_specs(self.reduce_fn, td, leaves)
+        if sc is None:
+            # what the scatter engine does not take goes to the native
+            # engine on a CPU mesh
+            host = _host_reduce_to_index(shards, self.index_fn,
+                                         self.reduce_fn, bounds,
+                                         self.neutral)
+            if host is not None:
+                return host
         prog = mex.program(("r2i", self.index_fn, self.reduce_fn,
                             self.size), _dense_program)
         if sc is None:
@@ -671,6 +891,115 @@ class ReduceToIndexNode(DIABase):
             [tables[w].get(i, self.neutral)
              for i in range(int(bounds[w]), int(bounds[w + 1]))]
             if w in local else [] for w in range(W)])
+
+def _host_reduce_to_index(shards: DeviceShards, index_fn, reduce_fn,
+                          bounds: np.ndarray,
+                          neutral) -> Optional[DeviceShards]:
+    """ReduceToIndex's dense phase on a CPU mesh (reference:
+    ``thrill_tpu/api/ops/reduce.py:706-811``): FieldReduce columns as
+    numpy scatter-accumulations (:func:`_scatter_field`), any other
+    ``reduce_fn`` through the native hash grouping by index and
+    :func:`_strided_run_fold`, the groups' heads scattered by index.
+    Indices no item reached hold ``neutral`` (zero when None). Returns
+    None where the engine does not apply (another device, an index out of
+    its worker's range, a function that fails on these columns); a
+    :class:`host_radix.NativeEngineError` propagates."""
+    from ...core import host_radix
+    from ..functors import acc_plan
+
+    mex = shards.mesh_exec
+    if not host_radix.eligible(mex):
+        return None
+    shards.validate_pending()
+    hl = _host_leaves(mex, shards.tree)
+    if hl is None:
+        return None
+    leaves_np, td = hl
+    W = mex.num_workers
+    local_sizes = (bounds[1:] - bounds[:-1]).astype(np.int64)
+    neutral_leaves = None
+    if neutral is not None:
+        if pt.flatten(neutral)[1] != td:
+            # the device engine raises on the mismatch
+            return None
+        neutral_leaves = pt.leaves(neutral)
+    specs = None
+    if isinstance(reduce_fn, FieldReduce):
+        specs = reduce_fn.flat_spec(td)
+        if specs is not None and any(
+                sp != "first" and acc_plan(sp, a.dtype, a.ndim - 1) is None
+                for sp, a in zip(specs, leaves_np)):
+            specs = None
+    per_worker = []
+    try:
+        for w in range(W):
+            cnt = int(shards.counts[w])
+            lo, size = int(bounds[w]), int(local_sizes[w])
+            cols = [l[w][:cnt] for l in leaves_np]
+            idx = (torch.as_tensor(index_fn(_tensors(td, cols))).to(
+                torch.int64).numpy() - lo if cnt
+                else np.zeros(0, np.int64))
+            if cnt and (idx.min() < 0 or idx.max() >= size):
+                return None          # the device engine's clip applies
+            present = np.zeros(size, dtype=bool)
+            present[idx] = True
+            if specs is not None:
+                out = [_scatter_field(sp, c, idx, size)
+                       for sp, c in zip(specs, cols)]
+            elif cnt:
+                perm, lens = host_radix.hash_group([idx.astype(np.uint64)])
+                folded = _strided_run_fold(
+                    [host_radix.gather_rows(np.ascontiguousarray(a), perm)
+                     for a in cols], td, lens, reduce_fn,
+                    allow_identity_skip=isinstance(reduce_fn, FieldReduce))
+                starts = np.zeros(len(lens), dtype=np.uint32)
+                np.cumsum(lens[:-1], dtype=np.uint32, out=starts[1:])
+                gidx = idx[perm[starts]]
+                out = []
+                for c in folded:
+                    base = np.zeros((size,) + c.shape[1:], c.dtype)
+                    base[gidx] = c
+                    out.append(base)
+            else:
+                out = [np.zeros((size,) + a.shape[2:], a.dtype)
+                       for a in leaves_np]
+            # indices no item reached: the neutral, or 0 (the device
+            # engine's zero base), so no min/max sentinel leaks out
+            for i, o in enumerate(out):
+                o[~present] = (neutral_leaves[i] if neutral_leaves
+                               is not None else 0)
+            per_worker.append(pt.unflatten(td, out))
+    except host_radix.NativeEngineError:
+        raise
+    except Exception:
+        return None
+    return DeviceShards.from_worker_arrays(mex, per_worker,
+                                           counts=local_sizes)
+
+
+def _scatter_field(op: str, col: np.ndarray, idx: np.ndarray,
+                   size: int) -> np.ndarray:
+    """One FieldReduce column as a dense numpy scatter-accumulation."""
+    if op == "first":
+        out = np.zeros((size,) + col.shape[1:], col.dtype)
+        # assigned in reverse: the first occurrence wins
+        out[idx[::-1]] = col[::-1]
+        return out
+    out = np.zeros(size, col.dtype)
+    if op == "sum":
+        np.add.at(out, idx, col)
+        return out
+    if op == "min":
+        out.fill(np.inf if np.issubdtype(col.dtype, np.floating)
+                 else np.iinfo(col.dtype).max)
+        np.minimum.at(out, idx, col)
+    else:
+        out.fill(-np.inf if np.issubdtype(col.dtype, np.floating)
+                 else np.iinfo(col.dtype).min)
+        np.maximum.at(out, idx, col)
+    # untouched slots hold the sentinels; the caller's fill replaces them
+    return out
+
 
 def _sorted_dense(tree, valid: torch.Tensor, index_fn, reduce_fn, neutral,
                   starts: torch.Tensor, out_cap: int):

@@ -23,6 +23,10 @@ engine and the payload is gathered once per phase:
 The order (words, global index) is total, so the result is globally
 sorted across worker ranks and stable, row for row the reference's.
 
+On a CPU mesh the W == 1 sort is the native stable radix sort of
+``core/host_radix.py`` (:func:`_host_radix_w1`), unstitched, as in the
+reference.
+
 Stitched (api/fusion.py), the W == 1 sort is a segment: an argsort of
 (invalid, key words, row) over the chain's mask through the radix engine
 and one payload gather, its valid rows a prefix. The W > 1 sample sort
@@ -107,7 +111,10 @@ class SortNode(DIABase):
         """The W == 1 sort as a segment (reference:
         ``thrill_tpu/api/ops/sort.py:90-120``), or None."""
         from .. import fusion
-        if self.context.num_workers != 1 or self.compare_fn is not None:
+        from ...core import host_radix
+        # on a CPU mesh the native engine sorts, unstitched
+        if self.context.num_workers != 1 or self.compare_fn is not None \
+                or host_radix.eligible(self.context.mesh_exec):
             return None
         key_fn = self.key_fn
         mex = self.context.mesh_exec
@@ -616,6 +623,13 @@ def _device_sample_sort(shards: DeviceShards,
     leaves, treedef = pt.flatten(shards.tree)
     if shards.total == 0:
         return shards
+    if W == 1:
+        # a CPU mesh: the native stable radix sort (the reference's
+        # in-RAM run sort engine class, Thrill's api/sort.hpp)
+        full = bool(np.all(shards.counts == cap))
+        out = _host_radix_w1(mex, shards, key_fn, leaves, treedef, full)
+        if out is not None:
+            return out
     counts = shards.counts_device()
     # across processes: every worker's counts, the local workers' offsets
     gcounts = shards.global_counts
@@ -675,6 +689,36 @@ def _device_sample_sort(shards: DeviceShards,
     final = mex.program(("sort_final", key_fn), _sort_final_prog)
     out = final(got.tree, got.counts_device(), passes)
     return DeviceShards(mex, pt.unflatten(treedef, out), got.counts_like())
+
+
+def _host_radix_w1(mex, shards: DeviceShards, key_fn: Callable, leaves,
+                   treedef, full: bool) -> Optional[DeviceShards]:
+    """The W == 1 sort on a CPU mesh through the native stable LSD radix
+    engine (``core/host_radix.py``; reference:
+    ``thrill_tpu/api/ops/sort.py:952-985``), or None where it does not
+    apply (another device, the library missing, a key_fn that fails on
+    these columns). Stability keeps equal keys in input order, so no
+    index word breaks ties; the validity word leads when the shard is
+    not full, so its padding rows sort last."""
+    from ...core import host_radix
+
+    if not host_radix.eligible(mex):
+        return None
+    cap = shards.cap
+    count = int(shards.counts[0])
+    cols = [l[0] for l in leaves]                        # [cap, ...]
+    try:
+        words = keymod.encode_key_words(key_fn(pt.unflatten(treedef,
+                                                            cols)))
+    except Exception:
+        return None
+    if not full:
+        words = [(np.arange(cap) >= count).astype(np.uint64)] + words
+    perm = host_radix.radix_argsort(words)
+    out = [mex.bless(torch.from_numpy(host_radix.gather_rows(
+        np.ascontiguousarray(mex.host_view(c)), perm))[None]) for c in cols]
+    return DeviceShards(mex, pt.unflatten(treedef, out),
+                        shards.counts.copy())
 
 
 def _sort_keys_prog(tree, counts: torch.Tensor, offsets: torch.Tensor,
@@ -812,12 +856,13 @@ def merge_blocks(passes: list, blocks, out_cap: int) -> List[torch.Tensor]:
 
 
 def _sort_fused_prog(dest: torch.Tensor, S_dev: torch.Tensor,
-                     words_s: torch.Tensor, gidx_s: torch.Tensor,
-                     payload: list, M_pad: int, out_cap: int,
-                     passes: list) -> List[torch.Tensor]:
+                     S_col: torch.Tensor, words_s: torch.Tensor,
+                     gidx_s: torch.Tensor, payload: list, M_pad: int,
+                     out_cap: int, passes: list) -> List[torch.Tensor]:
     """Program ``sort_fused``: ship every leaf of the classified rows
     into ``[W, W * M_pad]`` receive blocks (one slot index for all) and
-    merge each receiver's W runs straight from them."""
+    merge each receiver's W runs straight from them (``S_col`` is the
+    send matrix's transpose: each receiver's row of run lengths)."""
     Wl, cap = dest.shape
     W = S_dev.shape[0]
     send_idx = exchange.send_slot_index(dest, S_dev, W, M_pad, cap)
@@ -830,7 +875,7 @@ def _sort_fused_prog(dest: torch.Tensor, S_dev: torch.Tensor,
     # receivers' across processes)
     mex = current_mex()
     b = mex.worker_base if mex is not None else 0
-    valid = (j[None, None, :] < S_dev.T[b:b + Wl, :, None]).reshape(
+    valid = (j[None, None, :] < S_col[b:b + Wl, :, None]).reshape(
         Wl, W * M_pad)
     return merge_blocks(passes, [(valid, ship(words_s), ship(gidx_s),
                                   [ship(p) for p in payload])], out_cap)
@@ -844,14 +889,14 @@ def _fused_exchange_merge(mex, dest, words_s, gidx_s, payload,
     the host send matrix, then one program (:func:`_sort_fused_prog`).
     Returns the payload leaves ``[W, out_cap, ...]``, the site's sticky
     output capacity."""
-    S_dev, M_pad, out_cap = exchange.plan_presorted(
+    (S_dev, S_col), M_pad, out_cap = exchange.plan_presorted(
         mex, S, exchange.leaf_item_bytes(payload)
         + 8 * (words_s.shape[2] + 1), cap_ident)
     prog = mex.program(("sort_fused", token, M_pad, out_cap),
                        _sort_fused_prog)
     with span_of(mex.tracer, "exchange", "sort_fused", m_pad=M_pad,
                  out_cap=out_cap):
-        return prog(dest, S_dev, words_s, gidx_s, payload, M_pad,
+        return prog(dest, S_dev, S_col, words_s, gidx_s, payload, M_pad,
                     out_cap, mex.radix_passes)
 
 

@@ -1706,18 +1706,19 @@ def plan_presorted(mex: MeshExec, S: np.ndarray, item_bytes: int,
     """Plan the shipping of rows already grouped by destination for a
     consumer that ships and merges them in its own program (the Sort's
     fused path, :func:`send_slot_index` and :func:`ship_blocks`). ``S``
-    is the host send matrix; ``item_bytes`` counts the traffic;
-    ``cap_ident`` keys the site's sticky capacities. Returns (the send
-    matrix on the device, ``M_pad``, the output capacity). The plan is
-    built from the synced host matrix every time."""
+    is the host send matrix; ``item_bytes`` counts the traffic in
+    ``bytes_moved`` (the reference's fused Sort leaves its padded blocks
+    out of ``bytes_wire_device``, and so does this plan); ``cap_ident``
+    keys the site's sticky capacities. Returns (the send matrix and its
+    transpose on the device, ``M_pad``, the output capacity), as the
+    reference's ``srow`` and ``scol``. The plan is built from the synced
+    host matrix every time."""
     W = mex.num_workers
     count_plan_build(mex)
     M_pad, out_cap = _sticky_caps(
         mex, cap_ident, (max(int(S.max()), 1),
                          max(int(S.sum(axis=0).max()), 1)), pow2_out=False)
     mex.stats_padded_rows += W * M_pad
-    wire = W * (W - 1) * M_pad * item_bytes
-    mex.stats_bytes_wire_device += wire
-    mex.stats_bytes_wire_device_raw += wire
     account_traffic(mex, S, item_bytes, site=_site(cap_ident))
-    return mex.put_small(S), M_pad, out_cap
+    return ((mex.put_small(S), mex.put_small(np.ascontiguousarray(S.T))),
+            M_pad, out_cap)

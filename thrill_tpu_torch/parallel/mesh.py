@@ -362,8 +362,11 @@ class MeshExec:
         self.stats_padded_rows = 0
         self.stats_bytes_wire_device = 0
         self.stats_bytes_wire_device_raw = 0
-        # host-to-device uploads (put_small and the sources' bless)
+        # host-to-device uploads (put_small and the sources' bless), and
+        # the put_small calls its content cache served
         self.stats_uploads = 0
+        self.stats_upload_cache_hits = 0
+        self._put_small_cache: Dict[Tuple, torch.Tensor] = {}
         # data-driven plan constructions from a host send matrix or a
         # pre-shuffle cost model, and plan-store seeds consumed in their
         # place (service/plan_store.py): a warm restart makes no builds
@@ -538,10 +541,31 @@ class MeshExec:
             prog.out_bytes = tensor_bytes(out)
         return out
 
+    #: the largest array :meth:`put_small` keeps in its content cache
+    PUT_SMALL_BYTES = 4096
+
     def put_small(self, arr) -> torch.Tensor:
-        """A host array on the mesh's device (blessed: see :meth:`bless`)."""
-        return self.bless(torch.as_tensor(np.asarray(arr),
-                                          device=self.device))
+        """A small host array (a plan's counts, offsets, bounds, send
+        matrix) on the mesh's device, blessed (see :meth:`bless`).
+        Content-cached, as the reference's ``MeshExec.put_small``: an
+        iterative pipeline uploads the same tiny arrays again and again,
+        and on the card each is a host-to-device copy, so one upload
+        serves every equal value (counted in ``stats_upload_cache_hits``,
+        not in ``stats_uploads``). Callers only read these tensors.
+        Arrays above :data:`PUT_SMALL_BYTES` upload each time."""
+        arr = np.asarray(arr)
+        if arr.nbytes > self.PUT_SMALL_BYTES:
+            return self.bless(torch.as_tensor(arr, device=self.device))
+        key = (arr.shape, arr.dtype.str, arr.tobytes())
+        buf = self._put_small_cache.get(key)
+        if buf is None:
+            if len(self._put_small_cache) >= 4096:   # bounded growth
+                self._put_small_cache.clear()
+            buf = self.bless(torch.as_tensor(arr, device=self.device))
+            self._put_small_cache[key] = buf
+        else:
+            self.stats_upload_cache_hits += 1
+        return buf
 
     def bless(self, t: torch.Tensor) -> torch.Tensor:
         """Mark ``t``, just uploaded from host values, as a legitimate
@@ -562,6 +586,18 @@ class MeshExec:
         self.stats_fetches += 1
         self.drain_checks()
         return self._fetch_raw(t)
+
+    def host_view(self, t: torch.Tensor) -> np.ndarray:
+        """A CPU mesh's tensor as numpy, without a copy, for host code
+        that reads the columns in place (the native engine,
+        ``core/host_radix.py``). Not a transfer and not counted, as the
+        reference's native engine reads its buffers; a loop capture sees
+        the read as a fetch's, so a carry-dependent read rejects the
+        capture instead of freezing the engine's output in the tape."""
+        rec = self.loop_recorder
+        if rec is not None:
+            rec.on_fetch(t, inside=self._depth > 0)
+        return t.detach().numpy()
 
     def _fetch_raw(self, t: torch.Tensor) -> np.ndarray:
         """:meth:`fetch` without the count and the drain, for the
@@ -624,6 +660,7 @@ class MeshExec:
         old_w = self.num_workers
         if new_w == old_w:
             return
+        self._put_small_cache.clear()
         arch = self.__dict__.setdefault("_w_archive", {})
         arch[old_w] = {a: self.__dict__.pop(a)
                        for a in self._w_state_attrs()

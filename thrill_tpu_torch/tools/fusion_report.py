@@ -71,6 +71,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    # the report shows the fused programs the card runs: on a CPU mesh
+    # the native engine would sidestep what is being measured
+    os.environ.setdefault("THRILL_TPU_HOST_RADIX", "0")
+
     import numpy as np
 
     from ..api.context import Context
